@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of gym_rotor_tpu for NVIDIA Hopper.
+
+The module layout mirrors ``gym_rotor_tpu`` so each function's JAX
+counterpart sits at the same path.  The port imports torch, numpy and scipy
+only.  Entry points run on the card (``device="cuda"``) unless the caller
+passes ``device="cpu"``; they raise when no card is present and the caller
+did not ask for the CPU.
+
+The hot path goes through two hand-written CUDA kernels
+(``kernels/csrc/env_tick.cu``, ``kernels/csrc/emlp_actor.cu``); each has a
+plain PyTorch twin beside its wrapper, which is what runs on CPU tensors.
+"""
+from .utils.config import Config
+
+__all__ = ["Config"]

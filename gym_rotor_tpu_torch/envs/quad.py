@@ -1,0 +1,272 @@
+"""Functional quadrotor environment core, MODUL/decoupled task (port of
+``gym_rotor_tpu/envs/quad.py``).
+
+The ``coupled`` (MONO) and ``quad`` tasks and the ``exact_so3`` path are
+not ported yet and raise.  Observations are cast to float32 exactly as the
+JAX package does, and rewards/dones are computed from that float32 obs,
+also on the float64 parity path.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..ops import so3
+from ..utils.config import Config
+from . import draws as D
+from . import params as params_lib
+from .draws import uniform_in
+from .dynamics import dot3, integrate
+from .params import QuadParams
+from .state import EnvState, Goal
+
+X_LIM = 1.0
+V_LIM = 4.0
+W_LIM = 2.0 * math.pi
+EIX_LIM = 3.0
+EIB1_LIM = 3.0
+SAT_SIGMA = 1.0
+FREQ = 200
+DT = 1.0 / FREQ
+
+
+class StepOut(NamedTuple):
+    obs: Tuple[torch.Tensor, torch.Tensor]
+    reward: torch.Tensor     # (..., 2)
+    done: torch.Tensor       # (..., 2) bool
+    info: dict
+
+
+def _check_task(cfg: Config):
+    if cfg.framework != "MODUL":
+        raise NotImplementedError(
+            "only the MODUL (decoupled) task is ported yet")
+    if cfg.exact_so3:
+        raise NotImplementedError("exact_so3 is not ported yet")
+
+
+def _f_total(p: QuadParams, a0):
+    return torch.clamp(4.0 * (p.scale_act * a0 + p.avrg_act),
+                       4.0 * p.min_force, 4.0 * p.max_force)
+
+
+def action_decoupled(p: QuadParams, a):
+    """MODUL: a = (f_total, tau1..3, M3) (quad.py:96-98)."""
+    return _f_total(p, a[..., 0]), a[..., 1:4], a[..., 4]
+
+
+class NormErr(NamedTuple):
+    ex: torch.Tensor
+    eIx: torch.Tensor
+    ev: torch.Tensor
+    eW: torch.Tensor
+    eW3: torch.Tensor
+    eb1: torch.Tensor
+    eIb1: torch.Tensor
+    R: torch.Tensor
+    eIx_err: torch.Tensor
+    eIx_integrand: torch.Tensor
+    eIb1_err: torch.Tensor
+    eIb1_integrand: torch.Tensor
+
+
+def norm_error_state(cfg: Config, x, v, R, W, goal: Goal,
+                     eIx_err, eIx_int, eIb1_err, eIb1_int) -> NormErr:
+    """Normalized errors + leaky trapezoidal integrals (quad.py:120-164)."""
+    dtype, device = x.dtype, x.device
+
+    def const(c):
+        return torch.tensor(c, dtype=dtype, device=device)
+
+    x_norm = x / X_LIM
+    v_norm = v / V_LIM
+    W_norm = W / W_LIM
+    xd_norm = goal.xd / X_LIM
+    vd_norm = goal.vd / V_LIM
+    Wd_norm = goal.Wd / W_LIM
+    ex = x_norm - xd_norm
+    ev = v_norm - vd_norm
+    eW = W_norm - Wd_norm
+    eW3 = W_norm[..., 2] - Wd_norm[..., 2]
+    b1 = R[..., :, 0]
+    b2 = R[..., :, 1]
+    b3 = R[..., :, 2]
+    b1c = goal.b1d - dot3(goal.b1d, b3)[..., None] * b3
+    eb1 = torch.atan2(-dot3(b1c, b2), dot3(b1c, b1))
+    pi = const(math.pi)
+    eb1_norm = eb1 / pi
+    alpha, beta, dt = const(cfg.alpha), const(cfg.beta), const(DT)
+    eIx_cur = -alpha * eIx_err + ex * X_LIM
+    eIx_err = eIx_err + ((eIx_int + eIx_cur) * dt) / 2.0
+    eIx_norm = torch.clamp(eIx_err / EIX_LIM, -SAT_SIGMA, SAT_SIGMA)
+    eIb1_cur = -beta * eIb1_err + eb1_norm * pi
+    eIb1_err = eIb1_err + ((eIb1_int + eIb1_cur) * dt) / 2.0
+    eIb1_norm = torch.clamp(eIb1_err / EIB1_LIM, -SAT_SIGMA, SAT_SIGMA)
+    return NormErr(ex=ex, eIx=eIx_norm, ev=ev, eW=eW, eW3=eW3, eb1=eb1_norm,
+                   eIb1=eIb1_norm, R=R, eIx_err=eIx_err,
+                   eIx_integrand=eIx_cur, eIb1_err=eIb1_err,
+                   eIb1_integrand=eIb1_cur)
+
+
+def build_obs(cfg: Config, ne: NormErr):
+    """MODUL observations (quad.py:167-177), cast to float32."""
+    b1 = ne.R[..., :, 0]
+    b2 = ne.R[..., :, 1]
+    b3 = ne.R[..., :, 2]
+    ew12 = ne.eW[..., 0, None] * b1 + ne.eW[..., 1, None] * b2
+    obs1 = torch.cat([ne.ex, ne.eIx, ne.ev, b3, ew12], dim=-1)
+    obs2 = torch.stack([ne.eb1, ne.eIb1, ne.eW3], dim=-1)
+    return obs1.to(torch.float32), obs2.to(torch.float32)
+
+
+def _sqnorm(x):
+    n = torch.sqrt(dot3(x, x))
+    return n * n
+
+
+def _interp01(r, rmin: float, wide: bool):
+    """np.interp(r, [rmin, 0], [0, 1]) (quad.py:197-203).  The JAX package
+    widens to float64 when x64 is on; the port widens on its float64 path
+    (``wide``) and stays in float32 otherwise, which differs from
+    JAX-with-x64 by at most an ulp of the float32 reward."""
+    r = r.to(torch.float64) if wide else r
+    slope = (1.0 - 0.0) / (0.0 - rmin)
+    val = slope * (r - rmin) + 0.0
+    return torch.clamp(val, 0.0, 1.0)
+
+
+def reward_decoupled(cfg: Config, obs1, obs2):
+    """Per-agent rewards (quad.py:219-231)."""
+    ex, eIx, ev = obs1[..., 0:3], obs1[..., 3:6], obs1[..., 6:9]
+    ew12 = obs1[..., 12:15]
+    r1 = -cfg.Cx * _sqnorm(ex)
+    r1 = r1 + -cfg.CIx * _sqnorm(eIx)
+    r1 = r1 + -cfg.Cv * _sqnorm(ev)
+    r1 = r1 + -cfg.Cw12 * _sqnorm(ew12)
+    eb1, eIb1, eW3 = obs2[..., 0], obs2[..., 1], obs2[..., 2]
+    r2 = -cfg.Cb1 * torch.abs(eb1)
+    aI = torch.abs(eIb1)
+    r2 = r2 + -cfg.CIb1 * (aI * aI)
+    aW = torch.abs(eW3)
+    r2 = r2 + -cfg.CW3 * (aW * aW)
+    return torch.stack([r1, r2], dim=-1)
+
+
+def done_decoupled(obs1, obs2):
+    """Per-agent termination (quad.py:258-267)."""
+    ex, ev, ew12 = obs1[..., 0:3], obs1[..., 6:9], obs1[..., 12:15]
+    d1 = ((torch.abs(ex) >= 1.0).any(-1) | (torch.abs(ev) >= 1.0).any(-1)
+          | (torch.abs(ew12) >= 1.0).any(-1))
+    d2 = torch.abs(obs2[..., 2]) >= 1.0
+    return torch.stack([d1, d2], dim=-1)
+
+
+def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
+    """One control tick of the decoupled task (quad.py:287-386)."""
+    _check_task(cfg)
+    p = state.params
+    dtype = state.x.dtype
+    action = action.to(dtype)
+    R_work = state.R
+    W = state.W
+    f, tau, M3 = action_decoupled(p, action)
+    b1 = R_work[..., :, 0]
+    b2 = R_work[..., :, 1]
+    J3 = p.J[..., 2]
+    M1 = dot3(b1, tau) + J3 * W[..., 2] * W[..., 1]
+    M2 = dot3(b2, tau) - J3 * W[..., 2] * W[..., 0]
+    M = torch.stack([M1, M2, M3], dim=-1)
+
+    dt = torch.tensor(DT, dtype=dtype, device=state.x.device)
+    x_n, v_n, R_n, W_n = integrate(cfg.integrator, state.x, state.v, R_work,
+                                   W, f, M, p, dt)
+    R_n = so3.polar_fast(R_n)
+
+    ne = norm_error_state(cfg, x_n, v_n, R_n, W_n, state.goal, state.eIx,
+                          state.eIx_integrand, state.eIb1,
+                          state.eIb1_integrand)
+    obs1, obs2 = build_obs(cfg, ne)
+    reward = reward_decoupled(cfg, obs1, obs2)
+    done = done_decoupled(obs1, obs2)
+    wide = dtype == torch.float64
+    reward = torch.stack([
+        _interp01(reward[..., 0], float(cfg.reward_min_1), wide),
+        _interp01(reward[..., 1], float(cfg.reward_min_2), wide)], dim=-1)
+    reward = torch.where(done, -1.0, reward).to(dtype)
+
+    new_state = dataclasses.replace(
+        state, x=x_n, v=v_n, R=R_n, W=W_n, eIx=ne.eIx_err,
+        eIx_integrand=ne.eIx_integrand, eIb1=ne.eIb1_err,
+        eIb1_integrand=ne.eIb1_integrand, f_total=f, M=M, t=state.t + 1)
+    info = {"ex": obs1[..., 0:3] * X_LIM, "eb1": obs2[..., 0] * math.pi}
+    return new_state, StepOut(obs=(obs1, obs2), reward=reward, done=done,
+                              info=info)
+
+
+def _init_ranges(cfg: Config, env_type: str, u_origin):
+    """Initial-error magnitudes (quad.py:392-407)."""
+    dtype, device = u_origin.dtype, u_origin.device
+
+    def full(v):
+        return torch.full_like(u_origin, v)
+    if env_type == "eval":
+        return full(0.4), full(0.0), full(0.0), full(0.0)
+    if env_type != "train":
+        raise ValueError(f"unknown env_type {env_type!r}")
+    at_origin = u_origin < 0.2
+    d2r = math.pi / 180.0
+
+    def pick(v):
+        return torch.where(at_origin, torch.zeros((), dtype=dtype, device=device),
+                           torch.tensor(v, dtype=dtype, device=device))
+    return pick(0.6), pick(V_LIM * 0.5), pick(50.0 * d2r), pick(W_LIM * 0.5)
+
+
+def reset_state(cfg: Config, u, env_type: str = "train") -> EnvState:
+    """Episode initialization (quad.py:410-442) from the base draws ``u``
+    of shape ``(..., N_DRAWS)`` (slots UDM, AT_ORIGIN, RESET)."""
+    _check_task(cfg)
+    dtype, device = u.dtype, u.device
+    batch = u.shape[:-1]
+    if cfg.use_UDM and env_type == "train":
+        p = params_lib.randomize(u[..., D.UDM], cfg.UDM_percentage)
+    else:
+        p = params_lib.nominal(batch, dtype, device)
+    init_x, init_v, init_R, init_W = _init_ranges(cfg, env_type,
+                                                  u[..., D.AT_ORIGIN])
+    r = uniform_in(u[..., D.RESET], -1.0, 1.0)
+    x = r[..., 0:3] * init_x[..., None]
+    v = r[..., 3:6] * init_v[..., None]
+    W = r[..., 6:9] * init_W[..., None]
+    roll_pitch = r[..., 9:11] * init_R[..., None]
+    yaw = r[..., 11:12] * math.pi
+    euler = torch.cat([roll_pitch, yaw], dim=-1)
+    R = so3.euler_to_rot(euler)
+    return fresh_state(p, x, v, R, W)
+
+
+def fresh_state(p: QuadParams, x, v, R, W) -> EnvState:
+    """Post-reset state: zero integrals, hover wrench, default goal."""
+    batch = x.shape[:-1]
+    z3 = torch.zeros_like(x)
+    zs = torch.zeros(batch, dtype=x.dtype, device=x.device)
+    return EnvState(
+        x=x, v=v, R=R, W=W, eIx=z3, eIx_integrand=z3.clone(), eIb1=zs,
+        eIb1_integrand=zs.clone(), f_total=p.m * params_lib.G_STD,
+        M=z3.clone(), goal=Goal.default(batch, x.dtype, x.device), params=p,
+        t=torch.zeros(batch, dtype=torch.int32, device=x.device))
+
+
+def initial_obs(cfg: Config, state: EnvState):
+    """First observation after reset, with its one integral update."""
+    ne = norm_error_state(cfg, state.x, state.v, state.R, state.W, state.goal,
+                          state.eIx, state.eIx_integrand, state.eIb1,
+                          state.eIb1_integrand)
+    obs = build_obs(cfg, ne)
+    state = dataclasses.replace(
+        state, eIx=ne.eIx_err, eIx_integrand=ne.eIx_integrand,
+        eIb1=ne.eIb1_err, eIb1_integrand=ne.eIb1_integrand)
+    return state, obs

@@ -1,0 +1,166 @@
+// K3 (forward, actor widths): fused deterministic EMLP actor for Hopper
+// (sm_90a).
+//
+// Replaces gym_rotor_tpu/models/emlp/nn.py:EMLPBlock (EquivLinear ->
+// EquivBiLinear -> GatedNonlinearity) x2 inside EMLP, plus the tanh head of
+// models/emlp/zoo.py:EMLPActorDet, which XLA fused on the TPU.  Plain twin:
+// gym_rotor_tpu_torch/kernels/emlp_actor.py:emlp_actor_plain (structured).
+//
+// Bound on an H100: the operations.  Per row and block, 2*NG*NI flops of
+// linear layer and 3 per nonzero of the bilinear quadratic form (288 for
+// agent 0, NG = 18): ~13 MFLOP per launch at B = 4096, ~0.2 us at the
+// 67 TFLOP/s fp32 peak; the obs/action bytes are ~0.1 us.  At this batch
+// the launch has 32 blocks of 4 warps for 132 SMs, so each row's serial
+// chain of shared-memory loads and FMAs is exposed: measured far above
+// the bound (PERF.md), a later PR's work.
+//
+// Design: every weight the actor needs is folded once per parameter set on
+// the host side (W_eff/b_eff from project_linear, the bilinear nonzeros
+// from _bilinear_struct grouped by output coordinate, gate indices) into a
+// float and an int buffer, which each block copies to shared memory (a few
+// KB).  One thread per batch row keeps lin/pre/h in registers (the dense
+// loops have compile-time trip counts and unroll).  The bilinear layer
+// reads its two factors by runtime index, so each block's linear output is
+// also written to a per-thread column of shared memory (stride blockDim.x,
+// so a warp's accesses fall in distinct banks); the nonzeros themselves are
+// the same address across a warp, i.e. shared-memory broadcasts.  Output is
+// written with a row stride, straight into the joint action tensor.
+// Instantiated for the two flagship actors.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <int NI, int NG, int NH>
+__device__ __forceinline__ void emlp_block(const float* x, const float* W,
+                                           const float* b, const float* v,
+                                           const int* rowptr, const int* ji,
+                                           const int* g, float* col,
+                                           float* h) {
+  float lin[NG];
+#pragma unroll
+  for (int o = 0; o < NG; ++o) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) s += x[i] * W[o * NI + i];
+    lin[o] = s + b[o];
+    col[o * kThreads] = lin[o];
+  }
+  float pre[NG];
+#pragma unroll
+  for (int o = 0; o < NG; ++o) {
+    float q = 0.0f;
+    for (int e = rowptr[o]; e < rowptr[o + 1]; ++e) {
+      const int p = ji[e];
+      q += v[e] * col[(p >> 16) * kThreads] * col[(p & 0xffff) * kThreads];
+    }
+    pre[o] = 0.1f * q + lin[o];
+  }
+#pragma unroll
+  for (int k = 0; k < NH; ++k) {
+    const int gk = g[k];
+    float gv = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) gv = (gk == j) ? pre[j] : gv;
+    h[k] = pre[k] / (1.0f + expf(-gv));
+  }
+}
+
+// Buffer layout (see emlp_actor.py:fold_actor).
+template <int NIN, int NG, int NH, int NACT>
+struct Dims {
+  static constexpr int W0 = NG * NIN + NG;   // block 0 W_eff, b_eff
+  static constexpr int W1 = NG * NH + NG;    // block 1 W_eff, b_eff
+  static constexpr int HEAD = NACT * NH + NACT;
+  static constexpr int INTS = 2 * NH + 2 * (NG + 1);   // + nnz0 + nnz1
+  __host__ __device__ static int n_params(int nnz0, int nnz1) {
+    return W0 + nnz0 + W1 + nnz1 + HEAD;
+  }
+  __host__ __device__ static int n_ints(int nnz0, int nnz1) {
+    return INTS + nnz0 + nnz1;
+  }
+  static size_t smem(int nnz0, int nnz1) {
+    return (size_t)(n_params(nnz0, nnz1) + n_ints(nnz0, nnz1) + NG * kThreads) * 4;
+  }
+};
+
+template <int NIN, int NG, int NH, int NACT>
+__global__ void __launch_bounds__(kThreads)
+emlp_actor_kernel(const float* __restrict__ obs, int B,
+                  const float* __restrict__ params, const int* __restrict__ ints,
+                  int nnz0, int nnz1, float* __restrict__ out, int ld_out) {
+  using D = Dims<NIN, NG, NH, NACT>;
+  extern __shared__ float smem[];
+  const int np = D::n_params(nnz0, nnz1), ni = D::n_ints(nnz0, nnz1);
+  for (int k = threadIdx.x; k < np; k += blockDim.x) smem[k] = params[k];
+  int* si = reinterpret_cast<int*>(smem + np);
+  for (int k = threadIdx.x; k < ni; k += blockDim.x) si[k] = ints[k];
+  __syncthreads();
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+
+  float x[NIN];
+#pragma unroll
+  for (int i = 0; i < NIN; ++i) x[i] = obs[(size_t)row * NIN + i];
+  const float* p0 = smem;
+  const float* p1 = p0 + D::W0 + nnz0;
+  const float* ph = p1 + D::W1 + nnz1;
+  const int* rp = si + 2 * NH;
+  const int* ji0 = si + D::INTS;
+  float* col = reinterpret_cast<float*>(si + ni) + threadIdx.x;
+  float h1[NH], h2[NH];
+  emlp_block<NIN, NG, NH>(x, p0, p0 + NG * NIN, p0 + D::W0, rp, ji0, si,
+                          col, h1);
+  emlp_block<NH, NG, NH>(h1, p1, p1 + NG * NH, p1 + D::W1, rp + NG + 1,
+                         ji0 + nnz0, si + NH, col, h2);
+#pragma unroll
+  for (int a = 0; a < NACT; ++a) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NH; ++k) s += h2[k] * ph[a * NH + k];
+    out[(size_t)row * ld_out + a] = tanhf(s + ph[NACT * NH + a]);
+  }
+}
+
+template <int NIN, int NG, int NH, int NACT>
+int launch(const float* obs, int B, const float* params, int n_params,
+           const int* ints, int n_ints, int nnz0, int nnz1, float* out,
+           int ld_out, cudaStream_t stream) {
+  using D = Dims<NIN, NG, NH, NACT>;
+  if (nnz0 < 0 || nnz1 < 0 || n_params != D::n_params(nnz0, nnz1) ||
+      n_ints != D::n_ints(nnz0, nnz1) || D::smem(nnz0, nnz1) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (B + kThreads - 1) / kThreads;
+  emlp_actor_kernel<NIN, NG, NH, NACT>
+      <<<blocks, kThreads, D::smem(nnz0, nnz1), stream>>>(
+          obs, B, params, ints, nnz0, nnz1, out, ld_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+extern "C" int emlp_actor_launch(const void* obs, int B, const void* params,
+                                 int n_params, const void* ints, int n_ints,
+                                 int nnz0, int nnz1, void* out, int ld_out,
+                                 int nin, int ng, int nh, int nact,
+                                 void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  const float* o = (const float*)obs;
+  const float* p = (const float*)params;
+  const int* q = (const int*)ints;
+  float* y = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nin == 15 && ng == 18 && nh == 16 && nact == 4)
+    return launch<15, 18, 16, 4>(o, B, p, n_params, q, n_ints, nnz0, nnz1, y,
+                                 ld_out, s);
+  if (nin == 3 && ng == 7 && nh == 4 && nact == 1)
+    return launch<3, 7, 4, 1>(o, B, p, n_params, q, n_ints, nnz0, nnz1, y,
+                              ld_out, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,677 @@
+// K1: fused lockstep env tick for Hopper (sm_90a).
+//
+// Replaces gym_rotor_tpu/envs/batch.py:batched_step (quad.step ->
+// dynamics.rk4_step -> so3.polar_fast -> norm_error_state/build_obs ->
+// reward/done -> cap/solved override -> dense fresh episode + select), which
+// XLA fused into one program on the TPU.  Plain twin:
+// gym_rotor_tpu_torch/envs/batch.py:batched_step_plain.
+//
+// Bound on an H100: ~0.5 KB of state read and written per env and a few
+// thousand flops, i.e. ~5 MB / ~30 MFLOP per tick at B = 4096, ~1.5 us of
+// HBM time.  At that size the launch and the per-thread dependent chain
+// dominate (32 blocks of 128 threads for 132 SMs); recorded in PERF.md.
+//
+// Design: one thread per env, the whole tick in registers, one launch.
+// State buffers are field-major: field F of width w occupies
+// buf[F*B : (F+w)*B] as a contiguous (B, w) block (offsets generated into
+// env_tick_layout.h from the Python layout).  The fresh-episode chain runs
+// only in threads whose episode ended; its result equals the JAX dense
+// fresh + select.  Random draws are injected as a (B, N_DRAWS) tensor of
+// U[0,1) base draws (layout: envs/draws.py) and mapped the way
+// jax.random.uniform maps them; in-kernel Philox is a later optimization.
+//
+// Numerics: built with -fmad=false and without fast math, so every
+// expression rounds where the plain twin rounds; the association order of
+// every sum follows the JAX code (mm3/mv3/dot3 fixed order).
+//
+// Templated on task and integrator; the only instance built is
+// decoupled (MODUL) + RK4.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "env_tick_layout.h"
+
+namespace {
+
+constexpr double PI_D = 3.14159265358979323846;
+constexpr float PI_F = (float)PI_D;
+constexpr float G_STD = (float)9.81;
+constexpr float DT = (float)(1.0 / 200);
+constexpr float X_LIM = 1.0f;
+constexpr float V_LIM = 4.0f;
+constexpr float W_LIM = (float)(2.0 * PI_D);
+constexpr float EIX_LIM = 3.0f;
+constexpr float EIB1_LIM = 3.0f;
+constexpr float SAT = 1.0f;
+constexpr float MIN_FORCE = 0.5f;
+constexpr float IDLE_LO = (float)(-25.0 * PI_D / 180.0);
+constexpr float IDLE_HI = (float)(25.0 * PI_D / 180.0);
+
+struct Coefs {
+  float Cx, CIx, Cv, Cw12, Cb1, CIb1, CW3, alpha, beta, udm_u, udm_u_half,
+      rmin1, slope1, rmin2, slope2;
+};
+
+struct Args {
+  const float* sf;
+  const int* si;
+  const bool* sb;
+  float* of;
+  int* oi;
+  bool* ob;
+  const float* act;
+  const float* draws;
+  float* outf;
+  bool* outb;
+  int B, env_type, max_steps, use_udm;
+  Coefs c;
+};
+
+// ---------------------------------------------------------------- 3x3 math
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
+}
+
+__device__ __forceinline__ void hat(const float* w, float* H) {
+  H[0] = 0.0f;  H[1] = -w[2]; H[2] = w[1];
+  H[3] = w[2];  H[4] = 0.0f;  H[5] = -w[0];
+  H[6] = -w[1]; H[7] = w[0];  H[8] = 0.0f;
+}
+
+__device__ __forceinline__ void mm3(const float* A, const float* Bm, float* C) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      C[r * 3 + c] = (A[r * 3 + 0] * Bm[c] + A[r * 3 + 1] * Bm[3 + c]) +
+                     A[r * 3 + 2] * Bm[6 + c];
+}
+
+__device__ __forceinline__ void mv3(const float* A, const float* b, float* o) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    o[r] = (A[r * 3 + 0] * b[0] + A[r * 3 + 1] * b[1]) + A[r * 3 + 2] * b[2];
+}
+
+__device__ __forceinline__ void cross(const float* a, const float* b, float* o) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ void inv3(const float* M, float* out) {
+  const float a = M[0], b = M[1], c = M[2];
+  const float d = M[3], e = M[4], f = M[5];
+  const float g = M[6], h = M[7], i = M[8];
+  const float A = e * i - f * h;
+  const float Bc = -(d * i - f * g);
+  const float C = d * h - e * g;
+  const float det = (a * A + b * Bc) + c * C;
+  const float inv_det = 1.0f / det;
+  const float adj[9] = {A,  -(b * i - c * h), b * f - c * e,
+                        Bc, a * i - c * g,    -(a * f - c * d),
+                        C,  -(a * h - b * g), a * e - b * d};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = adj[k] * inv_det;
+}
+
+__device__ __forceinline__ void polar_fast(float* R) {
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    float Ri[9];
+    inv3(R, Ri);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) R[r * 3 + c] = 0.5f * (R[r * 3 + c] + Ri[c * 3 + r]);
+  }
+}
+
+__device__ __forceinline__ void rot_x(float t, float* O) {
+  const float c = cosf(t), s = sinf(t);
+  O[0] = 1.0f; O[1] = 0.0f; O[2] = 0.0f;
+  O[3] = 0.0f; O[4] = c;    O[5] = -s;
+  O[6] = 0.0f; O[7] = s;    O[8] = c;
+}
+
+__device__ __forceinline__ void rot_y(float t, float* O) {
+  const float c = cosf(t), s = sinf(t);
+  O[0] = c;    O[1] = 0.0f; O[2] = s;
+  O[3] = 0.0f; O[4] = 1.0f; O[5] = 0.0f;
+  O[6] = -s;   O[7] = 0.0f; O[8] = c;
+}
+
+__device__ __forceinline__ void rot_z(float t, float* O) {
+  const float c = cosf(t), s = sinf(t);
+  O[0] = c;    O[1] = -s;   O[2] = 0.0f;
+  O[3] = s;    O[4] = c;    O[5] = 0.0f;
+  O[6] = 0.0f; O[7] = 0.0f; O[8] = 1.0f;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// jax.random.uniform's map of a base draw u in [0, 1) into [lo, hi).
+__device__ __forceinline__ float uniform_in(float u, float lo, float hi) {
+  return fmaxf(lo, u * (hi - lo) + lo);
+}
+
+// --------------------------------------------------------------- dynamics
+// y = (x[3], v[3], R[9], W[3]).
+__device__ __forceinline__ void eom(const float* y, float f, const float* M,
+                                    float m, const float* J, float* dy) {
+  const float* v = y + 3;
+  const float* R = y + 6;
+  const float* W = y + 15;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dy[k] = v[k];
+  const float ge3[3] = {0.0f, 0.0f, G_STD};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dy[3 + k] = ge3[k] - (f * R[k * 3 + 2]) / m;
+  float H[9];
+  hat(W, H);
+  mm3(R, H, dy + 6);
+  const float Jm[9] = {J[0], 0.0f, 0.0f, 0.0f, J[1], 0.0f, 0.0f, 0.0f, J[2]};
+  float nH[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) nH[k] = -H[k];
+  float t1[9], t2[3];
+  mm3(nH, Jm, t1);
+  mv3(t1, W, t2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dy[15 + k] = (t2[k] + M[k]) * (1.0f / J[k]);
+}
+
+template <int INTEG>
+__device__ __forceinline__ void integrate(float* y, float f, const float* M,
+                                          float m, const float* J) {
+  static_assert(INTEG == INTEGRATOR_RK4, "only rk4 is built");
+  const float dt = DT;
+  const float half = dt * 0.5f;
+  const float sixth = dt / 6.0f;
+  const float third = dt / 3.0f;
+  float k[18], yi[18], acc[18];
+  eom(y, f, M, m, J, k);
+#pragma unroll
+  for (int j = 0; j < 18; ++j) { acc[j] = y[j] + sixth * k[j]; yi[j] = y[j] + half * k[j]; }
+  eom(yi, f, M, m, J, k);
+#pragma unroll
+  for (int j = 0; j < 18; ++j) { acc[j] = acc[j] + third * k[j]; yi[j] = y[j] + half * k[j]; }
+  eom(yi, f, M, m, J, k);
+#pragma unroll
+  for (int j = 0; j < 18; ++j) { acc[j] = acc[j] + third * k[j]; yi[j] = y[j] + dt * k[j]; }
+  eom(yi, f, M, m, J, k);
+#pragma unroll
+  for (int j = 0; j < 18; ++j) y[j] = acc[j] + sixth * k[j];
+}
+
+// ------------------------------------------------- errors, obs, reward, done
+struct NormOut {
+  float obs1[15], obs2[3];
+  float eIx_err[3], eIx_cur[3], eIb1_err, eIb1_cur;
+};
+
+// quad.norm_error_state + build_obs; goal = (xd, vd, b1d, Wd).
+__device__ __forceinline__ void norm_error(const Coefs& c, const float* y,
+                                           const float* xd, const float* vd,
+                                           const float* b1d, const float* Wd,
+                                           const float* eIx, const float* eIx_int,
+                                           float eIb1, float eIb1_int, NormOut& o) {
+  const float* x = y;
+  const float* v = y + 3;
+  const float* R = y + 6;
+  const float* W = y + 15;
+  float ex[3], ev[3], eW[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ex[k] = x[k] / X_LIM - xd[k] / X_LIM;
+    ev[k] = v[k] / V_LIM - vd[k] / V_LIM;
+    eW[k] = W[k] / W_LIM - Wd[k] / W_LIM;
+  }
+  const float eW3 = W[2] / W_LIM - Wd[2] / W_LIM;
+  const float b1[3] = {R[0], R[3], R[6]};
+  const float b2[3] = {R[1], R[4], R[7]};
+  const float b3[3] = {R[2], R[5], R[8]};
+  const float db = dot3(b1d, b3);
+  float b1c[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) b1c[k] = b1d[k] - db * b3[k];
+  const float eb1 = atan2f(-dot3(b1c, b2), dot3(b1c, b1));
+  const float eb1_norm = eb1 / PI_F;
+  float eIx_norm[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o.eIx_cur[k] = -c.alpha * eIx[k] + ex[k] * X_LIM;
+    o.eIx_err[k] = eIx[k] + ((eIx_int[k] + o.eIx_cur[k]) * DT) / 2.0f;
+    eIx_norm[k] = clampf(o.eIx_err[k] / EIX_LIM, -SAT, SAT);
+  }
+  o.eIb1_cur = -c.beta * eIb1 + eb1_norm * PI_F;
+  o.eIb1_err = eIb1 + ((eIb1_int + o.eIb1_cur) * DT) / 2.0f;
+  const float eIb1_norm = clampf(o.eIb1_err / EIB1_LIM, -SAT, SAT);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o.obs1[k] = ex[k];
+    o.obs1[3 + k] = eIx_norm[k];
+    o.obs1[6 + k] = ev[k];
+    o.obs1[9 + k] = b3[k];
+    o.obs1[12 + k] = eW[0] * b1[k] + eW[1] * b2[k];
+  }
+  o.obs2[0] = eb1_norm;
+  o.obs2[1] = eIb1_norm;
+  o.obs2[2] = eW3;
+}
+
+__device__ __forceinline__ float sqnorm(const float* x) {
+  const float n = sqrtf(dot3(x, x));
+  return n * n;
+}
+
+__device__ __forceinline__ float interp01(float r, float rmin, float slope) {
+  return clampf(slope * (r - rmin) + 0.0f, 0.0f, 1.0f);
+}
+
+// ----------------------------------------------------------- trajectory
+__device__ __forceinline__ void heading_of(const float* R, float* h) {
+  const float th = atan2f(R[3], R[0]);
+  h[0] = cosf(th);
+  h[1] = sinf(th);
+  h[2] = 0.0f;
+}
+
+// _with_wd: z-component of the commanded angular velocity.
+__device__ __forceinline__ float omega_c3(const float* R, const float* W,
+                                          const float* b1d, const float* b1d_dot) {
+  const float b3[3] = {R[2], R[5], R[8]};
+  float H[9], RH[9];
+  hat(W, H);
+  mm3(R, H, RH);
+  const float b3_dot[3] = {RH[2], RH[5], RH[8]};
+  const float d_b1d_b3 = dot3(b1d, b3);
+  const float d_dot_b3 = dot3(b1d_dot, b3);
+  const float d_b1d_b3dot = dot3(b1d, b3_dot);
+  float b1c[3], b1c_dot[3], om[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b1c[k] = b1d[k] - d_b1d_b3 * b3[k];
+    b1c_dot[k] = b1d_dot[k] - ((d_dot_b3 * b3[k] + d_b1d_b3dot * b3[k]) +
+                               d_b1d_b3 * b3_dot[k]);
+  }
+  cross(b1c, b1c_dot, om);
+  return dot3(b3, om);
+}
+
+// _mode_idle's heading draw: heading of R turned by U(+-25 deg).
+__device__ __forceinline__ void idle_b1d(const float* R, float u, float* b1d) {
+  const float theta = uniform_in(u, IDLE_LO, IDLE_HI);
+  float h[3], Rz[9];
+  heading_of(R, h);
+  rot_z(theta, Rz);
+  mv3(Rz, h, b1d);
+}
+
+// -------------------------------------------------------------- buffers
+#define FIDX(NAME, c) ((size_t)F_##NAME * B + (size_t)i * WF_##NAME + (c))
+#define IIDX(NAME) ((size_t)I_##NAME * B + (size_t)i)
+#define BIDX(NAME) ((size_t)B_##NAME * B + (size_t)i)
+#define LOADF(dst, NAME)                                         \
+  _Pragma("unroll") for (int c_ = 0; c_ < WF_##NAME; ++c_)       \
+      (dst)[c_] = sf[FIDX(NAME, c_)]
+#define STOREF(NAME, src)                                        \
+  _Pragma("unroll") for (int c_ = 0; c_ < WF_##NAME; ++c_)       \
+      of[FIDX(NAME, c_)] = (src)[c_]
+#define STORE1(NAME, val) of[FIDX(NAME, 0)] = (val)
+#define COPYF(NAME)                                              \
+  _Pragma("unroll") for (int c_ = 0; c_ < WF_##NAME; ++c_)       \
+      of[FIDX(NAME, c_)] = sf[FIDX(NAME, c_)]
+#define ZEROF(NAME)                                              \
+  _Pragma("unroll") for (int c_ = 0; c_ < WF_##NAME; ++c_)       \
+      of[FIDX(NAME, c_)] = 0.0f
+
+// Fresh episode (batch.py fresh(): reset_state -> TrajState.create ->
+// mark_traj_start -> get_desired -> initial_obs), written to the output
+// state and the obs slots.
+__device__ void fresh_episode(const Args& a, int i, const float* u) {
+  const int B = a.B;
+  float* __restrict__ of = a.of;
+  const Coefs& c = a.c;
+  // params: randomize or nominal (m, d, J1, J3, c_tf, c_tw), then _derive
+  const float NOM[6] = {(float)2.15, (float)0.23, (float)0.022,
+                        (float)0.035, (float)0.0135, (float)2.2};
+  float p[6];
+  if (a.use_udm && a.env_type == ENV_TRAIN) {
+    const float frac[6] = {c.udm_u, c.udm_u, c.udm_u, c.udm_u, c.udm_u, c.udm_u_half};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float z = uniform_in(u[D_UDM + k], -1.0f, 1.0f);
+      p[k] = NOM[k] + NOM[k] * frac[k] * z;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) p[k] = NOM[k];
+  }
+  const float m = p[0], d = p[1], c_tf = p[4], c_tw = p[5];
+  const float J[3] = {p[2], p[2], p[3]};
+  const float hover = m * G_STD / 4.0f;
+  const float max_force = c_tw * hover;
+  const float avrg = (MIN_FORCE + max_force) / 2.0f;
+  const float scale = max_force - avrg;
+  const float q = 0.25f * 1.0f;
+  const float hd = 1.0f / (2.0f * d);
+  const float qc = 1.0f / (4.0f * c_tf);
+  const float f2fM[16] = {1.0f, 1.0f, 1.0f, 1.0f,  0.0f, -d, 0.0f, d,
+                          d, 0.0f, -d, 0.0f,       -c_tf, c_tf, -c_tf, c_tf};
+  const float fM2f[16] = {q, 0.0f, hd, -qc,  q, -hd, 0.0f, qc,
+                          q, 0.0f, -hd, -qc, q, hd, 0.0f, qc};
+  STORE1(ENV_PARAMS_M, m);
+  STORE1(ENV_PARAMS_D, d);
+  STOREF(ENV_PARAMS_J, J);
+  STORE1(ENV_PARAMS_C_TF, c_tf);
+  STORE1(ENV_PARAMS_C_TW, c_tw);
+  STORE1(ENV_PARAMS_HOVER_FORCE, hover);
+  STORE1(ENV_PARAMS_MIN_FORCE, MIN_FORCE);
+  STORE1(ENV_PARAMS_MAX_FORCE, max_force);
+  STORE1(ENV_PARAMS_AVRG_ACT, avrg);
+  STORE1(ENV_PARAMS_SCALE_ACT, scale);
+  STOREF(ENV_PARAMS_FORCES_TO_FM, f2fM);
+  STOREF(ENV_PARAMS_FM_TO_FORCES, fM2f);
+
+  // _init_ranges + the 12 reset uniforms
+  float ix = (float)0.4, iv = 0.0f, iR = 0.0f, iW = 0.0f;
+  if (a.env_type == ENV_TRAIN) {
+    const bool at_origin = u[D_AT_ORIGIN] < (float)0.2;
+    ix = at_origin ? 0.0f : (float)0.6;
+    iv = at_origin ? 0.0f : (float)(V_LIM * 0.5);
+    iR = at_origin ? 0.0f : (float)(50.0 * (PI_D / 180.0));
+    iW = at_origin ? 0.0f : (float)(2.0 * PI_D * 0.5);
+  }
+  float r[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) r[k] = uniform_in(u[D_RESET + k], -1.0f, 1.0f);
+  float y[18];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    y[k] = r[k] * ix;
+    y[3 + k] = r[3 + k] * iv;
+    y[15 + k] = r[6 + k] * iW;
+  }
+  float Rx[9], Ry[9], Rz[9], Ryx[9];
+  rot_x(r[9] * iR, Rx);
+  rot_y(r[10] * iR, Ry);
+  rot_z(r[11] * PI_F, Rz);
+  mm3(Ry, Rx, Ryx);
+  mm3(Rz, Ryx, y + 6);
+  const float* R = y + 6;
+  const float* W = y + 15;
+
+  // trajectory machine: create -> mark_traj_start -> mode-0 get_desired
+  const float theta_init = atan2f(R[3], R[0]);
+  float b1d[3];
+  idle_b1d(R, u[D_FRESH_THETA], b1d);
+  const float zero3[3] = {0.0f, 0.0f, 0.0f};
+  const float w3 = omega_c3(R, W, b1d, zero3);
+  const float Wd[3] = {0.0f, 0.0f, w3};
+
+  // initial_obs: one integral update against the new goal
+  NormOut n;
+  norm_error(c, y, zero3, zero3, b1d, Wd, zero3, zero3, 0.0f, 0.0f, n);
+
+  STOREF(ENV_X, y);
+  STOREF(ENV_V, y + 3);
+  STOREF(ENV_R, y + 6);
+  STOREF(ENV_W, y + 15);
+  STOREF(ENV_EIX, n.eIx_err);
+  STOREF(ENV_EIX_INTEGRAND, n.eIx_cur);
+  STORE1(ENV_EIB1, n.eIb1_err);
+  STORE1(ENV_EIB1_INTEGRAND, n.eIb1_cur);
+  STORE1(ENV_F_TOTAL, m * G_STD);
+  ZEROF(ENV_M);
+  ZEROF(ENV_GOAL_XD);
+  ZEROF(ENV_GOAL_VD);
+  STOREF(ENV_GOAL_B1D, b1d);
+  ZEROF(ENV_GOAL_B1D_DOT);
+  STOREF(ENV_GOAL_WD, Wd);
+  a.oi[IIDX(ENV_T)] = 0;
+
+  a.oi[IIDX(TRAJ_MODE)] = 0;
+  STORE1(TRAJ_T, 0.0f);
+  STORE1(TRAJ_T_TRAJ, 0.0f);
+  a.ob[BIDX(TRAJ_STARTED)] = false;
+  a.ob[BIDX(TRAJ_COMPLETE)] = false;
+  a.ob[BIDX(TRAJ_MANUAL_MODE)] = false;
+  a.ob[BIDX(TRAJ_MANUAL_INIT)] = false;
+  a.ob[BIDX(TRAJ_IS_LANDED)] = false;
+  a.ob[BIDX(TRAJ_INIT_B1D)] = false;
+  STOREF(TRAJ_X_INIT, y);
+  STORE1(TRAJ_THETA_INIT, theta_init);
+  ZEROF(TRAJ_X_GOAL);
+  STORE1(TRAJ_SMOOTH_TERM, 0.0f);
+  STORE1(TRAJ_W_B1D, 0.0f);
+  ZEROF(TRAJ_CENTER);
+  ZEROF(TRAJ_XD);
+  ZEROF(TRAJ_VD);
+  STOREF(TRAJ_B1D, b1d);
+  ZEROF(TRAJ_B1D_DOT);
+  STOREF(TRAJ_WD, Wd);
+
+  float* __restrict__ outf = a.outf;
+#pragma unroll
+  for (int k = 0; k < 15; ++k) outf[(size_t)OF_OBS1 * B + (size_t)i * 15 + k] = n.obs1[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) outf[(size_t)OF_OBS2 * B + (size_t)i * 3 + k] = n.obs2[k];
+}
+
+template <int TASK, int INTEG>
+__global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
+  static_assert(TASK == TASK_DECOUPLED, "only the decoupled task is built");
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int B = a.B;
+  if (i >= B) return;
+  const float* u = a.draws + (size_t)i * N_DRAWS;
+  if (reset_only) {
+    fresh_episode(a, i, u);
+    return;
+  }
+  const float* __restrict__ sf = a.sf;
+  float* __restrict__ of = a.of;
+  float* __restrict__ outf = a.outf;
+  const Coefs& c = a.c;
+
+  // ---- trajectory.get_desired, mode 0 (static-int branch)
+  float y[18];
+  LOADF(y, ENV_X);
+  LOADF(y + 3, ENV_V);
+  LOADF(y + 6, ENV_R);
+  LOADF(y + 15, ENV_W);
+  const float* R0 = y + 6;
+  const bool take = a.sb[BIDX(TRAJ_INIT_B1D)];
+  float xd[3], vd[3], b1d[3], b1d_dot[3];
+  LOADF(b1d_dot, TRAJ_B1D_DOT);
+  if (take) {
+    idle_b1d(R0, u[D_THETA], b1d);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) { xd[k] = 0.0f; vd[k] = 0.0f; }
+  } else {
+    LOADF(xd, TRAJ_XD);
+    LOADF(vd, TRAJ_VD);
+    LOADF(b1d, TRAJ_B1D);
+  }
+  const float w3 = omega_c3(R0, y + 15, b1d, b1d_dot);
+  const float Wd[3] = {0.0f, 0.0f, w3};
+
+  // ---- quad.step, decoupled
+  float act[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) act[k] = a.act[(size_t)i * 5 + k];
+  const float m = sf[FIDX(ENV_PARAMS_M, 0)];
+  float J[3];
+  LOADF(J, ENV_PARAMS_J);
+  const float scale = sf[FIDX(ENV_PARAMS_SCALE_ACT, 0)];
+  const float avrg = sf[FIDX(ENV_PARAMS_AVRG_ACT, 0)];
+  const float minf = sf[FIDX(ENV_PARAMS_MIN_FORCE, 0)];
+  const float maxf = sf[FIDX(ENV_PARAMS_MAX_FORCE, 0)];
+  const float f = clampf(4.0f * (scale * act[0] + avrg), 4.0f * minf, 4.0f * maxf);
+  const float b1[3] = {R0[0], R0[3], R0[6]};
+  const float b2[3] = {R0[1], R0[4], R0[7]};
+  const float* W0 = y + 15;
+  const float M[3] = {dot3(b1, act + 1) + J[2] * W0[2] * W0[1],
+                      dot3(b2, act + 1) - J[2] * W0[2] * W0[0], act[4]};
+  integrate<INTEG>(y, f, M, m, J);
+  polar_fast(y + 6);
+
+  float eIx[3], eIx_int[3];
+  LOADF(eIx, ENV_EIX);
+  LOADF(eIx_int, ENV_EIX_INTEGRAND);
+  NormOut n;
+  norm_error(c, y, xd, vd, b1d, Wd, eIx, eIx_int, sf[FIDX(ENV_EIB1, 0)],
+             sf[FIDX(ENV_EIB1_INTEGRAND, 0)], n);
+
+  // reward / done from the float32 obs
+  const float* o1 = n.obs1;
+  const float* o2 = n.obs2;
+  float r1 = -c.Cx * sqnorm(o1);
+  r1 = r1 + -c.CIx * sqnorm(o1 + 3);
+  r1 = r1 + -c.Cv * sqnorm(o1 + 6);
+  r1 = r1 + -c.Cw12 * sqnorm(o1 + 12);
+  const float aI = fabsf(o2[1]), aW = fabsf(o2[2]);
+  float r2 = -c.Cb1 * fabsf(o2[0]);
+  r2 = r2 + -c.CIb1 * (aI * aI);
+  r2 = r2 + -c.CW3 * (aW * aW);
+  bool d1 = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    d1 = d1 || fabsf(o1[k]) >= 1.0f || fabsf(o1[6 + k]) >= 1.0f || fabsf(o1[12 + k]) >= 1.0f;
+  const bool d2 = fabsf(o2[2]) >= 1.0f;
+  const float rew1 = d1 ? -1.0f : interp01(r1, c.rmin1, c.slope1);
+  const float rew2 = d2 ? -1.0f : interp01(r2, c.rmin2, c.slope2);
+  const float ex_info[3] = {o1[0] * X_LIM, o1[1] * X_LIM, o1[2] * X_LIM};
+  const float eb1_info = o2[0] * PI_F;
+
+  // ---- batch: cap/solved override
+  const int t_new = a.si[IIDX(ENV_T)] + 1;
+  const bool at_cap = t_new >= a.max_steps;
+  const float tol = (float)0.03;
+  const bool solved_pos = fabsf(ex_info[0]) <= tol && fabsf(ex_info[1]) <= tol &&
+                          fabsf(ex_info[2]) <= tol;
+  const bool solved_yaw = fabsf(eb1_info) <= tol;
+  const bool s1 = solved_pos && (rew1 != -1.0f);
+  const bool s2 = solved_yaw && (rew2 != -1.0f);
+  const bool over = d1 || d2 || at_cap;
+
+  bool* __restrict__ outb = a.outb;
+  outf[(size_t)OF_REWARD * B + (size_t)i * 2 + 0] = rew1;
+  outf[(size_t)OF_REWARD * B + (size_t)i * 2 + 1] = rew2;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) outf[(size_t)OF_EX * B + (size_t)i * 3 + k] = ex_info[k];
+  outf[(size_t)OF_EB1 * B + i] = eb1_info;
+#pragma unroll
+  for (int k = 0; k < 15; ++k) outf[(size_t)OF_TERM_OBS1 * B + (size_t)i * 15 + k] = o1[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) outf[(size_t)OF_TERM_OBS2 * B + (size_t)i * 3 + k] = o2[k];
+  outb[(size_t)OB_DONE * B + (size_t)i * 2 + 0] = at_cap ? s1 : d1;
+  outb[(size_t)OB_DONE * B + (size_t)i * 2 + 1] = at_cap ? s2 : d2;
+  outb[(size_t)OB_RESET * B + i] = over;
+  outb[(size_t)OB_CRASHED * B + (size_t)i * 2 + 0] = d1;
+  outb[(size_t)OB_CRASHED * B + (size_t)i * 2 + 1] = d2;
+
+  if (over) {
+    fresh_episode(a, i, u);
+    return;
+  }
+
+  // ---- stepped state (episode continues)
+  STOREF(ENV_X, y);
+  STOREF(ENV_V, y + 3);
+  STOREF(ENV_R, y + 6);
+  STOREF(ENV_W, y + 15);
+  STOREF(ENV_EIX, n.eIx_err);
+  STOREF(ENV_EIX_INTEGRAND, n.eIx_cur);
+  STORE1(ENV_EIB1, n.eIb1_err);
+  STORE1(ENV_EIB1_INTEGRAND, n.eIb1_cur);
+  STORE1(ENV_F_TOTAL, f);
+  STOREF(ENV_M, M);
+  STOREF(ENV_GOAL_XD, xd);
+  STOREF(ENV_GOAL_VD, vd);
+  STOREF(ENV_GOAL_B1D, b1d);
+  STOREF(ENV_GOAL_B1D_DOT, b1d_dot);
+  STOREF(ENV_GOAL_WD, Wd);
+  COPYF(ENV_PARAMS_M);
+  COPYF(ENV_PARAMS_D);
+  COPYF(ENV_PARAMS_J);
+  COPYF(ENV_PARAMS_C_TF);
+  COPYF(ENV_PARAMS_C_TW);
+  COPYF(ENV_PARAMS_HOVER_FORCE);
+  COPYF(ENV_PARAMS_MIN_FORCE);
+  COPYF(ENV_PARAMS_MAX_FORCE);
+  COPYF(ENV_PARAMS_AVRG_ACT);
+  COPYF(ENV_PARAMS_SCALE_ACT);
+  COPYF(ENV_PARAMS_FORCES_TO_FM);
+  COPYF(ENV_PARAMS_FM_TO_FORCES);
+  a.oi[IIDX(ENV_T)] = t_new;
+
+  a.oi[IIDX(TRAJ_MODE)] = 0;
+  COPYF(TRAJ_T);
+  COPYF(TRAJ_T_TRAJ);
+  a.ob[BIDX(TRAJ_STARTED)] = a.sb[BIDX(TRAJ_STARTED)];
+  a.ob[BIDX(TRAJ_COMPLETE)] = a.sb[BIDX(TRAJ_COMPLETE)];
+  a.ob[BIDX(TRAJ_MANUAL_MODE)] = a.sb[BIDX(TRAJ_MANUAL_MODE)];
+  a.ob[BIDX(TRAJ_MANUAL_INIT)] = a.sb[BIDX(TRAJ_MANUAL_INIT)];
+  a.ob[BIDX(TRAJ_IS_LANDED)] = a.sb[BIDX(TRAJ_IS_LANDED)];
+  a.ob[BIDX(TRAJ_INIT_B1D)] = false;
+  COPYF(TRAJ_X_INIT);
+  COPYF(TRAJ_THETA_INIT);
+  COPYF(TRAJ_X_GOAL);
+  COPYF(TRAJ_SMOOTH_TERM);
+  COPYF(TRAJ_W_B1D);
+  COPYF(TRAJ_CENTER);
+  STOREF(TRAJ_XD, xd);
+  STOREF(TRAJ_VD, vd);
+  STOREF(TRAJ_B1D, b1d);
+  STOREF(TRAJ_B1D_DOT, b1d_dot);
+  STOREF(TRAJ_WD, Wd);
+#pragma unroll
+  for (int k = 0; k < 15; ++k) outf[(size_t)OF_OBS1 * B + (size_t)i * 15 + k] = o1[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) outf[(size_t)OF_OBS2 * B + (size_t)i * 3 + k] = o2[k];
+}
+
+}  // namespace
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
+                               void* of, void* oi, void* ob, const void* act,
+                               const void* draws, void* outf, void* outb, int B,
+                               int reset_only, int task, int integrator,
+                               int env_type, int max_steps, int use_udm,
+                               const float* coefs, void* stream) {
+  if (B <= 0) return (int)cudaErrorInvalidValue;
+  if (task != TASK_DECOUPLED || integrator != INTEGRATOR_RK4)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.sf = (const float*)sf;
+  a.si = (const int*)si;
+  a.sb = (const bool*)sb;
+  a.of = (float*)of;
+  a.oi = (int*)oi;
+  a.ob = (bool*)ob;
+  a.act = (const float*)act;
+  a.draws = (const float*)draws;
+  a.outf = (float*)outf;
+  a.outb = (bool*)outb;
+  a.B = B;
+  a.env_type = env_type;
+  a.max_steps = max_steps;
+  a.use_udm = use_udm;
+  a.c = Coefs{coefs[0], coefs[1], coefs[2],  coefs[3],  coefs[4],
+              coefs[5], coefs[6], coefs[7],  coefs[8],  coefs[9],
+              coefs[10], coefs[11], coefs[12], coefs[13], coefs[14]};
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  env_tick_kernel<TASK_DECOUPLED, INTEGRATOR_RK4>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(a, reset_only);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,146 @@
+"""K3 (forward, actor widths): the fused deterministic EMLP actor, one CUDA
+launch per agent per tick.
+
+Replaces ``gym_rotor_tpu/models/emlp/nn.py:EMLPBlock`` (``EquivLinear`` ->
+``EquivBiLinear`` -> ``GatedNonlinearity``) inside ``EMLP`` and the tanh
+head of ``models/emlp/zoo.py:EMLPActorDet``, which XLA fused on the TPU.
+Kernel: ``csrc/emlp_actor.cu``.  Plain twin: ``emlp_actor_plain`` (the
+structured port of the flax network), which is what runs on CPU tensors.
+
+What bounds it on an H100: the operations, and few of them.  Per row and
+block the linear layer is ``2 ng nin`` flops and the bilinear layer three
+per nonzero of its quadratic form (``bilinear_sparse``: 288 for agent 0's
+18 gated channels, where a dense ``ng^3`` form would hold 5832), so agent 0
+at B = 4096 is ~13 MFLOP against ~0.3 MB of obs/actions: ~0.2 us at the
+fp32 peak.  Design: the folded weights (``W_eff``, ``b_eff`` from
+``project_linear``, K5), the bilinear nonzeros grouped by output
+coordinate, and the gate indices sit in shared memory (a few KB); one
+thread per batch row keeps its activations in registers, with a copy of
+each block's linear output in a per-thread shared-memory column that the
+nonzeros index.  No cuBLAS call: every product of the actor is in the
+kernel body.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from ..models.emlp.nn import bilinear_sparse, gate_indices, gated
+from .build import KernelSource, check
+
+KERNEL = KernelSource("emlp_actor", [])
+# (obs dim, gated width, hidden width, action dim) of the built instances:
+# the flagship MODUL actors, agent 0 and agent 1.
+INSTANCES = {(15, 18, 16, 4), (3, 7, 4, 1)}
+
+
+def _lib():
+    lib = KERNEL.load()
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.emlp_actor_launch.argtypes = [P, I, P, I, P, I, I, I, P, I,
+                                          I, I, I, I, P]
+        lib.emlp_actor_launch.restype = I
+        lib._typed = True
+    return lib
+
+
+def actor_dims(actor):
+    """(obs dim, gated width, hidden width, action dim)."""
+    blocks = actor.network.blocks()
+    ng = gated(blocks[0].rep_out).size
+    nh = blocks[0].rep_out.size
+    if len(blocks) != 2 or any(gated(b.rep_out).size != ng
+                               or b.rep_out.size != nh for b in blocks):
+        raise NotImplementedError("emlp_actor is built for hidden_num=2 "
+                                  "with one hidden rep")
+    return (blocks[0].rep_in.size, ng, nh, actor.network.head.rep_out.size)
+
+
+def fold_actor(actor) -> Dict:
+    """Folded weights for the kernel, computed once per parameter set (K5 +
+    the bilinear nonzeros) and cached on the actor until a parameter
+    changes.  ``blocks`` holds, per block, ``(W_eff, b_eff, (o, j, i, v),
+    gate index)``.  The kernel's buffers: ``params`` (float) packs, per
+    block, ``W_eff (ng, nin)``, ``b_eff (ng,)``, ``v (nnz,)``, then the head
+    ``W (nact, nh)`` and ``b (nact,)``; ``ints`` packs both blocks' gate
+    indices, then both blocks' row pointers (``ng + 1`` each: the nonzeros
+    of output ``o`` are ``rowptr[o]:rowptr[o + 1]``), then both blocks'
+    ``j << 16 | i``."""
+    key = tuple((p.data_ptr(), p._version) for p in actor.parameters())
+    cached = getattr(actor, "_folded", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    dims = actor_dims(actor)
+    blocks = []
+    with torch.no_grad():
+        for blk in actor.network.blocks():
+            W, b = blk.linear.effective()
+            sp = bilinear_sparse(blk.bilinear.rep, blk.bilinear.bi_params)
+            g = torch.as_tensor(gate_indices(blk.rep_out), device=W.device)
+            blocks.append((W, b, sp, g))
+        Wh, bh = actor.network.head.effective()
+    ng = dims[1]
+    flat = torch.cat([t.reshape(-1) for W, b, (*_, v), _ in blocks
+                      for t in (W, b, v)] + [Wh.reshape(-1), bh])
+    rowptr = [torch.searchsorted(o, torch.arange(ng + 1, device=o.device))
+              for _, _, (o, *_), _ in blocks]
+    ji = [j * 65536 + i for _, _, (_, j, i, _), _ in blocks]
+    ints = torch.cat([g for *_, g in blocks] + rowptr + ji).to(torch.int32)
+    folded = dict(dims=dims, blocks=blocks, head=(Wh, bh),
+                  nnz=tuple(int(v.numel()) for _, _, (*_, v), _ in blocks),
+                  params=flat.contiguous(), ints=ints.contiguous())
+    actor._folded = (key, folded)
+    return folded
+
+
+def emlp_actor_plain(actor, obs):
+    """Structured plain twin: tanh(EMLP(obs)) with the flax layer layout."""
+    return torch.tanh(actor.network(obs))
+
+
+def emlp_actor(actor, obs: torch.Tensor, out: Optional[torch.Tensor] = None):
+    """Actor forward.  CPU tensors -> ``emlp_actor_plain``; CUDA tensors ->
+    one kernel launch (float32), or an error.  ``out`` (``(B, act_dim)``,
+    unit column stride, any row stride) receives the actions in place, e.g.
+    a column slice of the joint action tensor."""
+    if not obs.is_cuda:
+        res = emlp_actor_plain(actor, obs)
+        if out is not None:
+            out.copy_(res)
+            return out
+        return res
+    folded = fold_actor(actor)
+    nin, ng, nh, nact = dims = folded["dims"]
+    if dims not in INSTANCES:
+        raise NotImplementedError(f"emlp_actor has no kernel instance for "
+                                  f"(nin, ng, nh, nact) = {dims}")
+    B = obs.shape[0]
+    if obs.dtype != torch.float32 or obs.shape != (B, nin) \
+            or not obs.is_contiguous() or B == 0:
+        raise ValueError(f"emlp_actor: obs must be a contiguous float32 "
+                         f"(B, {nin}) tensor with B > 0, got {obs.dtype} "
+                         f"{tuple(obs.shape)}")
+    if out is None:
+        out = torch.empty(B, nact, dtype=torch.float32, device=obs.device)
+    if out.dtype != torch.float32 or out.shape != (B, nact) \
+            or out.stride(1) != 1 or out.device != obs.device:
+        raise ValueError(f"emlp_actor: out must be a float32 ({B}, {nact}) "
+                         f"tensor with unit column stride on {obs.device}")
+    params, ints = folded["params"], folded["ints"]
+    if params.device != obs.device or params.dtype != torch.float32:
+        raise ValueError("emlp_actor: actor weights must be float32 on the "
+                         "same device as obs")
+    lib = _lib()
+    err = lib.emlp_actor_launch(
+        obs.data_ptr(), B, params.data_ptr(), params.numel(), ints.data_ptr(),
+        ints.numel(), *folded["nnz"], out.data_ptr(), out.stride(0),
+        nin, ng, nh, nact, torch.cuda.current_stream(obs.device).cuda_stream)
+    check(err, lib, "emlp_actor")
+    emlp_actor.launches += 1
+    return out
+
+
+emlp_actor.launches = 0

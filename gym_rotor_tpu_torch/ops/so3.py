@@ -1,0 +1,93 @@
+"""SO(3) primitives on torch tensors (port of ``gym_rotor_tpu/ops/so3.py``).
+
+Shape-polymorphic over leading batch dims and dtype-polymorphic (float32
+fast path, float64 parity path).  Every 3x3 product is written as
+fixed-order elementwise arithmetic (``mm3``), never as a matmul, so the
+float64 path reproduces the JAX package bit for bit and the float32 path
+never touches TF32.  ``psvd``/``ensure_so3_exact`` (the ``exact_so3`` path)
+are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _stack3x3(rows):
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def hat(w):
+    """R^3 -> so(3): (..., 3) -> (..., 3, 3)."""
+    w1, w2, w3 = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(w1)
+    return _stack3x3([[z, -w3, w2], [w3, z, -w1], [-w2, w1, z]])
+
+
+def vee(M):
+    """so(3) -> R^3, inverse of hat."""
+    return torch.stack([M[..., 2, 1], M[..., 0, 2], M[..., 1, 0]], dim=-1)
+
+
+def cross(a, b):
+    """Cross product with fixed operation order."""
+    return torch.stack([
+        a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+    ], dim=-1)
+
+
+def inv3(M):
+    """Closed-form 3x3 inverse via the adjugate."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / det
+    adj = _stack3x3([
+        [A, -(b * i - c * h), b * f - c * e],
+        [B, a * i - c * g, -(a * f - c * d)],
+        [C, -(a * h - b * g), a * e - b * d],
+    ])
+    return adj * inv_det[..., None, None]
+
+
+def polar_fast(R, iters: int = 2):
+    """Newton iteration R <- (R + R^{-T}) / 2 for the orthogonal polar
+    factor (two iterations take drift of 1e-3 below 1e-9)."""
+    for _ in range(iters):
+        R = 0.5 * (R + inv3(R).transpose(-1, -2))
+    return R
+
+
+def rot_x(a):
+    c, s = torch.cos(a), torch.sin(a)
+    z, o = torch.zeros_like(a), torch.ones_like(a)
+    return _stack3x3([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def rot_y(a):
+    c, s = torch.cos(a), torch.sin(a)
+    z, o = torch.zeros_like(a), torch.ones_like(a)
+    return _stack3x3([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rot_z(a):
+    c, s = torch.cos(a), torch.sin(a)
+    z, o = torch.zeros_like(a), torch.ones_like(a)
+    return _stack3x3([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def mm3(A, B):
+    """3x3 matmul as elementwise ops with fixed left-to-right summation."""
+    return (A[..., :, 0:1] * B[..., 0:1, :]
+            + A[..., :, 1:2] * B[..., 1:2, :]) + A[..., :, 2:3] * B[..., 2:3, :]
+
+
+def euler_to_rot(euler):
+    """R = Rz @ Ry @ Rx (scipy ``from_euler('xyz')`` extrinsic)."""
+    return mm3(rot_z(euler[..., 2]),
+               mm3(rot_y(euler[..., 1]), rot_x(euler[..., 0])))

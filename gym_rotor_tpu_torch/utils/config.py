@@ -1,0 +1,138 @@
+"""Single explicit configuration object (own copy of
+``gym_rotor_tpu/utils/config.py``'s ``Config``, defaults unchanged).
+
+Defaults replicate the reference's args_parse.py:6-78 exactly.  The port
+reads the same fields; knobs it does not implement yet (other frameworks,
+integrators, trajectory modes) raise where they are consumed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class Config:
+    # -- run control
+    seed: int = 1992
+    save_model: bool = True
+    save_tensorboard: bool = False
+    test_model: bool = False
+    save_log: bool = False
+    render: bool = False
+
+    # -- environment
+    framework: str = "MODUL"          # "MONO" | "MODUL"
+    module_training: str = "DTDE"     # "DTDE" | "CTDE"
+    max_steps: int = 4000
+    max_timesteps: int = 2_000_000
+    num_eval: int = 10
+    eval_freq: int = 2000
+    eval_max_steps: int = 5           # [sec]
+
+    # -- reward coefficients
+    Cx: float = 6.0
+    CIx: float = 0.1
+    Cv: float = 0.4
+    Cw12: float = 0.6
+    alpha: float = 0.01
+    Cb1: float = 6.0
+    CIb1: float = 0.1
+    CW3: float = 0.1
+    beta: float = 0.05
+
+    # -- domain randomization
+    use_UDM: bool = True
+    UDM_percentage: float = 10.0
+
+    # -- agent
+    rl_algo: str = "TD3"              # "TD3" | "SAC" | "PPO"
+    use_equiv: bool = True
+    equiv_fold: bool = False
+    actor_hidden_dim: Tuple[int, ...] = (16, 4)
+    critic_hidden_dim: int = 62
+    lr_a: Tuple[float, ...] = (3e-4, 3e-4)
+    lr_c: Tuple[float, ...] = (2e-4, 2e-4)
+    discount: float = 0.99
+    max_action: float = 1.0
+    use_clip_grad_norm: bool = True
+    grad_max_norm: float = 100.0
+
+    # -- off-policy
+    start_timesteps: int = 500_000
+    batch_size: int = 256
+    replay_buffer_size: int = 1_000_000
+    tau: float = 0.005
+
+    # -- TD3
+    use_explor_noise_decay: bool = True
+    explor_noise_std_init: float = 0.3
+    explor_noise_std_min: float = 0.05
+    target_noise: float = 0.2
+    noise_clip: float = 0.5
+    policy_update_freq: int = 3
+
+    # -- SAC
+    sac_alpha: float = 0.05
+    automatic_entropy_tuning: bool = False
+
+    # -- PPO
+    T_horizon: int = 7000
+    GAE_lambda: float = 0.9
+    clip_rate: float = 0.2
+    K_epochs: int = 20
+    l2_reg: float = 1e-4
+    entropy_coef: float = 1e-2
+    entropy_coef_decay: float = 0.99
+    actor_batch_size: int = 128
+    critic_batch_size: int = 128
+
+    # -- CAPS smoothness
+    lam_T: float = 0.4
+    lam_S: float = 0.3
+    lam_M: float = 0.6
+
+    # -- batched-framework knobs (no reference counterpart)
+    num_envs: int = 4096              # batched lockstep envs per device
+    integrator: str = "rk4"           # "euler" | "rk4" | "dop853"
+    exact_so3: bool = False
+    train_traj_mode: int = 0
+    updates_per_step: float = 1.0
+    mesh_axis: str = "env"
+    rollout_len: int = 1
+    checkpoint_freq: int = 0
+    checkpoint_path: str = "./models/train_state.msgpack"
+    resume: bool = False
+    checkpoint_replay: bool = False
+    profile_dir: str = ""
+    eval_stream: str = "parallel"     # "parallel" | "reference"
+
+    # -- derived quantities (reference quad.py:71-88)
+    @property
+    def reward_min(self) -> float:
+        return -math.ceil(self.Cx + self.CIx + self.Cv + self.Cb1 + self.CIb1 + self.Cw12)
+
+    @property
+    def reward_min_1(self) -> float:
+        return -math.ceil(self.Cx + self.CIx + self.Cv + self.Cw12)
+
+    @property
+    def reward_min_2(self) -> float:
+        return -math.ceil(self.Cb1 + self.CW3 + self.CIb1)
+
+    @property
+    def n_agents(self) -> int:
+        return 2 if self.framework == "MODUL" else 1
+
+    @property
+    def obs_dim_n(self) -> Tuple[int, ...]:
+        return (15, 3) if self.framework == "MODUL" else (23,)
+
+    @property
+    def action_dim_n(self) -> Tuple[int, ...]:
+        return (4, 1) if self.framework == "MODUL" else (4,)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
