@@ -1,10 +1,11 @@
-"""Drive the PyTorch port's acting path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's acting and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
 Phases (each prints its own line; any failure exits non-zero and prints no
 result line):
-  1. build      nvcc both kernels in parallel; print build time and the
+  1. build      nvcc all six kernels in parallel; print build time and the
                 registers/spills ``-Xptxas -v`` reports
   2. env_tick   K1 kernel vs its plain twin at B = 4096 float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
@@ -19,9 +20,26 @@ result line):
   5. eval       ``evaluate``: 10 eval envs x 1000 ticks; launch counts
                 read from the wrappers (one reset, then K1 once and K3
                 twice per tick)
-  6. kernels    per kernel: launches on the rollout, device time per launch,
-                plain twin's time, the H100 bound (K3's operations counted
-                from the nonzeros of its bilinear form)
+  6. replay     K2 + K8 vs plain on a 1e6-row ring: one 4096-row tick
+                written across the wrap with the episode statistics, a
+                256-row sample, and the empty ring's NaN poison
+  7. emlp_block K3 (training widths) and K4 vs plain for the eight block
+                shapes of the four networks, at the update's batches
+                (256; 768 for the actor loss), forward and all four
+                gradients; and the kernel autograd path vs the structured
+                network's torch autograd for both twin critics
+  8. flat_adamw K6 vs plain for the four networks' flat vectors at a
+                count > 0, with the clip triggered and not, with Polyak
+  9. spectral   K7 vs plain on the critics' and actors' weight stacks
+ 10. train      ``train``: 4096 envs, 1 warm then TRAIN_STEPS train
+                supersteps (one update each); exact launch counts of every
+                kernel per superstep (the delayed actor step every third),
+                the fold cache refolding after each actor update, finite
+                losses, changed parameters; env-steps/s, updates/s and ms
+                per update by CUDA events
+ 11. kernels    per kernel: launches on the train path, device time per
+                launch, plain twin's time, the H100 bound, and a PyTorch
+                yardstick call where one computes the same function
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -34,6 +52,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import Counter
 
 import torch
 
@@ -41,12 +60,13 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 B = 4096
 TICKS = 1000
+TRAIN_STEPS = 300
 SEED = 0
 CARD = ""            # nvidia-smi name and power limit, set in main()
 
 
 def log(phase, **kv):
-    if phase in ("rollout", "eval", "kernels"):
+    if phase in ("rollout", "eval", "train", "kernels"):
         kv["card"] = CARD
     print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
 
@@ -147,9 +167,22 @@ def count_flops(fn, *args):
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+def _kernel_modules():
+    from gym_rotor_tpu_torch.kernels import (emlp_actor, emlp_block,
+                                             env_tick, flat_adamw, replay,
+                                             spectral)
+    return [env_tick, emlp_actor, replay, emlp_block, flat_adamw, spectral]
+
+
+def _wrappers():
+    """Every kernel wrapper by name (each carries its ``launches`` count)."""
+    return {name: getattr(m, name) for m in _kernel_modules()
+            for name in m.WRAPPERS}
+
+
 def phase_build():
-    from gym_rotor_tpu_torch.kernels import build, emlp_actor, env_tick
-    srcs = [env_tick.KERNEL, emlp_actor.KERNEL]
+    from gym_rotor_tpu_torch.kernels import build
+    srcs = [m.KERNEL for m in _kernel_modules()]
     t0 = time.perf_counter()
     build.build_all(srcs)
     wall = time.perf_counter() - t0
@@ -320,7 +353,6 @@ def phase_rollout(cfg, dev, actors):
         raise AssertionError(f"launch counts {launches}")
     if not (ortho < 1e-5 and r_ok and finite):
         raise AssertionError("rollout invariants failed")
-    return launches
 
 
 def phase_eval(cfg, dev, actors):
@@ -345,6 +377,357 @@ def phase_eval(cfg, dev, actors):
         raise AssertionError(f"eval launch counts {launches}")
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError("eval produced non-finite rewards")
+
+
+def _err(k, p, rel=2e-5):
+    """(max |k - p|, tolerance ``rel * max(1, max |p|)``, finite)."""
+    if p.numel() == 0:
+        return 0.0, rel, True
+    d = float((k.double() - p.double()).abs().max())
+    return d, rel * max(1.0, float(p.abs().max())), bool(torch.isfinite(k).all())
+
+
+def phase_replay(cfg, dev, out):
+    """K2 + K8 kernel vs plain on the same inputs: the compare-phase tick's
+    K1 outputs (field-major views, ~10% of envs reset) written into a
+    1e6-row ring across its wrap, with ``ep_ret`` and the stats; then a
+    256-row sample and the empty ring's poison."""
+    from gym_rotor_tpu_torch.algos import replay as R
+    from gym_rotor_tpu_torch.kernels import replay as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    dims = (tuple(cfg.obs_dim_n), tuple(cfg.action_dim_n))
+    cap = cfg.replay_buffer_size
+    ring_k = torch.rand(cap, R.row_dim(*dims), generator=gen, device=dev)
+    ring_p = ring_k.clone()
+    ptr = cap - B // 3                    # the tick's rows wrap the end
+    actions = torch.rand(B, sum(dims[1]), generator=gen, device=dev) * 2 - 1
+    ep_k = torch.randn(B, cfg.n_agents, generator=gen, device=dev)
+    ep_p = ep_k.clone()
+    st_k = torch.zeros(cfg.n_agents + 2, device=dev)
+    st_p = st_k.clone()
+    args = (out.obs, actions, out.reward, out.info["terminal_obs"], out.done)
+    K.replay_insert_tick(ring_k, ptr, dims, *args, reset=out.reset_happened,
+                         ep_ret=ep_k, stats=st_k)
+    K.replay_insert_tick_plain(ring_p, ptr, dims, *args, out.reset_happened,
+                               ep_p, st_p)
+    ring_diff = int((ring_k != ring_p).sum())
+    ep_diff = int((ep_k != ep_p).sum())
+    # fixed-order block partials vs torch's sum over 4096 envs
+    d_stats, tol_stats, _ = _err(st_k, st_p, 1e-5)
+    idx = torch.randint(0, cap, (cfg.batch_size,), generator=gen, device=dev)
+    rows_k = K.replay_sample(ring_k, idx, False)
+    sample_diff = int((rows_k != K.replay_sample_plain(ring_k, idx, False)).sum())
+    empty = R.create(cap, *dims, device=dev)
+    poisoned = R.sample(empty, cfg.batch_size, idx=idx[:8] * 0)
+    all_nan = all(bool(torch.isnan(t).all()) for f in poisoned for t in f)
+    log("replay", ring_rows=cap, ptr=ptr, rows=B, resets=int(out.reset_happened.sum()),
+        ring_mismatch=ring_diff, ep_ret_mismatch=ep_diff,
+        stats_max_abs_err=d_stats, stats=[float(x) for x in st_k],
+        sample_rows=cfg.batch_size, sample_mismatch=sample_diff,
+        empty_ring_poisoned=all_nan)
+    if ring_diff or ep_diff or sample_diff or not d_stats <= tol_stats \
+            or not all_nan:
+        raise AssertionError("replay kernels disagree with plain")
+    return dict(ring=ring_k, ptr=ptr, args=args, actions=actions,
+                reset=out.reset_happened, idx=idx, max_abs_err=d_stats)
+
+
+def _plain_apply(module, views, *args):
+    """``module``'s structured (plain) forward with ``views`` as its
+    parameters, under torch autograd."""
+    from torch.func import functional_call
+    return functional_call(module, views, args)
+
+
+def _block_inputs(agent, st, i, obs, act):
+    """Per network of agent ``i``: (name, EMLP module, parameter views,
+    prefix, input, batches on the update path)."""
+    o = obs[i][:3 * 256]
+    return [("actor", agent.actor_net.network, agent.actor_layout.views(st.actor),
+             "network.", o, (256, 768)),
+            ("critic1", agent.critic_net.network1,
+             agent.critic_layout.views(st.critic), "network1.",
+             torch.cat([o, act], -1), (256,)),
+            ("critic2", agent.critic_net.network2,
+             agent.critic_layout.views(st.critic), "network2.",
+             torch.cat([o, act], -1), (256,))]
+
+
+def phase_emlp_block(cfg, dev, agents, states, obs):
+    """K3/K4 vs plain per block: forward (h, lin, pre) and backward (g_x,
+    g_W, g_b, g_v; and g_x alone) on the same inputs; then the critics'
+    and actors' whole kernel path under autograd vs their structured
+    networks.  Tolerance 2e-5 max(1, max |plain|): float32 sums over up to
+    123 channels, 9394 nonzeros or 768 rows, taken in another order."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.models.emlp.nn import bilinear_sparse, project_linear
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst_fwd = worst_bwd = 0.0
+    bad, shapes = [], set()
+    for i, (agent, st) in enumerate(zip(agents, states)):
+        act = torch.rand(768, cfg.action_dim_n[i], generator=gen, device=dev) * 2 - 1
+        for name, net, views, prefix, x0, batches in _block_inputs(
+                agent, st, i, obs, act):
+            for nb in batches:
+                x = x0[:nb].contiguous()
+                for k, blk in enumerate(net.blocks()):
+                    pre = f"{prefix}block{k}."
+                    with torch.no_grad():
+                        W, b = project_linear(blk.linear.rep_in, blk.linear.rep_out,
+                                              views[pre + "linear.kernel"],
+                                              views[pre + "linear.bias"])
+                        spec = K.block_spec(blk, dev)
+                        bi = views.get(pre + "bilinear.bi_params")
+                        v = (bilinear_sparse(blk.bilinear.rep, bi)[3]
+                             if bi is not None else W.new_zeros(spec.nnz))
+                    W, b, v = W.contiguous(), b.contiguous(), v.contiguous()
+                    g_h = torch.randn(nb, spec.nh, generator=gen, device=dev)
+                    fk = K.emlp_block(spec, x, W, b, v)
+                    fp = K.emlp_block_plain(spec, x, W, b, v)
+                    lin, prea = fk[1], fk[2]
+                    bk = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea, True)
+                    bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, lin,
+                                                     prea, True)
+                    gx = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea,
+                                               False)[0]
+                    errs = {}
+                    for nm, kk, pp in zip(
+                            ("h", "lin", "pre", "g_x", "g_W", "g_b", "g_v",
+                             "g_x_only"), fk + bk + (gx,), fp + bp + (bp[0],)):
+                        d, tol, fin = _err(kk, pp)
+                        errs[nm] = d
+                        if nm in ("h", "lin", "pre"):
+                            worst_fwd = max(worst_fwd, d)
+                        else:
+                            worst_bwd = max(worst_bwd, d)
+                        if not (d <= tol and fin):
+                            bad.append((i, name, k, nb, nm, d, tol))
+                    shapes.add(spec.dims)
+                    log("emlp_block", agent=i, net=name, block=k,
+                        dims=list(spec.dims), nnz=spec.nnz, batch=nb,
+                        max_abs_err=errs)
+                    x = fp[0]
+        # the whole kernel path under autograd vs the structured networks
+        o, a = obs[i][:256], act[:256]
+        for name, fk_fn, module, layout, flat, args in (
+                ("critic", lambda vw: sum(q.sum() for q in agent.critic_apply(vw, o, a)),
+                 agent.critic_net, agent.critic_layout, st.critic, (o, a)),
+                ("actor", lambda vw: agent.actor_apply(vw, obs[i][:768]).sum(),
+                 agent.actor_net.network, agent.actor_layout, st.actor,
+                 (obs[i][:768],))):
+            leaf_k = flat.detach().clone().requires_grad_(True)
+            yk = fk_fn(layout.views(leaf_k))
+            (gk,) = torch.autograd.grad(yk, leaf_k)
+            leaf_p = flat.detach().clone().requires_grad_(True)
+            vp = layout.views(leaf_p)
+            if name == "actor":
+                vp = {n[len("network."):]: t for n, t in vp.items()}
+                yp = torch.tanh(_plain_apply(module, vp, *args)).sum()
+            else:
+                yp = sum(q.sum() for q in _plain_apply(module, vp, *args))
+            (gp,) = torch.autograd.grad(yp, leaf_p)
+            dv, tolv, finv = _err(yk.detach(), yp.detach())
+            dg, tolg, fing = _err(gk, gp)
+            log("emlp_block", agent=i, check=f"{name} autograd vs structured",
+                value_err=dv, grad_max_abs_err=dg, grad_scale=float(gp.abs().max()))
+            if not (dv <= tolv and dg <= tolg and finv and fing):
+                bad.append((i, name, "autograd", dv, dg))
+    if len(shapes) != 8:
+        raise AssertionError(f"expected 8 block shapes, saw {sorted(shapes)}")
+    if bad:
+        raise AssertionError(f"emlp_block kernels disagree with plain: {bad}")
+    return worst_fwd, worst_bwd
+
+
+def phase_flat_adamw(cfg, dev, agents):
+    """K6 vs plain on the four networks' flat vectors at count 7, with the
+    gradient's norm below (10) and above (1000) the clip of 100, with the
+    Polyak target.  Built with -fmad=false: the chain rounds as the plain
+    twin; only the norm's summation order differs."""
+    from gym_rotor_tpu_torch.algos.common import FlatAdamW, OptState
+    from gym_rotor_tpu_torch.kernels import flat_adamw as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst, bad = 0.0, []
+    for i, agent in enumerate(agents):
+        for net, n, lr in (("actor", agent.actor_layout.size, cfg.lr_a[i]),
+                           ("critic", agent.critic_layout.size, cfg.lr_c[i])):
+            tx = FlatAdamW(cfg, lr)
+            for norm in (10.0, 1000.0):
+                def rnd(scale=1.0):
+                    return scale * torch.randn(n, generator=gen, device=dev)
+                g = rnd()
+                g *= norm / g.norm()
+                p, tgt = rnd(), rnd()
+                mu, nu = rnd(1e-2), rnd(1e-3).abs()
+                s = tx.scalars(OptState(7, mu, nu, 7), cfg.tau)
+                kk = [t.clone() for t in (p, mu, nu, tgt)]
+                pp = [t.clone() for t in (p, mu, nu, tgt)]
+                K.flat_adamw(kk[0], g, kk[1], kk[2], s, kk[3])
+                K.flat_adamw_plain(pp[0], g, pp[1], pp[2], s, pp[3])
+                errs = [_err(a, b, 1e-6) for a, b in zip(kk, pp)]
+                worst = max([worst] + [e[0] for e in errs])
+                log("flat_adamw", agent=i, net=net, n=n, grad_norm=norm,
+                    clipped=norm >= cfg.grad_max_norm,
+                    max_abs_err=dict(zip(("p", "mu", "nu", "target"),
+                                         [e[0] for e in errs])))
+                if not all(d <= tol and fin for d, tol, fin in errs):
+                    bad.append((i, net, norm))
+    if bad:
+        raise AssertionError(f"flat_adamw kernel disagrees with plain: {bad}")
+    return worst
+
+
+def _spectral_stacks(agents, states, dev, gen):
+    from gym_rotor_tpu_torch.algos.regularizers import stack_padded
+    from gym_rotor_tpu_torch.models.emlp.nn import spectral_weights
+    out = []
+    for i, (agent, st) in enumerate(zip(agents, states)):
+        for net, layout, flat, widths in (
+                ("critic", agent.critic_layout, st.critic, agent.critic_widths),
+                ("actor", agent.actor_layout, st.actor, agent.actor_widths)):
+            ws, _ = spectral_weights(layout.views(flat))
+            starts = [torch.randn(w, generator=gen, device=dev) for w in widths]
+            Ws, x = stack_padded(ws, starts)
+            out.append((i, net, ws, Ws.detach().contiguous(), x))
+    return out
+
+
+def phase_spectral(cfg, dev, agents, states):
+    """K7 vs plain: the 10-step iterate from the same start vectors on each
+    network's padded weight stack (unit vectors, tolerance 1e-5)."""
+    from gym_rotor_tpu_torch.kernels import spectral as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst = 0.0
+    for i, net, ws, Ws, x in _spectral_stacks(agents, states, dev, gen):
+        vk, vp = K.spectral_iterate(Ws, x), K.spectral_iterate_plain(Ws, x)
+        d, tol, fin = _err(vk, vp, 1e-5)
+        worst = max(worst, d)
+        log("spectral", agent=i, net=net, stack=list(Ws.shape), max_abs_err=d)
+        if not (d <= tol and fin):
+            raise AssertionError(f"spectral kernel disagrees: agent {i} {net}")
+    return worst
+
+
+def expected_launches(cfg, warm: bool, gated: bool):
+    """Kernel launches of one superstep (rollout_len 1, one update)."""
+    if warm:
+        return {"env_tick": 1, "replay_insert_tick": 1}
+    n = cfg.n_agents
+    # per agent: target actor (2 blocks) + target twin critic (4) + critic
+    # loss (4) forward, its backward (4); the actor loss adds the actor at
+    # B = 768 (2) and critic net1 (2) forward and both backward (2 + 2)
+    return {"env_tick": 1, "emlp_actor": n, "replay_insert_tick": 1,
+            "replay_sample": 1, "emlp_block": n * (14 if gated else 10),
+            "emlp_block_backward": n * (8 if gated else 4),
+            "spectral_iterate": n * (2 if gated else 1),
+            "flat_adamw": n * (2 if gated else 1)}
+
+
+def phase_train(dev):
+    """The training entry point at full width: 1 warm superstep, then
+    TRAIN_STEPS train supersteps, each checked as it ends."""
+    from gym_rotor_tpu_torch.algos import replay as R
+    from gym_rotor_tpu_torch.algos import td3
+    from gym_rotor_tpu_torch.envs import draws as D
+    from gym_rotor_tpu_torch.kernels import emlp_block
+    from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
+    from gym_rotor_tpu_torch.train import train
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(num_envs=B, start_timesteps=B)
+    wr = _wrappers()
+    probe = dict(last={}, folds=0, bad=[], before=None, events=[],
+                 losses=[], t_host=None)
+
+    def on_superstep(i, warm, metrics, run):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        probe["events"].append(ev)
+        now = {k: w.launches for k, w in wr.items()}
+        delta = {k: v - probe["last"].get(k, 0) for k, v in now.items()}
+        probe["last"] = now
+        n_train = i               # train supersteps so far (one warm first)
+        gated = not warm and n_train % cfg.policy_update_freq == 0
+        want = expected_launches(cfg, warm, gated)
+        if i == 0:
+            want["env_tick"] += 1           # train()'s batched reset
+        got = {k: v for k, v in delta.items() if v}
+        if got != want:
+            probe["bad"].append((i, "launches", got, want))
+        folds = fold_actor.folds - probe["folds"]
+        probe["folds"] = fold_actor.folds
+        # the actors fold on the first train superstep and after each
+        # actor update (K6 bumps the version; the next act refolds)
+        want_folds = 0 if warm else (cfg.n_agents if n_train == 1 or
+                                     (n_train - 1) % cfg.policy_update_freq == 0
+                                     else 0)
+        fresh = [getattr(a.actor_net, "_folded", (None,))[0]
+                 == a.actor_net.param_version
+                 for a in run["agents"]] if not warm else []
+        if folds != want_folds or any(f == gated for f in fresh):
+            probe["bad"].append((i, "folds", folds, want_folds, fresh))
+        if warm:
+            probe["before"] = [(st.actor.clone(), st.critic.clone())
+                               for st in run["states"]]
+            probe["t_host"] = time.perf_counter()
+        else:
+            losses = [float(v) for k, v in metrics.items() if "loss" in k]
+            probe["losses"].append(losses)
+            if not all(math.isfinite(x) for x in losses) or \
+                    not math.isfinite(float(metrics["mean_reward"])):
+                probe["bad"].append((i, "non-finite", losses))
+
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    probe["folds"] = fold_actor.folds
+    emlp_block.emlp_block.by_shape.clear()
+    emlp_block.emlp_block_backward.by_shape.clear()
+    run = train(cfg, 1 + TRAIN_STEPS, device=dev, on_superstep=on_superstep,
+                log=None)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wr.items()}
+    shapes = (Counter(emlp_block.emlp_block.by_shape),
+              Counter(emlp_block.emlp_block_backward.by_shape))
+    host_s = time.perf_counter() - probe["t_host"]
+    dev_ms = probe["events"][0].elapsed_time(probe["events"][-1])
+    changed = [(bool((st.actor != a0).any()), bool((st.critic != c0).any()))
+               for st, (a0, c0) in zip(run["states"], probe["before"])]
+    total_it = [st.total_it for st in run["states"]]
+    # ms per update: the superstep's update alone, CUDA events around a
+    # run of updates (a third of them with the actor step)
+    agents, states, rs = run["agents"], run["states"], run["replay"]
+    n_upd = 30
+
+    def one_update():
+        ud = D.make_update_draws(
+            cfg.batch_size, rs.filled, cfg.obs_dim_n, cfg.action_dim_n,
+            [a.critic_widths for a in agents], [a.actor_widths for a in agents],
+            None, dev)
+        batch = R.sample(rs, cfg.batch_size, idx=ud.idx)
+        td3.train_step(cfg, agents, states, batch, ud.agents)
+    one_update()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n_upd):
+        one_update()
+    e.record()
+    torch.cuda.synchronize()
+    upd_ms = s.elapsed_time(e) / n_upd
+    first, last = probe["losses"][0], probe["losses"][-1]
+    log("train", envs=B, supersteps=1 + TRAIN_STEPS, warm_supersteps=1,
+        launches=launches, total_it=total_it, params_changed=changed,
+        train_ms=dev_ms, env_steps_per_s=B * TRAIN_STEPS / (dev_ms / 1e3),
+        updates_per_s=TRAIN_STEPS / (dev_ms / 1e3),
+        ms_per_superstep=dev_ms / TRAIN_STEPS, host_s=host_s,
+        ms_per_update=upd_ms, losses_first=first, losses_last=last,
+        fill=rs.filled, episodes_logged=len(run["episodes"]),
+        mismatches=probe["bad"][:5])
+    if probe["bad"]:
+        raise AssertionError(f"train path: {probe['bad'][:5]}")
+    if total_it != [TRAIN_STEPS] * cfg.n_agents or not all(a and c for a, c in changed):
+        raise AssertionError(f"train path did not update: {total_it} {changed}")
+    return launches, shapes
 
 
 def phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err):
@@ -420,6 +803,190 @@ def phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err):
     return records
 
 
+def _record(name, source, replaces, launches, err, inst):
+    """One kernel record from its instances ``(weight, ms, plain_ms,
+    bound_ms, bound_by, library_ms)``, weighted by launches on the train
+    path."""
+    tot = sum(r[0] for r in inst)
+
+    def mean(j):
+        return sum(r[0] * r[j] for r in inst) / tot
+    lib = None if inst[0][5] is None else mean(5)
+    # what bounds the instances that carry most of the bound
+    by = max(("bytes", "operations"),
+             key=lambda b: sum(r[0] * r[3] for r in inst if r[4] == b))
+    return dict(name=name, route="cuda",
+                source=f"gym_rotor_tpu_torch/kernels/csrc/{source}",
+                replaces=replaces, launches=launches, max_abs_err=err,
+                ms=mean(1), plain_ms=mean(2), bound_ms=mean(3), bound_by=by,
+                library_ms=lib)
+
+
+def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
+                        errs):
+    """Device time per launch, plain time, bound and yardstick of the
+    training slice's kernels at the train path's shapes."""
+    import itertools
+    from gym_rotor_tpu_torch.algos.common import FlatAdamW, OptState
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    from gym_rotor_tpu_torch.kernels import flat_adamw as KF
+    from gym_rotor_tpu_torch.kernels import replay as KR
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    records, n = [], cfg.n_agents
+    dims = (tuple(cfg.obs_dim_n), tuple(cfg.action_dim_n))
+
+    # K2 + K8: one tick's write with the statistics, B = 4096
+    ring, ptr, args, reset = rep["ring"], rep["ptr"], rep["args"], rep["reset"]
+    ep, st = torch.zeros(B, n, device=dev), torch.zeros(n + 2, device=dev)
+    k_ms, k_wall = device_ms(lambda: KR.replay_insert_tick(
+        ring, ptr, dims, *args, reset=reset, ep_ret=ep, stats=st), 100)
+    p_ms, _ = device_ms(lambda: KR.replay_insert_tick_plain(
+        ring, ptr, dims, *args, reset, ep, st), 10, 3)
+    leaves = list(args[0]) + [args[1], args[2]] + list(args[3]) + [args[4]]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    nbytes += reset.numel() + 2 * ep.numel() * 4 + B * ring.shape[1] * 4
+    bms, by = bound_ms(nbytes, B * (3 * n + 2))
+    log("kernels", kernel="replay_insert_tick", rows=B, ms=k_ms,
+        wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes, bound_ms=bms,
+        bound_by=by, library_ms=None)
+    records.append(_record("replay_insert_tick", "replay.cu",
+                           "gym_rotor_tpu/algos/replay.py:145",
+                           launches["replay_insert_tick"],
+                           errs["replay_insert_tick"],
+                           [(1, k_ms, p_ms, bms, by, None)]))
+
+    # K2 sample: 256 random rows of the 1e6-row ring, fresh rows each call
+    idxs = itertools.cycle([torch.randint(0, ring.shape[0], (cfg.batch_size,),
+                                          generator=gen, device=dev)
+                            for _ in range(64)])
+    k_ms, k_wall = device_ms(lambda: KR.replay_sample(ring, next(idxs), False), 100)
+    p_ms, _ = device_ms(lambda: KR.replay_sample_plain(ring, next(idxs), False), 100)
+    l_ms, _ = device_ms(lambda: ring.index_select(0, next(idxs)), 100)
+    nbytes = cfg.batch_size * (2 * ring.shape[1] * 4 + 8)
+    bms, by = bound_ms(nbytes, cfg.batch_size * ring.shape[1])
+    log("kernels", kernel="replay_sample", rows=cfg.batch_size, ms=k_ms,
+        wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes, bound_ms=bms,
+        bound_by=by, library_ms=l_ms)
+    records.append(_record("replay_sample", "replay.cu",
+                           "gym_rotor_tpu/algos/replay.py:199",
+                           launches["replay_sample"], 0.0,
+                           [(1, k_ms, p_ms, bms, by, l_ms)]))
+
+    # K3 / K4 at every (block, batch) instance the train path launched
+    specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
+    fwd, bwd = [], []
+    for key, count in sorted(shapes[0].items()):
+        (nin, ng, nh), nb = key
+        spec = specs[(nin, ng, nh)]
+        x = torch.randn(nb, nin, generator=gen, device=dev)
+        W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
+        b = 0.1 * torch.randn(ng, generator=gen, device=dev)
+        v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
+        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v), 50)
+        p_ms, _ = device_ms(lambda: KB.emlp_block_plain(spec, x, W, b, v), 10, 3)
+        flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
+        nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
+                      + 2 * ng * nb + nh + ng + 1 + spec.nnz)
+        bms, by = bound_ms(nbytes, flops)
+        fwd.append((count, k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="emlp_block", dims=[nin, ng, nh], batch=nb,
+            nnz=spec.nnz, launches=count, ms=k_ms, plain_ms=p_ms, flops=flops,
+            bytes=nbytes, bound_ms=bms, bound_by=by, library_ms=None)
+    for key, count in sorted(shapes[1].items()):
+        (nin, ng, nh), nb, need = key
+        spec = specs[(nin, ng, nh)]
+        x = torch.randn(nb, nin, generator=gen, device=dev)
+        W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
+        b = 0.1 * torch.randn(ng, generator=gen, device=dev)
+        v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
+        _, lin, pre = KB.emlp_block(spec, x, W, b, v)
+        g_h = torch.randn(nb, nh, generator=gen, device=dev)
+        k_ms, _ = device_ms(lambda: KB.emlp_block_backward(
+            spec, g_h, x, W, v, lin, pre, need), 50)
+        p_ms, _ = device_ms(lambda: KB.emlp_block_backward_plain(
+            spec, g_h, x, W, v, lin, pre, need), 10, 3)
+        n_par = ng * nin + ng + spec.nnz
+        # gate 8 nh, 6 per nonzero for g_lin, 2 ng nin for g_x per row; the
+        # parameter sums add 2 ng nin + ng + 4 nnz per row
+        flops = nb * (8 * nh + 6 * spec.nnz + 2 * ng * nin)
+        nbytes = 4 * (nb * nh + 2 * nb * nin + 2 * ng * nb + ng * nin
+                      + nh + 3 * spec.nnz)
+        if need:
+            flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
+            nbytes += 4 * n_par
+        bms, by = bound_ms(nbytes, flops)
+        bwd.append((count, k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="emlp_block_backward", dims=[nin, ng, nh],
+            batch=nb, param_grads=need, nnz=spec.nnz, launches=count, ms=k_ms,
+            plain_ms=p_ms, flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
+            library_ms=None)
+    records.append(_record("emlp_block", "emlp_block.cu",
+                           "gym_rotor_tpu/models/emlp/nn.py:431",
+                           launches["emlp_block"], errs["emlp_block"], fwd))
+    records.append(_record("emlp_block_backward", "emlp_block.cu",
+                           "gym_rotor_tpu/models/emlp/nn.py:39",
+                           launches["emlp_block_backward"],
+                           errs["emlp_block_backward"], bwd))
+
+    # K6: per update each critic steps (with Polyak one update in three),
+    # each actor one update in three (with Polyak)
+    inst = []
+    freq = cfg.policy_update_freq
+    for i, agent in enumerate(agents):
+        for net, size, lr, uses in (
+                ("critic", agent.critic_layout.size, cfg.lr_c[i],
+                 ((False, freq - 1), (True, 1))),
+                ("actor", agent.actor_layout.size, cfg.lr_a[i], ((True, 1),))):
+            tx = FlatAdamW(cfg, lr)
+            p = torch.randn(size, generator=gen, device=dev)
+            g = torch.randn(size, generator=gen, device=dev)
+            mu = 1e-2 * torch.randn(size, generator=gen, device=dev)
+            nu = 1e-3 * torch.rand(size, generator=gen, device=dev)
+            tgt = p.clone()
+            s = tx.scalars(OptState(7, mu, nu, 7), cfg.tau)
+            pl = p.clone().requires_grad_(True)
+            pl.grad = g.clone()
+            opt = torch.optim.AdamW([pl], lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=1e-2, fused=True)
+
+            def lib_step():
+                torch.nn.utils.clip_grad_norm_([pl], cfg.grad_max_norm)
+                opt.step()
+            l_ms, _ = device_ms(lib_step, 50)
+            for polyak, weight in uses:
+                t = tgt if polyak else None
+                k_ms, _ = device_ms(lambda: KF.flat_adamw(p, g, mu, nu, s, t), 100)
+                p_ms, _ = device_ms(lambda: KF.flat_adamw_plain(p, g, mu, nu, s, t), 20, 3)
+                nbytes = 4 * size * (7 + (2 if polyak else 0))
+                bms, by = bound_ms(nbytes, size * (24 if polyak else 21))
+                inst.append((weight, k_ms, p_ms, bms, by, l_ms))
+                log("kernels", kernel="flat_adamw", agent=i, net=net, n=size,
+                    polyak=polyak, ms=k_ms, plain_ms=p_ms, bytes=nbytes,
+                    bound_ms=bms, bound_by=by, library_ms=l_ms,
+                    library="clip_grad_norm_ + AdamW(fused=True).step")
+    records.append(_record("flat_adamw", "flat_adamw.cu",
+                           "gym_rotor_tpu/algos/common.py:38",
+                           launches["flat_adamw"], errs["flat_adamw"], inst))
+
+    # K7: the critics' stacks every update, the actors' one in three
+    inst = []
+    for i, net, ws, Ws, x in _spectral_stacks(agents, states, dev, gen):
+        k_ms, _ = device_ms(lambda: KS.spectral_iterate(Ws, x), 100)
+        p_ms, _ = device_ms(lambda: KS.spectral_iterate_plain(Ws, x), 10, 3)
+        true = sum(int(W.numel()) for W in ws)
+        nbytes = 4 * (true + 2 * sum(int(W.shape[1]) for W in ws))
+        bms, by = bound_ms(nbytes, KS.ITERS * (4 * true + 3 * x.numel()))
+        inst.append((freq if net == "critic" else 1, k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="spectral_iterate", agent=i, net=net,
+            stack=list(Ws.shape), ms=k_ms, plain_ms=p_ms, bytes=nbytes,
+            bound_ms=bms, bound_by=by, library_ms=None)
+    records.append(_record("spectral_iterate", "spectral.cu",
+                           "gym_rotor_tpu/algos/regularizers.py:102",
+                           launches["spectral_iterate"], errs["spectral"], inst))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -451,9 +1018,23 @@ def main():
     _, out = KT.env_tick(cfg, tick["state"], tick["actions"], tick["draws"])
     obs = tuple(o.contiguous() for o in out.obs)
     actors, emlp_err = phase_emlp(cfg, dev, obs)
-    launches = phase_rollout(cfg, dev, actors)
+    phase_rollout(cfg, dev, actors)
     phase_eval(cfg, dev, actors)
+    errs = {}
+    rep = phase_replay(cfg, dev, out)
+    errs["replay_insert_tick"] = rep["max_abs_err"]
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    gen = torch.Generator().manual_seed(SEED)
+    agents = [TD3Agent(cfg, i, dev) for i in range(cfg.n_agents)]
+    states = [a.init(gen) for a in agents]
+    errs["emlp_block"], errs["emlp_block_backward"] = phase_emlp_block(
+        cfg, dev, agents, states, obs)
+    errs["flat_adamw"] = phase_flat_adamw(cfg, dev, agents)
+    errs["spectral"] = phase_spectral(cfg, dev, agents, states)
+    launches, shapes = phase_train(dev)
     records = phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err)
+    records += phase_train_kernels(cfg, dev, rep, agents, states, launches,
+                                   shapes, errs)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ only.  Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; they raise when no card is present and the caller
 did not ask for the CPU.
 
-The hot path goes through two hand-written CUDA kernels
-(``kernels/csrc/env_tick.cu``, ``kernels/csrc/emlp_actor.cu``); each has a
-plain PyTorch twin beside its wrapper, which is what runs on CPU tensors.
+The hot path goes through hand-written CUDA kernels
+(``kernels/csrc/*.cu``: the env tick, the acting EMLP actor, the replay
+ring, the EMLP block forward and backward, the flat optimizer and the
+spectral power iteration); each has a plain PyTorch twin beside its
+wrapper, which is what runs on CPU tensors.
 """
 from .utils.config import Config
 

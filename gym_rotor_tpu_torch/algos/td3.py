@@ -1,0 +1,236 @@
+"""TD3 learner, DTDE (port of ``gym_rotor_tpu/algos/td3.py``).
+
+Twin critics with clipped double-Q, target policy smoothing, the delayed
+actor update every ``policy_update_freq`` updates, Polyak targets, the flat
+AdamW chain with global-norm clipping and cosine warm restarts, CAPS and
+the spectral-norm penalty: ``_train_one`` line for line, for the DTDE
+branch (a CTDE configuration raises ``NotImplementedError``).
+
+On the card the update runs through the port's kernels: every EMLP block of
+every forward and backward is K3/K4 (``kernels/emlp_block.py``, under
+autograd), the power iterations are K7, each network's optimizer step (and
+its Polyak) is one K6 call; the fold (K5), heads, tanh, clips and losses
+are torch ops.  With ``equiv_fold=False`` (the default) JAX projects each
+layer's raw kernel on every forward; here each loss projects once and fans
+the projected weights out to its forwards, the same function up to the
+summation order of the gradient (float64: within 1e-9 relative of JAX,
+``tests/test_torch_td3.py``).
+
+Divergences, deliberate: the state is updated in place (parameters, targets
+and optimizer moments are flat tensors K6 writes), and ``total_it`` and the
+optimizer counts are host integers, the mirror of the JAX device counters,
+so the delayed gate costs no device sync.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from ..envs.draws import AgentDraws
+from ..kernels.emlp_block import emlp_apply
+from ..models.emlp.nn import spectral_weights
+from ..models.emlp.zoo import (EMLPActorDet, EMLPCriticTwin, actor_reps,
+                               critic_reps)
+from ..utils.config import Config
+from ..utils.device import resolve_device
+from . import regularizers
+from .common import (FlatLayout, OptState, bind_flat, flat_layout,
+                     make_optimizer, mse)
+from .replay import Batch
+
+
+@dataclass
+class TD3State:
+    actor: torch.Tensor             # flat parameter vectors (ravel order)
+    critic: torch.Tensor
+    actor_target: torch.Tensor
+    critic_target: torch.Tensor
+    actor_opt: OptState
+    critic_opt: OptState
+    total_it: int
+
+
+def spectral_widths(layout: FlatLayout) -> List[int]:
+    """Input widths of the regularized weights, in ``spectral_weights``
+    order: the start vectors' sizes."""
+    shapes = dict(zip(layout.names, layout.shapes))
+    ws, _ = spectral_weights({n: torch.empty(s, device="meta")
+                              for n, s in shapes.items()})
+    return [int(w.shape[1]) for w in ws]
+
+
+class TD3Agent:
+    """Per-agent static configuration: the networks' structure (an
+    ``EMLPActorDet`` bound to the state's actor vector for acting, an
+    ``EMLPCriticTwin`` for the critic's), flat layouts and optimizers."""
+
+    def __init__(self, cfg: Config, agent_id: int, device=None,
+                 dtype=torch.float32):
+        if cfg.framework == "MODUL" and cfg.module_training == "CTDE":
+            raise NotImplementedError("the CTDE branch of TD3 is not ported")
+        self.cfg, self.agent_id, self.dtype = cfg, agent_id, dtype
+        self.device = resolve_device(device)
+        self.obs_dim = cfg.obs_dim_n[agent_id]
+        self.action_dim = cfg.action_dim_n[agent_id]
+        self.actor_reps = actor_reps(cfg, cfg.framework, agent_id)
+        self.critic_reps = critic_reps(cfg, cfg.framework, agent_id,
+                                       cfg.module_training)
+        gen = torch.Generator().manual_seed(0)
+        self.actor_net = EMLPActorDet(*self.actor_reps, device="cpu",
+                                      dtype=dtype, generator=gen
+                                      ).to(self.device)
+        self.critic_net = EMLPCriticTwin(*self.critic_reps, device="cpu",
+                                         dtype=dtype, generator=gen
+                                         ).to(self.device)
+        self.actor_layout = flat_layout(self.actor_net)
+        self.critic_layout = flat_layout(self.critic_net)
+        self.actor_tx = make_optimizer(cfg, cfg.lr_a[agent_id])
+        self.critic_tx = make_optimizer(cfg, cfg.lr_c[agent_id])
+        self.critic_widths = spectral_widths(self.critic_layout)
+        self.actor_widths = spectral_widths(self.actor_layout)
+        self._bound: Optional[torch.Tensor] = None
+
+    # -- state
+    def init(self, generator: Optional[torch.Generator] = None) -> TD3State:
+        """Fresh seeded networks (flax's initializers' distributions, not
+        its bits), targets equal to them, zero optimizer state."""
+        actor = EMLPActorDet(*self.actor_reps, device="cpu", dtype=self.dtype,
+                             generator=generator)
+        critic = EMLPCriticTwin(*self.critic_reps, device="cpu",
+                                dtype=self.dtype, generator=generator)
+        with torch.no_grad():
+            a = self.actor_layout.ravel(dict(actor.named_parameters()))
+            c = self.critic_layout.ravel(dict(critic.named_parameters()))
+        return self.make_state(a.to(self.device), c.to(self.device))
+
+    def make_state(self, actor: torch.Tensor, critic: torch.Tensor,
+                   actor_target=None, critic_target=None,
+                   actor_opt: Optional[OptState] = None,
+                   critic_opt: Optional[OptState] = None,
+                   total_it: int = 0) -> TD3State:
+        def own(t, like):
+            return (like if t is None else t).detach().to(
+                self.device, self.dtype).clone().contiguous()
+        actor, critic = own(actor, None), own(critic, None)
+        state = TD3State(
+            actor=actor, critic=critic,
+            actor_target=own(actor_target, actor),
+            critic_target=own(critic_target, critic),
+            actor_opt=actor_opt or self.actor_tx.init(actor),
+            critic_opt=critic_opt or self.critic_tx.init(critic),
+            total_it=int(total_it))
+        self.bind(state)
+        return state
+
+    def bind(self, state: TD3State) -> None:
+        """Make the acting and critic modules views of ``state``'s vectors."""
+        bind_flat(self.actor_net, state.actor)
+        bind_flat(self.critic_net, state.critic)
+        self._bound = state.actor
+
+    # -- acting
+    def act(self, state: TD3State, obs, out: Optional[torch.Tensor] = None):
+        """Deterministic action; on the card one K3 launch (the acting
+        kernel, folded once per parameter version)."""
+        if self._bound is not state.actor:
+            self.bind(state)
+        with torch.no_grad():
+            return self.actor_net(obs, out)
+
+    def choose_action(self, state: TD3State, obs, noise_std: float,
+                      noise: torch.Tensor):
+        """Policy + exploration noise (td3.py:143-147); ``noise`` is the
+        N(0, 1) draw."""
+        a = self.act(state, obs)
+        return torch.clamp(a + noise_std * noise, -self.cfg.max_action,
+                           self.cfg.max_action)
+
+    # -- the training path's networks, on views of a flat vector
+    def actor_apply(self, views: Dict[str, torch.Tensor], obs):
+        return torch.tanh(emlp_apply(self.actor_net.network, views,
+                                     "network.", obs))
+
+    def critic_apply(self, views: Dict[str, torch.Tensor], obs, act):
+        x = torch.cat([obs, act], dim=-1)
+        return (emlp_apply(self.critic_net.network1, views, "network1.", x),
+                emlp_apply(self.critic_net.network2, views, "network2.", x))
+
+    def critic_q1(self, views: Dict[str, torch.Tensor], obs, act):
+        x = torch.cat([obs, act], dim=-1)
+        return emlp_apply(self.critic_net.network1, views, "network1.", x)
+
+
+def train_step(cfg: Config, agents: Sequence[TD3Agent],
+               states: List[TD3State], batch: Batch,
+               draws: Sequence[AgentDraws]):
+    """One TD3 update for every agent (td3.py:165-192), in place.  Returns
+    ``(states, metrics)``; the metrics are 0-d tensors on the device."""
+    metrics = {}
+    for i in range(len(agents)):
+        m = _train_one(cfg, agents, states, i, batch, draws[i])
+        metrics.update({f"agent{i}/{k}": v for k, v in m.items()})
+    return states, metrics
+
+
+def _spectral(views, starts):
+    ws, extras = spectral_weights(views)
+    return regularizers.spectral_norm_regularization(ws, starts, extras)
+
+
+def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
+               d: AgentDraws):
+    agent, st = agents[i], states[i]
+    obs, act, rwd = batch.obs[i], batch.act[i], batch.rwd[i]
+    next_obs, done = batch.next_obs[i], batch.done[i]
+    m = cfg.max_action
+    gate = (st.total_it + 1) % cfg.policy_update_freq == 0
+
+    # ----- target-policy smoothing and the target Q (td3.py:225-254)
+    with torch.no_grad():
+        a_next = agent.actor_apply(agent.actor_layout.views(st.actor_target),
+                                   next_obs)
+        noise = torch.clamp(cfg.target_noise * d.target_noise,
+                            -cfg.noise_clip, cfg.noise_clip)
+        t_act = torch.clamp(a_next + noise, -m, m)
+        tq1, tq2 = agent.critic_apply(
+            agent.critic_layout.views(st.critic_target), next_obs, t_act)
+        target_q = rwd + cfg.discount * (1.0 - done) * torch.minimum(tq1, tq2)
+
+    # ----- critic update (td3.py:240-266)
+    leaf = st.critic.detach().requires_grad_(True)
+    cv = agent.critic_layout.views(leaf)
+    q1, q2 = agent.critic_apply(cv, obs, act)
+    closs = mse(q1, target_q) + mse(q2, target_q)
+    closs = closs + 1e-8 * _spectral(cv, d.critic_starts)
+    (cgrad,) = torch.autograd.grad(closs, leaf)
+    # the critic target's Polyak runs in the delayed branch on the updated
+    # critic (td3.py:325): the same values when done in this K6 call
+    st.critic_opt = agent.critic_tx.update(
+        st.critic, cgrad, st.critic_opt,
+        target=st.critic_target if gate else None, tau=cfg.tau,
+        owner=agent.critic_net)
+    st.total_it += 1
+
+    # ----- delayed actor + target update (td3.py:271-342)
+    if gate:
+        critic = agent.critic_layout.views(st.critic.detach())
+        leaf = st.actor.detach().requires_grad_(True)
+        av = agent.actor_layout.views(leaf)
+        eps = regularizers.caps_noise(d.caps_eps)
+        obs3 = torch.cat([obs, next_obs, obs + eps], dim=0)
+        a3 = torch.clamp(agent.actor_apply(av, obs3), -m, m)
+        a_cur, a_nxt, a_prt = torch.split(a3, obs.shape[0], dim=0)
+        aloss = -agent.critic_q1(critic, obs, a_cur).mean()
+        aloss = aloss + 1e-5 * _spectral(av, d.actor_starts)
+        aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, a_cur,
+                                                a_nxt, a_prt)
+        (agrad,) = torch.autograd.grad(aloss, leaf)
+        st.actor_opt = agent.actor_tx.update(
+            st.actor, agrad, st.actor_opt, target=st.actor_target,
+            tau=cfg.tau, owner=agent.actor_net)
+        aloss = aloss.detach()
+    else:
+        aloss = torch.zeros((), dtype=closs.dtype, device=closs.device)
+    return {"critic_loss": closs.detach(), "actor_loss": aloss}

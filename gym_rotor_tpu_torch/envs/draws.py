@@ -14,7 +14,7 @@ JAX tick consumes every key):
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,3 +41,72 @@ def draw_uniforms(batch: int, generator: Optional[torch.Generator],
     generator (in-kernel Philox is a later optimization)."""
     return torch.rand((batch, N_DRAWS), generator=generator, dtype=dtype,
                       device=device)
+
+
+# ---------------------------------------------------------------------------
+# The training path's random sites.  Each takes its draws as tensors; the
+# ``make_*`` helpers draw them from an explicit generator, the CPU tests
+# hand in JAX's own (rebuilt from its key chain).
+# ---------------------------------------------------------------------------
+class TickDraws(NamedTuple):
+    """One superstep tick: ``env`` (B, N_DRAWS) U[0, 1) for the tick, and
+    ``policy``: on a warm tick U[0, 1) base draws (B, sum act dims) of the
+    uniform actions (``train_step.py:120``, mapped to [-1, 1) by
+    ``uniform_in``); on a train tick one N(0, 1) (B, act_i) per agent, the
+    exploration noise of ``choose_action_f`` (``td3.py:149``)."""
+    env: torch.Tensor
+    policy: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+class AgentDraws(NamedTuple):
+    """One agent's update: the target-smoothing N(0, 1) (batch, act)
+    (``td3.py:227``), the CAPS N(0, 1) (1, obs) (``regularizers.py:55``,
+    scaled by 0.05 there), and one N(0, 1) start vector per regularized
+    weight, critic then actor, in ``spectral_weights`` order
+    (``regularizers.py:129``, one ``fold_in(key, i)`` each)."""
+    target_noise: torch.Tensor
+    caps_eps: torch.Tensor
+    critic_starts: Tuple[torch.Tensor, ...]
+    actor_starts: Tuple[torch.Tensor, ...]
+
+
+class UpdateDraws(NamedTuple):
+    """One update: the replay indices (batch,) in [0, max(filled, 1))
+    (``replay.py:207``) and one ``AgentDraws`` per agent."""
+    idx: torch.Tensor
+    agents: Tuple[AgentDraws, ...]
+
+
+def make_tick_draws(batch: int, act_dims: Sequence[int], warm: bool,
+                    generator: Optional[torch.Generator], device,
+                    dtype=torch.float32) -> TickDraws:
+    env = draw_uniforms(batch, generator, dtype, device)
+    if warm:
+        policy = torch.rand((batch, sum(act_dims)), generator=generator,
+                            dtype=dtype, device=device)
+    else:
+        policy = tuple(torch.randn((batch, d), generator=generator,
+                                   dtype=dtype, device=device)
+                       for d in act_dims)
+    return TickDraws(env, policy)
+
+
+def make_update_draws(batch: int, filled: int, obs_dims: Sequence[int],
+                      act_dims: Sequence[int],
+                      critic_widths: Sequence[Sequence[int]],
+                      actor_widths: Sequence[Sequence[int]],
+                      generator: Optional[torch.Generator], device,
+                      dtype=torch.float32) -> UpdateDraws:
+    """``*_widths[i]``: the input widths (``W.shape[1]``) of agent ``i``'s
+    regularized weights, in ``spectral_weights`` order."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    idx = torch.randint(0, max(filled, 1), (batch,), generator=generator,
+                        device=device)
+    agents = tuple(
+        AgentDraws(normal(batch, a), normal(1, o),
+                   tuple(normal(w) for w in cw), tuple(normal(w) for w in aw))
+        for o, a, cw, aw in zip(obs_dims, act_dims, critic_widths,
+                                actor_widths))
+    return UpdateDraws(idx, agents)

@@ -27,10 +27,12 @@ from typing import Dict, Optional
 
 import torch
 
-from ..models.emlp.nn import bilinear_sparse, gate_indices, gated
+from ..models.emlp.nn import (bilinear_index, bilinear_sparse,
+                               gate_indices, gated)
 from .build import KernelSource, check
 
 KERNEL = KernelSource("emlp_actor", [])
+WRAPPERS = {"emlp_actor": "emlp_actor_plain"}
 # (obs dim, gated width, hidden width, action dim) of the built instances:
 # the flagship MODUL actors, agent 0 and agent 1.
 INSTANCES = {(15, 18, 16, 4), (3, 7, 4, 1)}
@@ -61,39 +63,44 @@ def actor_dims(actor):
 
 def fold_actor(actor) -> Dict:
     """Folded weights for the kernel, computed once per parameter set (K5 +
-    the bilinear nonzeros) and cached on the actor until a parameter
-    changes.  ``blocks`` holds, per block, ``(W_eff, b_eff, (o, j, i, v),
-    gate index)``.  The kernel's buffers: ``params`` (float) packs, per
-    block, ``W_eff (ng, nin)``, ``b_eff (ng,)``, ``v (nnz,)``, then the head
+    the bilinear nonzeros) and cached on the actor until its parameter
+    version changes.  The key is ``actor.param_version``, an explicit
+    counter that whoever writes the parameters in place bumps: the flat
+    optimizer (``kernels/flat_adamw.py``) after every launch, which writes
+    through a raw pointer and so leaves torch's own ``_version`` as it was.
+    ``blocks`` holds, per block, ``(W_eff, b_eff, (o, j, i, v), gate
+    index)``.  The kernel's buffers: ``params`` (float) packs, per block,
+    ``W_eff (ng, nin)``, ``b_eff (ng,)``, ``v (nnz,)``, then the head
     ``W (nact, nh)`` and ``b (nact,)``; ``ints`` packs both blocks' gate
     indices, then both blocks' row pointers (``ng + 1`` each: the nonzeros
     of output ``o`` are ``rowptr[o]:rowptr[o + 1]``), then both blocks'
     ``j << 16 | i``."""
-    key = tuple((p.data_ptr(), p._version) for p in actor.parameters())
     cached = getattr(actor, "_folded", None)
-    if cached is not None and cached[0] == key:
+    if cached is not None and cached[0] == actor.param_version:
         return cached[1]
     dims = actor_dims(actor)
-    blocks = []
+    blocks, idx = [], []
     with torch.no_grad():
         for blk in actor.network.blocks():
             W, b = blk.linear.effective()
             sp = bilinear_sparse(blk.bilinear.rep, blk.bilinear.bi_params)
             g = torch.as_tensor(gate_indices(blk.rep_out), device=W.device)
             blocks.append((W, b, sp, g))
+            idx.append(bilinear_index(blk.bilinear.rep, W.device))
         Wh, bh = actor.network.head.effective()
-    ng = dims[1]
     flat = torch.cat([t.reshape(-1) for W, b, (*_, v), _ in blocks
                       for t in (W, b, v)] + [Wh.reshape(-1), bh])
-    rowptr = [torch.searchsorted(o, torch.arange(ng + 1, device=o.device))
-              for _, _, (o, *_), _ in blocks]
-    ji = [j * 65536 + i for _, _, (_, j, i, _), _ in blocks]
-    ints = torch.cat([g for *_, g in blocks] + rowptr + ji).to(torch.int32)
+    ints = torch.cat([g.to(torch.int32) for *_, g in blocks]
+                     + [d["rowptr"] for d in idx] + [d["ji"] for d in idx])
     folded = dict(dims=dims, blocks=blocks, head=(Wh, bh),
                   nnz=tuple(int(v.numel()) for _, _, (*_, v), _ in blocks),
                   params=flat.contiguous(), ints=ints.contiguous())
-    actor._folded = (key, folded)
+    actor._folded = (actor.param_version, folded)
+    fold_actor.folds += 1
     return folded
+
+
+fold_actor.folds = 0
 
 
 def emlp_actor_plain(actor, obs):

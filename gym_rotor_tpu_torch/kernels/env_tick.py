@@ -117,6 +117,7 @@ def layout_header() -> Dict[str, str]:
 
 
 KERNEL = KernelSource("env_tick", ["-fmad=false"], layout_header)
+WRAPPERS = {"env_tick": "env_tick_plain"}
 
 
 def _lib():

@@ -98,22 +98,35 @@ def linear_projector(rep_in: SumRep, rep_out: SumRep):
     return out
 
 
+_CONST_CACHE: Dict[tuple, tuple] = {}
+
+
+def _projector_tensors(rep_in: SumRep, rep_out: SumRep, device, dtype):
+    """``linear_projector``'s arrays as tensors on ``device``, made once per
+    (reps, device, dtype): the training path projects every layer on every
+    update, and a host-to-device copy per call would dominate it."""
+    key = (hash(rep_in), hash(rep_out), str(device), dtype)
+    hit = _CONST_CACHE.get(key)
+    if hit is None:
+        hit = _CONST_CACHE[key] = tuple(
+            torch.as_tensor(a, device=device).to(dtype)
+            for a in linear_projector(rep_in, rep_out))
+    return hit
+
+
 def project_linear(rep_in: SumRep, rep_out: SumRep, kernel, bias):
     """W_eff = mask * W + Qw Qwᵀ vec(W); b_eff likewise (nn.py:207-220).
-    This is K5 (the fold), run once per parameter set on the acting path."""
+    This is K5 (the fold): once per parameter set on the acting path, once
+    per loss on the training path, differentiable."""
     nout, nin = kernel.shape
-    Qw, Qb, mask, bmask = linear_projector(rep_in, rep_out)
-
-    def const(a):
-        return torch.as_tensor(a, device=kernel.device).to(kernel.dtype)
-    W_eff = const(mask) * kernel
+    Qw, Qb, mask, bmask = _projector_tensors(rep_in, rep_out, kernel.device,
+                                             kernel.dtype)
+    W_eff = mask * kernel
     if Qw.shape[1]:
-        Qw_t = const(Qw)
-        W_eff = W_eff + (Qw_t @ (Qw_t.T @ kernel.reshape(-1))).reshape(nout, nin)
-    b_eff = const(bmask) * bias
+        W_eff = W_eff + (Qw @ (Qw.T @ kernel.reshape(-1))).reshape(nout, nin)
+    b_eff = bmask * bias
     if Qb.shape[1]:
-        Qb_t = const(Qb)
-        b_eff = b_eff + Qb_t @ (Qb_t.T @ bias)
+        b_eff = b_eff + Qb @ (Qb.T @ bias)
     return W_eff, b_eff
 
 
@@ -233,22 +246,45 @@ def bilinear_dense_index(rep: SumRep):
     return tuple(np.asarray(a, np.int64) for a in (J, O, I, P))
 
 
+_SPARSE_CACHE: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+
+def bilinear_index(rep: SumRep, device) -> Dict[str, torch.Tensor]:
+    """The static index side of ``bilinear_sparse``, made once per (rep,
+    device): the merged nonzeros' coordinates ``o``, ``j``, ``i`` (sorted by
+    ``o``, then ``j``, ``i``), the merge map (``bi_params[P]`` summed into
+    entry ``inv``), and the kernels' int32 forms: ``rowptr`` (``ng + 1``;
+    the nonzeros of output ``o`` are ``rowptr[o]:rowptr[o + 1]``) and
+    ``ji = j << 16 | i``."""
+    key = (hash(rep), str(device))
+    hit = _SPARSE_CACHE.get(key)
+    if hit is None:
+        n = rep.size
+        J, O, I, P = bilinear_dense_index(rep)
+        uniq, inv = np.unique((O * n + J) * n + I, return_inverse=True)
+        o, j, i = uniq // (n * n), uniq // n % n, uniq % n
+
+        def t(a, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+        hit = _SPARSE_CACHE[key] = dict(
+            o=t(o), j=t(j), i=t(i), inv=t(inv.reshape(-1)), P=t(P),
+            rowptr=t(np.searchsorted(o, np.arange(n + 1)), torch.int32),
+            ji=t(j * 65536 + i, torch.int32), o32=t(o, torch.int32))
+    return hit
+
+
 def bilinear_sparse(rep: SumRep, bi_params: torch.Tensor):
     """Sparse form of the bilinear map, the only nonzeros of the quadratic
     form: ``(o, j, i, v)``, sorted by output ``o`` (then ``j``, ``i``), with
     ``bilinear(x)[o] = 0.1 * sum over entries e with o[e] == o of
     v[e] * x[j[e]] * x[i[e]]``.  Entries of the same ``(o, j, i)`` are
-    merged (their ``bi_params`` summed)."""
-    n = rep.size
-    J, O, I, P = bilinear_dense_index(rep)
-    key, inv = np.unique((O * n + J) * n + I, return_inverse=True)
-    dev = bi_params.device
-    v = torch.zeros(key.size, dtype=bi_params.dtype, device=dev).index_add_(
-        0, torch.as_tensor(inv.reshape(-1), device=dev),
-        bi_params[torch.as_tensor(P, device=dev)])
-    o, j, i = (torch.as_tensor(a, device=dev)
-               for a in (key // (n * n), key // n % n, key % n))
-    return o, j, i, v
+    merged (their ``bi_params`` summed); ``v`` is differentiable in
+    ``bi_params`` (``index_add_``)."""
+    idx = bilinear_index(rep, bi_params.device)
+    v = torch.zeros(idx["o"].numel(), dtype=bi_params.dtype,
+                    device=bi_params.device).index_add_(
+        0, idx["inv"], bi_params[idx["P"]])
+    return idx["o"], idx["j"], idx["i"], v
 
 
 class _Indexed(nn.Module):
@@ -441,3 +477,22 @@ class EMLP(nn.Module):
         for blk in self.blocks():
             x = blk(x)
         return self.head(x)
+
+
+def spectral_weights(params: Dict[str, torch.Tensor]):
+    """Raw weight matrices and bilinear params for the spectral-norm
+    regularizer (nn.py:533): ``params`` maps dotted flax paths
+    (``network.block0.linear.kernel``) to tensors; walked in sorted key
+    order (the flax tree's), every ``kernel`` is a weight and every
+    ``bi_params`` an extra; ``log_std_linear`` (the SAC head outside the
+    equivariant network) is skipped."""
+    ws, extras = [], []
+    for name in sorted(params, key=lambda n: tuple(n.split("."))):
+        parts = name.split(".")
+        if "log_std_linear" in parts:
+            continue
+        if parts[-1] == "kernel":
+            ws.append(params[name])
+        elif parts[-1] == "bi_params":
+            extras.append(params[name])
+    return ws, extras

@@ -111,7 +111,12 @@ class SumRep:
                 == [a.key() for a in other.atoms])
 
     def __hash__(self):
-        return hash(tuple(a.key() for a in self.atoms))
+        # a rep is never changed once built, and the training path keys its
+        # per-layer caches on reps thousands of times per update
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = self._hash = hash(tuple(a.key() for a in self.atoms))
+        return h
 
     def rho_dense(self, assignments: Dict[Group, np.ndarray]) -> np.ndarray:
         """Block-diagonal rho for a dict {group: element} (groups not in the

@@ -1,0 +1,96 @@
+"""The off-policy actor-learner superstep on one device (port of
+``gym_rotor_tpu/parallel/train_step.py:68`` ``make_sharded_td3_superstep``
+for TD3, run on one device): ``rollout_len`` ticks of (act -> K1 tick ->
+K2 ring write with the K8 episode statistics), then ``n_updates`` of (K2
+sample -> ``td3.train_step``).
+
+A ``warm`` superstep acts with uniform actions in [-1, 1) and runs no
+update (the reference's ``start_timesteps`` warm-up).  A train superstep
+acts with the current actors (K3, folded once per parameter version) plus
+clipped Gaussian exploration noise.  Both return the JAX step's metrics:
+``mean_reward``, ``fin_sum``, ``fin_cnt`` and, when training, the last
+update's ``agent{i}/critic_loss`` and ``agent{i}/actor_loss`` (0-d or 1-d
+tensors on the device; reading them syncs).
+
+Everything the step carries is updated in place: the ``TickLoop``
+(env state, packed on the card), the replay ring, the agents' states and
+``ep_ret``; the step returns the new observations and the metrics.  Random
+draws come from ``generator`` or, for parity tests, from ``draws =
+(ticks, updates)``: ``rollout_len`` ``TickDraws`` and ``n_updates``
+``UpdateDraws`` (``envs/draws.py``).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..algos import replay as replay_lib
+from ..algos import td3 as td3_lib
+from ..envs import draws as D
+from ..kernels.env_tick import TickLoop
+from ..utils.config import Config
+from ..utils.device import resolve_device
+
+
+def make_td3_superstep(cfg: Config, agents: Sequence[td3_lib.TD3Agent],
+                       device=None, rollout_len: int = 1, n_updates: int = 1):
+    """Returns ``step(loop, obs, rstate, states, ep_ret, noise_std,
+    warm=False, generator=None, draws=None) -> (obs, metrics)``."""
+    dev = resolve_device(device)
+    n = cfg.n_agents
+    act_dims = tuple(cfg.action_dim_n)
+    m = cfg.max_action
+
+    def act(states, obs, noise_std, td: D.TickDraws, warm: bool):
+        if warm:
+            return D.uniform_in(td.policy, -1.0, 1.0)
+        B = obs[0].shape[0]
+        actions = torch.empty(B, sum(act_dims), dtype=agents[0].dtype,
+                              device=dev)
+        col = 0
+        for agent, st, o, d in zip(agents, states, obs, act_dims):
+            agent.act(st, o, out=actions[:, col:col + d])
+            col += d
+        noise = torch.cat(list(td.policy), dim=-1)
+        return torch.clamp(actions + noise_std * noise, -m, m)
+
+    def step(loop: TickLoop, obs: tuple, rstate: replay_lib.ReplayState,
+             states: List[td3_lib.TD3State], ep_ret: torch.Tensor,
+             noise_std: float, warm: bool = False,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Tuple[Sequence[D.TickDraws],
+                                   Sequence[D.UpdateDraws]]] = None):
+        # the JAX step takes noise_std as a float32 array
+        noise_std = float(np.float32(noise_std))
+        stats = torch.zeros(n + 2, dtype=torch.float32, device=dev)
+        for t in range(rollout_len):
+            td = (draws[0][t] if draws is not None else
+                  D.make_tick_draws(loop.B, act_dims, warm, generator, dev,
+                                    loop.dtype))
+            actions = act(states, obs, noise_std, td, warm)
+            out = loop.step(actions, td.env)
+            replay_lib.insert_tick(rstate, obs, actions, out.reward,
+                                   out.info["terminal_obs"], out.done,
+                                   reset=out.reset_happened, ep_ret=ep_ret,
+                                   stats=stats)
+            obs = out.obs
+        metrics = {"mean_reward": stats[n + 1] / (rollout_len * loop.B * n),
+                   "fin_sum": stats[:n], "fin_cnt": stats[n]}
+        if warm:
+            return obs, metrics
+        for u in range(n_updates):
+            ud = (draws[1][u] if draws is not None else
+                  D.make_update_draws(
+                      cfg.batch_size, rstate.filled, cfg.obs_dim_n, act_dims,
+                      [a.critic_widths for a in agents],
+                      [a.actor_widths for a in agents], generator, dev,
+                      agents[0].dtype))
+            batch = replay_lib.sample(rstate, cfg.batch_size, idx=ud.idx)
+            states, um = td3_lib.train_step(cfg, agents, states, batch,
+                                            ud.agents)
+        metrics.update(um)
+        return obs, metrics
+
+    return step

@@ -1,0 +1,133 @@
+"""Where the time of the PyTorch port's training superstep goes, on one GPU.
+
+    python3 scripts/torch_train_profile.py [--envs 4096] [--steps 60]
+                                           [--out FILE]
+
+Runs ``train`` (the flagship TD3 configuration, one warm superstep, then
+train supersteps of one 4096-env tick and one update each) and, through its
+per-superstep probe, measures three windows of ``--steps`` supersteps after
+a warm-up of 20:
+  1. timed with CUDA events (ms per superstep, env-steps/s, updates/s);
+  2. under ``torch.profiler`` (CPU + CUDA): device time by kernel name and
+     the device-busy share of the wall time;
+  3. under ``cProfile``: the host functions that take the superstep's time.
+Prints JSON lines; ``--out`` also writes the full profiler tables.
+"""
+import argparse
+import cProfile
+import io
+import json
+import os
+import pstats
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+WARMUP = 20
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=60)
+    ap.add_argument("--out", default=None,
+                    help="file for the full profiler tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym_rotor_tpu_torch.kernels import (build, emlp_actor, emlp_block,
+                                             env_tick, flat_adamw, replay,
+                                             spectral)
+    from gym_rotor_tpu_torch.train import train
+    from gym_rotor_tpu_torch.utils.config import Config
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    build.build_all([m.KERNEL for m in (env_tick, emlp_actor, replay,
+                                        emlp_block, flat_adamw, spectral)])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = Config(num_envs=args.envs, start_timesteps=args.envs)
+    n = args.steps
+    t_start, p_start, c_start = 1 + WARMUP, 1 + WARMUP + n, 1 + WARMUP + 2 * n
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    cpr = cProfile.Profile()
+    marks = {}
+
+    def probe(i, warm, metrics, run):
+        # i is the superstep that just ended; a window [a, a + n) starts
+        # when superstep a - 1 ends
+        if i + 1 in (t_start, t_start + n):
+            torch.cuda.synchronize()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[i + 1] = (ev, time.perf_counter())
+        if i + 1 == p_start:
+            torch.cuda.synchronize()
+            prof.start()
+            marks["p0"] = time.perf_counter()
+        if i + 1 == p_start + n:
+            torch.cuda.synchronize()
+            marks["p1"] = time.perf_counter()
+            prof.stop()
+        if i + 1 == c_start:
+            torch.cuda.synchronize()
+            cpr.enable()
+        if i + 1 == c_start + n:
+            torch.cuda.synchronize()
+            cpr.disable()
+
+    train(cfg, c_start + n, device=dev, on_superstep=probe, log=None)
+    (e0, h0), (e1, h1) = marks[t_start], marks[t_start + n]
+    ms = e0.elapsed_time(e1) / n
+    print(json.dumps({"card": card, "envs": args.envs, "supersteps": n,
+                      "updates_per_superstep": 1, "ms_per_superstep": ms,
+                      "host_ms_per_superstep": (h1 - h0) * 1e3 / n,
+                      "env_steps_per_s": args.envs / ms * 1e3,
+                      "updates_per_s": 1e3 / ms}), flush=True)
+
+    wall = marks["p1"] - marks["p0"]
+    dev_us = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = t
+    busy = sum(dev_us.values()) / 1e6
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({"profiled_wall_s": wall, "device_busy_s": busy,
+                      "device_busy_share": busy / wall,
+                      "device_us_per_superstep_by_kernel":
+                          {k[:60]: v / n for k, v in top}}), flush=True)
+
+    buf = io.StringIO()
+    st = pstats.Stats(cpr, stream=buf).sort_stats("tottime")
+    st.print_stats(30)
+    rows = []
+    for (fn, line, name), (cc, nc, tt, ct, _) in sorted(
+            st.stats.items(), key=lambda kv: -kv[1][2])[:15]:
+        rows.append([f"{os.path.basename(fn)}:{line}:{name}", nc,
+                     round(tt / n * 1e3, 4), round(ct / n * 1e3, 4)])
+    print(json.dumps({"host_top_tottime_ms_per_superstep": rows}), flush=True)
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(card + "\n")
+            f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                              row_limit=50))
+            f.write("\n" + buf.getvalue())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -186,14 +186,28 @@ def test_dense_bilinear_equals_structured(agent_id):
 
 
 def test_fold_cache_follows_parameters():
+    """The cache keys on the actor's explicit ``param_version``: a write in
+    place that bumps it refolds, also one through ``.data`` (as a kernel's
+    raw-pointer write, invisible to torch's ``_version``); loading a state
+    dict or moving the module counts as a write too."""
     actor = tzoo.make_actors(TConfig(), device="cpu", seed=4)[1]
     f1 = fold_actor(actor)
     assert fold_actor(actor) is f1
     with torch.no_grad():
         actor.network.block0.linear.kernel.add_(0.1)
+    actor.bump_version()
     f2 = fold_actor(actor)
     assert f2 is not f1
     assert not torch.equal(f1["params"], f2["params"])
+    kernel = actor.network.block0.linear.kernel
+    seen = kernel._version
+    kernel.data.add_(0.1)
+    assert kernel._version == seen            # torch saw no write
+    actor.bump_version()
+    f3 = fold_actor(actor)
+    assert f3 is not f2 and not torch.equal(f2["params"], f3["params"])
+    actor.load_state_dict(actor.state_dict())
+    assert fold_actor(actor) is not f3
 
 
 @pytest.mark.parametrize("agent_id", AGENTS)

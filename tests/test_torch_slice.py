@@ -174,16 +174,107 @@ def test_entry_points_need_a_device(monkeypatch):
     assert convert.env_state_from_numpy(tree, device="cpu").env.x.shape == (4, 3)
 
 
+def test_no_jax_scan_covers_the_training_slice():
+    """The import scan above walks every module of the package, the
+    training slice's included."""
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"algos/replay.py", "algos/td3.py", "algos/common.py",
+            "algos/regularizers.py", "parallel/train_step.py", "train.py",
+            "kernels/replay.py", "kernels/emlp_block.py",
+            "kernels/flat_adamw.py", "kernels/spectral.py"} <= names
+
+
+def test_training_entry_points_need_a_device(monkeypatch):
+    from gym_rotor_tpu_torch.algos import replay as treplay
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.parallel.train_step import make_td3_superstep
+    from gym_rotor_tpu_torch.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TConfig(num_envs=4, critic_hidden_dim=8, actor_hidden_dim=(8, 4))
+    for fn in (lambda: treplay.create(8, (15, 3), (4, 1)),
+               lambda: TD3Agent(cfg, 0), lambda: train(cfg, 1),
+               lambda: make_td3_superstep(cfg, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
+
+
+def test_fold_cache_refolds_after_optimizer_step():
+    """The acting kernel's fold cache sees the flat optimizer's in-place
+    write.  K6 writes the parameters through a raw pointer, which torch's
+    ``_version`` does not see (shown here with a write through ``.data``);
+    the optimizer wrapper bumps the actor's ``param_version`` after every
+    step, and the next fold is of the new parameters."""
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.models.emlp.nn import project_linear
+    cfg = TConfig(critic_hidden_dim=8, actor_hidden_dim=(8, 4))
+    agent = TD3Agent(cfg, 0, "cpu")
+    st = agent.init(torch.Generator().manual_seed(0))
+    actor = agent.actor_net
+    kernel = actor.network.block0.linear.kernel
+    lo = st.actor.data_ptr()
+    assert lo <= kernel.data_ptr() < lo + st.actor.numel() * 4
+    f1 = kemlp.fold_actor(actor)
+    assert kemlp.fold_actor(actor) is f1
+    seen = kernel._version
+    st.actor.data.mul_(1.5)                    # as a raw-pointer write
+    assert kernel._version == seen
+    assert kemlp.fold_actor(actor) is f1       # nobody said so: still cached
+    grad = torch.randn(st.actor.shape, generator=torch.Generator().manual_seed(1))
+    folds = kemlp.fold_actor.folds
+    st.actor_opt = agent.actor_tx.update(st.actor, grad, st.actor_opt,
+                                         target=st.actor_target, tau=cfg.tau,
+                                         owner=actor)
+    f2 = kemlp.fold_actor(actor)
+    assert f2 is not f1 and kemlp.fold_actor.folds == folds + 1
+    blk = actor.network.block0
+    W, b = project_linear(blk.linear.rep_in, blk.linear.rep_out, kernel,
+                          blk.linear.bias)
+    torch.testing.assert_close(f2["blocks"][0][0], W.detach(), rtol=0, atol=0)
+    assert not torch.equal(f1["blocks"][0][0], f2["blocks"][0][0])
+
+
+def test_train_loop_cpu():
+    """``train`` on the CPU at a tiny size: the warm gate on
+    ``start_timesteps``, one update per train superstep, the exploration
+    noise decay, the episode log, and no kernel launch."""
+    from gym_rotor_tpu_torch.train import train
+    cfg = TConfig(num_envs=6, max_steps=4, start_timesteps=12, batch_size=8,
+                  replay_buffer_size=40, critic_hidden_dim=8,
+                  actor_hidden_dim=(8, 4), max_timesteps=600)
+    seen = []
+    wrappers = [kemlp.emlp_actor, ktick.env_tick]
+    before = [w.launches for w in wrappers]
+    run = train(cfg, 6, device="cpu", log=None,
+                on_superstep=lambda i, warm, m, r: seen.append((warm, set(m))))
+    assert [w for w, _ in seen] == [True, True, False, False, False, False]
+    assert "agent1/critic_loss" in seen[-1][1] and "agent0/actor_loss" in seen[-1][1]
+    assert [s.total_it for s in run["states"]] == [4, 4]
+    assert run["total_timesteps"] == 36 and run["replay"].filled == 36
+    decay = (cfg.explor_noise_std_init - cfg.explor_noise_std_min) / 600 * 6
+    assert run["noise_std"] == pytest.approx(
+        max(cfg.explor_noise_std_init - 6 * decay, cfg.explor_noise_std_min))
+    assert run["episodes"] and all(len(r) == 2 for _, r in run["episodes"])
+    assert [w.launches for w in wrappers] == before
+
+
 def test_every_cuda_source_has_wrapper_and_plain_twin():
+    """Each ``csrc/<name>.cu`` is built by ``kernels/<name>.py``, whose
+    ``WRAPPERS`` name every launching wrapper (with its launch count) and
+    its plain twin; the source names the JAX code it replaces and its
+    bound."""
     import importlib
     sources = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
-    assert {p.stem for p in sources} == {"env_tick", "emlp_actor"}
+    assert {p.stem for p in sources} == {"env_tick", "emlp_actor", "replay",
+                                         "emlp_block", "flat_adamw",
+                                         "spectral"}
     for src in sources:
         mod = importlib.import_module(f"gym_rotor_tpu_torch.kernels.{src.stem}")
         assert mod.KERNEL.source == src
-        wrapper = getattr(mod, src.stem)
-        assert callable(wrapper) and isinstance(wrapper.launches, int)
-        assert callable(getattr(mod, f"{src.stem}_plain"))
+        assert mod.WRAPPERS
+        for wrapper_name, plain_name in mod.WRAPPERS.items():
+            wrapper = getattr(mod, wrapper_name)
+            assert callable(wrapper) and isinstance(wrapper.launches, int)
+            assert callable(getattr(mod, plain_name))
         text = src.read_text()
         assert "Replaces gym_rotor_tpu/" in text and "Bound on an H100" in text
 
