@@ -5,8 +5,8 @@ check them.
 
 Phases (each prints its own line; any failure exits non-zero and prints no
 result line):
-  1. build      nvcc all six kernels in parallel; print build time and the
-                registers/spills ``-Xptxas -v`` reports
+  1. build      nvcc all seven kernel sources in parallel; print build time
+                and the registers/spills ``-Xptxas -v`` reports
   2. env_tick   K1 kernel vs its plain twin at B = 4096 float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
                 the cap, then one kernel tick and one plain tick on the same
@@ -25,26 +25,43 @@ result line):
                 256-row sample, and the empty ring's NaN poison
   7. emlp_block K3 (training widths) and K4 vs plain for the eight block
                 shapes of the four networks, at the update's batches
-                (256; 768 for the actor loss), forward and all four
-                gradients; and the kernel autograd path vs the structured
-                network's torch autograd for both twin critics
+                (256; 768 for TD3's actor loss, 1024 for SAC's), forward
+                and all four gradients; and the kernel autograd path vs the
+                structured network's torch autograd for both twin critics
   8. flat_adamw K6 vs plain for the four networks' flat vectors at a
                 count > 0, with the clip triggered and not, with Polyak
   9. spectral   K7 vs plain on the critics' and actors' weight stacks
- 10. train      ``train``: 4096 envs, 1 warm then TRAIN_STEPS train
+ 10. sac_actor  K9 vs its plain twin, both SAC actors, B = 4096 and the eval
+                path's B = 10, train and eval modes, the log_std head as
+                initialised and pushed past both clip bounds; then SAC's
+                actor-loss sample (K3/K4 trunk, K10) under autograd vs the
+                structured network and the plain sample
+ 11. sac_sample K10 forward and backward vs plain at 256 and 1024 rows of 4
+                and 1 actions: moderate, clip-bound and saturated rows
+ 12. train      ``train``: 4096 envs, 1 warm then TRAIN_STEPS train
                 supersteps (one update each); exact launch counts of every
                 kernel per superstep (the delayed actor step every third),
                 the fold cache refolding after each actor update, finite
                 losses, changed parameters; env-steps/s, updates/s and ms
-                per update by CUDA events
- 11. kernels    per kernel: launches on the train path, device time per
-                launch, plain twin's time, the H100 bound, and a PyTorch
-                yardstick call where one computes the same function
+                per superstep by CUDA events
+ 13. sac_train  ``train(Config(rl_algo="SAC"))`` the same way, 1 warm then
+                SAC_STEPS train supersteps: exact launch counts, one fold
+                per actor and superstep, the actor and critic moving on
+                every update and the critic target only on gated ones;
+                then 3 supersteps with ``automatic_entropy_tuning`` moving
+                ``log_alpha`` on each
+ 14. kernels    per kernel: launches on the train paths (K9 and K10 on the
+                SAC path's), device time per launch, plain twin's time, the
+                H100 bound, and a PyTorch yardstick call where one computes
+                the same function; and K5 (``project_linear``, plain torch)
+                per call at every layer shape the train paths project, with
+                its calls per superstep
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -61,12 +78,14 @@ H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 B = 4096
 TICKS = 1000
 TRAIN_STEPS = 300
+SAC_STEPS = 200
 SEED = 0
+F32_EPS = 2.0 ** -23
 CARD = ""            # nvidia-smi name and power limit, set in main()
 
 
 def log(phase, **kv):
-    if phase in ("rollout", "eval", "train", "kernels"):
+    if phase in ("rollout", "eval", "train", "sac_train", "kernels"):
         kv["card"] = CARD
     print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
 
@@ -170,8 +189,9 @@ def count_flops(fn, *args):
 def _kernel_modules():
     from gym_rotor_tpu_torch.kernels import (emlp_actor, emlp_block,
                                              env_tick, flat_adamw, replay,
-                                             spectral)
-    return [env_tick, emlp_actor, replay, emlp_block, flat_adamw, spectral]
+                                             sac_sample, spectral)
+    return [env_tick, emlp_actor, replay, emlp_block, flat_adamw, spectral,
+            sac_sample]
 
 
 def _wrappers():
@@ -442,9 +462,9 @@ def _plain_apply(module, views, *args):
 def _block_inputs(agent, st, i, obs, act):
     """Per network of agent ``i``: (name, EMLP module, parameter views,
     prefix, input, batches on the update path)."""
-    o = obs[i][:3 * 256]
+    o = obs[i][:4 * 256]
     return [("actor", agent.actor_net.network, agent.actor_layout.views(st.actor),
-             "network.", o, (256, 768)),
+             "network.", o, (256, 768, 1024)),
             ("critic1", agent.critic_net.network1,
              agent.critic_layout.views(st.critic), "network1.",
              torch.cat([o, act], -1), (256,)),
@@ -465,7 +485,7 @@ def phase_emlp_block(cfg, dev, agents, states, obs):
     worst_fwd = worst_bwd = 0.0
     bad, shapes = [], set()
     for i, (agent, st) in enumerate(zip(agents, states)):
-        act = torch.rand(768, cfg.action_dim_n[i], generator=gen, device=dev) * 2 - 1
+        act = torch.rand(1024, cfg.action_dim_n[i], generator=gen, device=dev) * 2 - 1
         for name, net, views, prefix, x0, batches in _block_inputs(
                 agent, st, i, obs, act):
             for nb in batches:
@@ -608,6 +628,167 @@ def phase_spectral(cfg, dev, agents, states):
     return worst
 
 
+class _Dist(torch.nn.Module):
+    """An ``EMLPActorSAC``'s structured ``dist`` as a module's forward, for
+    ``functional_call`` with a leaf's views as its parameters."""
+
+    def __init__(self, actor):
+        super().__init__()
+        self.actor = actor
+
+    def forward(self, obs):
+        return self.actor.dist(obs)
+
+
+def phase_sac_actor(cfg, dev, obs):
+    """K9 vs its plain twin (``EMLPActorSAC.dist`` and the squashed sample)
+    on both SAC actors, at B = 4096 and the eval path's B = 10, in train
+    mode (N(0, 1) noise) and eval mode (``tanh(mean)``), with the log_std
+    head's bias as initialised and shifted by +-25 (every row at a clip
+    bound).  Tolerance 1e-5 (tanh outputs).  Then the actor loss's sample
+    path at its 1024 rows, K3/K4 trunk and K10 under autograd, vs the
+    structured network and the plain sample under torch autograd: values
+    and the flat gradient within 2e-5 max(1, max |plain|)."""
+    from torch.func import functional_call
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.kernels import emlp_actor as K
+    from gym_rotor_tpu_torch.kernels.sac_sample import sac_sample_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    init = torch.Generator().manual_seed(SEED)
+    scfg = cfg.replace(rl_algo="SAC")
+    agents = [SACAgent(scfg, i, dev) for i in range(cfg.n_agents)]
+    states = [a.init(init) for a in agents]
+    worst, bad = 0.0, []
+    for i, (agent, o_full) in enumerate(zip(agents, obs)):
+        actor = agent.actor_net
+        bias = actor.log_std_linear.bias
+        saved = bias.detach().clone()
+        for shift in (0.0, 25.0, -25.0):
+            with torch.no_grad():
+                bias.copy_(saved + shift)
+            actor.bump_version()
+            for o in (o_full, o_full[:cfg.num_eval]):
+                nb = int(o.shape[0])
+                noise = torch.randn(nb, agent.action_dim, generator=gen,
+                                    device=dev)
+                with torch.no_grad():
+                    ls = actor.dist(o)[1]
+                at_clip = float(((ls == -20.0) | (ls == 2.0)).float().mean())
+                for mode, nz in (("train", noise), ("eval", None)):
+                    with torch.no_grad():
+                        yk = K.sac_actor(actor, o, nz)
+                        yp = K.sac_actor_plain(actor, o, nz)
+                    err = float((yk - yp).abs().max())
+                    worst = max(worst, err)
+                    log("sac_actor", agent=i, batch=nb, mode=mode,
+                        log_std_shift=shift, log_std_at_clip=at_clip,
+                        dims=K.actor_dims(actor), max_abs_err=err)
+                    if not (err <= 1e-5 and torch.isfinite(yk).all()):
+                        bad.append((i, nb, mode, shift, err))
+        with torch.no_grad():
+            bias.copy_(saved)
+        actor.bump_version()
+
+        o = obs[i][:4 * cfg.batch_size].contiguous()
+        nb = int(o.shape[0])
+        noise = torch.randn(nb, agent.action_dim, generator=gen, device=dev)
+        g_a = torch.randn(nb, agent.action_dim, generator=gen, device=dev)
+        g_l = torch.randn(nb, 1, generator=gen, device=dev)
+        st = states[i]
+        leaf_k = st.actor.detach().clone().requires_grad_(True)
+        a_k, lp_k = agent.sample_f(agent.actor_layout.views(leaf_k), o, noise)
+        yk = (a_k * g_a).sum() + (lp_k * g_l).sum()
+        (gk,) = torch.autograd.grad(yk, leaf_k)
+        leaf_p = st.actor.detach().clone().requires_grad_(True)
+        views = {"actor." + n: t
+                 for n, t in agent.actor_layout.views(leaf_p).items()}
+        mean, log_std = functional_call(_Dist(actor), views, (o,))
+        a_p, lp_p = sac_sample_plain(mean, log_std, noise)
+        yp = (a_p * g_a).sum() + (lp_p * g_l).sum()
+        (gp,) = torch.autograd.grad(yp, leaf_p)
+        checks = {"action": _err(a_k.detach(), a_p.detach()),
+                  "log_prob": _err(lp_k.detach(), lp_p.detach()),
+                  "grad": _err(gk, gp)}
+        log("sac_actor", agent=i, check="actor-loss sample under autograd vs "
+            "structured", batch=nb, grad_scale=float(gp.abs().max()),
+            max_abs_err={k: v[0] for k, v in checks.items()})
+        bad += [(i, k, d) for k, (d, tol, fin) in checks.items()
+                if not (d <= tol and fin)]
+    if bad:
+        raise AssertionError(f"sac_actor kernel disagrees with plain: {bad}")
+    return agents, states, worst
+
+
+def _k10_inputs(n, act, gen, dev):
+    """K10's inputs: rows of four kinds, a quarter each: moderate (|x| <
+    2.5), log_std at its upper clip (2), at its lower clip (-20), and
+    saturated (|mean| 30, log_std at either bound); cotangents N(0, 1)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    q = n // 4
+    m = 0.4 * randn(n, act)
+    s = torch.rand(n, act, generator=gen, device=dev) * 3.5 - 3.0
+    z = randn(n, act).clamp(-1.2, 1.2)
+    s[q:2 * q] = 2.0
+    z[q:2 * q] *= 0.2
+    s[2 * q:3 * q] = -20.0
+    m[3 * q:] = torch.where(m[3 * q:] < 0, -30.0, 30.0)
+    s[3 * q:] = torch.where(
+        torch.rand(n - 3 * q, act, generator=gen, device=dev) < 0.5, 2.0,
+        -20.0)
+    return m, s, z, randn(n, act), randn(n, 1)
+
+
+def _k10_check(k, p, allowance):
+    """(max |k - p|, worst ratio to the tolerance ``1e-5 max(1, max |p|)
+    + allowance`` per element, finite)."""
+    d = (k.double() - p.double()).abs()
+    tol = 1e-5 * max(1.0, float(p.abs().max())) + allowance.double()
+    return float(d.max()), float((d / tol).max()), bool(torch.isfinite(k).all())
+
+
+def phase_sac_sample(dev):
+    """K10 forward and backward vs plain, at the SAC update's 256 (target
+    sample) and 1024 (actor loss) rows, for both agents' action widths.
+    Tolerance per element: 1e-5 max(1, max |plain|), plus, where the
+    expression is ill-conditioned, 8 ulp of its sensitivity: for the
+    log-prob ``sum 1 / ((1 - a^2) + EPS)`` (an ulp of ``a`` near +-1 moves
+    ``log((1 - a^2) + EPS)`` by up to ~0.1), for the gradients the terms
+    ``kernels/sac_sample.py::rounding_scales`` names.  Saturated rows must
+    give ``|a| = 1`` exactly."""
+    from gym_rotor_tpu_torch.kernels import sac_sample as K
+    from gym_rotor_tpu_torch.models.mlp import EPS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst, bad = {"forward": 0.0, "backward": 0.0}, []
+    for n in (256, 1024):
+        for act in (4, 1):
+            m, s, z, g_a, g_l = _k10_inputs(n, act, gen, dev)
+            ak, lk = K.sac_sample(m, s, z)
+            ap, lp = K.sac_sample_plain(m, s, z)
+            gmk, gsk = K.sac_sample_backward(g_a, g_l, m, s, z)
+            gmp, gsp = K.sac_sample_backward_plain(g_a, g_l, m, s, z)
+            sm, ss = K.rounding_scales(g_a, g_l, m, s, z)
+            cond = (1.0 / ((1.0 - ap * ap) + EPS)).sum(-1, keepdim=True)
+            checks = {"action": _k10_check(ak, ap, 0 * ap),
+                      "log_prob": _k10_check(lk, lp, 8 * F32_EPS * cond),
+                      "g_mean": _k10_check(gmk, gmp, 8 * F32_EPS * sm),
+                      "g_log_std": _k10_check(gsk, gsp, 8 * F32_EPS * ss)}
+            saturated = bool((ak[3 * (n // 4):].abs() == 1.0).all())
+            log("sac_sample", rows=n, act=act, saturated_rows_at_1=saturated,
+                max_abs_err={k: v[0] for k, v in checks.items()},
+                worst_tolerance_ratio={k: v[1] for k, v in checks.items()})
+            for k, (d, ratio, fin) in checks.items():
+                side = "forward" if k in ("action", "log_prob") else "backward"
+                worst[side] = max(worst[side], d)
+                if not (ratio <= 1.0 and fin):
+                    bad.append((n, act, k, d, ratio))
+            if not saturated:
+                bad.append((n, act, "saturated rows"))
+    if bad:
+        raise AssertionError(f"sac_sample kernel disagrees with plain: {bad}")
+    return worst
+
+
 def expected_launches(cfg, warm: bool, gated: bool):
     """Kernel launches of one superstep (rollout_len 1, one update)."""
     if warm:
@@ -623,12 +804,151 @@ def expected_launches(cfg, warm: bool, gated: bool):
             "flat_adamw": n * (2 if gated else 1)}
 
 
-def phase_train(dev):
+def expected_launches_sac(cfg, warm: bool):
+    """Kernel launches of one SAC superstep (rollout_len 1, one update):
+    the same on every train superstep, since the actor steps on every
+    update and the critic target's Polyak rides in the critic's K6."""
+    if warm:
+        return {"env_tick": 1, "replay_insert_tick": 1}
+    n = cfg.n_agents
+    # per agent: the target sample (actor 2 blocks, K10) and the twin
+    # target critic (4); the critic loss (4) and its backward (4); the
+    # actor loss over 4 x 256 rows (2 blocks, K10), q1 and q2 on its action
+    # (4), backward through both critics without the parameter sums (4),
+    # the actor's blocks (2) and K10
+    return {"env_tick": 1, "sac_actor": n, "replay_insert_tick": 1,
+            "replay_sample": 1, "emlp_block": 16 * n,
+            "emlp_block_backward": 10 * n, "sac_sample": 2 * n,
+            "sac_sample_backward": n, "spectral_iterate": 2 * n,
+            "flat_adamw": 2 * n}
+
+
+class K5Calls:
+    """Counts the calls of K5 (``project_linear``, plain torch: a handful
+    of small torch ops each) by layer reps while installed, in both modules
+    that call it."""
+
+    def __init__(self):
+        from gym_rotor_tpu_torch.kernels import emlp_block
+        from gym_rotor_tpu_torch.models.emlp import nn
+        self.mods, self.orig = (nn, emlp_block), nn.project_linear
+        self.calls, self.reps = Counter(), {}
+
+    def __enter__(self):
+        def counted(rep_in, rep_out, kernel, bias):
+            key = (hash(rep_in), hash(rep_out))
+            self.calls[key] += 1
+            self.reps[key] = (rep_in, rep_out)
+            return self.orig(rep_in, rep_out, kernel, bias)
+        for m in self.mods:
+            m.project_linear = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.project_linear = self.orig
+
+
+def phase_train_sac(dev, steps, auto, k5=None):
+    """The SAC training entry point at full width: 1 warm superstep, then
+    ``steps`` train supersteps, each checked as it ends: exact launch
+    counts, one fold per actor (its K6 step makes the next act refold),
+    finite losses, the actor and critic moving on every update, the critic
+    target only on gated ones, ``log_alpha`` only with ``auto``."""
+    from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
+    from gym_rotor_tpu_torch.train import train
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(num_envs=B, start_timesteps=B, rl_algo="SAC",
+                 automatic_entropy_tuning=auto)
+    wr = _wrappers()
+    probe = dict(last={}, folds=0, bad=[], prev=None, first=None, events=[],
+                 losses=[], alpha=[], t_host=None)
+
+    def snap(run):
+        return [(st.actor.clone(), st.critic.clone(),
+                 st.critic_target.clone(), st.log_alpha.clone())
+                for st in run["states"]]
+
+    def on_superstep(i, warm, metrics, run):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        probe["events"].append(ev)
+        now = {k: w.launches for k, w in wr.items()}
+        delta = {k: v - probe["last"].get(k, 0) for k, v in now.items()}
+        probe["last"] = now
+        want = expected_launches_sac(cfg, warm)
+        if i == 0:
+            want["env_tick"] += 1           # train()'s batched reset
+        got = {k: v for k, v in delta.items() if v}
+        if got != want:
+            probe["bad"].append((i, "launches", got, want))
+        folds = fold_actor.folds - probe["folds"]
+        probe["folds"] = fold_actor.folds
+        stale = [a.actor_net._folded[0] != a.actor_net.param_version
+                 for a in run["agents"]] if not warm else []
+        if folds != (0 if warm else cfg.n_agents) or not all(stale):
+            probe["bad"].append((i, "folds", folds, stale))
+        cur = snap(run)
+        if warm:
+            probe["first"] = cur
+            probe["t_host"] = time.perf_counter()
+        else:
+            gated = i % cfg.policy_update_freq == 0
+            for j, (p, c) in enumerate(zip(probe["prev"], cur)):
+                moved = [not torch.equal(x, y) for x, y in zip(p, c)]
+                if moved != [True, True, gated, auto]:
+                    probe["bad"].append((i, "moved", j, moved))
+            losses = [float(v) for k, v in metrics.items() if "loss" in k]
+            probe["losses"].append(losses)
+            probe["alpha"].append([float(metrics[f"agent{j}/alpha"])
+                                   for j in range(cfg.n_agents)])
+            if not all(math.isfinite(x) for x in losses) or \
+                    not math.isfinite(float(metrics["mean_reward"])):
+                probe["bad"].append((i, "non-finite", losses))
+        probe["prev"] = cur
+
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    probe["folds"] = fold_actor.folds
+    with (k5 or contextlib.nullcontext()):
+        run = train(cfg, 1 + steps, device=dev, on_superstep=on_superstep,
+                    log=None)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wr.items()}
+    host_s = time.perf_counter() - probe["t_host"]
+    dev_ms = probe["events"][0].elapsed_time(probe["events"][-1])
+    agents, states, rs = run["agents"], run["states"], run["replay"]
+    changed = []
+    for a, st, (a0, c0, t0, _) in zip(agents, states, probe["first"]):
+        now, was = (a.critic_layout.views(st.critic),
+                    a.critic_layout.views(c0))
+        nets = [bool((st.actor != a0).any())]
+        nets += [any(bool((now[n] != was[n]).any()) for n in now
+                     if n.startswith(pre)) for pre in ("network1.", "network2.")]
+        nets.append(bool((st.critic_target != t0).any()))
+        changed.append(nets)
+    total_it = [st.total_it for st in states]
+    log("sac_train", envs=B, supersteps=1 + steps, warm_supersteps=1,
+        automatic_entropy_tuning=auto, launches=launches, total_it=total_it,
+        changed_actor_net1_net2_target=changed, train_ms=dev_ms,
+        env_steps_per_s=B * steps / (dev_ms / 1e3),
+        updates_per_s=steps / (dev_ms / 1e3), ms_per_superstep=dev_ms / steps,
+        host_s=host_s, losses_first=probe["losses"][0],
+        losses_last=probe["losses"][-1], alpha_first=probe["alpha"][0],
+        alpha_last=probe["alpha"][-1], fill=rs.filled,
+        episodes_logged=len(run["episodes"]), mismatches=probe["bad"][:5])
+    if probe["bad"]:
+        raise AssertionError(f"SAC train path: {probe['bad'][:5]}")
+    if total_it != [steps] * cfg.n_agents or not all(map(all, changed)):
+        raise AssertionError(f"SAC train path did not update: {total_it} "
+                             f"{changed}")
+    return launches
+
+
+def phase_train(dev, k5=None):
     """The training entry point at full width: 1 warm superstep, then
     TRAIN_STEPS train supersteps, each checked as it ends."""
-    from gym_rotor_tpu_torch.algos import replay as R
-    from gym_rotor_tpu_torch.algos import td3
-    from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.kernels import emlp_block
     from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
     from gym_rotor_tpu_torch.train import train
@@ -682,8 +1002,9 @@ def phase_train(dev):
     probe["folds"] = fold_actor.folds
     emlp_block.emlp_block.by_shape.clear()
     emlp_block.emlp_block_backward.by_shape.clear()
-    run = train(cfg, 1 + TRAIN_STEPS, device=dev, on_superstep=on_superstep,
-                log=None)
+    with (k5 or contextlib.nullcontext()):
+        run = train(cfg, 1 + TRAIN_STEPS, device=dev,
+                    on_superstep=on_superstep, log=None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items()}
     shapes = (Counter(emlp_block.emlp_block.by_shape),
@@ -693,35 +1014,14 @@ def phase_train(dev):
     changed = [(bool((st.actor != a0).any()), bool((st.critic != c0).any()))
                for st, (a0, c0) in zip(run["states"], probe["before"])]
     total_it = [st.total_it for st in run["states"]]
-    # ms per update: the superstep's update alone, CUDA events around a
-    # run of updates (a third of them with the actor step)
-    agents, states, rs = run["agents"], run["states"], run["replay"]
-    n_upd = 30
-
-    def one_update():
-        ud = D.make_update_draws(
-            cfg.batch_size, rs.filled, cfg.obs_dim_n, cfg.action_dim_n,
-            [a.critic_widths for a in agents], [a.actor_widths for a in agents],
-            None, dev)
-        batch = R.sample(rs, cfg.batch_size, idx=ud.idx)
-        td3.train_step(cfg, agents, states, batch, ud.agents)
-    one_update()
-    torch.cuda.synchronize()
-    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(n_upd):
-        one_update()
-    e.record()
-    torch.cuda.synchronize()
-    upd_ms = s.elapsed_time(e) / n_upd
     first, last = probe["losses"][0], probe["losses"][-1]
     log("train", envs=B, supersteps=1 + TRAIN_STEPS, warm_supersteps=1,
         launches=launches, total_it=total_it, params_changed=changed,
         train_ms=dev_ms, env_steps_per_s=B * TRAIN_STEPS / (dev_ms / 1e3),
         updates_per_s=TRAIN_STEPS / (dev_ms / 1e3),
         ms_per_superstep=dev_ms / TRAIN_STEPS, host_s=host_s,
-        ms_per_update=upd_ms, losses_first=first, losses_last=last,
-        fill=rs.filled, episodes_logged=len(run["episodes"]),
+        losses_first=first, losses_last=last,
+        fill=run["replay"].filled, episodes_logged=len(run["episodes"]),
         mismatches=probe["bad"][:5])
     if probe["bad"]:
         raise AssertionError(f"train path: {probe['bad'][:5]}")
@@ -987,6 +1287,119 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
     return records
 
 
+def phase_sac_kernels(cfg, dev, sac_agents, obs, launches, errs):
+    """Records of K9 and K10: device time per launch at the SAC path's
+    shapes, plain twin's time and bound; no one PyTorch call computes
+    either function."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import sac_sample as KS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    records = []
+
+    # K9 at B = 4096 in train mode, both agents (each once per tick)
+    inst = []
+    for i, (agent, o) in enumerate(zip(sac_agents, obs)):
+        actor = agent.actor_net
+        noise = torch.randn(B, agent.action_dim, generator=gen, device=dev)
+        with torch.no_grad():
+            k_ms, k_wall = device_ms(lambda: KA.sac_actor(actor, o, noise), 100)
+            p_ms, p_wall = device_ms(
+                lambda: KA.sac_actor_plain(actor, o, noise), 10, 3)
+        folded = KA.fold_actor(actor)
+        nin, ng, nh, nact = folded["dims"]
+        # K3's blocks per row (see phase_kernels), then the mean head, the
+        # log_std head and its clip, exp, the sample and tanh
+        per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
+                      for ni, nnz in zip((nin, nh), folded["nnz"]))
+        per_row += 2 * (2 * nh * nact + nact) + 6 * nact
+        flops = B * per_row
+        nbytes = (o.numel() + 2 * B * nact + folded["params"].numel()
+                  + folded["ints"].numel()) * 4
+        bms, by = bound_ms(nbytes, flops)
+        inst.append((1, k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="sac_actor", agent=i, dims=[nin, ng, nh, nact],
+            batch=B, mode="train", ms=k_ms, wall_ms_per_call=k_wall,
+            plain_ms=p_ms, plain_wall_ms=p_wall, bytes=nbytes, flops=flops,
+            bound_ms=bms, bound_by=by, library_ms=None)
+    records.append(_record("sac_actor", "emlp_actor.cu",
+                           "gym_rotor_tpu/algos/sac.py:114",
+                           launches["sac_actor"], errs["sac_actor"], inst))
+
+    # K10 per agent: forward at 256 (target) and 1024 (actor loss) rows,
+    # backward at 1024; 16 flops an element forward, 27 backward
+    fwd, bwd = [], []
+    for agent in sac_agents:
+        act = agent.action_dim
+        for n in (cfg.batch_size, 4 * cfg.batch_size):
+            m, s, z, g_a, g_l = _k10_inputs(n, act, gen, dev)
+            k_ms, _ = device_ms(lambda: KS.sac_sample(m, s, z), 100)
+            p_ms, _ = device_ms(lambda: KS.sac_sample_plain(m, s, z), 50)
+            bms, by = bound_ms(4 * (4 * n * act + n), 16 * n * act)
+            fwd.append((1, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="sac_sample", rows=n, act=act, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bms, bound_by=by, library_ms=None)
+            if n == cfg.batch_size:
+                continue
+            k_ms, _ = device_ms(
+                lambda: KS.sac_sample_backward(g_a, g_l, m, s, z), 100)
+            p_ms, _ = device_ms(
+                lambda: KS.sac_sample_backward_plain(g_a, g_l, m, s, z), 50)
+            bms, by = bound_ms(4 * (6 * n * act + n), 27 * n * act)
+            bwd.append((1, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="sac_sample_backward", rows=n, act=act,
+                ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
+    records.append(_record("sac_sample", "sac_sample.cu",
+                           "gym_rotor_tpu/models/mlp.py:129",
+                           launches["sac_sample"], errs["sac_sample"]["forward"],
+                           fwd))
+    records.append(_record("sac_sample_backward", "sac_sample.cu",
+                           "gym_rotor_tpu/models/mlp.py:129",
+                           launches["sac_sample_backward"],
+                           errs["sac_sample"]["backward"], bwd))
+    return records
+
+
+def phase_k5(dev, k5_td3, k5_sac):
+    """K5 (``project_linear``, plain torch) at every layer shape the two
+    train paths projected: device time per call, the bound (the bytes of
+    ``Qw``, ``Qb``, the masks, ``W`` and ``b`` read once and ``W_eff``,
+    ``b_eff`` written once), and the ``Qw (Qwᵀ w)`` matmul pair alone as
+    the library call; calls per train superstep of each path."""
+    from gym_rotor_tpu_torch.models.emlp.nn import (_projector_tensors,
+                                                    project_linear)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    inst = []
+    for key in sorted(set(k5_td3.calls) | set(k5_sac.calls)):
+        rin, rout = (k5_td3.reps.get(key) or k5_sac.reps[key])
+        nout, nin = rout.size, rin.size
+        W = torch.randn(nout, nin, generator=gen, device=dev)
+        b = torch.randn(nout, generator=gen, device=dev)
+        Qw, Qb, _, _ = _projector_tensors(rin, rout, dev, torch.float32)
+        w = W.reshape(-1)
+        k_ms, k_wall = device_ms(lambda: project_linear(rin, rout, W, b), 100)
+        l_ms, _ = device_ms(lambda: Qw @ (Qw.T @ w), 100)
+        nbytes = 4 * (Qw.numel() + Qb.numel() + 3 * W.numel() + 3 * nout)
+        bms, by = bound_ms(nbytes, 4 * (Qw.numel() + Qb.numel())
+                           + 2 * (W.numel() + nout))
+        per = (k5_td3.calls[key] / TRAIN_STEPS, k5_sac.calls[key] / SAC_STEPS)
+        inst.append((per, k_ms, bms, l_ms))
+        log("kernels", kernel="project_linear (K5, plain torch)", nin=nin,
+            nout=nout, qw_cols=int(Qw.shape[1]), qb_cols=int(Qb.shape[1]),
+            calls_per_superstep={"td3": per[0], "sac": per[1]}, ms=k_ms,
+            wall_ms_per_call=k_wall, bytes=nbytes, bound_ms=bms, bound_by=by,
+            library_ms=l_ms, library="Qw @ (Qw.T @ w)")
+    for j, path in enumerate(("td3", "sac")):
+        calls = sum(r[0][j] for r in inst)
+
+        def mean(k):
+            return sum(r[0][j] * r[k] for r in inst) / calls
+        log("kernels", kernel="project_linear (K5, plain torch)", path=path,
+            calls_per_superstep=calls, ms_per_call=mean(1),
+            bound_ms_per_call=mean(2), library_ms_per_call=mean(3),
+            ms_per_superstep=calls * mean(1))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1031,10 +1444,17 @@ def main():
         cfg, dev, agents, states, obs)
     errs["flat_adamw"] = phase_flat_adamw(cfg, dev, agents)
     errs["spectral"] = phase_spectral(cfg, dev, agents, states)
-    launches, shapes = phase_train(dev)
+    sac_agents, _, errs["sac_actor"] = phase_sac_actor(cfg, dev, obs)
+    errs["sac_sample"] = phase_sac_sample(dev)
+    k5_td3, k5_sac = K5Calls(), K5Calls()
+    launches, shapes = phase_train(dev, k5_td3)
+    sac_launches = phase_train_sac(dev, SAC_STEPS, False, k5_sac)
+    phase_train_sac(dev, 3, True)
     records = phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err)
     records += phase_train_kernels(cfg, dev, rep, agents, states, launches,
                                    shapes, errs)
+    records += phase_sac_kernels(cfg, dev, sac_agents, obs, sac_launches, errs)
+    phase_k5(dev, k5_td3, k5_sac)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Learner plumbing (port of ``gym_rotor_tpu/algos/common.py``): the
 cosine warm-restart schedule, the flat optimizer chain (clip to the global
-norm, then AdamW, with optax's semantics), flat Polyak averaging and mse.
+norm, then AdamW, with optax's semantics), flat Polyak averaging and mse;
+and what the TD3 and SAC learners share: ``FlatAgent`` and the
+spectral-norm penalty on a network's parameter views.
 
 Flat parameters: each network's parameters are views into ONE flat leaf in
 ``ravel_pytree`` order (the dotted flax paths sorted as path tuples, which
@@ -14,12 +16,17 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.emlp_block import emlp_apply
 from ..kernels.flat_adamw import StepScalars, flat_adamw
+from ..models.emlp.nn import spectral_weights
+from ..utils.config import Config
+from ..utils.device import resolve_device
+from . import regularizers
 
 
 def cosine_warm_restarts(base_lr: float, t0: int = 1_000_000,
@@ -131,3 +138,80 @@ def flat_polyak(target: torch.Tensor, flat_new: torch.Tensor,
 
 def mse(a, b):
     return torch.mean((a - b) ** 2)
+
+
+def spectral_widths(layout: FlatLayout) -> List[int]:
+    """Input widths of the regularized weights, in ``spectral_weights``
+    order: the start vectors' sizes."""
+    shapes = dict(zip(layout.names, layout.shapes))
+    ws, _ = spectral_weights({n: torch.empty(s, device="meta")
+                              for n, s in shapes.items()})
+    return [int(w.shape[1]) for w in ws]
+
+
+def spectral_penalty(views: Dict[str, torch.Tensor], starts):
+    """The spectral-norm regularizer over a network's parameter views, from
+    the power iterations' start vectors ``starts``."""
+    ws, extras = spectral_weights(views)
+    return regularizers.spectral_norm_regularization(ws, starts, extras)
+
+
+class FlatAgent:
+    """What the TD3 and SAC agents share: the per-agent configuration, the
+    acting and critic modules (``models(generator) -> (actor, critic)``,
+    made on the CPU, moved to the device and bound to a state's flat
+    vectors), their flat layouts, optimizers and spectral widths, and the
+    twin critic on parameter views."""
+
+    def __init__(self, cfg: Config, agent_id: int, device, dtype, models,
+                 algo: str):
+        if cfg.framework == "MODUL" and cfg.module_training == "CTDE":
+            raise NotImplementedError(f"the CTDE branch of {algo} is not "
+                                      "ported")
+        self.cfg, self.agent_id, self.dtype = cfg, agent_id, dtype
+        self.device = resolve_device(device)
+        self.obs_dim = cfg.obs_dim_n[agent_id]
+        self.action_dim = cfg.action_dim_n[agent_id]
+        self._models = models
+        actor, critic = models(torch.Generator().manual_seed(0))
+        self.actor_net = actor.to(self.device)
+        self.critic_net = critic.to(self.device)
+        self.actor_layout = flat_layout(self.actor_net)
+        self.critic_layout = flat_layout(self.critic_net)
+        self.actor_tx = make_optimizer(cfg, cfg.lr_a[agent_id])
+        self.critic_tx = make_optimizer(cfg, cfg.lr_c[agent_id])
+        self.critic_widths = spectral_widths(self.critic_layout)
+        self.actor_widths = spectral_widths(self.actor_layout)
+        self._bound: Optional[torch.Tensor] = None
+
+    def fresh_flat(self, generator: Optional[torch.Generator] = None):
+        """The actor's and critic's flat vectors of freshly seeded networks
+        (flax's initializers' distributions, not its bits)."""
+        actor, critic = self._models(generator)
+        with torch.no_grad():
+            a = self.actor_layout.ravel(dict(actor.named_parameters()))
+            c = self.critic_layout.ravel(dict(critic.named_parameters()))
+        return a.to(self.device), c.to(self.device)
+
+    def own(self, t, like=None, dtype=None) -> torch.Tensor:
+        """A contiguous copy of ``t`` (``like`` when ``t`` is None) on the
+        agent's device, in ``dtype`` (default the agent's)."""
+        return (like if t is None else t).detach().to(
+            self.device, dtype or self.dtype).clone().contiguous()
+
+    def bind(self, state) -> None:
+        """Make the acting and critic modules views of ``state``'s vectors."""
+        bind_flat(self.actor_net, state.actor)
+        bind_flat(self.critic_net, state.critic)
+        self._bound = state.actor
+
+    def bound_actor(self, state):
+        """The acting module, bound to ``state``'s actor vector."""
+        if self._bound is not state.actor:
+            self.bind(state)
+        return self.actor_net
+
+    def critic_apply(self, views: Dict[str, torch.Tensor], obs, act):
+        x = torch.cat([obs, act], dim=-1)
+        return (emlp_apply(self.critic_net.network1, views, "network1.", x),
+                emlp_apply(self.critic_net.network2, views, "network2.", x))

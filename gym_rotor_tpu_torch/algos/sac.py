@@ -1,0 +1,264 @@
+"""Soft Actor-Critic learner, DTDE (port of ``gym_rotor_tpu/algos/sac.py``).
+
+Squashed-Gaussian EMLP actor, twin critics with the entropy term in the
+target, a fixed (``sac_alpha``) or auto-tuned temperature, the critic
+target's Polyak every ``policy_update_freq`` updates, CAPS and the
+spectral-norm penalty: ``_train_one`` line for line, for the DTDE branch (a
+CTDE configuration raises ``NotImplementedError``).  The actor is updated
+on every update.
+
+On the card the update runs through the port's kernels: every EMLP block of
+every forward and backward is K3/K4 (``kernels/emlp_block.py``), the
+squashed sample and its log-prob are K10 (``kernels/sac_sample.py``, forward
+for the target sample and the actor loss, backward for the actor loss), the
+power iterations K7 and each network's optimizer step one K6 call; the fold
+(K5), the heads, the log_std clip, tanh clips and losses are torch ops, and
+so is the temperature's AdamW on its one scalar.  Acting is one K9 launch
+per agent (``kernels/emlp_actor.py``).
+
+Divergences, deliberate: the state is updated in place, as in
+``algos/td3.py``, and ``total_it`` and the optimizer counts are host
+integers.  ``log_alpha`` is a 0-d float32 tensor whatever the parameters'
+dtype, as in JAX (``sac.py:81``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from ..envs import draws as D
+from ..kernels.emlp_block import emlp_trunk, equiv_linear
+from ..kernels.sac_sample import squashed_gaussian
+from ..models.emlp.zoo import sac_models
+from ..models.mlp import LOG_SIG_MAX, LOG_SIG_MIN
+from ..utils.config import Config
+from . import regularizers
+from .common import FlatAgent, OptState, mse, spectral_penalty
+from .replay import Batch
+
+
+@dataclass
+class AlphaOptState:
+    """``optax.adamw``'s state on the scalar ``log_alpha``: the
+    ``ScaleByAdamState`` (``count`` a host integer, ``mu``, ``nu`` 0-d)."""
+    count: int
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+@dataclass
+class SACState:
+    actor: torch.Tensor             # flat parameter vectors (ravel order)
+    critic: torch.Tensor
+    critic_target: torch.Tensor
+    actor_opt: OptState
+    critic_opt: OptState
+    log_alpha: torch.Tensor         # 0-d float32
+    alpha_opt: AlphaOptState
+    total_it: int
+
+
+class ScalarAdamW:
+    """``optax.adamw(lr)`` on one scalar (b1 0.9, b2 0.999, eps 1e-8, weight
+    decay 1e-4, no clip, a constant rate) as torch scalar ops in optax's
+    order; the bias corrections in double, rounded to the scalar's dtype
+    where used (optax's ``astype``)."""
+    b1, b2, eps, wd = 0.9, 0.999, 1e-8, 1e-4
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, p: torch.Tensor) -> AlphaOptState:
+        return AlphaOptState(0, torch.zeros_like(p), torch.zeros_like(p))
+
+    def update(self, p: torch.Tensor, g: torch.Tensor, state: AlphaOptState):
+        """Returns ``(new p, new state)``."""
+        g = g.to(p.dtype)
+        mu = (1 - self.b1) * g + self.b1 * state.mu
+        nu = (1 - self.b2) * (g * g) + self.b2 * state.nu
+        c = state.count + 1
+        u = (mu / (1 - self.b1 ** c)) / (torch.sqrt(nu / (1 - self.b2 ** c))
+                                         + self.eps)
+        u = u + self.wd * p
+        return p + (-self.lr) * u, AlphaOptState(c, mu, nu)
+
+
+class SACAgent(FlatAgent):
+    """An ``EMLPActorSAC`` bound to the state's actor vector for acting, an
+    ``EMLPCriticTwin`` for the critic's structure, and the temperature's
+    optimizer."""
+
+    def __init__(self, cfg: Config, agent_id: int, device=None,
+                 dtype=torch.float32):
+        def models(generator):
+            return sac_models(cfg, agent_id, device="cpu", dtype=dtype,
+                              generator=generator)
+        super().__init__(cfg, agent_id, device, dtype, models, "SAC")
+        self.alpha_tx = ScalarAdamW(cfg.lr_a[agent_id])
+        self.target_entropy = -float(self.action_dim)   # sac.py:54
+        self._alpha = torch.tensor(cfg.sac_alpha, dtype=torch.float32,
+                                   device=self.device)
+
+    # -- state
+    def init(self, generator: Optional[torch.Generator] = None) -> SACState:
+        """Fresh seeded networks, the critic target equal to the critic,
+        ``log_alpha`` 0 and zero optimizer states."""
+        return self.make_state(*self.fresh_flat(generator))
+
+    def make_state(self, actor: torch.Tensor, critic: torch.Tensor,
+                   critic_target=None, actor_opt: Optional[OptState] = None,
+                   critic_opt: Optional[OptState] = None,
+                   log_alpha: Optional[torch.Tensor] = None,
+                   alpha_opt: Optional[AlphaOptState] = None,
+                   total_it: int = 0) -> SACState:
+        actor, critic = self.own(actor), self.own(critic)
+        log_alpha = self.own(log_alpha, torch.zeros(()), torch.float32)
+        state = SACState(
+            actor=actor, critic=critic,
+            critic_target=self.own(critic_target, critic),
+            actor_opt=actor_opt or self.actor_tx.init(actor),
+            critic_opt=critic_opt or self.critic_tx.init(critic),
+            log_alpha=log_alpha,
+            alpha_opt=alpha_opt or self.alpha_tx.init(log_alpha),
+            total_it=int(total_it))
+        self.bind(state)
+        return state
+
+    def alpha(self, state: SACState) -> torch.Tensor:
+        """The temperature, a 0-d float32 tensor (sac.py:119-122)."""
+        if self.cfg.automatic_entropy_tuning:
+            return torch.exp(state.log_alpha)
+        return self._alpha
+
+    # -- acting
+    def choose_action(self, state: SACState, obs,
+                      noise: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None):
+        """``tanh(mean + exp(log_std) noise)`` with the N(0, 1) draw
+        ``noise``, or the deterministic ``tanh(mean)`` without it
+        (sac.py:108-117); on the card one K9 launch (folded once per
+        parameter version)."""
+        actor = self.bound_actor(state)
+        with torch.no_grad():
+            return actor(obs, noise, out)
+
+    # -- the training path's networks, on views of a flat vector
+    def dist_f(self, views: Dict[str, torch.Tensor], obs):
+        """``(mean, log_std)``: the trunk through K3/K4, the equivariant
+        mean head and the clipped log_std Dense as torch ops."""
+        net = self.actor_net
+        h = emlp_trunk(net, views, "", obs)
+        mean = equiv_linear(net.network_head, views, "network_head.", h)
+        log_std = h @ views["log_std_linear.kernel"] \
+            + views["log_std_linear.bias"]
+        return mean, torch.clamp(log_std, LOG_SIG_MIN, LOG_SIG_MAX)
+
+    def sample_f(self, views: Dict[str, torch.Tensor], obs, noise):
+        """``(action, log_prob)`` through K10."""
+        return squashed_gaussian(*self.dist_f(views, obs), noise)
+
+
+def make_act_fn(agents: Sequence[SACAgent]):
+    """The superstep's acting hook (``train.py:352-366``):
+    ``act(states, obs, noise_std, noise) -> joint action``, each agent's
+    K9 sample written into its columns; ``noise_std`` is unused."""
+    dims = [a.action_dim for a in agents]
+
+    def act(states, obs, noise_std, noise):
+        out = torch.empty(obs[0].shape[0], sum(dims), dtype=agents[0].dtype,
+                          device=obs[0].device)
+        col = 0
+        for agent, st, o, n, d in zip(agents, states, obs, noise, dims):
+            agent.choose_action(st, o, n, out=out[:, col:col + d])
+            col += d
+        return out
+    return act
+
+
+def superstep_hooks(agents: Sequence[SACAgent]):
+    """The keyword arguments that make ``make_td3_superstep`` run SAC."""
+    return dict(train_fn=train_step, act_fn=make_act_fn(agents),
+                draws_fn=D.make_sac_update_draws)
+
+
+def train_step(cfg: Config, agents: Sequence[SACAgent],
+               states: List[SACState], batch: Batch,
+               draws: Sequence[D.SACAgentDraws]):
+    """One SAC update for every agent (sac.py:125-138), in place.  Returns
+    ``(states, metrics)``; the metrics are 0-d tensors on the device."""
+    metrics = {}
+    for i in range(len(agents)):
+        m = _train_one(cfg, agents, states, i, batch, draws[i])
+        metrics.update({f"agent{i}/{k}": v for k, v in m.items()})
+    return states, metrics
+
+
+def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
+               d: D.SACAgentDraws):
+    agent, st = agents[i], states[i]
+    obs, act, rwd = batch.obs[i], batch.act[i], batch.rwd[i]
+    next_obs, done = batch.next_obs[i], batch.done[i]
+    m = cfg.max_action
+    alpha = agent.alpha(st)
+    gate = (st.total_it + 1) % cfg.policy_update_freq == 0
+
+    # ----- target sample from the current actor + entropy (sac.py:152-193)
+    with torch.no_grad():
+        a_next, logp_next = agent.sample_f(
+            agent.actor_layout.views(st.actor), next_obs, d.next_noise)
+        tq1, tq2 = agent.critic_apply(
+            agent.critic_layout.views(st.critic_target), next_obs, a_next)
+        target_q = rwd + cfg.discount * (1.0 - done) * (
+            torch.minimum(tq1, tq2) - alpha * logp_next)
+
+    # ----- critic update (sac.py:173-199)
+    leaf = st.critic.detach().requires_grad_(True)
+    cv = agent.critic_layout.views(leaf)
+    q1, q2 = agent.critic_apply(cv, obs, act)
+    closs = mse(q1, target_q) + mse(q2, target_q)
+    closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
+    (cgrad,) = torch.autograd.grad(closs, leaf)
+    # the critic target's Polyak runs after the actor step on the updated
+    # critic (sac.py:277-289): the same values when done in this K6 call
+    st.critic_opt = agent.critic_tx.update(
+        st.critic, cgrad, st.critic_opt,
+        target=st.critic_target if gate else None, tau=cfg.tau,
+        owner=agent.critic_net)
+
+    # ----- actor update on the updated critic (sac.py:201-261): one actor
+    # forward over [obs; obs; next_obs; obs + eps]
+    critic = agent.critic_layout.views(st.critic.detach())
+    leaf = st.actor.detach().requires_grad_(True)
+    av = agent.actor_layout.views(leaf)
+    eps = regularizers.caps_noise(d.caps_eps)
+    obs4 = torch.cat([obs, obs, next_obs, obs + eps], dim=0)
+    mean4, log_std4 = agent.dist_f(av, obs4)
+    B = obs.shape[0]
+    noise4 = torch.cat([d.n_pi, d.n_caps, d.n_caps, d.n_caps], dim=0)
+    a4, logp4 = squashed_gaussian(mean4, log_std4, noise4)
+    a4c = torch.clamp(a4, -m, m)
+    a_pi, logp = a4[:B], logp4[:B]
+    q1, q2 = agent.critic_apply(critic, obs, a_pi)
+    aloss = -(torch.minimum(q1, q2) - alpha * logp).mean()
+    aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
+    aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id,
+                                            a4c[B:2 * B], a4c[2 * B:3 * B],
+                                            a4c[3 * B:])
+    (agrad,) = torch.autograd.grad(aloss, leaf)
+    st.actor_opt = agent.actor_tx.update(st.actor, agrad, st.actor_opt,
+                                         owner=agent.actor_net)
+
+    # ----- entropy temperature (sac.py:263-274)
+    if cfg.automatic_entropy_tuning:
+        c = agent.target_entropy + logp.detach()
+        tloss = -(st.log_alpha * c).mean()
+        tgrad = (c * (-1.0 / c.numel())).sum()
+        st.log_alpha, st.alpha_opt = agent.alpha_tx.update(
+            st.log_alpha, tgrad, st.alpha_opt)
+    else:
+        tloss = torch.zeros((), dtype=closs.dtype, device=closs.device)
+    st.total_it += 1
+    return {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
+            "alpha_loss": tloss, "alpha": agent.alpha(st)}

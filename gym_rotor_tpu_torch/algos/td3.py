@@ -30,14 +30,11 @@ import torch
 
 from ..envs.draws import AgentDraws
 from ..kernels.emlp_block import emlp_apply
-from ..models.emlp.nn import spectral_weights
 from ..models.emlp.zoo import (EMLPActorDet, EMLPCriticTwin, actor_reps,
                                critic_reps)
 from ..utils.config import Config
-from ..utils.device import resolve_device
 from . import regularizers
-from .common import (FlatLayout, OptState, bind_flat, flat_layout,
-                     make_optimizer, mse)
+from .common import FlatAgent, OptState, mse, spectral_penalty
 from .replay import Batch
 
 
@@ -52,92 +49,49 @@ class TD3State:
     total_it: int
 
 
-def spectral_widths(layout: FlatLayout) -> List[int]:
-    """Input widths of the regularized weights, in ``spectral_weights``
-    order: the start vectors' sizes."""
-    shapes = dict(zip(layout.names, layout.shapes))
-    ws, _ = spectral_weights({n: torch.empty(s, device="meta")
-                              for n, s in shapes.items()})
-    return [int(w.shape[1]) for w in ws]
-
-
-class TD3Agent:
-    """Per-agent static configuration: the networks' structure (an
-    ``EMLPActorDet`` bound to the state's actor vector for acting, an
-    ``EMLPCriticTwin`` for the critic's), flat layouts and optimizers."""
+class TD3Agent(FlatAgent):
+    """An ``EMLPActorDet`` bound to the state's actor vector for acting and
+    an ``EMLPCriticTwin`` for the critic's structure."""
 
     def __init__(self, cfg: Config, agent_id: int, device=None,
                  dtype=torch.float32):
-        if cfg.framework == "MODUL" and cfg.module_training == "CTDE":
-            raise NotImplementedError("the CTDE branch of TD3 is not ported")
-        self.cfg, self.agent_id, self.dtype = cfg, agent_id, dtype
-        self.device = resolve_device(device)
-        self.obs_dim = cfg.obs_dim_n[agent_id]
-        self.action_dim = cfg.action_dim_n[agent_id]
-        self.actor_reps = actor_reps(cfg, cfg.framework, agent_id)
-        self.critic_reps = critic_reps(cfg, cfg.framework, agent_id,
-                                       cfg.module_training)
-        gen = torch.Generator().manual_seed(0)
-        self.actor_net = EMLPActorDet(*self.actor_reps, device="cpu",
-                                      dtype=dtype, generator=gen
-                                      ).to(self.device)
-        self.critic_net = EMLPCriticTwin(*self.critic_reps, device="cpu",
-                                         dtype=dtype, generator=gen
-                                         ).to(self.device)
-        self.actor_layout = flat_layout(self.actor_net)
-        self.critic_layout = flat_layout(self.critic_net)
-        self.actor_tx = make_optimizer(cfg, cfg.lr_a[agent_id])
-        self.critic_tx = make_optimizer(cfg, cfg.lr_c[agent_id])
-        self.critic_widths = spectral_widths(self.critic_layout)
-        self.actor_widths = spectral_widths(self.actor_layout)
-        self._bound: Optional[torch.Tensor] = None
+        def models(generator):
+            kw = dict(device="cpu", dtype=dtype, generator=generator)
+            return (EMLPActorDet(*actor_reps(cfg, cfg.framework, agent_id),
+                                 **kw),
+                    EMLPCriticTwin(*critic_reps(cfg, cfg.framework, agent_id,
+                                                cfg.module_training), **kw))
+        super().__init__(cfg, agent_id, device, dtype, models, "TD3")
 
     # -- state
     def init(self, generator: Optional[torch.Generator] = None) -> TD3State:
-        """Fresh seeded networks (flax's initializers' distributions, not
-        its bits), targets equal to them, zero optimizer state."""
-        actor = EMLPActorDet(*self.actor_reps, device="cpu", dtype=self.dtype,
-                             generator=generator)
-        critic = EMLPCriticTwin(*self.critic_reps, device="cpu",
-                                dtype=self.dtype, generator=generator)
-        with torch.no_grad():
-            a = self.actor_layout.ravel(dict(actor.named_parameters()))
-            c = self.critic_layout.ravel(dict(critic.named_parameters()))
-        return self.make_state(a.to(self.device), c.to(self.device))
+        """Fresh seeded networks, targets equal to them, zero optimizer
+        state."""
+        return self.make_state(*self.fresh_flat(generator))
 
     def make_state(self, actor: torch.Tensor, critic: torch.Tensor,
                    actor_target=None, critic_target=None,
                    actor_opt: Optional[OptState] = None,
                    critic_opt: Optional[OptState] = None,
                    total_it: int = 0) -> TD3State:
-        def own(t, like):
-            return (like if t is None else t).detach().to(
-                self.device, self.dtype).clone().contiguous()
-        actor, critic = own(actor, None), own(critic, None)
+        actor, critic = self.own(actor), self.own(critic)
         state = TD3State(
             actor=actor, critic=critic,
-            actor_target=own(actor_target, actor),
-            critic_target=own(critic_target, critic),
+            actor_target=self.own(actor_target, actor),
+            critic_target=self.own(critic_target, critic),
             actor_opt=actor_opt or self.actor_tx.init(actor),
             critic_opt=critic_opt or self.critic_tx.init(critic),
             total_it=int(total_it))
         self.bind(state)
         return state
 
-    def bind(self, state: TD3State) -> None:
-        """Make the acting and critic modules views of ``state``'s vectors."""
-        bind_flat(self.actor_net, state.actor)
-        bind_flat(self.critic_net, state.critic)
-        self._bound = state.actor
-
     # -- acting
     def act(self, state: TD3State, obs, out: Optional[torch.Tensor] = None):
         """Deterministic action; on the card one K3 launch (the acting
         kernel, folded once per parameter version)."""
-        if self._bound is not state.actor:
-            self.bind(state)
+        actor = self.bound_actor(state)
         with torch.no_grad():
-            return self.actor_net(obs, out)
+            return actor(obs, out)
 
     def choose_action(self, state: TD3State, obs, noise_std: float,
                       noise: torch.Tensor):
@@ -151,11 +105,6 @@ class TD3Agent:
     def actor_apply(self, views: Dict[str, torch.Tensor], obs):
         return torch.tanh(emlp_apply(self.actor_net.network, views,
                                      "network.", obs))
-
-    def critic_apply(self, views: Dict[str, torch.Tensor], obs, act):
-        x = torch.cat([obs, act], dim=-1)
-        return (emlp_apply(self.critic_net.network1, views, "network1.", x),
-                emlp_apply(self.critic_net.network2, views, "network2.", x))
 
     def critic_q1(self, views: Dict[str, torch.Tensor], obs, act):
         x = torch.cat([obs, act], dim=-1)
@@ -172,11 +121,6 @@ def train_step(cfg: Config, agents: Sequence[TD3Agent],
         m = _train_one(cfg, agents, states, i, batch, draws[i])
         metrics.update({f"agent{i}/{k}": v for k, v in m.items()})
     return states, metrics
-
-
-def _spectral(views, starts):
-    ws, extras = spectral_weights(views)
-    return regularizers.spectral_norm_regularization(ws, starts, extras)
 
 
 def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
@@ -203,7 +147,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     cv = agent.critic_layout.views(leaf)
     q1, q2 = agent.critic_apply(cv, obs, act)
     closs = mse(q1, target_q) + mse(q2, target_q)
-    closs = closs + 1e-8 * _spectral(cv, d.critic_starts)
+    closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
     (cgrad,) = torch.autograd.grad(closs, leaf)
     # the critic target's Polyak runs in the delayed branch on the updated
     # critic (td3.py:325): the same values when done in this K6 call
@@ -223,7 +167,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         a3 = torch.clamp(agent.actor_apply(av, obs3), -m, m)
         a_cur, a_nxt, a_prt = torch.split(a3, obs.shape[0], dim=0)
         aloss = -agent.critic_q1(critic, obs, a_cur).mean()
-        aloss = aloss + 1e-5 * _spectral(av, d.actor_starts)
+        aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
         aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, a_cur,
                                                 a_nxt, a_prt)
         (agrad,) = torch.autograd.grad(aloss, leaf)

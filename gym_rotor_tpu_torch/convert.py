@@ -19,6 +19,7 @@ import torch
 
 from .algos.common import FlatLayout, OptState
 from .algos.replay import ReplayState
+from .algos.sac import AlphaOptState
 from .envs.batch import BatchedEnvState
 from .envs.params import QuadParams
 from .envs.state import EnvState, Goal
@@ -29,29 +30,46 @@ from .utils.config import Config
 from .utils.device import resolve_device
 
 
-def _emlp_shapes(prefix: str, rep_in, hidden, rep_out, hidden_num: int = 2):
+def _emlp_shapes(block: str, head: str, rep_in, hidden, rep_out,
+                 hidden_num: int = 2):
+    """Parameter shapes of an EMLP whose ``i``-th block is named
+    ``block.format(i)`` and whose equivariant head is ``head``."""
     reps = (rep_in,) + (hidden,) * hidden_num
     shapes = OrderedDict()
     for i, (rin, rout) in enumerate(zip(reps, reps[1:])):
         g = gated(rout)
-        shapes[f"{prefix}.block{i}.linear.kernel"] = (g.size, rin.size)
-        shapes[f"{prefix}.block{i}.linear.bias"] = (g.size,)
+        name = block.format(i)
+        shapes[f"{name}.linear.kernel"] = (g.size, rin.size)
+        shapes[f"{name}.linear.bias"] = (g.size,)
         wdim = _bilinear_struct(g)[2]
         if wdim:
-            shapes[f"{prefix}.block{i}.bilinear.bi_params"] = (wdim,)
-    shapes[f"{prefix}.head.kernel"] = (rep_out.size, hidden.size)
-    shapes[f"{prefix}.head.bias"] = (rep_out.size,)
+            shapes[f"{name}.bilinear.bi_params"] = (wdim,)
+    shapes[f"{head}.kernel"] = (rep_out.size, hidden.size)
+    shapes[f"{head}.bias"] = (rep_out.size,)
     return shapes
 
 
 def _actor_shapes(cfg: Config, agent_id: int):
-    return _emlp_shapes("network", *actor_reps(cfg, cfg.framework, agent_id))
+    return _emlp_shapes("network.block{}", "network.head",
+                        *actor_reps(cfg, cfg.framework, agent_id))
+
+
+def _sac_actor_shapes(cfg: Config, agent_id: int):
+    """``EMLPActorSAC``: top-level ``network_block{i}``, ``network_head``
+    and the ``log_std_linear`` Dense (kernel ``(nin, nout)``)."""
+    rep_in, hidden, rep_out = actor_reps(cfg, cfg.framework, agent_id)
+    shapes = _emlp_shapes("network_block{}", "network_head", rep_in, hidden,
+                          rep_out)
+    act = cfg.action_dim_n[agent_id]
+    shapes["log_std_linear.kernel"] = (hidden.size, act)
+    shapes["log_std_linear.bias"] = (act,)
+    return shapes
 
 
 def _critic_shapes(cfg: Config, agent_id: int):
     reps = critic_reps(cfg, cfg.framework, agent_id, cfg.module_training)
-    shapes = _emlp_shapes("network1", *reps)
-    shapes.update(_emlp_shapes("network2", *reps))
+    shapes = _emlp_shapes("network1.block{}", "network1.head", *reps)
+    shapes.update(_emlp_shapes("network2.block{}", "network2.head", *reps))
     return shapes
 
 
@@ -80,6 +98,12 @@ def actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
     return _params_from_jax(tree, _actor_shapes(cfg, agent_id))
 
 
+def sac_actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
+    """Flax ``EMLPActorSAC`` params -> the port SAC actor's ``state_dict``
+    (CPU tensors)."""
+    return _params_from_jax(tree, _sac_actor_shapes(cfg, agent_id))
+
+
 def critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
     """Flax ``EMLPCriticTwin`` params -> the port critic's ``state_dict``
     (``network1.*``, ``network2.*``; CPU tensors)."""
@@ -95,9 +119,9 @@ def flat_from_jax(tree: Mapping, layout: FlatLayout, device=None,
     return flat.to(resolve_device(device), dtype or flat.dtype)
 
 
-def _opt_state_from_jax(tree: Mapping, device, dtype) -> OptState:
-    """The flat optax chain state (clip, then adamw: ``ScaleByAdamState``,
-    the decay's empty state, ``ScaleByScheduleState``) -> ``OptState``."""
+def _optax_states(tree: Mapping):
+    """The ``ScaleByAdamState`` (``adam``) and ``ScaleByScheduleState``
+    (``schedule``) nodes of an optax chain state."""
     found = {}
 
     def walk(node):
@@ -112,15 +136,26 @@ def _opt_state_from_jax(tree: Mapping, device, dtype) -> OptState:
             for v in node.values():
                 walk(v)
     walk(tree)
+    return found
+
+
+def _vec(a, device, dtype):
+    t = torch.from_numpy(np.array(np.asarray(a)))
+    return t.to(device, dtype or t.dtype)
+
+
+def _opt_state_from_jax(tree: Mapping, device, dtype) -> OptState:
+    """The flat optax chain state (clip, then adamw: ``ScaleByAdamState``,
+    the decay's empty state, ``ScaleByScheduleState``) -> ``OptState``."""
+    found = _optax_states(tree)
     if set(found) != {"adam", "schedule"}:
         raise KeyError(f"optax state lacks {({'adam', 'schedule'} - set(found))}")
 
-    def vec(a):
-        t = torch.from_numpy(np.array(np.asarray(a)))
-        return t.to(device, dtype or t.dtype)
     adam = found["adam"]
-    return OptState(int(np.asarray(adam["count"])), vec(adam["mu"]),
-                    vec(adam["nu"]), int(np.asarray(found["schedule"]["count"])))
+    return OptState(int(np.asarray(adam["count"])),
+                    _vec(adam["mu"], device, dtype),
+                    _vec(adam["nu"], device, dtype),
+                    int(np.asarray(found["schedule"]["count"])))
 
 
 def td3_state_from_jax(tree: Mapping, agent, dtype: Optional[torch.dtype] = None):
@@ -138,6 +173,32 @@ def td3_state_from_jax(tree: Mapping, agent, dtype: Optional[torch.dtype] = None
         flat_from_jax(tree["critic_target"], cl, dev, dtype),
         _opt_state_from_jax(tree["actor_opt"], dev, dtype),
         _opt_state_from_jax(tree["critic_opt"], dev, dtype),
+        int(np.asarray(tree["total_it"])))
+
+
+def sac_state_from_jax(tree: Mapping, agent,
+                       dtype: Optional[torch.dtype] = None):
+    """A JAX ``SACState`` as nested dicts of numpy arrays (actor, critic,
+    critic target, both flat optax chain states, ``log_alpha``, its
+    ``optax.adamw`` state and ``total_it``) -> the port's ``SACState`` for
+    ``agent`` (an ``algos.sac.SACAgent``) on its device, bound to its
+    networks.  ``log_alpha`` and its moments stay float32."""
+    dev = agent.device
+    dtype = dtype or agent.dtype
+    al, cl = agent.actor_layout, agent.critic_layout
+    adam = _optax_states(tree["alpha_opt"]).get("adam")
+    if adam is None:
+        raise KeyError("alpha_opt lacks its ScaleByAdamState")
+    f32 = torch.float32
+    return agent.make_state(
+        flat_from_jax(tree["actor"], al, dev, dtype),
+        flat_from_jax(tree["critic"], cl, dev, dtype),
+        flat_from_jax(tree["critic_target"], cl, dev, dtype),
+        _opt_state_from_jax(tree["actor_opt"], dev, dtype),
+        _opt_state_from_jax(tree["critic_opt"], dev, dtype),
+        _vec(tree["log_alpha"], dev, f32),
+        AlphaOptState(int(np.asarray(adam["count"])),
+                      _vec(adam["mu"], dev, f32), _vec(adam["nu"], dev, f32)),
         int(np.asarray(tree["total_it"])))
 
 

@@ -53,7 +53,8 @@ class TickDraws(NamedTuple):
     ``policy``: on a warm tick U[0, 1) base draws (B, sum act dims) of the
     uniform actions (``train_step.py:120``, mapped to [-1, 1) by
     ``uniform_in``); on a train tick one N(0, 1) (B, act_i) per agent, the
-    exploration noise of ``choose_action_f`` (``td3.py:149``)."""
+    exploration noise of ``choose_action_f`` (``td3.py:149``), or SAC's
+    acting sample (``sac.py:114``)."""
     env: torch.Tensor
     policy: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
@@ -70,11 +71,28 @@ class AgentDraws(NamedTuple):
     actor_starts: Tuple[torch.Tensor, ...]
 
 
+class SACAgentDraws(NamedTuple):
+    """One agent's SAC update (``sac.py:146``, ``ks = split(key, 6)``): the
+    target sample's N(0, 1) (batch, act) on ``next_obs`` (``ks[1]``), the
+    CAPS N(0, 1) (1, obs) (``ks[3]``, scaled by 0.05), the policy sample's
+    ``n_pi`` and the three CAPS samples' shared ``n_caps``, N(0, 1) (batch,
+    act) each (``ks[4]``, ``ks[5]``, ``sac.py:239-240``), and the spectral
+    start vectors, critic then actor, in ``spectral_weights`` order (both
+    sets from ``ks[2]`` in JAX, one ``fold_in(ks[2], i)`` each)."""
+    next_noise: torch.Tensor
+    caps_eps: torch.Tensor
+    n_pi: torch.Tensor
+    n_caps: torch.Tensor
+    critic_starts: Tuple[torch.Tensor, ...]
+    actor_starts: Tuple[torch.Tensor, ...]
+
+
 class UpdateDraws(NamedTuple):
     """One update: the replay indices (batch,) in [0, max(filled, 1))
-    (``replay.py:207``) and one ``AgentDraws`` per agent."""
+    (``replay.py:207``) and one ``AgentDraws`` (TD3) or ``SACAgentDraws``
+    per agent."""
     idx: torch.Tensor
-    agents: Tuple[AgentDraws, ...]
+    agents: Tuple[Union[AgentDraws, SACAgentDraws], ...]
 
 
 def make_tick_draws(batch: int, act_dims: Sequence[int], warm: bool,
@@ -107,6 +125,27 @@ def make_update_draws(batch: int, filled: int, obs_dims: Sequence[int],
     agents = tuple(
         AgentDraws(normal(batch, a), normal(1, o),
                    tuple(normal(w) for w in cw), tuple(normal(w) for w in aw))
+        for o, a, cw, aw in zip(obs_dims, act_dims, critic_widths,
+                                actor_widths))
+    return UpdateDraws(idx, agents)
+
+
+def make_sac_update_draws(batch: int, filled: int, obs_dims: Sequence[int],
+                          act_dims: Sequence[int],
+                          critic_widths: Sequence[Sequence[int]],
+                          actor_widths: Sequence[Sequence[int]],
+                          generator: Optional[torch.Generator], device,
+                          dtype=torch.float32) -> UpdateDraws:
+    """``make_update_draws`` for SAC: ``SACAgentDraws`` per agent."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    idx = torch.randint(0, max(filled, 1), (batch,), generator=generator,
+                        device=device)
+    agents = tuple(
+        SACAgentDraws(normal(batch, a), normal(1, o), normal(batch, a),
+                      normal(batch, a), tuple(normal(w) for w in cw),
+                      tuple(normal(w) for w in aw))
         for o, a, cw, aw in zip(obs_dims, act_dims, critic_widths,
                                 actor_widths))
     return UpdateDraws(idx, agents)

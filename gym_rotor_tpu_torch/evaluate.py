@@ -31,9 +31,10 @@ def benchmark_reward(ex, eb1):
 
 def joint_policy(actors: Sequence[torch.nn.Module]):
     """``act(obs_tuple) -> (B, sum act dims)``: each actor writes its
-    columns of the joint action in place (one kernel launch per agent on
-    CUDA)."""
-    dims = [a.network.head.rep_out.size for a in actors]
+    deterministic action into its columns of the joint action in place (one
+    kernel launch per agent on CUDA): ``tanh`` of a TD3 actor, ``tanh(mean)``
+    of a SAC actor (``train.py:193-206``)."""
+    dims = [a.action_dim for a in actors]
 
     def act(obs):
         out = torch.empty(obs[0].shape[0], sum(dims), dtype=torch.float32,

@@ -1,10 +1,18 @@
-// K3 (forward, actor widths): fused deterministic EMLP actor for Hopper
-// (sm_90a).
+// K3 (forward, actor widths): fused deterministic EMLP actor, and K9: the
+// fused SAC actor's acting sample, for Hopper (sm_90a).  One block body, two
+// heads (a template parameter).
 //
 // Replaces gym_rotor_tpu/models/emlp/nn.py:EMLPBlock (EquivLinear ->
 // EquivBiLinear -> GatedNonlinearity) x2 inside EMLP, plus the tanh head of
-// models/emlp/zoo.py:EMLPActorDet, which XLA fused on the TPU.  Plain twin:
-// gym_rotor_tpu_torch/kernels/emlp_actor.py:emlp_actor_plain (structured).
+// models/emlp/zoo.py:EMLPActorDet (K3), or the Gaussian head of
+// models/emlp/zoo.py:EMLPActorSAC with the tanh-squashed sample of
+// algos/sac.py:114 choose_action_f (K9), which XLA fused on the TPU.  Plain
+// twins: gym_rotor_tpu_torch/kernels/emlp_actor.py:emlp_actor_plain and
+// sac_actor_plain (structured).
+//
+// K9's epilogue: mean = h2 Wh^T + bh; ls = clip(h2 Wl + bl, -20, 2);
+// action = tanh(mean + exp(ls) noise), or tanh(mean) without noise (eval).
+// The log-prob is not computed: the acting path discards it.
 //
 // Bound on an H100: the operations.  Per row and block, 2*NG*NI flops of
 // linear layer and 3 per nonzero of the bilinear quadratic form (288 for
@@ -12,7 +20,9 @@
 // 67 TFLOP/s fp32 peak; the obs/action bytes are ~0.1 us.  At this batch
 // the launch has 32 blocks of 4 warps for 132 SMs, so each row's serial
 // chain of shared-memory loads and FMAs is exposed: measured far above
-// the bound (PERF.md), a later PR's work.
+// the bound (PERF.md), a later PR's work.  K9 adds the log_std head
+// (2*NH*NACT flops a row), the noise read and exp: the same bound within a
+// few percent.
 //
 // Design: every weight the actor needs is folded once per parameter set on
 // the host side (W_eff/b_eff from project_linear, the bilinear nonzeros
@@ -68,12 +78,16 @@ __device__ __forceinline__ void emlp_block(const float* x, const float* W,
   }
 }
 
-// Buffer layout (see emlp_actor.py:fold_actor).
-template <int NIN, int NG, int NH, int NACT>
+enum Head { kTanh = 0, kGauss = 1 };
+
+// Buffer layout (see emlp_actor.py:fold_actor).  The Gaussian head adds the
+// log_std Dense, transposed to (NACT, NH), and its bias after the mean head.
+template <int NIN, int NG, int NH, int NACT, int HEAD_KIND>
 struct Dims {
   static constexpr int W0 = NG * NIN + NG;   // block 0 W_eff, b_eff
   static constexpr int W1 = NG * NH + NG;    // block 1 W_eff, b_eff
-  static constexpr int HEAD = NACT * NH + NACT;
+  static constexpr int HEAD =
+      (HEAD_KIND == kGauss ? 2 : 1) * (NACT * NH + NACT);
   static constexpr int INTS = 2 * NH + 2 * (NG + 1);   // + nnz0 + nnz1
   __host__ __device__ static int n_params(int nnz0, int nnz1) {
     return W0 + nnz0 + W1 + nnz1 + HEAD;
@@ -86,12 +100,13 @@ struct Dims {
   }
 };
 
-template <int NIN, int NG, int NH, int NACT>
+template <int NIN, int NG, int NH, int NACT, int HEAD_KIND>
 __global__ void __launch_bounds__(kThreads)
 emlp_actor_kernel(const float* __restrict__ obs, int B,
                   const float* __restrict__ params, const int* __restrict__ ints,
-                  int nnz0, int nnz1, float* __restrict__ out, int ld_out) {
-  using D = Dims<NIN, NG, NH, NACT>;
+                  int nnz0, int nnz1, const float* __restrict__ noise,
+                  int ld_noise, float* __restrict__ out, int ld_out) {
+  using D = Dims<NIN, NG, NH, NACT, HEAD_KIND>;
   extern __shared__ float smem[];
   const int np = D::n_params(nnz0, nnz1), ni = D::n_ints(nnz0, nnz1);
   for (int k = threadIdx.x; k < np; k += blockDim.x) smem[k] = params[k];
@@ -115,28 +130,54 @@ emlp_actor_kernel(const float* __restrict__ obs, int B,
                           col, h1);
   emlp_block<NH, NG, NH>(h1, p1, p1 + NG * NH, p1 + D::W1, rp + NG + 1,
                          ji0 + nnz0, si + NH, col, h2);
+  const float* pl = ph + NACT * NH + NACT;   // Gaussian head: log_std Dense
 #pragma unroll
   for (int a = 0; a < NACT; ++a) {
     float s = 0.0f;
 #pragma unroll
     for (int k = 0; k < NH; ++k) s += h2[k] * ph[a * NH + k];
-    out[(size_t)row * ld_out + a] = tanhf(s + ph[NACT * NH + a]);
+    const float mean = s + ph[NACT * NH + a];
+    float act = mean;
+    if (HEAD_KIND == kGauss && noise != nullptr) {
+      float l = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NH; ++k) l += h2[k] * pl[a * NH + k];
+      const float ls = fminf(fmaxf(l + pl[NACT * NH + a], -20.0f), 2.0f);
+      act = mean + expf(ls) * noise[(size_t)row * ld_noise + a];
+    }
+    out[(size_t)row * ld_out + a] = tanhf(act);
   }
 }
 
-template <int NIN, int NG, int NH, int NACT>
+template <int NIN, int NG, int NH, int NACT, int HEAD_KIND>
 int launch(const float* obs, int B, const float* params, int n_params,
-           const int* ints, int n_ints, int nnz0, int nnz1, float* out,
-           int ld_out, cudaStream_t stream) {
-  using D = Dims<NIN, NG, NH, NACT>;
+           const int* ints, int n_ints, int nnz0, int nnz1,
+           const float* noise, int ld_noise, float* out, int ld_out,
+           cudaStream_t stream) {
+  using D = Dims<NIN, NG, NH, NACT, HEAD_KIND>;
   if (nnz0 < 0 || nnz1 < 0 || n_params != D::n_params(nnz0, nnz1) ||
       n_ints != D::n_ints(nnz0, nnz1) || D::smem(nnz0, nnz1) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + kThreads - 1) / kThreads;
-  emlp_actor_kernel<NIN, NG, NH, NACT>
+  emlp_actor_kernel<NIN, NG, NH, NACT, HEAD_KIND>
       <<<blocks, kThreads, D::smem(nnz0, nnz1), stream>>>(
-          obs, B, params, ints, nnz0, nnz1, out, ld_out);
+          obs, B, params, ints, nnz0, nnz1, noise, ld_noise, out, ld_out);
   return (int)cudaGetLastError();
+}
+
+template <int HEAD_KIND>
+int dispatch(const float* o, int B, const float* p, int n_params,
+             const int* q, int n_ints, int nnz0, int nnz1, const float* nz,
+             int ld_noise, float* y, int ld_out, int nin, int ng, int nh,
+             int nact, cudaStream_t s) {
+  if (nin == 15 && ng == 18 && nh == 16 && nact == 4)
+    return launch<15, 18, 16, 4, HEAD_KIND>(o, B, p, n_params, q, n_ints,
+                                            nnz0, nnz1, nz, ld_noise, y,
+                                            ld_out, s);
+  if (nin == 3 && ng == 7 && nh == 4 && nact == 1)
+    return launch<3, 7, 4, 1, HEAD_KIND>(o, B, p, n_params, q, n_ints, nnz0,
+                                         nnz1, nz, ld_noise, y, ld_out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -145,22 +186,26 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// head: 0 = the deterministic tanh head (K3), 1 = the Gaussian head (K9);
+// noise (B, nact) with row stride ld_noise, or null for tanh(mean).
 extern "C" int emlp_actor_launch(const void* obs, int B, const void* params,
                                  int n_params, const void* ints, int n_ints,
-                                 int nnz0, int nnz1, void* out, int ld_out,
-                                 int nin, int ng, int nh, int nact,
+                                 int nnz0, int nnz1, const void* noise,
+                                 int ld_noise, void* out, int ld_out, int nin,
+                                 int ng, int nh, int nact, int head,
                                  void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   const float* o = (const float*)obs;
   const float* p = (const float*)params;
   const int* q = (const int*)ints;
+  const float* nz = (const float*)noise;
   float* y = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (nin == 15 && ng == 18 && nh == 16 && nact == 4)
-    return launch<15, 18, 16, 4>(o, B, p, n_params, q, n_ints, nnz0, nnz1, y,
-                                 ld_out, s);
-  if (nin == 3 && ng == 7 && nh == 4 && nact == 1)
-    return launch<3, 7, 4, 1>(o, B, p, n_params, q, n_ints, nnz0, nnz1, y,
-                              ld_out, s);
+  if (head == kTanh)
+    return dispatch<kTanh>(o, B, p, n_params, q, n_ints, nnz0, nnz1, nullptr,
+                           0, y, ld_out, nin, ng, nh, nact, s);
+  if (head == kGauss)
+    return dispatch<kGauss>(o, B, p, n_params, q, n_ints, nnz0, nnz1, nz,
+                            ld_noise, y, ld_out, nin, ng, nh, nact, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,16 @@
-"""K3 (forward, actor widths): the fused deterministic EMLP actor, one CUDA
-launch per agent per tick.
+"""K3 (forward, actor widths): the fused deterministic EMLP actor, and K9:
+the fused SAC actor's acting sample; one CUDA launch per agent per tick.
 
-Replaces ``gym_rotor_tpu/models/emlp/nn.py:EMLPBlock`` (``EquivLinear`` ->
-``EquivBiLinear`` -> ``GatedNonlinearity``) inside ``EMLP`` and the tanh
-head of ``models/emlp/zoo.py:EMLPActorDet``, which XLA fused on the TPU.
-Kernel: ``csrc/emlp_actor.cu``.  Plain twin: ``emlp_actor_plain`` (the
-structured port of the flax network), which is what runs on CPU tensors.
+K3 replaces ``gym_rotor_tpu/models/emlp/nn.py:EMLPBlock`` (``EquivLinear``
+-> ``EquivBiLinear`` -> ``GatedNonlinearity``) inside ``EMLP`` and the tanh
+head of ``models/emlp/zoo.py:EMLPActorDet``; K9 the same trunk under
+``zoo.py:EMLPActorSAC``'s Gaussian head and the squashed sample of
+``algos/sac.py:114`` ``choose_action_f`` (``tanh(mean + exp(log_std)
+noise)``, or ``tanh(mean)`` in eval mode; the log-prob, which the acting
+path discards, is not computed).  XLA fused both on the TPU.  Kernel:
+``csrc/emlp_actor.cu`` (one block body, the head a template parameter).
+Plain twins: ``emlp_actor_plain`` and ``sac_actor_plain`` (the structured
+ports of the flax networks), which are what run on CPU tensors.
 
 What bounds it on an H100: the operations, and few of them.  Per row and
 block the linear layer is ``2 ng nin`` flops and the bilinear layer three
@@ -29,10 +34,12 @@ import torch
 
 from ..models.emlp.nn import (bilinear_index, bilinear_sparse,
                                gate_indices, gated)
+from ..models.mlp import sac_sample_with_noise
 from .build import KernelSource, check
 
 KERNEL = KernelSource("emlp_actor", [])
-WRAPPERS = {"emlp_actor": "emlp_actor_plain"}
+WRAPPERS = {"emlp_actor": "emlp_actor_plain", "sac_actor": "sac_actor_plain"}
+HEAD_TANH, HEAD_GAUSS = 0, 1
 # (obs dim, gated width, hidden width, action dim) of the built instances:
 # the flagship MODUL actors, agent 0 and agent 1.
 INSTANCES = {(15, 18, 16, 4), (3, 7, 4, 1)}
@@ -42,23 +49,24 @@ def _lib():
     lib = KERNEL.load()
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.emlp_actor_launch.argtypes = [P, I, P, I, P, I, I, I, P, I,
-                                          I, I, I, I, P]
+        lib.emlp_actor_launch.argtypes = [P, I, P, I, P, I, I, I, P, I, P,
+                                          I, I, I, I, I, I, P]
         lib.emlp_actor_launch.restype = I
         lib._typed = True
     return lib
 
 
 def actor_dims(actor):
-    """(obs dim, gated width, hidden width, action dim)."""
-    blocks = actor.network.blocks()
+    """(obs dim, gated width, hidden width, action dim) of an
+    ``EMLPActorDet`` or ``EMLPActorSAC``."""
+    blocks = [b for _, b in actor.named_blocks()]
     ng = gated(blocks[0].rep_out).size
     nh = blocks[0].rep_out.size
     if len(blocks) != 2 or any(gated(b.rep_out).size != ng
                                or b.rep_out.size != nh for b in blocks):
         raise NotImplementedError("emlp_actor is built for hidden_num=2 "
                                   "with one hidden rep")
-    return (blocks[0].rep_in.size, ng, nh, actor.network.head.rep_out.size)
+    return (blocks[0].rep_in.size, ng, nh, actor.named_head()[1].rep_out.size)
 
 
 def fold_actor(actor) -> Dict:
@@ -71,25 +79,30 @@ def fold_actor(actor) -> Dict:
     ``blocks`` holds, per block, ``(W_eff, b_eff, (o, j, i, v), gate
     index)``.  The kernel's buffers: ``params`` (float) packs, per block,
     ``W_eff (ng, nin)``, ``b_eff (ng,)``, ``v (nnz,)``, then the head
-    ``W (nact, nh)`` and ``b (nact,)``; ``ints`` packs both blocks' gate
-    indices, then both blocks' row pointers (``ng + 1`` each: the nonzeros
-    of output ``o`` are ``rowptr[o]:rowptr[o + 1]``), then both blocks'
-    ``j << 16 | i``."""
+    ``W (nact, nh)`` and ``b (nact,)`` and, for the SAC actor, the log_std
+    Dense's kernel transposed to ``(nact, nh)`` and its bias; ``ints``
+    packs both blocks' gate indices, then both blocks' row pointers (``ng +
+    1`` each: the nonzeros of output ``o`` are ``rowptr[o]:rowptr[o +
+    1]``), then both blocks' ``j << 16 | i``."""
     cached = getattr(actor, "_folded", None)
     if cached is not None and cached[0] == actor.param_version:
         return cached[1]
     dims = actor_dims(actor)
     blocks, idx = [], []
     with torch.no_grad():
-        for blk in actor.network.blocks():
+        for _, blk in actor.named_blocks():
             W, b = blk.linear.effective()
             sp = bilinear_sparse(blk.bilinear.rep, blk.bilinear.bi_params)
             g = torch.as_tensor(gate_indices(blk.rep_out), device=W.device)
             blocks.append((W, b, sp, g))
             idx.append(bilinear_index(blk.bilinear.rep, W.device))
-        Wh, bh = actor.network.head.effective()
+        Wh, bh = actor.named_head()[1].effective()
+        tail = [Wh.reshape(-1), bh]
+        log_std = getattr(actor, "log_std_linear", None)
+        if log_std is not None:
+            tail += [log_std.kernel.T.reshape(-1), log_std.bias]
     flat = torch.cat([t.reshape(-1) for W, b, (*_, v), _ in blocks
-                      for t in (W, b, v)] + [Wh.reshape(-1), bh])
+                      for t in (W, b, v)] + tail)
     ints = torch.cat([g.to(torch.int32) for *_, g in blocks]
                      + [d["rowptr"] for d in idx] + [d["ji"] for d in idx])
     folded = dict(dims=dims, blocks=blocks, head=(Wh, bh),
@@ -108,46 +121,87 @@ def emlp_actor_plain(actor, obs):
     return torch.tanh(actor.network(obs))
 
 
+def sac_actor_plain(actor, obs, noise: Optional[torch.Tensor] = None):
+    """Structured plain twin of K9: ``EMLPActorSAC.dist`` then the squashed
+    sample ``tanh(mean + exp(log_std) noise)``, or ``tanh(mean)``."""
+    mean, log_std = actor.dist(obs)
+    if noise is None:
+        return torch.tanh(mean)
+    return sac_sample_with_noise(mean, log_std, noise)[0]
+
+
+def _launch(actor, obs, out, noise, head: int, what: str):
+    """One launch of the actor kernel with ``head``; returns ``out``."""
+    folded = fold_actor(actor)
+    nin, ng, nh, nact = dims = folded["dims"]
+    if dims not in INSTANCES:
+        raise NotImplementedError(f"{what} has no kernel instance for "
+                                  f"(nin, ng, nh, nact) = {dims}")
+    B = obs.shape[0]
+    if obs.dtype != torch.float32 or obs.shape != (B, nin) \
+            or not obs.is_contiguous() or B == 0:
+        raise ValueError(f"{what}: obs must be a contiguous float32 "
+                         f"(B, {nin}) tensor with B > 0, got {obs.dtype} "
+                         f"{tuple(obs.shape)}")
+    if out is None:
+        out = torch.empty(B, nact, dtype=torch.float32, device=obs.device)
+    for name, t in (("out", out),) + ((("noise", noise),)
+                                      if noise is not None else ()):
+        if t.dtype != torch.float32 or t.shape != (B, nact) \
+                or t.stride(1) != 1 or t.device != obs.device:
+            raise ValueError(f"{what}: {name} must be a float32 ({B}, "
+                             f"{nact}) tensor with unit column stride on "
+                             f"{obs.device}")
+    params, ints = folded["params"], folded["ints"]
+    if params.device != obs.device or params.dtype != torch.float32:
+        raise ValueError(f"{what}: actor weights must be float32 on the "
+                         "same device as obs")
+    lib = _lib()
+    err = lib.emlp_actor_launch(
+        obs.data_ptr(), B, params.data_ptr(), params.numel(), ints.data_ptr(),
+        ints.numel(), *folded["nnz"],
+        None if noise is None else noise.data_ptr(),
+        0 if noise is None else noise.stride(0), out.data_ptr(),
+        out.stride(0), nin, ng, nh, nact, head,
+        torch.cuda.current_stream(obs.device).cuda_stream)
+    check(err, lib, what)
+    return out
+
+
+def _plain_into(res, out):
+    if out is not None:
+        out.copy_(res)
+        return out
+    return res
+
+
 def emlp_actor(actor, obs: torch.Tensor, out: Optional[torch.Tensor] = None):
     """Actor forward.  CPU tensors -> ``emlp_actor_plain``; CUDA tensors ->
     one kernel launch (float32), or an error.  ``out`` (``(B, act_dim)``,
     unit column stride, any row stride) receives the actions in place, e.g.
     a column slice of the joint action tensor."""
     if not obs.is_cuda:
-        res = emlp_actor_plain(actor, obs)
-        if out is not None:
-            out.copy_(res)
-            return out
-        return res
-    folded = fold_actor(actor)
-    nin, ng, nh, nact = dims = folded["dims"]
-    if dims not in INSTANCES:
-        raise NotImplementedError(f"emlp_actor has no kernel instance for "
-                                  f"(nin, ng, nh, nact) = {dims}")
-    B = obs.shape[0]
-    if obs.dtype != torch.float32 or obs.shape != (B, nin) \
-            or not obs.is_contiguous() or B == 0:
-        raise ValueError(f"emlp_actor: obs must be a contiguous float32 "
-                         f"(B, {nin}) tensor with B > 0, got {obs.dtype} "
-                         f"{tuple(obs.shape)}")
-    if out is None:
-        out = torch.empty(B, nact, dtype=torch.float32, device=obs.device)
-    if out.dtype != torch.float32 or out.shape != (B, nact) \
-            or out.stride(1) != 1 or out.device != obs.device:
-        raise ValueError(f"emlp_actor: out must be a float32 ({B}, {nact}) "
-                         f"tensor with unit column stride on {obs.device}")
-    params, ints = folded["params"], folded["ints"]
-    if params.device != obs.device or params.dtype != torch.float32:
-        raise ValueError("emlp_actor: actor weights must be float32 on the "
-                         "same device as obs")
-    lib = _lib()
-    err = lib.emlp_actor_launch(
-        obs.data_ptr(), B, params.data_ptr(), params.numel(), ints.data_ptr(),
-        ints.numel(), *folded["nnz"], out.data_ptr(), out.stride(0),
-        nin, ng, nh, nact, torch.cuda.current_stream(obs.device).cuda_stream)
-    check(err, lib, "emlp_actor")
+        return _plain_into(emlp_actor_plain(actor, obs), out)
+    out = _launch(actor, obs, out, None, HEAD_TANH, "emlp_actor")
     emlp_actor.launches += 1
     return out
 
 
 emlp_actor.launches = 0
+
+
+def sac_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
+              out: Optional[torch.Tensor] = None):
+    """SAC actor's action (K9): ``tanh(mean + exp(log_std) noise)`` with the
+    N(0, 1) draw ``noise`` (``(B, act_dim)``, unit column stride), or
+    ``tanh(mean)`` when ``noise`` is None (eval).  CPU tensors ->
+    ``sac_actor_plain``; CUDA tensors -> one kernel launch (float32), or an
+    error.  ``out`` as for ``emlp_actor``."""
+    if not obs.is_cuda:
+        return _plain_into(sac_actor_plain(actor, obs, noise), out)
+    out = _launch(actor, obs, out, noise, HEAD_GAUSS, "sac_actor")
+    sac_actor.launches += 1
+    return out
+
+
+sac_actor.launches = 0

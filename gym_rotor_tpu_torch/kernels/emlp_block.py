@@ -255,15 +255,15 @@ def block_apply(spec: BlockSpec, x, W, b, v) -> torch.Tensor:
                              v.contiguous(), spec)
 
 
-def emlp_apply(net, params: Dict[str, torch.Tensor], prefix: str,
+def emlp_trunk(net, params: Dict[str, torch.Tensor], prefix: str,
                x: torch.Tensor):
-    """An ``EMLP`` module's function on ``x`` with the parameters
-    ``params[prefix + "block0.linear.kernel"]`` etc. (views of a flat leaf
-    on the training path): each block's raw kernel and bias are projected
-    (K5, differentiable), its bilinear values merged (``bilinear_sparse``),
-    then the block runs through K3/K4; the head is a torch matmul."""
-    for k, blk in enumerate(net.blocks()):
-        pre = f"{prefix}block{k}."
+    """The blocks of ``net`` (an ``EMLP``, ``EMLPActorDet`` or
+    ``EMLPActorSAC``: anything with ``named_blocks``) on ``x`` with the
+    parameters ``params[<block prefix> + "linear.kernel"]`` etc. (views of a
+    flat leaf on the training path): each block's raw kernel and bias are
+    projected (K5, differentiable), its bilinear values merged
+    (``bilinear_sparse``), then the block runs through K3/K4."""
+    for pre, blk in net.named_blocks(prefix):
         W, b = project_linear(blk.linear.rep_in, blk.linear.rep_out,
                               params[pre + "linear.kernel"],
                               params[pre + "linear.bias"])
@@ -272,8 +272,20 @@ def emlp_apply(net, params: Dict[str, torch.Tensor], prefix: str,
         v = (bilinear_sparse(blk.bilinear.rep, bi)[3] if bi is not None
              else W.new_zeros(spec.nnz))
         x = block_apply(spec, x, W, b, v)
-    head = net.head
-    Wh, bh = project_linear(head.rep_in, head.rep_out,
-                            params[prefix + "head.kernel"],
-                            params[prefix + "head.bias"])
-    return x @ Wh.T + bh
+    return x
+
+
+def equiv_linear(layer, params: Dict[str, torch.Tensor], prefix: str,
+                 x: torch.Tensor):
+    """An ``EquivLinear`` with ``params[prefix + "kernel"]``/``"bias"``:
+    the projection (K5) and a torch matmul."""
+    W, b = project_linear(layer.rep_in, layer.rep_out,
+                          params[prefix + "kernel"], params[prefix + "bias"])
+    return x @ W.T + b
+
+
+def emlp_apply(net, params: Dict[str, torch.Tensor], prefix: str,
+               x: torch.Tensor):
+    """``net``'s blocks (``emlp_trunk``), then its equivariant head."""
+    pre, head = net.named_head(prefix)
+    return equiv_linear(head, params, pre, emlp_trunk(net, params, prefix, x))

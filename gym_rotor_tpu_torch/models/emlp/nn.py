@@ -473,6 +473,13 @@ class EMLP(nn.Module):
     def blocks(self) -> Tuple[EMLPBlock, ...]:
         return tuple(getattr(self, f"block{i}") for i in range(self.n_blocks))
 
+    def named_blocks(self, prefix: str = ""):
+        """``[(dotted prefix of the block's parameters, block)]``."""
+        return [(f"{prefix}block{i}.", b) for i, b in enumerate(self.blocks())]
+
+    def named_head(self, prefix: str = ""):
+        return f"{prefix}head.", self.head
+
     def forward(self, x):
         for blk in self.blocks():
             x = blk(x)

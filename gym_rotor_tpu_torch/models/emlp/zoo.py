@@ -1,14 +1,15 @@
-"""Equivariant actors and twin Q critics (port of the TD3 part of
+"""Equivariant actors and twin Q critics (port of the TD3 and SAC parts of
 ``gym_rotor_tpu/models/emlp/zoo.py``: ``actor_reps``, ``critic_reps`` for
-the MONO and DTDE branches, ``EMLPActorDet``, ``EMLPCriticTwin`` and
-``emlp_twin_split``).  SAC and PPO heads and the CTDE critic reps are not
-ported yet.
+the MONO and DTDE branches, ``EMLPActorDet``, ``EMLPActorSAC``,
+``EMLPCriticTwin``, ``emlp_twin_split`` and ``sac_models``).  The PPO heads
+and the CTDE critic reps are not ported yet.
 
 Every network carries ``param_version``, an explicit counter of in-place
 parameter writes: the flat optimizer bumps it after each launch and the
 acting kernel's fold cache keys on it (``kernels/emlp_actor.py``)."""
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -16,8 +17,9 @@ from torch import nn
 
 from ...utils.config import Config
 from ...utils.device import resolve_device
+from ..mlp import LOG_SIG_MAX, LOG_SIG_MIN
 from . import groups as G
-from .nn import EMLP
+from .nn import EMLP, EMLPBlock, EquivLinear
 from .reps import Scalar, SumRep, Vector, uniform_rep
 
 
@@ -99,10 +101,83 @@ class EMLPActorDet(_Versioned):
         reps = (rep_in,) + (hidden,) * hidden_num
         self.network = EMLP(reps, rep_out, device=device, dtype=dtype,
                             generator=generator)
+        self.action_dim = rep_out.size
+
+    def named_blocks(self, prefix: str = ""):
+        return self.network.named_blocks(prefix + "network.")
+
+    def named_head(self, prefix: str = ""):
+        return self.network.named_head(prefix + "network.")
 
     def forward(self, obs, out: Optional[torch.Tensor] = None):
         from ...kernels.emlp_actor import emlp_actor
         return emlp_actor(self, obs, out)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel`` (nin, nout), ``bias`` (nout,), LeCun
+    normal kernel (truncated at two standard deviations) and zero bias."""
+
+    def __init__(self, nin: int, nout: int, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(nin, nout, device=device,
+                                               dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(nout, device=device, dtype=dtype))
+        std = math.sqrt(1.0 / nin) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+
+    def forward(self, x):
+        return x @ self.kernel + self.bias
+
+
+class EMLPActorSAC(_Versioned):
+    """Gaussian EMLP actor (zoo.py:169-190): two equivariant blocks
+    ``network_block0``/``network_block1``, the mean head ``network_head``
+    (an ``EquivLinear``) and ``log_std_linear``, a plain ``Dense`` on the
+    last hidden layer clipped to [LOG_SIG_MIN, LOG_SIG_MAX]; flax's names
+    and layouts.  ``dist`` is the structured plain network.  ``forward`` is
+    the acting sample ``tanh(mean + exp(log_std) noise)``, or ``tanh(mean)``
+    without ``noise``: on CUDA tensors one launch of the fused actor kernel
+    (K9), on CPU tensors ``dist`` and the plain sample."""
+
+    def __init__(self, rep_in: SumRep, hidden: SumRep, rep_out: SumRep,
+                 action_dim: int, hidden_num: int = 2, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        reps = (rep_in,) + (hidden,) * hidden_num
+        self.n_blocks = hidden_num
+        for i, (rin, rout) in enumerate(zip(reps, reps[1:])):
+            self.add_module(f"network_block{i}", EMLPBlock(rin, rout, **kw))
+        self.network_head = EquivLinear(reps[-1], rep_out, **kw)
+        self.log_std_linear = Dense(reps[-1].size, action_dim, **kw)
+        self.action_dim = action_dim
+
+    def named_blocks(self, prefix: str = ""):
+        return [(f"{prefix}network_block{i}.",
+                 getattr(self, f"network_block{i}"))
+                for i in range(self.n_blocks)]
+
+    def named_head(self, prefix: str = ""):
+        return f"{prefix}network_head.", self.network_head
+
+    def dist(self, obs):
+        """``(mean, log_std)``, the policy head (zoo.py:179-190)."""
+        x = obs
+        for _, blk in self.named_blocks():
+            x = blk(x)
+        log_std = torch.clamp(self.log_std_linear(x), LOG_SIG_MIN, LOG_SIG_MAX)
+        return self.network_head(x), log_std
+
+    def forward(self, obs, noise: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None):
+        from ...kernels.emlp_actor import sac_actor
+        return sac_actor(self, obs, noise, out)
 
 
 class EMLPCriticTwin(_Versioned):
@@ -138,6 +213,18 @@ def emlp_twin_split(params):
         head, _, rest = name.partition(".")
         out[{"network1": 0, "network2": 1}[head]]["network." + rest] = t
     return out
+
+
+def sac_models(cfg: Config, agent_id: int, device=None, dtype=torch.float32,
+               generator: Optional[torch.Generator] = None):
+    """``(EMLPActorSAC, EMLPCriticTwin)`` of agent ``agent_id`` with seeded
+    random weights (zoo.py:271-278)."""
+    kw = dict(device=device, dtype=dtype, generator=generator)
+    actor = EMLPActorSAC(*actor_reps(cfg, cfg.framework, agent_id),
+                         cfg.action_dim_n[agent_id], **kw)
+    critic = EMLPCriticTwin(*critic_reps(cfg, cfg.framework, agent_id,
+                                         cfg.module_training), **kw)
+    return actor, critic
 
 
 def make_actors(cfg: Config, device=None, dtype=torch.float32,

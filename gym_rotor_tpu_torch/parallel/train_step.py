@@ -1,15 +1,19 @@
 """The off-policy actor-learner superstep on one device (port of
-``gym_rotor_tpu/parallel/train_step.py:68`` ``make_sharded_td3_superstep``
-for TD3, run on one device): ``rollout_len`` ticks of (act -> K1 tick ->
-K2 ring write with the K8 episode statistics), then ``n_updates`` of (K2
-sample -> ``td3.train_step``).
+``gym_rotor_tpu/parallel/train_step.py:68`` ``make_sharded_td3_superstep``,
+run on one device): ``rollout_len`` ticks of (act -> K1 tick -> K2 ring
+write with the K8 episode statistics), then ``n_updates`` of (K2 sample ->
+``train_fn``).  TD3 by default; JAX's ``train_fn`` and ``act_fn`` hooks
+and a draws factory make it run SAC (``algos/sac.py::superstep_hooks``).
+JAX's ``act_prep`` (fold the actors once per superstep) has no counterpart:
+each acting module caches its fold on its ``param_version``, which does the
+same.
 
 A ``warm`` superstep acts with uniform actions in [-1, 1) and runs no
 update (the reference's ``start_timesteps`` warm-up).  A train superstep
-acts with the current actors (K3, folded once per parameter version) plus
-clipped Gaussian exploration noise.  Both return the JAX step's metrics:
-``mean_reward``, ``fin_sum``, ``fin_cnt`` and, when training, the last
-update's ``agent{i}/critic_loss`` and ``agent{i}/actor_loss`` (0-d or 1-d
+acts through ``act_fn``: by default the current TD3 actors (K3, folded once
+per parameter version) plus clipped Gaussian exploration noise.  Both
+return the JAX step's metrics: ``mean_reward``, ``fin_sum``, ``fin_cnt``
+and, when training, the last update's ``agent{i}/...`` losses (0-d or 1-d
 tensors on the device; reading them syncs).
 
 Everything the step carries is updated in place: the ``TickLoop``
@@ -21,7 +25,7 @@ draws come from ``generator`` or, for parity tests, from ``draws =
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,18 +38,29 @@ from ..utils.config import Config
 from ..utils.device import resolve_device
 
 
-def make_td3_superstep(cfg: Config, agents: Sequence[td3_lib.TD3Agent],
-                       device=None, rollout_len: int = 1, n_updates: int = 1):
+def make_td3_superstep(cfg: Config, agents: Sequence, device=None,
+                       rollout_len: int = 1, n_updates: int = 1,
+                       train_fn: Optional[Callable] = None,
+                       act_fn: Optional[Callable] = None,
+                       draws_fn: Optional[Callable] = None):
     """Returns ``step(loop, obs, rstate, states, ep_ret, noise_std,
-    warm=False, generator=None, draws=None) -> (obs, metrics)``."""
+    warm=False, generator=None, draws=None) -> (obs, metrics)``.
+
+    ``train_fn(cfg, agents, states, batch, agent_draws) -> (states,
+    metrics)`` is the update (default ``td3.train_step``);
+    ``act_fn(states, obs, noise_std, policy_draws) -> joint action`` the
+    train ticks' policy (default TD3's noisy deterministic actors);
+    ``draws_fn`` makes an update's
+    ``UpdateDraws`` with ``envs/draws.py::make_update_draws``'s signature
+    (default that function)."""
     dev = resolve_device(device)
     n = cfg.n_agents
     act_dims = tuple(cfg.action_dim_n)
     m = cfg.max_action
+    train_fn = train_fn or td3_lib.train_step
+    draws_fn = draws_fn or D.make_update_draws
 
-    def act(states, obs, noise_std, td: D.TickDraws, warm: bool):
-        if warm:
-            return D.uniform_in(td.policy, -1.0, 1.0)
+    def td3_act(states, obs, noise_std, policy):
         B = obs[0].shape[0]
         actions = torch.empty(B, sum(act_dims), dtype=agents[0].dtype,
                               device=dev)
@@ -53,11 +68,13 @@ def make_td3_superstep(cfg: Config, agents: Sequence[td3_lib.TD3Agent],
         for agent, st, o, d in zip(agents, states, obs, act_dims):
             agent.act(st, o, out=actions[:, col:col + d])
             col += d
-        noise = torch.cat(list(td.policy), dim=-1)
+        noise = torch.cat(list(policy), dim=-1)
         return torch.clamp(actions + noise_std * noise, -m, m)
 
+    act_fn = act_fn or td3_act
+
     def step(loop: TickLoop, obs: tuple, rstate: replay_lib.ReplayState,
-             states: List[td3_lib.TD3State], ep_ret: torch.Tensor,
+             states: List, ep_ret: torch.Tensor,
              noise_std: float, warm: bool = False,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Tuple[Sequence[D.TickDraws],
@@ -69,7 +86,8 @@ def make_td3_superstep(cfg: Config, agents: Sequence[td3_lib.TD3Agent],
             td = (draws[0][t] if draws is not None else
                   D.make_tick_draws(loop.B, act_dims, warm, generator, dev,
                                     loop.dtype))
-            actions = act(states, obs, noise_std, td, warm)
+            actions = (D.uniform_in(td.policy, -1.0, 1.0) if warm else
+                       act_fn(states, obs, noise_std, td.policy))
             out = loop.step(actions, td.env)
             replay_lib.insert_tick(rstate, obs, actions, out.reward,
                                    out.info["terminal_obs"], out.done,
@@ -82,14 +100,12 @@ def make_td3_superstep(cfg: Config, agents: Sequence[td3_lib.TD3Agent],
             return obs, metrics
         for u in range(n_updates):
             ud = (draws[1][u] if draws is not None else
-                  D.make_update_draws(
-                      cfg.batch_size, rstate.filled, cfg.obs_dim_n, act_dims,
-                      [a.critic_widths for a in agents],
-                      [a.actor_widths for a in agents], generator, dev,
-                      agents[0].dtype))
+                  draws_fn(cfg.batch_size, rstate.filled, cfg.obs_dim_n,
+                           act_dims, [a.critic_widths for a in agents],
+                           [a.actor_widths for a in agents], generator, dev,
+                           agents[0].dtype))
             batch = replay_lib.sample(rstate, cfg.batch_size, idx=ud.idx)
-            states, um = td3_lib.train_step(cfg, agents, states, batch,
-                                            ud.agents)
+            states, um = train_fn(cfg, agents, states, batch, ud.agents)
         metrics.update(um)
         return obs, metrics
 

@@ -1,13 +1,16 @@
-"""The TD3 training loop on one device (port of ``train.py:393-425``,
-``Learner.train_policy`` for TD3): seeded agents, replay ring and envs,
-then supersteps with the ``start_timesteps`` warm-up gate, the linear
-exploration-noise decay and the per-episode return log.
+"""The off-policy training loop on one device (port of ``train.py:159-161,
+343-425``, ``Learner.train_policy`` for TD3 and SAC): seeded agents, replay
+ring and envs, then supersteps with the ``start_timesteps`` warm-up gate,
+the linear exploration-noise decay (TD3 only, as ``train.py:421``) and the
+per-episode return log.  ``cfg.rl_algo == "SAC"`` builds ``SACAgent``s and
+runs the same superstep with the SAC hooks (``algos/sac.py``).
 
 Not ported yet: periodic eval with best/solved actor saving, checkpoints,
 resume and TensorBoard (ROADMAP Queue 1 item 10).
 
     from gym_rotor_tpu_torch.train import train
-    out = train(Config(), supersteps=1000)             # on the card
+    out = train(Config(), supersteps=1000)             # TD3 on the card
+    out = train(Config(rl_algo="SAC"), supersteps=1000)
     out = train(Config(num_envs=8, ...), 5, device="cpu")
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from .algos import replay as replay_lib
+from .algos import sac as sac_lib
 from .algos.td3 import TD3Agent
 from .envs.batch import batched_reset
 from .kernels.env_tick import TickLoop
@@ -35,12 +39,16 @@ def train(cfg: Config, supersteps: int, device=None,
     finished return per agent)``.  ``on_superstep(i, warm, metrics, run)``
     is called after each superstep (the caller's probe: timing, launch
     counts)."""
-    if cfg.rl_algo != "TD3":
-        raise NotImplementedError(f"only TD3 is ported, not {cfg.rl_algo}")
+    if cfg.rl_algo not in ("TD3", "SAC"):
+        raise NotImplementedError(f"only TD3 and SAC are ported, not "
+                                  f"{cfg.rl_algo}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     init_gen = torch.Generator().manual_seed(cfg.seed)
-    agents = [TD3Agent(cfg, i, dev) for i in range(cfg.n_agents)]
+    sac = cfg.rl_algo == "SAC"
+    agents = [(sac_lib.SACAgent if sac else TD3Agent)(cfg, i, dev)
+              for i in range(cfg.n_agents)]
+    hooks = sac_lib.superstep_hooks(agents) if sac else {}
     states = [a.init(init_gen) for a in agents]
     rstate = replay_lib.create(cfg.replay_buffer_size, cfg.obs_dim_n,
                                cfg.action_dim_n, device=dev)
@@ -51,7 +59,7 @@ def train(cfg: Config, supersteps: int, device=None,
     rl = max(cfg.rollout_len, 1)
     n_updates = max(int(round(cfg.updates_per_step * rl)), 1)
     step = make_td3_superstep(cfg, agents, dev, rollout_len=rl,
-                              n_updates=n_updates)
+                              n_updates=n_updates, **hooks)
     steps_per_call = cfg.num_envs * rl
     noise_std = cfg.explor_noise_std_init
     decay = ((cfg.explor_noise_std_init - cfg.explor_noise_std_min)
@@ -71,7 +79,7 @@ def train(cfg: Config, supersteps: int, device=None,
             run["episodes"].append((total, mean_ret))
             if log is not None:
                 log(f"t={total} episode return {mean_ret}")
-        if cfg.use_explor_noise_decay:
+        if cfg.rl_algo == "TD3" and cfg.use_explor_noise_decay:
             noise_std = max(noise_std - decay * steps_per_call,
                             cfg.explor_noise_std_min)
         run.update(obs=obs, total_timesteps=total, noise_std=noise_std)

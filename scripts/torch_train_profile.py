@@ -1,13 +1,19 @@
 """Where the time of the PyTorch port's training superstep goes, on one GPU.
 
-    python3 scripts/torch_train_profile.py [--envs 4096] [--steps 60]
-                                           [--out FILE]
+    python3 scripts/torch_train_profile.py [--algo td3|sac] [--envs 4096]
+                                           [--steps 60] [--out FILE]
 
-Runs ``train`` (the flagship TD3 configuration, one warm superstep, then
-train supersteps of one 4096-env tick and one update each) and, through its
+Runs ``train`` (the flagship configuration with TD3, or SAC with
+``--algo sac``; one warm superstep, then train supersteps of one 4096-env
+tick and one update each) and, through its
 per-superstep probe, measures three windows of ``--steps`` supersteps after
 a warm-up of 20:
   1. timed with CUDA events (ms per superstep, env-steps/s, updates/s);
+     right after it, the superstep's update alone (``replay.sample`` and
+     the learner's ``train_step`` on fresh draws), ``--steps`` times
+     back to back and ``--steps`` times with a sync after each (as
+     ``train`` syncs after each superstep), on CUDA events and the host
+     clock;
   2. under ``torch.profiler`` (CPU + CUDA): device time by kernel name and
      the device-busy share of the wall time;
   3. under ``cProfile``: the host functions that take the superstep's time.
@@ -32,6 +38,7 @@ WARMUP = 20
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--algo", choices=("td3", "sac"), default="td3")
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--out", default=None,
@@ -42,9 +49,12 @@ def main():
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    from gym_rotor_tpu_torch.algos import replay as R
+    from gym_rotor_tpu_torch.algos import sac, td3
+    from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.kernels import (build, emlp_actor, emlp_block,
                                              env_tick, flat_adamw, replay,
-                                             spectral)
+                                             sac_sample, spectral)
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
 
@@ -52,15 +62,38 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     build.build_all([m.KERNEL for m in (env_tick, emlp_actor, replay,
-                                        emlp_block, flat_adamw, spectral)])
+                                        emlp_block, flat_adamw, spectral,
+                                        sac_sample)])
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = Config(num_envs=args.envs, start_timesteps=args.envs)
+    cfg = Config(num_envs=args.envs, start_timesteps=args.envs,
+                 rl_algo=args.algo.upper())
     n = args.steps
     t_start, p_start, c_start = 1 + WARMUP, 1 + WARMUP + n, 1 + WARMUP + 2 * n
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     cpr = cProfile.Profile()
     marks = {}
+    learner, draws_fn = ((sac, D.make_sac_update_draws) if args.algo == "sac"
+                         else (td3, D.make_update_draws))
+
+    def update_alone(run, synced):
+        """ms per update of ``n`` updates, device (events) and host."""
+        agents, states, rs = run["agents"], run["states"], run["replay"]
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(n):
+            ud = draws_fn(cfg.batch_size, rs.filled, cfg.obs_dim_n,
+                          cfg.action_dim_n, [a.critic_widths for a in agents],
+                          [a.actor_widths for a in agents], None, dev)
+            batch = R.sample(rs, cfg.batch_size, idx=ud.idx)
+            learner.train_step(cfg, agents, states, batch, ud.agents)
+            if synced:
+                torch.cuda.synchronize()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n, (time.perf_counter() - h0) * 1e3 / n
 
     def probe(i, warm, metrics, run):
         # i is the superstep that just ended; a window [a, a + n) starts
@@ -70,6 +103,9 @@ def main():
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks[i + 1] = (ev, time.perf_counter())
+        if i + 1 == t_start + n:
+            marks["alone"] = update_alone(run, False)
+            marks["alone_synced"] = update_alone(run, True)
         if i + 1 == p_start:
             torch.cuda.synchronize()
             prof.start()
@@ -88,11 +124,15 @@ def main():
     train(cfg, c_start + n, device=dev, on_superstep=probe, log=None)
     (e0, h0), (e1, h1) = marks[t_start], marks[t_start + n]
     ms = e0.elapsed_time(e1) / n
-    print(json.dumps({"card": card, "envs": args.envs, "supersteps": n,
+    print(json.dumps({"card": card, "algo": cfg.rl_algo, "envs": args.envs,
+                      "supersteps": n,
                       "updates_per_superstep": 1, "ms_per_superstep": ms,
                       "host_ms_per_superstep": (h1 - h0) * 1e3 / n,
                       "env_steps_per_s": args.envs / ms * 1e3,
-                      "updates_per_s": 1e3 / ms}), flush=True)
+                      "updates_per_s": 1e3 / ms,
+                      "update_alone_ms_device_host": marks["alone"],
+                      "update_alone_synced_ms_device_host":
+                          marks["alone_synced"]}), flush=True)
 
     wall = marks["p1"] - marks["p0"]
     dev_us = {}
