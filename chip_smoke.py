@@ -5,7 +5,7 @@ check them.
 
 Phases (each prints its own line; any failure exits non-zero and prints no
 result line):
-  1. build      nvcc all seven kernel sources in parallel; print build time
+  1. build      nvcc all nine kernel sources in parallel; print build time
                 and the registers/spills ``-Xptxas -v`` reports
   2. env_tick   K1 kernel vs its plain twin at B = 4096 float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
@@ -50,12 +50,38 @@ result line):
                 every update and the critic target only on gated ones;
                 then 3 supersteps with ``automatic_entropy_tuning`` moving
                 ``log_alpha`` on each
- 14. kernels    per kernel: launches on the train paths (K9 and K10 on the
-                SAC path's), device time per launch, plain twin's time, the
-                H100 bound, and a PyTorch yardstick call where one computes
-                the same function; and K5 (``project_linear``, plain torch)
-                per call at every layer shape the train paths project, with
-                its calls per superstep
+ 14. ppo_actor  K11 vs its plain twin, both PPO actors, B = 4096, 32 (the
+                two PPO configurations' envs) and the eval path's 10, train
+                and eval modes, log_std as initialised and pushed to +-3
+ 15. gae        K12 vs its plain twin at (T, B) = (218, 32), (50, 4096) and
+                (1, 7), dones inside the horizon; the TD targets (the scan)
+                and the normalisation checked apart
+ 16. ppo_loss   K13 forward and backward vs its plain twin at 128 and 3723
+                rows of 4 and 1 actions: ratios inside and outside the clip
+                range on both sides with both signs of the advantage, zero
+                advantages, and (1 action) ratios exactly at 1 +- clip_rate;
+                then the actor loss's surrogate path (K3/K4 trunk, K13)
+                under autograd vs the structured network and the plain loss
+ 17. v_blocks   K3/K4 vs plain for both blocks of both PPO V critics (the
+                two new first-block shapes): forward at the GAE pass's
+                2 T B rows (13 952, 409 600; plain on the first 4096 rows),
+                backward at the minibatches' 128 and 3723 rows; then the V
+                critic's kernel path under autograd vs its structured net
+ 18. ppo_train  ``train(Config(rl_algo="PPO"))`` in configuration A (32 envs,
+                T_horizon 7000, minibatch 128) for 2 supersteps of
+                K_epochs 2, and B (4096 envs, T_horizon 204 800, minibatch
+                3723) for 1 superstep of K_epochs 1: exact launch counts of
+                every kernel and of K3/K4 per (shape, rows) per superstep,
+                one fold per actor per superstep, finite losses, actor,
+                critic and entropy_coef moving; env-steps/s, minibatch
+                steps/s and ms per superstep by CUDA events
+ 19. kernels    per kernel: launches on the train paths (K9 and K10 on the
+                SAC path's, K11-K13 and the PPO path's K3/K4 on PPO's),
+                device time per launch, plain twin's time, the H100 bound,
+                and a PyTorch yardstick call where one computes the same
+                function; and K5 (``project_linear``, plain torch) per call
+                at every layer shape the TD3 and SAC paths project, with its
+                calls per superstep
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -85,7 +111,8 @@ CARD = ""            # nvidia-smi name and power limit, set in main()
 
 
 def log(phase, **kv):
-    if phase in ("rollout", "eval", "train", "sac_train", "kernels"):
+    if phase in ("rollout", "eval", "train", "sac_train", "ppo_train",
+                 "kernels"):
         kv["card"] = CARD
     print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
 
@@ -188,10 +215,11 @@ def count_flops(fn, *args):
 # ---------------------------------------------------------------------------
 def _kernel_modules():
     from gym_rotor_tpu_torch.kernels import (emlp_actor, emlp_block,
-                                             env_tick, flat_adamw, replay,
-                                             sac_sample, spectral)
+                                             env_tick, flat_adamw, gae,
+                                             ppo_loss, replay, sac_sample,
+                                             spectral)
     return [env_tick, emlp_actor, replay, emlp_block, flat_adamw, spectral,
-            sac_sample]
+            sac_sample, gae, ppo_loss]
 
 
 def _wrappers():
@@ -1400,13 +1428,642 @@ def phase_k5(dev, k5_td3, k5_sac):
             ms_per_superstep=calls * mean(1))
 
 
+# ---------------------------------------------------------------------------
+# PPO
+# ---------------------------------------------------------------------------
+# configurations A and B (utils/config.py PPO_CONFIGS) and the supersteps
+# the train phase runs of each
+PPO_SUPERSTEPS = (("A", 3), ("B", 2))
+
+
+def _ppo_dims(cfg):
+    """(ticks, rows, actor minibatches and rows, critic minibatches and
+    rows) of one PPO superstep (train.py:369-375, ppo.py:218-223)."""
+    rl = max(cfg.T_horizon // cfg.num_envs, 1)
+    T = rl * cfg.num_envs
+    return (rl, T, max(T // cfg.actor_batch_size, 1),
+            min(cfg.actor_batch_size, T), max(T // cfg.critic_batch_size, 1),
+            min(cfg.critic_batch_size, T))
+
+
+def _err_rel(k, p, rel):
+    """(max |k - p|, tolerance ``rel * max |p|``, finite)."""
+    d = float((k.double() - p.double()).abs().max())
+    return d, rel * float(p.double().abs().max()), bool(torch.isfinite(k).all())
+
+
+def phase_ppo_actor(cfg, dev, obs):
+    """K11 vs its plain twin (``EMLPActorPPO.dist``, the clipped draw and the
+    log-prob of the clipped action) on both PPO actors at B = 4096 and 32
+    (the two configurations' envs) and the eval path's 10, in train and
+    eval modes, with ``log_std`` as initialised (0) and shifted by +-3
+    (std 20: most actions clip; std 0.05).  Tolerance: 1e-5 on actions,
+    2e-5 max(1, max |plain|) on log-probs (the log-density divides the
+    action's rounding by std)."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.kernels import emlp_actor as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    init = torch.Generator().manual_seed(SEED)
+    pcfg = cfg.replace(rl_algo="PPO")
+    agents = [PPOAgent(pcfg, i, dev) for i in range(cfg.n_agents)]
+    states = [a.init(init) for a in agents]
+    worst, bad = 0.0, []
+    for i, (agent, o_full) in enumerate(zip(agents, obs)):
+        actor = agent.actor_net
+        saved = actor.log_std.detach().clone()
+        for shift in (0.0, 3.0, -3.0):
+            with torch.no_grad():
+                actor.log_std.copy_(saved + shift)
+            actor.bump_version()
+            for nb in (int(o_full.shape[0]), 32, cfg.num_eval):
+                o = o_full[:nb]
+                noise = torch.randn(nb, agent.action_dim, generator=gen,
+                                    device=dev)
+                for mode, nz in (("train", noise), ("eval", None)):
+                    with torch.no_grad():
+                        ak, lk = K.ppo_actor(actor, o, nz)
+                        ap, lp = K.ppo_actor_plain(actor, o, nz)
+                    da = float((ak - ap).abs().max())
+                    dl, tol, fin = _err(lk, lp)
+                    worst = max(worst, da, dl)
+                    log("ppo_actor", agent=i, batch=nb, mode=mode,
+                        log_std_shift=shift,
+                        clipped=float((ap.abs() == 1.0).float().mean()),
+                        dims=K.actor_dims(actor), max_abs_err=[da, dl])
+                    if not (da <= 1e-5 and dl <= tol and fin
+                            and torch.isfinite(ak).all()):
+                        bad.append((i, nb, mode, shift, da, dl))
+        with torch.no_grad():
+            actor.log_std.copy_(saved)
+        actor.bump_version()
+    if bad:
+        raise AssertionError(f"ppo_actor kernel disagrees with plain: {bad}")
+    return agents, states, worst
+
+
+def phase_gae(cfg, dev):
+    """K12 vs its plain twin on horizons of (T, B) = (218, 32) and (50,
+    4096) (the two configurations) and (1, 7), with ~5% dones (the chain
+    cut inside the horizon).  The scan alone through the TD targets
+    (``adv + v`` before the normalisation), the normalisation alone by
+    normalising the kernel's own raw advantages (``td - v``) in float64,
+    then the whole.  Tolerance 1e-5 max(1, max |plain|): float32 sums over
+    up to 204 800 entries in another order."""
+    from gym_rotor_tpu_torch.kernels import gae as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    worst, bad = 0.0, []
+    for T, nb in ((218, 32), (50, B), (1, 7)):
+        v, nv, r = (torch.randn(T, nb, 1, generator=gen, device=dev)
+                    for _ in range(3))
+        d = (torch.rand(T, nb, 1, generator=gen, device=dev) < 0.05).float()
+        ak, tk = K.gae(v, nv, r, d, cfg.discount, cfg.GAE_lambda)
+        ap, tp = K.gae_plain(v, nv, r, d, cfg.discount, cfg.GAE_lambda)
+        checks = {"scan (td targets)": _err(tk, tp, 1e-5),
+                  "normalisation": _err(ak, K.normalize_plain(
+                      (tk - v).double()), 1e-5),
+                  "advantages": _err(ak, ap, 1e-5)}
+        worst = max([worst] + [c[0] for c in checks.values()])
+        log("gae", T=T, envs=nb, dones=int(d.sum()),
+            max_abs_err={k: c[0] for k, c in checks.items()},
+            adv_mean=float(ak.mean()), adv_std=float(ak.std()))
+        bad += [(T, nb, k, c[0]) for k, c in checks.items()
+                if not (c[0] <= c[1] and c[2])]
+    if bad:
+        raise AssertionError(f"gae kernel disagrees with plain: {bad}")
+    return worst
+
+
+def _k13_inputs(n, act, clip, gen, dev):
+    """K13's inputs: ratios exp(U(-0.6, 0.6)) (inside and outside the clip
+    range on both sides) with N(0, 1) advantages of both signs; n/16 rows
+    with a zero advantage; for one action n/16 rows exactly at 1 + clip and
+    n/16 at 1 - clip (``a = m + 0.1``, ``lp_old`` moved by float32 ulps
+    until the plain twin's ratio is the bound; the kernel computes it with
+    the same rounding).  Returns the inputs and the tie rows' count per
+    bound."""
+    from gym_rotor_tpu_torch.kernels import ppo_loss as K
+    from gym_rotor_tpu_torch.models.mlp import gaussian_logprob
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    m = 0.4 * randn(n, act)
+    ls = 0.3 * randn(act) if act > 1 else torch.zeros(act, device=dev)
+    a = m + 0.5 * randn(n, act)
+    q = n // 16
+    hits = {}
+    if act == 1:
+        a[n - 2 * q:] = m[n - 2 * q:] + 0.1
+    lp = gaussian_logprob(m, ls.expand_as(m), a)
+    shift = torch.rand(n, act, generator=gen, device=dev) * 1.2 - 0.6
+    lp_old = lp - shift / act
+    adv = randn(n, 1)
+    adv[n - 3 * q:n - 2 * q] = 0.0
+    if act == 1:
+        for j, bound in enumerate((1.0 + clip, 1.0 - clip)):
+            rows = slice(n - (2 - j) * q, n - (1 - j) * q)
+            target = torch.tensor(bound, dtype=torch.float32, device=dev)
+            x0 = lp[rows] - torch.log(target)
+            steps = torch.arange(-8, 9, device=dev, dtype=torch.int32)
+            cand = (x0.view(torch.int32) + steps).view(torch.float32)
+            k = cand.shape[1]
+            ratio = K._ratio(m[rows].repeat_interleave(k, 0), ls,
+                             a[rows].repeat_interleave(k, 0),
+                             cand.reshape(-1, 1))[0].view(-1, k)
+            at = ratio == target
+            first = torch.where(at.any(1), at.float().argmax(1), 8)
+            lp_old[rows] = cand.gather(1, first[:, None])
+            hits[bound] = int(at.any(1).sum())
+    return m, ls, a, lp_old, adv, hits
+
+
+def phase_ppo_loss(cfg, dev, agents, states, obs):
+    """K13 forward and backward vs its plain twin at the two
+    configurations' minibatches (128 and 3723 rows) of 4 and 1 actions on
+    ``_k13_inputs``' rows.  Tolerance 2e-5 of the largest plain entry
+    (-fmad=false: the per-row arithmetic rounds as the twin's; the sums
+    over rows go in another order); every bound must hold tie rows.  Then
+    the actor loss's surrogate path at 128 rows (the actor over 3 x 128
+    rows through K3/K4, K13 on the first 128) under autograd vs the
+    structured network and the plain loss under torch autograd: value and
+    flat gradient within 2e-5 max(1, max |plain|)."""
+    from torch.func import functional_call
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import ppo_loss as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    clip = cfg.clip_rate
+    coef = torch.tensor(cfg.entropy_coef, device=dev)
+    g = torch.tensor(1.0, device=dev)
+    worst, bad = {"forward": 0.0, "backward": 0.0}, []
+    for n in (128, B * 50 // 55):
+        for act in (4, 1):
+            m, ls, a, lpo, adv, hits = _k13_inputs(n, act, clip, gen, dev)
+            lk = K.ppo_loss(m, ls, a, lpo, adv, coef, clip)
+            lp = K.ppo_loss_plain(m, ls, a, lpo, adv, coef, clip)
+            gmk, gsk = K.ppo_loss_backward(g, m, ls, a, lpo, adv, coef, clip)
+            gmp, gsp = K.ppo_loss_backward_plain(g, m, ls, a, lpo, adv, coef,
+                                                 clip)
+            ratio = K._ratio(m, ls, a, lpo)[0]
+            checks = {"loss": _err_rel(lk, lp, 2e-5),
+                      "g_mean": _err_rel(gmk, gmp, 2e-5),
+                      "g_log_std": _err_rel(gsk, gsp, 2e-5)}
+            log("ppo_loss", rows=n, act=act, loss=float(lp),
+                ratio_below=int((ratio < 1 - clip).sum()),
+                ratio_inside=int(((ratio > 1 - clip) & (ratio < 1 + clip))
+                                 .sum()),
+                ratio_above=int((ratio > 1 + clip).sum()),
+                rows_at_bound={str(k): v for k, v in hits.items()},
+                max_abs_err={k: c[0] for k, c in checks.items()})
+            for k, (d, tol, fin) in checks.items():
+                side = "forward" if k == "loss" else "backward"
+                worst[side] = max(worst[side], d)
+                if not (d <= tol and fin):
+                    bad.append((n, act, k, d, tol))
+            if act == 1 and not all(hits.values()):
+                bad.append((n, act, "no rows at a clip bound", hits))
+
+    for i, (agent, st) in enumerate(zip(agents, states)):
+        mb = 128
+        o, no = obs[i][:mb], obs[i][mb:2 * mb]
+        eps = 0.05 * torch.randn(1, agent.obs_dim, generator=gen, device=dev)
+        o3 = torch.cat([o, no, o + eps])
+        noise = torch.randn(mb, agent.action_dim, generator=gen, device=dev)
+        with torch.no_grad():
+            a, lpo = KA.ppo_actor_plain(agent.actor_net, o, noise)
+        lpo = lpo + 0.2 * torch.randn(mb, agent.action_dim, generator=gen,
+                                      device=dev)
+        adv = torch.randn(mb, 1, generator=gen, device=dev)
+        w3 = torch.randn(3 * mb, agent.action_dim, generator=gen, device=dev)
+
+        def loss_of(mean3, log_std, surrogate):
+            return surrogate(mean3[:mb], log_std, a, lpo, adv, coef, clip) \
+                + 0.1 * (mean3 * w3).sum() / mb
+        leaf_k = st.actor.detach().clone().requires_grad_(True)
+        vk = agent.actor_layout.views(leaf_k)
+        yk = loss_of(agent.actor_mean(vk, o3), vk["log_std"], K.ppo_surrogate)
+        (gk,) = torch.autograd.grad(yk, leaf_k)
+        leaf_p = st.actor.detach().clone().requires_grad_(True)
+        vp = agent.actor_layout.views(leaf_p)
+        net = {n[len("network."):]: t for n, t in vp.items()
+               if n.startswith("network.")}
+        mean3 = torch.tanh(functional_call(agent.actor_net.network, net,
+                                           (o3,)))
+        yp = loss_of(mean3, vp["log_std"], K.ppo_loss_plain)
+        (gp,) = torch.autograd.grad(yp, leaf_p)
+        dv, tolv, finv = _err(yk.detach(), yp.detach())
+        dg, tolg, fing = _err(gk, gp)
+        log("ppo_loss", agent=i, check="actor-loss surrogate path under "
+            "autograd vs structured", rows=3 * mb, value_err=dv,
+            grad_max_abs_err=dg, grad_scale=float(gp.abs().max()))
+        if not (dv <= tolv and dg <= tolg and finv and fing):
+            bad.append((i, "autograd", dv, dg))
+    if bad:
+        raise AssertionError(f"ppo_loss kernel disagrees with plain: {bad}")
+    return worst
+
+
+def phase_v_blocks(cfg, dev, agents, states, obs):
+    """K3/K4 vs plain for both blocks of both PPO V critics (first blocks
+    (15, 71, 62) and (3, 123, 62), the new instances): forward at the GAE
+    pass's 2 T B rows of the two configurations (13 952 and 409 600; every
+    row, the plain twin in chunks of 32 768 rows), backward
+    (with and without the parameter sums) at the minibatches' 128 and 3723
+    rows; then the V critic's kernel path under autograd vs its structured
+    network at 3723 rows.  Tolerance 2e-5 max(1, max |plain|), as for the
+    Q critics' blocks."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.models.emlp.nn import (bilinear_sparse,
+                                                    project_linear)
+    from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    worst_fwd = worst_bwd = 0.0
+    bad, shapes = [], set()
+    cfgs = [Config(**PPO_CONFIGS[name]) for name, _ in PPO_SUPERSTEPS]
+    fwd_rows = [2 * _ppo_dims(c)[1] for c in cfgs]
+    bwd_rows = [_ppo_dims(c)[5] for c in cfgs]
+    for i, (agent, st) in enumerate(zip(agents, states)):
+        net = agent.critic_net.network
+        views = agent.critic_layout.views(st.critic)
+        reps = -(-max(fwd_rows) // obs[i].shape[0])
+        x_all = obs[i].repeat(reps, 1)[:max(fwd_rows)]
+        x_all = (x_all + 0.05 * torch.randn(x_all.shape, generator=gen,
+                                            device=dev)).contiguous()
+        params = []
+        for k, blk in enumerate(net.blocks()):
+            pre = f"network.block{k}."
+            with torch.no_grad():
+                W, b = project_linear(blk.linear.rep_in, blk.linear.rep_out,
+                                      views[pre + "linear.kernel"],
+                                      views[pre + "linear.bias"])
+                v = bilinear_sparse(blk.bilinear.rep,
+                                    views[pre + "bilinear.bi_params"])[3]
+            params.append((K.block_spec(blk, dev), W.contiguous(),
+                           b.contiguous(), v.contiguous()))
+        for nb in fwd_rows:
+            x = x_all[:nb]
+            for k, (spec, W, b, v) in enumerate(params):
+                fk = K.emlp_block(spec, x, W, b, v)
+                parts = [K.emlp_block_plain(spec, c, W, b, v)
+                         for c in torch.split(x, 32768)]
+                fp = (torch.cat([p[0] for p in parts]),
+                      torch.cat([p[1] for p in parts], 1),
+                      torch.cat([p[2] for p in parts], 1))
+                del parts
+                errs = {}
+                for nm, kk, pp in zip(("h", "lin", "pre"), fk, fp):
+                    d, tol, fin = _err(kk, pp)
+                    errs[nm] = d
+                    worst_fwd = max(worst_fwd, d)
+                    if not (d <= tol and fin):
+                        bad.append((i, k, nb, nm, d))
+                shapes.add(spec.dims)
+                log("v_blocks", agent=i, block=k, dims=list(spec.dims),
+                    nnz=spec.nnz, batch=nb, max_abs_err=errs)
+                x = fk[0]
+        for nb in bwd_rows:
+            x = x_all[:nb].contiguous()
+            for k, (spec, W, b, v) in enumerate(params):
+                _, lin, prea = K.emlp_block(spec, x, W, b, v)
+                g_h = torch.randn(nb, spec.nh, generator=gen, device=dev)
+                bk = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea,
+                                           True)
+                bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, lin,
+                                                 prea, True)
+                gx = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea,
+                                           False)[0]
+                errs = {}
+                for nm, kk, pp in zip(("g_x", "g_W", "g_b", "g_v",
+                                       "g_x_only"), bk + (gx,),
+                                      bp + (bp[0],)):
+                    d, tol, fin = _err(kk, pp)
+                    errs[nm] = d
+                    worst_bwd = max(worst_bwd, d)
+                    if not (d <= tol and fin):
+                        bad.append((i, k, nb, nm, d))
+                log("v_blocks", agent=i, block=k, dims=list(spec.dims),
+                    batch=nb, backward=True, max_abs_err=errs)
+                x = K.emlp_block_plain(spec, x, W, b, v)[0]
+        o = x_all[:bwd_rows[-1]]
+        leaf_k = st.critic.detach().clone().requires_grad_(True)
+        yk = agent.critic_apply(agent.critic_layout.views(leaf_k), o).sum()
+        (gk,) = torch.autograd.grad(yk, leaf_k)
+        leaf_p = st.critic.detach().clone().requires_grad_(True)
+        yp = _plain_apply(agent.critic_net,
+                          agent.critic_layout.views(leaf_p), o).sum()
+        (gp,) = torch.autograd.grad(yp, leaf_p)
+        dv, tolv, finv = _err(yk.detach(), yp.detach())
+        dg, tolg, fing = _err(gk, gp)
+        log("v_blocks", agent=i, check="V critic autograd vs structured",
+            rows=int(o.shape[0]), value_err=dv, grad_max_abs_err=dg,
+            grad_scale=float(gp.abs().max()))
+        if not (dv <= tolv and dg <= tolg and finv and fing):
+            bad.append((i, "autograd", dv, dg))
+    if not {(15, 71, 62), (3, 123, 62)} <= shapes:
+        raise AssertionError(f"V critic first blocks missing: {shapes}")
+    if bad:
+        raise AssertionError(f"V critic blocks disagree with plain: {bad}")
+    return worst_fwd, worst_bwd
+
+
+def expected_launches_ppo(cfg, agents, dev, first):
+    """Kernel launches of one PPO superstep, and K3/K4's per (shape, rows):
+    per tick K1, K11 per agent and the horizon's K2 write; per agent the V
+    critic over the 2 T B rows (2 blocks) and K12; per epoch and actor
+    minibatch the actor over 3 mb rows (2 blocks forward, 2 backward with
+    the parameter sums), K13 forward and backward, K7 and K6; per critic
+    minibatch the V critic (2 + 2), K7 and K6."""
+    from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
+    rl, T, na, mba, nc, mbc = _ppo_dims(cfg)
+    n, K = cfg.n_agents, cfg.K_epochs
+    want = {"env_tick": rl + (1 if first else 0), "ppo_actor": n * rl,
+            "replay_insert_tick": rl, "gae": n,
+            "emlp_block": n * (2 + 2 * K * (na + nc)),
+            "emlp_block_backward": n * 2 * K * (na + nc),
+            "ppo_loss": n * K * na, "ppo_loss_backward": n * K * na,
+            "spectral_iterate": n * K * (na + nc),
+            "flat_adamw": n * K * (na + nc)}
+    fwd, bwd = Counter(), Counter()
+    for a in agents:
+        for blk in a.critic_net.network.blocks():
+            d = block_spec(blk, dev).dims
+            fwd[(d, 2 * T)] += 1
+            fwd[(d, mbc)] += K * nc
+            bwd[(d, mbc, True)] += K * nc
+        for blk in a.actor_net.network.blocks():
+            d = block_spec(blk, dev).dims
+            fwd[(d, 3 * mba)] += K * na
+            bwd[(d, 3 * mba, True)] += K * na
+    return want, fwd, bwd
+
+
+def phase_train_ppo(dev, name, kw, supersteps):
+    """The PPO training entry point at full width in configuration
+    ``name`` (``kw``), ``supersteps`` supersteps, each checked as it ends:
+    exact launch counts of every kernel and of K3/K4 per (shape, rows), one
+    fold per actor (the acting after each update refolds), finite losses,
+    and actor, critic and ``entropy_coef`` moving on every superstep.
+    Times the supersteps after the first by CUDA events."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.kernels import emlp_block
+    from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
+    from gym_rotor_tpu_torch.train import train
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(**kw)
+    rl, T, na, mba, nc, mbc = _ppo_dims(cfg)
+    wr = _wrappers()
+    init = torch.Generator().manual_seed(cfg.seed)   # train()'s init draws
+    start = [(s.actor, s.critic, s.entropy_coef) for s in
+             [PPOAgent(cfg, i, dev).init(init) for i in range(cfg.n_agents)]]
+    probe = dict(last={}, fwd=Counter(), bwd=Counter(), folds=0, bad=[],
+                 prev=start, events=[], losses=[], t_host=None, shapes=None)
+
+    def on_superstep(i, warm, metrics, run):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        probe["events"].append(ev)
+        now = {k: w.launches for k, w in wr.items()}
+        delta = {k: v - probe["last"].get(k, 0) for k, v in now.items()}
+        probe["last"] = now
+        want, wfwd, wbwd = expected_launches_ppo(cfg, run["agents"], dev,
+                                                 i == 0)
+        got = {k: v for k, v in delta.items() if v}
+        if got != want:
+            probe["bad"].append((i, "launches", got, want))
+        fwd = Counter(emlp_block.emlp_block.by_shape)
+        bwd = Counter(emlp_block.emlp_block_backward.by_shape)
+        gfwd, gbwd = fwd - probe["fwd"], bwd - probe["bwd"]
+        probe["fwd"], probe["bwd"] = fwd, bwd
+        probe["shapes"] = (gfwd, gbwd)
+        if gfwd != wfwd or gbwd != wbwd:
+            probe["bad"].append((i, "shapes", dict(gfwd), dict(wfwd)))
+        folds = fold_actor.folds - probe["folds"]
+        probe["folds"] = fold_actor.folds
+        stale = [a.actor_net._folded[0] != a.actor_net.param_version
+                 for a in run["agents"]]
+        if folds != cfg.n_agents or not all(stale):
+            probe["bad"].append((i, "folds", folds, stale))
+        cur = [(s.actor.clone(), s.critic.clone(), s.entropy_coef.clone())
+               for s in run["states"]]
+        for j, (p, c) in enumerate(zip(probe["prev"], cur)):
+            moved = [not torch.equal(x, y) for x, y in zip(p, c)]
+            if moved != [True, True, True]:
+                probe["bad"].append((i, "moved", j, moved))
+        probe["prev"] = cur
+        losses = [float(v) for k, v in metrics.items() if "loss" in k]
+        probe["losses"].append(losses)
+        if not all(math.isfinite(x) for x in losses) or \
+                not math.isfinite(float(metrics["mean_reward"])):
+            probe["bad"].append((i, "non-finite", losses))
+        if i == 0:
+            probe["t_host"] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    emlp_block.emlp_block.by_shape.clear()
+    emlp_block.emlp_block_backward.by_shape.clear()
+    probe["folds"] = fold_actor.folds
+    run = train(cfg, supersteps, device=dev, on_superstep=on_superstep,
+                log=None)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wr.items() if w.launches}
+    host_s = time.perf_counter() - probe["t_host"]
+    timed = supersteps - 1
+    dev_ms = probe["events"][0].elapsed_time(probe["events"][-1]) / timed
+    steps = cfg.n_agents * cfg.K_epochs * (na + nc)
+    total_it = [st.total_it for st in run["states"]]
+    log("ppo_train", config=name, envs=cfg.num_envs, ticks=rl, rows=T,
+        K_epochs=cfg.K_epochs, minibatch=[mba, mbc],
+        minibatches_per_epoch=[na, nc], supersteps=supersteps,
+        launches=launches, total_it=total_it,
+        entropy_coef=[float(s.entropy_coef) for s in run["states"]],
+        ms_per_superstep=dev_ms, env_steps_per_s=T / (dev_ms / 1e3),
+        minibatch_steps_per_s=steps / (dev_ms / 1e3),
+        host_s_per_superstep=host_s / timed,
+        losses_first=probe["losses"][0], losses_last=probe["losses"][-1],
+        episodes_logged=len(run["episodes"]), mismatches=probe["bad"][:3])
+    if probe["bad"]:
+        raise AssertionError(f"PPO train path {name}: {probe['bad'][:3]}")
+    if total_it != [supersteps] * cfg.n_agents:
+        raise AssertionError(f"PPO train path {name} did not update: "
+                             f"{total_it}")
+    return cfg, launches, probe["shapes"]
+
+
+def phase_ppo_kernels(dev, agents, obs, runs, errs):
+    """Records of K11, K12, K13 and the PPO path's K3/K4: device time per
+    launch at each configuration's shapes, weighted by its launches in the
+    train phase; the plain twin's time and the bound.  No one PyTorch call
+    computes any of the three new functions.  ``runs``: per configuration
+    ``(cfg, launches, (K3 shapes, K4 shapes) of one superstep)``."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    from gym_rotor_tpu_torch.kernels import gae as KG
+    from gym_rotor_tpu_torch.kernels import ppo_loss as KL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    total = Counter()
+    for _, launches, _ in runs:
+        total.update(launches)
+    records = []
+
+    # K11 per agent at each configuration's envs (train mode)
+    inst = []
+    for cfg, launches, _ in runs:
+        nb = cfg.num_envs
+        for i, agent in enumerate(agents):
+            actor, o = agent.actor_net, obs[i][:nb]
+            noise = torch.randn(nb, agent.action_dim, generator=gen,
+                                device=dev)
+            with torch.no_grad():
+                k_ms, k_wall = device_ms(lambda: KA.ppo_actor(actor, o, noise),
+                                         100)
+                p_ms, _ = device_ms(lambda: KA.ppo_actor_plain(actor, o, noise),
+                                    10, 3)
+            folded = KA.fold_actor(actor)
+            nin, ng, nh, nact = folded["dims"]
+            # K3's blocks per row (phase_kernels), the mean head and tanh,
+            # then per action exp, the draw, the clip, z and the log-prob
+            per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
+                          for ni, nnz in zip((nin, nh), folded["nnz"]))
+            per_row += 2 * nh * nact + 2 * nact + 11 * nact
+            nbytes = (o.numel() + 3 * nb * nact + folded["params"].numel()
+                      + folded["ints"].numel()) * 4
+            bms, by = bound_ms(nbytes, nb * per_row)
+            inst.append((launches["ppo_actor"] / len(agents), k_ms, p_ms, bms,
+                         by, None))
+            log("kernels", kernel="ppo_actor", agent=i, batch=nb, ms=k_ms,
+                wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+                flops=nb * per_row, bound_ms=bms, bound_by=by,
+                library_ms=None)
+    records.append(_record("ppo_actor", "emlp_actor.cu",
+                           "gym_rotor_tpu/algos/ppo.py:107",
+                           total["ppo_actor"], errs["ppo_actor"], inst))
+
+    # K12 at each configuration's horizon
+    inst = []
+    for cfg, launches, _ in runs:
+        rl, T = _ppo_dims(cfg)[:2]
+        nb = cfg.num_envs
+        v, nv, r = (torch.randn(rl, nb, 1, generator=gen, device=dev)
+                    for _ in range(3))
+        d = (torch.rand(rl, nb, 1, generator=gen, device=dev) < 0.05).float()
+        k_ms, k_wall = device_ms(lambda: KG.gae(v, nv, r, d, cfg.discount,
+                                                cfg.GAE_lambda), 100)
+        p_ms, _ = device_ms(lambda: KG.gae_plain(v, nv, r, d, cfg.discount,
+                                                 cfg.GAE_lambda), 3, 3)
+        # 4 inputs read and 2 outputs written; ~16 flops an entry (delta 5,
+        # the recursion 4, td 1, the two sums 3, the normalisation 2)
+        bms, by = bound_ms(24 * T, 16 * T)
+        inst.append((launches["gae"], k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="gae", T=rl, envs=nb, ms=k_ms,
+            wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=24 * T,
+            flops=16 * T, bound_ms=bms, bound_by=by, library_ms=None)
+    records.append(_record("gae", "gae.cu", "gym_rotor_tpu/algos/ppo.py:119",
+                           total["gae"], errs["gae"], inst))
+
+    # K13 forward and backward per agent at each configuration's minibatch
+    fwd, bwd = [], []
+    coef = torch.tensor(0.01, device=dev)
+    g = torch.tensor(1.0, device=dev)
+    for cfg, launches, _ in runs:
+        n = _ppo_dims(cfg)[3]
+        for agent in agents:
+            A = agent.action_dim
+            m, ls, a, lpo, adv, _ = _k13_inputs(n, A, cfg.clip_rate, gen, dev)
+            args = (m, ls, a, lpo, adv, coef, cfg.clip_rate)
+            weight = launches["ppo_loss"] / len(agents)
+            k_ms, _ = device_ms(lambda: KL.ppo_loss(*args), 100)
+            p_ms, _ = device_ms(lambda: KL.ppo_loss_plain(*args), 30, 3)
+            nbytes = 4 * (3 * n * A + n + A + 2)
+            bms, by = bound_ms(nbytes, n * (9 * A + 8))
+            fwd.append((weight, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="ppo_loss", rows=n, act=A, ms=k_ms,
+                plain_ms=p_ms, bytes=nbytes, bound_ms=bms, bound_by=by,
+                library_ms=None)
+            k_ms, _ = device_ms(lambda: KL.ppo_loss_backward(g, *args), 100)
+            p_ms, _ = device_ms(lambda: KL.ppo_loss_backward_plain(g, *args),
+                                30, 3)
+            nbytes = 4 * (4 * n * A + n + 2 * A + 2)
+            bms, by = bound_ms(nbytes, n * (17 * A + 14))
+            bwd.append((weight, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="ppo_loss_backward", rows=n, act=A,
+                ms=k_ms, plain_ms=p_ms, bytes=nbytes, bound_ms=bms,
+                bound_by=by, library_ms=None)
+    records.append(_record("ppo_loss", "ppo_loss.cu",
+                           "gym_rotor_tpu/algos/ppo.py:247",
+                           total["ppo_loss"], errs["ppo_loss"]["forward"],
+                           fwd))
+    records.append(_record("ppo_loss_backward", "ppo_loss.cu",
+                           "gym_rotor_tpu/algos/ppo.py:247",
+                           total["ppo_loss_backward"],
+                           errs["ppo_loss"]["backward"], bwd))
+
+    # K3 / K4 at every (block, rows) instance of the PPO path, weighted by
+    # one superstep's launches of each configuration; the plain forward in
+    # chunks of 32768 rows past that (as JAX chunks the V critic over time)
+    specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
+    kf, kb = [], []
+    for cfg, _, (sfwd, sbwd) in runs:
+        for ((nin, ng, nh), nb), count in sorted(sfwd.items()):
+            spec = specs[(nin, ng, nh)]
+            x = torch.randn(nb, nin, generator=gen, device=dev)
+            W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
+            b = 0.1 * torch.randn(ng, generator=gen, device=dev)
+            v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
+            k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v),
+                                20 if nb < 100_000 else 3, 3)
+            chunks = torch.split(x, 32768)
+            p_ms, _ = device_ms(lambda: [KB.emlp_block_plain(spec, c, W, b, v)
+                                         for c in chunks], 2, 2)
+            flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
+            nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
+                          + 2 * ng * nb + nh + ng + 1 + spec.nnz)
+            bms, by = bound_ms(nbytes, flops)
+            kf.append((count, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="emlp_block", path="ppo",
+                dims=[nin, ng, nh], batch=nb, nnz=spec.nnz,
+                launches_per_superstep=count, ms=k_ms, plain_ms=p_ms,
+                flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
+                library_ms=None)
+        for ((nin, ng, nh), nb, need), count in sorted(sbwd.items()):
+            spec = specs[(nin, ng, nh)]
+            x = torch.randn(nb, nin, generator=gen, device=dev)
+            W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
+            b = 0.1 * torch.randn(ng, generator=gen, device=dev)
+            v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
+            _, lin, pre = KB.emlp_block(spec, x, W, b, v)
+            g_h = torch.randn(nb, nh, generator=gen, device=dev)
+            k_ms, _ = device_ms(lambda: KB.emlp_block_backward(
+                spec, g_h, x, W, v, lin, pre, need), 20)
+            p_ms, _ = device_ms(lambda: KB.emlp_block_backward_plain(
+                spec, g_h, x, W, v, lin, pre, need), 5, 3)
+            flops = nb * (8 * nh + 6 * spec.nnz + 2 * ng * nin)
+            flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
+            nbytes = 4 * (nb * nh + 2 * nb * nin + 2 * ng * nb + ng * nin
+                          + nh + 3 * spec.nnz + ng * nin + ng + spec.nnz)
+            bms, by = bound_ms(nbytes, flops)
+            kb.append((count, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="emlp_block_backward", path="ppo",
+                dims=[nin, ng, nh], batch=nb, param_grads=need,
+                launches_per_superstep=count, ms=k_ms, plain_ms=p_ms,
+                flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
+                library_ms=None)
+    records.append(_record("emlp_block_ppo", "emlp_block.cu",
+                           "gym_rotor_tpu/models/emlp/nn.py:431",
+                           total["emlp_block"], errs["v_blocks"][0], kf))
+    records.append(_record("emlp_block_backward_ppo", "emlp_block.cu",
+                           "gym_rotor_tpu/models/emlp/nn.py:39",
+                           total["emlp_block_backward"],
+                           errs["v_blocks"][1], kb))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA device", file=sys.stderr)
         return 2
     try:
-        from gym_rotor_tpu_torch.utils.config import Config
+        from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -1450,10 +2107,17 @@ def main():
     launches, shapes = phase_train(dev, k5_td3)
     sac_launches = phase_train_sac(dev, SAC_STEPS, False, k5_sac)
     phase_train_sac(dev, 3, True)
+    ppo_agents, ppo_states, errs["ppo_actor"] = phase_ppo_actor(cfg, dev, obs)
+    errs["gae"] = phase_gae(cfg, dev)
+    errs["ppo_loss"] = phase_ppo_loss(cfg, dev, ppo_agents, ppo_states, obs)
+    errs["v_blocks"] = phase_v_blocks(cfg, dev, ppo_agents, ppo_states, obs)
+    ppo_runs = [phase_train_ppo(dev, name, PPO_CONFIGS[name], n)
+                for name, n in PPO_SUPERSTEPS]
     records = phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err)
     records += phase_train_kernels(cfg, dev, rep, agents, states, launches,
                                    shapes, errs)
     records += phase_sac_kernels(cfg, dev, sac_agents, obs, sac_launches, errs)
+    records += phase_ppo_kernels(dev, ppo_agents, obs, ppo_runs, errs)
     phase_k5(dev, k5_td3, k5_sac)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

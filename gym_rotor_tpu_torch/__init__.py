@@ -7,10 +7,11 @@ passes ``device="cpu"``; they raise when no card is present and the caller
 did not ask for the CPU.
 
 The hot path goes through hand-written CUDA kernels
-(``kernels/csrc/*.cu``: the env tick, the acting EMLP actor, the replay
-ring, the EMLP block forward and backward, the flat optimizer and the
-spectral power iteration); each has a plain PyTorch twin beside its
-wrapper, which is what runs on CPU tensors.
+(``kernels/csrc/*.cu``: the env tick, the acting EMLP actors, the replay
+ring, the EMLP block forward and backward, the flat optimizer, the
+spectral power iteration, SAC's squashed sample, PPO's GAE and clipped
+surrogate); each has a plain PyTorch twin beside its wrapper, which is
+what runs on CPU tensors.
 """
 from .utils.config import Config
 

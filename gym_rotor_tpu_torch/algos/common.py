@@ -1,7 +1,7 @@
 """Learner plumbing (port of ``gym_rotor_tpu/algos/common.py``): the
 cosine warm-restart schedule, the flat optimizer chain (clip to the global
 norm, then AdamW, with optax's semantics), flat Polyak averaging and mse;
-and what the TD3 and SAC learners share: ``FlatAgent`` and the
+and what the TD3, SAC and PPO learners share: ``FlatAgent`` and the
 spectral-norm penalty on a network's parameter views.
 
 Flat parameters: each network's parameters are views into ONE flat leaf in
@@ -157,11 +157,12 @@ def spectral_penalty(views: Dict[str, torch.Tensor], starts):
 
 
 class FlatAgent:
-    """What the TD3 and SAC agents share: the per-agent configuration, the
-    acting and critic modules (``models(generator) -> (actor, critic)``,
-    made on the CPU, moved to the device and bound to a state's flat
-    vectors), their flat layouts, optimizers and spectral widths, and the
-    twin critic on parameter views."""
+    """What the TD3, SAC and PPO agents share: the per-agent
+    configuration, the acting and critic modules (``models(generator) ->
+    (actor, critic)``, made on the CPU, moved to the device and bound to a
+    state's flat vectors), their flat layouts, optimizers and spectral
+    widths, and the twin critic on parameter views (PPO's ``PPOAgent``
+    overrides ``critic_apply`` with its single V network)."""
 
     def __init__(self, cfg: Config, agent_id: int, device, dtype, models,
                  algo: str):

@@ -25,7 +25,7 @@ from .envs.params import QuadParams
 from .envs.state import EnvState, Goal
 from .envs.trajectory import TrajState
 from .models.emlp.nn import _bilinear_struct, gated
-from .models.emlp.zoo import actor_reps, critic_reps
+from .models.emlp.zoo import actor_reps, critic_reps, v_critic_reps
 from .utils.config import Config
 from .utils.device import resolve_device
 
@@ -66,6 +66,19 @@ def _sac_actor_shapes(cfg: Config, agent_id: int):
     return shapes
 
 
+def _ppo_actor_shapes(cfg: Config, agent_id: int):
+    """``EMLPActorPPO``: the EMLP ``network`` and ``log_std`` (1, act)."""
+    shapes = _actor_shapes(cfg, agent_id)
+    shapes["log_std"] = (1, cfg.action_dim_n[agent_id])
+    return shapes
+
+
+def _v_critic_shapes(cfg: Config, agent_id: int):
+    return _emlp_shapes("network.block{}", "network.head",
+                        *v_critic_reps(cfg, cfg.framework, agent_id,
+                                       cfg.module_training))
+
+
 def _critic_shapes(cfg: Config, agent_id: int):
     reps = critic_reps(cfg, cfg.framework, agent_id, cfg.module_training)
     shapes = _emlp_shapes("network1.block{}", "network1.head", *reps)
@@ -102,6 +115,18 @@ def sac_actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
     """Flax ``EMLPActorSAC`` params -> the port SAC actor's ``state_dict``
     (CPU tensors)."""
     return _params_from_jax(tree, _sac_actor_shapes(cfg, agent_id))
+
+
+def ppo_actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
+    """Flax ``EMLPActorPPO`` params -> the port PPO actor's ``state_dict``
+    (``log_std``, ``network.*``; CPU tensors)."""
+    return _params_from_jax(tree, _ppo_actor_shapes(cfg, agent_id))
+
+
+def v_critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
+    """Flax ``EMLPVCritic`` params -> the port V critic's ``state_dict``
+    (``network.*``; CPU tensors)."""
+    return _params_from_jax(tree, _v_critic_shapes(cfg, agent_id))
 
 
 def critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
@@ -199,6 +224,24 @@ def sac_state_from_jax(tree: Mapping, agent,
         _vec(tree["log_alpha"], dev, f32),
         AlphaOptState(int(np.asarray(adam["count"])),
                       _vec(adam["mu"], dev, f32), _vec(adam["nu"], dev, f32)),
+        int(np.asarray(tree["total_it"])))
+
+
+def ppo_state_from_jax(tree: Mapping, agent,
+                       dtype: Optional[torch.dtype] = None):
+    """A JAX ``PPOState`` as nested dicts of numpy arrays (actor, critic,
+    both flat optax chain states, the float32 ``entropy_coef`` and
+    ``total_it``) -> the port's ``PPOState`` for ``agent`` (an
+    ``algos.ppo.PPOAgent``) on its device, bound to its networks.
+    ``entropy_coef`` stays float32."""
+    dev = agent.device
+    dtype = dtype or agent.dtype
+    return agent.make_state(
+        flat_from_jax(tree["actor"], agent.actor_layout, dev, dtype),
+        flat_from_jax(tree["critic"], agent.critic_layout, dev, dtype),
+        _opt_state_from_jax(tree["actor_opt"], dev, dtype),
+        _opt_state_from_jax(tree["critic_opt"], dev, dtype),
+        _vec(tree["entropy_coef"], dev, torch.float32),
         int(np.asarray(tree["total_it"])))
 
 

@@ -53,8 +53,8 @@ class TickDraws(NamedTuple):
     ``policy``: on a warm tick U[0, 1) base draws (B, sum act dims) of the
     uniform actions (``train_step.py:120``, mapped to [-1, 1) by
     ``uniform_in``); on a train tick one N(0, 1) (B, act_i) per agent, the
-    exploration noise of ``choose_action_f`` (``td3.py:149``), or SAC's
-    acting sample (``sac.py:114``)."""
+    exploration noise of ``choose_action_f`` (``td3.py:149``), SAC's
+    acting sample (``sac.py:114``) or PPO's acting draw (``ppo.py:113``)."""
     env: torch.Tensor
     policy: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
@@ -95,6 +95,28 @@ class UpdateDraws(NamedTuple):
     agents: Tuple[Union[AgentDraws, SACAgentDraws], ...]
 
 
+class PPOEpochDraws(NamedTuple):
+    """One agent's PPO epoch (``ppo.py:225-228``): the permutation ``perm``
+    (T,) of the horizon's ``T = rollout_len * B`` flattened rows, shared by
+    the actor's and the critic's minibatches; the CAPS N(0, 1) (1, obs)
+    shared by every actor minibatch of the epoch (scaled by 0.05 there);
+    and one N(0, 1) start vector per regularized weight, actor then
+    critic, in ``spectral_weights`` order, shared by every minibatch.
+
+    JAX's key chain, which the tests rebuild: the superstep's key is
+    ``fold_in(key, axis_index)`` then ``split`` into the rollout and update
+    keys (``train_step.py:245-246``); ``train_step`` splits one key per
+    agent off the update key (``ppo.py:158``); ``_train_one`` splits it into
+    ``K_epochs`` epoch keys (``:316``), and each epoch key into ``k_perm``,
+    ``k_caps``, ``k_spec`` (``:227``): ``permutation(k_perm, T)``,
+    ``normal(k_caps, (1, obs))`` and, for the actor's and the critic's
+    weights alike, ``normal(fold_in(k_spec, i), (W.shape[1],))``."""
+    perm: torch.Tensor
+    caps_eps: torch.Tensor
+    actor_starts: Tuple[torch.Tensor, ...]
+    critic_starts: Tuple[torch.Tensor, ...]
+
+
 def make_tick_draws(batch: int, act_dims: Sequence[int], warm: bool,
                     generator: Optional[torch.Generator], device,
                     dtype=torch.float32) -> TickDraws:
@@ -128,6 +150,25 @@ def make_update_draws(batch: int, filled: int, obs_dims: Sequence[int],
         for o, a, cw, aw in zip(obs_dims, act_dims, critic_widths,
                                 actor_widths))
     return UpdateDraws(idx, agents)
+
+
+def make_ppo_epoch_draws(rows: int, k_epochs: int, obs_dims: Sequence[int],
+                         actor_widths: Sequence[Sequence[int]],
+                         critic_widths: Sequence[Sequence[int]],
+                         generator: Optional[torch.Generator], device,
+                         dtype=torch.float32
+                         ) -> Tuple[Tuple[PPOEpochDraws, ...], ...]:
+    """Per agent, ``k_epochs`` ``PPOEpochDraws`` over a horizon of ``rows``
+    flattened rows; ``*_widths[i]`` as in ``make_update_draws``."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device)
+    return tuple(
+        tuple(PPOEpochDraws(
+            torch.randperm(rows, generator=generator, device=device),
+            normal(1, o), tuple(normal(w) for w in aw),
+            tuple(normal(w) for w in cw)) for _ in range(k_epochs))
+        for o, aw, cw in zip(obs_dims, actor_widths, critic_widths))
 
 
 def make_sac_update_draws(batch: int, filled: int, obs_dims: Sequence[int],

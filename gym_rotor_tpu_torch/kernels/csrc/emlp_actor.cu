@@ -1,18 +1,26 @@
-// K3 (forward, actor widths): fused deterministic EMLP actor, and K9: the
-// fused SAC actor's acting sample, for Hopper (sm_90a).  One block body, two
-// heads (a template parameter).
+// K3 (forward, actor widths): fused deterministic EMLP actor, K9: the
+// fused SAC actor's acting sample, and K11: the fused PPO actor's acting
+// draw and its log-prob, for Hopper (sm_90a).  One block body, three heads
+// (a template parameter).
 //
 // Replaces gym_rotor_tpu/models/emlp/nn.py:EMLPBlock (EquivLinear ->
 // EquivBiLinear -> GatedNonlinearity) x2 inside EMLP, plus the tanh head of
 // models/emlp/zoo.py:EMLPActorDet (K3), or the Gaussian head of
 // models/emlp/zoo.py:EMLPActorSAC with the tanh-squashed sample of
-// algos/sac.py:114 choose_action_f (K9), which XLA fused on the TPU.  Plain
-// twins: gym_rotor_tpu_torch/kernels/emlp_actor.py:emlp_actor_plain and
-// sac_actor_plain (structured).
+// algos/sac.py:114 choose_action_f (K9), or the tanh mean and free log_std
+// of models/emlp/zoo.py:EMLPActorPPO with the clipped draw and per-dim
+// log-prob of algos/ppo.py:107-116 choose_action_f (K11), which XLA fused
+// on the TPU.  Plain twins: gym_rotor_tpu_torch/kernels/emlp_actor.py:
+// emlp_actor_plain, sac_actor_plain and ppo_actor_plain (structured).
 //
 // K9's epilogue: mean = h2 Wh^T + bh; ls = clip(h2 Wl + bl, -20, 2);
 // action = tanh(mean + exp(ls) noise), or tanh(mean) without noise (eval).
 // The log-prob is not computed: the acting path discards it.
+// K11's epilogue: mean = tanh(h2 Wh^T + bh); ls = the log_std parameter
+// (not clipped, as the reference); a = clip(mean + exp(ls) noise, +-max);
+// logp = -0.5 ((a - mean) / exp(ls))^2 - ls - log(2 pi) / 2 of the CLIPPED
+// action, written per dimension with its own row stride (the horizon's
+// log-prob columns); eval mode: clip(mean, +-max) and logp = 0.
 //
 // Bound on an H100: the operations.  Per row and block, 2*NG*NI flops of
 // linear layer and 3 per nonzero of the bilinear quadratic form (288 for
@@ -22,7 +30,7 @@
 // chain of shared-memory loads and FMAs is exposed: measured far above
 // the bound (PERF.md), a later PR's work.  K9 adds the log_std head
 // (2*NH*NACT flops a row), the noise read and exp: the same bound within a
-// few percent.
+// few percent.  K11 adds ~10 flops and the log-prob write per action.
 //
 // Design: every weight the actor needs is folded once per parameter set on
 // the host side (W_eff/b_eff from project_linear, the bilinear nonzeros
@@ -42,6 +50,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 template <int NI, int NG, int NH>
 __device__ __forceinline__ void emlp_block(const float* x, const float* W,
@@ -78,16 +87,18 @@ __device__ __forceinline__ void emlp_block(const float* x, const float* W,
   }
 }
 
-enum Head { kTanh = 0, kGauss = 1 };
+enum Head { kTanh = 0, kGauss = 1, kPPO = 2 };
 
 // Buffer layout (see emlp_actor.py:fold_actor).  The Gaussian head adds the
-// log_std Dense, transposed to (NACT, NH), and its bias after the mean head.
+// log_std Dense, transposed to (NACT, NH), and its bias after the mean head;
+// the PPO head adds the log_std parameter (NACT).
 template <int NIN, int NG, int NH, int NACT, int HEAD_KIND>
 struct Dims {
   static constexpr int W0 = NG * NIN + NG;   // block 0 W_eff, b_eff
   static constexpr int W1 = NG * NH + NG;    // block 1 W_eff, b_eff
   static constexpr int HEAD =
-      (HEAD_KIND == kGauss ? 2 : 1) * (NACT * NH + NACT);
+      (HEAD_KIND == kGauss ? 2 : 1) * (NACT * NH + NACT) +
+      (HEAD_KIND == kPPO ? NACT : 0);
   static constexpr int INTS = 2 * NH + 2 * (NG + 1);   // + nnz0 + nnz1
   __host__ __device__ static int n_params(int nnz0, int nnz1) {
     return W0 + nnz0 + W1 + nnz1 + HEAD;
@@ -105,7 +116,8 @@ __global__ void __launch_bounds__(kThreads)
 emlp_actor_kernel(const float* __restrict__ obs, int B,
                   const float* __restrict__ params, const int* __restrict__ ints,
                   int nnz0, int nnz1, const float* __restrict__ noise,
-                  int ld_noise, float* __restrict__ out, int ld_out) {
+                  int ld_noise, float* __restrict__ out, int ld_out,
+                  float* __restrict__ logp, int ld_logp, float max_action) {
   using D = Dims<NIN, NG, NH, NACT, HEAD_KIND>;
   extern __shared__ float smem[];
   const int np = D::n_params(nnz0, nnz1), ni = D::n_ints(nnz0, nnz1);
@@ -130,13 +142,31 @@ emlp_actor_kernel(const float* __restrict__ obs, int B,
                           col, h1);
   emlp_block<NH, NG, NH>(h1, p1, p1 + NG * NH, p1 + D::W1, rp + NG + 1,
                          ji0 + nnz0, si + NH, col, h2);
-  const float* pl = ph + NACT * NH + NACT;   // Gaussian head: log_std Dense
+  // the Gaussian head's log_std Dense, or the PPO head's log_std parameter
+  const float* pl = ph + NACT * NH + NACT;
 #pragma unroll
   for (int a = 0; a < NACT; ++a) {
     float s = 0.0f;
 #pragma unroll
     for (int k = 0; k < NH; ++k) s += h2[k] * ph[a * NH + k];
     const float mean = s + ph[NACT * NH + a];
+    if (HEAD_KIND == kPPO) {
+      const float mu = tanhf(mean);
+      float act = mu, lp = 0.0f;
+      if (noise != nullptr) {
+        const float ls = pl[a];
+        const float sd = expf(ls);
+        act = mu + sd * noise[(size_t)row * ld_noise + a];
+        act = fminf(fmaxf(act, -max_action), max_action);
+        const float z = (act - mu) / sd;
+        lp = -0.5f * (z * z) - ls - kHalfLog2Pi;
+      } else {
+        act = fminf(fmaxf(act, -max_action), max_action);
+      }
+      out[(size_t)row * ld_out + a] = act;
+      logp[(size_t)row * ld_logp + a] = lp;
+      continue;
+    }
     float act = mean;
     if (HEAD_KIND == kGauss && noise != nullptr) {
       float l = 0.0f;
@@ -153,7 +183,7 @@ template <int NIN, int NG, int NH, int NACT, int HEAD_KIND>
 int launch(const float* obs, int B, const float* params, int n_params,
            const int* ints, int n_ints, int nnz0, int nnz1,
            const float* noise, int ld_noise, float* out, int ld_out,
-           cudaStream_t stream) {
+           float* logp, int ld_logp, float max_action, cudaStream_t stream) {
   using D = Dims<NIN, NG, NH, NACT, HEAD_KIND>;
   if (nnz0 < 0 || nnz1 < 0 || n_params != D::n_params(nnz0, nnz1) ||
       n_ints != D::n_ints(nnz0, nnz1) || D::smem(nnz0, nnz1) > 48 * 1024)
@@ -161,22 +191,26 @@ int launch(const float* obs, int B, const float* params, int n_params,
   const int blocks = (B + kThreads - 1) / kThreads;
   emlp_actor_kernel<NIN, NG, NH, NACT, HEAD_KIND>
       <<<blocks, kThreads, D::smem(nnz0, nnz1), stream>>>(
-          obs, B, params, ints, nnz0, nnz1, noise, ld_noise, out, ld_out);
+          obs, B, params, ints, nnz0, nnz1, noise, ld_noise, out, ld_out,
+          logp, ld_logp, max_action);
   return (int)cudaGetLastError();
 }
 
 template <int HEAD_KIND>
 int dispatch(const float* o, int B, const float* p, int n_params,
              const int* q, int n_ints, int nnz0, int nnz1, const float* nz,
-             int ld_noise, float* y, int ld_out, int nin, int ng, int nh,
-             int nact, cudaStream_t s) {
+             int ld_noise, float* y, int ld_out, float* lp, int ld_logp,
+             float max_action, int nin, int ng, int nh, int nact,
+             cudaStream_t s) {
   if (nin == 15 && ng == 18 && nh == 16 && nact == 4)
     return launch<15, 18, 16, 4, HEAD_KIND>(o, B, p, n_params, q, n_ints,
                                             nnz0, nnz1, nz, ld_noise, y,
-                                            ld_out, s);
+                                            ld_out, lp, ld_logp, max_action,
+                                            s);
   if (nin == 3 && ng == 7 && nh == 4 && nact == 1)
     return launch<3, 7, 4, 1, HEAD_KIND>(o, B, p, n_params, q, n_ints, nnz0,
-                                         nnz1, nz, ld_noise, y, ld_out, s);
+                                         nnz1, nz, ld_noise, y, ld_out, lp,
+                                         ld_logp, max_action, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -186,13 +220,16 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// head: 0 = the deterministic tanh head (K3), 1 = the Gaussian head (K9);
-// noise (B, nact) with row stride ld_noise, or null for tanh(mean).
+// head: 0 = the deterministic tanh head (K3), 1 = the Gaussian head (K9),
+// 2 = the PPO head (K11); noise (B, nact) with row stride ld_noise, or null
+// for the deterministic action; logp (B, nact) with row stride ld_logp and
+// max_action are read by the PPO head only.
 extern "C" int emlp_actor_launch(const void* obs, int B, const void* params,
                                  int n_params, const void* ints, int n_ints,
                                  int nnz0, int nnz1, const void* noise,
-                                 int ld_noise, void* out, int ld_out, int nin,
-                                 int ng, int nh, int nact, int head,
+                                 int ld_noise, void* out, int ld_out,
+                                 void* logp, int ld_logp, float max_action,
+                                 int nin, int ng, int nh, int nact, int head,
                                  void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
   const float* o = (const float*)obs;
@@ -200,12 +237,21 @@ extern "C" int emlp_actor_launch(const void* obs, int B, const void* params,
   const int* q = (const int*)ints;
   const float* nz = (const float*)noise;
   float* y = (float*)out;
+  float* lp = (float*)logp;
   cudaStream_t s = (cudaStream_t)stream;
   if (head == kTanh)
     return dispatch<kTanh>(o, B, p, n_params, q, n_ints, nnz0, nnz1, nullptr,
-                           0, y, ld_out, nin, ng, nh, nact, s);
+                           0, y, ld_out, nullptr, 0, 1.0f, nin, ng, nh, nact,
+                           s);
   if (head == kGauss)
     return dispatch<kGauss>(o, B, p, n_params, q, n_ints, nnz0, nnz1, nz,
-                            ld_noise, y, ld_out, nin, ng, nh, nact, s);
+                            ld_noise, y, ld_out, nullptr, 0, 1.0f, nin, ng,
+                            nh, nact, s);
+  if (head == kPPO) {
+    if (lp == nullptr) return (int)cudaErrorInvalidValue;
+    return dispatch<kPPO>(o, B, p, n_params, q, n_ints, nnz0, nnz1, nz,
+                          ld_noise, y, ld_out, lp, ld_logp, max_action, nin,
+                          ng, nh, nact, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -11,9 +11,13 @@
 // Bound on an H100: the operations, and few.  Agent 1's critic block 1 (62
 // in, 123 gated, 9394 nonzeros of Q) at B = 256 is ~2 (7.6k + 14k) flops a
 // row, ~11 MFLOP, ~0.2 us at the fp32 peak; its weights and nonzeros are
-// ~0.15 MB.  One thread per row runs a serial chain over every nonzero, so
-// the kernel is latency-bound far above that (PERF.md); splitting a row
-// across threads is a later PR's work.
+// ~0.15 MB.  The PPO V critics also run the forward over a whole horizon
+// (409 600 rows of [obs; next_obs] in the 4096-env configuration): ~18
+// GFLOP for the hidden block, ~0.27 ms at the peak, against ~400 MB of
+// saved lin and pre (~0.12 ms).  One thread per row
+// runs a serial chain over every nonzero, so the kernel is latency-bound
+// far above that (PERF.md); splitting a row across threads is left for
+// later.
 //
 // Design: one thread per batch row, kThreads rows a block.  The block copies
 // W_eff, b_eff, the nonzeros' values and their packed (j << 16 | i) indices,
@@ -250,8 +254,12 @@ int bwd(const float* g_h, const float* x, int B, const float* params,
   return (int)cudaGetLastError();
 }
 
+// The blocks of the flagship MODUL networks: the twin Q critics' first
+// blocks (obs + action in) and hidden blocks, the PPO V critics' first
+// blocks (obs in), and both actors' blocks.
 #define EMLP_BLOCK_INSTANCES(X) \
   X(19, 71, 62) X(62, 71, 62) X(4, 123, 62) X(62, 123, 62) \
+  X(15, 71, 62) X(3, 123, 62) \
   X(15, 18, 16) X(16, 18, 16) X(3, 7, 4) X(4, 7, 4)
 
 }  // namespace

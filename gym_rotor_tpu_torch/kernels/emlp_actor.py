@@ -1,5 +1,6 @@
-"""K3 (forward, actor widths): the fused deterministic EMLP actor, and K9:
-the fused SAC actor's acting sample; one CUDA launch per agent per tick.
+"""K3 (forward, actor widths): the fused deterministic EMLP actor, K9: the
+fused SAC actor's acting sample, and K11: the fused PPO actor's acting draw
+and log-prob; one CUDA launch per agent per tick.
 
 K3 replaces ``gym_rotor_tpu/models/emlp/nn.py:EMLPBlock`` (``EquivLinear``
 -> ``EquivBiLinear`` -> ``GatedNonlinearity``) inside ``EMLP`` and the tanh
@@ -7,10 +8,15 @@ head of ``models/emlp/zoo.py:EMLPActorDet``; K9 the same trunk under
 ``zoo.py:EMLPActorSAC``'s Gaussian head and the squashed sample of
 ``algos/sac.py:114`` ``choose_action_f`` (``tanh(mean + exp(log_std)
 noise)``, or ``tanh(mean)`` in eval mode; the log-prob, which the acting
-path discards, is not computed).  XLA fused both on the TPU.  Kernel:
-``csrc/emlp_actor.cu`` (one block body, the head a template parameter).
-Plain twins: ``emlp_actor_plain`` and ``sac_actor_plain`` (the structured
-ports of the flax networks), which are what run on CPU tensors.
+path discards, is not computed); K11 the same trunk under
+``zoo.py:EMLPActorPPO``'s tanh mean and free ``log_std`` with the clipped
+draw of ``algos/ppo.py:107-116`` ``choose_action_f`` and the per-dimension
+log-prob of the clipped action (``models/mlp.py:173``), written in place
+into the horizon's log-prob columns (eval mode: ``clip(mean)`` and zeros).
+XLA fused all three on the TPU.  Kernel: ``csrc/emlp_actor.cu`` (one block
+body, the head a template parameter).  Plain twins: ``emlp_actor_plain``,
+``sac_actor_plain`` and ``ppo_actor_plain`` (the structured ports of the
+flax networks), which are what run on CPU tensors.
 
 What bounds it on an H100: the operations, and few of them.  Per row and
 block the linear layer is ``2 ng nin`` flops and the bilinear layer three
@@ -34,12 +40,13 @@ import torch
 
 from ..models.emlp.nn import (bilinear_index, bilinear_sparse,
                                gate_indices, gated)
-from ..models.mlp import sac_sample_with_noise
+from ..models.mlp import gaussian_logprob, sac_sample_with_noise
 from .build import KernelSource, check
 
 KERNEL = KernelSource("emlp_actor", [])
-WRAPPERS = {"emlp_actor": "emlp_actor_plain", "sac_actor": "sac_actor_plain"}
-HEAD_TANH, HEAD_GAUSS = 0, 1
+WRAPPERS = {"emlp_actor": "emlp_actor_plain", "sac_actor": "sac_actor_plain",
+            "ppo_actor": "ppo_actor_plain"}
+HEAD_TANH, HEAD_GAUSS, HEAD_PPO = 0, 1, 2
 # (obs dim, gated width, hidden width, action dim) of the built instances:
 # the flagship MODUL actors, agent 0 and agent 1.
 INSTANCES = {(15, 18, 16, 4), (3, 7, 4, 1)}
@@ -48,9 +55,9 @@ INSTANCES = {(15, 18, 16, 4), (3, 7, 4, 1)}
 def _lib():
     lib = KERNEL.load()
     if not getattr(lib, "_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.emlp_actor_launch.argtypes = [P, I, P, I, P, I, I, I, P, I, P,
-                                          I, I, I, I, I, I, P]
+                                          I, P, I, F, I, I, I, I, I, P]
         lib.emlp_actor_launch.restype = I
         lib._typed = True
     return lib
@@ -58,7 +65,7 @@ def _lib():
 
 def actor_dims(actor):
     """(obs dim, gated width, hidden width, action dim) of an
-    ``EMLPActorDet`` or ``EMLPActorSAC``."""
+    ``EMLPActorDet``, ``EMLPActorSAC`` or ``EMLPActorPPO``."""
     blocks = [b for _, b in actor.named_blocks()]
     ng = gated(blocks[0].rep_out).size
     nh = blocks[0].rep_out.size
@@ -80,7 +87,8 @@ def fold_actor(actor) -> Dict:
     index)``.  The kernel's buffers: ``params`` (float) packs, per block,
     ``W_eff (ng, nin)``, ``b_eff (ng,)``, ``v (nnz,)``, then the head
     ``W (nact, nh)`` and ``b (nact,)`` and, for the SAC actor, the log_std
-    Dense's kernel transposed to ``(nact, nh)`` and its bias; ``ints``
+    Dense's kernel transposed to ``(nact, nh)`` and its bias, for the PPO
+    actor the ``log_std`` parameter ``(nact,)``; ``ints``
     packs both blocks' gate indices, then both blocks' row pointers (``ng +
     1`` each: the nonzeros of output ``o`` are ``rowptr[o]:rowptr[o +
     1]``), then both blocks' ``j << 16 | i``."""
@@ -101,6 +109,8 @@ def fold_actor(actor) -> Dict:
         log_std = getattr(actor, "log_std_linear", None)
         if log_std is not None:
             tail += [log_std.kernel.T.reshape(-1), log_std.bias]
+        elif isinstance(getattr(actor, "log_std", None), torch.nn.Parameter):
+            tail.append(actor.log_std.reshape(-1))
     flat = torch.cat([t.reshape(-1) for W, b, (*_, v), _ in blocks
                       for t in (W, b, v)] + tail)
     ints = torch.cat([g.to(torch.int32) for *_, g in blocks]
@@ -130,8 +140,22 @@ def sac_actor_plain(actor, obs, noise: Optional[torch.Tensor] = None):
     return sac_sample_with_noise(mean, log_std, noise)[0]
 
 
-def _launch(actor, obs, out, noise, head: int, what: str):
-    """One launch of the actor kernel with ``head``; returns ``out``."""
+def ppo_actor_plain(actor, obs, noise: Optional[torch.Tensor] = None):
+    """Structured plain twin of K11: ``EMLPActorPPO.dist``, then
+    ``(clip(mean + exp(log_std) noise), gaussian_logprob of it)`` or, without
+    ``noise``, ``(clip(mean), zeros)`` (ppo.py:107-116)."""
+    mean, log_std = actor.dist(obs)
+    m = actor.max_action
+    if noise is None:
+        a = torch.clamp(mean, -m, m)
+        return a, torch.zeros_like(a)
+    a = torch.clamp(mean + torch.exp(log_std) * noise, -m, m)
+    return a, gaussian_logprob(mean, log_std, a)
+
+
+def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
+    """One launch of the actor kernel with ``head``; returns ``(out,
+    logp)`` (``logp`` is written by the PPO head only, else None)."""
     folded = fold_actor(actor)
     nin, ng, nh, nact = dims = folded["dims"]
     if dims not in INSTANCES:
@@ -145,8 +169,11 @@ def _launch(actor, obs, out, noise, head: int, what: str):
                          f"{tuple(obs.shape)}")
     if out is None:
         out = torch.empty(B, nact, dtype=torch.float32, device=obs.device)
-    for name, t in (("out", out),) + ((("noise", noise),)
-                                      if noise is not None else ()):
+    if head == HEAD_PPO and logp is None:
+        logp = torch.empty(B, nact, dtype=torch.float32, device=obs.device)
+    for name, t in (("out", out), ("logp", logp), ("noise", noise)):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or t.shape != (B, nact) \
                 or t.stride(1) != 1 or t.device != obs.device:
             raise ValueError(f"{what}: {name} must be a float32 ({B}, "
@@ -162,10 +189,12 @@ def _launch(actor, obs, out, noise, head: int, what: str):
         ints.numel(), *folded["nnz"],
         None if noise is None else noise.data_ptr(),
         0 if noise is None else noise.stride(0), out.data_ptr(),
-        out.stride(0), nin, ng, nh, nact, head,
+        out.stride(0), None if logp is None else logp.data_ptr(),
+        0 if logp is None else logp.stride(0),
+        getattr(actor, "max_action", 1.0), nin, ng, nh, nact, head,
         torch.cuda.current_stream(obs.device).cuda_stream)
     check(err, lib, what)
-    return out
+    return out, logp
 
 
 def _plain_into(res, out):
@@ -182,7 +211,7 @@ def emlp_actor(actor, obs: torch.Tensor, out: Optional[torch.Tensor] = None):
     a column slice of the joint action tensor."""
     if not obs.is_cuda:
         return _plain_into(emlp_actor_plain(actor, obs), out)
-    out = _launch(actor, obs, out, None, HEAD_TANH, "emlp_actor")
+    out = _launch(actor, obs, out, None, HEAD_TANH, "emlp_actor")[0]
     emlp_actor.launches += 1
     return out
 
@@ -199,9 +228,30 @@ def sac_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
     error.  ``out`` as for ``emlp_actor``."""
     if not obs.is_cuda:
         return _plain_into(sac_actor_plain(actor, obs, noise), out)
-    out = _launch(actor, obs, out, noise, HEAD_GAUSS, "sac_actor")
+    out = _launch(actor, obs, out, noise, HEAD_GAUSS, "sac_actor")[0]
     sac_actor.launches += 1
     return out
 
 
 sac_actor.launches = 0
+
+
+def ppo_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
+              out: Optional[torch.Tensor] = None,
+              logp: Optional[torch.Tensor] = None):
+    """PPO actor's acting draw (K11): ``(action, per-dim log-prob)``, both
+    ``(B, act_dim)``, with the N(0, 1) draw ``noise``, or ``(clip(mean),
+    zeros)`` when ``noise`` is None (eval).  CPU tensors ->
+    ``ppo_actor_plain``; CUDA tensors -> one kernel launch (float32), or an
+    error.  ``out`` and ``logp`` (unit column stride, any row stride)
+    receive the results in place: a column slice of the joint action and
+    of the horizon's log-prob rows."""
+    if not obs.is_cuda:
+        a, lp = ppo_actor_plain(actor, obs, noise)
+        return _plain_into(a, out), _plain_into(lp, logp)
+    res = _launch(actor, obs, out, noise, HEAD_PPO, "ppo_actor", logp)
+    ppo_actor.launches += 1
+    return res
+
+
+ppo_actor.launches = 0

@@ -1,8 +1,9 @@
-"""Equivariant actors and twin Q critics (port of the TD3 and SAC parts of
-``gym_rotor_tpu/models/emlp/zoo.py``: ``actor_reps``, ``critic_reps`` for
-the MONO and DTDE branches, ``EMLPActorDet``, ``EMLPActorSAC``,
-``EMLPCriticTwin``, ``emlp_twin_split`` and ``sac_models``).  The PPO heads
-and the CTDE critic reps are not ported yet.
+"""Equivariant actors, twin Q critics and V critics (port of the TD3, SAC
+and PPO parts of ``gym_rotor_tpu/models/emlp/zoo.py``: ``actor_reps``,
+``critic_reps`` and ``v_critic_reps`` for the MONO and DTDE branches,
+``EMLPActorDet``, ``EMLPActorSAC``, ``EMLPActorPPO``, ``EMLPCriticTwin``,
+``EMLPVCritic``, ``emlp_twin_split``, ``sac_models`` and ``ppo_models``).
+The CTDE critic reps are not ported yet.
 
 Every network carries ``param_version``, an explicit counter of in-place
 parameter writes: the flat optimizer bumps it after each launch and the
@@ -63,6 +64,26 @@ def critic_reps(cfg: Config, framework: str, agent_id: int,
         hidden = uniform_rep(ch, so2)
     else:  # MODUL2 DTDE
         rep_in = Vector(mir) * 4
+        hidden = uniform_rep(ch, mir)
+    return rep_in, hidden, Scalar(t1)
+
+
+def v_critic_reps(cfg: Config, framework: str, agent_id: int,
+                  module_training: str):
+    """(rep_in, hidden_rep, rep_out) of the PPO V(s) critics, input obs only
+    (zoo.py:78-95)."""
+    so2, t1, t3, mir = _groups()
+    ch = cfg.critic_hidden_dim
+    if module_training == "CTDE" and framework != "MONO":
+        raise NotImplementedError("CTDE critics are not ported yet")
+    if framework == "MONO":
+        rep_in = Vector(so2) * 6 + Scalar(t1) * 2 + Vector(t3)
+        hidden = uniform_rep(ch, so2)
+    elif agent_id == 0:
+        rep_in = Vector(so2) * 5
+        hidden = uniform_rep(ch, so2)
+    else:
+        rep_in = Vector(mir) * 3
         hidden = uniform_rep(ch, mir)
     return rep_in, hidden, Scalar(t1)
 
@@ -204,6 +225,68 @@ class EMLPCriticTwin(_Versioned):
         return self.network1(torch.cat([obs, act], dim=-1))
 
 
+class EMLPActorPPO(_Versioned):
+    """PPO EMLP actor (zoo.py:193-213): ``mean = tanh(network(obs))`` and a
+    learnable state-independent ``log_std`` of shape ``(1, action_dim)``,
+    not clipped; flax's names, so the flat order starts with ``log_std``.
+    ``dist`` is the structured plain network.  ``forward`` is the acting
+    draw ``(action, per-dim log-prob)`` of ``ppo.py:107-116``, actions
+    clipped to ``max_action`` (``cfg.max_action``): on CUDA tensors one
+    launch of the fused actor kernel (K11), on CPU tensors ``dist`` and the
+    plain draw."""
+
+    def __init__(self, rep_in: SumRep, hidden: SumRep, rep_out: SumRep,
+                 action_dim: int, hidden_num: int = 2,
+                 log_std_init: float = 0.0, max_action: float = 1.0,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        reps = (rep_in,) + (hidden,) * hidden_num
+        self.network = EMLP(reps, rep_out, device=device, dtype=dtype,
+                            generator=generator)
+        self.log_std = nn.Parameter(torch.full((1, action_dim), log_std_init,
+                                               device=device, dtype=dtype))
+        self.action_dim = action_dim
+        self.max_action = float(max_action)
+
+    def named_blocks(self, prefix: str = ""):
+        return self.network.named_blocks(prefix + "network.")
+
+    def named_head(self, prefix: str = ""):
+        return self.network.named_head(prefix + "network.")
+
+    def dist(self, obs):
+        """``(mean, log_std)`` with ``log_std`` broadcast to ``mean``'s
+        shape (zoo.py:205-213)."""
+        mean = torch.tanh(self.network(obs))
+        return mean, self.log_std.expand_as(mean)
+
+    def forward(self, obs, noise: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None,
+                logp: Optional[torch.Tensor] = None):
+        from ...kernels.emlp_actor import ppo_actor
+        return ppo_actor(self, obs, noise, out, logp)
+
+
+class EMLPVCritic(_Versioned):
+    """Equivariant V(s) critic (zoo.py:216-228), one EMLP ``network``;
+    ``forward`` is the structured plain network, the training path applies
+    the same parameters through the block kernels (``algos/ppo.py``)."""
+
+    def __init__(self, rep_in: SumRep, hidden: SumRep, rep_out: SumRep,
+                 hidden_num: int = 2, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        reps = (rep_in,) + (hidden,) * hidden_num
+        self.network = EMLP(reps, rep_out, device=device, dtype=dtype,
+                            generator=generator)
+
+    def forward(self, obs):
+        return self.network(obs)
+
+
 def emlp_twin_split(params):
     """Twin parameters (dotted names ``network1.*``/``network2.*``) ->
     (net1 params, net2 params), each renamed under ``network.``: a pure
@@ -224,6 +307,19 @@ def sac_models(cfg: Config, agent_id: int, device=None, dtype=torch.float32,
                          cfg.action_dim_n[agent_id], **kw)
     critic = EMLPCriticTwin(*critic_reps(cfg, cfg.framework, agent_id,
                                          cfg.module_training), **kw)
+    return actor, critic
+
+
+def ppo_models(cfg: Config, agent_id: int, device=None, dtype=torch.float32,
+               generator: Optional[torch.Generator] = None):
+    """``(EMLPActorPPO, EMLPVCritic)`` of agent ``agent_id`` with seeded
+    random weights (zoo.py:281-287)."""
+    kw = dict(device=device, dtype=dtype, generator=generator)
+    actor = EMLPActorPPO(*actor_reps(cfg, cfg.framework, agent_id),
+                         cfg.action_dim_n[agent_id],
+                         max_action=cfg.max_action, **kw)
+    critic = EMLPVCritic(*v_critic_reps(cfg, cfg.framework, agent_id,
+                                        cfg.module_training), **kw)
     return actor, critic
 
 

@@ -136,3 +136,18 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# PPO's two configurations at full width (actors 16 / 4, V critics 62), cut
+# in depth only (K_epochs 20 -> 2 and 1), as chip_smoke.py and
+# scripts/torch_train_profile.py run them.  A: the validated learning run
+# (scripts/run_modul_families.sh:18-19: 32 envs, T_horizon 7000, so 218
+# ticks and minibatch 128); B: the JAX throughput configuration
+# (bench_train.py:84-89 --algo ppo: 4096 envs x 50 ticks, minibatch
+# 204800 // 55 = 3723).
+PPO_CONFIGS = {
+    "A": dict(rl_algo="PPO", num_envs=32, T_horizon=7000, K_epochs=2),
+    "B": dict(rl_algo="PPO", num_envs=4096, T_horizon=4096 * 50,
+              actor_batch_size=4096 * 50 // 55,
+              critic_batch_size=4096 * 50 // 55, K_epochs=1),
+}

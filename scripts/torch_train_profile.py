@@ -1,19 +1,25 @@
 """Where the time of the PyTorch port's training superstep goes, on one GPU.
 
-    python3 scripts/torch_train_profile.py [--algo td3|sac] [--envs 4096]
-                                           [--steps 60] [--out FILE]
+    python3 scripts/torch_train_profile.py [--algo td3|sac|ppo] [--envs 4096]
+                                           [--steps N] [--config A|B]
+                                           [--out FILE]
 
 Runs ``train`` (the flagship configuration with TD3, or SAC with
 ``--algo sac``; one warm superstep, then train supersteps of one 4096-env
-tick and one update each) and, through its
-per-superstep probe, measures three windows of ``--steps`` supersteps after
-a warm-up of 20:
+tick and one update each; or PPO with ``--algo ppo`` in configuration A,
+32 envs and a 7000-step horizon in minibatches of 128, or B, 4096 envs x 50
+ticks in minibatches of 3723, as ``utils.config.PPO_CONFIGS`` and
+chip_smoke.py define them: 2 epochs per update for A and 1 for B, where
+the reference runs 20, since the cost per minibatch step does not depend
+on it) and, through its per-superstep probe,
+measures three windows of ``--steps`` supersteps (default 60, PPO 1) after
+a warm-up of 20 (PPO 1):
   1. timed with CUDA events (ms per superstep, env-steps/s, updates/s);
      right after it, the superstep's update alone (``replay.sample`` and
      the learner's ``train_step`` on fresh draws), ``--steps`` times
      back to back and ``--steps`` times with a sync after each (as
      ``train`` syncs after each superstep), on CUDA events and the host
-     clock;
+     clock (off-policy only);
   2. under ``torch.profiler`` (CPU + CUDA): device time by kernel name and
      the device-busy share of the wall time;
   3. under ``cProfile``: the host functions that take the superstep's time.
@@ -38,9 +44,11 @@ WARMUP = 20
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--algo", choices=("td3", "sac"), default="td3")
+    ap.add_argument("--algo", choices=("td3", "sac", "ppo"), default="td3")
     ap.add_argument("--envs", type=int, default=4096)
-    ap.add_argument("--steps", type=int, default=60)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--config", choices=("A", "B"), default="A",
+                    help="PPO configuration")
     ap.add_argument("--out", default=None,
                     help="file for the full profiler tables")
     args = ap.parse_args()
@@ -53,23 +61,35 @@ def main():
     from gym_rotor_tpu_torch.algos import sac, td3
     from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.kernels import (build, emlp_actor, emlp_block,
-                                             env_tick, flat_adamw, replay,
-                                             sac_sample, spectral)
+                                             env_tick, flat_adamw, gae,
+                                             ppo_loss, replay, sac_sample,
+                                             spectral)
     from gym_rotor_tpu_torch.train import train
-    from gym_rotor_tpu_torch.utils.config import Config
+    from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     build.build_all([m.KERNEL for m in (env_tick, emlp_actor, replay,
                                         emlp_block, flat_adamw, spectral,
-                                        sac_sample)])
+                                        sac_sample, gae, ppo_loss)])
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = Config(num_envs=args.envs, start_timesteps=args.envs,
-                 rl_algo=args.algo.upper())
-    n = args.steps
-    t_start, p_start, c_start = 1 + WARMUP, 1 + WARMUP + n, 1 + WARMUP + 2 * n
+    ppo = args.algo == "ppo"
+    if ppo:
+        cfg = Config(**PPO_CONFIGS[args.config])
+        rl = max(cfg.T_horizon // cfg.num_envs, 1)
+        rows = rl * cfg.num_envs
+        updates = cfg.n_agents * cfg.K_epochs * (
+            max(rows // cfg.actor_batch_size, 1)
+            + max(rows // cfg.critic_batch_size, 1))
+    else:
+        cfg = Config(num_envs=args.envs, start_timesteps=args.envs,
+                     rl_algo=args.algo.upper())
+        rows, updates = cfg.num_envs, 1
+    n = args.steps or (1 if ppo else 60)
+    warmup = 1 if ppo else WARMUP
+    t_start, p_start, c_start = 1 + warmup, 1 + warmup + n, 1 + warmup + 2 * n
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     cpr = cProfile.Profile()
     marks = {}
@@ -103,7 +123,7 @@ def main():
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks[i + 1] = (ev, time.perf_counter())
-        if i + 1 == t_start + n:
+        if i + 1 == t_start + n and not ppo:
             marks["alone"] = update_alone(run, False)
             marks["alone_synced"] = update_alone(run, True)
         if i + 1 == p_start:
@@ -124,15 +144,18 @@ def main():
     train(cfg, c_start + n, device=dev, on_superstep=probe, log=None)
     (e0, h0), (e1, h1) = marks[t_start], marks[t_start + n]
     ms = e0.elapsed_time(e1) / n
-    print(json.dumps({"card": card, "algo": cfg.rl_algo, "envs": args.envs,
-                      "supersteps": n,
-                      "updates_per_superstep": 1, "ms_per_superstep": ms,
-                      "host_ms_per_superstep": (h1 - h0) * 1e3 / n,
-                      "env_steps_per_s": args.envs / ms * 1e3,
-                      "updates_per_s": 1e3 / ms,
-                      "update_alone_ms_device_host": marks["alone"],
-                      "update_alone_synced_ms_device_host":
-                          marks["alone_synced"]}), flush=True)
+    out = {"card": card, "algo": cfg.rl_algo, "envs": cfg.num_envs,
+           "supersteps": n, "env_steps_per_superstep": rows,
+           "updates_per_superstep": updates, "ms_per_superstep": ms,
+           "host_ms_per_superstep": (h1 - h0) * 1e3 / n,
+           "env_steps_per_s": rows / ms * 1e3,
+           "updates_per_s": updates / ms * 1e3}
+    if ppo:
+        out.update(config=args.config, K_epochs=cfg.K_epochs)
+    else:
+        out.update(update_alone_ms_device_host=marks["alone"],
+                   update_alone_synced_ms_device_host=marks["alone_synced"])
+    print(json.dumps(out), flush=True)
 
     wall = marks["p1"] - marks["p0"]
     dev_us = {}
@@ -158,6 +181,13 @@ def main():
         rows.append([f"{os.path.basename(fn)}:{line}:{name}", nc,
                      round(tt / n * 1e3, 4), round(ct / n * 1e3, 4)])
     print(json.dumps({"host_top_tottime_ms_per_superstep": rows}), flush=True)
+    # the superstep against its update: the rest is the rollout
+    cum = {f"{os.path.basename(os.path.dirname(fn))}/"
+           f"{os.path.basename(fn)}:{name}": round(ct / n * 1e3, 4)
+           for (fn, _, name), (_, _, _, ct, _) in st.stats.items()
+           if name in ("step", "train_step")
+           and "gym_rotor_tpu_torch" in fn}
+    print(json.dumps({"host_cumtime_ms_per_superstep": cum}), flush=True)
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -181,7 +181,8 @@ def test_no_jax_scan_covers_the_training_slice():
     assert {"algos/replay.py", "algos/td3.py", "algos/common.py",
             "algos/regularizers.py", "parallel/train_step.py", "train.py",
             "kernels/replay.py", "kernels/emlp_block.py",
-            "kernels/flat_adamw.py", "kernels/spectral.py"} <= names
+            "kernels/flat_adamw.py", "kernels/spectral.py",
+            "algos/ppo.py", "kernels/gae.py", "kernels/ppo_loss.py"} <= names
 
 
 def test_training_entry_points_need_a_device(monkeypatch):
@@ -266,7 +267,8 @@ def test_every_cuda_source_has_wrapper_and_plain_twin():
     sources = sorted((PORT / "kernels" / "csrc").glob("*.cu"))
     assert {p.stem for p in sources} == {"env_tick", "emlp_actor", "replay",
                                          "emlp_block", "flat_adamw",
-                                         "spectral", "sac_sample"}
+                                         "spectral", "sac_sample", "gae",
+                                         "ppo_loss"}
     for src in sources:
         mod = importlib.import_module(f"gym_rotor_tpu_torch.kernels.{src.stem}")
         assert mod.KERNEL.source == src
