@@ -7,7 +7,8 @@ Phases (each prints its own line; any failure exits non-zero and prints no
 result line):
   1. build      nvcc all nine kernel sources in parallel; print build time
                 and the registers/spills ``-Xptxas -v`` reports
-  2. env_tick   K1 kernel vs its plain twin at B = 4096 float32 train envs:
+  2. env_tick   K1 kernel (the MODUL task) vs its plain twin at B = 4096
+                float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
                 the cap, then one kernel tick and one plain tick on the same
                 state, actions and draws (and the reset entry vs plain);
@@ -40,7 +41,8 @@ result line):
                 and 1 actions: moderate, clip-bound and saturated rows
  12. train      ``train``: 4096 envs, 1 warm then TRAIN_STEPS train
                 supersteps (one update each); exact launch counts of every
-                kernel per superstep (the delayed actor step every third),
+                kernel per superstep, and of K3/K4 per (shape, rows) (the
+                delayed actor step every third),
                 the fold cache refolding after each actor update, finite
                 losses, changed parameters; env-steps/s, updates/s and ms
                 per superstep by CUDA events
@@ -82,6 +84,24 @@ result line):
                 function; and K5 (``project_linear``, plain torch) per call
                 at every layer shape the TD3 and SAC paths project, with its
                 calls per superstep
+ 20. MONO and the MLP networks under TD3 (``phase_mono``):
+                env_tick (task coupled) K1's coupled instance vs its plain
+                twin at B = 4096 train envs and the eval path's 10 eval
+                envs, reset entry and MONO_TICKS ticks from a shared state
+                with ~10% of envs at the cap each tick (resets and caps
+                crossed); emlp_actor the MONO instance (23, 18, 16, 4);
+                emlp_block the MONO blocks (27, 71, 62) and (23, 18, 16)
+                with the hidden ones; flat_adamw and spectral on the MONO
+                networks; train_mono_emlp, train_mono_mlp, train_mod_mlp:
+                ``train`` at full width, 1 warm + MONO_STEPS train
+                supersteps each, checked as phase 12 (MLP networks launch
+                only K1, K2 and K6); eval_mono_emlp, eval_mono_mlp:
+                ``evaluate`` with the trained actors (success column
+                position only); mlp_nets: the MLP networks' ``F.linear``
+                chains (plain torch, not kernels) acting at 4096 rows and in
+                one update; kernels: records of K1's coupled instance and
+                the MONO K3-actor and K3/K4 instances, with their launches
+                on the Mono paths
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -112,7 +132,8 @@ CARD = ""            # nvidia-smi name and power limit, set in main()
 
 def log(phase, **kv):
     if phase in ("rollout", "eval", "train", "sac_train", "ppo_train",
-                 "kernels"):
+                 "kernels", "mlp_nets") or phase.startswith(("train_",
+                                                              "eval_")):
         kv["card"] = CARD
     print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
 
@@ -171,6 +192,30 @@ def device_ms(fn, n, rounds=5):
         torch.cuda.synchronize()
         dev.append(s.elapsed_time(e) / n)
     return statistics.median(dev), wall * 1e3
+
+
+def kernel_ms(fn, n):
+    """Device time per call as the sum of the CUDA kernels and copies
+    ``torch.profiler`` records over ``n`` calls: for a function whose host
+    enqueue is slower than its device work (an autograd backward of small
+    ops), where ``device_ms`` reads the host's pace.  Also the host wall
+    time per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(ev, "device_time_total", None) or \
+                getattr(ev, "cuda_time_total", 0)
+    return us / 1e3 / n, wall * 1e3
 
 
 def bound_ms(nbytes, flops):
@@ -266,9 +311,15 @@ def _field_errors(named_k, named_p, skip):
 
 def _near_threshold(out):
     """Envs whose deciding value lies within 1e-5 of a threshold: crash
-    limits |obs| >= 1 and the solved tolerances |ex|, |eb1| <= 0.03."""
-    o1, o2 = out.info["terminal_obs"]
-    crash = torch.cat([o1[:, 0:3], o1[:, 6:9], o1[:, 12:15], o2[:, 2:3]], 1)
+    limits |obs| >= 1 (MODUL: ex, ev, ew12 and eW3; MONO: ex, ev, eW) and
+    the solved tolerances |ex|, |eb1| <= 0.03."""
+    if len(out.info["terminal_obs"]) == 2:
+        o1, o2 = out.info["terminal_obs"]
+        crash = torch.cat([o1[:, 0:3], o1[:, 6:9], o1[:, 12:15], o2[:, 2:3]],
+                          1)
+    else:
+        (o,) = out.info["terminal_obs"]
+        crash = torch.cat([o[:, 0:3], o[:, 6:9], o[:, 20:23]], 1)
     near = ((crash.abs() - 1.0).abs() < 1e-5).any(1)
     near |= ((out.info["ex"].abs() - 0.03).abs() < 1e-5).any(1)
     near |= (out.info["eb1"].abs() - 0.03).abs() < 1e-5
@@ -279,24 +330,33 @@ def _named(state, out=None):
     from gym_rotor_tpu_torch.utils.tree import tree_named_leaves
     d = {f"state.{p}": t for p, t in tree_named_leaves(state)}
     if out is not None:
-        d.update({"obs1": out.obs[0], "obs2": out.obs[1], "reward": out.reward,
-                  "done": out.done, "reset_happened": out.reset_happened,
+        d.update({"reward": out.reward, "done": out.done,
+                  "reset_happened": out.reset_happened,
                   "info.ex": out.info["ex"], "info.eb1": out.info["eb1"],
-                  "info.terminal_obs1": out.info["terminal_obs"][0],
-                  "info.terminal_obs2": out.info["terminal_obs"][1],
                   "info.crashed": out.info["crashed"]})
+        for a, (o, t) in enumerate(zip(out.obs, out.info["terminal_obs"])):
+            d[f"obs{a + 1}"] = o
+            d[f"info.terminal_obs{a + 1}"] = t
     return d
 
 
-def phase_env_tick(cfg, dev, n, env_type):
-    """K1 (reset entry and tick) vs the plain twin on ``n`` envs."""
+def phase_env_tick(cfg, dev, n, env_type, ticks=1):
+    """K1 (reset entry and tick) vs the plain twin on ``n`` envs of
+    ``cfg.framework``'s task: the reset entry; then after 50 plain ticks,
+    ``ticks`` ticks each run by the kernel and by the plain twin from the
+    same state, actions and draws with ~10% of envs set one tick from the
+    cap, the plain result carried to the next."""
     from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.envs.batch import batched_reset_plain
     from gym_rotor_tpu_torch.kernels import env_tick as K
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
+    n_act = sum(cfg.action_dim_n)
+    # MODUL: (f, tau, M3); MONO: (f, M), the moments taken as they are
+    spread = 0.35 if cfg.framework == "MODUL" else 0.2
+
     def actions():
-        a = 0.35 * torch.randn(n, 5, generator=gen, device=dev)
+        a = spread * torch.randn(n, n_act, generator=gen, device=dev)
         a[:, 0] = torch.rand(n, generator=gen, device=dev) * 0.5 - 0.4
         return a
 
@@ -306,44 +366,55 @@ def phase_env_tick(cfg, dev, n, env_type):
     draws = uniforms()
     st_k, obs_k = K.env_reset(cfg, draws, env_type)
     st_p, obs_p = batched_reset_plain(cfg, draws, env_type)
-    nk = _named(st_k)
-    nk.update({"obs1": obs_k[0], "obs2": obs_k[1]})
-    np_ = _named(st_p)
-    np_.update({"obs1": obs_p[0], "obs2": obs_p[1]})
+    nk, np_ = _named(st_k), _named(st_p)
+    for a in range(cfg.n_agents):
+        nk[f"obs{a + 1}"], np_[f"obs{a + 1}"] = obs_k[a], obs_p[a]
     errs, bad, worst_reset = _field_errors(
         nk, np_, torch.zeros(n, dtype=torch.bool, device=dev))
-    log("env_tick", check="reset kernel vs plain", envs=n, env_type=env_type,
-        max_abs_err=worst_reset, fields=errs)
+    log("env_tick", check="reset kernel vs plain", task=K.task_of(cfg),
+        envs=n, env_type=env_type, max_abs_err=worst_reset, fields=errs)
     if bad:
         raise AssertionError(f"env reset kernel disagrees with plain: {bad}")
 
     st = st_p
     for _ in range(50):
         st, _ = K.env_tick_plain(cfg, st, actions(), uniforms(), env_type)
-    idx = torch.randperm(n, generator=gen, device=dev)[: max(1, n // 10)]
-    st.env.t[idx] = cfg.max_steps - 1
-    a, dr = actions(), uniforms()
-    st_k, out_k = K.env_tick(cfg, st, a, dr, env_type)
-    st_p, out_p = K.env_tick_plain(cfg, st, a, dr, env_type)
-    nk, np_ = _named(st_k, out_k), _named(st_p, out_p)
-    near = _near_threshold(out_p) | _near_threshold(out_k)
-    mismatch = torch.zeros(n, dtype=torch.bool, device=dev)
-    for path, p in np_.items():
-        if not p.is_floating_point():
-            diff = nk[path] != p
-            mismatch |= diff.reshape(n, -1).any(1)
-    unexplained = int((mismatch & ~near).sum())
-    errs, bad, worst = _field_errors(nk, np_, mismatch)
-    n_reset = int(out_p.reset_happened.sum())
-    log("env_tick", check="tick kernel vs plain", envs=n, env_type=env_type,
-        resets=n_reset, caps_set=int(idx.numel()),
-        near_threshold_envs=int(near.sum()),
-        discrete_mismatch_envs=int(mismatch.sum()),
-        unexplained_mismatch_envs=unexplained, max_abs_err=worst, fields=errs)
-    if unexplained or bad:
-        raise AssertionError(f"env_tick kernel disagrees with plain: "
-                             f"{unexplained} envs, fields {bad}")
-    return dict(state=st, actions=a, draws=dr, n_reset=n_reset,
+    worst, n_reset, crashes = 0.0, 0, 0
+    for k in range(ticks):
+        idx = torch.randperm(n, generator=gen, device=dev)[: max(1, n // 10)]
+        st.env.t[idx] = cfg.max_steps - 1
+        a, dr = actions(), uniforms()
+        st_k, out_k = K.env_tick(cfg, st, a, dr, env_type)
+        st_p, out_p = K.env_tick_plain(cfg, st, a, dr, env_type)
+        nk, np_ = _named(st_k, out_k), _named(st_p, out_p)
+        near = _near_threshold(out_p) | _near_threshold(out_k)
+        mismatch = torch.zeros(n, dtype=torch.bool, device=dev)
+        for path, p in np_.items():
+            if not p.is_floating_point():
+                diff = nk[path] != p
+                mismatch |= diff.reshape(n, -1).any(1)
+        unexplained = int((mismatch & ~near).sum())
+        errs, bad, err = _field_errors(nk, np_, mismatch)
+        worst = max(worst, err)
+        resets = int(out_p.reset_happened.sum())
+        crashed = int(out_p.info["crashed"].any(-1).sum())
+        n_reset += resets
+        crashes += crashed
+        log("env_tick", check="tick kernel vs plain", task=K.task_of(cfg),
+            tick=k, envs=n, env_type=env_type, resets=resets,
+            crash_resets=crashed, caps_set=int(idx.numel()),
+            near_threshold_envs=int(near.sum()),
+            discrete_mismatch_envs=int(mismatch.sum()),
+            unexplained_mismatch_envs=unexplained, max_abs_err=err,
+            fields=errs)
+        if unexplained or bad:
+            raise AssertionError(f"env_tick kernel disagrees with plain: "
+                                 f"{unexplained} envs, fields {bad}")
+        if k + 1 < ticks:
+            st = st_p
+    if n_reset <= crashes:
+        raise AssertionError("env_tick compare crossed no cap")
+    return dict(state=st, actions=a, draws=dr, n_reset=resets,
                 max_abs_err=max(worst, worst_reset))
 
 
@@ -403,7 +474,10 @@ def phase_rollout(cfg, dev, actors):
         raise AssertionError("rollout invariants failed")
 
 
-def phase_eval(cfg, dev, actors):
+def phase_eval(cfg, dev, actors, name="eval"):
+    """``evaluate`` with ``actors`` (EMLP: one K3 launch per agent and
+    tick; MLP: torch ops) on ``cfg.framework``'s task: launch counts, the
+    success column per agent (MONO: position only), finite rewards."""
     from gym_rotor_tpu_torch.envs.quad import DT
     from gym_rotor_tpu_torch.evaluate import evaluate
     from gym_rotor_tpu_torch.kernels.emlp_actor import emlp_actor
@@ -416,15 +490,21 @@ def phase_eval(cfg, dev, actors):
     ep, bench, succ, ex, eb1 = evaluate(cfg, actors, device=dev)
     torch.cuda.synchronize()
     launches = {"env_tick": env_tick.launches, "emlp_actor": emlp_actor.launches}
+    n = cfg.n_agents
     vals = [float(x) for x in ep] + [float(bench)]
-    log("eval", envs=cfg.num_eval, ticks=ticks, launches=launches,
-        mean_episode_reward=vals[:2], benchmark_reward=vals[2],
+    log(name, framework=cfg.framework, use_equiv=cfg.use_equiv,
+        envs=cfg.num_eval, ticks=ticks, launches=launches,
+        mean_episode_reward=vals[:n], benchmark_reward=vals[n],
         success=[int(x) for x in succ.sum(0)], wall_s=time.perf_counter() - t0)
-    # one reset launch, then one K1 and one K3 per agent each tick
-    if launches != {"env_tick": 1 + ticks, "emlp_actor": 2 * ticks}:
-        raise AssertionError(f"eval launch counts {launches}")
+    # one reset launch, then one K1 and (EMLP) one K3 per agent each tick
+    want = {"env_tick": 1 + ticks,
+            "emlp_actor": n * ticks if cfg.use_equiv else 0}
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches}, want {want}")
+    if tuple(succ.shape) != (cfg.num_eval, n) or len(ep) != n:
+        raise AssertionError(f"{name}: success {tuple(succ.shape)}")
     if not all(math.isfinite(v) for v in vals):
-        raise AssertionError("eval produced non-finite rewards")
+        raise AssertionError(f"{name} produced non-finite rewards")
 
 
 def _err(k, p, rel=2e-5):
@@ -501,7 +581,7 @@ def _block_inputs(agent, st, i, obs, act):
              torch.cat([o, act], -1), (256,))]
 
 
-def phase_emlp_block(cfg, dev, agents, states, obs):
+def phase_emlp_block(cfg, dev, agents, states, obs, n_shapes=8):
     """K3/K4 vs plain per block: forward (h, lin, pre) and backward (g_x,
     g_W, g_b, g_v; and g_x alone) on the same inputs; then the critics'
     and actors' whole kernel path under autograd vs their structured
@@ -580,8 +660,9 @@ def phase_emlp_block(cfg, dev, agents, states, obs):
                 value_err=dv, grad_max_abs_err=dg, grad_scale=float(gp.abs().max()))
             if not (dv <= tolv and dg <= tolg and finv and fing):
                 bad.append((i, name, "autograd", dv, dg))
-    if len(shapes) != 8:
-        raise AssertionError(f"expected 8 block shapes, saw {sorted(shapes)}")
+    if len(shapes) != n_shapes:
+        raise AssertionError(f"expected {n_shapes} block shapes, saw "
+                             f"{sorted(shapes)}")
     if bad:
         raise AssertionError(f"emlp_block kernels disagree with plain: {bad}")
     return worst_fwd, worst_bwd
@@ -818,18 +899,49 @@ def phase_sac_sample(dev):
 
 
 def expected_launches(cfg, warm: bool, gated: bool):
-    """Kernel launches of one superstep (rollout_len 1, one update)."""
+    """Kernel launches of one TD3 superstep (rollout_len 1, one update).
+    MLP networks launch no kernel of their own (``F.linear``) and carry no
+    spectral penalty: K1, K2 and K6 only."""
     if warm:
         return {"env_tick": 1, "replay_insert_tick": 1}
     n = cfg.n_agents
+    want = {"env_tick": 1, "replay_insert_tick": 1, "replay_sample": 1,
+            "flat_adamw": n * (2 if gated else 1)}
+    if not cfg.use_equiv:
+        return want
     # per agent: target actor (2 blocks) + target twin critic (4) + critic
     # loss (4) forward, its backward (4); the actor loss adds the actor at
     # B = 768 (2) and critic net1 (2) forward and both backward (2 + 2)
-    return {"env_tick": 1, "emlp_actor": n, "replay_insert_tick": 1,
-            "replay_sample": 1, "emlp_block": n * (14 if gated else 10),
-            "emlp_block_backward": n * (8 if gated else 4),
-            "spectral_iterate": n * (2 if gated else 1),
-            "flat_adamw": n * (2 if gated else 1)}
+    want.update({"emlp_actor": n, "emlp_block": n * (14 if gated else 10),
+                 "emlp_block_backward": n * (8 if gated else 4),
+                 "spectral_iterate": n * (2 if gated else 1)})
+    return want
+
+
+def expected_td3_shapes(cfg, agents, dev, gated: bool):
+    """K3's launches per (block dims, rows) and K4's per (block dims, rows,
+    parameter sums) of one TD3 train superstep of EMLP agents, as
+    ``expected_launches`` counts them."""
+    from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
+    nb = cfg.batch_size
+    fwd, bwd = Counter(), Counter()
+    for a in agents:
+        actor = [block_spec(b, dev).dims for b in a.actor_net.network.blocks()]
+        net1 = [block_spec(b, dev).dims for b in a.critic_net.network1.blocks()]
+        net2 = [block_spec(b, dev).dims for b in a.critic_net.network2.blocks()]
+        for d in actor:
+            fwd[(d, nb)] += 1                  # target actor on next_obs
+            if gated:
+                fwd[(d, 3 * nb)] += 1          # actor loss, [obs; next; obs+eps]
+                bwd[(d, 3 * nb, True)] += 1
+        for d in net1 + net2:
+            fwd[(d, nb)] += 2                  # target twin and critic loss
+            bwd[(d, nb, True)] += 1
+        if gated:
+            for d in net1:                     # q1 in the actor loss
+                fwd[(d, nb)] += 1
+                bwd[(d, nb, False)] += 1
+    return fwd, bwd
 
 
 def expected_launches_sac(cfg, warm: bool):
@@ -974,17 +1086,22 @@ def phase_train_sac(dev, steps, auto, k5=None):
     return launches
 
 
-def phase_train(dev, k5=None):
-    """The training entry point at full width: 1 warm superstep, then
-    TRAIN_STEPS train supersteps, each checked as it ends."""
+def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
+    """The TD3 training entry point at full width (``cfg``: the flagship
+    Mod-EMLP by default): 1 warm superstep, then ``steps`` train
+    supersteps, each checked as it ends: exact launch counts of every
+    kernel and (EMLP) of K3/K4 per (shape, rows), the actors' folds (EMLP),
+    finite losses; at the end, every network moved.  Returns the launch
+    counts, K3/K4's counts per shape over the run and the run."""
     from gym_rotor_tpu_torch.kernels import emlp_block
     from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
-    cfg = Config(num_envs=B, start_timesteps=B)
+    cfg = cfg or Config(num_envs=B, start_timesteps=B)
+    equiv = cfg.use_equiv
     wr = _wrappers()
     probe = dict(last={}, folds=0, bad=[], before=None, events=[],
-                 losses=[], t_host=None)
+                 losses=[], t_host=None, fwd=Counter(), bwd=Counter())
 
     def on_superstep(i, warm, metrics, run):
         ev = torch.cuda.Event(enable_timing=True)
@@ -1001,16 +1118,24 @@ def phase_train(dev, k5=None):
         got = {k: v for k, v in delta.items() if v}
         if got != want:
             probe["bad"].append((i, "launches", got, want))
+        fwd = Counter(emlp_block.emlp_block.by_shape)
+        bwd = Counter(emlp_block.emlp_block_backward.by_shape)
+        gfwd, gbwd = fwd - probe["fwd"], bwd - probe["bwd"]
+        probe["fwd"], probe["bwd"] = fwd, bwd
+        wfwd, wbwd = (expected_td3_shapes(cfg, run["agents"], dev, gated)
+                      if equiv and not warm else (Counter(), Counter()))
+        if gfwd != wfwd or gbwd != wbwd:
+            probe["bad"].append((i, "shapes", dict(gfwd), dict(wfwd)))
         folds = fold_actor.folds - probe["folds"]
         probe["folds"] = fold_actor.folds
-        # the actors fold on the first train superstep and after each
+        # the EMLP actors fold on the first train superstep and after each
         # actor update (K6 bumps the version; the next act refolds)
-        want_folds = 0 if warm else (cfg.n_agents if n_train == 1 or
-                                     (n_train - 1) % cfg.policy_update_freq == 0
-                                     else 0)
+        want_folds = 0 if warm or not equiv else (
+            cfg.n_agents if n_train == 1 or
+            (n_train - 1) % cfg.policy_update_freq == 0 else 0)
         fresh = [getattr(a.actor_net, "_folded", (None,))[0]
                  == a.actor_net.param_version
-                 for a in run["agents"]] if not warm else []
+                 for a in run["agents"]] if not warm and equiv else []
         if folds != want_folds or any(f == gated for f in fresh):
             probe["bad"].append((i, "folds", folds, want_folds, fresh))
         if warm:
@@ -1031,7 +1156,7 @@ def phase_train(dev, k5=None):
     emlp_block.emlp_block.by_shape.clear()
     emlp_block.emlp_block_backward.by_shape.clear()
     with (k5 or contextlib.nullcontext()):
-        run = train(cfg, 1 + TRAIN_STEPS, device=dev,
+        run = train(cfg, 1 + steps, device=dev,
                     on_superstep=on_superstep, log=None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items()}
@@ -1043,79 +1168,98 @@ def phase_train(dev, k5=None):
                for st, (a0, c0) in zip(run["states"], probe["before"])]
     total_it = [st.total_it for st in run["states"]]
     first, last = probe["losses"][0], probe["losses"][-1]
-    log("train", envs=B, supersteps=1 + TRAIN_STEPS, warm_supersteps=1,
-        launches=launches, total_it=total_it, params_changed=changed,
-        train_ms=dev_ms, env_steps_per_s=B * TRAIN_STEPS / (dev_ms / 1e3),
-        updates_per_s=TRAIN_STEPS / (dev_ms / 1e3),
-        ms_per_superstep=dev_ms / TRAIN_STEPS, host_s=host_s,
+    log(name, framework=cfg.framework, use_equiv=equiv, envs=B,
+        supersteps=1 + steps, warm_supersteps=1,
+        launches={k: v for k, v in launches.items() if v}, total_it=total_it,
+        params_changed=changed, ring_row=int(run["replay"].data.shape[1]),
+        train_ms=dev_ms, env_steps_per_s=B * steps / (dev_ms / 1e3),
+        updates_per_s=steps / (dev_ms / 1e3),
+        ms_per_superstep=dev_ms / steps, host_s=host_s,
         losses_first=first, losses_last=last,
         fill=run["replay"].filled, episodes_logged=len(run["episodes"]),
         mismatches=probe["bad"][:5])
     if probe["bad"]:
-        raise AssertionError(f"train path: {probe['bad'][:5]}")
-    if total_it != [TRAIN_STEPS] * cfg.n_agents or not all(a and c for a, c in changed):
-        raise AssertionError(f"train path did not update: {total_it} {changed}")
-    return launches, shapes
+        raise AssertionError(f"{name} path: {probe['bad'][:5]}")
+    if total_it != [steps] * cfg.n_agents or not all(a and c for a, c in changed):
+        raise AssertionError(f"{name} path did not update: {total_it} {changed}")
+    return launches, shapes, run
 
 
-def phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err):
+def tick_timing(cfg, dev, tick):
+    """K1 at B = 4096 on a compare phase's last state (``tick``; ~10% of
+    envs reset) for ``cfg.framework``'s task: device time per launch, the
+    plain twin's, and the bound (state read and written once, actions,
+    draws and outputs; the flops of the plain twin's step per env plus its
+    fresh episode per reset env, counted on the CPU)."""
     from gym_rotor_tpu_torch.envs import batch as batch_lib
     from gym_rotor_tpu_torch.envs import draws as D
-    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
     from gym_rotor_tpu_torch.kernels import env_tick as KT
-    records = []
-
-    # K1 at B = 4096 on the compare-phase state (~10% of envs reset)
     st, a, dr = tick["state"], tick["actions"], tick["draws"]
+    task = KT.task_of(cfg)
     in_bufs, out_bufs = KT.pack_state(st), KT.empty_bufs(B, dev)
     k_ms, k_wall = device_ms(
         lambda: KT.env_tick_bufs(cfg, in_bufs, a, dr, "train", out_bufs), 50)
     p_ms, p_wall = device_ms(lambda: KT.env_tick_plain(cfg, st, a, dr), 5, 3)
     nbytes = sum(t.numel() * t.element_size() for t in in_bufs) * 2
     nbytes += a.numel() * 4 + dr.numel() * 4
-    nbytes += B * (sum(w for _, w in KT.OUT_FLOAT) * 4 + sum(w for _, w in KT.OUT_BOOL))
+    nbytes += B * (KT.out_width(task, "F") * 4 + KT.out_width(task, "B"))
     cpu_cfg = cfg.replace(num_envs=1)
     st1, _ = batch_lib.batched_reset_plain(cpu_cfg, torch.rand(1, D.N_DRAWS))
-    a1, d1 = torch.zeros(1, 5), torch.rand(1, D.N_DRAWS)
+    a1, d1 = torch.zeros(1, a.shape[1]), torch.rand(1, D.N_DRAWS)
     dense = count_flops(batch_lib.batched_step_plain, cpu_cfg, st1, a1, d1)
     fresh = count_flops(batch_lib._fresh, cpu_cfg, d1, "train")
     flops = B * (dense - fresh) + tick["n_reset"] * fresh
     bms, by = bound_ms(nbytes, flops)
+    log("kernels", kernel="env_tick", task=task, batch=B,
+        resets_in_timed_tick=tick["n_reset"], ms=k_ms, wall_ms_per_call=k_wall,
+        plain_ms=p_ms, plain_wall_ms=p_wall, bytes=nbytes,
+        flops_step_per_env=dense - fresh, flops_fresh_per_env=fresh,
+        flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
+    return k_ms, p_ms, bms, by
+
+
+def actor_timing(actor, o, agent):
+    """K3-actor (deterministic head) at ``o``'s rows: device time per
+    launch, the plain twin's, and the bound."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    with torch.no_grad():
+        k_ms, k_wall = device_ms(lambda: KA.emlp_actor(actor, o), 100)
+        p_ms, p_wall = device_ms(lambda: KA.emlp_actor_plain(actor, o), 10, 3)
+    folded = KA.fold_actor(actor)
+    nin, ng, nh, nact = folded["dims"]
+    nb = int(o.shape[0])
+    # per row: each block's linear layer (multiply-add + bias), three
+    # flops per nonzero of its quadratic form, 0.1 * q + lin, the gate
+    # (negate, exp, add, divide); then the head and its tanh
+    per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
+                  for ni, nnz in zip((nin, nh), folded["nnz"]))
+    per_row += 2 * nh * nact + 2 * nact
+    flops = nb * per_row
+    nbytes = (o.numel() + nb * nact + folded["params"].numel()
+              + folded["ints"].numel()) * 4
+    bms, by = bound_ms(nbytes, flops)
+    log("kernels", kernel="emlp_actor", agent=agent, dims=[nin, ng, nh, nact],
+        bilinear_nonzeros=list(folded["nnz"]), batch=nb, ms=k_ms,
+        wall_ms_per_call=k_wall, plain_ms=p_ms, plain_wall_ms=p_wall,
+        bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
+        library_ms=None)
+    return k_ms, p_ms, bms, by
+
+
+def phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err):
+    records = []
+    # K1 at B = 4096 on the compare-phase state (~10% of envs reset)
+    k_ms, p_ms, bms, by = tick_timing(cfg, dev, tick)
     records.append(dict(
         name="env_tick", route="cuda",
         source="gym_rotor_tpu_torch/kernels/csrc/env_tick.cu",
         replaces="gym_rotor_tpu/envs/batch.py:75", launches=launches["env_tick"],
         max_abs_err=tick["max_abs_err"], ms=k_ms, plain_ms=p_ms, bound_ms=bms,
         bound_by=by, library_ms=None))
-    log("kernels", kernel="env_tick", batch=B, resets_in_timed_tick=tick["n_reset"],
-        ms=k_ms, wall_ms_per_call=k_wall, plain_ms=p_ms, plain_wall_ms=p_wall,
-        bytes=nbytes, flops_step_per_env=dense - fresh, flops_fresh_per_env=fresh,
-        flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
 
     # K3 at B = 4096, both agents (each launched once per tick)
-    per = []
-    for i, (actor, o) in enumerate(zip(actors, obs)):
-        with torch.no_grad():
-            k_ms, k_wall = device_ms(lambda: KA.emlp_actor(actor, o), 100)
-            p_ms, p_wall = device_ms(lambda: KA.emlp_actor_plain(actor, o), 10, 3)
-        folded = KA.fold_actor(actor)
-        nin, ng, nh, nact = folded["dims"]
-        # per row: each block's linear layer (multiply-add + bias), three
-        # flops per nonzero of its quadratic form, 0.1 * q + lin, the gate
-        # (negate, exp, add, divide); then the head and its tanh
-        per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
-                      for ni, nnz in zip((nin, nh), folded["nnz"]))
-        per_row += 2 * nh * nact + 2 * nact
-        flops = B * per_row
-        nbytes = (o.numel() + B * nact + folded["params"].numel()
-                  + folded["ints"].numel()) * 4
-        bms, by = bound_ms(nbytes, flops)
-        per.append((k_ms, p_ms, bms, by))
-        log("kernels", kernel="emlp_actor", agent=i, dims=[nin, ng, nh, nact],
-            bilinear_nonzeros=list(folded["nnz"]), batch=B, ms=k_ms,
-            wall_ms_per_call=k_wall, plain_ms=p_ms, plain_wall_ms=p_wall,
-            bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
-            library_ms=None)
+    per = [actor_timing(actor, o, i)
+           for i, (actor, o) in enumerate(zip(actors, obs))]
     # one record per kernel: the two instances are launched equally often,
     # so per-launch times are their mean
     records.append(dict(
@@ -1150,13 +1294,68 @@ def _record(name, source, replaces, launches, err, inst):
                 library_ms=lib)
 
 
+def block_instances(dev, shapes, gen, path="td3"):
+    """K3 and K4 at every (block, rows) instance of a TD3 path's run
+    (``shapes``: K3's and K4's launches per instance): per instance the
+    launches, device time, plain time, bound and what bounds it."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
+    fwd, bwd = [], []
+    for key, count in sorted(shapes[0].items()):
+        (nin, ng, nh), nb = key
+        spec = specs[(nin, ng, nh)]
+        x = torch.randn(nb, nin, generator=gen, device=dev)
+        W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
+        b = 0.1 * torch.randn(ng, generator=gen, device=dev)
+        v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
+        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v), 50)
+        p_ms, _ = device_ms(lambda: KB.emlp_block_plain(spec, x, W, b, v), 10, 3)
+        flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
+        nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
+                      + 2 * ng * nb + nh + ng + 1 + spec.nnz)
+        bms, by = bound_ms(nbytes, flops)
+        fwd.append((count, k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="emlp_block", path=path, dims=[nin, ng, nh],
+            batch=nb, nnz=spec.nnz, launches=count, ms=k_ms, plain_ms=p_ms,
+            flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
+            library_ms=None)
+    for key, count in sorted(shapes[1].items()):
+        (nin, ng, nh), nb, need = key
+        spec = specs[(nin, ng, nh)]
+        x = torch.randn(nb, nin, generator=gen, device=dev)
+        W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
+        b = 0.1 * torch.randn(ng, generator=gen, device=dev)
+        v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
+        _, lin, pre = KB.emlp_block(spec, x, W, b, v)
+        g_h = torch.randn(nb, nh, generator=gen, device=dev)
+        k_ms, _ = device_ms(lambda: KB.emlp_block_backward(
+            spec, g_h, x, W, v, lin, pre, need), 50)
+        p_ms, _ = device_ms(lambda: KB.emlp_block_backward_plain(
+            spec, g_h, x, W, v, lin, pre, need), 10, 3)
+        n_par = ng * nin + ng + spec.nnz
+        # gate 8 nh, 6 per nonzero for g_lin, 2 ng nin for g_x per row; the
+        # parameter sums add 2 ng nin + ng + 4 nnz per row
+        flops = nb * (8 * nh + 6 * spec.nnz + 2 * ng * nin)
+        nbytes = 4 * (nb * nh + 2 * nb * nin + 2 * ng * nb + ng * nin
+                      + nh + 3 * spec.nnz)
+        if need:
+            flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
+            nbytes += 4 * n_par
+        bms, by = bound_ms(nbytes, flops)
+        bwd.append((count, k_ms, p_ms, bms, by, None))
+        log("kernels", kernel="emlp_block_backward", path=path,
+            dims=[nin, ng, nh], batch=nb, param_grads=need, nnz=spec.nnz,
+            launches=count, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes,
+            bound_ms=bms, bound_by=by, library_ms=None)
+    return fwd, bwd
+
+
 def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
                         errs):
     """Device time per launch, plain time, bound and yardstick of the
     training slice's kernels at the train path's shapes."""
     import itertools
     from gym_rotor_tpu_torch.algos.common import FlatAdamW, OptState
-    from gym_rotor_tpu_torch.kernels import emlp_block as KB
     from gym_rotor_tpu_torch.kernels import flat_adamw as KF
     from gym_rotor_tpu_torch.kernels import replay as KR
     from gym_rotor_tpu_torch.kernels import spectral as KS
@@ -1202,53 +1401,7 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
                            [(1, k_ms, p_ms, bms, by, l_ms)]))
 
     # K3 / K4 at every (block, batch) instance the train path launched
-    specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
-    fwd, bwd = [], []
-    for key, count in sorted(shapes[0].items()):
-        (nin, ng, nh), nb = key
-        spec = specs[(nin, ng, nh)]
-        x = torch.randn(nb, nin, generator=gen, device=dev)
-        W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
-        b = 0.1 * torch.randn(ng, generator=gen, device=dev)
-        v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
-        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v), 50)
-        p_ms, _ = device_ms(lambda: KB.emlp_block_plain(spec, x, W, b, v), 10, 3)
-        flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
-        nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
-                      + 2 * ng * nb + nh + ng + 1 + spec.nnz)
-        bms, by = bound_ms(nbytes, flops)
-        fwd.append((count, k_ms, p_ms, bms, by, None))
-        log("kernels", kernel="emlp_block", dims=[nin, ng, nh], batch=nb,
-            nnz=spec.nnz, launches=count, ms=k_ms, plain_ms=p_ms, flops=flops,
-            bytes=nbytes, bound_ms=bms, bound_by=by, library_ms=None)
-    for key, count in sorted(shapes[1].items()):
-        (nin, ng, nh), nb, need = key
-        spec = specs[(nin, ng, nh)]
-        x = torch.randn(nb, nin, generator=gen, device=dev)
-        W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
-        b = 0.1 * torch.randn(ng, generator=gen, device=dev)
-        v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
-        _, lin, pre = KB.emlp_block(spec, x, W, b, v)
-        g_h = torch.randn(nb, nh, generator=gen, device=dev)
-        k_ms, _ = device_ms(lambda: KB.emlp_block_backward(
-            spec, g_h, x, W, v, lin, pre, need), 50)
-        p_ms, _ = device_ms(lambda: KB.emlp_block_backward_plain(
-            spec, g_h, x, W, v, lin, pre, need), 10, 3)
-        n_par = ng * nin + ng + spec.nnz
-        # gate 8 nh, 6 per nonzero for g_lin, 2 ng nin for g_x per row; the
-        # parameter sums add 2 ng nin + ng + 4 nnz per row
-        flops = nb * (8 * nh + 6 * spec.nnz + 2 * ng * nin)
-        nbytes = 4 * (nb * nh + 2 * nb * nin + 2 * ng * nb + ng * nin
-                      + nh + 3 * spec.nnz)
-        if need:
-            flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
-            nbytes += 4 * n_par
-        bms, by = bound_ms(nbytes, flops)
-        bwd.append((count, k_ms, p_ms, bms, by, None))
-        log("kernels", kernel="emlp_block_backward", dims=[nin, ng, nh],
-            batch=nb, param_grads=need, nnz=spec.nnz, launches=count, ms=k_ms,
-            plain_ms=p_ms, flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
-            library_ms=None)
+    fwd, bwd = block_instances(dev, shapes, gen)
     records.append(_record("emlp_block", "emlp_block.cu",
                            "gym_rotor_tpu/models/emlp/nn.py:431",
                            launches["emlp_block"], errs["emlp_block"], fwd))
@@ -2057,6 +2210,177 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
     return records
 
 
+# ---------------------------------------------------------------------------
+# MONO and the MLP networks under TD3
+# ---------------------------------------------------------------------------
+# the three configurations of the reference's four-way comparison beside
+# the flagship Mod-EMLP (README: Mod-EMLP > Mono-EMLP > Mod-MLP > Mono-MLP),
+# at the flagship's full width, and the train supersteps run of each
+MONO_STEPS = 100
+TD3_CONFIGS = (("mono_emlp", dict(framework="MONO")),
+               ("mono_mlp", dict(framework="MONO", use_equiv=False)),
+               ("mod_mlp", dict(use_equiv=False)))
+MONO_TICKS = 10      # K1-coupled compare ticks, each with ~10% at the cap
+
+
+def _mlp_flops(net_params, rows):
+    """Forward flops of a Dense chain over ``rows`` rows: a multiply-add
+    per weight, a bias add and an activation per output."""
+    return 2 * rows * sum(t.numel() for t in net_params)
+
+
+def phase_mlp_nets(dev, runs):
+    """The MLP networks (plain torch: ``F.linear`` on cuBLAS, not a kernel
+    of the port) at the train paths' shapes, for every agent of the
+    Mono-MLP and Mod-MLP runs: the acting actor at 4096 rows, and the
+    network work of one gated TD3 update (target actor at 256 rows, target
+    and current twin critic at 256, the critic's backward, the actor at 768
+    and q1 at 256 with the actor loss's backward).  Device time per call
+    (the acting actor by CUDA events; the update, whose autograd backward
+    keeps the host from running ahead of the card, as the profiler's
+    kernel-time sum); the bound from the weights and activations read and
+    written once and the flops (3x the forward's for a forward with its
+    backward)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    for name, run in runs.items():
+        cfg = run["cfg"]
+        for i, (agent, st) in enumerate(zip(run["agents"], run["states"])):
+            nb = cfg.batch_size
+            o4k = torch.randn(B, agent.obs_dim, generator=gen, device=dev)
+            o = o4k[:nb]
+            o3 = o4k[:3 * nb]
+            a = torch.rand(nb, agent.action_dim, generator=gen, device=dev)
+            actor = agent.bound_actor(st)
+            with torch.no_grad():
+                k_ms, wall = device_ms(lambda: actor(o4k), 100)
+            ap = list(actor.parameters())
+            cp = list(agent.critic_net.parameters())
+            flops = _mlp_flops(ap, B)
+            nbytes = 4 * (sum(t.numel() for t in ap) + o4k.numel()
+                          + B * agent.action_dim)
+            bms, by = bound_ms(nbytes, flops)
+            log("mlp_nets", config=name, agent=i, what="acting actor",
+                rows=B, ms=k_ms, wall_ms_per_call=wall, flops=flops,
+                bytes=nbytes, bound_ms=bms, bound_by=by,
+                library="torch.nn.functional.linear x3")
+
+            av, cv = (agent.actor_layout.views(st.actor_target),
+                      agent.critic_layout.views(st.critic_target))
+
+            def update_nets():
+                with torch.no_grad():
+                    a_next = agent.actor_apply(av, o)
+                    agent.critic_apply(cv, o, a_next)
+                leaf = st.critic.detach().requires_grad_(True)
+                q1, q2 = agent.critic_apply(agent.critic_layout.views(leaf),
+                                            o, a)
+                torch.autograd.grad(q1.sum() + q2.sum(), leaf)
+                leaf = st.actor.detach().requires_grad_(True)
+                a3 = agent.actor_apply(agent.actor_layout.views(leaf), o3)
+                q = agent.critic_q1(agent.critic_layout.views(st.critic),
+                                    o, a3[:nb])
+                torch.autograd.grad(q.sum(), leaf)
+            k_ms, wall = kernel_ms(update_nets, 20)
+            # target actor; target and current twin; the current twin's
+            # backward (2x its forward); the actor at 3 nb and q1 (half the
+            # twin) at nb, forward and backward
+            flops = (_mlp_flops(ap, nb) + 4 * _mlp_flops(cp, nb)
+                     + 3 * _mlp_flops(ap, 3 * nb)
+                     + 3 * _mlp_flops(cp, nb) // 2)
+            nbytes = 4 * (3 * sum(t.numel() for t in ap + cp)
+                          + 6 * nb * agent.obs_dim)
+            bms, by = bound_ms(nbytes, flops)
+            log("mlp_nets", config=name, agent=i,
+                what="networks of one gated update (fwd + bwd)",
+                timing="torch.profiler kernel-time sum", ms=k_ms,
+                wall_ms_per_call=wall, flops=flops, bytes=nbytes,
+                bound_ms=bms, bound_by=by,
+                library="torch.nn.functional.linear + autograd")
+
+
+def phase_mono_kernels(dev, mono_cfg, tick, runs, errs):
+    """Records of the slice's new kernel instances: K1's coupled instance,
+    the MONO K3-actor instance and K3/K4 on the Mono-EMLP path (its first
+    blocks the new instances), each with its launches on the Mono paths."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    records = []
+    k_ms, p_ms, bms, by = tick_timing(mono_cfg, dev, tick)
+    launches = sum(runs[n]["launches"]["env_tick"]
+                   for n in ("mono_emlp", "mono_mlp"))
+    records.append(dict(
+        name="env_tick_coupled", route="cuda",
+        source="gym_rotor_tpu_torch/kernels/csrc/env_tick.cu",
+        replaces="gym_rotor_tpu/envs/batch.py:75", launches=launches,
+        max_abs_err=tick["max_abs_err"], ms=k_ms, plain_ms=p_ms, bound_ms=bms,
+        bound_by=by, library_ms=None))
+
+    run = runs["mono_emlp"]
+    agent, st = run["agents"][0], run["states"][0]
+    obs = run["obs"][0].contiguous()        # the run's last obs, 4096 rows
+    k_ms, p_ms, bms, by = actor_timing(agent.bound_actor(st), obs, 0)
+    records.append(dict(
+        name="emlp_actor_mono", route="cuda",
+        source="gym_rotor_tpu_torch/kernels/csrc/emlp_actor.cu",
+        replaces="gym_rotor_tpu/models/emlp/nn.py:431",
+        launches=run["launches"]["emlp_actor"], max_abs_err=errs["actor"],
+        ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by, library_ms=None))
+
+    fwd, bwd = block_instances(dev, run["shapes"], gen, path="mono_emlp")
+    records.append(_record("emlp_block_mono", "emlp_block.cu",
+                           "gym_rotor_tpu/models/emlp/nn.py:431",
+                           run["launches"]["emlp_block"], errs["blocks"][0],
+                           fwd))
+    records.append(_record("emlp_block_backward_mono", "emlp_block.cu",
+                           "gym_rotor_tpu/models/emlp/nn.py:39",
+                           run["launches"]["emlp_block_backward"],
+                           errs["blocks"][1], bwd))
+    return records
+
+
+def phase_mono(dev):
+    """The MONO framework and the MLP networks under TD3: K1-coupled vs its
+    plain twin over MONO_TICKS ticks at B = 4096 (train) and the eval
+    path's 10 envs (eval); the MONO K3-actor instance and the MONO K3/K4
+    instances vs their twins at the train path's rows; K6 and K7 on the
+    MONO networks; then 1 warm + MONO_STEPS train supersteps of each of
+    Mono-EMLP, Mono-MLP and Mod-MLP (exact launch counts per superstep,
+    K3/K4 per shape and rows, finite losses, moved parameters), and
+    ``evaluate`` with the trained Mono-EMLP and Mono-MLP actors."""
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.kernels import env_tick as KT
+    from gym_rotor_tpu_torch.utils.config import Config
+    mono = Config(num_envs=B, framework="MONO")
+    tick = phase_env_tick(mono, dev, B, "train", MONO_TICKS)
+    small = phase_env_tick(mono.replace(num_envs=mono.num_eval), dev,
+                           mono.num_eval, "eval", MONO_TICKS)
+    tick["max_abs_err"] = max(tick["max_abs_err"], small["max_abs_err"])
+    _, out = KT.env_tick(mono, tick["state"], tick["actions"], tick["draws"])
+    obs = tuple(o.contiguous() for o in out.obs)
+    errs = {}
+    _, errs["actor"] = phase_emlp(mono, dev, obs)
+    gen = torch.Generator().manual_seed(SEED)
+    agents = [TD3Agent(mono, 0, dev)]
+    states = [agents[0].init(gen)]
+    errs["blocks"] = phase_emlp_block(mono, dev, agents, states, obs,
+                                      n_shapes=4)
+    phase_flat_adamw(mono, dev, agents)
+    phase_spectral(mono, dev, agents, states)
+    runs = {}
+    for name, kw in TD3_CONFIGS:
+        cfg = Config(num_envs=B, start_timesteps=B, **kw)
+        launches, shapes, run = phase_train(dev, cfg, MONO_STEPS,
+                                            name=f"train_{name}")
+        run.update(cfg=cfg, launches=launches, shapes=shapes)
+        runs[name] = run
+    for name in ("mono_emlp", "mono_mlp"):
+        run = runs[name]
+        actors = [a.bound_actor(st)
+                  for a, st in zip(run["agents"], run["states"])]
+        phase_eval(run["cfg"], dev, actors, name=f"eval_{name}")
+    phase_mlp_nets(dev, {n: runs[n] for n in ("mono_mlp", "mod_mlp")})
+    return phase_mono_kernels(dev, mono, tick, runs, errs)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2104,7 +2428,7 @@ def main():
     sac_agents, _, errs["sac_actor"] = phase_sac_actor(cfg, dev, obs)
     errs["sac_sample"] = phase_sac_sample(dev)
     k5_td3, k5_sac = K5Calls(), K5Calls()
-    launches, shapes = phase_train(dev, k5_td3)
+    launches, shapes, _ = phase_train(dev, k5=k5_td3)
     sac_launches = phase_train_sac(dev, SAC_STEPS, False, k5_sac)
     phase_train_sac(dev, 3, True)
     ppo_agents, ppo_states, errs["ppo_actor"] = phase_ppo_actor(cfg, dev, obs)
@@ -2119,6 +2443,7 @@ def main():
     records += phase_sac_kernels(cfg, dev, sac_agents, obs, sac_launches, errs)
     records += phase_ppo_kernels(dev, ppo_agents, obs, ppo_runs, errs)
     phase_k5(dev, k5_td3, k5_sac)
+    records += phase_mono(dev)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

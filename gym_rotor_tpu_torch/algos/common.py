@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.emlp_block import emlp_apply
 from ..kernels.flat_adamw import StepScalars, flat_adamw
+from ..models import mlp
 from ..models.emlp.nn import spectral_weights
 from ..utils.config import Config
 from ..utils.device import resolve_device
@@ -162,7 +163,13 @@ class FlatAgent:
     (actor, critic)``, made on the CPU, moved to the device and bound to a
     state's flat vectors), their flat layouts, optimizers and spectral
     widths, and the twin critic on parameter views (PPO's ``PPOAgent``
-    overrides ``critic_apply`` with its single V network)."""
+    overrides ``critic_apply`` with its single V network).
+
+    ``equivariant`` (``cfg.use_equiv``): EMLP networks, whose blocks run
+    through K3/K4 and whose weights carry the spectral-norm penalty; or
+    plain MLPs (TD3 only), which carry no penalty (JAX's ``ModelDefs``
+    leaves ``*_spectral`` None for them, ``td3.py:256``, ``:311``), so their
+    spectral widths are empty and no start vectors are drawn."""
 
     def __init__(self, cfg: Config, agent_id: int, device, dtype, models,
                  algo: str):
@@ -181,8 +188,11 @@ class FlatAgent:
         self.critic_layout = flat_layout(self.critic_net)
         self.actor_tx = make_optimizer(cfg, cfg.lr_a[agent_id])
         self.critic_tx = make_optimizer(cfg, cfg.lr_c[agent_id])
-        self.critic_widths = spectral_widths(self.critic_layout)
-        self.actor_widths = spectral_widths(self.actor_layout)
+        self.equivariant = bool(cfg.use_equiv)
+        self.critic_widths = (spectral_widths(self.critic_layout)
+                              if self.equivariant else [])
+        self.actor_widths = (spectral_widths(self.actor_layout)
+                             if self.equivariant else [])
         self._bound: Optional[torch.Tensor] = None
 
     def fresh_flat(self, generator: Optional[torch.Generator] = None):
@@ -213,6 +223,10 @@ class FlatAgent:
         return self.actor_net
 
     def critic_apply(self, views: Dict[str, torch.Tensor], obs, act):
+        """Both Qs on the parameter ``views``: the EMLP twin's blocks
+        through K3/K4, or the MLP twin as torch ops."""
+        if not self.equivariant:
+            return mlp.critic_twin(views, obs, act)
         x = torch.cat([obs, act], dim=-1)
         return (emlp_apply(self.critic_net.network1, views, "network1.", x),
                 emlp_apply(self.critic_net.network2, views, "network2.", x))

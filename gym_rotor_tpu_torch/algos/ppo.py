@@ -45,7 +45,7 @@ from ..envs import draws as D
 from ..kernels import gae as K12
 from ..kernels.emlp_block import emlp_apply
 from ..kernels.ppo_loss import ppo_surrogate
-from ..models.emlp.zoo import ppo_models
+from ..models.zoo import ppo_models
 from ..utils.config import Config
 from . import regularizers
 from . import replay as replay_lib

@@ -31,7 +31,7 @@ import torch
 from ..envs import draws as D
 from ..kernels.emlp_block import emlp_trunk, equiv_linear
 from ..kernels.sac_sample import squashed_gaussian
-from ..models.emlp.zoo import sac_models
+from ..models.zoo import sac_models
 from ..models.mlp import LOG_SIG_MAX, LOG_SIG_MIN
 from ..utils.config import Config
 from . import regularizers

@@ -6,15 +6,20 @@ AdamW chain with global-norm clipping and cosine warm restarts, CAPS and
 the spectral-norm penalty: ``_train_one`` line for line, for the DTDE
 branch (a CTDE configuration raises ``NotImplementedError``).
 
-On the card the update runs through the port's kernels: every EMLP block of
-every forward and backward is K3/K4 (``kernels/emlp_block.py``, under
-autograd), the power iterations are K7, each network's optimizer step (and
-its Polyak) is one K6 call; the fold (K5), heads, tanh, clips and losses
-are torch ops.  With ``equiv_fold=False`` (the default) JAX projects each
-layer's raw kernel on every forward; here each loss projects once and fans
-the projected weights out to its forwards, the same function up to the
-summation order of the gradient (float64: within 1e-9 relative of JAX,
-``tests/test_torch_td3.py``).
+The networks come from ``models/zoo.py::td3_models``: EMLP (``use_equiv``)
+or plain MLPs.  On the card the update runs through the port's kernels:
+every EMLP block of every forward and backward is K3/K4
+(``kernels/emlp_block.py``, under autograd), the power iterations are K7,
+each network's optimizer step (and its Polyak) is one K6 call; the fold
+(K5), heads, tanh, clips and losses are torch ops.  MLP networks are
+``F.linear`` chains (cuBLAS, as JAX leaves them to XLA's dots) and carry no
+spectral penalty (``td3.py:256``, ``:311``); their actor loss applies ``q1``
+alone through ``critic_twin_split`` (``td3.py:275-279``), as the EMLP actor
+loss applies ``network1``.  With ``equiv_fold=False`` (the default) JAX
+projects each EMLP layer's raw kernel on every forward; here each loss
+projects once and fans the projected weights out to its forwards, the same
+function up to the summation order of the gradient (float64: within 1e-9
+relative of JAX, ``tests/test_torch_td3.py``, ``tests/test_torch_mlp.py``).
 
 Divergences, deliberate: the state is updated in place (parameters, targets
 and optimizer moments are flat tensors K6 writes), and ``total_it`` and the
@@ -30,8 +35,8 @@ import torch
 
 from ..envs.draws import AgentDraws
 from ..kernels.emlp_block import emlp_apply
-from ..models.emlp.zoo import (EMLPActorDet, EMLPCriticTwin, actor_reps,
-                               critic_reps)
+from ..models import mlp
+from ..models.zoo import td3_models
 from ..utils.config import Config
 from . import regularizers
 from .common import FlatAgent, OptState, mse, spectral_penalty
@@ -50,17 +55,15 @@ class TD3State:
 
 
 class TD3Agent(FlatAgent):
-    """An ``EMLPActorDet`` bound to the state's actor vector for acting and
-    an ``EMLPCriticTwin`` for the critic's structure."""
+    """The actor (``EMLPActorDet`` or ``ActorTD3``) bound to the state's
+    actor vector for acting, and the twin critic (``EMLPCriticTwin`` or
+    ``CriticTwin``) for the critic's structure."""
 
     def __init__(self, cfg: Config, agent_id: int, device=None,
                  dtype=torch.float32):
         def models(generator):
-            kw = dict(device="cpu", dtype=dtype, generator=generator)
-            return (EMLPActorDet(*actor_reps(cfg, cfg.framework, agent_id),
-                                 **kw),
-                    EMLPCriticTwin(*critic_reps(cfg, cfg.framework, agent_id,
-                                                cfg.module_training), **kw))
+            return td3_models(cfg, agent_id, device="cpu", dtype=dtype,
+                              generator=generator)
         super().__init__(cfg, agent_id, device, dtype, models, "TD3")
 
     # -- state
@@ -87,8 +90,9 @@ class TD3Agent(FlatAgent):
 
     # -- acting
     def act(self, state: TD3State, obs, out: Optional[torch.Tensor] = None):
-        """Deterministic action; on the card one K3 launch (the acting
-        kernel, folded once per parameter version)."""
+        """Deterministic action; for EMLP on the card one K3 launch (the
+        acting kernel, folded once per parameter version), for an MLP three
+        ``F.linear`` on the bound parameters."""
         actor = self.bound_actor(state)
         with torch.no_grad():
             return actor(obs, out)
@@ -103,10 +107,14 @@ class TD3Agent(FlatAgent):
 
     # -- the training path's networks, on views of a flat vector
     def actor_apply(self, views: Dict[str, torch.Tensor], obs):
+        if not self.equivariant:
+            return mlp.actor_td3(views, obs)
         return torch.tanh(emlp_apply(self.actor_net.network, views,
                                      "network.", obs))
 
     def critic_q1(self, views: Dict[str, torch.Tensor], obs, act):
+        if not self.equivariant:
+            return mlp.q_net(mlp.critic_twin_split(views)[0], "", obs, act)
         x = torch.cat([obs, act], dim=-1)
         return emlp_apply(self.critic_net.network1, views, "network1.", x)
 
@@ -147,7 +155,8 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     cv = agent.critic_layout.views(leaf)
     q1, q2 = agent.critic_apply(cv, obs, act)
     closs = mse(q1, target_q) + mse(q2, target_q)
-    closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
+    if agent.equivariant:
+        closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
     (cgrad,) = torch.autograd.grad(closs, leaf)
     # the critic target's Polyak runs in the delayed branch on the updated
     # critic (td3.py:325): the same values when done in this K6 call
@@ -167,7 +176,8 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         a3 = torch.clamp(agent.actor_apply(av, obs3), -m, m)
         a_cur, a_nxt, a_prt = torch.split(a3, obs.shape[0], dim=0)
         aloss = -agent.critic_q1(critic, obs, a_cur).mean()
-        aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
+        if agent.equivariant:
+            aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
         aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, a_cur,
                                                 a_nxt, a_prt)
         (agrad,) = torch.autograd.grad(aloss, leaf)

@@ -49,7 +49,24 @@ def _emlp_shapes(block: str, head: str, rep_in, hidden, rep_out,
     return shapes
 
 
+def _dense_shapes(names, widths):
+    """flax ``Dense`` layers ``names[k]`` from ``widths[k]`` to
+    ``widths[k + 1]``: kernel ``(nin, nout)``, bias ``(nout,)``."""
+    shapes = OrderedDict()
+    for name, nin, nout in zip(names, widths, widths[1:]):
+        shapes[f"{name}.kernel"] = (nin, nout)
+        shapes[f"{name}.bias"] = (nout,)
+    return shapes
+
+
 def _actor_shapes(cfg: Config, agent_id: int):
+    """TD3's actor: ``EMLPActorDet``, or ``ActorTD3`` (``Dense_0..2``)
+    without ``use_equiv``."""
+    if not cfg.use_equiv:
+        h = cfg.actor_hidden_dim[agent_id]
+        return _dense_shapes(("Dense_0", "Dense_1", "Dense_2"),
+                             (cfg.obs_dim_n[agent_id], h, h,
+                              cfg.action_dim_n[agent_id]))
     return _emlp_shapes("network.block{}", "network.head",
                         *actor_reps(cfg, cfg.framework, agent_id))
 
@@ -80,6 +97,15 @@ def _v_critic_shapes(cfg: Config, agent_id: int):
 
 
 def _critic_shapes(cfg: Config, agent_id: int):
+    """The twin Q critic: ``EMLPCriticTwin``, or ``CriticTwin``
+    (``q1_fc1..q2_fc3``) without ``use_equiv``."""
+    if not cfg.use_equiv:
+        h = cfg.critic_hidden_dim
+        widths = (cfg.obs_dim_n[agent_id] + cfg.action_dim_n[agent_id], h, h,
+                  1)
+        shapes = _dense_shapes(("q1_fc1", "q1_fc2", "q1_fc3"), widths)
+        shapes.update(_dense_shapes(("q2_fc1", "q2_fc2", "q2_fc3"), widths))
+        return shapes
     reps = critic_reps(cfg, cfg.framework, agent_id, cfg.module_training)
     shapes = _emlp_shapes("network1.block{}", "network1.head", *reps)
     shapes.update(_emlp_shapes("network2.block{}", "network2.head", *reps))
@@ -106,8 +132,9 @@ def _params_from_jax(tree: Mapping, shapes) -> "OrderedDict[str, torch.Tensor]":
 
 
 def actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
-    """Flax ``EMLPActorDet`` params (nested dicts of numpy arrays) -> the
-    port actor's ``state_dict`` (CPU tensors)."""
+    """Flax TD3 actor params (``EMLPActorDet``, or ``ActorTD3`` without
+    ``cfg.use_equiv``; nested dicts of numpy arrays) -> the port actor's
+    ``state_dict`` (CPU tensors)."""
     return _params_from_jax(tree, _actor_shapes(cfg, agent_id))
 
 
@@ -130,8 +157,10 @@ def v_critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
 
 
 def critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
-    """Flax ``EMLPCriticTwin`` params -> the port critic's ``state_dict``
-    (``network1.*``, ``network2.*``; CPU tensors)."""
+    """Flax twin critic params -> the port critic's ``state_dict``:
+    ``EMLPCriticTwin`` (``network1.*``, ``network2.*``), or ``CriticTwin``
+    (``q1_fc1.*`` .. ``q2_fc3.*``) without ``cfg.use_equiv``; CPU
+    tensors."""
     return _params_from_jax(tree, _critic_shapes(cfg, agent_id))
 
 
@@ -186,8 +215,8 @@ def _opt_state_from_jax(tree: Mapping, device, dtype) -> OptState:
 def td3_state_from_jax(tree: Mapping, agent, dtype: Optional[torch.dtype] = None):
     """A JAX ``TD3State`` as nested dicts of numpy arrays (actor, critic,
     both targets, both optax chain states, ``total_it``) -> the port's
-    ``TD3State`` for ``agent`` (an ``algos.td3.TD3Agent``) on its device,
-    bound to its networks."""
+    ``TD3State`` for ``agent`` (an ``algos.td3.TD3Agent``, EMLP or MLP) on
+    its device, bound to its networks."""
     dev = agent.device
     dtype = dtype or agent.dtype
     al, cl = agent.actor_layout, agent.critic_layout

@@ -31,9 +31,10 @@ class BatchedEnvState:
 
 
 class BatchedStepOut(NamedTuple):
-    obs: tuple              # (obs1 (B, 15), obs2 (B, 3)) float32
-    reward: torch.Tensor    # (B, 2)
-    done: torch.Tensor      # (B, 2) bool, done recorded for training
+    obs: tuple              # per agent, float32: MODUL (B, 15), (B, 3);
+    #                         MONO (B, 23)
+    reward: torch.Tensor    # (B, n_agents)
+    done: torch.Tensor      # (B, n_agents) bool, done recorded for training
     reset_happened: torch.Tensor  # (B,) bool
     info: dict
 
@@ -69,7 +70,8 @@ def batched_reset_plain(cfg: Config, draws: torch.Tensor,
 def batched_reset(cfg: Config, generator: Optional[torch.Generator] = None,
                   env_type: str = "train", dtype=torch.float32, device=None,
                   draws: Optional[torch.Tensor] = None):
-    """Reset ``cfg.num_envs`` envs and return ``(state, (obs1, obs2))``.
+    """Reset ``cfg.num_envs`` envs and return ``(state, obs)``, ``obs`` one
+    array per agent (``(obs1, obs2)`` for MODUL, ``(obs,)`` for MONO).
 
     Entry point: runs on the card unless ``device="cpu"``.  On CUDA the
     fresh chain is the env-tick kernel's reset entry; on the CPU it is the
@@ -98,9 +100,13 @@ def batched_step_plain(cfg: Config, bstate: BatchedEnvState, actions,
     crashed = out.done
     ex = out.info["ex"]
     solved_pos = (torch.abs(ex) <= 0.03).all(-1)
-    solved_yaw = torch.abs(out.info["eb1"]) <= 0.03
-    solved = torch.stack([solved_pos & (out.reward[..., 0] != -1.0),
-                          solved_yaw & (out.reward[..., 1] != -1.0)], dim=-1)
+    if cfg.framework == "MODUL":
+        solved_yaw = torch.abs(out.info["eb1"]) <= 0.03
+        solved = torch.stack([solved_pos & (out.reward[..., 0] != -1.0),
+                              solved_yaw & (out.reward[..., 1] != -1.0)],
+                             dim=-1)
+    else:
+        solved = (solved_pos & (out.reward[..., 0] != -1.0))[..., None]
     done_recorded = torch.where(at_cap[..., None], solved, crashed)
     episode_over = crashed.any(-1) | at_cap
 
@@ -119,7 +125,8 @@ def batched_step_plain(cfg: Config, bstate: BatchedEnvState, actions,
 def batched_step(cfg: Config, bstate: BatchedEnvState, actions: torch.Tensor,
                  draws: torch.Tensor, env_type: str = "train"):
     """One lockstep tick for all envs: get_desired -> step -> cap/solved
-    override -> auto-reset.  ``actions`` is ``(B, 5)``, ``draws``
+    override -> auto-reset.  ``actions`` is ``(B, 5)`` (MODUL) or ``(B, 4)``
+    (MONO), ``draws``
     ``(B, N_DRAWS)``.  Launches the K1 kernel on CUDA tensors."""
     from ..kernels import env_tick
     return env_tick.env_tick(cfg, bstate, actions, draws, env_type)
@@ -132,7 +139,7 @@ def _stack(items):
 def rollout(cfg: Config, bstate: BatchedEnvState, obs: tuple,
             policy_fn: Callable, num_steps: int,
             generator: Optional[torch.Generator], env_type: str = "train"):
-    """``num_steps`` lockstep ticks under ``policy_fn(obs) -> (B, 5)``
+    """``num_steps`` lockstep ticks under ``policy_fn(obs) -> (B, act)``
     (batch.py:200-227).  Returns the final state and obs and the stacked
     time-major ``Transition``s and ``BatchedStepOut``s.  On the card the
     state stays packed between ticks (``env_tick.TickLoop``)."""

@@ -1,10 +1,12 @@
-"""Functional quadrotor environment core, MODUL/decoupled task (port of
-``gym_rotor_tpu/envs/quad.py``).
+"""Functional quadrotor environment core, the MODUL (``decoupled``) and
+MONO (``coupled``) tasks (port of ``gym_rotor_tpu/envs/quad.py``).
 
-The ``coupled`` (MONO) and ``quad`` tasks and the ``exact_so3`` path are
-not ported yet and raise.  Observations are cast to float32 exactly as the
-JAX package does, and rewards/dones are computed from that float32 obs,
-also on the float64 parity path.
+The task follows ``cfg.framework``.  The ``quad`` task and the
+``exact_so3`` path are not ported yet and raise.  Observations are cast to
+float32 exactly as the JAX package does, and rewards/dones are computed from
+that float32 obs, also on the float64 parity path.  Observations are always
+a tuple, one array per agent: ``(obs1, obs2)`` for MODUL, ``(obs,)`` for
+MONO (the JAX ``batch._obs_tuple``).
 """
 from __future__ import annotations
 
@@ -34,16 +36,17 @@ DT = 1.0 / FREQ
 
 
 class StepOut(NamedTuple):
-    obs: Tuple[torch.Tensor, torch.Tensor]
-    reward: torch.Tensor     # (..., 2)
-    done: torch.Tensor       # (..., 2) bool
+    obs: Tuple[torch.Tensor, ...]   # per agent: MODUL (15, 3), MONO (23,)
+    reward: torch.Tensor     # (..., n_agents)
+    done: torch.Tensor       # (..., n_agents) bool
     info: dict
 
 
 def _check_task(cfg: Config):
-    if cfg.framework != "MODUL":
+    if cfg.framework not in ("MODUL", "MONO"):
         raise NotImplementedError(
-            "only the MODUL (decoupled) task is ported yet")
+            f"framework {cfg.framework!r}: only MODUL (decoupled) and MONO "
+            "(coupled) are ported")
     if cfg.exact_so3:
         raise NotImplementedError("exact_so3 is not ported yet")
 
@@ -51,6 +54,11 @@ def _check_task(cfg: Config):
 def _f_total(p: QuadParams, a0):
     return torch.clamp(4.0 * (p.scale_act * a0 + p.avrg_act),
                        4.0 * p.min_force, 4.0 * p.max_force)
+
+
+def action_coupled(p: QuadParams, a):
+    """MONO: a = (f_total, M1, M2, M3) (quad.py:91-93)."""
+    return _f_total(p, a[..., 0]), a[..., 1:4]
 
 
 def action_decoupled(p: QuadParams, a):
@@ -112,7 +120,14 @@ def norm_error_state(cfg: Config, x, v, R, W, goal: Goal,
 
 
 def build_obs(cfg: Config, ne: NormErr):
-    """MODUL observations (quad.py:167-177), cast to float32."""
+    """Per-agent observations (quad.py:167-184), cast to float32: MODUL
+    ``(obs1 (15), obs2 (3))``; MONO ``(obs (23),)`` with R flattened
+    column-major (``R_vec = [R00, R10, R20, R01, ...]``)."""
+    if cfg.framework == "MONO":
+        R_vec = ne.R.transpose(-1, -2).reshape(ne.R.shape[:-2] + (9,))
+        obs = torch.cat([ne.ex, ne.eIx, ne.ev, R_vec, ne.eb1[..., None],
+                         ne.eIb1[..., None], ne.eW], dim=-1)
+        return (obs.to(torch.float32),)
     b1 = ne.R[..., :, 0]
     b2 = ne.R[..., :, 1]
     b3 = ne.R[..., :, 2]
@@ -136,6 +151,28 @@ def _interp01(r, rmin: float, wide: bool):
     slope = (1.0 - 0.0) / (0.0 - rmin)
     val = slope * (r - rmin) + 0.0
     return torch.clamp(val, 0.0, 1.0)
+
+
+def reward_coupled(cfg: Config, obs):
+    """MONO 6-term reward (quad.py:206-216)."""
+    ex, eIx, ev = obs[..., 0:3], obs[..., 3:6], obs[..., 6:9]
+    eb1, eIb1, eW = obs[..., 18], obs[..., 19], obs[..., 20:23]
+    r = -cfg.Cx * _sqnorm(ex)
+    r = r + -cfg.CIx * _sqnorm(eIx)
+    r = r + -cfg.Cv * _sqnorm(ev)
+    r = r + -cfg.Cb1 * torch.abs(eb1)
+    aI = torch.abs(eIb1)
+    r = r + -cfg.CIb1 * (aI * aI)
+    r = r + -cfg.Cw12 * _sqnorm(eW)
+    return r[..., None]
+
+
+def done_coupled(obs):
+    """MONO termination (quad.py:247-255): the full ``eW = obs[20:23]``."""
+    ex, ev, eW = obs[..., 0:3], obs[..., 6:9], obs[..., 20:23]
+    d = ((torch.abs(ex) >= 1.0).any(-1) | (torch.abs(ev) >= 1.0).any(-1)
+         | (torch.abs(eW) >= 1.0).any(-1))
+    return d[..., None]
 
 
 def reward_decoupled(cfg: Config, obs1, obs2):
@@ -165,20 +202,25 @@ def done_decoupled(obs1, obs2):
 
 
 def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
-    """One control tick of the decoupled task (quad.py:287-386)."""
+    """One control tick of ``cfg.framework``'s task (quad.py:287-386):
+    ``action`` is ``(..., 5)`` (MODUL) or ``(..., 4)`` (MONO)."""
     _check_task(cfg)
     p = state.params
     dtype = state.x.dtype
     action = action.to(dtype)
     R_work = state.R
     W = state.W
-    f, tau, M3 = action_decoupled(p, action)
-    b1 = R_work[..., :, 0]
-    b2 = R_work[..., :, 1]
-    J3 = p.J[..., 2]
-    M1 = dot3(b1, tau) + J3 * W[..., 2] * W[..., 1]
-    M2 = dot3(b2, tau) - J3 * W[..., 2] * W[..., 0]
-    M = torch.stack([M1, M2, M3], dim=-1)
+    mono = cfg.framework == "MONO"
+    if mono:
+        f, M = action_coupled(p, action)
+    else:
+        f, tau, M3 = action_decoupled(p, action)
+        b1 = R_work[..., :, 0]
+        b2 = R_work[..., :, 1]
+        J3 = p.J[..., 2]
+        M1 = dot3(b1, tau) + J3 * W[..., 2] * W[..., 1]
+        M2 = dot3(b2, tau) - J3 * W[..., 2] * W[..., 0]
+        M = torch.stack([M1, M2, M3], dim=-1)
 
     dt = torch.tensor(DT, dtype=dtype, device=state.x.device)
     x_n, v_n, R_n, W_n = integrate(cfg.integrator, state.x, state.v, R_work,
@@ -188,22 +230,28 @@ def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
     ne = norm_error_state(cfg, x_n, v_n, R_n, W_n, state.goal, state.eIx,
                           state.eIx_integrand, state.eIb1,
                           state.eIb1_integrand)
-    obs1, obs2 = build_obs(cfg, ne)
-    reward = reward_decoupled(cfg, obs1, obs2)
-    done = done_decoupled(obs1, obs2)
+    obs = build_obs(cfg, ne)
     wide = dtype == torch.float64
-    reward = torch.stack([
-        _interp01(reward[..., 0], float(cfg.reward_min_1), wide),
-        _interp01(reward[..., 1], float(cfg.reward_min_2), wide)], dim=-1)
+    if mono:
+        (o,) = obs
+        reward = _interp01(reward_coupled(cfg, o), float(cfg.reward_min), wide)
+        done = done_coupled(o)
+        info = {"ex": o[..., 0:3] * X_LIM, "eb1": o[..., 18] * math.pi}
+    else:
+        obs1, obs2 = obs
+        reward = reward_decoupled(cfg, obs1, obs2)
+        done = done_decoupled(obs1, obs2)
+        reward = torch.stack([
+            _interp01(reward[..., 0], float(cfg.reward_min_1), wide),
+            _interp01(reward[..., 1], float(cfg.reward_min_2), wide)], dim=-1)
+        info = {"ex": obs1[..., 0:3] * X_LIM, "eb1": obs2[..., 0] * math.pi}
     reward = torch.where(done, -1.0, reward).to(dtype)
 
     new_state = dataclasses.replace(
         state, x=x_n, v=v_n, R=R_n, W=W_n, eIx=ne.eIx_err,
         eIx_integrand=ne.eIx_integrand, eIb1=ne.eIb1_err,
         eIb1_integrand=ne.eIb1_integrand, f_total=f, M=M, t=state.t + 1)
-    info = {"ex": obs1[..., 0:3] * X_LIM, "eb1": obs2[..., 0] * math.pi}
-    return new_state, StepOut(obs=(obs1, obs2), reward=reward, done=done,
-                              info=info)
+    return new_state, StepOut(obs=obs, reward=reward, done=done, info=info)
 
 
 def _init_ranges(cfg: Config, env_type: str, u_origin):

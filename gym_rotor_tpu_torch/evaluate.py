@@ -88,8 +88,13 @@ def evaluate(cfg: Config, actors: Sequence[torch.nn.Module],
         last_eb1 = torch.where(active, out.info["eb1"], last_eb1)
         active = active & ~out.info["crashed"].any(-1)
         obs = out.obs
+    # success: a full-length episode with |ex| <= 0.01, and for MODUL's
+    # agent 1 |eb1| <= 0.01 (train.py:133-140)
     succ_pos = active & (torch.abs(last_ex) <= 0.01).all(-1)
-    succ_yaw = active & (torch.abs(last_eb1) <= 0.01)
-    success = torch.stack([succ_pos, succ_yaw], dim=-1)
+    if cfg.framework == "MODUL":
+        succ_yaw = active & (torch.abs(last_eb1) <= 0.01)
+        success = torch.stack([succ_pos, succ_yaw], dim=-1)
+    else:
+        success = succ_pos[:, None]
     return (ep_rwd.mean(0), bench.mean(0), success, last_ex.mean(0),
             last_eb1.mean(0))

@@ -43,7 +43,8 @@
 // so a warp's accesses fall in distinct banks); the nonzeros themselves are
 // the same address across a warp, i.e. shared-memory broadcasts.  Output is
 // written with a row stride, straight into the joint action tensor.
-// Instantiated for the two flagship actors.
+// Instantiated for the two flagship MODUL actors (every head) and the MONO
+// actor (23 obs, 16 SO2eR3 channels, 4 actions; the deterministic head).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -211,6 +212,13 @@ int dispatch(const float* o, int B, const float* p, int n_params,
     return launch<3, 7, 4, 1, HEAD_KIND>(o, B, p, n_params, q, n_ints, nnz0,
                                          nnz1, nz, ld_noise, y, ld_out, lp,
                                          ld_logp, max_action, s);
+  if constexpr (HEAD_KIND == kTanh) {
+    if (nin == 23 && ng == 18 && nh == 16 && nact == 4)
+      return launch<23, 18, 16, 4, HEAD_KIND>(o, B, p, n_params, q, n_ints,
+                                              nnz0, nnz1, nz, ld_noise, y,
+                                              ld_out, lp, ld_logp,
+                                              max_action, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

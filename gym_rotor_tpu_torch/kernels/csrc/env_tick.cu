@@ -3,13 +3,17 @@
 // Replaces gym_rotor_tpu/envs/batch.py:batched_step (quad.step ->
 // dynamics.rk4_step -> so3.polar_fast -> norm_error_state/build_obs ->
 // reward/done -> cap/solved override -> dense fresh episode + select), which
-// XLA fused into one program on the TPU.  Plain twin:
-// gym_rotor_tpu_torch/envs/batch.py:batched_step_plain.
+// XLA fused into one program on the TPU, for the MODUL (decoupled) and the
+// MONO (coupled, quad.py:91-93, 178-184, 206-216, 247-255) tasks.  Plain
+// twin: gym_rotor_tpu_torch/envs/batch.py:batched_step_plain.
 //
 // Bound on an H100: ~0.5 KB of state read and written per env and a few
 // thousand flops, i.e. ~5 MB / ~30 MFLOP per tick at B = 4096, ~1.5 us of
 // HBM time.  At that size the launch and the per-thread dependent chain
 // dominate (32 blocks of 128 threads for 132 SMs); recorded in PERF.md.
+// The coupled task moves the same state and ~1.3x the obs bytes (23 floats
+// and one agent's reward/flags against 18 and two), and skips the virtual
+// moment assembly: the same bound within a few percent.
 //
 // Design: one thread per env, the whole tick in registers, one launch.
 // State buffers are field-major: field F of width w occupies
@@ -24,8 +28,11 @@
 // expression rounds where the plain twin rounds; the association order of
 // every sum follows the JAX code (mm3/mv3/dot3 fixed order).
 //
-// Templated on task and integrator; the only instance built is
-// decoupled (MODUL) + RK4.
+// Templated on task and integrator; the instances built are decoupled
+// (MODUL) + RK4 and coupled (MONO) + RK4.  What differs between the tasks
+// (action map, obs, reward/done, the output slots) sits in Task<TASK>; the
+// dynamics, the errors and integrals, the cap/solved override and the fresh
+// episode are one code path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -50,7 +57,7 @@ constexpr float IDLE_HI = (float)(25.0 * PI_D / 180.0);
 
 struct Coefs {
   float Cx, CIx, Cv, Cw12, Cb1, CIb1, CW3, alpha, beta, udm_u, udm_u_half,
-      rmin1, slope1, rmin2, slope2;
+      rmin1, slope1, rmin2, slope2, rmin, slope;
 };
 
 struct Args {
@@ -209,11 +216,11 @@ __device__ __forceinline__ void integrate(float* y, float f, const float* M,
 
 // ------------------------------------------------- errors, obs, reward, done
 struct NormOut {
-  float obs1[15], obs2[3];
+  float ex[3], eIx_norm[3], ev[3], eW[3], eW3, eb1_norm, eIb1_norm;
   float eIx_err[3], eIx_cur[3], eIb1_err, eIb1_cur;
 };
 
-// quad.norm_error_state + build_obs; goal = (xd, vd, b1d, Wd).
+// quad.norm_error_state; goal = (xd, vd, b1d, Wd).
 __device__ __forceinline__ void norm_error(const Coefs& c, const float* y,
                                            const float* xd, const float* vd,
                                            const float* b1d, const float* Wd,
@@ -223,14 +230,13 @@ __device__ __forceinline__ void norm_error(const Coefs& c, const float* y,
   const float* v = y + 3;
   const float* R = y + 6;
   const float* W = y + 15;
-  float ex[3], ev[3], eW[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    ex[k] = x[k] / X_LIM - xd[k] / X_LIM;
-    ev[k] = v[k] / V_LIM - vd[k] / V_LIM;
-    eW[k] = W[k] / W_LIM - Wd[k] / W_LIM;
+    o.ex[k] = x[k] / X_LIM - xd[k] / X_LIM;
+    o.ev[k] = v[k] / V_LIM - vd[k] / V_LIM;
+    o.eW[k] = W[k] / W_LIM - Wd[k] / W_LIM;
   }
-  const float eW3 = W[2] / W_LIM - Wd[2] / W_LIM;
+  o.eW3 = W[2] / W_LIM - Wd[2] / W_LIM;
   const float b1[3] = {R[0], R[3], R[6]};
   const float b2[3] = {R[1], R[4], R[7]};
   const float b3[3] = {R[2], R[5], R[8]};
@@ -239,28 +245,16 @@ __device__ __forceinline__ void norm_error(const Coefs& c, const float* y,
 #pragma unroll
   for (int k = 0; k < 3; ++k) b1c[k] = b1d[k] - db * b3[k];
   const float eb1 = atan2f(-dot3(b1c, b2), dot3(b1c, b1));
-  const float eb1_norm = eb1 / PI_F;
-  float eIx_norm[3];
+  o.eb1_norm = eb1 / PI_F;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    o.eIx_cur[k] = -c.alpha * eIx[k] + ex[k] * X_LIM;
+    o.eIx_cur[k] = -c.alpha * eIx[k] + o.ex[k] * X_LIM;
     o.eIx_err[k] = eIx[k] + ((eIx_int[k] + o.eIx_cur[k]) * DT) / 2.0f;
-    eIx_norm[k] = clampf(o.eIx_err[k] / EIX_LIM, -SAT, SAT);
+    o.eIx_norm[k] = clampf(o.eIx_err[k] / EIX_LIM, -SAT, SAT);
   }
-  o.eIb1_cur = -c.beta * eIb1 + eb1_norm * PI_F;
+  o.eIb1_cur = -c.beta * eIb1 + o.eb1_norm * PI_F;
   o.eIb1_err = eIb1 + ((eIb1_int + o.eIb1_cur) * DT) / 2.0f;
-  const float eIb1_norm = clampf(o.eIb1_err / EIB1_LIM, -SAT, SAT);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o.obs1[k] = ex[k];
-    o.obs1[3 + k] = eIx_norm[k];
-    o.obs1[6 + k] = ev[k];
-    o.obs1[9 + k] = b3[k];
-    o.obs1[12 + k] = eW[0] * b1[k] + eW[1] * b2[k];
-  }
-  o.obs2[0] = eb1_norm;
-  o.obs2[1] = eIb1_norm;
-  o.obs2[2] = eW3;
+  o.eIb1_norm = clampf(o.eIb1_err / EIB1_LIM, -SAT, SAT);
 }
 
 __device__ __forceinline__ float sqnorm(const float* x) {
@@ -270,6 +264,145 @@ __device__ __forceinline__ float sqnorm(const float* x) {
 
 __device__ __forceinline__ float interp01(float r, float rmin, float slope) {
   return clampf(slope * (r - rmin) + 0.0f, 0.0f, 1.0f);
+}
+
+// ------------------------------------------------------------------ tasks
+// Per task: agents, action width, the obs (all agents' obs concatenated,
+// NOBS floats) and the output slots (generated from kernels/env_tick.py OUT).
+template <int TASK>
+struct Task;
+
+template <>
+struct Task<TASK_DECOUPLED> {
+  static constexpr int NA = 2, NACT = 5, NOBS = 18, EB1_OBS = 15;
+  static constexpr int W1 = WOF_DECOUPLED_OBS1, W2 = WOF_DECOUPLED_OBS2;
+  static constexpr int OBS1 = OF_DECOUPLED_OBS1, OBS2 = OF_DECOUPLED_OBS2;
+  static constexpr int TERM1 = OF_DECOUPLED_TERM_OBS1, TERM2 = OF_DECOUPLED_TERM_OBS2;
+  static constexpr int REWARD = OF_DECOUPLED_REWARD, EX = OF_DECOUPLED_EX, EB1 = OF_DECOUPLED_EB1;
+  static constexpr int DONE = OB_DECOUPLED_DONE, RESET = OB_DECOUPLED_RESET,
+                       CRASHED = OB_DECOUPLED_CRASHED;
+  static_assert(W1 + W2 == NOBS && WOF_DECOUPLED_REWARD == NA &&
+                    WOB_DECOUPLED_DONE == NA && WOB_DECOUPLED_CRASHED == NA,
+                "decoupled output layout");
+
+  // action_decoupled and the virtual moments (quad.py:309-316)
+  __device__ static void wrench(const float* act, const float* R, const float* W,
+                                const float* J, float* M) {
+    const float b1[3] = {R[0], R[3], R[6]};
+    const float b2[3] = {R[1], R[4], R[7]};
+    M[0] = dot3(b1, act + 1) + J[2] * W[2] * W[1];
+    M[1] = dot3(b2, act + 1) - J[2] * W[2] * W[0];
+    M[2] = act[4];
+  }
+
+  // build_obs, MODUL: obs1 (15) then obs2 (3)
+  __device__ static void build_obs(const NormOut& n, const float* R, float* obs) {
+    const float b1[3] = {R[0], R[3], R[6]};
+    const float b2[3] = {R[1], R[4], R[7]};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      obs[k] = n.ex[k];
+      obs[3 + k] = n.eIx_norm[k];
+      obs[6 + k] = n.ev[k];
+      obs[9 + k] = R[3 * k + 2];
+      obs[12 + k] = n.eW[0] * b1[k] + n.eW[1] * b2[k];
+    }
+    obs[15] = n.eb1_norm;
+    obs[16] = n.eIb1_norm;
+    obs[17] = n.eW3;
+  }
+
+  // reward_decoupled / done_decoupled / _interp01 / crash override
+  __device__ static void reward_done(const Coefs& c, const float* o1, float* rew,
+                                     bool* d) {
+    const float* o2 = o1 + 15;
+    float r1 = -c.Cx * sqnorm(o1);
+    r1 = r1 + -c.CIx * sqnorm(o1 + 3);
+    r1 = r1 + -c.Cv * sqnorm(o1 + 6);
+    r1 = r1 + -c.Cw12 * sqnorm(o1 + 12);
+    const float aI = fabsf(o2[1]), aW = fabsf(o2[2]);
+    float r2 = -c.Cb1 * fabsf(o2[0]);
+    r2 = r2 + -c.CIb1 * (aI * aI);
+    r2 = r2 + -c.CW3 * (aW * aW);
+    bool d1 = false;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      d1 = d1 || fabsf(o1[k]) >= 1.0f || fabsf(o1[6 + k]) >= 1.0f || fabsf(o1[12 + k]) >= 1.0f;
+    const bool d2 = fabsf(o2[2]) >= 1.0f;
+    d[0] = d1;
+    d[1] = d2;
+    rew[0] = d1 ? -1.0f : interp01(r1, c.rmin1, c.slope1);
+    rew[1] = d2 ? -1.0f : interp01(r2, c.rmin2, c.slope2);
+  }
+};
+
+template <>
+struct Task<TASK_COUPLED> {
+  static constexpr int NA = 1, NACT = 4, NOBS = 23, EB1_OBS = 18;
+  static constexpr int W1 = WOF_COUPLED_OBS1, W2 = 0;
+  static constexpr int OBS1 = OF_COUPLED_OBS1, OBS2 = 0;
+  static constexpr int TERM1 = OF_COUPLED_TERM_OBS1, TERM2 = 0;
+  static constexpr int REWARD = OF_COUPLED_REWARD, EX = OF_COUPLED_EX, EB1 = OF_COUPLED_EB1;
+  static constexpr int DONE = OB_COUPLED_DONE, RESET = OB_COUPLED_RESET,
+                       CRASHED = OB_COUPLED_CRASHED;
+  static_assert(W1 + W2 == NOBS && WOF_COUPLED_REWARD == NA &&
+                    WOB_COUPLED_DONE == NA && WOB_COUPLED_CRASHED == NA,
+                "coupled output layout");
+
+  // action_coupled: the moments are the action (quad.py:91-93)
+  __device__ static void wrench(const float* act, const float*, const float*,
+                                const float*, float* M) {
+    M[0] = act[1];
+    M[1] = act[2];
+    M[2] = act[3];
+  }
+
+  // build_obs, MONO: ex, eIx, ev, R column-major, eb1, eIb1, eW
+  __device__ static void build_obs(const NormOut& n, const float* R, float* obs) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      obs[k] = n.ex[k];
+      obs[3 + k] = n.eIx_norm[k];
+      obs[6 + k] = n.ev[k];
+      obs[20 + k] = n.eW[k];
+    }
+#pragma unroll
+    for (int col = 0; col < 3; ++col)
+#pragma unroll
+      for (int row = 0; row < 3; ++row) obs[9 + 3 * col + row] = R[3 * row + col];
+    obs[18] = n.eb1_norm;
+    obs[19] = n.eIb1_norm;
+  }
+
+  // reward_coupled / done_coupled / _interp01(reward_min) / crash override
+  __device__ static void reward_done(const Coefs& c, const float* o, float* rew,
+                                     bool* d) {
+    float r = -c.Cx * sqnorm(o);
+    r = r + -c.CIx * sqnorm(o + 3);
+    r = r + -c.Cv * sqnorm(o + 6);
+    r = r + -c.Cb1 * fabsf(o[18]);
+    const float aI = fabsf(o[19]);
+    r = r + -c.CIb1 * (aI * aI);
+    r = r + -c.Cw12 * sqnorm(o + 20);
+    bool dd = false;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dd = dd || fabsf(o[k]) >= 1.0f || fabsf(o[6 + k]) >= 1.0f || fabsf(o[20 + k]) >= 1.0f;
+    d[0] = dd;
+    rew[0] = dd ? -1.0f : interp01(r, c.rmin, c.slope);
+  }
+};
+
+// All agents' obs (NOBS floats) into the slots' (B, W1) and (B, W2) blocks.
+template <int TASK>
+__device__ __forceinline__ void write_obs(float* __restrict__ outf, int B, int i,
+                                          int slot1, int slot2, const float* obs) {
+  using T = Task<TASK>;
+#pragma unroll
+  for (int k = 0; k < T::W1; ++k) outf[(size_t)slot1 * B + (size_t)i * T::W1 + k] = obs[k];
+#pragma unroll
+  for (int k = 0; k < T::W2; ++k)
+    outf[(size_t)slot2 * B + (size_t)i * T::W2 + k] = obs[T::W1 + k];
 }
 
 // ----------------------------------------------------------- trajectory
@@ -332,6 +465,7 @@ __device__ __forceinline__ void idle_b1d(const float* R, float u, float* b1d) {
 // Fresh episode (batch.py fresh(): reset_state -> TrajState.create ->
 // mark_traj_start -> get_desired -> initial_obs), written to the output
 // state and the obs slots.
+template <int TASK>
 __device__ void fresh_episode(const Args& a, int i, const float* u) {
   const int B = a.B;
   float* __restrict__ of = a.of;
@@ -455,22 +589,20 @@ __device__ void fresh_episode(const Args& a, int i, const float* u) {
   ZEROF(TRAJ_B1D_DOT);
   STOREF(TRAJ_WD, Wd);
 
-  float* __restrict__ outf = a.outf;
-#pragma unroll
-  for (int k = 0; k < 15; ++k) outf[(size_t)OF_OBS1 * B + (size_t)i * 15 + k] = n.obs1[k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) outf[(size_t)OF_OBS2 * B + (size_t)i * 3 + k] = n.obs2[k];
+  float obs[Task<TASK>::NOBS];
+  Task<TASK>::build_obs(n, y + 6, obs);
+  write_obs<TASK>(a.outf, B, i, Task<TASK>::OBS1, Task<TASK>::OBS2, obs);
 }
 
 template <int TASK, int INTEG>
 __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
-  static_assert(TASK == TASK_DECOUPLED, "only the decoupled task is built");
+  using T = Task<TASK>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int B = a.B;
   if (i >= B) return;
   const float* u = a.draws + (size_t)i * N_DRAWS;
   if (reset_only) {
-    fresh_episode(a, i, u);
+    fresh_episode<TASK>(a, i, u);
     return;
   }
   const float* __restrict__ sf = a.sf;
@@ -500,10 +632,10 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   const float w3 = omega_c3(R0, y + 15, b1d, b1d_dot);
   const float Wd[3] = {0.0f, 0.0f, w3};
 
-  // ---- quad.step, decoupled
-  float act[5];
+  // ---- quad.step: action map, then the dynamics
+  float act[T::NACT];
 #pragma unroll
-  for (int k = 0; k < 5; ++k) act[k] = a.act[(size_t)i * 5 + k];
+  for (int k = 0; k < T::NACT; ++k) act[k] = a.act[(size_t)i * T::NACT + k];
   const float m = sf[FIDX(ENV_PARAMS_M, 0)];
   float J[3];
   LOADF(J, ENV_PARAMS_J);
@@ -512,11 +644,8 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   const float minf = sf[FIDX(ENV_PARAMS_MIN_FORCE, 0)];
   const float maxf = sf[FIDX(ENV_PARAMS_MAX_FORCE, 0)];
   const float f = clampf(4.0f * (scale * act[0] + avrg), 4.0f * minf, 4.0f * maxf);
-  const float b1[3] = {R0[0], R0[3], R0[6]};
-  const float b2[3] = {R0[1], R0[4], R0[7]};
-  const float* W0 = y + 15;
-  const float M[3] = {dot3(b1, act + 1) + J[2] * W0[2] * W0[1],
-                      dot3(b2, act + 1) - J[2] * W0[2] * W0[0], act[4]};
+  float M[3];
+  T::wrench(act, R0, y + 15, J, M);
   integrate<INTEG>(y, f, M, m, J);
   polar_fast(y + 6);
 
@@ -527,56 +656,43 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   norm_error(c, y, xd, vd, b1d, Wd, eIx, eIx_int, sf[FIDX(ENV_EIB1, 0)],
              sf[FIDX(ENV_EIB1_INTEGRAND, 0)], n);
 
-  // reward / done from the float32 obs
-  const float* o1 = n.obs1;
-  const float* o2 = n.obs2;
-  float r1 = -c.Cx * sqnorm(o1);
-  r1 = r1 + -c.CIx * sqnorm(o1 + 3);
-  r1 = r1 + -c.Cv * sqnorm(o1 + 6);
-  r1 = r1 + -c.Cw12 * sqnorm(o1 + 12);
-  const float aI = fabsf(o2[1]), aW = fabsf(o2[2]);
-  float r2 = -c.Cb1 * fabsf(o2[0]);
-  r2 = r2 + -c.CIb1 * (aI * aI);
-  r2 = r2 + -c.CW3 * (aW * aW);
-  bool d1 = false;
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    d1 = d1 || fabsf(o1[k]) >= 1.0f || fabsf(o1[6 + k]) >= 1.0f || fabsf(o1[12 + k]) >= 1.0f;
-  const bool d2 = fabsf(o2[2]) >= 1.0f;
-  const float rew1 = d1 ? -1.0f : interp01(r1, c.rmin1, c.slope1);
-  const float rew2 = d2 ? -1.0f : interp01(r2, c.rmin2, c.slope2);
-  const float ex_info[3] = {o1[0] * X_LIM, o1[1] * X_LIM, o1[2] * X_LIM};
-  const float eb1_info = o2[0] * PI_F;
+  // obs, then reward / done from the float32 obs
+  float obs[T::NOBS];
+  T::build_obs(n, y + 6, obs);
+  float rew[T::NA];
+  bool d[T::NA];
+  T::reward_done(c, obs, rew, d);
+  const float ex_info[3] = {obs[0] * X_LIM, obs[1] * X_LIM, obs[2] * X_LIM};
+  const float eb1_info = obs[T::EB1_OBS] * PI_F;
 
-  // ---- batch: cap/solved override
+  // ---- batch: cap/solved override (MODUL: position for agent 0, yaw for
+  // agent 1; MONO: position only)
   const int t_new = a.si[IIDX(ENV_T)] + 1;
   const bool at_cap = t_new >= a.max_steps;
   const float tol = (float)0.03;
   const bool solved_pos = fabsf(ex_info[0]) <= tol && fabsf(ex_info[1]) <= tol &&
                           fabsf(ex_info[2]) <= tol;
   const bool solved_yaw = fabsf(eb1_info) <= tol;
-  const bool s1 = solved_pos && (rew1 != -1.0f);
-  const bool s2 = solved_yaw && (rew2 != -1.0f);
-  const bool over = d1 || d2 || at_cap;
+  bool over = at_cap;
+#pragma unroll
+  for (int k = 0; k < T::NA; ++k) over = over || d[k];
 
   bool* __restrict__ outb = a.outb;
-  outf[(size_t)OF_REWARD * B + (size_t)i * 2 + 0] = rew1;
-  outf[(size_t)OF_REWARD * B + (size_t)i * 2 + 1] = rew2;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) outf[(size_t)OF_EX * B + (size_t)i * 3 + k] = ex_info[k];
-  outf[(size_t)OF_EB1 * B + i] = eb1_info;
+  for (int k = 0; k < T::NA; ++k) {
+    const bool solved = (k == 0 ? solved_pos : solved_yaw) && (rew[k] != -1.0f);
+    outf[(size_t)T::REWARD * B + (size_t)i * T::NA + k] = rew[k];
+    outb[(size_t)T::DONE * B + (size_t)i * T::NA + k] = at_cap ? solved : d[k];
+    outb[(size_t)T::CRASHED * B + (size_t)i * T::NA + k] = d[k];
+  }
 #pragma unroll
-  for (int k = 0; k < 15; ++k) outf[(size_t)OF_TERM_OBS1 * B + (size_t)i * 15 + k] = o1[k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) outf[(size_t)OF_TERM_OBS2 * B + (size_t)i * 3 + k] = o2[k];
-  outb[(size_t)OB_DONE * B + (size_t)i * 2 + 0] = at_cap ? s1 : d1;
-  outb[(size_t)OB_DONE * B + (size_t)i * 2 + 1] = at_cap ? s2 : d2;
-  outb[(size_t)OB_RESET * B + i] = over;
-  outb[(size_t)OB_CRASHED * B + (size_t)i * 2 + 0] = d1;
-  outb[(size_t)OB_CRASHED * B + (size_t)i * 2 + 1] = d2;
+  for (int k = 0; k < 3; ++k) outf[(size_t)T::EX * B + (size_t)i * 3 + k] = ex_info[k];
+  outf[(size_t)T::EB1 * B + i] = eb1_info;
+  write_obs<TASK>(outf, B, i, T::TERM1, T::TERM2, obs);
+  outb[(size_t)T::RESET * B + i] = over;
 
   if (over) {
-    fresh_episode(a, i, u);
+    fresh_episode<TASK>(a, i, u);
     return;
   }
 
@@ -630,10 +746,7 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   STOREF(TRAJ_B1D, b1d);
   STOREF(TRAJ_B1D_DOT, b1d_dot);
   STOREF(TRAJ_WD, Wd);
-#pragma unroll
-  for (int k = 0; k < 15; ++k) outf[(size_t)OF_OBS1 * B + (size_t)i * 15 + k] = o1[k];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) outf[(size_t)OF_OBS2 * B + (size_t)i * 3 + k] = o2[k];
+  write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, obs);
 }
 
 }  // namespace
@@ -649,7 +762,8 @@ extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
                                int env_type, int max_steps, int use_udm,
                                const float* coefs, void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
-  if (task != TASK_DECOUPLED || integrator != INTEGRATOR_RK4)
+  if ((task != TASK_DECOUPLED && task != TASK_COUPLED) ||
+      integrator != INTEGRATOR_RK4)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.sf = (const float*)sf;
@@ -666,12 +780,16 @@ extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
   a.env_type = env_type;
   a.max_steps = max_steps;
   a.use_udm = use_udm;
-  a.c = Coefs{coefs[0], coefs[1], coefs[2],  coefs[3],  coefs[4],
-              coefs[5], coefs[6], coefs[7],  coefs[8],  coefs[9],
-              coefs[10], coefs[11], coefs[12], coefs[13], coefs[14]};
+  a.c = Coefs{coefs[0],  coefs[1],  coefs[2],  coefs[3],  coefs[4],  coefs[5],
+              coefs[6],  coefs[7],  coefs[8],  coefs[9],  coefs[10], coefs[11],
+              coefs[12], coefs[13], coefs[14], coefs[15], coefs[16]};
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
-  env_tick_kernel<TASK_DECOUPLED, INTEGRATOR_RK4>
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(a, reset_only);
+  if (task == TASK_COUPLED)
+    env_tick_kernel<TASK_COUPLED, INTEGRATOR_RK4>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a, reset_only);
+  else
+    env_tick_kernel<TASK_DECOUPLED, INTEGRATOR_RK4>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a, reset_only);
   return (int)cudaGetLastError();
 }

@@ -47,9 +47,12 @@ KERNEL = KernelSource("emlp_actor", [])
 WRAPPERS = {"emlp_actor": "emlp_actor_plain", "sac_actor": "sac_actor_plain",
             "ppo_actor": "ppo_actor_plain"}
 HEAD_TANH, HEAD_GAUSS, HEAD_PPO = 0, 1, 2
-# (obs dim, gated width, hidden width, action dim) of the built instances:
-# the flagship MODUL actors, agent 0 and agent 1.
-INSTANCES = {(15, 18, 16, 4), (3, 7, 4, 1)}
+# Per head, the (obs dim, gated width, hidden width, action dim) of the
+# built instances: the flagship MODUL actors (agents 0 and 1) for every
+# head, and the MONO actor for the deterministic head (TD3).
+_MODUL = {(15, 18, 16, 4), (3, 7, 4, 1)}
+INSTANCES = {HEAD_TANH: _MODUL | {(23, 18, 16, 4)}, HEAD_GAUSS: _MODUL,
+             HEAD_PPO: _MODUL}
 
 
 def _lib():
@@ -158,7 +161,7 @@ def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
     logp)`` (``logp`` is written by the PPO head only, else None)."""
     folded = fold_actor(actor)
     nin, ng, nh, nact = dims = folded["dims"]
-    if dims not in INSTANCES:
+    if dims not in INSTANCES[head]:
         raise NotImplementedError(f"{what} has no kernel instance for "
                                   f"(nin, ng, nh, nact) = {dims}")
     B = obs.shape[0]

@@ -45,10 +45,13 @@ WRAPPERS = {"emlp_block": "emlp_block_plain",
             "emlp_block_backward": "emlp_block_backward_plain"}
 # (nin, ng, nh) of the built instances: both blocks of the flagship MODUL
 # twin Q critics (hidden 62), the first blocks of the PPO V critics (obs in;
-# their hidden blocks are the Q critics'), and the actors (hidden 16 / 4).
+# their hidden blocks are the Q critics'), the actors (hidden 16 / 4), and
+# the first blocks of the MONO twin Q critic (27 = 23 obs + 4 actions in)
+# and actor (23 obs in; their hidden blocks are MODUL agent 0's).
 INSTANCES = {(19, 71, 62), (62, 71, 62), (4, 123, 62), (62, 123, 62),
              (15, 71, 62), (3, 123, 62),
-             (15, 18, 16), (16, 18, 16), (3, 7, 4), (4, 7, 4)}
+             (15, 18, 16), (16, 18, 16), (3, 7, 4), (4, 7, 4),
+             (27, 71, 62), (23, 18, 16)}
 
 
 def _lib():

@@ -18,9 +18,13 @@ a contiguous ``(B, w)`` block, and the fresh-episode chain run only by the
 threads whose episode ended (the JAX tick computes it densely for every env
 only to keep XLA's fusion whole).
 
-On the card the state lives in three flat buffers (float32, int32, bool);
-the offsets are written into ``env_tick_layout.h`` at build time from the
-same Python layout, so the two sides cannot disagree.  The kernel reads
+Two instances of the kernel are built: the MODUL ``decoupled`` task and the
+MONO ``coupled`` task (``quad.py:91-93, 178-184, 206-216, 247-255``), each
+with RK4.  On the card the state lives in three flat buffers (float32,
+int32, bool), the same for both tasks; the tick's outputs in two more
+(float32, bool) whose slots differ per task (``OUT``).  The offsets of both
+are written into ``env_tick_layout.h`` at build time from the same Python
+layout, so the two sides cannot disagree.  The kernel reads
 one set of buffers and writes another: ``env_tick`` stays functional, as in
 JAX (it packs a copy of the state and returns views of new buffers), and
 ``TickLoop``, which the rollouts use, carries two buffer sets from tick to
@@ -43,12 +47,20 @@ from .build import KernelSource, check
 
 env_tick_plain = batched_step_plain
 
-TASKS = {"decoupled": 0}
+TASKS = {"decoupled": 0, "coupled": 1}
 INTEGRATORS = {"rk4": 1}
 ENV_TYPES = {"train": 0, "eval": 1}
-OUT_FLOAT = (("obs1", 15), ("obs2", 3), ("reward", 2), ("ex", 3),
-             ("eb1", 1), ("term_obs1", 15), ("term_obs2", 3))
-OUT_BOOL = (("done", 2), ("reset", 1), ("crashed", 2))
+# Per task, the tick's output slots (name, per-env width) in the float and
+# the bool output buffer: the agents' obs and terminal obs, one reward,
+# done and crash flag per agent.
+OUT = {
+    "decoupled": {"F": (("obs1", 15), ("obs2", 3), ("reward", 2), ("ex", 3),
+                        ("eb1", 1), ("term_obs1", 15), ("term_obs2", 3)),
+                  "B": (("done", 2), ("reset", 1), ("crashed", 2))},
+    "coupled": {"F": (("obs1", 23), ("reward", 1), ("ex", 3), ("eb1", 1),
+                      ("term_obs1", 23)),
+                "B": (("done", 1), ("reset", 1), ("crashed", 1))},
+}
 _KINDS = ((torch.float32, "F"), (torch.int32, "I"), (torch.bool, "B"))
 
 
@@ -94,16 +106,15 @@ def layout_header() -> Dict[str, str]:
             lines.append(f"#define {kind}_{_macro(path)} {off}")
             lines.append(f"#define W{kind}_{_macro(path)} {width}")
         lines.append(f"#define N{kind}_STATE {_width(lay[dt])}")
-    off = 0
-    for name, w in OUT_FLOAT:
-        lines.append(f"#define OF_{name.upper()} {off}")
-        off += w
-    lines.append(f"#define NF_OUT {off}")
-    off = 0
-    for name, w in OUT_BOOL:
-        lines.append(f"#define OB_{name.upper()} {off}")
-        off += w
-    lines.append(f"#define NB_OUT {off}")
+    for task, out in OUT.items():
+        t = task.upper()
+        for kind, slots in out.items():
+            off = 0
+            for name, w in slots:
+                lines.append(f"#define O{kind}_{t}_{name.upper()} {off}")
+                lines.append(f"#define WO{kind}_{t}_{name.upper()} {w}")
+                off += w
+            lines.append(f"#define N{kind}_OUT_{t} {off}")
     lines += [f"#define D_THETA {D.THETA}", f"#define D_UDM {D.UDM.start}",
               f"#define D_AT_ORIGIN {D.AT_ORIGIN}",
               f"#define D_RESET {D.RESET.start}",
@@ -163,41 +174,51 @@ def pack_state(st: BatchedEnvState):
     return tuple(bufs)
 
 
-def _out_views(outf, outb, B):
+def out_width(task: str, kind: str) -> int:
+    """Per-env scalars of ``task``'s float (``"F"``) or bool (``"B"``)
+    output buffer."""
+    return sum(w for _, w in OUT[task][kind])
+
+
+def _out_views(task, outf, outb, B):
     views = {}
-    off = 0
-    for name, w in OUT_FLOAT:
-        views[name] = outf[off * B:(off + w) * B].view(B, w)
-        off += w
-    off = 0
-    for name, w in OUT_BOOL:
-        views[name] = outb[off * B:(off + w) * B].view(B, w)
-        off += w
+    for buf, kind in ((outf, "F"), (outb, "B")):
+        off = 0
+        for name, w in OUT[task][kind]:
+            views[name] = buf[off * B:(off + w) * B].view(B, w)
+            off += w
     return views
 
 
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-def _check_instance(cfg: Config):
-    if (cfg.framework != "MODUL" or cfg.integrator not in INTEGRATORS
+def task_of(cfg: Config) -> str:
+    """The kernel instance ``cfg`` runs: ``"decoupled"`` (MODUL) or
+    ``"coupled"`` (MONO); raises for what no instance covers."""
+    task = {"MODUL": "decoupled", "MONO": "coupled"}.get(cfg.framework)
+    if (task is None or cfg.integrator not in INTEGRATORS
             or cfg.train_traj_mode != 0 or cfg.exact_so3):
         raise NotImplementedError(
-            "env_tick kernel is built for MODUL/decoupled + rk4, trajectory "
-            f"mode 0, exact_so3=False; got framework={cfg.framework!r} "
-            f"integrator={cfg.integrator!r} mode={cfg.train_traj_mode} "
-            f"exact_so3={cfg.exact_so3}")
+            "env_tick kernel is built for MODUL/decoupled and MONO/coupled "
+            "with rk4, trajectory mode 0, exact_so3=False; got "
+            f"framework={cfg.framework!r} integrator={cfg.integrator!r} "
+            f"mode={cfg.train_traj_mode} exact_so3={cfg.exact_so3}")
+    return task
 
 
 @functools.lru_cache(maxsize=None)
 def _coefs(cfg: Config):
     """Reward/integral constants rounded to float32 exactly where the JAX
-    float32 tick rounds them."""
+    float32 tick rounds them: ``_interp01``'s ``rmin`` and slope ``1 / (0 -
+    rmin)`` per agent reward of MODUL, then MONO's one reward."""
     u = cfg.UDM_percentage / 100.0
     r1, r2 = float(cfg.reward_min_1), float(cfg.reward_min_2)
+    r = float(cfg.reward_min)
     vals = [cfg.Cx, cfg.CIx, cfg.Cv, cfg.Cw12, cfg.Cb1, cfg.CIb1, cfg.CW3,
             cfg.alpha, cfg.beta, u, u / 2.0,
-            r1, (1.0 - 0.0) / (0.0 - r1), r2, (1.0 - 0.0) / (0.0 - r2)]
+            r1, (1.0 - 0.0) / (0.0 - r1), r2, (1.0 - 0.0) / (0.0 - r2),
+            r, (1.0 - 0.0) / (0.0 - r)]
     return (ctypes.c_float * len(vals))(*vals)
 
 
@@ -221,9 +242,10 @@ def _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs):
         raise ValueError(f"unknown env_type {env_type!r}")
     if B == 0:
         raise ValueError("env_tick: no envs (B = 0)")
-    outf = torch.empty(sum(w for _, w in OUT_FLOAT) * B, dtype=torch.float32,
+    task = task_of(cfg)
+    outf = torch.empty(out_width(task, "F") * B, dtype=torch.float32,
                        device=device)
-    outb = torch.empty(sum(w for _, w in OUT_BOOL) * B, dtype=torch.bool,
+    outb = torch.empty(out_width(task, "B") * B, dtype=torch.bool,
                        device=device)
     lib = _lib()
 
@@ -233,13 +255,17 @@ def _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs):
     err = lib.env_tick_launch(
         *(ptr(t) for t in ins), *(ptr(t) for t in out_bufs),
         ptr(actions), ptr(draws), ptr(outf), ptr(outb),
-        B, int(in_bufs is None), TASKS["decoupled"],
+        B, int(in_bufs is None), TASKS[task],
         INTEGRATORS[cfg.integrator], ENV_TYPES[env_type], cfg.max_steps,
         int(cfg.use_UDM), _coefs(cfg),
         torch.cuda.current_stream(device).cuda_stream)
     check(err, lib, "env_tick")
     env_tick.launches += 1
-    return _out_views(outf, outb, B)
+    return _out_views(task, outf, outb, B)
+
+
+def _obs(o, n_agents, prefix="obs"):
+    return tuple(o[f"{prefix}{a + 1}"] for a in range(n_agents))
 
 
 def env_tick_bufs(cfg: Config, in_bufs, actions: torch.Tensor,
@@ -247,22 +273,24 @@ def env_tick_bufs(cfg: Config, in_bufs, actions: torch.Tensor,
     """One K1 launch on packed state: reads ``in_bufs``, writes the next
     state into ``out_bufs`` (both from ``pack_state``/``empty_bufs``, for
     ``B = actions.shape[0]`` envs on the card) and returns the tick's
-    ``BatchedStepOut``."""
-    _check_instance(cfg)
+    ``BatchedStepOut``.  ``actions`` is ``(B, sum(cfg.action_dim_n))``."""
+    task_of(cfg)
     B, device = actions.shape[0], actions.device
     lay = layout()
     for name, bufs in (("state", in_bufs), ("next state", out_bufs)):
         for (dt, _), buf in zip(_KINDS, bufs):
             _check_cuda(f"{name} buffer", buf, dt, (_width(lay[dt]) * B,),
                         device)
-    _check_cuda("actions", actions, torch.float32, (B, 5), device)
+    _check_cuda("actions", actions, torch.float32,
+                (B, sum(cfg.action_dim_n)), device)
     _check_cuda("draws", draws, torch.float32, (B, D.N_DRAWS), device)
     o = _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs)
+    n = cfg.n_agents
     return BatchedStepOut(
-        obs=(o["obs1"], o["obs2"]), reward=o["reward"], done=o["done"],
+        obs=_obs(o, n), reward=o["reward"], done=o["done"],
         reset_happened=o["reset"][:, 0],
         info={"ex": o["ex"], "eb1": o["eb1"][:, 0],
-              "terminal_obs": (o["term_obs1"], o["term_obs2"]),
+              "terminal_obs": _obs(o, n, "term_obs"),
               "crashed": o["crashed"]})
 
 
@@ -289,12 +317,11 @@ def env_reset(cfg: Config, draws: torch.Tensor, env_type: str = "train"):
     Counted under ``env_tick.launches``: it is the same kernel."""
     if not draws.is_cuda:
         return batched_reset_plain(cfg, draws, env_type)
-    _check_instance(cfg)
     B = draws.shape[0]
     _check_cuda("draws", draws, torch.float32, (B, D.N_DRAWS), draws.device)
     out_bufs = empty_bufs(B, draws.device)
     o = _launch(cfg, None, None, draws, env_type, B, draws.device, out_bufs)
-    return unpack_state(out_bufs, B), (o["obs1"], o["obs2"])
+    return unpack_state(out_bufs, B), _obs(o, cfg.n_agents)
 
 
 class TickLoop:

@@ -2,15 +2,16 @@
 and PPO parts of ``gym_rotor_tpu/models/emlp/zoo.py``: ``actor_reps``,
 ``critic_reps`` and ``v_critic_reps`` for the MONO and DTDE branches,
 ``EMLPActorDet``, ``EMLPActorSAC``, ``EMLPActorPPO``, ``EMLPCriticTwin``,
-``EMLPVCritic``, ``emlp_twin_split``, ``sac_models`` and ``ppo_models``).
+``EMLPVCritic``, ``emlp_twin_split``, ``td3_models``, ``sac_models`` and
+``ppo_models``).
 The CTDE critic reps are not ported yet.
 
-Every network carries ``param_version``, an explicit counter of in-place
-parameter writes: the flat optimizer bumps it after each launch and the
-acting kernel's fold cache keys on it (``kernels/emlp_actor.py``)."""
+Every network carries ``param_version`` (``models/mlp.py::Versioned``), an
+explicit counter of in-place parameter writes: the flat optimizer bumps it
+after each launch and the acting kernel's fold cache keys on it
+(``kernels/emlp_actor.py``)."""
 from __future__ import annotations
 
-import math
 from typing import List, Optional
 
 import torch
@@ -18,7 +19,7 @@ from torch import nn
 
 from ...utils.config import Config
 from ...utils.device import resolve_device
-from ..mlp import LOG_SIG_MAX, LOG_SIG_MIN
+from ..mlp import LOG_SIG_MAX, LOG_SIG_MIN, Dense, Versioned
 from . import groups as G
 from .nn import EMLP, EMLPBlock, EquivLinear
 from .reps import Scalar, SumRep, Vector, uniform_rep
@@ -88,28 +89,7 @@ def v_critic_reps(cfg: Config, framework: str, agent_id: int,
     return rep_in, hidden, Scalar(t1)
 
 
-class _Versioned(nn.Module):
-    """``param_version`` counts in-place parameter writes; moving or loading
-    the module counts as one too."""
-
-    def __init__(self):
-        super().__init__()
-        self.param_version = 0
-
-    def bump_version(self):
-        self.param_version += 1
-
-    def _apply(self, fn, *args, **kwargs):
-        self.param_version += 1
-        return super()._apply(fn, *args, **kwargs)
-
-    def load_state_dict(self, *args, **kwargs):
-        out = super().load_state_dict(*args, **kwargs)
-        self.param_version += 1
-        return out
-
-
-class EMLPActorDet(_Versioned):
+class EMLPActorDet(Versioned):
     """Deterministic tanh EMLP actor (zoo.py:101-113).  On CUDA tensors the
     forward is one launch of the fused actor kernel (K3); on CPU tensors it
     is the structured plain network."""
@@ -135,26 +115,7 @@ class EMLPActorDet(_Versioned):
         return emlp_actor(self, obs, out)
 
 
-class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel`` (nin, nout), ``bias`` (nout,), LeCun
-    normal kernel (truncated at two standard deviations) and zero bias."""
-
-    def __init__(self, nin: int, nout: int, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(nin, nout, device=device,
-                                               dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(nout, device=device, dtype=dtype))
-        std = math.sqrt(1.0 / nin) / 0.87962566103423978
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-
-    def forward(self, x):
-        return x @ self.kernel + self.bias
-
-
-class EMLPActorSAC(_Versioned):
+class EMLPActorSAC(Versioned):
     """Gaussian EMLP actor (zoo.py:169-190): two equivariant blocks
     ``network_block0``/``network_block1``, the mean head ``network_head``
     (an ``EquivLinear``) and ``log_std_linear``, a plain ``Dense`` on the
@@ -201,7 +162,7 @@ class EMLPActorSAC(_Versioned):
         return sac_actor(self, obs, noise, out)
 
 
-class EMLPCriticTwin(_Versioned):
+class EMLPCriticTwin(Versioned):
     """Twin equivariant Q networks over concat(obs, act) (zoo.py:116-139),
     ``network1`` and ``network2``.  ``forward`` and ``q1`` are the
     structured plain networks; the training path applies the same
@@ -225,7 +186,7 @@ class EMLPCriticTwin(_Versioned):
         return self.network1(torch.cat([obs, act], dim=-1))
 
 
-class EMLPActorPPO(_Versioned):
+class EMLPActorPPO(Versioned):
     """PPO EMLP actor (zoo.py:193-213): ``mean = tanh(network(obs))`` and a
     learnable state-independent ``log_std`` of shape ``(1, action_dim)``,
     not clipped; flax's names, so the flat order starts with ``log_std``.
@@ -269,7 +230,7 @@ class EMLPActorPPO(_Versioned):
         return ppo_actor(self, obs, noise, out, logp)
 
 
-class EMLPVCritic(_Versioned):
+class EMLPVCritic(Versioned):
     """Equivariant V(s) critic (zoo.py:216-228), one EMLP ``network``;
     ``forward`` is the structured plain network, the training path applies
     the same parameters through the block kernels (``algos/ppo.py``)."""
@@ -296,6 +257,17 @@ def emlp_twin_split(params):
         head, _, rest = name.partition(".")
         out[{"network1": 0, "network2": 1}[head]]["network." + rest] = t
     return out
+
+
+def td3_models(cfg: Config, agent_id: int, device=None, dtype=torch.float32,
+               generator: Optional[torch.Generator] = None):
+    """``(EMLPActorDet, EMLPCriticTwin)`` of agent ``agent_id`` with seeded
+    random weights (zoo.py:261-268)."""
+    kw = dict(device=device, dtype=dtype, generator=generator)
+    actor = EMLPActorDet(*actor_reps(cfg, cfg.framework, agent_id), **kw)
+    critic = EMLPCriticTwin(*critic_reps(cfg, cfg.framework, agent_id,
+                                         cfg.module_training), **kw)
+    return actor, critic
 
 
 def sac_models(cfg: Config, agent_id: int, device=None, dtype=torch.float32,

@@ -1,18 +1,44 @@
-"""The Gaussian policy heads of SAC and PPO (port of those parts of
-``gym_rotor_tpu/models/mlp.py``: ``LOG_SIG_MAX``/``LOG_SIG_MIN``, ``EPS``,
-``sac_sample_with_noise``, ``gaussian_logprob`` and ``gaussian_entropy``).
+"""Plain MLP networks and the Gaussian policy heads (port of
+``gym_rotor_tpu/models/mlp.py``).
+
+TD3's networks: ``ActorTD3`` (Dense -> relu -> Dense -> relu -> Dense ->
+tanh), ``CriticTwin`` (two such Q nets over ``concat(obs, act)``, with
+``q1``), ``CriticSingle`` and ``critic_twin_split``, with flax's names
+(``Dense_0..2``, ``q1_fc1..q2_fc3``, ``fc1..3``) and flax's ``(in, out)``
+kernel layout (``Dense``), so a network's flat vector is in
+``ravel_pytree``'s order and JAX's AdamW moments carry across.  JAX runs
+them as plain XLA dots with a relu/tanh epilogue, outside any kernel; here
+each layer is ``torch.nn.functional.linear`` (cuBLAS on the card, in full
+float32: the port leaves ``torch.backends.cuda.matmul.allow_tf32`` at its
+default, False).  The acting forward reads the parameters the module is
+bound to, which are views of the learner's flat vector (``bind_flat``): no
+copy, so nothing to re-key when the optimizer writes them in place.  The
+training path applies the same functions to a loss's parameter views
+(``actor_td3``, ``q_net``).
+
+SAC's and PPO's MLP actors and the V critic (``ActorSAC``, ``ActorPPO``,
+``VCritic``) are not ported yet (ROADMAP Queue 1 item 13).  Of those parts
+the port has the Gaussian heads: ``LOG_SIG_MAX``/``LOG_SIG_MIN``, ``EPS``,
+``sac_sample_with_noise``, ``gaussian_logprob`` and ``gaussian_entropy``.
 These are the plain versions; the training paths run SAC's sample through
 K10 (``kernels/sac_sample.py``) and PPO's surrogate through K13
 (``kernels/ppo_loss.py``), the acting paths through K9 and K11
 (``kernels/emlp_actor.py``).  ``sac_sample`` (the draw from a key) has no
 counterpart: the port makes its draws up front (``envs/draws.py``) and
-passes them as ``noise``.  The MLP actor classes are not ported yet.
+passes them as ``noise``.
+
+Every network carries ``param_version`` (``Versioned``), an explicit
+counter of in-place parameter writes: the flat optimizer bumps it after
+each launch and the EMLP acting kernel's fold cache keys on it.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -20.0
@@ -44,3 +70,154 @@ def gaussian_entropy(log_std):
     """Per-dimension entropy (``mlp.py:181-182``)."""
     return log_std + HALF_LOG_2PIE
 
+
+
+class Versioned(nn.Module):
+    """``param_version`` counts in-place parameter writes; moving or loading
+    the module counts as one too."""
+
+    def __init__(self):
+        super().__init__()
+        self.param_version = 0
+
+    def bump_version(self):
+        self.param_version += 1
+
+    def _apply(self, fn, *args, **kwargs):
+        self.param_version += 1
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        self.param_version += 1
+        return out
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``kernel`` (nin, nout), ``bias`` (nout,), LeCun
+    normal kernel (truncated at two standard deviations) and zero bias."""
+
+    def __init__(self, nin: int, nout: int, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(nin, nout, device=device,
+                                               dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(nout, device=device, dtype=dtype))
+        std = math.sqrt(1.0 / nin) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+
+    def forward(self, x):
+        return F.linear(x, self.kernel.t(), self.bias)
+
+
+Params = Dict[str, torch.Tensor]
+
+
+def dense(params: Params, prefix: str, x):
+    """``x @ kernel + bias`` with ``params[prefix + "kernel"]`` (nin, nout)
+    and ``params[prefix + "bias"]``: one ``F.linear``."""
+    return F.linear(x, params[prefix + "kernel"].t(), params[prefix + "bias"])
+
+
+def actor_td3(params: Params, obs):
+    """``ActorTD3`` on ``params`` (``Dense_0..2``; mlp.py:33-42)."""
+    x = torch.relu(dense(params, "Dense_0.", obs))
+    x = torch.relu(dense(params, "Dense_1.", x))
+    return torch.tanh(dense(params, "Dense_2.", x))
+
+
+def q_net(params: Params, prefix: str, obs, act):
+    """One Q net of ``CriticTwin`` (``prefix`` ``"q1_"``/``"q2_"``) or
+    ``CriticSingle`` (``""``) on ``params`` (mlp.py:55-84)."""
+    sa = torch.cat([obs, act], dim=-1)
+    q = torch.relu(dense(params, f"{prefix}fc1.", sa))
+    q = torch.relu(dense(params, f"{prefix}fc2.", q))
+    return dense(params, f"{prefix}fc3.", q)
+
+
+def critic_twin(params: Params, obs, act):
+    """``CriticTwin`` on ``params``: ``(q1, q2)``."""
+    return q_net(params, "q1_", obs, act), q_net(params, "q2_", obs, act)
+
+
+def critic_twin_split(params: Params):
+    """Twin parameters (``q1_fc1.kernel`` ...) -> (net1, net2) parameters
+    named as ``CriticSingle``'s (``fc1.kernel`` ...): a pure relabeling, as
+    ``mlp.py:87-96``."""
+    out = ({}, {})
+    for name, t in params.items():
+        head, _, rest = name.partition("_")
+        out[{"q1": 0, "q2": 1}[head]][rest] = t
+    return out
+
+
+class _DenseNet(Versioned):
+    """A network of flax ``Dense`` layers; ``params()`` maps its dotted
+    names to its parameters, the form the functions above take."""
+
+    def _layers(self, names, widths, kw):
+        """Layers ``names[k]`` from ``widths[k]`` to ``widths[k + 1]``."""
+        for name, a, b in zip(names, widths, widths[1:]):
+            self.add_module(name, Dense(a, b, **kw))
+
+    def params(self) -> Params:
+        return dict(self.named_parameters())
+
+
+class ActorTD3(_DenseNet):
+    """Deterministic tanh MLP actor (mlp.py:33-42).  ``forward(obs, out)``
+    is the acting path: the action, written into ``out`` (e.g. a column
+    slice of the joint action) when given."""
+
+    def __init__(self, obs_dim: int, hidden_dim: int, action_dim: int,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._layers(("Dense_0", "Dense_1", "Dense_2"),
+                     (obs_dim, hidden_dim, hidden_dim, action_dim),
+                     dict(device=device, dtype=dtype, generator=generator))
+        self.action_dim = action_dim
+
+    def forward(self, obs, out: Optional[torch.Tensor] = None):
+        a = actor_td3(self.params(), obs)
+        if out is None:
+            return a
+        out.copy_(a)
+        return out
+
+
+class CriticTwin(_DenseNet):
+    """Twin Q MLPs over ``concat(obs, act)`` (mlp.py:45-69), ``q1_fc1..3``
+    and ``q2_fc1..3``."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        for q in ("q1", "q2"):
+            self._layers((f"{q}_fc1", f"{q}_fc2", f"{q}_fc3"),
+                         (in_dim, hidden_dim, hidden_dim, 1), kw)
+
+    def forward(self, obs, act):
+        return critic_twin(self.params(), obs, act)
+
+    def q1(self, obs, act):
+        return q_net(self.params(), "q1_", obs, act)
+
+
+class CriticSingle(_DenseNet):
+    """One Q MLP with ``CriticTwin``'s architecture, ``fc1..3``, applied to
+    a ``critic_twin_split`` half (mlp.py:72-84)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._layers(("fc1", "fc2", "fc3"), (in_dim, hidden_dim, hidden_dim, 1),
+                     dict(device=device, dtype=dtype, generator=generator))
+
+    def forward(self, obs, act):
+        return q_net(self.params(), "", obs, act)

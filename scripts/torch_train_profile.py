@@ -1,10 +1,14 @@
 """Where the time of the PyTorch port's training superstep goes, on one GPU.
 
     python3 scripts/torch_train_profile.py [--algo td3|sac|ppo] [--envs 4096]
+                                           [--framework MODUL|MONO]
+                                           [--use_equiv 1|0]
                                            [--steps N] [--config A|B]
                                            [--out FILE]
 
-Runs ``train`` (the flagship configuration with TD3, or SAC with
+Runs ``train`` (the flagship configuration with TD3, or with
+``--framework MONO`` and/or ``--use_equiv 0`` the Mono-EMLP, Mono-MLP and
+Mod-MLP configurations of TD3; or SAC with
 ``--algo sac``; one warm superstep, then train supersteps of one 4096-env
 tick and one update each; or PPO with ``--algo ppo`` in configuration A,
 32 envs and a 7000-step horizon in minibatches of 128, or B, 4096 envs x 50
@@ -46,6 +50,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", choices=("td3", "sac", "ppo"), default="td3")
     ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--framework", choices=("MODUL", "MONO"), default="MODUL",
+                    help="TD3's task (SAC and PPO run MODUL)")
+    ap.add_argument("--use_equiv", type=int, choices=(0, 1), default=1,
+                    help="EMLP (1) or MLP (0) networks, TD3")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--config", choices=("A", "B"), default="A",
                     help="PPO configuration")
@@ -85,7 +93,8 @@ def main():
             + max(rows // cfg.critic_batch_size, 1))
     else:
         cfg = Config(num_envs=args.envs, start_timesteps=args.envs,
-                     rl_algo=args.algo.upper())
+                     rl_algo=args.algo.upper(), framework=args.framework,
+                     use_equiv=bool(args.use_equiv))
         rows, updates = cfg.num_envs, 1
     n = args.steps or (1 if ppo else 60)
     warmup = 1 if ppo else WARMUP
@@ -144,7 +153,8 @@ def main():
     train(cfg, c_start + n, device=dev, on_superstep=probe, log=None)
     (e0, h0), (e1, h1) = marks[t_start], marks[t_start + n]
     ms = e0.elapsed_time(e1) / n
-    out = {"card": card, "algo": cfg.rl_algo, "envs": cfg.num_envs,
+    out = {"card": card, "algo": cfg.rl_algo, "framework": cfg.framework,
+           "use_equiv": cfg.use_equiv, "envs": cfg.num_envs,
            "supersteps": n, "env_steps_per_superstep": rows,
            "updates_per_superstep": updates, "ms_per_superstep": ms,
            "host_ms_per_superstep": (h1 - h0) * 1e3 / n,

@@ -31,6 +31,7 @@ from gym_rotor_tpu.algos import common as jcommon
 from gym_rotor_tpu.algos import regularizers as jreg
 from gym_rotor_tpu.algos import td3 as jtd3
 from gym_rotor_tpu.algos.replay import Batch as JBatch
+from gym_rotor_tpu.models import zoo as jmodels
 from gym_rotor_tpu.models.emlp import nn as jnn
 from gym_rotor_tpu.models.emlp import zoo as jzoo
 from gym_rotor_tpu.parallel import mesh as jmesh
@@ -373,9 +374,12 @@ def test_ctde_is_not_ported():
 # One update
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
-def _jax_learner():
-    jcfg, tcfg = _cfgs()
-    agents = [jtd3.TD3Agent(jcfg, i, jzoo.td3_models(jcfg, i)) for i in AGENTS]
+def _jax_learner(**kw):
+    """JAX agents of ``_cfgs(**kw)`` (EMLP or MLP networks), float64 states
+    and the jitted ``train_step`` with the gate placed statically."""
+    jcfg, tcfg = _cfgs(**kw)
+    agents = [jtd3.TD3Agent(jcfg, i, jmodels.td3_models(jcfg, i))
+              for i in range(jcfg.n_agents)]
     states = [_to64(a.init(jax.random.PRNGKey(20 + i)))
               for i, a in enumerate(agents)]
     # the gate placed statically (bit-identical to the runtime cond,
@@ -406,12 +410,19 @@ def test_train_step_matches_jax(gate):
     taken (2 -> 3): losses, parameters, both targets, ``mu``/``nu`` and the
     counts, float64.  The states come from JAX after warm-up updates (so
     the Adam counts and moments are nonzero) through ``td3_state_from_jax``."""
-    jcfg, tcfg, jagents, jstates, jstep = _jax_learner()
+    train_step_vs_jax(gate)
+
+
+def train_step_vs_jax(gate, **kw):
+    """The check of ``test_train_step_matches_jax`` for ``_cfgs(**kw)``."""
+    jcfg, tcfg, jagents, jstates, jstep = _jax_learner(**kw)
+    agent_ids = range(jcfg.n_agents)
     rng = np.random.default_rng(30)
     for k in range(2 if gate else 1):
         jb, _ = _batch(rng, jcfg)
         jstates, _ = jstep(jstates, jb, jax.random.PRNGKey(40 + k), False)
-    tagents = [ttd3.TD3Agent(tcfg, i, "cpu", torch.float64) for i in AGENTS]
+    tagents = [ttd3.TD3Agent(tcfg, i, "cpu", torch.float64)
+               for i in agent_ids]
     tstates = [convert.td3_state_from_jax(_np_tree(s), a)
                for s, a in zip(jstates, tagents)]
     for ts, js, a in zip(tstates, jstates, tagents):
@@ -422,7 +433,7 @@ def test_train_step_matches_jax(gate):
     draws = _update_draws(key, tagents, jcfg.batch_size, torch.float64,
                           jnp.float64)
     tstates, tm = ttd3.train_step(tcfg, tagents, tstates, tb, draws)
-    for i in AGENTS:
+    for i in agent_ids:
         _close(float(tm[f"agent{i}/critic_loss"]),
                float(jm[f"agent{i}/critic_loss"]), 1e-9, "critic loss")
         _close(float(tm[f"agent{i}/actor_loss"]),
@@ -472,10 +483,18 @@ def test_superstep_matches_jax():
     runs it, from the same envs, ring and learner states and with JAX's
     draws: the env tick's and actors' uniform/normal draws, the sample
     indices and the update draws, each rebuilt from the superstep's key."""
-    kw = dict(num_envs=8, replay_buffer_size=28, max_steps=3)
+    superstep_vs_jax()
+
+
+def superstep_vs_jax(**cfg_kw):
+    """The check of ``test_superstep_matches_jax`` for ``_cfgs(**cfg_kw)``
+    (MODUL or MONO, EMLP or MLP networks)."""
+    kw = dict(num_envs=8, replay_buffer_size=28, max_steps=3, **cfg_kw)
     jcfg, tcfg = _cfgs(**kw)
+    agent_ids = range(jcfg.n_agents)
     mesh = jmesh.make_mesh(1)
-    jagents = [jtd3.TD3Agent(jcfg, i, jzoo.td3_models(jcfg, i)) for i in AGENTS]
+    jagents = [jtd3.TD3Agent(jcfg, i, jmodels.td3_models(jcfg, i))
+               for i in agent_ids]
     jstates = [jax.device_put(a.init(jax.random.PRNGKey(60 + i)),
                               jmesh.replicated(mesh))
                for i, a in enumerate(jagents)]
@@ -483,7 +502,7 @@ def test_superstep_matches_jax():
     jep = init_ep_ret(jcfg, mesh)
     jstep = make_sharded_td3_superstep(jcfg, jagents, mesh)
 
-    tagents = [ttd3.TD3Agent(tcfg, i, "cpu") for i in AGENTS]
+    tagents = [ttd3.TD3Agent(tcfg, i, "cpu") for i in agent_ids]
     tstates = [convert.td3_state_from_jax(_np_tree(s), a)
                for s, a in zip(jstates, tagents)]
     loop = TickLoop(tcfg, convert.env_state_from_numpy(_np_tree(jbs),
@@ -491,7 +510,7 @@ def test_superstep_matches_jax():
     tobs = tuple(_t(o) for o in jobs)
     trs = convert.replay_state_from_jax(_np_tree(jrs), tcfg.obs_dim_n,
                                         tcfg.action_dim_n, device="cpu")
-    tep = torch.zeros(tcfg.num_envs, 2)
+    tep = torch.zeros(tcfg.num_envs, tcfg.n_agents)
     tstep = make_td3_superstep(tcfg, tagents, "cpu")
     B, noise_std = jcfg.num_envs, 0.3
     draws_fn = jax.jit(lambda b: _tick_draws(b, jnp.float32))
@@ -533,7 +552,7 @@ def test_superstep_matches_jax():
             assert set(tm) == set(jm) == {"mean_reward", "fin_sum", "fin_cnt"}
             continue
         assert set(tm) == set(jm)
-        for i in AGENTS:
+        for i in agent_ids:
             for k in ("critic_loss", "actor_loss"):
                 np.testing.assert_allclose(float(tm[f"agent{i}/{k}"]),
                                            float(jm[f"agent{i}/{k}"]),
