@@ -70,13 +70,14 @@ result line):
                 backward at the minibatches' 128 and 3723 rows; then the V
                 critic's kernel path under autograd vs its structured net
  18. ppo_train  ``train(Config(rl_algo="PPO"))`` in configuration A (32 envs,
-                T_horizon 7000, minibatch 128) for 2 supersteps of
+                T_horizon 7000, minibatch 128) for 3 supersteps of
                 K_epochs 2, and B (4096 envs, T_horizon 204 800, minibatch
-                3723) for 1 superstep of K_epochs 1: exact launch counts of
+                3723) for 2 supersteps of K_epochs 1: exact launch counts of
                 every kernel and of K3/K4 per (shape, rows) per superstep,
                 one fold per actor per superstep, finite losses, actor,
                 critic and entropy_coef moving; env-steps/s, minibatch
-                steps/s and ms per superstep by CUDA events
+                steps/s and ms per superstep (those after the first) by
+                CUDA events
  19. kernels    per kernel: launches on the train paths (K9 and K10 on the
                 SAC path's, K11-K13 and the PPO path's K3/K4 on PPO's),
                 device time per launch, plain twin's time, the H100 bound,
@@ -102,6 +103,28 @@ result line):
                 one update; kernels: records of K1's coupled instance and
                 the MONO K3-actor and K3/K4 instances, with their launches
                 on the Mono paths
+ 21. the rest of the learner matrix (``phase_families``): family_blocks
+                K3/K4 vs plain for the new first blocks (the CTDE twin Q
+                critics' (23, 71, 62) and (23, 123, 62), the CTDE V
+                critics' (18, 71, 62) and (18, 123, 62), the MONO V
+                critic's (23, 71, 62)) at 128, 256, 768, 1024 and 3723 rows,
+                forward and all four gradients, the V forwards at 13 952
+                and 409 600 rows (every row, plain in 32 768-row
+                chunks), and each
+                network's kernel path under autograd vs its structured
+                network; family_actors K9 and K11 at the MONO actor and
+                K11's head on the MLP PPO actors, at 4096, 32 and 10 rows,
+                train and eval modes, log_std past its clip bounds;
+                train_<config> / ppo_train: ``train`` for the twelve
+                configurations of ``FAMILY_CONFIGS`` (MATD3, CTDE SAC and
+                PPO with EMLP and MLP networks; SAC and PPO on Mod-MLP,
+                Mono-EMLP and Mono-MLP), TD3/SAC 1 warm + FAMILY_STEPS
+                train supersteps at 4096 envs, PPO configuration B for
+                FAMILY_PPO_STEPS supersteps (the second timed), checked as
+                phases 12, 13 and 18 (exact launch
+                counts, K3/K4 per shape and rows); eval_<config>:
+                ``evaluate`` with the trained actors of the five README
+                rows; kernels: one record per new instance
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -474,31 +497,44 @@ def phase_rollout(cfg, dev, actors):
         raise AssertionError("rollout invariants failed")
 
 
+def eval_kernel(cfg):
+    """The kernel an actor of ``cfg`` launches per agent and eval tick:
+    the deterministic head of K3 (TD3), K9 (SAC) or K11 (PPO) for EMLP;
+    K11's head for PPO's MLP actor; none for TD3's and SAC's MLP actors
+    (``tanh`` of the ``F.linear`` chain)."""
+    if cfg.use_equiv:
+        return {"TD3": "emlp_actor", "SAC": "sac_actor",
+                "PPO": "ppo_actor"}[cfg.rl_algo]
+    return "ppo_head" if cfg.rl_algo == "PPO" else None
+
+
 def phase_eval(cfg, dev, actors, name="eval"):
-    """``evaluate`` with ``actors`` (EMLP: one K3 launch per agent and
-    tick; MLP: torch ops) on ``cfg.framework``'s task: launch counts, the
-    success column per agent (MONO: position only), finite rewards."""
+    """``evaluate`` with ``actors`` (EMLP: one launch of K3's, K9's or
+    K11's deterministic head per agent and tick; MLP: torch ops, and K11's
+    head for PPO) on ``cfg.framework``'s task: launch counts, the success
+    column per agent (MONO: position only), finite rewards."""
     from gym_rotor_tpu_torch.envs.quad import DT
     from gym_rotor_tpu_torch.evaluate import evaluate
-    from gym_rotor_tpu_torch.kernels.emlp_actor import emlp_actor
-    from gym_rotor_tpu_torch.kernels.env_tick import env_tick
     ticks = int(round(cfg.eval_max_steps / DT))
+    wr = _wrappers()
     torch.cuda.synchronize()
-    env_tick.launches = 0
-    emlp_actor.launches = 0
+    for w in wr.values():
+        w.launches = 0
     t0 = time.perf_counter()
     ep, bench, succ, ex, eb1 = evaluate(cfg, actors, device=dev)
     torch.cuda.synchronize()
-    launches = {"env_tick": env_tick.launches, "emlp_actor": emlp_actor.launches}
+    launches = {k: w.launches for k, w in wr.items() if w.launches}
     n = cfg.n_agents
     vals = [float(x) for x in ep] + [float(bench)]
-    log(name, framework=cfg.framework, use_equiv=cfg.use_equiv,
+    log(name, framework=cfg.framework, module_training=cfg.module_training,
+        rl_algo=cfg.rl_algo, use_equiv=cfg.use_equiv,
         envs=cfg.num_eval, ticks=ticks, launches=launches,
         mean_episode_reward=vals[:n], benchmark_reward=vals[n],
         success=[int(x) for x in succ.sum(0)], wall_s=time.perf_counter() - t0)
-    # one reset launch, then one K1 and (EMLP) one K3 per agent each tick
-    want = {"env_tick": 1 + ticks,
-            "emlp_actor": n * ticks if cfg.use_equiv else 0}
+    # one reset launch, then one K1 and the actor's kernel per agent a tick
+    want = {"env_tick": 1 + ticks}
+    if eval_kernel(cfg):
+        want[eval_kernel(cfg)] = n * ticks
     if launches != want:
         raise AssertionError(f"{name} launch counts {launches}, want {want}")
     if tuple(succ.shape) != (cfg.num_eval, n) or len(ep) != n:
@@ -911,29 +947,46 @@ def expected_launches(cfg, warm: bool, gated: bool):
         return want
     # per agent: target actor (2 blocks) + target twin critic (4) + critic
     # loss (4) forward, its backward (4); the actor loss adds the actor at
-    # B = 768 (2) and critic net1 (2) forward and both backward (2 + 2)
-    want.update({"emlp_actor": n, "emlp_block": n * (14 if gated else 10),
+    # B = 768 (2) and critic net1 (2) forward and both backward (2 + 2).
+    # Under CTDE (MATD3) every agent's target actor runs in the target (2 n
+    # blocks) and the other agents' current actors in the actor loss
+    # (2 (n - 1)).
+    others = n - 1 if cfg.is_ctde else 0
+    fwd = 10 + 2 * others + (4 + 2 * others if gated else 0)
+    want.update({"emlp_actor": n, "emlp_block": n * fwd,
                  "emlp_block_backward": n * (8 if gated else 4),
                  "spectral_iterate": n * (2 if gated else 1)})
     return want
+
+
+def _dims(net, dev):
+    """The (nin, ng, nh) of ``net``'s blocks (an EMLP or an actor)."""
+    from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
+    return [block_spec(b, dev).dims for _, b in net.named_blocks()]
 
 
 def expected_td3_shapes(cfg, agents, dev, gated: bool):
     """K3's launches per (block dims, rows) and K4's per (block dims, rows,
     parameter sums) of one TD3 train superstep of EMLP agents, as
     ``expected_launches`` counts them."""
-    from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
     nb = cfg.batch_size
     fwd, bwd = Counter(), Counter()
-    for a in agents:
-        actor = [block_spec(b, dev).dims for b in a.actor_net.network.blocks()]
-        net1 = [block_spec(b, dev).dims for b in a.critic_net.network1.blocks()]
-        net2 = [block_spec(b, dev).dims for b in a.critic_net.network2.blocks()]
-        for d in actor:
-            fwd[(d, nb)] += 1                  # target actor on next_obs
-            if gated:
+    actors = [_dims(a.actor_net.network, dev) for a in agents]
+    for i, a in enumerate(agents):
+        net1 = _dims(a.critic_net.network1, dev)
+        net2 = _dims(a.critic_net.network2, dev)
+        others = [j for j in range(len(agents)) if j != i] \
+            if cfg.is_ctde else []
+        for j in [i] + others:
+            for d in actors[j]:
+                fwd[(d, nb)] += 1              # target actors on next_obs
+        if gated:
+            for d in actors[i]:
                 fwd[(d, 3 * nb)] += 1          # actor loss, [obs; next; obs+eps]
                 bwd[(d, 3 * nb, True)] += 1
+            for j in others:                   # current actors of the others
+                for d in actors[j]:
+                    fwd[(d, nb)] += 1
         for d in net1 + net2:
             fwd[(d, nb)] += 2                  # target twin and critic loss
             bwd[(d, nb, True)] += 1
@@ -951,16 +1004,49 @@ def expected_launches_sac(cfg, warm: bool):
     if warm:
         return {"env_tick": 1, "replay_insert_tick": 1}
     n = cfg.n_agents
+    others = n - 1 if cfg.is_ctde else 0
     # per agent: the target sample (actor 2 blocks, K10) and the twin
     # target critic (4); the critic loss (4) and its backward (4); the
     # actor loss over 4 x 256 rows (2 blocks, K10), q1 and q2 on its action
     # (4), backward through both critics without the parameter sums (4),
-    # the actor's blocks (2) and K10
-    return {"env_tick": 1, "sac_actor": n, "replay_insert_tick": 1,
-            "replay_sample": 1, "emlp_block": 16 * n,
-            "emlp_block_backward": 10 * n, "sac_sample": 2 * n,
-            "sac_sample_backward": n, "spectral_iterate": 2 * n,
+    # the actor's blocks (2) and K10.  Under CTDE the agent's own samples
+    # fuse along the batch (2 x 256 rows in the target, 5 x 256 in the
+    # actor loss) and every other agent's actor samples on its own obs in
+    # both (2 blocks and K10 each).  MLP networks: K10 only (the acting
+    # sample too), no blocks and no K7.
+    want = {"env_tick": 1, "replay_insert_tick": 1, "replay_sample": 1,
+            "sac_sample": 2 * n * (1 + others), "sac_sample_backward": n,
             "flat_adamw": 2 * n}
+    if not cfg.use_equiv:
+        want["sac_sample"] += n                # acting: F.linear + K10
+        return want
+    want.update({"sac_actor": n, "emlp_block": n * (16 + 4 * others),
+                 "emlp_block_backward": 10 * n, "spectral_iterate": 2 * n})
+    return want
+
+
+def expected_sac_shapes(cfg, agents, dev):
+    """K3's launches per (block dims, rows) and K4's per (block dims, rows,
+    parameter sums) of one SAC train superstep of EMLP agents."""
+    nb = cfg.batch_size
+    fwd, bwd = Counter(), Counter()
+    ctde = cfg.is_ctde
+    actors = [_dims(a.actor_net, dev) for a in agents]
+    for i, a in enumerate(agents):
+        for d in actors[i]:
+            fwd[(d, 2 * nb if ctde else nb)] += 1     # target sample(s)
+            fwd[(d, (5 if ctde else 4) * nb)] += 1    # actor loss
+            bwd[(d, (5 if ctde else 4) * nb, True)] += 1
+        for j in range(len(agents)) if ctde else []:
+            if j != i:
+                for d in actors[j]:
+                    fwd[(d, nb)] += 2                 # target and actor loss
+        for net in (a.critic_net.network1, a.critic_net.network2):
+            for d in _dims(net, dev):
+                fwd[(d, nb)] += 3      # target twin, critic loss, actor loss
+                bwd[(d, nb, True)] += 1
+                bwd[(d, nb, False)] += 1
+    return fwd, bwd
 
 
 class K5Calls:
@@ -989,20 +1075,26 @@ class K5Calls:
             m.project_linear = self.orig
 
 
-def phase_train_sac(dev, steps, auto, k5=None):
-    """The SAC training entry point at full width: 1 warm superstep, then
-    ``steps`` train supersteps, each checked as it ends: exact launch
-    counts, one fold per actor (its K6 step makes the next act refold),
-    finite losses, the actor and critic moving on every update, the critic
-    target only on gated ones, ``log_alpha`` only with ``auto``."""
+def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train"):
+    """The SAC training entry point at full width (``cfg``: Mod-EMLP DTDE
+    by default): 1 warm superstep, then ``steps`` train supersteps, each
+    checked as it ends: exact launch counts (EMLP: of K3/K4 per shape and
+    rows too), one fold per EMLP actor (its K6 step makes the next act
+    refold), finite losses, the actor and critic moving on every update,
+    the critic target only on gated ones, ``log_alpha`` only with
+    ``auto``.  Returns the launch counts, K3/K4's counts per shape over the
+    run and the run."""
+    from gym_rotor_tpu_torch.kernels import emlp_block
     from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
-    cfg = Config(num_envs=B, start_timesteps=B, rl_algo="SAC",
-                 automatic_entropy_tuning=auto)
+    cfg = (cfg or Config(num_envs=B, start_timesteps=B, rl_algo="SAC")
+           ).replace(automatic_entropy_tuning=auto)
+    equiv = cfg.use_equiv
     wr = _wrappers()
     probe = dict(last={}, folds=0, bad=[], prev=None, first=None, events=[],
-                 losses=[], alpha=[], t_host=None)
+                 losses=[], alpha=[], t_host=None, fwd=Counter(),
+                 bwd=Counter())
 
     def snap(run):
         return [(st.actor.clone(), st.critic.clone(),
@@ -1022,11 +1114,20 @@ def phase_train_sac(dev, steps, auto, k5=None):
         got = {k: v for k, v in delta.items() if v}
         if got != want:
             probe["bad"].append((i, "launches", got, want))
+        fwd = Counter(emlp_block.emlp_block.by_shape)
+        bwd = Counter(emlp_block.emlp_block_backward.by_shape)
+        gfwd, gbwd = fwd - probe["fwd"], bwd - probe["bwd"]
+        probe["fwd"], probe["bwd"] = fwd, bwd
+        wfwd, wbwd = (expected_sac_shapes(cfg, run["agents"], dev)
+                      if equiv and not warm else (Counter(), Counter()))
+        if gfwd != wfwd or gbwd != wbwd:
+            probe["bad"].append((i, "shapes", dict(gfwd), dict(wfwd)))
         folds = fold_actor.folds - probe["folds"]
         probe["folds"] = fold_actor.folds
         stale = [a.actor_net._folded[0] != a.actor_net.param_version
-                 for a in run["agents"]] if not warm else []
-        if folds != (0 if warm else cfg.n_agents) or not all(stale):
+                 for a in run["agents"]] if not warm and equiv else []
+        if folds != (0 if warm or not equiv else cfg.n_agents) \
+                or not all(stale):
             probe["bad"].append((i, "folds", folds, stale))
         cur = snap(run)
         if warm:
@@ -1051,25 +1152,31 @@ def phase_train_sac(dev, steps, auto, k5=None):
     for w in wr.values():
         w.launches = 0
     probe["folds"] = fold_actor.folds
+    emlp_block.emlp_block.by_shape.clear()
+    emlp_block.emlp_block_backward.by_shape.clear()
     with (k5 or contextlib.nullcontext()):
         run = train(cfg, 1 + steps, device=dev, on_superstep=on_superstep,
                     log=None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items()}
+    shapes = (Counter(emlp_block.emlp_block.by_shape),
+              Counter(emlp_block.emlp_block_backward.by_shape))
     host_s = time.perf_counter() - probe["t_host"]
     dev_ms = probe["events"][0].elapsed_time(probe["events"][-1])
     agents, states, rs = run["agents"], run["states"], run["replay"]
     changed = []
+    twins = ("network1.", "network2.") if equiv else ("q1_", "q2_")
     for a, st, (a0, c0, t0, _) in zip(agents, states, probe["first"]):
         now, was = (a.critic_layout.views(st.critic),
                     a.critic_layout.views(c0))
         nets = [bool((st.actor != a0).any())]
         nets += [any(bool((now[n] != was[n]).any()) for n in now
-                     if n.startswith(pre)) for pre in ("network1.", "network2.")]
+                     if n.startswith(pre)) for pre in twins]
         nets.append(bool((st.critic_target != t0).any()))
         changed.append(nets)
     total_it = [st.total_it for st in states]
-    log("sac_train", envs=B, supersteps=1 + steps, warm_supersteps=1,
+    log(name, framework=cfg.framework, module_training=cfg.module_training,
+        use_equiv=equiv, envs=B, supersteps=1 + steps, warm_supersteps=1,
         automatic_entropy_tuning=auto, launches=launches, total_it=total_it,
         changed_actor_net1_net2_target=changed, train_ms=dev_ms,
         env_steps_per_s=B * steps / (dev_ms / 1e3),
@@ -1079,11 +1186,11 @@ def phase_train_sac(dev, steps, auto, k5=None):
         alpha_last=probe["alpha"][-1], fill=rs.filled,
         episodes_logged=len(run["episodes"]), mismatches=probe["bad"][:5])
     if probe["bad"]:
-        raise AssertionError(f"SAC train path: {probe['bad'][:5]}")
+        raise AssertionError(f"{name} path: {probe['bad'][:5]}")
     if total_it != [steps] * cfg.n_agents or not all(map(all, changed)):
-        raise AssertionError(f"SAC train path did not update: {total_it} "
+        raise AssertionError(f"{name} path did not update: {total_it} "
                              f"{changed}")
-    return launches
+    return launches, shapes, run
 
 
 def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
@@ -1168,8 +1275,8 @@ def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
                for st, (a0, c0) in zip(run["states"], probe["before"])]
     total_it = [st.total_it for st in run["states"]]
     first, last = probe["losses"][0], probe["losses"][-1]
-    log(name, framework=cfg.framework, use_equiv=equiv, envs=B,
-        supersteps=1 + steps, warm_supersteps=1,
+    log(name, framework=cfg.framework, module_training=cfg.module_training,
+        use_equiv=equiv, envs=B, supersteps=1 + steps, warm_supersteps=1,
         launches={k: v for k, v in launches.items() if v}, total_it=total_it,
         params_changed=changed, ring_row=int(run["replay"].data.shape[1]),
         train_ms=dev_ms, env_steps_per_s=B * steps / (dev_ms / 1e3),
@@ -1295,9 +1402,10 @@ def _record(name, source, replaces, launches, err, inst):
 
 
 def block_instances(dev, shapes, gen, path="td3"):
-    """K3 and K4 at every (block, rows) instance of a TD3 path's run
+    """K3 and K4 at every (block, rows) instance of a path's run
     (``shapes``: K3's and K4's launches per instance): per instance the
-    launches, device time, plain time, bound and what bounds it."""
+    launches, device time, plain time (in chunks of 32 768 rows past that),
+    bound and what bounds it."""
     from gym_rotor_tpu_torch.kernels import emlp_block as KB
     specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
     fwd, bwd = [], []
@@ -1308,8 +1416,13 @@ def block_instances(dev, shapes, gen, path="td3"):
         W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
         b = 0.1 * torch.randn(ng, generator=gen, device=dev)
         v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
-        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v), 50)
-        p_ms, _ = device_ms(lambda: KB.emlp_block_plain(spec, x, W, b, v), 10, 3)
+        big = nb > 32768       # a horizon's V forward: plain in chunks
+        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v),
+                            3 if big else 50, 3 if big else 5)
+        chunks = torch.split(x, 32768)
+        p_ms, _ = device_ms(lambda: [KB.emlp_block_plain(spec, c, W, b, v)
+                                     for c in chunks],
+                            2 if big else 10, 2 if big else 3)
         flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
         nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
                       + 2 * ng * nb + nh + ng + 1 + spec.nnz)
@@ -1923,18 +2036,23 @@ def expected_launches_ppo(cfg, agents, dev, first):
     critic over the 2 T B rows (2 blocks) and K12; per epoch and actor
     minibatch the actor over 3 mb rows (2 blocks forward, 2 backward with
     the parameter sums), K13 forward and backward, K7 and K6; per critic
-    minibatch the V critic (2 + 2), K7 and K6."""
+    minibatch the V critic (2 + 2), K7 and K6.  MLP networks launch no
+    block and no K7, and act through K11's head."""
     from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
     rl, T, na, mba, nc, mbc = _ppo_dims(cfg)
     n, K = cfg.n_agents, cfg.K_epochs
-    want = {"env_tick": rl + (1 if first else 0), "ppo_actor": n * rl,
-            "replay_insert_tick": rl, "gae": n,
-            "emlp_block": n * (2 + 2 * K * (na + nc)),
-            "emlp_block_backward": n * 2 * K * (na + nc),
-            "ppo_loss": n * K * na, "ppo_loss_backward": n * K * na,
-            "spectral_iterate": n * K * (na + nc),
+    want = {"env_tick": rl + (1 if first else 0), "replay_insert_tick": rl,
+            "gae": n, "ppo_loss": n * K * na, "ppo_loss_backward": n * K * na,
             "flat_adamw": n * K * (na + nc)}
     fwd, bwd = Counter(), Counter()
+    if not cfg.use_equiv:
+        # MLP networks: F.linear chains, K11's head alone for acting, no K7
+        want["ppo_head"] = n * rl
+        return want, fwd, bwd
+    want.update({"ppo_actor": n * rl,
+                 "emlp_block": n * (2 + 2 * K * (na + nc)),
+                 "emlp_block_backward": n * 2 * K * (na + nc),
+                 "spectral_iterate": n * K * (na + nc)})
     for a in agents:
         for blk in a.critic_net.network.blocks():
             d = block_spec(blk, dev).dims
@@ -1961,6 +2079,7 @@ def phase_train_ppo(dev, name, kw, supersteps):
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
     cfg = Config(**kw)
+    equiv = cfg.use_equiv
     rl, T, na, mba, nc, mbc = _ppo_dims(cfg)
     wr = _wrappers()
     init = torch.Generator().manual_seed(cfg.seed)   # train()'s init draws
@@ -1991,8 +2110,8 @@ def phase_train_ppo(dev, name, kw, supersteps):
         folds = fold_actor.folds - probe["folds"]
         probe["folds"] = fold_actor.folds
         stale = [a.actor_net._folded[0] != a.actor_net.param_version
-                 for a in run["agents"]]
-        if folds != cfg.n_agents or not all(stale):
+                 for a in run["agents"]] if equiv else []
+        if folds != (cfg.n_agents if equiv else 0) or not all(stale):
             probe["bad"].append((i, "folds", folds, stale))
         cur = [(s.actor.clone(), s.critic.clone(), s.entropy_coef.clone())
                for s in run["states"]]
@@ -2019,12 +2138,14 @@ def phase_train_ppo(dev, name, kw, supersteps):
                 log=None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items() if w.launches}
-    host_s = time.perf_counter() - probe["t_host"]
     timed = supersteps - 1
+    host_s = time.perf_counter() - probe["t_host"]
     dev_ms = probe["events"][0].elapsed_time(probe["events"][-1]) / timed
     steps = cfg.n_agents * cfg.K_epochs * (na + nc)
     total_it = [st.total_it for st in run["states"]]
-    log("ppo_train", config=name, envs=cfg.num_envs, ticks=rl, rows=T,
+    log("ppo_train", config=name, framework=cfg.framework,
+        module_training=cfg.module_training, use_equiv=equiv,
+        envs=cfg.num_envs, ticks=rl, rows=T,
         K_epochs=cfg.K_epochs, minibatch=[mba, mbc],
         minibatches_per_epoch=[na, nc], supersteps=supersteps,
         launches=launches, total_it=total_it,
@@ -2039,7 +2160,7 @@ def phase_train_ppo(dev, name, kw, supersteps):
     if total_it != [supersteps] * cfg.n_agents:
         raise AssertionError(f"PPO train path {name} did not update: "
                              f"{total_it}")
-    return cfg, launches, probe["shapes"]
+    return cfg, launches, probe["shapes"], run
 
 
 def phase_ppo_kernels(dev, agents, obs, runs, errs):
@@ -2047,20 +2168,20 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
     launch at each configuration's shapes, weighted by its launches in the
     train phase; the plain twin's time and the bound.  No one PyTorch call
     computes any of the three new functions.  ``runs``: per configuration
-    ``(cfg, launches, (K3 shapes, K4 shapes) of one superstep)``."""
+    ``(cfg, launches, (K3 shapes, K4 shapes) of one superstep, run)``."""
     from gym_rotor_tpu_torch.kernels import emlp_actor as KA
     from gym_rotor_tpu_torch.kernels import emlp_block as KB
     from gym_rotor_tpu_torch.kernels import gae as KG
     from gym_rotor_tpu_torch.kernels import ppo_loss as KL
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     total = Counter()
-    for _, launches, _ in runs:
+    for _, launches, *_ in runs:
         total.update(launches)
     records = []
 
     # K11 per agent at each configuration's envs (train mode)
     inst = []
-    for cfg, launches, _ in runs:
+    for cfg, launches, *_ in runs:
         nb = cfg.num_envs
         for i, agent in enumerate(agents):
             actor, o = agent.actor_net, obs[i][:nb]
@@ -2093,7 +2214,7 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
 
     # K12 at each configuration's horizon
     inst = []
-    for cfg, launches, _ in runs:
+    for cfg, launches, *_ in runs:
         rl, T = _ppo_dims(cfg)[:2]
         nb = cfg.num_envs
         v, nv, r = (torch.randn(rl, nb, 1, generator=gen, device=dev)
@@ -2117,7 +2238,7 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
     fwd, bwd = [], []
     coef = torch.tensor(0.01, device=dev)
     g = torch.tensor(1.0, device=dev)
-    for cfg, launches, _ in runs:
+    for cfg, launches, *_ in runs:
         n = _ppo_dims(cfg)[3]
         for agent in agents:
             A = agent.action_dim
@@ -2155,7 +2276,7 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
     # chunks of 32768 rows past that (as JAX chunks the V critic over time)
     specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
     kf, kb = [], []
-    for cfg, _, (sfwd, sbwd) in runs:
+    for cfg, _, (sfwd, sbwd), _ in runs:
         for ((nin, ng, nh), nb), count in sorted(sfwd.items()):
             spec = specs[(nin, ng, nh)]
             x = torch.randn(nb, nin, generator=gen, device=dev)
@@ -2381,6 +2502,414 @@ def phase_mono(dev):
     return phase_mono_kernels(dev, mono, tick, runs, errs)
 
 
+# ---------------------------------------------------------------------------
+# The rest of the learner matrix: CTDE, and SAC and PPO on MONO and MLP
+# ---------------------------------------------------------------------------
+# the twelve configurations the JAX package trains beyond the flagship
+# learners and phase 20's, at full width: TD3/SAC at 4096 envs, 1 warm +
+# FAMILY_STEPS train supersteps; PPO in configuration B (4096 envs x 50
+# ticks, minibatch 3723), FAMILY_PPO_STEPS supersteps of K_epochs 1
+FAMILY_STEPS = 20
+FAMILY_PPO_STEPS = 2    # the second is timed, as phase 18's
+CTDE_KW = dict(module_training="CTDE")
+FAMILY_CONFIGS = (
+    ("td3_ctde_emlp", dict(CTDE_KW)),
+    ("td3_ctde_mlp", dict(CTDE_KW, use_equiv=False)),
+    ("sac_ctde_emlp", dict(CTDE_KW, rl_algo="SAC")),
+    ("sac_ctde_mlp", dict(CTDE_KW, rl_algo="SAC", use_equiv=False)),
+    ("sac_mod_mlp", dict(rl_algo="SAC", use_equiv=False)),
+    ("sac_mono_emlp", dict(rl_algo="SAC", framework="MONO")),
+    ("sac_mono_mlp", dict(rl_algo="SAC", framework="MONO", use_equiv=False)),
+    ("ppo_ctde_emlp", dict(CTDE_KW, rl_algo="PPO")),
+    ("ppo_ctde_mlp", dict(CTDE_KW, rl_algo="PPO", use_equiv=False)),
+    ("ppo_mod_mlp", dict(rl_algo="PPO", use_equiv=False)),
+    ("ppo_mono_emlp", dict(rl_algo="PPO", framework="MONO")),
+    ("ppo_mono_mlp", dict(rl_algo="PPO", framework="MONO", use_equiv=False)))
+# the five rows of README's "Learning results" this slice makes trainable
+RESULTS_ROWS = ("td3_ctde_emlp", "ppo_mono_emlp", "sac_mono_emlp",
+                "sac_mono_mlp", "ppo_mono_mlp")
+NEW_BLOCKS = ((23, 71, 62), (23, 123, 62), (18, 71, 62), (18, 123, 62))
+
+
+def _first_block(net, views, prefix, dev):
+    """``(spec, W_eff, b_eff, v)`` of ``net``'s first block on ``views``."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.models.emlp.nn import (bilinear_sparse,
+                                                    project_linear)
+    blk = net.blocks()[0]
+    pre = f"{prefix}block0."
+    with torch.no_grad():
+        W, b = project_linear(blk.linear.rep_in, blk.linear.rep_out,
+                              views[pre + "linear.kernel"],
+                              views[pre + "linear.bias"])
+        v = bilinear_sparse(blk.bilinear.rep,
+                            views[pre + "bilinear.bi_params"])[3]
+    return K.block_spec(blk, dev), W.contiguous(), b.contiguous(), \
+        v.contiguous()
+
+
+def phase_family_blocks(dev, obs_mod, obs_mono):
+    """K3/K4 vs plain for the new first blocks: the CTDE twin Q critics'
+    (23, 71, 62) and (23, 123, 62) on both agents' obs and actions, the
+    CTDE V critics' (18, 71, 62) and (18, 123, 62) and the MONO V critic's
+    (23, 71, 62): forward and all four gradients (and g_x alone) at the
+    update's rows (128 and 3723 in PPO's minibatches, 256 in TD3's and
+    SAC's critic losses, 768 and 1024 the actor losses' batches), and the
+    V critics' forward at the GAE pass's 2 T B rows of configurations A and
+    B (13 952, 409 600; every row, the plain twin in chunks of 32 768
+    rows); then each network's
+    kernel path under autograd vs its structured network at 256 rows.
+    Tolerance 2e-5 max(1, max |plain|), as phases 7 and 17."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    init = torch.Generator().manual_seed(SEED)
+    ctde = Config(**CTDE_KW)
+    gae_rows = [2 * _ppo_dims(Config(**c))[1] for c in PPO_CONFIGS.values()]
+    joint = torch.cat(obs_mod, -1)
+    act = torch.rand(B, sum(ctde.action_dim_n), generator=gen,
+                     device=dev) * 2 - 1
+    nets = []
+    for i in range(ctde.n_agents):
+        q = TD3Agent(ctde, i, dev)
+        nets.append((f"ctde_q{i}", q, q.init(init),
+                     torch.cat([joint, act], -1)))
+        v = PPOAgent(ctde.replace(rl_algo="PPO"), i, dev)
+        nets.append((f"ctde_v{i}", v, v.init(init), joint))
+    v = PPOAgent(Config(framework="MONO", rl_algo="PPO"), 0, dev)
+    nets.append(("mono_v", v, v.init(init), obs_mono[0]))
+    worst = {d: [0.0, 0.0] for d in NEW_BLOCKS}
+    bad = []
+    for name, agent, st, x_all in nets:
+        views = agent.critic_layout.views(st.critic)
+        is_q = name.startswith("ctde_q")
+        net, prefix = ((agent.critic_net.network1, "network1.") if is_q
+                       else (agent.critic_net.network, "network."))
+        spec, W, b, v = _first_block(net, views, prefix, dev)
+        if spec.dims not in NEW_BLOCKS:
+            raise AssertionError(f"{name}: first block {spec.dims}")
+        for nb in (128, 256, 768, 1024, 3723):
+            x = x_all[:nb].contiguous()
+            nb = int(x.shape[0])
+            fk = K.emlp_block(spec, x, W, b, v)
+            fp = K.emlp_block_plain(spec, x, W, b, v)
+            g_h = torch.randn(nb, spec.nh, generator=gen, device=dev)
+            bk = K.emlp_block_backward(spec, g_h, x, W, v, fk[1], fk[2], True)
+            bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, fk[1],
+                                             fk[2], True)
+            gx = K.emlp_block_backward(spec, g_h, x, W, v, fk[1], fk[2],
+                                       False)[0]
+            errs = {}
+            for nm, kk, pp in zip(("h", "lin", "pre", "g_x", "g_W", "g_b",
+                                   "g_v", "g_x_only"), fk + bk + (gx,),
+                                  fp + bp + (bp[0],)):
+                d, tol, fin = _err(kk, pp)
+                errs[nm] = d
+                side = 0 if nm in ("h", "lin", "pre") else 1
+                worst[spec.dims][side] = max(worst[spec.dims][side], d)
+                if not (d <= tol and fin):
+                    bad.append((name, nb, nm, d, tol))
+            log("family_blocks", net=name, dims=list(spec.dims),
+                nnz=spec.nnz, batch=nb, max_abs_err=errs)
+        if not is_q:
+            for nb in gae_rows:
+                reps = -(-nb // x_all.shape[0])
+                x = x_all.repeat(reps, 1)[:nb]
+                x = (x + 0.05 * torch.randn(x.shape, generator=gen,
+                                            device=dev)).contiguous()
+                fk = K.emlp_block(spec, x, W, b, v)
+                parts = [K.emlp_block_plain(spec, c, W, b, v)
+                         for c in torch.split(x, 32768)]
+                fp = (torch.cat([p[0] for p in parts]),
+                      torch.cat([p[1] for p in parts], 1),
+                      torch.cat([p[2] for p in parts], 1))
+                del parts
+                errs = {}
+                for nm, kk, pp in zip(("h", "lin", "pre"), fk, fp):
+                    d, tol, fin = _err(kk, pp)
+                    errs[nm] = d
+                    worst[spec.dims][0] = max(worst[spec.dims][0], d)
+                    if not (d <= tol and fin):
+                        bad.append((name, nb, nm, d, tol))
+                log("family_blocks", net=name, dims=list(spec.dims),
+                    batch=nb, max_abs_err=errs)
+                del fk, fp, x
+        # the whole kernel path under autograd vs the structured network
+        xs = (x_all[:256, :sum(ctde.obs_dim_n)].contiguous(),
+              x_all[:256, sum(ctde.obs_dim_n):].contiguous()) if is_q \
+            else (x_all[:256].contiguous(),)
+        leaf_k = st.critic.detach().clone().requires_grad_(True)
+        yk = agent.critic_apply(agent.critic_layout.views(leaf_k), *xs)
+        yk = sum(q.sum() for q in yk) if is_q else yk.sum()
+        (gk,) = torch.autograd.grad(yk, leaf_k)
+        leaf_p = st.critic.detach().clone().requires_grad_(True)
+        yp = _plain_apply(agent.critic_net, agent.critic_layout.views(leaf_p),
+                          *xs)
+        yp = sum(q.sum() for q in yp) if is_q else yp.sum()
+        (gp,) = torch.autograd.grad(yp, leaf_p)
+        dv, tolv, finv = _err(yk.detach(), yp.detach())
+        dg, tolg, fing = _err(gk, gp)
+        log("family_blocks", net=name, check="autograd vs structured",
+            rows=256, value_err=dv, grad_max_abs_err=dg,
+            grad_scale=float(gp.abs().max()))
+        if not (dv <= tolv and dg <= tolg and finv and fing):
+            bad.append((name, "autograd", dv, dg))
+    if bad:
+        raise AssertionError(f"new block instances disagree: {bad[:5]}")
+    return worst
+
+
+def phase_family_actors(dev, obs_mod, obs_mono):
+    """K9 and K11 at the MONO actor (23, 18, 16, 4) and K11's head on the
+    MLP PPO actors (Mod-MLP agents 0 and 1, Mono-MLP) vs their plain twins,
+    at 4096, 32 and 10 rows (train envs, PPO A's envs, eval envs), in train
+    and eval modes, with SAC's log_std bias shifted by +-25 (every row at a
+    clip bound) and PPO's log_std by +-3; K11's head writes into column
+    slices of wider tensors, whose other columns must stay as they were.
+    Tolerance 1e-5 on actions, 2e-5 max(1, max |plain|) on log-probs."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.kernels import emlp_actor as K
+    from gym_rotor_tpu_torch.models.mlp import actor_ppo_pre
+    from gym_rotor_tpu_torch.utils.config import Config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    init = torch.Generator().manual_seed(SEED)
+    worst = {"sac_actor_mono": 0.0, "ppo_actor_mono": 0.0, "ppo_head": 0.0}
+    bad = []
+    sac = SACAgent(Config(framework="MONO", rl_algo="SAC"), 0, dev)
+    ppo = PPOAgent(Config(framework="MONO", rl_algo="PPO"), 0, dev)
+    sac.init(init)
+    ppo.init(init)
+    for kind, agent, param, shifts in (
+            ("sac_actor_mono", sac, sac.actor_net.log_std_linear.bias,
+             (0.0, 25.0, -25.0)),
+            ("ppo_actor_mono", ppo, ppo.actor_net.log_std, (0.0, 3.0, -3.0))):
+        actor = agent.actor_net
+        if K.actor_dims(actor) != (23, 18, 16, 4):
+            raise AssertionError(f"{kind}: {K.actor_dims(actor)}")
+        saved = param.detach().clone()
+        for shift in shifts:
+            with torch.no_grad():
+                param.copy_(saved + shift)
+            actor.bump_version()
+            for nb in (B, 32, 10):
+                o = obs_mono[0][:nb]
+                noise = torch.randn(nb, 4, generator=gen, device=dev)
+                for mode, nz in (("train", noise), ("eval", None)):
+                    with torch.no_grad():
+                        if kind == "sac_actor_mono":
+                            ak = K.sac_actor(actor, o, nz)
+                            ap = K.sac_actor_plain(actor, o, nz)
+                            dl, tol, fin = 0.0, 1.0, True
+                        else:
+                            ak, lk = K.ppo_actor(actor, o, nz)
+                            ap, lp = K.ppo_actor_plain(actor, o, nz)
+                            dl, tol, fin = _err(lk, lp)
+                    da = float((ak - ap).abs().max())
+                    worst[kind] = max(worst[kind], da, dl)
+                    log("family_actors", kernel=kind, batch=nb, mode=mode,
+                        log_std_shift=shift, max_abs_err=[da, dl])
+                    if not (da <= 1e-5 and dl <= tol and fin
+                            and torch.isfinite(ak).all()):
+                        bad.append((kind, nb, mode, shift, da, dl))
+        with torch.no_grad():
+            param.copy_(saved)
+        actor.bump_version()
+
+    # K11's head on the MLP PPO actors' mean heads
+    for fam, kw, obs in (("mod_mlp", {}, obs_mod),
+                         ("mono_mlp", dict(framework="MONO"), obs_mono)):
+        cfg = Config(rl_algo="PPO", use_equiv=False, **kw)
+        for i in range(cfg.n_agents):
+            agent = PPOAgent(cfg, i, dev)
+            st = agent.init(init)
+            views = agent.actor_layout.views(st.actor)
+            A = agent.action_dim
+            for shift in (0.0, 3.0, -3.0):
+                ls = (views["log_std"] + shift).contiguous()
+                for nb in (B, 32, 10):
+                    with torch.no_grad():
+                        pre = actor_ppo_pre(views, obs[i][:nb]).contiguous()
+                    noise = torch.randn(nb, A, generator=gen, device=dev)
+                    for mode, nz in (("train", noise), ("eval", None)):
+                        out = torch.full((nb, A + 2), 7.0, device=dev)
+                        lpo = torch.full((nb, A + 2), 7.0, device=dev)
+                        K.ppo_head(pre, ls, nz, out[:, 1:1 + A],
+                                   lpo[:, 1:1 + A], cfg.max_action)
+                        ap, lp = K.ppo_head_plain(pre, ls, nz, cfg.max_action)
+                        da = float((out[:, 1:1 + A] - ap).abs().max())
+                        dl, tol, fin = _err(lpo[:, 1:1 + A], lp)
+                        kept = bool((out[:, 0] == 7).all()
+                                    and (out[:, -1] == 7).all()
+                                    and (lpo[:, 0] == 7).all()
+                                    and (lpo[:, -1] == 7).all())
+                        worst["ppo_head"] = max(worst["ppo_head"], da, dl)
+                        log("family_actors", kernel="ppo_head", config=fam,
+                            agent=i, batch=nb, mode=mode, log_std_shift=shift,
+                            clipped=float((ap.abs() == 1.0).float().mean()),
+                            max_abs_err=[da, dl], other_columns_kept=kept)
+                        if not (da <= 1e-5 and dl <= tol and fin and kept):
+                            bad.append(("ppo_head", fam, i, nb, mode, shift,
+                                        da, dl, kept))
+    if bad:
+        raise AssertionError(f"new actor kernels disagree: {bad[:5]}")
+    return worst
+
+
+def phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
+                         obs_mono):
+    """One record per new instance: K3 and K4 at each new first block
+    (weighted over its (rows) instances on the twelve runs), K9 and K11 at
+    the MONO actor, and K11's head; each with its launches on those runs,
+    device time per launch, the plain twin's time and the bound."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.models.mlp import actor_ppo_pre
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    fwd, bwd = Counter(), Counter()
+    run_fwd, run_bwd = Counter(), Counter()
+    total = Counter()
+    for run in runs.values():
+        fwd.update(run["shapes"][0])
+        bwd.update(run["shapes"][1])
+        run_fwd.update(run["shape_totals"][0])
+        run_bwd.update(run["shape_totals"][1])
+        total.update(run["launches"])
+    records = []
+    for dims in NEW_BLOCKS:
+        # timed at one superstep's instances of each run; launches: the
+        # runs' whole count at this block
+        f = Counter({k: c for k, c in fwd.items() if k[0] == dims})
+        b = Counter({k: c for k, c in bwd.items() if k[0] == dims})
+        kf, kb = block_instances(dev, (f, b), gen, path="families")
+        tag = "_".join(map(str, dims))
+        records.append(_record(
+            f"emlp_block_{tag}", "emlp_block.cu",
+            "gym_rotor_tpu/models/emlp/nn.py:431",
+            sum(c for k, c in run_fwd.items() if k[0] == dims),
+            block_errs[dims][0], kf))
+        records.append(_record(
+            f"emlp_block_backward_{tag}", "emlp_block.cu",
+            "gym_rotor_tpu/models/emlp/nn.py:39",
+            sum(c for k, c in run_bwd.items() if k[0] == dims),
+            block_errs[dims][1], kb))
+
+    # K9 and K11 at the MONO actor, 4096 rows in train mode
+    for name, kernel, plain, replaces, extra in (
+            ("sac_mono_emlp", KA.sac_actor, KA.sac_actor_plain,
+             "gym_rotor_tpu/algos/sac.py:114", "sac"),
+            ("ppo_mono_emlp", KA.ppo_actor, KA.ppo_actor_plain,
+             "gym_rotor_tpu/algos/ppo.py:107", "ppo")):
+        run = runs[name]
+        actor = run["agents"][0].bound_actor(run["states"][0])
+        o = obs_mono[0]
+        noise = torch.randn(B, 4, generator=gen, device=dev)
+        with torch.no_grad():
+            k_ms, k_wall = device_ms(lambda: kernel(actor, o, noise), 100)
+            p_ms, _ = device_ms(lambda: plain(actor, o, noise), 10, 3)
+        folded = KA.fold_actor(actor)
+        nin, ng, nh, nact = folded["dims"]
+        per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
+                      for ni, nnz in zip((nin, nh), folded["nnz"]))
+        # the heads: K9's mean and log_std Dense, clip, exp, the sample and
+        # tanh (phase_sac_kernels); K11's mean, tanh and the draw with its
+        # log-prob (phase_ppo_kernels)
+        per_row += (2 * (2 * nh * nact + nact) + 6 * nact if extra == "sac"
+                    else 2 * nh * nact + 2 * nact + 11 * nact)
+        outs = 2 if extra == "ppo" else 1
+        nbytes = (o.numel() + (1 + outs) * B * nact
+                  + folded["params"].numel() + folded["ints"].numel()) * 4
+        bms, by = bound_ms(nbytes, B * per_row)
+        kname = f"{extra}_actor"
+        log("kernels", kernel=f"{kname}_mono", dims=[nin, ng, nh, nact],
+            batch=B, mode="train", ms=k_ms, wall_ms_per_call=k_wall,
+            plain_ms=p_ms, bytes=nbytes, flops=B * per_row, bound_ms=bms,
+            bound_by=by, library_ms=None)
+        records.append(_record(f"{kname}_mono", "emlp_actor.cu", replaces,
+                               run["launches"].get(kname, 0),
+                               actor_errs[f"{kname}_mono"],
+                               [(1, k_ms, p_ms, bms, by, None)]))
+
+    # K11's head at 4096 rows on each MLP PPO actor of the runs
+    inst = []
+    for name in ("ppo_ctde_mlp", "ppo_mod_mlp", "ppo_mono_mlp"):
+        run = runs[name]
+        obs = obs_mono if "mono" in name else obs_mod
+        for i, (agent, st) in enumerate(zip(run["agents"], run["states"])):
+            views = agent.actor_layout.views(st.actor)
+            A = agent.action_dim
+            with torch.no_grad():
+                pre = actor_ppo_pre(views, obs[i]).contiguous()
+            ls = views["log_std"]
+            noise = torch.randn(B, A, generator=gen, device=dev)
+            k_ms, k_wall = device_ms(lambda: KA.ppo_head(pre, ls, noise), 100)
+            p_ms, _ = device_ms(lambda: KA.ppo_head_plain(pre, ls, noise), 50)
+            # pre and noise read, action and log-prob written; tanh, exp,
+            # the draw (2), the clip (2), z (2), its square and the log-prob
+            # (3): 12 flops an element
+            nbytes = 4 * (4 * B * A + A)
+            bms, by = bound_ms(nbytes, 12 * B * A)
+            inst.append((run["launches"].get("ppo_head", 0)
+                         / len(run["agents"]), k_ms, p_ms, bms, by, None))
+            log("kernels", kernel="ppo_head", config=name, agent=i,
+                rows=B, act=A, ms=k_ms, wall_ms_per_call=k_wall,
+                plain_ms=p_ms, bytes=nbytes, flops=12 * B * A, bound_ms=bms,
+                bound_by=by, library_ms=None)
+    records.append(_record("ppo_head", "emlp_actor.cu",
+                           "gym_rotor_tpu/algos/ppo.py:107",
+                           total.get("ppo_head", 0), actor_errs["ppo_head"],
+                           inst))
+    return records
+
+
+def phase_families(dev):
+    """The rest of the learner matrix (phase 21): the new K3/K4, K9, K11
+    instances and K11's head vs their twins; ``train`` at full width for
+    each of the twelve configurations of ``FAMILY_CONFIGS`` (exact launch
+    counts per superstep, K3/K4 per shape and rows, finite losses, moved
+    parameters); ``evaluate`` with the trained actors of the five README
+    rows; and the new instances' kernel records."""
+    from gym_rotor_tpu_torch.envs.batch import batched_reset
+    from gym_rotor_tpu_torch.kernels.emlp_block import (emlp_block,
+                                                        emlp_block_backward)
+    from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    obs_mod = [o.contiguous() for o in batched_reset(Config(num_envs=B), gen,
+                                                     device=dev)[1]]
+    obs_mono = [o.contiguous() for o in batched_reset(
+        Config(num_envs=B, framework="MONO"), gen, device=dev)[1]]
+    block_errs = phase_family_blocks(dev, obs_mod, obs_mono)
+    actor_errs = phase_family_actors(dev, obs_mod, obs_mono)
+    runs = {}
+    for name, kw in FAMILY_CONFIGS:
+        algo = kw.get("rl_algo", "TD3")
+        if algo == "PPO":
+            cfg, launches, shapes, run = phase_train_ppo(
+                dev, name, dict(PPO_CONFIGS["B"], **kw), FAMILY_PPO_STEPS)
+        else:
+            cfg = Config(num_envs=B, start_timesteps=B, **kw)
+            train_fn = phase_train if algo == "TD3" else (
+                lambda d, c, n, name: phase_train_sac(d, n, False, cfg=c,
+                                                      name=name))
+            launches, shapes, run = train_fn(dev, cfg, FAMILY_STEPS,
+                                             name=f"train_{name}")
+        # the train phases clear K3/K4's per-shape counts as they start:
+        # what they hold now is this run's
+        run.update(cfg=cfg, launches=launches, shapes=shapes,
+                   shape_totals=(Counter(emlp_block.by_shape),
+                                 Counter(emlp_block_backward.by_shape)))
+        runs[name] = run
+    for name in RESULTS_ROWS:
+        run = runs[name]
+        actors = [a.bound_actor(st)
+                  for a, st in zip(run["agents"], run["states"])]
+        phase_eval(run["cfg"].replace(num_envs=B), dev, actors,
+                   name=f"eval_{name}")
+    return phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
+                                obs_mono)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2429,7 +2958,7 @@ def main():
     errs["sac_sample"] = phase_sac_sample(dev)
     k5_td3, k5_sac = K5Calls(), K5Calls()
     launches, shapes, _ = phase_train(dev, k5=k5_td3)
-    sac_launches = phase_train_sac(dev, SAC_STEPS, False, k5_sac)
+    sac_launches = phase_train_sac(dev, SAC_STEPS, False, k5_sac)[0]
     phase_train_sac(dev, 3, True)
     ppo_agents, ppo_states, errs["ppo_actor"] = phase_ppo_actor(cfg, dev, obs)
     errs["gae"] = phase_gae(cfg, dev)
@@ -2444,6 +2973,7 @@ def main():
     records += phase_ppo_kernels(dev, ppo_agents, obs, ppo_runs, errs)
     phase_k5(dev, k5_td3, k5_sac)
     records += phase_mono(dev)
+    records += phase_families(dev)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

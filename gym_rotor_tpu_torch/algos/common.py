@@ -167,16 +167,19 @@ class FlatAgent:
 
     ``equivariant`` (``cfg.use_equiv``): EMLP networks, whose blocks run
     through K3/K4 and whose weights carry the spectral-norm penalty; or
-    plain MLPs (TD3 only), which carry no penalty (JAX's ``ModelDefs``
+    plain MLPs, which carry no penalty in any learner (JAX's ``ModelDefs``
     leaves ``*_spectral`` None for them, ``td3.py:256``, ``:311``), so their
-    spectral widths are empty and no start vectors are drawn."""
+    spectral widths are empty and no start vectors are drawn.
 
-    def __init__(self, cfg: Config, agent_id: int, device, dtype, models,
-                 algo: str):
-        if cfg.framework == "MODUL" and cfg.module_training == "CTDE":
-            raise NotImplementedError(f"the CTDE branch of {algo} is not "
-                                      "ported")
+    ``is_ctde`` (MODUL with ``module_training="CTDE"``): the critic is
+    built over every agent's obs (and, for a Q critic, every agent's
+    action), ``sum(obs_dim_n)`` and ``sum(action_dim_n)`` wide (JAX
+    ``td3.py:116-119``, ``ppo.py:82``); the learners feed it the joint
+    batch."""
+
+    def __init__(self, cfg: Config, agent_id: int, device, dtype, models):
         self.cfg, self.agent_id, self.dtype = cfg, agent_id, dtype
+        self.is_ctde = cfg.is_ctde
         self.device = resolve_device(device)
         self.obs_dim = cfg.obs_dim_n[agent_id]
         self.action_dim = cfg.action_dim_n[agent_id]

@@ -1,12 +1,14 @@
-"""PPO learner, DTDE (port of ``gym_rotor_tpu/algos/ppo.py``).
+"""PPO learner (port of ``gym_rotor_tpu/algos/ppo.py``).
 
 One full update per horizon: GAE(lambda) advantages and TD targets from the
 V critic, then ``K_epochs`` of shuffled equal-size minibatches (``T // mb``
 per epoch, as JAX, which drops the remainder), each an actor step on the
-clipped surrogate with its decaying entropy bonus, CAPS and the
-spectral-norm penalty, and a critic step on the L2-regularised TD error
-with its spectral penalty: ``_train_one`` line for line, for the DTDE
-branch (a CTDE configuration raises ``NotImplementedError``).
+clipped surrogate with its decaying entropy bonus, CAPS and (EMLP
+networks) the spectral-norm penalty, and a critic step on the
+L2-regularised TD error with its spectral penalty: ``_train_one`` line for
+line, DTDE and CTDE.  Under CTDE the V critic reads every agent's obs and
+next obs (``ppo.py:170-176``), in the GAE pass and in its minibatches; the
+actor and the advantages stay the agent's own.
 
 On the card the update runs through the port's kernels: GAE is K12
 (``kernels/gae.py``), the surrogate K13 (``kernels/ppo_loss.py``, forward
@@ -15,7 +17,9 @@ and backward), every EMLP block of every forward and backward K3/K4
 step one K6 call (no Polyak: PPO keeps no targets); the fold (K5), the
 tanh, clips, CAPS, L2 and mse are torch ops.  Acting is one K11 launch per
 agent and tick (``kernels/emlp_actor.py``), which writes the log-prob
-straight into the horizon.
+straight into the horizon.  MLP networks are ``F.linear`` chains; the MLP
+actor's acting draw is one launch of K11's head (``ppo_head``) on its mean
+head's output, and its loss goes through K13 as the EMLP actor's.
 
 The horizon (``HorizonBuffer``) is a K2 ring of exactly ``T * B`` rows,
 written each tick by ``replay.insert_tick`` with the K8 episode statistics
@@ -45,6 +49,7 @@ from ..envs import draws as D
 from ..kernels import gae as K12
 from ..kernels.emlp_block import emlp_apply
 from ..kernels.ppo_loss import ppo_surrogate
+from ..models import mlp
 from ..models.zoo import ppo_models
 from ..utils.config import Config
 from . import regularizers
@@ -101,15 +106,16 @@ class HorizonBuffer:
 
 
 class PPOAgent(FlatAgent):
-    """An ``EMLPActorPPO`` bound to the state's actor vector for acting and
-    an ``EMLPVCritic`` for the critic's structure."""
+    """An ``EMLPActorPPO`` or ``ActorPPO`` bound to the state's actor
+    vector for acting and an ``EMLPVCritic`` or ``VCritic`` for the
+    critic's structure."""
 
     def __init__(self, cfg: Config, agent_id: int, device=None,
                  dtype=torch.float32):
         def models(generator):
             return ppo_models(cfg, agent_id, device="cpu", dtype=dtype,
                               generator=generator)
-        super().__init__(cfg, agent_id, device, dtype, models, "PPO")
+        super().__init__(cfg, agent_id, device, dtype, models)
 
     # -- state
     def init(self, generator: Optional[torch.Generator] = None) -> PPOState:
@@ -142,8 +148,9 @@ class PPOAgent(FlatAgent):
         """``(action, per-dim log-prob)``: ``clip(mean + exp(log_std)
         noise)`` and the log-density of the clipped action with the N(0,
         1) draw ``noise``, or ``(clip(mean), zeros)`` without it
-        (ppo.py:102-116); on the card one K11 launch (folded once per
-        parameter version), written into ``out`` and ``logp`` when
+        (ppo.py:102-116); on the card one K11 launch (EMLP, folded once
+        per parameter version) or the MLP's ``F.linear`` chain and one
+        launch of K11's head, written into ``out`` and ``logp`` when
         given."""
         actor = self.bound_actor(state)
         with torch.no_grad():
@@ -151,7 +158,10 @@ class PPOAgent(FlatAgent):
 
     # -- the training path's networks, on views of a flat vector
     def actor_mean(self, views: Dict[str, torch.Tensor], obs):
-        """``tanh(network(obs))`` through K3/K4."""
+        """``tanh(network(obs))`` through K3/K4, or the MLP actor's tanh
+        mean head."""
+        if not self.equivariant:
+            return torch.tanh(mlp.actor_ppo_pre(views, obs))
         return torch.tanh(emlp_apply(self.actor_net.network, views,
                                      "network.", obs))
 
@@ -161,7 +171,10 @@ class PPOAgent(FlatAgent):
         return mean, views["log_std"].expand_as(mean)
 
     def critic_apply(self, views: Dict[str, torch.Tensor], obs):
-        """``V(obs)`` through K3/K4 (the single V network, no twin)."""
+        """``V(obs)`` through K3/K4 (the single V network, no twin), or the
+        MLP ``VCritic``."""
+        if not self.equivariant:
+            return mlp.v_critic(views, obs)
         return emlp_apply(self.critic_net.network, views, "network.", obs)
 
 
@@ -202,9 +215,13 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
     def flat(x):
         return x.reshape(-1, x.shape[-1])
 
-    # ----- values before any step (ppo.py:176-206): one forward over the
-    # observations and the next observations
-    v_obs, v_next = data.obs[i], data.next_obs[i]
+    # ----- values before any step (ppo.py:170-206): one forward over the
+    # observations and the next observations (under CTDE every agent's)
+    if agent.is_ctde:
+        v_obs = torch.cat(data.obs, dim=-1)
+        v_next = torch.cat(data.next_obs, dim=-1)
+    else:
+        v_obs, v_next = data.obs[i], data.next_obs[i]
     with torch.no_grad():
         both = agent.critic_apply(agent.critic_layout.views(st.critic),
                                   torch.cat([flat(v_obs), flat(v_next)]))
@@ -218,6 +235,7 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
         flat(data.logprob[i])
     next_obs_i, advs, td_targets = flat(data.next_obs[i]), flat(advs), \
         flat(td_targets)
+    v_obs_i = flat(v_obs)
     T = obs_i.shape[0]
     n_mb_a = max(T // cfg.actor_batch_size, 1)
     n_mb_c = max(T // cfg.critic_batch_size, 1)
@@ -242,7 +260,8 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
             aloss = ppo_surrogate(mean3[:mb], av["log_std"], a_p[sl],
                                   lp_p[sl], ad_p[sl], st.entropy_coef,
                                   cfg.clip_rate)
-            aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
+            if agent.equivariant:
+                aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
             m3c = torch.clamp(mean3, -m, m)
             aloss = aloss + regularizers.caps_terms(
                 cfg, agent.agent_id, m3c[:mb], m3c[mb:2 * mb], m3c[2 * mb:])
@@ -252,7 +271,7 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
                                                  owner=agent.actor_net)
 
         # ----- critic minibatches (ppo.py:280-310)
-        vo_p, tt_p = obs_i.index_select(0, perm), td_targets.index_select(
+        vo_p, tt_p = v_obs_i.index_select(0, perm), td_targets.index_select(
             0, perm)
         for k in range(n_mb_c):
             sl = slice(k * mb_c, (k + 1) * mb_c)
@@ -261,7 +280,8 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
             closs = mse(agent.critic_apply(cv, vo_p[sl]), tt_p[sl])
             closs = closs + cfg.l2_reg * sum(torch.sum(w ** 2)
                                              for w in _kernels(cv))
-            closs = closs + 1e-10 * spectral_penalty(cv, d.critic_starts)
+            if agent.equivariant:
+                closs = closs + 1e-10 * spectral_penalty(cv, d.critic_starts)
             (cgrad,) = torch.autograd.grad(closs, leaf)
             st.critic_opt = agent.critic_tx.update(st.critic, cgrad,
                                                    st.critic_opt,

@@ -1,20 +1,28 @@
-"""Soft Actor-Critic learner, DTDE (port of ``gym_rotor_tpu/algos/sac.py``).
+"""Soft Actor-Critic learner (port of ``gym_rotor_tpu/algos/sac.py``).
 
-Squashed-Gaussian EMLP actor, twin critics with the entropy term in the
-target, a fixed (``sac_alpha``) or auto-tuned temperature, the critic
-target's Polyak every ``policy_update_freq`` updates, CAPS and the
-spectral-norm penalty: ``_train_one`` line for line, for the DTDE branch (a
-CTDE configuration raises ``NotImplementedError``).  The actor is updated
-on every update.
+Squashed-Gaussian actor, twin critics with the entropy term in the target,
+a fixed (``sac_alpha``) or auto-tuned temperature, the critic target's
+Polyak every ``policy_update_freq`` updates, CAPS and (EMLP networks) the
+spectral-norm penalty: ``_train_one`` line for line, DTDE and CTDE.  The
+actor is updated on every update.  Under CTDE (``sac.py:153-171``,
+``:212-220``) the critic sees every agent's obs and action: its target
+action is every agent's current actor sampled on its own ``next_obs``, and
+the actor loss's joint action puts the agent's sample beside the other
+agents' current samples, with the log-prob and the three CAPS samples from
+their own draws.  Agents update in order, in place, as in ``algos/td3.py``.
 
 On the card the update runs through the port's kernels: every EMLP block of
 every forward and backward is K3/K4 (``kernels/emlp_block.py``), the
 squashed sample and its log-prob are K10 (``kernels/sac_sample.py``, forward
-for the target sample and the actor loss, backward for the actor loss), the
-power iterations K7 and each network's optimizer step one K6 call; the fold
-(K5), the heads, the log_std clip, tanh clips and losses are torch ops, and
-so is the temperature's AdamW on its one scalar.  Acting is one K9 launch
-per agent (``kernels/emlp_actor.py``).
+for the target samples and the actor loss, backward for the actor loss),
+the power iterations K7 and each network's optimizer step one K6 call; the
+fold (K5), the heads, the log_std clip, tanh clips and losses are torch
+ops, and so is the temperature's AdamW on its one scalar.  MLP networks are
+``F.linear`` chains whose samples go through K10 all the same.  Acting is
+one K9 launch per EMLP agent (``kernels/emlp_actor.py``), or the MLP
+actor's ``F.linear`` chain and one K10 forward.  Samples of one actor on
+one set of weights are fused along the batch (one forward over the rows
+with their draws), as JAX fuses the DTDE actor loss's four.
 
 Divergences, deliberate: the state is updated in place, as in
 ``algos/td3.py``, and ``total_it`` and the optimizer counts are host
@@ -31,6 +39,7 @@ import torch
 from ..envs import draws as D
 from ..kernels.emlp_block import emlp_trunk, equiv_linear
 from ..kernels.sac_sample import squashed_gaussian
+from ..models import mlp
 from ..models.zoo import sac_models
 from ..models.mlp import LOG_SIG_MAX, LOG_SIG_MIN
 from ..utils.config import Config
@@ -86,16 +95,16 @@ class ScalarAdamW:
 
 
 class SACAgent(FlatAgent):
-    """An ``EMLPActorSAC`` bound to the state's actor vector for acting, an
-    ``EMLPCriticTwin`` for the critic's structure, and the temperature's
-    optimizer."""
+    """An ``EMLPActorSAC`` or ``ActorSAC`` bound to the state's actor
+    vector for acting, an ``EMLPCriticTwin`` or ``CriticTwin`` for the
+    critic's structure, and the temperature's optimizer."""
 
     def __init__(self, cfg: Config, agent_id: int, device=None,
                  dtype=torch.float32):
         def models(generator):
             return sac_models(cfg, agent_id, device="cpu", dtype=dtype,
                               generator=generator)
-        super().__init__(cfg, agent_id, device, dtype, models, "SAC")
+        super().__init__(cfg, agent_id, device, dtype, models)
         self.alpha_tx = ScalarAdamW(cfg.lr_a[agent_id])
         self.target_entropy = -float(self.action_dim)   # sac.py:54
         self._alpha = torch.tensor(cfg.sac_alpha, dtype=torch.float32,
@@ -138,8 +147,8 @@ class SACAgent(FlatAgent):
                       out: Optional[torch.Tensor] = None):
         """``tanh(mean + exp(log_std) noise)`` with the N(0, 1) draw
         ``noise``, or the deterministic ``tanh(mean)`` without it
-        (sac.py:108-117); on the card one K9 launch (folded once per
-        parameter version)."""
+        (sac.py:108-117); on the card one K9 launch (EMLP, folded once per
+        parameter version) or the MLP's ``F.linear`` chain and K10."""
         actor = self.bound_actor(state)
         with torch.no_grad():
             return actor(obs, noise, out)
@@ -147,7 +156,10 @@ class SACAgent(FlatAgent):
     # -- the training path's networks, on views of a flat vector
     def dist_f(self, views: Dict[str, torch.Tensor], obs):
         """``(mean, log_std)``: the trunk through K3/K4, the equivariant
-        mean head and the clipped log_std Dense as torch ops."""
+        mean head and the clipped log_std Dense as torch ops; or the MLP
+        actor's ``F.linear`` chain."""
+        if not self.equivariant:
+            return mlp.actor_sac(views, obs)
         net = self.actor_net
         h = emlp_trunk(net, views, "", obs)
         mean = equiv_linear(net.network_head, views, "network_head.", h)
@@ -163,7 +175,8 @@ class SACAgent(FlatAgent):
 def make_act_fn(agents: Sequence[SACAgent]):
     """The superstep's acting hook (``train.py:352-366``):
     ``act(states, obs, noise_std, noise) -> joint action``, each agent's
-    K9 sample written into its columns; ``noise_std`` is unused."""
+    sample (K9, or the MLP chain and K10) written into its columns;
+    ``noise_std`` is unused."""
     dims = [a.action_dim for a in agents]
 
     def act(states, obs, noise_std, noise):
@@ -204,21 +217,42 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     alpha = agent.alpha(st)
     gate = (st.total_it + 1) % cfg.policy_update_freq == 0
 
+    B = obs.shape[0]
+
     # ----- target sample from the current actor + entropy (sac.py:152-193)
     with torch.no_grad():
-        a_next, logp_next = agent.sample_f(
-            agent.actor_layout.views(st.actor), next_obs, d.next_noise)
+        if agent.is_ctde:
+            # every agent's sample on its next_obs; the agent's own and its
+            # log-prob sample in one forward of 2 B rows
+            a2, lp2 = agent.sample_f(
+                agent.actor_layout.views(st.actor),
+                torch.cat([next_obs, next_obs]),
+                torch.cat([d.next_joint[i], d.next_noise]))
+            logp_next = lp2[B:]
+            t_act = torch.cat([
+                a2[:B] if j == i else other.sample_f(
+                    other.actor_layout.views(states[j].actor),
+                    batch.next_obs[j], d.next_joint[j])[0]
+                for j, other in enumerate(agents)], dim=-1)
+            t_obs = torch.cat(batch.next_obs, dim=-1)
+            c_obs = torch.cat(batch.obs, dim=-1)
+            c_act = torch.cat(batch.act, dim=-1)
+        else:
+            t_act, logp_next = agent.sample_f(
+                agent.actor_layout.views(st.actor), next_obs, d.next_noise)
+            t_obs, c_obs, c_act = next_obs, obs, act
         tq1, tq2 = agent.critic_apply(
-            agent.critic_layout.views(st.critic_target), next_obs, a_next)
+            agent.critic_layout.views(st.critic_target), t_obs, t_act)
         target_q = rwd + cfg.discount * (1.0 - done) * (
             torch.minimum(tq1, tq2) - alpha * logp_next)
 
     # ----- critic update (sac.py:173-199)
     leaf = st.critic.detach().requires_grad_(True)
     cv = agent.critic_layout.views(leaf)
-    q1, q2 = agent.critic_apply(cv, obs, act)
+    q1, q2 = agent.critic_apply(cv, c_obs, c_act)
     closs = mse(q1, target_q) + mse(q2, target_q)
-    closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
+    if agent.equivariant:
+        closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
     (cgrad,) = torch.autograd.grad(closs, leaf)
     # the critic target's Polyak runs after the actor step on the updated
     # critic (sac.py:277-289): the same values when done in this K6 call
@@ -228,24 +262,37 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         owner=agent.critic_net)
 
     # ----- actor update on the updated critic (sac.py:201-261): one actor
-    # forward over [obs; obs; next_obs; obs + eps]
+    # forward over [obs; obs; next_obs; obs + eps] (under CTDE over [obs;
+    # obs; obs; next_obs; obs + eps], the joint action's sample first)
     critic = agent.critic_layout.views(st.critic.detach())
     leaf = st.actor.detach().requires_grad_(True)
     av = agent.actor_layout.views(leaf)
     eps = regularizers.caps_noise(d.caps_eps)
-    obs4 = torch.cat([obs, obs, next_obs, obs + eps], dim=0)
-    mean4, log_std4 = agent.dist_f(av, obs4)
-    B = obs.shape[0]
-    noise4 = torch.cat([d.n_pi, d.n_caps, d.n_caps, d.n_caps], dim=0)
-    a4, logp4 = squashed_gaussian(mean4, log_std4, noise4)
-    a4c = torch.clamp(a4, -m, m)
-    a_pi, logp = a4[:B], logp4[:B]
-    q1, q2 = agent.critic_apply(critic, obs, a_pi)
+    rows = [obs, obs, next_obs, obs + eps]
+    draws = [d.n_pi, d.n_caps, d.n_caps, d.n_caps]
+    if agent.is_ctde:
+        rows, draws = [obs] + rows, [d.pi_joint[i]] + draws
+    k = len(rows) - 4
+    mean_r, log_std_r = agent.dist_f(av, torch.cat(rows, dim=0))
+    a_r, logp_r = squashed_gaussian(mean_r, log_std_r,
+                                    torch.cat(draws, dim=0))
+    ac = torch.clamp(a_r[(k + 1) * B:], -m, m)
+    logp = logp_r[k * B:(k + 1) * B]
+    if agent.is_ctde:
+        # the other agents' current samples, constants here (sac.py:212-220)
+        with torch.no_grad():
+            others = [None if j == i else other.sample_f(
+                other.actor_layout.views(states[j].actor), batch.obs[j],
+                d.pi_joint[j])[0] for j, other in enumerate(agents)]
+        others[i] = a_r[:B]
+        q1, q2 = agent.critic_apply(critic, c_obs, torch.cat(others, dim=-1))
+    else:
+        q1, q2 = agent.critic_apply(critic, obs, a_r[:B])
     aloss = -(torch.minimum(q1, q2) - alpha * logp).mean()
-    aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
-    aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id,
-                                            a4c[B:2 * B], a4c[2 * B:3 * B],
-                                            a4c[3 * B:])
+    if agent.equivariant:
+        aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
+    aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, ac[:B],
+                                            ac[B:2 * B], ac[2 * B:])
     (agrad,) = torch.autograd.grad(aloss, leaf)
     st.actor_opt = agent.actor_tx.update(st.actor, agrad, st.actor_opt,
                                          owner=agent.actor_net)

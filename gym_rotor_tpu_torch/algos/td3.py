@@ -1,10 +1,15 @@
-"""TD3 learner, DTDE (port of ``gym_rotor_tpu/algos/td3.py``).
+"""TD3 and MATD3 learner (port of ``gym_rotor_tpu/algos/td3.py``).
 
 Twin critics with clipped double-Q, target policy smoothing, the delayed
 actor update every ``policy_update_freq`` updates, Polyak targets, the flat
 AdamW chain with global-norm clipping and cosine warm restarts, CAPS and
-the spectral-norm penalty: ``_train_one`` line for line, for the DTDE
-branch (a CTDE configuration raises ``NotImplementedError``).
+the spectral-norm penalty: ``_train_one`` line for line, DTDE and CTDE.
+Under CTDE (MATD3, ``td3.py:209-224``, ``:298-306``) each agent's critic
+sees every agent's obs and action: its target is every agent's target actor
+on its own ``next_obs`` with its own clipped smoothing noise, and its actor
+loss puts the agent's action beside the other agents' *current* actions.
+Agents update in order, in place, so agent 1 reads agent 0's updated
+actor and targets, as JAX's ``train_step`` passes ``new_states`` on.
 
 The networks come from ``models/zoo.py::td3_models``: EMLP (``use_equiv``)
 or plain MLPs.  On the card the update runs through the port's kernels:
@@ -64,7 +69,7 @@ class TD3Agent(FlatAgent):
         def models(generator):
             return td3_models(cfg, agent_id, device="cpu", dtype=dtype,
                               generator=generator)
-        super().__init__(cfg, agent_id, device, dtype, models, "TD3")
+        super().__init__(cfg, agent_id, device, dtype, models)
 
     # -- state
     def init(self, generator: Optional[torch.Generator] = None) -> TD3State:
@@ -131,6 +136,17 @@ def train_step(cfg: Config, agents: Sequence[TD3Agent],
     return states, metrics
 
 
+def _smoothed(cfg: Config, agent: TD3Agent, actor_target: torch.Tensor,
+              next_obs, noise):
+    """The target actor's action with clipped smoothing noise, clipped to
+    ``max_action`` (td3.py:209-233)."""
+    a_next = agent.actor_apply(agent.actor_layout.views(actor_target),
+                               next_obs)
+    noise = torch.clamp(cfg.target_noise * noise, -cfg.noise_clip,
+                        cfg.noise_clip)
+    return torch.clamp(a_next + noise, -cfg.max_action, cfg.max_action)
+
+
 def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
                d: AgentDraws):
     agent, st = agents[i], states[i]
@@ -139,21 +155,29 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     m = cfg.max_action
     gate = (st.total_it + 1) % cfg.policy_update_freq == 0
 
-    # ----- target-policy smoothing and the target Q (td3.py:225-254)
+    # ----- target-policy smoothing and the target Q (td3.py:205-254):
+    # under CTDE every agent's target actor on its own next_obs
     with torch.no_grad():
-        a_next = agent.actor_apply(agent.actor_layout.views(st.actor_target),
-                                   next_obs)
-        noise = torch.clamp(cfg.target_noise * d.target_noise,
-                            -cfg.noise_clip, cfg.noise_clip)
-        t_act = torch.clamp(a_next + noise, -m, m)
+        if agent.is_ctde:
+            t_obs = torch.cat(batch.next_obs, dim=-1)
+            t_act = torch.cat([
+                _smoothed(cfg, other, states[j].actor_target,
+                          batch.next_obs[j], d.target_noise[j])
+                for j, other in enumerate(agents)], dim=-1)
+            c_obs = torch.cat(batch.obs, dim=-1)
+            c_act = torch.cat(batch.act, dim=-1)
+        else:
+            t_obs, c_obs, c_act = next_obs, obs, act
+            t_act = _smoothed(cfg, agent, st.actor_target, next_obs,
+                              d.target_noise)
         tq1, tq2 = agent.critic_apply(
-            agent.critic_layout.views(st.critic_target), next_obs, t_act)
+            agent.critic_layout.views(st.critic_target), t_obs, t_act)
         target_q = rwd + cfg.discount * (1.0 - done) * torch.minimum(tq1, tq2)
 
     # ----- critic update (td3.py:240-266)
     leaf = st.critic.detach().requires_grad_(True)
     cv = agent.critic_layout.views(leaf)
-    q1, q2 = agent.critic_apply(cv, obs, act)
+    q1, q2 = agent.critic_apply(cv, c_obs, c_act)
     closs = mse(q1, target_q) + mse(q2, target_q)
     if agent.equivariant:
         closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
@@ -175,7 +199,17 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         obs3 = torch.cat([obs, next_obs, obs + eps], dim=0)
         a3 = torch.clamp(agent.actor_apply(av, obs3), -m, m)
         a_cur, a_nxt, a_prt = torch.split(a3, obs.shape[0], dim=0)
-        aloss = -agent.critic_q1(critic, obs, a_cur).mean()
+        if agent.is_ctde:
+            # the other agents' current actors, constants here (td3.py:298)
+            with torch.no_grad():
+                others = [None if j == i else torch.clamp(other.actor_apply(
+                    other.actor_layout.views(states[j].actor), batch.obs[j]),
+                    -m, m) for j, other in enumerate(agents)]
+            others[i] = a_cur
+            aloss = -agent.critic_q1(critic, c_obs,
+                                     torch.cat(others, dim=-1)).mean()
+        else:
+            aloss = -agent.critic_q1(critic, obs, a_cur).mean()
         if agent.equivariant:
             aloss = aloss + 1e-5 * spectral_penalty(av, d.actor_starts)
         aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, a_cur,

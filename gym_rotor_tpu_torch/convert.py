@@ -26,6 +26,7 @@ from .envs.state import EnvState, Goal
 from .envs.trajectory import TrajState
 from .models.emlp.nn import _bilinear_struct, gated
 from .models.emlp.zoo import actor_reps, critic_reps, v_critic_reps
+from .models.zoo import critic_in
 from .utils.config import Config
 from .utils.device import resolve_device
 
@@ -71,26 +72,52 @@ def _actor_shapes(cfg: Config, agent_id: int):
                         *actor_reps(cfg, cfg.framework, agent_id))
 
 
+def _mlp_actor_trunk(cfg: Config, agent_id: int):
+    h = cfg.actor_hidden_dim[agent_id]
+    return h, _dense_shapes(("Dense_0", "Dense_1"),
+                            (cfg.obs_dim_n[agent_id], h, h))
+
+
 def _sac_actor_shapes(cfg: Config, agent_id: int):
     """``EMLPActorSAC``: top-level ``network_block{i}``, ``network_head``
-    and the ``log_std_linear`` Dense (kernel ``(nin, nout)``)."""
+    and the ``log_std_linear`` Dense (kernel ``(nin, nout)``); or
+    ``ActorSAC`` (``Dense_0``, ``Dense_1``, ``mean``, ``log_std``) without
+    ``use_equiv``."""
+    act = cfg.action_dim_n[agent_id]
+    if not cfg.use_equiv:
+        h, shapes = _mlp_actor_trunk(cfg, agent_id)
+        for name in ("mean", "log_std"):
+            shapes.update(_dense_shapes((name,), (h, act)))
+        return shapes
     rep_in, hidden, rep_out = actor_reps(cfg, cfg.framework, agent_id)
     shapes = _emlp_shapes("network_block{}", "network_head", rep_in, hidden,
                           rep_out)
-    act = cfg.action_dim_n[agent_id]
     shapes["log_std_linear.kernel"] = (hidden.size, act)
     shapes["log_std_linear.bias"] = (act,)
     return shapes
 
 
 def _ppo_actor_shapes(cfg: Config, agent_id: int):
-    """``EMLPActorPPO``: the EMLP ``network`` and ``log_std`` (1, act)."""
-    shapes = _actor_shapes(cfg, agent_id)
-    shapes["log_std"] = (1, cfg.action_dim_n[agent_id])
+    """``EMLPActorPPO``: the EMLP ``network`` and ``log_std`` (1, act); or
+    ``ActorPPO`` (``Dense_0``, ``Dense_1``, ``mean``, ``log_std``) without
+    ``use_equiv``."""
+    act = cfg.action_dim_n[agent_id]
+    if cfg.use_equiv:
+        shapes = _actor_shapes(cfg, agent_id)
+    else:
+        h, shapes = _mlp_actor_trunk(cfg, agent_id)
+        shapes.update(_dense_shapes(("mean",), (h, act)))
+    shapes["log_std"] = (1, act)
     return shapes
 
 
 def _v_critic_shapes(cfg: Config, agent_id: int):
+    """``EMLPVCritic``, or ``VCritic`` (``Dense_0..2``) without
+    ``use_equiv``; under CTDE over every agent's obs."""
+    if not cfg.use_equiv:
+        h = cfg.critic_hidden_dim
+        return _dense_shapes(("Dense_0", "Dense_1", "Dense_2"),
+                             (critic_in(cfg, agent_id, False), h, h, 1))
     return _emlp_shapes("network.block{}", "network.head",
                         *v_critic_reps(cfg, cfg.framework, agent_id,
                                        cfg.module_training))
@@ -98,11 +125,11 @@ def _v_critic_shapes(cfg: Config, agent_id: int):
 
 def _critic_shapes(cfg: Config, agent_id: int):
     """The twin Q critic: ``EMLPCriticTwin``, or ``CriticTwin``
-    (``q1_fc1..q2_fc3``) without ``use_equiv``."""
+    (``q1_fc1..q2_fc3``) without ``use_equiv``; under CTDE over every
+    agent's obs and action."""
     if not cfg.use_equiv:
         h = cfg.critic_hidden_dim
-        widths = (cfg.obs_dim_n[agent_id] + cfg.action_dim_n[agent_id], h, h,
-                  1)
+        widths = (critic_in(cfg, agent_id, True), h, h, 1)
         shapes = _dense_shapes(("q1_fc1", "q1_fc2", "q1_fc3"), widths)
         shapes.update(_dense_shapes(("q2_fc1", "q2_fc2", "q2_fc3"), widths))
         return shapes
@@ -139,20 +166,21 @@ def actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
 
 
 def sac_actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
-    """Flax ``EMLPActorSAC`` params -> the port SAC actor's ``state_dict``
-    (CPU tensors)."""
+    """Flax ``EMLPActorSAC`` (or ``ActorSAC``) params -> the port SAC
+    actor's ``state_dict`` (CPU tensors)."""
     return _params_from_jax(tree, _sac_actor_shapes(cfg, agent_id))
 
 
 def ppo_actor_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
-    """Flax ``EMLPActorPPO`` params -> the port PPO actor's ``state_dict``
-    (``log_std``, ``network.*``; CPU tensors)."""
+    """Flax ``EMLPActorPPO`` (or ``ActorPPO``) params -> the port PPO
+    actor's ``state_dict`` (``log_std`` and ``network.*``, or ``Dense_*``
+    and ``mean.*``; CPU tensors)."""
     return _params_from_jax(tree, _ppo_actor_shapes(cfg, agent_id))
 
 
 def v_critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
-    """Flax ``EMLPVCritic`` params -> the port V critic's ``state_dict``
-    (``network.*``; CPU tensors)."""
+    """Flax ``EMLPVCritic`` (or ``VCritic``) params -> the port V critic's
+    ``state_dict`` (``network.*`` or ``Dense_*``; CPU tensors)."""
     return _params_from_jax(tree, _v_critic_shapes(cfg, agent_id))
 
 

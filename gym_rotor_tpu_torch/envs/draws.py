@@ -61,11 +61,14 @@ class TickDraws(NamedTuple):
 
 class AgentDraws(NamedTuple):
     """One agent's update: the target-smoothing N(0, 1) (batch, act)
-    (``td3.py:227``), the CAPS N(0, 1) (1, obs) (``regularizers.py:55``,
-    scaled by 0.05 there), and one N(0, 1) start vector per regularized
-    weight, critic then actor, in ``spectral_weights`` order
-    (``regularizers.py:129``, one ``fold_in(key, i)`` each)."""
-    target_noise: torch.Tensor
+    (``td3.py:227``), or under CTDE a tuple of one (batch, act_j) per agent
+    ``j``, every agent's target action smoothed (``td3.py:209-221``, a
+    ``split`` chain over the agents); the CAPS N(0, 1) (1, obs)
+    (``regularizers.py:55``, scaled by 0.05 there), and one N(0, 1) start
+    vector per regularized weight, critic then actor, in
+    ``spectral_weights`` order (``regularizers.py:129``, one
+    ``fold_in(key, i)`` each)."""
+    target_noise: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
     caps_eps: torch.Tensor
     critic_starts: Tuple[torch.Tensor, ...]
     actor_starts: Tuple[torch.Tensor, ...]
@@ -78,13 +81,24 @@ class SACAgentDraws(NamedTuple):
     ``n_pi`` and the three CAPS samples' shared ``n_caps``, N(0, 1) (batch,
     act) each (``ks[4]``, ``ks[5]``, ``sac.py:239-240``), and the spectral
     start vectors, critic then actor, in ``spectral_weights`` order (both
-    sets from ``ks[2]`` in JAX, one ``fold_in(ks[2], i)`` each)."""
+    sets from ``ks[2]`` in JAX, one ``fold_in(ks[2], i)`` each).
+
+    Under CTDE two more, one (batch, act_j) per agent ``j`` each:
+    ``next_joint``, the sample of every agent's actor on its ``next_obs``
+    for the joint target action (``sac.py:153-160``, a ``split`` chain
+    from ``ks[0]``), and ``pi_joint``, the sample of every agent's actor on
+    its ``obs`` for the joint action of the actor loss (``sac.py:212-220``,
+    a chain from ``ks[3]``); there ``n_pi`` is the agent's own log-prob
+    sample (``ks[4]``) and ``n_caps`` the one shared by the three CAPS
+    samples (``ks[5]``, ``caps_regularization``'s ``act_fn``)."""
     next_noise: torch.Tensor
     caps_eps: torch.Tensor
     n_pi: torch.Tensor
     n_caps: torch.Tensor
     critic_starts: Tuple[torch.Tensor, ...]
     actor_starts: Tuple[torch.Tensor, ...]
+    next_joint: Optional[Tuple[torch.Tensor, ...]] = None
+    pi_joint: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 class UpdateDraws(NamedTuple):
@@ -136,16 +150,21 @@ def make_update_draws(batch: int, filled: int, obs_dims: Sequence[int],
                       critic_widths: Sequence[Sequence[int]],
                       actor_widths: Sequence[Sequence[int]],
                       generator: Optional[torch.Generator], device,
-                      dtype=torch.float32) -> UpdateDraws:
+                      dtype=torch.float32, ctde: bool = False) -> UpdateDraws:
     """``*_widths[i]``: the input widths (``W.shape[1]``) of agent ``i``'s
-    regularized weights, in ``spectral_weights`` order."""
+    regularized weights, in ``spectral_weights`` order; ``ctde``: each
+    agent draws a target-smoothing noise for every agent."""
     def normal(*shape):
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device)
+
+    def target(a):
+        return (tuple(normal(batch, d) for d in act_dims) if ctde
+                else normal(batch, a))
     idx = torch.randint(0, max(filled, 1), (batch,), generator=generator,
                         device=device)
     agents = tuple(
-        AgentDraws(normal(batch, a), normal(1, o),
+        AgentDraws(target(a), normal(1, o),
                    tuple(normal(w) for w in cw), tuple(normal(w) for w in aw))
         for o, a, cw, aw in zip(obs_dims, act_dims, critic_widths,
                                 actor_widths))
@@ -176,17 +195,22 @@ def make_sac_update_draws(batch: int, filled: int, obs_dims: Sequence[int],
                           critic_widths: Sequence[Sequence[int]],
                           actor_widths: Sequence[Sequence[int]],
                           generator: Optional[torch.Generator], device,
-                          dtype=torch.float32) -> UpdateDraws:
-    """``make_update_draws`` for SAC: ``SACAgentDraws`` per agent."""
+                          dtype=torch.float32,
+                          ctde: bool = False) -> UpdateDraws:
+    """``make_update_draws`` for SAC: ``SACAgentDraws`` per agent, with
+    ``next_joint`` and ``pi_joint`` under ``ctde``."""
     def normal(*shape):
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device)
+
+    def joint():
+        return tuple(normal(batch, d) for d in act_dims) if ctde else None
     idx = torch.randint(0, max(filled, 1), (batch,), generator=generator,
                         device=device)
     agents = tuple(
         SACAgentDraws(normal(batch, a), normal(1, o), normal(batch, a),
                       normal(batch, a), tuple(normal(w) for w in cw),
-                      tuple(normal(w) for w in aw))
+                      tuple(normal(w) for w in aw), joint(), joint())
         for o, a, cw, aw in zip(obs_dims, act_dims, critic_widths,
                                 actor_widths))
     return UpdateDraws(idx, agents)

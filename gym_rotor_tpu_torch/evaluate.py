@@ -31,9 +31,11 @@ def benchmark_reward(ex, eb1):
 
 def joint_policy(actors: Sequence[torch.nn.Module]):
     """``act(obs_tuple) -> (B, sum act dims)``: each actor writes its
-    deterministic action into its columns of the joint action in place (one
-    kernel launch per agent on CUDA): ``tanh`` of a TD3 actor, ``tanh(mean)``
-    of a SAC actor (``train.py:193-206``)."""
+    deterministic action into its columns of the joint action in place
+    (``train.py:193-206``): a TD3 actor's action, a SAC actor's
+    ``tanh(mean)``, a PPO actor's ``clip(mean)``; for an EMLP actor one
+    kernel launch on CUDA (K3, K9 or K11), for an MLP actor its
+    ``F.linear`` chain (and, PPO's, K11's head)."""
     dims = [a.action_dim for a in actors]
 
     def act(obs):

@@ -1,7 +1,10 @@
 // K3 (forward, actor widths): fused deterministic EMLP actor, K9: the
 // fused SAC actor's acting sample, and K11: the fused PPO actor's acting
 // draw and its log-prob, for Hopper (sm_90a).  One block body, three heads
-// (a template parameter).
+// (a template parameter).  Beside them, K11's head alone (ppo_head_kernel)
+// for PPO's MLP actor, whose mean is an F.linear chain: the same device
+// function (ppo_head) as K11's epilogue, so the draw and the log-prob have
+// one source.
 //
 // Replaces gym_rotor_tpu/models/emlp/nn.py:EMLPBlock (EquivLinear ->
 // EquivBiLinear -> GatedNonlinearity) x2 inside EMLP, plus the tanh head of
@@ -11,7 +14,9 @@
 // of models/emlp/zoo.py:EMLPActorPPO with the clipped draw and per-dim
 // log-prob of algos/ppo.py:107-116 choose_action_f (K11), which XLA fused
 // on the TPU.  Plain twins: gym_rotor_tpu_torch/kernels/emlp_actor.py:
-// emlp_actor_plain, sac_actor_plain and ppo_actor_plain (structured).
+// emlp_actor_plain, sac_actor_plain and ppo_actor_plain (structured), and
+// ppo_head_plain for the head alone (models/mlp.py:173-178 with
+// algos/ppo.py:107-116 on an MLP mean).
 //
 // K9's epilogue: mean = h2 Wh^T + bh; ls = clip(h2 Wl + bl, -20, 2);
 // action = tanh(mean + exp(ls) noise), or tanh(mean) without noise (eval).
@@ -31,6 +36,9 @@
 // the bound (PERF.md), a later PR's work.  K9 adds the log_std head
 // (2*NH*NACT flops a row), the noise read and exp: the same bound within a
 // few percent.  K11 adds ~10 flops and the log-prob write per action.
+// The head alone reads the pre-tanh mean and the noise and writes the
+// action and the log-prob: 16 bytes and ~12 flops an element, bound by
+// the bytes (~0.02 us at 4096 x 4), so the launch sets its time.
 //
 // Design: every weight the actor needs is folded once per parameter set on
 // the host side (W_eff/b_eff from project_linear, the bilinear nonzeros
@@ -43,8 +51,8 @@
 // so a warp's accesses fall in distinct banks); the nonzeros themselves are
 // the same address across a warp, i.e. shared-memory broadcasts.  Output is
 // written with a row stride, straight into the joint action tensor.
-// Instantiated for the two flagship MODUL actors (every head) and the MONO
-// actor (23 obs, 16 SO2eR3 channels, 4 actions; the deterministic head).
+// Instantiated for the two flagship MODUL actors and the MONO actor (23
+// obs, 16 SO2eR3 channels, 4 actions), each with every head.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -89,6 +97,46 @@ __device__ __forceinline__ void emlp_block(const float* x, const float* W,
 }
 
 enum Head { kTanh = 0, kGauss = 1, kPPO = 2 };
+
+// PPO's head on one action of one row (algos/ppo.py:107-116): mu =
+// tanh(pre); with a draw n, a = clip(mu + exp(ls) n, +-max) and logp =
+// -0.5 ((a - mu) / exp(ls))^2 - ls - log(2 pi) / 2 of the CLIPPED action;
+// without one (eval), a = clip(mu, +-max) and logp = 0.  ls is the free
+// log_std parameter, not clipped (the reference's).
+__device__ __forceinline__ void ppo_head(float pre, float ls,
+                                         const float* noise, float max_action,
+                                         float* act_out, float* logp_out) {
+  const float mu = tanhf(pre);
+  float act = mu, lp = 0.0f;
+  if (noise != nullptr) {
+    const float sd = expf(ls);
+    act = mu + sd * (*noise);
+    act = fminf(fmaxf(act, -max_action), max_action);
+    const float z = (act - mu) / sd;
+    lp = -0.5f * (z * z) - ls - kHalfLog2Pi;
+  } else {
+    act = fminf(fmaxf(act, -max_action), max_action);
+  }
+  *act_out = act;
+  *logp_out = lp;
+}
+
+// K11's head alone on an (B, nact) pre-tanh mean (PPO's MLP actor: the
+// mean head's F.linear output), one thread per element; log_std (nact,).
+__global__ void __launch_bounds__(128)
+ppo_head_kernel(const float* __restrict__ pre, int B, int nact,
+                const float* __restrict__ log_std,
+                const float* __restrict__ noise, int ld_noise,
+                float* __restrict__ out, int ld_out, float* __restrict__ logp,
+                int ld_logp, float max_action) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (long long)B * nact) return;
+  const int row = (int)(k / nact), a = (int)(k % nact);
+  ppo_head(pre[k], log_std[a],
+           noise == nullptr ? nullptr : noise + (size_t)row * ld_noise + a,
+           max_action, out + (size_t)row * ld_out + a,
+           logp + (size_t)row * ld_logp + a);
+}
 
 // Buffer layout (see emlp_actor.py:fold_actor).  The Gaussian head adds the
 // log_std Dense, transposed to (NACT, NH), and its bias after the mean head;
@@ -152,20 +200,10 @@ emlp_actor_kernel(const float* __restrict__ obs, int B,
     for (int k = 0; k < NH; ++k) s += h2[k] * ph[a * NH + k];
     const float mean = s + ph[NACT * NH + a];
     if (HEAD_KIND == kPPO) {
-      const float mu = tanhf(mean);
-      float act = mu, lp = 0.0f;
-      if (noise != nullptr) {
-        const float ls = pl[a];
-        const float sd = expf(ls);
-        act = mu + sd * noise[(size_t)row * ld_noise + a];
-        act = fminf(fmaxf(act, -max_action), max_action);
-        const float z = (act - mu) / sd;
-        lp = -0.5f * (z * z) - ls - kHalfLog2Pi;
-      } else {
-        act = fminf(fmaxf(act, -max_action), max_action);
-      }
-      out[(size_t)row * ld_out + a] = act;
-      logp[(size_t)row * ld_logp + a] = lp;
+      ppo_head(mean, pl[a],
+               noise == nullptr ? nullptr : noise + (size_t)row * ld_noise + a,
+               max_action, out + (size_t)row * ld_out + a,
+               logp + (size_t)row * ld_logp + a);
       continue;
     }
     float act = mean;
@@ -212,13 +250,11 @@ int dispatch(const float* o, int B, const float* p, int n_params,
     return launch<3, 7, 4, 1, HEAD_KIND>(o, B, p, n_params, q, n_ints, nnz0,
                                          nnz1, nz, ld_noise, y, ld_out, lp,
                                          ld_logp, max_action, s);
-  if constexpr (HEAD_KIND == kTanh) {
-    if (nin == 23 && ng == 18 && nh == 16 && nact == 4)
-      return launch<23, 18, 16, 4, HEAD_KIND>(o, B, p, n_params, q, n_ints,
-                                              nnz0, nnz1, nz, ld_noise, y,
-                                              ld_out, lp, ld_logp,
-                                              max_action, s);
-  }
+  if (nin == 23 && ng == 18 && nh == 16 && nact == 4)
+    return launch<23, 18, 16, 4, HEAD_KIND>(o, B, p, n_params, q, n_ints,
+                                            nnz0, nnz1, nz, ld_noise, y,
+                                            ld_out, lp, ld_logp, max_action,
+                                            s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -262,4 +298,23 @@ extern "C" int emlp_actor_launch(const void* obs, int B, const void* params,
                           ng, nh, nact, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K11's head alone: pre (B, nact) contiguous pre-tanh means, log_std
+// (nact,), noise (B, nact) with row stride ld_noise or null (eval), out and
+// logp (B, nact) with their own row strides.
+extern "C" int ppo_head_launch(const void* pre, int B, int nact,
+                               const void* log_std, const void* noise,
+                               int ld_noise, void* out, int ld_out,
+                               void* logp, int ld_logp, float max_action,
+                               void* stream) {
+  if (B <= 0 || nact <= 0 || out == nullptr || logp == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * nact;
+  const int blocks = (int)((n + 127) / 128);
+  ppo_head_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+      (const float*)pre, B, nact, (const float*)log_std,
+      (const float*)noise, ld_noise, (float*)out, ld_out, (float*)logp,
+      ld_logp, max_action);
+  return (int)cudaGetLastError();
 }

@@ -256,13 +256,17 @@ int bwd(const float* g_h, const float* x, int B, const float* params,
 
 // The blocks of the flagship MODUL networks: the twin Q critics' first
 // blocks (obs + action in) and hidden blocks, the PPO V critics' first
-// blocks (obs in), and both actors' blocks; and the first blocks of the
-// MONO twin Q critic and actor (their hidden blocks are MODUL agent 0's).
+// blocks (obs in), and both actors' blocks; the first blocks of the MONO
+// twin Q critic and actor (their hidden blocks are MODUL agent 0's); and
+// the first blocks of the CTDE critics over the joint input (Q: 18 obs + 5
+// actions, V: 18 obs; agent 0's SO2eR3 tower, agent 1's Mirror tower),
+// whose 23-wide SO2eR3 one is also the MONO V critic's.
 #define EMLP_BLOCK_INSTANCES(X) \
   X(19, 71, 62) X(62, 71, 62) X(4, 123, 62) X(62, 123, 62) \
   X(15, 71, 62) X(3, 123, 62) \
   X(15, 18, 16) X(16, 18, 16) X(3, 7, 4) X(4, 7, 4) \
-  X(27, 71, 62) X(23, 18, 16)
+  X(27, 71, 62) X(23, 18, 16) \
+  X(23, 71, 62) X(23, 123, 62) X(18, 71, 62) X(18, 123, 62)
 
 }  // namespace
 

@@ -45,13 +45,17 @@ WRAPPERS = {"emlp_block": "emlp_block_plain",
             "emlp_block_backward": "emlp_block_backward_plain"}
 # (nin, ng, nh) of the built instances: both blocks of the flagship MODUL
 # twin Q critics (hidden 62), the first blocks of the PPO V critics (obs in;
-# their hidden blocks are the Q critics'), the actors (hidden 16 / 4), and
-# the first blocks of the MONO twin Q critic (27 = 23 obs + 4 actions in)
-# and actor (23 obs in; their hidden blocks are MODUL agent 0's).
+# their hidden blocks are the Q critics'), the actors (hidden 16 / 4), the
+# first blocks of the MONO twin Q critic (27 = 23 obs + 4 actions in) and
+# actor (23 obs in; their hidden blocks are MODUL agent 0's), and the first
+# blocks of the CTDE critics over the joint input (Q: 23 = 18 obs + 5
+# actions, V: 18 obs; SO2eR3 tower for agent 0, Mirror for agent 1), the
+# 23-wide SO2eR3 one also the MONO V critic's.
 INSTANCES = {(19, 71, 62), (62, 71, 62), (4, 123, 62), (62, 123, 62),
              (15, 71, 62), (3, 123, 62),
              (15, 18, 16), (16, 18, 16), (3, 7, 4), (4, 7, 4),
-             (27, 71, 62), (23, 18, 16)}
+             (27, 71, 62), (23, 18, 16),
+             (23, 71, 62), (23, 123, 62), (18, 71, 62), (18, 123, 62)}
 
 
 def _lib():

@@ -3,8 +3,9 @@ and PPO parts of ``gym_rotor_tpu/models/emlp/zoo.py``: ``actor_reps``,
 ``critic_reps`` and ``v_critic_reps`` for the MONO and DTDE branches,
 ``EMLPActorDet``, ``EMLPActorSAC``, ``EMLPActorPPO``, ``EMLPCriticTwin``,
 ``EMLPVCritic``, ``emlp_twin_split``, ``td3_models``, ``sac_models`` and
-``ppo_models``).
-The CTDE critic reps are not ported yet.
+``ppo_models``), for the MONO, DTDE and CTDE branches (a CTDE critic
+takes every agent's obs, and a Q critic every agent's action, in agent
+order).
 
 Every network carries ``param_version`` (``models/mlp.py::Versioned``), an
 explicit counter of in-place parameter writes: the flat optimizer bumps it
@@ -51,15 +52,18 @@ def actor_reps(cfg: Config, framework: str, agent_id: int):
 def critic_reps(cfg: Config, framework: str, agent_id: int,
                 module_training: str):
     """(rep_in, hidden_rep, rep_out) of the Q critics, input obs + action
-    (zoo.py:56-75)."""
+    (zoo.py:56-75); under CTDE both agents' obs, then both actions, with
+    the agent's own hidden group."""
     so2, t1, t3, mir = _groups()
     ch = cfg.critic_hidden_dim
-    if module_training == "CTDE" and framework != "MONO":
-        raise NotImplementedError("CTDE critics are not ported yet")
     if framework == "MONO":
         rep_in = (Vector(so2) * 6 + Scalar(t1) * 2 + Vector(t3)
                   + Scalar(t1) + Vector(t3))
         hidden = uniform_rep(ch, so2)
+    elif module_training == "CTDE":  # both agents' obs, then their actions
+        rep_in = (Vector(so2) * 5 + Vector(mir) * 3
+                  + Scalar(t1) + Vector(so2) + Vector(mir))
+        hidden = uniform_rep(ch, so2 if agent_id == 0 else mir)
     elif agent_id == 0:  # MODUL1 DTDE
         rep_in = Vector(so2) * 5 + Scalar(t1) + Vector(so2)
         hidden = uniform_rep(ch, so2)
@@ -72,14 +76,15 @@ def critic_reps(cfg: Config, framework: str, agent_id: int,
 def v_critic_reps(cfg: Config, framework: str, agent_id: int,
                   module_training: str):
     """(rep_in, hidden_rep, rep_out) of the PPO V(s) critics, input obs only
-    (zoo.py:78-95)."""
+    (zoo.py:78-95); under CTDE both agents' obs."""
     so2, t1, t3, mir = _groups()
     ch = cfg.critic_hidden_dim
-    if module_training == "CTDE" and framework != "MONO":
-        raise NotImplementedError("CTDE critics are not ported yet")
     if framework == "MONO":
         rep_in = Vector(so2) * 6 + Scalar(t1) * 2 + Vector(t3)
         hidden = uniform_rep(ch, so2)
+    elif module_training == "CTDE":  # both agents' obs
+        rep_in = Vector(so2) * 5 + Vector(mir) * 3
+        hidden = uniform_rep(ch, so2 if agent_id == 0 else mir)
     elif agent_id == 0:
         rep_in = Vector(so2) * 5
         hidden = uniform_rep(ch, so2)

@@ -16,14 +16,24 @@ copy, so nothing to re-key when the optimizer writes them in place.  The
 training path applies the same functions to a loss's parameter views
 (``actor_td3``, ``q_net``).
 
-SAC's and PPO's MLP actors and the V critic (``ActorSAC``, ``ActorPPO``,
-``VCritic``) are not ported yet (ROADMAP Queue 1 item 13).  Of those parts
-the port has the Gaussian heads: ``LOG_SIG_MAX``/``LOG_SIG_MIN``, ``EPS``,
-``sac_sample_with_noise``, ``gaussian_logprob`` and ``gaussian_entropy``.
-These are the plain versions; the training paths run SAC's sample through
-K10 (``kernels/sac_sample.py``) and PPO's surrogate through K13
-(``kernels/ppo_loss.py``), the acting paths through K9 and K11
-(``kernels/emlp_actor.py``).  ``sac_sample`` (the draw from a key) has no
+SAC's and PPO's networks: ``ActorSAC`` (Xavier-initialised ``Dense_0``,
+``Dense_1``, the ``mean`` head and the ``log_std`` Dense, clipped to
+[LOG_SIG_MIN, LOG_SIG_MAX]), ``ActorPPO`` (``Dense_0``, ``Dense_1``, a
+``tanh`` ``mean`` head whose kernel is scaled by 0.1 at init, and the free
+``log_std`` (1, act)) and ``VCritic`` (``Dense_0..2`` with ``tanh``), with
+the functions ``actor_sac``, ``actor_ppo`` and ``v_critic`` on parameter
+views.  Under CTDE the critics take the joint input: ``CriticTwin`` over
+all agents' obs and actions, ``VCritic`` over all agents' obs.  Acting on
+the card, ``ActorSAC``'s ``F.linear`` outputs go through K10's forward
+(``kernels/sac_sample.py``) and ``ActorPPO``'s through K11's head
+(``kernels/emlp_actor.py::ppo_head``); each also has a deterministic eval
+head (``tanh(mean)``; ``clip(tanh(mean))`` and zero log-probs).
+
+The Gaussian heads' plain versions: ``LOG_SIG_MAX``/``LOG_SIG_MIN``,
+``EPS``, ``sac_sample_with_noise``, ``gaussian_logprob`` and
+``gaussian_entropy``; the training paths run SAC's sample through K10 and
+PPO's surrogate through K13 (``kernels/ppo_loss.py``), the EMLP acting
+paths through K9 and K11.  ``sac_sample`` (the draw from a key) has no
 counterpart: the port makes its draws up front (``envs/draws.py``) and
 passes them as ``noise``.
 
@@ -95,18 +105,26 @@ class Versioned(nn.Module):
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` (nin, nout), ``bias`` (nout,), LeCun
-    normal kernel (truncated at two standard deviations) and zero bias."""
+    normal kernel (truncated at two standard deviations, flax's default),
+    scaled by ``scale``, or with ``xavier`` flax's ``xavier_uniform``; zero
+    bias."""
 
     def __init__(self, nin: int, nout: int, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 xavier: bool = False, scale: float = 1.0):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(nin, nout, device=device,
                                                dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(nout, device=device, dtype=dtype))
-        std = math.sqrt(1.0 / nin) / 0.87962566103423978
         with torch.no_grad():
-            nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            if xavier:
+                limit = math.sqrt(6.0 / (nin + nout))
+                self.kernel.uniform_(-limit, limit, generator=generator)
+            else:
+                std = math.sqrt(1.0 / nin) / 0.87962566103423978
+                nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+            self.kernel.mul_(scale)
 
     def forward(self, x):
         return F.linear(x, self.kernel.t(), self.bias)
@@ -126,6 +144,37 @@ def actor_td3(params: Params, obs):
     x = torch.relu(dense(params, "Dense_0.", obs))
     x = torch.relu(dense(params, "Dense_1.", x))
     return torch.tanh(dense(params, "Dense_2.", x))
+
+
+def actor_sac(params: Params, obs):
+    """``ActorSAC`` on ``params``: ``(mean, log_std)``, ``log_std`` clipped
+    to [LOG_SIG_MIN, LOG_SIG_MAX] (mlp.py:107-119)."""
+    x = torch.relu(dense(params, "Dense_0.", obs))
+    x = torch.relu(dense(params, "Dense_1.", x))
+    return (dense(params, "mean.", x),
+            torch.clamp(dense(params, "log_std.", x), LOG_SIG_MIN,
+                        LOG_SIG_MAX))
+
+
+def actor_ppo_pre(params: Params, obs):
+    """``ActorPPO``'s mean head before its ``tanh`` (mlp.py:157-165)."""
+    x = torch.relu(dense(params, "Dense_0.", obs))
+    x = torch.relu(dense(params, "Dense_1.", x))
+    return dense(params, "mean.", x)
+
+
+def actor_ppo(params: Params, obs):
+    """``ActorPPO`` on ``params``: ``(tanh mean, log_std)``, the free
+    ``log_std`` (1, act) broadcast to the mean's shape (mlp.py:146-171)."""
+    mean = torch.tanh(actor_ppo_pre(params, obs))
+    return mean, params["log_std"].expand_as(mean)
+
+
+def v_critic(params: Params, obs):
+    """``VCritic`` on ``params`` (mlp.py:185-194)."""
+    v = torch.tanh(dense(params, "Dense_0.", obs))
+    v = torch.tanh(dense(params, "Dense_1.", v))
+    return dense(params, "Dense_2.", v)
 
 
 def q_net(params: Params, prefix: str, obs, act):
@@ -221,3 +270,89 @@ class CriticSingle(_DenseNet):
 
     def forward(self, obs, act):
         return q_net(self.params(), "", obs, act)
+
+
+class ActorSAC(_DenseNet):
+    """Squashed-Gaussian MLP actor (mlp.py:107-119), flax's names
+    (``Dense_0``, ``Dense_1``, ``mean``, ``log_std``; flat order ``Dense_0``,
+    ``Dense_1``, ``log_std``, ``mean``) and Xavier-uniform kernels.
+    ``dist`` is ``(mean, log_std)``.  ``forward`` is the acting sample
+    ``tanh(mean + exp(log_std) noise)`` through K10's forward (its plain
+    twin on CPU tensors), or ``tanh(mean)`` without ``noise`` (eval)."""
+
+    def __init__(self, obs_dim: int, hidden_dim: int, action_dim: int,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  xavier=True)
+        self._layers(("Dense_0", "Dense_1", "mean"),
+                     (obs_dim, hidden_dim, hidden_dim, action_dim), kw)
+        self.add_module("log_std", Dense(hidden_dim, action_dim, **kw))
+        self.action_dim = action_dim
+
+    def dist(self, obs):
+        return actor_sac(self.params(), obs)
+
+    def forward(self, obs, noise: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None):
+        from ..kernels.sac_sample import sac_sample
+        mean, log_std = self.dist(obs)
+        a = (torch.tanh(mean) if noise is None
+             else sac_sample(mean, log_std, noise.contiguous())[0])
+        if out is None:
+            return a
+        out.copy_(a)
+        return out
+
+
+class ActorPPO(_DenseNet):
+    """Gaussian MLP actor with a ``tanh`` mean and a learnable
+    state-independent ``log_std`` (1, act) (mlp.py:146-171): flax's names
+    (flat order ``Dense_0``, ``Dense_1``, ``log_std``, ``mean``), the mean
+    head's LeCun kernel scaled by 0.1 and ``log_std`` 0 at init.  ``dist``
+    is ``(mean, log_std)``.  ``forward`` is the acting draw ``(clip(mean +
+    exp(log_std) noise), per-dim log-prob)``, or ``(clip(mean), zeros)``
+    without ``noise`` (eval): the ``F.linear`` chain, then one launch of
+    K11's head (``kernels/emlp_actor.py::ppo_head``, its plain twin on CPU
+    tensors), written into ``out`` and ``logp`` when given."""
+
+    def __init__(self, obs_dim: int, hidden_dim: int, action_dim: int,
+                 max_action: float = 1.0, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self._layers(("Dense_0", "Dense_1"),
+                     (obs_dim, hidden_dim, hidden_dim), kw)
+        self.add_module("mean", Dense(hidden_dim, action_dim, scale=0.1,
+                                      **kw))
+        self.log_std = nn.Parameter(torch.zeros((1, action_dim),
+                                                device=device, dtype=dtype))
+        self.action_dim = action_dim
+        self.max_action = float(max_action)
+
+    def dist(self, obs):
+        return actor_ppo(self.params(), obs)
+
+    def forward(self, obs, noise: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None,
+                logp: Optional[torch.Tensor] = None):
+        from ..kernels.emlp_actor import ppo_head
+        pre = actor_ppo_pre(self.params(), obs)
+        return ppo_head(pre, self.log_std, noise, out, logp, self.max_action)
+
+
+class VCritic(_DenseNet):
+    """V(s) MLP critic with ``tanh`` activations (mlp.py:185-194),
+    ``Dense_0..2``; under CTDE over all agents' obs."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, device=None,
+                 dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._layers(("Dense_0", "Dense_1", "Dense_2"),
+                     (in_dim, hidden_dim, hidden_dim, 1),
+                     dict(device=device, dtype=dtype, generator=generator))
+
+    def forward(self, obs):
+        return v_critic(self.params(), obs)

@@ -5,7 +5,8 @@
 ``rollout_len`` ticks of (act -> K1 tick -> K2 ring write with the K8
 episode statistics), then ``n_updates`` of (K2 sample -> ``train_fn``).
 TD3 by default; JAX's ``train_fn`` and ``act_fn`` hooks and a draws
-factory make it run SAC (``algos/sac.py::superstep_hooks``).  JAX's
+factory make it run SAC (``algos/sac.py::superstep_hooks``), DTDE or
+CTDE, with EMLP or MLP networks.  JAX's
 ``act_prep`` (fold the actors once per superstep) has no counterpart: each
 acting module caches its fold on its ``param_version``, which does the
 same.  A ``warm`` superstep acts with uniform actions in [-1, 1) and runs
@@ -62,7 +63,7 @@ def make_td3_superstep(cfg: Config, agents: Sequence, device=None,
     train ticks' policy (default TD3's noisy deterministic actors);
     ``draws_fn`` makes an update's
     ``UpdateDraws`` with ``envs/draws.py::make_update_draws``'s signature
-    (default that function)."""
+    (default that function; ``ctde`` set for a MODUL CTDE ``cfg``)."""
     dev = resolve_device(device)
     n = cfg.n_agents
     act_dims = tuple(cfg.action_dim_n)
@@ -113,7 +114,7 @@ def make_td3_superstep(cfg: Config, agents: Sequence, device=None,
                   draws_fn(cfg.batch_size, rstate.filled, cfg.obs_dim_n,
                            act_dims, [a.critic_widths for a in agents],
                            [a.actor_widths for a in agents], generator, dev,
-                           agents[0].dtype))
+                           agents[0].dtype, ctde=cfg.is_ctde))
             batch = replay_lib.sample(rstate, cfg.batch_size, idx=ud.idx)
             states, um = train_fn(cfg, agents, states, batch, ud.agents)
         metrics.update(um)

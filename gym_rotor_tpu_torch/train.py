@@ -9,18 +9,18 @@ with the SAC hooks (``algos/sac.py``).  On-policy (``"PPO"``,
 num_envs, 1)`` ticks and one full PPO update (``K_epochs`` of
 minibatches), with no ring and no warm-up.
 
-TD3 runs every configuration of the reference's headline comparison:
-MODUL or MONO (``cfg.framework``) with EMLP or MLP networks
-(``cfg.use_equiv``).  SAC and PPO run MODUL with EMLP networks; with MONO or
-MLP networks their agents raise ``NotImplementedError`` (``models/zoo.py``).
-Not ported yet: periodic eval with best/solved actor saving, checkpoints,
-resume and TensorBoard (ROADMAP Queue 1 item 10).
+TD3, SAC and PPO each run every configuration the JAX package accepts:
+MODUL (``module_training`` DTDE, or CTDE: MATD3 and the CTDE branches of
+SAC and PPO) or MONO (``cfg.framework``), with EMLP or MLP networks
+(``cfg.use_equiv``).  Not ported yet: periodic eval with best/solved actor
+saving, checkpoints, resume and TensorBoard (ROADMAP Queue 1 item 1).
 
     from gym_rotor_tpu_torch.train import train
     out = train(Config(), supersteps=1000)             # TD3 on the card
     out = train(Config(framework="MONO", use_equiv=False), 1000)
     out = train(Config(rl_algo="SAC"), supersteps=1000)
     out = train(Config(rl_algo="PPO", num_envs=32), supersteps=100)
+    out = train(Config(rl_algo="SAC", module_training="CTDE"), 1000)
     out = train(Config(num_envs=8, ...), 5, device="cpu")
 """
 from __future__ import annotations

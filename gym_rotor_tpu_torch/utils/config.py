@@ -134,6 +134,12 @@ class Config:
     def action_dim_n(self) -> Tuple[int, ...]:
         return (4, 1) if self.framework == "MODUL" else (4,)
 
+    @property
+    def is_ctde(self) -> bool:
+        """MODUL's centralised critics (MATD3 and the CTDE branches of SAC
+        and PPO): each critic sees every agent's obs (and actions)."""
+        return self.framework == "MODUL" and self.module_training == "CTDE"
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 

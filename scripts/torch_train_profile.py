@@ -2,13 +2,14 @@
 
     python3 scripts/torch_train_profile.py [--algo td3|sac|ppo] [--envs 4096]
                                            [--framework MODUL|MONO]
+                                           [--module_training DTDE|CTDE]
                                            [--use_equiv 1|0]
                                            [--steps N] [--config A|B]
                                            [--out FILE]
 
 Runs ``train`` (the flagship configuration with TD3, or with
-``--framework MONO`` and/or ``--use_equiv 0`` the Mono-EMLP, Mono-MLP and
-Mod-MLP configurations of TD3; or SAC with
+``--framework MONO``, ``--module_training CTDE`` and/or ``--use_equiv 0``
+the other configurations, for every algorithm; SAC with
 ``--algo sac``; one warm superstep, then train supersteps of one 4096-env
 tick and one update each; or PPO with ``--algo ppo`` in configuration A,
 32 envs and a 7000-step horizon in minibatches of 128, or B, 4096 envs x 50
@@ -50,10 +51,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", choices=("td3", "sac", "ppo"), default="td3")
     ap.add_argument("--envs", type=int, default=4096)
-    ap.add_argument("--framework", choices=("MODUL", "MONO"), default="MODUL",
-                    help="TD3's task (SAC and PPO run MODUL)")
+    ap.add_argument("--framework", choices=("MODUL", "MONO"), default="MODUL")
+    ap.add_argument("--module_training", choices=("DTDE", "CTDE"),
+                    default="DTDE", help="MODUL's training scheme")
     ap.add_argument("--use_equiv", type=int, choices=(0, 1), default=1,
-                    help="EMLP (1) or MLP (0) networks, TD3")
+                    help="EMLP (1) or MLP (0) networks")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--config", choices=("A", "B"), default="A",
                     help="PPO configuration")
@@ -84,8 +86,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     ppo = args.algo == "ppo"
+    family = dict(framework=args.framework,
+                  module_training=args.module_training,
+                  use_equiv=bool(args.use_equiv))
     if ppo:
-        cfg = Config(**PPO_CONFIGS[args.config])
+        cfg = Config(**PPO_CONFIGS[args.config], **family)
         rl = max(cfg.T_horizon // cfg.num_envs, 1)
         rows = rl * cfg.num_envs
         updates = cfg.n_agents * cfg.K_epochs * (
@@ -93,8 +98,7 @@ def main():
             + max(rows // cfg.critic_batch_size, 1))
     else:
         cfg = Config(num_envs=args.envs, start_timesteps=args.envs,
-                     rl_algo=args.algo.upper(), framework=args.framework,
-                     use_equiv=bool(args.use_equiv))
+                     rl_algo=args.algo.upper(), **family)
         rows, updates = cfg.num_envs, 1
     n = args.steps or (1 if ppo else 60)
     warmup = 1 if ppo else WARMUP
@@ -115,7 +119,8 @@ def main():
         for _ in range(n):
             ud = draws_fn(cfg.batch_size, rs.filled, cfg.obs_dim_n,
                           cfg.action_dim_n, [a.critic_widths for a in agents],
-                          [a.actor_widths for a in agents], None, dev)
+                          [a.actor_widths for a in agents], None, dev,
+                          ctde=cfg.is_ctde)
             batch = R.sample(rs, cfg.batch_size, idx=ud.idx)
             learner.train_step(cfg, agents, states, batch, ud.agents)
             if synced:
@@ -154,6 +159,7 @@ def main():
     (e0, h0), (e1, h1) = marks[t_start], marks[t_start + n]
     ms = e0.elapsed_time(e1) / n
     out = {"card": card, "algo": cfg.rl_algo, "framework": cfg.framework,
+           "module_training": cfg.module_training,
            "use_equiv": cfg.use_equiv, "envs": cfg.num_envs,
            "supersteps": n, "env_steps_per_superstep": rows,
            "updates_per_superstep": updates, "ms_per_superstep": ms,

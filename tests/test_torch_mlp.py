@@ -156,21 +156,6 @@ def test_mlp_acting_launches_no_kernel_and_reads_bound_params():
     assert (kactor.emlp_actor.launches, kactor.fold_actor.folds) == before
 
 
-@pytest.mark.parametrize("algo", ["SAC", "PPO"])
-@pytest.mark.parametrize("kw", [dict(framework="MONO"), MLP],
-                         ids=["mono", "mlp"])
-def test_sac_ppo_mono_mlp_not_ported(algo, kw):
-    """SAC and PPO with MONO or MLP networks raise instead of running MODUL
-    or EMLP code."""
-    from gym_rotor_tpu_torch.train import train
-    cfg = TConfig(num_envs=4, rl_algo=algo, **kw)
-    factory = {"SAC": tmodels.sac_models, "PPO": tmodels.ppo_models}[algo]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, 1, device="cpu", log=None)
-
-
 @pytest.mark.parametrize("gate", [False, True])
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_train_step_matches_jax(config, gate):

@@ -39,6 +39,7 @@ from jax.flatten_util import ravel_pytree
 from gym_rotor_tpu.algos import ppo as jppo
 from gym_rotor_tpu.envs import batch as jbatch
 from gym_rotor_tpu.models import mlp as jmlp
+from gym_rotor_tpu.models import zoo as jmodels
 from gym_rotor_tpu.models.emlp import zoo as jzoo
 from gym_rotor_tpu.parallel import mesh as jmesh
 from gym_rotor_tpu.parallel.train_step import (init_ep_ret,
@@ -437,9 +438,10 @@ def _learner_to64(st):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_learner():
-    jcfg, tcfg = _ppo_cfgs()
-    agents = [jppo.PPOAgent(jcfg, i, jzoo.ppo_models(jcfg, i)) for i in AGENTS]
+def _jax_learner(**kw):
+    jcfg, tcfg = _ppo_cfgs(**kw)
+    agents = [jppo.PPOAgent(jcfg, i, jmodels.ppo_models(jcfg, i))
+              for i in range(jcfg.n_agents)]
     states = [_learner_to64(a.init(jax.random.PRNGKey(20 + i)))
               for i, a in enumerate(agents)]
     step = jax.jit(lambda st, d, k: jppo.train_step(jcfg, agents, st, d, k))
@@ -487,11 +489,18 @@ def test_train_step_matches_jax():
     losses, both networks, ``mu``/``nu``, the counts, ``entropy_coef`` and
     ``total_it``, float64 (``entropy_coef`` float32, as in JAX).  The
     states come from JAX after one update through ``ppo_state_from_jax``."""
-    jcfg, tcfg, jagents, jstates, jstep = _jax_learner()
+    train_step_vs_jax()
+
+
+def train_step_vs_jax(**kw):
+    """The check of ``test_train_step_matches_jax`` for ``_ppo_cfgs(**kw)``."""
+    jcfg, tcfg, jagents, jstates, jstep = _jax_learner(**kw)
+    agent_ids = range(jcfg.n_agents)
     rng = np.random.default_rng(30)
     jd, _ = _horizon(rng, jcfg)
     jstates, _ = jstep(jstates, jd, jax.random.PRNGKey(40))
-    tagents = [tppo.PPOAgent(tcfg, i, "cpu", torch.float64) for i in AGENTS]
+    tagents = [tppo.PPOAgent(tcfg, i, "cpu", torch.float64)
+               for i in agent_ids]
     tstates = [convert.ppo_state_from_jax(_np_tree(s), a)
                for s, a in zip(jstates, tagents)]
     for ts, js in zip(tstates, jstates):
@@ -503,7 +512,7 @@ def test_train_step_matches_jax():
                          torch.float64, jnp.float64)
     tstates, tm = tppo.train_step(tcfg, tagents, tstates, td, draws)
     assert set(tm) == set(jm)
-    for i in AGENTS:
+    for i in agent_ids:
         for k in ("actor_loss", "critic_loss"):
             _close(float(tm[f"agent{i}/{k}"]), float(jm[f"agent{i}/{k}"]),
                    1e-9, f"agent {i} {k}")
@@ -543,13 +552,6 @@ def test_convert_ppo_state_round_trip():
         assert agent.actor_net.log_std.data_ptr() == ts.actor.data_ptr()
 
 
-def test_ppo_ctde_is_not_ported():
-    _, tcfg = _ppo_cfgs(module_training="CTDE")
-    for agent_id in AGENTS:
-        with pytest.raises(NotImplementedError, match="CTDE"):
-            tppo.PPOAgent(tcfg, agent_id, "cpu")
-
-
 def test_ppo_epoch_draws_shapes():
     """``make_ppo_epoch_draws``: per agent and epoch a permutation of the
     horizon's rows, the CAPS draw and one start vector per regularized
@@ -580,9 +582,17 @@ def test_ppo_superstep_matches_jax():
     each tick's env draws and acting noise (the rollout replayed on the
     JAX side to reach each tick's keys) and the epoch draws, rebuilt from
     the superstep's key."""
-    jcfg, tcfg = _ppo_cfgs(max_steps=3)
+    ppo_superstep_vs_jax()
+
+
+def ppo_superstep_vs_jax(**kw):
+    """The check of ``test_ppo_superstep_matches_jax`` for
+    ``_ppo_cfgs(max_steps=3, **kw)``."""
+    jcfg, tcfg = _ppo_cfgs(max_steps=3, **kw)
+    agent_ids = range(jcfg.n_agents)
     mesh = jmesh.make_mesh(1)
-    jagents = [jppo.PPOAgent(jcfg, i, jzoo.ppo_models(jcfg, i)) for i in AGENTS]
+    jagents = [jppo.PPOAgent(jcfg, i, jmodels.ppo_models(jcfg, i))
+               for i in agent_ids]
     jstates = [jax.device_put(a.init(jax.random.PRNGKey(60 + i)),
                               jmesh.replicated(mesh))
                for i, a in enumerate(jagents)]
@@ -592,14 +602,14 @@ def test_ppo_superstep_matches_jax():
     rl = jcfg.T_horizon // jcfg.num_envs
     jstep = make_sharded_ppo_superstep(jcfg, jagents, mesh, rollout_len=rl)
 
-    tagents = [tppo.PPOAgent(tcfg, i, "cpu") for i in AGENTS]
+    tagents = [tppo.PPOAgent(tcfg, i, "cpu") for i in agent_ids]
     tstates = [convert.ppo_state_from_jax(_np_tree(s), a)
                for s, a in zip(jstates, tagents)]
     loop = TickLoop(tcfg, convert.env_state_from_numpy(_np_tree(jbs),
                                                        device="cpu"))
     tobs = tuple(_t(o) for o in jobs)
     buf = tppo.HorizonBuffer(tcfg, rl, "cpu")
-    tep = torch.zeros(tcfg.num_envs, 2)
+    tep = torch.zeros(tcfg.num_envs, tcfg.n_agents)
     tstep = make_ppo_superstep(tcfg, tagents, "cpu", rollout_len=rl)
     draws_fn = jax.jit(lambda b: _tick_draws(b, jnp.float32))
 
@@ -646,7 +656,7 @@ def test_ppo_superstep_matches_jax():
         assert float(tm["fin_cnt"]) == float(jm["fin_cnt"])
         resets += int(jm["fin_cnt"])
         assert set(tm) == set(jm)
-        for i in AGENTS:
+        for i in agent_ids:
             for k in ("actor_loss", "critic_loss"):
                 np.testing.assert_allclose(float(tm[f"agent{i}/{k}"]),
                                            float(jm[f"agent{i}/{k}"]),
@@ -655,6 +665,7 @@ def test_ppo_superstep_matches_jax():
             _compare_ppo(tstates[i], jstates[i], 1e-4, f"{what} agent {i}")
     assert resets > 0
     assert buf.ring.ptr == 0 and buf.ring.filled == jcfg.T_horizon
+    return tstates
 
 
 def test_ppo_train_loop_cpu():

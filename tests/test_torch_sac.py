@@ -41,11 +41,8 @@ from jax.flatten_util import ravel_pytree
 
 from gym_rotor_tpu.algos import sac as jsac
 from gym_rotor_tpu.models import mlp as jmlp
+from gym_rotor_tpu.models import zoo as jmodels
 from gym_rotor_tpu.models.emlp import zoo as jzoo
-from gym_rotor_tpu.parallel import mesh as jmesh
-from gym_rotor_tpu.parallel.train_step import (init_ep_ret,
-                                               make_sharded_td3_superstep,
-                                               sharded_init)
 from gym_rotor_tpu_torch import Config as TConfig
 from gym_rotor_tpu_torch import convert
 from gym_rotor_tpu_torch.algos import sac as tsac
@@ -53,14 +50,11 @@ from gym_rotor_tpu_torch.envs import draws as D
 from gym_rotor_tpu_torch.evaluate import joint_policy
 from gym_rotor_tpu_torch.kernels import emlp_actor as kactor
 from gym_rotor_tpu_torch.kernels import sac_sample as K10
-from gym_rotor_tpu_torch.kernels.env_tick import TickLoop
 from gym_rotor_tpu_torch.models import mlp as tmlp
 from gym_rotor_tpu_torch.models.emlp import zoo as tzoo
-from gym_rotor_tpu_torch.parallel.train_step import make_td3_superstep
-from test_torch_env import _tick_draws
-from test_torch_td3 import (AGENTS, _adam, _batch, _cfgs, _close, _np,
-                            _np_tree, _schedule, _t, _tick_policy_arrays,
-                            _to64)
+from test_torch_td3 import (AGENTS, OffPolicy, _adam, _batch, _cfgs, _close,
+                            _np, _np_tree, _schedule, _t, _to64, split_chain,
+                            superstep_vs_jax)
 
 torch.set_num_threads(1)
 
@@ -264,13 +258,16 @@ def test_sac_fold_packs_the_log_std_head():
 # ---------------------------------------------------------------------------
 # One update
 # ---------------------------------------------------------------------------
-@functools.partial(jax.jit, static_argnums=(1, 2))
-def _sac_draw_arrays(key, shapes, jdtype):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _sac_draw_arrays(key, shapes, jdtype, joint):
     """``train_step``'s draws from its key (sac.py:134, :146, :166, :192,
     :235-240), per agent of ``shapes`` ``(batch, act, obs, critic widths,
     actor widths)``: ks[1] in the parameters' dtype, the spectral starts of
     both networks from ks[2], CAPS from ks[3], and ks[4], ks[5] in the
-    default dtype as JAX draws them."""
+    default dtype as the DTDE branch draws them.  Under CTDE (``joint``:
+    every agent's action width) also the chains from ks[0] and ks[3]
+    (sac.py:153-160, :212-220), and ks[4], ks[5] in the parameters' dtype,
+    as ``sample_f`` draws them there."""
     out = []
     for batch, act, obs, cws, aws in shapes:
         key, sub = jax.random.split(key)
@@ -280,23 +277,32 @@ def _sac_draw_arrays(key, shapes, jdtype):
             return tuple(jax.random.normal(jax.random.fold_in(ks[2], j), (w,),
                                            jdtype)
                          for j, w in enumerate(widths))
+        own = jdtype if joint else None
         out.append((jax.random.normal(ks[1], (batch, act), jdtype),
                     jax.random.normal(ks[3], (1, obs), jdtype),
-                    jax.random.normal(ks[4], (batch, act)),
-                    jax.random.normal(ks[5], (batch, act)),
-                    starts(cws), starts(aws)))
+                    jax.random.normal(ks[4], (batch, act), own),
+                    jax.random.normal(ks[5], (batch, act), own),
+                    starts(cws), starts(aws),
+                    split_chain(ks[0], joint, batch, jdtype) if joint
+                    else None,
+                    split_chain(ks[3], joint, batch, jdtype) if joint
+                    else None))
     return out
 
 
 def _sac_draws(key, agents, batch, dtype, jdtype):
     shapes = tuple((batch, a.action_dim, a.obs_dim, tuple(a.critic_widths),
                     tuple(a.actor_widths)) for a in agents)
+    joint = (tuple(a.action_dim for a in agents) if agents[0].is_ctde
+             else None)
+
+    def conv(x):
+        return None if x is None else tuple(_t(y, dtype) for y in x)
     return tuple(D.SACAgentDraws(_t(nn, dtype), _t(caps, dtype),
                                  _t(npi, dtype), _t(ncaps, dtype),
-                                 tuple(_t(x, dtype) for x in cs),
-                                 tuple(_t(x, dtype) for x in acs))
-                 for nn, caps, npi, ncaps, cs, acs in _sac_draw_arrays(
-                     key, shapes, jdtype))
+                                 conv(cs), conv(acs), conv(nj), conv(pj))
+                 for nn, caps, npi, ncaps, cs, acs, nj, pj in
+                 _sac_draw_arrays(key, shapes, jdtype, joint))
 
 
 def _learner_to64(st):
@@ -309,9 +315,10 @@ def _learner_to64(st):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_learner(auto):
-    jcfg, tcfg = _cfgs(automatic_entropy_tuning=auto)
-    agents = [jsac.SACAgent(jcfg, i, jzoo.sac_models(jcfg, i)) for i in AGENTS]
+def _jax_learner(auto, **kw):
+    jcfg, tcfg = _cfgs(automatic_entropy_tuning=auto, **kw)
+    agents = [jsac.SACAgent(jcfg, i, jmodels.sac_models(jcfg, i))
+              for i in range(jcfg.n_agents)]
     states = [_learner_to64(a.init(jax.random.PRNGKey(20 + i)))
               for i, a in enumerate(agents)]
     step = jax.jit(lambda st, b, k, gate: jsac.train_step(
@@ -349,12 +356,19 @@ def test_train_step_matches_jax(gate, auto):
     ``alpha``, the three networks, ``mu``/``nu`` and the counts, float64
     (``log_alpha`` and its Adam state float32, as in JAX).  The states come
     from JAX after warm-up updates through ``sac_state_from_jax``."""
-    jcfg, tcfg, jagents, jstates, jstep = _jax_learner(auto)
+    train_step_vs_jax(gate, auto)
+
+
+def train_step_vs_jax(gate, auto, **kw):
+    """The check of ``test_train_step_matches_jax`` for ``_cfgs(**kw)``."""
+    jcfg, tcfg, jagents, jstates, jstep = _jax_learner(auto, **kw)
+    agent_ids = range(jcfg.n_agents)
     rng = np.random.default_rng(30)
     for k in range(2 if gate else 1):
         jb, _ = _batch(rng, jcfg)
         jstates, _ = jstep(jstates, jb, jax.random.PRNGKey(40 + k), False)
-    tagents = [tsac.SACAgent(tcfg, i, "cpu", torch.float64) for i in AGENTS]
+    tagents = [tsac.SACAgent(tcfg, i, "cpu", torch.float64)
+               for i in agent_ids]
     tstates = [convert.sac_state_from_jax(_np_tree(s), a)
                for s, a in zip(jstates, tagents)]
     for ts, js in zip(tstates, jstates):
@@ -366,7 +380,7 @@ def test_train_step_matches_jax(gate, auto):
                        jnp.float64)
     tstates, tm = tsac.train_step(tcfg, tagents, tstates, tb, draws)
     assert set(tm) == set(jm)
-    for i in AGENTS:
+    for i in agent_ids:
         for k in ("critic_loss", "actor_loss", "alpha_loss", "alpha"):
             _close(float(tm[f"agent{i}/{k}"]), float(jm[f"agent{i}/{k}"]),
                    1e-9 if "loss" in k else 1e-6, f"agent {i} {k}")
@@ -410,103 +424,47 @@ def test_convert_sac_state_round_trip():
             == ts.actor.data_ptr() + 8 * off
 
 
-def test_sac_ctde_is_not_ported():
-    _, tcfg = _cfgs(module_training="CTDE")
-    for agent_id in AGENTS:
-        with pytest.raises(NotImplementedError, match="CTDE"):
-            tsac.SACAgent(tcfg, agent_id, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # Supersteps
 # ---------------------------------------------------------------------------
+def _sac_hooks(agents):
+    """``train.py:343-368``'s SAC hooks of the JAX superstep."""
+    def act_prep(states):
+        return [a.fold_actor(states[i].actor) for i, a in enumerate(agents)]
+
+    def act_fn(folded, ob, noise_std, k):
+        acts = []
+        for i, a in enumerate(agents):
+            k, sub = jax.random.split(k)
+            acts.append(a.choose_action_f(folded[i], ob[i], sub))
+        return jnp.concatenate(acts, axis=-1)
+    return dict(train_fn=jsac.train_step, act_fn=act_fn, act_prep=act_prep)
+
+
+def _sac_act(agents, states, ob, noise_std, k):
+    hooks = _sac_hooks(agents)
+    return hooks["act_fn"](hooks["act_prep"](states), ob, noise_std, k)
+
+
+SAC = OffPolicy(
+    jax_agent=lambda jcfg, i: jsac.SACAgent(jcfg, i,
+                                            jmodels.sac_models(jcfg, i)),
+    jax_hooks=_sac_hooks, jax_act=_sac_act,
+    port_agent=lambda tcfg, i: tsac.SACAgent(tcfg, i, "cpu"),
+    port_hooks=tsac.superstep_hooks, convert=convert.sac_state_from_jax,
+    draws=_sac_draws, compare=_compare_sac,
+    losses=("critic_loss", "actor_loss", "alpha"), rel=1e-4)
+
+
 def test_sac_superstep_matches_jax():
     """2 warm + 3 train supersteps (one tick, one update each) against
     ``make_sharded_td3_superstep(train_fn=sac.train_step, act_fn=...,
     act_prep=...)`` on a 1-device CPU mesh as ``train.py:343-368`` builds
     it, float32, from the same envs, ring and learner states and with JAX's
     draws: the env tick's, the acting samples', the sample indices and the
-    update draws, each rebuilt from the superstep's key."""
-    kw = dict(num_envs=8, replay_buffer_size=28, max_steps=3, rl_algo="SAC")
-    jcfg, tcfg = _cfgs(**kw)
-    mesh = jmesh.make_mesh(1)
-    jagents = [jsac.SACAgent(jcfg, i, jzoo.sac_models(jcfg, i)) for i in AGENTS]
-    jstates = [jax.device_put(a.init(jax.random.PRNGKey(60 + i)),
-                              jmesh.replicated(mesh))
-               for i, a in enumerate(jagents)]
-    jbs, jobs, jrs = sharded_init(jcfg, mesh, jax.random.PRNGKey(61))
-    jep = init_ep_ret(jcfg, mesh)
-
-    def act_prep(states):
-        return [a.fold_actor(states[i].actor) for i, a in enumerate(jagents)]
-
-    def act_fn(folded, ob, noise_std, k):
-        acts = []
-        for i, a in enumerate(jagents):
-            k, sub = jax.random.split(k)
-            acts.append(a.choose_action_f(folded[i], ob[i], sub))
-        return jnp.concatenate(acts, axis=-1)
-    jstep = make_sharded_td3_superstep(jcfg, jagents, mesh,
-                                       train_fn=jsac.train_step,
-                                       act_fn=act_fn, act_prep=act_prep)
-
-    tagents = [tsac.SACAgent(tcfg, i, "cpu") for i in AGENTS]
-    tstates = [convert.sac_state_from_jax(_np_tree(s), a)
-               for s, a in zip(jstates, tagents)]
-    loop = TickLoop(tcfg, convert.env_state_from_numpy(_np_tree(jbs),
-                                                       device="cpu"))
-    tobs = tuple(_t(o) for o in jobs)
-    trs = convert.replay_state_from_jax(_np_tree(jrs), tcfg.obs_dim_n,
-                                        tcfg.action_dim_n, device="cpu")
-    tep = torch.zeros(tcfg.num_envs, 2)
-    tstep = make_td3_superstep(tcfg, tagents, "cpu",
-                               **tsac.superstep_hooks(tagents))
-    B, noise_std = jcfg.num_envs, 0.3
-    draws_fn = jax.jit(lambda b: _tick_draws(b, jnp.float32))
-    resets = 0
-    for s in range(5):
-        warm = s < 2
-        key = jax.random.PRNGKey(70 + s)
-        env_draws = _t(draws_fn(jbs))
-        policy = _tick_policy_arrays(key, B, tuple(jcfg.action_dim_n), warm)
-        policy = _t(policy) if warm else tuple(map(_t, policy))
-        jbs, jobs, jrs, jstates, jep, jm = jstep(jbs, jobs, jrs, jstates, jep,
-                                                  key, noise_std, warm=warm)
-        updates = []
-        if not warm:
-            k_upd = jax.random.split(jax.random.fold_in(key, 0))[1]
-            k_s, k_u = jax.random.split(jax.random.split(k_upd, 1)[0])
-            idx = jax.random.randint(k_s, (jcfg.batch_size,), 0,
-                                     jnp.maximum(jrs.filled, 1))
-            updates = [D.UpdateDraws(_t(idx).long(), _sac_draws(
-                k_u, tagents, jcfg.batch_size, torch.float32, jnp.float32))]
-        tobs, tm = tstep(loop, tobs, trs, tstates, tep, noise_std, warm=warm,
-                         draws=([D.TickDraws(env_draws, policy)], updates))
-        what = f"superstep {s}"
-        for a, b in zip(tobs, jobs):
-            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=2e-5,
-                                       atol=2e-6, err_msg=what)
-        np.testing.assert_allclose(_np(trs.data), np.asarray(jrs.data),
-                                   rtol=2e-5, atol=2e-6, err_msg=what)
-        assert (trs.ptr, trs.filled) == (int(jrs.ptr), int(jrs.filled))
-        np.testing.assert_allclose(_np(tep), np.asarray(jep), rtol=1e-5,
-                                   atol=1e-5, err_msg=what)
-        np.testing.assert_allclose(float(tm["mean_reward"]),
-                                   float(jm["mean_reward"]), rtol=1e-5)
-        assert float(tm["fin_cnt"]) == float(jm["fin_cnt"])
-        resets += int(jm["fin_cnt"])
-        if warm:
-            assert set(tm) == set(jm) == {"mean_reward", "fin_sum", "fin_cnt"}
-            continue
-        assert set(tm) == set(jm)
-        for i in AGENTS:
-            for k in ("critic_loss", "actor_loss", "alpha"):
-                np.testing.assert_allclose(float(tm[f"agent{i}/{k}"]),
-                                           float(jm[f"agent{i}/{k}"]),
-                                           rtol=1e-4, atol=1e-7,
-                                           err_msg=f"{what} agent {i} {k}")
-            _compare_sac(tstates[i], jstates[i], 1e-4, f"{what} agent {i}")
-    assert resets > 0 and trs.filled == jcfg.replay_buffer_size
+    update draws, each rebuilt from the superstep's key
+    (``test_torch_td3.py::superstep_vs_jax``)."""
+    superstep_vs_jax(SAC, rl_algo="SAC")
 
 
 def test_sac_train_loop_cpu():

@@ -18,6 +18,7 @@ float64 (``td3.py:228`` names no dtype) and so computes the target Q in
 float64 where the port stays in float32.
 """
 import functools
+from typing import Callable, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ from gym_rotor_tpu.algos import common as jcommon
 from gym_rotor_tpu.algos import regularizers as jreg
 from gym_rotor_tpu.algos import td3 as jtd3
 from gym_rotor_tpu.algos.replay import Batch as JBatch
+from gym_rotor_tpu.envs import batch as jbatch
 from gym_rotor_tpu.models import zoo as jmodels
 from gym_rotor_tpu.models.emlp import nn as jnn
 from gym_rotor_tpu.models.emlp import zoo as jzoo
@@ -92,13 +94,25 @@ def _np_tree(x):
 # ---------------------------------------------------------------------------
 # JAX draws in the port's layout
 # ---------------------------------------------------------------------------
-@functools.partial(jax.jit, static_argnums=(1, 2))
-def _update_draw_arrays(key, shapes, jdtype):
+def split_chain(key, dims, batch, jdtype=None):
+    """One N(0, 1) (batch, d) per ``d`` in ``dims`` from a ``split`` chain
+    on ``key`` (``kk, kn = split(kk)`` per agent: td3.py:209-221,
+    sac.py:153-160, :212-220); ``jdtype`` None is JAX's default dtype."""
+    out = []
+    for d in dims:
+        key, kn = jax.random.split(key)
+        out.append(jax.random.normal(kn, (batch, d), jdtype))
+    return tuple(out)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _update_draw_arrays(key, shapes, jdtype, joint):
     """``train_step``'s draws from its key (td3.py:187-189, :200, :228;
     regularizers.py:55, :129), one jitted program: per agent of
     ``shapes`` ``(batch, act, obs, critic widths, actor widths)``, the
-    target noise (default dtype, as td3.py:228 draws it), the CAPS draw
-    and the spectral start vectors."""
+    target noise (default dtype, as td3.py:228 draws it; under CTDE, when
+    ``joint`` holds every agent's action width, one per agent from the
+    ``k_noise`` chain), the CAPS draw and the spectral start vectors."""
     out = []
     for batch, act, obs, cws, aws in shapes:
         key, sub = jax.random.split(key)
@@ -108,36 +122,39 @@ def _update_draw_arrays(key, shapes, jdtype):
             return tuple(jax.random.normal(jax.random.fold_in(k, j), (w,),
                                            jdtype)
                          for j, w in enumerate(widths))
-        out.append((jax.random.normal(k_noise, (batch, act)),
-                    jax.random.normal(k_caps, (1, obs), jdtype),
+        target = (split_chain(k_noise, joint, batch) if joint else
+                  jax.random.normal(k_noise, (batch, act)))
+        out.append((target, jax.random.normal(k_caps, (1, obs), jdtype),
                     starts(k_spec, cws), starts(k_spec2, aws)))
     return out
 
 
 def _update_draws(key, agents, batch, dtype, jdtype):
-    """JAX's update draws as the port's ``AgentDraws``, one per agent."""
+    """JAX's update draws as the port's ``AgentDraws``, one per agent
+    (CTDE: every agent's target noise per agent)."""
     shapes = tuple((batch, a.action_dim, a.obs_dim, tuple(a.critic_widths),
                     tuple(a.actor_widths)) for a in agents)
-    return tuple(D.AgentDraws(_t(tn, dtype), _t(caps, dtype),
+    joint = (tuple(a.action_dim for a in agents) if agents[0].is_ctde
+             else None)
+
+    def conv(x):
+        return tuple(_t(y, dtype) for y in x) if isinstance(x, tuple) \
+            else _t(x, dtype)
+    return tuple(D.AgentDraws(conv(tn), _t(caps, dtype),
                               tuple(_t(x, dtype) for x in cs),
                               tuple(_t(x, dtype) for x in acs))
-                 for tn, caps, cs, acs in _update_draw_arrays(key, shapes,
-                                                              jdtype))
+                 for tn, caps, cs, acs in _update_draw_arrays(
+                     key, shapes, jdtype, joint))
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def _tick_policy_arrays(key, batch, act_dims, warm):
-    """A superstep's key chain down to its one tick's policy draws
-    (train_step.py:103-129): the warm uniforms or each agent's noise."""
-    k_roll, _ = jax.random.split(jax.random.fold_in(key, 0))
-    _, sub = jax.random.split(k_roll)
+def _policy_arrays(sub, batch, act_dims, warm):
+    """One tick's policy draws from its key ``sub``: the warm uniforms
+    (train_step.py:120) or each agent's N(0, 1) from a split chain (the
+    TD3 policy's, ``:124-128``, and SAC's ``act_fn``, ``train.py:358-363``,
+    alike)."""
     if warm:
         return jax.random.uniform(sub, (batch, sum(act_dims)), jnp.float32)
-    out = []
-    for d in act_dims:
-        sub, s2 = jax.random.split(sub)
-        out.append(jax.random.normal(s2, (batch, d), jnp.float32))
-    return tuple(out)
+    return split_chain(sub, act_dims, batch, jnp.float32)
 
 
 def _adam(opt):
@@ -363,13 +380,6 @@ def test_caps_terms_match_jax():
     assert treg.hover_action_scalar() == jreg.hover_action_scalar()
 
 
-def test_ctde_is_not_ported():
-    _, tcfg = _cfgs(module_training="CTDE")
-    for agent_id in AGENTS:
-        with pytest.raises(NotImplementedError, match="CTDE"):
-            ttd3.TD3Agent(tcfg, agent_id, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # One update
 # ---------------------------------------------------------------------------
@@ -486,53 +496,118 @@ def test_superstep_matches_jax():
     superstep_vs_jax()
 
 
-def superstep_vs_jax(**cfg_kw):
+class OffPolicy(NamedTuple):
+    """An off-policy learner as ``superstep_vs_jax`` drives it, in JAX and
+    in the port."""
+    jax_agent: Callable      # (jcfg, i) -> JAX agent
+    jax_hooks: Callable      # JAX agents -> make_sharded_td3_superstep kwargs
+    jax_act: Callable        # (agents, states, obs, noise_std, key) -> action
+    port_agent: Callable     # (tcfg, i) -> the port's agent on the CPU
+    port_hooks: Callable     # port agents -> make_td3_superstep kwargs
+    convert: Callable        # (JAX state tree, port agent) -> port state
+    draws: Callable          # _update_draws' signature
+    compare: Callable        # (port state, JAX state, rel, what)
+    losses: Tuple[str, ...]  # the loss metrics compared (rel 1e-4)
+    rel: float               # the learner states' bound after a superstep
+
+
+def _td3_act(agents, states, ob, noise_std, k):
+    """The superstep's default TD3 policy (train_step.py:122-129)."""
+    acts = []
+    for i, a in enumerate(agents):
+        k, sub = jax.random.split(k)
+        acts.append(a.choose_action_f(a.fold_actor(states[i].actor), ob[i],
+                                      noise_std, sub))
+    return jnp.concatenate(acts, axis=-1)
+
+
+TD3 = OffPolicy(
+    jax_agent=lambda jcfg, i: jtd3.TD3Agent(jcfg, i,
+                                            jmodels.td3_models(jcfg, i)),
+    jax_hooks=lambda agents: {}, jax_act=_td3_act,
+    port_agent=lambda tcfg, i: ttd3.TD3Agent(tcfg, i, "cpu"),
+    port_hooks=lambda agents: {}, convert=convert.td3_state_from_jax,
+    draws=_update_draws, compare=_compare_td3,
+    losses=("critic_loss", "actor_loss"), rel=1e-5)
+
+
+def superstep_vs_jax(algo: OffPolicy = TD3, supersteps=(2, 3),
+                     rollout_len=1, n_updates=1, **cfg_kw):
     """The check of ``test_superstep_matches_jax`` for ``_cfgs(**cfg_kw)``
-    (MODUL or MONO, EMLP or MLP networks)."""
+    (MODUL or MONO, DTDE or CTDE, EMLP or MLP networks) and ``algo`` (TD3
+    or SAC, ``test_torch_sac.py``): ``supersteps`` warm then train
+    supersteps of ``rollout_len`` ticks and ``n_updates`` updates each.
+    Each tick's env draws and acting draws come from JAX's keys, the
+    rollout replayed on the JAX side from the superstep's starting state to
+    reach each tick's env keys; each update's sample indices and draws from
+    its key (train_step.py:157-164).  The learner states are held to
+    ``algo.rel``."""
     kw = dict(num_envs=8, replay_buffer_size=28, max_steps=3, **cfg_kw)
     jcfg, tcfg = _cfgs(**kw)
     agent_ids = range(jcfg.n_agents)
     mesh = jmesh.make_mesh(1)
-    jagents = [jtd3.TD3Agent(jcfg, i, jmodels.td3_models(jcfg, i))
-               for i in agent_ids]
+    jagents = [algo.jax_agent(jcfg, i) for i in agent_ids]
     jstates = [jax.device_put(a.init(jax.random.PRNGKey(60 + i)),
                               jmesh.replicated(mesh))
                for i, a in enumerate(jagents)]
     jbs, jobs, jrs = sharded_init(jcfg, mesh, jax.random.PRNGKey(61))
     jep = init_ep_ret(jcfg, mesh)
-    jstep = make_sharded_td3_superstep(jcfg, jagents, mesh)
+    jstep = make_sharded_td3_superstep(jcfg, jagents, mesh,
+                                       rollout_len=rollout_len,
+                                       n_updates=n_updates,
+                                       **algo.jax_hooks(jagents))
 
-    tagents = [ttd3.TD3Agent(tcfg, i, "cpu") for i in agent_ids]
-    tstates = [convert.td3_state_from_jax(_np_tree(s), a)
-               for s, a in zip(jstates, tagents)]
+    tagents = [algo.port_agent(tcfg, i) for i in agent_ids]
+    tstates = [algo.convert(_np_tree(s), a) for s, a in zip(jstates, tagents)]
     loop = TickLoop(tcfg, convert.env_state_from_numpy(_np_tree(jbs),
                                                        device="cpu"))
     tobs = tuple(_t(o) for o in jobs)
     trs = convert.replay_state_from_jax(_np_tree(jrs), tcfg.obs_dim_n,
                                         tcfg.action_dim_n, device="cpu")
     tep = torch.zeros(tcfg.num_envs, tcfg.n_agents)
-    tstep = make_td3_superstep(tcfg, tagents, "cpu")
+    tstep = make_td3_superstep(tcfg, tagents, "cpu", rollout_len=rollout_len,
+                               n_updates=n_updates, **algo.port_hooks(tagents))
     B, noise_std = jcfg.num_envs, 0.3
+    act_dims = tuple(jcfg.action_dim_n)
     draws_fn = jax.jit(lambda b: _tick_draws(b, jnp.float32))
+
+    @functools.partial(jax.jit, static_argnums=4)
+    def replay_tick(bs, ob, states, sub, warm):
+        """One tick of the superstep's scan (train_step.py:132-143)."""
+        if warm:
+            actions = jax.random.uniform(sub, (B, sum(act_dims)),
+                                         jnp.float32, -1.0, 1.0)
+        else:
+            actions = algo.jax_act(jagents, states, ob,
+                                   jnp.float32(noise_std), sub)
+        bs, out = jbatch.batched_step(jcfg, bs, actions)
+        return bs, out.obs
+
     resets = 0
-    for s in range(5):
-        warm = s < 2
+    for s in range(sum(supersteps)):
+        warm = s < supersteps[0]
         key = jax.random.PRNGKey(70 + s)
-        env_draws = _t(draws_fn(jbs))
-        policy = _tick_policy_arrays(key, B, tuple(jcfg.action_dim_n), warm)
-        policy = _t(policy) if warm else tuple(map(_t, policy))
+        k_roll, k_upd = jax.random.split(jax.random.fold_in(key, 0))
+        ticks, bs, ob, k = [], jbs, jobs, k_roll
+        for _ in range(rollout_len):
+            k, sub = jax.random.split(k)
+            policy = _policy_arrays(sub, B, act_dims, warm)
+            ticks.append(D.TickDraws(_t(draws_fn(bs)), _t(policy) if warm
+                                     else tuple(map(_t, policy))))
+            bs, ob = replay_tick(bs, ob, jstates, sub, warm)
         jbs, jobs, jrs, jstates, jep, jm = jstep(jbs, jobs, jrs, jstates, jep,
                                                   key, noise_std, warm=warm)
         updates = []
         if not warm:
-            k_upd = jax.random.split(jax.random.fold_in(key, 0))[1]
-            k_s, k_u = jax.random.split(jax.random.split(k_upd, 1)[0])
-            idx = jax.random.randint(k_s, (jcfg.batch_size,), 0,
-                                     jnp.maximum(jrs.filled, 1))
-            updates = [D.UpdateDraws(_t(idx).long(), _update_draws(
-                k_u, tagents, jcfg.batch_size, torch.float32, jnp.float32))]
+            for ku in jax.random.split(k_upd, n_updates):
+                k_s, k_u = jax.random.split(ku)
+                idx = jax.random.randint(k_s, (jcfg.batch_size,), 0,
+                                         jnp.maximum(jrs.filled, 1))
+                updates.append(D.UpdateDraws(_t(idx).long(), algo.draws(
+                    k_u, tagents, jcfg.batch_size, torch.float32,
+                    jnp.float32)))
         tobs, tm = tstep(loop, tobs, trs, tstates, tep, noise_std, warm=warm,
-                         draws=([D.TickDraws(env_draws, policy)], updates))
+                         draws=(ticks, updates))
         what = f"superstep {s}"
         for a, b in zip(tobs, jobs):
             np.testing.assert_allclose(_np(a), np.asarray(b), rtol=2e-5,
@@ -553,10 +628,12 @@ def superstep_vs_jax(**cfg_kw):
             continue
         assert set(tm) == set(jm)
         for i in agent_ids:
-            for k in ("critic_loss", "actor_loss"):
+            for k in algo.losses:
                 np.testing.assert_allclose(float(tm[f"agent{i}/{k}"]),
                                            float(jm[f"agent{i}/{k}"]),
                                            rtol=1e-4, atol=1e-7,
                                            err_msg=f"{what} agent {i} {k}")
-            _compare_td3(tstates[i], jstates[i], 1e-5, f"{what} agent {i}")
+            algo.compare(tstates[i], jstates[i], algo.rel,
+                         f"{what} agent {i}")
     assert resets > 0 and trs.filled == jcfg.replay_buffer_size
+    return tstates
