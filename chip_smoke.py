@@ -125,6 +125,27 @@ result line):
                 counts, K3/K4 per shape and rows); eval_<config>:
                 ``evaluate`` with the trained actors of the five README
                 rows; kernels: one record per new instance
+ 22. K1's Euler, DOP853, trajectory-mode and exact_so3 instances
+                (``phase_tick_modes``): env_tick_modes the registers and
+                spills ``-Xptxas -v`` reports per instance (twelve: task x
+                euler/rk4/dop853 x exact_so3), then each instance vs its
+                plain twin in modes 0-7 (7 the clamp to the eight) at
+                B = 4096 train and 10 eval envs: a reset, MODES_PLAIN_TICKS
+                plain ticks, then one kernel and one plain tick on the same
+                state with ~10% at the cap, ~30% of machines half a tick
+                before their planned end in modes 2, 3, 5-7 (the hold or
+                the landing begins) and, under exact_so3, ~20% of attitudes
+                drifted (the reads repair them; the kernel's read mask,
+                seen in its obs, vs the twin's ``is_rotation``);
+                rollout_<instance>: ``rollout`` through each instance,
+                4096 envs x MODES_TICKS ticks with both EMLP actors, exact
+                launch counts per instance, SO(3) on R as read, rewards in
+                range, env-steps/s; train_dop853_mode5 (Mod-EMLP) and
+                train_euler_mode1_exact (Mono-EMLP): ``train`` at full
+                width, 1 warm + MODES_TRAIN_STEPS supersteps, checked as
+                phase 12; eval_modes: ``evaluate`` with the first run's
+                actors in mode 6; kernels: one record per instance, with
+                its launches over those runs
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -363,19 +384,12 @@ def _named(state, out=None):
     return d
 
 
-def phase_env_tick(cfg, dev, n, env_type, ticks=1):
-    """K1 (reset entry and tick) vs the plain twin on ``n`` envs of
-    ``cfg.framework``'s task: the reset entry; then after 50 plain ticks,
-    ``ticks`` ticks each run by the kernel and by the plain twin from the
-    same state, actions and draws with ~10% of envs set one tick from the
-    cap, the plain result carried to the next."""
+def _tick_inputs(cfg, dev, n, gen):
+    """Makers of ``n`` envs' actions for ``cfg.framework``'s task (MODUL:
+    (f, tau, M3); MONO: (f, M), the moments taken as they are) and of one
+    tick's base draws."""
     from gym_rotor_tpu_torch.envs import draws as D
-    from gym_rotor_tpu_torch.envs.batch import batched_reset_plain
-    from gym_rotor_tpu_torch.kernels import env_tick as K
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
     n_act = sum(cfg.action_dim_n)
-    # MODUL: (f, tau, M3); MONO: (f, M), the moments taken as they are
     spread = 0.35 if cfg.framework == "MODUL" else 0.2
 
     def actions():
@@ -385,21 +399,62 @@ def phase_env_tick(cfg, dev, n, env_type, ticks=1):
 
     def uniforms():
         return D.draw_uniforms(n, gen, torch.float32, dev)
+    return actions, uniforms
 
-    draws = uniforms()
+
+def _reset_vs_plain(cfg, draws, env_type, dev):
+    """K1's reset entry vs ``batched_reset_plain`` on ``draws``: returns the
+    plain state, the per-field errors, the fields out of tolerance and the
+    worst error."""
+    from gym_rotor_tpu_torch.envs.batch import batched_reset_plain
+    from gym_rotor_tpu_torch.kernels import env_tick as K
     st_k, obs_k = K.env_reset(cfg, draws, env_type)
     st_p, obs_p = batched_reset_plain(cfg, draws, env_type)
     nk, np_ = _named(st_k), _named(st_p)
     for a in range(cfg.n_agents):
         nk[f"obs{a + 1}"], np_[f"obs{a + 1}"] = obs_k[a], obs_p[a]
-    errs, bad, worst_reset = _field_errors(
+    n = draws.shape[0]
+    errs, bad, worst = _field_errors(
         nk, np_, torch.zeros(n, dtype=torch.bool, device=dev))
+    return st_p, errs, bad, worst
+
+
+def _tick_vs_plain(cfg, st, a, dr, env_type, dev):
+    """One K1 tick and one plain tick on the same state, actions and draws:
+    the discrete fields equal except in envs near a threshold, the rest
+    within K1's tolerance over the envs whose discrete fields agree."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    n = a.shape[0]
+    st_k, out_k = K.env_tick(cfg, st, a, dr, env_type)
+    st_p, out_p = K.env_tick_plain(cfg, st, a, dr, env_type)
+    nk, np_ = _named(st_k, out_k), _named(st_p, out_p)
+    near = _near_threshold(out_p) | _near_threshold(out_k)
+    mismatch = torch.zeros(n, dtype=torch.bool, device=dev)
+    for path, p in np_.items():
+        if not p.is_floating_point():
+            mismatch |= (nk[path] != p).reshape(n, -1).any(1)
+    errs, bad, err = _field_errors(nk, np_, mismatch)
+    return dict(st_k=st_k, out_k=out_k, st_p=st_p, out_p=out_p, near=near,
+                mismatch=mismatch, unexplained=int((mismatch & ~near).sum()),
+                errs=errs, bad=bad, err=err)
+
+
+def phase_env_tick(cfg, dev, n, env_type, ticks=1):
+    """K1 (reset entry and tick) vs the plain twin on ``n`` envs of
+    ``cfg.framework``'s task: the reset entry; then after 50 plain ticks,
+    ``ticks`` ticks each run by the kernel and by the plain twin from the
+    same state, actions and draws with ~10% of envs set one tick from the
+    cap, the plain result carried to the next."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    actions, uniforms = _tick_inputs(cfg, dev, n, gen)
+    st, errs, bad, worst_reset = _reset_vs_plain(cfg, uniforms(), env_type,
+                                                 dev)
     log("env_tick", check="reset kernel vs plain", task=K.task_of(cfg),
         envs=n, env_type=env_type, max_abs_err=worst_reset, fields=errs)
     if bad:
         raise AssertionError(f"env reset kernel disagrees with plain: {bad}")
 
-    st = st_p
     for _ in range(50):
         st, _ = K.env_tick_plain(cfg, st, actions(), uniforms(), env_type)
     worst, n_reset, crashes = 0.0, 0, 0
@@ -407,37 +462,27 @@ def phase_env_tick(cfg, dev, n, env_type, ticks=1):
         idx = torch.randperm(n, generator=gen, device=dev)[: max(1, n // 10)]
         st.env.t[idx] = cfg.max_steps - 1
         a, dr = actions(), uniforms()
-        st_k, out_k = K.env_tick(cfg, st, a, dr, env_type)
-        st_p, out_p = K.env_tick_plain(cfg, st, a, dr, env_type)
-        nk, np_ = _named(st_k, out_k), _named(st_p, out_p)
-        near = _near_threshold(out_p) | _near_threshold(out_k)
-        mismatch = torch.zeros(n, dtype=torch.bool, device=dev)
-        for path, p in np_.items():
-            if not p.is_floating_point():
-                diff = nk[path] != p
-                mismatch |= diff.reshape(n, -1).any(1)
-        unexplained = int((mismatch & ~near).sum())
-        errs, bad, err = _field_errors(nk, np_, mismatch)
-        worst = max(worst, err)
-        resets = int(out_p.reset_happened.sum())
-        crashed = int(out_p.info["crashed"].any(-1).sum())
+        c = _tick_vs_plain(cfg, st, a, dr, env_type, dev)
+        worst = max(worst, c["err"])
+        resets = int(c["out_p"].reset_happened.sum())
+        crashed = int(c["out_p"].info["crashed"].any(-1).sum())
         n_reset += resets
         crashes += crashed
         log("env_tick", check="tick kernel vs plain", task=K.task_of(cfg),
             tick=k, envs=n, env_type=env_type, resets=resets,
             crash_resets=crashed, caps_set=int(idx.numel()),
-            near_threshold_envs=int(near.sum()),
-            discrete_mismatch_envs=int(mismatch.sum()),
-            unexplained_mismatch_envs=unexplained, max_abs_err=err,
-            fields=errs)
-        if unexplained or bad:
+            near_threshold_envs=int(c["near"].sum()),
+            discrete_mismatch_envs=int(c["mismatch"].sum()),
+            unexplained_mismatch_envs=c["unexplained"], max_abs_err=c["err"],
+            fields=c["errs"])
+        if c["unexplained"] or c["bad"]:
             raise AssertionError(f"env_tick kernel disagrees with plain: "
-                                 f"{unexplained} envs, fields {bad}")
+                                 f"{c['unexplained']} envs, fields {c['bad']}")
         if k + 1 < ticks:
-            st = st_p
+            st = c["st_p"]
     if n_reset <= crashes:
         raise AssertionError("env_tick compare crossed no cap")
-    return dict(state=st, actions=a, draws=dr, n_reset=resets,
+    return dict(state=st, actions=a, draws=dr,
                 max_abs_err=max(worst, worst_reset))
 
 
@@ -1292,21 +1337,27 @@ def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
     return launches, shapes, run
 
 
-def tick_timing(cfg, dev, tick):
-    """K1 at B = 4096 on a compare phase's last state (``tick``; ~10% of
-    envs reset) for ``cfg.framework``'s task: device time per launch, the
-    plain twin's, and the bound (state read and written once, actions,
-    draws and outputs; the flops of the plain twin's step per env plus its
-    fresh episode per reset env, counted on the CPU)."""
+def tick_timing(cfg, dev, tick, kernel="env_tick"):
+    """K1 at B = 4096 on ``tick``'s state, actions and draws (a compare
+    phase's last tick, ~10% of envs reset, or a rollout's last state) for
+    ``cfg``'s instance: device time per launch, the plain twin's, and the
+    bound: the state read and written once, actions, draws and outputs;
+    the flops of the plain twin's step per env plus its fresh episode per
+    reset env (counted on the CPU), less, under exact_so3, the 6-step polar
+    repair of every read that passes ``is_rotation`` (the kernel runs it
+    only where a read fails)."""
     from gym_rotor_tpu_torch.envs import batch as batch_lib
     from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.kernels import env_tick as KT
+    from gym_rotor_tpu_torch.ops import so3
     st, a, dr = tick["state"], tick["actions"], tick["draws"]
     task = KT.task_of(cfg)
     in_bufs, out_bufs = KT.pack_state(st), KT.empty_bufs(B, dev)
     k_ms, k_wall = device_ms(
         lambda: KT.env_tick_bufs(cfg, in_bufs, a, dr, "train", out_bufs), 50)
     p_ms, p_wall = device_ms(lambda: KT.env_tick_plain(cfg, st, a, dr), 5, 3)
+    st_p, out_p = KT.env_tick_plain(cfg, st, a, dr)
+    n_reset = int(out_p.reset_happened.sum())
     nbytes = sum(t.numel() * t.element_size() for t in in_bufs) * 2
     nbytes += a.numel() * 4 + dr.numel() * 4
     nbytes += B * (KT.out_width(task, "F") * 4 + KT.out_width(task, "B"))
@@ -1315,13 +1366,25 @@ def tick_timing(cfg, dev, tick):
     a1, d1 = torch.zeros(1, a.shape[1]), torch.rand(1, D.N_DRAWS)
     dense = count_flops(batch_lib.batched_step_plain, cpu_cfg, st1, a1, d1)
     fresh = count_flops(batch_lib._fresh, cpu_cfg, d1, "train")
-    flops = B * (dense - fresh) + tick["n_reset"] * fresh
+    flops = B * (dense - fresh) + n_reset * fresh
+    passed = 0
+    if cfg.exact_so3:
+        # reads: the stored R (the work attitude) and the stepped R of every
+        # env (a reset env's stepped R counted as passing); the reset pose
+        # twice per fresh episode (always a rotation)
+        polar6 = count_flops(so3.polar_fast, torch.eye(3)[None], 6)
+        R_n = torch.where(out_p.reset_happened[:, None, None],
+                          torch.eye(3, device=dev), st_p.env.R)
+        passed = (int(so3.is_rotation(st.env.R).sum())
+                  + int(so3.is_rotation(R_n).sum()) + 2 * n_reset)
+        flops -= passed * polar6
     bms, by = bound_ms(nbytes, flops)
-    log("kernels", kernel="env_tick", task=task, batch=B,
-        resets_in_timed_tick=tick["n_reset"], ms=k_ms, wall_ms_per_call=k_wall,
-        plain_ms=p_ms, plain_wall_ms=p_wall, bytes=nbytes,
-        flops_step_per_env=dense - fresh, flops_fresh_per_env=fresh,
-        flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
+    log("kernels", kernel=kernel, task=task, mode=cfg.train_traj_mode,
+        batch=B, resets_in_timed_tick=n_reset, reads_passed=passed, ms=k_ms,
+        wall_ms_per_call=k_wall, plain_ms=p_ms, plain_wall_ms=p_wall,
+        bytes=nbytes, flops_step_per_env=dense - fresh,
+        flops_fresh_per_env=fresh, flops=flops, bound_ms=bms, bound_by=by,
+        library_ms=None)
     return k_ms, p_ms, bms, by
 
 
@@ -2910,6 +2973,269 @@ def phase_families(dev):
                                 obs_mono)
 
 
+# ---------------------------------------------------------------------------
+# K1's remaining train-path instances: Euler and DOP853, trajectory modes
+# 1-6 (7 the clamp), exact_so3
+# ---------------------------------------------------------------------------
+# the twelve K1 instances (task x integrator x exact_so3) and the
+# trajectory mode each one's rollout runs: every mode 1-7 on some instance
+TICK_INSTANCES = tuple((fw, integ, exact) for fw in ("MODUL", "MONO")
+                       for integ in ("euler", "rk4", "dop853")
+                       for exact in (False, True))
+ROLLOUT_MODES = dict(zip(TICK_INSTANCES, (1, 2, 3, 4, 5, 6,
+                                          7, 1, 6, 5, 2, 4)))
+MODES = tuple(range(8))
+MODES_PLAIN_TICKS = 3       # plain ticks from the reset to each compare
+MODES_TICKS = 200           # ticks of each instance's rollout
+MODES_TRAIN_STEPS = 20
+MODES_TRAIN = (
+    ("train_dop853_mode5", dict(integrator="dop853", train_traj_mode=5)),
+    ("train_euler_mode1_exact", dict(framework="MONO", integrator="euler",
+                                     train_traj_mode=1, exact_so3=True)))
+DRIFT = 1e-4                # attitude drift set on a share of exact envs
+
+
+def _instance_cfg(fw, integ, exact, mode, n=None):
+    from gym_rotor_tpu_torch.utils.config import Config
+    return Config(num_envs=n or B, framework=fw, integrator=integ,
+                  exact_so3=exact, train_traj_mode=mode)
+
+
+def _read_masks(cfg, st, out):
+    """Per env: whether the tick's read of R passed ``is_rotation`` (the
+    obs carries R as read: MONO all of it, MODUL its third column; equal to
+    the stored R iff no repair), over the envs whose episode went on."""
+    R = st.env.R
+    if cfg.framework == "MONO":
+        seen = out.info["terminal_obs"][0][:, 9:18]
+        stored = R.transpose(1, 2).reshape(-1, 9)
+    else:
+        seen = out.info["terminal_obs"][0][:, 9:12]
+        stored = R[:, :, 2]
+    return (seen == stored).all(1), ~out.reset_happened
+
+
+def _mode_compare(cfg, dev, n, env_type, gen):
+    """One K1 instance and mode: the reset entry vs plain, then after
+    MODES_PLAIN_TICKS plain ticks one kernel tick and one plain tick on the
+    same state, actions and draws, with ~10% of envs at the cap, in modes 2,
+    3, 5, 6 (and 7) ~30% of machines half a tick before their planned end
+    (the tick crosses into the hold or the landing), and under exact_so3
+    ~20% of attitudes drifted by DRIFT (the tick's reads repair them).
+    Returns the worst error, the discrete mismatches near a threshold, the
+    exact_so3 mask disagreements on the read of the stepped attitude (the
+    kernel's mask inferred from its obs; the work attitude's read shows in
+    the stepped state, held to the tolerance), the repaired reads (both),
+    the resets and the machines in manual mode after the tick."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.ops import so3
+    actions, uniforms = _tick_inputs(cfg, dev, n, gen)
+    what = f"{K.instance(cfg)} mode {cfg.train_traj_mode} {env_type}"
+    st, _, bad, worst = _reset_vs_plain(cfg, uniforms(), env_type, dev)
+    if bad:
+        raise AssertionError(f"{what}: reset disagrees: {bad}")
+    for _ in range(MODES_PLAIN_TICKS):
+        st, _ = K.env_tick_plain(cfg, st, actions(), uniforms(), env_type)
+    if cfg.train_traj_mode in (2, 3, 5, 6, 7):
+        late = torch.rand(n, generator=gen, device=dev) < 0.3
+        st.traj.started[late] = True
+        st.traj.t[late] = st.traj.t_traj[late] - 0.5 * (1.0 / 200)
+    if cfg.exact_so3:
+        drift = torch.rand(n, generator=gen, device=dev) < 0.2
+        st.env.R[drift] += DRIFT * torch.randn(int(drift.sum()), 3, 3,
+                                               generator=gen, device=dev)
+    idx = torch.randperm(n, generator=gen, device=dev)[: max(1, n // 10)]
+    st.env.t[idx] = cfg.max_steps - 1
+    # the tick's first read of R (the work attitude) repairs these envs
+    work_repairs = int((~so3.is_rotation(st.env.R)).sum()) \
+        if cfg.exact_so3 else 0
+    c = _tick_vs_plain(cfg, st, actions(), uniforms(), env_type, dev)
+    if c["unexplained"] or c["bad"]:
+        raise AssertionError(
+            f"{what}: {c['unexplained']} envs, fields {c['bad']}: "
+            f"{ {b: c['errs'][b] for b in c['bad']} }")
+    mask_diff = repaired = 0
+    if cfg.exact_so3:
+        # the kernel's read masks, inferred from its obs, against the
+        # plain twin's is_rotation on the same stored attitudes
+        seen_k, kept = _read_masks(cfg, c["st_k"], c["out_k"])
+        mask_p = so3.is_rotation(c["st_p"].env.R)
+        seen_p, _ = _read_masks(cfg, c["st_p"], c["out_p"])
+        keep = kept & ~c["mismatch"]
+        mask_diff = int(((seen_k != mask_p) & keep).sum())
+        repaired = work_repairs + int((~mask_p & keep).sum())
+        if mask_diff or bool(((seen_p != mask_p) & keep).any()):
+            raise AssertionError(f"{what}: exact_so3 mask differs in "
+                                 f"{mask_diff} envs")
+    return (max(worst, c["err"]), int(c["mismatch"].sum()),
+            int(c["near"].sum()), mask_diff, repaired,
+            int(c["out_p"].reset_happened.sum()),
+            int(c["st_p"].traj.manual_mode.sum()))
+
+
+def phase_tick_modes_compare(dev):
+    """K1 vs its plain twin for the twelve instances in modes 0-7, at
+    B = 4096 train envs and the eval path's 10 eval envs.  Returns the
+    worst error per instance."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    worst = {}
+    for fw, integ, exact in TICK_INSTANCES:
+        name = K.instance(_instance_cfg(fw, integ, exact, 0))
+        rows = []
+        for mode in MODES:
+            t0 = time.perf_counter()
+            big = _mode_compare(_instance_cfg(fw, integ, exact, mode), dev, B,
+                                "train", gen)
+            small = _mode_compare(_instance_cfg(fw, integ, exact, mode, 10),
+                                  dev, 10, "eval", gen)
+            worst[name] = max(worst.get(name, 0.0), big[0], small[0])
+            rows.append([mode, max(big[0], small[0]), big[1] + small[1],
+                         big[2] + small[2], big[3] + small[3],
+                         big[4] + small[4], big[5], big[6],
+                         round(time.perf_counter() - t0, 3)])
+        log("env_tick_modes", instance=name, envs=[B, 10],
+            tolerance="1e-6 + 1e-5 |plain|, discrete identical",
+            max_abs_err=worst[name],
+            columns=["mode", "max_abs_err", "discrete_mismatch_near_threshold",
+                     "near_threshold_envs", "mask_mismatch_envs",
+                     "repaired_reads", "resets", "manual_after", "s"],
+            modes=rows)
+    return worst
+
+
+def phase_tick_rollouts(dev):
+    """``rollout`` through each of the twelve instances: 4096 train envs x
+    MODES_TICKS ticks, both EMLP actors through K3, in the instance's
+    ROLLOUT_MODES mode; exact launch counts per instance, the SO(3) check
+    on R as read (under exact_so3 the stored R drifts and the read repairs
+    it), rewards in range, env-steps/s.  Returns per instance its launches,
+    a state, actions and draws for the timing."""
+    from gym_rotor_tpu_torch.envs import draws as D
+    from gym_rotor_tpu_torch.envs.batch import batched_reset, rollout
+    from gym_rotor_tpu_torch.evaluate import joint_policy
+    from gym_rotor_tpu_torch.kernels.emlp_actor import emlp_actor
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.models.emlp.zoo import make_actors
+    from gym_rotor_tpu_torch.ops import so3
+    out = {}
+    for inst in TICK_INSTANCES:
+        cfg = _instance_cfg(*inst, ROLLOUT_MODES[inst])
+        name = K.instance(cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        actors = make_actors(cfg, device=dev, seed=SEED)
+        bs, obs = batched_reset(cfg, gen, device=dev)
+        policy = joint_policy(actors)
+        torch.cuda.synchronize()
+        K.env_tick.launches = 0
+        K.env_tick.by_instance.clear()
+        emlp_actor.launches = 0
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        bs, obs, trs, outs = rollout(cfg, bs, obs, policy, MODES_TICKS, gen)
+        e.record()
+        torch.cuda.synchronize()
+        launches = {"env_tick": K.env_tick.launches,
+                    "emlp_actor": emlp_actor.launches}
+        by_inst = dict(K.env_tick.by_instance)
+        ms = s.elapsed_time(e)
+        R = so3.ensure_so3_exact(bs.env.R) if cfg.exact_so3 else bs.env.R
+        eye = torch.eye(3, device=dev)
+        ortho = float((so3.mm3(R.transpose(-1, -2), R) - eye).abs().max())
+        drift = float((so3.mm3(bs.env.R.transpose(-1, -2), bs.env.R)
+                       - eye).abs().max())
+        r = outs.reward
+        r_ok = bool((((r >= 0) & (r <= 1)) | (r == -1)).all())
+        finite = all(bool(torch.isfinite(t).all()) for t in
+                     (r, *outs.obs, bs.env.x, bs.env.R))
+        log(f"rollout_{name}", mode=cfg.train_traj_mode, envs=B,
+            ticks=MODES_TICKS, launches=launches, by_instance=by_inst,
+            env_steps_per_s=B * MODES_TICKS / (ms / 1e3), rollout_ms=ms,
+            max_RtR_minus_I_read=ortho, max_RtR_minus_I_stored=drift,
+            rewards_in_range=r_ok, finite=finite,
+            episodes_ended=int(outs.reset_happened.sum()),
+            manual_mode_envs=int(bs.traj.manual_mode.sum()), card=CARD)
+        want = {"env_tick": MODES_TICKS,
+                "emlp_actor": cfg.n_agents * MODES_TICKS}
+        if launches != want or by_inst != {name: MODES_TICKS}:
+            raise AssertionError(f"rollout_{name} launch counts {launches} "
+                                 f"{by_inst}")
+        # is_rotation's tolerance bounds a read that passed unrepaired
+        if not (ortho < 2e-5 and r_ok and finite):
+            raise AssertionError(f"rollout_{name} invariants failed")
+        a = policy(obs)
+        out[name] = dict(cfg=cfg, launches=MODES_TICKS, state=bs, actions=a,
+                         draws=D.draw_uniforms(B, gen, torch.float32, dev))
+    return out
+
+
+def env_tick_resources(K):
+    """Registers, spill stores / loads and stack bytes per K1 instance,
+    from ``-Xptxas -v``'s output of the env_tick build."""
+    import re
+    names = {v: k for k, v in K.TASKS.items()}
+    integs = {v: k for k, v in K.INTEGRATORS.items()}
+    out, cur = {}, None
+    for ln in K.KERNEL.ptxas.splitlines():
+        m = re.search(r"env_tick_kernelILi(\d+)ELi(\d+)ELb([01])E", ln)
+        if "Compiling entry function" in ln and m:
+            cur = (f"{names[int(m.group(1))]}_{integs[int(m.group(2))]}"
+                   + ("_exact" if m.group(3) == "1" else ""))
+            out[cur] = {}
+        elif cur and "spill stores" in ln:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[cur].update(stack=n[0], spill_stores=n[1], spill_loads=n[2])
+        elif cur and "registers" in ln:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  ln).group(1))
+    return out
+
+
+def phase_tick_modes(dev):
+    """Phase 22: K1's Euler, DOP853, modes 1-7 and exact_so3 instances.
+    The registers and spills ``-Xptxas -v`` reported per instance; every
+    instance vs its plain twin in modes 0-7 (``env_tick_modes``); a
+    rollout through each instance (``rollout_<instance>``); ``train`` at
+    full width with DOP853 in mode 5 (Mod-EMLP) and with Euler, mode 1 and
+    exact_so3 (Mono-EMLP), 1 warm + MODES_TRAIN_STEPS supersteps each,
+    checked as phase 12; ``evaluate`` with the first run's actors in mode 6
+    (``eval_modes``); one kernel record per instance."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    log("env_tick_modes", ptxas=env_tick_resources(K))
+    worst = phase_tick_modes_compare(dev)
+    rolls = phase_tick_rollouts(dev)
+    launches = Counter({name: r["launches"] for name, r in rolls.items()})
+    runs = {}
+    for name, kw in MODES_TRAIN:
+        cfg = Config(num_envs=B, start_timesteps=B, **kw)
+        K.env_tick.by_instance.clear()
+        run_launches, _, run = phase_train(dev, cfg, MODES_TRAIN_STEPS,
+                                           name=name)
+        by_inst = dict(K.env_tick.by_instance)
+        if by_inst != {K.instance(cfg): run_launches["env_tick"]}:
+            raise AssertionError(f"{name}: K1 instances {by_inst}")
+        launches.update(by_inst)
+        runs[name] = (cfg, run)
+    cfg, run = runs["train_dop853_mode5"]
+    actors = [a.bound_actor(st) for a, st in zip(run["agents"], run["states"])]
+    eval_cfg = cfg.replace(train_traj_mode=6)
+    K.env_tick.by_instance.clear()
+    phase_eval(eval_cfg, dev, actors, name="eval_modes")
+    launches.update(K.env_tick.by_instance)
+    records = []
+    for name, r in rolls.items():
+        k_ms, p_ms, bms, by = tick_timing(r["cfg"], dev, r,
+                                          kernel=f"env_tick_{name}")
+        records.append(dict(
+            name=f"env_tick_{name}", route="cuda",
+            source="gym_rotor_tpu_torch/kernels/csrc/env_tick.cu",
+            replaces="gym_rotor_tpu/envs/batch.py:75",
+            launches=launches[name], max_abs_err=worst[name], ms=k_ms,
+            plain_ms=p_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2974,6 +3300,7 @@ def main():
     phase_k5(dev, k5_td3, k5_sac)
     records += phase_mono(dev)
     records += phase_families(dev)
+    records += phase_tick_modes(dev)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -336,11 +336,34 @@ def _build(cls, d: Mapping, device, dtype):
     return cls(**kw)
 
 
+def _float_dtypes(tree: Mapping, prefix: str = "") -> dict:
+    """``{path: numpy dtype}`` of the floating leaves of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_float_dtypes(v, f"{prefix}{k}."))
+        elif np.asarray(v).dtype.kind == "f":
+            out[prefix + k] = np.asarray(v).dtype
+    return out
+
+
 def env_state_from_numpy(tree: Mapping[str, Any], device=None,
                          dtype: Optional[torch.dtype] = None) -> BatchedEnvState:
     """A JAX ``BatchedEnvState`` as nested dicts of numpy arrays -> the port's
-    ``BatchedEnvState`` on ``device`` (default: the card).  JAX PRNG keys
-    are dropped; float fields keep their dtype unless ``dtype`` is given."""
+    ``BatchedEnvState`` on ``device`` (default: the card), in any trajectory
+    mode and after any integrator.  JAX PRNG keys are dropped; float fields
+    keep their dtype unless ``dtype`` is given.  A state whose float fields
+    disagree in dtype (JAX's float32 DOP853 tick under x64 returns
+    ``env.x``/``env.R`` in float64, ``dynamics.py:147, 152``) raises unless
+    ``dtype`` names the cast."""
+    if dtype is None:
+        kinds = _float_dtypes(tree)
+        widest = max(kinds.values(), key=lambda d: d.itemsize)
+        if any(d != widest for d in kinds.values()):
+            wide = [p for p, d in kinds.items() if d == widest]
+            raise ValueError(f"JAX state mixes float dtypes: {widest} in "
+                             f"{', '.join(wide)}; pass dtype= to cast "
+                             "explicitly")
     dev = resolve_device(device)
     return BatchedEnvState(env=_build(EnvState, tree["env"], dev, dtype),
                            traj=_build(TrajState, tree["traj"], dev, dtype))

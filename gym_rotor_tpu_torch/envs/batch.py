@@ -54,7 +54,7 @@ def _fresh(cfg: Config, u, env_type: str):
     ts = TrajState.create(batch, dtype, device)
     ts = mark_traj_start(ts, ns.x, ns.R)
     ts, goal = get_desired(ts, ns.x, ns.v, ns.R, ns.W, cfg.train_traj_mode,
-                           u[..., D.FRESH_THETA])
+                           D.traj_draws(u, fresh=True))
     ns = dataclasses.replace(ns, goal=goal)
     ns, obs = quad.initial_obs(cfg, ns)
     return ns, ts, obs
@@ -92,7 +92,7 @@ def batched_step_plain(cfg: Config, bstate: BatchedEnvState, actions,
     """Dense PyTorch twin of the K1 tick (batch.py:75-162)."""
     traj, goal = get_desired(bstate.traj, bstate.env.x, bstate.env.v,
                              bstate.env.R, bstate.env.W, cfg.train_traj_mode,
-                             draws[..., D.THETA])
+                             D.traj_draws(draws))
     env = dataclasses.replace(bstate.env, goal=goal)
     env2, out = quad.step(cfg, env, actions)
 

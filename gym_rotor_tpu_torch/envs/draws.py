@@ -24,7 +24,30 @@ UDM = slice(1, 7)    # params.randomize: m, d, J1, J3, c_tf, c_tw
 AT_ORIGIN = 7        # quad._init_ranges 20%-at-origin branch (quad.py:401-402)
 RESET = slice(8, 20)  # quad.reset_state's 12 uniforms (quad.py:431)
 FRESH_THETA = 20     # mode-0 heading offset of the fresh machine
-N_DRAWS = 21
+HOVER_T = 21         # mode-1 settle time U(2, 5) of the current machine
+HOVER_W = 22         # mode-1 yaw rate U(+-0.15 pi) of the current machine
+#                      (trajectory._mode_hover, trajectory.py:161-163)
+FRESH_HOVER_T = 23   # the same two of the fresh machine
+FRESH_HOVER_W = 24
+N_DRAWS = 25
+
+
+class TrajDraws(NamedTuple):
+    """One trajectory machine's base draws for a tick: the mode-0 heading
+    offset and the mode-1 settle time and yaw rate.  Every slot is consumed
+    every tick whatever the mode, as the JAX machine's key is."""
+    theta: torch.Tensor
+    hover_t: torch.Tensor
+    hover_w: torch.Tensor
+
+
+def traj_draws(u: torch.Tensor, fresh: bool = False) -> TrajDraws:
+    """The current (or, ``fresh``, the auto-reset's new) machine's slots
+    of the base draws ``u`` ``(..., N_DRAWS)``."""
+    if fresh:
+        return TrajDraws(u[..., FRESH_THETA], u[..., FRESH_HOVER_T],
+                         u[..., FRESH_HOVER_W])
+    return TrajDraws(u[..., THETA], u[..., HOVER_T], u[..., HOVER_W])
 
 
 def uniform_in(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

@@ -1,12 +1,17 @@
 """Rigid-body equations of motion and fixed-step integrators (port of
-``gym_rotor_tpu/envs/dynamics.py``, ``euler`` and ``rk4``; ``dop853`` is
-not ported yet).
+``gym_rotor_tpu/envs/dynamics.py``): ``euler``, ``rk4`` and ``dop853``,
+one fixed step of the 12-stage Dormand-Prince 8th-order method, the
+stand-in for the reference's ``solve_ivp(method='DOP853')``.
 
 All arithmetic keeps the JAX package's association order, so the float64
-path is bit-identical to it.
+path is bit-identical to it.  DOP853's coefficients are scipy's float64
+tableau; each enters as ``dt * float(a)``, i.e. rounded once to the state
+dtype, as JAX without x64 rounds its numpy scalars (under x64 JAX widens a
+float32 DOP853 step to float64 there; the port stays in the state dtype).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -79,13 +84,48 @@ def rk4_step(x, v, R, W, f, M, params, dt):
     return out
 
 
-_INTEGRATORS = {"euler": euler_step, "rk4": rk4_step}
+@functools.lru_cache(maxsize=None)
+def dop853_tableau():
+    """scipy's DOP853 Butcher tableau (``dop853_coefficients``): ``A``
+    (12, 12), ``B`` (12,), ``C`` (12,), float64, no hand-typed constant."""
+    import numpy as np
+    from scipy.integrate._ivp import dop853_coefficients as dc
+
+    n = dc.N_STAGES
+    A = np.asarray(dc.A, dtype=np.float64)[:n, :n]
+    B = np.asarray(dc.B, dtype=np.float64)
+    C = np.asarray(dc.C, dtype=np.float64)[:n]
+    return A, B, C
+
+
+def dop853_step(x, v, R, W, f, M, params, dt):
+    """One fixed step of the 12-stage Dormand-Prince 8th-order method:
+    stage ``i`` starts from the state and adds ``(dt * a_ij) k_j`` for each
+    nonzero ``a_ij`` in ``j`` order; the step adds ``(dt * b_i) k_i`` for
+    each nonzero ``b_i`` (zeros skipped, as JAX skips them)."""
+    A, B, _ = dop853_tableau()
+    y0 = (x, v, R, W)
+    ks = []
+    for i in range(len(B)):
+        yi = y0
+        for j in range(i):
+            if A[i, j] != 0.0:
+                yi = _axpy(yi, ks[j], dt * float(A[i, j]))
+        ks.append(eom(*yi, f, M, params))
+    out = y0
+    for i, bi in enumerate(B):
+        if bi != 0.0:
+            out = _axpy(out, ks[i], dt * float(bi))
+    return out
+
+
+_INTEGRATORS = {"euler": euler_step, "rk4": rk4_step, "dop853": dop853_step}
 
 
 def integrate(name: str, x, v, R, W, f, M, params, dt, substeps: int = 1):
     if name not in _INTEGRATORS:
-        raise NotImplementedError(
-            f"integrator {name!r} is not ported yet (euler, rk4 are)")
+        raise ValueError(f"unknown integrator {name!r} "
+                         f"(one of {sorted(_INTEGRATORS)})")
     step = _INTEGRATORS[name]
     h = dt / substeps
     y = (x, v, R, W)

@@ -1,8 +1,11 @@
 """Functional quadrotor environment core, the MODUL (``decoupled``) and
 MONO (``coupled``) tasks (port of ``gym_rotor_tpu/envs/quad.py``).
 
-The task follows ``cfg.framework``.  The ``quad`` task and the
-``exact_so3`` path are not ported yet and raise.  Observations are cast to
+The task follows ``cfg.framework``; the ``quad`` task is not ported yet
+and raises.  Under ``cfg.exact_so3`` the stored attitude drifts as the
+integrator leaves it and every read of R repairs it on the fly
+(``_ensure_R``), as the reference does; otherwise one polar step a tick
+keeps the stored R orthonormal.  Observations are cast to
 float32 exactly as the JAX package does, and rewards/dones are computed from
 that float32 obs, also on the float64 parity path.  Observations are always
 a tuple, one array per agent: ``(obs1, obs2)`` for MODUL, ``(obs,)`` for
@@ -47,8 +50,12 @@ def _check_task(cfg: Config):
         raise NotImplementedError(
             f"framework {cfg.framework!r}: only MODUL (decoupled) and MONO "
             "(coupled) are ported")
-    if cfg.exact_so3:
-        raise NotImplementedError("exact_so3 is not ported yet")
+
+
+def _ensure_R(cfg: Config, R):
+    """R as a read sees it (quad.py:54-62): repaired where it has drifted
+    under ``exact_so3``, as stored otherwise."""
+    return so3.ensure_so3_exact(R) if cfg.exact_so3 else R
 
 
 def _f_total(p: QuadParams, a0):
@@ -89,6 +96,7 @@ def norm_error_state(cfg: Config, x, v, R, W, goal: Goal,
     def const(c):
         return torch.tensor(c, dtype=dtype, device=device)
 
+    R = _ensure_R(cfg, R)
     x_norm = x / X_LIM
     v_norm = v / V_LIM
     W_norm = W / W_LIM
@@ -208,7 +216,7 @@ def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
     p = state.params
     dtype = state.x.dtype
     action = action.to(dtype)
-    R_work = state.R
+    R_work = _ensure_R(cfg, state.R)
     W = state.W
     mono = cfg.framework == "MONO"
     if mono:
@@ -225,7 +233,8 @@ def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
     dt = torch.tensor(DT, dtype=dtype, device=state.x.device)
     x_n, v_n, R_n, W_n = integrate(cfg.integrator, state.x, state.v, R_work,
                                    W, f, M, p, dt)
-    R_n = so3.polar_fast(R_n)
+    if not cfg.exact_so3:
+        R_n = so3.polar_fast(R_n)
 
     ne = norm_error_state(cfg, x_n, v_n, R_n, W_n, state.goal, state.eIx,
                           state.eIx_integrand, state.eIb1,
@@ -292,7 +301,7 @@ def reset_state(cfg: Config, u, env_type: str = "train") -> EnvState:
     roll_pitch = r[..., 9:11] * init_R[..., None]
     yaw = r[..., 11:12] * math.pi
     euler = torch.cat([roll_pitch, yaw], dim=-1)
-    R = so3.euler_to_rot(euler)
+    R = _ensure_R(cfg, so3.euler_to_rot(euler))
     return fresh_state(p, x, v, R, W)
 
 

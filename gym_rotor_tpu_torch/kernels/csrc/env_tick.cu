@@ -1,19 +1,21 @@
 // K1: fused lockstep env tick for Hopper (sm_90a).
 //
-// Replaces gym_rotor_tpu/envs/batch.py:batched_step (quad.step ->
-// dynamics.rk4_step -> so3.polar_fast -> norm_error_state/build_obs ->
-// reward/done -> cap/solved override -> dense fresh episode + select), which
-// XLA fused into one program on the TPU, for the MODUL (decoupled) and the
-// MONO (coupled, quad.py:91-93, 178-184, 206-216, 247-255) tasks.  Plain
-// twin: gym_rotor_tpu_torch/envs/batch.py:batched_step_plain.
+// Replaces gym_rotor_tpu/envs/batch.py:batched_step (trajectory.get_desired
+// -> quad.step -> dynamics.{euler,rk4,dop853}_step -> so3.polar_fast or
+// ensure_so3_exact -> norm_error_state/build_obs -> reward/done ->
+// cap/solved override -> dense fresh episode + select), which XLA fused into
+// one program on the TPU, for the MODUL (decoupled) and the MONO (coupled,
+// quad.py:91-93, 178-184, 206-216, 247-255) tasks.  Plain twin:
+// gym_rotor_tpu_torch/envs/batch.py:batched_step_plain.
 //
 // Bound on an H100: ~0.5 KB of state read and written per env and a few
 // thousand flops, i.e. ~5 MB / ~30 MFLOP per tick at B = 4096, ~1.5 us of
 // HBM time.  At that size the launch and the per-thread dependent chain
 // dominate (32 blocks of 128 threads for 132 SMs); recorded in PERF.md.
-// The coupled task moves the same state and ~1.3x the obs bytes (23 floats
-// and one agent's reward/flags against 18 and two), and skips the virtual
-// moment assembly: the same bound within a few percent.
+// DOP853 evaluates the equations of motion 12 times (RK4: 4) and keeps up to
+// 12 stages of 18 floats live; ptxas fits them in 255 registers without a
+// spill (chip_smoke.py phase 22 prints each instance's registers), and the
+// serial stage chain adds ~10 us to a tick on an H100 (PERF.md).
 //
 // Design: one thread per env, the whole tick in registers, one launch.
 // State buffers are field-major: field F of width w occupies
@@ -26,12 +28,18 @@
 //
 // Numerics: built with -fmad=false and without fast math, so every
 // expression rounds where the plain twin rounds; the association order of
-// every sum follows the JAX code (mm3/mv3/dot3 fixed order).
+// every sum follows the JAX code (mm3/mv3/dot3 fixed order).  Constants JAX
+// folds in Python float64 are folded in double here and rounded once.
+// DOP853's coefficients are scipy's, emitted as exact hex literals into the
+// generated header and rounded once to float, as dt * float(a) in the twin.
 //
-// Templated on task and integrator; the instances built are decoupled
-// (MODUL) + RK4 and coupled (MONO) + RK4.  What differs between the tasks
-// (action map, obs, reward/done, the output slots) sits in Task<TASK>; the
-// dynamics, the errors and integrals, the cap/solved override and the fresh
+// Instances: Task<TASK> (decoupled, coupled) x integrator (euler, rk4,
+// dop853) x EXACT (the exact_so3 repair on every read of R, the stored R
+// left drifted; else one 2-iteration polar step a tick): 12.  The trajectory
+// mode is a runtime argument, uniform over the grid, so its switch does not
+// diverge.  What differs between the tasks (action map, obs, reward/done,
+// the output slots) sits in Task<TASK>; the dynamics, the trajectory
+// machine, the errors and integrals, the cap/solved override and the fresh
 // episode are one code path.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,6 +63,43 @@ constexpr float MIN_FORCE = 0.5f;
 constexpr float IDLE_LO = (float)(-25.0 * PI_D / 180.0);
 constexpr float IDLE_HI = (float)(25.0 * PI_D / 180.0);
 
+// trajectory constants (trajectory.py:30-50, 156-357), folded in double as
+// Python folds them, rounded once
+constexpr float HOVER_T_LO = 2.0f, HOVER_T_HI = 5.0f;
+constexpr float HOVER_W_LO = (float)(-0.15 * PI_D);
+constexpr float HOVER_W_HI = (float)(0.15 * PI_D);
+// -jnp.log(0.001): the float64 value rounded once equals logf(0.001f)
+constexpr float NEG_LOG_0001 = (float)NEG_LOG_0001_D;
+constexpr float TAKEOFF_END_HEIGHT = -0.5f;
+constexpr float TAKEOFF_VELOCITY = (float)-0.05;
+constexpr float LANDING_VELOCITY = 1.0f;
+constexpr float LANDING_CUTOFF_HEIGHT = -0.25f;
+constexpr double CIRCLE_RADIUS_D = 0.7, CIRCLE_LINEAR_V_D = 0.4, CIRCLE_W_D = 0.4;
+constexpr float CIRCLE_RADIUS = (float)CIRCLE_RADIUS_D;
+constexpr float CIRCLE_LINEAR_V = (float)CIRCLE_LINEAR_V_D;
+constexpr float CIRCLE_W = (float)CIRCLE_W_D;
+constexpr float CIRCLE_LEAD_T = (float)(CIRCLE_RADIUS_D / CIRCLE_LINEAR_V_D);
+constexpr float CIRCLE_T_TRAJ =
+    (float)(CIRCLE_RADIUS_D / CIRCLE_LINEAR_V_D + 2 * 2.0 * PI_D / CIRCLE_W_D);
+constexpr float CIRCLE_RW = (float)(CIRCLE_RADIUS_D * CIRCLE_W_D);
+constexpr float NEG_CIRCLE_RW = (float)(-CIRCLE_RADIUS_D * CIRCLE_W_D);
+constexpr float NEG_CIRCLE_W = (float)(-CIRCLE_W_D);
+constexpr double EIGHT_T_D = 9.0;
+constexpr float EIGHT_T_TRAJ = (float)(3 * EIGHT_T_D);
+constexpr float EIGHT_A1 = 1.5f;
+constexpr float EIGHT_A2 = 1.0f;
+constexpr float EIGHT_W1 = (float)(2.0 * PI_D / EIGHT_T_D);
+constexpr float EIGHT_W2 = (float)(4.0 * PI_D / EIGHT_T_D);
+constexpr float EIGHT_W_B1D = (float)0.349066;
+// -math.log(0.01) / 9.0 in double (log is not constexpr in C++: the value
+// is generated into the header as a hex literal, as NEG_LOG_0001_D)
+constexpr float EIGHT_EXP_XY = (float)EIGHT_EXP_XY_D;
+constexpr float NEG_EIGHT_EXP_XY = (float)(-EIGHT_EXP_XY_D);
+constexpr float EIGHT_ALT_D = (float)-0.6;
+// is_rotation's bounds (so3.py:110-121): tol + tol * I and 1e-8 + tol
+constexpr float SO3_TOL = (float)1e-5;
+constexpr float SO3_DET_TOL = (float)(1e-8 + 1e-5 * 1.0);
+
 struct Coefs {
   float Cx, CIx, Cv, Cw12, Cb1, CIb1, CW3, alpha, beta, udm_u, udm_u_half,
       rmin1, slope1, rmin2, slope2, rmin, slope;
@@ -71,7 +116,7 @@ struct Args {
   const float* draws;
   float* outf;
   bool* outb;
-  int B, env_type, max_steps, use_udm;
+  int B, env_type, max_steps, use_udm, mode;
   Coefs c;
 };
 
@@ -123,9 +168,10 @@ __device__ __forceinline__ void inv3(const float* M, float* out) {
   for (int k = 0; k < 9; ++k) out[k] = adj[k] * inv_det;
 }
 
+template <int ITERS>
 __device__ __forceinline__ void polar_fast(float* R) {
 #pragma unroll
-  for (int it = 0; it < 2; ++it) {
+  for (int it = 0; it < ITERS; ++it) {
     float Ri[9];
     inv3(R, Ri);
 #pragma unroll
@@ -133,6 +179,31 @@ __device__ __forceinline__ void polar_fast(float* R) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) R[r * 3 + c] = 0.5f * (R[r * 3 + c] + Ri[c * 3 + r]);
   }
+}
+
+// so3.is_rotation: R^T R as fixed-order mm3, det as inv3's cofactor row.
+__device__ __forceinline__ bool is_rotation(const float* R) {
+  bool ok = true;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float rtr = (R[r] * R[c] + R[3 + r] * R[3 + c]) + R[6 + r] * R[6 + c];
+      const float eye = r == c ? 1.0f : 0.0f;
+      ok = ok && fabsf(rtr - eye) <= SO3_TOL + SO3_TOL * eye;
+    }
+  const float a = R[0], b = R[1], c = R[2];
+  const float d = R[3], e = R[4], f = R[5];
+  const float g = R[6], h = R[7], i = R[8];
+  const float det = (a * (e * i - f * h) + b * (-(d * i - f * g))) + c * (d * h - e * g);
+  return ok && fabsf(det - 1.0f) <= SO3_DET_TOL;
+}
+
+// so3.ensure_so3_exact: R where it passes is_rotation, else 6 Newton steps.
+__device__ __forceinline__ void ensure_so3_exact(const float* R, float* out) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) out[k] = R[k];
+  if (!is_rotation(R)) polar_fast<6>(out);
 }
 
 __device__ __forceinline__ void rot_x(float t, float* O) {
@@ -194,24 +265,55 @@ __device__ __forceinline__ void eom(const float* y, float f, const float* M,
 template <int INTEG>
 __device__ __forceinline__ void integrate(float* y, float f, const float* M,
                                           float m, const float* J) {
-  static_assert(INTEG == INTEGRATOR_RK4, "only rk4 is built");
   const float dt = DT;
-  const float half = dt * 0.5f;
-  const float sixth = dt / 6.0f;
-  const float third = dt / 3.0f;
-  float k[18], yi[18], acc[18];
-  eom(y, f, M, m, J, k);
+  if constexpr (INTEG == INTEGRATOR_EULER) {
+    float k[18];
+    eom(y, f, M, m, J, k);
 #pragma unroll
-  for (int j = 0; j < 18; ++j) { acc[j] = y[j] + sixth * k[j]; yi[j] = y[j] + half * k[j]; }
-  eom(yi, f, M, m, J, k);
+    for (int j = 0; j < 18; ++j) y[j] = y[j] + dt * k[j];
+  } else if constexpr (INTEG == INTEGRATOR_RK4) {
+    const float half = dt * 0.5f;
+    const float sixth = dt / 6.0f;
+    const float third = dt / 3.0f;
+    float k[18], yi[18], acc[18];
+    eom(y, f, M, m, J, k);
 #pragma unroll
-  for (int j = 0; j < 18; ++j) { acc[j] = acc[j] + third * k[j]; yi[j] = y[j] + half * k[j]; }
-  eom(yi, f, M, m, J, k);
+    for (int j = 0; j < 18; ++j) { acc[j] = y[j] + sixth * k[j]; yi[j] = y[j] + half * k[j]; }
+    eom(yi, f, M, m, J, k);
 #pragma unroll
-  for (int j = 0; j < 18; ++j) { acc[j] = acc[j] + third * k[j]; yi[j] = y[j] + dt * k[j]; }
-  eom(yi, f, M, m, J, k);
+    for (int j = 0; j < 18; ++j) { acc[j] = acc[j] + third * k[j]; yi[j] = y[j] + half * k[j]; }
+    eom(yi, f, M, m, J, k);
 #pragma unroll
-  for (int j = 0; j < 18; ++j) y[j] = acc[j] + sixth * k[j];
+    for (int j = 0; j < 18; ++j) { acc[j] = acc[j] + third * k[j]; yi[j] = y[j] + dt * k[j]; }
+    eom(yi, f, M, m, J, k);
+#pragma unroll
+    for (int j = 0; j < 18; ++j) y[j] = acc[j] + sixth * k[j];
+  } else {
+    static_assert(INTEG == INTEGRATOR_DOP853, "unknown integrator");
+    // dynamics.dop853_step: stage i starts from y and adds (dt * a_ij) k_j
+    // for each nonzero a_ij in j order; then y += (dt * b_i) k_i for each
+    // nonzero b_i.  The stage list is generated (DOP853_STAGES).
+    float K[12][18], yi[18];
+#define DOP_BEGIN(I)                                    \
+  _Pragma("unroll") for (int q = 0; q < 18; ++q) yi[q] = y[q];
+#define DOP_AXPY(I, J, A)                               \
+  {                                                     \
+    const float c_ = dt * (float)(A);                   \
+    _Pragma("unroll") for (int q = 0; q < 18; ++q) yi[q] = yi[q] + c_ * K[J][q]; \
+  }
+#define DOP_EVAL(I) eom(yi, f, M, m, J, K[I]);
+#define DOP_SUM(I, Bc)                                  \
+  {                                                     \
+    const float c_ = dt * (float)(Bc);                  \
+    _Pragma("unroll") for (int q = 0; q < 18; ++q) y[q] = y[q] + c_ * K[I][q]; \
+  }
+    DOP853_STAGES(DOP_BEGIN, DOP_AXPY, DOP_EVAL)
+    DOP853_SUM(DOP_SUM)
+#undef DOP_BEGIN
+#undef DOP_AXPY
+#undef DOP_EVAL
+#undef DOP_SUM
+  }
 }
 
 // ------------------------------------------------- errors, obs, reward, done
@@ -221,15 +323,13 @@ struct NormOut {
 };
 
 // quad.norm_error_state; goal = (xd, vd, b1d, Wd).
-__device__ __forceinline__ void norm_error(const Coefs& c, const float* y,
-                                           const float* xd, const float* vd,
-                                           const float* b1d, const float* Wd,
-                                           const float* eIx, const float* eIx_int,
-                                           float eIb1, float eIb1_int, NormOut& o) {
-  const float* x = y;
-  const float* v = y + 3;
-  const float* R = y + 6;
-  const float* W = y + 15;
+__device__ __forceinline__ void norm_error(const Coefs& c, const float* x,
+                                           const float* v, const float* R,
+                                           const float* W, const float* xd,
+                                           const float* vd, const float* b1d,
+                                           const float* Wd, const float* eIx,
+                                           const float* eIx_int, float eIb1,
+                                           float eIb1_int, NormOut& o) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     o.ex[k] = x[k] / X_LIM - xd[k] / X_LIM;
@@ -406,8 +506,12 @@ __device__ __forceinline__ void write_obs(float* __restrict__ outf, int B, int i
 }
 
 // ----------------------------------------------------------- trajectory
+__device__ __forceinline__ float heading_angle(const float* R) {
+  return atan2f(R[3], R[0]);
+}
+
 __device__ __forceinline__ void heading_of(const float* R, float* h) {
-  const float th = atan2f(R[3], R[0]);
+  const float th = heading_angle(R);
   h[0] = cosf(th);
   h[1] = sinf(th);
   h[2] = 0.0f;
@@ -435,13 +539,258 @@ __device__ __forceinline__ float omega_c3(const float* R, const float* W,
   return dot3(b3, om);
 }
 
-// _mode_idle's heading draw: heading of R turned by U(+-25 deg).
-__device__ __forceinline__ void idle_b1d(const float* R, float u, float* b1d) {
-  const float theta = uniform_in(u, IDLE_LO, IDLE_HI);
-  float h[3], Rz[9];
-  heading_of(R, h);
-  rot_z(theta, Rz);
-  mv3(Rz, h, b1d);
+// The trajectory machine (trajectory.TrajState minus its key).
+struct Traj {
+  int mode;
+  float t, t_traj, theta_init, smooth_term, w_b1d;
+  bool started, complete, manual_mode, manual_init, is_landed, init_b1d;
+  float x_init[3], x_goal[3], center[3], xd[3], vd[3], b1d[3], b1d_dot[3], Wd[3];
+};
+
+// One machine's draws for a tick: mode-0 heading, mode-1 settle time and
+// yaw rate (envs/draws.py TrajDraws).
+struct TrajU {
+  float theta, hover_t, hover_w;
+};
+
+__device__ __forceinline__ void set3(float* d, const float* s) {
+  d[0] = s[0]; d[1] = s[1]; d[2] = s[2];
+}
+
+__device__ __forceinline__ void zero3(float* d) { d[0] = d[1] = d[2] = 0.0f; }
+
+// TrajState.create then mark_traj_start (trajectory.py:82-108).
+__device__ __forceinline__ void traj_start(Traj& s, const float* x, const float* R) {
+  s.mode = 0;
+  s.t = s.t_traj = 0.0f;
+  s.started = s.complete = s.manual_mode = s.manual_init = s.is_landed = false;
+  s.init_b1d = true;
+  set3(s.x_init, x);
+  s.theta_init = heading_angle(R);
+  zero3(s.x_goal);
+  s.smooth_term = s.w_b1d = 0.0f;
+  zero3(s.center);
+  zero3(s.xd);
+  zero3(s.vd);
+  s.b1d[0] = 1.0f; s.b1d[1] = 0.0f; s.b1d[2] = 0.0f;
+  zero3(s.b1d_dot);
+  zero3(s.Wd);
+}
+
+// mode 0 (trajectory.py:134-153)
+__device__ __forceinline__ void mode_idle(Traj& s, const float* R, float u) {
+  if (s.init_b1d) {
+    const float theta = uniform_in(u, IDLE_LO, IDLE_HI);
+    float h[3], Rz[9];
+    heading_of(R, h);
+    rot_z(theta, Rz);
+    mv3(Rz, h, s.b1d);
+    zero3(s.xd);
+    zero3(s.vd);
+    zero3(s.Wd);
+  }
+  s.init_b1d = false;
+}
+
+// mode 1 (trajectory.py:156-184)
+__device__ __forceinline__ void mode_hover(Traj& s, const float* x, const TrajU& u) {
+  const float t_traj_new = uniform_in(u.hover_t, HOVER_T_LO, HOVER_T_HI);
+  const float w_new = uniform_in(u.hover_w, HOVER_W_LO, HOVER_W_HI);
+  if (!s.started) {
+    set3(s.x_init, x);
+    s.t_traj = t_traj_new;
+    s.smooth_term = NEG_LOG_0001 / t_traj_new;
+    s.w_b1d = w_new;
+  }
+  zero3(s.x_goal);
+  const float t = s.t + DT;
+  const float e = expf(-s.smooth_term * t);
+  const float se = s.smooth_term * e;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float dx = s.x_init[k] - 0.0f;
+    s.xd[k] = dx * e + 0.0f;
+    s.vd[k] = -dx * se;
+  }
+  const float phase = s.w_b1d * t + s.theta_init;
+  const float cp = cosf(phase), sp = sinf(phase);
+  s.b1d[0] = cp; s.b1d[1] = sp; s.b1d[2] = 0.0f;
+  s.b1d_dot[0] = -s.w_b1d * sp; s.b1d_dot[1] = s.w_b1d * cp; s.b1d_dot[2] = 0.0f;
+  s.t = t;
+  s.started = true;
+}
+
+// mode 2 (trajectory.py:187-215)
+__device__ __forceinline__ void mode_takeoff(Traj& s, const float* x, const float* R) {
+  const float xd2_entry = s.xd[2];
+  if (!s.started) {
+    s.xd[0] = x[0]; s.xd[1] = x[1]; s.xd[2] = 0.0f;
+    zero3(s.vd);
+    heading_of(R, s.b1d);
+    set3(s.x_init, x);
+    s.t_traj = (TAKEOFF_END_HEIGHT - x[2]) / TAKEOFF_VELOCITY;
+  }
+  const float t = s.t + DT;
+  const bool climbing = t < s.t_traj;
+  float xd2 = climbing ? s.x_init[2] + TAKEOFF_VELOCITY * t : xd2_entry;
+  float dl[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dl[k] = s.xd[k] - x[k];
+  const bool reached = sqrtf(dot3(dl, dl)) < (float)0.04;
+  const bool hold = !climbing && reached;
+  if (hold) {
+    xd2 = TAKEOFF_END_HEIGHT;
+    s.vd[2] = 0.0f;
+  }
+  s.xd[2] = xd2;
+  s.t = t;
+  s.started = true;
+  s.complete = s.complete || hold;
+  s.manual_mode = s.manual_mode || hold;
+}
+
+// mode 3 (trajectory.py:218-242)
+__device__ __forceinline__ void mode_land(Traj& s, const float* x, const float* v,
+                                          const float* R) {
+  if (!s.started) {
+    set3(s.xd, x);
+    set3(s.vd, v);
+    heading_of(R, s.b1d);
+    set3(s.x_init, x);
+    s.t_traj = (LANDING_CUTOFF_HEIGHT - x[2]) / LANDING_VELOCITY;
+  }
+  const float t = s.t + DT;
+  const bool descending = t < s.t_traj;
+  const bool above = x[2] > LANDING_CUTOFF_HEIGHT;
+  s.xd[2] = descending ? s.x_init[2] + LANDING_VELOCITY * t : LANDING_CUTOFF_HEIGHT;
+  if (!descending) s.vd[2] = above ? 0.0f : LANDING_VELOCITY;
+  const bool landed = !descending && above;
+  s.t = t;
+  s.started = true;
+  s.complete = s.complete || landed;
+  s.is_landed = s.is_landed || landed;
+}
+
+// mode 4 (trajectory.py:245-256): t does not advance
+__device__ __forceinline__ void mode_stay(Traj& s, const float* x, const float* v,
+                                          const float* R) {
+  if (!s.started) {
+    set3(s.xd, x);
+    set3(s.vd, v);
+    heading_of(R, s.b1d);
+  }
+  s.started = s.complete = s.manual_mode = true;
+}
+
+// mode 5 (trajectory.py:259-307)
+__device__ __forceinline__ void mode_circle(Traj& s, const float* x, const float* v,
+                                            const float* R) {
+  if (!s.started) {
+    set3(s.center, x);
+    s.t_traj = CIRCLE_T_TRAJ;
+    set3(s.xd, x);
+    set3(s.vd, v);
+    heading_of(R, s.b1d);
+  }
+  const float t = s.t + DT;
+  const bool in_lead = t < CIRCLE_LEAD_T;
+  const bool in_circle = !in_lead && t < s.t_traj;
+  const float tc = t - CIRCLE_LEAD_T;
+  if (in_lead) {
+    s.xd[0] = s.center[0] + CIRCLE_LINEAR_V * t;
+    s.vd[0] = CIRCLE_LINEAR_V;
+  } else if (in_circle) {
+    const float th = CIRCLE_W * tc;
+    const float c = cosf(th), sn = sinf(th);
+    s.xd[0] = CIRCLE_RADIUS * c + s.center[0];
+    s.vd[0] = NEG_CIRCLE_RW * sn;
+    s.xd[1] = CIRCLE_RADIUS * sn + s.center[1];
+    s.vd[1] = CIRCLE_RW * c;
+    const float thb = CIRCLE_W * tc + PI_F;
+    const float cb = cosf(thb), sb = sinf(thb);
+    s.b1d[0] = cb; s.b1d[1] = sb; s.b1d[2] = 0.0f;
+    s.b1d_dot[0] = NEG_CIRCLE_W * sb; s.b1d_dot[1] = CIRCLE_W * cb; s.b1d_dot[2] = 0.0f;
+  }
+  const bool ended = !in_lead && !in_circle;
+  s.t = t;
+  s.started = true;
+  s.complete = s.complete || ended;
+  s.manual_mode = s.manual_mode || ended;
+}
+
+// mode 6 and above (trajectory.py:310-357)
+__device__ __forceinline__ void mode_eight(Traj& s, const float* x, const float* v,
+                                           const float* R) {
+  if (!s.started) {
+    set3(s.center, x);
+    s.t_traj = EIGHT_T_TRAJ;
+    s.w_b1d = EIGHT_W_B1D;
+    set3(s.xd, x);
+    set3(s.vd, v);
+    heading_of(R, s.b1d);
+  }
+  const float t = s.t + DT;
+  const bool active = t < s.t_traj;
+  if (active) {
+    const float ex = expf(NEG_EIGHT_EXP_XY * t);
+    const float exp_term = 1.0f - ex;
+    const float d_exp = EIGHT_EXP_XY * ex;
+    const float s2 = sinf(EIGHT_W2 * t), c2 = cosf(EIGHT_W2 * t);
+    const float s1 = sinf(EIGHT_W1 * t), c1 = cosf(EIGHT_W1 * t);
+    s.xd[0] = EIGHT_A2 * (s2 * exp_term) + s.center[0];
+    s.vd[0] = EIGHT_A2 * ((EIGHT_W2 * c2) * exp_term + s2 * d_exp);
+    s.xd[1] = EIGHT_A1 * (c1 - 1.0f) * exp_term + s.center[1];
+    s.vd[1] = EIGHT_A1 * ((EIGHT_W1 * -s1) * exp_term + (c1 - 1.0f) * d_exp);
+    const float z_amp = (s.center[2] - EIGHT_ALT_D) / 2.0f;
+    s.xd[2] = z_amp * (1.0f - c1) + s.center[2];
+    s.vd[2] = z_amp * EIGHT_W1 * s1;
+    const float phase = s.w_b1d * t * exp_term + s.theta_init;
+    const float d_phase = s.w_b1d * (exp_term + t * d_exp);
+    const float cp = cosf(phase), sp = sinf(phase);
+    s.b1d[0] = cp; s.b1d[1] = sp; s.b1d[2] = 0.0f;
+    s.b1d_dot[0] = -sp * d_phase; s.b1d_dot[1] = cp * d_phase; s.b1d_dot[2] = 0.0f;
+  }
+  s.t = t;
+  s.started = true;
+  s.complete = s.complete || !active;
+  s.manual_mode = s.manual_mode || !active;
+}
+
+// manual hold (trajectory.py:360-376): t does not advance
+__device__ __forceinline__ void mode_manual(Traj& s, const float* x, const float* R) {
+  if (!s.manual_init) {
+    s.theta_init = heading_angle(R);
+    set3(s.xd, x);
+  }
+  zero3(s.vd);
+  s.b1d[0] = cosf(s.theta_init); s.b1d[1] = sinf(s.theta_init); s.b1d[2] = 0.0f;
+  s.manual_init = true;
+}
+
+// get_desired's static branch (trajectory.py:392-408) and _with_wd: the
+// branch min(max(mode, 0), 6), replaced for mode >= 2 by the manual hold in
+// a machine already in manual mode at entry, whose Wd then stays frozen.
+__device__ __forceinline__ void get_desired(Traj& s, const float* x, const float* v,
+                                            const float* R, const float* W,
+                                            int mode, const TrajU& u) {
+  s.mode = mode;
+  const bool use_man = mode >= 2 && s.manual_mode;
+  if (use_man) {
+    mode_manual(s, x, R);
+    return;
+  }
+  switch (mode < 0 ? 0 : (mode > 6 ? 6 : mode)) {
+    case 0: mode_idle(s, R, u.theta); break;
+    case 1: mode_hover(s, x, u); break;
+    case 2: mode_takeoff(s, x, R); break;
+    case 3: mode_land(s, x, v, R); break;
+    case 4: mode_stay(s, x, v, R); break;
+    case 5: mode_circle(s, x, v, R); break;
+    default: mode_eight(s, x, v, R); break;
+  }
+  s.Wd[0] = 0.0f;
+  s.Wd[1] = 0.0f;
+  s.Wd[2] = omega_c3(R, W, s.b1d, s.b1d_dot);
 }
 
 // -------------------------------------------------------------- buffers
@@ -462,10 +811,77 @@ __device__ __forceinline__ void idle_b1d(const float* R, float u, float* b1d) {
   _Pragma("unroll") for (int c_ = 0; c_ < WF_##NAME; ++c_)       \
       of[FIDX(NAME, c_)] = 0.0f
 
+__device__ __forceinline__ void load_traj(const Args& a, int i, Traj& s) {
+  const int B = a.B;
+  const float* __restrict__ sf = a.sf;
+  s.mode = a.si[IIDX(TRAJ_MODE)];
+  s.t = sf[FIDX(TRAJ_T, 0)];
+  s.t_traj = sf[FIDX(TRAJ_T_TRAJ, 0)];
+  s.started = a.sb[BIDX(TRAJ_STARTED)];
+  s.complete = a.sb[BIDX(TRAJ_COMPLETE)];
+  s.manual_mode = a.sb[BIDX(TRAJ_MANUAL_MODE)];
+  s.manual_init = a.sb[BIDX(TRAJ_MANUAL_INIT)];
+  s.is_landed = a.sb[BIDX(TRAJ_IS_LANDED)];
+  s.init_b1d = a.sb[BIDX(TRAJ_INIT_B1D)];
+  LOADF(s.x_init, TRAJ_X_INIT);
+  s.theta_init = sf[FIDX(TRAJ_THETA_INIT, 0)];
+  LOADF(s.x_goal, TRAJ_X_GOAL);
+  s.smooth_term = sf[FIDX(TRAJ_SMOOTH_TERM, 0)];
+  s.w_b1d = sf[FIDX(TRAJ_W_B1D, 0)];
+  LOADF(s.center, TRAJ_CENTER);
+  LOADF(s.xd, TRAJ_XD);
+  LOADF(s.vd, TRAJ_VD);
+  LOADF(s.b1d, TRAJ_B1D);
+  LOADF(s.b1d_dot, TRAJ_B1D_DOT);
+  LOADF(s.Wd, TRAJ_WD);
+}
+
+// The machine into the output state, and its goal into env.goal.
+__device__ __forceinline__ void store_traj(const Args& a, int i, const Traj& s) {
+  const int B = a.B;
+  float* __restrict__ of = a.of;
+  a.oi[IIDX(TRAJ_MODE)] = s.mode;
+  STORE1(TRAJ_T, s.t);
+  STORE1(TRAJ_T_TRAJ, s.t_traj);
+  a.ob[BIDX(TRAJ_STARTED)] = s.started;
+  a.ob[BIDX(TRAJ_COMPLETE)] = s.complete;
+  a.ob[BIDX(TRAJ_MANUAL_MODE)] = s.manual_mode;
+  a.ob[BIDX(TRAJ_MANUAL_INIT)] = s.manual_init;
+  a.ob[BIDX(TRAJ_IS_LANDED)] = s.is_landed;
+  a.ob[BIDX(TRAJ_INIT_B1D)] = s.init_b1d;
+  STOREF(TRAJ_X_INIT, s.x_init);
+  STORE1(TRAJ_THETA_INIT, s.theta_init);
+  STOREF(TRAJ_X_GOAL, s.x_goal);
+  STORE1(TRAJ_SMOOTH_TERM, s.smooth_term);
+  STORE1(TRAJ_W_B1D, s.w_b1d);
+  STOREF(TRAJ_CENTER, s.center);
+  STOREF(TRAJ_XD, s.xd);
+  STOREF(TRAJ_VD, s.vd);
+  STOREF(TRAJ_B1D, s.b1d);
+  STOREF(TRAJ_B1D_DOT, s.b1d_dot);
+  STOREF(TRAJ_WD, s.Wd);
+  STOREF(ENV_GOAL_XD, s.xd);
+  STOREF(ENV_GOAL_VD, s.vd);
+  STOREF(ENV_GOAL_B1D, s.b1d);
+  STOREF(ENV_GOAL_B1D_DOT, s.b1d_dot);
+  STOREF(ENV_GOAL_WD, s.Wd);
+}
+
+// R as a read sees it (quad._ensure_R): repaired on the fly under EXACT.
+template <bool EXACT>
+__device__ __forceinline__ void read_R(const float* R, float* out) {
+  if constexpr (EXACT) {
+    ensure_so3_exact(R, out);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) out[k] = R[k];
+  }
+}
+
 // Fresh episode (batch.py fresh(): reset_state -> TrajState.create ->
 // mark_traj_start -> get_desired -> initial_obs), written to the output
 // state and the obs slots.
-template <int TASK>
+template <int TASK, bool EXACT>
 __device__ void fresh_episode(const Args& a, int i, const float* u) {
   const int B = a.B;
   float* __restrict__ of = a.of;
@@ -530,26 +946,29 @@ __device__ void fresh_episode(const Args& a, int i, const float* u) {
     y[3 + k] = r[3 + k] * iv;
     y[15 + k] = r[6 + k] * iW;
   }
-  float Rx[9], Ry[9], Rz[9], Ryx[9];
+  float Rx[9], Ry[9], Rz[9], Ryx[9], R0[9];
   rot_x(r[9] * iR, Rx);
   rot_y(r[10] * iR, Ry);
   rot_z(r[11] * PI_F, Rz);
   mm3(Ry, Rx, Ryx);
-  mm3(Rz, Ryx, y + 6);
+  mm3(Rz, Ryx, R0);
+  read_R<EXACT>(R0, y + 6);            // reset_state's ensure (quad.py:439-440)
   const float* R = y + 6;
   const float* W = y + 15;
 
-  // trajectory machine: create -> mark_traj_start -> mode-0 get_desired
-  const float theta_init = atan2f(R[3], R[0]);
-  float b1d[3];
-  idle_b1d(R, u[D_FRESH_THETA], b1d);
-  const float zero3[3] = {0.0f, 0.0f, 0.0f};
-  const float w3 = omega_c3(R, W, b1d, zero3);
-  const float Wd[3] = {0.0f, 0.0f, w3};
+  // trajectory machine: create -> mark_traj_start -> get_desired
+  Traj s;
+  traj_start(s, y, R);
+  get_desired(s, y, y + 3, R, W, a.mode,
+              TrajU{u[D_FRESH_THETA], u[D_FRESH_HOVER_T], u[D_FRESH_HOVER_W]});
 
-  // initial_obs: one integral update against the new goal
+  // initial_obs: one integral update against the new goal, R as read
+  float Rr[9];
+  read_R<EXACT>(R, Rr);
+  const float zero3v[3] = {0.0f, 0.0f, 0.0f};
   NormOut n;
-  norm_error(c, y, zero3, zero3, b1d, Wd, zero3, zero3, 0.0f, 0.0f, n);
+  norm_error(c, y, y + 3, Rr, W, s.xd, s.vd, s.b1d, s.Wd, zero3v, zero3v, 0.0f,
+             0.0f, n);
 
   STOREF(ENV_X, y);
   STOREF(ENV_V, y + 3);
@@ -561,40 +980,15 @@ __device__ void fresh_episode(const Args& a, int i, const float* u) {
   STORE1(ENV_EIB1_INTEGRAND, n.eIb1_cur);
   STORE1(ENV_F_TOTAL, m * G_STD);
   ZEROF(ENV_M);
-  ZEROF(ENV_GOAL_XD);
-  ZEROF(ENV_GOAL_VD);
-  STOREF(ENV_GOAL_B1D, b1d);
-  ZEROF(ENV_GOAL_B1D_DOT);
-  STOREF(ENV_GOAL_WD, Wd);
   a.oi[IIDX(ENV_T)] = 0;
-
-  a.oi[IIDX(TRAJ_MODE)] = 0;
-  STORE1(TRAJ_T, 0.0f);
-  STORE1(TRAJ_T_TRAJ, 0.0f);
-  a.ob[BIDX(TRAJ_STARTED)] = false;
-  a.ob[BIDX(TRAJ_COMPLETE)] = false;
-  a.ob[BIDX(TRAJ_MANUAL_MODE)] = false;
-  a.ob[BIDX(TRAJ_MANUAL_INIT)] = false;
-  a.ob[BIDX(TRAJ_IS_LANDED)] = false;
-  a.ob[BIDX(TRAJ_INIT_B1D)] = false;
-  STOREF(TRAJ_X_INIT, y);
-  STORE1(TRAJ_THETA_INIT, theta_init);
-  ZEROF(TRAJ_X_GOAL);
-  STORE1(TRAJ_SMOOTH_TERM, 0.0f);
-  STORE1(TRAJ_W_B1D, 0.0f);
-  ZEROF(TRAJ_CENTER);
-  ZEROF(TRAJ_XD);
-  ZEROF(TRAJ_VD);
-  STOREF(TRAJ_B1D, b1d);
-  ZEROF(TRAJ_B1D_DOT);
-  STOREF(TRAJ_WD, Wd);
+  store_traj(a, i, s);
 
   float obs[Task<TASK>::NOBS];
-  Task<TASK>::build_obs(n, y + 6, obs);
+  Task<TASK>::build_obs(n, Rr, obs);
   write_obs<TASK>(a.outf, B, i, Task<TASK>::OBS1, Task<TASK>::OBS2, obs);
 }
 
-template <int TASK, int INTEG>
+template <int TASK, int INTEG, bool EXACT>
 __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   using T = Task<TASK>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -602,7 +996,7 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   if (i >= B) return;
   const float* u = a.draws + (size_t)i * N_DRAWS;
   if (reset_only) {
-    fresh_episode<TASK>(a, i, u);
+    fresh_episode<TASK, EXACT>(a, i, u);
     return;
   }
   const float* __restrict__ sf = a.sf;
@@ -610,29 +1004,24 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   float* __restrict__ outf = a.outf;
   const Coefs& c = a.c;
 
-  // ---- trajectory.get_desired, mode 0 (static-int branch)
+  // ---- trajectory.get_desired on the stored state
   float y[18];
   LOADF(y, ENV_X);
   LOADF(y + 3, ENV_V);
   LOADF(y + 6, ENV_R);
   LOADF(y + 15, ENV_W);
-  const float* R0 = y + 6;
-  const bool take = a.sb[BIDX(TRAJ_INIT_B1D)];
-  float xd[3], vd[3], b1d[3], b1d_dot[3];
-  LOADF(b1d_dot, TRAJ_B1D_DOT);
-  if (take) {
-    idle_b1d(R0, u[D_THETA], b1d);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) { xd[k] = 0.0f; vd[k] = 0.0f; }
-  } else {
-    LOADF(xd, TRAJ_XD);
-    LOADF(vd, TRAJ_VD);
-    LOADF(b1d, TRAJ_B1D);
-  }
-  const float w3 = omega_c3(R0, y + 15, b1d, b1d_dot);
-  const float Wd[3] = {0.0f, 0.0f, w3};
+  Traj s;
+  load_traj(a, i, s);
+  get_desired(s, y, y + 3, y + 6, y + 15, a.mode,
+              TrajU{u[D_THETA], u[D_HOVER_T], u[D_HOVER_W]});
 
-  // ---- quad.step: action map, then the dynamics
+  // ---- quad.step: R as read, action map, then the dynamics from it
+  {
+    float Rs[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) Rs[k] = y[6 + k];
+    read_R<EXACT>(Rs, y + 6);
+  }
   float act[T::NACT];
 #pragma unroll
   for (int k = 0; k < T::NACT; ++k) act[k] = a.act[(size_t)i * T::NACT + k];
@@ -645,20 +1034,23 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   const float maxf = sf[FIDX(ENV_PARAMS_MAX_FORCE, 0)];
   const float f = clampf(4.0f * (scale * act[0] + avrg), 4.0f * minf, 4.0f * maxf);
   float M[3];
-  T::wrench(act, R0, y + 15, J, M);
+  T::wrench(act, y + 6, y + 15, J, M);
   integrate<INTEG>(y, f, M, m, J);
-  polar_fast(y + 6);
+  // the stored R: one polar step, or left drifted under EXACT
+  if constexpr (!EXACT) polar_fast<2>(y + 6);
+  float Rr[9];
+  read_R<EXACT>(y + 6, Rr);
 
   float eIx[3], eIx_int[3];
   LOADF(eIx, ENV_EIX);
   LOADF(eIx_int, ENV_EIX_INTEGRAND);
   NormOut n;
-  norm_error(c, y, xd, vd, b1d, Wd, eIx, eIx_int, sf[FIDX(ENV_EIB1, 0)],
-             sf[FIDX(ENV_EIB1_INTEGRAND, 0)], n);
+  norm_error(c, y, y + 3, Rr, y + 15, s.xd, s.vd, s.b1d, s.Wd, eIx, eIx_int,
+             sf[FIDX(ENV_EIB1, 0)], sf[FIDX(ENV_EIB1_INTEGRAND, 0)], n);
 
   // obs, then reward / done from the float32 obs
   float obs[T::NOBS];
-  T::build_obs(n, y + 6, obs);
+  T::build_obs(n, Rr, obs);
   float rew[T::NA];
   bool d[T::NA];
   T::reward_done(c, obs, rew, d);
@@ -692,7 +1084,7 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   outb[(size_t)T::RESET * B + i] = over;
 
   if (over) {
-    fresh_episode<TASK>(a, i, u);
+    fresh_episode<TASK, EXACT>(a, i, u);
     return;
   }
 
@@ -707,11 +1099,6 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   STORE1(ENV_EIB1_INTEGRAND, n.eIb1_cur);
   STORE1(ENV_F_TOTAL, f);
   STOREF(ENV_M, M);
-  STOREF(ENV_GOAL_XD, xd);
-  STOREF(ENV_GOAL_VD, vd);
-  STOREF(ENV_GOAL_B1D, b1d);
-  STOREF(ENV_GOAL_B1D_DOT, b1d_dot);
-  STOREF(ENV_GOAL_WD, Wd);
   COPYF(ENV_PARAMS_M);
   COPYF(ENV_PARAMS_D);
   COPYF(ENV_PARAMS_J);
@@ -725,28 +1112,30 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   COPYF(ENV_PARAMS_FORCES_TO_FM);
   COPYF(ENV_PARAMS_FM_TO_FORCES);
   a.oi[IIDX(ENV_T)] = t_new;
-
-  a.oi[IIDX(TRAJ_MODE)] = 0;
-  COPYF(TRAJ_T);
-  COPYF(TRAJ_T_TRAJ);
-  a.ob[BIDX(TRAJ_STARTED)] = a.sb[BIDX(TRAJ_STARTED)];
-  a.ob[BIDX(TRAJ_COMPLETE)] = a.sb[BIDX(TRAJ_COMPLETE)];
-  a.ob[BIDX(TRAJ_MANUAL_MODE)] = a.sb[BIDX(TRAJ_MANUAL_MODE)];
-  a.ob[BIDX(TRAJ_MANUAL_INIT)] = a.sb[BIDX(TRAJ_MANUAL_INIT)];
-  a.ob[BIDX(TRAJ_IS_LANDED)] = a.sb[BIDX(TRAJ_IS_LANDED)];
-  a.ob[BIDX(TRAJ_INIT_B1D)] = false;
-  COPYF(TRAJ_X_INIT);
-  COPYF(TRAJ_THETA_INIT);
-  COPYF(TRAJ_X_GOAL);
-  COPYF(TRAJ_SMOOTH_TERM);
-  COPYF(TRAJ_W_B1D);
-  COPYF(TRAJ_CENTER);
-  STOREF(TRAJ_XD, xd);
-  STOREF(TRAJ_VD, vd);
-  STOREF(TRAJ_B1D, b1d);
-  STOREF(TRAJ_B1D_DOT, b1d_dot);
-  STOREF(TRAJ_WD, Wd);
+  store_traj(a, i, s);
   write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, obs);
+}
+
+template <int TASK, int INTEG, bool EXACT>
+cudaError_t launch(const Args& a, int reset_only, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (a.B + threads - 1) / threads;
+  env_tick_kernel<TASK, INTEG, EXACT><<<blocks, threads, 0, stream>>>(a, reset_only);
+  return cudaGetLastError();
+}
+
+template <int TASK>
+cudaError_t launch_task(const Args& a, int reset_only, int integrator, int exact,
+                        cudaStream_t stream) {
+  switch (integrator * 2 + (exact ? 1 : 0)) {
+    case INTEGRATOR_EULER * 2: return launch<TASK, INTEGRATOR_EULER, false>(a, reset_only, stream);
+    case INTEGRATOR_EULER * 2 + 1: return launch<TASK, INTEGRATOR_EULER, true>(a, reset_only, stream);
+    case INTEGRATOR_RK4 * 2: return launch<TASK, INTEGRATOR_RK4, false>(a, reset_only, stream);
+    case INTEGRATOR_RK4 * 2 + 1: return launch<TASK, INTEGRATOR_RK4, true>(a, reset_only, stream);
+    case INTEGRATOR_DOP853 * 2: return launch<TASK, INTEGRATOR_DOP853, false>(a, reset_only, stream);
+    case INTEGRATOR_DOP853 * 2 + 1: return launch<TASK, INTEGRATOR_DOP853, true>(a, reset_only, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -759,12 +1148,10 @@ extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
                                void* of, void* oi, void* ob, const void* act,
                                const void* draws, void* outf, void* outb, int B,
                                int reset_only, int task, int integrator,
-                               int env_type, int max_steps, int use_udm,
-                               const float* coefs, void* stream) {
+                               int exact_so3, int mode, int env_type,
+                               int max_steps, int use_udm, const float* coefs,
+                               void* stream) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
-  if ((task != TASK_DECOUPLED && task != TASK_COUPLED) ||
-      integrator != INTEGRATOR_RK4)
-    return (int)cudaErrorInvalidValue;
   Args a;
   a.sf = (const float*)sf;
   a.si = (const int*)si;
@@ -780,16 +1167,14 @@ extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
   a.env_type = env_type;
   a.max_steps = max_steps;
   a.use_udm = use_udm;
+  a.mode = mode;
   a.c = Coefs{coefs[0],  coefs[1],  coefs[2],  coefs[3],  coefs[4],  coefs[5],
               coefs[6],  coefs[7],  coefs[8],  coefs[9],  coefs[10], coefs[11],
               coefs[12], coefs[13], coefs[14], coefs[15], coefs[16]};
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (task == TASK_DECOUPLED)
+    return (int)launch_task<TASK_DECOUPLED>(a, reset_only, integrator, exact_so3, st);
   if (task == TASK_COUPLED)
-    env_tick_kernel<TASK_COUPLED, INTEGRATOR_RK4>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a, reset_only);
-  else
-    env_tick_kernel<TASK_DECOUPLED, INTEGRATOR_RK4>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a, reset_only);
-  return (int)cudaGetLastError();
+    return (int)launch_task<TASK_COUPLED>(a, reset_only, integrator, exact_so3, st);
+  return (int)cudaErrorInvalidValue;
 }

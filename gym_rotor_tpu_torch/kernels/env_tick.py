@@ -1,30 +1,34 @@
 """K1: the fused env tick, one CUDA launch per lockstep tick.
 
 Replaces ``gym_rotor_tpu/envs/batch.py:batched_step`` (with
-``quad.step``, ``dynamics.rk4_step``, ``so3.polar_fast``,
-``trajectory.get_desired`` and ``quad.reset_state`` inlined), which XLA
-fused into one program on the TPU.  Kernel: ``csrc/env_tick.cu``.  Plain
-twin: ``envs/batch.py:batched_step_plain`` (re-exported here as
-``env_tick_plain``), which is what runs on CPU tensors.
+``trajectory.get_desired``, ``quad.step``, ``dynamics.{euler,rk4,dop853}_step``,
+``so3.polar_fast`` or ``so3.ensure_so3_exact`` and ``quad.reset_state``
+inlined), which XLA fused into one program on the TPU.  Kernel:
+``csrc/env_tick.cu``.  Plain twin: ``envs/batch.py:batched_step_plain``
+(re-exported here as ``env_tick_plain``), which is what runs on CPU tensors.
 
 What bounds it on an H100: per env a tick reads and writes ~0.5 KB of state
-and does a few thousand dependent flops, so at B = 4096 the work is ~5 MB
-and ~30 MFLOP, about 1.5 us of HBM time; the launch itself (a few us) and
+and does a few thousand dependent flops (DOP853: 12 evaluations of the
+equations of motion against RK4's 4), so at B = 4096 the work is ~5 MB and
+~30-90 MFLOP, about 1.5 us of HBM time; the launch itself (a few us) and
 the serial per-thread chain dominate.  The design keeps everything else out
-of the way: one thread per env, the whole tick (goal, action, RK4, polar
-repair, obs, reward, cap/solved override, fresh episode, select) in
-registers in one launch, state in field-major buffers where each field is
-a contiguous ``(B, w)`` block, and the fresh-episode chain run only by the
-threads whose episode ended (the JAX tick computes it densely for every env
-only to keep XLA's fusion whole).
+of the way: one thread per env, the whole tick (goal, action, integrator,
+attitude repair, obs, reward, cap/solved override, fresh episode, select)
+in registers in one launch, state in field-major buffers where each field
+is a contiguous ``(B, w)`` block, and the fresh-episode chain run only by
+the threads whose episode ended (the JAX tick computes it densely for every
+env only to keep XLA's fusion whole).
 
-Two instances of the kernel are built: the MODUL ``decoupled`` task and the
+Twelve instances of the kernel are built: the MODUL ``decoupled`` and the
 MONO ``coupled`` task (``quad.py:91-93, 178-184, 206-216, 247-255``), each
-with RK4.  On the card the state lives in three flat buffers (float32,
-int32, bool), the same for both tasks; the tick's outputs in two more
-(float32, bool) whose slots differ per task (``OUT``).  The offsets of both
-are written into ``env_tick_layout.h`` at build time from the same Python
-layout, so the two sides cannot disagree.  The kernel reads
+with the Euler, RK4 and DOP853 integrators, each with and without
+``exact_so3``; the trajectory mode (``cfg.train_traj_mode``, any int) is a
+runtime argument.  On the card the state lives in three flat buffers
+(float32, int32, bool), the same for every instance; the tick's outputs in
+two more (float32, bool) whose slots differ per task (``OUT``).  The
+offsets of both, the draw slots and DOP853's tableau are written into
+``env_tick_layout.h`` at build time from the Python side, so the two
+sides cannot disagree.  The kernel reads
 one set of buffers and writes another: ``env_tick`` stays functional, as in
 JAX (it packs a copy of the state and returns views of new buffers), and
 ``TickLoop``, which the rollouts use, carries two buffer sets from tick to
@@ -34,13 +38,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import Dict, List, Tuple
 
 import torch
 
 from ..envs import draws as D
+from ..envs import trajectory as traj_lib
 from ..envs.batch import (BatchedEnvState, BatchedStepOut,
                           batched_reset_plain, batched_step_plain)
+from ..envs.dynamics import dop853_tableau
 from ..utils.config import Config
 from ..utils.tree import tree_from_named, tree_named_leaves
 from .build import KernelSource, check
@@ -48,7 +55,7 @@ from .build import KernelSource, check
 env_tick_plain = batched_step_plain
 
 TASKS = {"decoupled": 0, "coupled": 1}
-INTEGRATORS = {"rk4": 1}
+INTEGRATORS = {"euler": 0, "rk4": 1, "dop853": 2}
 ENV_TYPES = {"train": 0, "eval": 1}
 # Per task, the tick's output slots (name, per-env width) in the float and
 # the bool output buffer: the agents' obs and terminal obs, one reward,
@@ -119,12 +126,37 @@ def layout_header() -> Dict[str, str]:
               f"#define D_AT_ORIGIN {D.AT_ORIGIN}",
               f"#define D_RESET {D.RESET.start}",
               f"#define D_FRESH_THETA {D.FRESH_THETA}",
+              f"#define D_HOVER_T {D.HOVER_T}", f"#define D_HOVER_W {D.HOVER_W}",
+              f"#define D_FRESH_HOVER_T {D.FRESH_HOVER_T}",
+              f"#define D_FRESH_HOVER_W {D.FRESH_HOVER_W}",
               f"#define N_DRAWS {D.N_DRAWS}"]
+    lines += [f"#define NEG_LOG_0001_D {traj_lib.NEG_LOG_0001.hex()}",
+              f"#define EIGHT_EXP_XY_D {traj_lib.EIGHT_EXP_XY.hex()}"]
+    lines += _dop853_macros()
     lines += [f"#define TASK_{k.upper()} {v}" for k, v in TASKS.items()]
     lines += [f"#define INTEGRATOR_{k.upper()} {v}"
               for k, v in INTEGRATORS.items()]
     lines += [f"#define ENV_{k.upper()} {v}" for k, v in ENV_TYPES.items()]
     return {"env_tick_layout.h": "\n".join(lines) + "\n"}
+
+
+def _dop853_macros() -> List[str]:
+    """DOP853's stages and final sum as macro lists over the nonzero
+    coefficients of scipy's tableau (``dynamics.dop853_tableau``), each an
+    exact hex literal: ``DOP853_STAGES(BEGIN, AXPY, EVAL)`` expands to
+    ``BEGIN(i) AXPY(i, j, a_ij)... EVAL(i)`` for stages 0-11 and
+    ``DOP853_SUM(SUM)`` to ``SUM(i, b_i)`` for each nonzero ``b_i``."""
+    A, Bc, _ = dop853_tableau()
+    stages = []
+    for i in range(len(Bc)):
+        axpys = "".join(f" AXPY({i}, {j}, {float(A[i, j]).hex()})"
+                        for j in range(i) if A[i, j] != 0.0)
+        stages.append(f"BEGIN({i}){axpys} EVAL({i})")
+    total = " ".join(f"SUM({i}, {float(b).hex()})"
+                     for i, b in enumerate(Bc) if b != 0.0)
+    return ["#define DOP853_STAGES(BEGIN, AXPY, EVAL) \\\n  "
+            + " \\\n  ".join(stages),
+            f"#define DOP853_SUM(SUM) {total}"]
 
 
 KERNEL = KernelSource("env_tick", ["-fmad=false"], layout_header)
@@ -136,7 +168,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.env_tick_launch.argtypes = [P, P, P, P, P, P, P, P, P, P,
-                                        I, I, I, I, I, I, I, P, P]
+                                        I, I, I, I, I, I, I, I, I, P, P]
         lib.env_tick_launch.restype = I
         lib._typed = True
     return lib
@@ -194,17 +226,24 @@ def _out_views(task, outf, outb, B):
 # Wrappers
 # ---------------------------------------------------------------------------
 def task_of(cfg: Config) -> str:
-    """The kernel instance ``cfg`` runs: ``"decoupled"`` (MODUL) or
-    ``"coupled"`` (MONO); raises for what no instance covers."""
+    """The kernel's task for ``cfg``: ``"decoupled"`` (MODUL) or
+    ``"coupled"`` (MONO), with any integrator of ``INTEGRATORS``, any
+    trajectory mode and ``exact_so3`` on or off; raises for what no
+    instance covers (the base ``quad`` task is not ported)."""
     task = {"MODUL": "decoupled", "MONO": "coupled"}.get(cfg.framework)
-    if (task is None or cfg.integrator not in INTEGRATORS
-            or cfg.train_traj_mode != 0 or cfg.exact_so3):
+    if task is None or cfg.integrator not in INTEGRATORS:
         raise NotImplementedError(
             "env_tick kernel is built for MODUL/decoupled and MONO/coupled "
-            "with rk4, trajectory mode 0, exact_so3=False; got "
-            f"framework={cfg.framework!r} integrator={cfg.integrator!r} "
-            f"mode={cfg.train_traj_mode} exact_so3={cfg.exact_so3}")
+            f"with {', '.join(INTEGRATORS)} (the quad task is not ported); "
+            f"got framework={cfg.framework!r} integrator={cfg.integrator!r}")
     return task
+
+
+def instance(cfg: Config) -> str:
+    """The name of the kernel instance ``cfg`` launches, e.g.
+    ``decoupled_rk4`` or ``coupled_dop853_exact``."""
+    return f"{task_of(cfg)}_{cfg.integrator}" + ("_exact" if cfg.exact_so3
+                                                  else "")
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,11 +295,13 @@ def _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs):
         *(ptr(t) for t in ins), *(ptr(t) for t in out_bufs),
         ptr(actions), ptr(draws), ptr(outf), ptr(outb),
         B, int(in_bufs is None), TASKS[task],
-        INTEGRATORS[cfg.integrator], ENV_TYPES[env_type], cfg.max_steps,
+        INTEGRATORS[cfg.integrator], int(cfg.exact_so3),
+        int(cfg.train_traj_mode), ENV_TYPES[env_type], cfg.max_steps,
         int(cfg.use_UDM), _coefs(cfg),
         torch.cuda.current_stream(device).cuda_stream)
     check(err, lib, "env_tick")
     env_tick.launches += 1
+    env_tick.by_instance[instance(cfg)] += 1
     return _out_views(task, outf, outb, B)
 
 
@@ -309,6 +350,8 @@ def env_tick(cfg: Config, bstate: BatchedEnvState, actions: torch.Tensor,
 
 
 env_tick.launches = 0
+# launches per kernel instance (``instance``), beside the total
+env_tick.by_instance = Counter()
 
 
 def env_reset(cfg: Config, draws: torch.Tensor, env_type: str = "train"):

@@ -4,8 +4,8 @@ Shape-polymorphic over leading batch dims and dtype-polymorphic (float32
 fast path, float64 parity path).  Every 3x3 product is written as
 fixed-order elementwise arithmetic (``mm3``), never as a matmul, so the
 float64 path reproduces the JAX package bit for bit and the float32 path
-never touches TF32.  ``psvd``/``ensure_so3_exact`` (the ``exact_so3`` path)
-are not ported yet.
+never touches TF32.  ``ensure_so3_exact`` is the ``exact_so3`` path's
+conditional repair; ``psvd`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -61,6 +61,37 @@ def polar_fast(R, iters: int = 2):
     for _ in range(iters):
         R = 0.5 * (R + inv3(R).transpose(-1, -2))
     return R
+
+
+def det3(M):
+    """3x3 determinant as the cofactor expansion along the first row, in
+    ``inv3``'s order."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return a * (e * i - f * h) + b * (-(d * i - f * g)) + c * (d * h - e * g)
+
+
+def is_rotation(R, tol: float = 1e-5):
+    """The reference's drift check (``so3.py:110-121``): ``allclose(RᵀR, I,
+    rtol=tol, atol=tol)`` and ``isclose(det R, 1, rtol=tol)``.  RᵀR is the
+    fixed-order ``mm3`` and det the cofactor expansion ``det3``, where JAX
+    takes ``@`` and an LU ``det``: the mask agrees except for an R whose
+    RᵀR or det lies within an ulp of the 1e-5 edge."""
+    dtype, device = R.dtype, R.device
+    RtR = mm3(R.transpose(-1, -2), R)
+    eye = torch.eye(3, dtype=dtype, device=device)
+    t = torch.tensor(tol, dtype=dtype, device=device)
+    ortho = (torch.abs(RtR - eye) <= t + t * eye).all(-1).all(-1)
+    det_tol = torch.tensor(1e-8 + tol * 1.0, dtype=dtype, device=device)
+    return ortho & (torch.abs(det3(R) - 1.0) <= det_tol)
+
+
+def ensure_so3_exact(R, tol: float = 1e-5):
+    """Repair on read (``so3.py:124-140``): R itself where it passes
+    ``is_rotation``, else its polar factor by six Newton iterations."""
+    ok = is_rotation(R, tol)
+    return torch.where(ok[..., None, None], R, polar_fast(R, iters=6))
 
 
 def rot_x(a):

@@ -2,8 +2,10 @@
 ``gym_rotor_tpu/utils/config.py``'s ``Config``, defaults unchanged).
 
 Defaults replicate the reference's args_parse.py:6-78 exactly.  The port
-reads the same fields; knobs it does not implement yet (other frameworks,
-integrators, trajectory modes) raise where they are consumed.
+reads the same fields: every ``integrator`` (euler, rk4, dop853), any
+``train_traj_mode`` and ``exact_so3`` run on the card; knobs it does not
+implement yet (``eval_stream="reference"``, the checkpoint and logging
+fields) raise where they are consumed or are ignored.
 """
 from __future__ import annotations
 

@@ -43,35 +43,48 @@ def _np(t):
 # JAX draws in the port's layout
 # ---------------------------------------------------------------------------
 def _tick_draws(bs, dtype):
-    """The (B, 21) base draws the JAX tick consumes from ``bs``'s keys:
-    trajectory.py:137-141 on the current machine, batch.py:110 ->
-    quad.py:417 (params.py:107, quad.py:401-402, :431) for the fresh
-    episode, and trajectory.py:137-141 on the fresh machine."""
+    """The (B, N_DRAWS) base draws the JAX tick consumes from ``bs``'s keys:
+    the current machine's mode-0 heading (trajectory.py:137-141) and mode-1
+    settle time and yaw rate (:158-163), batch.py:110 -> quad.py:417
+    (params.py:107, quad.py:401-402, :431) for the fresh episode, and the
+    fresh machine's three (each mode reads its own)."""
     def one(ek, tk):
-        _, sub = jax.random.split(tk)
-        th = jax.random.uniform(sub, (), dtype)
         k1, k2 = jax.random.split(ek)
-        return jnp.concatenate([th[None], _reset_slots(k1, k2, dtype)])
+        return _layout(_machine_draws(tk, dtype), *_reset_slots(k1, k2, dtype))
     return jax.vmap(one)(bs.env.key, bs.traj.key)
 
 
+def _machine_draws(tk, dtype):
+    """(theta, hover_t, hover_w): the base draws behind ``_mode_idle``'s
+    ``split(key)`` and ``_mode_hover``'s ``split(key, 3)`` on a machine
+    whose key is ``tk``."""
+    _, sub = jax.random.split(tk)
+    _, k1, k2 = jax.random.split(tk, 3)
+    return jnp.stack([jax.random.uniform(k, (), dtype) for k in (sub, k1, k2)])
+
+
 def _reset_slots(ek, tk, dtype):
+    """A fresh episode's slots: UDM, at-origin and the 12 reset uniforms
+    from the env key ``ek``; the fresh machine's three from ``tk``."""
     k_param, k_branch, k_x, _ = jax.random.split(ek, 4)
     udm = jax.random.uniform(k_param, (6,), dtype)
     _, sb = jax.random.split(k_branch)
     at_origin = jax.random.uniform(sb, ()).astype(dtype)
     r12 = jax.random.uniform(k_x, (12,), dtype)
-    _, s2 = jax.random.split(tk)
-    th2 = jax.random.uniform(s2, (), dtype)
-    return jnp.concatenate([udm, at_origin[None], r12, th2[None]])
+    return jnp.concatenate([udm, at_origin[None], r12]), _machine_draws(tk, dtype)
+
+
+def _layout(cur, env_slots, fresh):
+    """One env's row in ``envs/draws.py``'s slot order."""
+    return jnp.concatenate([cur[:1], env_slots, fresh[:1], cur[1:], fresh[1:]])
 
 
 def _reset_draws(key, n, dtype):
     """Draws of ``batched_reset(cfg, key)`` (batch.py:54-56)."""
     ek, tk = jax.random.split(key)
     eks, tks = jax.random.split(ek, n), jax.random.split(tk, n)
-    rows = jax.vmap(lambda e, t: _reset_slots(e, t, dtype))(eks, tks)
-    return jnp.concatenate([jnp.zeros((n, 1), dtype), rows], axis=1)
+    return jax.vmap(lambda e, t: _layout(jnp.zeros(3, dtype),
+                                         *_reset_slots(e, t, dtype)))(eks, tks)
 
 
 def _port_state(jbs, dtype):

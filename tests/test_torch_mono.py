@@ -203,8 +203,12 @@ def test_tick_output_layout_matches_plain_twin(framework):
     header = ktick.layout_header()["env_tick_layout.h"]
     assert f"#define OF_{task.upper()}_REWARD" in header
     assert f"#define NB_OUT_{task.upper()} {2 * n + 1}" in header
-    with pytest.raises(NotImplementedError):
-        ktick.task_of(cfg.replace(integrator="euler"))
+    for integrator in ("euler", "dop853"):       # K1 has instances for these
+        assert ktick.task_of(cfg.replace(integrator=integrator,
+                                         train_traj_mode=5,
+                                         exact_so3=True)) == task
+    with pytest.raises(NotImplementedError):      # no instance covers it
+        ktick.task_of(cfg.replace(integrator="rk45"))
 
 
 # ---------------------------------------------------------------------------
