@@ -146,6 +146,31 @@ result line):
                 phase 12; eval_modes: ``evaluate`` with the first run's
                 actors in mode 6; kernels: one record per instance, with
                 its launches over those runs
+ 23. the Gym API and the reference eval stream (``phase_gym_api``):
+                gym_step the quad instances' registers and spills and
+                env_tick's build time, then K1's step entry vs its plain
+                twin ``env_step_plain`` for the quad instances (euler, rk4,
+                dop853 under exact_so3) and the coupled and decoupled
+                exact_so3 instances, at B = 4096 and B = 1, from states with
+                x and v past their limits, roll and pitch tilts past 85
+                degrees, the singular branch of ``rot_to_euler`` and ~20%
+                of attitudes drifted (discrete mismatches only within a few
+                ulp of a limit, the goal and parameters untouched), with
+                each instance's times at both sizes; gym_api ``make`` of
+                Quad-v0 (dop853, euler, rk4), Coupled-v0 and Decoupled-v0
+                (dop853, euler) on the card: set_seed, reset,
+                get_norm_error_state, set_goal_state, GYM_STEPS near-hover
+                steps, exactly one step-entry launch a step, the same run
+                on the CPU through the plain path compared until the first
+                done, then every later step from the card's state, wall ms
+                per step and device us per launch;
+                eval_reference ``evaluate(eval_stream="reference",
+                save_log=True)`` with the flagship's seeded actors: the
+                lifted state is the replayed inits rounded once, K1 once
+                and K3 twice a tick, no reset launch, finite rows of 5 + 35;
+                kernels: one record per quad instance and one for the step
+                entry of the coupled and decoupled instances, at B = 1 (the
+                Gym API's) with their B = 4096 times beside
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -566,7 +591,7 @@ def phase_eval(cfg, dev, actors, name="eval"):
     for w in wr.values():
         w.launches = 0
     t0 = time.perf_counter()
-    ep, bench, succ, ex, eb1 = evaluate(cfg, actors, device=dev)
+    ep, bench, succ, ex, eb1, _ = evaluate(cfg, actors, device=dev)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items() if w.launches}
     n = cfg.n_agents
@@ -3236,6 +3261,473 @@ def phase_tick_modes(dev):
     return records
 
 
+# ---------------------------------------------------------------------------
+# The Gym API and the reference eval stream: K1's quad task and step entry
+# ---------------------------------------------------------------------------
+STEP_TASKS = {"quad": "MONO", "coupled": "MONO", "decoupled": "MODUL"}
+STEP_INSTANCES = tuple((task, integ) for task in STEP_TASKS
+                       for integ in ("euler", "rk4", "dop853"))
+GYM_STEPS = 1000
+# every Gym env with the reference's default DOP853 and one Euler config;
+# Quad-v0 also with RK4, so that each quad instance runs on this path
+GYM_RUNS = (("Quad-v0", "dop853"), ("Quad-v0", "euler"), ("Quad-v0", "rk4"),
+            ("Coupled-v0", "dop853"), ("Coupled-v0", "euler"),
+            ("Decoupled-v0", "dop853"), ("Decoupled-v0", "euler"))
+GYM_GOAL = ([0.1, -0.1, -0.05], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+            [0.0, 0.0, 0.0], [0.0, 0.0, 0.0])
+
+
+def _step_cfg(task, integ, n):
+    from gym_rotor_tpu_torch.utils.config import Config
+    return Config(num_envs=n, framework=STEP_TASKS[task], integrator=integ,
+                  exact_so3=True)
+
+
+def _step_states(cfg, n, gen, dev):
+    """``n`` float32 envs for the step entry: random train resets with a
+    goal each, then (n > 1) shares of ~10% with x past its limit, ~10% v
+    past its, ~10% a roll and ~10% a pitch of 85.5-89 degrees, ~5% the
+    singular branch of ``rot_to_euler`` (pitch 90 degrees), and ~20% of the
+    rest with the attitude drifted by DRIFT (the exact repair runs)."""
+    from gym_rotor_tpu_torch.envs import draws as D
+    from gym_rotor_tpu_torch.envs.batch import batched_reset_plain
+    from gym_rotor_tpu_torch.ops import so3
+    st, _ = batched_reset_plain(cfg, D.draw_uniforms(n, gen, torch.float32,
+                                                     dev), "train")
+    e = st.env
+    th = torch.rand(n, generator=gen, device=dev) * 2 * math.pi
+    e.goal.xd.copy_(0.2 * torch.randn(n, 3, generator=gen, device=dev))
+    e.goal.vd.copy_(0.05 * torch.randn(n, 3, generator=gen, device=dev))
+    e.goal.b1d.copy_(torch.stack([th.cos(), th.sin(), 0 * th], -1))
+    drift = torch.rand(n, generator=gen, device=dev) < 0.2
+    if n > 1:
+        idx = torch.randperm(n, generator=gen, device=dev)
+        k = n // 10
+        crash_x, crash_v = idx[:k], idx[k:2 * k]
+        e.x[crash_x, 0] = 1.0 + 0.05 * torch.rand(k, generator=gen, device=dev)
+        e.v[crash_v, 1] = -4.0 - 0.1 * torch.rand(k, generator=gen, device=dev)
+        e.goal.xd[crash_x] = 0.0
+        e.goal.vd[crash_v] = 0.0
+        deg = (85.5 + 3.5 * torch.rand(k, generator=gen, device=dev)) \
+            * (math.pi / 180)
+        z = torch.zeros(k, device=dev)
+        e.R[idx[2 * k:3 * k]] = so3.euler_to_rot(torch.stack([deg, z, th[:k]], -1))
+        e.R[idx[3 * k:4 * k]] = so3.euler_to_rot(torch.stack([z, -deg, th[:k]], -1))
+        h = k // 2
+        e.R[idx[4 * k:4 * k + h]] = so3.euler_to_rot(torch.stack(
+            [z[:h], torch.full((h,), math.pi / 2, device=dev), th[:h]], -1))
+        drift[idx[:4 * k + h]] = False
+    e.R[drift] += DRIFT * torch.randn(int(drift.sum()), 3, 3, generator=gen,
+                                      device=dev)
+    return st
+
+
+def _step_near(task, e, out):
+    """Envs whose done decides within a few ulp of a limit, from the
+    stepped batched env ``e`` and the step's output: the quad task's |x|,
+    |v|, |W| and the roll / pitch of R as read (85 degrees, 1e-4 degree),
+    the wrappers' |obs| >= 1 columns (1e-5)."""
+    from gym_rotor_tpu_torch.ops import so3
+    if task == "quad":
+        lim = [(e.x, 1.0), (e.v, 4.0), (e.W, 2 * math.pi)]
+        near = torch.zeros(e.x.shape[0], dtype=torch.bool, device=e.x.device)
+        for v, l in lim:
+            near |= ((v.abs() - l).abs() <= 8 * l * F32_EPS).any(1)
+        eul = so3.rot_to_euler(so3.ensure_so3_exact(e.R))[:, :2] * (180 / math.pi)
+        return near | ((eul.abs() - 85.0).abs() < 1e-4).any(1)
+    if task == "decoupled":
+        o1, o2 = out.obs
+        crash = torch.cat([o1[:, 0:3], o1[:, 6:9], o1[:, 12:15], o2[:, 2:3]], 1)
+    else:
+        (o,) = out.obs
+        crash = torch.cat([o[:, 0:3], o[:, 6:9], o[:, 20:23]], 1)
+    return ((crash.abs() - 1.0).abs() < 1e-5).any(1)
+
+
+def _step_vs_plain(cfg, task, st, a, dev):
+    """One launch of K1's step entry and one plain step on the same env
+    and actions: discrete fields equal except in envs near a limit, the
+    rest within K1's tolerance over the envs whose discrete fields agree;
+    the goal and the parameters, which the entry must not write, bit for
+    bit."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    n = a.shape[0]
+    st_k, out_k = K.env_step(cfg, st.env, a, task)
+    st_p, out_p = K.env_step_plain(cfg, st.env, a, task)
+    named = []
+    for s, o in ((st_k, out_k), (st_p, out_p)):
+        d = _named(s)
+        d.update({"reward": o.reward, "done": o.done, "info.ex": o.info["ex"],
+                  "info.eb1": o.info["eb1"]})
+        for j, ob in enumerate(o.obs):
+            d[f"obs{j + 1}"] = ob
+        named.append(d)
+    nk, np_ = named
+    near = _step_near(task, st_p, out_p) | _step_near(task, st_k, out_k)
+    mismatch = torch.zeros(n, dtype=torch.bool, device=dev)
+    for path, p in np_.items():
+        if not p.is_floating_point():
+            mismatch |= (nk[path] != p).reshape(n, -1).any(1)
+    errs, bad, err = _field_errors(nk, np_, mismatch)
+    copied = [p for p in nk if p.startswith(("state.goal.", "state.params."))
+              and not torch.equal(nk[p], np_[p])]
+    return dict(err=err, errs=errs, bad=bad + copied, near=int(near.sum()),
+                mismatch=int(mismatch.sum()),
+                unexplained=int((mismatch & ~near).sum()),
+                done=int(out_p.done.any(-1).sum()))
+
+
+# What K1's step entry reads and writes of an env (env_tick.cu step_only):
+# the state, the goal but b1d_dot, the parameters quad.step uses (the quad
+# task's forces_to_fM besides), the integrals where the task updates them.
+STEP_READS = ("x", "v", "R", "W", "goal.xd", "goal.vd", "goal.b1d", "goal.Wd",
+              "params.m", "params.J", "params.scale_act", "params.avrg_act",
+              "params.min_force", "params.max_force", "t")
+STEP_WRITES = ("x", "v", "R", "W", "f_total", "M", "t")
+STEP_INTEGRALS = ("eIx", "eIx_integrand", "eIb1", "eIb1_integrand")
+
+
+def step_bytes(task, n):
+    """The bytes K1's step entry must move for ``n`` envs of ``task``: each
+    env field it reads once and each it writes once (``STEP_READS``,
+    ``STEP_WRITES``), the actions and its output slots."""
+    from gym_rotor_tpu_torch.kernels import env_tick as KT
+    width = {path: (w, dt.itemsize) for dt, fields in KT.layout().items()
+             for path, _, w, _ in fields}
+    reads, writes = list(STEP_READS), list(STEP_WRITES)
+    if task == "quad":
+        reads.append("params.forces_to_fM")
+    else:
+        reads += STEP_INTEGRALS
+        writes += STEP_INTEGRALS
+    per_env = sum(width["env." + p][0] * width["env." + p][1]
+                  for p in reads + writes)
+    per_env += KT.ACT_DIM[task] * 4 + KT.out_width(task, "F", True) * 4 \
+        + KT.out_width(task, "B", True)
+    return n * per_env
+
+
+def _fresh_calls(bufs, n, rounds=5):
+    """``device_ms(fn, n, rounds)``'s calls of the in-place step entry, each
+    on its own copy of ``bufs``, so that every timed launch steps the same
+    env as the bound counts (and the copies are not L2-resident at 4096)."""
+    copies = iter([tuple(b.clone() for b in bufs)
+                   for _ in range(1 + n * (1 + rounds))])
+    return lambda: next(copies)
+
+
+def step_timing(cfg, task, dev, st, a):
+    """K1's step entry on ``st``'s env: device time per launch (each on a
+    fresh copy: the entry runs in place), the plain twin's, and the bound:
+    ``step_bytes``; the plain step's flops per env (counted on the CPU)
+    less the 6-step polar repair of every read of R that passes
+    ``is_rotation`` (the kernel runs it only where a read fails; two reads
+    a step)."""
+    from gym_rotor_tpu_torch.envs import draws as D
+    from gym_rotor_tpu_torch.envs.batch import batched_reset_plain
+    from gym_rotor_tpu_torch.kernels import env_tick as KT
+    from gym_rotor_tpu_torch.ops import so3
+    n = a.shape[0]
+    fresh = _fresh_calls(KT.pack_env(st.env), 100)
+    k_ms, k_wall = device_ms(
+        lambda: KT.env_step_bufs(cfg, fresh(), a, task), 100)
+    p_ms, p_wall = device_ms(
+        lambda: KT.env_step_plain(cfg, st.env, a, task), 5, 3)
+    env_p, _ = KT.env_step_plain(cfg, st.env, a, task)
+    nbytes = step_bytes(task, n)
+    cpu_cfg = cfg.replace(num_envs=1)
+    st1, _ = batched_reset_plain(cpu_cfg, torch.rand(1, D.N_DRAWS))
+    per_env = count_flops(KT.env_step_plain, cpu_cfg, st1.env,
+                          torch.zeros(1, a.shape[1]), task)
+    polar6 = count_flops(so3.polar_fast, torch.eye(3)[None], 6)
+    passed = (int(so3.is_rotation(st.env.R).sum())
+              + int(so3.is_rotation(env_p.R).sum()))
+    flops = n * per_env - passed * polar6
+    bms, by = bound_ms(nbytes, flops)
+    return dict(batch=n, ms=k_ms, wall_ms_per_call=k_wall, plain_ms=p_ms,
+                plain_wall_ms=p_wall, bytes=nbytes, flops_per_env=per_env,
+                reads_passed=passed, flops=flops, bound_ms=bms, bound_by=by)
+
+
+def phase_step_compare(dev):
+    """(a) and (b): each K1 step instance (quad x integrator, exact_so3;
+    coupled and decoupled exact_so3) vs its plain twin at B = 4096 and
+    B = 1 on ``_step_states``; then its timings at both sizes.  Returns
+    per instance the worst error and the timings."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = {}
+    for task, integ in STEP_INSTANCES:
+        name = K.instance(_step_cfg(task, integ, 1), task)
+        worst, timing = 0.0, {}
+        for n in (B, 1):
+            cfg = _step_cfg(task, integ, n)
+            st = _step_states(cfg, n, gen, dev)
+            a = 0.3 * torch.randn(n, K.ACT_DIM[task], generator=gen,
+                                  device=dev)
+            c = _step_vs_plain(cfg, task, st, a, dev)
+            worst = max(worst, c["err"])
+            log("gym_step", instance=name, envs=n, done_envs=c["done"],
+                near_limit_envs=c["near"],
+                discrete_mismatch_envs=c["mismatch"],
+                unexplained_mismatch_envs=c["unexplained"],
+                max_abs_err=c["err"], fields=c["errs"],
+                tolerance="1e-6 + 1e-5 |plain|, discrete identical "
+                          "outside a few ulp of a limit, goal and parameters "
+                          "untouched")
+            if c["unexplained"] or c["bad"]:
+                raise AssertionError(f"step entry {name} at B = {n}: "
+                                     f"{c['unexplained']} envs, {c['bad']}")
+            timing[n] = step_timing(cfg, task, dev, st, a)
+        log("kernels", kernel=f"env_step_{name}", at_1=timing[1],
+            at_4096=timing[B])
+        out[name] = dict(err=worst, timing=timing)
+    return out
+
+
+def _hover_actions(env, n, rng):
+    """Near-hover actions with small noise (the thrust channel at hover;
+    per motor for Quad-v0)."""
+    import numpy as np
+    a = rng.uniform(-0.05, 0.05, (n, env._action_dim()))
+    hover = (env.hover_force - env.avrg_act) / env.scale_act
+    if env.task == "quad":
+        a += hover
+    else:
+        a[:, 0] += hover
+    return a
+
+
+def _flat(step_out):
+    """A Gym ``step``'s obs, reward and done as flat float64 arrays."""
+    import numpy as np
+    obs, rew, done = step_out[:3]
+    obs = np.concatenate([np.ravel(o) for o in
+                          (obs if isinstance(obs, list) else [obs])])
+    return obs.astype(np.float64), np.ravel(rew).astype(np.float64), \
+        np.ravel(done)
+
+
+def _gym_start(e):
+    """set_seed, reset, get_norm_error_state and set_goal_state; returns
+    the reset state and the first obs."""
+    from gym_rotor_tpu_torch.utils.seeding import set_seed
+    set_seed(e, SEED + 31)
+    s0 = e.reset()
+    o0 = e.get_norm_error_state()
+    e.set_goal_state(*GYM_GOAL)
+    return s0, o0
+
+
+def _gym_compare(env, cpu, acts, outs):
+    """The card's run (``outs``) against the CPU's plain path, on a second
+    card run from the same reset whose outputs must equal ``outs`` bit for
+    bit: the CPU's Gym env runs free alongside until the first done; every
+    later step (the Gym API does not auto-reset, so a crashed env keeps
+    integrating) is held to one batched plain step from the card's state
+    before it.  obs and reward within K1's tolerance and finite, done
+    identical except within a few ulp of a limit (``_step_near``).  Returns
+    the worst error, the steps compared free and from the card's state, the
+    first done and the faults."""
+    import numpy as np
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.utils.tree import tree_map
+    firsts = [_gym_start(e) for e in (env, cpu)]
+    worst = max(float(np.abs(firsts[0][0] - firsts[1][0]).max()),
+                max(float(np.abs(a - b).max()) for a, b in
+                    zip(firsts[0][1], firsts[1][1])))
+    first_done, before, cards, bad = None, [], [], []
+
+    def check(k, g, c, near):
+        nonlocal worst
+        for j, what in enumerate(("obs", "reward")):
+            d = np.abs(g[j] - c[j])
+            worst = max(worst, float(d.max()))
+            if np.any(d > 1e-6 + 1e-5 * np.abs(c[j])) \
+                    or not np.isfinite(g[j]).all():
+                bad.append((k, what, float(d.max())))
+        if not np.array_equal(g[2], c[2]) and not near:
+            bad.append((k, "done", g[2].tolist(), c[2].tolist()))
+
+    for k, a in enumerate(acts):
+        if first_done is not None:
+            before.append(tree_map(lambda t: t[None].clone(), env._env))
+        g = _flat(env.step(a))
+        if not all(np.array_equal(x, y) for x, y in zip(g, _flat(outs[k]))):
+            bad.append((k, "card rerun differs"))
+        if first_done is not None:
+            cards.append(g)
+            continue
+        check(k, g, _flat(cpu.step(a)), False)
+        if g[2].any():
+            first_done = k
+    if first_done is None:
+        return worst, len(acts), 0, None, bad
+    # the steps after the first done: one plain step over all their states
+    n = len(cards)
+    st = tree_map(lambda *ts: torch.cat(ts).cpu(), *before)
+    a = torch.as_tensor(np.asarray(acts[first_done + 1:], np.float64),
+                        dtype=torch.float32)
+    st_p, out_p = K.env_step_plain(env.cfg, st, a, env.task)
+    near = _step_near(env.task, st_p, out_p)
+    obs = torch.cat(out_p.obs, 1).double().numpy()
+    rew = out_p.reward.double().numpy()
+    done = out_p.done.numpy()
+    for j in range(n):
+        check(first_done + 1 + j, cards[j], (obs[j], rew[j], done[j]),
+              bool(near[j]))
+    return worst, first_done + 1, n, first_done, bad
+
+
+def phase_gym(dev):
+    """(c): each Gym env from ``make`` on the card (GYM_RUNS): set_seed,
+    reset, get_norm_error_state, set_goal_state, GYM_STEPS near-hover
+    steps; exactly one launch of K1's step entry per step and no other K1
+    launch; wall ms per step and device us per launch (B = 1); every step
+    held to the CPU's plain path in float32 (``_gym_compare``).  Returns
+    the launches per instance."""
+    import numpy as np
+    from gym_rotor_tpu_torch import make
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    launches = Counter()
+    for env_id, integ in GYM_RUNS:
+        cfg = Config(framework="MONO", integrator=integ)
+        env, cpu = make(env_id, cfg=cfg), make(env_id, cfg=cfg, device="cpu")
+        _gym_start(env)
+        acts = _hover_actions(env, GYM_STEPS, np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        K.env_step.launches = K.env_tick.launches = 0
+        K.env_step.by_instance.clear()
+        t0 = time.perf_counter()
+        outs = [env.step(a) for a in acts]
+        wall = (time.perf_counter() - t0) / GYM_STEPS * 1e3
+        n_launch, by_inst = K.env_step.launches, dict(K.env_step.by_instance)
+        inst = K.instance(env.cfg, env.task)
+        if (n_launch, K.env_tick.launches, by_inst) != \
+                (GYM_STEPS, 0, {inst: GYM_STEPS}):
+            raise AssertionError(f"{env_id} {integ}: launches {n_launch}, "
+                                 f"{by_inst}, K1 tick {K.env_tick.launches}")
+        launches.update(by_inst)
+        a1 = torch.as_tensor(acts[-1], dtype=torch.float32,
+                             device=dev)[None].contiguous()
+        fresh = _fresh_calls(env._bufs, 200)
+        d_ms, d_wall = device_ms(
+            lambda: K.env_step_bufs(env.cfg, fresh(), a1, env.task), 200)
+        worst, free, forced, first_done, bad = _gym_compare(env, cpu, acts,
+                                                            outs)
+        log("gym_api", env=env_id, integrator=integ, instance=inst,
+            steps=GYM_STEPS, launches=n_launch, compared_free=free,
+            compared_from_card_state=forced, first_done_step=first_done,
+            max_abs_err=worst, tolerance="1e-6 + 1e-5 |cpu|, finite, done "
+            "identical outside a few ulp of a limit, card rerun bitwise",
+            wall_ms_per_step=wall, device_us_per_launch=d_ms * 1e3,
+            launch_wall_us=d_wall * 1e3, card=CARD)
+        if bad:
+            raise AssertionError(f"{env_id} {integ}: card vs CPU {bad[:5]}")
+        env.close()
+    return launches
+
+
+def phase_ref_eval(dev):
+    """(d): ``evaluate(eval_stream="reference", save_log=True)`` with the
+    flagship's seeded EMLP actors: the replayed inits equal the lifted
+    state before the float32 cast, K1's tick once and K3 twice a tick and
+    no reset launch, rows (ticks, 5 + 35) all finite."""
+    import numpy as np
+    from gym_rotor_tpu_torch.envs.quad import DT
+    from gym_rotor_tpu_torch.envs.ref_stream import (batched_reset_reference,
+                                                     reference_eval_inits)
+    from gym_rotor_tpu_torch.evaluate import EVAL_SEED, evaluate
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.models.emlp.zoo import make_actors
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(num_envs=B, eval_stream="reference", save_log=True)
+    actors = make_actors(cfg, device=dev, seed=SEED)
+    n, ticks = cfg.num_eval, int(round(cfg.eval_max_steps / DT))
+    inits = reference_eval_inits(n, EVAL_SEED)
+    bs, _ = batched_reset_reference(cfg.replace(num_envs=n), EVAL_SEED,
+                                    device=dev)
+    for k, t in (("x", bs.env.x), ("v", bs.env.v), ("R", bs.env.R),
+                 ("W", bs.env.W), ("b1d", bs.traj.b1d)):
+        want = torch.as_tensor(inits[k], dtype=torch.float32).to(dev)
+        if not torch.equal(t, want):
+            raise AssertionError(f"reference lift: {k} is not the replayed "
+                                 "init rounded once")
+    wr = _wrappers()
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    K.env_tick.by_instance.clear()
+    t0 = time.perf_counter()
+    ep, bench, succ, ex, eb1, rows = evaluate(cfg, actors, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: w.launches for k, w in wr.items() if w.launches}
+    log("eval_reference", envs=n, ticks=ticks, launches=launches,
+        by_instance=dict(K.env_tick.by_instance),
+        mean_episode_reward=[float(x) for x in ep],
+        benchmark_reward=float(bench), success=[int(x) for x in succ.sum(0)],
+        rows=list(rows.shape), rows_finite=bool(torch.isfinite(rows).all()),
+        eval_ms=ms, card=CARD)
+    want = {"env_tick": ticks, "emlp_actor": 2 * ticks}
+    if launches != want or dict(K.env_tick.by_instance) != {K.instance(cfg): ticks}:
+        raise AssertionError(f"eval_reference launch counts {launches}")
+    if tuple(rows.shape) != (ticks, 5 + 35) or not torch.isfinite(rows).all():
+        raise AssertionError(f"eval_reference rows {tuple(rows.shape)}")
+    if not np.isfinite([float(x) for x in ep] + [float(bench)]).all():
+        raise AssertionError("eval_reference produced non-finite rewards")
+    return ticks
+
+
+def phase_gym_api(dev):
+    """Phase 23: the Gym API and the reference eval stream.  The quad
+    instances' registers and spills and env_tick's build time; (a)/(b) the
+    step instances vs their twin (``phase_step_compare``); (c) the three
+    Gym envs on the card vs the CPU (``phase_gym``); (d) the reference eval
+    (``phase_ref_eval``); (e) one kernel record per quad instance and one
+    for the step entry of the coupled and decoupled exact_so3 instances,
+    launch-weighted, with their times at B = 1 (the Gym API's) and 4096."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    res = env_tick_resources(K)
+    log("gym_step", env_tick_nvcc_s=K.KERNEL.build_seconds,
+        ptxas={k: v for k, v in res.items() if k.endswith("_exact")})
+    cmp = phase_step_compare(dev)
+    launches = phase_gym(dev)
+    phase_ref_eval(dev)
+    src = "env_tick.cu"
+    replaces = "gym_rotor_tpu/envs/gym_api.py:74"
+
+    def inst(name, n, w):
+        t = cmp[name]["timing"][n]
+        return (w, t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"], None)
+    records = []
+    for task, integ in STEP_INSTANCES:
+        name = K.instance(_step_cfg(task, integ, 1), task)
+        if task != "quad":
+            continue
+        if not launches[name]:
+            raise AssertionError(f"{name} was not launched on the Gym path")
+        rec = _record(f"env_step_{name}", src, replaces, launches[name],
+                      cmp[name]["err"], [inst(name, 1, 1)])
+        big = cmp[name]["timing"][B]
+        rec.update(ms_4096=big["ms"], plain_ms_4096=big["plain_ms"],
+                   bound_ms_4096=big["bound_ms"], bound_by_4096=big["bound_by"])
+        records.append(rec)
+    wrap = [K.instance(_step_cfg(t, i, 1), t) for t, i in STEP_INSTANCES
+            if t != "quad"]
+    rec = _record("env_step", src, replaces,
+                  sum(launches[w] for w in wrap),
+                  max(cmp[w]["err"] for w in wrap),
+                  [inst(w, 1, launches[w]) for w in wrap])
+    big = _record("env_step", src, replaces, 0, 0.0,
+                  [inst(w, B, launches[w]) for w in wrap])
+    rec.update(ms_4096=big["ms"], plain_ms_4096=big["plain_ms"],
+               bound_ms_4096=big["bound_ms"], bound_by_4096=big["bound_by"])
+    records.append(rec)
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3301,6 +3793,7 @@ def main():
     records += phase_mono(dev)
     records += phase_families(dev)
     records += phase_tick_modes(dev)
+    records += phase_gym_api(dev)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

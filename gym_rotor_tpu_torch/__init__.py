@@ -11,8 +11,10 @@ The hot path goes through hand-written CUDA kernels
 ring, the EMLP block forward and backward, the flat optimizer, the
 spectral power iteration, SAC's squashed sample, PPO's GAE and clipped
 surrogate); each has a plain PyTorch twin beside its wrapper, which is
-what runs on CPU tensors.
+what runs on CPU tensors.  ``make("Quad-v0" | "Coupled-v0" |
+"Decoupled-v0")`` gives the Gym API's single envs (``envs/gym_api.py``).
 """
+from .registry import make, register
 from .utils.config import Config
 
-__all__ = ["Config"]
+__all__ = ["Config", "make", "register"]

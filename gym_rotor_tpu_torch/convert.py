@@ -347,23 +347,38 @@ def _float_dtypes(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def _one_float_dtype(tree: Mapping) -> None:
+    """Raise where a JAX state's float fields disagree in dtype (JAX's
+    float32 DOP853 tick under x64 returns ``env.x``/``env.R`` in float64,
+    ``dynamics.py:147, 152``)."""
+    kinds = _float_dtypes(tree)
+    widest = max(kinds.values(), key=lambda d: d.itemsize)
+    if any(d != widest for d in kinds.values()):
+        wide = [p for p, d in kinds.items() if d == widest]
+        raise ValueError(f"JAX state mixes float dtypes: {widest} in "
+                         f"{', '.join(wide)}; pass dtype= to cast "
+                         "explicitly")
+
+
 def env_state_from_numpy(tree: Mapping[str, Any], device=None,
                          dtype: Optional[torch.dtype] = None) -> BatchedEnvState:
     """A JAX ``BatchedEnvState`` as nested dicts of numpy arrays -> the port's
     ``BatchedEnvState`` on ``device`` (default: the card), in any trajectory
     mode and after any integrator.  JAX PRNG keys are dropped; float fields
     keep their dtype unless ``dtype`` is given.  A state whose float fields
-    disagree in dtype (JAX's float32 DOP853 tick under x64 returns
-    ``env.x``/``env.R`` in float64, ``dynamics.py:147, 152``) raises unless
-    ``dtype`` names the cast."""
+    disagree in dtype raises unless ``dtype`` names the cast."""
     if dtype is None:
-        kinds = _float_dtypes(tree)
-        widest = max(kinds.values(), key=lambda d: d.itemsize)
-        if any(d != widest for d in kinds.values()):
-            wide = [p for p, d in kinds.items() if d == widest]
-            raise ValueError(f"JAX state mixes float dtypes: {widest} in "
-                             f"{', '.join(wide)}; pass dtype= to cast "
-                             "explicitly")
+        _one_float_dtype(tree)
     dev = resolve_device(device)
     return BatchedEnvState(env=_build(EnvState, tree["env"], dev, dtype),
                            traj=_build(TrajState, tree["traj"], dev, dtype))
+
+
+def env_from_numpy(tree: Mapping[str, Any], device=None,
+                   dtype: Optional[torch.dtype] = None) -> EnvState:
+    """One JAX ``EnvState`` (a single env's, as the Gym API holds it;
+    nested dicts of numpy arrays) -> the port's ``EnvState`` on ``device``
+    (default: the card), with ``env_state_from_numpy``'s rules."""
+    if dtype is None:
+        _one_float_dtype(tree)
+    return _build(EnvState, tree, resolve_device(device), dtype)

@@ -86,3 +86,13 @@ def randomize(u6: torch.Tensor, udm_percentage: float = 10.0) -> QuadParams:
     m, d, J1, J3, c_tf, c_tw = vals.unbind(-1)
     J = torch.stack([J1, J1, J3], dim=-1)
     return _derive(m, d, J, c_tf, c_tw)
+
+
+def from_values(m, d, J1, J3, c_tf, c_tw, dtype=torch.float64,
+                device=None) -> QuadParams:
+    """Parameters from values drawn elsewhere (``params.py:114-123``: the
+    NumPy oracle's draws, in the reference's order), unbatched."""
+    def t(v):
+        return torch.tensor(float(v), dtype=dtype, device=device)
+    J = torch.stack([t(J1), t(J1), t(J3)], dim=-1)
+    return _derive(t(m), t(d), J, t(c_tf), t(c_tw))

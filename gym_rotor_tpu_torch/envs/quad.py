@@ -1,15 +1,18 @@
-"""Functional quadrotor environment core, the MODUL (``decoupled``) and
-MONO (``coupled``) tasks (port of ``gym_rotor_tpu/envs/quad.py``).
+"""Functional quadrotor environment core, all three tasks of the JAX
+package (port of ``gym_rotor_tpu/envs/quad.py``): the base ``quad`` env
+(per-motor thrusts, the 18-float state as obs, reward and done on the raw
+errors; only the Gym API selects it), MONO's ``coupled`` and MODUL's
+``decoupled``.
 
-The task follows ``cfg.framework``; the ``quad`` task is not ported yet
-and raises.  Under ``cfg.exact_so3`` the stored attitude drifts as the
-integrator leaves it and every read of R repairs it on the fly
-(``_ensure_R``), as the reference does; otherwise one polar step a tick
-keeps the stored R orthonormal.  Observations are cast to
-float32 exactly as the JAX package does, and rewards/dones are computed from
-that float32 obs, also on the float64 parity path.  Observations are always
-a tuple, one array per agent: ``(obs1, obs2)`` for MODUL, ``(obs,)`` for
-MONO (the JAX ``batch._obs_tuple``).
+``step``'s task follows ``cfg.framework`` unless the caller names one.
+Under ``cfg.exact_so3`` the stored attitude drifts as the integrator
+leaves it and every read of R repairs it on the fly (``_ensure_R``), as
+the reference does; otherwise one polar step a tick keeps the stored R
+orthonormal.  The wrappers' observations are cast to float32 exactly as
+the JAX package does, and their rewards/dones are computed from that
+float32 obs, also on the float64 parity path.  Observations are always a
+tuple, one array per agent: ``(obs1, obs2)`` for MODUL, ``(obs,)`` for
+MONO and for ``quad`` (the JAX ``batch._obs_tuple``).
 """
 from __future__ import annotations
 
@@ -26,11 +29,12 @@ from . import params as params_lib
 from .draws import uniform_in
 from .dynamics import dot3, integrate
 from .params import QuadParams
-from .state import EnvState, Goal
+from .state import EnvState, Goal, pack_state
 
 X_LIM = 1.0
 V_LIM = 4.0
 W_LIM = 2.0 * math.pi
+EULER_LIM_DEG = 85.0
 EIX_LIM = 3.0
 EIB1_LIM = 3.0
 SAT_SIGMA = 1.0
@@ -39,23 +43,28 @@ DT = 1.0 / FREQ
 
 
 class StepOut(NamedTuple):
-    obs: Tuple[torch.Tensor, ...]   # per agent: MODUL (15, 3), MONO (23,)
+    obs: Tuple[torch.Tensor, ...]   # per agent: MODUL (15, 3), MONO (23,),
+    #                                 quad (18,)
     reward: torch.Tensor     # (..., n_agents)
     done: torch.Tensor       # (..., n_agents) bool
     info: dict
-
-
-def _check_task(cfg: Config):
-    if cfg.framework not in ("MODUL", "MONO"):
-        raise NotImplementedError(
-            f"framework {cfg.framework!r}: only MODUL (decoupled) and MONO "
-            "(coupled) are ported")
 
 
 def _ensure_R(cfg: Config, R):
     """R as a read sees it (quad.py:54-62): repaired where it has drifted
     under ``exact_so3``, as stored otherwise."""
     return so3.ensure_so3_exact(R) if cfg.exact_so3 else R
+
+
+def action_quad(p: QuadParams, a):
+    """Per-motor thrusts -> (f, M) (quad.py:68-80): the forces clipped, then
+    ``forces_to_fM`` as a fixed-order 4x4 matvec."""
+    forces = torch.clamp(p.scale_act[..., None] * a + p.avrg_act[..., None],
+                         p.min_force[..., None], p.max_force[..., None])
+    F = p.forces_to_fM
+    fM = ((F[..., :, 0] * forces[..., 0:1] + F[..., :, 1] * forces[..., 1:2])
+          + (F[..., :, 2] * forces[..., 2:3] + F[..., :, 3] * forces[..., 3:4]))
+    return fM[..., 0], fM[..., 1:4], forces
 
 
 def _f_total(p: QuadParams, a0):
@@ -209,19 +218,52 @@ def done_decoupled(obs1, obs2):
     return torch.stack([d1, d2], dim=-1)
 
 
-def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
-    """One control tick of ``cfg.framework``'s task (quad.py:287-386):
-    ``action`` is ``(..., 5)`` (MODUL) or ``(..., 4)`` (MONO)."""
-    _check_task(cfg)
+def reward_quad(cfg: Config, x, v, R, W, goal: Goal):
+    """The base env's reward on the raw errors (quad.py:234-245)."""
+    eX = x - goal.xd
+    eV = v - goal.vd
+    eb1 = so3.norm_ang_btw_two_vectors(goal.b1d, so3.heading_b1(R))
+    r = -cfg.Cx * _sqnorm(eX)
+    r = r + -cfg.Cb1 * torch.abs(eb1)
+    r = r + -cfg.Cv * _sqnorm(eV)
+    r = r + -cfg.Cw12 * _sqnorm(W)
+    return r[..., None]
+
+
+def done_quad(x, v, R, W):
+    """The base env's termination with the tilt limit (quad.py:270-284):
+    roll or pitch of ``R`` at 85 degrees or more.  ``180 / pi`` is folded in
+    float64 and rounded once to the state's dtype, as JAX's weak-typed
+    Python float is."""
+    r2d = torch.tensor(180.0 / math.pi, dtype=x.dtype, device=x.device)
+    euler = so3.rot_to_euler(R) * r2d
+    d = ((torch.abs(x) >= X_LIM).any(-1) | (torch.abs(v) >= V_LIM).any(-1)
+         | (torch.abs(W) >= W_LIM).any(-1)
+         | (torch.abs(euler[..., 0]) >= EULER_LIM_DEG)
+         | (torch.abs(euler[..., 1]) >= EULER_LIM_DEG))
+    return d[..., None]
+
+
+def step(cfg: Config, state: EnvState, action,
+         task: str = None) -> Tuple[EnvState, StepOut]:
+    """One control tick (quad.py:287-386): action map, dynamics, obs,
+    reward, done.  ``task`` defaults to ``cfg.framework``'s wrapper
+    (MODUL ``decoupled``, MONO ``coupled``); ``"quad"`` is the base env:
+    ``action`` is ``(..., 5)`` (decoupled) or ``(..., 4)``.  The base env
+    observes the stepped state as stored, takes reward and done from R as
+    read, and leaves the integrals alone."""
+    if task is None:
+        task = "decoupled" if cfg.framework == "MODUL" else "coupled"
     p = state.params
     dtype = state.x.dtype
     action = action.to(dtype)
     R_work = _ensure_R(cfg, state.R)
     W = state.W
-    mono = cfg.framework == "MONO"
-    if mono:
+    if task == "quad":
+        f, M, _ = action_quad(p, action)
+    elif task == "coupled":
         f, M = action_coupled(p, action)
-    else:
+    elif task == "decoupled":
         f, tau, M3 = action_decoupled(p, action)
         b1 = R_work[..., :, 0]
         b2 = R_work[..., :, 1]
@@ -229,19 +271,36 @@ def step(cfg: Config, state: EnvState, action) -> Tuple[EnvState, StepOut]:
         M1 = dot3(b1, tau) + J3 * W[..., 2] * W[..., 1]
         M2 = dot3(b2, tau) - J3 * W[..., 2] * W[..., 0]
         M = torch.stack([M1, M2, M3], dim=-1)
+    else:
+        raise ValueError(f"unknown task {task!r}")
 
     dt = torch.tensor(DT, dtype=dtype, device=state.x.device)
     x_n, v_n, R_n, W_n = integrate(cfg.integrator, state.x, state.v, R_work,
                                    W, f, M, p, dt)
     if not cfg.exact_so3:
         R_n = so3.polar_fast(R_n)
+    wide = dtype == torch.float64
+
+    if task == "quad":
+        R_read = _ensure_R(cfg, R_n)
+        reward = reward_quad(cfg, x_n, v_n, R_read, W_n, state.goal)
+        done = done_quad(x_n, v_n, R_read, W_n)
+        reward = _interp01(reward, float(cfg.reward_min), wide)
+        reward = torch.where(done, -1.0, reward).to(dtype)
+        new_state = dataclasses.replace(state, x=x_n, v=v_n, R=R_n, W=W_n,
+                                        f_total=f, M=M, t=state.t + 1)
+        info = {"ex": x_n - state.goal.xd,
+                "eb1": torch.zeros(x_n.shape[:-1], dtype=dtype,
+                                   device=x_n.device)}
+        obs = (pack_state(x_n, v_n, R_n, W_n),)
+        return new_state, StepOut(obs=obs, reward=reward, done=done,
+                                  info=info)
 
     ne = norm_error_state(cfg, x_n, v_n, R_n, W_n, state.goal, state.eIx,
                           state.eIx_integrand, state.eIb1,
                           state.eIb1_integrand)
     obs = build_obs(cfg, ne)
-    wide = dtype == torch.float64
-    if mono:
+    if task == "coupled":
         (o,) = obs
         reward = _interp01(reward_coupled(cfg, o), float(cfg.reward_min), wide)
         done = done_coupled(o)
@@ -285,7 +344,6 @@ def _init_ranges(cfg: Config, env_type: str, u_origin):
 def reset_state(cfg: Config, u, env_type: str = "train") -> EnvState:
     """Episode initialization (quad.py:410-442) from the base draws ``u``
     of shape ``(..., N_DRAWS)`` (slots UDM, AT_ORIGIN, RESET)."""
-    _check_task(cfg)
     dtype, device = u.dtype, u.device
     batch = u.shape[:-1]
     if cfg.use_UDM and env_type == "train":
@@ -327,3 +385,9 @@ def initial_obs(cfg: Config, state: EnvState):
         state, eIx=ne.eIx_err, eIx_integrand=ne.eIx_integrand,
         eIb1=ne.eIb1_err, eIb1_integrand=ne.eIb1_integrand)
     return state, obs
+
+
+def set_goal(state: EnvState, xd, vd, b1d, b1d_dot, Wd) -> EnvState:
+    """``set_goal_state`` (quad.py:486-488)."""
+    return dataclasses.replace(state, goal=Goal(xd=xd, vd=vd, b1d=b1d,
+                                                b1d_dot=b1d_dot, Wd=Wd))

@@ -43,3 +43,17 @@ class EnvState:
     goal: Goal
     params: QuadParams
     t: torch.Tensor           # int32 step count within the episode
+
+
+def pack_state(x, v, R, W):
+    """(x, v, R, W) -> the 18-vector with R column-major in slots 6:15
+    (``state.py:61-68``)."""
+    R_vec = R.transpose(-1, -2).reshape(R.shape[:-2] + (9,))
+    return torch.cat([x, v, R_vec, W], dim=-1)
+
+
+def unpack_state(s18):
+    """The 18-vector -> (x, v, R, W); inverse of ``pack_state``
+    (``state.py:71-77``)."""
+    R = s18[..., 6:15].reshape(s18.shape[:-1] + (3, 3)).transpose(-1, -2)
+    return s18[..., 0:3], s18[..., 3:6], R, s18[..., 15:18]

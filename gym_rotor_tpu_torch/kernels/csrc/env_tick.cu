@@ -5,13 +5,17 @@
 // ensure_so3_exact -> norm_error_state/build_obs -> reward/done ->
 // cap/solved override -> dense fresh episode + select), which XLA fused into
 // one program on the TPU, for the MODUL (decoupled) and the MONO (coupled,
-// quad.py:91-93, 178-184, 206-216, 247-255) tasks.  Plain twin:
-// gym_rotor_tpu_torch/envs/batch.py:batched_step_plain.
+// quad.py:91-93, 178-184, 206-216, 247-255) tasks; and the Gym API's
+// single-env step, gym_rotor_tpu/envs/gym_api.py:74 jit(quad.step(cfg, s, a,
+// task)), for those two and the base quad task (quad.py:68-80, 234-284,
+// 304-354).  Plain twins: gym_rotor_tpu_torch/envs/batch.py:batched_step_plain
+// and batched_reset_plain, and kernels/env_tick.py:env_step_plain.
 //
 // Bound on an H100: ~0.5 KB of state read and written per env and a few
 // thousand flops, i.e. ~5 MB / ~30 MFLOP per tick at B = 4096, ~1.5 us of
 // HBM time.  At that size the launch and the per-thread dependent chain
-// dominate (32 blocks of 128 threads for 132 SMs); recorded in PERF.md.
+// dominate (32 blocks of 128 threads for 132 SMs); recorded in PERF.md.  The
+// Gym API steps one env a launch, where only the launch is left.
 // DOP853 evaluates the equations of motion 12 times (RK4: 4) and keeps up to
 // 12 stages of 18 floats live; ptxas fits them in 255 registers without a
 // spill (chip_smoke.py phase 22 prints each instance's registers), and the
@@ -26,6 +30,11 @@
 // U[0,1) base draws (layout: envs/draws.py) and mapped the way
 // jax.random.uniform maps them; in-kernel Philox is a later optimization.
 //
+// Entries (a runtime argument): the tick; the reset (fresh episodes only);
+// the step alone (JAX's quad.step on B envs in lockstep, in place: the goal
+// read from the state's env.goal, no trajectory, no cap/solved override, no
+// fresh episode; only the fields quad.step changes are written).
+//
 // Numerics: built with -fmad=false and without fast math, so every
 // expression rounds where the plain twin rounds; the association order of
 // every sum follows the JAX code (mm3/mv3/dot3 fixed order).  Constants JAX
@@ -35,12 +44,15 @@
 //
 // Instances: Task<TASK> (decoupled, coupled) x integrator (euler, rk4,
 // dop853) x EXACT (the exact_so3 repair on every read of R, the stored R
-// left drifted; else one 2-iteration polar step a tick): 12.  The trajectory
-// mode is a runtime argument, uniform over the grid, so its switch does not
+// left drifted; else one 2-iteration polar step a tick): 12; and the quad
+// task x integrator with EXACT only (the Gym API forces exact_so3,
+// gym_api.py:56), which has the step entry only: 15.  The trajectory mode
+// is a runtime argument, uniform over the grid, so its switch does not
 // diverge.  What differs between the tasks (action map, obs, reward/done,
-// the output slots) sits in Task<TASK>; the dynamics, the trajectory
-// machine, the errors and integrals, the cap/solved override and the fresh
-// episode are one code path.
+// whether the step updates the integrals, the output slots) sits in
+// Task<TASK>; the dynamics, the trajectory machine, the errors and
+// integrals, the cap/solved override and the fresh episode are one code
+// path.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,6 +71,9 @@ constexpr float W_LIM = (float)(2.0 * PI_D);
 constexpr float EIX_LIM = 3.0f;
 constexpr float EIB1_LIM = 3.0f;
 constexpr float SAT = 1.0f;
+constexpr float EULER_LIM_DEG = 85.0f;
+// 180 / pi as quad.done_quad folds it in Python float64, rounded once
+constexpr float R2D = (float)(180.0 / PI_D);
 constexpr float MIN_FORCE = 0.5f;
 constexpr float IDLE_LO = (float)(-25.0 * PI_D / 180.0);
 constexpr float IDLE_HI = (float)(25.0 * PI_D / 180.0);
@@ -367,13 +382,48 @@ __device__ __forceinline__ float interp01(float r, float rmin, float slope) {
 }
 
 // ------------------------------------------------------------------ tasks
+// What quad.step reads of an env besides (x, v, R, W): the parameters
+// (forces_to_fM: this env's row-major 4x4 in the state buffer) and the goal.
+struct Params {
+  float m, J[3], scale, avrg, minf, maxf;
+  const float* f2fM;
+};
+
+struct GoalRef {
+  const float *xd, *vd, *b1d, *Wd;
+};
+
+// quad._f_total: the thrust channel of both wrappers.
+__device__ __forceinline__ float f_total(const Params& P, float a0) {
+  return clampf(4.0f * (P.scale * a0 + P.avrg), 4.0f * P.minf, 4.0f * P.maxf);
+}
+
 // Per task: agents, action width, the obs (all agents' obs concatenated,
-// NOBS floats) and the output slots (generated from kernels/env_tick.py OUT).
+// NOBS floats), the output slots (generated from kernels/env_tick.py OUT),
+// whether the batched tick exists (BATCHED) and whether the step updates the
+// integrals (INTEGRALS); action() maps the action to (f, M) and observe()
+// makes the obs, reward, done and info from the stepped state.
 template <int TASK>
 struct Task;
 
+// The wrappers' obs, reward and done from the normalized errors, and their
+// info (the de-normalized position and yaw errors of the float32 obs).
+template <int TASK>
+__device__ __forceinline__ void observe_wrapper(const Coefs& c, const NormOut& n,
+                                                const float* Rr, float* obs,
+                                                float* rew, bool* d, float* ex,
+                                                float& eb1) {
+  using T = Task<TASK>;
+  T::build_obs(n, Rr, obs);
+  T::reward_done(c, obs, rew, d);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) ex[k] = obs[k] * X_LIM;
+  eb1 = obs[T::EB1_OBS] * PI_F;
+}
+
 template <>
 struct Task<TASK_DECOUPLED> {
+  static constexpr bool BATCHED = true, INTEGRALS = true;
   static constexpr int NA = 2, NACT = 5, NOBS = 18, EB1_OBS = 15;
   static constexpr int W1 = WOF_DECOUPLED_OBS1, W2 = WOF_DECOUPLED_OBS2;
   static constexpr int OBS1 = OF_DECOUPLED_OBS1, OBS2 = OF_DECOUPLED_OBS2;
@@ -386,13 +436,20 @@ struct Task<TASK_DECOUPLED> {
                 "decoupled output layout");
 
   // action_decoupled and the virtual moments (quad.py:309-316)
-  __device__ static void wrench(const float* act, const float* R, const float* W,
-                                const float* J, float* M) {
+  __device__ static void action(const Params& P, const float* act, const float* R,
+                                const float* W, float& f, float* M) {
     const float b1[3] = {R[0], R[3], R[6]};
     const float b2[3] = {R[1], R[4], R[7]};
-    M[0] = dot3(b1, act + 1) + J[2] * W[2] * W[1];
-    M[1] = dot3(b2, act + 1) - J[2] * W[2] * W[0];
+    f = f_total(P, act[0]);
+    M[0] = dot3(b1, act + 1) + P.J[2] * W[2] * W[1];
+    M[1] = dot3(b2, act + 1) - P.J[2] * W[2] * W[0];
     M[2] = act[4];
+  }
+
+  __device__ static void observe(const Coefs& c, const float*, const float* Rr,
+                                 const GoalRef&, const NormOut& n, float* obs,
+                                 float* rew, bool* d, float* ex, float& eb1) {
+    observe_wrapper<TASK_DECOUPLED>(c, n, Rr, obs, rew, d, ex, eb1);
   }
 
   // build_obs, MODUL: obs1 (15) then obs2 (3)
@@ -438,6 +495,7 @@ struct Task<TASK_DECOUPLED> {
 
 template <>
 struct Task<TASK_COUPLED> {
+  static constexpr bool BATCHED = true, INTEGRALS = true;
   static constexpr int NA = 1, NACT = 4, NOBS = 23, EB1_OBS = 18;
   static constexpr int W1 = WOF_COUPLED_OBS1, W2 = 0;
   static constexpr int OBS1 = OF_COUPLED_OBS1, OBS2 = 0;
@@ -450,11 +508,18 @@ struct Task<TASK_COUPLED> {
                 "coupled output layout");
 
   // action_coupled: the moments are the action (quad.py:91-93)
-  __device__ static void wrench(const float* act, const float*, const float*,
-                                const float*, float* M) {
+  __device__ static void action(const Params& P, const float* act, const float*,
+                                const float*, float& f, float* M) {
+    f = f_total(P, act[0]);
     M[0] = act[1];
     M[1] = act[2];
     M[2] = act[3];
+  }
+
+  __device__ static void observe(const Coefs& c, const float*, const float* Rr,
+                                 const GoalRef&, const NormOut& n, float* obs,
+                                 float* rew, bool* d, float* ex, float& eb1) {
+    observe_wrapper<TASK_COUPLED>(c, n, Rr, obs, rew, d, ex, eb1);
   }
 
   // build_obs, MONO: ex, eIx, ev, R column-major, eb1, eIb1, eW
@@ -493,6 +558,110 @@ struct Task<TASK_COUPLED> {
   }
 };
 
+// so3.heading_b1's angle: the body x-axis's heading.
+__device__ __forceinline__ float heading_angle(const float* R) {
+  return atan2f(R[3], R[0]);
+}
+
+__device__ __forceinline__ void heading_of(const float* R, float* h) {
+  const float th = heading_angle(R);
+  h[0] = cosf(th);
+  h[1] = sinf(th);
+  h[2] = 0.0f;
+}
+
+// so3.norm_ang_btw_two_vectors: the signed angle over pi; the norms as
+// sqrt of the fixed-order dot; sign 0 keeps the angle positive.
+__device__ __forceinline__ float norm_ang(const float* desired, const float* current) {
+  const float nd = sqrtf(dot3(desired, desired));
+  const float nc = sqrtf(dot3(current, current));
+  const float du[3] = {desired[0] / nd, desired[1] / nd, desired[2] / nd};
+  const float cu[3] = {current[0] / nc, current[1] / nc, current[2] / nc};
+  float ang = acosf(clampf(dot3(du, cu), -1.0f, 1.0f));
+  if (du[0] * cu[1] - du[1] * cu[0] < 0.0f) ang = -ang;
+  return ang / PI_F;
+}
+
+// quad.done_quad: the limits on x, v, W, and roll or pitch (so3.rot_to_euler,
+// the singular branch as a select) at EULER_LIM_DEG or more.
+__device__ __forceinline__ bool done_quad(const float* y, const float* R) {
+  bool dd = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    dd = dd || fabsf(y[k]) >= X_LIM || fabsf(y[3 + k]) >= V_LIM ||
+         fabsf(y[15 + k]) >= W_LIM;
+  const float sy = sqrtf(R[0] * R[0] + R[3] * R[3]);
+  const bool singular = sy < (float)1e-6;
+  const float roll = singular ? atan2f(-R[5], R[4]) : atan2f(R[7], R[8]);
+  const float pitch = atan2f(-R[6], sy);
+  return dd || fabsf(roll * R2D) >= EULER_LIM_DEG || fabsf(pitch * R2D) >= EULER_LIM_DEG;
+}
+
+// The base env (quad.py:68-80, 234-245, 270-284, 341-354): per-motor thrusts;
+// the obs is the stepped state as stored, reward and done come from the raw
+// errors with R as read; the integrals are left alone.  Step entry only.
+template <>
+struct Task<TASK_QUAD> {
+  static constexpr bool BATCHED = false, INTEGRALS = false;
+  static constexpr int NA = 1, NACT = 4, NOBS = 18;
+  static constexpr int W1 = WOF_QUAD_OBS1, W2 = 0;
+  static constexpr int OBS1 = OF_QUAD_OBS1, OBS2 = 0;
+  static constexpr int REWARD = OF_QUAD_REWARD, EX = OF_QUAD_EX, EB1 = OF_QUAD_EB1;
+  static constexpr int DONE = OB_QUAD_DONE;
+  static_assert(W1 == NOBS && WOF_QUAD_REWARD == NA && WOB_QUAD_DONE == NA,
+                "quad output layout");
+
+  // action_quad: forces clipped per motor, then forces_to_fM as the
+  // fixed-order (F0 f0 + F1 f1) + (F2 f2 + F3 f3)
+  __device__ static void action(const Params& P, const float* act, const float*,
+                                const float*, float& f, float* M) {
+    float fr[4], fM[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) fr[k] = clampf(P.scale * act[k] + P.avrg, P.minf, P.maxf);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* F = P.f2fM + 4 * r;
+      fM[r] = (F[0] * fr[0] + F[1] * fr[1]) + (F[2] * fr[2] + F[3] * fr[3]);
+    }
+    f = fM[0];
+    M[0] = fM[1];
+    M[1] = fM[2];
+    M[2] = fM[3];
+  }
+
+  // pack_state of the stored state (R column-major); reward_quad, done_quad,
+  // _interp01(reward_min) and the crash override; info ex = x - xd, eb1 = 0
+  __device__ static void observe(const Coefs& c, const float* y, const float* Rr,
+                                 const GoalRef& g, const NormOut&, float* obs,
+                                 float* rew, bool* d, float* ex, float& eb1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      obs[k] = y[k];
+      obs[3 + k] = y[3 + k];
+      obs[15 + k] = y[15 + k];
+    }
+#pragma unroll
+    for (int col = 0; col < 3; ++col)
+#pragma unroll
+      for (int row = 0; row < 3; ++row) obs[6 + 3 * col + row] = y[6 + 3 * row + col];
+    float eV[3], h[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      ex[k] = y[k] - g.xd[k];
+      eV[k] = y[3 + k] - g.vd[k];
+    }
+    heading_of(Rr, h);
+    const float eb1q = norm_ang(g.b1d, h);
+    float r = -c.Cx * sqnorm(ex);
+    r = r + -c.Cb1 * fabsf(eb1q);
+    r = r + -c.Cv * sqnorm(eV);
+    r = r + -c.Cw12 * sqnorm(y + 15);
+    d[0] = done_quad(y, Rr);
+    rew[0] = d[0] ? -1.0f : interp01(r, c.rmin, c.slope);
+    eb1 = 0.0f;
+  }
+};
+
 // All agents' obs (NOBS floats) into the slots' (B, W1) and (B, W2) blocks.
 template <int TASK>
 __device__ __forceinline__ void write_obs(float* __restrict__ outf, int B, int i,
@@ -506,17 +675,6 @@ __device__ __forceinline__ void write_obs(float* __restrict__ outf, int B, int i
 }
 
 // ----------------------------------------------------------- trajectory
-__device__ __forceinline__ float heading_angle(const float* R) {
-  return atan2f(R[3], R[0]);
-}
-
-__device__ __forceinline__ void heading_of(const float* R, float* h) {
-  const float th = heading_angle(R);
-  h[0] = cosf(th);
-  h[1] = sinf(th);
-  h[2] = 0.0f;
-}
-
 // _with_wd: z-component of the commanded angular velocity.
 __device__ __forceinline__ float omega_c3(const float* R, const float* W,
                                           const float* b1d, const float* b1d_dot) {
@@ -988,21 +1146,128 @@ __device__ void fresh_episode(const Args& a, int i, const float* u) {
   write_obs<TASK>(a.outf, B, i, Task<TASK>::OBS1, Task<TASK>::OBS2, obs);
 }
 
-template <int TASK, int INTEG, bool EXACT>
-__global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
-  using T = Task<TASK>;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// The parameters quad.step reads.  No __restrict__ from here to
+// store_stepped: the step entry reads and writes one buffer set in place.
+__device__ __forceinline__ void load_params(const Args& a, int i, Params& P) {
   const int B = a.B;
-  if (i >= B) return;
-  const float* u = a.draws + (size_t)i * N_DRAWS;
-  if (reset_only) {
-    fresh_episode<TASK, EXACT>(a, i, u);
-    return;
+  const float* sf = a.sf;
+  P.m = sf[FIDX(ENV_PARAMS_M, 0)];
+  LOADF(P.J, ENV_PARAMS_J);
+  P.scale = sf[FIDX(ENV_PARAMS_SCALE_ACT, 0)];
+  P.avrg = sf[FIDX(ENV_PARAMS_AVRG_ACT, 0)];
+  P.minf = sf[FIDX(ENV_PARAMS_MIN_FORCE, 0)];
+  P.maxf = sf[FIDX(ENV_PARAMS_MAX_FORCE, 0)];
+  P.f2fM = sf + FIDX(ENV_PARAMS_FORCES_TO_FM, 0);
+}
+
+// What one quad.step produces for an env besides the stepped (x, v, R, W).
+template <int TASK>
+struct StepOut {
+  float f, M[3];
+  NormOut n;  // the errors and the updated integrals (Task<TASK>::INTEGRALS)
+  float obs[Task<TASK>::NOBS], rew[Task<TASK>::NA], ex[3], eb1;
+  bool d[Task<TASK>::NA];
+};
+
+// quad.step on env i with goal g: R as read, the action map, the dynamics
+// and the attitude step, then the errors (and integrals), obs, reward, done
+// and info.  y = (x, v, R, W) as stored on entry, stepped on return.
+template <int TASK, int INTEG, bool EXACT>
+__device__ __forceinline__ void step_env(const Args& a, int i, float* y,
+                                         const GoalRef& g, StepOut<TASK>& o) {
+  using T = Task<TASK>;
+  const int B = a.B;
+  const float* sf = a.sf;
+  {
+    float Rs[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) Rs[k] = y[6 + k];
+    read_R<EXACT>(Rs, y + 6);
   }
-  const float* __restrict__ sf = a.sf;
-  float* __restrict__ of = a.of;
+  float act[T::NACT];
+#pragma unroll
+  for (int k = 0; k < T::NACT; ++k) act[k] = a.act[(size_t)i * T::NACT + k];
+  Params P;
+  load_params(a, i, P);
+  T::action(P, act, y + 6, y + 15, o.f, o.M);
+  integrate<INTEG>(y, o.f, o.M, P.m, P.J);
+  // the stored R: one polar step, or left drifted under EXACT
+  if constexpr (!EXACT) polar_fast<2>(y + 6);
+  float Rr[9];
+  read_R<EXACT>(y + 6, Rr);
+  if constexpr (T::INTEGRALS) {
+    float eIx[3], eIx_int[3];
+    LOADF(eIx, ENV_EIX);
+    LOADF(eIx_int, ENV_EIX_INTEGRAND);
+    norm_error(a.c, y, y + 3, Rr, y + 15, g.xd, g.vd, g.b1d, g.Wd, eIx, eIx_int,
+               sf[FIDX(ENV_EIB1, 0)], sf[FIDX(ENV_EIB1_INTEGRAND, 0)], o.n);
+  }
+  T::observe(a.c, y, Rr, g, o.n, o.obs, o.rew, o.d, o.ex, o.eb1);
+}
+
+// What quad.step changes: the stepped (x, v, R, W), the integrals (where
+// the task updates them), the wrench and t + 1.
+template <int TASK>
+__device__ __forceinline__ void store_stepped(const Args& a, int i, const float* y,
+                                              const StepOut<TASK>& o) {
+  const int B = a.B;
+  float* of = a.of;
+  STOREF(ENV_X, y);
+  STOREF(ENV_V, y + 3);
+  STOREF(ENV_R, y + 6);
+  STOREF(ENV_W, y + 15);
+  if constexpr (Task<TASK>::INTEGRALS) {
+    STOREF(ENV_EIX, o.n.eIx_err);
+    STOREF(ENV_EIX_INTEGRAND, o.n.eIx_cur);
+    STORE1(ENV_EIB1, o.n.eIb1_err);
+    STORE1(ENV_EIB1_INTEGRAND, o.n.eIb1_cur);
+  }
+  STORE1(ENV_F_TOTAL, o.f);
+  STOREF(ENV_M, o.M);
+  a.oi[IIDX(ENV_T)] = a.si[IIDX(ENV_T)] + 1;
+}
+
+// The step entry, in place (of == sf, oi == si; the bool buffers unused):
+// quad.step against the stored goal, writing only what it changes; obs,
+// reward, done and info into the output slots.  Reads and writes the env
+// fields only, so the buffers may hold just them (env_tick.py pack_env).
+template <int TASK, int INTEG, bool EXACT>
+__device__ void step_only(const Args& a, int i) {
+  using T = Task<TASK>;
+  const int B = a.B;
+  const float* sf = a.sf;
   float* __restrict__ outf = a.outf;
-  const Coefs& c = a.c;
+  float y[18], xd[3], vd[3], b1d[3], Wd[3];
+  LOADF(y, ENV_X);
+  LOADF(y + 3, ENV_V);
+  LOADF(y + 6, ENV_R);
+  LOADF(y + 15, ENV_W);
+  LOADF(xd, ENV_GOAL_XD);
+  LOADF(vd, ENV_GOAL_VD);
+  LOADF(b1d, ENV_GOAL_B1D);
+  LOADF(Wd, ENV_GOAL_WD);
+  StepOut<TASK> o;
+  step_env<TASK, INTEG, EXACT>(a, i, y, GoalRef{xd, vd, b1d, Wd}, o);
+#pragma unroll
+  for (int k = 0; k < T::NA; ++k) {
+    outf[(size_t)T::REWARD * B + (size_t)i * T::NA + k] = o.rew[k];
+    a.outb[(size_t)T::DONE * B + (size_t)i * T::NA + k] = o.d[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) outf[(size_t)T::EX * B + (size_t)i * 3 + k] = o.ex[k];
+  outf[(size_t)T::EB1 * B + i] = o.eb1;
+  write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, o.obs);
+  store_stepped<TASK>(a, i, y, o);
+}
+
+// The tick entry: get_desired, quad.step, the cap/solved override, and the
+// fresh episode where the episode ended.
+template <int TASK, int INTEG, bool EXACT>
+__device__ void tick(const Args& a, int i, const float* u) {
+  using T = Task<TASK>;
+  const int B = a.B;
+  const float* __restrict__ sf = a.sf;
+  float* __restrict__ outf = a.outf;
 
   // ---- trajectory.get_desired on the stored state
   float y[18];
@@ -1015,72 +1280,34 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   get_desired(s, y, y + 3, y + 6, y + 15, a.mode,
               TrajU{u[D_THETA], u[D_HOVER_T], u[D_HOVER_W]});
 
-  // ---- quad.step: R as read, action map, then the dynamics from it
-  {
-    float Rs[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) Rs[k] = y[6 + k];
-    read_R<EXACT>(Rs, y + 6);
-  }
-  float act[T::NACT];
-#pragma unroll
-  for (int k = 0; k < T::NACT; ++k) act[k] = a.act[(size_t)i * T::NACT + k];
-  const float m = sf[FIDX(ENV_PARAMS_M, 0)];
-  float J[3];
-  LOADF(J, ENV_PARAMS_J);
-  const float scale = sf[FIDX(ENV_PARAMS_SCALE_ACT, 0)];
-  const float avrg = sf[FIDX(ENV_PARAMS_AVRG_ACT, 0)];
-  const float minf = sf[FIDX(ENV_PARAMS_MIN_FORCE, 0)];
-  const float maxf = sf[FIDX(ENV_PARAMS_MAX_FORCE, 0)];
-  const float f = clampf(4.0f * (scale * act[0] + avrg), 4.0f * minf, 4.0f * maxf);
-  float M[3];
-  T::wrench(act, y + 6, y + 15, J, M);
-  integrate<INTEG>(y, f, M, m, J);
-  // the stored R: one polar step, or left drifted under EXACT
-  if constexpr (!EXACT) polar_fast<2>(y + 6);
-  float Rr[9];
-  read_R<EXACT>(y + 6, Rr);
-
-  float eIx[3], eIx_int[3];
-  LOADF(eIx, ENV_EIX);
-  LOADF(eIx_int, ENV_EIX_INTEGRAND);
-  NormOut n;
-  norm_error(c, y, y + 3, Rr, y + 15, s.xd, s.vd, s.b1d, s.Wd, eIx, eIx_int,
-             sf[FIDX(ENV_EIB1, 0)], sf[FIDX(ENV_EIB1_INTEGRAND, 0)], n);
-
-  // obs, then reward / done from the float32 obs
-  float obs[T::NOBS];
-  T::build_obs(n, Rr, obs);
-  float rew[T::NA];
-  bool d[T::NA];
-  T::reward_done(c, obs, rew, d);
-  const float ex_info[3] = {obs[0] * X_LIM, obs[1] * X_LIM, obs[2] * X_LIM};
-  const float eb1_info = obs[T::EB1_OBS] * PI_F;
+  // ---- quad.step against the machine's goal
+  StepOut<TASK> o;
+  step_env<TASK, INTEG, EXACT>(a, i, y, GoalRef{s.xd, s.vd, s.b1d, s.Wd}, o);
 
   // ---- batch: cap/solved override (MODUL: position for agent 0, yaw for
   // agent 1; MONO: position only)
   const int t_new = a.si[IIDX(ENV_T)] + 1;
   const bool at_cap = t_new >= a.max_steps;
   const float tol = (float)0.03;
-  const bool solved_pos = fabsf(ex_info[0]) <= tol && fabsf(ex_info[1]) <= tol &&
-                          fabsf(ex_info[2]) <= tol;
-  const bool solved_yaw = fabsf(eb1_info) <= tol;
+  const bool solved_pos = fabsf(o.ex[0]) <= tol && fabsf(o.ex[1]) <= tol &&
+                          fabsf(o.ex[2]) <= tol;
+  const bool solved_yaw = fabsf(o.eb1) <= tol;
   bool over = at_cap;
 #pragma unroll
-  for (int k = 0; k < T::NA; ++k) over = over || d[k];
+  for (int k = 0; k < T::NA; ++k) over = over || o.d[k];
 
   bool* __restrict__ outb = a.outb;
 #pragma unroll
   for (int k = 0; k < T::NA; ++k) {
-    const bool solved = (k == 0 ? solved_pos : solved_yaw) && (rew[k] != -1.0f);
-    outf[(size_t)T::REWARD * B + (size_t)i * T::NA + k] = rew[k];
-    outb[(size_t)T::DONE * B + (size_t)i * T::NA + k] = at_cap ? solved : d[k];
-    outb[(size_t)T::CRASHED * B + (size_t)i * T::NA + k] = d[k];
+    const bool solved = (k == 0 ? solved_pos : solved_yaw) && (o.rew[k] != -1.0f);
+    outf[(size_t)T::REWARD * B + (size_t)i * T::NA + k] = o.rew[k];
+    outb[(size_t)T::DONE * B + (size_t)i * T::NA + k] = at_cap ? solved : o.d[k];
+    outb[(size_t)T::CRASHED * B + (size_t)i * T::NA + k] = o.d[k];
   }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) outf[(size_t)T::EX * B + (size_t)i * 3 + k] = ex_info[k];
-  outf[(size_t)T::EB1 * B + i] = eb1_info;
-  write_obs<TASK>(outf, B, i, T::TERM1, T::TERM2, obs);
+  for (int k = 0; k < 3; ++k) outf[(size_t)T::EX * B + (size_t)i * 3 + k] = o.ex[k];
+  outf[(size_t)T::EB1 * B + i] = o.eb1;
+  write_obs<TASK>(outf, B, i, T::TERM1, T::TERM2, o.obs);
   outb[(size_t)T::RESET * B + i] = over;
 
   if (over) {
@@ -1089,16 +1316,8 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   }
 
   // ---- stepped state (episode continues)
-  STOREF(ENV_X, y);
-  STOREF(ENV_V, y + 3);
-  STOREF(ENV_R, y + 6);
-  STOREF(ENV_W, y + 15);
-  STOREF(ENV_EIX, n.eIx_err);
-  STOREF(ENV_EIX_INTEGRAND, n.eIx_cur);
-  STORE1(ENV_EIB1, n.eIb1_err);
-  STORE1(ENV_EIB1_INTEGRAND, n.eIb1_cur);
-  STORE1(ENV_F_TOTAL, f);
-  STOREF(ENV_M, M);
+  float* __restrict__ of = a.of;
+  store_stepped<TASK>(a, i, y, o);
   COPYF(ENV_PARAMS_M);
   COPYF(ENV_PARAMS_D);
   COPYF(ENV_PARAMS_J);
@@ -1111,29 +1330,55 @@ __global__ void __launch_bounds__(128) env_tick_kernel(Args a, int reset_only) {
   COPYF(ENV_PARAMS_SCALE_ACT);
   COPYF(ENV_PARAMS_FORCES_TO_FM);
   COPYF(ENV_PARAMS_FM_TO_FORCES);
-  a.oi[IIDX(ENV_T)] = t_new;
   store_traj(a, i, s);
-  write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, obs);
+  write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, o.obs);
 }
 
 template <int TASK, int INTEG, bool EXACT>
-cudaError_t launch(const Args& a, int reset_only, cudaStream_t stream) {
+__global__ void __launch_bounds__(128) env_tick_kernel(Args a, int entry) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  if (entry == ENTRY_STEP) {
+    step_only<TASK, INTEG, EXACT>(a, i);
+    return;
+  }
+  if constexpr (Task<TASK>::BATCHED) {
+    const float* u = a.draws + (size_t)i * N_DRAWS;
+    if (entry == ENTRY_RESET)
+      fresh_episode<TASK, EXACT>(a, i, u);
+    else
+      tick<TASK, INTEG, EXACT>(a, i, u);
+  }
+}
+
+template <int TASK, int INTEG, bool EXACT>
+cudaError_t launch(const Args& a, int entry, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.B + threads - 1) / threads;
-  env_tick_kernel<TASK, INTEG, EXACT><<<blocks, threads, 0, stream>>>(a, reset_only);
+  env_tick_kernel<TASK, INTEG, EXACT><<<blocks, threads, 0, stream>>>(a, entry);
   return cudaGetLastError();
 }
 
+// The instances: every (integrator, exact) of a batched task; a task with
+// the step entry only (quad) has its EXACT instances only.
+template <int TASK, int INTEG>
+cudaError_t launch_integ(const Args& a, int entry, int exact, cudaStream_t stream) {
+  if (exact) return launch<TASK, INTEG, true>(a, entry, stream);
+  if constexpr (Task<TASK>::BATCHED) {
+    return launch<TASK, INTEG, false>(a, entry, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <int TASK>
-cudaError_t launch_task(const Args& a, int reset_only, int integrator, int exact,
+cudaError_t launch_task(const Args& a, int entry, int integrator, int exact,
                         cudaStream_t stream) {
-  switch (integrator * 2 + (exact ? 1 : 0)) {
-    case INTEGRATOR_EULER * 2: return launch<TASK, INTEGRATOR_EULER, false>(a, reset_only, stream);
-    case INTEGRATOR_EULER * 2 + 1: return launch<TASK, INTEGRATOR_EULER, true>(a, reset_only, stream);
-    case INTEGRATOR_RK4 * 2: return launch<TASK, INTEGRATOR_RK4, false>(a, reset_only, stream);
-    case INTEGRATOR_RK4 * 2 + 1: return launch<TASK, INTEGRATOR_RK4, true>(a, reset_only, stream);
-    case INTEGRATOR_DOP853 * 2: return launch<TASK, INTEGRATOR_DOP853, false>(a, reset_only, stream);
-    case INTEGRATOR_DOP853 * 2 + 1: return launch<TASK, INTEGRATOR_DOP853, true>(a, reset_only, stream);
+  if (!Task<TASK>::BATCHED && entry != ENTRY_STEP) return cudaErrorInvalidValue;
+  switch (integrator) {
+    case INTEGRATOR_EULER: return launch_integ<TASK, INTEGRATOR_EULER>(a, entry, exact, stream);
+    case INTEGRATOR_RK4: return launch_integ<TASK, INTEGRATOR_RK4>(a, entry, exact, stream);
+    case INTEGRATOR_DOP853: return launch_integ<TASK, INTEGRATOR_DOP853>(a, entry, exact, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1147,7 +1392,7 @@ extern "C" const char* kernel_error_string(int err) {
 extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
                                void* of, void* oi, void* ob, const void* act,
                                const void* draws, void* outf, void* outb, int B,
-                               int reset_only, int task, int integrator,
+                               int entry, int task, int integrator,
                                int exact_so3, int mode, int env_type,
                                int max_steps, int use_udm, const float* coefs,
                                void* stream) {
@@ -1173,8 +1418,10 @@ extern "C" int env_tick_launch(const void* sf, const void* si, const void* sb,
               coefs[12], coefs[13], coefs[14], coefs[15], coefs[16]};
   cudaStream_t st = (cudaStream_t)stream;
   if (task == TASK_DECOUPLED)
-    return (int)launch_task<TASK_DECOUPLED>(a, reset_only, integrator, exact_so3, st);
+    return (int)launch_task<TASK_DECOUPLED>(a, entry, integrator, exact_so3, st);
   if (task == TASK_COUPLED)
-    return (int)launch_task<TASK_COUPLED>(a, reset_only, integrator, exact_so3, st);
+    return (int)launch_task<TASK_COUPLED>(a, entry, integrator, exact_so3, st);
+  if (task == TASK_QUAD)
+    return (int)launch_task<TASK_QUAD>(a, entry, integrator, exact_so3, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,13 @@
 Replaces ``gym_rotor_tpu/envs/batch.py:batched_step`` (with
 ``trajectory.get_desired``, ``quad.step``, ``dynamics.{euler,rk4,dop853}_step``,
 ``so3.polar_fast`` or ``so3.ensure_so3_exact`` and ``quad.reset_state``
-inlined), which XLA fused into one program on the TPU.  Kernel:
-``csrc/env_tick.cu``.  Plain twin: ``envs/batch.py:batched_step_plain``
-(re-exported here as ``env_tick_plain``), which is what runs on CPU tensors.
+inlined), which XLA fused into one program on the TPU, and the Gym API's
+jitted single-env ``quad.step`` (``gym_rotor_tpu/envs/gym_api.py:74``).
+Kernel: ``csrc/env_tick.cu``, three entries: the tick (``env_tick``), the
+reset (``env_reset``) and the step alone (``env_step``).  Plain twins:
+``envs/batch.py:batched_step_plain`` (re-exported here as
+``env_tick_plain``), ``batched_reset_plain`` and ``env_step_plain``, which
+are what runs on CPU tensors.
 
 What bounds it on an H100: per env a tick reads and writes ~0.5 KB of state
 and does a few thousand dependent flops (DOP853: 12 evaluations of the
@@ -19,20 +23,25 @@ is a contiguous ``(B, w)`` block, and the fresh-episode chain run only by
 the threads whose episode ended (the JAX tick computes it densely for every
 env only to keep XLA's fusion whole).
 
-Twelve instances of the kernel are built: the MODUL ``decoupled`` and the
+Fifteen instances of the kernel are built: the MODUL ``decoupled`` and the
 MONO ``coupled`` task (``quad.py:91-93, 178-184, 206-216, 247-255``), each
 with the Euler, RK4 and DOP853 integrators, each with and without
-``exact_so3``; the trajectory mode (``cfg.train_traj_mode``, any int) is a
-runtime argument.  On the card the state lives in three flat buffers
+``exact_so3``; and the base ``quad`` task (``quad.py:68-80, 234-284``),
+which only the Gym API selects, with each integrator under ``exact_so3``
+(``QuadEnv`` forces it) and the step entry only.  The trajectory mode
+(``cfg.train_traj_mode``, any int) and the entry are runtime arguments.  On the card the state lives in three flat buffers
 (float32, int32, bool), the same for every instance; the tick's outputs in
 two more (float32, bool) whose slots differ per task (``OUT``).  The
 offsets of both, the draw slots and DOP853's tableau are written into
 ``env_tick_layout.h`` at build time from the Python side, so the two
-sides cannot disagree.  The kernel reads
-one set of buffers and writes another: ``env_tick`` stays functional, as in
-JAX (it packs a copy of the state and returns views of new buffers), and
-``TickLoop``, which the rollouts use, carries two buffer sets from tick to
-tick and makes the ``BatchedEnvState`` view only on demand.
+sides cannot disagree.  The tick and
+the reset read one set of buffers and write another: ``env_tick`` stays
+functional, as in JAX (it packs a copy of the state and returns views of
+new buffers), and ``TickLoop``, which the rollouts use, carries two buffer
+sets from tick to tick and makes the ``BatchedEnvState`` view only on
+demand.  The step entry updates one set in place and touches the env's
+fields only, a prefix of the float and the int buffer (``pack_env``): the
+Gym API keeps one env so, without a trajectory machine.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..envs import draws as D
+from ..envs import quad as quad_lib
 from ..envs import trajectory as traj_lib
 from ..envs.batch import (BatchedEnvState, BatchedStepOut,
                           batched_reset_plain, batched_step_plain)
@@ -54,12 +64,19 @@ from .build import KernelSource, check
 
 env_tick_plain = batched_step_plain
 
-TASKS = {"decoupled": 0, "coupled": 1}
+TASKS = {"decoupled": 0, "coupled": 1, "quad": 2}
+# the tasks the batched tick and reset serve (the others: the step entry)
+BATCHED_TASKS = ("decoupled", "coupled")
 INTEGRATORS = {"euler": 0, "rk4": 1, "dop853": 2}
 ENV_TYPES = {"train": 0, "eval": 1}
-# Per task, the tick's output slots (name, per-env width) in the float and
-# the bool output buffer: the agents' obs and terminal obs, one reward,
-# done and crash flag per agent.
+ENTRIES = {"tick": 0, "reset": 1, "step": 2}
+ACT_DIM = {"decoupled": 5, "coupled": 4, "quad": 4}
+N_AGENTS = {"decoupled": 2, "coupled": 1, "quad": 1}
+# Per task, the output slots (name, per-env width) in the float and the bool
+# output buffer: the agents' obs and terminal obs, one reward, done and
+# crash flag per agent.  The step entry writes STEP_SLOTS only, a prefix of
+# each buffer.
+STEP_SLOTS = ("obs1", "obs2", "reward", "ex", "eb1", "done")
 OUT = {
     "decoupled": {"F": (("obs1", 15), ("obs2", 3), ("reward", 2), ("ex", 3),
                         ("eb1", 1), ("term_obs1", 15), ("term_obs2", 3)),
@@ -67,6 +84,8 @@ OUT = {
     "coupled": {"F": (("obs1", 23), ("reward", 1), ("ex", 3), ("eb1", 1),
                       ("term_obs1", 23)),
                 "B": (("done", 1), ("reset", 1), ("crashed", 1))},
+    "quad": {"F": (("obs1", 18), ("reward", 1), ("ex", 3), ("eb1", 1)),
+             "B": (("done", 1),)},
 }
 _KINDS = ((torch.float32, "F"), (torch.int32, "I"), (torch.bool, "B"))
 
@@ -137,6 +156,7 @@ def layout_header() -> Dict[str, str]:
     lines += [f"#define INTEGRATOR_{k.upper()} {v}"
               for k, v in INTEGRATORS.items()]
     lines += [f"#define ENV_{k.upper()} {v}" for k, v in ENV_TYPES.items()]
+    lines += [f"#define ENTRY_{k.upper()} {v}" for k, v in ENTRIES.items()]
     return {"env_tick_layout.h": "\n".join(lines) + "\n"}
 
 
@@ -160,7 +180,7 @@ def _dop853_macros() -> List[str]:
 
 
 KERNEL = KernelSource("env_tick", ["-fmad=false"], layout_header)
-WRAPPERS = {"env_tick": "env_tick_plain"}
+WRAPPERS = {"env_tick": "env_tick_plain", "env_step": "env_step_plain"}
 
 
 def _lib():
@@ -206,17 +226,68 @@ def pack_state(st: BatchedEnvState):
     return tuple(bufs)
 
 
-def out_width(task: str, kind: str) -> int:
+def _env_fields():
+    """The ``env.`` fields of ``layout()`` per buffer dtype: a prefix of
+    the float and the int buffer; the env has no bool field."""
+    lay = layout()
+    out = {dt: [f for f in lay[dt] if f[0].startswith("env.")]
+           for dt, _ in _KINDS}
+    for dt, _ in _KINDS:
+        assert lay[dt][:len(out[dt])] == out[dt], dt
+    assert not out[torch.bool]
+    return out
+
+
+def pack_env(env) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A packed copy of a batched ``EnvState``: its float32 and int32
+    buffers, laid out as the env prefix of ``pack_state``'s."""
+    named = {f"env.{p}": t for p, t in tree_named_leaves(env)}
+    B = env.x.shape[0]
+    bufs = []
+    for dt, fields in list(_env_fields().items())[:2]:
+        for path, _, _, shape in fields:
+            leaf = named[path]
+            if leaf.dtype != dt or tuple(leaf.shape) != (B,) + shape:
+                raise ValueError(f"state field {path}: expected {dt} "
+                                 f"{(B,) + shape}, got {leaf.dtype} "
+                                 f"{tuple(leaf.shape)}")
+        bufs.append(torch.cat([named[p].reshape(-1) for p, *_ in fields]))
+    return tuple(bufs)
+
+
+def unpack_env(bufs, B: int):
+    """Views of ``pack_env``'s buffers as a batched ``EnvState``."""
+    leaves = {}
+    for buf, fields in zip(bufs, _env_fields().values()):
+        for path, off, width, shape in fields:
+            leaves[path[4:]] = buf[off * B:(off + width) * B].view((B,) + shape)
+    return tree_from_named(_template().env, leaves)
+
+
+def _slots(task: str, kind: str, step: bool):
+    """The (name, width) slots an entry writes: all of them, or for the step
+    entry the leading ``STEP_SLOTS``."""
+    slots = OUT[task][kind]
+    if not step:
+        return slots
+    n = 0
+    while n < len(slots) and slots[n][0] in STEP_SLOTS:
+        n += 1
+    assert all(name not in STEP_SLOTS for name, _ in slots[n:]), task
+    return slots[:n]
+
+
+def out_width(task: str, kind: str, step: bool = False) -> int:
     """Per-env scalars of ``task``'s float (``"F"``) or bool (``"B"``)
-    output buffer."""
-    return sum(w for _, w in OUT[task][kind])
+    output buffer (``step``: the step entry's prefix)."""
+    return sum(w for _, w in _slots(task, kind, step))
 
 
-def _out_views(task, outf, outb, B):
+def _out_views(task, outf, outb, B, step=False):
     views = {}
     for buf, kind in ((outf, "F"), (outb, "B")):
         off = 0
-        for name, w in OUT[task][kind]:
+        for name, w in _slots(task, kind, step):
             views[name] = buf[off * B:(off + w) * B].view(B, w)
             off += w
     return views
@@ -225,25 +296,30 @@ def _out_views(task, outf, outb, B):
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-def task_of(cfg: Config) -> str:
-    """The kernel's task for ``cfg``: ``"decoupled"`` (MODUL) or
-    ``"coupled"`` (MONO), with any integrator of ``INTEGRATORS``, any
-    trajectory mode and ``exact_so3`` on or off; raises for what no
-    instance covers (the base ``quad`` task is not ported)."""
-    task = {"MODUL": "decoupled", "MONO": "coupled"}.get(cfg.framework)
-    if task is None or cfg.integrator not in INTEGRATORS:
+def task_of(cfg: Config, task: str = None) -> str:
+    """The kernel's task for ``cfg``: ``task`` where given, else
+    ``"decoupled"`` (MODUL) or ``"coupled"`` (MONO); any integrator of
+    ``INTEGRATORS``, any trajectory mode, ``exact_so3`` on or off, except
+    that the base ``"quad"`` task has ``exact_so3`` instances only (the Gym
+    API forces it).  Raises for what no instance covers."""
+    if task is None:
+        task = {"MODUL": "decoupled", "MONO": "coupled"}.get(cfg.framework)
+    if task not in TASKS or cfg.integrator not in INTEGRATORS \
+            or (task not in BATCHED_TASKS and not cfg.exact_so3):
         raise NotImplementedError(
             "env_tick kernel is built for MODUL/decoupled and MONO/coupled "
-            f"with {', '.join(INTEGRATORS)} (the quad task is not ported); "
-            f"got framework={cfg.framework!r} integrator={cfg.integrator!r}")
+            f"with {', '.join(INTEGRATORS)} and for the quad task with those "
+            f"under exact_so3; got framework={cfg.framework!r} task="
+            f"{task!r} integrator={cfg.integrator!r} exact_so3="
+            f"{cfg.exact_so3}")
     return task
 
 
-def instance(cfg: Config) -> str:
-    """The name of the kernel instance ``cfg`` launches, e.g.
-    ``decoupled_rk4`` or ``coupled_dop853_exact``."""
-    return f"{task_of(cfg)}_{cfg.integrator}" + ("_exact" if cfg.exact_so3
-                                                  else "")
+def instance(cfg: Config, task: str = None) -> str:
+    """The name of the kernel instance ``cfg`` (and ``task``) launches,
+    e.g. ``decoupled_rk4`` or ``quad_dop853_exact``."""
+    return f"{task_of(cfg, task)}_{cfg.integrator}" + (
+        "_exact" if cfg.exact_so3 else "")
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,15 +352,18 @@ def empty_bufs(B: int, device):
                  for dt, _ in _KINDS)
 
 
-def _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs):
+def _launch(cfg, entry, task, in_bufs, actions, draws, env_type, B, device,
+            out_bufs):
+    """One launch of ``entry`` (``ENTRIES``) for ``task``'s instance; returns
+    views of the output slots it wrote."""
     if env_type not in ENV_TYPES:
         raise ValueError(f"unknown env_type {env_type!r}")
     if B == 0:
         raise ValueError("env_tick: no envs (B = 0)")
-    task = task_of(cfg)
-    outf = torch.empty(out_width(task, "F") * B, dtype=torch.float32,
+    step = entry == "step"
+    outf = torch.empty(out_width(task, "F", step) * B, dtype=torch.float32,
                        device=device)
-    outb = torch.empty(out_width(task, "B") * B, dtype=torch.bool,
+    outb = torch.empty(out_width(task, "B", step) * B, dtype=torch.bool,
                        device=device)
     lib = _lib()
 
@@ -294,19 +373,28 @@ def _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs):
     err = lib.env_tick_launch(
         *(ptr(t) for t in ins), *(ptr(t) for t in out_bufs),
         ptr(actions), ptr(draws), ptr(outf), ptr(outb),
-        B, int(in_bufs is None), TASKS[task],
+        B, ENTRIES[entry], TASKS[task],
         INTEGRATORS[cfg.integrator], int(cfg.exact_so3),
         int(cfg.train_traj_mode), ENV_TYPES[env_type], cfg.max_steps,
         int(cfg.use_UDM), _coefs(cfg),
         torch.cuda.current_stream(device).cuda_stream)
     check(err, lib, "env_tick")
-    env_tick.launches += 1
-    env_tick.by_instance[instance(cfg)] += 1
-    return _out_views(task, outf, outb, B)
+    counter = env_step if step else env_tick
+    counter.launches += 1
+    counter.by_instance[instance(cfg, task)] += 1
+    return _out_views(task, outf, outb, B, step)
 
 
 def _obs(o, n_agents, prefix="obs"):
     return tuple(o[f"{prefix}{a + 1}"] for a in range(n_agents))
+
+
+def _check_bufs(in_bufs, out_bufs, B, device):
+    lay = layout()
+    for name, bufs in (("state", in_bufs), ("next state", out_bufs)):
+        for (dt, _), buf in zip(_KINDS, bufs):
+            _check_cuda(f"{name} buffer", buf, dt, (_width(lay[dt]) * B,),
+                        device)
 
 
 def env_tick_bufs(cfg: Config, in_bufs, actions: torch.Tensor,
@@ -315,17 +403,13 @@ def env_tick_bufs(cfg: Config, in_bufs, actions: torch.Tensor,
     state into ``out_bufs`` (both from ``pack_state``/``empty_bufs``, for
     ``B = actions.shape[0]`` envs on the card) and returns the tick's
     ``BatchedStepOut``.  ``actions`` is ``(B, sum(cfg.action_dim_n))``."""
-    task_of(cfg)
+    task = task_of(cfg)
     B, device = actions.shape[0], actions.device
-    lay = layout()
-    for name, bufs in (("state", in_bufs), ("next state", out_bufs)):
-        for (dt, _), buf in zip(_KINDS, bufs):
-            _check_cuda(f"{name} buffer", buf, dt, (_width(lay[dt]) * B,),
-                        device)
-    _check_cuda("actions", actions, torch.float32,
-                (B, sum(cfg.action_dim_n)), device)
+    _check_bufs(in_bufs, out_bufs, B, device)
+    _check_cuda("actions", actions, torch.float32, (B, ACT_DIM[task]), device)
     _check_cuda("draws", draws, torch.float32, (B, D.N_DRAWS), device)
-    o = _launch(cfg, in_bufs, actions, draws, env_type, B, device, out_bufs)
+    o = _launch(cfg, "tick", task, in_bufs, actions, draws, env_type, B,
+                device, out_bufs)
     n = cfg.n_agents
     return BatchedStepOut(
         obs=_obs(o, n), reward=o["reward"], done=o["done"],
@@ -363,8 +447,51 @@ def env_reset(cfg: Config, draws: torch.Tensor, env_type: str = "train"):
     B = draws.shape[0]
     _check_cuda("draws", draws, torch.float32, (B, D.N_DRAWS), draws.device)
     out_bufs = empty_bufs(B, draws.device)
-    o = _launch(cfg, None, None, draws, env_type, B, draws.device, out_bufs)
+    o = _launch(cfg, "reset", task_of(cfg), None, None, draws, env_type, B,
+                draws.device, out_bufs)
     return unpack_state(out_bufs, B), _obs(o, cfg.n_agents)
+
+
+# Plain twin of the step entry: ``quad.step(cfg, env, actions, task)`` on a
+# batched ``EnvState``, every env against its stored goal (gym_api.py:74).
+env_step_plain = quad_lib.step
+
+
+def _step_out(o, task):
+    return quad_lib.StepOut(obs=_obs(o, N_AGENTS[task]), reward=o["reward"],
+                            done=o["done"],
+                            info={"ex": o["ex"], "eb1": o["eb1"][:, 0]})
+
+
+def env_step_bufs(cfg: Config, bufs, actions: torch.Tensor, task: str = None):
+    """One launch of K1's step entry on ``pack_env``'s buffers, in place:
+    ``quad.step`` for ``B = actions.shape[0]`` envs in lockstep; returns its
+    ``StepOut``.  ``actions`` is ``(B, 5)`` (decoupled) or ``(B, 4)``."""
+    task = task_of(cfg, task)
+    B, device = actions.shape[0], actions.device
+    for (dt, fields), buf in zip(_env_fields().items(), bufs):
+        _check_cuda("env buffer", buf, dt, (_width(fields) * B,), device)
+    _check_cuda("actions", actions, torch.float32, (B, ACT_DIM[task]), device)
+    bufs = (*bufs, None)
+    o = _launch(cfg, "step", task, bufs, actions, None, "train", B, device,
+                bufs)
+    return _step_out(o, task)
+
+
+def env_step(cfg: Config, env, actions: torch.Tensor, task: str = None):
+    """``quad.step`` alone for every env of the batched ``EnvState`` ``env``
+    (the Gym API's step; ``task`` as ``quad.step``'s).  CPU tensors ->
+    ``env_step_plain``; CUDA tensors -> one launch of K1's step entry
+    (float32 only) on a packed copy of the env, or an error."""
+    if not actions.is_cuda:
+        return env_step_plain(cfg, env, actions, task)
+    bufs = pack_env(env)
+    out = env_step_bufs(cfg, bufs, actions, task)
+    return unpack_env(bufs, actions.shape[0]), out
+
+
+env_step.launches = 0
+env_step.by_instance = Counter()
 
 
 class TickLoop:

@@ -5,9 +5,12 @@ fast path, float64 parity path).  Every 3x3 product is written as
 fixed-order elementwise arithmetic (``mm3``), never as a matmul, so the
 float64 path reproduces the JAX package bit for bit and the float32 path
 never touches TF32.  ``ensure_so3_exact`` is the ``exact_so3`` path's
-conditional repair; ``psvd`` is not ported yet.
+conditional repair.  ``psvd``/``project_so3_svd`` are plain
+``torch.linalg.svd``: no env, learner or eval path calls them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -61,6 +64,47 @@ def polar_fast(R, iters: int = 2):
     for _ in range(iters):
         R = 0.5 * (R + inv3(R).transpose(-1, -2))
     return R
+
+
+def psvd(A):
+    """Proper SVD with the det-sign correction (``so3.py:68-87``): ``(U, s,
+    V)`` with ``A = U diag(s) V^T`` and ``det U = det V = +1``.  SVD's sign
+    conventions are LAPACK's, so U and V may differ from JAX's by the sign
+    of a column pair; ``U V^T`` does not."""
+    U, s, Vh = _svd_with_retry(A)
+    detU = torch.linalg.det(U)
+    detV = torch.linalg.det(Vh)
+    U = U.clone()
+    Vh = Vh.clone()
+    s = s.clone()
+    U[..., :, 2] = U[..., :, 2] * detU[..., None]
+    Vh[..., 2, :] = Vh[..., 2, :] * detV[..., None]
+    s[..., 2] = s[..., 2] * (detU * detV)
+    return U, s, Vh.transpose(-1, -2)
+
+
+def _svd_with_retry(A):
+    """``torch.linalg.svd`` with JAX's per-matrix retry (``so3.py:90-101``):
+    a matrix whose factors are not finite takes the decomposition of itself
+    plus 1e-6 N(0, 1) noise from a fixed seed (JAX draws it from
+    ``PRNGKey(0)``, which torch cannot reproduce).  torch raises on a
+    non-finite input where XLA returns NaN factors."""
+    U, s, Vh = torch.linalg.svd(A)
+    bad = ~(torch.isfinite(U).all(-1).all(-1) & torch.isfinite(s).all(-1)
+            & torch.isfinite(Vh).all(-1).all(-1))
+    gen = torch.Generator(device=A.device).manual_seed(0)
+    noise = 1e-6 * torch.randn(A.shape, generator=gen, dtype=A.dtype,
+                               device=A.device)
+    U2, s2, Vh2 = torch.linalg.svd(A + noise)
+    m2 = bad[..., None, None]
+    return (torch.where(m2, U2, U), torch.where(bad[..., None], s2, s),
+            torch.where(m2, Vh2, Vh))
+
+
+def project_so3_svd(R):
+    """Nearest rotation ``U V^T`` by the proper SVD (``so3.py:104-107``)."""
+    U, _, V = psvd(R)
+    return U @ V.transpose(-1, -2)
 
 
 def det3(M):
@@ -122,3 +166,64 @@ def euler_to_rot(euler):
     """R = Rz @ Ry @ Rx (scipy ``from_euler('xyz')`` extrinsic)."""
     return mm3(rot_z(euler[..., 2]),
                mm3(rot_y(euler[..., 1]), rot_x(euler[..., 0])))
+
+
+def rot_to_euler(R):
+    """(roll, pitch, yaw) of ``R = Rz Ry Rx`` (``so3.py:238-249``), the
+    singular branch (``sy < 1e-6``) as a select."""
+    sy = torch.sqrt(R[..., 0, 0] * R[..., 0, 0] + R[..., 1, 0] * R[..., 1, 0])
+    singular = sy < 1e-6
+    x_ns = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    z_ns = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    x_s = torch.atan2(-R[..., 1, 2], R[..., 1, 1])
+    y = torch.atan2(-R[..., 2, 0], sy)
+    x = torch.where(singular, x_s, x_ns)
+    z = torch.where(singular, torch.zeros_like(z_ns), z_ns)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def _heading(R):
+    b1 = R[..., :, 0]
+    return torch.atan2(b1[..., 1], b1[..., 0])
+
+
+def heading_b1(R):
+    """The body x-axis projected onto the horizontal plane, renormalised
+    (``so3.py:252-259``)."""
+    theta = _heading(R)
+    return torch.stack([torch.cos(theta), torch.sin(theta),
+                        torch.zeros_like(theta)], dim=-1)
+
+
+def heading_rd(R):
+    """The yaw-only rotation of ``R`` (``so3.py:262-266``)."""
+    return rot_z(_heading(R))
+
+
+def _unit(v):
+    """``v / ||v||``, the norm as the fixed-order ``sqrt(dot3(v, v))``."""
+    return v / torch.sqrt(_dot3(v, v))[..., None]
+
+
+def _dot3(a, b):
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def norm_ang_btw_two_vectors(desired, current):
+    """Signed angle between two vectors over pi, in [-1, 1]
+    (``so3.py:269-280``): ``arccos`` of the clipped dot of the unit vectors,
+    negative where the cross product's z is; ``sign == 0`` keeps it
+    positive."""
+    du, cu = _unit(desired), _unit(current)
+    ang = torch.acos(torch.clamp(_dot3(du, cu), -1.0, 1.0))
+    ang = torch.where(cross(du, cu)[..., 2] < 0, -ang, ang)
+    # a 0-d tensor, not a Python float: CUDA divides by a host scalar as a
+    # multiplication by its reciprocal
+    return ang / torch.tensor(math.pi, dtype=ang.dtype, device=ang.device)
+
+
+def ang_btw_two_vectors(v1, v2):
+    """Unsigned angle between two vectors (``so3.py:283-288``), 0 below
+    1e-6."""
+    ang = torch.acos(torch.clamp(_dot3(_unit(v1), _unit(v2)), -1.0, 1.0))
+    return torch.where(ang < 1e-6, torch.zeros_like(ang), ang)

@@ -3,9 +3,10 @@
 
 Defaults replicate the reference's args_parse.py:6-78 exactly.  The port
 reads the same fields: every ``integrator`` (euler, rk4, dop853), any
-``train_traj_mode`` and ``exact_so3`` run on the card; knobs it does not
-implement yet (``eval_stream="reference"``, the checkpoint and logging
-fields) raise where they are consumed or are ignored.
+``train_traj_mode``, ``exact_so3`` and both ``eval_stream`` values run on
+the card, and ``save_log``/``render`` make ``evaluate`` return the
+flight-log rows; the checkpoint, TensorBoard and profiling fields wait for
+the port of ``train.py``'s ``Learner`` and are ignored.
 """
 from __future__ import annotations
 

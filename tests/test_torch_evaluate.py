@@ -65,7 +65,7 @@ def test_evaluate_matches_build_eval_rollout(algo, family):
     jbs, jobs = jbatch.batched_reset(jcfg.replace(num_envs=jcfg.num_eval),
                                      key, "eval")
     tbs = convert.env_state_from_numpy(_np_tree(jbs), device="cpu")
-    ep_t, bench_t, succ_t, ex_t, eb1_t = tevaluate.evaluate(
+    ep_t, bench_t, succ_t, ex_t, eb1_t, _ = tevaluate.evaluate(
         tcfg, actors, generator=torch.Generator().manual_seed(0),
         device="cpu", init=(tbs, tuple(_t(o) for o in jobs)))
     assert succ_t.shape == np.asarray(succ_j).shape == (10, jcfg.n_agents)

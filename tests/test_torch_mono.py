@@ -315,7 +315,7 @@ def test_evaluate_coupled_matches_build_eval_rollout():
     actor = tzoo.EMLPActorDet(*tzoo.actor_reps(tcfg, "MONO", 0), device="cpu")
     actor.load_state_dict(convert.actor_params_from_jax(
         jax.tree.map(np.asarray, params), tcfg, 0))
-    ep_t, bench_t, succ_t, ex_t, eb1_t = tevaluate.evaluate(
+    ep_t, bench_t, succ_t, ex_t, eb1_t, _ = tevaluate.evaluate(
         tcfg, [actor], generator=torch.Generator().manual_seed(0),
         device="cpu", init=(tbs, (_t(jobs[0]),)))
     assert succ_t.shape == np.asarray(succ_j).shape == (10, 1)

@@ -73,7 +73,7 @@ def test_evaluate_matches_build_eval_rollout():
         a.load_state_dict(convert.actor_params_from_jax(
             jax.tree.map(np.asarray, params), tcfg, i))
         actors.append(a)
-    ep_t, bench_t, succ_t, ex_t, eb1_t = tevaluate.evaluate(
+    ep_t, bench_t, succ_t, ex_t, eb1_t, _ = tevaluate.evaluate(
         tcfg, actors, generator=torch.Generator().manual_seed(0),
         device="cpu", init=(tbs, tobs))
     assert float(bench_j) > 150.0          # the trained pair flies

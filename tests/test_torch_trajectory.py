@@ -253,7 +253,7 @@ def test_evaluate_honours_traj_mode():
     jbs, jobs = jbatch.batched_reset(jcfg.replace(num_envs=jcfg.num_eval),
                                      key, "eval")
     assert (np.asarray(jbs.traj.mode) == 6).all()
-    ep_t, bench_t, succ_t, ex_t, eb1_t = evaluate(
+    ep_t, bench_t, succ_t, ex_t, eb1_t, _ = evaluate(
         tcfg, [a for _, a in actors], generator=torch.Generator().manual_seed(0),
         device="cpu", init=(_port(jbs), tuple(_t(o) for o in jobs)))
     np.testing.assert_allclose(ep_t.numpy(), np.asarray(ep_j), rtol=1e-5)
