@@ -6,7 +6,9 @@ check them.
 Phases (each prints its own line; any failure exits non-zero and prints no
 result line):
   1. build      nvcc all nine kernel sources in parallel; print build time
-                and the registers/spills ``-Xptxas -v`` reports
+                and the registers/spills ``-Xptxas -v`` reports; per K3/K4
+                instance the registers and spills of each kernel and the
+                dynamic shared memory of its launches
   2. env_tick   K1 kernel (the MODUL task) vs its plain twin at B = 4096
                 float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
@@ -26,9 +28,14 @@ result line):
                 256-row sample, and the empty ring's NaN poison
   7. emlp_block K3 (training widths) and K4 vs plain for the eight block
                 shapes of the four networks, at the update's batches
-                (256; 768 for TD3's actor loss, 1024 for SAC's), forward
-                and all four gradients; and the kernel autograd path vs the
-                structured network's torch autograd for both twin critics
+                (256; 768 for TD3's actor loss, 1024 for SAC's) and at
+                EDGE_ROWS (1, 31, 33, 255 and 3723: not multiples of the
+                32-row tile), forward saving lin and pre and without them
+                (under no_grad, h against the twin's), all four gradients
+                and g_x alone, each K4 call run twice and compared bitwise
+                (``_block_vs_plain``); every instance has coordinates with
+                gate[k] == k; and the kernel autograd path vs the structured
+                network's torch autograd for both twin critics
   8. flat_adamw K6 vs plain for the four networks' flat vectors at a
                 count > 0, with the clip triggered and not, with Polyak
   9. spectral   K7 vs plain on the critics' and actors' weight stacks
@@ -66,9 +73,11 @@ result line):
                 under autograd vs the structured network and the plain loss
  17. v_blocks   K3/K4 vs plain for both blocks of both PPO V critics (the
                 two new first-block shapes): forward at the GAE pass's
-                2 T B rows (13 952, 409 600; plain on the first 4096 rows),
-                backward at the minibatches' 128 and 3723 rows; then the V
-                critic's kernel path under autograd vs its structured net
+                2 T B rows (13 952, 409 600; every row, plain in chunks),
+                saving lin and pre and without them; ``_block_vs_plain`` at
+                the minibatches' 128 and 3723 rows and at EDGE_ROWS; then
+                the V critic's kernel path under autograd vs its structured
+                net
  18. ppo_train  ``train(Config(rl_algo="PPO"))`` in configuration A (32 envs,
                 T_horizon 7000, minibatch 128) for 3 supersteps of
                 K_epochs 2, and B (4096 envs, T_horizon 204 800, minibatch
@@ -82,9 +91,12 @@ result line):
                 SAC path's, K11-K13 and the PPO path's K3/K4 on PPO's),
                 device time per launch, plain twin's time, the H100 bound,
                 and a PyTorch yardstick call where one computes the same
-                function; and K5 (``project_linear``, plain torch) per call
-                at every layer shape the TD3 and SAC paths project, with its
-                calls per superstep
+                function; K3/K4 per (shape, rows) instance as the path
+                launched it: K3 saving lin and pre or not (under autograd
+                or not), K4 with or without the parameter sums; and K5
+                (``project_linear``, plain torch) per call at every layer
+                shape the TD3 and SAC paths project, with its calls per
+                superstep
  20. MONO and the MLP networks under TD3 (``phase_mono``):
                 env_tick (task coupled) K1's coupled instance vs its plain
                 twin at B = 4096 train envs and the eval path's 10 eval
@@ -107,10 +119,10 @@ result line):
                 K3/K4 vs plain for the new first blocks (the CTDE twin Q
                 critics' (23, 71, 62) and (23, 123, 62), the CTDE V
                 critics' (18, 71, 62) and (18, 123, 62), the MONO V
-                critic's (23, 71, 62)) at 128, 256, 768, 1024 and 3723 rows,
-                forward and all four gradients, the V forwards at 13 952
-                and 409 600 rows (every row, plain in 32 768-row
-                chunks), and each
+                critic's (23, 71, 62)) at 128, 256, 768, 1024 rows and
+                EDGE_ROWS through ``_block_vs_plain``, the V forwards at
+                13 952 and 409 600 rows saving lin and pre and without them
+                (every row, plain in 32 768-row chunks), and each
                 network's kernel path under autograd vs its structured
                 network; family_actors K9 and K11 at the MONO actor and
                 K11's head on the MLP PPO actors, at 4096, 32 and 10 rows,
@@ -165,7 +177,9 @@ result line):
                 done, then every later step from the card's state, wall ms
                 per step and device us per launch;
                 eval_reference ``evaluate(eval_stream="reference",
-                save_log=True)`` with the flagship's seeded actors: the
+                save_log=True)`` with the flagship's seeded actors (and the
+                lift alone, plain torch: device and wall ms, its bound from
+                the bytes it moves): the
                 lifted state is the replayed inits rounded once, K1 once
                 and K3 twice a tick, no reset launch, finite rows of 5 + 35;
                 kernels: one record per quad instance and one for the step
@@ -342,7 +356,78 @@ def _wrappers():
             for name in m.WRAPPERS}
 
 
-def phase_build():
+def block_specs(dev):
+    """The 16 K3/K4 instances' specs, from the learners' networks at full
+    width: TD3's actor and twin Q critic and PPO's V critic of every agent
+    of MODUL DTDE, MONO and MODUL CTDE."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    specs = {}
+    for kw in ({}, {"framework": "MONO"}, {"module_training": "CTDE"}):
+        cfg = Config(**kw)
+        for i in range(cfg.n_agents):
+            td3 = TD3Agent(cfg, i, dev)
+            ppo = PPOAgent(cfg.replace(rl_algo="PPO"), i, dev)
+            for net, prefix in ((td3.actor_net.network, "network."),
+                                (td3.critic_net.network1, "network1."),
+                                (ppo.critic_net.network, "network.")):
+                for _, blk in net.named_blocks(prefix):
+                    spec = K.block_spec(blk, dev)
+                    specs[spec.dims] = spec
+    if set(specs) != K.INSTANCES:
+        raise AssertionError(f"K3/K4 instances {sorted(specs)}")
+    return specs
+
+
+def block_resources(dev):
+    """Per K3/K4 instance: registers, spill stores and loads of each kernel
+    (``-Xptxas -v``), and the dynamic shared memory of the forward under
+    the plans of 256 and 409 600 rows and of the backward's main kernel
+    under those of 256 and 3723 rows, each read from the library and held
+    to the wrapper's layout arithmetic."""
+    import re
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    regs, cur = {}, None
+    for ln in K.KERNEL.ptxas.splitlines():
+        m = re.search(r"(block_fwd_kernel|block_bwd_kernel)ILi(\d+)ELi"
+                      r"(\d+)ELi\d+E(?:Lb([01])E)?", ln)
+        if "Compiling entry function" in ln and m:
+            cur = (m.group(1) + ("_nosave" if m.group(4) == "0" else ""),
+                   int(m.group(2)), int(m.group(3)))
+            regs.setdefault(cur[1:], {})[cur[0]] = {}
+        elif cur and "spill stores" in ln:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            regs[cur[1:]][cur[0]].update(spill_stores=n[1], spill_loads=n[2])
+        elif cur and "registers" in ln:
+            regs[cur[1:]][cur[0]]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    lib, bad = K._lib(), []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dims, spec in sorted(block_specs(dev).items()):
+        smem = {}
+        for kind, which, mirror, rows in (
+                ("forward", 0, K.forward_smem, (256, 409600)),
+                ("backward", 1, K.backward_smem, (256, 3723))):
+            for nb in rows:
+                G = spec.groups(kind, nb, sms)
+                _, meta = spec.plan_args(kind, G)
+                got = lib.emlp_block_smem(*dims, meta, which)
+                smem[f"{kind}_{nb}_rows_{G}_groups"] = got
+                if got != mirror(dims, tuple(meta)):
+                    bad.append((dims, kind, nb, got))
+        log("build", kernel="emlp_block", dims=list(dims), nnz=spec.nnz,
+            self_gated=int((spec.gidx == torch.arange(
+                spec.nh, device=spec.gidx.device)).sum()),
+            ptxas=regs.get(dims[:2], {}), smem_bytes=smem)
+        if not regs.get(dims[:2]):
+            bad.append((dims, "no ptxas entry"))
+    if bad:
+        raise AssertionError(f"K3/K4 resources: {bad}")
+
+
+def phase_build(dev):
     from gym_rotor_tpu_torch.kernels import build
     srcs = [m.KERNEL for m in _kernel_modules()]
     t0 = time.perf_counter()
@@ -352,6 +437,7 @@ def phase_build():
         log("build", kernel=s.name, nvcc_s=s.build_seconds,
             ptxas=s.resources())
     log("build", parallel_wall_s=wall)
+    block_resources(dev)
 
 
 def _field_errors(named_k, named_p, skip):
@@ -666,6 +752,53 @@ def phase_replay(cfg, dev, out):
                 reset=out.reset_happened, idx=idx, max_abs_err=d_stats)
 
 
+# row counts not a multiple of the kernels' 32-row tile, and PPO B's
+# minibatch, at which every block's kernels are held to their twins
+EDGE_ROWS = (1, 31, 33, 255, 3723)
+
+
+def _block_vs_plain(spec, x, W, b, v, g_h):
+    """One block's K3/K4 vs the twins on the same inputs: the forward
+    saving lin and pre; the forward without them under ``no_grad`` (h vs
+    the twin's, nothing returned besides); the backward with and without
+    the parameter sums against the twin on the kernel's lin and pre, each
+    run twice (the rerun must be bitwise equal).  Tolerance 2e-5 max(1, max
+    |plain|).  Returns ({name: max abs err, "rerun_bitwise": bool},
+    failures, the twin's h)."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    fk = K.emlp_block(spec, x, W, b, v)
+    fp = K.emlp_block_plain(spec, x, W, b, v)
+    with torch.no_grad():
+        hk, lin_n, pre_n = K.emlp_block(spec, x, W, b, v, save=False)
+    runs = [K.emlp_block_backward(spec, g_h, x, W, v, fk[1], fk[2], need)
+            for need in (True, True, False, False)]
+    bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, fk[1], fk[2], True)
+    errs, bad = {}, []
+    for nm, kk, pp in zip(("h", "lin", "pre", "h_unsaved", "g_x", "g_W",
+                           "g_b", "g_v", "g_x_only"),
+                          fk + (hk,) + runs[0] + (runs[2][0],),
+                          fp + (fp[0],) + bp + (bp[0],)):
+        d, tol, fin = _err(kk, pp)
+        errs[nm] = d
+        if not (d <= tol and fin):
+            bad.append((nm, d, tol))
+    if lin_n is not None or pre_n is not None:
+        bad.append(("the unsaved forward returned lin or pre",))
+    errs["rerun_bitwise"] = all(
+        torch.equal(a, c) for r1, r2 in (runs[:2], runs[2:])
+        for a, c in zip(r1, r2) if a is not None)
+    if not errs["rerun_bitwise"]:
+        bad.append(("a K4 rerun differs",))
+    return errs, bad, fp[0]
+
+
+def _worst(worst, errs):
+    """Fold a ``_block_vs_plain`` result into (forward, backward) maxima."""
+    f = max(errs[k] for k in ("h", "lin", "pre", "h_unsaved"))
+    g = max(errs[k] for k in ("g_x", "g_W", "g_b", "g_v", "g_x_only"))
+    return max(worst[0], f), max(worst[1], g)
+
+
 def _plain_apply(module, views, *args):
     """``module``'s structured (plain) forward with ``views`` as its
     parameters, under torch autograd."""
@@ -675,31 +808,34 @@ def _plain_apply(module, views, *args):
 
 def _block_inputs(agent, st, i, obs, act):
     """Per network of agent ``i``: (name, EMLP module, parameter views,
-    prefix, input, batches on the update path)."""
-    o = obs[i][:4 * 256]
+    prefix, input, batches on the update path and the edge cases)."""
+    o = obs[i]
     return [("actor", agent.actor_net.network, agent.actor_layout.views(st.actor),
-             "network.", o, (256, 768, 1024)),
+             "network.", o, (256, 768, 1024) + EDGE_ROWS),
             ("critic1", agent.critic_net.network1,
              agent.critic_layout.views(st.critic), "network1.",
-             torch.cat([o, act], -1), (256,)),
+             torch.cat([o, act], -1), (256,) + EDGE_ROWS),
             ("critic2", agent.critic_net.network2,
              agent.critic_layout.views(st.critic), "network2.",
              torch.cat([o, act], -1), (256,))]
 
 
 def phase_emlp_block(cfg, dev, agents, states, obs, n_shapes=8):
-    """K3/K4 vs plain per block: forward (h, lin, pre) and backward (g_x,
-    g_W, g_b, g_v; and g_x alone) on the same inputs; then the critics'
-    and actors' whole kernel path under autograd vs their structured
-    networks.  Tolerance 2e-5 max(1, max |plain|): float32 sums over up to
-    123 channels, 9394 nonzeros or 768 rows, taken in another order."""
+    """K3/K4 vs plain per block (``_block_vs_plain``: forward saving and
+    not, backward with and without the parameter sums, each backward rerun
+    bitwise) at the update's batches and at ``EDGE_ROWS``; then the
+    critics' and actors' whole kernel path under autograd vs their
+    structured networks.  Tolerance 2e-5 max(1, max |plain|): float32 sums
+    over up to 123 channels, 9394 nonzeros or 3723 rows, taken in another
+    order."""
     from gym_rotor_tpu_torch.kernels import emlp_block as K
     from gym_rotor_tpu_torch.models.emlp.nn import bilinear_sparse, project_linear
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    worst_fwd = worst_bwd = 0.0
+    worst = (0.0, 0.0)
     bad, shapes = [], set()
     for i, (agent, st) in enumerate(zip(agents, states)):
-        act = torch.rand(1024, cfg.action_dim_n[i], generator=gen, device=dev) * 2 - 1
+        act = torch.rand(obs[i].shape[0], cfg.action_dim_n[i], generator=gen,
+                         device=dev) * 2 - 1
         for name, net, views, prefix, x0, batches in _block_inputs(
                 agent, st, i, obs, act):
             for nb in batches:
@@ -716,31 +852,14 @@ def phase_emlp_block(cfg, dev, agents, states, obs, n_shapes=8):
                              if bi is not None else W.new_zeros(spec.nnz))
                     W, b, v = W.contiguous(), b.contiguous(), v.contiguous()
                     g_h = torch.randn(nb, spec.nh, generator=gen, device=dev)
-                    fk = K.emlp_block(spec, x, W, b, v)
-                    fp = K.emlp_block_plain(spec, x, W, b, v)
-                    lin, prea = fk[1], fk[2]
-                    bk = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea, True)
-                    bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, lin,
-                                                     prea, True)
-                    gx = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea,
-                                               False)[0]
-                    errs = {}
-                    for nm, kk, pp in zip(
-                            ("h", "lin", "pre", "g_x", "g_W", "g_b", "g_v",
-                             "g_x_only"), fk + bk + (gx,), fp + bp + (bp[0],)):
-                        d, tol, fin = _err(kk, pp)
-                        errs[nm] = d
-                        if nm in ("h", "lin", "pre"):
-                            worst_fwd = max(worst_fwd, d)
-                        else:
-                            worst_bwd = max(worst_bwd, d)
-                        if not (d <= tol and fin):
-                            bad.append((i, name, k, nb, nm, d, tol))
+                    errs, failed, h = _block_vs_plain(spec, x, W, b, v, g_h)
+                    worst = _worst(worst, errs)
+                    bad += [(i, name, k, nb) + f for f in failed]
                     shapes.add(spec.dims)
                     log("emlp_block", agent=i, net=name, block=k,
                         dims=list(spec.dims), nnz=spec.nnz, batch=nb,
                         max_abs_err=errs)
-                    x = fp[0]
+                    x = h
         # the whole kernel path under autograd vs the structured networks
         o, a = obs[i][:256], act[:256]
         for name, fk_fn, module, layout, flat, args in (
@@ -771,7 +890,7 @@ def phase_emlp_block(cfg, dev, agents, states, obs, n_shapes=8):
                              f"{sorted(shapes)}")
     if bad:
         raise AssertionError(f"emlp_block kernels disagree with plain: {bad}")
-    return worst_fwd, worst_bwd
+    return worst
 
 
 def phase_flat_adamw(cfg, dev, agents):
@@ -1036,9 +1155,10 @@ def _dims(net, dev):
 
 
 def expected_td3_shapes(cfg, agents, dev, gated: bool):
-    """K3's launches per (block dims, rows) and K4's per (block dims, rows,
-    parameter sums) of one TD3 train superstep of EMLP agents, as
-    ``expected_launches`` counts them."""
+    """K3's launches per (block dims, rows, saves lin/pre) and K4's per
+    (block dims, rows, parameter sums) of one TD3 train superstep of EMLP
+    agents, as ``expected_launches`` counts them; K3 saves lin and pre
+    only where autograd records the call (not in the target)."""
     nb = cfg.batch_size
     fwd, bwd = Counter(), Counter()
     actors = [_dims(a.actor_net.network, dev) for a in agents]
@@ -1049,20 +1169,21 @@ def expected_td3_shapes(cfg, agents, dev, gated: bool):
             if cfg.is_ctde else []
         for j in [i] + others:
             for d in actors[j]:
-                fwd[(d, nb)] += 1              # target actors on next_obs
+                fwd[(d, nb, False)] += 1       # target actors on next_obs
         if gated:
             for d in actors[i]:
-                fwd[(d, 3 * nb)] += 1          # actor loss, [obs; next; obs+eps]
+                fwd[(d, 3 * nb, True)] += 1    # actor loss, [obs; next; obs+eps]
                 bwd[(d, 3 * nb, True)] += 1
             for j in others:                   # current actors of the others
                 for d in actors[j]:
-                    fwd[(d, nb)] += 1
+                    fwd[(d, nb, False)] += 1
         for d in net1 + net2:
-            fwd[(d, nb)] += 2                  # target twin and critic loss
+            fwd[(d, nb, False)] += 1           # target twin
+            fwd[(d, nb, True)] += 1            # critic loss
             bwd[(d, nb, True)] += 1
         if gated:
             for d in net1:                     # q1 in the actor loss
-                fwd[(d, nb)] += 1
+                fwd[(d, nb, True)] += 1
                 bwd[(d, nb, False)] += 1
     return fwd, bwd
 
@@ -1096,24 +1217,26 @@ def expected_launches_sac(cfg, warm: bool):
 
 
 def expected_sac_shapes(cfg, agents, dev):
-    """K3's launches per (block dims, rows) and K4's per (block dims, rows,
-    parameter sums) of one SAC train superstep of EMLP agents."""
+    """K3's launches per (block dims, rows, saves lin/pre) and K4's per
+    (block dims, rows, parameter sums) of one SAC train superstep of EMLP
+    agents."""
     nb = cfg.batch_size
     fwd, bwd = Counter(), Counter()
     ctde = cfg.is_ctde
     actors = [_dims(a.actor_net, dev) for a in agents]
     for i, a in enumerate(agents):
         for d in actors[i]:
-            fwd[(d, 2 * nb if ctde else nb)] += 1     # target sample(s)
-            fwd[(d, (5 if ctde else 4) * nb)] += 1    # actor loss
+            fwd[(d, 2 * nb if ctde else nb, False)] += 1  # target sample(s)
+            fwd[(d, (5 if ctde else 4) * nb, True)] += 1  # actor loss
             bwd[(d, (5 if ctde else 4) * nb, True)] += 1
         for j in range(len(agents)) if ctde else []:
             if j != i:
                 for d in actors[j]:
-                    fwd[(d, nb)] += 2                 # target and actor loss
+                    fwd[(d, nb, False)] += 2          # target and actor loss
         for net in (a.critic_net.network1, a.critic_net.network2):
             for d in _dims(net, dev):
-                fwd[(d, nb)] += 3      # target twin, critic loss, actor loss
+                fwd[(d, nb, False)] += 1          # target twin
+                fwd[(d, nb, True)] += 2    # critic loss, actor loss
                 bwd[(d, nb, True)] += 1
                 bwd[(d, nb, False)] += 1
     return fwd, bwd
@@ -1490,22 +1613,25 @@ def _record(name, source, replaces, launches, err, inst):
 
 
 def block_instances(dev, shapes, gen, path="td3"):
-    """K3 and K4 at every (block, rows) instance of a path's run
-    (``shapes``: K3's and K4's launches per instance): per instance the
-    launches, device time, plain time (in chunks of 32 768 rows past that),
-    bound and what bounds it."""
+    """K3 and K4 at every instance of a path's run (``shapes``: K3's
+    launches per (block, rows, saves lin/pre) and K4's per (block, rows,
+    parameter sums), as the wrappers counted them): per instance the
+    launches, device time, plain time (in chunks of 32 768 rows past
+    that), bound and what bounds it.  K3 is timed as the path launched it:
+    a forward that saved no lin and pre (autograd recorded nothing) without
+    them, and its bound then leaves their bytes out."""
     from gym_rotor_tpu_torch.kernels import emlp_block as KB
     specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
     fwd, bwd = [], []
     for key, count in sorted(shapes[0].items()):
-        (nin, ng, nh), nb = key
+        (nin, ng, nh), nb, save = key
         spec = specs[(nin, ng, nh)]
         x = torch.randn(nb, nin, generator=gen, device=dev)
         W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
         b = 0.1 * torch.randn(ng, generator=gen, device=dev)
         v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
         big = nb > 32768       # a horizon's V forward: plain in chunks
-        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v),
+        k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v, save),
                             3 if big else 50, 3 if big else 5)
         chunks = torch.split(x, 32768)
         p_ms, _ = device_ms(lambda: [KB.emlp_block_plain(spec, c, W, b, v)
@@ -1513,13 +1639,14 @@ def block_instances(dev, shapes, gen, path="td3"):
                             2 if big else 10, 2 if big else 3)
         flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
         nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
-                      + 2 * ng * nb + nh + ng + 1 + spec.nnz)
+                      + (2 * ng * nb if save else 0) + nh + ng + 1
+                      + spec.nnz)
         bms, by = bound_ms(nbytes, flops)
         fwd.append((count, k_ms, p_ms, bms, by, None))
         log("kernels", kernel="emlp_block", path=path, dims=[nin, ng, nh],
-            batch=nb, nnz=spec.nnz, launches=count, ms=k_ms, plain_ms=p_ms,
-            flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
-            library_ms=None)
+            batch=nb, saves_lin_pre=save, nnz=spec.nnz, launches=count,
+            ms=k_ms, plain_ms=p_ms, flops=flops,
+            bytes=nbytes, bound_ms=bms, bound_by=by, library_ms=None)
     for key, count in sorted(shapes[1].items()):
         (nin, ng, nh), nb, need = key
         spec = specs[(nin, ng, nh)]
@@ -1530,7 +1657,7 @@ def block_instances(dev, shapes, gen, path="td3"):
         _, lin, pre = KB.emlp_block(spec, x, W, b, v)
         g_h = torch.randn(nb, nh, generator=gen, device=dev)
         k_ms, _ = device_ms(lambda: KB.emlp_block_backward(
-            spec, g_h, x, W, v, lin, pre, need), 50)
+            spec, g_h, x, W, v, lin, pre, need), 50, 5)
         p_ms, _ = device_ms(lambda: KB.emlp_block_backward_plain(
             spec, g_h, x, W, v, lin, pre, need), 10, 3)
         n_par = ng * nin + ng + spec.nnz
@@ -1546,8 +1673,9 @@ def block_instances(dev, shapes, gen, path="td3"):
         bwd.append((count, k_ms, p_ms, bms, by, None))
         log("kernels", kernel="emlp_block_backward", path=path,
             dims=[nin, ng, nh], batch=nb, param_grads=need, nnz=spec.nnz,
-            launches=count, ms=k_ms, plain_ms=p_ms, flops=flops, bytes=nbytes,
-            bound_ms=bms, bound_by=by, library_ms=None)
+            launches=count, ms=k_ms, plain_ms=p_ms,
+            flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
+            library_ms=None)
     return fwd, bwd
 
 
@@ -2015,21 +2143,45 @@ def phase_ppo_loss(cfg, dev, agents, states, obs):
     return worst
 
 
+def _big_forward(spec, x, W, b, v):
+    """K3 over a horizon's rows (saving lin and pre, and without them under
+    ``no_grad``) vs the twin in chunks of 32 768 rows: ({name: max abs
+    err}, failures, kernel h)."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    fk = K.emlp_block(spec, x, W, b, v)
+    with torch.no_grad():
+        hk = K.emlp_block(spec, x, W, b, v, save=False)[0]
+    parts = [K.emlp_block_plain(spec, c, W, b, v)
+             for c in torch.split(x, 32768)]
+    fp = (torch.cat([p[0] for p in parts]),
+          torch.cat([p[1] for p in parts], 1),
+          torch.cat([p[2] for p in parts], 1))
+    del parts
+    errs, bad = {}, []
+    for nm, kk, pp in zip(("h", "lin", "pre", "h_unsaved"), fk + (hk,),
+                          fp + (fp[0],)):
+        d, tol, fin = _err(kk, pp)
+        errs[nm] = d
+        if not (d <= tol and fin):
+            bad.append((nm, d, tol))
+    return errs, bad, fk[0]
+
+
 def phase_v_blocks(cfg, dev, agents, states, obs):
     """K3/K4 vs plain for both blocks of both PPO V critics (first blocks
-    (15, 71, 62) and (3, 123, 62), the new instances): forward at the GAE
-    pass's 2 T B rows of the two configurations (13 952 and 409 600; every
-    row, the plain twin in chunks of 32 768 rows), backward
-    (with and without the parameter sums) at the minibatches' 128 and 3723
-    rows; then the V critic's kernel path under autograd vs its structured
-    network at 3723 rows.  Tolerance 2e-5 max(1, max |plain|), as for the
-    Q critics' blocks."""
+    (15, 71, 62) and (3, 123, 62)): forward at the GAE pass's 2 T B rows of
+    the two configurations (13 952 and 409 600; every row, the plain twin
+    in chunks of 32 768 rows), saving lin and pre and without them;
+    ``_block_vs_plain`` at the minibatches' 128 and 3723 rows and at
+    ``EDGE_ROWS``; then the V critic's kernel path under autograd vs its
+    structured network at 3723 rows.  Tolerance 2e-5 max(1, max |plain|),
+    as for the Q critics' blocks."""
     from gym_rotor_tpu_torch.kernels import emlp_block as K
     from gym_rotor_tpu_torch.models.emlp.nn import (bilinear_sparse,
                                                     project_linear)
     from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
-    worst_fwd = worst_bwd = 0.0
+    worst = (0.0, 0.0)
     bad, shapes = [], set()
     cfgs = [Config(**PPO_CONFIGS[name]) for name, _ in PPO_SUPERSTEPS]
     fwd_rows = [2 * _ppo_dims(c)[1] for c in cfgs]
@@ -2055,47 +2207,21 @@ def phase_v_blocks(cfg, dev, agents, states, obs):
         for nb in fwd_rows:
             x = x_all[:nb]
             for k, (spec, W, b, v) in enumerate(params):
-                fk = K.emlp_block(spec, x, W, b, v)
-                parts = [K.emlp_block_plain(spec, c, W, b, v)
-                         for c in torch.split(x, 32768)]
-                fp = (torch.cat([p[0] for p in parts]),
-                      torch.cat([p[1] for p in parts], 1),
-                      torch.cat([p[2] for p in parts], 1))
-                del parts
-                errs = {}
-                for nm, kk, pp in zip(("h", "lin", "pre"), fk, fp):
-                    d, tol, fin = _err(kk, pp)
-                    errs[nm] = d
-                    worst_fwd = max(worst_fwd, d)
-                    if not (d <= tol and fin):
-                        bad.append((i, k, nb, nm, d))
+                errs, failed, x = _big_forward(spec, x, W, b, v)
+                worst = (max([worst[0]] + list(errs.values())), worst[1])
+                bad += [(i, k, nb) + f for f in failed]
                 shapes.add(spec.dims)
                 log("v_blocks", agent=i, block=k, dims=list(spec.dims),
                     nnz=spec.nnz, batch=nb, max_abs_err=errs)
-                x = fk[0]
-        for nb in bwd_rows:
+        for nb in tuple(bwd_rows) + EDGE_ROWS:
             x = x_all[:nb].contiguous()
             for k, (spec, W, b, v) in enumerate(params):
-                _, lin, prea = K.emlp_block(spec, x, W, b, v)
                 g_h = torch.randn(nb, spec.nh, generator=gen, device=dev)
-                bk = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea,
-                                           True)
-                bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, lin,
-                                                 prea, True)
-                gx = K.emlp_block_backward(spec, g_h, x, W, v, lin, prea,
-                                           False)[0]
-                errs = {}
-                for nm, kk, pp in zip(("g_x", "g_W", "g_b", "g_v",
-                                       "g_x_only"), bk + (gx,),
-                                      bp + (bp[0],)):
-                    d, tol, fin = _err(kk, pp)
-                    errs[nm] = d
-                    worst_bwd = max(worst_bwd, d)
-                    if not (d <= tol and fin):
-                        bad.append((i, k, nb, nm, d))
+                errs, failed, x = _block_vs_plain(spec, x, W, b, v, g_h)
+                worst = _worst(worst, errs)
+                bad += [(i, k, nb) + f for f in failed]
                 log("v_blocks", agent=i, block=k, dims=list(spec.dims),
                     batch=nb, backward=True, max_abs_err=errs)
-                x = K.emlp_block_plain(spec, x, W, b, v)[0]
         o = x_all[:bwd_rows[-1]]
         leaf_k = st.critic.detach().clone().requires_grad_(True)
         yk = agent.critic_apply(agent.critic_layout.views(leaf_k), o).sum()
@@ -2115,7 +2241,7 @@ def phase_v_blocks(cfg, dev, agents, states, obs):
         raise AssertionError(f"V critic first blocks missing: {shapes}")
     if bad:
         raise AssertionError(f"V critic blocks disagree with plain: {bad}")
-    return worst_fwd, worst_bwd
+    return worst
 
 
 def expected_launches_ppo(cfg, agents, dev, first):
@@ -2144,12 +2270,12 @@ def expected_launches_ppo(cfg, agents, dev, first):
     for a in agents:
         for blk in a.critic_net.network.blocks():
             d = block_spec(blk, dev).dims
-            fwd[(d, 2 * T)] += 1
-            fwd[(d, mbc)] += K * nc
+            fwd[(d, 2 * T, False)] += 1        # GAE's values, no_grad
+            fwd[(d, mbc, True)] += K * nc
             bwd[(d, mbc, True)] += K * nc
         for blk in a.actor_net.network.blocks():
             d = block_spec(blk, dev).dims
-            fwd[(d, 3 * mba)] += K * na
+            fwd[(d, 3 * mba, True)] += K * na
             bwd[(d, 3 * mba, True)] += K * na
     return want, fwd, bwd
 
@@ -2258,7 +2384,6 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
     computes any of the three new functions.  ``runs``: per configuration
     ``(cfg, launches, (K3 shapes, K4 shapes) of one superstep, run)``."""
     from gym_rotor_tpu_torch.kernels import emlp_actor as KA
-    from gym_rotor_tpu_torch.kernels import emlp_block as KB
     from gym_rotor_tpu_torch.kernels import gae as KG
     from gym_rotor_tpu_torch.kernels import ppo_loss as KL
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
@@ -2362,53 +2487,11 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
     # K3 / K4 at every (block, rows) instance of the PPO path, weighted by
     # one superstep's launches of each configuration; the plain forward in
     # chunks of 32768 rows past that (as JAX chunks the V critic over time)
-    specs = {s.dims: s for s in KB._SPECS.values() if s.ints.device == dev}
     kf, kb = [], []
-    for cfg, _, (sfwd, sbwd), _ in runs:
-        for ((nin, ng, nh), nb), count in sorted(sfwd.items()):
-            spec = specs[(nin, ng, nh)]
-            x = torch.randn(nb, nin, generator=gen, device=dev)
-            W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
-            b = 0.1 * torch.randn(ng, generator=gen, device=dev)
-            v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
-            k_ms, _ = device_ms(lambda: KB.emlp_block(spec, x, W, b, v),
-                                20 if nb < 100_000 else 3, 3)
-            chunks = torch.split(x, 32768)
-            p_ms, _ = device_ms(lambda: [KB.emlp_block_plain(spec, c, W, b, v)
-                                         for c in chunks], 2, 2)
-            flops = nb * (2 * ng * nin + ng + 3 * spec.nnz + 2 * ng + 4 * nh)
-            nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + nb * nh
-                          + 2 * ng * nb + nh + ng + 1 + spec.nnz)
-            bms, by = bound_ms(nbytes, flops)
-            kf.append((count, k_ms, p_ms, bms, by, None))
-            log("kernels", kernel="emlp_block", path="ppo",
-                dims=[nin, ng, nh], batch=nb, nnz=spec.nnz,
-                launches_per_superstep=count, ms=k_ms, plain_ms=p_ms,
-                flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
-                library_ms=None)
-        for ((nin, ng, nh), nb, need), count in sorted(sbwd.items()):
-            spec = specs[(nin, ng, nh)]
-            x = torch.randn(nb, nin, generator=gen, device=dev)
-            W = 0.3 * torch.randn(ng, nin, generator=gen, device=dev)
-            b = 0.1 * torch.randn(ng, generator=gen, device=dev)
-            v = 0.3 * torch.randn(spec.nnz, generator=gen, device=dev)
-            _, lin, pre = KB.emlp_block(spec, x, W, b, v)
-            g_h = torch.randn(nb, nh, generator=gen, device=dev)
-            k_ms, _ = device_ms(lambda: KB.emlp_block_backward(
-                spec, g_h, x, W, v, lin, pre, need), 20)
-            p_ms, _ = device_ms(lambda: KB.emlp_block_backward_plain(
-                spec, g_h, x, W, v, lin, pre, need), 5, 3)
-            flops = nb * (8 * nh + 6 * spec.nnz + 2 * ng * nin)
-            flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
-            nbytes = 4 * (nb * nh + 2 * nb * nin + 2 * ng * nb + ng * nin
-                          + nh + 3 * spec.nnz + ng * nin + ng + spec.nnz)
-            bms, by = bound_ms(nbytes, flops)
-            kb.append((count, k_ms, p_ms, bms, by, None))
-            log("kernels", kernel="emlp_block_backward", path="ppo",
-                dims=[nin, ng, nh], batch=nb, param_grads=need,
-                launches_per_superstep=count, ms=k_ms, plain_ms=p_ms,
-                flops=flops, bytes=nbytes, bound_ms=bms, bound_by=by,
-                library_ms=None)
+    for _, _, shapes, _ in runs:
+        f, b = block_instances(dev, shapes, gen, path="ppo")
+        kf += f
+        kb += b
     records.append(_record("emlp_block_ppo", "emlp_block.cu",
                            "gym_rotor_tpu/models/emlp/nn.py:431",
                            total["emlp_block"], errs["v_blocks"][0], kf))
@@ -2645,12 +2728,12 @@ def phase_family_blocks(dev, obs_mod, obs_mono):
     SAC's critic losses, 768 and 1024 the actor losses' batches), and the
     V critics' forward at the GAE pass's 2 T B rows of configurations A and
     B (13 952, 409 600; every row, the plain twin in chunks of 32 768
-    rows); then each network's
-    kernel path under autograd vs its structured network at 256 rows.
-    Tolerance 2e-5 max(1, max |plain|), as phases 7 and 17."""
+    rows; saving lin and pre and without them), each through
+    ``_block_vs_plain`` / ``_big_forward`` and at ``EDGE_ROWS`` too; then
+    each network's kernel path under autograd vs its structured network at
+    256 rows.  Tolerance 2e-5 max(1, max |plain|), as phases 7 and 17."""
     from gym_rotor_tpu_torch.algos.ppo import PPOAgent
     from gym_rotor_tpu_torch.algos.td3 import TD3Agent
-    from gym_rotor_tpu_torch.kernels import emlp_block as K
     from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     init = torch.Generator().manual_seed(SEED)
@@ -2678,27 +2761,13 @@ def phase_family_blocks(dev, obs_mod, obs_mono):
         spec, W, b, v = _first_block(net, views, prefix, dev)
         if spec.dims not in NEW_BLOCKS:
             raise AssertionError(f"{name}: first block {spec.dims}")
-        for nb in (128, 256, 768, 1024, 3723):
+        for nb in (128, 256, 768, 1024) + EDGE_ROWS:
             x = x_all[:nb].contiguous()
             nb = int(x.shape[0])
-            fk = K.emlp_block(spec, x, W, b, v)
-            fp = K.emlp_block_plain(spec, x, W, b, v)
             g_h = torch.randn(nb, spec.nh, generator=gen, device=dev)
-            bk = K.emlp_block_backward(spec, g_h, x, W, v, fk[1], fk[2], True)
-            bp = K.emlp_block_backward_plain(spec, g_h, x, W, v, fk[1],
-                                             fk[2], True)
-            gx = K.emlp_block_backward(spec, g_h, x, W, v, fk[1], fk[2],
-                                       False)[0]
-            errs = {}
-            for nm, kk, pp in zip(("h", "lin", "pre", "g_x", "g_W", "g_b",
-                                   "g_v", "g_x_only"), fk + bk + (gx,),
-                                  fp + bp + (bp[0],)):
-                d, tol, fin = _err(kk, pp)
-                errs[nm] = d
-                side = 0 if nm in ("h", "lin", "pre") else 1
-                worst[spec.dims][side] = max(worst[spec.dims][side], d)
-                if not (d <= tol and fin):
-                    bad.append((name, nb, nm, d, tol))
+            errs, failed, _ = _block_vs_plain(spec, x, W, b, v, g_h)
+            worst[spec.dims] = list(_worst(worst[spec.dims], errs))
+            bad += [(name, nb) + f for f in failed]
             log("family_blocks", net=name, dims=list(spec.dims),
                 nnz=spec.nnz, batch=nb, max_abs_err=errs)
         if not is_q:
@@ -2707,23 +2776,13 @@ def phase_family_blocks(dev, obs_mod, obs_mono):
                 x = x_all.repeat(reps, 1)[:nb]
                 x = (x + 0.05 * torch.randn(x.shape, generator=gen,
                                             device=dev)).contiguous()
-                fk = K.emlp_block(spec, x, W, b, v)
-                parts = [K.emlp_block_plain(spec, c, W, b, v)
-                         for c in torch.split(x, 32768)]
-                fp = (torch.cat([p[0] for p in parts]),
-                      torch.cat([p[1] for p in parts], 1),
-                      torch.cat([p[2] for p in parts], 1))
-                del parts
-                errs = {}
-                for nm, kk, pp in zip(("h", "lin", "pre"), fk, fp):
-                    d, tol, fin = _err(kk, pp)
-                    errs[nm] = d
-                    worst[spec.dims][0] = max(worst[spec.dims][0], d)
-                    if not (d <= tol and fin):
-                        bad.append((name, nb, nm, d, tol))
+                errs, failed, _ = _big_forward(spec, x, W, b, v)
+                worst[spec.dims][0] = max([worst[spec.dims][0]]
+                                          + list(errs.values()))
+                bad += [(name, nb) + f for f in failed]
                 log("family_blocks", net=name, dims=list(spec.dims),
                     batch=nb, max_abs_err=errs)
-                del fk, fp, x
+                del x
         # the whole kernel path under autograd vs the structured network
         xs = (x_all[:256, :sum(ctde.obs_dim_n)].contiguous(),
               x_all[:256, sum(ctde.obs_dim_n):].contiguous()) if is_q \
@@ -3629,6 +3688,31 @@ def phase_gym(dev):
     return launches
 
 
+def lift_timing(cfg, n, dev):
+    """The reference eval's lift alone (``batched_reset_reference``, plain
+    torch by design): device ms per call (the profiler's kernel and copy
+    time) and host wall ms, beside its bound: the bytes it must move, the
+    replayed x, v, R, W and b1d copied up once and the state and obs
+    written once."""
+    from gym_rotor_tpu_torch.envs.ref_stream import batched_reset_reference
+    from gym_rotor_tpu_torch.evaluate import EVAL_SEED
+    from gym_rotor_tpu_torch.utils.tree import tree_named_leaves
+
+    def lift():
+        return batched_reset_reference(cfg.replace(num_envs=n), EVAL_SEED,
+                                       device=dev)
+    ms, wall = kernel_ms(lift, 20)
+    st, obs = lift()
+    out = [t for _, t in tree_named_leaves(st)] + list(obs)
+    nbytes = 4 * n * (3 + 3 + 9 + 3 + 3) + sum(
+        t.numel() * t.element_size() for t in out
+        if isinstance(t, torch.Tensor))
+    bms, by = bound_ms(nbytes, 0)
+    log("kernels", kernel="reference_lift", envs=n, ms=ms,
+        wall_ms_per_call=wall, bytes=nbytes, bound_ms=bms, bound_by=by,
+        library_ms=None)
+
+
 def phase_ref_eval(dev):
     """(d): ``evaluate(eval_stream="reference", save_log=True)`` with the
     flagship's seeded EMLP actors: the replayed inits equal the lifted
@@ -3648,6 +3732,7 @@ def phase_ref_eval(dev):
     inits = reference_eval_inits(n, EVAL_SEED)
     bs, _ = batched_reset_reference(cfg.replace(num_envs=n), EVAL_SEED,
                                     device=dev)
+    lift_timing(cfg, n, dev)
     for k, t in (("x", bs.env.x), ("v", bs.env.v), ("R", bs.env.R),
                  ("W", bs.env.W), ("b1d", bs.traj.b1d)):
         want = torch.as_tensor(inits[k], dtype=torch.float32).to(dev)
@@ -3748,7 +3833,7 @@ def main():
         torch=torch.__version__, cuda=torch.version.cuda)
     cfg = Config(num_envs=B)        # flagship: MODUL, TD3, EMLP, rk4, 4096 envs
 
-    phase_build()
+    phase_build(dev)
     tick = phase_env_tick(cfg, dev, B, "train")
     # the eval path's shape: one partial block, nominal params
     small = phase_env_tick(cfg.replace(num_envs=cfg.num_eval), dev,

@@ -13,198 +13,504 @@
 // row, ~11 MFLOP, ~0.2 us at the fp32 peak; its weights and nonzeros are
 // ~0.15 MB.  The PPO V critics also run the forward over a whole horizon
 // (409 600 rows of [obs; next_obs] in the 4096-env configuration): ~18
-// GFLOP for the hidden block, ~0.27 ms at the peak, against ~400 MB of
-// saved lin and pre (~0.12 ms).  One thread per row
-// runs a serial chain over every nonzero, so the kernel is latency-bound
-// far above that (PERF.md); splitting a row across threads is left for
-// later.
+// GFLOP for the hidden block, ~0.27 ms at the peak; without autograd it
+// reads x and writes h only.  What holds the kernels far above that is the
+// sparse form's gathers: each nonzero costs a tile of 32 rows three
+// shared-memory loads (the entry and two of the tile's vectors, an SM's
+// cycle each) and about nine instructions, so the design spreads the
+// nonzeros of a tile over many warps and, at small batches, many SMs.
 //
-// Design: one thread per batch row, kThreads rows a block.  The block copies
-// W_eff, b_eff, the nonzeros' values and their packed (j << 16 | i) indices,
-// the row pointers (forward) or output indices (backward) and the gate
-// indices into shared memory, up to ~144 KB for agent 1's critic (above 48
-// KB, so the dynamic-memory limit is raised once per device and instance);
-// each row keeps lin, pre and its gradients in a per-thread shared-memory
-// column (stride kThreads, distinct banks across the warp) that the
-// nonzeros index.  The forward saves lin and pre field-major, (ng, B).  The
-// backward is two launches: the block pass (g_pre through the gate, whose
-// two terms land on one coordinate where gate[k] == k; g_lin through the
-// nonzeros; g_x = g_lin W; then, when parameter gradients are asked for,
-// the block's partial sums over its rows of g_W, g_b and g_v, one parameter
-// per thread in row order) and a reduction that adds the blocks' partials in
-// block order.  No float atomics: a run repeats its numbers.
+// Layout: a tile of kTile = 32 rows, lane t of every warp on row t; each
+// per-row vector of the tile sits in shared memory field-major, [c][row]
+// with an odd pitch, so a warp's 32 loads of one coordinate are
+// conflict-free, and every warp walks an index whose entries all its lanes
+// read at once (a broadcast).  Global memory reaches shared memory through
+// asynchronous copies (cp.async), a thread's all in flight at once.  Float32
+// FFMA only, no atomics: every sum is taken in a fixed order, so a rerun
+// repeats its numbers bit for bit.
+//
+// Both kernels run a grid of row tiles x groups of coordinates; the host
+// plans the groups (emlp_block.py: forward_plan, backward_plan) so that a
+// small batch spreads over the SMs (the backward over about two blocks an
+// SM), and the forward of a large one loops over its tiles in a persistent
+// grid of as many blocks as fit on the SMs at its shared memory.
+//
+// Forward (one launch).  A group is a run of the gated nonlinearity's atoms
+// (output coordinates with their gate coordinates).  A block loads W_eff
+// (transposed), b_eff and its group's nonzeros (v with the (j, i) tile
+// offsets) once, then per tile: lin for every coordinate with each warp on
+// 4 (a float4 of W_eff a step), Q(lin) for its group's outputs with each
+// warp on one output's nonzeros (longest first), the gate.  The next tile's x is copied while one is computed.
+// lin and pre are written field-major, (ng, B), only when a backward will
+// read them (template flag SAVE; null pointers from the wrapper).
+//
+// Backward (two launches, one for a single group without parameter
+// gradients).  A group is a run of coordinates.  Each block
+// loads its tile's lin, pre and g_h, forms g_pre for every coordinate (the
+// gate's inverse turns the scatter of the gate terms into a gather; where
+// gate[k] == k both terms land on k), then g_lin for its coordinates from
+// the coordinate-major lists: each coordinate's nonzeros with the output o
+// and the partner coordinate, g_lin[c] = g_pre[c] + 0.1 sum v g_pre[o]
+// lin[partner] (a nonzero with j == i sits twice in its list).  The lists
+// are cut into segments of about equal length, dealt to the warps longest
+// first; a warp sums its segments into slots, and one pass adds each
+// coordinate's slots in order.  The block writes its group's share of g_x
+// (its coordinates' rows of W_eff) and, with parameter gradients, its
+// tile's partial sums of g_W and g_b (its coordinates) and g_v (the
+// nonzeros whose output is in the group), one parameter per thread in row
+// order.  The finishing kernel adds the groups' shares of g_x in group order
+// and the tiles' partials in a fixed order.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kTile = 32;
+constexpr int kPitch = kTile + 1;
+constexpr int kFwdWarps = 16;
+constexpr int kBwdWarps = 16;
+constexpr int kSumThreads = 256;
 constexpr int kMaxDevices = 64;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// The block's static index (BlockSpec.ints), in this order.  "Offsets"
+// are a coordinate's place in a field-major tile, c * kPitch, two packed
+// as hi << 16 | lo.
+struct Ints {
+  const int* gate;      // NH: gate source of each output coordinate
+  const int* rowptr;    // NG + 1: nonzeros of output o, sorted by o
+  const int* ji;        // nnz: j << 16 | i
+  const int* o;         // nnz
+  const int* ji_off;    // nnz: the offsets of (j, i)
+  const int* cl_ptr;    // NG + 1: coordinate-major lists
+  const int* cl_off;    // 2 nnz: the offsets of (o, partner)
+  const int* cl_e;      // 2 nnz: the nonzero
+  const int* ginv_ptr;  // NG + 1: the gate's inverse
+  const int* ginv_k;    // NH
+};
+
+Ints ints_of(const int* p, int ng, int nh, int nnz) {
+  Ints s;
+  s.gate = p;
+  s.rowptr = s.gate + nh;
+  s.ji = s.rowptr + ng + 1;
+  s.o = s.ji + nnz;
+  s.ji_off = s.o + nnz;
+  s.cl_ptr = s.ji_off + nnz;
+  s.cl_off = s.cl_ptr + ng + 1;
+  s.cl_e = s.cl_off + 2 * nnz;
+  s.ginv_ptr = s.cl_e + 2 * nnz;
+  s.ginv_k = s.ginv_ptr + ng + 1;
+  return s;
+}
+
+// A plan (BlockSpec.plan_args): one int tensor on the device and a host
+// array of sizes, meta.  Forward: hdr (G x kFwdHdr), then the groups'
+// outputs, longest first (NG).  Backward: hdr (G x kBwdHdr), the warps'
+// segment ranges (G kBwdWarps + 1), the segments (3 each: slot, first and
+// end list entry) and the coordinates' slot ranges (NG + 1).
+enum FwdHdr { kK0, kK1, kQ0, kQ1, kF0, kF1, kEH0, kEH1, kEQ0, kEQ1, kFwdHdr };
+enum BwdHdr { kC0, kC1, kE0, kE1, kS0, kS1, kSeg0, kSeg1, kV0, kV1, kBwdHdr };
+enum FwdMeta { kFG, kFMaxEnt, kFWarps, kFwdMeta };
+enum BwdMeta { kG, kNSeg, kMaxEnt, kMaxSlots, kMaxCoords, kMaxSegs, kMaxNv,
+               kWarps, kBwdMeta };
+
+struct FwdPlan {
+  const int* hdr;
+  const int* fo;
+};
+
+struct BwdPlan {
+  const int* hdr;
+  const int* wb;
+  const int* seg;
+  const int* cs;
+};
+
+FwdPlan fwd_plan_of(const int* p, const int* meta) {
+  return {p, p + meta[kFG] * kFwdHdr};
+}
+
+BwdPlan bwd_plan_of(const int* p, const int* meta) {
+  BwdPlan s;
+  s.hdr = p;
+  s.wb = s.hdr + meta[kG] * kBwdHdr;
+  s.seg = s.wb + meta[kG] * kBwdWarps + 1;
+  s.cs = s.seg + 3 * meta[kNSeg];
+  return s;
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+
+// wait for this thread's copies (a barrier follows)
+__device__ __forceinline__ void cp_wait() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+template <int NT>
+__device__ __forceinline__ void copy_ints(int* dst, const int* src, int n) {
+  for (int q = threadIdx.x; q < n; q += NT) cp4(dst + q, src + q);
+}
+
+// rows [r0, r0 + rows) of a row-major (B, N) array into a field-major tile
+template <int N, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int r0, int rows) {
+  for (int q = threadIdx.x; q < rows * N; q += NT) {
+    const int r = q / N;
+    cp4(dst + (q - r * N) * kPitch + r, src + (size_t)r0 * N + q);
+  }
+}
+
+// columns [r0, r0 + rows) of a field-major (C, B) array into a tile
+template <int C, int NT>
+__device__ __forceinline__ void stage_cols(float* dst, const float* src,
+                                           int B, int r0, int rows) {
+  for (int q = threadIdx.x; q < C * kTile; q += NT) {
+    const int c = q / kTile, r = q - c * kTile;
+    if (r < rows) cp4(dst + c * kPitch + r, src + (size_t)c * B + r0 + r);
+  }
+}
 
 // ---------------------------------------------------------------- forward
 template <int NI, int NG, int NH>
-__global__ void __launch_bounds__(kThreads)
-block_fwd_kernel(const float* __restrict__ x, int B,
-                 const float* __restrict__ params,
-                 const int* __restrict__ ints, int nnz, float* __restrict__ h,
-                 float* __restrict__ lin_out, float* __restrict__ pre_out) {
-  extern __shared__ float smem[];
-  const int np = NG * NI + NG + nnz;
-  const int ni = NH + (NG + 1) + nnz;
-  for (int k = threadIdx.x; k < np; k += kThreads) smem[k] = params[k];
-  int* si = reinterpret_cast<int*>(smem + np);
-  for (int k = threadIdx.x; k < ni; k += kThreads) si[k] = ints[k];
-  __syncthreads();
-  const float* W = smem;
-  const float* b = W + NG * NI;
-  const float* v = b + NG;
-  const int* g = si;
-  const int* rowptr = g + NH;
-  const int* ji = rowptr + NG + 1;
-  float* lcol = reinterpret_cast<float*>(si + ni) + threadIdx.x;
-  float* pcol = lcol + NG * kThreads;
+size_t fwd_smem(const int* meta) {
+  return (size_t)NI * round4(NG) * 4 + (size_t)meta[kFMaxEnt] * 8 +
+         round4(NG) * 4 + (size_t)(NG + 1 + NH + NG) * 4 +
+         (size_t)(2 * NI + 2 * NG) * kPitch * 4;
+}
 
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= B) return;
-  float xr[NI];
-#pragma unroll
-  for (int k = 0; k < NI; ++k) xr[k] = x[(size_t)r * NI + k];
-#pragma unroll 1
-  for (int o = 0; o < NG; ++o) {
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NI; ++k) s += xr[k] * W[o * NI + k];
-    const float l = s + b[o];
-    lcol[o * kThreads] = l;
-    lin_out[(size_t)o * B + r] = l;
+template <int NI, int NG, int NH, bool SAVE>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+block_fwd_kernel(const float* __restrict__ x, int B,
+                 const float* __restrict__ W, const float* __restrict__ bias,
+                 const float* __restrict__ v, Ints ix, FwdPlan pl,
+                 int max_ent, float* __restrict__ h,
+                 float* __restrict__ lin_out, float* __restrict__ pre_out) {
+  constexpr int NGP = round4(NG);
+  constexpr int NT = kFwdWarps * 32;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int hd[kFwdHdr];
+  float* Wt = smem;                                     // [k][o]
+  int2* ent = reinterpret_cast<int2*>(Wt + NI * NGP);   // (j, i), v
+  float* b = reinterpret_cast<float*>(ent + max_ent);
+  int* rowptr = reinterpret_cast<int*>(b + NGP);
+  int* gate = rowptr + NG + 1;
+  int* order = gate + NH;
+  float* xbuf = reinterpret_cast<float*>(order + NG);   // 2 x [k][row]
+  float* ls = xbuf + 2 * NI * kPitch;                   // [o][row]
+  float* ps = ls + NG * kPitch;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t < kFwdHdr) hd[t] = pl.hdr[blockIdx.y * kFwdHdr + t];
+  __syncthreads();
+  const int k0 = hd[kK0], k1 = hd[kK1], q0 = hd[kQ0], q1 = hd[kQ1];
+  const int n_out = hd[kF1] - hd[kF0];
+  const int eh0 = hd[kEH0], nh_e = hd[kEH1] - eh0;
+  const int eq0 = hd[kEQ0], nq_e = hd[kEQ1] - eq0;
+  for (int q = t; q < NG * NI; q += NT) {
+    const int o = q / NI;
+    cp4(Wt + (q - o * NI) * NGP + o, W + q);
   }
-#pragma unroll 1
-  for (int o = 0; o < NG; ++o) {
-    float q = 0.0f;
-    for (int e = rowptr[o]; e < rowptr[o + 1]; ++e) {
-      const int p = ji[e];
-      q += v[e] * lcol[(p >> 16) * kThreads] * lcol[(p & 0xffff) * kThreads];
+  for (int q = t; q < NI * (NGP - NG); q += NT)
+    Wt[(q / (NGP - NG)) * NGP + NG + q % (NGP - NG)] = 0.0f;
+  // the group's nonzeros: its outputs' [eh0, eh1), then its gates'
+  // [eq0, eq1)
+  for (int q = t; q < nh_e + nq_e; q += NT) {
+    const int e = q < nh_e ? eh0 + q : eq0 + q - nh_e;
+    cp4(&ent[q].x, ix.ji_off + e);
+    cp4(&ent[q].y, v + e);
+  }
+  for (int o = t; o < NGP; o += NT) {
+    if (o < NG) cp4(b + o, bias + o);
+    else b[o] = 0.0f;
+  }
+  copy_ints<NT>(rowptr, ix.rowptr, NG + 1);
+  copy_ints<NT>(gate, ix.gate, NH);
+  copy_ints<NT>(order, pl.fo + hd[kF0], n_out);
+
+  const float* lr = ls + lane;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  int tile = blockIdx.x;
+  stage_rows<NI, NT>(xbuf, x, tile * kTile, min(kTile, B - tile * kTile));
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int r0 = tile * kTile, rows = min(kTile, B - r0);
+    const float* xs = xbuf + (it & 1) * NI * kPitch;
+    cp_wait();
+    __syncthreads();
+    const int next = tile + gridDim.x;
+    if (next < n_tiles)
+      stage_rows<NI, NT>(xbuf + ((it + 1) & 1) * NI * kPitch, x,
+                         next * kTile, min(kTile, B - next * kTile));
+    __pipeline_commit();
+    // lin: each warp 4 outputs, each lane its row; k in order, then b
+    for (int q4 = warp; q4 < NGP / 4; q4 += kFwdWarps) {
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < NI; ++k) {
+        const float xv = xs[k * kPitch + lane];
+        const float4 w = reinterpret_cast<const float4*>(Wt + k * NGP)[q4];
+        a[0] = fmaf(xv, w.x, a[0]);
+        a[1] = fmaf(xv, w.y, a[1]);
+        a[2] = fmaf(xv, w.z, a[2]);
+        a[3] = fmaf(xv, w.w, a[3]);
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int o = 4 * q4 + m;
+        if (o < NG) {
+          const float l = a[m] + b[o];
+          ls[o * kPitch + lane] = l;
+          const bool mine = (o >= k0 && o < k1) || (o >= q0 && o < q1);
+          if (SAVE && mine && lane < rows)
+            lin_out[(size_t)o * B + r0 + lane] = l;
+        }
+      }
     }
-    const float pr = 0.1f * q + lcol[o * kThreads];
-    pcol[o * kThreads] = pr;
-    pre_out[(size_t)o * B + r] = pr;
+    __syncthreads();
+    // pre: each warp one output's nonzeros, broadcast to every lane
+    for (int m = warp; m < n_out; m += kFwdWarps) {
+      const int o = order[m];
+      const int2* eo = ent + (o < NH ? -eh0 : nh_e - eq0);
+      const int e1 = rowptr[o + 1];
+      float q = 0.0f;
+#pragma unroll 8
+      for (int e = rowptr[o]; e < e1; ++e) {
+        const int2 en = eo[e];
+        q = fmaf(__int_as_float(en.y) * lr[(unsigned)en.x >> 16],
+                 lr[en.x & 0xffff], q);
+      }
+      const float pr = 0.1f * q + lr[o * kPitch];
+      ps[o * kPitch + lane] = pr;
+      if (SAVE && lane < rows) pre_out[(size_t)o * B + r0 + lane] = pr;
+    }
+    __syncthreads();
+    // h for the group's outputs, written row-major; the next tile's writes
+    // to the x buffers, ls and ps all come after a barrier that every read
+    // of this tile precedes
+    const int nk = k1 - k0;
+    for (int q = t; q < rows * nk; q += NT) {
+      const int r = q / nk, k = k0 + q - r * nk;
+      h[(size_t)(r0 + r) * NH + k] =
+          ps[k * kPitch + r] / (1.0f + expf(-ps[gate[k] * kPitch + r]));
+    }
   }
-#pragma unroll 1
-  for (int k = 0; k < NH; ++k)
-    h[(size_t)r * NH + k] =
-        pcol[k * kThreads] / (1.0f + expf(-pcol[g[k] * kThreads]));
 }
 
 // --------------------------------------------------------------- backward
 template <int NI, int NG, int NH>
-__global__ void __launch_bounds__(kThreads)
+size_t bwd_smem(const int* meta) {
+  return (size_t)meta[kMaxEnt] * 8 + (size_t)meta[kMaxNv] * 8 +
+         (size_t)(3 * NG + NH + NI + meta[kMaxSlots] + meta[kMaxCoords]) *
+             kPitch * 4 +
+         (size_t)meta[kMaxCoords] * round4(NI) * 4 +
+         (size_t)(3 * meta[kMaxSegs] + kBwdWarps + 1 + meta[kMaxCoords] + 1 +
+                  NH + NG + 1 + NH) *
+             4;
+}
+
+template <int NI, int NG, int NH>
+__global__ void __launch_bounds__(kBwdWarps * 32)
 block_bwd_kernel(const float* __restrict__ g_h, const float* __restrict__ x,
-                 int B, const float* __restrict__ params,
-                 const int* __restrict__ ints, int nnz,
-                 const float* __restrict__ lin, const float* __restrict__ pre,
-                 float* __restrict__ g_x, float* __restrict__ partial,
-                 int need_params) {
-  extern __shared__ float smem[];
-  // floats: W (NG*NI), v (nnz); ints: gate (NH), o (nnz), ji (nnz);
-  // columns: g_pre, g_lin, lin (NG * kThreads each)
-  float* W = smem;
-  float* v = W + NG * NI;
-  for (int k = threadIdx.x; k < NG * NI; k += kThreads) W[k] = params[k];
-  for (int k = threadIdx.x; k < nnz; k += kThreads)
-    v[k] = params[NG * NI + NG + k];
-  int* g = reinterpret_cast<int*>(v + nnz);
-  int* oi = g + NH;
-  int* ji = oi + nnz;
-  const int* ints_ji = ints + NH + NG + 1;
-  const int* ints_o = ints_ji + nnz;
-  for (int k = threadIdx.x; k < NH; k += kThreads) g[k] = ints[k];
-  for (int k = threadIdx.x; k < nnz; k += kThreads) {
-    ji[k] = ints_ji[k];
-    oi[k] = ints_o[k];
+                 int B, const float* __restrict__ W,
+                 const float* __restrict__ v, Ints ix, BwdPlan pl,
+                 int max_ent, int max_nv, int max_slots, int max_coords,
+                 int max_segs, const float* __restrict__ lin,
+                 const float* __restrict__ pre, float* __restrict__ gx_part,
+                 float* __restrict__ partial, int n_par, int need_params) {
+  constexpr int NT = kBwdWarps * 32;
+  constexpr int NIP = round4(NI);
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int hd[kBwdHdr];
+  float* Wg = smem;                                  // the group's W rows
+  int2* ent = reinterpret_cast<int2*>(Wg + max_coords * NIP);  // (o, p), v
+  int2* gv_ix = ent + max_ent;                       // o, (j, i) offsets
+  float* ls = reinterpret_cast<float*>(gv_ix + max_nv);
+  float* ps = ls + NG * kPitch;
+  float* gps = ps + NG * kPitch;
+  float* gs = gps + NG * kPitch;
+  float* xs = gs + NH * kPitch;
+  float* segp = xs + NI * kPitch;
+  float* gl = segp + max_slots * kPitch;
+  int* seg = reinterpret_cast<int*>(gl + max_coords * kPitch);
+  int* wb = seg + 3 * max_segs;
+  int* cs = wb + kBwdWarps + 1;
+  int* gate = cs + max_coords + 1;
+  int* ginv_ptr = gate + NH;
+  int* ginv_k = ginv_ptr + NG + 1;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = blockIdx.y;
+  if (t < kBwdHdr) hd[t] = pl.hdr[g * kBwdHdr + t];
+  __syncthreads();
+  const int c0 = hd[kC0], nc = hd[kC1] - c0;
+  const int e0 = hd[kE0], s0 = hd[kS0], seg0 = hd[kSeg0];
+  const int v0 = hd[kV0], nv = hd[kV1] - v0;
+  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
+
+#pragma unroll 4
+  for (int q = t; q < hd[kE1] - e0; q += NT) {
+    cp4(&ent[q].x, ix.cl_off + e0 + q);
+    cp4(&ent[q].y, v + ix.cl_e[e0 + q]);
   }
-  float* gpcol = reinterpret_cast<float*>(ji + nnz);
-  float* glcol = gpcol + NG * kThreads;
-  float* lncol = glcol + NG * kThreads;
-  const int r0 = blockIdx.x * kThreads;
-  const int rows = min(kThreads, B - r0);
-  const int t = threadIdx.x;
-  const int r = r0 + t;
-  if (t < rows)
-    for (int o = 0; o < NG; ++o) lncol[o * kThreads + t] = lin[(size_t)o * B + r];
+  for (int q = t; q < nv; q += NT) {
+    cp4(&gv_ix[q].x, ix.o + v0 + q);
+    cp4(&gv_ix[q].y, ix.ji_off + v0 + q);
+  }
+  copy_ints<NT>(seg, pl.seg + 3 * seg0, 3 * (hd[kSeg1] - seg0));
+  copy_ints<NT>(wb, pl.wb + g * kBwdWarps, kBwdWarps + 1);
+  copy_ints<NT>(cs, pl.cs + c0, nc + 1);
+  copy_ints<NT>(gate, ix.gate, NH);
+  copy_ints<NT>(ginv_ptr, ix.ginv_ptr, NG + 1);
+  copy_ints<NT>(ginv_k, ix.ginv_k, NH);
+  for (int q = t; q < nc * NIP; q += NT) {
+    const int cl = q / NIP, k = q - cl * NIP;
+    if (k < NI) cp4(Wg + q, W + (c0 + cl) * NI + k);
+    else Wg[q] = 0.0f;
+  }
+  stage_cols<NG, NT>(ls, lin, B, r0, rows);
+  stage_cols<NG, NT>(ps, pre, B, r0, rows);
+  stage_rows<NH, NT>(gs, g_h, r0, rows);
+  if (need_params) stage_rows<NI, NT>(xs, x, r0, rows);
+  cp_wait();
   __syncthreads();
 
-  if (t < rows) {
-    float* gp = gpcol + t;
-    float* gl = glcol + t;
-    const float* ln = lncol + t;
-    for (int o = NH; o < NG; ++o) gp[o * kThreads] = 0.0f;
-#pragma unroll 1
-    for (int k = 0; k < NH; ++k) {
-      const float s = 1.0f / (1.0f + expf(-pre[(size_t)g[k] * B + r]));
-      gp[k * kThreads] = g_h[(size_t)r * NH + k] * s;
+  // g_pre for every coordinate: the gate's first term, then the terms of
+  // the outputs gated by c, in k order (as the twin's index_add_)
+  for (int c = warp; c < NG; c += kBwdWarps) {
+    float gp = 0.0f;
+    if (c < NH)
+      gp = gs[c * kPitch + lane] *
+           (1.0f / (1.0f + expf(-ps[gate[c] * kPitch + lane])));
+    const int k1 = ginv_ptr[c + 1];
+    if (ginv_ptr[c] < k1) {
+      const float s = 1.0f / (1.0f + expf(-ps[c * kPitch + lane]));
+      for (int kk = ginv_ptr[c]; kk < k1; ++kk) {
+        const int k = ginv_k[kk];
+        gp += gs[k * kPitch + lane] * ps[k * kPitch + lane] * s * (1.0f - s);
+      }
     }
-#pragma unroll 1
-    for (int k = 0; k < NH; ++k) {
-      const float s = 1.0f / (1.0f + expf(-pre[(size_t)g[k] * B + r]));
-      gp[g[k] * kThreads] +=
-          g_h[(size_t)r * NH + k] * pre[(size_t)k * B + r] * s * (1.0f - s);
+    gps[c * kPitch + lane] = gp;
+  }
+  __syncthreads();
+
+  // g_lin's list sums, one segment at a time per warp
+  const float* gr = gps + lane;
+  const float* lr = ls + lane;
+  for (int s = wb[warp] - seg0; s < wb[warp + 1] - seg0; ++s) {
+    const int hi = seg[3 * s + 2] - e0;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int e = seg[3 * s + 1] - e0; e < hi; ++e) {
+      const int2 en = ent[e];
+      acc = fmaf(__int_as_float(en.y) * gr[(unsigned)en.x >> 16],
+                 lr[en.x & 0xffff], acc);
     }
-    for (int o = 0; o < NG; ++o) gl[o * kThreads] = gp[o * kThreads];
-#pragma unroll 1
-    for (int e = 0; e < nnz; ++e) {
-      const int p = ji[e];
-      const int j = p >> 16, i = p & 0xffff;
-      const float tv = 0.1f * gp[oi[e] * kThreads] * v[e];
-      const float li = ln[i * kThreads], lj = ln[j * kThreads];
-      gl[j * kThreads] += tv * li;
-      gl[i * kThreads] += tv * lj;
+    segp[(seg[3 * s] - s0) * kPitch + lane] = 0.1f * acc;
+  }
+  __syncthreads();
+
+  // g_lin = g_pre + each coordinate's slots in order
+  for (int cl = warp; cl < nc; cl += kBwdWarps) {
+    float acc = gps[(c0 + cl) * kPitch + lane];
+    for (int s = cs[cl]; s < cs[cl + 1]; ++s)
+      acc += segp[(s - s0) * kPitch + lane];
+    gl[cl * kPitch + lane] = acc;
+  }
+  __syncthreads();
+
+  // the group's share of g_x = g_lin W_eff, coordinates in order, each
+  // thread on a row and 4 inputs (a float4 of W_eff a step)
+  for (int q = t; q < rows * (NIP / 4); q += NT) {
+    const int r = q / (NIP / 4), k4 = q - r * (NIP / 4);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int cl = 0; cl < nc; ++cl) {
+      const float gv = gl[cl * kPitch + r];
+      const float4 w = reinterpret_cast<const float4*>(Wg + cl * NIP)[k4];
+      a[0] = fmaf(gv, w.x, a[0]);
+      a[1] = fmaf(gv, w.y, a[1]);
+      a[2] = fmaf(gv, w.z, a[2]);
+      a[3] = fmaf(gv, w.w, a[3]);
     }
-#pragma unroll 1
-    for (int k = 0; k < NI; ++k) {
-      float s = 0.0f;
-      for (int o = 0; o < NG; ++o) s += gl[o * kThreads] * W[o * NI + k];
-      g_x[(size_t)r * NI + k] = s;
-    }
+    float* out = gx_part + ((size_t)g * B + r0 + r) * NI + 4 * k4;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (4 * k4 + m < NI) out[m] = a[m];
   }
   if (!need_params) return;
-  __syncthreads();
-  const int n_par = NG * NI + NG + nnz;
+
+  // this tile's partial sums of the group's parameters, rows in order
+  const int nw = nc * NI;
   float* out = partial + (size_t)blockIdx.x * n_par;
-  for (int q = t; q < n_par; q += kThreads) {
+  for (int q = t; q < nw + nc + nv; q += NT) {
     float s = 0.0f;
-    if (q < NG * NI) {
-      const int o = q / NI, k = q % NI;
-      for (int rr = 0; rr < rows; ++rr)
-        s += glcol[o * kThreads + rr] * x[(size_t)(r0 + rr) * NI + k];
-    } else if (q < NG * NI + NG) {
-      const int o = q - NG * NI;
-      for (int rr = 0; rr < rows; ++rr) s += glcol[o * kThreads + rr];
+    if (q < nw) {
+      const int cl = q / NI, k = q - cl * NI;
+      const float* a = gl + cl * kPitch;
+      const float* xx = xs + k * kPitch;
+      for (int r = 0; r < rows; ++r) s = fmaf(a[r], xx[r], s);
+      out[c0 * NI + q] = s;
+    } else if (q < nw + nc) {
+      const float* a = gl + (q - nw) * kPitch;
+      for (int r = 0; r < rows; ++r) s += a[r];
+      out[NG * NI + c0 + q - nw] = s;
     } else {
-      const int e = q - NG * NI - NG;
-      const int p = ji[e];
-      const float* gpo = gpcol + oi[e] * kThreads;
-      const float* lj = lncol + (p >> 16) * kThreads;
-      const float* li = lncol + (p & 0xffff) * kThreads;
-      for (int rr = 0; rr < rows; ++rr) s += 0.1f * gpo[rr] * lj[rr] * li[rr];
+      const int2 en = gv_ix[q - nw - nc];
+      const float* go = gps + en.x * kPitch;
+      const float* lj = ls + ((unsigned)en.y >> 16);
+      const float* li = ls + (en.y & 0xffff);
+      for (int r = 0; r < rows; ++r) s += 0.1f * go[r] * lj[r] * li[r];
+      out[NG * NI + NG + v0 + q - nw - nc] = s;
     }
-    out[q] = s;
   }
 }
 
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    int n_blocks, int n_par,
-                                    float* __restrict__ out) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n_par) return;
+// g_x as the groups' shares added in group order, one output a thread
+// (blocks [0, gx_blocks)); then the parameter gradients as the tiles'
+// partials added in a fixed order, 32 parameters a block: warp w adds
+// tiles w, w + 8, ... in order, then the 8 warps' sums in warp order
+__global__ void __launch_bounds__(kSumThreads)
+block_bwd_finish_kernel(const float* __restrict__ gx_part, int groups,
+                        int n_gx, int gx_blocks, float* __restrict__ g_x,
+                        const float* __restrict__ partial, int n_tiles,
+                        int n_par, float* __restrict__ g_par) {
+  constexpr int kWarps = kSumThreads / 32;
+  __shared__ float sums[kWarps][32];
+  const int t = threadIdx.x;
+  if ((int)blockIdx.x < gx_blocks) {
+    const int q = blockIdx.x * kSumThreads + t;
+    if (q >= n_gx) return;
+    float s = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < groups; ++k) s += gx_part[(size_t)k * n_gx + q];
+    g_x[q] = s;
+    return;
+  }
+  const int lane = t & 31, warp = t >> 5;
+  const int q = ((int)blockIdx.x - gx_blocks) * 32 + lane;
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * n_par + q];
-  out[q] = s;
+  if (q < n_par) {
+#pragma unroll 4
+    for (int k = warp; k < n_tiles; k += kWarps)
+      s += partial[(size_t)k * n_par + q];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && q < n_par) {
+    float tot = sums[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) tot += sums[w][lane];
+    g_par[q] = tot;
+  }
 }
 
 // ------------------------------------------------------------- launchers
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes, size_t* done) {
-  // per device and instance: raise the dynamic shared-memory limit when a
+  // per device and kernel: raise the dynamic shared-memory limit when a
   // launch needs more than what was set on this device before
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -217,40 +523,81 @@ cudaError_t set_smem(K kernel, size_t bytes, size_t* done) {
   return e;
 }
 
-template <int NI, int NG, int NH>
-int fwd(const float* x, int B, const float* params, const int* ints, int nnz,
-        float* h, float* lin, float* pre, cudaStream_t st) {
+template <int NI, int NG, int NH, bool SAVE>
+int fwd_save(const float* x, int B, const float* W, const float* b,
+             const float* v, const int* ints, int nnz, const int* plan,
+             const int* meta, float* h, float* lin, float* pre,
+             cudaStream_t st) {
   static size_t done[kMaxDevices] = {0};
-  const size_t smem = (size_t)(NG * NI + NG + nnz) * 4 +
-                      (size_t)(NH + NG + 1 + nnz) * 4 +
-                      (size_t)2 * NG * kThreads * 4;
-  cudaError_t e = set_smem(block_fwd_kernel<NI, NG, NH>, smem, done);
+  auto kernel = block_fwd_kernel<NI, NG, NH, SAVE>;
+  const size_t smem = fwd_smem<NI, NG, NH>(meta);
+  cudaError_t e = set_smem(kernel, smem, done);
   if (e != cudaSuccess) return (int)e;
-  block_fwd_kernel<NI, NG, NH><<<(B + kThreads - 1) / kThreads, kThreads,
-                                 smem, st>>>(x, B, params, ints, nnz, h, lin,
-                                             pre);
+  // a persistent grid: as many blocks over all groups as fit on the SMs at
+  // this shared memory (one wave, so each block loads the constant side
+  // once), at most one block a tile
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kFwdWarps * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  int slots = (per_sm * sms + meta[kFG] - 1) / meta[kFG];
+  if (slots > n_tiles) slots = n_tiles;
+  kernel<<<dim3(slots, meta[kFG]), kFwdWarps * 32, smem, st>>>(
+      x, B, W, b, v, ints_of(ints, NG, NH, nnz), fwd_plan_of(plan, meta),
+      meta[kFMaxEnt], h, lin, pre);
   return (int)cudaGetLastError();
 }
 
 template <int NI, int NG, int NH>
-int bwd(const float* g_h, const float* x, int B, const float* params,
-        const int* ints, int nnz, const float* lin, const float* pre,
+int fwd(const float* x, int B, const float* W, const float* b, const float* v,
+        const int* ints, int nnz, const int* plan, const int* meta,
+        float* h, float* lin, float* pre, cudaStream_t st) {
+  if ((lin == nullptr) != (pre == nullptr) || meta[kFWarps] != kFwdWarps ||
+      meta[kFG] < 1)
+    return (int)cudaErrorInvalidValue;
+  return lin ? fwd_save<NI, NG, NH, true>(x, B, W, b, v, ints, nnz, plan,
+                                          meta, h, lin, pre, st)
+             : fwd_save<NI, NG, NH, false>(x, B, W, b, v, ints, nnz, plan,
+                                           meta, h, nullptr, nullptr, st);
+}
+
+template <int NI, int NG, int NH>
+int bwd(const float* g_h, const float* x, int B, const float* W,
+        const float* v, const int* ints, int nnz, const float* lin,
+        const float* pre, const int* plan, const int* meta, float* gx_part,
         float* g_x, float* partial, float* g_par, int need_params,
         cudaStream_t st) {
   static size_t done[kMaxDevices] = {0};
-  const size_t smem = (size_t)(NG * NI + nnz) * 4 +
-                      (size_t)(NH + 2 * nnz) * 4 +
-                      (size_t)3 * NG * kThreads * 4;
+  if (meta[kWarps] != kBwdWarps || meta[kG] < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem<NI, NG, NH>(meta);
   cudaError_t e = set_smem(block_bwd_kernel<NI, NG, NH>, smem, done);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  block_bwd_kernel<NI, NG, NH><<<blocks, kThreads, smem, st>>>(
-      g_h, x, B, params, ints, nnz, lin, pre, g_x, partial, need_params);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !need_params) return (int)e;
+  const int n_tiles = (B + kTile - 1) / kTile;
   const int n_par = NG * NI + NG + nnz;
-  sum_partials_kernel<<<(n_par + 255) / 256, 256, 0, st>>>(partial, blocks,
-                                                          n_par, g_par);
+  // one group: its share is g_x, and the finishing kernel only adds the
+  // parameter partials (if any)
+  const bool one = meta[kG] == 1;
+  block_bwd_kernel<NI, NG, NH>
+      <<<dim3(n_tiles, meta[kG]), kBwdWarps * 32, smem, st>>>(
+          g_h, x, B, W, v, ints_of(ints, NG, NH, nnz),
+          bwd_plan_of(plan, meta), meta[kMaxEnt], meta[kMaxNv],
+          meta[kMaxSlots], meta[kMaxCoords], meta[kMaxSegs], lin, pre,
+          one ? g_x : gx_part, partial, n_par, need_params);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int gx_blocks = one ? 0 : (B * NI + kSumThreads - 1) / kSumThreads;
+  const int par_blocks = need_params ? (n_par + 31) / 32 : 0;
+  if (gx_blocks + par_blocks == 0) return cudaSuccess;
+  block_bwd_finish_kernel<<<gx_blocks + par_blocks, kSumThreads, 0, st>>>(
+      gx_part, meta[kG], B * NI, gx_blocks, g_x, partial, n_tiles,
+      need_params ? n_par : 0, g_par);
   return (int)cudaGetLastError();
 }
 
@@ -274,37 +621,69 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-extern "C" int emlp_block_rows_per_block() { return kThreads; }
+// The geometry the host plans for: rows a tile, the tiles' pitch, and the
+// warps of a forward and of a backward block.
+extern "C" int emlp_block_geometry(int which) {
+  return which == 0   ? kTile
+         : which == 1 ? kPitch
+         : which == 2 ? kFwdWarps
+                      : kBwdWarps;
+}
 
-extern "C" int emlp_block_fwd_launch(const void* x, int B, const void* params,
-                                     const void* ints, int nnz, void* h,
-                                     void* lin, void* pre, int nin, int ng,
-                                     int nh, void* stream) {
+// Dynamic shared memory of one launch (bytes): the forward's (which 0) or
+// the backward's main kernel's (1) under a plan's meta; 0 for a shape
+// without an instance.
+extern "C" long long emlp_block_smem(int nin, int ng, int nh,
+                                     const int* meta, int which) {
+#define X(a, b, c)                                         \
+  if (nin == a && ng == b && nh == c)                      \
+    return which == 0 ? (long long)fwd_smem<a, b, c>(meta) \
+                      : (long long)bwd_smem<a, b, c>(meta);
+  EMLP_BLOCK_INSTANCES(X)
+#undef X
+  return 0;
+}
+
+// lin and pre both null: the forward saves nothing (no backward follows).
+// plan / meta: BlockSpec.plan_args of the forward's group count.
+extern "C" int emlp_block_fwd_launch(const void* x, int B, const void* W,
+                                     const void* b, const void* v,
+                                     const void* ints, int nnz,
+                                     const void* plan, const int* meta,
+                                     void* h, void* lin, void* pre, int nin,
+                                     int ng, int nh, void* stream) {
   if (B <= 0 || nnz < 0) return (int)cudaErrorInvalidValue;
-#define X(a, b, c)                                                          \
-  if (nin == a && ng == b && nh == c)                                       \
-    return fwd<a, b, c>((const float*)x, B, (const float*)params,           \
-                        (const int*)ints, nnz, (float*)h, (float*)lin,      \
-                        (float*)pre, (cudaStream_t)stream);
+#define X(a, b_, c)                                                         \
+  if (nin == a && ng == b_ && nh == c)                                      \
+    return fwd<a, b_, c>((const float*)x, B, (const float*)W,               \
+                         (const float*)b, (const float*)v, (const int*)ints, \
+                         nnz, (const int*)plan, meta, (float*)h,            \
+                         (float*)lin, (float*)pre, (cudaStream_t)stream);
   EMLP_BLOCK_INSTANCES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
 }
 
+// plan / meta: BlockSpec.plan_args of the backward's group count; gx_part
+// (G, B, nin) scratch when G > 1, partial (tiles, n_par) scratch when
+// need_params.
 extern "C" int emlp_block_bwd_launch(const void* g_h, const void* x, int B,
-                                     const void* params, const void* ints,
-                                     int nnz, const void* lin, const void* pre,
-                                     void* g_x, void* partial, void* g_par,
-                                     int need_params, int nin, int ng, int nh,
-                                     void* stream) {
+                                     const void* W, const void* v,
+                                     const void* ints, int nnz,
+                                     const void* lin, const void* pre,
+                                     const void* plan, const int* meta,
+                                     void* gx_part, void* g_x, void* partial,
+                                     void* g_par, int need_params, int nin,
+                                     int ng, int nh, void* stream) {
   if (B <= 0 || nnz < 0) return (int)cudaErrorInvalidValue;
 #define X(a, b, c)                                                          \
   if (nin == a && ng == b && nh == c)                                       \
     return bwd<a, b, c>((const float*)g_h, (const float*)x, B,              \
-                        (const float*)params, (const int*)ints, nnz,        \
-                        (const float*)lin, (const float*)pre, (float*)g_x,  \
-                        (float*)partial, (float*)g_par, need_params,        \
-                        (cudaStream_t)stream);
+                        (const float*)W, (const float*)v, (const int*)ints, \
+                        nnz, (const float*)lin, (const float*)pre,          \
+                        (const int*)plan, meta, (float*)gx_part,            \
+                        (float*)g_x, (float*)partial, (float*)g_par,        \
+                        need_params, (cudaStream_t)stream);
   EMLP_BLOCK_INSTANCES(X)
 #undef X
   return (int)cudaErrorInvalidValue;

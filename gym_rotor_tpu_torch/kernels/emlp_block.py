@@ -11,29 +11,36 @@ on CPU tensors and repeat the kernels' arithmetic.
 
 ``Q`` is the block's bilinear form as its nonzeros (``bilinear_sparse``):
 ``Q(lin)[o] = sum_e v[e] lin[j[e]] lin[i[e]]`` over the entries of output
-``o``.  The forward saves ``lin`` and ``pre`` (field-major, ``(ng, B)``).
-The backward of a nonzero ``(o, j, i, v)`` is
+``o``.  The forward saves ``lin`` and ``pre`` (field-major, ``(ng, B)``)
+only when a backward will read them: ``block_apply`` runs it without them
+when autograd records nothing (``torch.no_grad()``, or no input needing a
+gradient), as JAX under ``jit`` keeps no residual it does not need.  The
+backward of a nonzero ``(o, j, i, v)`` is
 ``g_lin[j] += 0.1 v g_pre[o] lin[i]``, ``g_lin[i] += 0.1 v g_pre[o] lin[j]``
 and ``g_v[e] = sum over rows of 0.1 g_pre[o] lin[j] lin[i]``; the gate's
 two terms land on one coordinate where ``gate_idx[c] == c`` (SiLU).  The
-sums over rows of ``g_W``, ``g_b`` and ``g_v`` are per-block partials and
-a second pass, in a fixed order, so a run repeats its numbers.  Gradients
+kernel takes ``g_lin`` as a gather: ``BlockSpec`` holds, per coordinate,
+the nonzeros that touch it (``coordinate_lists``) and the gate's inverse,
+and ``backward_plan`` cuts the coordinates into groups (one per block
+column of the grid) and the lists into segments dealt to the warps.  The
+sums over rows of ``g_W``, ``g_b`` and ``g_v`` are per-tile partials and a
+second pass, in a fixed order, so a run repeats its numbers.  Gradients
 reach the raw ``kernel``/``bias`` through ``project_linear`` (K5, torch
 autograd) and ``bi_params`` through ``bilinear_sparse``'s ``index_add_``.
 
 What bounds it on an H100: the operations, and few.  Agent 1's critic
 block 1 (123 gated channels, 9394 nonzeros) at B = 256 is ~11 MFLOP
-forward, ~0.17 us at the fp32 peak; the serial chain of each row
-dominates.  Design: one thread per row (as ``emlp_actor.cu``), W_eff, b_eff
-and the nonzeros in shared memory (up to 186 KB for agent 1's critic, so
-the dynamic-memory limit is raised per device and instance).
+forward, ~0.17 us at the fp32 peak; the latency of the sparse gathers
+dominates, so the kernels put a tile's 32 rows on a warp's lanes and the
+index on the warps (``csrc/emlp_block.cu`` describes the layout).
 """
 from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Dict
+from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from ..models.emlp.nn import (bilinear_index, bilinear_sparse, gate_indices,
@@ -56,41 +63,280 @@ INSTANCES = {(19, 71, 62), (62, 71, 62), (4, 123, 62), (62, 123, 62),
              (15, 18, 16), (16, 18, 16), (3, 7, 4), (4, 7, 4),
              (27, 71, 62), (23, 18, 16),
              (23, 71, 62), (23, 123, 62), (18, 71, 62), (18, 123, 62)}
+# The kernels' geometry (csrc/emlp_block.cu): rows per tile (a warp's
+# lanes), the field-major tiles' pitch, the warps of a forward and of a
+# backward block
+TILE, PITCH, FWD_WARPS, BWD_WARPS = 32, 33, 16, 16
+# The plans: the backward's grid about BLOCKS_PER_SM blocks an SM, the
+# forward's groups only as many as fill idle SMs (its launcher makes a
+# persistent grid of as many blocks as fit on the SMs); a forward group
+# holds at least FWD_WARPS * 32 nonzeros, a backward group at least BWD_WARPS *
+# GROUP_MIN_ENTRIES list entries, a list segment at least SEG_MIN; a
+# backward block's shared memory at most SMEM_TARGET where enough groups
+# allow it (two blocks an SM), and at most SMEM_LIMIT (an H100 block's)
+BLOCKS_PER_SM = 2
+SEG_MIN, GROUP_MIN_ENTRIES = 16, 64
+SMEM_TARGET, SMEM_LIMIT = 113 * 1024, 232448
 
 
 def _lib():
     lib = KERNEL.load()
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.emlp_block_fwd_launch.argtypes = [P, I, P, P, I, P, P, P, I, I,
-                                              I, P]
+        lib.emlp_block_fwd_launch.argtypes = [P, I, P, P, P, P, I, P, P, P,
+                                              P, P, I, I, I, P]
         lib.emlp_block_fwd_launch.restype = I
-        lib.emlp_block_bwd_launch.argtypes = [P, P, I, P, P, I, P, P, P, P,
-                                              P, I, I, I, I, P]
+        lib.emlp_block_bwd_launch.argtypes = [P, P, I, P, P, P, I, P, P, P,
+                                              P, P, P, P, P, I, I, I, I, P]
         lib.emlp_block_bwd_launch.restype = I
-        lib.emlp_block_rows_per_block.argtypes = []
-        lib.emlp_block_rows_per_block.restype = I
+        lib.emlp_block_smem.argtypes = [I, I, I, P, I]
+        lib.emlp_block_smem.restype = ctypes.c_longlong
+        lib.emlp_block_geometry.argtypes = [I]
+        lib.emlp_block_geometry.restype = I
+        if tuple(lib.emlp_block_geometry(k) for k in range(4)) != \
+                (TILE, PITCH, FWD_WARPS, BWD_WARPS):
+            raise RuntimeError("emlp_block: kernel geometry differs from "
+                               "the wrapper's")
         lib._typed = True
     return lib
 
 
+def coordinate_lists(o, j, i, ng):
+    """The nonzeros as coordinate-major lists: for each coordinate ``c``
+    those with ``j[e] == c`` (partner ``i[e]``), then those with
+    ``i[e] == c`` (partner ``j[e]``), each in ``e`` order, so a nonzero
+    with ``j == i`` sits twice in its list.  Returns ``(ptr (ng + 1), e, o,
+    partner)``: ``c``'s list is ``ptr[c]:ptr[c + 1]``."""
+    nnz = len(o)
+    e = np.concatenate([np.arange(nnz), np.arange(nnz)])
+    c = np.concatenate([j, i])
+    role = np.repeat([0, 1], nnz)
+    srt = np.lexsort((e, role, c))
+    ptr = np.searchsorted(c[srt], np.arange(ng + 1))
+    partner = np.concatenate([i, j])[srt]
+    return ptr, e[srt], np.asarray(o)[e[srt]], partner
+
+
+def gate_inverse(gate, ng):
+    """For each coordinate ``c`` the outputs ``k`` with ``gate[k] == c``,
+    ascending: ``(ptr (ng + 1), k)``."""
+    k = np.argsort(gate, kind="stable")
+    return np.searchsorted(np.asarray(gate)[k], np.arange(ng + 1)), k
+
+
+def _split(weights, groups):
+    """Boundaries (groups + 1) of ``groups`` contiguous non-empty runs of
+    ``weights`` of about equal sums."""
+    n = len(weights)
+    if not 1 <= groups <= n:
+        raise ValueError(f"{groups} groups of {n} items")
+    cum = np.concatenate([[0], np.cumsum(weights)])
+    cb = np.concatenate([[0], np.searchsorted(
+        cum, np.arange(1, groups) * cum[-1] / groups), [n]])
+    for g in range(1, groups):
+        cb[g] = min(max(cb[g], cb[g - 1] + 1), n - (groups - g))
+    return cb
+
+
+class Plan(NamedTuple):
+    """One grid's split (``forward_plan``, ``backward_plan``): the int
+    arrays the kernel reads, in its order, and ``meta``, the sizes its
+    launcher reads on the host (csrc/emlp_block.cu ``FwdMeta``,
+    ``BwdMeta``)."""
+    hdr: np.ndarray     # (G, 10) per group, as the kernel's FwdHdr / BwdHdr
+    arrays: tuple       # forward: (fo,); backward: (wb, seg, cs)
+    meta: tuple
+
+
+def atoms(gate, nh):
+    """The gated nonlinearity's atoms from its gate indices: ``(k0, k1,
+    gate coordinate or None)`` for each run of outputs sharing a gate
+    coordinate and each output that gates itself."""
+    gate = np.asarray(gate)
+    starts = [k for k in range(nh) if k == 0 or gate[k] == k
+              or gate[k] != gate[k - 1]]
+    return [(a, b, int(gate[a]) if gate[a] >= nh else None)
+            for a, b in zip(starts, starts[1:] + [nh])]
+
+
+def forward_plan(gate, rowptr, nh, groups, warps=FWD_WARPS):
+    """Split the gated nonlinearity's atoms (a run of outputs sharing a
+    gate coordinate, or one output gating itself) into ``groups`` runs of
+    about equal nonzeros.  Group g computes pre for its outputs
+    ``k0:k1`` and its gate coordinates ``q0:q1`` (contiguous: gates follow
+    their atoms' order), their nonzeros being ``eh0:eh1`` and ``eq0:eq1``,
+    and h for ``k0:k1``; its outputs, longest first, are ``fo[f0:f1]``."""
+    ng = len(rowptr) - 1
+    nnz = np.diff(rowptr)
+    units = atoms(gate, nh)
+    w = [nnz[a:b].sum() + (nnz[q] if q is not None else 0) + 1
+         for a, b, q in units]
+    ub = _split(w, groups)
+    hdr, fo = [], []
+    q0 = nh
+    for g in range(groups):
+        mine = units[ub[g]:ub[g + 1]]
+        k0, k1 = mine[0][0], mine[-1][1]
+        q1 = q0 + sum(q is not None for *_, q in mine)
+        outs = list(range(k0, k1)) + list(range(q0, q1))
+        outs.sort(key=lambda o: -nnz[o])
+        hdr.append((k0, k1, q0, q1, len(fo), len(fo) + len(outs),
+                    rowptr[k0], rowptr[k1], rowptr[q0], rowptr[q1]))
+        fo += outs
+        q0 = q1
+    hdr = np.asarray(hdr)
+    if q0 != ng or len(fo) != ng:
+        raise ValueError("forward_plan: the gate coordinates do not follow "
+                         "their atoms")
+    max_ent = int(max(h[7] - h[6] + h[9] - h[8] for h in hdr))
+    return Plan(hdr, (np.asarray(fo),), (groups, max_ent, warps))
+
+
+def backward_plan(cl_ptr, rowptr, groups, warps=BWD_WARPS):
+    """Split the coordinates into ``groups`` contiguous groups of about
+    equal work (list entries, plus the group's g_v sums and one per
+    coordinate), cut each list into segments of about equal length (at
+    least ``SEG_MIN`` entries, about one per warp of the grid), and deal
+    each group's segments to its ``warps`` warps, longest first, each to
+    the least loaded one.  A segment's slot is its place among its
+    coordinate's segments in list order.  Group g owns coordinates
+    ``c0:c1``, list entries ``e0:e1``, slots ``s0:s1``, dealt segments
+    ``seg0:seg1`` and the g_v sums of the nonzeros ``v0:v1`` (those whose
+    output it owns)."""
+    n = np.diff(cl_ptr)
+    cb = _split(n + np.diff(rowptr) + 1, groups)
+    size = max(SEG_MIN, -(-int(n.sum()) // (groups * warps)))
+    n_seg = -(-n // size)
+    cs = np.concatenate([[0], np.cumsum(n_seg)])
+    bounds = [cl_ptr[c] + (n[c] * np.arange(k + 1)) // max(k, 1)
+              for c, k in enumerate(n_seg)]
+    seg, wb, hdr = [], [0], []
+    for g in range(groups):
+        c0, c1 = cb[g], cb[g + 1]
+        mine = [(cs[c] + s, b[s], b[s + 1])
+                for c, b in zip(range(c0, c1), bounds[c0:c1])
+                for s in range(len(b) - 1)]
+        mine.sort(key=lambda t: t[1] - t[2])          # longest first
+        load, dealt = np.zeros(warps, np.int64), [[] for _ in range(warps)]
+        for t in mine:
+            w = int(np.argmin(load))
+            load[w] += t[2] - t[1]
+            dealt[w].append(t)
+        seg0 = len(seg)
+        for d in dealt:
+            seg += d
+            wb.append(len(seg))
+        hdr.append((c0, c1, cl_ptr[c0], cl_ptr[c1], cs[c0], cs[c1], seg0,
+                    len(seg), rowptr[c0], rowptr[c1]))
+    hdr = np.asarray(hdr)
+    span = hdr[:, 1::2] - hdr[:, 0::2]     # coords, entries, slots, segs, nv
+    meta = (groups, len(seg), int(span[:, 1].max()), int(span[:, 2].max()),
+            int(span[:, 0].max()), int(span[:, 3].max()),
+            int(span[:, 4].max()), warps)
+    return Plan(hdr, (np.asarray(wb), np.asarray(seg).reshape(-1, 3), cs),
+                meta)
+
+
+def forward_smem(dims, meta):
+    """Dynamic shared memory of the forward kernel under a plan
+    (the layout of ``block_fwd_kernel``)."""
+    nin, ng, nh = dims
+    ngp = -(-ng // 4) * 4
+    return 4 * nin * ngp + 8 * meta[1] + 4 * ngp + 4 * (2 * ng + 1 + nh) \
+        + 4 * PITCH * (2 * nin + 2 * ng)
+
+
+def backward_smem(dims, meta):
+    """Dynamic shared memory of the backward's main kernel under a plan
+    (the layout of ``block_bwd_kernel``)."""
+    nin, ng, nh = dims
+    _, _, ent, slots, coords, segs, nv, _ = meta
+    return 8 * (ent + nv) + 4 * PITCH * (3 * ng + nh + nin + slots + coords) \
+        + 4 * coords * (-(-nin // 4) * 4) \
+        + 4 * (3 * segs + BWD_WARPS + 1 + coords + 1 + 2 * nh + ng + 1)
+
+
 class BlockSpec:
     """The static side of one block: sizes, the bilinear index (int32 for
-    the kernel, int64 for the plain twin) and the gate indices, per
-    device."""
+    the kernel, int64 for the plain twin), the gate indices, the
+    coordinate-major lists and the gate's inverse, per device; and the
+    kernels' plans and group counts, made at first use."""
 
     def __init__(self, rep_in, rep_out, grep, device):
         self.nin, self.ng, self.nh = rep_in.size, grep.size, rep_out.size
+        self.device = torch.device(device)
         self.idx = bilinear_index(grep, device)
         self.nnz = int(self.idx["o"].numel())
-        g = torch.as_tensor(gate_indices(rep_out), device=device)
-        self.gidx = g.to(torch.int64)
-        self.ints = torch.cat([g.to(torch.int32), self.idx["rowptr"],
-                               self.idx["ji"], self.idx["o32"]]).contiguous()
+        self.gate = np.asarray(gate_indices(rep_out))
+        self.gidx = torch.as_tensor(self.gate, device=device).to(torch.int64)
+        o, j, i = (self.idx[k].cpu().numpy() for k in ("o", "j", "i"))
+        self.lists = coordinate_lists(o, j, i, self.ng)
+        self.ginv = gate_inverse(self.gate, self.ng)
+        self.rowptr = self.idx["rowptr"].cpu().numpy()
+        ptr, e, lo, partner = self.lists
+        # the kernels' index (csrc/emlp_block.cu ``Ints``): tile offsets
+        # c * PITCH packed two to an int
+        self.ints = torch.as_tensor(np.concatenate([
+            self.gate, self.rowptr, self.idx["ji"].cpu().numpy(), o,
+            (j * PITCH) << 16 | i * PITCH, ptr,
+            (lo * PITCH) << 16 | partner * PITCH, e,
+            *self.ginv]).astype(np.int32), device=device)
+        self._plans: Dict[tuple, tuple] = {}
 
     @property
     def dims(self):
         return (self.nin, self.ng, self.nh)
+
+    def groups(self, kind, B, sms):
+        """The group count of ``kind``'s grid ("forward" or "backward") at
+        ``B`` rows on a card of ``sms`` SMs: the forward's about one block
+        an SM, the backward's about ``BLOCKS_PER_SM`` (and enough groups
+        for ``SMEM_TARGET``), each group with at least its minimum of
+        work."""
+        key = ("groups", kind, B, sms)
+        hit = self._plans.get(key)
+        if hit is not None:
+            return hit
+        tiles = -(-B // TILE)
+        if kind == "forward":
+            # a tile's groups each recompute its lin: only fill idle SMs
+            hit = max(1, min(sms // tiles, len(atoms(self.gate, self.nh)),
+                             self.nnz // (FWD_WARPS * 32)))
+        else:
+            want = -(-BLOCKS_PER_SM * sms // tiles)
+            g_min = next((g for g in range(1, self.ng) if backward_smem(
+                self.dims, self.plan("backward", g).meta) <= SMEM_TARGET),
+                self.ng)
+            g_max = min(self.ng,
+                        2 * self.nnz // (BWD_WARPS * GROUP_MIN_ENTRIES))
+            hit = min(max(want, g_min), max(g_min, g_max))
+        self._plans[key] = hit
+        return hit
+
+    def plan(self, kind, groups) -> Plan:
+        """``kind``'s plan at ``groups`` groups."""
+        key = (kind, groups)
+        hit = self._plans.get(key)
+        if hit is None:
+            hit = self._plans[key] = (
+                forward_plan(self.gate, self.rowptr, self.nh, groups)
+                if kind == "forward"
+                else backward_plan(self.lists[0], self.rowptr, groups))
+        return hit
+
+    def plan_args(self, kind, groups):
+        """``kind``'s plan as its kernel takes it: one int32 tensor on this
+        spec's device and the host ``meta`` array."""
+        key = ("args", kind, groups)
+        hit = self._plans.get(key)
+        if hit is None:
+            p = self.plan(kind, groups)
+            flat = np.concatenate([p.hdr.reshape(-1)]
+                                  + [a.reshape(-1) for a in p.arrays])
+            hit = self._plans[key] = (
+                torch.as_tensor(flat.astype(np.int32), device=self.device),
+                (ctypes.c_int * len(p.meta))(*p.meta))
+        return hit
 
 
 _SPECS: Dict[tuple, BlockSpec] = {}
@@ -109,13 +355,16 @@ def block_spec(blk, device) -> BlockSpec:
 # ---------------------------------------------------------------------------
 # Plain twins (CPU tensors)
 # ---------------------------------------------------------------------------
-def emlp_block_plain(spec: BlockSpec, x, W, b, v):
-    """``(h (B, nh), lin (ng, B), pre (ng, B))``."""
+def emlp_block_plain(spec: BlockSpec, x, W, b, v, save: bool = True):
+    """``(h (B, nh), lin (ng, B), pre (ng, B))``; ``lin`` and ``pre`` None
+    unless ``save``."""
     o, j, i = spec.idx["o"], spec.idx["j"], spec.idx["i"]
     lin = x @ W.T + b
     q = torch.zeros_like(lin).index_add_(1, o, v * lin[:, j] * lin[:, i])
     pre = 0.1 * q + lin
     h = pre[:, :spec.nh] / (1.0 + torch.exp(-pre[:, spec.gidx]))
+    if not save:
+        return h, None, None
     return h, lin.T.contiguous(), pre.T.contiguous()
 
 
@@ -151,38 +400,55 @@ def _check(name, t, shape, device):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _params(spec: BlockSpec, W, b, v):
-    return torch.cat([W.reshape(-1), b, v]).contiguous()
-
-
-def emlp_block(spec: BlockSpec, x, W, b, v):
-    """Block forward.  CPU tensors -> ``emlp_block_plain``; CUDA tensors ->
-    one kernel launch (float32), or an error.  Returns ``(h, lin, pre)``."""
-    if not x.is_cuda:
-        return emlp_block_plain(spec, x, W, b, v)
+def _check_spec(spec: BlockSpec, x):
     if spec.dims not in INSTANCES:
         raise NotImplementedError(f"emlp_block has no kernel instance for "
                                   f"(nin, ng, nh) = {spec.dims}")
+    if spec.ints.device != x.device:
+        raise ValueError("emlp_block: block spec is on another device")
+    if x.shape[0] <= 0:
+        raise ValueError("emlp_block: empty batch")
+
+
+_SMS: Dict[torch.device, int] = {}
+
+
+def _sms(dev):
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def emlp_block(spec: BlockSpec, x, W, b, v, save: bool = True):
+    """Block forward.  CPU tensors -> ``emlp_block_plain``; CUDA tensors ->
+    one kernel launch (float32), or an error.  Returns ``(h, lin, pre)``;
+    without ``save`` (no backward follows) ``lin`` and ``pre`` are neither
+    allocated nor written, and are None.  ``by_shape`` counts the launches
+    per ``(dims, rows, save)``."""
+    if not x.is_cuda:
+        return emlp_block_plain(spec, x, W, b, v, save)
+    _check_spec(spec, x)
     B, dev = x.shape[0], x.device
     nin, ng, nh = spec.dims
-    if B <= 0:
-        raise ValueError("emlp_block: empty batch")
-    _check("x", x, (B, nin), dev)
-    params = _params(spec, W, b, v)
-    _check("W_eff/b_eff/v", params, (ng * nin + ng + spec.nnz,), dev)
-    if spec.ints.device != dev:
-        raise ValueError("emlp_block: block spec is on another device")
+    for name, t, shape in (("x", x, (B, nin)), ("W_eff", W, (ng, nin)),
+                           ("b_eff", b, (ng,)), ("v", v, (spec.nnz,))):
+        _check(name, t, shape, dev)
+    plan, meta = spec.plan_args("forward",
+                                spec.groups("forward", B, _sms(dev)))
     h = torch.empty(B, nh, dtype=torch.float32, device=dev)
-    lin = torch.empty(ng, B, dtype=torch.float32, device=dev)
-    pre = torch.empty(ng, B, dtype=torch.float32, device=dev)
+    lin = pre = None
+    if save:
+        lin = torch.empty(ng, B, dtype=torch.float32, device=dev)
+        pre = torch.empty(ng, B, dtype=torch.float32, device=dev)
     lib = _lib()
     err = lib.emlp_block_fwd_launch(
-        x.data_ptr(), B, params.data_ptr(), spec.ints.data_ptr(), spec.nnz,
-        h.data_ptr(), lin.data_ptr(), pre.data_ptr(), nin, ng, nh,
-        torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), B, W.data_ptr(), b.data_ptr(), v.data_ptr(),
+        spec.ints.data_ptr(), spec.nnz, plan.data_ptr(), meta, h.data_ptr(),
+        lin.data_ptr() if save else None, pre.data_ptr() if save else None,
+        nin, ng, nh, torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "emlp_block forward")
     emlp_block.launches += 1
-    emlp_block.by_shape[(spec.dims, B)] += 1
+    emlp_block.by_shape[(spec.dims, B, bool(save))] += 1
     return h, lin, pre
 
 
@@ -193,33 +459,32 @@ emlp_block.by_shape = Counter()
 def emlp_block_backward(spec: BlockSpec, g_h, x, W, v, lin, pre,
                         need_params: bool):
     """Block backward.  CPU tensors -> ``emlp_block_backward_plain``; CUDA
-    tensors -> one call of the kernel (one grid launch for ``g_x``, plus
-    the partial and final reductions when ``need_params``), or an error."""
+    tensors -> one call of the kernels (the main grid, then the sums of
+    the groups' shares of ``g_x`` (more than one group) and of the tiles'
+    partials (``need_params``)), or an error."""
     if not x.is_cuda:
         return emlp_block_backward_plain(spec, g_h, x, W, v, lin, pre,
                                          need_params)
-    if spec.dims not in INSTANCES:
-        raise NotImplementedError(f"emlp_block has no kernel instance for "
-                                  f"(nin, ng, nh) = {spec.dims}")
+    _check_spec(spec, x)
     B, dev = x.shape[0], x.device
     nin, ng, nh = spec.dims
-    _check("x", x, (B, nin), dev)
-    _check("g_h", g_h, (B, nh), dev)
-    _check("lin", lin, (ng, B), dev)
-    _check("pre", pre, (ng, B), dev)
-    params = _params(spec, W, v.new_zeros(ng), v)
+    for name, t, shape in (("x", x, (B, nin)), ("g_h", g_h, (B, nh)),
+                           ("W_eff", W, (ng, nin)), ("v", v, (spec.nnz,)),
+                           ("lin", lin, (ng, B)), ("pre", pre, (ng, B))):
+        _check(name, t, shape, dev)
+    G = spec.groups("backward", B, _sms(dev))
+    plan, meta = spec.plan_args("backward", G)
     f32 = dict(dtype=torch.float32, device=dev)
-    g_x = torch.empty(B, nin, **f32)
     n_par = ng * nin + ng + spec.nnz
-    lib = _lib()
-    rows = lib.emlp_block_rows_per_block()
-    n_blk = (B + rows - 1) // rows
-    partial = torch.empty(n_blk * n_par if need_params else 1, **f32)
+    g_x = torch.empty(B, nin, **f32)
+    gx_part = torch.empty(G, B, nin, **f32) if G > 1 else g_x
+    partial = torch.empty(-(-B // TILE) * n_par if need_params else 1, **f32)
     g_par = torch.empty(n_par if need_params else 1, **f32)
+    lib = _lib()
     err = lib.emlp_block_bwd_launch(
-        g_h.data_ptr(), x.data_ptr(), B, params.data_ptr(),
+        g_h.data_ptr(), x.data_ptr(), B, W.data_ptr(), v.data_ptr(),
         spec.ints.data_ptr(), spec.nnz, lin.data_ptr(), pre.data_ptr(),
-        g_x.data_ptr(),
+        plan.data_ptr(), meta, gx_part.data_ptr(), g_x.data_ptr(),
         partial.data_ptr(), g_par.data_ptr(), int(need_params), nin, ng, nh,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "emlp_block backward")
@@ -259,9 +524,12 @@ class EMLPBlockFn(torch.autograd.Function):
 
 
 def block_apply(spec: BlockSpec, x, W, b, v) -> torch.Tensor:
-    """The block on ``x`` through K3/K4 under autograd."""
-    return EMLPBlockFn.apply(x.contiguous(), W.contiguous(), b.contiguous(),
-                             v.contiguous(), spec)
+    """The block on ``x`` through K3/K4 under autograd; when autograd
+    records nothing, K3 alone, saving neither ``lin`` nor ``pre``."""
+    args = [t.contiguous() for t in (x, W, b, v)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return EMLPBlockFn.apply(*args, spec)
+    return emlp_block(spec, *args, save=False)[0]
 
 
 def emlp_trunk(net, params: Dict[str, torch.Tensor], prefix: str,

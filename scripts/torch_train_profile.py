@@ -25,8 +25,9 @@ a warm-up of 20 (PPO 1):
      back to back and ``--steps`` times with a sync after each (as
      ``train`` syncs after each superstep), on CUDA events and the host
      clock (off-policy only);
-  2. under ``torch.profiler`` (CPU + CUDA): device time by kernel name and
-     the device-busy share of the wall time;
+  2. under ``torch.profiler`` (CPU + CUDA): device time by kernel name,
+     K3's and K4's (the EMLP block's forward and backward kernels) and
+     their shares, and the device-busy share of the wall time;
   3. under ``cProfile``: the host functions that take the superstep's time.
 Prints JSON lines; ``--out`` also writes the full profiler tables.
 """
@@ -183,8 +184,18 @@ def main():
             dev_us[ev.key] = t
     busy = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    # K3 and K4 (kernels/csrc/emlp_block.cu), summed over their instances
+    blocks = {name: sum(v for k, v in dev_us.items() if any(
+        f in k for f in frags)) / n
+        for name, frags in (("K3", ("block_fwd_kernel",)),
+                            ("K4", ("block_bwd_kernel",
+                                    "block_bwd_finish_kernel")))}
     print(json.dumps({"profiled_wall_s": wall, "device_busy_s": busy,
                       "device_busy_share": busy / wall,
+                      "device_ms_per_superstep": busy / n * 1e3,
+                      "emlp_block_us_per_superstep": blocks,
+                      "emlp_block_share_of_device": {
+                          k: v / (busy / n * 1e6) for k, v in blocks.items()},
                       "device_us_per_superstep_by_kernel":
                           {k[:60]: v / n for k, v in top}}), flush=True)
 
