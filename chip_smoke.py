@@ -8,7 +8,10 @@ result line):
   1. build      nvcc all nine kernel sources in parallel; print build time
                 and the registers/spills ``-Xptxas -v`` reports; per K3/K4
                 instance the registers and spills of each kernel and the
-                dynamic shared memory of its launches
+                dynamic shared memory of its launches; the same for the
+                acting kernel per instance and head (its shared memory from
+                each fold's image) and for K7 per instance (its shared
+                memory at every stack the learners launch)
   2. env_tick   K1 kernel (the MODUL task) vs its plain twin at B = 4096
                 float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
@@ -16,7 +19,9 @@ result line):
                 state, actions and draws (and the reset entry vs plain);
                 the same at the eval path's 10 eval envs
   3. emlp_actor K3 kernel vs the structured plain actor, both agents,
-                B = 4096 and the eval path's B = 10, seeded weights
+                at 1, 10, 31, 32, 33 and 4096 rows (``actor_rows``: the Gym
+                API's, the eval path's, a tile's edges, PPO A's, training),
+                seeded weights, each launch run twice and compared bitwise
   4. rollout    4096 train envs x 1000 ticks, both actors through K3 and the
                 tick through K1; launch counts read from the wrappers;
                 SO(3) and reward-range invariants; env-steps/s by CUDA events
@@ -38,10 +43,13 @@ result line):
                 network's torch autograd for both twin critics
   8. flat_adamw K6 vs plain for the four networks' flat vectors at a
                 count > 0, with the clip triggered and not, with Polyak
-  9. spectral   K7 vs plain on the critics' and actors' weight stacks
- 10. sac_actor  K9 vs its plain twin, both SAC actors, B = 4096 and the eval
-                path's B = 10, train and eval modes, the log_std head as
-                initialised and pushed past both clip bounds; then SAC's
+  9. spectral   K7 vs plain on the critics' and actors' weight stacks and
+                on every stack the learners launch (TD3, SAC and PPO on
+                MODUL, MONO and CTDE), each launch run twice and compared
+                bitwise
+ 10. sac_actor  K9 vs its plain twin, both SAC actors, at ``actor_rows``,
+                train and eval modes, the log_std head as initialised and
+                pushed past both clip bounds, reruns bitwise; then SAC's
                 actor-loss sample (K3/K4 trunk, K10) under autograd vs the
                 structured network and the plain sample
  11. sac_sample K10 forward and backward vs plain at 256 and 1024 rows of 4
@@ -59,9 +67,10 @@ result line):
                 every update and the critic target only on gated ones;
                 then 3 supersteps with ``automatic_entropy_tuning`` moving
                 ``log_alpha`` on each
- 14. ppo_actor  K11 vs its plain twin, both PPO actors, B = 4096, 32 (the
-                two PPO configurations' envs) and the eval path's 10, train
-                and eval modes, log_std as initialised and pushed to +-3
+ 14. ppo_actor  K11 vs its plain twin, both PPO actors, at ``actor_rows``
+                (4096 and 32 the two PPO configurations' envs), train and
+                eval modes, log_std as initialised and pushed to +-3,
+                reruns bitwise
  15. gae        K12 vs its plain twin at (T, B) = (218, 32), (50, 4096) and
                 (1, 7), dones inside the horizon; the TD targets (the scan)
                 and the normalisation checked apart
@@ -96,7 +105,10 @@ result line):
                 or not), K4 with or without the parameter sums; and K5
                 (``project_linear``, plain torch) per call at every layer
                 shape the TD3 and SAC paths project, with its calls per
-                superstep
+                superstep; the acting kernels at every row count the paths
+                launch them with (K3-actor and K9 at 4096, K11 at 32 and
+                4096, each in eval mode at the eval path's 10) and K7 at
+                the TD3 and PPO stacks, each logged with its bound
  20. MONO and the MLP networks under TD3 (``phase_mono``):
                 env_tick (task coupled) K1's coupled instance vs its plain
                 twin at B = 4096 train envs and the eval path's 10 eval
@@ -191,6 +203,7 @@ last the ``{"ok": true, "device": ...}`` line.
 Imports nothing of JAX or of the JAX package.
 """
 import contextlib
+import ctypes
 import json
 import math
 import statistics
@@ -427,6 +440,103 @@ def block_resources(dev):
         raise AssertionError(f"K3/K4 resources: {bad}")
 
 
+def _ptxas_entries(ptxas, pattern):
+    """Registers and spill bytes per entry of ``-Xptxas -v`` output whose
+    mangled name matches ``pattern`` (its groups, as ints, the key)."""
+    import re
+    out, cur = {}, None
+    for ln in ptxas.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(pattern, ln)
+            cur = tuple(int(g) for g in m.groups()) if m else None
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in ln:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[cur].update(spill_stores=n[1], spill_loads=n[2])
+        elif cur and "registers" in ln:
+            out[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
+def actor_instances(dev):
+    """One seeded actor per instance and head of the acting kernel:
+    ``{(dims, head name): actor}`` (MODUL agents 0 and 1, MONO agent 0;
+    the PPO actor's ``log_std`` at 0.3)."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.models.emlp import zoo as Z
+    from gym_rotor_tpu_torch.utils.config import Config
+    out = {}
+    for fw, agent in (("MODUL", 0), ("MODUL", 1), ("MONO", 0)):
+        cfg = Config(framework=fw)
+        reps = Z.actor_reps(cfg, fw, agent)
+        act = cfg.action_dim_n[agent]
+        gen = torch.Generator().manual_seed(SEED + agent)
+        for head, make in (
+                ("tanh", lambda: Z.EMLPActorDet(*reps, device="cpu",
+                                                generator=gen)),
+                ("gauss", lambda: Z.EMLPActorSAC(*reps, act, device="cpu",
+                                                 generator=gen)),
+                ("ppo", lambda: Z.EMLPActorPPO(*reps, act, device="cpu",
+                                               generator=gen))):
+            actor = make().to(dev)
+            if head == "ppo":
+                with torch.no_grad():
+                    actor.log_std.fill_(0.3)
+                actor.bump_version()
+            out[(KA.actor_dims(actor), head)] = actor
+    return out
+
+
+def actor_spectral_resources(dev):
+    """The redesigned kernels' resources: per acting-kernel instance and
+    head, and per K7 instance, the registers and spills ``-Xptxas -v``
+    reports; the acting launch's dynamic shared memory read from the
+    library for each instance's fold, and K7's instance and shared memory
+    for every stack the learners launch, each held to the wrapper's
+    arithmetic (``actor_smem``, ``spectral.instance``/``smem_bytes``)."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    heads = {"tanh": KA.HEAD_TANH, "gauss": KA.HEAD_GAUSS, "ppo": KA.HEAD_PPO}
+    regs = _ptxas_entries(KA.KERNEL.ptxas, r"emlp_actor_kernelILi(\d+)ELi"
+                          r"(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+    lib, bad = KA._lib(), []
+    for (dims, head), actor in sorted(actor_instances(dev).items()):
+        f = KA.fold_actor(actor)
+        got = lib.emlp_actor_smem(*dims, f["meta"])
+        want = KA.actor_smem(dims, f["layout"])
+        ptx = regs.get(dims + (heads[head],), {})
+        log("build", kernel="emlp_actor", dims=list(dims), head=head,
+            nnz=list(f["nnz"]), image_words=f["layout"]["words"],
+            warps=f["layout"]["warps"], ptxas=ptx, smem_bytes=got)
+        if got != want or not ptx:
+            bad.append(("emlp_actor", dims, head, got, want, ptx))
+    regs = _ptxas_entries(KS.KERNEL.ptxas, r"spectral_kernelILi(\d+)ELi"
+                          r"(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+    lib = KS._lib()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    shapes = sorted({tuple(Ws.shape)
+                     for *_, Ws, _ in learner_stacks(dev, gen)})
+    for geo in KS.INSTANCES:
+        mine = [list(sh) for sh in shapes if KS.instance(*sh[1:]) == geo]
+        smem = {}
+        for K, mo, mi in mine:
+            out = (ctypes.c_int * 5)()
+            got = lib.spectral_geometry(mo, mi, out)
+            smem[f"{mo}x{mi}"] = got
+            if tuple(out) != geo or got != KS.smem_bytes(mo, mi):
+                bad.append(("spectral", (mo, mi), tuple(out), got))
+        ptx = regs.get(geo, {})
+        log("build", kernel="spectral_iterate", instance=list(geo),
+            threads=geo[0] * geo[2], staging_threads=geo[4], stacks=mine,
+            ptxas=ptx, smem_bytes=smem)
+        if not ptx:
+            bad.append(("spectral", geo, "no ptxas entry"))
+    if bad:
+        raise AssertionError(f"actor / K7 resources: {bad}")
+
+
 def phase_build(dev):
     from gym_rotor_tpu_torch.kernels import build
     srcs = [m.KERNEL for m in _kernel_modules()]
@@ -438,6 +548,7 @@ def phase_build(dev):
             ptxas=s.resources())
     log("build", parallel_wall_s=wall)
     block_resources(dev)
+    actor_spectral_resources(dev)
 
 
 def _field_errors(named_k, named_p, skip):
@@ -597,24 +708,43 @@ def phase_env_tick(cfg, dev, n, env_type, ticks=1):
                 max_abs_err=max(worst, worst_reset))
 
 
+def actor_rows(n_full):
+    """The acting kernel's row counts to check: the Gym API's 1, the eval
+    path's 10, PPO A's 32 envs, a tile's edges 31 and 33, and the training
+    envs ``n_full``."""
+    return (1, 10, 31, 32, 33, n_full)
+
+
+def _twice(fn):
+    """``fn()``'s result and whether a second call repeats it bit for bit
+    (every tensor of it)."""
+    a, b = fn(), fn()
+    a_t, b_t = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return a, all(torch.equal(x, y) for x, y in zip(a_t, b_t))
+
+
 def phase_emlp(cfg, dev, obs):
+    """K3-actor vs its plain twin for every agent of ``cfg`` at
+    ``actor_rows`` (seeded weights), each launch run twice and compared
+    bitwise; tolerance 1e-5 (tanh outputs)."""
     from gym_rotor_tpu_torch.kernels import emlp_actor as K
     from gym_rotor_tpu_torch.models.emlp.zoo import make_actors
     actors = make_actors(cfg, device=dev, seed=SEED)
     worst = 0.0
     for i, (actor, o_full) in enumerate(zip(actors, obs)):
-        # the rollout's batch and the eval path's (one partial block)
-        for o in (o_full, o_full[:cfg.num_eval]):
+        for nb in actor_rows(int(o_full.shape[0])):
+            o = o_full[:nb]
             with torch.no_grad():
-                yk = K.emlp_actor(actor, o)
+                yk, same = _twice(lambda: K.emlp_actor(actor, o))
                 yp = K.emlp_actor_plain(actor, o)
             err = float((yk - yp).abs().max())
             worst = max(worst, err)
-            log("emlp_actor", agent=i, batch=int(o.shape[0]),
-                dims=K.actor_dims(actor), max_abs_err=err,
+            log("emlp_actor", agent=i, batch=nb, dims=K.actor_dims(actor),
+                max_abs_err=err, rerun_bitwise=same,
                 finite=bool(torch.isfinite(yk).all()))
-            if not err <= 1e-5 or not torch.isfinite(yk).all():
-                raise AssertionError(f"emlp_actor agent {i}: max abs err {err}")
+            if not (err <= 1e-5 and same and torch.isfinite(yk).all()):
+                raise AssertionError(f"emlp_actor agent {i} at {nb} rows: "
+                                     f"max abs err {err}, rerun equal {same}")
     return actors, worst
 
 
@@ -946,19 +1076,56 @@ def _spectral_stacks(agents, states, dev, gen):
     return out
 
 
-def phase_spectral(cfg, dev, agents, states):
+# the learners whose networks K7 regularizes: (algorithm, framework label,
+# Config keywords)
+SPECTRAL_LEARNERS = tuple(
+    (algo, fw, dict(rl_algo=algo, **kw)) for algo in ("TD3", "SAC", "PPO")
+    for fw, kw in (("modul", {}), ("mono", dict(framework="MONO")),
+                   ("ctde", dict(module_training="CTDE"))))
+
+
+def learner_stacks(dev, gen):
+    """Every padded weight stack the learners hand K7, at full width with
+    seeded weights and N(0, 1) start vectors from ``gen``: each agent's
+    critic (twin Q, or PPO's V) and actor of TD3, SAC and PPO on MODUL
+    DTDE, MONO and MODUL CTDE, as ``(learner, agent, net, Ws, x)``."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.utils.config import Config
+    classes = {"TD3": TD3Agent, "SAC": SACAgent, "PPO": PPOAgent}
+    init = torch.Generator().manual_seed(SEED)
+    out = []
+    for algo, fw, kw in SPECTRAL_LEARNERS:
+        cfg = Config(**kw)
+        agents = [classes[algo](cfg, i, dev) for i in range(cfg.n_agents)]
+        states = [a.init(init) for a in agents]
+        out += [(f"{algo.lower()}_{fw}", i, net, Ws, x) for i, net, _, Ws, x
+                in _spectral_stacks(agents, states, dev, gen)]
+    return out
+
+
+def phase_spectral(cfg, dev, agents, states, every_learner=False):
     """K7 vs plain: the 10-step iterate from the same start vectors on each
-    network's padded weight stack (unit vectors, tolerance 1e-5)."""
+    network's padded weight stack and, with ``every_learner``, on every
+    stack the learners launch (``learner_stacks``); each launch run twice
+    and compared bitwise (unit vectors, tolerance 1e-5)."""
     from gym_rotor_tpu_torch.kernels import spectral as K
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    stacks = [(cfg.framework.lower(), i, net, Ws, x) for i, net, _, Ws, x
+              in _spectral_stacks(agents, states, dev, gen)]
+    if every_learner:
+        stacks += learner_stacks(dev, gen)
     worst = 0.0
-    for i, net, ws, Ws, x in _spectral_stacks(agents, states, dev, gen):
-        vk, vp = K.spectral_iterate(Ws, x), K.spectral_iterate_plain(Ws, x)
-        d, tol, fin = _err(vk, vp, 1e-5)
+    for learner, i, net, Ws, x in stacks:
+        vk, same = _twice(lambda: K.spectral_iterate(Ws, x))
+        d, tol, fin = _err(vk, K.spectral_iterate_plain(Ws, x), 1e-5)
         worst = max(worst, d)
-        log("spectral", agent=i, net=net, stack=list(Ws.shape), max_abs_err=d)
-        if not (d <= tol and fin):
-            raise AssertionError(f"spectral kernel disagrees: agent {i} {net}")
+        log("spectral", learner=learner, agent=i, net=net,
+            stack=list(Ws.shape), max_abs_err=d, rerun_bitwise=same)
+        if not (d <= tol and fin and same):
+            raise AssertionError(f"spectral kernel disagrees: {learner} agent "
+                                 f"{i} {net}: {d}, rerun equal {same}")
     return worst
 
 
@@ -975,14 +1142,15 @@ class _Dist(torch.nn.Module):
 
 
 def phase_sac_actor(cfg, dev, obs):
-    """K9 vs its plain twin (``EMLPActorSAC.dist`` and the squashed sample)
-    on both SAC actors, at B = 4096 and the eval path's B = 10, in train
-    mode (N(0, 1) noise) and eval mode (``tanh(mean)``), with the log_std
-    head's bias as initialised and shifted by +-25 (every row at a clip
-    bound).  Tolerance 1e-5 (tanh outputs).  Then the actor loss's sample
-    path at its 1024 rows, K3/K4 trunk and K10 under autograd, vs the
-    structured network and the plain sample under torch autograd: values
-    and the flat gradient within 2e-5 max(1, max |plain|)."""
+    """K9 vs its plain twin (``EMLPActorSAC.dist`` and the squashed sample) on
+    both SAC actors, at ``actor_rows`` (B = 4096, the eval path's 10, 1, 31,
+    32, 33), in train mode (N(0, 1) noise) and eval mode (``tanh(mean)``), with
+    the log_std head's bias as initialised and shifted by +-25 (every row at a
+    clip bound), each launch run twice and compared bitwise. Tolerance 1e-5
+    (tanh outputs). Then the actor loss's sample path at its 1024 rows, K3/K4
+    trunk and K10 under autograd, vs the structured network and the plain
+    sample under torch autograd: values and the flat gradient within 2e-5
+    max(1, max |plain|)."""
     from torch.func import functional_call
     from gym_rotor_tpu_torch.algos.sac import SACAgent
     from gym_rotor_tpu_torch.kernels import emlp_actor as K
@@ -1001,8 +1169,8 @@ def phase_sac_actor(cfg, dev, obs):
             with torch.no_grad():
                 bias.copy_(saved + shift)
             actor.bump_version()
-            for o in (o_full, o_full[:cfg.num_eval]):
-                nb = int(o.shape[0])
+            for nb in actor_rows(int(o_full.shape[0])):
+                o = o_full[:nb]
                 noise = torch.randn(nb, agent.action_dim, generator=gen,
                                     device=dev)
                 with torch.no_grad():
@@ -1010,15 +1178,17 @@ def phase_sac_actor(cfg, dev, obs):
                 at_clip = float(((ls == -20.0) | (ls == 2.0)).float().mean())
                 for mode, nz in (("train", noise), ("eval", None)):
                     with torch.no_grad():
-                        yk = K.sac_actor(actor, o, nz)
+                        yk, same = _twice(lambda: K.sac_actor(actor, o, nz))
                         yp = K.sac_actor_plain(actor, o, nz)
                     err = float((yk - yp).abs().max())
                     worst = max(worst, err)
                     log("sac_actor", agent=i, batch=nb, mode=mode,
                         log_std_shift=shift, log_std_at_clip=at_clip,
-                        dims=K.actor_dims(actor), max_abs_err=err)
-                    if not (err <= 1e-5 and torch.isfinite(yk).all()):
-                        bad.append((i, nb, mode, shift, err))
+                        dims=K.actor_dims(actor), max_abs_err=err,
+                        rerun_bitwise=same)
+                    if not (err <= 1e-5 and same
+                            and torch.isfinite(yk).all()):
+                        bad.append((i, nb, mode, shift, err, same))
         with torch.no_grad():
             bias.copy_(saved)
         actor.bump_version()
@@ -1536,27 +1706,54 @@ def tick_timing(cfg, dev, tick, kernel="env_tick"):
     return k_ms, p_ms, bms, by
 
 
-def actor_timing(actor, o, agent):
-    """K3-actor (deterministic head) at ``o``'s rows: device time per
-    launch, the plain twin's, and the bound."""
-    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
-    with torch.no_grad():
-        k_ms, k_wall = device_ms(lambda: KA.emlp_actor(actor, o), 100)
-        p_ms, p_wall = device_ms(lambda: KA.emlp_actor_plain(actor, o), 10, 3)
-    folded = KA.fold_actor(actor)
+def actor_work(folded, nb, kind, train):
+    """(bytes, flops) of one acting launch at ``nb`` rows: per row each
+    block's linear layer (multiply-add + bias), three flops per nonzero of
+    its quadratic form, 0.1 q + lin, the gate (negate, exp, add, divide);
+    then the head: the mean Dense and tanh; K9's log_std Dense, clip, exp,
+    the sample (train); K11's draw, clip, z and log-prob (train) or clip
+    (eval).  Bytes: obs, the draws, the outputs and the folded image, each
+    once."""
     nin, ng, nh, nact = folded["dims"]
-    nb = int(o.shape[0])
-    # per row: each block's linear layer (multiply-add + bias), three
-    # flops per nonzero of its quadratic form, 0.1 * q + lin, the gate
-    # (negate, exp, add, divide); then the head and its tanh
     per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
                   for ni, nnz in zip((nin, nh), folded["nnz"]))
     per_row += 2 * nh * nact + 2 * nact
-    flops = nb * per_row
-    nbytes = (o.numel() + nb * nact + folded["params"].numel()
-              + folded["ints"].numel()) * 4
+    reads, outs = (1 if train else 0), 1
+    if kind == "gauss" and train:
+        per_row += 2 * nh * nact + 6 * nact
+    elif kind == "ppo":
+        per_row += 11 * nact if train else 2 * nact
+        outs = 2
+    elif kind == "tanh":
+        reads = 0
+    nbytes = (nb * nin + (reads + outs) * nb * nact
+              + folded["image"].numel()) * 4
+    return nbytes, nb * per_row
+
+
+ACTOR_KERNELS = {"tanh": "emlp_actor", "gauss": "sac_actor",
+                 "ppo": "ppo_actor"}
+
+
+def actor_timing(actor, o, agent, kind="tanh", noise=None, path=None):
+    """The acting kernel with ``kind``'s head (K3-actor, K9, K11) at
+    ``o``'s rows, with the draws ``noise`` (train) or without (eval):
+    device time per launch, the plain twin's, and the bound; logged with
+    the instance (``scripts/actor_spectral_vs_parent.py`` reads it)."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    name = ACTOR_KERNELS[kind]
+    fn, plain = getattr(KA, name), getattr(KA, f"{name}_plain")
+    args = (actor, o) if kind == "tanh" else (actor, o, noise)
+    with torch.no_grad():
+        k_ms, k_wall = device_ms(lambda: fn(*args), 100)
+        p_ms, p_wall = device_ms(lambda: plain(*args), 10, 3)
+    folded = KA.fold_actor(actor)
+    nb = int(o.shape[0])
+    nbytes, flops = actor_work(folded, nb, kind, noise is not None)
     bms, by = bound_ms(nbytes, flops)
-    log("kernels", kernel="emlp_actor", agent=agent, dims=[nin, ng, nh, nact],
+    log("kernels", kernel=name, path=path, agent=agent,
+        dims=list(folded["dims"]), head=kind,
+        mode=None if kind == "tanh" else "eval" if noise is None else "train",
         bilinear_nonzeros=list(folded["nnz"]), batch=nb, ms=k_ms,
         wall_ms_per_call=k_wall, plain_ms=p_ms, plain_wall_ms=p_wall,
         bytes=nbytes, flops=flops, bound_ms=bms, bound_by=by,
@@ -1575,9 +1772,12 @@ def phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err):
         max_abs_err=tick["max_abs_err"], ms=k_ms, plain_ms=p_ms, bound_ms=bms,
         bound_by=by, library_ms=None))
 
-    # K3 at B = 4096, both agents (each launched once per tick)
-    per = [actor_timing(actor, o, i)
+    # K3 at B = 4096, both agents (each launched once per tick); at the eval
+    # path's 10 rows too (logged, not in the record)
+    per = [actor_timing(actor, o, i, path="td3")
            for i, (actor, o) in enumerate(zip(actors, obs))]
+    for i, (actor, o) in enumerate(zip(actors, obs)):
+        actor_timing(actor, o[:cfg.num_eval], i, path="eval")
     # one record per kernel: the two instances are launched equally often,
     # so per-launch times are their mean
     records.append(dict(
@@ -1687,7 +1887,6 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
     from gym_rotor_tpu_torch.algos.common import FlatAdamW, OptState
     from gym_rotor_tpu_torch.kernels import flat_adamw as KF
     from gym_rotor_tpu_torch.kernels import replay as KR
-    from gym_rotor_tpu_torch.kernels import spectral as KS
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     records, n = [], cfg.n_agents
     dims = (tuple(cfg.obs_dim_n), tuple(cfg.action_dim_n))
@@ -1782,55 +1981,51 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
     # K7: the critics' stacks every update, the actors' one in three
     inst = []
     for i, net, ws, Ws, x in _spectral_stacks(agents, states, dev, gen):
-        k_ms, _ = device_ms(lambda: KS.spectral_iterate(Ws, x), 100)
-        p_ms, _ = device_ms(lambda: KS.spectral_iterate_plain(Ws, x), 10, 3)
-        true = sum(int(W.numel()) for W in ws)
-        nbytes = 4 * (true + 2 * sum(int(W.shape[1]) for W in ws))
-        bms, by = bound_ms(nbytes, KS.ITERS * (4 * true + 3 * x.numel()))
-        inst.append((freq if net == "critic" else 1, k_ms, p_ms, bms, by, None))
-        log("kernels", kernel="spectral_iterate", agent=i, net=net,
-            stack=list(Ws.shape), ms=k_ms, plain_ms=p_ms, bytes=nbytes,
-            bound_ms=bms, bound_by=by, library_ms=None)
+        inst.append((freq if net == "critic" else 1,
+                     *spectral_timing(ws, Ws, x, i, net, "td3"), None))
     records.append(_record("spectral_iterate", "spectral.cu",
                            "gym_rotor_tpu/algos/regularizers.py:102",
                            launches["spectral_iterate"], errs["spectral"], inst))
     return records
 
 
+def spectral_timing(ws, Ws, x, agent, net, path):
+    """K7 on the padded stack ``Ws`` of the matrices ``ws`` from ``x``:
+    device time per launch, the plain twin's and the bound: the matrices'
+    bytes at their true shapes, the start vectors and the iterate; 10 steps
+    of two matvecs (2 flops an entry), the norm (3 flops a coordinate).
+    Logged with the stack (``scripts/actor_spectral_vs_parent.py`` reads
+    it)."""
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    k_ms, k_wall = device_ms(lambda: KS.spectral_iterate(Ws, x), 100)
+    p_ms, _ = device_ms(lambda: KS.spectral_iterate_plain(Ws, x), 10, 3)
+    true = sum(int(W.numel()) for W in ws)
+    nbytes = 4 * (true + 2 * sum(int(W.shape[1]) for W in ws))
+    bms, by = bound_ms(nbytes, KS.ITERS * (4 * true + 3 * x.numel()))
+    log("kernels", kernel="spectral_iterate", path=path, agent=agent,
+        net=net, stack=list(Ws.shape), ms=k_ms, wall_ms_per_call=k_wall,
+        plain_ms=p_ms, bytes=nbytes, bound_ms=bms, bound_by=by,
+        library_ms=None)
+    return k_ms, p_ms, bms, by
+
+
 def phase_sac_kernels(cfg, dev, sac_agents, obs, launches, errs):
     """Records of K9 and K10: device time per launch at the SAC path's
     shapes, plain twin's time and bound; no one PyTorch call computes
     either function."""
-    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
     from gym_rotor_tpu_torch.kernels import sac_sample as KS
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     records = []
 
-    # K9 at B = 4096 in train mode, both agents (each once per tick)
+    # K9 at B = 4096 in train mode, both agents (each once per tick); in
+    # eval mode at the eval path's 10 rows (logged)
     inst = []
     for i, (agent, o) in enumerate(zip(sac_agents, obs)):
         actor = agent.actor_net
         noise = torch.randn(B, agent.action_dim, generator=gen, device=dev)
-        with torch.no_grad():
-            k_ms, k_wall = device_ms(lambda: KA.sac_actor(actor, o, noise), 100)
-            p_ms, p_wall = device_ms(
-                lambda: KA.sac_actor_plain(actor, o, noise), 10, 3)
-        folded = KA.fold_actor(actor)
-        nin, ng, nh, nact = folded["dims"]
-        # K3's blocks per row (see phase_kernels), then the mean head, the
-        # log_std head and its clip, exp, the sample and tanh
-        per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
-                      for ni, nnz in zip((nin, nh), folded["nnz"]))
-        per_row += 2 * (2 * nh * nact + nact) + 6 * nact
-        flops = B * per_row
-        nbytes = (o.numel() + 2 * B * nact + folded["params"].numel()
-                  + folded["ints"].numel()) * 4
-        bms, by = bound_ms(nbytes, flops)
-        inst.append((1, k_ms, p_ms, bms, by, None))
-        log("kernels", kernel="sac_actor", agent=i, dims=[nin, ng, nh, nact],
-            batch=B, mode="train", ms=k_ms, wall_ms_per_call=k_wall,
-            plain_ms=p_ms, plain_wall_ms=p_wall, bytes=nbytes, flops=flops,
-            bound_ms=bms, bound_by=by, library_ms=None)
+        inst.append((1, *actor_timing(actor, o, i, "gauss", noise,
+                                      path="sac"), None))
+        actor_timing(actor, o[:cfg.num_eval], i, "gauss", path="eval")
     records.append(_record("sac_actor", "emlp_actor.cu",
                            "gym_rotor_tpu/algos/sac.py:114",
                            launches["sac_actor"], errs["sac_actor"], inst))
@@ -1936,10 +2131,11 @@ def _err_rel(k, p, rel):
 
 def phase_ppo_actor(cfg, dev, obs):
     """K11 vs its plain twin (``EMLPActorPPO.dist``, the clipped draw and the
-    log-prob of the clipped action) on both PPO actors at B = 4096 and 32
-    (the two configurations' envs) and the eval path's 10, in train and
-    eval modes, with ``log_std`` as initialised (0) and shifted by +-3
-    (std 20: most actions clip; std 0.05).  Tolerance: 1e-5 on actions,
+    log-prob of the clipped action) on both PPO actors at ``actor_rows``
+    (B = 4096 and 32, the two configurations' envs, the eval path's 10, 1,
+    31, 33), in train and eval modes, with ``log_std`` as initialised (0)
+    and shifted by +-3 (std 20: most actions clip; std 0.05), each launch
+    run twice and compared bitwise.  Tolerance: 1e-5 on actions,
     2e-5 max(1, max |plain|) on log-probs (the log-density divides the
     action's rounding by std)."""
     from gym_rotor_tpu_torch.algos.ppo import PPOAgent
@@ -1957,13 +2153,14 @@ def phase_ppo_actor(cfg, dev, obs):
             with torch.no_grad():
                 actor.log_std.copy_(saved + shift)
             actor.bump_version()
-            for nb in (int(o_full.shape[0]), 32, cfg.num_eval):
+            for nb in actor_rows(int(o_full.shape[0])):
                 o = o_full[:nb]
                 noise = torch.randn(nb, agent.action_dim, generator=gen,
                                     device=dev)
                 for mode, nz in (("train", noise), ("eval", None)):
                     with torch.no_grad():
-                        ak, lk = K.ppo_actor(actor, o, nz)
+                        (ak, lk), same = _twice(
+                            lambda: K.ppo_actor(actor, o, nz))
                         ap, lp = K.ppo_actor_plain(actor, o, nz)
                     da = float((ak - ap).abs().max())
                     dl, tol, fin = _err(lk, lp)
@@ -1971,10 +2168,11 @@ def phase_ppo_actor(cfg, dev, obs):
                     log("ppo_actor", agent=i, batch=nb, mode=mode,
                         log_std_shift=shift,
                         clipped=float((ap.abs() == 1.0).float().mean()),
-                        dims=K.actor_dims(actor), max_abs_err=[da, dl])
-                    if not (da <= 1e-5 and dl <= tol and fin
+                        dims=K.actor_dims(actor), max_abs_err=[da, dl],
+                        rerun_bitwise=same)
+                    if not (da <= 1e-5 and dl <= tol and fin and same
                             and torch.isfinite(ak).all()):
-                        bad.append((i, nb, mode, shift, da, dl))
+                        bad.append((i, nb, mode, shift, da, dl, same))
         with torch.no_grad():
             actor.log_std.copy_(saved)
         actor.bump_version()
@@ -2377,13 +2575,12 @@ def phase_train_ppo(dev, name, kw, supersteps):
     return cfg, launches, probe["shapes"], run
 
 
-def phase_ppo_kernels(dev, agents, obs, runs, errs):
-    """Records of K11, K12, K13 and the PPO path's K3/K4: device time per
+def phase_ppo_kernels(dev, agents, states, obs, runs, errs):
+    """Records of K11, K7, K12, K13 and the PPO path's K3/K4: device time per
     launch at each configuration's shapes, weighted by its launches in the
     train phase; the plain twin's time and the bound.  No one PyTorch call
     computes any of the three new functions.  ``runs``: per configuration
     ``(cfg, launches, (K3 shapes, K4 shapes) of one superstep, run)``."""
-    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
     from gym_rotor_tpu_torch.kernels import gae as KG
     from gym_rotor_tpu_torch.kernels import ppo_loss as KL
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
@@ -2392,38 +2589,38 @@ def phase_ppo_kernels(dev, agents, obs, runs, errs):
         total.update(launches)
     records = []
 
-    # K11 per agent at each configuration's envs (train mode)
+    # K11 per agent at each configuration's envs (train mode); in eval mode
+    # at the eval path's 10 rows (logged)
     inst = []
-    for cfg, launches, *_ in runs:
+    for (cfg, launches, *_), (name, _) in zip(runs, PPO_SUPERSTEPS):
         nb = cfg.num_envs
         for i, agent in enumerate(agents):
             actor, o = agent.actor_net, obs[i][:nb]
             noise = torch.randn(nb, agent.action_dim, generator=gen,
                                 device=dev)
-            with torch.no_grad():
-                k_ms, k_wall = device_ms(lambda: KA.ppo_actor(actor, o, noise),
-                                         100)
-                p_ms, _ = device_ms(lambda: KA.ppo_actor_plain(actor, o, noise),
-                                    10, 3)
-            folded = KA.fold_actor(actor)
-            nin, ng, nh, nact = folded["dims"]
-            # K3's blocks per row (phase_kernels), the mean head and tanh,
-            # then per action exp, the draw, the clip, z and the log-prob
-            per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
-                          for ni, nnz in zip((nin, nh), folded["nnz"]))
-            per_row += 2 * nh * nact + 2 * nact + 11 * nact
-            nbytes = (o.numel() + 3 * nb * nact + folded["params"].numel()
-                      + folded["ints"].numel()) * 4
-            bms, by = bound_ms(nbytes, nb * per_row)
-            inst.append((launches["ppo_actor"] / len(agents), k_ms, p_ms, bms,
-                         by, None))
-            log("kernels", kernel="ppo_actor", agent=i, batch=nb, ms=k_ms,
-                wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
-                flops=nb * per_row, bound_ms=bms, bound_by=by,
-                library_ms=None)
+            inst.append((launches["ppo_actor"] / len(agents),
+                         *actor_timing(actor, o, i, "ppo", noise,
+                                       path=f"ppo_{name}"), None))
+    for i, agent in enumerate(agents):
+        actor_timing(agent.actor_net, obs[i][:runs[0][0].num_eval], i, "ppo",
+                     path="eval")
     records.append(_record("ppo_actor", "emlp_actor.cu",
                            "gym_rotor_tpu/algos/ppo.py:107",
                            total["ppo_actor"], errs["ppo_actor"], inst))
+
+    # K7 on the PPO path: a minibatch step regularizes the actor or the V
+    # critic, so each stack weighs its network's minibatches in one
+    # superstep of each configuration
+    per_step = Counter()
+    for cfg, *_ in runs:
+        _, _, na, _, nc, _ = _ppo_dims(cfg)
+        per_step.update(critic=cfg.K_epochs * nc, actor=cfg.K_epochs * na)
+    inst = [(per_step[net], *spectral_timing(ws, Ws, x, i, net, "ppo"), None)
+            for i, net, ws, Ws, x in _spectral_stacks(agents, states, dev,
+                                                      gen)]
+    records.append(_record("spectral_iterate_ppo", "spectral.cu",
+                           "gym_rotor_tpu/algos/regularizers.py:102",
+                           total["spectral_iterate"], errs["spectral"], inst))
 
     # K12 at each configuration's horizon
     inst = []
@@ -2609,7 +2806,9 @@ def phase_mono_kernels(dev, mono_cfg, tick, runs, errs):
     run = runs["mono_emlp"]
     agent, st = run["agents"][0], run["states"][0]
     obs = run["obs"][0].contiguous()        # the run's last obs, 4096 rows
-    k_ms, p_ms, bms, by = actor_timing(agent.bound_actor(st), obs, 0)
+    actor = agent.bound_actor(st)
+    k_ms, p_ms, bms, by = actor_timing(actor, obs, 0, path="mono")
+    actor_timing(actor, obs[:mono_cfg.num_eval], 0, path="eval")
     records.append(dict(
         name="emlp_actor_mono", route="cuda",
         source="gym_rotor_tpu_torch/kernels/csrc/emlp_actor.cu",
@@ -2809,13 +3008,14 @@ def phase_family_blocks(dev, obs_mod, obs_mono):
 
 
 def phase_family_actors(dev, obs_mod, obs_mono):
-    """K9 and K11 at the MONO actor (23, 18, 16, 4) and K11's head on the
-    MLP PPO actors (Mod-MLP agents 0 and 1, Mono-MLP) vs their plain twins,
-    at 4096, 32 and 10 rows (train envs, PPO A's envs, eval envs), in train
+    """K9 and K11 at the MONO actor (23, 18, 16, 4) and K11's head on the MLP
+    PPO actors (Mod-MLP agents 0 and 1, Mono-MLP) vs their plain twins, at
+    4096, 32 and 10 rows (train envs, PPO A's envs, eval envs; the actor kernel
+    also at 1, 31 and 33, each launch run twice and compared bitwise), in train
     and eval modes, with SAC's log_std bias shifted by +-25 (every row at a
-    clip bound) and PPO's log_std by +-3; K11's head writes into column
-    slices of wider tensors, whose other columns must stay as they were.
-    Tolerance 1e-5 on actions, 2e-5 max(1, max |plain|) on log-probs."""
+    clip bound) and PPO's log_std by +-3; K11's head writes into column slices
+    of wider tensors, whose other columns must stay as they were. Tolerance
+    1e-5 on actions, 2e-5 max(1, max |plain|) on log-probs."""
     from gym_rotor_tpu_torch.algos.ppo import PPOAgent
     from gym_rotor_tpu_torch.algos.sac import SACAgent
     from gym_rotor_tpu_torch.kernels import emlp_actor as K
@@ -2841,26 +3041,29 @@ def phase_family_actors(dev, obs_mod, obs_mono):
             with torch.no_grad():
                 param.copy_(saved + shift)
             actor.bump_version()
-            for nb in (B, 32, 10):
+            for nb in actor_rows(B):
                 o = obs_mono[0][:nb]
                 noise = torch.randn(nb, 4, generator=gen, device=dev)
                 for mode, nz in (("train", noise), ("eval", None)):
                     with torch.no_grad():
                         if kind == "sac_actor_mono":
-                            ak = K.sac_actor(actor, o, nz)
+                            ak, same = _twice(
+                                lambda: K.sac_actor(actor, o, nz))
                             ap = K.sac_actor_plain(actor, o, nz)
                             dl, tol, fin = 0.0, 1.0, True
                         else:
-                            ak, lk = K.ppo_actor(actor, o, nz)
+                            (ak, lk), same = _twice(
+                                lambda: K.ppo_actor(actor, o, nz))
                             ap, lp = K.ppo_actor_plain(actor, o, nz)
                             dl, tol, fin = _err(lk, lp)
                     da = float((ak - ap).abs().max())
                     worst[kind] = max(worst[kind], da, dl)
                     log("family_actors", kernel=kind, batch=nb, mode=mode,
-                        log_std_shift=shift, max_abs_err=[da, dl])
-                    if not (da <= 1e-5 and dl <= tol and fin
+                        log_std_shift=shift, max_abs_err=[da, dl],
+                        rerun_bitwise=same)
+                    if not (da <= 1e-5 and dl <= tol and fin and same
                             and torch.isfinite(ak).all()):
-                        bad.append((kind, nb, mode, shift, da, dl))
+                        bad.append((kind, nb, mode, shift, da, dl, same))
         with torch.no_grad():
             param.copy_(saved)
         actor.bump_version()
@@ -2942,41 +3145,22 @@ def phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
             sum(c for k, c in run_bwd.items() if k[0] == dims),
             block_errs[dims][1], kb))
 
-    # K9 and K11 at the MONO actor, 4096 rows in train mode
-    for name, kernel, plain, replaces, extra in (
-            ("sac_mono_emlp", KA.sac_actor, KA.sac_actor_plain,
-             "gym_rotor_tpu/algos/sac.py:114", "sac"),
-            ("ppo_mono_emlp", KA.ppo_actor, KA.ppo_actor_plain,
-             "gym_rotor_tpu/algos/ppo.py:107", "ppo")):
+    # K9 and K11 at the MONO actor, 4096 rows in train mode; in eval mode
+    # at the eval path's 10 rows (logged)
+    for name, kind, replaces in (
+            ("sac_mono_emlp", "gauss", "gym_rotor_tpu/algos/sac.py:114"),
+            ("ppo_mono_emlp", "ppo", "gym_rotor_tpu/algos/ppo.py:107")):
         run = runs[name]
         actor = run["agents"][0].bound_actor(run["states"][0])
         o = obs_mono[0]
         noise = torch.randn(B, 4, generator=gen, device=dev)
-        with torch.no_grad():
-            k_ms, k_wall = device_ms(lambda: kernel(actor, o, noise), 100)
-            p_ms, _ = device_ms(lambda: plain(actor, o, noise), 10, 3)
-        folded = KA.fold_actor(actor)
-        nin, ng, nh, nact = folded["dims"]
-        per_row = sum(2 * ng * ni + ng + 3 * nnz + 2 * ng + 4 * nh
-                      for ni, nnz in zip((nin, nh), folded["nnz"]))
-        # the heads: K9's mean and log_std Dense, clip, exp, the sample and
-        # tanh (phase_sac_kernels); K11's mean, tanh and the draw with its
-        # log-prob (phase_ppo_kernels)
-        per_row += (2 * (2 * nh * nact + nact) + 6 * nact if extra == "sac"
-                    else 2 * nh * nact + 2 * nact + 11 * nact)
-        outs = 2 if extra == "ppo" else 1
-        nbytes = (o.numel() + (1 + outs) * B * nact
-                  + folded["params"].numel() + folded["ints"].numel()) * 4
-        bms, by = bound_ms(nbytes, B * per_row)
-        kname = f"{extra}_actor"
-        log("kernels", kernel=f"{kname}_mono", dims=[nin, ng, nh, nact],
-            batch=B, mode="train", ms=k_ms, wall_ms_per_call=k_wall,
-            plain_ms=p_ms, bytes=nbytes, flops=B * per_row, bound_ms=bms,
-            bound_by=by, library_ms=None)
-        records.append(_record(f"{kname}_mono", "emlp_actor.cu", replaces,
-                               run["launches"].get(kname, 0),
-                               actor_errs[f"{kname}_mono"],
-                               [(1, k_ms, p_ms, bms, by, None)]))
+        timing = actor_timing(actor, o, 0, kind, noise, path=name)
+        actor_timing(actor, o[:10], 0, kind, path="eval")
+        kname = f"{ACTOR_KERNELS[kind]}_mono"
+        records.append(_record(kname, "emlp_actor.cu", replaces,
+                               run["launches"].get(ACTOR_KERNELS[kind], 0),
+                               actor_errs[kname],
+                               [(1, *timing, None)]))
 
     # K11's head at 4096 rows on each MLP PPO actor of the runs
     inst = []
@@ -3856,7 +4040,8 @@ def main():
     errs["emlp_block"], errs["emlp_block_backward"] = phase_emlp_block(
         cfg, dev, agents, states, obs)
     errs["flat_adamw"] = phase_flat_adamw(cfg, dev, agents)
-    errs["spectral"] = phase_spectral(cfg, dev, agents, states)
+    errs["spectral"] = phase_spectral(cfg, dev, agents, states,
+                                      every_learner=True)
     sac_agents, _, errs["sac_actor"] = phase_sac_actor(cfg, dev, obs)
     errs["sac_sample"] = phase_sac_sample(dev)
     k5_td3, k5_sac = K5Calls(), K5Calls()
@@ -3873,7 +4058,8 @@ def main():
     records += phase_train_kernels(cfg, dev, rep, agents, states, launches,
                                    shapes, errs)
     records += phase_sac_kernels(cfg, dev, sac_agents, obs, sac_launches, errs)
-    records += phase_ppo_kernels(dev, ppo_agents, obs, ppo_runs, errs)
+    records += phase_ppo_kernels(dev, ppo_agents, ppo_states, obs, ppo_runs,
+                                 errs)
     phase_k5(dev, k5_td3, k5_sac)
     records += phase_mono(dev)
     records += phase_families(dev)

@@ -9,61 +9,248 @@
 // iterate is stop_gradient-ed in JAX, so the kernel has no backward: sigma =
 // |W v| and its gradient 2 (W v) v^T stay torch autograd.
 //
-// Bound on an H100: the operations, and few.  A twin critic's stack is 6
-// matrices of at most 123 x 62: 10 steps x 2 matvecs x 2 flops x 6 x 7.6k
-// ~ 1.8 MFLOP (~0.03 us at the fp32 peak) over ~0.2 MB of weights; the
-// launch and the 30 dependent steps (two block barriers each) dominate.
+// Bound on an H100: by the count, the operations, and few.  A twin
+// critic's stack is 6 matrices of at most 123 x 62: 10 steps x 2 matvecs x
+// 2 flops x 6 x 7.6k ~ 1.8 MFLOP (~0.03 us at the fp32 peak) over ~0.2 MB
+// of weights.  What holds it is the chain of 20 dependent matvecs a matrix,
+// each ending in a cross-thread exchange, and the launch: on an H100 a
+// shuffle level costs ~70 cycles and a barrier ~40, so the design keeps
+// both few.
 //
-// Design: one block per matrix.  The block copies its padded W (<= 30.5 KB)
-// into shared memory, then runs the 10 steps there: one thread per row for
-// y = W x, one thread per column for x = W^T y, a fixed-order tree for |x|,
-// so a run repeats its numbers.
+// Design: one block per matrix; the form iterated is the two matvecs (not
+// M = W^T W, whose forming costs mi^2 mo FMAs, ~0.5 M for 123 x 62, and
+// whose rounding the iteration would keep).  All NS threads stage W in
+// shared memory (every load in flight, then the stores at pitch MI + 4);
+// the first NT = MO CA threads then keep two pieces of it in registers for
+// the whole chain, the rest leave:
+//   row pass, y = W x: thread t holds row t / CA, its lane c = t % CA the
+//     columns 4 c + 4 CA g + q (float4 groups, x read as conflict-free
+//     float4 broadcasts); its products summed over the groups with one
+//     accumulator per q, then (a0 + a1) + (a2 + a3), written to shared
+//     memory as its share of the row (no shuffle); beside it its share of
+//     |x|^2 the same way (a row's lanes together hold all of x, so the
+//     norm needs no exchange between warps);
+//   column pass, x = W^T y / |x|: thread t holds column t / RB, its lane
+//     k = t % RB the rows 4 k + 4 RB g + q; y is the rows' shares added in
+//     lane order; the same sums, then a butterfly (__shfl_xor) over the
+//     column's RB lanes; |x| from the row lanes' shares of it (a butterfly
+//     over CA lanes, none at the critics' instance); the next iterate goes
+//     to the other of two buffers.
+// A pass ends in a barrier of the NT threads (two an iteration); the last
+// iterate is divided by its norm.  A butterfly gives every lane the same
+// bits (a + b == b + a), so every sum has one fixed order and a rerun
+// repeats its numbers.  Padding (zero) groups are summed too: a test that
+// skips them keeps the compiler from issuing the groups' loads together.
+// Instances by the padded shape: <= 32 x 32 (the actors' stacks, 64
+// threads iterating), <= 128 x 64 (the critics', 128 threads, one lane a
+// row), <= 128 x 128 (512).
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
+// butterfly sum over the lane bits LO .. HI / 2 (powers of two)
+template <int LO, int HI>
+__device__ __forceinline__ float lane_sum(float s) {
+#pragma unroll
+  for (int m = LO; m < HI; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  return s;
+}
+
+// The geometry of an instance: matrices of at most MO x MI; CA lanes a row
+// in the row pass, RB lanes a column in the column pass, NT threads in
+// both; NS >= NT threads stage W, and those past NT leave after it.
+template <int MO, int MI, int CA, int RB, int NS>
+struct Geo {
+  static constexpr int NT = MO * CA;
+  static constexpr int GA = MI / (4 * CA);   // float4 groups a row lane
+  static constexpr int GB = MO / (4 * RB);   // float4 groups a column lane
+  // the staged matrix's pitch: rows 16-byte aligned for the row pass's
+  // float4 loads; at the critics' instance neither pass's register loads
+  // share a bank
+  static constexpr int P = MI + 4;
+  static_assert(NT == MI * RB && NT % 32 == 0 && NS % NT == 0 && NS <= 1024,
+                "threads");
+  static_assert(32 % CA == 0 && 32 % RB == 0, "a row's, a column's lanes");
+  static_assert(GA >= 1 && GB >= 1, "lanes");
+  // shared memory: x (2 MI), the row lanes' shares of y (CA MO), W
+  // (mo x P)
+  static size_t smem(int mo) {
+    return (size_t)(2 * MI + CA * MO + mo * P) * 4;
+  }
+};
+
+// the compute threads' barrier: the block's, or a named one of the first NT
+// threads when the staging threads past them have left
+template <int NT, int NS>
+__device__ __forceinline__ void sync_compute() {
+  if (NT == NS)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
+}
+
+// A row lane's sums over its columns of x (float4 groups, conflict-free
+// broadcasts): its share of y = W x and of |x|^2, each over the groups in
+// order with one accumulator per q, then (a0 + a1) + (a2 + a3).  Every
+// group, padding too (zeros): a test that skips groups keeps the compiler
+// from issuing the groups' loads together.
+template <int GA, int CA>
+__device__ __forceinline__ void row_sums(const float (&wa)[GA][4],
+                                         const float* x, int ca, float& y,
+                                         float& sq) {
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int g = 0; g < GA; ++g) {
+    const float4 xv = reinterpret_cast<const float4*>(x)[ca + CA * g];
+    const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a[q] = fmaf(wa[g][q], xq[q], a[q]);
+      s[q] = fmaf(xq[q], xq[q], s[q]);
+    }
+  }
+  y = (a[0] + a[1]) + (a[2] + a[3]);
+  sq = (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+template <int MO, int MI, int CA, int RB, int NS>
+__global__ void __launch_bounds__(NS)
 spectral_kernel(const float* __restrict__ W, const float* __restrict__ x0,
                 float* __restrict__ v, int mo, int mi, int iters) {
-  extern __shared__ float smem[];
-  float* sW = smem;               // mo * mi
-  float* sx = sW + mo * mi;       // mi
-  float* sy = sx + mi;            // mo
-  float* red = sy + mo;           // kThreads
-  const int k = blockIdx.x;
-  const float* Wk = W + (size_t)k * mo * mi;
-  for (int e = threadIdx.x; e < mo * mi; e += kThreads) sW[e] = Wk[e];
-  for (int j = threadIdx.x; j < mi; j += kThreads) sx[j] = x0[(size_t)k * mi + j];
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    for (int r = threadIdx.x; r < mo; r += kThreads) {
-      float s = 0.0f;
-      for (int j = 0; j < mi; ++j) s += sW[r * mi + j] * sx[j];
-      sy[r] = s;
+  using G = Geo<MO, MI, CA, RB, NS>;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;            // the iterate, unnormalised, two buffers
+  float* yp = xs + 2 * MI;     // the row lanes' shares of W x, [ca][row]
+  float* sW = yp + CA * MO;
+  const int t = threadIdx.x;
+  const size_t k = blockIdx.x;
+  const float* Wk = W + k * mo * mi;
+  {
+    // stage W: the start vector's and the flat matrix's coalesced loads all
+    // in flight, then stores at pitch P: row r = e / mi, taken as
+    // floor((e + 0.5) / mi) in float (off an integer by >= 0.5 / mi, far
+    // more than the rounding for e < 2^14), at r P + e - r mi
+    constexpr int PER = (MO * MI + NS - 1) / NS;
+    const int n = mo * mi;
+    const float xv = t < mi ? x0[k * mi + t] : 0.0f;
+    const float rmi = 1.0f / (float)mi;
+    float st[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = t + NS * i;
+      st[i] = e < n ? Wk[e] : 0.0f;
     }
-    __syncthreads();
-    float sq = 0.0f;
-    for (int j = threadIdx.x; j < mi; j += kThreads) {
-      float s = 0.0f;
-      for (int r = 0; r < mo; ++r) s += sW[r * mi + j] * sy[r];
-      sx[j] = s;
-      sq += s * s;
+    if (t < MI) xs[t] = xv;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = t + NS * i;
+      const int r = __float2int_rd(((float)e + 0.5f) * rmi);
+      if (e < n) sW[e + r * (G::P - mi)] = st[i];
     }
-    red[threadIdx.x] = sq;
-    __syncthreads();
-    for (int h = kThreads / 2; h > 0; h >>= 1) {
-      if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-      __syncthreads();
-    }
-    const float norm = sqrtf(red[0]);
-    for (int j = threadIdx.x; j < mi; j += kThreads) sx[j] = sx[j] / norm;
-    __syncthreads();
   }
-  for (int j = threadIdx.x; j < mi; j += kThreads) v[(size_t)k * mi + j] = sx[j];
+  __syncthreads();
+  if (t >= G::NT) return;
+  if (iters == 0) {
+    if (t < mi) v[k * mi + t] = xs[t];
+    return;
+  }
+  const int ra = t / CA, ca = t % CA;     // row pass: row, lane
+  const int jb = t / RB, kb = t % RB;     // column pass: column, lane
+  float wa[G::GA][4], wb[G::GB][4];
+#pragma unroll
+  for (int g = 0; g < G::GA; ++g) {
+    // a row's float4 groups (zero beyond mi, as the start vector's padding)
+    const float4 w = ra < mo ? reinterpret_cast<const float4*>(
+                                   sW + ra * G::P)[ca + CA * g]
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int c = 4 * (ca + CA * g);
+    wa[g][0] = c < mi ? w.x : 0.0f;
+    wa[g][1] = c + 1 < mi ? w.y : 0.0f;
+    wa[g][2] = c + 2 < mi ? w.z : 0.0f;
+    wa[g][3] = c + 3 < mi ? w.w : 0.0f;
+  }
+#pragma unroll
+  for (int g = 0; g < G::GB; ++g)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 4 * kb + 4 * RB * g + q;
+      wb[g][q] = (r < mo && jb < mi) ? sW[r * G::P + jb] : 0.0f;
+    }
+  for (int it = 0; it < iters; ++it) {
+    const float* xc = xs + (it & 1) * MI;     // this step's iterate
+    // the row lane's share of y = W x, to shared memory as it is; its share
+    // of |x|^2 (a row's lanes hold all of x) stays in a register
+    float y, sq;
+    row_sums<G::GA, CA>(wa, xc, ca, y, sq);
+    yp[ca * MO + ra] = y;
+    sync_compute<G::NT, NS>();
+    // x = W^T y / |x| (y: the row lanes' shares added in order; |x|: the
+    // row lanes' shares added by a butterfly), the next iterate into the
+    // other buffer
+    const float inv = rsqrtf(lane_sum<1, CA>(sq));
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+    for (int g = 0; g < G::GB; ++g) {
+      float4 yv = reinterpret_cast<const float4*>(yp)[kb + RB * g];
+#pragma unroll
+      for (int c = 1; c < CA; ++c) {
+        const float4 u =
+            reinterpret_cast<const float4*>(yp + c * MO)[kb + RB * g];
+        yv.x += u.x;
+        yv.y += u.y;
+        yv.z += u.z;
+        yv.w += u.w;
+      }
+      a0 = fmaf(wb[g][0], yv.x, a0);
+      a1 = fmaf(wb[g][1], yv.y, a1);
+      a2 = fmaf(wb[g][2], yv.z, a2);
+      a3 = fmaf(wb[g][3], yv.w, a3);
+    }
+    const float x = lane_sum<1, RB>((a0 + a1) + (a2 + a3)) * inv;
+    if (kb == 0) xs[((it + 1) & 1) * MI + jb] = x;
+    sync_compute<G::NT, NS>();
+  }
+  const float* xf = xs + (iters & 1) * MI;
+  float y, sq;
+  row_sums<G::GA, CA>(wa, xf, ca, y, sq);
+  const float norm = sqrtf(lane_sum<1, CA>(sq));
+  if (t < mi) v[k * mi + t] = xf[t] / norm;
 }
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes, size_t* done) {
+  // per device and kernel: raise the dynamic shared-memory limit when a
+  // launch needs more than what was set on this device before
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= 48 * 1024 || bytes <= done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) done[dev] = bytes;
+  return e;
+}
+
+template <int MO, int MI, int CA, int RB, int NS>
+int launch(const float* W, const float* x0, float* v, int K, int mo, int mi,
+           int iters, cudaStream_t stream) {
+  static size_t done[kMaxDevices] = {0};
+  using G = Geo<MO, MI, CA, RB, NS>;
+  auto kernel = spectral_kernel<MO, MI, CA, RB, NS>;
+  const size_t smem = G::smem(mo);
+  cudaError_t e = set_smem(kernel, smem, done);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<K, NS, smem, stream>>>(W, x0, v, mo, mi, iters);
+  return (int)cudaGetLastError();
+}
+
+// The instances, smallest first: (MO, MI, CA, RB, NS).
+#define SPECTRAL_INSTANCES(X) \
+  X(32, 32, 2, 2, 256) X(128, 64, 1, 2, 256) X(128, 128, 4, 4, 512)
 
 }  // namespace
 
@@ -71,13 +258,29 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The instance a (mo, mi) stack runs on: geo = (MO, MI, CA, RB, NS) and
+// the launch's dynamic shared memory (bytes); 0 if none fits.
+extern "C" long long spectral_geometry(int mo, int mi, int* geo) {
+#define X(a, b, c, d, e)                                           \
+  if (mo >= 1 && mi >= 1 && mo <= a && mi <= b) {                  \
+    geo[0] = a; geo[1] = b; geo[2] = c; geo[3] = d; geo[4] = e;    \
+    return (long long)Geo<a, b, c, d, e>::smem(mo);                \
+  }
+  SPECTRAL_INSTANCES(X)
+#undef X
+  return 0;
+}
+
 extern "C" int spectral_launch(const void* W, const void* x0, void* v, int K,
                                int mo, int mi, int iters, void* stream) {
   if (K <= 0 || mo <= 0 || mi <= 0 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(mo * mi + mi + mo + kThreads) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  spectral_kernel<<<K, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)W, (const float*)x0, (float*)v, mo, mi, iters);
-  return (int)cudaGetLastError();
+#define X(a, b, c, d, e)                                                  \
+  if (mo <= a && mi <= b)                                                 \
+    return launch<a, b, c, d, e>((const float*)W, (const float*)x0,       \
+                                 (float*)v, K, mo, mi, iters,             \
+                                 (cudaStream_t)stream);
+  SPECTRAL_INSTANCES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,19 +31,22 @@ block the linear layer is ``2 ng nin`` flops and the bilinear layer three
 per nonzero of its quadratic form (``bilinear_sparse``: 288 for agent 0's
 18 gated channels, where a dense ``ng^3`` form would hold 5832), so agent 0
 at B = 4096 is ~13 MFLOP against ~0.3 MB of obs/actions: ~0.2 us at the
-fp32 peak.  Design: the folded weights (``W_eff``, ``b_eff`` from
-``project_linear``, K5), the bilinear nonzeros grouped by output
-coordinate, and the gate indices sit in shared memory (a few KB); one
-thread per batch row keeps its activations in registers, with a copy of
-each block's linear output in a per-thread shared-memory column that the
-nonzeros index.  No cuBLAS call: every product of the actor is in the
-kernel body.
+fp32 peak.  The paths launch it at 4096, 32, 10 and 1 rows, so what holds
+it is one row's chain of steps.  Design (``csrc/emlp_actor.cu``): a
+32-row tile on a warp's lanes and one row's work split over the block's
+warps (each warp 4 linear outputs, then its share of the bilinear
+outputs by ``bilinear_plan``), the tile's vectors in shared memory, the
+folded weights (``W_eff``, ``b_eff`` from ``project_linear``, K5; the
+nonzeros; the gates; the head) one image (``fold_actor``) that each block
+copies to shared memory.  No cuBLAS call: every product of the actor is in
+the kernel body.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..models.emlp.nn import (bilinear_index, bilinear_sparse,
@@ -62,17 +65,177 @@ _BUILT = {(15, 18, 16, 4), (3, 7, 4, 1), (23, 18, 16, 4)}
 INSTANCES = {HEAD_TANH: _BUILT, HEAD_GAUSS: _BUILT, HEAD_PPO: _BUILT}
 
 
+# The kernel's geometry (csrc/emlp_actor.cu): rows a tile (a warp's lanes),
+# the field-major tiles' pitch; the image's meta: per network block b at
+# 7 b the offsets of BLOCK_SECTIONS, then HEAD_SECTIONS, the image's length
+# and the warps a block
+TILE, PITCH = 32, 33
+BLOCK_SECTIONS = ("wt", "b", "gate", "wptr", "task", "tptr", "ent")
+HEAD_SECTIONS = ("wh", "bh", "wl", "bl", "log_std")
+META = ([f"{n}{b}" for b in (0, 1) for n in BLOCK_SECTIONS]
+        + list(HEAD_SECTIONS) + ["words", "warps"])
+# a plan's cost of one output beyond its nonzeros (its epilogue), in
+# nonzeros
+TASK_COST = 2
+
+
 def _lib():
     lib = KERNEL.load()
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.emlp_actor_launch.argtypes = [P, I, P, I, P, I, I, I, P, I, P,
-                                          I, P, I, F, I, I, I, I, I, P]
+        lib.emlp_actor_launch.argtypes = [P, I, P, P, P, I, P, I, P, I, F,
+                                          I, I, I, I, I, P]
         lib.emlp_actor_launch.restype = I
         lib.ppo_head_launch.argtypes = [P, I, I, P, P, I, P, I, P, I, F, P]
         lib.ppo_head_launch.restype = I
+        lib.emlp_actor_geometry.argtypes = [I]
+        lib.emlp_actor_geometry.restype = I
+        lib.emlp_actor_smem.argtypes = [I, I, I, I, P]
+        lib.emlp_actor_smem.restype = ctypes.c_longlong
+        geo = [lib.emlp_actor_geometry(k) for k in range(3)]
+        if geo != [TILE, PITCH, len(META)]:
+            raise RuntimeError(f"emlp_actor: kernel geometry {geo} differs "
+                               "from the wrapper's")
         lib._typed = True
     return lib
+
+
+def actor_warps(ng: int) -> int:
+    """Warps a block of the kernel at gated width ``ng``."""
+    return 8 if ng > 8 else 4
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def head_kind(actor) -> int:
+    """The head an actor's fold carries: HEAD_GAUSS for ``EMLPActorSAC``
+    (its ``log_std_linear``), HEAD_PPO for ``EMLPActorPPO`` (its
+    ``log_std`` parameter), else HEAD_TANH."""
+    if getattr(actor, "log_std_linear", None) is not None:
+        return HEAD_GAUSS
+    if isinstance(getattr(actor, "log_std", None), torch.nn.Parameter):
+        return HEAD_PPO
+    return HEAD_TANH
+
+
+def bilinear_plan(rowptr, warps: int):
+    """The warps' shares of one block's bilinear form, ``(wptr, task,
+    tptr, perm)``: the outputs, longest first (ties: the lower coordinate),
+    each go to the warp with the least work so far (nonzeros plus
+    ``TASK_COST`` an output; ties: the lower warp); warp ``w`` computes the
+    outputs ``task[wptr[w]:wptr[w + 1]]``, its own in coordinate order.
+    The nonzeros are repacked in that order, each output's in its own order:
+    output ``task[m]``'s are the repacked ``tptr[m]:tptr[m + 1]``, the
+    original entries ``perm[tptr[m]:tptr[m + 1]]``.  Every output coordinate
+    is one task, also one without nonzeros (its pre is its lin)."""
+    rowptr = np.asarray(rowptr, np.int64)
+    nnz = np.diff(rowptr)
+    ng = len(nnz)
+    load, mine = [0] * warps, [[] for _ in range(warps)]
+    for o in sorted(range(ng), key=lambda o: (-nnz[o], o)):
+        w = min(range(warps), key=lambda w: (load[w], w))
+        mine[w].append(o)
+        load[w] += int(nnz[o]) + TASK_COST
+    task = np.array([o for m in mine for o in sorted(m)], np.int64)
+    wptr = np.cumsum([0] + [len(m) for m in mine])
+    tptr = np.cumsum(np.concatenate([[0], nnz[task]]))
+    perm = np.concatenate([np.arange(rowptr[o], rowptr[o + 1])
+                           for o in task] + [np.zeros(0, np.int64)])
+    return wptr, task, tptr, perm
+
+
+def image_layout(dims, nnz, head: int) -> Dict[str, int]:
+    """Word offsets of the image's sections (each a multiple of 4, so 16
+    bytes aligned), by ``META``'s names; a section the head does not have
+    is -1.  Per network block (``nin`` then ``nh`` inputs): ``wt``
+    ``W_eff`` transposed ``(ni, round4(ng))``, zero-padded; ``b`` ``b_eff``
+    ``(round4(ng),)``; ``gate`` the gate coordinates' tile offsets ``g *
+    PITCH`` ``(nh,)``; the plan's ``wptr`` ``(warps + 1,)``, ``task``
+    ``(ng,)`` and ``tptr`` ``(ng + 1,)``; ``ent`` the repacked nonzeros,
+    two words each: ``j PITCH << 16 | i PITCH`` and v's bits.  Then the
+    head's ``wh`` ``(nact, nh)`` and ``bh`` ``(nact,)``; the Gaussian
+    head's log_std Dense, ``wl`` (its kernel transposed, ``(nact, nh)``)
+    and ``bl``; the PPO head's ``log_std`` ``(nact,)``."""
+    nin, ng, nh, nact = dims
+    W, ngp = actor_warps(ng), _round4(ng)
+    sizes = []
+    for b, ni in enumerate((nin, nh)):
+        sizes += [(f"wt{b}", ni * ngp), (f"b{b}", ngp), (f"gate{b}", nh),
+                  (f"wptr{b}", W + 1), (f"task{b}", ng),
+                  (f"tptr{b}", ng + 1), (f"ent{b}", 2 * nnz[b])]
+    gauss, ppo = head == HEAD_GAUSS, head == HEAD_PPO
+    sizes += [("wh", nact * nh), ("bh", nact),
+              ("wl", nact * nh if gauss else None),
+              ("bl", nact if gauss else None),
+              ("log_std", nact if ppo else None)]
+    out, at = {}, 0
+    for name, n in sizes:
+        if n is None:
+            out[name] = -1
+            continue
+        out[name] = at
+        at += _round4(n)
+    out["words"], out["warps"] = at, W
+    return out
+
+
+def actor_smem(dims, layout) -> int:
+    """Dynamic shared memory of a launch (bytes): the image and the tile's
+    obs, lin, pre and h (the kernel's ``smem_of``)."""
+    nin, ng, nh, _ = dims
+    return 4 * layout["words"] + 4 * (nin + 2 * ng + nh) * PITCH
+
+
+_STRUCTURE: Dict[tuple, Dict] = {}
+
+
+# an image's words: int32 for float32 parameters (what the kernel takes);
+# int64 for float64 ones (the CPU tests' exact arithmetic)
+_WORD = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _structure(actor, dims, head: int, device, dtype) -> Dict:
+    """What a fold's image holds that the parameters do not change, made
+    once per (reps, head, device, dtype): each block's gate coordinates and
+    ``bilinear_plan``, the image's layout, and the image with those int
+    sections written and zeros where the parameters go (words of
+    ``dtype``'s width on ``device``), with the plans' ``perm`` there
+    too."""
+    blocks = [blk for _, blk in actor.named_blocks()]
+    key = (tuple((hash(b.bilinear.rep), hash(b.rep_out)) for b in blocks),
+           dims, head, str(device), dtype)
+    hit = _STRUCTURE.get(key)
+    if hit is not None:
+        return hit
+    nin, ng, nh, nact = dims
+    W = actor_warps(ng)
+    gates, plans, nnz = [], [], []
+    for blk in blocks:
+        idx = bilinear_index(blk.bilinear.rep, "cpu")
+        gates.append(np.asarray(gate_indices(blk.rep_out), np.int64))
+        plans.append(bilinear_plan(idx["rowptr"].numpy(), W))
+        nnz.append(int(idx["o"].numel()))
+    layout = image_layout(dims, nnz, head)
+    base = np.zeros(layout["words"], np.int64)
+    for b, (blk, g, (wptr, task, tptr, perm)) in enumerate(
+            zip(blocks, gates, plans)):
+        idx = bilinear_index(blk.bilinear.rep, "cpu")
+        j, i = idx["j"].numpy()[perm], idx["i"].numpy()[perm]
+        for name, arr in (("gate", g * PITCH), ("wptr", wptr),
+                          ("task", task), ("tptr", tptr)):
+            at = layout[f"{name}{b}"]
+            base[at:at + len(arr)] = arr
+        at = layout[f"ent{b}"]
+        base[at:at + 2 * len(perm):2] = (j * PITCH) << 16 | (i * PITCH)
+    hit = _STRUCTURE[key] = dict(
+        gates=[torch.as_tensor(g, device=device) for g in gates],
+        plans=plans, nnz=tuple(nnz), layout=layout,
+        meta=(ctypes.c_int * len(META))(*[layout[n] for n in META]),
+        base=torch.as_tensor(base, device=device).to(_WORD[dtype]),
+        perm=[torch.as_tensor(p, device=device) for *_, p in plans])
+    return hit
 
 
 def actor_dims(actor):
@@ -96,46 +259,73 @@ def fold_actor(actor) -> Dict:
     optimizer (``kernels/flat_adamw.py``) after every launch, which writes
     through a raw pointer and so leaves torch's own ``_version`` as it was.
     ``blocks`` holds, per block, ``(W_eff, b_eff, (o, j, i, v), gate
-    index)``.  The kernel's buffers: ``params`` (float) packs, per block,
-    ``W_eff (ng, nin)``, ``b_eff (ng,)``, ``v (nnz,)``, then the head
-    ``W (nact, nh)`` and ``b (nact,)`` and, for the SAC actor, the log_std
-    Dense's kernel transposed to ``(nact, nh)`` and its bias, for the PPO
-    actor the ``log_std`` parameter ``(nact,)``; ``ints``
-    packs both blocks' gate indices, then both blocks' row pointers (``ng +
-    1`` each: the nonzeros of output ``o`` are ``rowptr[o]:rowptr[o +
-    1]``), then both blocks' ``j << 16 | i``."""
+    index)``.  The kernel reads one ``image`` (int32 words, the floats'
+    bits, on the actor's device; int64 words of float64 bits for a float64
+    actor, which only the plain twins run) at the offsets of ``layout``
+    (``image_layout``; ``meta`` the same as the C array the launcher
+    takes): per block ``W_eff`` transposed and ``b_eff``, the gates, the
+    warps' plan of the bilinear form and its nonzeros repacked in the
+    plan's order (``plans``: per block ``bilinear_plan``'s ``(wptr, task,
+    tptr, perm)``), then the head's weights (``head_kind``: the tanh head,
+    the SAC actor's log_std Dense too, or the PPO actor's ``log_std``).
+    The plans and the int sections depend on the reps alone and are made
+    once per structure (``_structure``); each fold writes the parameters
+    into a copy of that image."""
     cached = getattr(actor, "_folded", None)
     if cached is not None and cached[0] == actor.param_version:
         return cached[1]
     dims = actor_dims(actor)
-    blocks, idx = [], []
+    nin, ng, nh, nact = dims
+    kind = head_kind(actor)
+    blocks = []
     with torch.no_grad():
         for _, blk in actor.named_blocks():
             W, b = blk.linear.effective()
-            sp = bilinear_sparse(blk.bilinear.rep, blk.bilinear.bi_params)
-            g = torch.as_tensor(gate_indices(blk.rep_out), device=W.device)
-            blocks.append((W, b, sp, g))
-            idx.append(bilinear_index(blk.bilinear.rep, W.device))
+            blocks.append((W, b, bilinear_sparse(blk.bilinear.rep,
+                                                 blk.bilinear.bi_params)))
+        st = _structure(actor, dims, kind, W.device, W.dtype)
+        lay = st["layout"]
+        image = st["base"].clone()
+        f = image.view(W.dtype)
+        ngp = _round4(ng)
+        for b, ((W, bias, (*_, v)), perm) in enumerate(zip(blocks,
+                                                          st["perm"])):
+            ni = W.shape[1]
+            f[lay[f"wt{b}"]:lay[f"wt{b}"] + ni * ngp].view(
+                ni, ngp)[:, :ng] = W.T
+            f[lay[f"b{b}"]:lay[f"b{b}"] + ng] = bias
+            at = lay[f"ent{b}"]
+            f[at + 1:at + 2 * perm.numel():2] = v[perm]
         Wh, bh = actor.named_head()[1].effective()
-        tail = [Wh.reshape(-1), bh]
-        log_std = getattr(actor, "log_std_linear", None)
-        if log_std is not None:
-            tail += [log_std.kernel.T.reshape(-1), log_std.bias]
-        elif isinstance(getattr(actor, "log_std", None), torch.nn.Parameter):
-            tail.append(actor.log_std.reshape(-1))
-    flat = torch.cat([t.reshape(-1) for W, b, (*_, v), _ in blocks
-                      for t in (W, b, v)] + tail)
-    ints = torch.cat([g.to(torch.int32) for *_, g in blocks]
-                     + [d["rowptr"] for d in idx] + [d["ji"] for d in idx])
-    folded = dict(dims=dims, blocks=blocks, head=(Wh, bh),
-                  nnz=tuple(int(v.numel()) for _, _, (*_, v), _ in blocks),
-                  params=flat.contiguous(), ints=ints.contiguous())
+        tail = [("wh", Wh), ("bh", bh)]
+        if kind == HEAD_GAUSS:
+            tail += [("wl", actor.log_std_linear.kernel.T),
+                     ("bl", actor.log_std_linear.bias)]
+        elif kind == HEAD_PPO:
+            tail.append(("log_std", actor.log_std))
+        for name, t in tail:
+            f[lay[name]:lay[name] + t.numel()] = t.reshape(-1)
+    folded = dict(dims=dims, head_kind=kind,
+                  blocks=[(W, b, sp, g) for (W, b, sp), g
+                          in zip(blocks, st["gates"])],
+                  head=(Wh, bh), nnz=st["nnz"], plans=st["plans"],
+                  layout=lay, meta=st["meta"], image=image)
     actor._folded = (actor.param_version, folded)
     fold_actor.folds += 1
     return folded
 
 
 fold_actor.folds = 0
+
+
+def section(folded: Dict, name: str, n: int, ints: bool = False):
+    """The first ``n`` words of the image's section ``name``
+    (``image_layout``), as floats of the parameters' dtype or as ints."""
+    at = folded["layout"][name]
+    if at < 0:
+        raise KeyError(f"the image has no section {name!r}")
+    words = folded["image"][at:at + n]
+    return words if ints else words.view(folded["head"][0].dtype)
 
 
 def emlp_actor_plain(actor, obs):
@@ -177,6 +367,9 @@ def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
     if dims not in INSTANCES[head]:
         raise NotImplementedError(f"{what} has no kernel instance for "
                                   f"(nin, ng, nh, nact) = {dims}")
+    if folded["head_kind"] != head:
+        raise ValueError(f"{what}: the actor's fold carries head "
+                         f"{folded['head_kind']}, not {head}")
     B = obs.shape[0]
     if obs.dtype != torch.float32 or obs.shape != (B, nin) \
             or not obs.is_contiguous() or B == 0:
@@ -195,14 +388,13 @@ def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
             raise ValueError(f"{what}: {name} must be a float32 ({B}, "
                              f"{nact}) tensor with unit column stride on "
                              f"{obs.device}")
-    params, ints = folded["params"], folded["ints"]
-    if params.device != obs.device or params.dtype != torch.float32:
+    image = folded["image"]
+    if image.device != obs.device or image.dtype != torch.int32:
         raise ValueError(f"{what}: actor weights must be float32 on the "
                          "same device as obs")
     lib = _lib()
     err = lib.emlp_actor_launch(
-        obs.data_ptr(), B, params.data_ptr(), params.numel(), ints.data_ptr(),
-        ints.numel(), *folded["nnz"],
+        obs.data_ptr(), B, image.data_ptr(), folded["meta"],
         None if noise is None else noise.data_ptr(),
         0 if noise is None else noise.stride(0), out.data_ptr(),
         out.stride(0), None if logp is None else logp.data_ptr(),

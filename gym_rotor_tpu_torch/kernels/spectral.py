@@ -9,9 +9,15 @@ unrolled on the TPU).  Kernel: ``csrc/spectral.cu``.  Plain twin:
 
 The iterate is detached in JAX (``stop_gradient``), so this computes only
 the iterate ``v``; ``sigma = |W v|`` and its gradient stay torch autograd
-(``algos/regularizers.py``).  What bounds it on an H100: the operations
-(~1.8 MFLOP for a twin critic's six matrices), far under the launch and the
-30 dependent steps; one block per matrix keeps its W in shared memory.
+(``algos/regularizers.py``).  What bounds it on an H100: by the count,
+the operations (~1.8 MFLOP for a twin critic's six matrices); in fact the
+chain of 20 dependent matvecs a matrix and the launch.  Design: one block
+per matrix; W staged in shared memory by the whole block, then two
+register-resident pieces of it a thread (a row pass for ``y = W x``, whose
+lanes' shares go to shared memory, and a column pass for ``x = Wᵀ y /
+|x|`` with a butterfly over a column's lanes), each pass one barrier, every
+sum in a fixed order; the instance is chosen by the padded shape
+(``INSTANCES``).  ``csrc/spectral.cu`` has the details.
 """
 from __future__ import annotations
 
@@ -24,6 +30,28 @@ from .build import KernelSource, check
 KERNEL = KernelSource("spectral", [])
 WRAPPERS = {"spectral_iterate": "spectral_iterate_plain"}
 ITERS = 10
+# The kernel's instances, smallest first: matrices of at most MO x MI, CA
+# lanes a row in the row pass, RB lanes a column in the column pass, MO * CA
+# threads iterating, NS staging W (csrc/spectral.cu: SPECTRAL_INSTANCES)
+INSTANCES = ((32, 32, 2, 2, 256), (128, 64, 1, 2, 256),
+             (128, 128, 4, 4, 512))
+
+
+def instance(mo: int, mi: int):
+    """``(MO, MI, CA, RB, NS)`` of the instance a padded ``(mo, mi)``
+    stack runs on, or None (no kernel for it)."""
+    for geo in INSTANCES:
+        if mo <= geo[0] and mi <= geo[1]:
+            return geo
+    return None
+
+
+def smem_bytes(mo: int, mi: int) -> int:
+    """Dynamic shared memory of a launch: two buffers of x, the row lanes'
+    shares of y and the staged matrix at pitch MI + 4 (the kernel's
+    ``Geo::smem``)."""
+    MO, MI, CA = instance(mo, mi)[:3]
+    return 4 * (2 * MI + CA * MO + mo * (MI + 4))
 
 
 def _lib():
@@ -32,6 +60,8 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.spectral_launch.argtypes = [P, P, P, I, I, I, I, P]
         lib.spectral_launch.restype = I
+        lib.spectral_geometry.argtypes = [I, I, P]
+        lib.spectral_geometry.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -58,6 +88,9 @@ def spectral_iterate(Ws: torch.Tensor, x: torch.Tensor,
         return spectral_iterate_plain(Ws, x, iters)
     K, mo, mi = Ws.shape
     dev = Ws.device
+    if instance(mo, mi) is None:
+        raise NotImplementedError(f"spectral_iterate has no kernel instance "
+                                  f"for ({mo}, {mi}) matrices")
     for name, t, shape in (("Ws", Ws, (K, mo, mi)), ("x", x, (K, mi))):
         if t.device != dev or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():

@@ -15,6 +15,7 @@ from gym_rotor_tpu.models.emlp import zoo as jzoo
 from gym_rotor_tpu.utils.checkpoint import load_actor
 from gym_rotor_tpu.utils.config import Config as JConfig
 from gym_rotor_tpu_torch.convert import actor_params_from_jax
+from gym_rotor_tpu_torch.kernels import emlp_actor as kactor
 from gym_rotor_tpu_torch.kernels.emlp_actor import (emlp_actor,
                                                     emlp_actor_plain,
                                                     fold_actor)
@@ -142,26 +143,29 @@ def _sparse_bilinear(o, j, i, v, z):
 
 
 def _kernel_arith(folded, x):
-    """The kernel's arithmetic, reading its two flat buffers at the offsets
-    ``csrc/emlp_actor.cu`` uses (``fold_actor``'s layout)."""
+    """The kernel's arithmetic, reading its image at the offsets
+    ``csrc/emlp_actor.cu`` gets (``fold_actor``'s layout): per block
+    ``W_eff`` transposed and padded, ``b_eff``, the plan's outputs with
+    their repacked nonzeros (tile offsets, v) and the gates' tile
+    offsets."""
     nin, ng, nh, nact = folded["dims"]
-    p, q = folded["params"], folded["ints"].long()
-    nnz = folded["nnz"]
-    pf, rp, ji = 0, 2 * nh, 2 * nh + 2 * (ng + 1)
+    ngp, P = -(-ng // 4) * 4, kactor.PITCH
     for k, ni in enumerate((nin, nh)):
-        W = p[pf:pf + ng * ni].view(ng, ni)
-        b = p[pf + ng * ni:pf + ng * ni + ng]
-        v = p[pf + ng * ni + ng:pf + ng * ni + ng + nnz[k]]
-        pf += ng * ni + ng + nnz[k]
-        rowptr = q[rp + k * (ng + 1):rp + (k + 1) * (ng + 1)]
-        o = torch.repeat_interleave(torch.arange(ng), rowptr.diff())
-        e = q[ji:ji + nnz[k]]
-        ji += nnz[k]
-        lin = x @ W.T + b
-        pre = _sparse_bilinear(o, e >> 16, e & 0xFFFF, v, lin) + lin
-        x = torch.sigmoid(pre[:, q[k * nh:(k + 1) * nh]]) * pre[:, :nh]
-    Wh = p[pf:pf + nact * nh].view(nact, nh)
-    return torch.tanh(x @ Wh.T + p[pf + nact * nh:pf + nact * nh + nact])
+        Wt = kactor.section(folded, f"wt{k}", ni * ngp).view(ni, ngp)
+        b = kactor.section(folded, f"b{k}", ng)
+        task = kactor.section(folded, f"task{k}", ng, True).long()
+        tptr = kactor.section(folded, f"tptr{k}", ng + 1, True).long()
+        nnz = int(tptr[-1])
+        ent = kactor.section(folded, f"ent{k}", 2 * nnz, True)
+        off, v = ent[0::2].long(), ent.view(Wt.dtype)[1::2]
+        o = torch.repeat_interleave(task, tptr.diff())
+        lin = x @ Wt[:, :ng] + b
+        pre = _sparse_bilinear(o, (off >> 16) // P, (off & 0xFFFF) // P, v,
+                               lin) + lin
+        gate = kactor.section(folded, f"gate{k}", nh, True).long() // P
+        x = torch.sigmoid(pre[:, gate]) * pre[:, :nh]
+    Wh = kactor.section(folded, "wh", nact * nh).view(nact, nh)
+    return torch.tanh(x @ Wh.T + kactor.section(folded, "bh", nact))
 
 
 @pytest.mark.parametrize("agent_id", AGENTS)
@@ -198,14 +202,14 @@ def test_fold_cache_follows_parameters():
     actor.bump_version()
     f2 = fold_actor(actor)
     assert f2 is not f1
-    assert not torch.equal(f1["params"], f2["params"])
+    assert not torch.equal(f1["image"], f2["image"])
     kernel = actor.network.block0.linear.kernel
     seen = kernel._version
     kernel.data.add_(0.1)
     assert kernel._version == seen            # torch saw no write
     actor.bump_version()
     f3 = fold_actor(actor)
-    assert f3 is not f2 and not torch.equal(f2["params"], f3["params"])
+    assert f3 is not f2 and not torch.equal(f2["image"], f3["image"])
     actor.load_state_dict(actor.state_dict())
     assert fold_actor(actor) is not f3
 

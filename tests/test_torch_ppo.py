@@ -251,7 +251,7 @@ def test_acting_matches_choose_action(agent_id, is_eval):
 
 
 def test_ppo_fold_packs_the_log_std():
-    """K11's folded buffer is K3's (blocks, mean head) followed by the
+    """K11's folded image holds K3's sections (blocks, mean head) and the
     ``log_std`` parameter; the cache refolds after the flat optimizer's
     write bumps the version."""
     _, tcfg = _ppo_cfgs()
@@ -261,17 +261,18 @@ def test_ppo_fold_packs_the_log_std():
     f1 = kactor.fold_actor(actor)
     nin, ng, nh, nact = f1["dims"]
     assert (nin, nh, nact) == (15, tcfg.actor_hidden_dim[0], 4)
-    torch.testing.assert_close(f1["params"][-nact:], actor.log_std.reshape(-1),
-                               rtol=0, atol=0)
+    torch.testing.assert_close(kactor.section(f1, "log_std", nact),
+                               actor.log_std.reshape(-1), rtol=0, atol=0)
     Wh, bh = f1["head"]
-    torch.testing.assert_close(f1["params"][-nact - nact:-nact], bh,
+    torch.testing.assert_close(kactor.section(f1, "bh", nact), bh,
                                rtol=0, atol=0)
     grad = torch.ones(st.actor.shape)
     st.actor_opt = agent.actor_tx.update(st.actor, grad, st.actor_opt,
                                          owner=actor)
     f2 = kactor.fold_actor(actor)
     assert f2 is not f1
-    assert not torch.equal(f2["params"][-nact:], f1["params"][-nact:])
+    assert not torch.equal(kactor.section(f2, "log_std", nact),
+                           kactor.section(f1, "log_std", nact))
 
 
 # ---------------------------------------------------------------------------

@@ -234,7 +234,7 @@ def test_acting_matches_choose_action(agent_id, is_eval):
 
 
 def test_sac_fold_packs_the_log_std_head():
-    """K9's folded buffer is K3's (blocks, mean head) followed by the
+    """K9's folded image holds K3's sections (blocks, mean head) and the
     log_std Dense transposed to (act, hidden) and its bias; the cache
     refolds after the flat optimizer's write bumps the version."""
     _, tcfg = _cfgs()
@@ -244,11 +244,11 @@ def test_sac_fold_packs_the_log_std_head():
     f1 = kactor.fold_actor(actor)
     nin, ng, nh, nact = f1["dims"]
     assert (nin, nh, nact) == (15, tcfg.actor_hidden_dim[0], 4)
-    tail = f1["params"][-(nact * nh + nact):]
-    torch.testing.assert_close(tail[:nact * nh].view(nact, nh),
-                               actor.log_std_linear.kernel.T, rtol=0, atol=0)
-    torch.testing.assert_close(tail[nact * nh:], actor.log_std_linear.bias,
-                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        kactor.section(f1, "wl", nact * nh).view(nact, nh),
+        actor.log_std_linear.kernel.T, rtol=0, atol=0)
+    torch.testing.assert_close(kactor.section(f1, "bl", nact),
+                               actor.log_std_linear.bias, rtol=0, atol=0)
     grad = torch.ones(st.actor.shape)
     st.actor_opt = agent.actor_tx.update(st.actor, grad, st.actor_opt,
                                          owner=actor)
