@@ -11,7 +11,9 @@ result line):
                 dynamic shared memory of its launches; the same for the
                 acting kernel per instance and head (its shared memory from
                 each fold's image) and for K7 per instance (its shared
-                memory at every stack the learners launch)
+                memory at every stack the learners launch); K1's tile and
+                thread kernels per instance and K2 + K8's kernels: registers,
+                spills, stack and static shared memory
   2. env_tick   K1 kernel (the MODUL task) vs its plain twin at B = 4096
                 float32 train envs:
                 batched reset, 50 plain ticks, ~10% of envs one tick from
@@ -98,7 +100,8 @@ result line):
                 CUDA events
  19. kernels    per kernel: launches on the train paths (K9 and K10 on the
                 SAC path's, K11-K13 and the PPO path's K3/K4 on PPO's),
-                device time per launch, plain twin's time, the H100 bound,
+                device time per launch, plain twin's time, the H100 bound
+                (K1 and K2 + K8 at 4096 rows and at PPO A's 32 besides),
                 and a PyTorch yardstick call where one computes the same
                 function; K3/K4 per (shape, rows) instance as the path
                 launched it: K3 saving lin and pre or not (under autograd
@@ -197,6 +200,19 @@ result line):
                 kernels: one record per quad instance and one for the step
                 entry of the coupled and decoupled instances, at B = 1 (the
                 Gym API's) with their B = 4096 times beside
+ 24. K1 and K2 + K8 around their 32-row tiles (``phase_tiles``):
+                tick_rows each of K1's fifteen instances at TILE_ROWS (1,
+                31, 32, 33, 4096) envs: the reset entry, a tick from a state
+                with ~25% of envs at the cap (under exact_so3 ~30% of
+                attitudes drifted) and the step entry on
+                ``_step_states``, each vs its plain twin, each kernel run
+                twice and compared bitwise, the tick's fresh-episode select
+                taken both ways over the sizes; replay_rows K2 + K8 with
+                the MODUL (45-float) and MONO (52-float) rows at 1, 32, 33
+                and 4096 rows, the cursor three rows from the ring's end,
+                with the statistics and without: ring and ``ep_ret`` bitwise
+                the twin's, the sums within 1e-5 max(1, max |sum|), a rerun
+                bitwise
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -218,6 +234,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 B = 4096
+PPO_A_ENVS = 32          # PPO configuration A's envs: K1 and K2 + K8 rows
 TICKS = 1000
 TRAIN_STEPS = 300
 SAC_STEPS = 200
@@ -549,6 +566,19 @@ def phase_build(dev):
     log("build", parallel_wall_s=wall)
     block_resources(dev)
     actor_spectral_resources(dev)
+    from gym_rotor_tpu_torch.kernels import env_tick as KT
+    k1 = env_tick_resources(KT)
+    k2 = replay_resources()
+    log("build", kernel="env_tick", per_instance=k1)
+    log("build", kernel="replay", per_kernel=k2)
+    want = {f"{t}_{i}" + ("_exact" if e else "")
+            for t in KT.TASKS for i in KT.INTEGRATORS for e in (False, True)
+            if t in KT.BATCHED_TASKS or e}
+    kinds = {k: ({"tile", "thread"} if k.split("_")[0] in KT.BATCHED_TASKS
+                 else {"thread"}) for k in want}
+    if {k: set(v) for k, v in k1.items()} != kinds \
+            or set(k2) != {"insert_kernel", "sample_kernel"}:
+        raise AssertionError(f"env_tick / replay resources: {k1} {k2}")
 
 
 def _field_errors(named_k, named_p, skip):
@@ -1656,7 +1686,7 @@ def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
 
 
 def tick_timing(cfg, dev, tick, kernel="env_tick"):
-    """K1 at B = 4096 on ``tick``'s state, actions and draws (a compare
+    """K1 at the envs of ``tick``'s state, actions and draws (a compare
     phase's last tick, ~10% of envs reset, or a rollout's last state) for
     ``cfg``'s instance: device time per launch, the plain twin's, and the
     bound: the state read and written once, actions, draws and outputs;
@@ -1669,8 +1699,8 @@ def tick_timing(cfg, dev, tick, kernel="env_tick"):
     from gym_rotor_tpu_torch.kernels import env_tick as KT
     from gym_rotor_tpu_torch.ops import so3
     st, a, dr = tick["state"], tick["actions"], tick["draws"]
-    task = KT.task_of(cfg)
-    in_bufs, out_bufs = KT.pack_state(st), KT.empty_bufs(B, dev)
+    task, n = KT.task_of(cfg), a.shape[0]
+    in_bufs, out_bufs = KT.pack_state(st), KT.empty_bufs(n, dev)
     k_ms, k_wall = device_ms(
         lambda: KT.env_tick_bufs(cfg, in_bufs, a, dr, "train", out_bufs), 50)
     p_ms, p_wall = device_ms(lambda: KT.env_tick_plain(cfg, st, a, dr), 5, 3)
@@ -1678,13 +1708,13 @@ def tick_timing(cfg, dev, tick, kernel="env_tick"):
     n_reset = int(out_p.reset_happened.sum())
     nbytes = sum(t.numel() * t.element_size() for t in in_bufs) * 2
     nbytes += a.numel() * 4 + dr.numel() * 4
-    nbytes += B * (KT.out_width(task, "F") * 4 + KT.out_width(task, "B"))
+    nbytes += n * (KT.out_width(task, "F") * 4 + KT.out_width(task, "B"))
     cpu_cfg = cfg.replace(num_envs=1)
     st1, _ = batch_lib.batched_reset_plain(cpu_cfg, torch.rand(1, D.N_DRAWS))
     a1, d1 = torch.zeros(1, a.shape[1]), torch.rand(1, D.N_DRAWS)
     dense = count_flops(batch_lib.batched_step_plain, cpu_cfg, st1, a1, d1)
     fresh = count_flops(batch_lib._fresh, cpu_cfg, d1, "train")
-    flops = B * (dense - fresh) + n_reset * fresh
+    flops = n * (dense - fresh) + n_reset * fresh
     passed = 0
     if cfg.exact_so3:
         # reads: the stored R (the work attitude) and the stepped R of every
@@ -1698,7 +1728,7 @@ def tick_timing(cfg, dev, tick, kernel="env_tick"):
         flops -= passed * polar6
     bms, by = bound_ms(nbytes, flops)
     log("kernels", kernel=kernel, task=task, mode=cfg.train_traj_mode,
-        batch=B, resets_in_timed_tick=n_reset, reads_passed=passed, ms=k_ms,
+        batch=n, resets_in_timed_tick=n_reset, reads_passed=passed, ms=k_ms,
         wall_ms_per_call=k_wall, plain_ms=p_ms, plain_wall_ms=p_wall,
         bytes=nbytes, flops_step_per_env=dense - fresh,
         flops_fresh_per_env=fresh, flops=flops, bound_ms=bms, bound_by=by,
@@ -1762,15 +1792,23 @@ def actor_timing(actor, o, agent, kind="tanh", noise=None, path=None):
 
 
 def phase_kernels(cfg, dev, tick, actors, obs, launches, emlp_err):
+    from gym_rotor_tpu_torch.utils.tree import tree_map
     records = []
-    # K1 at B = 4096 on the compare-phase state (~10% of envs reset)
+    # K1 at B = 4096 on the compare-phase state (~10% of envs reset), and
+    # at PPO A's 32 envs on its first 32
     k_ms, p_ms, bms, by = tick_timing(cfg, dev, tick)
+    n = PPO_A_ENVS
+    small = dict(state=tree_map(lambda t: t[:n].clone(), tick["state"]),
+                 actions=tick["actions"][:n].clone(),
+                 draws=tick["draws"][:n].clone())
+    k32, p32, b32, by32 = tick_timing(cfg.replace(num_envs=n), dev, small)
     records.append(dict(
         name="env_tick", route="cuda",
         source="gym_rotor_tpu_torch/kernels/csrc/env_tick.cu",
         replaces="gym_rotor_tpu/envs/batch.py:75", launches=launches["env_tick"],
         max_abs_err=tick["max_abs_err"], ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-        bound_by=by, library_ms=None))
+        bound_by=by, library_ms=None, ms_32=k32, plain_ms_32=p32,
+        bound_ms_32=b32, bound_by_32=by32))
 
     # K3 at B = 4096, both agents (each launched once per tick); at the eval
     # path's 10 rows too (logged, not in the record)
@@ -1891,25 +1929,35 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
     records, n = [], cfg.n_agents
     dims = (tuple(cfg.obs_dim_n), tuple(cfg.action_dim_n))
 
-    # K2 + K8: one tick's write with the statistics, B = 4096
+    # K2 + K8: one tick's write with the statistics, B = 4096 and PPO A's
+    # 32 rows (the tick's first 32)
     ring, ptr, args, reset = rep["ring"], rep["ptr"], rep["args"], rep["reset"]
-    ep, st = torch.zeros(B, n, device=dev), torch.zeros(n + 2, device=dev)
-    k_ms, k_wall = device_ms(lambda: KR.replay_insert_tick(
-        ring, ptr, dims, *args, reset=reset, ep_ret=ep, stats=st), 100)
-    p_ms, _ = device_ms(lambda: KR.replay_insert_tick_plain(
-        ring, ptr, dims, *args, reset, ep, st), 10, 3)
-    leaves = list(args[0]) + [args[1], args[2]] + list(args[3]) + [args[4]]
-    nbytes = sum(t.numel() * t.element_size() for t in leaves)
-    nbytes += reset.numel() + 2 * ep.numel() * 4 + B * ring.shape[1] * 4
-    bms, by = bound_ms(nbytes, B * (3 * n + 2))
-    log("kernels", kernel="replay_insert_tick", rows=B, ms=k_ms,
-        wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes, bound_ms=bms,
-        bound_by=by, library_ms=None)
-    records.append(_record("replay_insert_tick", "replay.cu",
-                           "gym_rotor_tpu/algos/replay.py:145",
-                           launches["replay_insert_tick"],
-                           errs["replay_insert_tick"],
-                           [(1, k_ms, p_ms, bms, by, None)]))
+    by_rows = {}
+    for rows in (B, PPO_A_ENVS):
+        r_args = tuple(tuple(t[:rows].clone() for t in a) if isinstance(a, tuple)
+                       else a[:rows].clone() for a in args)
+        r_reset = reset[:rows].clone()
+        ep, st = torch.zeros(rows, n, device=dev), torch.zeros(n + 2, device=dev)
+        k_ms, k_wall = device_ms(lambda: KR.replay_insert_tick(
+            ring, ptr, dims, *r_args, reset=r_reset, ep_ret=ep, stats=st), 100)
+        p_ms, _ = device_ms(lambda: KR.replay_insert_tick_plain(
+            ring, ptr, dims, *r_args, r_reset, ep, st), 10, 3)
+        leaves = (list(r_args[0]) + [r_args[1], r_args[2]] + list(r_args[3])
+                  + [r_args[4]])
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        nbytes += r_reset.numel() + 2 * ep.numel() * 4 + rows * ring.shape[1] * 4
+        bms, by = bound_ms(nbytes, rows * (3 * n + 2))
+        log("kernels", kernel="replay_insert_tick", rows=rows, ms=k_ms,
+            wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+            bound_ms=bms, bound_by=by, library_ms=None)
+        by_rows[rows] = (1, k_ms, p_ms, bms, by, None)
+    rec = _record("replay_insert_tick", "replay.cu",
+                  "gym_rotor_tpu/algos/replay.py:145",
+                  launches["replay_insert_tick"], errs["replay_insert_tick"],
+                  [by_rows[B]])
+    _, k32, p32, b32, by32, _ = by_rows[PPO_A_ENVS]
+    rec.update(ms_32=k32, plain_ms_32=p32, bound_ms_32=b32, bound_by_32=by32)
+    records.append(rec)
 
     # K2 sample: 256 random rows of the 1e6-row ring, fresh rows each call
     idxs = itertools.cycle([torch.randint(0, ring.shape[0], (cfg.batch_size,),
@@ -3438,24 +3486,49 @@ def phase_tick_rollouts(dev):
 
 
 def env_tick_resources(K):
-    """Registers, spill stores / loads and stack bytes per K1 instance,
-    from ``-Xptxas -v``'s output of the env_tick build."""
+    """Per K1 instance, from ``-Xptxas -v``'s output of the env_tick build:
+    registers, spill stores / loads, stack bytes and static shared memory
+    of its tile kernel (the tick entry; the batched tasks) and of its
+    thread kernel (the step and reset entries)."""
     import re
     names = {v: k for k, v in K.TASKS.items()}
     integs = {v: k for k, v in K.INTEGRATORS.items()}
     out, cur = {}, None
     for ln in K.KERNEL.ptxas.splitlines():
-        m = re.search(r"env_tick_kernelILi(\d+)ELi(\d+)ELb([01])E", ln)
+        m = re.search(r"env_(tile|thread)_kernelILi(\d+)ELi(\d+)ELb([01])E", ln)
         if "Compiling entry function" in ln and m:
-            cur = (f"{names[int(m.group(1))]}_{integs[int(m.group(2))]}"
-                   + ("_exact" if m.group(3) == "1" else ""))
-            out[cur] = {}
-        elif cur and "spill stores" in ln:
+            inst = (f"{names[int(m.group(2))]}_{integs[int(m.group(3))]}"
+                    + ("_exact" if m.group(4) == "1" else ""))
+            cur = out.setdefault(inst, {}).setdefault(m.group(1), {})
+        elif cur is not None and "spill stores" in ln:
             n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
-            out[cur].update(stack=n[0], spill_stores=n[1], spill_loads=n[2])
-        elif cur and "registers" in ln:
-            out[cur]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                  ln).group(1))
+            cur.update(stack=n[0], spill_stores=n[1], spill_loads=n[2])
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def replay_resources():
+    """Registers, spills and static shared memory of K2 + K8's kernels
+    (``-Xptxas -v``), per kernel."""
+    import re
+    from gym_rotor_tpu_torch.kernels import replay as KR
+    out, cur = {}, None
+    for ln in KR.KERNEL.ptxas.splitlines():
+        m = re.search(r"(insert_kernel|sample_kernel)", ln)
+        if "Compiling entry function" in ln and m:
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and "spill stores" in ln:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            cur.update(spill_stores=n[1], spill_loads=n[2])
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -3997,6 +4070,171 @@ def phase_gym_api(dev):
     return records
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2 + K8 at the row counts around their tiles (32 envs a tile)
+# ---------------------------------------------------------------------------
+TILE_ROWS = (1, 31, 32, 33, B)
+
+
+def _bitwise(xs, ys):
+    """Every tensor of ``xs`` equal to ``ys``'s bit for bit."""
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+        for x, y in zip(xs, ys))
+
+
+def _k1_rows_instance(kw, task, n, dev, gen):
+    """One K1 instance at ``n`` envs: its reset entry vs plain, a tick vs
+    plain from a state three plain ticks on with ~25% of envs at the cap
+    (under exact_so3 ~30% of attitudes drifted), its rerun bit for bit, and
+    its step entry vs plain on ``_step_states`` with a rerun.  Returns the
+    worst error and the tick's over / continuing envs."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(num_envs=n, train_traj_mode=3 if kw["exact_so3"] else 0, **kw)
+    name = K.instance(cfg, task)
+    worst, rec = 0.0, dict(instance=name, envs=n, mode=cfg.train_traj_mode)
+    if task != "quad":
+        actions, uniforms = _tick_inputs(cfg, dev, n, gen)
+        st, _, bad, worst = _reset_vs_plain(cfg, uniforms(), "train", dev)
+        if bad:
+            raise AssertionError(f"{name} reset at {n} envs: {bad}")
+        for _ in range(3):
+            st, _ = K.env_tick_plain(cfg, st, actions(), uniforms(), "train")
+        idx = torch.randperm(n, generator=gen, device=dev)[: max(1, n // 4)]
+        st.env.t[idx] = cfg.max_steps - 1
+        if cfg.exact_so3:
+            drift = torch.rand(n, generator=gen, device=dev) < 0.3
+            st.env.R[drift] += DRIFT * torch.randn(int(drift.sum()), 3, 3,
+                                                   generator=gen, device=dev)
+        a, dr = actions(), uniforms()
+        c = _tick_vs_plain(cfg, st, a, dr, "train", dev)
+        if c["unexplained"] or c["bad"]:
+            raise AssertionError(f"{name} tick at {n} envs: "
+                                 f"{c['unexplained']} envs, {c['bad']}")
+        st2, out2 = K.env_tick(cfg, st, a, dr)
+        first = list(_named(c["st_k"], c["out_k"]).values())
+        rerun = _bitwise(first, list(_named(st2, out2).values()))
+        over = int(c["out_k"].reset_happened.sum())
+        worst = max(worst, c["err"])
+        rec.update(tick_max_abs_err=c["err"], over_envs=over,
+                   continuing_envs=n - over,
+                   discrete_mismatch_near_threshold=int(c["mismatch"].sum()),
+                   tick_rerun_bitwise=rerun)
+        if not rerun:
+            raise AssertionError(f"{name} tick at {n} envs: rerun differs")
+    else:
+        over = 0
+    st_s = _step_states(cfg, n, gen, dev)
+    t = K.task_of(cfg, task)
+    a = 0.3 * torch.randn(n, K.ACT_DIM[t], generator=gen, device=dev)
+    c = _step_vs_plain(cfg, t, st_s, a, dev)
+    if c["unexplained"] or c["bad"]:
+        raise AssertionError(f"{name} step at {n} envs: "
+                             f"{c['unexplained']} envs, {c['bad']}")
+    e1, o1 = K.env_step(cfg, st_s.env, a, task)
+    e2, o2 = K.env_step(cfg, st_s.env, a, task)
+    def flat(e, o):
+        return [*_named(e).values(), *o.obs, o.reward, o.done]
+    rerun = _bitwise(flat(e1, o1), flat(e2, o2))
+    if not rerun:
+        raise AssertionError(f"{name} step at {n} envs: rerun differs")
+    rec.update(step_max_abs_err=c["err"], step_rerun_bitwise=rerun)
+    return max(worst, c["err"]), over, rec
+
+
+def phase_tick_rows(dev):
+    """K1's fifteen instances, each entry, vs the plain twins at TILE_ROWS
+    envs (``_k1_rows_instance``); the tick's fresh-episode select must go
+    both ways over the sizes of each batched instance."""
+    from gym_rotor_tpu_torch.kernels import env_tick as K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    insts = [(dict(framework=fw, integrator=i, exact_so3=e), None)
+             for fw, i, e in TICK_INSTANCES]
+    insts += [(dict(framework="MONO", integrator=i, exact_so3=True), "quad")
+              for i in K.INTEGRATORS]
+    worst = 0.0
+    for kw, task in insts:
+        overs, rows = [], []
+        for n in TILE_ROWS:
+            err, over, rec = _k1_rows_instance(kw, task, n, dev, gen)
+            worst = max(worst, err)
+            overs.append((over, n - over))
+            rows.append(rec)
+        log("tick_rows", instance=rows[0]["instance"],
+            tolerance="1e-6 + 1e-5 |plain|, discrete identical outside "
+                      "thresholds, reruns bitwise", rows=rows)
+        if task != "quad" and not (any(o for o, _ in overs)
+                                   and any(c for _, c in overs)):
+            raise AssertionError(f"{rows[0]['instance']}: the select went "
+                                 f"one way only: {overs}")
+    return worst
+
+
+def phase_replay_rows(dev):
+    """K2 + K8 vs plain at 1, 32, 33 and B rows of the MODUL (45-float) and
+    MONO (52-float) rows, into a ring whose cursor is three rows from its
+    end, with the statistics and without: the ring and ``ep_ret`` bit for
+    bit, the sums within 1e-5 max(1, max |sum|), a rerun bit for bit."""
+    from gym_rotor_tpu_torch.algos import replay as R
+    from gym_rotor_tpu_torch.kernels import replay as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    worst = 0.0
+    for fw in ("MODUL", "MONO"):
+        cfg = Config(framework=fw)
+        dims = (tuple(cfg.obs_dim_n), tuple(cfg.action_dim_n))
+        na = cfg.n_agents
+        for rows in (1, 32, 33, B):
+            cap = rows + 61
+            ptr = cap - 3
+            obs = tuple(torch.randn(rows, d, generator=gen, device=dev)
+                        for d in dims[0])
+            nobs = tuple(torch.randn(rows, d, generator=gen, device=dev)
+                         for d in dims[0])
+            args = (obs, torch.rand(rows, sum(dims[1]), generator=gen,
+                                    device=dev) * 2 - 1,
+                    torch.rand(rows, na, generator=gen, device=dev), nobs,
+                    torch.rand(rows, na, generator=gen, device=dev) < 0.2)
+            reset = torch.rand(rows, generator=gen, device=dev) < 0.2
+            ring0 = torch.rand(cap, R.row_dim(*dims), generator=gen,
+                               device=dev)
+            ep0 = torch.randn(rows, na, generator=gen, device=dev)
+            st0 = torch.randn(na + 2, generator=gen, device=dev)
+            for stats in (True, False):
+                got = []
+                for fn in (K.replay_insert_tick, K.replay_insert_tick,
+                           K.replay_insert_tick_plain):
+                    ring, ep, st = ring0.clone(), ep0.clone(), st0.clone()
+                    if stats:
+                        fn(ring, ptr, dims, *args, reset=reset, ep_ret=ep,
+                           stats=st)
+                    else:
+                        fn(ring, ptr, dims, *args)
+                    got.append((ring, ep, st))
+                (k, k2, p) = got
+                d, tol, _ = _err(k[2], p[2], 1e-5)
+                ok = (_bitwise(k[:2], p[:2]) and _bitwise(k, k2)
+                      and d <= tol)
+                worst = max(worst, d)
+                log("replay_rows", framework=fw, row_dim=R.row_dim(*dims),
+                    rows=rows, cap=cap, ptr=ptr, stats=stats,
+                    resets=int(reset.sum()),
+                    ring_ep_ret_bitwise=_bitwise(k[:2], p[:2]),
+                    rerun_bitwise=_bitwise(k, k2), stats_max_abs_err=d,
+                    stats_tol=tol)
+                if not ok:
+                    raise AssertionError(f"replay {fw} at {rows} rows "
+                                         f"(stats {stats}) disagrees")
+    return worst
+
+
+def phase_tiles(dev):
+    """Phase 24: K1 and K2 + K8 around their 32-row tiles."""
+    return phase_tick_rows(dev), phase_replay_rows(dev)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4065,6 +4303,12 @@ def main():
     records += phase_families(dev)
     records += phase_tick_modes(dev)
     records += phase_gym_api(dev)
+    k1_err, k2_err = phase_tiles(dev)
+    for rec in records:
+        if rec["name"] == "env_tick":
+            rec["max_abs_err"] = max(rec["max_abs_err"], k1_err)
+        elif rec["name"] == "replay_insert_tick":
+            rec["max_abs_err"] = max(rec["max_abs_err"], k2_err)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

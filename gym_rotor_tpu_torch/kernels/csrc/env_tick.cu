@@ -13,22 +13,45 @@
 //
 // Bound on an H100: ~0.5 KB of state read and written per env and a few
 // thousand flops, i.e. ~5 MB / ~30 MFLOP per tick at B = 4096, ~1.5 us of
-// HBM time.  At that size the launch and the per-thread dependent chain
-// dominate (32 blocks of 128 threads for 132 SMs); recorded in PERF.md.  The
-// Gym API steps one env a launch, where only the launch is left.
-// DOP853 evaluates the equations of motion 12 times (RK4: 4) and keeps up to
-// 12 stages of 18 floats live; ptxas fits them in 255 registers without a
-// spill (chip_smoke.py phase 22 prints each instance's registers), and the
-// serial stage chain adds ~10 us to a tick on an H100 (PERF.md).
+// HBM time.  What a launch takes is one env's dependent chain and the
+// memory instructions around it.  A clock64 trace of the one-thread-per-env
+// design this replaced (PERF.md, scripts/env_tick_phase_probe.py) found its
+// loads and stores strided by each field's width (lane i at F*B + i*w + c,
+// up to 32 lines an instruction: half a warp's time in the stores), the
+// fresh episode run after the tick in every warp with an ended env, and
+// DOP853's 12 evaluations of the equations of motion a third of the warp.
 //
-// Design: one thread per env, the whole tick in registers, one launch.
-// State buffers are field-major: field F of width w occupies
-// buf[F*B : (F+w)*B] as a contiguous (B, w) block (offsets generated into
-// env_tick_layout.h from the Python layout).  The fresh-episode chain runs
-// only in threads whose episode ended; its result equals the JAX dense
-// fresh + select.  Random draws are injected as a (B, N_DRAWS) tensor of
-// U[0,1) base draws (layout: envs/draws.py) and mapped the way
-// jax.random.uniform maps them; in-kernel Philox is a later optimization.
+// Design, tick entry (env_tile_kernel): a block takes a tile of
+// kTile = 32 envs.  Every buffer moves between global memory and shared
+// memory in whole runs: field F of width w of the tile's envs is one
+// contiguous run of 32 w scalars, copied coalesced into an image in the
+// same order (in by the four tick warps, out by all five), so the per-env
+// code indexes the image as it indexes the buffers (FIDX with B = kTile);
+// the fields are shared among the warps by a plan made on the host
+// (kernels/env_tick.py copy_plan), each lane's loads all issued before its
+// stores.  Warps 0-3 tick the tile,
+// four lanes an env: each lane computes the whole tick (the four agree bit
+// for bit) except the integrator, where lane k holds axis k of (x, v, R, W)
+// and evaluates row k of the equations of motion, taking W from its group
+// by three shuffles an evaluation.  The tick writes its outputs and its
+// stepped state over the image in place.  Warp 4 computes the fresh
+// episode of every env of the tile, one lane an env, from the launch's
+// start, beside the copy in and the tick (JAX's dense fresh + select: the
+// fresh chain reads only the draws and the config, not the stepped state).
+// After one barrier the copy out takes, per env, the fresh state and obs
+// where the episode is over, else the ticked ones.
+// DOP853 evaluates the equations of motion 12 times (RK4: 4) and keeps
+// 12 stages of the lane's 6 floats live (chip_smoke.py phase 1 prints each
+// instance's registers).  The step and reset entries (env_thread_kernel)
+// keep one thread an env and one chain: the Gym API steps one env a
+// launch, where only the launch is left, and a reset runs once a run.
+//
+// Every expression is the one-thread design's, in its order, on whichever
+// lane computes it, so every output is bitwise that design's (checked by
+// scripts/tick_replay_vs_parent.py).  Random draws are injected as a
+// (B, N_DRAWS) tensor of U[0,1) base draws (layout: envs/draws.py) and
+// mapped the way jax.random.uniform maps them; in-kernel Philox is a later
+// optimization.
 //
 // Entries (a runtime argument): the tick; the reset (fresh episodes only);
 // the step alone (JAX's quad.step on B envs in lockstep, in place: the goal
@@ -331,6 +354,109 @@ __device__ __forceinline__ void integrate(float* y, float f, const float* M,
   }
 }
 
+// The integrator split over the lanes of an env's group: lane k (< 3; the
+// fourth repeats axis 2) holds axis k of y, z = (x_k, v_k, R row k, W_k),
+// and evaluates row k of every expression of eom, the same expression in
+// the same order as eom's row k, so each value is bitwise eom's.  eom needs
+// all of W (hat(W) and the gyroscopic term): three shuffles within the
+// group's four lanes.  Called by all 32 lanes of a warp together.
+__device__ __forceinline__ void eom_row(const float* z, float f, const float* M,
+                                        float m, const float* J, int k, float* dz) {
+  const float W0 = __shfl_sync(0xffffffffu, z[5], 0, 4);
+  const float W1 = __shfl_sync(0xffffffffu, z[5], 1, 4);
+  const float W2 = __shfl_sync(0xffffffffu, z[5], 2, 4);
+  const float W[3] = {W0, W1, W2};
+  float H[9];
+  hat(W, H);
+  // row k of hat(W), and M, J and g e3 at k
+  const float hk[3] = {k == 0 ? H[0] : k == 1 ? H[3] : H[6],
+                       k == 0 ? H[1] : k == 1 ? H[4] : H[7],
+                       k == 0 ? H[2] : k == 1 ? H[5] : H[8]};
+  const float Jm[9] = {J[0], 0.0f, 0.0f, 0.0f, J[1], 0.0f, 0.0f, 0.0f, J[2]};
+  const float Mk = k == 0 ? M[0] : k == 1 ? M[1] : M[2];
+  const float Jk = k == 0 ? J[0] : k == 1 ? J[1] : J[2];
+  const float gk = k == 2 ? G_STD : 0.0f;
+  dz[0] = z[1];
+  dz[1] = gk - (f * z[4]) / m;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    dz[2 + c] = (z[2] * H[c] + z[3] * H[3 + c]) + z[4] * H[6 + c];
+  const float nh[3] = {-hk[0], -hk[1], -hk[2]};
+  float t1[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    t1[c] = (nh[0] * Jm[c] + nh[1] * Jm[3 + c]) + nh[2] * Jm[6 + c];
+  const float t2 = (t1[0] * W[0] + t1[1] * W[1]) + t1[2] * W[2];
+  dz[5] = (t2 + Mk) * (1.0f / Jk);
+}
+
+template <int INTEG>
+__device__ __forceinline__ void integrate_split(float* y, float f, const float* M,
+                                                float m, const float* J, int lk) {
+  const float dt = DT;
+  const int k = lk < 3 ? lk : 2;
+  float z[6] = {k == 0 ? y[0] : k == 1 ? y[1] : y[2],
+                k == 0 ? y[3] : k == 1 ? y[4] : y[5],
+                k == 0 ? y[6] : k == 1 ? y[9] : y[12],
+                k == 0 ? y[7] : k == 1 ? y[10] : y[13],
+                k == 0 ? y[8] : k == 1 ? y[11] : y[14],
+                k == 0 ? y[15] : k == 1 ? y[16] : y[17]};
+  if constexpr (INTEG == INTEGRATOR_EULER) {
+    float kk[6];
+    eom_row(z, f, M, m, J, k, kk);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) z[j] = z[j] + dt * kk[j];
+  } else if constexpr (INTEG == INTEGRATOR_RK4) {
+    const float half = dt * 0.5f;
+    const float sixth = dt / 6.0f;
+    const float third = dt / 3.0f;
+    float kk[6], zi[6], acc[6];
+    eom_row(z, f, M, m, J, k, kk);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) { acc[j] = z[j] + sixth * kk[j]; zi[j] = z[j] + half * kk[j]; }
+    eom_row(zi, f, M, m, J, k, kk);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) { acc[j] = acc[j] + third * kk[j]; zi[j] = z[j] + half * kk[j]; }
+    eom_row(zi, f, M, m, J, k, kk);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) { acc[j] = acc[j] + third * kk[j]; zi[j] = z[j] + dt * kk[j]; }
+    eom_row(zi, f, M, m, J, k, kk);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) z[j] = acc[j] + sixth * kk[j];
+  } else {
+    static_assert(INTEG == INTEGRATOR_DOP853, "unknown integrator");
+    float K[12][6], zi[6];
+#define DOP_BEGIN(I)                                    \
+  _Pragma("unroll") for (int q = 0; q < 6; ++q) zi[q] = z[q];
+#define DOP_AXPY(I, J_, A)                              \
+  {                                                     \
+    const float c_ = dt * (float)(A);                   \
+    _Pragma("unroll") for (int q = 0; q < 6; ++q) zi[q] = zi[q] + c_ * K[J_][q]; \
+  }
+#define DOP_EVAL(I) eom_row(zi, f, M, m, J, k, K[I]);
+#define DOP_SUM(I, Bc)                                  \
+  {                                                     \
+    const float c_ = dt * (float)(Bc);                  \
+    _Pragma("unroll") for (int q = 0; q < 6; ++q) z[q] = z[q] + c_ * K[I][q]; \
+  }
+    DOP853_STAGES(DOP_BEGIN, DOP_AXPY, DOP_EVAL)
+    DOP853_SUM(DOP_SUM)
+#undef DOP_BEGIN
+#undef DOP_AXPY
+#undef DOP_EVAL
+#undef DOP_SUM
+  }
+  // every lane of the group takes the whole stepped y
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    y[a] = __shfl_sync(0xffffffffu, z[0], a, 4);
+    y[3 + a] = __shfl_sync(0xffffffffu, z[1], a, 4);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) y[6 + 3 * a + c] = __shfl_sync(0xffffffffu, z[2 + c], a, 4);
+    y[15 + a] = __shfl_sync(0xffffffffu, z[5], a, 4);
+  }
+}
+
 // ------------------------------------------------- errors, obs, reward, done
 struct NormOut {
   float ex[3], eIx_norm[3], ev[3], eW[3], eW3, eb1_norm, eIb1_norm;
@@ -425,6 +551,7 @@ template <>
 struct Task<TASK_DECOUPLED> {
   static constexpr bool BATCHED = true, INTEGRALS = true;
   static constexpr int NA = 2, NACT = 5, NOBS = 18, EB1_OBS = 15;
+  static constexpr int NOUT_F = NF_OUT_DECOUPLED, NOUT_B = NB_OUT_DECOUPLED;
   static constexpr int W1 = WOF_DECOUPLED_OBS1, W2 = WOF_DECOUPLED_OBS2;
   static constexpr int OBS1 = OF_DECOUPLED_OBS1, OBS2 = OF_DECOUPLED_OBS2;
   static constexpr int TERM1 = OF_DECOUPLED_TERM_OBS1, TERM2 = OF_DECOUPLED_TERM_OBS2;
@@ -497,6 +624,7 @@ template <>
 struct Task<TASK_COUPLED> {
   static constexpr bool BATCHED = true, INTEGRALS = true;
   static constexpr int NA = 1, NACT = 4, NOBS = 23, EB1_OBS = 18;
+  static constexpr int NOUT_F = NF_OUT_COUPLED, NOUT_B = NB_OUT_COUPLED;
   static constexpr int W1 = WOF_COUPLED_OBS1, W2 = 0;
   static constexpr int OBS1 = OF_COUPLED_OBS1, OBS2 = 0;
   static constexpr int TERM1 = OF_COUPLED_TERM_OBS1, TERM2 = 0;
@@ -604,6 +732,7 @@ template <>
 struct Task<TASK_QUAD> {
   static constexpr bool BATCHED = false, INTEGRALS = false;
   static constexpr int NA = 1, NACT = 4, NOBS = 18;
+  static constexpr int NOUT_F = NF_OUT_QUAD, NOUT_B = NB_OUT_QUAD;
   static constexpr int W1 = WOF_QUAD_OBS1, W2 = 0;
   static constexpr int OBS1 = OF_QUAD_OBS1, OBS2 = 0;
   static constexpr int REWARD = OF_QUAD_REWARD, EX = OF_QUAD_EX, EB1 = OF_QUAD_EB1;
@@ -971,7 +1100,7 @@ __device__ __forceinline__ void get_desired(Traj& s, const float* x, const float
 
 __device__ __forceinline__ void load_traj(const Args& a, int i, Traj& s) {
   const int B = a.B;
-  const float* __restrict__ sf = a.sf;
+  const float* sf = a.sf;
   s.mode = a.si[IIDX(TRAJ_MODE)];
   s.t = sf[FIDX(TRAJ_T, 0)];
   s.t_traj = sf[FIDX(TRAJ_T_TRAJ, 0)];
@@ -997,7 +1126,7 @@ __device__ __forceinline__ void load_traj(const Args& a, int i, Traj& s) {
 // The machine into the output state, and its goal into env.goal.
 __device__ __forceinline__ void store_traj(const Args& a, int i, const Traj& s) {
   const int B = a.B;
-  float* __restrict__ of = a.of;
+  float* of = a.of;
   a.oi[IIDX(TRAJ_MODE)] = s.mode;
   STORE1(TRAJ_T, s.t);
   STORE1(TRAJ_T_TRAJ, s.t_traj);
@@ -1172,9 +1301,11 @@ struct StepOut {
 // quad.step on env i with goal g: R as read, the action map, the dynamics
 // and the attitude step, then the errors (and integrals), obs, reward, done
 // and info.  y = (x, v, R, W) as stored on entry, stepped on return.
-template <int TASK, int INTEG, bool EXACT>
+// SPLIT: the integrator split over the env's four lanes (lane lk).
+template <int TASK, int INTEG, bool EXACT, bool SPLIT = false>
 __device__ __forceinline__ void step_env(const Args& a, int i, float* y,
-                                         const GoalRef& g, StepOut<TASK>& o) {
+                                         const GoalRef& g, StepOut<TASK>& o,
+                                         int lk = 0) {
   using T = Task<TASK>;
   const int B = a.B;
   const float* sf = a.sf;
@@ -1190,7 +1321,10 @@ __device__ __forceinline__ void step_env(const Args& a, int i, float* y,
   Params P;
   load_params(a, i, P);
   T::action(P, act, y + 6, y + 15, o.f, o.M);
-  integrate<INTEG>(y, o.f, o.M, P.m, P.J);
+  if constexpr (SPLIT)
+    integrate_split<INTEG>(y, o.f, o.M, P.m, P.J, lk);
+  else
+    integrate<INTEG>(y, o.f, o.M, P.m, P.J);
   // the stored R: one polar step, or left drifted under EXACT
   if constexpr (!EXACT) polar_fast<2>(y + 6);
   float Rr[9];
@@ -1206,10 +1340,10 @@ __device__ __forceinline__ void step_env(const Args& a, int i, float* y,
 }
 
 // What quad.step changes: the stepped (x, v, R, W), the integrals (where
-// the task updates them), the wrench and t + 1.
+// the task updates them), the wrench and t (t_new, the stored t + 1).
 template <int TASK>
 __device__ __forceinline__ void store_stepped(const Args& a, int i, const float* y,
-                                              const StepOut<TASK>& o) {
+                                              const StepOut<TASK>& o, int t_new) {
   const int B = a.B;
   float* of = a.of;
   STOREF(ENV_X, y);
@@ -1224,7 +1358,7 @@ __device__ __forceinline__ void store_stepped(const Args& a, int i, const float*
   }
   STORE1(ENV_F_TOTAL, o.f);
   STOREF(ENV_M, o.M);
-  a.oi[IIDX(ENV_T)] = a.si[IIDX(ENV_T)] + 1;
+  a.oi[IIDX(ENV_T)] = t_new;
 }
 
 // The step entry, in place (of == sf, oi == si; the bool buffers unused):
@@ -1257,17 +1391,22 @@ __device__ void step_only(const Args& a, int i) {
   for (int k = 0; k < 3; ++k) outf[(size_t)T::EX * B + (size_t)i * 3 + k] = o.ex[k];
   outf[(size_t)T::EB1 * B + i] = o.eb1;
   write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, o.obs);
-  store_stepped<TASK>(a, i, y, o);
+  store_stepped<TASK>(a, i, y, o, a.si[IIDX(ENV_T)] + 1);
 }
 
-// The tick entry: get_desired, quad.step, the cap/solved override, and the
-// fresh episode where the episode ended.
+// The tick of env i in a tile (a: the tile's shared-memory images, B =
+// kTile), on one of the env's four lanes (lk): get_desired, quad.step (the
+// integrator split over the lanes), the cap/solved override.  Writes the
+// tick's outputs, the episode-over flag, and the stepped state over the
+// tile's state image in place (parameters left as read); the copy out takes
+// the fresh episode instead where the episode is over.  The four lanes
+// compute the same values and store the same bits.
 template <int TASK, int INTEG, bool EXACT>
-__device__ void tick(const Args& a, int i, const float* u) {
+__device__ void tick_lane(const Args& a, int i, int lk, bool* over_out) {
   using T = Task<TASK>;
   const int B = a.B;
-  const float* __restrict__ sf = a.sf;
-  float* __restrict__ outf = a.outf;
+  const float* sf = a.sf;
+  const float* u = a.draws + (size_t)i * N_DRAWS;
 
   // ---- trajectory.get_desired on the stored state
   float y[18];
@@ -1282,7 +1421,8 @@ __device__ void tick(const Args& a, int i, const float* u) {
 
   // ---- quad.step against the machine's goal
   StepOut<TASK> o;
-  step_env<TASK, INTEG, EXACT>(a, i, y, GoalRef{s.xd, s.vd, s.b1d, s.Wd}, o);
+  step_env<TASK, INTEG, EXACT, true>(a, i, y, GoalRef{s.xd, s.vd, s.b1d, s.Wd},
+                                     o, lk);
 
   // ---- batch: cap/solved override (MODUL: position for agent 0, yaw for
   // agent 1; MONO: position only)
@@ -1296,7 +1436,8 @@ __device__ void tick(const Args& a, int i, const float* u) {
 #pragma unroll
   for (int k = 0; k < T::NA; ++k) over = over || o.d[k];
 
-  bool* __restrict__ outb = a.outb;
+  float* outf = a.outf;
+  bool* outb = a.outb;
 #pragma unroll
   for (int k = 0; k < T::NA; ++k) {
     const bool solved = (k == 0 ? solved_pos : solved_yaw) && (o.rew[k] != -1.0f);
@@ -1308,54 +1449,308 @@ __device__ void tick(const Args& a, int i, const float* u) {
   for (int k = 0; k < 3; ++k) outf[(size_t)T::EX * B + (size_t)i * 3 + k] = o.ex[k];
   outf[(size_t)T::EB1 * B + i] = o.eb1;
   write_obs<TASK>(outf, B, i, T::TERM1, T::TERM2, o.obs);
-  outb[(size_t)T::RESET * B + i] = over;
-
-  if (over) {
-    fresh_episode<TASK, EXACT>(a, i, u);
-    return;
-  }
-
-  // ---- stepped state (episode continues)
-  float* __restrict__ of = a.of;
-  store_stepped<TASK>(a, i, y, o);
-  COPYF(ENV_PARAMS_M);
-  COPYF(ENV_PARAMS_D);
-  COPYF(ENV_PARAMS_J);
-  COPYF(ENV_PARAMS_C_TF);
-  COPYF(ENV_PARAMS_C_TW);
-  COPYF(ENV_PARAMS_HOVER_FORCE);
-  COPYF(ENV_PARAMS_MIN_FORCE);
-  COPYF(ENV_PARAMS_MAX_FORCE);
-  COPYF(ENV_PARAMS_AVRG_ACT);
-  COPYF(ENV_PARAMS_SCALE_ACT);
-  COPYF(ENV_PARAMS_FORCES_TO_FM);
-  COPYF(ENV_PARAMS_FM_TO_FORCES);
-  store_traj(a, i, s);
   write_obs<TASK>(outf, B, i, T::OBS1, T::OBS2, o.obs);
+  outb[(size_t)T::RESET * B + i] = over;
+  *over_out = over;
+
+  // ---- the stepped state over the read one, once every lane of the warp
+  // has read what it needs
+  __syncwarp();
+  store_stepped<TASK>(a, i, y, o, t_new);
+  store_traj(a, i, s);
 }
 
+// ------------------------------------------------------- the tile kernel
+// The tick entry: a block takes a tile of kTile envs.  Warps
+// 0-3 run the tick, four lanes an env; warp 4 runs the fresh episode of
+// every env of the tile, one lane an env, beside the tick (JAX's dense
+// fresh + select; the fresh chain reads only the draws and the config, so
+// it starts at once, its draws read where they lie).  The buffers go
+// through shared memory, copied whole and coalesced: each field of width w
+// of the tile is one contiguous run of kTile * w scalars in the global
+// buffers, kept in the same order in the image, so the per-env code
+// indexes the images as it indexes the buffers (FIDX with B = kTile).  The
+// tick warps copy in and meet at their own barrier; after the block's
+// barrier all five copy out, per env the fresh state and obs where the
+// episode is over, else the ticked ones.  One block a tile: at 4096 envs
+// 128 blocks for 132 SMs; a block's 43-45 KB of shared memory lets five
+// share an SM past that.
+constexpr int kTile = 32;
+constexpr int kLanes = 4;
+constexpr int kTickThreads = kTile * kLanes;
+constexpr int kThreads = kTickThreads + kTile;
+
+template <int TASK>
+struct TileSmem {
+  float sf[NF_STATE * kTile];             // state in; ticked state out
+  float ff[NF_STATE * kTile];             // fresh state
+  float outf[Task<TASK>::NOUT_F * kTile]; // the tick's float outputs
+  float fobs[Task<TASK>::NOBS * kTile];   // fresh obs (the obs slots lead)
+  float draws[N_DRAWS * kTile];
+  float act[Task<TASK>::NACT * kTile];
+  int si[NI_STATE * kTile], fi[NI_STATE * kTile];
+  bool sb[NB_STATE * kTile], fb[NB_STATE * kTile];
+  bool outb[Task<TASK>::NOUT_B * kTile];
+  bool over[kTile];
+};
+
+// A column of a field-major buffer: its field's first column, the field's
+// width w and m = ceil(2^16 / w): the env of scalar j of a tile's run
+// (j < kTile w) is (j m) >> 16.
+struct Col {
+  int off, w, m;
+};
+
+__device__ __forceinline__ Col col_of(int packed) {
+  return Col{packed & 0xff, (packed >> 8) & 0x1f, packed >> 13};
+}
+
+// cols (packed off | w << 8 | m << 13) of a buffer of width-1 fields (the
+// int and bool state), and of one field of width W (the draws, the
+// actions)
+__device__ __forceinline__ int scalar_col(int s) {
+  return s | 1 << 8 | (1 << 16) << 13;
+}
+
+template <int W>
+__device__ __forceinline__ int block_col(int) {
+  return 0 | W << 8 | ((1 << 16) + W - 1) / W << 13;
+}
+
+// A copy of a small field-major buffer of N columns (cols(s): column s
+// packed) between global memory (B envs) and a tile's image (kTile envs),
+// by the NT threads from thread 0, split in two passes over the thread's
+// slots q = tid + k NT: gather (the global index, the env and the value of
+// each) and scatter, so a thread's loads are in flight together before its
+// first store.  Into the image (IN) every slot is filled, a slot past the
+// tile's last env (ne) from that env; out of it, the tile's envs.
+template <int N, typename V, int NT>
+struct Batch {
+  static constexpr int K = (N * kTile + NT - 1) / NT;
+  V v[K];
+  int g[K];
+  bool on[K];
+};
+
+template <bool IN, int N, typename V, int NT, typename Cols, typename Load>
+__device__ __forceinline__ void gather(Batch<N, V, NT>& b, Cols cols, int B,
+                                       int i0, int ne, Load load) {
+#pragma unroll
+  for (int k = 0; k < Batch<N, V, NT>::K; ++k) {
+    const int q = threadIdx.x + k * NT;
+    b.on[k] = false;
+    if (q < N * kTile) {
+      const Col c = col_of(cols(q >> 5));
+      const int j = q - c.off * kTile;
+      const int e = (j * c.m) >> 16;
+      if (e < (IN ? kTile : ne)) {
+        const int ge = IN ? min(e, ne - 1) : e;
+        b.g[k] = c.off * B + (i0 + ge) * c.w + (j - e * c.w);
+        b.v[k] = load(q, b.g[k], e);
+        b.on[k] = true;
+      }
+    }
+  }
+}
+
+template <int N, typename V, int NT, typename Store>
+__device__ __forceinline__ void scatter(const Batch<N, V, NT>& b, Store store) {
+#pragma unroll
+  for (int k = 0; k < Batch<N, V, NT>::K; ++k)
+    if (b.on[k]) store(threadIdx.x + k * NT, b.g[k], b.v[k]);
+}
+
+// The tick warps' barrier (barrier 1, the fresh warp not waiting on it).
+__device__ __forceinline__ void tick_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kTickThreads) : "memory");
+}
+
+// The float state's and the outputs' copies by the plans the header
+// carries (kernels/env_tick.py copy_plan): each field goes whole to one
+// warp, lane l moving scalars l + 32 i (i < W) of its run; X(OFF, W,
+// BASE): the field's first column, width and first register slot.  In:
+// the four tick warps (plan K1_SFI); out: all five.
+#define K1_WARPS4(PLAN, X)                                                     \
+  switch (warp) {                                                              \
+    case 0: PLAN##_W0(X) break;                                                \
+    case 1: PLAN##_W1(X) break;                                                \
+    case 2: PLAN##_W2(X) break;                                                \
+    default: PLAN##_W3(X) break;                                               \
+  }
+#define K1_WARPS5(PLAN, X)                                                     \
+  switch (warp) {                                                              \
+    case 0: PLAN##_W0(X) break;                                                \
+    case 1: PLAN##_W1(X) break;                                                \
+    case 2: PLAN##_W2(X) break;                                                \
+    case 3: PLAN##_W3(X) break;                                                \
+    default: PLAN##_W4(X) break;                                               \
+  }
+#define K1_SF_IN_LOAD(OFF, W, BASE)                                            \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_) {                         \
+    const int j_ = lane + 32 * i_, e_ = j_ / (W);                              \
+    rs[(BASE) + i_] = a.sf[(size_t)(OFF) * B +                                 \
+                           (size_t)(i0 + min(e_, ne - 1)) * (W) + (j_ - e_ * (W))]; \
+  }
+#define K1_SF_IN_STORE(OFF, W, BASE)                                           \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_)                           \
+      sm.sf[(OFF) * kTile + lane + 32 * i_] = rs[(BASE) + i_];
+#define K1_SF_OUT_LOAD(OFF, W, BASE)                                           \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_) {                         \
+    const int j_ = lane + 32 * i_, q_ = (OFF) * kTile + j_;                    \
+    const float f_ = sm.ff[q_], t_ = sm.sf[q_];                                \
+    rs[(BASE) + i_] = sm.over[j_ / (W)] ? f_ : t_;                             \
+  }
+#define K1_SF_OUT_STORE(OFF, W, BASE)                                          \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_) {                         \
+    const int j_ = lane + 32 * i_;                                             \
+    if (j_ / (W) < ne)                                                         \
+      a.of[(size_t)(OFF) * B + (size_t)i0 * (W) + j_] = rs[(BASE) + i_];       \
+  }
+// the float outputs: the obs slots (OFF < NOBS) take the fresh obs where
+// the episode is over
+#define K1_OF_OUT_LOAD(OFF, W, BASE)                                           \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_) {                         \
+    const int j_ = lane + 32 * i_, q_ = (OFF) * kTile + j_;                    \
+    const float f_ = (OFF) < T::NOBS ? sm.fobs[q_] : 0.0f, t_ = sm.outf[q_];   \
+    ro[(BASE) + i_] = (OFF) < T::NOBS && sm.over[j_ / (W)] ? f_ : t_;          \
+  }
+#define K1_OF_OUT_STORE(OFF, W, BASE)                                          \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_) {                         \
+    const int j_ = lane + 32 * i_;                                             \
+    if (j_ / (W) < ne)                                                         \
+      a.outf[(size_t)(OFF) * B + (size_t)i0 * (W) + j_] = ro[(BASE) + i_];     \
+  }
+#define K1_OB_OUT_LOAD(OFF, W, BASE)                                           \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_)                           \
+      rb[(BASE) + i_] = sm.outb[(OFF) * kTile + lane + 32 * i_];
+#define K1_OB_OUT_STORE(OFF, W, BASE)                                          \
+  _Pragma("unroll") for (int i_ = 0; i_ < (W); ++i_) {                         \
+    const int j_ = lane + 32 * i_;                                             \
+    if (j_ / (W) < ne)                                                         \
+      a.outb[(size_t)(OFF) * B + (size_t)i0 * (W) + j_] = rb[(BASE) + i_];     \
+  }
+// the copy out of a task's tile: every load, then every store
+#define K1_OUT(TK)                                                             \
+  {                                                                            \
+    Batch<NI_STATE, int, kThreads> n;                                          \
+    Batch<NB_STATE, bool, kThreads> bo;                                        \
+    float rs[K1_SF_NMAX + 1], ro[K1_OF_##TK##_NMAX + 1];                        \
+    bool rb[K1_OB_##TK##_NMAX + 1];                                            \
+    gather<false>(n, scalars, B, i0, ne, [&](int q, int, int e) {              \
+      const int f_ = sm.fi[q], t_ = sm.si[q];                                  \
+      return sm.over[e] ? f_ : t_;                                             \
+    });                                                                        \
+    gather<false>(bo, scalars, B, i0, ne, [&](int q, int, int e) {             \
+      const bool f_ = sm.fb[q], t_ = sm.sb[q];                                 \
+      return sm.over[e] ? f_ : t_;                                             \
+    });                                                                        \
+    K1_WARPS5(K1_SF, K1_SF_OUT_LOAD)                                           \
+    K1_WARPS5(K1_OF_##TK, K1_OF_OUT_LOAD)                                      \
+    K1_WARPS5(K1_OB_##TK, K1_OB_OUT_LOAD)                                      \
+    K1_WARPS5(K1_SF, K1_SF_OUT_STORE)                                          \
+    K1_WARPS5(K1_OF_##TK, K1_OF_OUT_STORE)                                     \
+    K1_WARPS5(K1_OB_##TK, K1_OB_OUT_STORE)                                     \
+    scatter(n, [&](int, int g, int v) { a.oi[g] = v; });                       \
+    scatter(bo, [&](int, int g, bool v) { a.ob[g] = v; });                     \
+  }
+
 template <int TASK, int INTEG, bool EXACT>
-__global__ void __launch_bounds__(128) env_tick_kernel(Args a, int entry) {
+__global__ void __launch_bounds__(kThreads) env_tile_kernel(Args a) {
+  using T = Task<TASK>;
+  static_assert(kTile == 32, "runs are indexed by q >> 5");
+  static_assert(kThreads / 32 == K1_COPY_WARPS, "copy plans are per warp");
+  __shared__ TileSmem<TASK> sm;
+  const int B = a.B, i0 = blockIdx.x * kTile, ne = min(kTile, B - i0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const auto scalars = [](int s) { return scalar_col(s); };
+  const auto draw_cols = [](int s) { return block_col<N_DRAWS>(s); };
+  const auto act_cols = [](int s) { return block_col<T::NACT>(s); };
+
+  Args t = a;
+  t.B = kTile;
+  if (tid < kTickThreads) {
+    {
+      // ---- in, by the tick warps: the state, actions and draws (rows
+      // past the tile's last env repeat it), every load issued before the
+      // stores; then their own barrier (the fresh warp does not wait)
+      {
+        Batch<N_DRAWS, float, kTickThreads> du;   // one field of N_DRAWS
+        Batch<NI_STATE, int, kTickThreads> n;
+        Batch<NB_STATE, bool, kTickThreads> bo;
+        Batch<T::NACT, float, kTickThreads> ac;
+        float rs[K1_SFI_NMAX + 1];
+        gather<true>(du, draw_cols, B, i0, ne,
+                     [&](int, int g, int) { return a.draws[g]; });
+        gather<true>(n, scalars, B, i0, ne, [&](int, int g, int) { return a.si[g]; });
+        gather<true>(bo, scalars, B, i0, ne, [&](int, int g, int) { return a.sb[g]; });
+        gather<true>(ac, act_cols, B, i0, ne,
+                     [&](int, int g, int) { return a.act[g]; });
+        K1_WARPS4(K1_SFI, K1_SF_IN_LOAD)
+        K1_WARPS4(K1_SFI, K1_SF_IN_STORE)
+        scatter(n, [&](int q, int, int v) { sm.si[q] = v; });
+        scatter(bo, [&](int q, int, bool v) { sm.sb[q] = v; });
+        scatter(ac, [&](int q, int, float v) { sm.act[q] = v; });
+        scatter(du, [&](int q, int, float v) { sm.draws[q] = v; });
+      }
+      tick_barrier();
+      // ---- the tick, four lanes an env; the lanes past the tile's last
+      // env tick their copy of it (the group's shuffles need all 32 lanes)
+      const int i = tid / kLanes;
+      t.sf = t.of = sm.sf;
+      t.si = t.oi = sm.si;
+      t.sb = t.ob = sm.sb;
+      t.act = sm.act;
+      t.draws = sm.draws;
+      t.outf = sm.outf;
+      t.outb = sm.outb;
+      tick_lane<TASK, INTEG, EXACT>(t, i, tid % kLanes, &sm.over[i]);
+    }
+  } else if (tid - kTickThreads < ne) {
+    // ---- the fresh episode of every env of the tile, from the start: its
+    // draws read where they lie
+    const int i = tid - kTickThreads;
+    t.of = sm.ff;
+    t.oi = sm.fi;
+    t.ob = sm.fb;
+    t.outf = sm.fobs;
+    fresh_episode<TASK, EXACT>(t, i, a.draws + (size_t)(i0 + i) * N_DRAWS);
+  }
+  __syncthreads();
+
+  // ---- out: per env the fresh episode where it is over, else the tick's
+  // (the obs slots lead the float outputs)
+  if constexpr (TASK == TASK_DECOUPLED)
+    K1_OUT(DECOUPLED)
+  else
+    K1_OUT(COUPLED)
+}
+
+// The step and reset entries: one thread an env, one chain each.  The step
+// reads and writes the env's fields in place; the reset writes the fresh
+// episode straight to the output buffers.
+template <int TASK, int INTEG, bool EXACT>
+__global__ void __launch_bounds__(128) env_thread_kernel(Args a, int entry) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.B) return;
   if (entry == ENTRY_STEP) {
     step_only<TASK, INTEG, EXACT>(a, i);
     return;
   }
-  if constexpr (Task<TASK>::BATCHED) {
-    const float* u = a.draws + (size_t)i * N_DRAWS;
-    if (entry == ENTRY_RESET)
-      fresh_episode<TASK, EXACT>(a, i, u);
-    else
-      tick<TASK, INTEG, EXACT>(a, i, u);
-  }
+  if constexpr (Task<TASK>::BATCHED)
+    fresh_episode<TASK, EXACT>(a, i, a.draws + (size_t)i * N_DRAWS);
 }
 
 template <int TASK, int INTEG, bool EXACT>
 cudaError_t launch(const Args& a, int entry, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (a.B + threads - 1) / threads;
-  env_tick_kernel<TASK, INTEG, EXACT><<<blocks, threads, 0, stream>>>(a, entry);
+  if (entry != ENTRY_TICK) {
+    env_thread_kernel<TASK, INTEG, EXACT><<<(a.B + 127) / 128, 128, 0, stream>>>(
+        a, entry);
+  } else if constexpr (Task<TASK>::BATCHED) {
+    env_tile_kernel<TASK, INTEG, EXACT>
+        <<<(a.B + kTile - 1) / kTile, kThreads, 0, stream>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

@@ -11,89 +11,212 @@
 //
 // Bound on an H100: the bytes.  One flagship tick writes 4096 rows of 45
 // floats (737 KB) and reads about as much (the tick's obs, actions, rewards,
-// terminal obs, flags and ep_ret): ~0.45 us at 3.35 TB/s.  A sample moves
-// 256 rows of 45 floats twice (92 KB), far under the launch.
+// terminal obs, flags and ep_ret): ~0.45 us at 3.35 TB/s.  At PPO A's 32
+// rows the floor is the launch.  A sample moves 256 rows of 45 floats twice
+// (92 KB), far under the launch.
 //
-// Design: insert_kernel gives each block 128 envs.  Its threads first walk
-// the block's rows x row_dim ring elements in order, so consecutive threads
-// write consecutive floats of the ring (a row's source field and column come
-// from a per-column map built on the host from the ring layout); each thread
-// reads K1's output fields where they lie, field-major (B, w) blocks.  Then
-// each thread does its env's statistics and the block reduces its partials
-// (n_agents finished-return sums, the finished count, the reward sum) in a
-// fixed tree; stats_kernel adds the blocks' partials in block order, so a
-// run repeats its numbers.  sample_kernel is one thread per gathered float.
+// Design (one launch per call, with or without the statistics):
+// insert_kernel gives each block a tile of 32 rows (128 blocks at 4096
+// rows) and 256 threads.  Thread t writes the tile's ring elements t,
+// t + 256, ... in order, so consecutive threads write consecutive floats of
+// the ring: the tile's rows are one contiguous run of the ring, or two where
+// it wraps (the run's start is computed once per tile, and an element after
+// the wrap row moves back by cap rows; no per-element 64-bit %).  A thread
+// steps its (row, column) by fixed increments (one division per thread),
+// reads each element's source through a per-column table in shared memory
+// (the field's base pointer plus its column, and the field's row width,
+// found from the field widths the launch passes), issues all its loads,
+// then all its stores.  K8: warp 0 takes the tile's rows on its lanes
+// (ep_ret carried, the finished returns, count and reward sum) and sums
+// them by a fixed butterfly of shuffles; with one tile it adds them into
+// stats itself.  With more, warp 0 writes the tile's sums, fences and takes
+// a ticket (atomicAdd on a per-device counter the wrapper owns); the block
+// that takes the last ticket adds the tiles' sums, warp k sum k: lane l the
+// tiles [l c, (l + 1) c) in order (c = ceil(tiles / 32)), then the lanes by
+// the same butterfly, and re-arms the counter.  So a rerun repeats its
+// numbers bitwise.  The order differs from the one-thread-per-env tree of
+// blocks of 128 envs this replaced, so the sums agree with it to float32
+// rounding, not bitwise (tests/test_torch_replay_kernel.py emulates it);
+// the ring and ep_ret are copies and the same expression, bitwise.
+// sample_kernel is one thread per gathered float.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kTile = 32;        // rows per block: warp 0's lanes for K8
 constexpr int kMaxRow = 128;
 constexpr int kMaxStats = 4;     // n_agents (<= 2) + count + reward sum
 
 struct Fields {
-  const float* src[6];   // obs_0, obs_1, joint act, rwd, next_obs_0, next_obs_1
-  int width[6];
-  const bool* done;      // (B, n_agents)
+  const void* src[7];  // obs_0, obs_1, joint act, rwd, next_obs_0,
+                       // next_obs_1 (float), done (bool)
+  int width[7];        // per-row width of each (B, w) block
 };
 
+// PER: ring elements a thread, rows * row_dim / kThreads rounded up to a
+// power of two (8 for a whole tile of rows of up to 64 floats, 16 up to
+// kMaxRow; fewer for a launch of fewer rows than a tile).
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 insert_kernel(float* __restrict__ ring, long long cap, int row_dim,
-              long long ptr, int B, Fields f, const int* __restrict__ colmap,
-              int n_agents, const bool* __restrict__ reset,
-              float* __restrict__ ep_ret, float* __restrict__ partial) {
-  __shared__ int cmap[kMaxRow];
-  __shared__ float red[kMaxStats][kThreads];
-  for (int c = threadIdx.x; c < row_dim; c += kThreads) cmap[c] = colmap[c];
-  __syncthreads();
-  const int r0 = blockIdx.x * kThreads;
-  const int rows = min(kThreads, B - r0);
-  for (int e = threadIdx.x; e < rows * row_dim; e += kThreads) {
-    const int r = r0 + e / row_dim, c = e % row_dim;
-    const int field = cmap[c] >> 8, col = cmap[c] & 0xff;
-    float val;
-    if (field < 6)
-      val = f.src[field][(size_t)r * f.width[field] + col];
-    else
-      val = f.done[(size_t)r * n_agents + col] ? 1.0f : 0.0f;
-    const long long slot = (ptr + r) % cap;
-    ring[slot * row_dim + c] = val;
-  }
-  if (ep_ret == nullptr) return;
-  const int r = r0 + threadIdx.x;
-  float q[kMaxStats] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (r < B) {
-    const bool rs = reset[r];
-    float rsum = 0.0f;
-    for (int a = 0; a < n_agents; ++a) {
-      const float rw = f.src[3][(size_t)r * n_agents + a];
-      const float ep = ep_ret[(size_t)r * n_agents + a] + rw;
-      q[a] = rs ? ep : 0.0f;
-      ep_ret[(size_t)r * n_agents + a] = rs ? 0.0f : ep;
-      rsum += rw;
+              long long ptr, int B, Fields f, int n_agents,
+              const bool* __restrict__ reset, float* __restrict__ ep_ret,
+              float* __restrict__ partial, float* __restrict__ stats,
+              unsigned* __restrict__ ticket) {
+  __shared__ const char* col_src[kMaxRow];
+  __shared__ int col_w[kMaxRow];   // row width; negative: a bool field
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  if (tid < row_dim) {
+    // the column's field: fields 0-6 in ring order (algos/replay.py _pack)
+    int start = 0;
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      const int w = f.width[j];
+      if (tid >= start && tid < start + w) {
+        col_src[tid] = (const char*)f.src[j] + (tid - start) * (j == 6 ? 1 : 4);
+        col_w[tid] = j == 6 ? -w : w;
+      }
+      start += w;
     }
-    q[n_agents] = rs ? 1.0f : 0.0f;
-    q[n_agents + 1] = rsum;
   }
-  const int nq = n_agents + 2;
-  for (int k = 0; k < nq; ++k) red[k][threadIdx.x] = q[k];
-  __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h)
-      for (int k = 0; k < nq; ++k) red[k][threadIdx.x] += red[k][threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x < nq) partial[blockIdx.x * nq + threadIdx.x] = red[threadIdx.x][0];
-}
+  const int r0 = blockIdx.x * kTile;
+  const int rows = min(kTile, B - r0);
 
-__global__ void stats_kernel(const float* __restrict__ partial, int n_blocks,
-                             int nq, float* __restrict__ stats) {
-  const int k = threadIdx.x;
-  if (k >= nq) return;
+  // K8's inputs first, so their loads overlap the ring's: warp 0 one row a
+  // lane, and stats[k] for the thread that adds sum k (lane k of warp 0
+  // with one tile, lane 0 of warp k in the last block)
+  const bool stats_on = ep_ret != nullptr;
+  const int nq = n_agents + 2;
+  const int lr = r0 + tid, warp = tid >> 5, lane = tid & 31;
+  bool rs = false;
+  float rw[2] = {0.0f, 0.0f}, ep[2] = {0.0f, 0.0f}, st = 0.0f;
+  if (stats_on) {
+    if (tid < rows) {
+      rs = reset[lr];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+        if (a < n_agents) {
+          rw[a] = ((const float*)f.src[3])[(size_t)lr * n_agents + a];
+          ep[a] = ep_ret[(size_t)lr * n_agents + a];
+        }
+    }
+    if (tid < nq || (lane == 0 && warp < nq)) st = stats[tid < nq ? tid : warp];
+  }
+  __syncthreads();
+
+  // the ring's loads: this tile's rows * row_dim elements, strided by
+  // kThreads
+  const int dq = kThreads / row_dim, dc = kThreads - dq * row_dim;
+  const int r_first = tid / row_dim, c_first = tid - r_first * row_dim;
+  float v[PER];
+  {
+    int r = r_first, c = c_first;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (r < rows) {
+        const char* p = col_src[c];
+        const int w = col_w[c];
+        const size_t row = (size_t)(r0 + r);
+        v[k] = w > 0 ? ((const float*)p)[row * w]
+                     : (((const unsigned char*)p)[row * -w] ? 1.0f : 0.0f);
+      }
+      c += dc;
+      r += dq;
+      if (c >= row_dim) { c -= row_dim; ++r; }
+    }
+  }
+
+  // K8, before warp 0's ring stores so its fence waits on its sums alone:
+  // the tile's sums by a fixed butterfly over warp 0's lanes, then stats
+  // (one tile) or the tile's sums and a ticket
+  if (stats_on && tid < kTile) {
+    float q[kMaxStats] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (tid < rows) {
+      float rsum = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+        if (a < n_agents) {
+          const float e = ep[a] + rw[a];
+          q[a] = rs ? e : 0.0f;
+          ep_ret[(size_t)lr * n_agents + a] = rs ? 0.0f : e;
+          rsum += rw[a];
+        }
+      const float cnt = rs ? 1.0f : 0.0f;
+      if (n_agents == 1) {
+        q[1] = cnt;
+        q[2] = rsum;
+      } else {
+        q[2] = cnt;
+        q[3] = rsum;
+      }
+    }
+    float mine = 0.0f;             // lane k < nq: the tile's sum k
+#pragma unroll
+    for (int k = 0; k < kMaxStats; ++k) {
+#pragma unroll
+      for (int h = kTile / 2; h > 0; h >>= 1)
+        q[k] += __shfl_xor_sync(0xffffffffu, q[k], h);
+      if (tid == k) mine = q[k];
+    }
+    if (gridDim.x == 1) {
+      if (tid < nq) stats[tid] = st + mine;
+    } else {
+      if (tid < nq) partial[blockIdx.x * nq + tid] = mine;
+      __threadfence();
+      __syncwarp();
+      if (tid == 0) {
+        last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+        __threadfence();
+      }
+    }
+  }
+
+  // the ring's stores: the tile's rows are one run of the ring from slot
+  // first, or two where they wrap (those from row wrap_r back by cap rows)
+  {
+    const long long start = ptr + r0;            // < cap + B <= 2 cap
+    const long long first = start < cap ? start : start - cap;
+    const long long wrap_r = cap - first;
+    float* base = ring + first * row_dim;
+    const long long back = cap * row_dim;
+    int r = r_first, c = c_first;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (r < rows) {
+        const long long e = (long long)r * row_dim + c;
+        base[r >= wrap_r ? e - back : e] = v[k];
+      }
+      c += dc;
+      r += dq;
+      if (c >= row_dim) { c -= row_dim; ++r; }
+    }
+  }
+  if (!stats_on || gridDim.x == 1) return;
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: warp k adds sum k over the tiles, lane l the tiles
+  // [l c, (l + 1) c) in order, then the lanes by the same butterfly
+  if (warp >= nq) return;
+  const int nb = gridDim.x, chunk = (nb + 31) / 32;
+  const int b0 = lane * chunk, b1 = min(nb, b0 + chunk);
   float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partial[b * nq + k];
-  stats[k] += s;
+  for (int b = b0; b < b1; b += 4) {
+    float t[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      t[u] = b + u < b1 ? __ldcg(partial + (b + u) * nq + warp) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (b + u < b1) s = b + u == b0 ? t[u] : s + t[u];
+  }
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) s += __shfl_xor_sync(0xffffffffu, s, h);
+  if (lane == 0) stats[warp] = st + s;
+  if (tid == 0) *ticket = 0u;
 }
 
 __global__ void sample_kernel(const float* __restrict__ ring, int row_dim,
@@ -105,6 +228,31 @@ __global__ void sample_kernel(const float* __restrict__ ring, int row_dim,
   out[e] = poison * ring[idx[b] * row_dim + c];
 }
 
+struct Launch {
+  float* ring;
+  long long cap;
+  int row_dim;
+  long long ptr;
+  int B;
+  Fields f;
+  int n_agents;
+  const bool* reset;
+  float* ep_ret;
+  float* partial;
+  float* stats;
+  unsigned* ticket;
+  int blocks;
+  cudaStream_t stream;
+};
+
+template <int PER>
+int insert(const Launch& l) {
+  insert_kernel<PER><<<l.blocks, kThreads, 0, l.stream>>>(
+      l.ring, l.cap, l.row_dim, l.ptr, l.B, l.f, l.n_agents, l.reset,
+      l.ep_ret, l.partial, l.stats, l.ticket);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
@@ -112,39 +260,44 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 extern "C" int replay_insert_blocks(int B) {
-  return (B + kThreads - 1) / kThreads;
+  return (B + kTile - 1) / kTile;
 }
 
-// reset/ep_ret/partial/stats null: ring write only (insert_tick without the
-// episode statistics).
+// reset/ep_ret/partial/stats/ticket null: ring write only (insert_tick
+// without the episode statistics).  ticket: a zeroed unsigned counter that
+// the launch leaves zeroed; launches that share it run one after another.
 extern "C" int replay_insert_launch(
     void* ring, long long cap, int row_dim, long long ptr, int B,
     const void* obs0, int w_obs0, const void* obs1, int w_obs1,
     const void* act, int w_act, const void* rwd, const void* nobs0,
-    const void* nobs1, const void* done, int n_agents, const void* colmap,
-    const void* reset, void* ep_ret, void* partial, void* stats,
-    void* stream) {
-  if (B <= 0 || cap <= 0 || row_dim > kMaxRow || n_agents < 1 ||
-      n_agents > 2 || (long long)B > cap)
+    const void* nobs1, const void* done, int n_agents, const void* reset,
+    void* ep_ret, void* partial, void* stats, void* ticket, void* stream) {
+  if (B <= 0 || cap <= 0 || row_dim <= 0 || row_dim > kMaxRow ||
+      n_agents < 1 || n_agents > 2 || (long long)B > cap || ptr < 0 ||
+      ptr >= cap)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   Fields f;
-  f.src[0] = (const float*)obs0;  f.width[0] = w_obs0;
-  f.src[1] = (const float*)obs1;  f.width[1] = w_obs1;
-  f.src[2] = (const float*)act;   f.width[2] = w_act;
-  f.src[3] = (const float*)rwd;   f.width[3] = n_agents;
-  f.src[4] = (const float*)nobs0; f.width[4] = w_obs0;
-  f.src[5] = (const float*)nobs1; f.width[5] = w_obs1;
-  f.done = (const bool*)done;
-  const int blocks = replay_insert_blocks(B);
-  insert_kernel<<<blocks, kThreads, 0, st>>>(
-      (float*)ring, cap, row_dim, ptr, B, f, (const int*)colmap, n_agents,
-      (const bool*)reset, (float*)ep_ret, (float*)partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || ep_ret == nullptr) return (int)e;
-  stats_kernel<<<1, 32, 0, st>>>((const float*)partial, blocks, n_agents + 2,
-                                 (float*)stats);
-  return (int)cudaGetLastError();
+  const void* src[7] = {obs0, obs1, act, rwd, nobs0, nobs1, done};
+  const int width[7] = {w_obs0, w_obs1, w_act, n_agents, w_obs0, w_obs1,
+                        n_agents};
+  for (int j = 0; j < 7; ++j) {
+    f.src[j] = src[j];
+    f.width[j] = width[j];
+  }
+  // the fewest slots a thread that cover a tile (a power of two)
+  const int need = ((B < kTile ? B : kTile) * row_dim + kThreads - 1) / kThreads;
+  const int per = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : need <= 8 ? 8 : 16;
+  const Launch l{(float*)ring, cap, row_dim, ptr, B, f, n_agents,
+                 (const bool*)reset, (float*)ep_ret, (float*)partial,
+                 (float*)stats, (unsigned*)ticket, replay_insert_blocks(B),
+                 (cudaStream_t)stream};
+  switch (per) {
+    case 1: return insert<1>(l);
+    case 2: return insert<2>(l);
+    case 4: return insert<4>(l);
+    case 8: return insert<8>(l);
+    default: return insert<16>(l);
+  }
 }
 
 extern "C" int replay_sample_launch(const void* ring, int row_dim,

@@ -14,14 +14,15 @@ are what runs on CPU tensors.
 What bounds it on an H100: per env a tick reads and writes ~0.5 KB of state
 and does a few thousand dependent flops (DOP853: 12 evaluations of the
 equations of motion against RK4's 4), so at B = 4096 the work is ~5 MB and
-~30-90 MFLOP, about 1.5 us of HBM time; the launch itself (a few us) and
-the serial per-thread chain dominate.  The design keeps everything else out
-of the way: one thread per env, the whole tick (goal, action, integrator,
-attitude repair, obs, reward, cap/solved override, fresh episode, select)
-in registers in one launch, state in field-major buffers where each field
-is a contiguous ``(B, w)`` block, and the fresh-episode chain run only by
-the threads whose episode ended (the JAX tick computes it densely for every
-env only to keep XLA's fusion whole).
+~30-90 MFLOP, about 1.5 us of HBM time; the launch and one env's dependent
+chain dominate.  The tick runs in tiles of 32 envs a block
+(``env_tile_kernel``): the buffers move through shared memory in whole
+contiguous runs (``copy_plan`` shares the fields among the warps), four
+warps tick the tile with four lanes an env (the integrator split by axis
+over the lanes), a fifth computes every env's fresh episode beside them,
+densely as the JAX tick does, and the copy out keeps it where the episode
+is over.  The reset and step entries keep one thread an env.  State lives
+in field-major buffers where each field is a contiguous ``(B, w)`` block.
 
 Fifteen instances of the kernel are built: the MODUL ``decoupled`` and the
 MONO ``coupled`` task (``quad.py:91-93, 178-184, 206-216, 247-255``), each
@@ -152,12 +153,74 @@ def layout_header() -> Dict[str, str]:
     lines += [f"#define NEG_LOG_0001_D {traj_lib.NEG_LOG_0001.hex()}",
               f"#define EIGHT_EXP_XY_D {traj_lib.EIGHT_EXP_XY.hex()}"]
     lines += _dop853_macros()
+    lines += _copy_macros()
     lines += [f"#define TASK_{k.upper()} {v}" for k, v in TASKS.items()]
     lines += [f"#define INTEGRATOR_{k.upper()} {v}"
               for k, v in INTEGRATORS.items()]
     lines += [f"#define ENV_{k.upper()} {v}" for k, v in ENV_TYPES.items()]
     lines += [f"#define ENTRY_{k.upper()} {v}" for k, v in ENTRIES.items()]
     return {"env_tick_layout.h": "\n".join(lines) + "\n"}
+
+
+COPY_WARPS = 5      # the tile kernel's warps: four tick the tile, one
+#                     computes the fresh episodes; all five copy out, the
+#                     four tick warps copy in
+
+
+def copy_plan(fields, warps: int = COPY_WARPS):
+    """How the tile kernel's warps share the copy of a field-major buffer
+    between global memory and a tile's image: ``fields`` ``(off, width)``,
+    each given whole to one warp, widest first to the warp with the fewest
+    slots; lane ``l`` of that warp moves scalars ``l + 32 i`` (``i <
+    width``) of the field's run of ``32 width``.  Returns per warp its
+    ``[(off, width, base)]`` in column order (``base``: the field's first
+    slot in the warp's registers) and its slot count."""
+    load = [0] * warps
+    own = [[] for _ in range(warps)]
+    for off, w in sorted(fields, key=lambda f: (-f[1], f[0])):
+        k = min(range(warps), key=lambda i: (load[i], i))
+        own[k].append((off, w))
+        load[k] += w
+    plan = []
+    for fs in own:
+        base, rows = 0, []
+        for off, w in sorted(fs):
+            rows.append((off, w, base))
+            base += w
+        plan.append((rows, base))
+    return plan
+
+
+def _slot_fields(slots):
+    off, out = 0, []
+    for _, w in slots:
+        out.append((off, w))
+        off += w
+    return out
+
+
+def _copy_macros() -> List[str]:
+    """The tile kernel's copy plans (``copy_plan``) as macro lists: the
+    float state out over the five warps (``K1_SF``) and in over the four
+    tick warps (``K1_SFI``), and per batched task its float and bool
+    outputs (``K1_OF_<TASK>``, ``K1_OB_<TASK>``); ``<PLAN>_W<k>(X)``
+    expands to ``X(off, width, base)`` for warp ``k``'s fields,
+    ``<PLAN>_N<k>`` is its slot count and ``<PLAN>_NMAX`` the largest."""
+    state = [(off, w) for _, off, w, _ in layout()[torch.float32]]
+    plans = {"K1_SF": (state, COPY_WARPS), "K1_SFI": (state, COPY_WARPS - 1)}
+    for task in BATCHED_TASKS:
+        for kind in ("F", "B"):
+            plans[f"K1_O{kind}_{task.upper()}"] = (
+                _slot_fields(OUT[task][kind]), COPY_WARPS)
+    lines = [f"#define K1_COPY_WARPS {COPY_WARPS}"]
+    for name, (fields, warps) in plans.items():
+        plan = copy_plan(fields, warps)
+        for k, (rows, n) in enumerate(plan):
+            body = " ".join(f"X({off}, {w}, {base})" for off, w, base in rows)
+            lines += [f"#define {name}_W{k}(X) {body}",
+                      f"#define {name}_N{k} {n}"]
+        lines.append(f"#define {name}_NMAX {max(n for _, n in plan)}")
+    return lines
 
 
 def _dop853_macros() -> List[str]:

@@ -14,11 +14,18 @@ stores ``B`` rows at ``(ptr + b) % capacity`` in place (JAX returns a new
 ring; at 1e6 rows a copy per tick is what the port avoids) and, when
 ``ep_ret`` is given, carries the per-env episodic returns and adds the
 tick's finished-return sums, finished count and reward sum into ``stats``
-(``[fin_0, .., fin_{n-1}, count, reward sum]``).  The cross-env sums are
-per-block partials added in block order, so a run repeats its numbers.
+(``[fin_0, .., fin_{n-1}, count, reward sum]``), all in one launch.  The
+cross-env sums are per-tile sums (32 rows a tile, summed by a fixed
+butterfly of shuffles) that the block finishing last adds in a fixed order
+(each of 32 lanes a run of tiles in tile order, then the butterfly), so a
+run repeats its numbers bitwise; ``tests/test_torch_replay_kernel.py``
+emulates that order and holds it to the plain twin and to JAX.  The blocks
+find the last one by a ticket: an atomic counter per device (``_ticket``),
+which that block re-arms to zero, so launches on one device run one after
+another (one stream) as the train paths launch them.
 
 What bounds it on an H100: the bytes (~1.5 MB per flagship tick, ~0.45 us;
-a 256-row sample ~0.1 MB), far under the launches.
+a 256-row sample ~0.1 MB); at 32 rows the launch.
 """
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ def _lib():
 def column_map(dims: Dims) -> np.ndarray:
     """Per ring column, ``field << 8 | column`` of its source: fields 0/1
     ``obs_0``/``obs_1``, 2 the joint action, 3 the rewards, 4/5
-    ``next_obs_0``/``next_obs_1``, 6 the done flags."""
+    ``next_obs_0``/``next_obs_1``, 6 the done flags.  The kernel finds the
+    same from the field widths it is launched with."""
     obs_dims, act_dims = dims
     n = len(obs_dims)
     out = []
@@ -69,14 +77,16 @@ def column_map(dims: Dims) -> np.ndarray:
     return np.asarray(out, np.int32)
 
 
-_COLMAP = {}
+_TICKETS = {}
 
 
-def _colmap(dims: Dims, device) -> torch.Tensor:
-    key = (dims, str(device))
-    if key not in _COLMAP:
-        _COLMAP[key] = torch.as_tensor(column_map(dims), device=device)
-    return _COLMAP[key]
+def _ticket(device) -> torch.Tensor:
+    """The device's ticket counter for the statistics' last-block sum: one
+    zeroed int32, left zeroed by every launch."""
+    key = str(device)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +139,9 @@ def replay_insert_tick(data, ptr: int, dims: Dims, obs_t, actions, reward,
     """Write ``B = actions.shape[0]`` rows into ``data`` at ``(ptr + b) %
     capacity`` and, with ``reset``/``ep_ret``/``stats``, the episode
     statistics (module docstring).  CPU tensors ->
-    ``replay_insert_tick_plain``; CUDA tensors -> one call of the kernel
-    (float32; the insert grid, then the one-block pass over the partials
-    when statistics are asked for), or an error."""
+    ``replay_insert_tick_plain``; CUDA tensors -> one launch of the kernel
+    (float32; 32-row tiles, the statistics' tile partials added by the
+    last block), or an error."""
     if not data.is_cuda:
         return replay_insert_tick_plain(data, ptr, dims, obs_t, actions,
                                         reward, next_obs_t, done, reset,
@@ -152,13 +162,14 @@ def replay_insert_tick(data, ptr: int, dims: Dims, obs_t, actions, reward,
     _check("done", done, torch.bool, (B, n), dev)
     with_stats = ep_ret is not None
     lib = _lib()
-    partial = None
+    partial = ticket = None
     if with_stats:
         _check("reset", reset, torch.bool, (B,), dev)
         _check("ep_ret", ep_ret, f32, (B, n), dev)
         _check("stats", stats, f32, (n + 2,), dev)
         partial = torch.empty(lib.replay_insert_blocks(B) * (n + 2),
                               dtype=f32, device=dev)
+        ticket = _ticket(dev)
 
     def ptr_of(t):
         return None if t is None else t.data_ptr()
@@ -169,10 +180,10 @@ def replay_insert_tick(data, ptr: int, dims: Dims, obs_t, actions, reward,
         obs_t[0].data_ptr(), obs_dims[0], ptr_of(o1),
         obs_dims[1] if n == 2 else 0, actions.data_ptr(), sum(act_dims),
         reward.data_ptr(), next_obs_t[0].data_ptr(), ptr_of(no1),
-        done.data_ptr(), n, _colmap(dims, dev).data_ptr(),
-        ptr_of(reset) if with_stats else None, ptr_of(ep_ret),
+        done.data_ptr(), n, ptr_of(reset) if with_stats else None,
+        ptr_of(ep_ret),
         ptr_of(partial), ptr_of(stats) if with_stats else None,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr_of(ticket), torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "replay_insert_tick")
     replay_insert_tick.launches += 1
 

@@ -1,17 +1,18 @@
 #!/bin/bash
 # An earlier commit against this tree on one CUDA device, in one process
-# tree: chip_smoke.py on this tree, then the acting kernel and K7 of both at
-# the instances it timed (actor_spectral_vs_parent.py), then the superstep
-# profiles of the TD3 flagship and of PPO A (torch_train_profile.py, PPO A
-# over 2 supersteps a window), each side's process in turn over ROUNDS
-# rounds (parent, this tree; this tree, parent; ...).
+# tree: chip_smoke.py on this tree, then K1 and K2 write + K8 of both on
+# every instance and entry (tick_replay_vs_parent.py: bitwise outputs,
+# times in turns), then the superstep profiles of the TD3 flagship and of
+# PPO A (torch_train_profile.py, PPO A over 2 supersteps a window) and the
+# 4096-env acting rollout's (torch_rollout_profile.py), each side's process
+# in turn over ROUNDS rounds (parent, this tree; this tree, parent; ...).
 #
 #   scripts/compare_parent.sh PARENT_DIR OUT_DIR [ROUNDS]
 #
 # PARENT_DIR: a checkout of the earlier commit (git archive into a
 # git-ignored directory of the repo).  Writes smoke.log, vs_parent.log and
-# prof_<td3|ppoa>_<parent|change>_<round>.log under OUT_DIR; prints each
-# step's exit code.  Exits non-zero if any step failed.
+# prof_<td3|ppoa|act>_<parent|change>_<round>.log under OUT_DIR; prints
+# each step's exit code.  Exits non-zero if any step failed.
 set -u
 HERE=$(cd "$(dirname "$0")/.." && pwd)
 PARENT=$(cd "$1" && pwd)
@@ -29,8 +30,8 @@ step() {  # step NAME DIR COMMAND...: run COMMAND in DIR into OUT/NAME.log
   [ $rc -eq 0 ] || fail=1
 }
 step smoke "$HERE" python3 chip_smoke.py
-step vs_parent "$HERE" python3 scripts/actor_spectral_vs_parent.py \
-  --parent "$PARENT" --log "$OUT/smoke.log"
+step vs_parent "$HERE" python3 scripts/tick_replay_vs_parent.py \
+  --parent "$PARENT"
 for r in $(seq 1 "$ROUNDS"); do
   if [ $((r % 2)) -eq 1 ]; then order="parent change"; else order="change parent"; fi
   for side in $order; do
@@ -39,6 +40,7 @@ for r in $(seq 1 "$ROUNDS"); do
     step "prof_td3_${side}_$r" "$dir" python3 scripts/torch_train_profile.py
     step "prof_ppoa_${side}_$r" "$dir" python3 scripts/torch_train_profile.py \
       --algo ppo --config A --steps 2
+    step "prof_act_${side}_$r" "$dir" python3 scripts/torch_rollout_profile.py
   done
 done
 exit $fail
