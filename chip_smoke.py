@@ -44,7 +44,11 @@ result line):
                 gate[k] == k; and the kernel autograd path vs the structured
                 network's torch autograd for both twin critics
   8. flat_adamw K6 vs plain for the four networks' flat vectors at a
-                count > 0, with the clip triggered and not, with Polyak
+                count > 0, with the clip triggered and not, with Polyak,
+                and at FLAT_EDGE_SIZES (1, a block's edges, the edge
+                between solo blocks and clusters, past one pass of the
+                launch plan); every call rerun and compared bitwise, a
+                clipped call exactly one CUDA kernel in a profiler trace
   9. spectral   K7 vs plain on the critics' and actors' weight stacks and
                 on every stack the learners launch (TD3, SAC and PPO on
                 MODUL, MONO and CTDE), each launch run twice and compared
@@ -76,10 +80,15 @@ result line):
  15. gae        K12 vs its plain twin at (T, B) = (218, 32), (50, 4096) and
                 (1, 7), dones inside the horizon; the TD targets (the scan)
                 and the normalisation checked apart
- 16. ppo_loss   K13 forward and backward vs its plain twin at 128 and 3723
-                rows of 4 and 1 actions: ratios inside and outside the clip
-                range on both sides with both signs of the advantage, zero
-                advantages, and (1 action) ratios exactly at 1 +- clip_rate;
+ 16. ppo_loss   K13 forward and backward vs its plain twin at K13_ROWS (1,
+                127, 128, 129, 3723, 20 000) rows of 4 and 1 actions: ratios
+                inside and outside the clip range on both sides with both
+                signs of the advantage, zero advantages, and (1 action)
+                ratios exactly at 1 +- clip_rate; every call rerun and
+                compared bitwise, at 128 and 3723 rows a forward and a
+                backward call exactly one CUDA kernel each (profiler trace)
+                and, on 4-action rows one float past an aligned base,
+                outputs bitwise the aligned call's;
                 then the actor loss's surrogate path (K3/K4 trunk, K13)
                 under autograd vs the structured network and the plain loss
  17. v_blocks   K3/K4 vs plain for both blocks of both PPO V critics (the
@@ -111,7 +120,9 @@ result line):
                 superstep; the acting kernels at every row count the paths
                 launch them with (K3-actor and K9 at 4096, K11 at 32 and
                 4096, each in eval mode at the eval path's 10) and K7 at
-                the TD3 and PPO stacks, each logged with its bound
+                the TD3 and PPO stacks, each logged with its bound; and
+                the card's floor for one launch (an empty kernel back to
+                back, plain and in a cluster of 16)
  20. MONO and the MLP networks under TD3 (``phase_mono``):
                 env_tick (task coupled) K1's coupled instance vs its plain
                 twin at B = 4096 train envs and the eval path's 10 eval
@@ -243,7 +254,11 @@ F32_EPS = 2.0 ** -23
 CARD = ""            # nvidia-smi name and power limit, set in main()
 
 
+T0 = time.perf_counter()
+
+
 def log(phase, **kv):
+    kv["t_s"] = round(time.perf_counter() - T0, 1)
     if phase in ("rollout", "eval", "train", "sac_train", "ppo_train",
                  "kernels", "mlp_nets") or phase.startswith(("train_",
                                                               "eval_")):
@@ -329,6 +344,36 @@ def kernel_ms(fn, n):
             us += getattr(ev, "device_time_total", None) or \
                 getattr(ev, "cuda_time_total", 0)
     return us / 1e3 / n, wall * 1e3
+
+
+def launches_per_call(fn, n=20):
+    """CUDA kernels one call of ``fn`` launches, from a ``torch.profiler``
+    trace of ``n`` calls after ``n`` in the profiler's warm-up window: the
+    kernel-launch calls a call made to the CUDA runtime or driver
+    (``cudaLaunchKernel``, ``cudaLaunchKernelExC``, ``cuLaunchKernel``; a
+    float: a count that is not the same every call shows), or where the
+    trace holds none, the kernels a call (copies and fills not counted).
+    The trace's device records of a short window can miss a kernel; its
+    launch calls are recorded on the host as they are made."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels, launch_calls = 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if not ev.key.startswith(("Memcpy", "Memset")):
+                kernels += ev.count
+        elif ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launch_calls += ev.count
+    return (launch_calls or kernels) / n
 
 
 def bound_ms(nbytes, flops):
@@ -1053,41 +1098,69 @@ def phase_emlp_block(cfg, dev, agents, states, obs, n_shapes=8):
     return worst
 
 
-def phase_flat_adamw(cfg, dev, agents):
+FLAT_EDGE_SIZES = (1, 255, 256, 257, 2048, 2049, 262145)
+
+
+def phase_flat_adamw(cfg, dev, agents, edges=False):
     """K6 vs plain on the four networks' flat vectors at count 7, with the
     gradient's norm below (10) and above (1000) the clip of 100, with the
-    Polyak target.  Built with -fmad=false: the chain rounds as the plain
-    twin; only the norm's summation order differs."""
+    Polyak target; with ``edges`` also at ``FLAT_EDGE_SIZES`` (one element,
+    a block's edges, the last size of blocks of their own and the first of
+    clusters, and a size past one pass of the launch plan).  Built with
+    -fmad=false: the chain rounds as the plain twin; only the norm's
+    summation order differs.  Every call is run twice and compared bitwise,
+    and a clipped call must launch exactly one CUDA kernel (the profiler's
+    trace)."""
     from gym_rotor_tpu_torch.algos.common import FlatAdamW, OptState
     from gym_rotor_tpu_torch.kernels import flat_adamw as K
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     worst, bad = 0.0, []
-    for i, agent in enumerate(agents):
-        for net, n, lr in (("actor", agent.actor_layout.size, cfg.lr_a[i]),
-                           ("critic", agent.critic_layout.size, cfg.lr_c[i])):
-            tx = FlatAdamW(cfg, lr)
-            for norm in (10.0, 1000.0):
-                def rnd(scale=1.0):
-                    return scale * torch.randn(n, generator=gen, device=dev)
-                g = rnd()
-                g *= norm / g.norm()
-                p, tgt = rnd(), rnd()
-                mu, nu = rnd(1e-2), rnd(1e-3).abs()
-                s = tx.scalars(OptState(7, mu, nu, 7), cfg.tau)
-                kk = [t.clone() for t in (p, mu, nu, tgt)]
-                pp = [t.clone() for t in (p, mu, nu, tgt)]
-                K.flat_adamw(kk[0], g, kk[1], kk[2], s, kk[3])
-                K.flat_adamw_plain(pp[0], g, pp[1], pp[2], s, pp[3])
-                errs = [_err(a, b, 1e-6) for a, b in zip(kk, pp)]
-                worst = max([worst] + [e[0] for e in errs])
-                log("flat_adamw", agent=i, net=net, n=n, grad_norm=norm,
-                    clipped=norm >= cfg.grad_max_norm,
-                    max_abs_err=dict(zip(("p", "mu", "nu", "target"),
-                                         [e[0] for e in errs])))
-                if not all(d <= tol and fin for d, tol, fin in errs):
-                    bad.append((i, net, norm))
+    cases = [(i, net, n, lr) for i, agent in enumerate(agents)
+             for net, n, lr in (("actor", agent.actor_layout.size,
+                                 cfg.lr_a[i]),
+                                ("critic", agent.critic_layout.size,
+                                 cfg.lr_c[i]))]
+    if edges:
+        cases += [(None, "edge", n, cfg.lr_c[0]) for n in FLAT_EDGE_SIZES]
+    for i, net, n, lr in cases:
+        tx = FlatAdamW(cfg, lr)
+        for norm in (10.0, 1000.0):
+            def rnd(scale=1.0):
+                return scale * torch.randn(n, generator=gen, device=dev)
+            g = rnd()
+            g *= norm / g.norm()
+            p, tgt = rnd(), rnd()
+            mu, nu = rnd(1e-2), rnd(1e-3).abs()
+            s = tx.scalars(OptState(7, mu, nu, 7), cfg.tau)
+            kk = [t.clone() for t in (p, mu, nu, tgt)]
+            again = [t.clone() for t in (p, mu, nu, tgt)]
+            pp = [t.clone() for t in (p, mu, nu, tgt)]
+            K.flat_adamw(kk[0], g, kk[1], kk[2], s, kk[3])
+            K.flat_adamw(again[0], g, again[1], again[2], s, again[3])
+            K.flat_adamw_plain(pp[0], g, pp[1], pp[2], s, pp[3])
+            torch.cuda.synchronize()
+            errs = [_err(a, b, 1e-6) for a, b in zip(kk, pp)]
+            worst = max([worst] + [e[0] for e in errs])
+            rerun = _bitwise(kk, again)
+            clipped = norm >= cfg.grad_max_norm
+            rec = dict(agent=i, net=net, n=n, plan=list(K.flat_adamw_plan(n)),
+                       grad_norm=norm, clipped=clipped,
+                       max_abs_err=dict(zip(("p", "mu", "nu", "target"),
+                                            [e[0] for e in errs])),
+                       rerun_bitwise=rerun)
+            ok = rerun and all(d <= tol and fin for d, tol, fin in errs)
+            if clipped:
+                bufs = [t.clone() for t in (p, mu, nu, tgt)]
+                rec["kernels_a_call"] = launches_per_call(
+                    lambda: K.flat_adamw(bufs[0], g, bufs[1], bufs[2], s,
+                                         bufs[3]))
+                ok = ok and rec["kernels_a_call"] == 1
+            log("flat_adamw", **rec)
+            if not ok:
+                bad.append((i, net, n, norm))
     if bad:
-        raise AssertionError(f"flat_adamw kernel disagrees with plain: {bad}")
+        raise AssertionError(f"flat_adamw kernel disagrees with plain, reruns "
+                             f"differ or a call is not one launch: {bad}")
     return worst
 
 
@@ -1986,6 +2059,14 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
                            launches["emlp_block_backward"],
                            errs["emlp_block_backward"], bwd))
 
+    # the card's floor for one launch, beside K6's and K13's one launch a
+    # call: an empty kernel back to back, plain and in clusters of 16
+    floor = {f"{blocks}x{threads}_cluster{cl}": device_ms(
+        lambda: KF.empty_launch(blocks, threads, cl, device=dev), 200)[0]
+        for blocks, threads, cl in ((1, 32, 1), (16, 256, 16))}
+    log("kernels", kernel="launch_floor", what="an empty kernel, back to "
+        "back", ms=floor)
+
     # K6: per update each critic steps (with Polyak one update in three),
     # each actor one update in three (with Polyak)
     inst = []
@@ -2304,12 +2385,21 @@ def _k13_inputs(n, act, clip, gen, dev):
     return m, ls, a, lp_old, adv, hits
 
 
+K13_ROWS = (1, 127, 128, 129, 3723, 20000)
+
+
 def phase_ppo_loss(cfg, dev, agents, states, obs):
-    """K13 forward and backward vs its plain twin at the two
-    configurations' minibatches (128 and 3723 rows) of 4 and 1 actions on
-    ``_k13_inputs``' rows.  Tolerance 2e-5 of the largest plain entry
+    """K13 forward and backward vs its plain twin at ``K13_ROWS`` (the two
+    configurations' minibatches, 128 and 3723 rows, one row, a block's
+    edges and a count past one pass of the launch plan) of 4 and 1 actions
+    on ``_k13_inputs``' rows.  Tolerance 2e-5 of the largest plain entry
     (-fmad=false: the per-row arithmetic rounds as the twin's; the sums
-    over rows go in another order); every bound must hold tie rows.  Then
+    over rows go in another order); every bound must hold tie rows (from
+    16 rows on).  Each call is run twice and compared bitwise, and at the
+    minibatches' rows a forward and a backward call must each launch
+    exactly one CUDA kernel (the profiler's trace), and there 4-action rows
+    one float past an aligned base (loaded a float at a time) must give
+    the aligned call's outputs bitwise.  Then
     the actor loss's surrogate path at 128 rows (the actor over 3 x 128
     rows through K3/K4, K13 on the first 128) under autograd vs the
     structured network and the plain loss under torch autograd: value and
@@ -2322,32 +2412,63 @@ def phase_ppo_loss(cfg, dev, agents, states, obs):
     coef = torch.tensor(cfg.entropy_coef, device=dev)
     g = torch.tensor(1.0, device=dev)
     worst, bad = {"forward": 0.0, "backward": 0.0}, []
-    for n in (128, B * 50 // 55):
+    for n in K13_ROWS:
         for act in (4, 1):
             m, ls, a, lpo, adv, hits = _k13_inputs(n, act, clip, gen, dev)
-            lk = K.ppo_loss(m, ls, a, lpo, adv, coef, clip)
-            lp = K.ppo_loss_plain(m, ls, a, lpo, adv, coef, clip)
-            gmk, gsk = K.ppo_loss_backward(g, m, ls, a, lpo, adv, coef, clip)
-            gmp, gsp = K.ppo_loss_backward_plain(g, m, ls, a, lpo, adv, coef,
-                                                 clip)
+            args = (m, ls, a, lpo, adv, coef, clip)
+            lk = K.ppo_loss(*args)
+            lp = K.ppo_loss_plain(*args)
+            gmk, gsk = K.ppo_loss_backward(g, *args)
+            gmp, gsp = K.ppo_loss_backward_plain(g, *args)
+            again = [K.ppo_loss(*args), *K.ppo_loss_backward(g, *args)]
+            torch.cuda.synchronize()
+            rerun = _bitwise([lk, gmk, gsk], again)
             ratio = K._ratio(m, ls, a, lpo)[0]
             checks = {"loss": _err_rel(lk, lp, 2e-5),
                       "g_mean": _err_rel(gmk, gmp, 2e-5),
                       "g_log_std": _err_rel(gsk, gsp, 2e-5)}
-            log("ppo_loss", rows=n, act=act, loss=float(lp),
-                ratio_below=int((ratio < 1 - clip).sum()),
-                ratio_inside=int(((ratio > 1 - clip) & (ratio < 1 + clip))
-                                 .sum()),
-                ratio_above=int((ratio > 1 + clip).sum()),
-                rows_at_bound={str(k): v for k, v in hits.items()},
-                max_abs_err={k: c[0] for k, c in checks.items()})
+            rec = dict(rows=n, act=act, plan=list(K.ppo_loss_plan(n)),
+                       loss=float(lp),
+                       ratio_below=int((ratio < 1 - clip).sum()),
+                       ratio_inside=int(((ratio > 1 - clip)
+                                         & (ratio < 1 + clip)).sum()),
+                       ratio_above=int((ratio > 1 + clip).sum()),
+                       rows_at_bound={str(k): v for k, v in hits.items()},
+                       max_abs_err={k: c[0] for k, c in checks.items()},
+                       rerun_bitwise=rerun)
+            if n in (128, B * 50 // 55):
+                rec["kernels_a_call"] = [
+                    launches_per_call(lambda: K.ppo_loss(*args)),
+                    launches_per_call(lambda: K.ppo_loss_backward(g, *args))]
+                if rec["kernels_a_call"] != [1, 1]:
+                    bad.append((n, act, "kernels a call",
+                                rec["kernels_a_call"]))
+            log("ppo_loss", **rec)
             for k, (d, tol, fin) in checks.items():
                 side = "forward" if k == "loss" else "backward"
                 worst[side] = max(worst[side], d)
                 if not (d <= tol and fin):
                     bad.append((n, act, k, d, tol))
-            if act == 1 and not all(hits.values()):
+            if not rerun:
+                bad.append((n, act, "rerun differs"))
+            if act == 1 and n >= 16 and not all(hits.values()):
                 bad.append((n, act, "no rows at a clip bound", hits))
+            if n in (128, 3723) and act == 4:
+                # the same rows one float past an aligned base: the row
+                # loads go a float at a time, the numbers stay the same
+                def shifted(t):
+                    buf = torch.empty(t.numel() + 1, device=dev)
+                    buf[1:].copy_(t.reshape(-1))
+                    return buf[1:].view(t.shape)
+                sargs = (shifted(m), ls, shifted(a), shifted(lpo), adv, coef,
+                         clip)
+                same = _bitwise([lk, gmk, gsk],
+                                [K.ppo_loss(*sargs),
+                                 *K.ppo_loss_backward(g, *sargs)])
+                log("ppo_loss", rows=n, act=act, rows_misaligned=True,
+                    bitwise_aligned=same)
+                if not same:
+                    bad.append((n, act, "misaligned rows differ"))
 
     for i, (agent, st) in enumerate(zip(agents, states)):
         mb = 128
@@ -4277,7 +4398,7 @@ def main():
     states = [a.init(gen) for a in agents]
     errs["emlp_block"], errs["emlp_block_backward"] = phase_emlp_block(
         cfg, dev, agents, states, obs)
-    errs["flat_adamw"] = phase_flat_adamw(cfg, dev, agents)
+    errs["flat_adamw"] = phase_flat_adamw(cfg, dev, agents, edges=True)
     errs["spectral"] = phase_spectral(cfg, dev, agents, states,
                                       every_learner=True)
     sac_agents, _, errs["sac_actor"] = phase_sac_actor(cfg, dev, obs)

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries go to
 ``kernels/build/`` (git-ignored), named by a hash of the source, the
-generated headers and the flags, so a changed source rebuilds and an
-unchanged one loads at once.  ``build_all`` starts one ``nvcc`` per source
+``csrc/*.cuh`` headers it includes, the generated headers and the flags,
+so a changed source rebuilds and an unchanged one loads at once.  ``build_all`` starts one ``nvcc`` per source
 at the same time.
 """
 from __future__ import annotations
@@ -44,7 +44,10 @@ class KernelSource:
         return CSRC / f"{self.name}.cu"
 
     def _key(self, headers: Dict[str, str]) -> str:
-        h = hashlib.sha256(self.source.read_bytes())
+        text = self.source.read_bytes()
+        h = hashlib.sha256(text)
+        for inc in re.findall(rb'#include "(\w+\.cuh)"', text):
+            h.update((CSRC / inc.decode()).read_bytes())
         for k in sorted(headers):
             h.update(k.encode() + headers[k].encode())
         h.update(" ".join(ARCH + BASE_FLAGS + self.flags).encode())

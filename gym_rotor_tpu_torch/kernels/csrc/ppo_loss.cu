@@ -28,33 +28,93 @@
 // actions: mean, a, lp_old (12 A bytes) and adv read; at the 4096-env
 // configuration's 3723-row minibatch of 4 actions, ~0.19 MB, ~0.06 us; the
 // backward adds g_mean's 4 A bytes a row.  ~15 flops an element.  The
-// launches dominate at these sizes.
+// launch itself dominates at these sizes.
 //
-// Design: one thread per row, the row's A elements unrolled (A a template
-// parameter); the sums over rows (the loss, and g_ls per action) are
-// per-block partials in a fixed tree order, added in block order by a
-// one-block second launch, so a run repeats its numbers.  The backward
+// Design: one launch a call.  Thread q of the launch takes rows q, q + S,
+// ... (S its threads, R rows a thread: the plan,
+// kernels/ppo_loss.py:ppo_loss_plan), the row's A elements unrolled (A a
+// template parameter); each thread adds its rows' terms in row order, a
+// warp butterfly and then the same butterfly over the block's warps sum the
+// block, and past one block a thread-block cluster of C blocks adds the
+// blocks' sums in rank order through distributed shared memory in block 0,
+// which writes the loss (-sum / B) or g_log_std: a fixed order, so a run
+// repeats its numbers, with no second launch and no scratch.  The backward
 // recomputes the row's forward from its inputs.  Built with -fmad=false so
 // the products and sums round as the plain twin's torch ops do.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cluster.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 1024;
 constexpr float kHalfLog2Pi = 0.91893853320467274f;
 constexpr float kHalfLog2PiE = 1.41893853320467274f;
 
-__device__ float block_sum(float v, float* buf) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
-    __syncthreads();
+// The sums of v[j] (j < W) over the block, then (CLUSTER) over the
+// cluster's blocks in block 0: a warp butterfly, the block's warps' sums by
+// the same butterfly (in every warp), then the blocks' in rank order (the
+// same butterfly) once each block's warp 0 has pushed its sums into block
+// 0, whose `bar` counts the bytes of the C pushes (cluster.cuh's
+// protocol).  True in the threads that hold the sums in out (every thread
+// of block 0); the other blocks may exit.
+template <int W, bool CLUSTER>
+__device__ __forceinline__ bool cluster_sums(float (&v)[W], float (&out)[W],
+                                             unsigned long long* bar) {
+  __shared__ float warp_part[W][32];
+  __shared__ float slot[W][cluster::kMaxSize];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  cluster::warp_sums<W>(v);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) warp_part[j][warp] = v[j];
   }
-  const float total = buf[0];
   __syncthreads();
-  return total;
+  cluster::lanes_sums<W>(&warp_part[0][0], 32, blockDim.x >> 5, out);
+  if (!CLUSTER) return true;
+  cluster::wait();                     // every block runs, bar initialised
+  if (warp == 0 && lane == 0) {
+    const unsigned rank = cluster::rank();
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      cluster::store_async(&slot[j][rank], bar, 0u, out[j]);
+  }
+  if (blockIdx.x != 0) return false;
+  cluster::mbar_wait(bar);
+  cluster::lanes_sums<W>(&slot[0][0], cluster::kMaxSize, gridDim.x, out);
+  return true;
+}
+
+// A row of A floats: with VEC one 16- or 8-byte access for A = 4 or 2
+// (dispatch() sets VEC where every row is that aligned), else A scalar ones.
+template <int A, bool VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         float (&x)[A]) {
+  if constexpr (VEC && A == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (VEC && A == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = v.x; x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < A; ++j) x[j] = __ldg(p + j);
+  }
+}
+
+// g_mean's row: the wrapper allocates g_mean, so its rows are aligned.
+template <int A>
+__device__ __forceinline__ void store_row(float* __restrict__ p,
+                                          const float (&x)[A]) {
+  if constexpr (A == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (A == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < A; ++j) p[j] = x[j];
+  }
 }
 
 // The row's forward: z_j, ratio, s1, s2 and the clip's inner maximum.
@@ -64,19 +124,23 @@ struct Row {
   float ratio, s1, s2, m1;
 };
 
-template <int A>
+template <int A, bool VEC>
 __device__ Row<A> row_forward(const float* mean, const float* ls,
                               const float* act, const float* lp_old,
                               float adv, float lo, float hi) {
   Row<A> w;
+  float m[A], a[A], lo_[A];
+  load_row<A, VEC>(mean, m);
+  load_row<A, VEC>(act, a);
+  load_row<A, VEC>(lp_old, lo_);
   float s = 0.0f, so = 0.0f;
 #pragma unroll
   for (int j = 0; j < A; ++j) {
     w.sd[j] = expf(ls[j]);
-    w.z[j] = (act[j] - mean[j]) / w.sd[j];
+    w.z[j] = (a[j] - m[j]) / w.sd[j];
     const float lp = -0.5f * (w.z[j] * w.z[j]) - ls[j] - kHalfLog2Pi;
     s += lp;
-    so += lp_old[j];
+    so += lo_[j];
   }
   w.ratio = expf(s - so);
   w.s1 = w.ratio * adv;
@@ -85,16 +149,20 @@ __device__ Row<A> row_forward(const float* mean, const float* ls,
   return w;
 }
 
-template <int A>
-__global__ void __launch_bounds__(kThreads)
+template <int A, bool VEC, bool CLUSTER>
+__global__ void __launch_bounds__(kMaxThreads)
 ppo_loss_fwd_kernel(const float* __restrict__ mean,
                     const float* __restrict__ log_std,
                     const float* __restrict__ act,
                     const float* __restrict__ lp_old,
                     const float* __restrict__ adv,
-                    const float* __restrict__ coef, int B, float lo, float hi,
-                    float* __restrict__ partial) {
-  __shared__ float buf[kThreads];
+                    const float* __restrict__ coef, int B, int R, float lo,
+                    float hi, float* __restrict__ loss) {
+  __shared__ unsigned long long bar;
+  if (CLUSTER) {
+    if (threadIdx.x == 0) cluster::mbar_init(&bar, 4 * gridDim.x);
+    cluster::arrive_relaxed();
+  }
   float ls[A];
   float ent = 0.0f;
 #pragma unroll
@@ -102,99 +170,127 @@ ppo_loss_fwd_kernel(const float* __restrict__ mean,
     ls[j] = log_std[j];
     ent += ls[j] + kHalfLog2PiE;
   }
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  float term = 0.0f;
-  if (r < B) {
-    const size_t o = (size_t)r * A;
-    const Row<A> w = row_forward<A>(mean + o, ls, act + o, lp_old + o,
-                                    adv[r], lo, hi);
-    term = fminf(w.s1, w.s2) + coef[0] * ent;
+  const float cf = coef[0];
+  const int S = gridDim.x * blockDim.x;
+  float acc[1] = {0.0f};
+  for (int k = 0, r = blockIdx.x * blockDim.x + threadIdx.x; k < R;
+       ++k, r += S) {
+    if (r < B) {
+      const size_t o = (size_t)r * A;
+      const Row<A> w = row_forward<A, VEC>(mean + o, ls, act + o,
+                                           lp_old + o, adv[r], lo, hi);
+      acc[0] += fminf(w.s1, w.s2) + cf * ent;
+    }
   }
-  const float s = block_sum(term, buf);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
+  float sum[1];
+  if (cluster_sums<1, CLUSTER>(acc, sum, &bar) && threadIdx.x == 0)
+    loss[0] = -(sum[0] / (float)B);
 }
 
-template <int A>
-__global__ void __launch_bounds__(kThreads)
+template <int A, bool VEC, bool CLUSTER>
+__global__ void __launch_bounds__(kMaxThreads)
 ppo_loss_bwd_kernel(const float* __restrict__ mean,
                     const float* __restrict__ log_std,
                     const float* __restrict__ act,
                     const float* __restrict__ lp_old,
                     const float* __restrict__ adv,
                     const float* __restrict__ coef,
-                    const float* __restrict__ g, int B, float lo, float hi,
-                    float* __restrict__ g_mean, float* __restrict__ partial) {
-  __shared__ float buf[kThreads];
+                    const float* __restrict__ g, int B, int R, float lo,
+                    float hi, float* __restrict__ g_mean,
+                    float* __restrict__ g_log_std) {
+  __shared__ unsigned long long bar;
+  if (CLUSTER) {
+    if (threadIdx.x == 0) cluster::mbar_init(&bar, 4 * A * gridDim.x);
+    cluster::arrive_relaxed();
+  }
   float ls[A];
 #pragma unroll
   for (int j = 0; j < A; ++j) ls[j] = log_std[j];
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  float gls[A];
+  const float gt = -g[0] / (float)B;
+  const float g_ent = gt * coef[0];
+  const int S = gridDim.x * blockDim.x;
+  float acc[A];
 #pragma unroll
-  for (int j = 0; j < A; ++j) gls[j] = 0.0f;
-  if (r < B) {
-    const size_t o = (size_t)r * A;
-    const float ad = adv[r];
-    const Row<A> w = row_forward<A>(mean + o, ls, act + o, lp_old + o, ad,
-                                    lo, hi);
-    const float gt = -g[0] / (float)B;
-    const float w1 = w.s1 < w.s2 ? 1.0f : (w.s1 == w.s2 ? 0.5f : 0.0f);
-    const float w2 = w.s2 < w.s1 ? 1.0f : (w.s1 == w.s2 ? 0.5f : 0.0f);
-    const float c_hi = w.m1 < hi ? 1.0f : (w.m1 == hi ? 0.5f : 0.0f);
-    const float c_lo = w.ratio > lo ? 1.0f : (w.ratio == lo ? 0.5f : 0.0f);
-    const float g_m1 = gt * w2 * ad * c_hi;
-    const float g_ratio = gt * w1 * ad + g_m1 * c_lo;
-    const float g_s = g_ratio * w.ratio;
-    const float g_ent = gt * coef[0];
+  for (int j = 0; j < A; ++j) acc[j] = 0.0f;
+  for (int k = 0, r = blockIdx.x * blockDim.x + threadIdx.x; k < R;
+       ++k, r += S) {
+    if (r < B) {
+      const size_t o = (size_t)r * A;
+      const float ad = adv[r];
+      const Row<A> w = row_forward<A, VEC>(mean + o, ls, act + o,
+                                           lp_old + o, ad, lo, hi);
+      const float w1 = w.s1 < w.s2 ? 1.0f : (w.s1 == w.s2 ? 0.5f : 0.0f);
+      const float w2 = w.s2 < w.s1 ? 1.0f : (w.s1 == w.s2 ? 0.5f : 0.0f);
+      const float c_hi = w.m1 < hi ? 1.0f : (w.m1 == hi ? 0.5f : 0.0f);
+      const float c_lo = w.ratio > lo ? 1.0f : (w.ratio == lo ? 0.5f : 0.0f);
+      const float g_m1 = gt * w2 * ad * c_hi;
+      const float g_ratio = gt * w1 * ad + g_m1 * c_lo;
+      const float g_s = g_ratio * w.ratio;
+      float gm[A];
 #pragma unroll
-    for (int j = 0; j < A; ++j) {
-      g_mean[o + j] = g_s * w.z[j] / w.sd[j];
-      gls[j] = g_s * (w.z[j] * w.z[j] - 1.0f) + g_ent;
+      for (int j = 0; j < A; ++j) {
+        // a zero numerator (a zero advantage, a clipped side) would send
+        // the division down its slow path; a zero over sd > 0 is that zero
+        gm[j] = g_s * w.z[j];
+        if (gm[j] != 0.0f) gm[j] = gm[j] / w.sd[j];
+        acc[j] += g_s * (w.z[j] * w.z[j] - 1.0f) + g_ent;
+      }
+      store_row<A>(g_mean + o, gm);
     }
   }
+  float sum[A];
+  if (cluster_sums<A, CLUSTER>(acc, sum, &bar) && threadIdx.x == 0) {
 #pragma unroll
-  for (int j = 0; j < A; ++j) {
-    const float s = block_sum(gls[j], buf);
-    if (threadIdx.x == 0) partial[(size_t)blockIdx.x * A + j] = s;
+    for (int j = 0; j < A; ++j) g_log_std[j] = sum[j];
   }
 }
 
-// One block: column j of the (n_blocks, width) partials summed in block
-// order; loss != 0 turns the forward's sum into -sum / B.
-__global__ void sum_partials_kernel(const float* __restrict__ partial,
-                                    int n_blocks, int width, int B,
-                                    int loss, float* __restrict__ out) {
-  const int j = threadIdx.x;
-  if (j >= width) return;
-  float s = 0.0f;
-  for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * width + j];
-  out[j] = loss ? -(s / (float)B) : s;
+template <int A, bool VEC, bool CLUSTER>
+cudaError_t launch_as(const float* mean, const float* log_std,
+                      const float* act, const float* lp_old,
+                      const float* adv, const float* coef, const float* g,
+                      int B, int C, int T, int R, float lo, float hi,
+                      float* out, float* g_mean, bool backward,
+                      cudaStream_t st) {
+  if (!CLUSTER) {
+    if (backward)
+      ppo_loss_bwd_kernel<A, VEC, false><<<1, T, 0, st>>>(
+          mean, log_std, act, lp_old, adv, coef, g, B, R, lo, hi, g_mean,
+          out);
+    else
+      ppo_loss_fwd_kernel<A, VEC, false><<<1, T, 0, st>>>(
+          mean, log_std, act, lp_old, adv, coef, B, R, lo, hi, out);
+    return cudaGetLastError();
+  }
+  if (backward)
+    return cluster::launch<ppo_loss_bwd_kernel<A, VEC, true>>(
+        C, T, C, st, mean, log_std, act, lp_old, adv, coef, g, B, R, lo, hi,
+        g_mean, out);
+  return cluster::launch<ppo_loss_fwd_kernel<A, VEC, true>>(
+      C, T, C, st, mean, log_std, act, lp_old, adv, coef, B, R, lo, hi, out);
 }
 
-template <int A>
-int launch(const float* mean, const float* log_std, const float* act,
-           const float* lp_old, const float* adv, const float* coef,
-           const float* g, int B, float lo, float hi, float* out,
-           float* g_mean, float* partial, bool backward, cudaStream_t st) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  if (backward)
-    ppo_loss_bwd_kernel<A><<<blocks, kThreads, 0, st>>>(
-        mean, log_std, act, lp_old, adv, coef, g, B, lo, hi, g_mean, partial);
-  else
-    ppo_loss_fwd_kernel<A><<<blocks, kThreads, 0, st>>>(
-        mean, log_std, act, lp_old, adv, coef, B, lo, hi, partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sum_partials_kernel<<<1, 32, 0, st>>>(partial, blocks, backward ? A : 1, B,
-                                        backward ? 0 : 1, out);
-  return (int)cudaGetLastError();
+template <int A, bool VEC>
+cudaError_t launch(const float* mean, const float* log_std, const float* act,
+                   const float* lp_old, const float* adv, const float* coef,
+                   const float* g, int B, int C, int T, int R, float lo,
+                   float hi, float* out, float* g_mean, bool backward,
+                   cudaStream_t st) {
+  return C == 1
+      ? launch_as<A, VEC, false>(mean, log_std, act, lp_old, adv, coef, g, B, C,
+                            T, R, lo, hi, out, g_mean, backward, st)
+      : launch_as<A, VEC, true>(mean, log_std, act, lp_old, adv, coef, g, B, C, T,
+                           R, lo, hi, out, g_mean, backward, st);
 }
 
 int dispatch(const void* mean, const void* log_std, const void* act,
              const void* lp_old, const void* adv, const void* coef,
-             const void* g, int B, int A, float lo, float hi, void* out,
-             void* g_mean, void* partial, bool backward, void* stream) {
-  if (B <= 0) return (int)cudaErrorInvalidValue;
+             const void* g, int B, int A, int C, int T, int R, float lo,
+             float hi, void* out, void* g_mean, bool backward, void* stream) {
+  if (B <= 0 || C < 1 || C > cluster::kMaxSize || (C & (C - 1)) != 0 ||
+      T < 32 || T % 32 != 0 || T > kMaxThreads || R < 1 ||
+      (long long)C * T * R < B)
+    return (int)cudaErrorInvalidConfiguration;
   const float* m = (const float*)mean;
   const float* s = (const float*)log_std;
   const float* a = (const float*)act;
@@ -204,13 +300,18 @@ int dispatch(const void* mean, const void* log_std, const void* act,
   const float* gg = (const float*)g;
   float* y = (float*)out;
   float* gm = (float*)g_mean;
-  float* p = (float*)partial;
   cudaStream_t st = (cudaStream_t)stream;
+  // rows load as one vector where all three row arrays start on 4 A bytes
+  // (rows of A floats then stay so aligned); else a float at a time
+  const bool vec =
+      (((size_t)m | (size_t)a | (size_t)l) % (sizeof(float) * A)) == 0;
   switch (A) {
-    case 1: return launch<1>(m, s, a, l, d, c, gg, B, lo, hi, y, gm, p, backward, st);
-    case 2: return launch<2>(m, s, a, l, d, c, gg, B, lo, hi, y, gm, p, backward, st);
-    case 3: return launch<3>(m, s, a, l, d, c, gg, B, lo, hi, y, gm, p, backward, st);
-    case 4: return launch<4>(m, s, a, l, d, c, gg, B, lo, hi, y, gm, p, backward, st);
+    case 1: return (int)launch<1, false>(m, s, a, l, d, c, gg, B, C, T, R, lo, hi, y, gm, backward, st);
+    case 2: return vec ? (int)launch<2, true>(m, s, a, l, d, c, gg, B, C, T, R, lo, hi, y, gm, backward, st)
+                       : (int)launch<2, false>(m, s, a, l, d, c, gg, B, C, T, R, lo, hi, y, gm, backward, st);
+    case 3: return (int)launch<3, false>(m, s, a, l, d, c, gg, B, C, T, R, lo, hi, y, gm, backward, st);
+    case 4: return vec ? (int)launch<4, true>(m, s, a, l, d, c, gg, B, C, T, R, lo, hi, y, gm, backward, st)
+                       : (int)launch<4, false>(m, s, a, l, d, c, gg, B, C, T, R, lo, hi, y, gm, backward, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -221,27 +322,26 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-extern "C" int ppo_loss_rows_per_block() { return kThreads; }
-
 // mean, act, lp_old: (B, A); log_std: (A,); adv: (B,); coef: one float;
-// loss: one float; partial: ceil(B / rows_per_block) floats.
+// loss: one float.  The plan: C blocks (one cluster when C > 1) of T
+// threads, R rows a thread (C T R >= B).
 extern "C" int ppo_loss_fwd_launch(const void* mean, const void* log_std,
                                    const void* act, const void* lp_old,
                                    const void* adv, const void* coef, int B,
-                                   int A, float lo, float hi, void* loss,
-                                   void* partial, void* stream) {
-  return dispatch(mean, log_std, act, lp_old, adv, coef, nullptr, B, A, lo,
-                  hi, loss, nullptr, partial, false, stream);
+                                   int A, int C, int T, int R, float lo,
+                                   float hi, void* loss, void* stream) {
+  return dispatch(mean, log_std, act, lp_old, adv, coef, nullptr, B, A, C, T,
+                  R, lo, hi, loss, nullptr, false, stream);
 }
 
 // As the forward, plus g (one float, the loss's cotangent); g_mean: (B, A);
-// g_log_std: (A,); partial: ceil(B / rows_per_block) * A floats.
+// g_log_std: (A,).
 extern "C" int ppo_loss_bwd_launch(const void* mean, const void* log_std,
                                    const void* act, const void* lp_old,
                                    const void* adv, const void* coef,
-                                   const void* g, int B, int A, float lo,
-                                   float hi, void* g_mean, void* g_log_std,
-                                   void* partial, void* stream) {
-  return dispatch(mean, log_std, act, lp_old, adv, coef, g, B, A, lo, hi,
-                  g_log_std, g_mean, partial, true, stream);
+                                   const void* g, int B, int A, int C, int T,
+                                   int R, float lo, float hi, void* g_mean,
+                                   void* g_log_std, void* stream) {
+  return dispatch(mean, log_std, act, lp_old, adv, coef, g, B, A, C, T, R, lo,
+                  hi, g_log_std, g_mean, true, stream);
 }

@@ -17,14 +17,19 @@ the parameters bumps its explicit version counter after the call
 (``models/emlp/zoo.py``, ``param_version``).
 
 What bounds it on an H100: the bytes (~32 B per element, ~2 MB for the
-largest network: ~0.6 us at 3.35 TB/s); at these sizes the two launches
-dominate.
+largest network: ~0.6 us at 3.35 TB/s); at these sizes the launch itself
+dominates.  So a clipped step is one launch: ``flat_adamw_plan(n)`` spreads
+the vector over thread-block clusters, each of which sums the whole
+gradient's squares in one fixed order (its blocks' sums meeting in
+distributed shared memory) and updates its own share; the unclipped step is
+one thread an element.  No scratch memory.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +37,40 @@ from .build import KernelSource, check
 
 KERNEL = KernelSource("flat_adamw", ["-fmad=false"])
 WRAPPERS = {"flat_adamw": "flat_adamw_plain"}
+MAX_CLUSTER = 16       # blocks a cluster (Hopper's largest, non-portable)
+MAX_CLUSTERS = 8       # clusters (or solo blocks), each reading all of g
+BLOCK_THREADS = 256
+SOLO_ELEMS = 2048      # up to here, blocks of their own: no cluster
+MAX_N = 1 << 30        # the kernel's int indexing
+
+
+class FlatAdamWPlan(NamedTuple):
+    """The clipped launch's shape: ``clusters`` of ``cluster`` blocks of
+    ``threads`` threads; thread ``q`` of cluster ``c`` owns slots
+    ``[c per_thread, (c + 1) per_thread)``, slot ``k`` being element
+    ``q + k cluster threads``."""
+    clusters: int
+    cluster: int
+    threads: int
+    per_thread: int
+
+
+@functools.lru_cache(maxsize=None)
+def flat_adamw_plan(n: int) -> FlatAdamWPlan:
+    """One element a thread in blocks of ``BLOCK_THREADS`` (fewer, a
+    multiple of 32, for a small vector): up to ``SOLO_ELEMS`` elements in
+    blocks of their own, past that in clusters of ``MAX_CLUSTER``; blocks
+    double their threads (to 1024) while more than ``MAX_CLUSTERS``
+    clusters would be needed, and past that a thread takes more slots.
+    Depends on ``n`` alone, so a rerun sums in the same order."""
+    if n < 1:
+        raise ValueError(f"flat_adamw_plan: n must be positive, got {n}")
+    T = min(BLOCK_THREADS, 32 * -(-n // 32))
+    C = 1 if n <= SOLO_ELEMS else MAX_CLUSTER
+    while T < 1024 and C * T * MAX_CLUSTERS < n:
+        T *= 2
+    G = min(MAX_CLUSTERS, -(-n // (C * T)))
+    return FlatAdamWPlan(G, C, T, -(-n // (G * C * T)))
 
 
 @dataclass(frozen=True)
@@ -55,10 +94,11 @@ def _lib():
     lib = KERNEL.load()
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flat_adamw_launch.argtypes = [P, P, P, P, P, I, P] + [F] * 12 + [P]
+        lib.flat_adamw_launch.argtypes = [P, P, P, P, P] + [I] * 5 \
+            + [F] * 12 + [P]
         lib.flat_adamw_launch.restype = I
-        lib.flat_adamw_partials.argtypes = [I]
-        lib.flat_adamw_partials.restype = I
+        lib.empty_launch.argtypes = [I, I, I, P]
+        lib.empty_launch.restype = I
         lib._typed = True
     return lib
 
@@ -90,22 +130,22 @@ def _check(name, t, n, device):
 def flat_adamw(p, g, mu, nu, s: StepScalars,
                target: Optional[torch.Tensor] = None):
     """One optimizer step on a flat parameter vector, in place.  CPU tensors
-    -> ``flat_adamw_plain``; CUDA tensors -> the kernel (float32), or an
-    error."""
+    -> ``flat_adamw_plain``; CUDA tensors -> one launch of the kernel
+    (float32), or an error."""
     if not p.is_cuda:
         return flat_adamw_plain(p, g, mu, nu, s, target)
     n, dev = p.numel(), p.device
-    if n == 0:
-        raise ValueError("flat_adamw: empty parameter vector")
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"flat_adamw: the vector must hold 1 to {MAX_N} "
+                         f"elements, got {n}")
     for name, t in (("params", p), ("grad", g), ("mu", mu), ("nu", nu)) + \
             ((("target", target),) if target is not None else ()):
         _check(name, t, n, dev)
     lib = _lib()
-    partial = torch.empty(lib.flat_adamw_partials(n), dtype=torch.float32,
-                          device=dev)
+    plan = flat_adamw_plan(n)
     err = lib.flat_adamw_launch(
         p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-        None if target is None else target.data_ptr(), n, partial.data_ptr(),
+        None if target is None else target.data_ptr(), n, *plan,
         -1.0 if s.max_norm is None else s.max_norm, s.b1, 1 - s.b1, s.b2,
         1 - s.b2, s.eps, s.wd, s.bc1, s.bc2, s.step, s.tau, 1.0 - s.tau,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -114,3 +154,14 @@ def flat_adamw(p, g, mu, nu, s: StepScalars,
 
 
 flat_adamw.launches = 0
+
+
+def empty_launch(blocks: int, threads: int, cluster: int = 1, device=None):
+    """One launch of an empty kernel (in clusters of ``cluster`` blocks when
+    above 1) on ``device``'s current stream: the card's floor for a launch.
+    Not counted as a K6 launch."""
+    lib = _lib()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    check(lib.empty_launch(blocks, threads, cluster,
+                           torch.cuda.current_stream(dev).cuda_stream),
+          lib, "empty_launch")

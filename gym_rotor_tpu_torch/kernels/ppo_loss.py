@@ -18,11 +18,17 @@ rows, in a fixed order on the card.  The entropy coefficient and the
 cotangent stay on the device (0-d tensors the kernel reads).
 
 What bounds it on an H100: the bytes (~0.19 MB at a 3723-row minibatch of
-4 actions, ~0.06 us); the launches dominate.  One thread per row.
+4 actions, ~0.06 us); the launch itself dominates.  So each direction is
+one launch: ``ppo_loss_plan(B)`` gives one block up to ``BLOCK_ROWS`` rows
+and past that one thread-block cluster, whose blocks' sums meet in
+distributed shared memory, a thread a row (more rows a thread past one
+pass).  No scratch memory.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,19 +39,44 @@ KERNEL = KernelSource("ppo_loss", ["-fmad=false"])
 WRAPPERS = {"ppo_loss": "ppo_loss_plain",
             "ppo_loss_backward": "ppo_loss_backward_plain"}
 MAX_ACT = 4
+MAX_CLUSTER = 16       # blocks a cluster (Hopper's largest, non-portable)
+MAX_THREADS = 1024
+BLOCK_ROWS = 256       # rows a block aims at
+MAX_ROWS = 1 << 26
+
+
+class PPOLossPlan(NamedTuple):
+    """``cluster`` blocks (one cluster when above 1) of ``threads``; thread
+    ``q`` takes rows ``q, q + S, ...`` (``S = cluster threads``),
+    ``rows_per_thread`` of them."""
+    cluster: int
+    threads: int
+    rows_per_thread: int
+
+
+@functools.lru_cache(maxsize=None)
+def ppo_loss_plan(B: int) -> PPOLossPlan:
+    """One block up to ``BLOCK_ROWS`` rows (a multiple of 32 threads);
+    beyond, a power-of-two cluster of up to ``MAX_CLUSTER`` blocks of about
+    ``BLOCK_ROWS`` rows each, threads growing to 1024 and then rows a
+    thread.  Depends on ``B`` alone, so a rerun sums in the same order."""
+    if B < 1:
+        raise ValueError(f"ppo_loss_plan: B must be positive, got {B}")
+    C = 1
+    while C < MAX_CLUSTER and C * BLOCK_ROWS < B:
+        C *= 2
+    T = min(MAX_THREADS, 32 * -(-B // (32 * C)))
+    return PPOLossPlan(C, T, -(-B // (C * T)))
 
 
 def _lib():
     lib = KERNEL.load()
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ppo_loss_rows_per_block.argtypes = []
-        lib.ppo_loss_rows_per_block.restype = I
-        lib.ppo_loss_fwd_launch.argtypes = [P, P, P, P, P, P, I, I, F, F, P,
-                                            P, P]
+        lib.ppo_loss_fwd_launch.argtypes = [P] * 6 + [I] * 5 + [F, F, P, P]
         lib.ppo_loss_fwd_launch.restype = I
-        lib.ppo_loss_bwd_launch.argtypes = [P, P, P, P, P, P, P, I, I, F, F,
-                                            P, P, P, P]
+        lib.ppo_loss_bwd_launch.argtypes = [P] * 7 + [I] * 5 + [F, F, P, P,
+                                                                P]
         lib.ppo_loss_bwd_launch.restype = I
         lib._typed = True
     return lib
@@ -114,9 +145,10 @@ def _check(name, t, shape, device):
 
 def _checked(mean, log_std, act, lp_old, adv, coef):
     if mean.dim() != 2 or not 1 <= mean.shape[1] <= MAX_ACT \
-            or mean.shape[0] == 0:
-        raise ValueError(f"ppo_loss: mean must be (B, act) with B > 0 and "
-                         f"act <= {MAX_ACT}, got {tuple(mean.shape)}")
+            or not 0 < mean.shape[0] <= MAX_ROWS:
+        raise ValueError(f"ppo_loss: mean must be (B, act) with 0 < B <= "
+                         f"{MAX_ROWS} and act <= {MAX_ACT}, got "
+                         f"{tuple(mean.shape)}")
     B, A = int(mean.shape[0]), int(mean.shape[1])
     dev = mean.device
     for name, t, shape in (("mean", mean, (B, A)), ("act", act, (B, A)),
@@ -131,22 +163,19 @@ def _checked(mean, log_std, act, lp_old, adv, coef):
 
 
 def ppo_loss(mean, log_std, act, lp_old, adv, coef, clip_rate: float):
-    """Forward.  CPU tensors -> ``ppo_loss_plain``; CUDA tensors -> one call
-    of the kernel (float32, act <= 4; the row grid, then the one-block
-    sum), or an error.  Returns the 0-d loss."""
+    """Forward.  CPU tensors -> ``ppo_loss_plain``; CUDA tensors -> one
+    launch of the kernel (float32, act <= 4), or an error.  Returns the 0-d
+    loss."""
     if not mean.is_cuda:
         return ppo_loss_plain(mean, log_std, act, lp_old, adv, coef,
                               clip_rate)
     B, A, dev, ls = _checked(mean, log_std, act, lp_old, adv, coef)
     lib = _lib()
-    rows = lib.ppo_loss_rows_per_block()
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    partial = torch.empty((B + rows - 1) // rows, dtype=torch.float32,
-                          device=dev)
     err = lib.ppo_loss_fwd_launch(
         mean.data_ptr(), ls.data_ptr(), act.data_ptr(), lp_old.data_ptr(),
-        adv.data_ptr(), coef.data_ptr(), B, A, 1.0 - clip_rate,
-        1.0 + clip_rate, loss.data_ptr(), partial.data_ptr(),
+        adv.data_ptr(), coef.data_ptr(), B, A, *ppo_loss_plan(B),
+        1.0 - clip_rate, 1.0 + clip_rate, loss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "ppo_loss forward")
     ppo_loss.launches += 1
@@ -159,24 +188,22 @@ ppo_loss.launches = 0
 def ppo_loss_backward(g, mean, log_std, act, lp_old, adv, coef,
                       clip_rate: float):
     """Backward.  CPU tensors -> ``ppo_loss_backward_plain``; CUDA tensors
-    -> one call of the kernel, or an error.  Returns ``(g_mean, g_log_std)``
-    (``g_log_std`` in ``log_std``'s shape)."""
+    -> one launch of the kernel, or an error.  Returns ``(g_mean,
+    g_log_std)`` (``g_log_std`` in ``log_std``'s shape)."""
     if not mean.is_cuda:
         return ppo_loss_backward_plain(g, mean, log_std, act, lp_old, adv,
                                        coef, clip_rate)
     B, A, dev, ls = _checked(mean, log_std, act, lp_old, adv, coef)
     _check("g", g, (), dev)
     lib = _lib()
-    rows = lib.ppo_loss_rows_per_block()
     g_mean = torch.empty(B, A, dtype=torch.float32, device=dev)
     g_ls = torch.empty(A, dtype=torch.float32, device=dev)
-    partial = torch.empty(((B + rows - 1) // rows) * A, dtype=torch.float32,
-                          device=dev)
     err = lib.ppo_loss_bwd_launch(
         mean.data_ptr(), ls.data_ptr(), act.data_ptr(), lp_old.data_ptr(),
-        adv.data_ptr(), coef.data_ptr(), g.data_ptr(), B, A, 1.0 - clip_rate,
-        1.0 + clip_rate, g_mean.data_ptr(), g_ls.data_ptr(),
-        partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        adv.data_ptr(), coef.data_ptr(), g.data_ptr(), B, A,
+        *ppo_loss_plan(B), 1.0 - clip_rate, 1.0 + clip_rate,
+        g_mean.data_ptr(), g_ls.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "ppo_loss backward")
     ppo_loss_backward.launches += 1
     return g_mean, g_ls.reshape(log_std.shape)

@@ -2,15 +2,19 @@
 # An earlier commit against this tree on one CUDA device, in one process
 # tree: chip_smoke.py on this tree, then K1 and K2 write + K8 of both on
 # every instance and entry (tick_replay_vs_parent.py: bitwise outputs,
-# times in turns), then the superstep profiles of the TD3 flagship and of
-# PPO A (torch_train_profile.py, PPO A over 2 supersteps a window) and the
-# 4096-env acting rollout's (torch_rollout_profile.py), each side's process
-# in turn over ROUNDS rounds (parent, this tree; this tree, parent; ...).
+# times in turns), then K6 and K13 of both (optim_loss_vs_parent.py
+# --sweep: bitwise where the order of summation cannot show, one launch a
+# call, times in turns, other launch plans), then the superstep profiles
+# of the TD3 flagship and of PPO A (torch_train_profile.py, PPO A over 2
+# supersteps a window) and the 4096-env acting rollout's
+# (torch_rollout_profile.py), each side's process in turn over ROUNDS
+# rounds (parent, this tree; this tree, parent; ...).
 #
 #   scripts/compare_parent.sh PARENT_DIR OUT_DIR [ROUNDS]
 #
 # PARENT_DIR: a checkout of the earlier commit (git archive into a
-# git-ignored directory of the repo).  Writes smoke.log, vs_parent.log and
+# git-ignored directory of the repo).  Writes smoke.log, vs_parent.log,
+# vs_parent_optim_loss.log and
 # prof_<td3|ppoa|act>_<parent|change>_<round>.log under OUT_DIR; prints
 # each step's exit code.  Exits non-zero if any step failed.
 set -u
@@ -32,6 +36,8 @@ step() {  # step NAME DIR COMMAND...: run COMMAND in DIR into OUT/NAME.log
 step smoke "$HERE" python3 chip_smoke.py
 step vs_parent "$HERE" python3 scripts/tick_replay_vs_parent.py \
   --parent "$PARENT"
+step vs_parent_optim_loss "$HERE" python3 scripts/optim_loss_vs_parent.py \
+  --parent "$PARENT" --sweep
 for r in $(seq 1 "$ROUNDS"); do
   if [ $((r % 2)) -eq 1 ]; then order="parent change"; else order="change parent"; fi
   for side in $order; do
