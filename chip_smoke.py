@@ -5,7 +5,7 @@ check them.
 
 Phases (each prints its own line; any failure exits non-zero and prints no
 result line):
-  1. build      nvcc all nine kernel sources in parallel; print build time
+  1. build      nvcc all ten kernel sources in parallel; print build time
                 and the registers/spills ``-Xptxas -v`` reports; per K3/K4
                 instance the registers and spills of each kernel and the
                 dynamic shared memory of its launches; the same for the
@@ -79,7 +79,13 @@ result line):
                 reruns bitwise
  15. gae        K12 vs its plain twin at (T, B) = (218, 32), (50, 4096) and
                 (1, 7), dones inside the horizon; the TD targets (the scan)
-                and the normalisation checked apart
+                and the normalisation checked apart; then at the launch
+                plan's edges, T in (1, 50, 218, 7000) x B in (1, 31, 32,
+                33, 256, 257, 4096, 4097) (one CTA, the grid, tiles in
+                shared memory and streamed), and PPO B's horizon in one
+                cluster; every call rerun and compared bitwise, and at the
+                first three horizons one CUDA kernel a call (profiler
+                trace)
  16. ppo_loss   K13 forward and backward vs its plain twin at K13_ROWS (1,
                 127, 128, 129, 3723, 20 000) rows of 4 and 1 actions: ratios
                 inside and outside the clip range on both sides with both
@@ -150,9 +156,12 @@ result line):
                 13 952 and 409 600 rows saving lin and pre and without them
                 (every row, plain in 32 768-row chunks), and each
                 network's kernel path under autograd vs its structured
-                network; family_actors K9 and K11 at the MONO actor and
-                K11's head on the MLP PPO actors, at 4096, 32 and 10 rows,
-                train and eval modes, log_std past its clip bounds;
+                network; family_actors K9 and K11 at the MONO actor, at
+                4096, 32 and 10 rows, train and eval modes, log_std past its
+                clip bounds, and the fused MLP PPO actor (forward and K11's
+                head in one launch) at every MLP PPO agent shape, at 1, 10,
+                32 and 4096 rows, into column slices, one CUDA kernel a
+                call (profiler trace);
                 train_<config> / ppo_train: ``train`` for the twelve
                 configurations of ``FAMILY_CONFIGS`` (MATD3, CTDE SAC and
                 PPO with EMLP and MLP networks; SAC and PPO on Mod-MLP,
@@ -419,10 +428,10 @@ def count_flops(fn, *args):
 def _kernel_modules():
     from gym_rotor_tpu_torch.kernels import (emlp_actor, emlp_block,
                                              env_tick, flat_adamw, gae,
-                                             ppo_loss, replay, sac_sample,
-                                             spectral)
+                                             mlp_ppo_actor, ppo_loss, replay,
+                                             sac_sample, spectral)
     return [env_tick, emlp_actor, replay, emlp_block, flat_adamw, spectral,
-            sac_sample, gae, ppo_loss]
+            sac_sample, gae, ppo_loss, mlp_ppo_actor]
 
 
 def _wrappers():
@@ -861,18 +870,19 @@ def phase_rollout(cfg, dev, actors):
 def eval_kernel(cfg):
     """The kernel an actor of ``cfg`` launches per agent and eval tick:
     the deterministic head of K3 (TD3), K9 (SAC) or K11 (PPO) for EMLP;
-    K11's head for PPO's MLP actor; none for TD3's and SAC's MLP actors
+    the fused MLP PPO actor for PPO's MLP actor; none for TD3's and SAC's
+    MLP actors
     (``tanh`` of the ``F.linear`` chain)."""
     if cfg.use_equiv:
         return {"TD3": "emlp_actor", "SAC": "sac_actor",
                 "PPO": "ppo_actor"}[cfg.rl_algo]
-    return "ppo_head" if cfg.rl_algo == "PPO" else None
+    return "mlp_ppo_actor" if cfg.rl_algo == "PPO" else None
 
 
 def phase_eval(cfg, dev, actors, name="eval"):
     """``evaluate`` with ``actors`` (EMLP: one launch of K3's, K9's or
-    K11's deterministic head per agent and tick; MLP: torch ops, and K11's
-    head for PPO) on ``cfg.framework``'s task: launch counts, the success
+    K11's deterministic head per agent and tick; MLP: torch ops, and for
+    PPO one launch of the fused MLP actor) on ``cfg.framework``'s task: launch counts, the success
     column per agent (MONO: position only), finite rewards."""
     from gym_rotor_tpu_torch.envs.quad import DT
     from gym_rotor_tpu_torch.evaluate import evaluate
@@ -2310,33 +2320,67 @@ def phase_ppo_actor(cfg, dev, obs):
     return agents, states, worst
 
 
+GAE_PLAN_T = (1, 50, 218, 7000)
+GAE_PLAN_B = (1, 31, 32, 33, 256, 257, 4096, 4097)
+
+
+def _gae_inputs(T, nb, gen, dev):
+    v, nv, r = (torch.randn(T, nb, 1, generator=gen, device=dev)
+                for _ in range(3))
+    d = (torch.rand(T, nb, 1, generator=gen, device=dev) < 0.05).float()
+    return v, nv, r, d
+
+
 def phase_gae(cfg, dev):
     """K12 vs its plain twin on horizons of (T, B) = (218, 32) and (50,
     4096) (the two configurations) and (1, 7), with ~5% dones (the chain
     cut inside the horizon).  The scan alone through the TD targets
     (``adv + v`` before the normalisation), the normalisation alone by
     normalising the kernel's own raw advantages (``td - v``) in float64,
-    then the whole.  Tolerance 1e-5 max(1, max |plain|): float32 sums over
-    up to 204 800 entries in another order."""
+    then the whole; one CUDA kernel a call in a profiler trace.  Then the
+    launch plan's edges (``GAE_PLAN_T`` x ``GAE_PLAN_B``: one CTA and the
+    grid, tiles resident in shared memory and streamed through two chunk
+    buffers) and PPO B's horizon in one cluster of 16 CTAs.  Every call is
+    rerun: ``td`` and the advantages bitwise the first run's.  Tolerance
+    1e-5 max(1, max |plain|): float32 sums over up to 28.7 M entries in
+    another order."""
     from gym_rotor_tpu_torch.kernels import gae as K
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     worst, bad = 0.0, []
-    for T, nb in ((218, 32), (50, B), (1, 7)):
-        v, nv, r = (torch.randn(T, nb, 1, generator=gen, device=dev)
-                    for _ in range(3))
-        d = (torch.rand(T, nb, 1, generator=gen, device=dev) < 0.05).float()
-        ak, tk = K.gae(v, nv, r, d, cfg.discount, cfg.GAE_lambda)
-        ap, tp = K.gae_plain(v, nv, r, d, cfg.discount, cfg.GAE_lambda)
+    g, lam = cfg.discount, cfg.GAE_lambda
+    cases = [(T, nb, None) for T, nb in ((218, 32), (50, B), (1, 7))]
+    cases += [(T, nb, None) for T in GAE_PLAN_T for nb in GAE_PLAN_B]
+    cases.append((50, B, "cluster"))
+    for k, (T, nb, mode) in enumerate(cases):
+        v, nv, r, d = _gae_inputs(T, nb, gen, dev)
+        plan = K.gae_plan(T, nb, mode=mode)
+        if mode is None:
+            run = lambda: K.gae(v, nv, r, d, g, lam)      # noqa: E731
+        else:
+            def run():
+                adv, td = torch.empty_like(v), torch.empty_like(v)
+                K.gae_launch(v, nv, r, d, g, lam, adv, td, plan)
+                return adv, td
+        ak, tk = run()
+        ak2, tk2 = run()
+        ap, tp = K.gae_plain(v, nv, r, d, g, lam)
         checks = {"scan (td targets)": _err(tk, tp, 1e-5),
                   "normalisation": _err(ak, K.normalize_plain(
                       (tk - v).double()), 1e-5),
                   "advantages": _err(ak, ap, 1e-5)}
+        same = _bitwise([ak, tk], [ak2, tk2])
+        per_call = launches_per_call(run) if k < 3 else None
         worst = max([worst] + [c[0] for c in checks.values()])
-        log("gae", T=T, envs=nb, dones=int(d.sum()),
+        log("gae", T=T, envs=nb, plan=list(plan), dones=int(d.sum()),
             max_abs_err={k: c[0] for k, c in checks.items()},
-            adv_mean=float(ak.mean()), adv_std=float(ak.std()))
-        bad += [(T, nb, k, c[0]) for k, c in checks.items()
+            rerun_bitwise=same, kernels_a_call=per_call,
+            adv_mean=float(ak.mean()),
+            adv_std=float(ak.std()) if ak.numel() > 1 else 0.0)
+        bad += [(T, nb, mode, k, c[0]) for k, c in checks.items()
                 if not (c[0] <= c[1] and c[2])]
+        if not same or per_call not in (None, 1):
+            bad.append((T, nb, mode, "rerun or kernels a call", same,
+                        per_call))
     if bad:
         raise AssertionError(f"gae kernel disagrees with plain: {bad}")
     return worst
@@ -2618,7 +2662,8 @@ def expected_launches_ppo(cfg, agents, dev, first):
     minibatch the actor over 3 mb rows (2 blocks forward, 2 backward with
     the parameter sums), K13 forward and backward, K7 and K6; per critic
     minibatch the V critic (2 + 2), K7 and K6.  MLP networks launch no
-    block and no K7, and act through K11's head."""
+    block and no K7, and act through the fused MLP PPO actor, one launch
+    per agent and tick."""
     from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
     rl, T, na, mba, nc, mbc = _ppo_dims(cfg)
     n, K = cfg.n_agents, cfg.K_epochs
@@ -2627,8 +2672,8 @@ def expected_launches_ppo(cfg, agents, dev, first):
             "flat_adamw": n * K * (na + nc)}
     fwd, bwd = Counter(), Counter()
     if not cfg.use_equiv:
-        # MLP networks: F.linear chains, K11's head alone for acting, no K7
-        want["ppo_head"] = n * rl
+        # MLP networks: F.linear chains, the fused actor for acting, no K7
+        want["mlp_ppo_actor"] = n * rl
         return want, fwd, bwd
     want.update({"ppo_actor": n * rl,
                  "emlp_block": n * (2 + 2 * K * (na + nc)),
@@ -3177,22 +3222,25 @@ def phase_family_blocks(dev, obs_mod, obs_mono):
 
 
 def phase_family_actors(dev, obs_mod, obs_mono):
-    """K9 and K11 at the MONO actor (23, 18, 16, 4) and K11's head on the MLP
-    PPO actors (Mod-MLP agents 0 and 1, Mono-MLP) vs their plain twins, at
-    4096, 32 and 10 rows (train envs, PPO A's envs, eval envs; the actor kernel
-    also at 1, 31 and 33, each launch run twice and compared bitwise), in train
-    and eval modes, with SAC's log_std bias shifted by +-25 (every row at a
-    clip bound) and PPO's log_std by +-3; K11's head writes into column slices
-    of wider tensors, whose other columns must stay as they were. Tolerance
-    1e-5 on actions, 2e-5 max(1, max |plain|) on log-probs."""
+    """K9 and K11 at the MONO actor (23, 18, 16, 4) vs their plain twins, at
+    4096, 32 and 10 rows (train envs, PPO A's envs, eval envs) and at 1, 31
+    and 33, and the fused MLP PPO actor (Mod-MLP agents 0 and 1, Mono-MLP)
+    vs its twin (``actor_ppo_pre`` + ``ppo_head_plain``) at 1, 10, 32 and
+    4096 rows; each launch run twice and compared bitwise, in train and
+    eval modes, with SAC's log_std bias shifted by +-25 (every row at a clip
+    bound) and PPO's log_std by +-3; the fused actor writes into column
+    slices of wider tensors, whose other columns must stay as they were,
+    and launches one CUDA kernel a call (profiler trace). Tolerance 1e-5 on
+    actions, 2e-5 max(1, max |plain|) on log-probs."""
     from gym_rotor_tpu_torch.algos.ppo import PPOAgent
     from gym_rotor_tpu_torch.algos.sac import SACAgent
     from gym_rotor_tpu_torch.kernels import emlp_actor as K
-    from gym_rotor_tpu_torch.models.mlp import actor_ppo_pre
+    from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
     from gym_rotor_tpu_torch.utils.config import Config
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     init = torch.Generator().manual_seed(SEED)
-    worst = {"sac_actor_mono": 0.0, "ppo_actor_mono": 0.0, "ppo_head": 0.0}
+    worst = {"sac_actor_mono": 0.0, "ppo_actor_mono": 0.0,
+             "mlp_ppo_actor": 0.0}
     bad = []
     sac = SACAgent(Config(framework="MONO", rl_algo="SAC"), 0, dev)
     ppo = PPOAgent(Config(framework="MONO", rl_algo="PPO"), 0, dev)
@@ -3237,41 +3285,55 @@ def phase_family_actors(dev, obs_mod, obs_mono):
             param.copy_(saved)
         actor.bump_version()
 
-    # K11's head on the MLP PPO actors' mean heads
+    # the fused MLP PPO actors, bound to a learner's flat vector as they act
     for fam, kw, obs in (("mod_mlp", {}, obs_mod),
                          ("mono_mlp", dict(framework="MONO"), obs_mono)):
         cfg = Config(rl_algo="PPO", use_equiv=False, **kw)
         for i in range(cfg.n_agents):
             agent = PPOAgent(cfg, i, dev)
-            st = agent.init(init)
-            views = agent.actor_layout.views(st.actor)
+            actor = agent.bound_actor(agent.init(init))
             A = agent.action_dim
+            saved = actor.log_std.detach().clone()
             for shift in (0.0, 3.0, -3.0):
-                ls = (views["log_std"] + shift).contiguous()
-                for nb in (B, 32, 10):
-                    with torch.no_grad():
-                        pre = actor_ppo_pre(views, obs[i][:nb]).contiguous()
+                with torch.no_grad():
+                    actor.log_std.copy_(saved + shift)
+                for nb in (1, 10, 32, B):
+                    o = obs[i][:nb]
                     noise = torch.randn(nb, A, generator=gen, device=dev)
                     for mode, nz in (("train", noise), ("eval", None)):
-                        out = torch.full((nb, A + 2), 7.0, device=dev)
-                        lpo = torch.full((nb, A + 2), 7.0, device=dev)
-                        K.ppo_head(pre, ls, nz, out[:, 1:1 + A],
-                                   lpo[:, 1:1 + A], cfg.max_action)
-                        ap, lp = K.ppo_head_plain(pre, ls, nz, cfg.max_action)
+                        def fused():
+                            out = torch.full((nb, A + 2), 7.0, device=dev)
+                            lpo = torch.full((nb, A + 2), 7.0, device=dev)
+                            with torch.no_grad():
+                                actor(o, nz, out[:, 1:1 + A], lpo[:, 1:1 + A])
+                            return out, lpo
+                        (out, lpo), same = _twice(fused)
+                        with torch.no_grad():
+                            ap, lp = KM.mlp_ppo_actor_plain(actor, o, nz)
                         da = float((out[:, 1:1 + A] - ap).abs().max())
                         dl, tol, fin = _err(lpo[:, 1:1 + A], lp)
-                        kept = bool((out[:, 0] == 7).all()
-                                    and (out[:, -1] == 7).all()
-                                    and (lpo[:, 0] == 7).all()
-                                    and (lpo[:, -1] == 7).all())
-                        worst["ppo_head"] = max(worst["ppo_head"], da, dl)
-                        log("family_actors", kernel="ppo_head", config=fam,
-                            agent=i, batch=nb, mode=mode, log_std_shift=shift,
+                        kept = bool((out[:, [0, -1]] == 7).all()
+                                    and (lpo[:, [0, -1]] == 7).all())
+                        per_call = None
+                        if shift == 0.0 and nb in (32, B):
+                            with torch.no_grad():
+                                per_call = launches_per_call(
+                                    lambda: actor(o, nz, out[:, 1:1 + A],
+                                                  lpo[:, 1:1 + A]))
+                        worst["mlp_ppo_actor"] = max(worst["mlp_ppo_actor"],
+                                                     da, dl)
+                        log("family_actors", kernel="mlp_ppo_actor",
+                            config=fam, agent=i, dims=KM.actor_dims(actor),
+                            batch=nb, mode=mode, log_std_shift=shift,
                             clipped=float((ap.abs() == 1.0).float().mean()),
-                            max_abs_err=[da, dl], other_columns_kept=kept)
-                        if not (da <= 1e-5 and dl <= tol and fin and kept):
-                            bad.append(("ppo_head", fam, i, nb, mode, shift,
-                                        da, dl, kept))
+                            max_abs_err=[da, dl], other_columns_kept=kept,
+                            rerun_bitwise=same, kernels_a_call=per_call)
+                        if not (da <= 1e-5 and dl <= tol and fin and kept
+                                and same and per_call in (None, 1)):
+                            bad.append(("mlp_ppo_actor", fam, i, nb, mode,
+                                        shift, da, dl, kept, same, per_call))
+            with torch.no_grad():
+                actor.log_std.copy_(saved)
     if bad:
         raise AssertionError(f"new actor kernels disagree: {bad[:5]}")
     return worst
@@ -3281,10 +3343,10 @@ def phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
                          obs_mono):
     """One record per new instance: K3 and K4 at each new first block
     (weighted over its (rows) instances on the twelve runs), K9 and K11 at
-    the MONO actor, and K11's head; each with its launches on those runs,
+    the MONO actor, and the fused MLP PPO actor; each with its launches on
+    those runs,
     device time per launch, the plain twin's time and the bound."""
-    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
-    from gym_rotor_tpu_torch.models.mlp import actor_ppo_pre
+    from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     fwd, bwd = Counter(), Counter()
     run_fwd, run_bwd = Counter(), Counter()
@@ -3331,41 +3393,49 @@ def phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
                                actor_errs[kname],
                                [(1, *timing, None)]))
 
-    # K11's head at 4096 rows on each MLP PPO actor of the runs
+    # the fused MLP PPO actor at 4096 rows on each MLP PPO agent of the
+    # runs (their envs); at PPO A's 32, the eval's 10 and 1 row logged
     inst = []
     for name in ("ppo_ctde_mlp", "ppo_mod_mlp", "ppo_mono_mlp"):
         run = runs[name]
         obs = obs_mono if "mono" in name else obs_mod
         for i, (agent, st) in enumerate(zip(run["agents"], run["states"])):
-            views = agent.actor_layout.views(st.actor)
-            A = agent.action_dim
-            with torch.no_grad():
-                pre = actor_ppo_pre(views, obs[i]).contiguous()
-            ls = views["log_std"]
-            noise = torch.randn(B, A, generator=gen, device=dev)
-            k_ms, k_wall = device_ms(lambda: KA.ppo_head(pre, ls, noise), 100)
-            p_ms, _ = device_ms(lambda: KA.ppo_head_plain(pre, ls, noise), 50)
-            # pre and noise read, action and log-prob written; tanh, exp,
-            # the draw (2), the clip (2), z (2), its square and the log-prob
-            # (3): 12 flops an element
-            nbytes = 4 * (4 * B * A + A)
-            bms, by = bound_ms(nbytes, 12 * B * A)
-            inst.append((run["launches"].get("ppo_head", 0)
-                         / len(run["agents"]), k_ms, p_ms, bms, by, None))
-            log("kernels", kernel="ppo_head", config=name, agent=i,
-                rows=B, act=A, ms=k_ms, wall_ms_per_call=k_wall,
-                plain_ms=p_ms, bytes=nbytes, flops=12 * B * A, bound_ms=bms,
-                bound_by=by, library_ms=None)
-    records.append(_record("ppo_head", "emlp_actor.cu",
+            actor = agent.bound_actor(st)
+            nin, nh, A = KM.actor_dims(actor)
+            for nb in (B, 32, 10, 1):
+                o = obs[i][:nb]
+                noise = torch.randn(nb, A, generator=gen, device=dev)
+                with torch.no_grad():
+                    k_ms, k_wall = device_ms(lambda: actor(o, noise), 100)
+                    p_ms, _ = device_ms(
+                        lambda: KM.mlp_ppo_actor_plain(actor, o, noise), 50)
+                # obs and the draw read, action and log-prob written, the
+                # weights read once; per row the three layers' products and
+                # sums, biases and relus, and ~12 flops an action of the head
+                nbytes = 4 * (nb * (nin + 3 * A)
+                              + nin * nh + nh * nh + nh * A + 2 * nh + 2 * A)
+                flops = nb * (2 * (nin * nh + nh * nh + nh * A) + 4 * nh
+                              + 13 * A)
+                bms, by = bound_ms(nbytes, flops)
+                if nb == B:
+                    inst.append((run["launches"].get("mlp_ppo_actor", 0)
+                                 / len(run["agents"]), k_ms, p_ms, bms, by,
+                                 None))
+                log("kernels", kernel="mlp_ppo_actor", config=name, agent=i,
+                    dims=[nin, nh, A], rows=nb, ms=k_ms,
+                    wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+                    flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
+    records.append(_record("mlp_ppo_actor", "mlp_ppo_actor.cu",
                            "gym_rotor_tpu/algos/ppo.py:107",
-                           total.get("ppo_head", 0), actor_errs["ppo_head"],
-                           inst))
+                           total.get("mlp_ppo_actor", 0),
+                           actor_errs["mlp_ppo_actor"], inst))
     return records
 
 
 def phase_families(dev):
     """The rest of the learner matrix (phase 21): the new K3/K4, K9, K11
-    instances and K11's head vs their twins; ``train`` at full width for
+    instances and the fused MLP PPO actor vs their twins; ``train`` at full
+    width for
     each of the twelve configurations of ``FAMILY_CONFIGS`` (exact launch
     counts per superstep, K3/K4 per shape and rows, finite losses, moved
     parameters); ``evaluate`` with the trained actors of the five README

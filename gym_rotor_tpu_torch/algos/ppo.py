@@ -18,8 +18,9 @@ step one K6 call (no Polyak: PPO keeps no targets); the fold (K5), the
 tanh, clips, CAPS, L2 and mse are torch ops.  Acting is one K11 launch per
 agent and tick (``kernels/emlp_actor.py``), which writes the log-prob
 straight into the horizon.  MLP networks are ``F.linear`` chains; the MLP
-actor's acting draw is one launch of K11's head (``ppo_head``) on its mean
-head's output, and its loss goes through K13 as the EMLP actor's.
+actor's acting draw is one launch of its fused forward with K11's head
+(``kernels/mlp_ppo_actor.py``), and its loss goes through K13 as the EMLP
+actor's.
 
 The horizon (``HorizonBuffer``) is a K2 ring of exactly ``T * B`` rows,
 written each tick by ``replay.insert_tick`` with the K8 episode statistics
@@ -149,8 +150,8 @@ class PPOAgent(FlatAgent):
         noise)`` and the log-density of the clipped action with the N(0,
         1) draw ``noise``, or ``(clip(mean), zeros)`` without it
         (ppo.py:102-116); on the card one K11 launch (EMLP, folded once
-        per parameter version) or the MLP's ``F.linear`` chain and one
-        launch of K11's head, written into ``out`` and ``logp`` when
+        per parameter version) or one launch of the MLP actor's fused
+        forward with K11's head, written into ``out`` and ``logp`` when
         given."""
         actor = self.bound_actor(state)
         with torch.no_grad():

@@ -41,7 +41,8 @@ def joint_policy(actors: Sequence[torch.nn.Module]):
     (``train.py:193-206``): a TD3 actor's action, a SAC actor's
     ``tanh(mean)``, a PPO actor's ``clip(mean)``; for an EMLP actor one
     kernel launch on CUDA (K3, K9 or K11), for an MLP actor its
-    ``F.linear`` chain (and, PPO's, K11's head)."""
+    ``F.linear`` chain (PPO's: one launch of its fused forward with K11's
+    head)."""
     dims = [a.action_dim for a in actors]
 
     def act(obs):

@@ -1,10 +1,9 @@
 // K3 (forward, actor widths): fused deterministic EMLP actor, K9: the
 // fused SAC actor's acting sample, and K11: the fused PPO actor's acting
 // draw and its log-prob, for Hopper (sm_90a).  One block body, three heads
-// (a template parameter).  Beside them, K11's head alone (ppo_head_kernel)
-// for PPO's MLP actor, whose mean is an F.linear chain: the same device
-// function (ppo_head) as K11's epilogue, so the draw and the log-prob have
-// one source.
+// (a template parameter).  K11's epilogue is ppo_head.cuh's ppo::head,
+// which the MLP PPO actor's kernel (mlp_ppo_actor.cu) shares, so the draw
+// and the log-prob have one source.
 //
 // Replaces gym_rotor_tpu/models/emlp/nn.py:EMLPBlock (EquivLinear ->
 // EquivBiLinear -> GatedNonlinearity) x2 inside EMLP, plus the tanh head of
@@ -14,9 +13,7 @@
 // of models/emlp/zoo.py:EMLPActorPPO with the clipped draw and per-dim
 // log-prob of algos/ppo.py:107-116 choose_action_f (K11), which XLA fused
 // on the TPU.  Plain twins: gym_rotor_tpu_torch/kernels/emlp_actor.py:
-// emlp_actor_plain, sac_actor_plain and ppo_actor_plain (structured), and
-// ppo_head_plain for the head alone (models/mlp.py:173-178 with
-// algos/ppo.py:107-116 on an MLP mean).
+// emlp_actor_plain, sac_actor_plain and ppo_actor_plain (structured).
 //
 // K9's epilogue: mean = h2 Wh^T + bh; ls = clip(h2 Wl + bl, -20, 2);
 // action = tanh(mean + exp(ls) noise), or tanh(mean) without noise (eval).
@@ -34,9 +31,6 @@
 // launch it at 4096 rows (training), 32 (PPO A), 10 (eval) and 1 (the Gym
 // API), so what holds it is one row's chain of dependent steps: two
 // blocks of a linear layer, a bilinear form and a gate, then the head.
-// The head alone reads the pre-tanh mean and the noise and writes the
-// action and the log-prob: 16 bytes and ~12 flops an element, bound by the
-// bytes (~0.02 us at 4096 x 4), so the launch sets its time.
 //
 // Design: a tile of kTile = 32 rows, lane t of every warp on row t, and one
 // row's work split over the block's warps, as K3's training-width forward
@@ -70,12 +64,13 @@
 #include <math.h>
 #include <string.h>
 
+#include "ppo_head.cuh"
+
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kPitch = kTile + 1;
 constexpr int kMaxDevices = 64;
-constexpr float kHalfLog2Pi = 0.91893853320467274f;
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 // warps a block: the 18-gated actors' 5 float4 groups of linear outputs and
@@ -187,46 +182,6 @@ __device__ __forceinline__ void gate(const float* ps, const int* g, float* hs,
   }
 }
 
-// PPO's head on one action of one row (algos/ppo.py:107-116): mu =
-// tanh(pre); with a draw n, a = clip(mu + exp(ls) n, +-max) and logp =
-// -0.5 ((a - mu) / exp(ls))^2 - ls - log(2 pi) / 2 of the CLIPPED action;
-// without one (eval), a = clip(mu, +-max) and logp = 0.  ls is the free
-// log_std parameter, not clipped (the reference's).
-__device__ __forceinline__ void ppo_head(float pre, float ls,
-                                         const float* noise, float max_action,
-                                         float* act_out, float* logp_out) {
-  const float mu = tanhf(pre);
-  float act = mu, lp = 0.0f;
-  if (noise != nullptr) {
-    const float sd = expf(ls);
-    act = mu + sd * (*noise);
-    act = fminf(fmaxf(act, -max_action), max_action);
-    const float z = (act - mu) / sd;
-    lp = -0.5f * (z * z) - ls - kHalfLog2Pi;
-  } else {
-    act = fminf(fmaxf(act, -max_action), max_action);
-  }
-  *act_out = act;
-  *logp_out = lp;
-}
-
-// K11's head alone on an (B, nact) pre-tanh mean (PPO's MLP actor: the
-// mean head's F.linear output), one thread per element; log_std (nact,).
-__global__ void __launch_bounds__(128)
-ppo_head_kernel(const float* __restrict__ pre, int B, int nact,
-                const float* __restrict__ log_std,
-                const float* __restrict__ noise, int ld_noise,
-                float* __restrict__ out, int ld_out, float* __restrict__ logp,
-                int ld_logp, float max_action) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= (long long)B * nact) return;
-  const int row = (int)(k / nact), a = (int)(k % nact);
-  ppo_head(pre[k], log_std[a],
-           noise == nullptr ? nullptr : noise + (size_t)row * ld_noise + a,
-           max_action, out + (size_t)row * ld_out + a,
-           logp + (size_t)row * ld_logp + a);
-}
-
 // The actor's head on the tile's h2: a warp an action, a lane a row.
 template <int NH, int NACT, int HEAD_KIND, int NW>
 __device__ __forceinline__ void head(const float* hs, const float* f,
@@ -246,7 +201,7 @@ __device__ __forceinline__ void head(const float* hs, const float* f,
     for (int k = 0; k < NH; ++k) s = fmaf(h[k * kPitch], wh[k], s);
     const float mean = s + f[im.m[kBh] + a];
     if (HEAD_KIND == kPPO) {
-      ppo_head(mean, f[im.m[kLogStd] + a],
+      ppo::head(mean, f[im.m[kLogStd] + a],
                noise == nullptr ? nullptr : noise + row * ld_noise + a,
                max_action, out + row * ld_out + a, logp + row * ld_logp + a);
       continue;
@@ -440,23 +395,4 @@ extern "C" int emlp_actor_launch(const void* obs, int B, const void* image,
                           ld_logp, max_action, nin, ng, nh, nact, s);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// K11's head alone: pre (B, nact) contiguous pre-tanh means, log_std
-// (nact,), noise (B, nact) with row stride ld_noise or null (eval), out and
-// logp (B, nact) with their own row strides.
-extern "C" int ppo_head_launch(const void* pre, int B, int nact,
-                               const void* log_std, const void* noise,
-                               int ld_noise, void* out, int ld_out,
-                               void* logp, int ld_logp, float max_action,
-                               void* stream) {
-  if (B <= 0 || nact <= 0 || out == nullptr || logp == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * nact;
-  const int blocks = (int)((n + 127) / 128);
-  ppo_head_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
-      (const float*)pre, B, nact, (const float*)log_std,
-      (const float*)noise, ld_noise, (float*)out, ld_out, (float*)logp,
-      ld_logp, max_action);
-  return (int)cudaGetLastError();
 }

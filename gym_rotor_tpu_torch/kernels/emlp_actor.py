@@ -18,12 +18,10 @@ body, the head a template parameter).  Plain twins: ``emlp_actor_plain``,
 ``sac_actor_plain`` and ``ppo_actor_plain`` (the structured ports of the
 flax networks), which are what run on CPU tensors.
 
-K11's head alone (``ppo_head``) serves PPO's MLP actor (``models/mlp.py``
-``ActorPPO``), whose mean is an ``F.linear`` chain: one launch over the
-mean head's pre-tanh output draws the action and writes it and its
-per-dimension log-prob in place, through the same device function as
-K11's epilogue.  Plain twin: ``ppo_head_plain``.  SAC's MLP actor needs no
-kernel of its own here: its sample is K10's forward
+K11's head (``csrc/ppo_head.cuh``) is also the epilogue of the MLP PPO
+actor's kernel (``kernels/mlp_ppo_actor.py``); ``ppo_head_plain``, the
+head on a pre-tanh mean, is that kernel's twin's head.  SAC's MLP actor
+needs no kernel of its own here: its sample is K10's forward
 (``kernels/sac_sample.py``) on the ``F.linear`` outputs.
 
 What bounds it on an H100: the operations, and few of them.  Per row and
@@ -56,7 +54,7 @@ from .build import KernelSource, check
 
 KERNEL = KernelSource("emlp_actor", [])
 WRAPPERS = {"emlp_actor": "emlp_actor_plain", "sac_actor": "sac_actor_plain",
-            "ppo_actor": "ppo_actor_plain", "ppo_head": "ppo_head_plain"}
+            "ppo_actor": "ppo_actor_plain"}
 HEAD_TANH, HEAD_GAUSS, HEAD_PPO = 0, 1, 2
 # Per head, the (obs dim, gated width, hidden width, action dim) of the
 # built instances: the flagship MODUL actors (agents 0 and 1) and the MONO
@@ -86,8 +84,6 @@ def _lib():
         lib.emlp_actor_launch.argtypes = [P, I, P, P, P, I, P, I, P, I, F,
                                           I, I, I, I, I, P]
         lib.emlp_actor_launch.restype = I
-        lib.ppo_head_launch.argtypes = [P, I, I, P, P, I, P, I, P, I, F, P]
-        lib.ppo_head_launch.restype = I
         lib.emlp_actor_geometry.argtypes = [I]
         lib.emlp_actor_geometry.restype = I
         lib.emlp_actor_smem.argtypes = [I, I, I, I, P]
@@ -473,54 +469,3 @@ def ppo_head_plain(pre, log_std, noise: Optional[torch.Tensor] = None,
     ``(clip(mean), zeros)`` (ppo.py:107-116)."""
     mean = torch.tanh(pre)
     return _ppo_draw(mean, log_std.expand_as(mean), noise, max_action)
-
-
-def ppo_head(pre: torch.Tensor, log_std: torch.Tensor,
-             noise: Optional[torch.Tensor] = None,
-             out: Optional[torch.Tensor] = None,
-             logp: Optional[torch.Tensor] = None, max_action: float = 1.0):
-    """PPO's acting draw on an MLP actor's pre-tanh mean ``pre`` (B, act):
-    ``(action, per-dim log-prob)``, or ``(clip(tanh(pre)), zeros)`` when
-    ``noise`` is None (eval).  CPU tensors -> ``ppo_head_plain``; CUDA
-    tensors -> one kernel launch (float32), or an error.  ``out`` and
-    ``logp`` (unit column stride, any row stride) receive the results in
-    place, as ``ppo_actor``'s do."""
-    if not pre.is_cuda:
-        a, lp = ppo_head_plain(pre, log_std, noise, max_action)
-        return _plain_into(a, out), _plain_into(lp, logp)
-    B = pre.shape[0]
-    if pre.dim() != 2 or B == 0 or pre.dtype != torch.float32 \
-            or not pre.is_contiguous():
-        raise ValueError(f"ppo_head: pre must be a contiguous float32 (B, "
-                         f"act) tensor with B > 0, got {pre.dtype} "
-                         f"{tuple(pre.shape)}")
-    nact, dev = int(pre.shape[1]), pre.device
-    if log_std.dtype != torch.float32 or log_std.numel() != nact \
-            or not log_std.is_contiguous() or log_std.device != dev:
-        raise ValueError(f"ppo_head: log_std must be {nact} contiguous "
-                         f"float32 values on {dev}")
-    if out is None:
-        out = torch.empty(B, nact, dtype=torch.float32, device=dev)
-    if logp is None:
-        logp = torch.empty(B, nact, dtype=torch.float32, device=dev)
-    for name, t in (("out", out), ("logp", logp), ("noise", noise)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or t.shape != (B, nact) \
-                or t.stride(1) != 1 or t.device != dev:
-            raise ValueError(f"ppo_head: {name} must be a float32 ({B}, "
-                             f"{nact}) tensor with unit column stride on "
-                             f"{dev}")
-    lib = _lib()
-    err = lib.ppo_head_launch(
-        pre.data_ptr(), B, nact, log_std.data_ptr(),
-        None if noise is None else noise.data_ptr(),
-        0 if noise is None else noise.stride(0), out.data_ptr(),
-        out.stride(0), logp.data_ptr(), logp.stride(0), float(max_action),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, lib, "ppo_head")
-    ppo_head.launches += 1
-    return out, logp
-
-
-ppo_head.launches = 0

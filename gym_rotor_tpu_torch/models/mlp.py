@@ -25,9 +25,10 @@ the functions ``actor_sac``, ``actor_ppo`` and ``v_critic`` on parameter
 views.  Under CTDE the critics take the joint input: ``CriticTwin`` over
 all agents' obs and actions, ``VCritic`` over all agents' obs.  Acting on
 the card, ``ActorSAC``'s ``F.linear`` outputs go through K10's forward
-(``kernels/sac_sample.py``) and ``ActorPPO``'s through K11's head
-(``kernels/emlp_actor.py::ppo_head``); each also has a deterministic eval
-head (``tanh(mean)``; ``clip(tanh(mean))`` and zero log-probs).
+(``kernels/sac_sample.py``), and ``ActorPPO``'s whole acting forward is
+one launch with K11's head as its epilogue
+(``kernels/mlp_ppo_actor.py``); each also has a deterministic eval head
+(``tanh(mean)``; ``clip(tanh(mean))`` and zero log-probs).
 
 The Gaussian heads' plain versions: ``LOG_SIG_MAX``/``LOG_SIG_MIN``,
 ``EPS``, ``sac_sample_with_noise``, ``gaussian_logprob`` and
@@ -313,9 +314,10 @@ class ActorPPO(_DenseNet):
     head's LeCun kernel scaled by 0.1 and ``log_std`` 0 at init.  ``dist``
     is ``(mean, log_std)``.  ``forward`` is the acting draw ``(clip(mean +
     exp(log_std) noise), per-dim log-prob)``, or ``(clip(mean), zeros)``
-    without ``noise`` (eval): the ``F.linear`` chain, then one launch of
-    K11's head (``kernels/emlp_actor.py::ppo_head``, its plain twin on CPU
-    tensors), written into ``out`` and ``logp`` when given."""
+    without ``noise`` (eval): one launch of the fused actor
+    (``kernels/mlp_ppo_actor.py``; its plain twin, the ``F.linear`` chain
+    and K11's head, on CPU tensors), written into ``out`` and ``logp``
+    when given."""
 
     def __init__(self, obs_dim: int, hidden_dim: int, action_dim: int,
                  max_action: float = 1.0, device=None, dtype=torch.float32,
@@ -337,9 +339,8 @@ class ActorPPO(_DenseNet):
     def forward(self, obs, noise: Optional[torch.Tensor] = None,
                 out: Optional[torch.Tensor] = None,
                 logp: Optional[torch.Tensor] = None):
-        from ..kernels.emlp_actor import ppo_head
-        pre = actor_ppo_pre(self.params(), obs)
-        return ppo_head(pre, self.log_std, noise, out, logp, self.max_action)
+        from ..kernels.mlp_ppo_actor import mlp_ppo_actor
+        return mlp_ppo_actor(self, obs, noise, out, logp)
 
 
 class VCritic(_DenseNet):

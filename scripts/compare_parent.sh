@@ -4,8 +4,11 @@
 # every instance and entry (tick_replay_vs_parent.py: bitwise outputs,
 # times in turns), then K6 and K13 of both (optim_loss_vs_parent.py
 # --sweep: bitwise where the order of summation cannot show, one launch a
-# call, times in turns, other launch plans), then the superstep profiles
-# of the TD3 flagship and of PPO A (torch_train_profile.py, PPO A over 2
+# call, times in turns, other launch plans), then K12 and the MLP PPO
+# actor's acting of both (gae_head_vs_parent.py --sweep: td bitwise, one
+# kernel a call, times in turns, K12's other launch plans), then the
+# superstep profiles of the TD3 flagship, of PPO A with EMLP and with MLP
+# networks (Mod-MLP) and of PPO B (torch_train_profile.py, PPO A over 2
 # supersteps a window) and the 4096-env acting rollout's
 # (torch_rollout_profile.py), each side's process in turn over ROUNDS
 # rounds (parent, this tree; this tree, parent; ...).
@@ -14,9 +17,10 @@
 #
 # PARENT_DIR: a checkout of the earlier commit (git archive into a
 # git-ignored directory of the repo).  Writes smoke.log, vs_parent.log,
-# vs_parent_optim_loss.log and
-# prof_<td3|ppoa|act>_<parent|change>_<round>.log under OUT_DIR; prints
-# each step's exit code.  Exits non-zero if any step failed.
+# vs_parent_optim_loss.log, vs_parent_gae_head.log and
+# prof_<td3|ppoa|ppoa_mlp|ppob|act>_<parent|change>_<round>.log under
+# OUT_DIR; prints each step's exit code.  Exits non-zero if any step
+# failed.
 set -u
 HERE=$(cd "$(dirname "$0")/.." && pwd)
 PARENT=$(cd "$1" && pwd)
@@ -38,6 +42,8 @@ step vs_parent "$HERE" python3 scripts/tick_replay_vs_parent.py \
   --parent "$PARENT"
 step vs_parent_optim_loss "$HERE" python3 scripts/optim_loss_vs_parent.py \
   --parent "$PARENT" --sweep
+step vs_parent_gae_head "$HERE" python3 scripts/gae_head_vs_parent.py \
+  --parent "$PARENT" --sweep
 for r in $(seq 1 "$ROUNDS"); do
   if [ $((r % 2)) -eq 1 ]; then order="parent change"; else order="change parent"; fi
   for side in $order; do
@@ -46,6 +52,11 @@ for r in $(seq 1 "$ROUNDS"); do
     step "prof_td3_${side}_$r" "$dir" python3 scripts/torch_train_profile.py
     step "prof_ppoa_${side}_$r" "$dir" python3 scripts/torch_train_profile.py \
       --algo ppo --config A --steps 2
+    step "prof_ppoa_mlp_${side}_$r" "$dir" \
+      python3 scripts/torch_train_profile.py --algo ppo --config A \
+      --use_equiv 0 --steps 2
+    step "prof_ppob_${side}_$r" "$dir" python3 scripts/torch_train_profile.py \
+      --algo ppo --config B
     step "prof_act_${side}_$r" "$dir" python3 scripts/torch_rollout_profile.py
   done
 done

@@ -73,8 +73,8 @@ def main():
     from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.kernels import (build, emlp_actor, emlp_block,
                                              env_tick, flat_adamw, gae,
-                                             ppo_loss, replay, sac_sample,
-                                             spectral)
+                                             mlp_ppo_actor, ppo_loss, replay,
+                                             sac_sample, spectral)
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
 
@@ -83,7 +83,8 @@ def main():
                           text=True).stdout.strip()
     build.build_all([m.KERNEL for m in (env_tick, emlp_actor, replay,
                                         emlp_block, flat_adamw, spectral,
-                                        sac_sample, gae, ppo_loss)])
+                                        sac_sample, gae, ppo_loss,
+                                        mlp_ppo_actor)])
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     ppo = args.algo == "ppo"

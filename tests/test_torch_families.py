@@ -1,8 +1,8 @@
 """PyTorch port vs the JAX package: SAC and PPO with the MONO framework and
 with MLP networks (Mono-EMLP, Mod-MLP, Mono-MLP): the networks (``ActorSAC``,
 ``ActorPPO``, ``VCritic`` and the MONO EMLP ones), the acting paths (K9 and
-K11 at the MONO actor, K11's head and K10 on the MLP actors, through their
-plain twins), one update of each learner, float32 supersteps and the CPU
+K11 at the MONO actor, the fused MLP PPO actor and K10 on the MLP actors,
+through their plain twins), one update of each learner, float32 supersteps and the CPU
 training loop.
 The CUDA kernels are held to the same twins by chip_smoke.py on the card.
 
@@ -34,6 +34,7 @@ from gym_rotor_tpu_torch.algos import ppo as tppo
 from gym_rotor_tpu_torch.algos import sac as tsac
 from gym_rotor_tpu_torch.evaluate import joint_policy
 from gym_rotor_tpu_torch.kernels import emlp_actor as kactor
+from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as kmlp
 from gym_rotor_tpu_torch.kernels import sac_sample as K10
 from gym_rotor_tpu_torch.models import mlp as tmlp
 from gym_rotor_tpu_torch.models import zoo as tmodels
@@ -203,8 +204,8 @@ def test_networks_match_flax(algo, family, agent_id):
 @pytest.mark.parametrize("algo", list(ALGOS))
 def test_acting_matches_choose_action(algo, family, agent_id, is_eval):
     """The acting path through ``choose_action`` (K9 or K11 at the MONO
-    actor, the MLP chain with K10's forward or K11's head: their plain
-    twins here) vs JAX ``choose_action_f`` with JAX's own noise, float64,
+    actor, the MLP chain with K10's forward, the fused MLP PPO actor: their
+    plain twins here) vs JAX ``choose_action_f`` with JAX's own noise, float64,
     written in place into column slices; in train mode (PPO's ``log_std``
     large enough that some actions clip) and eval mode, which is also what
     ``evaluate.joint_policy`` acts with.  No kernel wrapper launches."""
@@ -226,7 +227,7 @@ def test_acting_matches_choose_action(algo, family, agent_id, is_eval):
     flat = convert.flat_from_jax(_np_tree(ap), agent.actor_layout, "cpu",
                                  torch.float64)
     st = agent.make_state(flat, torch.zeros(agent.critic_layout.size))
-    wrappers = [kactor.sac_actor, kactor.ppo_actor, kactor.ppo_head,
+    wrappers = [kactor.sac_actor, kactor.ppo_actor, kmlp.mlp_ppo_actor,
                 K10.sac_sample]
     before = [w.launches for w in wrappers]
     n = agent.action_dim
