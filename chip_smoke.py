@@ -56,10 +56,15 @@ result line):
  10. sac_actor  K9 vs its plain twin, both SAC actors, at ``actor_rows``,
                 train and eval modes, the log_std head as initialised and
                 pushed past both clip bounds, reruns bitwise; then SAC's
-                actor-loss sample (K3/K4 trunk, K10) under autograd vs the
-                structured network and the plain sample
- 11. sac_sample K10 forward and backward vs plain at 256 and 1024 rows of 4
-                and 1 actions: moderate, clip-bound and saturated rows
+                actor-loss sample (K3/K4 trunk, the fused head K10) under
+                autograd vs the structured network and the plain sample
+ 11. sac_sample K10 fused with SAC's heads, forward and backward, vs the
+                plain sample on the kernel's own heads at 256, 1024 and
+                1280 rows, at every head shape of the train paths (EMLP
+                W_eff (act, H) and MLP Dense (H, act), agents of Mod and
+                Mono): moderate rows, every log-std past each clip bound,
+                log-stds exactly at both bounds, saturated rows; reruns
+                bitwise; one CUDA kernel a call forward and backward
  12. train      ``train``: 4096 envs, 1 warm then TRAIN_STEPS train
                 supersteps (one update each); exact launch counts of every
                 kernel per superstep, and of K3/K4 per (shape, rows) (the
@@ -142,9 +147,13 @@ result line):
                 supersteps each, checked as phase 12 (MLP networks launch
                 only K1, K2 and K6); eval_mono_emlp, eval_mono_mlp:
                 ``evaluate`` with the trained actors (success column
-                position only); mlp_nets: the MLP networks' ``F.linear``
-                chains (plain torch, not kernels) acting at 4096 rows and in
-                one update; kernels: records of K1's coupled instance and
+                position only); mlp_nets: the fused MLP SAC actor (a kernel)
+                vs its twin at every MLP SAC agent shape, 1, 10, 32 and
+                4096 rows, train and eval, log_std past its clip bounds,
+                into column slices, reruns bitwise, one CUDA kernel a call,
+                and its times; the MLP networks' ``F.linear`` chains (plain
+                torch, not kernels) acting at 4096 rows and in one update;
+                kernels: records of K1's coupled instance and
                 the MONO K3-actor and K3/K4 instances, with their launches
                 on the Mono paths
  21. the rest of the learner matrix (``phase_families``): family_blocks
@@ -428,10 +437,11 @@ def count_flops(fn, *args):
 def _kernel_modules():
     from gym_rotor_tpu_torch.kernels import (emlp_actor, emlp_block,
                                              env_tick, flat_adamw, gae,
-                                             mlp_ppo_actor, ppo_loss, replay,
-                                             sac_sample, spectral)
+                                             mlp_ppo_actor, mlp_sac_actor,
+                                             ppo_loss, replay, sac_sample,
+                                             spectral)
     return [env_tick, emlp_actor, replay, emlp_block, flat_adamw, spectral,
-            sac_sample, gae, ppo_loss, mlp_ppo_actor]
+            sac_sample, gae, ppo_loss, mlp_ppo_actor, mlp_sac_actor]
 
 
 def _wrappers():
@@ -631,7 +641,7 @@ def phase_build(dev):
     kinds = {k: ({"tile", "thread"} if k.split("_")[0] in KT.BATCHED_TASKS
                  else {"thread"}) for k in want}
     if {k: set(v) for k, v in k1.items()} != kinds \
-            or set(k2) != {"insert_kernel", "sample_kernel"}:
+            or set(k2) != {"insert_kernel", "gather_kernel"}:
         raise AssertionError(f"env_tick / replay resources: {k1} {k2}")
 
 
@@ -870,20 +880,20 @@ def phase_rollout(cfg, dev, actors):
 def eval_kernel(cfg):
     """The kernel an actor of ``cfg`` launches per agent and eval tick:
     the deterministic head of K3 (TD3), K9 (SAC) or K11 (PPO) for EMLP;
-    the fused MLP PPO actor for PPO's MLP actor; none for TD3's and SAC's
-    MLP actors
-    (``tanh`` of the ``F.linear`` chain)."""
+    the fused MLP PPO or SAC actor for PPO's and SAC's MLP actors; none for
+    TD3's MLP actor (``tanh`` of the ``F.linear`` chain)."""
     if cfg.use_equiv:
         return {"TD3": "emlp_actor", "SAC": "sac_actor",
                 "PPO": "ppo_actor"}[cfg.rl_algo]
-    return "mlp_ppo_actor" if cfg.rl_algo == "PPO" else None
+    return {"PPO": "mlp_ppo_actor", "SAC": "mlp_sac_actor"}.get(cfg.rl_algo)
 
 
 def phase_eval(cfg, dev, actors, name="eval"):
     """``evaluate`` with ``actors`` (EMLP: one launch of K3's, K9's or
-    K11's deterministic head per agent and tick; MLP: torch ops, and for
-    PPO one launch of the fused MLP actor) on ``cfg.framework``'s task: launch counts, the success
-    column per agent (MONO: position only), finite rewards."""
+    K11's deterministic head per agent and tick; MLP: one launch of the
+    fused MLP PPO or SAC actor, TD3's torch ops) on ``cfg.framework``'s
+    task: launch counts, the success column per agent (MONO: position
+    only), finite rewards."""
     from gym_rotor_tpu_torch.envs.quad import DT
     from gym_rotor_tpu_torch.evaluate import evaluate
     ticks = int(round(cfg.eval_max_steps / DT))
@@ -922,11 +932,64 @@ def _err(k, p, rel=2e-5):
     return d, rel * max(1.0, float(p.abs().max())), bool(torch.isfinite(k).all())
 
 
+def sample_layouts():
+    """The gather layouts the train paths sample into, by name: (ctde,
+    stack) for TD3 and SAC, DTDE and CTDE, and a sample with no learner's
+    stack."""
+    from gym_rotor_tpu_torch.algos import replay as R
+    from gym_rotor_tpu_torch.algos import sac, td3
+    return {"plain": (False, R.PLAIN_STACK), "td3": (False, td3.CAPS_STACK),
+            "td3_ctde": (True, td3.CAPS_STACK),
+            "sac": (False, sac.caps_stack(False)),
+            "sac_ctde": (True, sac.caps_stack(True))}
+
+
+def _gather_vs_plain(ring, idx, dims, ctde, stack):
+    """K2 sample vs its twin into one layout: the written regions bitwise,
+    a rerun bitwise, and the ``Batch``'s fields and operands bitwise the
+    ring rows' columns and their concatenations (the fields the sample
+    returned before it wrote operands, and what the learners built from
+    them).  Returns the log record's checks."""
+    from gym_rotor_tpu_torch.algos import replay as R
+    from gym_rotor_tpu_torch.kernels import replay as K
+    lay = R.gather_layout(dims, ctde, stack)
+    nb = idx.shape[0]
+    bk, bk2 = K.replay_sample(ring, idx, False, lay), \
+        K.replay_sample(ring, idx, False, lay)
+    bp = K.replay_sample_plain(ring, idx, False, lay)
+    wk, wp = lay.written(bk, nb), lay.written(bp, nb)
+    mismatch = sum(int((a != b).sum()) for a, b in zip(wk, wp))
+    rerun = _bitwise(wk, lay.written(bk2, nb))
+    rs = R.ReplayState(data=ring, ptr=0, filled=ring.shape[0], dims=dims)
+    batch = R.sample(rs, nb, idx=idx, ctde=ctde, stack=stack)
+    old = R._split(ring[idx], dims)
+    fields = _bitwise([t for f in batch[:5] for t in f],
+                      [t for f in old for t in f])
+    n = len(dims[0])
+    ops = []
+    for i in range(n):
+        sa, t_obs, stk = R.learner_operands(batch, i, ctde, stack)
+        hand = R.learner_operands(R.Batch(*old), i, ctde, stack)
+        ops.append(_bitwise([sa] + ([t_obs] if ctde else []),
+                            [hand[0]] + ([hand[1]] if ctde else [])))
+        keep = [q for q, f in enumerate(stack) if f != "eps"]
+        ops.append(_bitwise([stk[q * nb:(q + 1) * nb] for q in keep],
+                            [hand[2][q * nb:(q + 1) * nb] for q in keep]))
+    return dict(regions=len(lay.regions), floats_per_row=lay.gathered,
+                mismatch=mismatch, rerun_bitwise=rerun,
+                fields_bitwise=fields, operands_bitwise=all(ops))
+
+
 def phase_replay(cfg, dev, out):
     """K2 + K8 kernel vs plain on the same inputs: the compare-phase tick's
     K1 outputs (field-major views, ~10% of envs reset) written into a
-    1e6-row ring across its wrap, with ``ep_ret`` and the stats; then a
-    256-row sample and the empty ring's poison."""
+    1e6-row ring across its wrap, with ``ep_ret`` and the stats; then K2
+    sample: 256 rows gathered into the learners' operands of every layout
+    the train paths use (``sample_layouts``: TD3 and SAC, DTDE and CTDE, on
+    MODUL's ring and DTDE on a MONO ring), bitwise the twin's, reruns
+    bitwise, the ``Batch``'s fields and operands bitwise the ring rows'
+    columns and their concatenations; and the empty ring's poison in every
+    layout."""
     from gym_rotor_tpu_torch.algos import replay as R
     from gym_rotor_tpu_torch.kernels import replay as K
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -949,19 +1012,36 @@ def phase_replay(cfg, dev, out):
     ep_diff = int((ep_k != ep_p).sum())
     # fixed-order block partials vs torch's sum over 4096 envs
     d_stats, tol_stats, _ = _err(st_k, st_p, 1e-5)
+    log("replay", ring_rows=cap, ptr=ptr, rows=B,
+        resets=int(out.reset_happened.sum()), ring_mismatch=ring_diff,
+        ep_ret_mismatch=ep_diff, stats_max_abs_err=d_stats,
+        stats=[float(x) for x in st_k])
+    bad = ring_diff or ep_diff or not d_stats <= tol_stats
     idx = torch.randint(0, cap, (cfg.batch_size,), generator=gen, device=dev)
-    rows_k = K.replay_sample(ring_k, idx, False)
-    sample_diff = int((rows_k != K.replay_sample_plain(ring_k, idx, False)).sum())
-    empty = R.create(cap, *dims, device=dev)
-    poisoned = R.sample(empty, cfg.batch_size, idx=idx[:8] * 0)
-    all_nan = all(bool(torch.isnan(t).all()) for f in poisoned for t in f)
-    log("replay", ring_rows=cap, ptr=ptr, rows=B, resets=int(out.reset_happened.sum()),
-        ring_mismatch=ring_diff, ep_ret_mismatch=ep_diff,
-        stats_max_abs_err=d_stats, stats=[float(x) for x in st_k],
-        sample_rows=cfg.batch_size, sample_mismatch=sample_diff,
-        empty_ring_poisoned=all_nan)
-    if ring_diff or ep_diff or sample_diff or not d_stats <= tol_stats \
-            or not all_nan:
+    mono = ((23,), (4,))
+    ring_mono = torch.rand(B, R.row_dim(*mono), generator=gen, device=dev)
+    idx_mono = torch.randint(0, B, (cfg.batch_size,), generator=gen,
+                             device=dev)
+    for name, (ctde, stack) in sample_layouts().items():
+        for fw, ring, d, ix in (("MODUL", ring_k, dims, idx),
+                                ("MONO", ring_mono, mono, idx_mono)):
+            if fw == "MONO" and ctde:
+                continue
+            rec = _gather_vs_plain(ring, ix, d, ctde, stack)
+            empty = R.create(cap, *d, device=dev)
+            poisoned = R.sample(empty, 8, idx=ix[:8] * 0, ctde=ctde,
+                                stack=stack)
+            ops = poisoned.ops
+            rec["empty_ring_poisoned"] = all(
+                bool(torch.isnan(t).all()) for t in
+                [t for f in poisoned[:5] for t in f] + list(ops.sa)
+                + ([ops.t_obs] if ctde else []))
+            log("replay", sample=name, framework=fw, rows=cfg.batch_size,
+                stack=list(stack), ctde=ctde, **rec)
+            bad = bad or rec["mismatch"] or not (
+                rec["rerun_bitwise"] and rec["fields_bitwise"]
+                and rec["operands_bitwise"] and rec["empty_ring_poisoned"])
+    if bad:
         raise AssertionError("replay kernels disagree with plain")
     return dict(ring=ring_k, ptr=ptr, args=args, actions=actions,
                 reset=out.reset_happened, idx=idx, max_abs_err=d_stats)
@@ -1336,24 +1416,72 @@ def phase_sac_actor(cfg, dev, obs):
     return agents, states, worst
 
 
-def _k10_inputs(n, act, gen, dev):
-    """K10's inputs: rows of four kinds, a quarter each: moderate (|x| <
-    2.5), log_std at its upper clip (2), at its lower clip (-20), and
-    saturated (|mean| 30, log_std at either bound); cotangents N(0, 1)."""
+def sac_head_shapes():
+    """(label, H, act, dense) of every SAC head the train paths launch the
+    fused head kernel on: the EMLP heads (their K5-folded ``W_eff`` (act,
+    H)) of Mod-EMLP's agents 0 and 1 and Mono-EMLP, and the MLP heads
+    (Dense kernels (H, act)) of Mod-MLP's agents and Mono-MLP; CTDE's
+    actors are DTDE's."""
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.utils.config import Config
+    out = []
+    for fam, kw in (("mod_emlp", {}), ("mono_emlp", dict(framework="MONO")),
+                    ("mod_mlp", dict(use_equiv=False)),
+                    ("mono_mlp", dict(framework="MONO", use_equiv=False))):
+        cfg = Config(rl_algo="SAC", **kw)
+        for i in range(cfg.n_agents):
+            lay = SACAgent(cfg, i, "cpu").actor_layout
+            shapes = dict(zip(lay.names, lay.shapes))
+            H, act = shapes["log_std_linear.kernel" if cfg.use_equiv
+                            else "log_std.kernel"]
+            out.append((f"{fam}_{i}", H, act, not cfg.use_equiv))
+    return out
+
+
+SAC_HEAD_CASES = ("moderate", "upper", "lower", "tie", "saturated")
+# heads no train path launches at the default widths, for the kernel's
+# run-time-H instances (other actor widths): (label, H, act, dense)
+SAC_HEAD_OTHER = (("other_8_3", 8, 3, False), ("other_40_2", 40, 2, True))
+
+
+def sac_head_inputs(n, H, act, dense, case, gen, dev):
+    """The fused head's inputs at ``n`` rows: h, the heads (W_m (H, act) if
+    ``dense`` else (act, H)), the noise and the cotangents.  ``case``:
+    moderate; ``upper`` / ``lower``: every log-std past its clip bound (the
+    clamp's gradient 0); ``tie``: log-std column 0 exactly at the upper
+    bound and column 1 at the lower (zero weights, the bound as the bias;
+    the gradient passes); ``saturated``: the first quarter of the rows h =
+    60 e_0 with the mean head's k = 0 weights +-1/2 and the log-std head's
+    0 (|mean| >= 29, |action| 1)."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
-    q = n // 4
-    m = 0.4 * randn(n, act)
-    s = torch.rand(n, act, generator=gen, device=dev) * 3.5 - 3.0
-    z = randn(n, act).clamp(-1.2, 1.2)
-    s[q:2 * q] = 2.0
-    z[q:2 * q] *= 0.2
-    s[2 * q:3 * q] = -20.0
-    m[3 * q:] = torch.where(m[3 * q:] < 0, -30.0, 30.0)
-    s[3 * q:] = torch.where(
-        torch.rand(n - 3 * q, act, generator=gen, device=dev) < 0.5, 2.0,
-        -20.0)
-    return m, s, z, randn(n, act), randn(n, 1)
+    h = 0.8 * randn(n, H)
+    wm = randn(*((H, act) if dense else (act, H))) / math.sqrt(H)
+    bm = 0.1 * randn(act)
+    wl = 0.5 * randn(H, act) / math.sqrt(H)
+    bl = 0.3 * randn(act) - 1.0
+    if case == "upper":
+        bl = bl + 25.0
+    elif case == "lower":
+        bl = bl - 25.0
+    elif case == "tie":
+        wl[:, 0] = 0.0
+        bl[0] = 2.0
+        if act > 1:
+            wl[:, 1] = 0.0
+            bl[1] = -20.0
+    elif case == "saturated":
+        h[:n // 4] = 0.0
+        h[:n // 4, 0] = 60.0
+        w0 = torch.where(torch.rand(act, generator=gen, device=dev) < 0.5,
+                         -0.5, 0.5)
+        if dense:
+            wm[0] = w0
+        else:
+            wm[:, 0] = w0
+        wl[0] = 0.0
+    noise = randn(n, act).clamp(-1.2, 1.2)
+    return h, wm, bm, wl, bl, noise, randn(n, act), randn(n, 1)
 
 
 def _k10_check(k, p, allowance):
@@ -1364,45 +1492,120 @@ def _k10_check(k, p, allowance):
     return float(d.max()), float((d / tol).max()), bool(torch.isfinite(k).all())
 
 
-def phase_sac_sample(dev):
-    """K10 forward and backward vs plain, at the SAC update's 256 (target
-    sample) and 1024 (actor loss) rows, for both agents' action widths.
-    Tolerance per element: 1e-5 max(1, max |plain|), plus, where the
-    expression is ill-conditioned, 8 ulp of its sensitivity: for the
-    log-prob ``sum 1 / ((1 - a^2) + EPS)`` (an ulp of ``a`` near +-1 moves
-    ``log((1 - a^2) + EPS)`` by up to ~0.1), for the gradients the terms
-    ``kernels/sac_sample.py::rounding_scales`` names.  Saturated rows must
-    give ``|a| = 1`` exactly."""
+def sac_head_check(h, wm, bm, wl, bl, noise, g_a, g_l, dense):
+    """The fused head's forward and backward launches vs the plain sample
+    on the kernel's own heads (``head_in_order``: the kernel's order of the
+    dot products, so the sample's inputs are the same bits), each launch
+    run twice and compared bitwise.  Tolerance per element (K10's):
+    1e-5 max(1, max |plain|), plus, where the expression is ill-conditioned,
+    8 ulp of its sensitivity: for the log-prob ``sum 1 / ((1 - a^2) +
+    EPS)``, for ``g_mean`` and ``g_log_std`` the terms ``rounding_scales``
+    names, carried into ``g_h`` through |W| (plus 4 ulp of the products'
+    sizes for the order of its sums) and into the weight gradients ``M =
+    [h | 1]^T G`` through ``|[h | 1]|`` (plus R ulp of the terms' sizes for
+    the order of the sum over the rows).  The twin's cuBLAS heads
+    (the training path's plain chain) are held to the kernel's order within
+    ``2 H`` ulp of the products' sizes (``head_scales``).  Returns (checks
+    {name: (max abs err, worst tolerance ratio, finite)}, reruns bitwise,
+    fraction of log-stds at a clip bound)."""
     from gym_rotor_tpu_torch.kernels import sac_sample as K
-    from gym_rotor_tpu_torch.models.mlp import EPS
+    from gym_rotor_tpu_torch.models.mlp import EPS, LOG_SIG_MAX, LOG_SIG_MIN
+    args = (h, wm, bm, wl, bl, noise, dense)
+    ak, lk = K.sac_head(*args)
+    ak2, lk2 = K.sac_head(*args)
+    ghk, Gk, M_k = K.sac_head_backward(g_a, g_l, *args)
+    gh2, G2, M2 = K.sac_head_backward(g_a, g_l, *args)
+    A, H = noise.shape[1], h.shape[1]
+    m_o, pre_o = K.head_in_order(h, wm, bm, wl, bl, dense)
+    ls_o = torch.clamp(pre_o, LOG_SIG_MIN, LOG_SIG_MAX)
+    mask = ((pre_o >= LOG_SIG_MIN) & (pre_o <= LOG_SIG_MAX)).float()
+    ap, lp = K.sac_sample_plain(m_o, ls_o, noise)
+    gm_p, gs_p = K.sac_sample_backward_plain(g_a, g_l, m_o, ls_o, noise)
+    gs_p = gs_p * mask
+    sm, ss = K.rounding_scales(g_a, g_l, m_o, ls_o, noise)
+    am, al = 8 * F32_EPS * sm, 8 * F32_EPS * ss * mask
+    w_m = wm.t() if dense else wm                       # (act, H)
+    gh_p = gm_p @ w_m + gs_p @ wl.t()
+    a_gh = ((am @ w_m.abs() + al @ wl.abs().t())
+            + 4 * F32_EPS * (gm_p.abs() @ w_m.abs() + gs_p.abs() @ wl.abs().t()))
+    xa = torch.cat([h, torch.ones_like(h[:, :1])], dim=1).double()
+    G_p = torch.cat([gm_p, gs_p], dim=1).double()
+    M_p = xa.t() @ G_p
+    a_M = (xa.abs().t() @ torch.cat([am, al], dim=1).double()
+           + h.shape[0] * F32_EPS * (xa.abs().t() @ G_p.abs()))
+    cond = (1.0 / ((1.0 - ap * ap) + EPS)).sum(-1, keepdim=True)
+    twin_m, twin_pre = K.head_pre(h, wm, bm, wl, bl, dense)
+    sc_m, sc_l = K.head_scales(h, wm, bm, wl, bl, dense)
+    checks = {"action": _k10_check(ak, ap, 0 * ap),
+              "log_prob": _k10_check(lk, lp, 8 * F32_EPS * cond),
+              "g_mean": _k10_check(Gk[:, :A], gm_p, am),
+              "g_log_std": _k10_check(Gk[:, A:], gs_p, al),
+              "g_h": _k10_check(ghk, gh_p, a_gh),
+              "g_weights": _k10_check(M_k, M_p, a_M),
+              "twin_heads": _k10_check(
+                  torch.cat([twin_m, twin_pre], 1), torch.cat([m_o, pre_o], 1),
+                  2 * H * F32_EPS * torch.cat([sc_m, sc_l], 1))}
+    same = _bitwise([ak, lk, ghk, Gk, M_k], [ak2, lk2, gh2, G2, M2])
+    at_clip = float(((ls_o == LOG_SIG_MIN) | (ls_o == LOG_SIG_MAX))
+                    .float().mean())
+    return checks, same, at_clip
+
+
+def phase_sac_sample(dev):
+    """K10 fused with SAC's heads (``kernels/sac_sample.py``), forward and
+    backward, vs plain at the SAC update's 256 (target sample) and 1024
+    (actor loss) rows and CTDE's 1280, at every head shape of the train
+    paths (``sac_head_shapes``) and at ``SAC_HEAD_OTHER``'s (the
+    run-time-H instances), in each of ``SAC_HEAD_CASES``
+    (``sac_head_check``); saturated rows must give ``|a| = 1`` exactly.
+    Then one CUDA kernel a call (profiler trace) forward and backward, and
+    the kernels of SAC's actor-loss sample's backward under autograd
+    (logged)."""
+    from gym_rotor_tpu_torch.kernels import sac_sample as K
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     worst, bad = {"forward": 0.0, "backward": 0.0}, []
-    for n in (256, 1024):
-        for act in (4, 1):
-            m, s, z, g_a, g_l = _k10_inputs(n, act, gen, dev)
-            ak, lk = K.sac_sample(m, s, z)
-            ap, lp = K.sac_sample_plain(m, s, z)
-            gmk, gsk = K.sac_sample_backward(g_a, g_l, m, s, z)
-            gmp, gsp = K.sac_sample_backward_plain(g_a, g_l, m, s, z)
-            sm, ss = K.rounding_scales(g_a, g_l, m, s, z)
-            cond = (1.0 / ((1.0 - ap * ap) + EPS)).sum(-1, keepdim=True)
-            checks = {"action": _k10_check(ak, ap, 0 * ap),
-                      "log_prob": _k10_check(lk, lp, 8 * F32_EPS * cond),
-                      "g_mean": _k10_check(gmk, gmp, 8 * F32_EPS * sm),
-                      "g_log_std": _k10_check(gsk, gsp, 8 * F32_EPS * ss)}
-            saturated = bool((ak[3 * (n // 4):].abs() == 1.0).all())
-            log("sac_sample", rows=n, act=act, saturated_rows_at_1=saturated,
-                max_abs_err={k: v[0] for k, v in checks.items()},
-                worst_tolerance_ratio={k: v[1] for k, v in checks.items()})
-            for k, (d, ratio, fin) in checks.items():
-                side = "forward" if k in ("action", "log_prob") else "backward"
-                worst[side] = max(worst[side], d)
-                if not (ratio <= 1.0 and fin):
-                    bad.append((n, act, k, d, ratio))
-            if not saturated:
-                bad.append((n, act, "saturated rows"))
+    for label, H, act, dense in sac_head_shapes() + list(SAC_HEAD_OTHER):
+        for n in (256, 1024, 1280):
+            for case in SAC_HEAD_CASES:
+                inp = sac_head_inputs(n, H, act, dense, case, gen, dev)
+                checks, same, at_clip = sac_head_check(*inp[:6], inp[6],
+                                                       inp[7], dense)
+                ak = K.sac_head(*inp[:6], dense)[0]
+                saturated = case != "saturated" or bool(
+                    (ak[:n // 4].abs() == 1.0).all())
+                log("sac_sample", head=label, H=H, act=act, dense=dense,
+                    rows=n, case=case, log_std_at_clip=at_clip,
+                    saturated_rows_at_1=saturated, rerun_bitwise=same,
+                    max_abs_err={k: v[0] for k, v in checks.items()},
+                    worst_tolerance_ratio={k: v[1] for k, v in checks.items()})
+                for k, (d, ratio, fin) in checks.items():
+                    side = ("forward" if k in ("action", "log_prob",
+                                               "twin_heads") else "backward")
+                    worst[side] = max(worst[side], d)
+                    if not (ratio <= 1.0 and fin):
+                        bad.append((label, n, case, k, d, ratio))
+                if not (saturated and same):
+                    bad.append((label, n, case, "saturated/rerun", saturated,
+                                same))
+        h, wm, bm, wl, bl, noise, g_a, g_l = sac_head_inputs(
+            1024, H, act, dense, "moderate", gen, dev)
+        leaves = [t.clone().requires_grad_(True) for t in (h, wm, bm, wl, bl)]
+        per_call = dict(
+            forward=launches_per_call(
+                lambda: K.sac_head(h, wm, bm, wl, bl, noise, dense)),
+            backward=launches_per_call(
+                lambda: K.sac_head_backward(g_a, g_l, h, wm, bm, wl, bl,
+                                            noise, dense)))
+        a, lp = K.sac_head_sample(*leaves, noise, dense)
+        per_call["autograd_backward"] = launches_per_call(
+            lambda: torch.autograd.grad((a, lp), leaves, (g_a, g_l),
+                                        retain_graph=True))
+        log("sac_sample", head=label, rows=1024, kernels_a_call=per_call)
+        if per_call["forward"] != 1 or per_call["backward"] != 1:
+            bad.append((label, "kernels a call", per_call))
     if bad:
-        raise AssertionError(f"sac_sample kernel disagrees with plain: {bad}")
+        raise AssertionError(f"sac_sample kernel disagrees with plain: "
+                             f"{bad[:8]}")
     return worst
 
 
@@ -1479,20 +1682,20 @@ def expected_launches_sac(cfg, warm: bool):
         return {"env_tick": 1, "replay_insert_tick": 1}
     n = cfg.n_agents
     others = n - 1 if cfg.is_ctde else 0
-    # per agent: the target sample (actor 2 blocks, K10) and the twin
-    # target critic (4); the critic loss (4) and its backward (4); the
-    # actor loss over 4 x 256 rows (2 blocks, K10), q1 and q2 on its action
-    # (4), backward through both critics without the parameter sums (4),
-    # the actor's blocks (2) and K10.  Under CTDE the agent's own samples
-    # fuse along the batch (2 x 256 rows in the target, 5 x 256 in the
-    # actor loss) and every other agent's actor samples on its own obs in
-    # both (2 blocks and K10 each).  MLP networks: K10 only (the acting
-    # sample too), no blocks and no K7.
+    # per agent: the target sample (actor 2 blocks, the fused head K10) and
+    # the twin target critic (4); the critic loss (4) and its backward (4);
+    # the actor loss over 4 x 256 rows (2 blocks, K10), q1 and q2 on its
+    # action (4), backward through both critics without the parameter sums
+    # (4), K10's backward and the actor's blocks (2).  Under CTDE the
+    # agent's own samples fuse along the batch (2 x 256 rows in the target,
+    # 5 x 256 in the actor loss) and every other agent's actor samples on
+    # its own obs in both (2 blocks and K10 each).  MLP networks: K10 only,
+    # and the fused MLP SAC actor acting, no blocks and no K7.
     want = {"env_tick": 1, "replay_insert_tick": 1, "replay_sample": 1,
-            "sac_sample": 2 * n * (1 + others), "sac_sample_backward": n,
+            "sac_head": 2 * n * (1 + others), "sac_head_backward": n,
             "flat_adamw": 2 * n}
     if not cfg.use_equiv:
-        want["sac_sample"] += n                # acting: F.linear + K10
+        want["mlp_sac_actor"] = n              # acting: one fused launch
         return want
     want.update({"sac_actor": n, "emlp_block": n * (16 + 4 * others),
                  "emlp_block_backward": 10 * n, "spectral_iterate": 2 * n})
@@ -2042,22 +2245,32 @@ def phase_train_kernels(cfg, dev, rep, agents, states, launches, shapes,
     rec.update(ms_32=k32, plain_ms_32=p32, bound_ms_32=b32, bound_by_32=by32)
     records.append(rec)
 
-    # K2 sample: 256 random rows of the 1e6-row ring, fresh rows each call
+    # K2 sample: 256 random rows of the 1e6-row ring, fresh rows each call,
+    # into the flagship TD3 update's operands (and SAC's, logged); the
+    # yardstick the row gather alone (``index_select``)
+    from gym_rotor_tpu_torch.algos import replay as R
     idxs = itertools.cycle([torch.randint(0, ring.shape[0], (cfg.batch_size,),
                                           generator=gen, device=dev)
                             for _ in range(64)])
-    k_ms, k_wall = device_ms(lambda: KR.replay_sample(ring, next(idxs), False), 100)
-    p_ms, _ = device_ms(lambda: KR.replay_sample_plain(ring, next(idxs), False), 100)
     l_ms, _ = device_ms(lambda: ring.index_select(0, next(idxs)), 100)
-    nbytes = cfg.batch_size * (2 * ring.shape[1] * 4 + 8)
-    bms, by = bound_ms(nbytes, cfg.batch_size * ring.shape[1])
-    log("kernels", kernel="replay_sample", rows=cfg.batch_size, ms=k_ms,
-        wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes, bound_ms=bms,
-        bound_by=by, library_ms=l_ms)
+    for name in ("td3", "sac"):
+        lay = R.gather_layout(dims, *sample_layouts()[name])
+        k_ms, k_wall = device_ms(
+            lambda: KR.replay_sample(ring, next(idxs), False, lay), 100)
+        p_ms, _ = device_ms(
+            lambda: KR.replay_sample_plain(ring, next(idxs), False, lay), 100)
+        # the sampled ring rows and indices read once, the operands written
+        nbytes = cfg.batch_size * (ring.shape[1] * 4 + 8 + lay.gathered * 4)
+        bms, by = bound_ms(nbytes, cfg.batch_size * lay.gathered)
+        log("kernels", kernel="replay_sample", layout=name,
+            rows=cfg.batch_size, floats_per_row=lay.gathered, ms=k_ms,
+            wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+            bound_ms=bms, bound_by=by, library_ms=l_ms)
+        if name == "td3":
+            inst = [(1, k_ms, p_ms, bms, by, l_ms)]
     records.append(_record("replay_sample", "replay.cu",
                            "gym_rotor_tpu/algos/replay.py:199",
-                           launches["replay_sample"], 0.0,
-                           [(1, k_ms, p_ms, bms, by, l_ms)]))
+                           launches["replay_sample"], 0.0, inst))
 
     # K3 / K4 at every (block, batch) instance the train path launched
     fwd, bwd = block_instances(dev, shapes, gen)
@@ -2149,9 +2362,9 @@ def spectral_timing(ws, Ws, x, agent, net, path):
 
 
 def phase_sac_kernels(cfg, dev, sac_agents, obs, launches, errs):
-    """Records of K9 and K10: device time per launch at the SAC path's
-    shapes, plain twin's time and bound; no one PyTorch call computes
-    either function."""
+    """Records of K9 and K10 (fused with SAC's heads): device time per
+    launch at the SAC path's shapes, plain twin's time and bound; no one
+    PyTorch call computes either function."""
     from gym_rotor_tpu_torch.kernels import sac_sample as KS
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     records = []
@@ -2169,39 +2382,58 @@ def phase_sac_kernels(cfg, dev, sac_agents, obs, launches, errs):
                            "gym_rotor_tpu/algos/sac.py:114",
                            launches["sac_actor"], errs["sac_actor"], inst))
 
-    # K10 per agent: forward at 256 (target) and 1024 (actor loss) rows,
-    # backward at 1024; 16 flops an element forward, 27 backward
+    # K10 (fused with the heads) per agent: forward at 256 (target) and
+    # 1024 (actor loss) rows, backward at 1024
     fwd, bwd = [], []
     for agent in sac_agents:
         act = agent.action_dim
+        H = agent.actor_net.log_std_linear.kernel.shape[0]
         for n in (cfg.batch_size, 4 * cfg.batch_size):
-            m, s, z, g_a, g_l = _k10_inputs(n, act, gen, dev)
-            k_ms, _ = device_ms(lambda: KS.sac_sample(m, s, z), 100)
-            p_ms, _ = device_ms(lambda: KS.sac_sample_plain(m, s, z), 50)
-            bms, by = bound_ms(4 * (4 * n * act + n), 16 * n * act)
+            h, wm, bm, wl, bl, z, g_a, g_l = sac_head_inputs(
+                n, H, act, False, "moderate", gen, dev)
+            k_ms, _ = device_ms(
+                lambda: KS.sac_head(h, wm, bm, wl, bl, z, False), 100)
+            p_ms, _ = device_ms(
+                lambda: KS.sac_head_plain(h, wm, bm, wl, bl, z, False), 50)
+            bms, by = bound_ms(*sac_head_work(n, H, act, False))
             fwd.append((1, k_ms, p_ms, bms, by, None))
-            log("kernels", kernel="sac_sample", rows=n, act=act, ms=k_ms,
+            log("kernels", kernel="sac_head", rows=n, H=H, act=act, ms=k_ms,
                 plain_ms=p_ms, bound_ms=bms, bound_by=by, library_ms=None)
             if n == cfg.batch_size:
                 continue
-            k_ms, _ = device_ms(
-                lambda: KS.sac_sample_backward(g_a, g_l, m, s, z), 100)
-            p_ms, _ = device_ms(
-                lambda: KS.sac_sample_backward_plain(g_a, g_l, m, s, z), 50)
-            bms, by = bound_ms(4 * (6 * n * act + n), 27 * n * act)
+            k_ms, _ = device_ms(lambda: KS.sac_head_backward(
+                g_a, g_l, h, wm, bm, wl, bl, z, False), 100)
+            p_ms, _ = device_ms(lambda: KS.sac_head_backward_plain(
+                g_a, g_l, h, wm, bm, wl, bl, z, False), 50)
+            bms, by = bound_ms(*sac_head_work(n, H, act, True))
             bwd.append((1, k_ms, p_ms, bms, by, None))
-            log("kernels", kernel="sac_sample_backward", rows=n, act=act,
+            log("kernels", kernel="sac_head_backward", rows=n, H=H, act=act,
                 ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
                 library_ms=None)
-    records.append(_record("sac_sample", "sac_sample.cu",
+    records.append(_record("sac_head", "sac_sample.cu",
                            "gym_rotor_tpu/models/mlp.py:129",
-                           launches["sac_sample"], errs["sac_sample"]["forward"],
+                           launches["sac_head"], errs["sac_sample"]["forward"],
                            fwd))
-    records.append(_record("sac_sample_backward", "sac_sample.cu",
+    records.append(_record("sac_head_backward", "sac_sample.cu",
                            "gym_rotor_tpu/models/mlp.py:129",
-                           launches["sac_sample_backward"],
+                           launches["sac_head_backward"],
                            errs["sac_sample"]["backward"], bwd))
     return records
+
+
+def sac_head_work(n, H, A, backward):
+    """(bytes, flops) of the fused head at ``n`` rows: forward, h and the
+    noise read, the action and the log-prob written, both heads' weights
+    read once; per row the heads' 4 A H products and sums, and ~20 flops an
+    action of the clip and the sample.  Backward: the cotangents, h and
+    the noise read, g_h, G = [g_mean | g_log_std] and the weight gradients
+    M ((H + 1) x 2 A) written; per row the heads again, g_h's 4 A H, M's
+    4 A (H + 1), and ~30 flops an action."""
+    weights = 2 * A * (H + 1)
+    if not backward:
+        return 4 * (n * (H + 2 * A + 1) + weights), n * (4 * A * H + 20 * A)
+    return (4 * (n * (A + 1 + H + A) + 2 * weights + n * (H + 2 * A)),
+            n * (12 * A * H + 34 * A))
 
 
 def phase_k5(dev, k5_td3, k5_sac):
@@ -2932,6 +3164,97 @@ def _mlp_flops(net_params, rows):
     return 2 * rows * sum(t.numel() for t in net_params)
 
 
+MLP_SAC_ACTOR = {}   # mlp_sac_actor_checks' worst error and times
+
+
+def mlp_sac_actor_checks(dev):
+    """The fused MLP SAC actor (``kernels/mlp_sac_actor.py``) vs its twin
+    (``ActorSAC.dist``'s ``F.linear`` chain and the plain sample) at every
+    MLP SAC agent shape (Mod-MLP agents 0 and 1, Mono-MLP: 15 / 16 / 4,
+    3 / 4 / 1, 23 / 16 / 4) on reset obs, at 1, 10, 32 and 4096 rows, train
+    and eval modes, with the log_std bias as initialised and shifted by
+    +-25 (every row at a clip bound); each launch run twice and compared
+    bitwise, written into column slices of wider tensors whose other
+    columns must stay as they were, one CUDA kernel a call (profiler
+    trace).  Tolerance 1e-5 (tanh outputs).  Then device time at 4096 rows,
+    the twin's and the bound, kept for the kernel's record."""
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.envs.batch import batched_reset
+    from gym_rotor_tpu_torch.kernels import mlp_sac_actor as KM
+    from gym_rotor_tpu_torch.utils.config import Config
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    init = torch.Generator().manual_seed(SEED)
+    worst, bad, inst = 0.0, [], {}
+    for fam, kw in (("mod_mlp", {}), ("mono_mlp", dict(framework="MONO"))):
+        cfg = Config(num_envs=B, rl_algo="SAC", use_equiv=False, **kw)
+        obs = [o.contiguous() for o in batched_reset(cfg, gen, device=dev)[1]]
+        for i in range(cfg.n_agents):
+            agent = SACAgent(cfg, i, dev)
+            actor = agent.bound_actor(agent.init(init))
+            A = agent.action_dim
+            bias = actor.log_std.bias
+            saved = bias.detach().clone()
+            for shift in (0.0, 25.0, -25.0):
+                with torch.no_grad():
+                    bias.copy_(saved + shift)
+                for nb in (1, 10, 32, B):
+                    o = obs[i][:nb]
+                    noise = torch.randn(nb, A, generator=gen, device=dev)
+                    for mode, nz in (("train", noise), ("eval", None)):
+                        def fused():
+                            out = torch.full((nb, A + 2), 7.0, device=dev)
+                            with torch.no_grad():
+                                actor(o, nz, out[:, 1:1 + A])
+                            return out
+                        out, same = _twice(fused)
+                        with torch.no_grad():
+                            ap = KM.mlp_sac_actor_plain(actor, o, nz)
+                        da = float((out[:, 1:1 + A] - ap).abs().max())
+                        kept = bool((out[:, [0, -1]] == 7).all())
+                        per_call = None
+                        if shift == 0.0 and nb in (32, B):
+                            with torch.no_grad():
+                                per_call = launches_per_call(
+                                    lambda: actor(o, nz, out[:, 1:1 + A]))
+                        worst = max(worst, da)
+                        log("mlp_nets", kernel="mlp_sac_actor", config=fam,
+                            agent=i, dims=KM.actor_dims(actor), batch=nb,
+                            mode=mode, log_std_shift=shift,
+                            saturated=float((ap.abs() == 1.0).float().mean()),
+                            max_abs_err=da, other_columns_kept=kept,
+                            rerun_bitwise=same, kernels_a_call=per_call)
+                        if not (da <= 1e-5 and kept and same
+                                and per_call in (None, 1)
+                                and bool(torch.isfinite(out).all())):
+                            bad.append((fam, i, nb, mode, shift, da, kept,
+                                        same, per_call))
+            with torch.no_grad():
+                bias.copy_(saved)
+            nin, nh, _ = KM.actor_dims(actor)
+            o = obs[i]
+            noise = torch.randn(B, A, generator=gen, device=dev)
+            with torch.no_grad():
+                k_ms, k_wall = device_ms(lambda: actor(o, noise), 100)
+                p_ms, _ = device_ms(
+                    lambda: KM.mlp_sac_actor_plain(actor, o, noise), 50)
+            # obs and the draw read, the action written, the weights read
+            # once; per row the layers' and heads' products and sums, the
+            # biases and relus, and ~10 flops an action of the clip and draw
+            nbytes = 4 * (B * (nin + 2 * A) + nin * nh + nh * nh
+                          + 2 * nh * A + 2 * nh + 2 * A)
+            flops = B * (2 * (nin * nh + nh * nh + 2 * nh * A) + 4 * nh
+                         + 10 * A)
+            bms, by = bound_ms(nbytes, flops)
+            inst[(fam, i)] = (k_ms, p_ms, bms, by)
+            log("mlp_nets", kernel="mlp_sac_actor", config=fam, agent=i,
+                dims=[nin, nh, A], rows=B, ms=k_ms, wall_ms_per_call=k_wall,
+                plain_ms=p_ms, bytes=nbytes, flops=flops, bound_ms=bms,
+                bound_by=by, library_ms=None)
+    if bad:
+        raise AssertionError(f"mlp_sac_actor disagrees: {bad[:5]}")
+    MLP_SAC_ACTOR.update(err=worst, inst=inst)
+
+
 def phase_mlp_nets(dev, runs):
     """The MLP networks (plain torch: ``F.linear`` on cuBLAS, not a kernel
     of the port) at the train paths' shapes, for every agent of the
@@ -2943,8 +3266,10 @@ def phase_mlp_nets(dev, runs):
     keeps the host from running ahead of the card, as the profiler's
     kernel-time sum); the bound from the weights and activations read and
     written once and the flops (3x the forward's for a forward with its
-    backward)."""
+    backward).  Then the fused MLP SAC actor, a kernel, against its twin
+    (``mlp_sac_actor_checks``)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    mlp_sac_actor_checks(dev)
     for name, run in runs.items():
         cfg = run["cfg"]
         for i, (agent, st) in enumerate(zip(run["agents"], run["states"])):
@@ -3429,6 +3754,24 @@ def phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
                            "gym_rotor_tpu/algos/ppo.py:107",
                            total.get("mlp_ppo_actor", 0),
                            actor_errs["mlp_ppo_actor"], inst))
+
+    # the fused MLP SAC actor, timed at 4096 rows in phase 20
+    # (mlp_sac_actor_checks), weighted by its launches per agent on the MLP
+    # SAC runs
+    per_agent = {
+        ("mod_mlp", 0): 0, ("mod_mlp", 1): 0, ("mono_mlp", 0): 0}
+    for name, fam in (("sac_ctde_mlp", "mod_mlp"), ("sac_mod_mlp", "mod_mlp"),
+                      ("sac_mono_mlp", "mono_mlp")):
+        run = runs[name]
+        for i in range(len(run["agents"])):
+            per_agent[(fam, i)] += (run["launches"].get("mlp_sac_actor", 0)
+                                    / len(run["agents"]))
+    inst = [(per_agent[k], *MLP_SAC_ACTOR["inst"][k], None)
+            for k in per_agent]
+    records.append(_record("mlp_sac_actor", "mlp_sac_actor.cu",
+                           "gym_rotor_tpu/algos/sac.py:114",
+                           total.get("mlp_sac_actor", 0),
+                           MLP_SAC_ACTOR["err"], inst))
     return records
 
 
@@ -3709,7 +4052,7 @@ def replay_resources():
     from gym_rotor_tpu_torch.kernels import replay as KR
     out, cur = {}, None
     for ln in KR.KERNEL.ptxas.splitlines():
-        m = re.search(r"(insert_kernel|sample_kernel)", ln)
+        m = re.search(r"(insert_kernel|gather_kernel)", ln)
         if "Compiling entry function" in ln and m:
             cur = out.setdefault(m.group(1), {})
         elif cur is not None and "spill stores" in ln:

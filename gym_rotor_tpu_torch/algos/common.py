@@ -226,10 +226,14 @@ class FlatAgent:
         return self.actor_net
 
     def critic_apply(self, views: Dict[str, torch.Tensor], obs, act):
-        """Both Qs on the parameter ``views``: the EMLP twin's blocks
-        through K3/K4, or the MLP twin as torch ops."""
+        """Both Qs on the parameter ``views`` and ``concat(obs, act)``."""
+        return self.critic_apply_sa(views, torch.cat([obs, act], dim=-1))
+
+    def critic_apply_sa(self, views: Dict[str, torch.Tensor], sa):
+        """Both Qs on the parameter ``views`` and the critic input ``sa =
+        concat(obs, act)`` (a sampled operand, ``algos/replay.py``): the
+        EMLP twin's blocks through K3/K4, or the MLP twin as torch ops."""
         if not self.equivariant:
-            return mlp.critic_twin(views, obs, act)
-        x = torch.cat([obs, act], dim=-1)
-        return (emlp_apply(self.critic_net.network1, views, "network1.", x),
-                emlp_apply(self.critic_net.network2, views, "network2.", x))
+            return mlp.critic_twin_sa(views, sa)
+        return (emlp_apply(self.critic_net.network1, views, "network1.", sa),
+                emlp_apply(self.critic_net.network2, views, "network2.", sa))

@@ -12,10 +12,19 @@ place (JAX returns a new array; a copy of a 1e6-row ring per tick is what
 this avoids), and ``ptr``/``filled`` are host integers, the mirror of the
 JAX device scalars, so drawing the sample indices and the empty-ring
 poison cost no device sync.  Samples are drawn with replacement, as in JAX.
+
+A sample writes the learners' operands directly (``kernels/replay.py``
+``GatherLayout``): the critic input ``[obs_i | act_i]`` (under CTDE the
+joint obs and actions, and the joint ``next_obs``), the CAPS stack with
+its last block free for ``obs + eps``, ``rwd_i`` and ``done_i``; the
+``Batch`` fields are views of them, and ``Batch.ops`` carries them to the
+learners (``learner_operands``), which would otherwise concatenate the
+fields.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -123,24 +132,98 @@ def insert_rollout(rs: ReplayState, trs) -> ReplayState:
                        flat(trs.done))
 
 
+class Operands(NamedTuple):
+    """The learners' operands a sample wrote (views of one buffer):
+    ``sa`` per agent ``[obs_i | act_i]`` (under CTDE each agent's entry is
+    the one joint ``[obs_0 | obs_1 | act_0 | act_1]``), ``t_obs`` the CTDE
+    joint ``next_obs`` (None under DTDE), and per agent the CAPS ``stack``
+    of (``len(fields)`` B, d_i), its row blocks the ring fields ``fields``
+    (``"eps"``: a block left for the learner)."""
+    sa: Tuple[torch.Tensor, ...]
+    t_obs: Optional[torch.Tensor]
+    stack: Tuple[torch.Tensor, ...]
+    fields: Tuple[str, ...]
+
+
 class Batch(NamedTuple):
     obs: Tuple[torch.Tensor, ...]
     act: Tuple[torch.Tensor, ...]
     rwd: Tuple[torch.Tensor, ...]
     next_obs: Tuple[torch.Tensor, ...]
     done: Tuple[torch.Tensor, ...]
+    ops: Optional[Operands] = None
+
+
+# the stack a sample writes when no learner names one: obs and next_obs
+PLAIN_STACK = ("obs", "next_obs")
+
+
+@lru_cache(maxsize=None)
+def gather_layout(dims, ctde: bool, stack: Tuple[str, ...]) -> K.GatherLayout:
+    """The cached ``GatherLayout`` of ``(dims, ctde, stack)``."""
+    return K.GatherLayout(dims, ctde, stack)
 
 
 def sample(rs: ReplayState, batch_size: int,
            generator: Optional[torch.Generator] = None,
-           idx: Optional[torch.Tensor] = None) -> Batch:
+           idx: Optional[torch.Tensor] = None, ctde: bool = False,
+           stack: Tuple[str, ...] = PLAIN_STACK) -> Batch:
     """Uniform shared indices over ``[0, max(filled, 1))``, with
-    replacement (``idx`` injects them); one row gather, sliced into
-    per-agent fields.  A batch drawn while the ring is empty is
-    NaN-poisoned."""
+    replacement (``idx`` injects them); one gather into the learners'
+    operands (``ctde``: the joint ones; ``stack``: the CAPS stack's row
+    blocks, ``kernels/replay.py::GatherLayout``), the fields views of them.
+    A batch drawn while the ring is empty is NaN-poisoned."""
     if idx is None:
         idx = torch.randint(0, max(rs.filled, 1), (batch_size,),
                             generator=generator, device=rs.data.device)
-    rows = K.replay_sample(rs.data, idx.to(rs.data.device), rs.filled == 0)
-    return Batch(*_split(rows, rs.dims))
+    layout = gather_layout(rs.dims, bool(ctde), tuple(stack))
+    B = idx.shape[0]
+    buf = K.replay_sample(rs.data, idx.to(rs.data.device), rs.filled == 0,
+                          layout)
+    v = layout.views(buf, B)
+    obs_dims, act_dims = rs.dims
+    n = len(obs_dims)
+    q_obs, q_next = stack.index("obs"), stack.index("next_obs")
+    stacks = tuple(v[f"stack{a}"] for a in range(n))
+    if ctde:
+        sa, t_obs = (v["sa"],) * n, v["t_obs"]
+        c0 = [sum(obs_dims) + sum(act_dims[:a]) for a in range(n)]
+    else:
+        sa, t_obs = tuple(v[f"sa{a}"] for a in range(n)), None
+        c0 = list(obs_dims)
+    return Batch(
+        obs=tuple(s[q_obs * B:(q_obs + 1) * B] for s in stacks),
+        act=tuple(x[:, c:c + d] for x, c, d in zip(sa, c0, act_dims)),
+        rwd=tuple(v[f"rwd{a}"] for a in range(n)),
+        next_obs=tuple(s[q_next * B:(q_next + 1) * B] for s in stacks),
+        done=tuple(v[f"done{a}"] for a in range(n)),
+        ops=Operands(sa, t_obs, stacks, tuple(stack)))
 
+
+def learner_operands(batch: Batch, i: int, ctde: bool,
+                     stack: Optional[Tuple[str, ...]] = None):
+    """Agent ``i``'s ``(sa, t_obs, stack)``: the critic input ``[obs_i |
+    act_i]`` (``ctde``: the joint one), the CTDE joint ``next_obs`` (None
+    under DTDE) and, when ``stack`` names its fields, the CAPS stack with
+    its ``"eps"`` block unwritten.  The operands the sample wrote where it
+    wrote these; else (a ``Batch`` built by hand) concatenations of the
+    fields, the same values."""
+    ops = batch.ops
+    if ops is not None and (ops.t_obs is not None) == ctde:
+        sa, t_obs = ops.sa[i], ops.t_obs
+        if stack and ops.fields == tuple(stack):
+            return sa, t_obs, ops.stack[i]
+    elif ctde:
+        sa = torch.cat(list(batch.obs) + list(batch.act), dim=-1)
+        t_obs = torch.cat(batch.next_obs, dim=-1)
+    else:
+        sa, t_obs = torch.cat([batch.obs[i], batch.act[i]], dim=-1), None
+    if not stack:
+        return sa, t_obs, None
+    obs = batch.obs[i]
+    B = obs.shape[0]
+    stk = obs.new_empty((len(stack) * B,) + tuple(obs.shape[1:]))
+    for q, f in enumerate(stack):
+        if f != "eps":
+            stk[q * B:(q + 1) * B] = getattr(batch, f)[i]
+    return sa, t_obs, stk

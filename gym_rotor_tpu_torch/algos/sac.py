@@ -11,18 +11,25 @@ the actor loss's joint action puts the agent's sample beside the other
 agents' current samples, with the log-prob and the three CAPS samples from
 their own draws.  Agents update in order, in place, as in ``algos/td3.py``.
 
-On the card the update runs through the port's kernels: every EMLP block of
-every forward and backward is K3/K4 (``kernels/emlp_block.py``), the
-squashed sample and its log-prob are K10 (``kernels/sac_sample.py``, forward
-for the target samples and the actor loss, backward for the actor loss),
-the power iterations K7 and each network's optimizer step one K6 call; the
-fold (K5), the heads, the log_std clip, tanh clips and losses are torch
-ops, and so is the temperature's AdamW on its one scalar.  MLP networks are
-``F.linear`` chains whose samples go through K10 all the same.  Acting is
-one K9 launch per EMLP agent (``kernels/emlp_actor.py``), or the MLP
-actor's ``F.linear`` chain and one K10 forward.  Samples of one actor on
-one set of weights are fused along the batch (one forward over the rows
-with their draws), as JAX fuses the DTDE actor loss's four.
+On the card the update runs through the port's kernels: the sample
+writes the update's operands (K2 sample, ``algos/replay.py``: the critic
+input ``[obs | act]``, the CTDE joint fields and the actor loss's stack
+``[obs; obs; next_obs; obs + eps]``, its last block written here), every
+EMLP block of every forward and backward is K3/K4
+(``kernels/emlp_block.py``), SAC's heads with the squashed sample and its
+log-prob are one launch of the fused head (K10, ``kernels/sac_sample.py``,
+on the trunk's output and the heads' weights: the EMLP mean head's K5-folded
+``W_eff``, the MLP's Dense kernels; forward for the target samples and the
+actor loss, one backward launch for the actor loss), the
+power iterations K7 and each network's optimizer step one K6 call; the
+fold (K5), tanh clips and losses are torch ops, and so is the
+temperature's AdamW on its one scalar.  MLP networks' trunks are
+``F.linear`` chains, their heads the same fused kernel.  Acting is one
+launch per agent: K9 for an EMLP agent (``kernels/emlp_actor.py``), the
+fused MLP SAC actor (``kernels/mlp_sac_actor.py``) for an MLP one.
+Samples of one actor on one set of weights are fused along the batch (one
+forward over the rows with their draws), as JAX fuses the DTDE actor
+loss's four.
 
 Divergences, deliberate: the state is updated in place, as in
 ``algos/td3.py``, and ``total_it`` and the optimizer counts are host
@@ -37,15 +44,21 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..envs import draws as D
-from ..kernels.emlp_block import emlp_trunk, equiv_linear
-from ..kernels.sac_sample import squashed_gaussian
+from ..kernels.emlp_block import emlp_trunk, fold_linear
+from ..kernels.sac_sample import head_plain, sac_head_sample
 from ..models import mlp
 from ..models.zoo import sac_models
-from ..models.mlp import LOG_SIG_MAX, LOG_SIG_MIN
 from ..utils.config import Config
 from . import regularizers
 from .common import FlatAgent, OptState, mse, spectral_penalty
-from .replay import Batch
+from .replay import Batch, learner_operands
+
+
+def caps_stack(ctde: bool):
+    """The actor loss's rows, as a sample lays them out: ``[obs; obs;
+    next_obs; obs + eps]`` (under CTDE ``obs`` once more first, the joint
+    action's sample)."""
+    return ("obs",) * (3 if ctde else 2) + ("next_obs", "eps")
 
 
 @dataclass
@@ -147,35 +160,43 @@ class SACAgent(FlatAgent):
                       out: Optional[torch.Tensor] = None):
         """``tanh(mean + exp(log_std) noise)`` with the N(0, 1) draw
         ``noise``, or the deterministic ``tanh(mean)`` without it
-        (sac.py:108-117); on the card one K9 launch (EMLP, folded once per
-        parameter version) or the MLP's ``F.linear`` chain and K10."""
+        (sac.py:108-117); on the card one launch: K9 (EMLP, folded once per
+        parameter version) or the fused MLP SAC actor."""
         actor = self.bound_actor(state)
         with torch.no_grad():
             return actor(obs, noise, out)
 
     # -- the training path's networks, on views of a flat vector
-    def dist_f(self, views: Dict[str, torch.Tensor], obs):
-        """``(mean, log_std)``: the trunk through K3/K4, the equivariant
-        mean head and the clipped log_std Dense as torch ops; or the MLP
-        actor's ``F.linear`` chain."""
+    def trunk_f(self, views: Dict[str, torch.Tensor], obs):
+        """``(h, heads)``: the trunk's last hidden activations (EMLP blocks
+        through K3/K4, or the MLP's ``F.linear`` chain) and the heads
+        ``(W_m, b_m, W_ls, b_ls)``: the EMLP mean head folded (K5) to
+        ``W_eff`` (act, H), or the MLP's Dense kernels (H, act)."""
         if not self.equivariant:
-            return mlp.actor_sac(views, obs)
+            return mlp.sac_trunk(views, obs), mlp.sac_heads(views)
         net = self.actor_net
         h = emlp_trunk(net, views, "", obs)
-        mean = equiv_linear(net.network_head, views, "network_head.", h)
-        log_std = h @ views["log_std_linear.kernel"] \
-            + views["log_std_linear.bias"]
-        return mean, torch.clamp(log_std, LOG_SIG_MIN, LOG_SIG_MAX)
+        W, b = fold_linear(net.network_head, views, "network_head.")
+        return h, (W, b, views["log_std_linear.kernel"],
+                   views["log_std_linear.bias"])
+
+    def dist_f(self, views: Dict[str, torch.Tensor], obs):
+        """``(mean, log_std)`` as torch ops on the trunk: the heads and the
+        clamp (``kernels/sac_sample.py::head_plain``)."""
+        h, heads = self.trunk_f(views, obs)
+        return head_plain(h, *heads, not self.equivariant)
 
     def sample_f(self, views: Dict[str, torch.Tensor], obs, noise):
-        """``(action, log_prob)`` through K10."""
-        return squashed_gaussian(*self.dist_f(views, obs), noise)
+        """``(action, log_prob)``: the trunk, then the heads and the sample
+        in one launch of the fused head (its torch chain on the CPU)."""
+        h, heads = self.trunk_f(views, obs)
+        return sac_head_sample(h, *heads, noise, not self.equivariant)
 
 
 def make_act_fn(agents: Sequence[SACAgent]):
     """The superstep's acting hook (``train.py:352-366``):
     ``act(states, obs, noise_std, noise) -> joint action``, each agent's
-    sample (K9, or the MLP chain and K10) written into its columns;
+    sample (K9, or the fused MLP SAC actor) written into its columns;
     ``noise_std`` is unused."""
     dims = [a.action_dim for a in agents]
 
@@ -193,7 +214,8 @@ def make_act_fn(agents: Sequence[SACAgent]):
 def superstep_hooks(agents: Sequence[SACAgent]):
     """The keyword arguments that make ``make_td3_superstep`` run SAC."""
     return dict(train_fn=train_step, act_fn=make_act_fn(agents),
-                draws_fn=D.make_sac_update_draws)
+                draws_fn=D.make_sac_update_draws,
+                stack=caps_stack(agents[0].is_ctde))
 
 
 def train_step(cfg: Config, agents: Sequence[SACAgent],
@@ -211,13 +233,20 @@ def train_step(cfg: Config, agents: Sequence[SACAgent],
 def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
                d: D.SACAgentDraws):
     agent, st = agents[i], states[i]
-    obs, act, rwd = batch.obs[i], batch.act[i], batch.rwd[i]
+    obs, rwd = batch.obs[i], batch.rwd[i]
     next_obs, done = batch.next_obs[i], batch.done[i]
     m = cfg.max_action
     alpha = agent.alpha(st)
     gate = (st.total_it + 1) % cfg.policy_update_freq == 0
 
     B = obs.shape[0]
+    # the sampled operands: the critic input [obs | act] (CTDE: the joint
+    # obs and actions), the CTDE joint next_obs, the actor loss's stack;
+    # its last block, obs + eps, written before any autograd records a
+    # view of the sample's buffer
+    sa, t_obs, stack = learner_operands(batch, i, agent.is_ctde,
+                                        caps_stack(agent.is_ctde))
+    torch.add(obs, regularizers.caps_noise(d.caps_eps), out=stack[-B:])
 
     # ----- target sample from the current actor + entropy (sac.py:152-193)
     with torch.no_grad():
@@ -234,13 +263,10 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
                     other.actor_layout.views(states[j].actor),
                     batch.next_obs[j], d.next_joint[j])[0]
                 for j, other in enumerate(agents)], dim=-1)
-            t_obs = torch.cat(batch.next_obs, dim=-1)
-            c_obs = torch.cat(batch.obs, dim=-1)
-            c_act = torch.cat(batch.act, dim=-1)
         else:
             t_act, logp_next = agent.sample_f(
                 agent.actor_layout.views(st.actor), next_obs, d.next_noise)
-            t_obs, c_obs, c_act = next_obs, obs, act
+            t_obs = next_obs
         tq1, tq2 = agent.critic_apply(
             agent.critic_layout.views(st.critic_target), t_obs, t_act)
         target_q = rwd + cfg.discount * (1.0 - done) * (
@@ -249,7 +275,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     # ----- critic update (sac.py:173-199)
     leaf = st.critic.detach().requires_grad_(True)
     cv = agent.critic_layout.views(leaf)
-    q1, q2 = agent.critic_apply(cv, c_obs, c_act)
+    q1, q2 = agent.critic_apply_sa(cv, sa)
     closs = mse(q1, target_q) + mse(q2, target_q)
     if agent.equivariant:
         closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
@@ -262,20 +288,16 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         owner=agent.critic_net)
 
     # ----- actor update on the updated critic (sac.py:201-261): one actor
-    # forward over [obs; obs; next_obs; obs + eps] (under CTDE over [obs;
-    # obs; obs; next_obs; obs + eps], the joint action's sample first)
+    # forward over the stack [obs; obs; next_obs; obs + eps] (under CTDE
+    # [obs; obs; obs; next_obs; obs + eps], the joint action's sample first)
     critic = agent.critic_layout.views(st.critic.detach())
     leaf = st.actor.detach().requires_grad_(True)
     av = agent.actor_layout.views(leaf)
-    eps = regularizers.caps_noise(d.caps_eps)
-    rows = [obs, obs, next_obs, obs + eps]
     draws = [d.n_pi, d.n_caps, d.n_caps, d.n_caps]
     if agent.is_ctde:
-        rows, draws = [obs] + rows, [d.pi_joint[i]] + draws
-    k = len(rows) - 4
-    mean_r, log_std_r = agent.dist_f(av, torch.cat(rows, dim=0))
-    a_r, logp_r = squashed_gaussian(mean_r, log_std_r,
-                                    torch.cat(draws, dim=0))
+        draws = [d.pi_joint[i]] + draws
+    k = len(draws) - 4
+    a_r, logp_r = agent.sample_f(av, stack, torch.cat(draws, dim=0))
     ac = torch.clamp(a_r[(k + 1) * B:], -m, m)
     logp = logp_r[k * B:(k + 1) * B]
     if agent.is_ctde:
@@ -285,7 +307,9 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
                 other.actor_layout.views(states[j].actor), batch.obs[j],
                 d.pi_joint[j])[0] for j, other in enumerate(agents)]
         others[i] = a_r[:B]
-        q1, q2 = agent.critic_apply(critic, c_obs, torch.cat(others, dim=-1))
+        n_obs = sum(a.obs_dim for a in agents)
+        q1, q2 = agent.critic_apply(critic, sa[:, :n_obs],
+                                    torch.cat(others, dim=-1))
     else:
         q1, q2 = agent.critic_apply(critic, obs, a_r[:B])
     aloss = -(torch.minimum(q1, q2) - alpha * logp).mean()

@@ -13,6 +13,9 @@ actor and targets, as JAX's ``train_step`` passes ``new_states`` on.
 
 The networks come from ``models/zoo.py::td3_models``: EMLP (``use_equiv``)
 or plain MLPs.  On the card the update runs through the port's kernels:
+the sample writes the update's operands (K2 sample, ``algos/replay.py``:
+the critic input ``[obs | act]``, the CTDE joint fields and the actor
+loss's stack ``[obs; next_obs; obs + eps]``, its last block written here),
 every EMLP block of every forward and backward is K3/K4
 (``kernels/emlp_block.py``, under autograd), the power iterations are K7,
 each network's optimizer step (and its Polyak) is one K6 call; the fold
@@ -45,7 +48,11 @@ from ..models.zoo import td3_models
 from ..utils.config import Config
 from . import regularizers
 from .common import FlatAgent, OptState, mse, spectral_penalty
-from .replay import Batch
+from .replay import Batch, learner_operands
+
+# the actor loss's rows, as a sample lays them out: [obs; next_obs; obs +
+# eps] (td3.py:284)
+CAPS_STACK = ("obs", "next_obs", "eps")
 
 
 @dataclass
@@ -150,24 +157,32 @@ def _smoothed(cfg: Config, agent: TD3Agent, actor_target: torch.Tensor,
 def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
                d: AgentDraws):
     agent, st = agents[i], states[i]
-    obs, act, rwd = batch.obs[i], batch.act[i], batch.rwd[i]
+    obs, rwd = batch.obs[i], batch.rwd[i]
     next_obs, done = batch.next_obs[i], batch.done[i]
     m = cfg.max_action
     gate = (st.total_it + 1) % cfg.policy_update_freq == 0
+
+    # the sampled operands: the critic input [obs | act] (CTDE: the joint
+    # obs and actions), the CTDE joint next_obs and, on a gated update, the
+    # actor loss's stack; its last block, obs + eps, written before any
+    # autograd records a view of the sample's buffer
+    sa, t_obs, stack = learner_operands(batch, i, agent.is_ctde,
+                                        CAPS_STACK if gate else None)
+    B = obs.shape[0]
+    if gate:
+        torch.add(obs, regularizers.caps_noise(d.caps_eps),
+                  out=stack[2 * B:])
 
     # ----- target-policy smoothing and the target Q (td3.py:205-254):
     # under CTDE every agent's target actor on its own next_obs
     with torch.no_grad():
         if agent.is_ctde:
-            t_obs = torch.cat(batch.next_obs, dim=-1)
             t_act = torch.cat([
                 _smoothed(cfg, other, states[j].actor_target,
                           batch.next_obs[j], d.target_noise[j])
                 for j, other in enumerate(agents)], dim=-1)
-            c_obs = torch.cat(batch.obs, dim=-1)
-            c_act = torch.cat(batch.act, dim=-1)
         else:
-            t_obs, c_obs, c_act = next_obs, obs, act
+            t_obs = next_obs
             t_act = _smoothed(cfg, agent, st.actor_target, next_obs,
                               d.target_noise)
         tq1, tq2 = agent.critic_apply(
@@ -177,7 +192,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     # ----- critic update (td3.py:240-266)
     leaf = st.critic.detach().requires_grad_(True)
     cv = agent.critic_layout.views(leaf)
-    q1, q2 = agent.critic_apply(cv, c_obs, c_act)
+    q1, q2 = agent.critic_apply_sa(cv, sa)
     closs = mse(q1, target_q) + mse(q2, target_q)
     if agent.equivariant:
         closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
@@ -195,10 +210,8 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         critic = agent.critic_layout.views(st.critic.detach())
         leaf = st.actor.detach().requires_grad_(True)
         av = agent.actor_layout.views(leaf)
-        eps = regularizers.caps_noise(d.caps_eps)
-        obs3 = torch.cat([obs, next_obs, obs + eps], dim=0)
-        a3 = torch.clamp(agent.actor_apply(av, obs3), -m, m)
-        a_cur, a_nxt, a_prt = torch.split(a3, obs.shape[0], dim=0)
+        a3 = torch.clamp(agent.actor_apply(av, stack), -m, m)
+        a_cur, a_nxt, a_prt = torch.split(a3, B, dim=0)
         if agent.is_ctde:
             # the other agents' current actors, constants here (td3.py:298)
             with torch.no_grad():
@@ -206,7 +219,8 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
                     other.actor_layout.views(states[j].actor), batch.obs[j]),
                     -m, m) for j, other in enumerate(agents)]
             others[i] = a_cur
-            aloss = -agent.critic_q1(critic, c_obs,
+            n_obs = sum(a.obs_dim for a in agents)
+            aloss = -agent.critic_q1(critic, sa[:, :n_obs],
                                      torch.cat(others, dim=-1)).mean()
         else:
             aloss = -agent.critic_q1(critic, obs, a_cur).mean()

@@ -20,7 +20,8 @@
 // its own cost and one row's chain: a load of the weights, three dot
 // products of 15-23, 16 and 16 terms, tanh and exp.
 //
-// Design: blocks of 128 threads, a row on 4 lanes (32 rows a block, so PPO
+// Design (the trunk is mlp_trunk.cuh's, shared with mlp_sac_actor.cu):
+// blocks of 128 threads, a row on 4 lanes (32 rows a block, so PPO
 // A's 32 rows run on 4 warps and 4096 rows on 128 blocks); every block
 // stages the weights (read from the bound parameter tensors each call:
 // nothing cached) and its rows' obs in shared memory, every copy a cp.async
@@ -35,17 +36,17 @@
 // and sum rounds once, as the plain twin's elementwise head does.
 // Instantiated for the MODUL actors (15, 16, 4) and (3, 4, 1) and the MONO
 // actor (23, 16, 4).
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mlp_trunk.cuh"
 #include "ppo_head.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kLanes = 4;                  // lanes a row
-constexpr int kRows = kThreads / kLanes;   // rows a block
+using mlp::kLanes;
+using mlp::kRows;
+using mlp::kThreads;
 
 struct Weights {
   const float* w0;   // (nin, nh), flax's Dense kernel
@@ -57,33 +58,6 @@ struct Weights {
   const float* log_std;
 };
 
-// h[u] = relu(sum_k x[k] W[k][u] + b[u]) for this lane's U units (W's
-// columns from u0), the terms in k order.
-template <int N, int U>
-__device__ __forceinline__ void dense_relu(const float* x, const float* W,
-                                           int ldw, const float* b,
-                                           float (&h)[U]) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) h[u] = x[0] * W[u];
-#pragma unroll
-  for (int k = 1; k < N; ++k) {
-    const float xk = x[k];
-#pragma unroll
-    for (int u = 0; u < U; ++u) h[u] = h[u] + xk * W[k * ldw + u];
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u) h[u] = fmaxf(h[u] + b[u], 0.0f);
-}
-
-// N floats into shared memory by cp.async, 4 bytes a copy (the parameter
-// views need not be 16-byte aligned), all in flight together.
-template <int N>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int t) {
-  for (int i = t; i < N; i += kThreads)
-    __pipeline_memcpy_async(dst + i, src + i, 4);
-}
-
 template <int NIN, int NH, int NACT>
 __global__ void __launch_bounds__(kThreads)
 mlp_ppo_actor_kernel(const float* __restrict__ obs, int B, Weights w,
@@ -91,47 +65,27 @@ mlp_ppo_actor_kernel(const float* __restrict__ obs, int B, Weights w,
                      float* __restrict__ out, int ld_out,
                      float* __restrict__ logp, int ld_logp,
                      float max_action) {
-  static_assert(NH % kLanes == 0, "whole hidden units a lane");
-  constexpr int U = NH / kLanes;
   __shared__ float W0[NIN * NH], B0[NH], W1[NH * NH], B1[NH];
   __shared__ float WM[NH * NACT], BM[NACT], LS[NACT];
   __shared__ float xs[kRows * NIN];
   __shared__ __align__(16) float hs[kRows][NH];
   const int t = threadIdx.x;
   const int r0 = blockIdx.x * kRows, nrow = min(kRows, B - r0);
-  stage<NIN * NH>(W0, w.w0, t);
-  stage<NH>(B0, w.b0, t);
-  stage<NH * NH>(W1, w.w1, t);
-  stage<NH>(B1, w.b1, t);
-  stage<NH * NACT>(WM, w.wm, t);
-  stage<NACT>(BM, w.bm, t);
-  stage<NACT>(LS, w.log_std, t);
-  const float* o = obs + (size_t)r0 * NIN;
-  for (int i = t; i < kRows * NIN; i += kThreads) {
-    if (i < nrow * NIN)
-      __pipeline_memcpy_async(xs + i, o + i, 4);
-    else
-      xs[i] = 0.0f;
-  }
+  mlp::stage<NIN * NH>(W0, w.w0, t);
+  mlp::stage<NH>(B0, w.b0, t);
+  mlp::stage<NH * NH>(W1, w.w1, t);
+  mlp::stage<NH>(B1, w.b1, t);
+  mlp::stage<NH * NACT>(WM, w.wm, t);
+  mlp::stage<NACT>(BM, w.bm, t);
+  mlp::stage<NACT>(LS, w.log_std, t);
+  mlp::stage_obs<NIN>(xs, obs, r0, nrow, t);
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 
-  const int row = t / kLanes, j = t % kLanes, u0 = j * U;
-  float h[U], x[NH];
-  dense_relu<NIN, U>(xs + row * NIN, W0 + u0, NH, B0 + u0, h);
-#pragma unroll
-  for (int u = 0; u < U; ++u) hs[row][u0 + u] = h[u];
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < NH; ++k) x[k] = hs[row][k];
-  __syncwarp();
-  dense_relu<NH, U>(x, W1 + u0, NH, B1 + u0, h);
-#pragma unroll
-  for (int u = 0; u < U; ++u) hs[row][u0 + u] = h[u];
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < NH; ++k) x[k] = hs[row][k];
+  const int row = t / kLanes, j = t % kLanes;
+  float x[NH];
+  mlp::hidden<NIN, NH>(xs, W0, B0, W1, B1, hs, t, x);
   if (row >= nrow) return;
   const size_t r = (size_t)r0 + row;
   for (int a = j; a < NACT; a += kLanes) {

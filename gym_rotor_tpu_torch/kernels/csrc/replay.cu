@@ -3,7 +3,10 @@
 //
 // Replaces gym_rotor_tpu/algos/replay.py:145 insert_tick (_pack + the
 // modular scatter of insert) and :199 sample (the row gather and the empty
-// ring's NaN poison), and the episode bookkeeping of
+// ring's NaN poison, with the copies the learners made of the sampled
+// fields: concat(obs, act), the CTDE joint fields and the CAPS stacks,
+// gym_rotor_tpu/algos/td3.py:209-224, :284, sac.py:153-171, :242), and the
+// episode bookkeeping of
 // gym_rotor_tpu/parallel/train_step.py:142-155 (roll_body: ep_ret, fin, cnt,
 // rsum), which XLA fused into the rollout scan on the TPU.  Plain twins:
 // gym_rotor_tpu_torch/kernels/replay.py:replay_insert_tick_plain and
@@ -12,8 +15,9 @@
 // Bound on an H100: the bytes.  One flagship tick writes 4096 rows of 45
 // floats (737 KB) and reads about as much (the tick's obs, actions, rewards,
 // terminal obs, flags and ep_ret): ~0.45 us at 3.35 TB/s.  At PPO A's 32
-// rows the floor is the launch.  A sample moves 256 rows of 45 floats twice
-// (92 KB), far under the launch.
+// rows the floor is the launch.  A sample reads 256 ring rows (46 KB) and
+// writes the learners' operands (~80-120 KB): ~0.05 us, far under the
+// launch.
 //
 // Design (one launch per call, with or without the statistics):
 // insert_kernel gives each block a tile of 32 rows (128 blocks at 4096
@@ -38,7 +42,21 @@
 // blocks of 128 envs this replaced, so the sums agree with it to float32
 // rounding, not bitwise (tests/test_torch_replay_kernel.py emulates it);
 // the ring and ep_ret are copies and the same expression, bitwise.
-// sample_kernel is one thread per gathered float.
+// gather_kernel (the sample) writes the learners' operands, one buffer of
+// regions: region r is a contiguous (B, w_r) matrix of the buffer whose
+// column c is ring column src of the sampled rows (a row block of an
+// operand: [obs_i | act_i], a CAPS stack's obs or next_obs block, rwd_i,
+// ...).  The host lists the gathered columns of a sampled row once per
+// layout (kernels/replay.py GatherLayout): per column j, one 64-bit word
+// of four 16-bit fields, its ring column, its region's place in the buffer
+// (in units of B), the region's width and the column's place in it.
+// Thread e takes element (b, j) = (e / W, e % W) of the B x W gathered
+// elements: consecutive threads read consecutive columns of one ring row
+// and write runs of a region's row.  Its loads of the column's word and of
+// idx[b] do not depend on each other, then the ring element; a thread
+// takes PER elements kThreads apart (1 on the train paths: the fastest of
+// 1, 2, 4, 8 at 256 rows), issues all its loads, then all its stores.  A value is poison * ring element (poison 1, or NaN for the
+// empty ring): a copy, bitwise.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -219,13 +237,36 @@ insert_kernel(float* __restrict__ ring, long long cap, int row_dim,
   if (tid == 0) *ticket = 0u;
 }
 
-__global__ void sample_kernel(const float* __restrict__ ring, int row_dim,
-                              const int64_t* __restrict__ idx, int batch,
-                              float poison, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= batch * row_dim) return;
-  const int b = e / row_dim, c = e % row_dim;
-  out[e] = poison * ring[idx[b] * row_dim + c];
+// table: per gathered column j < W, the word src | dst << 16 | wid << 32 |
+// col << 48 (ring column, region offset in units of batch, region width,
+// column in the region).
+template <int PER>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const float* __restrict__ ring, int row_dim,
+              const int64_t* __restrict__ idx, int batch, float poison,
+              const unsigned long long* __restrict__ table, int W,
+              float* __restrict__ out) {
+  const int total = batch * W;
+  const int e0 = blockIdx.x * kThreads * PER + threadIdx.x;
+  float v[PER];
+  int at[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int e = e0 + k * kThreads;
+    at[k] = -1;
+    if (e < total) {
+      const int b = e / W, j = e - b * W;
+      const unsigned long long word = __ldg(table + j);
+      const long long row = __ldg((const long long*)idx + b);
+      const int src = (int)(word & 0xFFFF), dst = (int)((word >> 16) & 0xFFFF);
+      const int w = (int)((word >> 32) & 0xFFFF), c = (int)(word >> 48);
+      v[k] = poison * __ldg(ring + row * row_dim + src);
+      at[k] = dst * batch + b * w + c;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (at[k] >= 0) out[at[k]] = v[k];
 }
 
 struct Launch {
@@ -300,13 +341,28 @@ extern "C" int replay_insert_launch(
   }
 }
 
+// table: the gathered columns' words (gather_kernel), W columns; out: the
+// buffer; per: elements a thread (1, 2, 4 or 8).
 extern "C" int replay_sample_launch(const void* ring, int row_dim,
                                     const void* idx, int batch, float poison,
-                                    void* out, void* stream) {
-  if (batch <= 0 || row_dim <= 0) return (int)cudaErrorInvalidValue;
-  const int n = batch * row_dim;
-  sample_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)ring, row_dim, (const int64_t*)idx, batch, poison,
-      (float*)out);
+                                    const void* table, int W, void* out,
+                                    int per, void* stream) {
+  if (batch <= 0 || row_dim <= 0 || W <= 0 ||
+      (long long)batch * W >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (batch * W + kThreads * per - 1) / (kThreads * per);
+  cudaStream_t st = (cudaStream_t)stream;
+#define GATHER(P)                                                         \
+  gather_kernel<P><<<blocks, kThreads, 0, st>>>(                          \
+      (const float*)ring, row_dim, (const int64_t*)idx, batch, poison,    \
+      (const unsigned long long*)table, W, (float*)out)
+  switch (per) {
+    case 1: GATHER(1); break;
+    case 2: GATHER(2); break;
+    case 4: GATHER(4); break;
+    case 8: GATHER(8); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GATHER
   return (int)cudaGetLastError();
 }

@@ -1,129 +1,359 @@
-// K10: the squashed-Gaussian sample of SAC and its summed log-prob, forward
-// and backward, for Hopper (sm_90a).
+// K10 fused with its producer: SAC's actor head on the trunk's last hidden
+// activations, the squashed-Gaussian sample and its summed log-prob, forward
+// and backward, for Hopper (sm_90a), one launch each.
 //
-// Replaces gym_rotor_tpu/models/mlp.py:129 sac_sample_with_noise and its
-// autodiff (jax.value_and_grad through the SAC actor loss), which XLA fused
-// into the actor-loss program on the TPU.  Plain twins:
-// gym_rotor_tpu_torch/kernels/sac_sample.py:sac_sample_plain and
-// sac_sample_backward_plain.
+// Replaces gym_rotor_tpu/models/mlp.py:129 sac_sample_with_noise with the
+// heads before it (gym_rotor_tpu/models/emlp/zoo.py:169-190 EMLPActorSAC's
+// network_head and clipped log_std_linear; models/mlp.py:107-119 ActorSAC's
+// mean and clipped log_std Dense) and their autodiff in the SAC actor loss,
+// which XLA fused into the actor-loss program on the TPU.  Plain twins:
+// gym_rotor_tpu_torch/kernels/sac_sample.py:sac_head_plain (the torch chain:
+// the two heads, the clamp, sac_sample_with_noise) and
+// sac_head_backward_plain.
 //
-// Bound on an H100: the bytes, and few.  Forward, per row of A <= 4 actions:
-// reads mean, log_std and noise (12 A bytes), writes the action and the
-// log-prob (4 A + 4 bytes); at the actor loss's 1024 rows of 4 actions that
-// is ~66 KB, ~0.02 us at 3.35 TB/s; the ~20 flops and 4 transcendentals an
-// element are less.  A launch of this size is dominated by the launch itself.
+// Bound on an H100: the bytes, and few.  Forward, per row of H hidden floats
+// and A <= 4 actions: reads h and the noise (4 (H + A) bytes), writes the
+// action and the log-prob (4 A + 4), and the heads' 2 A (H + 1) weights once;
+// at the actor loss's 1024 rows of H = 16, A = 4: ~115 KB, ~0.03 us at
+// 3.35 TB/s; the 4 A H flops of the heads and ~20 flops an action of the
+// sample are less.  Backward: h, the noise and both cotangents in, g_h,
+// [g_mean | g_log_std] and the heads' weight gradients out: ~200 KB,
+// ~0.06 us.  A launch of this size is held by the launch itself and, in
+// the backward, by the cross-block sum's fence and ticket.
 //
-// Design: one thread per row, the row's A <= 4 elements unrolled (A is a
-// template parameter), the log-prob's sum over the row in registers.  The
-// expression is JAX's as written:
-//   std = exp(ls); x = m + std n; a = tanh(x)
-//   logp = sum(-0.5 ((x - m) / std)^2 - ls - log(2 pi) / 2 - log((1 - a^2) + EPS))
-// The backward recomputes the forward from (m, ls, n) and differentiates that
-// expression as written, through both paths of z = (x - m) / std (directly
-// and through x), not an algebraically simplified one:
-//   g_z = -g_logp z;  g_d = g_z / std;  g_std_z = -g_z (x - m) / std^2
-//   g_x = g_a (1 - a^2) + g_logp 2 a (1 - a^2) / ((1 - a^2) + EPS) + g_d
-//   g_m = g_x - g_d;  g_std = g_x n + g_std_z;  g_ls = std g_std - g_logp
+// Design: a row on A lanes, one action a lane (3 actions on 4 lanes, one
+// idle), so a row's lanes are an aligned group of a warp; 128 threads a
+// block (32 rows at 4 actions, 128 at 1).  Each thread loads its noise (and
+// in the backward its cotangents) first, then the block stages both heads'
+// weights (through their strides: the EMLP mean head's folded W_eff is (A,
+// H), a flax Dense kernel (H, A); neither is transposed per call) and its
+// rows' h tile (pitch H + 1) in shared memory, every copy a cp.async in
+// flight at once.  Lane a computes action a's two dot products in k order
+// (sac_head.cuh), the clip and the draw; the row's log-prob is the lanes'
+// terms added in action order through shuffles (the order of the earlier
+// one-thread-a-row kernel).  The backward recomputes the forward, then the
+// sample's derivative, masks g_log_std where the clip held, writes G =
+// [g_mean | g_log_std] (also into shared memory) and shares the row's
+// (g_mean, g_log_std) over its lanes by shuffles.  The heads' weight and
+// bias gradients, M = [h | 1]^T G ((H + 1) x 2 A; the tile's pitch column
+// is the 1), are summed in the same launch: each block its rows (an entry
+// of M on C lanes, each lane a run of rows in row order, the runs' sums
+// added in lane order); with more than one block, each writes its partial
+// M, fences and takes a ticket (an atomic counter per device that the
+// wrapper owns, kernels/sac_sample.py _ticket) and, while it travels,
+// writes g_h = g_mean W_m^T + g_log_std W_ls^T at each lane's share of the
+// columns (each sum in a order, then the two added); the block that takes
+// the last ticket adds the partials in block order (32 loads in flight a
+// thread) and re-arms the counter.  So a rerun repeats its bits.
+// H is a template parameter for the train paths' heads (16 hidden floats
+// and 4 actions, 4 and 1), a runtime loop bound (up to 64) for others.
 // Built with -fmad=false so the products and sums round like the plain twin.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sac_head.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr float kEps = 1e-6f;
-constexpr float kHalfLog2Pi = 0.91893853320467274f;
+constexpr int kMaxH = 64;       // hidden floats a row
+constexpr unsigned kFull = 0xffffffffu;
 
+// lanes a row: one an action, 3 actions on 4
 template <int A>
+struct Lanes {
+  static constexpr int L = A == 3 ? 4 : A;
+  static constexpr int kRows = kThreads / L;   // rows a block
+};
+
+struct Head {
+  const float* wm;   // mean head, element (k, a) at wm[k * wm_k + a * wm_a]
+  int wm_k, wm_a;
+  const float* bm;
+  const float* wl;   // log-std head, element (k, a) at wl[k * wl_k + a * wl_a]
+  int wl_k, wl_a;
+  const float* bl;
+};
+
+// Shared memory: Wm [k][a], Wl [k][a], bm, bl, then the h tile (pitch
+// H + 1), then (the backward) the rows' [g_mean | g_log_std].
+__host__ __device__ inline int smem_floats(int H, int A) {
+  const int rows = kThreads / (A == 3 ? 4 : A);
+  return 2 * H * A + 2 * A + rows * (H + 1) + rows * 2 * A;
+}
+
+// lanes an entry of M takes in the backward's block sum: the most, up to
+// 32, that keep every entry in one pass of the block's threads
+__host__ __device__ constexpr int lanes_an_entry(int entries) {
+  int c = 1;
+  while (c < 32 && 2 * c * entries <= kThreads) c *= 2;
+  return c;
+}
+
+__host__ __device__ inline int head_blocks(int R, int A) {
+  const int rows = kThreads / (A == 3 ? 4 : A);
+  return (R + rows - 1) / rows;
+}
+
+// Stage the heads and the block's h tile by cp.async, all in flight at
+// once; the tile's column H is 1 (the ones column of [h | 1]).  Returns
+// the tile.
+template <int A>
+__device__ __forceinline__ float* stage(float* sm, const float* __restrict__ h,
+                                        int H, int r0, int nrow,
+                                        const Head& w) {
+  float* Wm = sm;
+  float* Wl = Wm + H * A;
+  float* bm = Wl + H * A;
+  float* bl = bm + A;
+  float* hs = bl + A;
+  const int t = threadIdx.x, P = H + 1;
+  for (int i = t; i < H * A; i += kThreads) {
+    const int k = i / A, a = i - k * A;
+    __pipeline_memcpy_async(Wm + i, w.wm + k * w.wm_k + a * w.wm_a, 4);
+    __pipeline_memcpy_async(Wl + i, w.wl + k * w.wl_k + a * w.wl_a, 4);
+  }
+  if (t < A) {
+    __pipeline_memcpy_async(bm + t, w.bm + t, 4);
+    __pipeline_memcpy_async(bl + t, w.bl + t, 4);
+  }
+  const float* src = h + (size_t)r0 * H;
+  for (int i = t; i < nrow * H; i += kThreads) {
+    const int r = i / H;
+    __pipeline_memcpy_async(hs + r * P + (i - r * H), src + i, 4);
+  }
+  for (int r = t; r < nrow; r += kThreads) hs[r * P + H] = 1.0f;
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  return hs;
+}
+
+// Action a's mean and pre-clip log-std from the row's h, in k order.
+template <int HT, int A>
+__device__ __forceinline__ void head(const float* sm, const float* hr, int H,
+                                     int a, float& m, float& pre) {
+  const float* Wm = sm;
+  const float* Wl = Wm + H * A;
+  const float* bm = Wl + H * A;
+  const float* bl = bm + A;
+  m = hr[0] * Wm[a];
+  pre = hr[0] * Wl[a];
+  if (HT > 0) {
+#pragma unroll
+    for (int k = 1; k < HT; ++k) {
+      const float hk = hr[k];
+      m = m + hk * Wm[k * A + a];
+      pre = pre + hk * Wl[k * A + a];
+    }
+  } else {
+    for (int k = 1; k < H; ++k) {
+      const float hk = hr[k];
+      m = m + hk * Wm[k * A + a];
+      pre = pre + hk * Wl[k * A + a];
+    }
+  }
+  m = m + bm[a];
+  pre = pre + bl[a];
+}
+
+template <int HT, int A>
 __global__ void __launch_bounds__(kThreads)
-sac_sample_fwd_kernel(const float* __restrict__ mean,
-                      const float* __restrict__ log_std,
-                      const float* __restrict__ noise, int B,
-                      float* __restrict__ action, float* __restrict__ logp) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const size_t o = (size_t)row * A;
+sac_head_fwd_kernel(const float* __restrict__ h, int R, int Hrt, Head w,
+                    const float* __restrict__ noise,
+                    float* __restrict__ action, float* __restrict__ logp) {
+  constexpr int L = Lanes<A>::L, RB = Lanes<A>::kRows;
+  const int H = HT > 0 ? HT : Hrt;
+  extern __shared__ float sm[];
+  const int t = threadIdx.x, row = t / L, a = t - row * L;
+  const int r0 = blockIdx.x * RB, nrow = min(RB, R - r0);
+  const bool live = row < nrow && a < A;
+  const size_t o = (size_t)(r0 + row) * A + a;
+  const float n = live ? __ldg(noise + o) : 0.0f;
+  const float* hs = stage<A>(sm, h, H, r0, nrow, w);
+  float lt = 0.0f;
+  if (live) {
+    float m, pre;
+    head<HT, A>(sm, hs + row * (H + 1), H, a, m, pre);
+    const float l = sac::clip_log_std(pre);
+    const sac::Draw d = sac::draw(m, l, n);
+    lt = sac::log_prob(m, l, d);
+    action[o] = d.a;
+  }
+  // the row's log-prob: its lanes' terms added in action order
+  const int base = (t & 31) & ~(L - 1);
   float lp = 0.0f;
 #pragma unroll
-  for (int e = 0; e < A; ++e) {
-    const float m = mean[o + e], ls = log_std[o + e];
-    const float sd = expf(ls);
-    const float x = m + sd * noise[o + e];
-    const float a = tanhf(x);
-    const float z = (x - m) / sd;
-    float l = -0.5f * (z * z) - ls - kHalfLog2Pi;
-    l = l - logf((1.0f - a * a) + kEps);
-    lp += l;
-    action[o + e] = a;
-  }
-  logp[row] = lp;
+  for (int b = 0; b < A; ++b) lp += __shfl_sync(kFull, lt, base + b);
+  if (a == 0 && row < nrow) logp[r0 + row] = lp;
 }
 
-template <int A>
+template <int HT, int A>
 __global__ void __launch_bounds__(kThreads)
-sac_sample_bwd_kernel(const float* __restrict__ g_action,
-                      const float* __restrict__ g_logp,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ log_std,
-                      const float* __restrict__ noise, int B,
-                      float* __restrict__ g_mean,
-                      float* __restrict__ g_log_std) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const size_t o = (size_t)row * A;
-  const float gl = g_logp[row];
-#pragma unroll
-  for (int e = 0; e < A; ++e) {
-    const float m = mean[o + e], ls = log_std[o + e], n = noise[o + e];
-    const float sd = expf(ls);
-    const float x = m + sd * n;
-    const float a = tanhf(x);
-    const float d = x - m;
-    const float z = d / sd;
-    const float one_m = 1.0f - a * a;
-    const float g_z = -gl * z;
-    const float g_d = g_z / sd;
-    const float g_std_z = (-g_z * d) / (sd * sd);
-    float g_x = g_action[o + e] * one_m;
-    g_x = g_x + gl * ((2.0f * a * one_m) / (one_m + kEps));
-    g_x = g_x + g_d;
-    g_mean[o + e] = g_x - g_d;
-    const float g_std = g_x * n + g_std_z;
-    g_log_std[o + e] = sd * g_std - gl;
+sac_head_bwd_kernel(const float* __restrict__ g_action,
+                    const float* __restrict__ g_logp,
+                    const float* __restrict__ h, int R, int Hrt, Head w,
+                    const float* __restrict__ noise,
+                    float* __restrict__ g_h, float* __restrict__ G,
+                    float* __restrict__ partial, float* __restrict__ M,
+                    unsigned* __restrict__ ticket) {
+  constexpr int L = Lanes<A>::L, RB = Lanes<A>::kRows, A2 = 2 * A;
+  const int H = HT > 0 ? HT : Hrt;
+  extern __shared__ float sm[];
+  __shared__ bool last;
+  const int t = threadIdx.x, row = t / L, a = t - row * L;
+  const int r0 = blockIdx.x * RB, nrow = min(RB, R - r0);
+  const bool in_row = row < nrow, live = in_row && a < A;
+  const size_t o = (size_t)(r0 + row) * A + a;
+  const float n = live ? __ldg(noise + o) : 0.0f;
+  const float ga = live ? __ldg(g_action + o) : 0.0f;
+  const float glp = in_row ? __ldg(g_logp + r0 + row) : 0.0f;
+  const float* hs = stage<A>(sm, h, H, r0, nrow, w);
+  const int P = H + 1;
+  float* Gs = sm + 2 * H * A + 2 * A + RB * P;
+
+  float gm = 0.0f, gl = 0.0f;
+  if (live) {
+    float m, pre;
+    head<HT, A>(sm, hs + row * P, H, a, m, pre);
+    sac::sample_backward(ga, glp, m, sac::clip_log_std(pre), n, &gm, &gl);
+    gl = sac::in_clip(pre) ? gl : 0.0f;
+    float* go = G + (size_t)(r0 + row) * A2;
+    go[a] = gm;
+    go[A + a] = gl;
+    Gs[row * A2 + a] = gm;
+    Gs[row * A2 + A + a] = gl;
   }
+  // the row's (g_mean, g_log_std) on each of its lanes
+  const int base = (t & 31) & ~(L - 1);
+  float gmv[A], glv[A];
+#pragma unroll
+  for (int b = 0; b < A; ++b) {
+    gmv[b] = __shfl_sync(kFull, gm, base + b);
+    glv[b] = __shfl_sync(kFull, gl, base + b);
+  }
+  __syncthreads();   // Gs complete
+
+  // the block's M = [h | 1]^T G over its rows: entry q on C consecutive
+  // lanes, lane c its share of the rows in row order, then the C sums in
+  // lane order (C, known at compile time, the most lanes an entry that the
+  // block's threads allow; 1 for a run-time H)
+  constexpr int C = HT > 0 ? lanes_an_entry((HT + 1) * A2) : 1;
+  const int NQ = P * A2;
+  const bool solo = gridDim.x == 1;
+  float* dst = solo ? M : partial + (size_t)blockIdx.x * NQ;
+  for (int q0 = 0; q0 < NQ * C; q0 += kThreads) {
+    const int slot = q0 + t, q = slot / C, c = slot - q * C;
+    float s = 0.0f;
+    if (q < NQ) {
+      const int k = q / A2, j = q - k * A2;
+      const int ra = c * nrow / C, rb = (c + 1) * nrow / C;
+      if (ra < rb) s = hs[ra * P + k] * Gs[ra * A2 + j];
+#pragma unroll 8
+      for (int r = ra + 1; r < rb; ++r)
+        s = s + hs[r * P + k] * Gs[r * A2 + j];
+    }
+    if (C > 1) {
+      const int lead = (t & 31) & ~(C - 1);
+      float tot = __shfl_sync(kFull, s, lead);
+#pragma unroll
+      for (int b = 1; b < C; ++b)
+        tot = tot + __shfl_sync(kFull, s, lead + b);
+      s = tot;
+    }
+    if (q < NQ && c == 0) dst[q] = s;
+  }
+  if (!solo) {
+    __threadfence();
+    __syncthreads();
+    if (t == 0) {
+      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+      __threadfence();
+    }
+  }
+
+  // g_h, while the ticket travels
+  if (in_row) {
+    const float* Wm = sm;
+    const float* Wl = Wm + H * A;
+    float* gr = g_h + (size_t)(r0 + row) * H;
+    auto column = [&](int k) {
+      float s = gmv[0] * Wm[k * A], u = glv[0] * Wl[k * A];
+#pragma unroll
+      for (int b = 1; b < A; ++b) {
+        s = s + gmv[b] * Wm[k * A + b];
+        u = u + glv[b] * Wl[k * A + b];
+      }
+      gr[k] = s + u;
+    };
+    if (HT > 0) {
+#pragma unroll
+      for (int k0 = 0; k0 < HT; k0 += L)
+        if (k0 + a < HT) column(k0 + a);
+    } else {
+      for (int k = a; k < H; k += L) column(k);
+    }
+  }
+  if (solo) return;
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: M the partials' sum in block order, 32 loads in flight
+  const int nb = gridDim.x;
+  for (int q = t; q < NQ; q += kThreads) {
+    float s = 0.0f;
+    for (int b0 = 0; b0 < nb; b0 += 32) {
+      float v[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        v[u] = b0 + u < nb ? __ldcg(partial + (size_t)(b0 + u) * NQ + q)
+                           : 0.0f;
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        if (b0 + u < nb) s = b0 + u == 0 ? v[u] : s + v[u];
+    }
+    M[q] = s;
+  }
+  if (t == 0) *ticket = 0u;
 }
 
-template <int A>
-int launch(const float* g_action, const float* g_logp, const float* mean,
-           const float* log_std, const float* noise, int B, float* out0,
-           float* out1, bool backward, cudaStream_t st) {
-  const int blocks = (B + kThreads - 1) / kThreads;
+// The launch's arguments: the forward reads h, noise and writes out0
+// (action), out1 (logp); the backward reads g_action, g_logp too and
+// writes out0 (g_h), out1 (G), out2 (M), with partial and ticket.
+struct Args {
+  const float *g_action, *g_logp, *h, *noise;
+  int R, H;
+  Head w;
+  float *out0, *out1, *out2, *partial;
+  unsigned* ticket;
+  cudaStream_t st;
+};
+
+template <int HT, int A>
+int launch(const Args& x, bool backward) {
+  const int blocks = head_blocks(x.R, A);
+  const size_t smem = sizeof(float) * smem_floats(x.H, A);
   if (backward)
-    sac_sample_bwd_kernel<A><<<blocks, kThreads, 0, st>>>(
-        g_action, g_logp, mean, log_std, noise, B, out0, out1);
+    sac_head_bwd_kernel<HT, A><<<blocks, kThreads, smem, x.st>>>(
+        x.g_action, x.g_logp, x.h, x.R, x.H, x.w, x.noise, x.out0, x.out1,
+        x.partial, x.out2, x.ticket);
   else
-    sac_sample_fwd_kernel<A><<<blocks, kThreads, 0, st>>>(
-        mean, log_std, noise, B, out0, out1);
+    sac_head_fwd_kernel<HT, A><<<blocks, kThreads, smem, x.st>>>(
+        x.h, x.R, x.H, x.w, x.noise, x.out0, x.out1);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* g_action, const void* g_logp, const void* mean,
-             const void* log_std, const void* noise, int B, int act,
-             void* out0, void* out1, bool backward, void* stream) {
-  if (B <= 0) return (int)cudaErrorInvalidValue;
-  const float* ga = (const float*)g_action;
-  const float* gl = (const float*)g_logp;
-  const float* m = (const float*)mean;
-  const float* s = (const float*)log_std;
-  const float* n = (const float*)noise;
-  float* y0 = (float*)out0;
-  float* y1 = (float*)out1;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (act) {
-    case 1: return launch<1>(ga, gl, m, s, n, B, y0, y1, backward, st);
-    case 2: return launch<2>(ga, gl, m, s, n, B, y0, y1, backward, st);
-    case 3: return launch<3>(ga, gl, m, s, n, B, y0, y1, backward, st);
-    case 4: return launch<4>(ga, gl, m, s, n, B, y0, y1, backward, st);
+int dispatch(const Args& x, int A, bool backward) {
+  if (x.R <= 0 || x.H <= 0 || x.H > kMaxH) return (int)cudaErrorInvalidValue;
+  // the train paths' heads, H a template parameter
+  if (x.H == 16 && A == 4) return launch<16, 4>(x, backward);
+  if (x.H == 4 && A == 1) return launch<4, 1>(x, backward);
+  switch (A) {
+    case 1: return launch<0, 1>(x, backward);
+    case 2: return launch<0, 2>(x, backward);
+    case 3: return launch<0, 3>(x, backward);
+    case 4: return launch<0, 4>(x, backward);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -134,20 +364,48 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// mean, log_std, noise, action: (B, act) row-major; logp: (B,).
-extern "C" int sac_sample_fwd_launch(const void* mean, const void* log_std,
-                                     const void* noise, int B, int act,
-                                     void* action, void* logp, void* stream) {
-  return dispatch(nullptr, nullptr, mean, log_std, noise, B, act, action,
-                  logp, false, stream);
+// Blocks of a launch at R rows of A actions: the backward's partials are
+// that many (H + 1) x 2 A blocks of floats (none with one block).
+extern "C" int sac_head_blocks(int R, int A) {
+  return A < 1 || A > 4 ? 0 : head_blocks(R, A);
 }
 
-// g_action, mean, log_std, noise, g_mean, g_log_std: (B, act); g_logp: (B,).
-extern "C" int sac_sample_bwd_launch(const void* g_action, const void* g_logp,
-                                     const void* mean, const void* log_std,
-                                     const void* noise, int B, int act,
-                                     void* g_mean, void* g_log_std,
-                                     void* stream) {
-  return dispatch(g_action, g_logp, mean, log_std, noise, B, act, g_mean,
-                  g_log_std, true, stream);
+// h (R, H), noise and action (R, A) row-major; logp (R,).  wm_k, wm_a: the
+// mean head's strides over k and a, in floats; wl_k, wl_a the log-std
+// head's.
+extern "C" int sac_head_fwd_launch(const void* h, int R, int H, int A,
+                                   const void* wm, int wm_k, int wm_a,
+                                   const void* bm, const void* wl, int wl_k,
+                                   int wl_a, const void* bl,
+                                   const void* noise, void* action,
+                                   void* logp, void* stream) {
+  const Args x{nullptr, nullptr, (const float*)h, (const float*)noise, R, H,
+               Head{(const float*)wm, wm_k, wm_a, (const float*)bm,
+                    (const float*)wl, wl_k, wl_a, (const float*)bl},
+               (float*)action, (float*)logp, nullptr, nullptr, nullptr,
+               (cudaStream_t)stream};
+  return dispatch(x, A, false);
+}
+
+// g_action (R, A), g_logp (R,), then the forward's inputs; writes g_h
+// (R, H), G = [g_mean | g_log_std] (R, 2 A), g_log_std zero where the clip
+// held, and M = [h | 1]^T G ((H + 1) x 2 A).  partial: sac_head_blocks(R,
+// A) x (H + 1) x 2 A floats (unused with one block); ticket: a zeroed
+// unsigned counter that the launch leaves zeroed, launches that share it
+// run one after another.
+extern "C" int sac_head_bwd_launch(const void* g_action, const void* g_logp,
+                                   const void* h, int R, int H, int A,
+                                   const void* wm, int wm_k, int wm_a,
+                                   const void* bm, const void* wl, int wl_k,
+                                   int wl_a, const void* bl,
+                                   const void* noise, void* g_h, void* G,
+                                   void* M, void* partial, void* ticket,
+                                   void* stream) {
+  const Args x{(const float*)g_action, (const float*)g_logp, (const float*)h,
+               (const float*)noise, R, H,
+               Head{(const float*)wm, wm_k, wm_a, (const float*)bm,
+                    (const float*)wl, wl_k, wl_a, (const float*)bl},
+               (float*)g_h, (float*)G, (float*)M, (float*)partial,
+               (unsigned*)ticket, (cudaStream_t)stream};
+  return dispatch(x, A, true);
 }

@@ -21,8 +21,8 @@ flax networks), which are what run on CPU tensors.
 K11's head (``csrc/ppo_head.cuh``) is also the epilogue of the MLP PPO
 actor's kernel (``kernels/mlp_ppo_actor.py``); ``ppo_head_plain``, the
 head on a pre-tanh mean, is that kernel's twin's head.  SAC's MLP actor
-needs no kernel of its own here: its sample is K10's forward
-(``kernels/sac_sample.py``) on the ``F.linear`` outputs.
+has its own fused kernel (``kernels/mlp_sac_actor.py``, with the SAC head
+of ``csrc/sac_head.cuh``).
 
 What bounds it on an H100: the operations, and few of them.  Per row and
 block the linear layer is ``2 ng nin`` flops and the bilinear layer three

@@ -552,12 +552,18 @@ def emlp_trunk(net, params: Dict[str, torch.Tensor], prefix: str,
     return x
 
 
+def fold_linear(layer, params: Dict[str, torch.Tensor], prefix: str):
+    """An ``EquivLinear``'s ``(W_eff (out, in), b_eff)`` from
+    ``params[prefix + "kernel"]``/``"bias"``: the projection (K5)."""
+    return project_linear(layer.rep_in, layer.rep_out,
+                          params[prefix + "kernel"], params[prefix + "bias"])
+
+
 def equiv_linear(layer, params: Dict[str, torch.Tensor], prefix: str,
                  x: torch.Tensor):
     """An ``EquivLinear`` with ``params[prefix + "kernel"]``/``"bias"``:
     the projection (K5) and a torch matmul."""
-    W, b = project_linear(layer.rep_in, layer.rep_out,
-                          params[prefix + "kernel"], params[prefix + "bias"])
+    W, b = fold_linear(layer, params, prefix)
     return x @ W.T + b
 
 

@@ -2,11 +2,15 @@
 launch) and read.
 
 Replaces ``gym_rotor_tpu/algos/replay.py:145`` ``insert_tick`` (``_pack``
-and ``insert``'s modular scatter), ``:199`` ``sample``, and the episode
+and ``insert``'s modular scatter), ``:199`` ``sample`` (with the copies the
+learners made of the sampled fields: ``concat(obs, act)`` for the critic,
+the CTDE joint obs and actions, the CAPS stacks, ``gym_rotor_tpu/algos/
+td3.py:209-224``, ``:284``, ``sac.py:153-171``, ``:242``), and the episode
 bookkeeping of ``gym_rotor_tpu/parallel/train_step.py:142-155``
-(``roll_body``), which XLA fused into the rollout scan on the TPU.
-Kernels: ``csrc/replay.cu``.  Plain twins: ``replay_insert_tick_plain``
-and ``replay_sample_plain``, which are what run on CPU tensors.
+(``roll_body``), which XLA fused into the rollout scan and the update on
+the TPU.  Kernels: ``csrc/replay.cu``.  Plain twins:
+``replay_insert_tick_plain`` and ``replay_sample_plain``, which are what
+run on CPU tensors.
 
 Ring row layout (``algos/replay.py``): ``[obs_0, obs_1 | joint action |
 rwd_0, rwd_1 | next_obs_0, next_obs_1 | done_0, done_1]``.  The write
@@ -24,13 +28,27 @@ find the last one by a ticket: an atomic counter per device (``_ticket``),
 which that block re-arms to zero, so launches on one device run one after
 another (one stream) as the train paths launch them.
 
+The read (``replay_sample``) gathers the sampled rows straight into the
+operands the learners read, one buffer laid out by a ``GatherLayout``
+(built once per ``(dims, ctde, stack)`` and cached): per agent the critic
+input ``[obs_i | act_i]`` (under CTDE one joint ``[obs_0 | obs_1 | act_0 |
+act_1]``, and the target's joint ``[next_obs_0 | next_obs_1]``), the CAPS
+stack (its row blocks from the ring, ``obs`` and ``next_obs`` as the
+learner stacks them, and a last block left for ``obs + eps``), and
+``rwd_i``, ``done_i``.  Each operand is a contiguous ``(k B, width)``
+matrix; each row block of one is a region, whose columns come from ring
+columns (the column map).  A value is a copy of its ring element, times
+NaN when the ring is empty (the poison), so every operand is bitwise the
+parent's sliced fields and their concatenations.
+
 What bounds it on an H100: the bytes (~1.5 MB per flagship tick, ~0.45 us;
-a 256-row sample ~0.1 MB); at 32 rows the launch.
+a 256-row sample reads ~46 KB of ring rows and writes ~80-120 KB of
+operands, ~0.05 us); at 32 rows the launch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +58,7 @@ from .build import KernelSource, check
 KERNEL = KernelSource("replay", [])
 WRAPPERS = {"replay_insert_tick": "replay_insert_tick_plain",
             "replay_sample": "replay_sample_plain"}
+GATHER_PER = 1          # gathered elements a thread of the sample
 
 Dims = Tuple[Tuple[int, ...], Tuple[int, ...]]
 
@@ -51,7 +70,7 @@ def _lib():
         lib.replay_insert_launch.argtypes = [P, L, I, L, I, P, I, P, I, P, I,
                                              P, P, P, P, I, P, P, P, P, P, P]
         lib.replay_insert_launch.restype = I
-        lib.replay_sample_launch.argtypes = [P, I, P, I, F, P, P]
+        lib.replay_sample_launch.argtypes = [P, I, P, I, F, P, I, P, I, P]
         lib.replay_sample_launch.restype = I
         lib.replay_insert_blocks.argtypes = [I]
         lib.replay_insert_blocks.restype = I
@@ -75,6 +94,121 @@ def column_map(dims: Dims) -> np.ndarray:
         out += [((4 + a) << 8) | c for c in range(d)]
     out += [(6 << 8) | a for a in range(n)]
     return np.asarray(out, np.int32)
+
+
+class GatherLayout:
+    """Where one sample writes the sampled ring columns: the learners'
+    operands as contiguous matrices in one buffer of ``per_row * B``
+    floats (``B`` sampled rows).
+
+    Operands, in buffer order: ``sa<i>`` per agent, ``[obs_i | act_i]``
+    (B, d_i + a_i), or under ``ctde`` one ``sa``, ``[obs_0 | .. | act_0 |
+    ..]``, and ``t_obs``, ``[next_obs_0 | ..]``; ``stack<i>`` per agent,
+    ``len(stack)`` row blocks of (B, d_i), block ``q`` the ring field
+    ``stack[q]`` (``"obs"`` or ``"next_obs"``), or left unwritten where it
+    is ``"eps"`` (the learner writes ``obs + eps`` there); ``rwd<i>`` and
+    ``done<i>`` (B, 1).  ``stack`` holds ``"obs"`` and ``"next_obs"``:
+    the batch's ``obs`` and ``next_obs`` fields are views of their first
+    blocks."""
+
+    def __init__(self, dims: Dims, ctde: bool, stack: Tuple[str, ...]):
+        obs_dims, act_dims = (tuple(int(d) for d in x) for x in dims)
+        n = len(obs_dims)
+        if "obs" not in stack or "next_obs" not in stack \
+                or not set(stack) <= {"obs", "next_obs", "eps"}:
+            raise ValueError(f"GatherLayout: bad stack {stack}")
+        self.dims, self.ctde, self.stack = (obs_dims, act_dims), ctde, stack
+        cmap = column_map((obs_dims, act_dims))
+        start = {}
+        for c, code in enumerate(cmap.tolist()):
+            start.setdefault((code >> 8, code & 0xFF), c)
+
+        def run(field, c0, w):
+            return list(range(start[(field, c0)], start[(field, c0)] + w))
+
+        def obs(a):
+            return run(a, 0, obs_dims[a])
+
+        def nobs(a):
+            return run(4 + a, 0, obs_dims[a])
+        act0 = [sum(act_dims[:a]) for a in range(n)]
+
+        def act(a):
+            return run(2, act0[a], act_dims[a])
+        ops: List[Tuple[str, List[Optional[List[int]]]]] = []
+        if ctde:
+            ops.append(("sa", [sum((obs(a) for a in range(n)), [])
+                               + sum((act(a) for a in range(n)), [])]))
+            ops.append(("t_obs", [sum((nobs(a) for a in range(n)), [])]))
+        else:
+            ops += [(f"sa{a}", [obs(a) + act(a)]) for a in range(n)]
+        for a in range(n):
+            ops.append((f"stack{a}", [
+                None if f == "eps" else (obs(a) if f == "obs" else nobs(a))
+                for f in stack]))
+        for a in range(n):
+            ops.append((f"rwd{a}", [[start[(3, a)]]]))
+            ops.append((f"done{a}", [[start[(6, a)]]]))
+        # operands: name -> (offset in per-row units, rows in B, width);
+        # regions: (gathered offset, buffer offset, width, column-map base),
+        # both offsets in per-row units (times B in the buffer)
+        self.operands: Dict[str, Tuple[int, int, int]] = {}
+        self.regions: List[Tuple[int, int, int, int]] = []
+        self.cols: List[int] = []
+        u = g = 0
+        for name, blocks in ops:
+            w = len(next(b for b in blocks if b is not None))
+            self.operands[name] = (u, len(blocks), w)
+            for q, cols in enumerate(blocks):
+                if cols is not None:
+                    self.regions.append((g, u + q * w, w, len(self.cols)))
+                    self.cols += cols
+                    g += w
+            u += len(blocks) * w
+        self.per_row, self.gathered = u, g
+        self._index: Dict[str, List[torch.Tensor]] = {}
+        self._table: Dict[str, torch.Tensor] = {}
+
+    def words(self) -> np.ndarray:
+        """The kernel's column map: for each gathered column of a sampled
+        row (region by region), one int64 of four 16-bit fields, its ring
+        column, its region's buffer offset (per-row units), the region's
+        width and the column's place in the region."""
+        out = []
+        for _, o, w, cb in self.regions:
+            out += [src | o << 16 | w << 32 | c << 48
+                    for c, src in enumerate(self.cols[cb:cb + w])]
+        return np.asarray(out, np.int64)
+
+    def table(self, device) -> torch.Tensor:
+        """``words`` on ``device``, cached."""
+        key = str(device)
+        if key not in self._table:
+            if max(self.per_row, max(self.cols) + 1) >= 1 << 15:
+                raise ValueError("GatherLayout: rows too wide for the map")
+            self._table[key] = torch.from_numpy(self.words()).to(device)
+        return self._table[key]
+
+    def index(self, device) -> List[torch.Tensor]:
+        """Per region, its ring columns as an int64 tensor on ``device``."""
+        key = str(device)
+        if key not in self._index:
+            self._index[key] = [
+                torch.tensor(self.cols[cb:cb + w], dtype=torch.int64,
+                             device=device)
+                for _, _, w, cb in self.regions]
+        return self._index[key]
+
+    def written(self, buf: torch.Tensor, B: int) -> List[torch.Tensor]:
+        """The regions' (B, width) views of a sample's buffer: everything a
+        sample writes (the ``"eps"`` blocks are not)."""
+        return [buf[o * B:(o + w) * B].view(B, w)
+                for _, o, w, _ in self.regions]
+
+    def views(self, buf: torch.Tensor, B: int) -> Dict[str, torch.Tensor]:
+        """Every operand's (rows, width) view of a sample's buffer."""
+        return {name: buf[u * B:(u + k * w) * B].view(k * B, w)
+                for name, (u, k, w) in self.operands.items()}
 
 
 _TICKETS = {}
@@ -116,9 +250,17 @@ def replay_insert_tick_plain(data, ptr: int, dims: Dims, obs_t, actions,
     ep_ret.copy_(torch.where(reset[:, None], 0.0, ep))
 
 
-def replay_sample_plain(data, idx, poison: bool):
+def replay_sample_plain(data, idx, poison: bool, layout: GatherLayout):
+    """The gather as torch ops: ``data[idx]`` (times NaN when ``poison``),
+    its columns copied into the layout's regions of a new buffer."""
     rows = data[idx]
-    return rows * float("nan") if poison else rows * 1.0
+    rows = rows * float("nan") if poison else rows * 1.0
+    B = rows.shape[0]
+    buf = torch.empty(B * layout.per_row, dtype=data.dtype,
+                      device=data.device)
+    for dst, cols in zip(layout.written(buf, B), layout.index(data.device)):
+        dst.copy_(rows[:, cols])
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -191,23 +333,28 @@ def replay_insert_tick(data, ptr: int, dims: Dims, obs_t, actions, reward,
 replay_insert_tick.launches = 0
 
 
-def replay_sample(data, idx, poison: bool):
-    """``(batch, row_dim)`` rows ``data[idx]``, all NaN when ``poison`` (the
-    empty ring).  CPU tensors -> ``replay_sample_plain``; CUDA tensors ->
-    one launch (float32 ring, int64 indices), or an error."""
+def replay_sample(data, idx, poison: bool, layout: GatherLayout,
+                  per: int = GATHER_PER):
+    """The rows ``data[idx]`` (all NaN when ``poison``, the empty ring)
+    gathered into the operands of ``layout``: a buffer of ``per_row * B``
+    floats (``layout.views`` reads it).  CPU tensors ->
+    ``replay_sample_plain``; CUDA tensors -> one launch (float32 ring,
+    int64 indices; ``per`` gathered elements a thread), or an error."""
     if not data.is_cuda:
-        return replay_sample_plain(data, idx, poison)
+        return replay_sample_plain(data, idx, poison, layout)
     cap, rd = data.shape
     batch, dev = idx.shape[0], data.device
     _check("ring", data, torch.float32, (cap, rd), dev)
     _check("idx", idx, torch.int64, (batch,), dev)
-    if batch <= 0:
-        raise ValueError("replay_sample: empty batch")
-    out = torch.empty(batch, rd, dtype=torch.float32, device=dev)
+    if batch <= 0 or batch * layout.per_row >= 2 ** 31:
+        raise ValueError(f"replay_sample: {batch} rows")
+    out = torch.empty(batch * layout.per_row, dtype=torch.float32,
+                      device=dev)
     lib = _lib()
     err = lib.replay_sample_launch(
         data.data_ptr(), rd, idx.data_ptr(), batch,
-        float("nan") if poison else 1.0, out.data_ptr(),
+        float("nan") if poison else 1.0, layout.table(dev).data_ptr(),
+        layout.gathered, out.data_ptr(), per,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "replay_sample")
     replay_sample.launches += 1

@@ -24,19 +24,20 @@ SAC's and PPO's networks: ``ActorSAC`` (Xavier-initialised ``Dense_0``,
 the functions ``actor_sac``, ``actor_ppo`` and ``v_critic`` on parameter
 views.  Under CTDE the critics take the joint input: ``CriticTwin`` over
 all agents' obs and actions, ``VCritic`` over all agents' obs.  Acting on
-the card, ``ActorSAC``'s ``F.linear`` outputs go through K10's forward
-(``kernels/sac_sample.py``), and ``ActorPPO``'s whole acting forward is
-one launch with K11's head as its epilogue
-(``kernels/mlp_ppo_actor.py``); each also has a deterministic eval head
-(``tanh(mean)``; ``clip(tanh(mean))`` and zero log-probs).
+the card, ``ActorSAC``'s and ``ActorPPO``'s whole acting forwards are one
+launch each, with the SAC head (``kernels/mlp_sac_actor.py``) or K11's
+head (``kernels/mlp_ppo_actor.py``) as the epilogue; each also has a
+deterministic eval head (``tanh(mean)``; ``clip(tanh(mean))`` and zero
+log-probs).
 
 The Gaussian heads' plain versions: ``LOG_SIG_MAX``/``LOG_SIG_MIN``,
 ``EPS``, ``sac_sample_with_noise``, ``gaussian_logprob`` and
-``gaussian_entropy``; the training paths run SAC's sample through K10 and
-PPO's surrogate through K13 (``kernels/ppo_loss.py``), the EMLP acting
-paths through K9 and K11.  ``sac_sample`` (the draw from a key) has no
-counterpart: the port makes its draws up front (``envs/draws.py``) and
-passes them as ``noise``.
+``gaussian_entropy``; the training paths run SAC's heads and sample through
+the fused head kernel (K10, ``kernels/sac_sample.py``, on ``sac_trunk``'s
+output and ``sac_heads``) and PPO's surrogate through K13
+(``kernels/ppo_loss.py``), the EMLP acting paths through K9 and K11.
+``sac_sample`` (the draw from a key) has no counterpart: the port makes
+its draws up front (``envs/draws.py``) and passes them as ``noise``.
 
 Every network carries ``param_version`` (``Versioned``), an explicit
 counter of in-place parameter writes: the flat optimizer bumps it after
@@ -147,11 +148,23 @@ def actor_td3(params: Params, obs):
     return torch.tanh(dense(params, "Dense_2.", x))
 
 
+def sac_trunk(params: Params, obs):
+    """``ActorSAC``'s two relu layers: the heads' input."""
+    x = torch.relu(dense(params, "Dense_0.", obs))
+    return torch.relu(dense(params, "Dense_1.", x))
+
+
+def sac_heads(params: Params):
+    """``ActorSAC``'s heads as the fused head kernel takes them: the
+    ``mean`` and ``log_std`` Dense kernels (H, act) and biases."""
+    return (params["mean.kernel"], params["mean.bias"],
+            params["log_std.kernel"], params["log_std.bias"])
+
+
 def actor_sac(params: Params, obs):
     """``ActorSAC`` on ``params``: ``(mean, log_std)``, ``log_std`` clipped
     to [LOG_SIG_MIN, LOG_SIG_MAX] (mlp.py:107-119)."""
-    x = torch.relu(dense(params, "Dense_0.", obs))
-    x = torch.relu(dense(params, "Dense_1.", x))
+    x = sac_trunk(params, obs)
     return (dense(params, "mean.", x),
             torch.clamp(dense(params, "log_std.", x), LOG_SIG_MIN,
                         LOG_SIG_MAX))
@@ -178,18 +191,29 @@ def v_critic(params: Params, obs):
     return dense(params, "Dense_2.", v)
 
 
-def q_net(params: Params, prefix: str, obs, act):
+def q_net_sa(params: Params, prefix: str, sa):
     """One Q net of ``CriticTwin`` (``prefix`` ``"q1_"``/``"q2_"``) or
-    ``CriticSingle`` (``""``) on ``params`` (mlp.py:55-84)."""
-    sa = torch.cat([obs, act], dim=-1)
+    ``CriticSingle`` (``""``) on ``params`` and ``sa = concat(obs, act)``
+    (mlp.py:55-84)."""
     q = torch.relu(dense(params, f"{prefix}fc1.", sa))
     q = torch.relu(dense(params, f"{prefix}fc2.", q))
     return dense(params, f"{prefix}fc3.", q)
 
 
+def q_net(params: Params, prefix: str, obs, act):
+    """``q_net_sa`` on ``concat(obs, act)``."""
+    return q_net_sa(params, prefix, torch.cat([obs, act], dim=-1))
+
+
+def critic_twin_sa(params: Params, sa):
+    """``CriticTwin`` on ``params`` and ``sa = concat(obs, act)``: ``(q1,
+    q2)``."""
+    return q_net_sa(params, "q1_", sa), q_net_sa(params, "q2_", sa)
+
+
 def critic_twin(params: Params, obs, act):
     """``CriticTwin`` on ``params``: ``(q1, q2)``."""
-    return q_net(params, "q1_", obs, act), q_net(params, "q2_", obs, act)
+    return critic_twin_sa(params, torch.cat([obs, act], dim=-1))
 
 
 def critic_twin_split(params: Params):
@@ -278,8 +302,10 @@ class ActorSAC(_DenseNet):
     (``Dense_0``, ``Dense_1``, ``mean``, ``log_std``; flat order ``Dense_0``,
     ``Dense_1``, ``log_std``, ``mean``) and Xavier-uniform kernels.
     ``dist`` is ``(mean, log_std)``.  ``forward`` is the acting sample
-    ``tanh(mean + exp(log_std) noise)`` through K10's forward (its plain
-    twin on CPU tensors), or ``tanh(mean)`` without ``noise`` (eval)."""
+    ``tanh(mean + exp(log_std) noise)``, or ``tanh(mean)`` without
+    ``noise`` (eval): one launch of the fused actor
+    (``kernels/mlp_sac_actor.py``; its plain twin, ``dist`` and the plain
+    sample, on CPU tensors), written into ``out`` when given."""
 
     def __init__(self, obs_dim: int, hidden_dim: int, action_dim: int,
                  device=None, dtype=torch.float32,
@@ -297,14 +323,8 @@ class ActorSAC(_DenseNet):
 
     def forward(self, obs, noise: Optional[torch.Tensor] = None,
                 out: Optional[torch.Tensor] = None):
-        from ..kernels.sac_sample import sac_sample
-        mean, log_std = self.dist(obs)
-        a = (torch.tanh(mean) if noise is None
-             else sac_sample(mean, log_std, noise.contiguous())[0])
-        if out is None:
-            return a
-        out.copy_(a)
-        return out
+        from ..kernels.mlp_sac_actor import mlp_sac_actor
+        return mlp_sac_actor(self, obs, noise, out)
 
 
 class ActorPPO(_DenseNet):

@@ -3,7 +3,8 @@
 
 ``make_td3_superstep`` (``:68`` ``make_sharded_td3_superstep``), off-policy:
 ``rollout_len`` ticks of (act -> K1 tick -> K2 ring write with the K8
-episode statistics), then ``n_updates`` of (K2 sample -> ``train_fn``).
+episode statistics), then ``n_updates`` of (K2 sample into the learner's
+operands -> ``train_fn``).
 TD3 by default; JAX's ``train_fn`` and ``act_fn`` hooks and a draws
 factory make it run SAC (``algos/sac.py::superstep_hooks``), DTDE or
 CTDE, with EMLP or MLP networks.  JAX's
@@ -53,7 +54,8 @@ def make_td3_superstep(cfg: Config, agents: Sequence, device=None,
                        rollout_len: int = 1, n_updates: int = 1,
                        train_fn: Optional[Callable] = None,
                        act_fn: Optional[Callable] = None,
-                       draws_fn: Optional[Callable] = None):
+                       draws_fn: Optional[Callable] = None,
+                       stack: Sequence[str] = td3_lib.CAPS_STACK):
     """Returns ``step(loop, obs, rstate, states, ep_ret, noise_std,
     warm=False, generator=None, draws=None) -> (obs, metrics)``.
 
@@ -63,7 +65,9 @@ def make_td3_superstep(cfg: Config, agents: Sequence, device=None,
     train ticks' policy (default TD3's noisy deterministic actors);
     ``draws_fn`` makes an update's
     ``UpdateDraws`` with ``envs/draws.py::make_update_draws``'s signature
-    (default that function; ``ctde`` set for a MODUL CTDE ``cfg``)."""
+    (default that function; ``ctde`` set for a MODUL CTDE ``cfg``);
+    ``stack`` the learner's CAPS stack, which each sample writes with the
+    other operands (``algos/replay.py::sample``; default TD3's)."""
     dev = resolve_device(device)
     n = cfg.n_agents
     act_dims = tuple(cfg.action_dim_n)
@@ -115,7 +119,8 @@ def make_td3_superstep(cfg: Config, agents: Sequence, device=None,
                            act_dims, [a.critic_widths for a in agents],
                            [a.actor_widths for a in agents], generator, dev,
                            agents[0].dtype, ctde=cfg.is_ctde))
-            batch = replay_lib.sample(rstate, cfg.batch_size, idx=ud.idx)
+            batch = replay_lib.sample(rstate, cfg.batch_size, idx=ud.idx,
+                                      ctde=cfg.is_ctde, stack=tuple(stack))
             states, um = train_fn(cfg, agents, states, batch, ud.agents)
         metrics.update(um)
         return obs, metrics

@@ -73,8 +73,9 @@ def main():
     from gym_rotor_tpu_torch.envs import draws as D
     from gym_rotor_tpu_torch.kernels import (build, emlp_actor, emlp_block,
                                              env_tick, flat_adamw, gae,
-                                             mlp_ppo_actor, ppo_loss, replay,
-                                             sac_sample, spectral)
+                                             mlp_ppo_actor, mlp_sac_actor,
+                                             ppo_loss, replay, sac_sample,
+                                             spectral)
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
 
@@ -84,7 +85,7 @@ def main():
     build.build_all([m.KERNEL for m in (env_tick, emlp_actor, replay,
                                         emlp_block, flat_adamw, spectral,
                                         sac_sample, gae, ppo_loss,
-                                        mlp_ppo_actor)])
+                                        mlp_ppo_actor, mlp_sac_actor)])
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     ppo = args.algo == "ppo"
@@ -110,6 +111,8 @@ def main():
     marks = {}
     learner, draws_fn = ((sac, D.make_sac_update_draws) if args.algo == "sac"
                          else (td3, D.make_update_draws))
+    stack = (sac.caps_stack(cfg.is_ctde) if args.algo == "sac"
+             else td3.CAPS_STACK)
 
     def update_alone(run, synced):
         """ms per update of ``n`` updates, device (events) and host."""
@@ -123,7 +126,8 @@ def main():
                           cfg.action_dim_n, [a.critic_widths for a in agents],
                           [a.actor_widths for a in agents], None, dev,
                           ctde=cfg.is_ctde)
-            batch = R.sample(rs, cfg.batch_size, idx=ud.idx)
+            batch = R.sample(rs, cfg.batch_size, idx=ud.idx,
+                             ctde=cfg.is_ctde, stack=stack)
             learner.train_step(cfg, agents, states, batch, ud.agents)
             if synced:
                 torch.cuda.synchronize()

@@ -35,6 +35,7 @@ from gym_rotor_tpu_torch.algos import sac as tsac
 from gym_rotor_tpu_torch.evaluate import joint_policy
 from gym_rotor_tpu_torch.kernels import emlp_actor as kactor
 from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as kmlp
+from gym_rotor_tpu_torch.kernels import mlp_sac_actor as KMS
 from gym_rotor_tpu_torch.kernels import sac_sample as K10
 from gym_rotor_tpu_torch.models import mlp as tmlp
 from gym_rotor_tpu_torch.models import zoo as tmodels
@@ -228,7 +229,7 @@ def test_acting_matches_choose_action(algo, family, agent_id, is_eval):
                                  torch.float64)
     st = agent.make_state(flat, torch.zeros(agent.critic_layout.size))
     wrappers = [kactor.sac_actor, kactor.ppo_actor, kmlp.mlp_ppo_actor,
-                K10.sac_sample]
+                K10.sac_head, KMS.mlp_sac_actor]
     before = [w.launches for w in wrappers]
     n = agent.action_dim
     out = torch.full((32, n + 2), 7.0, dtype=torch.float64)

@@ -123,7 +123,7 @@ def test_squashed_gaussian_autograd_uses_the_hand_backward():
     loss that uses both outputs, and no launch counted on CPU tensors."""
     m, s, z, ga, gl = _k10_inputs("float64", 4, seed=1)
     mt, st = _t(m).requires_grad_(True), _t(s).requires_grad_(True)
-    before = (K10.sac_sample.launches, K10.sac_sample_backward.launches)
+    before = (K10.sac_head.launches, K10.sac_head_backward.launches)
     a, lp = K10.squashed_gaussian(mt, st, _t(z))
     ((a * _t(ga)).sum() + (lp * _t(gl)).sum()).backward()
     ra, rl = K10.sac_sample_plain(_t(m), _t(s), _t(z))
@@ -131,8 +131,8 @@ def test_squashed_gaussian_autograd_uses_the_hand_backward():
                                             _t(z))
     assert torch.equal(a.detach(), ra) and torch.equal(lp.detach(), rl)
     assert torch.equal(mt.grad, rgm) and torch.equal(st.grad, rgs)
-    assert (K10.sac_sample.launches,
-            K10.sac_sample_backward.launches) == before
+    assert (K10.sac_head.launches,
+            K10.sac_head_backward.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +473,7 @@ def test_sac_train_loop_cpu():
     no exploration-noise decay, ``alpha`` moves only with auto-tuning on,
     and no kernel launch."""
     from gym_rotor_tpu_torch.train import train
-    wrappers = [kactor.sac_actor, K10.sac_sample, K10.sac_sample_backward]
+    wrappers = [kactor.sac_actor, K10.sac_head, K10.sac_head_backward]
     before = [w.launches for w in wrappers]
     for auto in (False, True):
         tcfg = TConfig(num_envs=6, max_steps=4, start_timesteps=12,

@@ -268,7 +268,8 @@ def test_every_cuda_source_has_wrapper_and_plain_twin():
     assert {p.stem for p in sources} == {"env_tick", "emlp_actor", "replay",
                                          "emlp_block", "flat_adamw",
                                          "spectral", "sac_sample", "gae",
-                                         "ppo_loss", "mlp_ppo_actor"}
+                                         "ppo_loss", "mlp_ppo_actor",
+                                         "mlp_sac_actor"}
     for src in sources:
         mod = importlib.import_module(f"gym_rotor_tpu_torch.kernels.{src.stem}")
         assert mod.KERNEL.source == src
