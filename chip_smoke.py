@@ -171,10 +171,10 @@ result line):
                 head in one launch) at every MLP PPO agent shape, at 1, 10,
                 32 and 4096 rows, into column slices, one CUDA kernel a
                 call (profiler trace);
-                train_<config> / ppo_train: ``train`` for the twelve
+                train_<config> / ppo_train: ``train`` for the thirteen
                 configurations of ``FAMILY_CONFIGS`` (MATD3, CTDE SAC and
                 PPO with EMLP and MLP networks; SAC and PPO on Mod-MLP,
-                Mono-EMLP and Mono-MLP), TD3/SAC 1 warm + FAMILY_STEPS
+                Mono-EMLP and Mono-MLP; SAC on a wider Mod-MLP actor), TD3/SAC 1 warm + FAMILY_STEPS
                 train supersteps at 4096 envs, PPO configuration B for
                 FAMILY_PPO_STEPS supersteps (the second timed), checked as
                 phases 12, 13 and 18 (exact launch
@@ -1441,7 +1441,14 @@ def sac_head_shapes():
 SAC_HEAD_CASES = ("moderate", "upper", "lower", "tie", "saturated")
 # heads no train path launches at the default widths, for the kernel's
 # run-time-H instances (other actor widths): (label, H, act, dense)
-SAC_HEAD_OTHER = (("other_8_3", 8, 3, False), ("other_40_2", 40, 2, True))
+# and wider ones that stage h in chunks of 65 columns of [h | 1] (H 129: two
+# chunks; 130: a third of the ones column alone; 256: four; 3000: 47, past
+# 48 KB of shared memory)
+SAC_HEAD_OTHER = (("other_8_3", 8, 3, False), ("other_40_2", 40, 2, True),
+                  ("other_64_2", 64, 2, False), ("other_129_3", 129, 3, True),
+                  ("other_130_1", 130, 1, True),
+                  ("other_256_4", 256, 4, False),
+                  ("other_3000_1", 3000, 1, True))
 
 
 def sac_head_inputs(n, H, act, dense, case, gen, dev):
@@ -1503,7 +1510,9 @@ def sac_head_check(h, wm, bm, wl, bl, noise, g_a, g_l, dense):
     names, carried into ``g_h`` through |W| (plus 4 ulp of the products'
     sizes for the order of its sums) and into the weight gradients ``M =
     [h | 1]^T G`` through ``|[h | 1]|`` (plus R ulp of the terms' sizes for
-    the order of the sum over the rows).  The twin's cuBLAS heads
+    the order of the sum over the rows).  ``G`` is written out for the
+    check only; the launch without it (the training path's) must give
+    the same ``g_h`` and ``M`` bits.  The twin's cuBLAS heads
     (the training path's plain chain) are held to the kernel's order within
     ``2 H`` ulp of the products' sizes (``head_scales``).  Returns (checks
     {name: (max abs err, worst tolerance ratio, finite)}, reruns bitwise,
@@ -1513,8 +1522,9 @@ def sac_head_check(h, wm, bm, wl, bl, noise, g_a, g_l, dense):
     args = (h, wm, bm, wl, bl, noise, dense)
     ak, lk = K.sac_head(*args)
     ak2, lk2 = K.sac_head(*args)
-    ghk, Gk, M_k = K.sac_head_backward(g_a, g_l, *args)
-    gh2, G2, M2 = K.sac_head_backward(g_a, g_l, *args)
+    ghk, Gk, M_k = K.sac_head_backward(g_a, g_l, *args, with_G=True)
+    gh2, G2, M2 = K.sac_head_backward(g_a, g_l, *args, with_G=True)
+    gh3, G3, M3 = K.sac_head_backward(g_a, g_l, *args)
     A, H = noise.shape[1], h.shape[1]
     m_o, pre_o = K.head_in_order(h, wm, bm, wl, bl, dense)
     ls_o = torch.clamp(pre_o, LOG_SIG_MIN, LOG_SIG_MAX)
@@ -1545,7 +1555,8 @@ def sac_head_check(h, wm, bm, wl, bl, noise, g_a, g_l, dense):
               "twin_heads": _k10_check(
                   torch.cat([twin_m, twin_pre], 1), torch.cat([m_o, pre_o], 1),
                   2 * H * F32_EPS * torch.cat([sc_m, sc_l], 1))}
-    same = _bitwise([ak, lk, ghk, Gk, M_k], [ak2, lk2, gh2, G2, M2])
+    same = (_bitwise([ak, lk, ghk, Gk, M_k], [ak2, lk2, gh2, G2, M2])
+            and G3 is None and _bitwise([ghk, M_k], [gh3, M3]))
     at_clip = float(((ls_o == LOG_SIG_MIN) | (ls_o == LOG_SIG_MAX))
                     .float().mean())
     return checks, same, at_clip
@@ -2426,13 +2437,14 @@ def sac_head_work(n, H, A, backward):
     noise read, the action and the log-prob written, both heads' weights
     read once; per row the heads' 4 A H products and sums, and ~20 flops an
     action of the clip and the sample.  Backward: the cotangents, h and
-    the noise read, g_h, G = [g_mean | g_log_std] and the weight gradients
-    M ((H + 1) x 2 A) written; per row the heads again, g_h's 4 A H, M's
-    4 A (H + 1), and ~30 flops an action."""
+    the noise read, both heads' weights read once, g_h and the weight
+    gradients M ((H + 1) x 2 A) written (G = [g_mean | g_log_std] stays in
+    the launch); per row the heads again, g_h's 4 A H, M's 4 A (H + 1),
+    and ~30 flops an action."""
     weights = 2 * A * (H + 1)
     if not backward:
         return 4 * (n * (H + 2 * A + 1) + weights), n * (4 * A * H + 20 * A)
-    return (4 * (n * (A + 1 + H + A) + 2 * weights + n * (H + 2 * A)),
+    return (4 * (n * (A + 1 + H + A) + 2 * weights + n * H),
             n * (12 * A * H + 34 * A))
 
 
@@ -3171,7 +3183,10 @@ def mlp_sac_actor_checks(dev):
     """The fused MLP SAC actor (``kernels/mlp_sac_actor.py``) vs its twin
     (``ActorSAC.dist``'s ``F.linear`` chain and the plain sample) at every
     MLP SAC agent shape (Mod-MLP agents 0 and 1, Mono-MLP: 15 / 16 / 4,
-    3 / 4 / 1, 23 / 16 / 4) on reset obs, at 1, 10, 32 and 4096 rows, train
+    3 / 4 / 1, 23 / 16 / 4) and at the wider Mod-MLP actors of
+    ``actor_hidden_dim`` (256, 50) (15 / 256 / 4, past 48 KB of shared
+    memory, and 3 / 50 / 1: the run-time-width kernel) on reset obs, at 1,
+    10, 32 and 4096 rows, train
     and eval modes, with the log_std bias as initialised and shifted by
     +-25 (every row at a clip bound); each launch run twice and compared
     bitwise, written into column slices of wider tensors whose other
@@ -3185,7 +3200,8 @@ def mlp_sac_actor_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     init = torch.Generator().manual_seed(SEED)
     worst, bad, inst = 0.0, [], {}
-    for fam, kw in (("mod_mlp", {}), ("mono_mlp", dict(framework="MONO"))):
+    for fam, kw in (("mod_mlp", {}), ("mono_mlp", dict(framework="MONO")),
+                    ("wide_mlp", dict(actor_hidden_dim=(256, 50)))):
         cfg = Config(num_envs=B, rl_algo="SAC", use_equiv=False, **kw)
         obs = [o.contiguous() for o in batched_reset(cfg, gen, device=dev)[1]]
         for i in range(cfg.n_agents):
@@ -3414,7 +3430,7 @@ def phase_mono(dev):
 # ---------------------------------------------------------------------------
 # The rest of the learner matrix: CTDE, and SAC and PPO on MONO and MLP
 # ---------------------------------------------------------------------------
-# the twelve configurations the JAX package trains beyond the flagship
+# the configurations the JAX package trains beyond the flagship
 # learners and phase 20's, at full width: TD3/SAC at 4096 envs, 1 warm +
 # FAMILY_STEPS train supersteps; PPO in configuration B (4096 envs x 50
 # ticks, minibatch 3723), FAMILY_PPO_STEPS supersteps of K_epochs 1
@@ -3429,6 +3445,9 @@ FAMILY_CONFIGS = (
     ("sac_mod_mlp", dict(rl_algo="SAC", use_equiv=False)),
     ("sac_mono_emlp", dict(rl_algo="SAC", framework="MONO")),
     ("sac_mono_mlp", dict(rl_algo="SAC", framework="MONO", use_equiv=False)),
+    # a wider MLP SAC actor: the head and acting kernels at run-time widths
+    ("sac_mod_mlp_wide", dict(rl_algo="SAC", use_equiv=False,
+                              actor_hidden_dim=(256, 50))),
     ("ppo_ctde_emlp", dict(CTDE_KW, rl_algo="PPO")),
     ("ppo_ctde_mlp", dict(CTDE_KW, rl_algo="PPO", use_equiv=False)),
     ("ppo_mod_mlp", dict(rl_algo="PPO", use_equiv=False)),
@@ -3667,7 +3686,7 @@ def phase_family_actors(dev, obs_mod, obs_mono):
 def phase_family_kernels(dev, runs, block_errs, actor_errs, obs_mod,
                          obs_mono):
     """One record per new instance: K3 and K4 at each new first block
-    (weighted over its (rows) instances on the twelve runs), K9 and K11 at
+    (weighted over its (rows) instances on the thirteen runs), K9 and K11 at
     the MONO actor, and the fused MLP PPO actor; each with its launches on
     those runs,
     device time per launch, the plain twin's time and the bound."""
@@ -3779,7 +3798,7 @@ def phase_families(dev):
     """The rest of the learner matrix (phase 21): the new K3/K4, K9, K11
     instances and the fused MLP PPO actor vs their twins; ``train`` at full
     width for
-    each of the twelve configurations of ``FAMILY_CONFIGS`` (exact launch
+    each of the thirteen configurations of ``FAMILY_CONFIGS`` (exact launch
     counts per superstep, K3/K4 per shape and rows, finite losses, moved
     parameters); ``evaluate`` with the trained actors of the five README
     rows; and the new instances' kernel records."""

@@ -18,8 +18,8 @@ A sample writes the learners' operands directly (``kernels/replay.py``
 joint obs and actions, and the joint ``next_obs``), the CAPS stack with
 its last block free for ``obs + eps``, ``rwd_i`` and ``done_i``; the
 ``Batch`` fields are views of them, and ``Batch.ops`` carries them to the
-learners (``learner_operands``), which would otherwise concatenate the
-fields.
+learners (``learner_operands``; only a ``Batch`` built by hand has its
+fields concatenated).
 """
 from __future__ import annotations
 
@@ -205,15 +205,20 @@ def learner_operands(batch: Batch, i: int, ctde: bool,
     """Agent ``i``'s ``(sa, t_obs, stack)``: the critic input ``[obs_i |
     act_i]`` (``ctde``: the joint one), the CTDE joint ``next_obs`` (None
     under DTDE) and, when ``stack`` names its fields, the CAPS stack with
-    its ``"eps"`` block unwritten.  The operands the sample wrote where it
-    wrote these; else (a ``Batch`` built by hand) concatenations of the
-    fields, the same values."""
+    its ``"eps"`` block unwritten.  The operands the sample wrote; a
+    ``Batch`` built by hand (no ``ops``) gets concatenations of its fields,
+    the same values.  Raises ``ValueError`` where the sample wrote another
+    layout than the learner asks for."""
     ops = batch.ops
-    if ops is not None and (ops.t_obs is not None) == ctde:
-        sa, t_obs = ops.sa[i], ops.t_obs
-        if stack and ops.fields == tuple(stack):
-            return sa, t_obs, ops.stack[i]
-    elif ctde:
+    if ops is not None:
+        if (ops.t_obs is not None) != ctde or (
+                stack and ops.fields != tuple(stack)):
+            raise ValueError(
+                f"learner_operands: the sample wrote the layout (ctde="
+                f"{ops.t_obs is not None}, stack={ops.fields}), the learner "
+                f"asks for (ctde={ctde}, stack={stack})")
+        return ops.sa[i], ops.t_obs, ops.stack[i] if stack else None
+    if ctde:
         sa = torch.cat(list(batch.obs) + list(batch.act), dim=-1)
         t_obs = torch.cat(batch.next_obs, dim=-1)
     else:

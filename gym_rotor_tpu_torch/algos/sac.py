@@ -45,7 +45,7 @@ import torch
 
 from ..envs import draws as D
 from ..kernels.emlp_block import emlp_trunk, fold_linear
-from ..kernels.sac_sample import head_plain, sac_head_sample
+from ..kernels.sac_sample import sac_head_sample
 from ..models import mlp
 from ..models.zoo import sac_models
 from ..utils.config import Config
@@ -179,12 +179,6 @@ class SACAgent(FlatAgent):
         W, b = fold_linear(net.network_head, views, "network_head.")
         return h, (W, b, views["log_std_linear.kernel"],
                    views["log_std_linear.bias"])
-
-    def dist_f(self, views: Dict[str, torch.Tensor], obs):
-        """``(mean, log_std)`` as torch ops on the trunk: the heads and the
-        clamp (``kernels/sac_sample.py::head_plain``)."""
-        h, heads = self.trunk_f(views, obs)
-        return head_plain(h, *heads, not self.equivariant)
 
     def sample_f(self, views: Dict[str, torch.Tensor], obs, noise):
         """``(action, log_prob)``: the trunk, then the heads and the sample

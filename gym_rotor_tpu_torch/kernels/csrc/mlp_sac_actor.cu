@@ -33,7 +33,10 @@
 // the action through its row stride (a column slice of the joint action).
 // Built with -fmad=false, so each product and sum rounds once, as the plain
 // twin's elementwise sample does.  Instantiated for the MODUL actors
-// (15, 16, 4) and (3, 4, 1) and the MONO actor (23, 16, 4).
+// (15, 16, 4) and (3, 4, 1) and the MONO actor (23, 16, 4); other widths
+// (a config's actor_hidden_dim) run one kernel with run-time widths: a
+// block 8 rows, each thread runs of 2 units of all its rows, the weights
+// read from global memory once for the block's rows, the same order.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,6 +59,23 @@ struct Weights {
   const float* wl;   // (nh, nact), the log-std head
   const float* bl;
 };
+
+// Action a of a row from its last hidden layer h (nh floats; NH = nh, or
+// 0 for a run-time width), the heads (nh, nact): sac_head.cuh's dot
+// products, the bias, the clip and the draw (noise at noise[no]), or
+// tanh(mean) without noise (eval).
+template <int NH>
+__device__ __forceinline__ float act(const float* h, int nh, const float* Wm,
+                                     const float* bm, const float* Wl,
+                                     const float* bl, int nact, int a,
+                                     const float* __restrict__ noise,
+                                     size_t no) {
+  float m, l;
+  sac::head_dots<NH>(h, 0, nh, Wm, Wl, nact, a, m, l);
+  m = m + bm[a];
+  l = sac::clip_log_std(l + bl[a]);
+  return noise == nullptr ? tanhf(m) : sac::draw(m, l, noise[no]).a;
+}
 
 template <int NIN, int NH, int NACT>
 __global__ void __launch_bounds__(kThreads)
@@ -86,17 +106,41 @@ mlp_sac_actor_kernel(const float* __restrict__ obs, int B, Weights w,
   mlp::hidden<NIN, NH>(xs, W0, B0, W1, B1, hs, t, x);
   if (row >= nrow) return;
   const size_t r = (size_t)r0 + row;
-  for (int a = j; a < NACT; a += kLanes) {
-    float m = x[0] * WM[a], l = x[0] * WL[a];
-#pragma unroll
-    for (int k = 1; k < NH; ++k) {
-      m = m + x[k] * WM[k * NACT + a];
-      l = l + x[k] * WL[k * NACT + a];
-    }
-    m = m + BM[a];
-    l = sac::clip_log_std(l + BL[a]);
-    out[r * ld_out + a] = noise == nullptr
-        ? tanhf(m) : sac::draw(m, l, noise[r * ld_noise + a]).a;
+  for (int a = j; a < NACT; a += kLanes)
+    out[r * ld_out + a] = act<NH>(x, NH, WM, BM, WL, BL, NACT, a, noise,
+                                  r * ld_noise + a);
+}
+
+// Widths without an instance (run-time nin, nh): a block takes R rows;
+// mlp::dense_relu_rows computes each layer for the R rows at once, each
+// thread runs of units with the weights read from global memory once for
+// the R rows, each unit's terms in k order (an instance's bits); the rows'
+// layers in dynamic shared memory (2 R nh floats).  Then thread p takes
+// (row p / nact, action p % nact): the heads (sac_head.cuh) and the draw.
+// R = 8: a block's loads of a weight serve 8 rows; under 8 rows the
+// spare chains cost little, as the loads' latency holds a pass.
+constexpr int R = 8;
+
+__global__ void __launch_bounds__(kThreads)
+mlp_sac_actor_any_kernel(const float* __restrict__ obs, int B, int nin,
+                         int nh, int nact, Weights w,
+                         const float* __restrict__ noise, int ld_noise,
+                         float* __restrict__ out, int ld_out) {
+  extern __shared__ float hs[];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * R, nr = min(R, B - r0);
+  float* h0 = hs;
+  float* h1 = hs + R * nh;
+  mlp::dense_relu_rows<R>(obs + (size_t)r0 * nin, nin, nr, nin, nh, w.w0,
+                          w.b0, h0, t);
+  __syncthreads();
+  mlp::dense_relu_rows<R>(h0, nh, nr, nh, nh, w.w1, w.b1, h1, t);
+  __syncthreads();
+  for (int p = t; p < nr * nact; p += kThreads) {
+    const int i = p / nact, a = p - i * nact;
+    const size_t r = (size_t)r0 + i;
+    out[r * ld_out + a] = act<0>(h1 + i * nh, nh, w.wm, w.bm, w.wl, w.bl,
+                                 nact, a, noise, r * ld_noise + a);
   }
 }
 
@@ -111,7 +155,8 @@ extern "C" const char* kernel_error_string(int err) {
 // obs (B, nin) contiguous; w0 (nin, nh), b0, w1 (nh, nh), b1, wm (nh,
 // nact), bm, wl (nh, nact), bl contiguous; noise (B, nact) with row stride
 // ld_noise, or null (eval); out (B, nact) with row stride ld_out.  Dims
-// without an instance: cudaErrorInvalidValue.
+// without an instance run mlp_sac_actor_any_kernel (nact <= 4, nh up to
+// 3632: 8 rows' hidden layers in a block's shared memory).
 extern "C" int mlp_sac_actor_launch(const void* obs, int B, int nin, int nh,
                                     int nact, const void* w0, const void* b0,
                                     const void* w1, const void* b1,
@@ -134,5 +179,17 @@ extern "C" int mlp_sac_actor_launch(const void* obs, int B, int nin, int nh,
   }
   MLP_SAC_ACTOR_INSTANCES(X)
 #undef X
-  return (int)cudaErrorInvalidValue;
+  if (nin <= 0 || nh <= 0 || nact <= 0 || nact > 4)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * R * nh;
+  if (smem > 48 * 1024) {   // wide layers: the opt-in shared memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)mlp_sac_actor_any_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mlp_sac_actor_any_kernel<<<(B + R - 1) / R, kThreads, smem, st>>>(
+      (const float*)obs, B, nin, nh, nact, w, (const float*)noise, ld_noise,
+      (float*)out, ld_out);
+  return (int)cudaGetLastError();
 }

@@ -7,6 +7,8 @@
 // own chain, then the bias, then relu), the row's lanes exchanging them
 // through shared memory (a warp barrier).  Every dot product in one fixed
 // order; the including sources are built with -fmad=false.
+// dense_relu_rows: a layer at run-time widths, for widths without an
+// instance.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -84,6 +86,56 @@ __device__ __forceinline__ void hidden(const float* xs, const float* W0,
   __syncwarp();
 #pragma unroll
   for (int k = 0; k < NH; ++k) x[k] = hs[row][k];
+}
+
+// One relu layer at run-time widths for a block's R rows: h[i][u] =
+// relu(sum_k x[i][k] W[k][u] + b[u]) for the rows i < nr (x row stride
+// ldx; the rows past nr compute row nr - 1's, not stored) and u < nh;
+// thread t takes runs of kRun units (t kRun, then kThreads kRun further
+// on), R x kRun chains side by side, each W element loaded once for the R
+// rows; each unit's terms in k order, as dense_relu.  W and b in global
+// memory.
+constexpr int kRun = 2;
+
+template <int R>
+__device__ __forceinline__ void dense_relu_rows(const float* x, int ldx,
+                                                int nr, int n, int nh,
+                                                const float* __restrict__ W,
+                                                const float* __restrict__ b,
+                                                float* h, int t) {
+  const float* xr[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) xr[i] = x + (i < nr ? i : nr - 1) * ldx;
+  for (int u0 = t * kRun; u0 < nh; u0 += kThreads * kRun) {
+    float s[R][kRun], w[kRun];
+#pragma unroll
+    for (int v = 0; v < kRun; ++v)
+      w[v] = u0 + v < nh ? __ldg(W + u0 + v) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float x0 = xr[i][0];
+#pragma unroll
+      for (int v = 0; v < kRun; ++v) s[i][v] = x0 * w[v];
+    }
+#pragma unroll 4
+    for (int k = 1; k < n; ++k) {
+      const float* wk = W + (size_t)k * nh + u0;
+#pragma unroll
+      for (int v = 0; v < kRun; ++v) w[v] = u0 + v < nh ? __ldg(wk + v) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float xk = xr[i][k];
+#pragma unroll
+        for (int v = 0; v < kRun; ++v) s[i][v] = s[i][v] + xk * w[v];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int v = 0; v < kRun; ++v)
+        if (i < nr && u0 + v < nh)
+          h[i * nh + u0 + v] = fmaxf(s[i][v] + __ldg(b + u0 + v), 0.0f);
+  }
 }
 
 }  // namespace mlp

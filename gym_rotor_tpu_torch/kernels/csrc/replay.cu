@@ -53,10 +53,9 @@
 // Thread e takes element (b, j) = (e / W, e % W) of the B x W gathered
 // elements: consecutive threads read consecutive columns of one ring row
 // and write runs of a region's row.  Its loads of the column's word and of
-// idx[b] do not depend on each other, then the ring element; a thread
-// takes PER elements kThreads apart (1 on the train paths: the fastest of
-// 1, 2, 4, 8 at 256 rows), issues all its loads, then all its stores.  A value is poison * ring element (poison 1, or NaN for the
-// empty ring): a copy, bitwise.
+// idx[b] do not depend on each other, then the ring element (one element a
+// thread: the fastest of 1, 2, 4 and 8 at 256 rows).  A value is poison *
+// ring element (poison 1, or NaN for the empty ring): a copy, bitwise.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -240,33 +239,19 @@ insert_kernel(float* __restrict__ ring, long long cap, int row_dim,
 // table: per gathered column j < W, the word src | dst << 16 | wid << 32 |
 // col << 48 (ring column, region offset in units of batch, region width,
 // column in the region).
-template <int PER>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float* __restrict__ ring, int row_dim,
               const int64_t* __restrict__ idx, int batch, float poison,
               const unsigned long long* __restrict__ table, int W,
               float* __restrict__ out) {
-  const int total = batch * W;
-  const int e0 = blockIdx.x * kThreads * PER + threadIdx.x;
-  float v[PER];
-  int at[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int e = e0 + k * kThreads;
-    at[k] = -1;
-    if (e < total) {
-      const int b = e / W, j = e - b * W;
-      const unsigned long long word = __ldg(table + j);
-      const long long row = __ldg((const long long*)idx + b);
-      const int src = (int)(word & 0xFFFF), dst = (int)((word >> 16) & 0xFFFF);
-      const int w = (int)((word >> 32) & 0xFFFF), c = (int)(word >> 48);
-      v[k] = poison * __ldg(ring + row * row_dim + src);
-      at[k] = dst * batch + b * w + c;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < PER; ++k)
-    if (at[k] >= 0) out[at[k]] = v[k];
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= batch * W) return;
+  const int b = e / W, j = e - b * W;
+  const unsigned long long word = __ldg(table + j);
+  const long long row = __ldg((const long long*)idx + b);
+  const int src = (int)(word & 0xFFFF), dst = (int)((word >> 16) & 0xFFFF);
+  const int w = (int)((word >> 32) & 0xFFFF), c = (int)(word >> 48);
+  out[dst * batch + b * w + c] = poison * __ldg(ring + row * row_dim + src);
 }
 
 struct Launch {
@@ -342,27 +327,17 @@ extern "C" int replay_insert_launch(
 }
 
 // table: the gathered columns' words (gather_kernel), W columns; out: the
-// buffer; per: elements a thread (1, 2, 4 or 8).
+// buffer.
 extern "C" int replay_sample_launch(const void* ring, int row_dim,
                                     const void* idx, int batch, float poison,
                                     const void* table, int W, void* out,
-                                    int per, void* stream) {
+                                    void* stream) {
   if (batch <= 0 || row_dim <= 0 || W <= 0 ||
       (long long)batch * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (batch * W + kThreads * per - 1) / (kThreads * per);
-  cudaStream_t st = (cudaStream_t)stream;
-#define GATHER(P)                                                         \
-  gather_kernel<P><<<blocks, kThreads, 0, st>>>(                          \
-      (const float*)ring, row_dim, (const int64_t*)idx, batch, poison,    \
-      (const unsigned long long*)table, W, (float*)out)
-  switch (per) {
-    case 1: GATHER(1); break;
-    case 2: GATHER(2); break;
-    case 4: GATHER(4); break;
-    case 8: GATHER(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef GATHER
+  const int blocks = (batch * W + kThreads - 1) / kThreads;
+  gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)ring, row_dim, (const int64_t*)idx, batch, poison,
+      (const unsigned long long*)table, W, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,36 @@ __host__ __device__ __forceinline__ bool in_clip(float x) {
   return x >= kLogSigMin && x <= kLogSigMax;
 }
 
+// Action a's two head dot products, the mean's (m) and the log-std's
+// before its bias and clip (l), over the hidden floats k0 <= k < k1, added
+// to (m, l) in k order; k0 = 0 starts them (m = h_0 W_m[0][a]).  hk: h_k0
+// onwards (hk[k - k0] = h_k); W_m and W_ls element (k, a) at
+// W[k * ld + a].  HT > 0: the whole row in one call (k0 = 0, k1 = HT),
+// unrolled.
+template <int HT>
+__device__ __forceinline__ void head_dots(const float* hk, int k0, int k1,
+                                          const float* Wm, const float* Wl,
+                                          int ld, int a, float& m, float& l) {
+  if (k0 == 0) {
+    m = hk[0] * Wm[a];
+    l = hk[0] * Wl[a];
+  }
+  if (HT > 0) {
+#pragma unroll
+    for (int k = 1; k < HT; ++k) {
+      const float h = hk[k];
+      m = m + h * Wm[k * ld + a];
+      l = l + h * Wl[k * ld + a];
+    }
+  } else {
+    for (int k = k0 > 1 ? k0 : 1; k < k1; ++k) {
+      const float h = hk[k - k0];
+      m = m + h * Wm[k * ld + a];
+      l = l + h * Wl[k * ld + a];
+    }
+  }
+}
+
 // The draw of one action: std, x = m + std n and the action tanh(x).
 struct Draw {
   float sd, x, a;

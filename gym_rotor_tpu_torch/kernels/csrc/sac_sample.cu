@@ -16,10 +16,10 @@
 // action and the log-prob (4 A + 4), and the heads' 2 A (H + 1) weights once;
 // at the actor loss's 1024 rows of H = 16, A = 4: ~115 KB, ~0.03 us at
 // 3.35 TB/s; the 4 A H flops of the heads and ~20 flops an action of the
-// sample are less.  Backward: h, the noise and both cotangents in, g_h,
-// [g_mean | g_log_std] and the heads' weight gradients out: ~200 KB,
-// ~0.06 us.  A launch of this size is held by the launch itself and, in
-// the backward, by the cross-block sum's fence and ticket.
+// sample are less.  Backward: h, the noise and both cotangents in, g_h
+// and the heads' weight gradients out: ~168 KB, ~0.05 us.  A launch of
+// this size is held by the launch itself and, in the backward, by the
+// cross-block sum's fence and ticket.
 //
 // Design: a row on A lanes, one action a lane (3 actions on 4 lanes, one
 // idle), so a row's lanes are an aligned group of a warp; 128 threads a
@@ -27,16 +27,17 @@
 // in the backward its cotangents) first, then the block stages both heads'
 // weights (through their strides: the EMLP mean head's folded W_eff is (A,
 // H), a flax Dense kernel (H, A); neither is transposed per call) and its
-// rows' h tile (pitch H + 1) in shared memory, every copy a cp.async in
-// flight at once.  Lane a computes action a's two dot products in k order
-// (sac_head.cuh), the clip and the draw; the row's log-prob is the lanes'
-// terms added in action order through shuffles (the order of the earlier
-// one-thread-a-row kernel).  The backward recomputes the forward, then the
-// sample's derivative, masks g_log_std where the clip held, writes G =
-// [g_mean | g_log_std] (also into shared memory) and shares the row's
+// rows' tile of [h | 1] (pitch H + 1, or H + 2 to keep it odd) in shared
+// memory, every copy a cp.async in flight at once.  Lane a computes action
+// a's two dot products in k order (sac_head.cuh), the clip and the draw;
+// the row's log-prob is the lanes' terms added in action order through
+// shuffles (the order of the earlier one-thread-a-row kernel).  The backward recomputes the forward, then the
+// sample's derivative, masks g_log_std where the clip held, keeps G =
+// [g_mean | g_log_std] in shared memory (and writes it out only for
+// checks, when given a pointer for it) and shares the row's
 // (g_mean, g_log_std) over its lanes by shuffles.  The heads' weight and
-// bias gradients, M = [h | 1]^T G ((H + 1) x 2 A; the tile's pitch column
-// is the 1), are summed in the same launch: each block its rows (an entry
+// bias gradients, M = [h | 1]^T G ((H + 1) x 2 A; the tile's column H is
+// the 1), are summed in the same launch: each block its rows (an entry
 // of M on C lanes, each lane a run of rows in row order, the runs' sums
 // added in lane order); with more than one block, each writes its partial
 // M, fences and takes a ticket (an atomic counter per device that the
@@ -46,7 +47,12 @@
 // the last ticket adds the partials in block order (32 loads in flight a
 // thread) and re-arms the counter.  So a rerun repeats its bits.
 // H is a template parameter for the train paths' heads (16 hidden floats
-// and 4 actions, 4 and 1), a runtime loop bound (up to 64) for others.
+// and 4 actions, 4 and 1), a run-time loop bound for others (other actor
+// widths).  A head wider than 64 stages its tile in chunks of 65 columns of
+// [h | 1]: the dot products carry their sums from chunk to chunk (the same
+// k order), and the backward stages the chunks again for M, the last one
+// first; past 48 KB of shared memory a launch opts in to more (up to the
+// card's 227 KB: H up to ~7000 at 4 actions, ~24000 at 1).
 // Built with -fmad=false so the products and sums round like the plain twin.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -57,7 +63,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxH = 64;       // hidden floats a row
+constexpr int kMaxK = 65;       // columns of [h | 1] a staged tile
 constexpr unsigned kFull = 0xffffffffu;
 
 // lanes a row: one an action, 3 actions on 4
@@ -76,11 +82,24 @@ struct Head {
   const float* bl;
 };
 
-// Shared memory: Wm [k][a], Wl [k][a], bm, bl, then the h tile (pitch
-// H + 1), then (the backward) the rows' [g_mean | g_log_std].
+// The block's rows of [h | 1] (H + 1 columns, the last the ones) pass
+// through shared memory in chunks of KT columns (the last may be
+// narrower): one chunk up to H = 64, so the train paths' heads stage their
+// tile once.  P: the tile's pitch, odd.
+struct Tile {
+  int KT, P, chunks;
+};
+
+__host__ __device__ constexpr Tile tile_of(int H) {
+  const int kt = H + 1 < kMaxK ? H + 1 : kMaxK;
+  return Tile{kt, kt | 1, (H + kt) / kt};
+}
+
+// Shared memory: Wm [k][a], Wl [k][a], bm, bl, then the tile, then (the
+// backward) the rows' [g_mean | g_log_std].
 __host__ __device__ inline int smem_floats(int H, int A) {
   const int rows = kThreads / (A == 3 ? 4 : A);
-  return 2 * H * A + 2 * A + rows * (H + 1) + rows * 2 * A;
+  return 2 * H * A + 2 * A + rows * tile_of(H).P + rows * 2 * A;
 }
 
 // lanes an entry of M takes in the backward's block sum: the most, up to
@@ -96,19 +115,15 @@ __host__ __device__ inline int head_blocks(int R, int A) {
   return (R + rows - 1) / rows;
 }
 
-// Stage the heads and the block's h tile by cp.async, all in flight at
-// once; the tile's column H is 1 (the ones column of [h | 1]).  Returns
-// the tile.
+// Both heads into shared memory by cp.async, waited for with the first
+// chunk of the tile.
 template <int A>
-__device__ __forceinline__ float* stage(float* sm, const float* __restrict__ h,
-                                        int H, int r0, int nrow,
-                                        const Head& w) {
+__device__ __forceinline__ void stage_heads(float* sm, int H, const Head& w) {
   float* Wm = sm;
   float* Wl = Wm + H * A;
   float* bm = Wl + H * A;
   float* bl = bm + A;
-  float* hs = bl + A;
-  const int t = threadIdx.x, P = H + 1;
+  const int t = threadIdx.x;
   for (int i = t; i < H * A; i += kThreads) {
     const int k = i / A, a = i - k * A;
     __pipeline_memcpy_async(Wm + i, w.wm + k * w.wm_k + a * w.wm_a, 4);
@@ -118,44 +133,63 @@ __device__ __forceinline__ float* stage(float* sm, const float* __restrict__ h,
     __pipeline_memcpy_async(bm + t, w.bm + t, 4);
     __pipeline_memcpy_async(bl + t, w.bl + t, 4);
   }
-  const float* src = h + (size_t)r0 * H;
-  for (int i = t; i < nrow * H; i += kThreads) {
-    const int r = i / H;
-    __pipeline_memcpy_async(hs + r * P + (i - r * H), src + i, 4);
+}
+
+// Chunk c of the block's [h | 1] tile into hs (column j of the chunk is
+// column c KT + j of [h | 1]), by cp.async, every copy in flight at once;
+// then the wait and a block barrier.  Returns the chunk's columns.
+__device__ __forceinline__ int stage_tile(float* hs,
+                                          const float* __restrict__ h, int H,
+                                          int r0, int nrow, const Tile& tl,
+                                          int c) {
+  const int k0 = c * tl.KT, nk = min(tl.KT, H + 1 - k0);
+  const int t = threadIdx.x;
+  if (tl.chunks == 1) {   // the whole rows, then the ones column
+    const float* src = h + (size_t)r0 * H;
+    for (int i = t; i < nrow * H; i += kThreads) {
+      const int r = i / H;
+      __pipeline_memcpy_async(hs + r * tl.P + (i - r * H), src + i, 4);
+    }
+    for (int r = t; r < nrow; r += kThreads) hs[r * tl.P + H] = 1.0f;
+  } else {
+    for (int i = t; i < nrow * nk; i += kThreads) {
+      const int r = i / nk, j = i - r * nk, k = k0 + j;
+      if (k < H)
+        __pipeline_memcpy_async(hs + r * tl.P + j,
+                                h + (size_t)(r0 + r) * H + k, 4);
+      else
+        hs[r * tl.P + j] = 1.0f;
+    }
   }
-  for (int r = t; r < nrow; r += kThreads) hs[r * P + H] = 1.0f;
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
-  return hs;
+  return nk;
 }
 
-// Action a's mean and pre-clip log-std from the row's h, in k order.
+// Action a's mean and pre-clip log-std (the live lanes), the tile's chunks
+// staged one after another (one for the train paths' heads); the last one
+// stays staged.
 template <int HT, int A>
-__device__ __forceinline__ void head(const float* sm, const float* hr, int H,
-                                     int a, float& m, float& pre) {
+__device__ __forceinline__ void heads(float* sm, float* hs,
+                                     const float* __restrict__ h, int H,
+                                     int r0, int nrow, int row, int a,
+                                     bool live, float& m, float& pre) {
+  const Tile tl = tile_of(H);
   const float* Wm = sm;
   const float* Wl = Wm + H * A;
-  const float* bm = Wl + H * A;
-  const float* bl = bm + A;
-  m = hr[0] * Wm[a];
-  pre = hr[0] * Wl[a];
-  if (HT > 0) {
-#pragma unroll
-    for (int k = 1; k < HT; ++k) {
-      const float hk = hr[k];
-      m = m + hk * Wm[k * A + a];
-      pre = pre + hk * Wl[k * A + a];
-    }
-  } else {
-    for (int k = 1; k < H; ++k) {
-      const float hk = hr[k];
-      m = m + hk * Wm[k * A + a];
-      pre = pre + hk * Wl[k * A + a];
-    }
+  for (int c = 0; c < tl.chunks; ++c) {
+    if (c > 0) __syncthreads();   // the last chunk read
+    const int nk = stage_tile(hs, h, H, r0, nrow, tl, c);
+    const int k0 = c * tl.KT;
+    if (live)
+      sac::head_dots<HT>(hs + row * tl.P, k0, min(k0 + nk, H), Wm, Wl, A, a,
+                         m, pre);
   }
-  m = m + bm[a];
-  pre = pre + bl[a];
+  if (live) {
+    m = m + Wl[H * A + a];          // b_m
+    pre = pre + Wl[H * A + A + a];  // b_ls
+  }
 }
 
 template <int HT, int A>
@@ -171,11 +205,11 @@ sac_head_fwd_kernel(const float* __restrict__ h, int R, int Hrt, Head w,
   const bool live = row < nrow && a < A;
   const size_t o = (size_t)(r0 + row) * A + a;
   const float n = live ? __ldg(noise + o) : 0.0f;
-  const float* hs = stage<A>(sm, h, H, r0, nrow, w);
-  float lt = 0.0f;
+  stage_heads<A>(sm, H, w);
+  float m = 0.0f, pre = 0.0f, lt = 0.0f;
+  heads<HT, A>(sm, sm + 2 * H * A + 2 * A, h, H, r0, nrow, row, a, live, m,
+               pre);
   if (live) {
-    float m, pre;
-    head<HT, A>(sm, hs + row * (H + 1), H, a, m, pre);
     const float l = sac::clip_log_std(pre);
     const sac::Draw d = sac::draw(m, l, n);
     lt = sac::log_prob(m, l, d);
@@ -200,6 +234,7 @@ sac_head_bwd_kernel(const float* __restrict__ g_action,
                     unsigned* __restrict__ ticket) {
   constexpr int L = Lanes<A>::L, RB = Lanes<A>::kRows, A2 = 2 * A;
   const int H = HT > 0 ? HT : Hrt;
+  const Tile tl = tile_of(H);
   extern __shared__ float sm[];
   __shared__ bool last;
   const int t = threadIdx.x, row = t / L, a = t - row * L;
@@ -209,19 +244,21 @@ sac_head_bwd_kernel(const float* __restrict__ g_action,
   const float n = live ? __ldg(noise + o) : 0.0f;
   const float ga = live ? __ldg(g_action + o) : 0.0f;
   const float glp = in_row ? __ldg(g_logp + r0 + row) : 0.0f;
-  const float* hs = stage<A>(sm, h, H, r0, nrow, w);
-  const int P = H + 1;
-  float* Gs = sm + 2 * H * A + 2 * A + RB * P;
+  stage_heads<A>(sm, H, w);
+  float* hs = sm + 2 * H * A + 2 * A;
+  float* Gs = hs + RB * tl.P;
+  float m = 0.0f, pre = 0.0f;
+  heads<HT, A>(sm, hs, h, H, r0, nrow, row, a, live, m, pre);
 
   float gm = 0.0f, gl = 0.0f;
   if (live) {
-    float m, pre;
-    head<HT, A>(sm, hs + row * P, H, a, m, pre);
     sac::sample_backward(ga, glp, m, sac::clip_log_std(pre), n, &gm, &gl);
     gl = sac::in_clip(pre) ? gl : 0.0f;
-    float* go = G + (size_t)(r0 + row) * A2;
-    go[a] = gm;
-    go[A + a] = gl;
+    if (G != nullptr) {   // [g_mean | g_log_std], for checks
+      float* go = G + (size_t)(r0 + row) * A2;
+      go[a] = gm;
+      go[A + a] = gl;
+    }
     Gs[row * A2 + a] = gm;
     Gs[row * A2 + A + a] = gl;
   }
@@ -235,34 +272,43 @@ sac_head_bwd_kernel(const float* __restrict__ g_action,
   }
   __syncthreads();   // Gs complete
 
-  // the block's M = [h | 1]^T G over its rows: entry q on C consecutive
-  // lanes, lane c its share of the rows in row order, then the C sums in
-  // lane order (C, known at compile time, the most lanes an entry that the
-  // block's threads allow; 1 for a run-time H)
+  // the block's M = [h | 1]^T G over its rows, chunk by chunk of the tile
+  // (the staged last one first): entry q on C consecutive lanes, lane c
+  // its share of the rows in row order, then the C sums in lane order (C,
+  // known at compile time, the most lanes an entry that the block's
+  // threads allow; 1 for a run-time H)
   constexpr int C = HT > 0 ? lanes_an_entry((HT + 1) * A2) : 1;
-  const int NQ = P * A2;
+  const int NQ = (H + 1) * A2;
   const bool solo = gridDim.x == 1;
   float* dst = solo ? M : partial + (size_t)blockIdx.x * NQ;
-  for (int q0 = 0; q0 < NQ * C; q0 += kThreads) {
-    const int slot = q0 + t, q = slot / C, c = slot - q * C;
-    float s = 0.0f;
-    if (q < NQ) {
-      const int k = q / A2, j = q - k * A2;
-      const int ra = c * nrow / C, rb = (c + 1) * nrow / C;
-      if (ra < rb) s = hs[ra * P + k] * Gs[ra * A2 + j];
+  for (int ch = tl.chunks - 1; ch >= 0; --ch) {
+    if (ch < tl.chunks - 1) {
+      __syncthreads();   // the last chunk read
+      stage_tile(hs, h, H, r0, nrow, tl, ch);
+    }
+    const int NQc = min(tl.KT, H + 1 - ch * tl.KT) * A2;
+    float* dc = dst + ch * tl.KT * A2;
+    for (int q0 = 0; q0 < NQc * C; q0 += kThreads) {
+      const int slot = q0 + t, q = slot / C, c = slot - q * C;
+      float s = 0.0f;
+      if (q < NQc) {
+        const int k = q / A2, j = q - k * A2;
+        const int ra = c * nrow / C, rb = (c + 1) * nrow / C;
+        if (ra < rb) s = hs[ra * tl.P + k] * Gs[ra * A2 + j];
 #pragma unroll 8
-      for (int r = ra + 1; r < rb; ++r)
-        s = s + hs[r * P + k] * Gs[r * A2 + j];
-    }
-    if (C > 1) {
-      const int lead = (t & 31) & ~(C - 1);
-      float tot = __shfl_sync(kFull, s, lead);
+        for (int r = ra + 1; r < rb; ++r)
+          s = s + hs[r * tl.P + k] * Gs[r * A2 + j];
+      }
+      if (C > 1) {
+        const int lead = (t & 31) & ~(C - 1);
+        float tot = __shfl_sync(kFull, s, lead);
 #pragma unroll
-      for (int b = 1; b < C; ++b)
-        tot = tot + __shfl_sync(kFull, s, lead + b);
-      s = tot;
+        for (int b = 1; b < C; ++b)
+          tot = tot + __shfl_sync(kFull, s, lead + b);
+        s = tot;
+      }
+      if (q < NQc && c == 0) dc[q] = s;
     }
-    if (q < NQ && c == 0) dst[q] = s;
   }
   if (!solo) {
     __threadfence();
@@ -334,6 +380,13 @@ template <int HT, int A>
 int launch(const Args& x, bool backward) {
   const int blocks = head_blocks(x.R, A);
   const size_t smem = sizeof(float) * smem_floats(x.H, A);
+  if (smem > 48 * 1024) {   // wide heads: the opt-in shared memory
+    const void* k = backward ? (const void*)sac_head_bwd_kernel<HT, A>
+                             : (const void*)sac_head_fwd_kernel<HT, A>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (backward)
     sac_head_bwd_kernel<HT, A><<<blocks, kThreads, smem, x.st>>>(
         x.g_action, x.g_logp, x.h, x.R, x.H, x.w, x.noise, x.out0, x.out1,
@@ -345,7 +398,7 @@ int launch(const Args& x, bool backward) {
 }
 
 int dispatch(const Args& x, int A, bool backward) {
-  if (x.R <= 0 || x.H <= 0 || x.H > kMaxH) return (int)cudaErrorInvalidValue;
+  if (x.R <= 0 || x.H <= 0) return (int)cudaErrorInvalidValue;
   // the train paths' heads, H a template parameter
   if (x.H == 16 && A == 4) return launch<16, 4>(x, backward);
   if (x.H == 4 && A == 1) return launch<4, 1>(x, backward);
@@ -389,7 +442,8 @@ extern "C" int sac_head_fwd_launch(const void* h, int R, int H, int A,
 
 // g_action (R, A), g_logp (R,), then the forward's inputs; writes g_h
 // (R, H), G = [g_mean | g_log_std] (R, 2 A), g_log_std zero where the clip
-// held, and M = [h | 1]^T G ((H + 1) x 2 A).  partial: sac_head_blocks(R,
+// held (unless G is null: the training path reads only g_h and M), and
+// M = [h | 1]^T G ((H + 1) x 2 A).  partial: sac_head_blocks(R,
 // A) x (H + 1) x 2 A floats (unused with one block); ticket: a zeroed
 // unsigned counter that the launch leaves zeroed, launches that share it
 // run one after another.

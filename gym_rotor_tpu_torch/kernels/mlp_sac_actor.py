@@ -20,7 +20,9 @@ a block; each block stages the weights, read from the bound parameter
 tensors each call (views of the learner's flat vector, so nothing to re-key
 when the optimizer writes them), and its rows' obs in shared memory; the
 hidden units split over the row's lanes, exchanged through shared memory;
-every dot product in one fixed order.
+every dot product in one fixed order.  Widths without an instance run one
+kernel with run-time widths in the same order, its weights read from
+global memory.
 """
 from __future__ import annotations
 
@@ -35,9 +37,11 @@ from .sac_sample import sac_sample_plain
 
 KERNEL = KernelSource("mlp_sac_actor", ["-fmad=false"])
 WRAPPERS = {"mlp_sac_actor": "mlp_sac_actor_plain"}
-# (obs dim, hidden width, action dim) of the built instances: the MODUL
-# actors (agents 0 and 1) and the MONO actor
-INSTANCES = {(15, 16, 4), (3, 4, 1), (23, 16, 4)}
+# the run-time-width kernel's limits (the instances, (obs dim, hidden
+# width, action dim) = (15, 16, 4), (3, 4, 1), (23, 16, 4), are within
+# them): 8 rows' two hidden layers in a block's shared memory
+MAX_HIDDEN = 3632
+MAX_ACT = 4
 # the actor's parameters in the kernel's order
 PARAMS = ("Dense_0.kernel", "Dense_0.bias", "Dense_1.kernel", "Dense_1.bias",
           "mean.kernel", "mean.bias", "log_std.kernel", "log_std.bias")
@@ -76,16 +80,17 @@ def mlp_sac_actor(actor, obs: torch.Tensor,
     """The acting sample of an MLP ``ActorSAC``, ``(B, act)``, with the
     N(0, 1) draw ``noise``, or ``tanh(mean)`` when ``noise`` is None
     (eval).  CPU tensors -> ``mlp_sac_actor_plain``; CUDA tensors -> one
-    kernel launch (float32), or an error.  ``out`` (unit column stride, any
-    row stride) receives the action in place: a column slice of the joint
-    action."""
+    kernel launch (float32; an instance, or the run-time-width kernel),
+    or an error.  ``out`` (unit column stride, any row stride) receives the
+    action in place: a column slice of the joint action."""
     if not obs.is_cuda:
         return _plain_into(mlp_sac_actor_plain(actor, obs, noise), out)
     dims = actor_dims(actor)
     nin, nh, nact = dims
-    if dims not in INSTANCES:
-        raise NotImplementedError(f"mlp_sac_actor has no kernel instance for "
-                                  f"(nin, nh, nact) = {dims}")
+    if nh > MAX_HIDDEN or nact > MAX_ACT:
+        raise ValueError(f"mlp_sac_actor: (nin, nh, nact) = {dims}; the "
+                         f"kernel takes up to {MAX_HIDDEN} hidden units and "
+                         f"{MAX_ACT} actions")
     B, dev = obs.shape[0], obs.device
     if obs.dtype != torch.float32 or obs.shape != (B, nin) \
             or not obs.is_contiguous() or B == 0:

@@ -58,7 +58,6 @@ from .build import KernelSource, check
 KERNEL = KernelSource("replay", [])
 WRAPPERS = {"replay_insert_tick": "replay_insert_tick_plain",
             "replay_sample": "replay_sample_plain"}
-GATHER_PER = 1          # gathered elements a thread of the sample
 
 Dims = Tuple[Tuple[int, ...], Tuple[int, ...]]
 
@@ -70,7 +69,7 @@ def _lib():
         lib.replay_insert_launch.argtypes = [P, L, I, L, I, P, I, P, I, P, I,
                                              P, P, P, P, I, P, P, P, P, P, P]
         lib.replay_insert_launch.restype = I
-        lib.replay_sample_launch.argtypes = [P, I, P, I, F, P, I, P, I, P]
+        lib.replay_sample_launch.argtypes = [P, I, P, I, F, P, I, P, P]
         lib.replay_sample_launch.restype = I
         lib.replay_insert_blocks.argtypes = [I]
         lib.replay_insert_blocks.restype = I
@@ -333,13 +332,12 @@ def replay_insert_tick(data, ptr: int, dims: Dims, obs_t, actions, reward,
 replay_insert_tick.launches = 0
 
 
-def replay_sample(data, idx, poison: bool, layout: GatherLayout,
-                  per: int = GATHER_PER):
+def replay_sample(data, idx, poison: bool, layout: GatherLayout):
     """The rows ``data[idx]`` (all NaN when ``poison``, the empty ring)
     gathered into the operands of ``layout``: a buffer of ``per_row * B``
     floats (``layout.views`` reads it).  CPU tensors ->
     ``replay_sample_plain``; CUDA tensors -> one launch (float32 ring,
-    int64 indices; ``per`` gathered elements a thread), or an error."""
+    int64 indices; one gathered element a thread), or an error."""
     if not data.is_cuda:
         return replay_sample_plain(data, idx, poison, layout)
     cap, rd = data.shape
@@ -354,7 +352,7 @@ def replay_sample(data, idx, poison: bool, layout: GatherLayout,
     err = lib.replay_sample_launch(
         data.data_ptr(), rd, idx.data_ptr(), batch,
         float("nan") if poison else 1.0, layout.table(dev).data_ptr(),
-        layout.gathered, out.data_ptr(), per,
+        layout.gathered, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "replay_sample")
     replay_sample.launches += 1

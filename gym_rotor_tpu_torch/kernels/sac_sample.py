@@ -35,17 +35,19 @@ ulp of them per element (``rounding_scales``).  The heads' dot products are
 the kernel's own, in k order, where the twin's are the BLAS's: the two
 agree to float32 rounding of the heads (``head_scales``), not bitwise.
 
-The backward launch gives ``g_h``, ``G = [g_mean | g_log_std]`` (the clip's
-mask applied) and the four weight and bias gradients as one matrix ``M =
-[h | 1]^T G``, summed in the launch (each block its rows in row order, the
-blocks' partials by the block that takes the last ticket, in block order:
+The backward launch gives ``g_h`` and the four weight and bias gradients
+as one matrix ``M = [h | 1]^T G`` of ``G = [g_mean | g_log_std]`` (the
+clip's mask applied; ``G`` itself is written out only for checks), summed
+in the launch (each block its rows in row order, the blocks' partials by
+the block that takes the last ticket, in block order:
 ``_ticket``, as K8's statistics in ``kernels/replay.py``), so a rerun
 repeats its bits.
 
-What bounds it on an H100: the bytes (~115 KB forward, ~200 KB backward at
-the actor loss's 1024 rows of H = 16, 4 actions: 0.03 / 0.06 us); the
+What bounds it on an H100: the bytes (~115 KB forward, ~168 KB backward at
+the actor loss's 1024 rows of H = 16, 4 actions: 0.03 / 0.05 us); the
 launch dominates.  A row on A lanes, one action a lane (``csrc/
-sac_sample.cu``).
+sac_sample.cu``); any H (a head wider than 64 stages its rows of h in
+chunks).
 """
 from __future__ import annotations
 
@@ -61,7 +63,6 @@ KERNEL = KernelSource("sac_sample", ["-fmad=false"])
 WRAPPERS = {"sac_head": "sac_head_plain",
             "sac_head_backward": "sac_head_backward_plain"}
 MAX_ACT = 4
-MAX_HIDDEN = 64
 
 
 def _lib():
@@ -146,12 +147,13 @@ def sac_head_plain(h, wm, bm, wl, bl, noise, dense: bool):
 
 
 def sac_head_backward_plain(g_action, g_logp, h, wm, bm, wl, bl, noise,
-                            dense: bool):
+                            dense: bool, with_G: bool = False):
     """``(g_h (R, H), G (R, 2 act), M (H + 1, 2 act))`` for the cotangents
     ``g_action`` and ``g_logp``: ``G = [g_mean | g_log_std]`` with
-    ``g_log_std`` zero where the clamp held its input, ``g_h = g_mean W_m^T
-    + g_log_std W_ls^T`` (``W_m`` as (act, H)) and ``M = [h | 1]^T G``, the
-    heads' weight and bias gradients (``head_grads``)."""
+    ``g_log_std`` zero where the clamp held its input (None unless
+    ``with_G``: for checks), ``g_h = g_mean W_m^T + g_log_std W_ls^T``
+    (``W_m`` as (act, H)) and ``M = [h | 1]^T G``, the heads' weight and
+    bias gradients (``head_grads``)."""
     mean, pre = head_pre(h, wm, bm, wl, bl, dense)
     log_std = torch.clamp(pre, LOG_SIG_MIN, LOG_SIG_MAX)
     g_mean, g_ls = sac_sample_backward_plain(g_action, g_logp, mean, log_std,
@@ -162,7 +164,7 @@ def sac_head_backward_plain(g_action, g_logp, h, wm, bm, wl, bl, noise,
     g_h = g_mean @ w_m + g_ls @ wl.t()
     G = torch.cat([g_mean, g_ls], dim=1)
     xa = torch.cat([h, torch.ones_like(h[:, :1])], dim=1)
-    return g_h, G, xa.t() @ G
+    return g_h, G if with_G else None, xa.t() @ G
 
 
 def head_in_order(h, wm, bm, wl, bl, dense: bool):
@@ -214,9 +216,9 @@ def _ticket(device) -> torch.Tensor:
 
 def _args(h, wm, bm, wl, bl, noise, dense):
     """Check the operands; returns ``(R, H, act, head arguments)``."""
-    if h.dim() != 2 or h.shape[0] == 0 or not 1 <= h.shape[1] <= MAX_HIDDEN:
-        raise ValueError(f"sac_head: h must be (R, H) with R > 0 and H <= "
-                         f"{MAX_HIDDEN}, got {tuple(h.shape)}")
+    if h.dim() != 2 or h.shape[0] == 0 or h.shape[1] == 0:
+        raise ValueError(f"sac_head: h must be (R, H) with R, H > 0, got "
+                         f"{tuple(h.shape)}")
     R, H = int(h.shape[0]), int(h.shape[1])
     act = int(bm.shape[0]) if bm.dim() == 1 else -1
     if not 1 <= act <= MAX_ACT:
@@ -236,8 +238,8 @@ def _args(h, wm, bm, wl, bl, noise, dense):
 
 def sac_head(h, wm, bm, wl, bl, noise, dense: bool):
     """Forward: ``(action (R, act), log_prob (R, 1))``.  CPU tensors ->
-    ``sac_head_plain``; CUDA tensors -> one kernel launch (float32, H <= 64,
-    act <= 4), or an error."""
+    ``sac_head_plain``; CUDA tensors -> one kernel launch (float32, act <=
+    4), or an error."""
     if not h.is_cuda:
         return sac_head_plain(h, wm, bm, wl, bl, noise, dense)
     R, H, act, head = _args(h, wm, bm, wl, bl, noise, dense)
@@ -257,20 +259,21 @@ sac_head.launches = 0
 
 
 def sac_head_backward(g_action, g_logp, h, wm, bm, wl, bl, noise,
-                      dense: bool):
-    """Backward: ``(g_h, G, M)`` as ``sac_head_backward_plain``.  CPU
-    tensors -> ``sac_head_backward_plain``; CUDA tensors -> one kernel
-    launch (the weight gradients summed in it), or an error."""
+                      dense: bool, with_G: bool = False):
+    """Backward: ``(g_h, G, M)`` as ``sac_head_backward_plain`` (``G``
+    written out only ``with_G``).  CPU tensors ->
+    ``sac_head_backward_plain``; CUDA tensors -> one kernel launch (the
+    weight gradients summed in it), or an error."""
     if not h.is_cuda:
         return sac_head_backward_plain(g_action, g_logp, h, wm, bm, wl, bl,
-                                       noise, dense)
+                                       noise, dense, with_G)
     R, H, act, head = _args(h, wm, bm, wl, bl, noise, dense)
     dev = h.device
     _check("g_action", g_action, (R, act), dev)
     _check("g_logp", g_logp, (R, 1), dev)
     f32 = torch.float32
     g_h = torch.empty(R, H, dtype=f32, device=dev)
-    G = torch.empty(R, 2 * act, dtype=f32, device=dev)
+    G = torch.empty(R, 2 * act, dtype=f32, device=dev) if with_G else None
     M = torch.empty(H + 1, 2 * act, dtype=f32, device=dev)
     lib = _lib()
     blocks = lib.sac_head_blocks(R, act)
@@ -278,7 +281,8 @@ def sac_head_backward(g_action, g_logp, h, wm, bm, wl, bl, noise,
                if blocks > 1 else None)
     err = lib.sac_head_bwd_launch(
         g_action.data_ptr(), g_logp.data_ptr(), h.data_ptr(), R, H, act,
-        *head, noise.data_ptr(), g_h.data_ptr(), G.data_ptr(), M.data_ptr(),
+        *head, noise.data_ptr(), g_h.data_ptr(),
+        None if G is None else G.data_ptr(), M.data_ptr(),
         None if partial is None else partial.data_ptr(),
         _ticket(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "sac_head backward")

@@ -11,15 +11,18 @@ imported under another name, so its own wrappers and kernels (built from
 
 - The SAC head at every head shape of the train paths (``chip_smoke``'s
   ``sac_head_shapes``: the EMLP heads of Mod agents 0 and 1 and Mono, the
-  MLP heads of Mod-MLP and Mono-MLP) at 256 and 1024 rows: this tree's one
+  MLP heads of Mod-MLP and Mono-MLP) and at the run-time widths of
+  ``chip_smoke.SAC_HEAD_OTHER`` (H 8 to 3000) at 256 and 1024 rows: this tree's one
   forward launch and one backward launch held to the plain sample on the
   kernel's own heads (``chip_smoke.sac_head_check``), the earlier commit's
   chain (the heads as torch ops, the clamp, its K10 launch; under autograd
   its K10 backward and torch's backward of the heads) within 1e-5 max(1,
   max |plain|) of the twin forward, and the two sides' gradients within
   1e-3 max(1, max |abs|) of each other.
-- The MLP SAC actor (15 / 16 / 4, 3 / 4 / 1, 23 / 16 / 4) at 1, 10, 32
-  and 4096 rows with a draw and without (eval): this tree's one launch and
+- The MLP SAC actor (15 / 16 / 4, 3 / 4 / 1, 23 / 16 / 4, and the
+  run-time widths 15 / 256 / 4, 3 / 50 / 1 and 15 / 900 / 4) at 1, 10, 32
+  and 4096 rows
+  with a draw and without (eval): this tree's one launch and
   the earlier commit's chain (``F.linear`` heads, then its K10 forward)
   both within 1e-5 of the twin; reruns bitwise.
 - K2 sample at 256 rows of a 1e6-row ring for TD3 and SAC, DTDE and CTDE:
@@ -52,7 +55,10 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 HEAD_ROWS = (256, 1024)
-ACTOR_SHAPES = ((15, 16, 4), (3, 4, 1), (23, 16, 4))
+# the instances, then run-time widths (the actors of actor_hidden_dim
+# (256, 50), and a far wider one)
+ACTOR_SHAPES = ((15, 16, 4), (3, 4, 1), (23, 16, 4), (15, 256, 4), (3, 50, 1),
+                (15, 900, 4))
 ACTOR_ROWS = (1, 10, 32, 4096)
 UPDATES = (("td3", {}), ("td3_ctde", dict(module_training="CTDE")),
            ("td3_mlp", dict(use_equiv=False)), ("sac", dict(rl_algo="SAC")),
@@ -104,9 +110,13 @@ def head_case(CS, K, PK, label, H, act, dense, n, dev, gen):
     def fwd_par():
         PK.sac_sample(*K.head_plain(h, wm, bm, wl, bl, dense), z)
 
-    # the backward launch alone
+    # the backward launch alone, as the training path makes it and with
+    # G = [g_mean | g_log_std] written out (the checks' launch)
     rec["backward_launch_ms"] = CS.device_ms(lambda: K.sac_head_backward(
         g_a, g_l, h, wm, bm, wl, bl, z, dense), 200)[0]
+    rec["backward_launch_with_G_ms"] = CS.device_ms(
+        lambda: K.sac_head_backward(g_a, g_l, h, wm, bm, wl, bl, z, dense,
+                                    with_G=True), 200)[0]
     return rec, (fwd_par, fwd_mine), (bwd_par, bwd_mine)
 
 
@@ -278,7 +288,8 @@ def main():
         if rec.get("slower"):
             slower.append(rec)
 
-    for label, H, act, dense in CS.sac_head_shapes():
+    for label, H, act, dense in (CS.sac_head_shapes()
+                                 + list(CS.SAC_HEAD_OTHER)):
         for n in HEAD_ROWS:
             rec, fwd, bwd = head_case(CS, K, PK, label, H, act, dense, n,
                                       dev, gen)
@@ -336,10 +347,6 @@ def main():
             rec["slower"] = rec["sample_and_copies"]["slower"]
             if rec["kernels_a_call"] != 1:
                 rec["ok"] = False
-            # the gather at other numbers of elements a thread
-            lay = R.gather_layout(dims, ctde, stack)
-            rec["per_ms"] = {p: CS.device_ms(lambda: KR.replay_sample(
-                ring, idx, False, lay, per=p), 200)[0] for p in (1, 2, 4, 8)}
             report(rec)
 
     mine_pkg = lambda name: importlib.import_module(  # noqa: E731

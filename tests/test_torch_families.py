@@ -42,7 +42,7 @@ from gym_rotor_tpu_torch.models import zoo as tmodels
 from gym_rotor_tpu_torch.utils.config import Config as TConfig
 from test_torch_ppo import PPO, ppo_superstep_vs_jax
 from test_torch_ppo import train_step_vs_jax as ppo_train_step_vs_jax
-from test_torch_sac import SAC
+from test_torch_sac import SAC, _dist_f
 from test_torch_sac import train_step_vs_jax as sac_train_step_vs_jax
 from test_torch_td3 import _cfgs, _close, _np, _np_tree, _t, _to64
 from test_torch_td3 import superstep_vs_jax
@@ -188,7 +188,7 @@ def test_networks_match_flax(algo, family, agent_id):
     cv = agent.critic_layout.views(convert.flat_from_jax(
         _np_tree(cp), agent.critic_layout, "cpu", torch.float64))
     if algo == "SAC":
-        fm, fl = agent.dist_f(av, _t(obs))
+        fm, fl = _dist_f(agent, av, _t(obs))
         _close(_np(fl), jl, 1e-9, "dist_f log_std")
     else:
         fm = agent.actor_mean(av, _t(obs))

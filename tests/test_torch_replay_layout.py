@@ -132,6 +132,25 @@ def test_empty_ring_sample_is_poisoned(fw, ctde, name):
     assert all(bool(torch.isnan(t).all()) for t in ts)
 
 
+@pytest.mark.parametrize("ask", ["ctde", "dtde", "stack"])
+def test_learner_operands_refuse_another_layout(ask):
+    """A sampled ``Batch`` read with another CTDE flag or CAPS stack than
+    the sample wrote raises (a learner wired to the wrong layout fails,
+    where it would otherwise concatenate copies); the same fields in a
+    ``Batch`` built by hand are concatenated."""
+    dims = FRAMEWORKS["MODUL"]
+    rs, idx = _ring(dims, torch.float32)
+    wrote = dict(ctde=ask == "dtde", stack=ttd3.CAPS_STACK)
+    batch = R.sample(rs, 16, idx=idx, **wrote)
+    asks = {"ctde": (True, ttd3.CAPS_STACK), "dtde": (False, ttd3.CAPS_STACK),
+            "stack": (False, STACKS["sac"])}[ask]
+    with pytest.raises(ValueError, match="layout"):
+        R.learner_operands(batch, 0, *asks)
+    sa, t_obs, stk = R.learner_operands(R.Batch(*batch[:5]), 0, *asks)
+    assert sa.shape[0] == 16 and stk.shape[0] == 16 * len(asks[1])
+    assert (t_obs is None) == (not asks[0])
+
+
 def _learner(algo, fw, ctde, equiv, dtype):
     kw = dict(NARROW, rl_algo=algo, framework=fw, use_equiv=equiv)
     if ctde:

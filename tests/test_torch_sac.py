@@ -173,6 +173,13 @@ def test_sac_actor_layout_matches_flax(agent_id):
             jzoo.spectral_weights(params)[0])]
 
 
+def _dist_f(agent, views, obs):
+    """``(mean, log_std)`` on the training path's trunk (``trunk_f``) as
+    torch ops: the heads and the clamp (``head_plain``)."""
+    h, heads = agent.trunk_f(views, obs)
+    return K10.head_plain(h, *heads, not agent.equivariant)
+
+
 @pytest.mark.parametrize("agent_id", AGENTS)
 def test_sac_actor_forward_matches_flax(agent_id):
     """``(mean, log_std)`` of flax's ``EMLPActorSAC`` with the carried
@@ -199,7 +206,7 @@ def test_sac_actor_forward_matches_flax(agent_id):
     agent = tsac.SACAgent(tcfg, agent_id, "cpu", torch.float64)
     flat = convert.flat_from_jax(_np_tree(params), agent.actor_layout, "cpu",
                                  torch.float64)
-    fm, fl = agent.dist_f(agent.actor_layout.views(flat), _t(obs))
+    fm, fl = _dist_f(agent, agent.actor_layout.views(flat), _t(obs))
     _close(_np(fm), jm, 1e-9, "dist_f mean")
     _close(_np(fl), jl, 1e-9, "dist_f log_std")
 

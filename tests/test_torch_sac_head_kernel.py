@@ -219,8 +219,12 @@ def test_head_function_matches_the_chain(family, dtype, case):
     rel = 1e-12 if dtype == torch.float64 else 1e-5
     for x, y in zip(g2, g1):
         _check("grad", x, _np(y), rel)
-    g_h, G, M = K10.sac_head_backward_plain(g_a, g_l, *inp[:5], noise, dense)
+    g_h, G, M = K10.sac_head_backward_plain(g_a, g_l, *inp[:5], noise, dense,
+                                            with_G=True)
     _check("g_h", g_h, _np(g1[0]), rel)
+    g_h2, none, M2 = K10.sac_head_backward_plain(g_a, g_l, *inp[:5], noise,
+                                                 dense)
+    assert none is None and torch.equal(g_h2, g_h) and torch.equal(M2, M)
     mean_pre = [t.clone().requires_grad_(True)
                 for t in K10.head_pre(h, wm, bm, wl, bl, dense)]
     a3, l3 = K10.squashed_gaussian(
@@ -230,7 +234,8 @@ def test_head_function_matches_the_chain(family, dtype, case):
     assert M.shape == (H + 1, 2 * act)
 
 
-@pytest.mark.parametrize("dims", [(15, 16, 4), (3, 4, 1), (23, 16, 4)])
+@pytest.mark.parametrize("dims", [(15, 16, 4), (3, 4, 1), (23, 16, 4),
+                                  (15, 256, 4), (3, 50, 1)])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("mode", ["train", "eval"])
 def test_mlp_sac_actor_twin_matches_flax(dims, dtype, mode):
