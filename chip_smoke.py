@@ -242,6 +242,22 @@ result line):
                 with the statistics and without: ring and ``ep_ret`` bitwise
                 the twin's, the sums within 1e-5 max(1, max |sum|), a rerun
                 bitwise
+ 25. the training driver (``phase_driver``): ``gym_rotor_tpu_torch.train.main``
+                for the flagship at B = 4096 envs (2 warm + 6 train
+                supersteps, an eval every 2 supersteps' env-steps, a
+                checkpoint with the ring every 4) in a temporary directory:
+                evals and checkpoints at the timesteps the JAX driver's
+                rules give, exact launch counts per superstep and per eval,
+                K1, K2 write + K8, K2 sample, K3-actor, K3/K4, K6 and K7
+                launched; each agent's actor saved and reloaded bitwise;
+                ``--test_model`` (and a learner that folded its seeded
+                actors before the load) giving the in-memory eval's answer
+                bitwise; the last checkpoint in a fresh learner bitwise;
+                ``--resume`` one more superstep; ``docs/artifacts``' actors
+                under the reference eval stream on the card vs the CPU's
+                plain path (rewards 1e-5 relative, success equal, last
+                errors 1e-5); the phase's wall time, each eval's and the
+                host time per superstep
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -278,7 +294,7 @@ T0 = time.perf_counter()
 def log(phase, **kv):
     kv["t_s"] = round(time.perf_counter() - T0, 1)
     if phase in ("rollout", "eval", "train", "sac_train", "ppo_train",
-                 "kernels", "mlp_nets") or phase.startswith(("train_",
+                 "kernels", "mlp_nets", "driver") or phase.startswith(("train_",
                                                               "eval_")):
         kv["card"] = CARD
     print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
@@ -4788,6 +4804,290 @@ def phase_tiles(dev):
     return phase_tick_rows(dev), phase_replay_rows(dev)
 
 
+# ---------------------------------------------------------------------------
+# The training driver (``python -m gym_rotor_tpu_torch.train``) end to end
+# ---------------------------------------------------------------------------
+DRIVER_KERNELS = ("env_tick", "replay_insert_tick", "replay_sample",
+                  "emlp_actor", "emlp_block", "emlp_block_backward",
+                  "flat_adamw", "spectral_iterate")
+ARTIFACT_PAIRS = (("TD3_MODUL_300.0k_steps_agent_0_1992.msgpack",
+                   "TD3_MODUL_300.0k_steps_agent_1_1992.msgpack"),
+                  ("TD3_MODUL_100.0k_steps_agent_0_1992.msgpack",
+                   "TD3_MODUL_450.016k_steps_agent_1_solved_1992.msgpack"),
+                  ("TD3_MODUL_300.0k_steps_agent_0_1992.msgpack",
+                   "TD3_MODUL_500.0k_steps_agent_1_1992.msgpack"))
+
+
+def driver_argv(ckpt_path, supersteps=8, resume=False):
+    """The flagship's defaults at B envs, cut in depth: 2 warm supersteps,
+    then ``supersteps - 2`` train ones; an eval every 2 supersteps' env-steps
+    and a train-state checkpoint (with the ring) every 4."""
+    return ["--num_envs", str(B), "--start_timesteps", str(2 * B),
+            "--max_timesteps", str(supersteps * B), "--eval_freq", str(2 * B),
+            "--checkpoint_freq", str(4 * B), "--checkpoint_replay", "True",
+            "--checkpoint_path", ckpt_path] + (
+                ["--resume", "True"] if resume else [])
+
+
+def driver_schedule(supersteps, resumed_at=None):
+    """The eval and checkpoint timesteps ``driver_argv`` asks the JAX
+    driver's rules for (``train.py:382-452``): an eval before training,
+    then at the first train superstep at or past each multiple of
+    ``eval_freq``; a checkpoint every ``checkpoint_freq`` from the start."""
+    start, freq, ck = 2 * B, 2 * B, 4 * B
+    t = resumed_at or 0
+    evals, ckpts = [t], []
+    next_eval, next_ck = freq, t + ck
+    while t < supersteps * B:
+        warm = t < start
+        t += B
+        if t >= next_eval and not warm:
+            evals.append(t)
+            while next_eval <= t:
+                next_eval += freq
+        if t >= next_ck:
+            ckpts.append(t)
+            next_ck += ck
+    return evals, ckpts
+
+
+def _states_bitwise(a, b):
+    import dataclasses
+
+    def leaves(x):
+        if dataclasses.is_dataclass(x):
+            return [v for f in dataclasses.fields(x)
+                    for v in leaves(getattr(x, f.name))]
+        return [x]
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        (torch.equal(x, y) and x.dtype == y.dtype)
+        if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def _eval_bitwise(r1, r2):
+    return (r1[0].tobytes() == r2[0].tobytes() and r1[1] == r2[1]
+            and bool((r1[2] == r2[2]).all()))
+
+
+def expected_eval_launches(cfg):
+    """An eval's launches on the flagship: one reset, then K1 once and
+    K3-actor once per agent a tick."""
+    from gym_rotor_tpu_torch.envs.quad import DT
+    ticks = int(round(cfg.eval_max_steps / DT))
+    return {"env_tick": 1 + ticks, "emlp_actor": cfg.n_agents * ticks}
+
+
+def phase_driver(dev, supersteps=8):
+    """Phase 25: ``gym_rotor_tpu_torch.train.main(argv)``, the flagship at
+    B envs for ``supersteps`` supersteps (``driver_argv``) in a temporary
+    directory: the evals and checkpoints at ``driver_schedule``'s
+    timesteps, exact launch counts per superstep (``expected_launches``) and
+    per eval (one reset, then K1 once and K3-actor per agent a tick), every
+    kernel of the path launched; each agent's actor saved and reloaded
+    bitwise (the bytes and the tree); ``--test_model`` on them, and a
+    learner that folded its seeded actors before loading them, giving the
+    in-memory eval's answer bitwise (a stale fold cache would not); the
+    last checkpoint loaded into a fresh learner bitwise (states, ring,
+    generators); ``--resume`` running one more superstep; and
+    ``docs/artifacts``' actors under the reference eval stream on the card
+    vs the CPU's plain path.  Prints the phase's wall time, each eval's and
+    the host time per superstep."""
+    import os
+    import tempfile
+
+    from gym_rotor_tpu_torch import train as T
+    from gym_rotor_tpu_torch.utils import checkpoint as ckpt
+    from gym_rotor_tpu_torch.utils import msgpack as mp
+    t_phase = time.perf_counter()
+    wr = _wrappers()
+    rec = dict(evals=[], ckpts=[], steps=[], eval_s=[], bad=[])
+    orig = (T.Learner.eval_policy, T.Learner.save_checkpoint,
+            T.Learner.superstep)
+
+    def counts():
+        return {k: w.launches for k, w in wr.items()}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+
+    def eval_policy(self):
+        before = counts()
+        t0 = time.perf_counter()
+        out = orig[0](self)
+        rec["eval_s"].append(time.perf_counter() - t0)
+        rec["evals"].append(self.total_timesteps)
+        want = expected_eval_launches(self.cfg)
+        got = delta(before)
+        if got != want:
+            rec["bad"].append(("eval", self.total_timesteps, got, want))
+        return out
+
+    def save_checkpoint(self, path=None):
+        rec["ckpts"].append(self.total_timesteps)
+        return orig[1](self, path)
+
+    def superstep(self):
+        before = counts()
+        t0 = time.perf_counter()
+        warm, metrics, ret = orig[2](self)
+        rec["steps"].append((warm, time.perf_counter() - t0))
+        gated = not warm and \
+            self.states[0].total_it % self.cfg.policy_update_freq == 0
+        want = expected_launches(self.cfg, warm, gated)
+        got = delta(before)
+        if got != want:
+            rec["bad"].append(("superstep", self.total_timesteps, got, want))
+        return warm, metrics, ret
+
+    cwd = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="driver_")
+    ck = os.path.join(tmp, "ck", "train_state.msgpack")
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    T.Learner.eval_policy, T.Learner.save_checkpoint, T.Learner.superstep = \
+        eval_policy, save_checkpoint, superstep
+    try:
+        os.chdir(tmp)
+        learner = T.main(driver_argv(ck, supersteps), device=dev)
+        torch.cuda.synchronize()
+        run_launches = counts()
+        run = {k: list(v) for k, v in rec.items()}
+        cfg = learner.cfg
+        # each agent's actor saved (the 0.85 bar is rarely cleared by a
+        # short run from random weights) and reloaded bitwise
+        driver_saved = sorted(os.listdir("models")) \
+            if os.path.isdir("models") else []
+        paths = [learner.save_actor(i) for i in range(cfg.n_agents)]
+        reload_ok = []
+        for i, p in enumerate(paths):
+            tree = learner.actor_tree(i)
+            loaded = ckpt.load_actor(p, tree)
+            reload_ok.append(
+                open(p, "rb").read() == mp.packb(tree) == mp.packb(loaded))
+        in_memory = learner.eval_policy()
+        tm = T.main(driver_argv(ck, supersteps) + ["--test_model", "True"],
+                    device=dev)
+        test_model = tm.eval_policy()
+        tm_actors = [torch.equal(a.actor, b.actor)
+                     for a, b in zip(tm.states, learner.states)]
+        folded = T.Learner(cfg, device=dev)
+        folded.eval_policy()                    # folds the seeded actors
+        folded.load_best_actors()
+        after_fold = folded.eval_policy()
+        # the last checkpoint (the run's end) in a fresh learner
+        fresh = T.Learner(cfg, device=dev).load_checkpoint(ck)
+        ckpt_ok = dict(
+            states=all(_states_bitwise(a, b) for a, b in
+                       zip(fresh.states, learner.states)),
+            ring=bool(torch.equal(fresh.replay.data, learner.replay.data))
+            and (fresh.replay.ptr, fresh.replay.filled)
+            == (learner.replay.ptr, learner.replay.filled),
+            generators=bool(torch.equal(fresh.gen.get_state(),
+                                        learner.gen.get_state())),
+            counters=(fresh.total_timesteps, fresh.explor_noise_std)
+            == (learner.total_timesteps, learner.explor_noise_std))
+        ck_bytes = os.path.getsize(ck)
+        rec.update(evals=[], ckpts=[], steps=[])
+        resumed = T.main(driver_argv(ck, supersteps + 1, resume=True),
+                         device=dev)
+        resume = dict(evals=list(rec["evals"]), ckpts=list(rec["ckpts"]),
+                      total=resumed.total_timesteps,
+                      total_it=[s.total_it for s in resumed.states])
+    finally:
+        os.chdir(cwd)
+        T.Learner.eval_policy, T.Learner.save_checkpoint, \
+            T.Learner.superstep = orig
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    artifacts = driver_artifacts(dev)
+    want_evals, want_ckpts = driver_schedule(supersteps)
+    want_resume = driver_schedule(supersteps + 1, supersteps * B)
+    train_ms = [1e3 * s for w, s in run["steps"] if not w]
+    warm_ms = [1e3 * s for w, s in run["steps"] if w]
+    log("driver", framework=cfg.framework, rl_algo=cfg.rl_algo, envs=B,
+        supersteps=len(run["steps"]), evals=run["evals"],
+        checkpoints=run["ckpts"], want_evals=want_evals,
+        want_checkpoints=want_ckpts,
+        launches={k: v for k, v in run_launches.items() if v},
+        driver_saved_actors=driver_saved, actor_reload_bitwise=reload_ok,
+        test_model_bitwise=_eval_bitwise(test_model, in_memory),
+        test_model_actors_bitwise=tm_actors,
+        load_after_fold_bitwise=_eval_bitwise(after_fold, in_memory),
+        eval_reward=[float(x) for x in in_memory[0]],
+        benchmark_reward=in_memory[1], checkpoint=ckpt_ok,
+        checkpoint_bytes=ck_bytes, resume=resume,
+        want_resume=dict(evals=want_resume[0], ckpts=want_resume[1]),
+        train_superstep_host_ms=train_ms, warm_superstep_host_ms=warm_ms,
+        train_superstep_host_ms_median=statistics.median(train_ms),
+        eval_wall_s=run["eval_s"], artifacts=artifacts,
+        phase_wall_s=time.perf_counter() - t_phase,
+        mismatches=rec["bad"][:5])
+    missing = [k for k in DRIVER_KERNELS if not run_launches.get(k)]
+    if rec["bad"] or missing:
+        raise AssertionError(f"driver launches: {rec['bad'][:5]}, not "
+                             f"launched: {missing}")
+    if (run["evals"], run["ckpts"]) != (want_evals, want_ckpts):
+        raise AssertionError(f"driver schedule {run['evals']} "
+                             f"{run['ckpts']}, want {want_evals} "
+                             f"{want_ckpts}")
+    if not (all(reload_ok) and all(tm_actors)
+            and _eval_bitwise(test_model, in_memory)
+            and _eval_bitwise(after_fold, in_memory)):
+        raise AssertionError("saved actors do not answer as in memory")
+    if not all(ckpt_ok.values()):
+        raise AssertionError(f"train state round trip: {ckpt_ok}")
+    if (resume["evals"], resume["ckpts"]) != want_resume or \
+            resume["total"] != (supersteps + 1) * B or \
+            resume["total_it"] != [s.total_it + 1 for s in learner.states]:
+        raise AssertionError(f"resume: {resume}, want {want_resume}")
+    if not all(a["ok"] for a in artifacts):
+        raise AssertionError(f"docs/artifacts actors: {artifacts}")
+
+
+def driver_artifacts(dev):
+    """``docs/artifacts``' trained actors (all five files, as three pairs)
+    loaded by ``Learner.load_actor`` and evaluated under the reference eval
+    stream (the reference's ten seeded episodes, lifted in plain torch) on
+    the card and on the CPU's plain path: the rewards within 1e-5 relative,
+    success equal, the last errors within 1e-5, the closed-loop tolerance
+    the CPU tests hold the port to JAX with."""
+    import os
+
+    from gym_rotor_tpu_torch import train as T
+    from gym_rotor_tpu_torch.evaluate import evaluate
+    from gym_rotor_tpu_torch.utils.config import Config
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config(eval_stream="reference", num_envs=32, replay_buffer_size=64)
+    out = []
+    for names in ARTIFACT_PAIRS:
+        res = []
+        for d in (dev, torch.device("cpu")):
+            learner = T.Learner(cfg, device=d)
+            for i, n in enumerate(names):
+                learner.load_actor(i, os.path.join(here, "docs", "artifacts",
+                                                   n))
+            t0 = time.perf_counter()
+            r = evaluate(cfg, learner.actors(), device=d)
+            res.append(([x.cpu() for x in r[:5]],
+                        time.perf_counter() - t0))
+        (k, k_s), (p, p_s) = res
+        ep = float(((k[0] - p[0]).abs() / p[0].abs()).max())
+        bench = abs(float(k[1]) - float(p[1])) / abs(float(p[1]))
+        last = max(float((k[3] - p[3]).abs().max()),
+                   float((k[4] - p[4]).abs().max()))
+        ok = (ep <= 1e-5 and bench <= 1e-5 and torch.equal(k[2], p[2])
+              and last <= 1e-5)
+        out.append(dict(actors=list(names), benchmark_reward=float(k[1]),
+                        cpu_benchmark_reward=float(p[1]),
+                        eval_reward_rel_err=ep, benchmark_rel_err=bench,
+                        last_err=last, success=int(k[2].sum()),
+                        card_eval_s=k_s, cpu_eval_s=p_s, ok=ok))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4857,6 +5157,7 @@ def main():
     records += phase_tick_modes(dev)
     records += phase_gym_api(dev)
     k1_err, k2_err = phase_tiles(dev)
+    phase_driver(dev)
     for rec in records:
         if rec["name"] == "env_tick":
             rec["max_abs_err"] = max(rec["max_abs_err"], k1_err)

@@ -12,7 +12,9 @@ ring, the EMLP block forward and backward, the flat optimizer, the
 spectral power iteration, SAC's squashed sample, PPO's GAE and clipped
 surrogate); each has a plain PyTorch twin beside its wrapper, which is
 what runs on CPU tensors.  ``make("Quad-v0" | "Coupled-v0" |
-"Decoupled-v0")`` gives the Gym API's single envs (``envs/gym_api.py``).
+"Decoupled-v0")`` gives the Gym API's single envs (``envs/gym_api.py``);
+``python -m gym_rotor_tpu_torch.train`` is the training driver, with the
+JAX ``train.py``'s flags (``train.py``: ``Learner``, ``main``).
 """
 from .registry import make, register
 from .utils.config import Config

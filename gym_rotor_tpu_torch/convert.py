@@ -6,7 +6,11 @@ Every function takes numpy arrays (nested dicts, as
 JAX objects, so this module imports no JAX.  A network's flat parameter
 vector is built in ``ravel_pytree`` order (the dotted flax paths sorted as
 path tuples, ``algos/common.py::FlatLayout``), so the JAX flat optimizer
-state (``flat_init``'s ``mu``/``nu``) carries across as it is.
+state (``flat_init``'s ``mu``/``nu``) carries across as it is.  The
+``*_to_jax`` functions go the other way for the actors (TD3, SAC and PPO,
+EMLP and MLP) and any flat vector: the flax tree of numpy arrays, keys in
+sorted order, which ``utils/checkpoint.py::save_actor`` writes in flax's
+byte layout.
 """
 from __future__ import annotations
 
@@ -190,6 +194,58 @@ def critic_params_from_jax(tree: Mapping, cfg: Config, agent_id: int):
     (``q1_fc1.*`` .. ``q2_fc3.*``) without ``cfg.use_equiv``; CPU
     tensors."""
     return _params_from_jax(tree, _critic_shapes(cfg, agent_id))
+
+
+def _params_to_jax(sd: Mapping[str, torch.Tensor], shapes) -> dict:
+    """Dotted names to tensors -> flax's ``{"params": ...}`` tree of numpy
+    arrays, every level's keys in sorted order (the order of a tree that
+    came out of a jitted function or ``unravel``, and so of the JAX
+    package's saved actors); shapes are checked."""
+    names = sorted(shapes, key=lambda n: tuple(n.split(".")))
+    params: dict = {}
+    for key in names:
+        if key not in sd:
+            raise KeyError(f"port params lack {key}")
+        arr = sd[key].detach().cpu().numpy()
+        if arr.shape != tuple(shapes[key]):
+            raise ValueError(f"{key}: expected shape {tuple(shapes[key])}, "
+                             f"got {arr.shape}")
+        *path, leaf = key.split(".")
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr)
+    return {"params": params}
+
+
+def actor_params_to_jax(sd: Mapping[str, torch.Tensor], cfg: Config,
+                        agent_id: int) -> dict:
+    """The port TD3 actor's ``state_dict`` -> flax ``EMLPActorDet`` (or
+    ``ActorTD3``) params, nested dicts of numpy arrays under ``params``
+    (the inverse of ``actor_params_from_jax``)."""
+    return _params_to_jax(sd, _actor_shapes(cfg, agent_id))
+
+
+def sac_actor_params_to_jax(sd: Mapping[str, torch.Tensor], cfg: Config,
+                            agent_id: int) -> dict:
+    """The port SAC actor's ``state_dict`` -> flax ``EMLPActorSAC`` (or
+    ``ActorSAC``) params (the inverse of ``sac_actor_params_from_jax``)."""
+    return _params_to_jax(sd, _sac_actor_shapes(cfg, agent_id))
+
+
+def ppo_actor_params_to_jax(sd: Mapping[str, torch.Tensor], cfg: Config,
+                            agent_id: int) -> dict:
+    """The port PPO actor's ``state_dict`` -> flax ``EMLPActorPPO`` (or
+    ``ActorPPO``) params (the inverse of ``ppo_actor_params_from_jax``)."""
+    return _params_to_jax(sd, _ppo_actor_shapes(cfg, agent_id))
+
+
+def flat_to_jax(flat: torch.Tensor, layout: FlatLayout) -> dict:
+    """A flat parameter vector in ``layout``'s order -> its flax
+    ``{"params": ...}`` tree of numpy arrays (the inverse of
+    ``flat_from_jax``)."""
+    return _params_to_jax(layout.views(flat.detach()),
+                          OrderedDict(zip(layout.names, layout.shapes)))
 
 
 def flat_from_jax(tree: Mapping, layout: FlatLayout, device=None,

@@ -155,7 +155,7 @@ def build_obs(cfg: Config, ne: NormErr):
 
 
 def _sqnorm(x):
-    n = torch.sqrt(dot3(x, x))
+    n = so3.sqrt_rn(dot3(x, x))
     return n * n
 
 

@@ -223,7 +223,7 @@ def _mode_takeoff(ts: TrajState, x, v, R, u: TrajDraws) -> TrajState:
                       ts.xd[..., 2])
     delta = xd - x
     # jnp.sum over the 3 components: (d0^2 + d1^2) + d2^2
-    reached = torch.sqrt(dot3(delta, delta)) < 0.04
+    reached = so3.sqrt_rn(dot3(delta, delta)) < 0.04
     hold = (~climbing) & reached
     xd2 = torch.where(hold, _const(xd2, TAKEOFF_END_HEIGHT), xd2)
     vd2 = torch.where(hold, _const(xd2, 0.0), vd[..., 2])

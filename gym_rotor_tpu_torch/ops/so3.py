@@ -15,6 +15,17 @@ import math
 import torch
 
 
+def sqrt_rn(x):
+    """``sqrt`` correctly rounded in float32 too: a float32 input's root is
+    taken in float64 and rounded once to float32 (exact, since 53 >= 2 * 24
+    + 2: the double rounding cannot move the result), because torch's CPU
+    float32 ``sqrt`` is not correctly rounded on some hosts, where numpy's
+    and XLA's are.  Other dtypes go through ``torch.sqrt`` as they are."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def _stack3x3(rows):
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
@@ -171,7 +182,8 @@ def euler_to_rot(euler):
 def rot_to_euler(R):
     """(roll, pitch, yaw) of ``R = Rz Ry Rx`` (``so3.py:238-249``), the
     singular branch (``sy < 1e-6``) as a select."""
-    sy = torch.sqrt(R[..., 0, 0] * R[..., 0, 0] + R[..., 1, 0] * R[..., 1, 0])
+    sy = sqrt_rn(R[..., 0, 0] * R[..., 0, 0]
+                 + R[..., 1, 0] * R[..., 1, 0])
     singular = sy < 1e-6
     x_ns = torch.atan2(R[..., 2, 1], R[..., 2, 2])
     z_ns = torch.atan2(R[..., 1, 0], R[..., 0, 0])
@@ -202,7 +214,7 @@ def heading_rd(R):
 
 def _unit(v):
     """``v / ||v||``, the norm as the fixed-order ``sqrt(dot3(v, v))``."""
-    return v / torch.sqrt(_dot3(v, v))[..., None]
+    return v / sqrt_rn(_dot3(v, v))[..., None]
 
 
 def _dot3(a, b):

@@ -10,10 +10,11 @@ the port of ``train.py``'s ``Learner`` and are ignored.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -145,6 +146,43 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def _add_bool(parser, name, default, help=""):
+    parser.add_argument(
+        name, default=default,
+        type=lambda x: str(x).lower() in ("true", "1", "yes"), help=help)
+
+
+def create_parser() -> argparse.ArgumentParser:
+    """The CLI: ``--<field>`` for every ``Config`` field; booleans read
+    ``true``/``1``/``yes`` (any case) as True and anything else as False,
+    tuples take one or more values."""
+    p = argparse.ArgumentParser(
+        description="Modular RL for quadrotor UAV control (PyTorch/CUDA)")
+    defaults = Config()
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name
+        d = getattr(defaults, f.name)
+        if isinstance(d, bool):
+            _add_bool(p, name, d)
+        elif isinstance(d, tuple):
+            p.add_argument(name, default=list(d), nargs="+",
+                           type=type(d[0]) if d else float)
+        else:
+            p.add_argument(name, default=d, type=type(d))
+    return p
+
+
+def config_from_args(argv: Optional[list] = None) -> Config:
+    args = create_parser().parse_args(argv)
+    kw = {}
+    for f in dataclasses.fields(Config):
+        v = getattr(args, f.name)
+        if isinstance(v, list):
+            v = tuple(v)
+        kw[f.name] = v
+    return Config(**kw)
 
 
 # PPO's two configurations at full width (actors 16 / 4, V critics 62), cut
