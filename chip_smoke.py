@@ -258,6 +258,31 @@ result line):
                 plain path (rewards 1e-5 relative, success equal, last
                 errors 1e-5); the phase's wall time, each eval's and the
                 host time per superstep
+ 26. any actor and critic width (``phase_widths``): each run-time-width
+                path against its twin, every rerun bitwise: K3/K4
+                (``emlp_block_any``, ``emlp_block_backward_any``) for every
+                block of the TD3 critics, the actors and the PPO V critics
+                at (actor, critic) (8, 4) / 8, (32, 8) / 128 and (64, 16) /
+                256 and critic 512's hidden blocks at WIDTH_ROWS (1, 31,
+                32, 33, 256, 3723, 4096), the tiles read from global memory
+                bitwise the staged read; the acting kernel
+                (``emlp_actor_any``, ``sac_actor_any``, ``ppo_actor_any``)
+                for each head at those widths and (128, 32), train and eval,
+                the image and the tile in global memory bitwise the staged
+                launch; K7 (``spectral_iterate_any``) on every learner's
+                stack at those widths and critic 512's; the MLP PPO actor
+                (``mlp_ppo_actor_any``) at 15/64/4, 3/16/1, 15/256/4 and
+                15/900/4; each also at default shapes held to the
+                instance's result; PPO B's V forward over 409 600 rows at
+                critic 256 (plain in chunks); then ``train`` with exact
+                launch counts per superstep: TD3 and SAC (1 warm +
+                WIDTH_STEPS), PPO B and Mod-MLP PPO B (WIDTH_PPO_STEPS) at
+                (64, 16) / 256, TD3 at (32, 8) / 128 and (8, 4) / 8
+                (WIDTH_SMALL_STEPS); ``main(argv)`` of ``python -m
+                gym_rotor_tpu_torch.train --actor_hidden_dim 64 16
+                --critic_hidden_dim 256`` (1 warm + 3 train supersteps, 3
+                evals); one record per run-time wrapper (its launches over
+                those runs, times at the slice's shapes)
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -265,6 +290,7 @@ Imports nothing of JAX or of the JAX package.
 """
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import statistics
@@ -646,6 +672,7 @@ def phase_build(dev):
     log("build", parallel_wall_s=wall)
     block_resources(dev)
     actor_spectral_resources(dev)
+    widths_resources(dev)
     from gym_rotor_tpu_torch.kernels import env_tick as KT
     k1 = env_tick_resources(KT)
     k2 = replay_resources()
@@ -1701,6 +1728,101 @@ def expected_td3_shapes(cfg, agents, dev, gated: bool):
     return fwd, bwd
 
 
+def _stack_dims(layout):
+    """``(K, mo, mi)`` of the padded weight stack K7 iterates for a
+    network's flat layout."""
+    from gym_rotor_tpu_torch.models.emlp.nn import spectral_weights
+    ws, _ = spectral_weights({n: torch.empty(s, device="meta") for n, s
+                              in zip(layout.names, layout.shapes)})
+    return (len(ws), max(int(w.shape[0]) for w in ws),
+            max(int(w.shape[1]) for w in ws))
+
+
+# the instances' wrappers and the run-time-width wrappers that take the
+# shapes without an instance
+ANY_WRAPPERS = {"emlp_block": "emlp_block_any",
+                "emlp_block_backward": "emlp_block_backward_any",
+                "emlp_actor": "emlp_actor_any", "sac_actor": "sac_actor_any",
+                "ppo_actor": "ppo_actor_any",
+                "spectral_iterate": "spectral_iterate_any",
+                "mlp_ppo_actor": "mlp_ppo_actor_any"}
+
+
+def route_widths(want, agents, dev, fwd=(), bwd=(), k7=(0, 0)):
+    """``want`` (one superstep's launches by wrapper, as the instances'
+    wrappers would count them at any width) with the launches of shapes
+    without an instance moved to the run-time-width wrappers: K3/K4 by the
+    dims of ``fwd``/``bwd`` (per (dims, rows, flag)); the acting kernels
+    and the MLP PPO actor per agent by its actor's dims (``want``'s count
+    an equal share per agent); K7 per agent by its networks' padded stacks,
+    ``k7`` = (the critic's, the actor's launches an agent).  At the default
+    widths nothing moves."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    out = dict(want)
+
+    def move(name, n):
+        if n:
+            out[name] -= n
+            out[ANY_WRAPPERS[name]] = out.get(ANY_WRAPPERS[name], 0) + n
+            if not out[name]:
+                del out[name]
+
+    move("emlp_block", sum(c for (d, *_), c in Counter(fwd).items()
+                           if d not in KB.INSTANCES))
+    move("emlp_block_backward", sum(c for (d, *_), c in Counter(bwd).items()
+                                    if d not in KB.INSTANCES))
+    heads = {"emlp_actor": KA.HEAD_TANH, "sac_actor": KA.HEAD_GAUSS,
+             "ppo_actor": KA.HEAD_PPO}
+    for name in ("emlp_actor", "sac_actor", "ppo_actor", "mlp_ppo_actor"):
+        if name not in want:
+            continue
+        share = want[name] // len(agents)
+        for a in agents:
+            inst = (KM.actor_dims(a.actor_net) in KM.INSTANCES
+                    if name == "mlp_ppo_actor" else
+                    KA.actor_dims(a.actor_net) in KA.INSTANCES[heads[name]])
+            if not inst:
+                move(name, share)
+    if "spectral_iterate" in want:
+        for a in agents:
+            for layout, n in zip((a.critic_layout, a.actor_layout), k7):
+                if KS.instance(*_stack_dims(layout)[1:]) is None:
+                    move("spectral_iterate", n)
+    return out
+
+
+def block_shape_counts(widths: bool = False):
+    """K3's and K4's launches so far per (dims, rows, flag): the
+    instances' (what the default widths must take), with ``widths`` the
+    run-time path's added."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    fwd, bwd = (Counter(KB.emlp_block.by_shape),
+                Counter(KB.emlp_block_backward.by_shape))
+    if widths:
+        fwd += Counter(KB.emlp_block_any.by_shape)
+        bwd += Counter(KB.emlp_block_backward_any.by_shape)
+    return fwd, bwd
+
+
+def check_no_any(launches, name):
+    """A default-width run launched no run-time-width wrapper: the fixed
+    instances took every shape."""
+    ran = {w: launches[w] for w in ANY_WRAPPERS.values() if launches.get(w)}
+    if ran:
+        raise AssertionError(f"{name}: the run-time-width path ran at the "
+                             f"default widths: {ran}")
+
+
+def clear_block_shape_counts():
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    for w in (KB.emlp_block, KB.emlp_block_any, KB.emlp_block_backward,
+              KB.emlp_block_backward_any):
+        w.by_shape.clear()
+
+
 def expected_launches_sac(cfg, warm: bool):
     """Kernel launches of one SAC superstep (rollout_len 1, one update):
     the same on every train superstep, since the actor steps on every
@@ -1781,16 +1903,18 @@ class K5Calls:
             m.project_linear = self.orig
 
 
-def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train"):
+def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train",
+                    widths=False):
     """The SAC training entry point at full width (``cfg``: Mod-EMLP DTDE
     by default): 1 warm superstep, then ``steps`` train supersteps, each
     checked as it ends: exact launch counts (EMLP: of K3/K4 per shape and
     rows too), one fold per EMLP actor (its K6 step makes the next act
     refold), finite losses, the actor and critic moving on every update,
     the critic target only on gated ones, ``log_alpha`` only with
-    ``auto``.  Returns the launch counts, K3/K4's counts per shape over the
-    run and the run."""
-    from gym_rotor_tpu_torch.kernels import emlp_block
+    ``auto``.  ``widths`` (phase 26 only): shapes without an instance are
+    expected on the run-time-width wrappers (``route_widths``); otherwise
+    none may run there.  Returns the launch counts, K3/K4's counts per
+    shape over the run and the run."""
     from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
@@ -1814,18 +1938,19 @@ def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train"):
         now = {k: w.launches for k, w in wr.items()}
         delta = {k: v - probe["last"].get(k, 0) for k, v in now.items()}
         probe["last"] = now
+        wfwd, wbwd = (expected_sac_shapes(cfg, run["agents"], dev)
+                      if equiv and not warm else (Counter(), Counter()))
         want = expected_launches_sac(cfg, warm)
+        if widths:
+            want = route_widths(want, run["agents"], dev, wfwd, wbwd, (1, 1))
         if i == 0:
             want["env_tick"] += 1           # train()'s batched reset
         got = {k: v for k, v in delta.items() if v}
         if got != want:
             probe["bad"].append((i, "launches", got, want))
-        fwd = Counter(emlp_block.emlp_block.by_shape)
-        bwd = Counter(emlp_block.emlp_block_backward.by_shape)
+        fwd, bwd = block_shape_counts(widths)
         gfwd, gbwd = fwd - probe["fwd"], bwd - probe["bwd"]
         probe["fwd"], probe["bwd"] = fwd, bwd
-        wfwd, wbwd = (expected_sac_shapes(cfg, run["agents"], dev)
-                      if equiv and not warm else (Counter(), Counter()))
         if gfwd != wfwd or gbwd != wbwd:
             probe["bad"].append((i, "shapes", dict(gfwd), dict(wfwd)))
         folds = fold_actor.folds - probe["folds"]
@@ -1858,15 +1983,13 @@ def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train"):
     for w in wr.values():
         w.launches = 0
     probe["folds"] = fold_actor.folds
-    emlp_block.emlp_block.by_shape.clear()
-    emlp_block.emlp_block_backward.by_shape.clear()
+    clear_block_shape_counts()
     with (k5 or contextlib.nullcontext()):
         run = train(cfg, 1 + steps, device=dev, on_superstep=on_superstep,
                     log=None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items()}
-    shapes = (Counter(emlp_block.emlp_block.by_shape),
-              Counter(emlp_block.emlp_block_backward.by_shape))
+    shapes = block_shape_counts(widths)
     host_s = time.perf_counter() - probe["t_host"]
     dev_ms = probe["events"][0].elapsed_time(probe["events"][-1])
     agents, states, rs = run["agents"], run["states"], run["replay"]
@@ -1891,6 +2014,8 @@ def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train"):
         losses_last=probe["losses"][-1], alpha_first=probe["alpha"][0],
         alpha_last=probe["alpha"][-1], fill=rs.filled,
         episodes_logged=len(run["episodes"]), mismatches=probe["bad"][:5])
+    if not widths:
+        check_no_any(launches, name)
     if probe["bad"]:
         raise AssertionError(f"{name} path: {probe['bad'][:5]}")
     if total_it != [steps] * cfg.n_agents or not all(map(all, changed)):
@@ -1899,14 +2024,15 @@ def phase_train_sac(dev, steps, auto, k5=None, cfg=None, name="sac_train"):
     return launches, shapes, run
 
 
-def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
+def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train",
+                widths=False):
     """The TD3 training entry point at full width (``cfg``: the flagship
     Mod-EMLP by default): 1 warm superstep, then ``steps`` train
     supersteps, each checked as it ends: exact launch counts of every
     kernel and (EMLP) of K3/K4 per (shape, rows), the actors' folds (EMLP),
-    finite losses; at the end, every network moved.  Returns the launch
-    counts, K3/K4's counts per shape over the run and the run."""
-    from gym_rotor_tpu_torch.kernels import emlp_block
+    finite losses; at the end, every network moved.  ``widths`` as
+    ``phase_train_sac``'s.  Returns the launch counts, K3/K4's counts per
+    shape over the run and the run."""
     from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
@@ -1925,18 +2051,20 @@ def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
         probe["last"] = now
         n_train = i               # train supersteps so far (one warm first)
         gated = not warm and n_train % cfg.policy_update_freq == 0
+        wfwd, wbwd = (expected_td3_shapes(cfg, run["agents"], dev, gated)
+                      if equiv and not warm else (Counter(), Counter()))
         want = expected_launches(cfg, warm, gated)
+        if widths:
+            want = route_widths(want, run["agents"], dev, wfwd, wbwd,
+                                (1, 1 if gated else 0))
         if i == 0:
             want["env_tick"] += 1           # train()'s batched reset
         got = {k: v for k, v in delta.items() if v}
         if got != want:
             probe["bad"].append((i, "launches", got, want))
-        fwd = Counter(emlp_block.emlp_block.by_shape)
-        bwd = Counter(emlp_block.emlp_block_backward.by_shape)
+        fwd, bwd = block_shape_counts(widths)
         gfwd, gbwd = fwd - probe["fwd"], bwd - probe["bwd"]
         probe["fwd"], probe["bwd"] = fwd, bwd
-        wfwd, wbwd = (expected_td3_shapes(cfg, run["agents"], dev, gated)
-                      if equiv and not warm else (Counter(), Counter()))
         if gfwd != wfwd or gbwd != wbwd:
             probe["bad"].append((i, "shapes", dict(gfwd), dict(wfwd)))
         folds = fold_actor.folds - probe["folds"]
@@ -1966,15 +2094,13 @@ def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
     for w in wr.values():
         w.launches = 0
     probe["folds"] = fold_actor.folds
-    emlp_block.emlp_block.by_shape.clear()
-    emlp_block.emlp_block_backward.by_shape.clear()
+    clear_block_shape_counts()
     with (k5 or contextlib.nullcontext()):
         run = train(cfg, 1 + steps, device=dev,
                     on_superstep=on_superstep, log=None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wr.items()}
-    shapes = (Counter(emlp_block.emlp_block.by_shape),
-              Counter(emlp_block.emlp_block_backward.by_shape))
+    shapes = block_shape_counts(widths)
     host_s = time.perf_counter() - probe["t_host"]
     dev_ms = probe["events"][0].elapsed_time(probe["events"][-1])
     changed = [(bool((st.actor != a0).any()), bool((st.critic != c0).any()))
@@ -1991,6 +2117,8 @@ def phase_train(dev, cfg=None, steps=TRAIN_STEPS, k5=None, name="train"):
         losses_first=first, losses_last=last,
         fill=run["replay"].filled, episodes_logged=len(run["episodes"]),
         mismatches=probe["bad"][:5])
+    if not widths:
+        check_no_any(launches, name)
     if probe["bad"]:
         raise AssertionError(f"{name} path: {probe['bad'][:5]}")
     if total_it != [steps] * cfg.n_agents or not all(a and c for a, c in changed):
@@ -2915,7 +3043,7 @@ def phase_v_blocks(cfg, dev, agents, states, obs):
     return worst
 
 
-def expected_launches_ppo(cfg, agents, dev, first):
+def expected_launches_ppo(cfg, agents, dev, first, widths=False):
     """Kernel launches of one PPO superstep, and K3/K4's per (shape, rows):
     per tick K1, K11 per agent and the horizon's K2 write; per agent the V
     critic over the 2 T B rows (2 blocks) and K12; per epoch and actor
@@ -2923,7 +3051,7 @@ def expected_launches_ppo(cfg, agents, dev, first):
     the parameter sums), K13 forward and backward, K7 and K6; per critic
     minibatch the V critic (2 + 2), K7 and K6.  MLP networks launch no
     block and no K7, and act through the fused MLP PPO actor, one launch
-    per agent and tick."""
+    per agent and tick.  ``widths``: through ``route_widths``."""
     from gym_rotor_tpu_torch.kernels.emlp_block import block_spec
     rl, T, na, mba, nc, mbc = _ppo_dims(cfg)
     n, K = cfg.n_agents, cfg.K_epochs
@@ -2934,7 +3062,7 @@ def expected_launches_ppo(cfg, agents, dev, first):
     if not cfg.use_equiv:
         # MLP networks: F.linear chains, the fused actor for acting, no K7
         want["mlp_ppo_actor"] = n * rl
-        return want, fwd, bwd
+        return (route_widths(want, agents, dev) if widths else want), fwd, bwd
     want.update({"ppo_actor": n * rl,
                  "emlp_block": n * (2 + 2 * K * (na + nc)),
                  "emlp_block_backward": n * 2 * K * (na + nc),
@@ -2949,18 +3077,20 @@ def expected_launches_ppo(cfg, agents, dev, first):
             d = block_spec(blk, dev).dims
             fwd[(d, 3 * mba, True)] += K * na
             bwd[(d, 3 * mba, True)] += K * na
+    if widths:
+        want = route_widths(want, agents, dev, fwd, bwd, (K * nc, K * na))
     return want, fwd, bwd
 
 
-def phase_train_ppo(dev, name, kw, supersteps):
+def phase_train_ppo(dev, name, kw, supersteps, widths=False):
     """The PPO training entry point at full width in configuration
     ``name`` (``kw``), ``supersteps`` supersteps, each checked as it ends:
     exact launch counts of every kernel and of K3/K4 per (shape, rows), one
     fold per actor (the acting after each update refolds), finite losses,
     and actor, critic and ``entropy_coef`` moving on every superstep.
-    Times the supersteps after the first by CUDA events."""
+    Times the supersteps after the first by CUDA events.  ``widths`` as
+    ``phase_train_sac``'s."""
     from gym_rotor_tpu_torch.algos.ppo import PPOAgent
-    from gym_rotor_tpu_torch.kernels import emlp_block
     from gym_rotor_tpu_torch.kernels.emlp_actor import fold_actor
     from gym_rotor_tpu_torch.train import train
     from gym_rotor_tpu_torch.utils.config import Config
@@ -2982,12 +3112,11 @@ def phase_train_ppo(dev, name, kw, supersteps):
         delta = {k: v - probe["last"].get(k, 0) for k, v in now.items()}
         probe["last"] = now
         want, wfwd, wbwd = expected_launches_ppo(cfg, run["agents"], dev,
-                                                 i == 0)
+                                                 i == 0, widths)
         got = {k: v for k, v in delta.items() if v}
         if got != want:
             probe["bad"].append((i, "launches", got, want))
-        fwd = Counter(emlp_block.emlp_block.by_shape)
-        bwd = Counter(emlp_block.emlp_block_backward.by_shape)
+        fwd, bwd = block_shape_counts(widths)
         gfwd, gbwd = fwd - probe["fwd"], bwd - probe["bwd"]
         probe["fwd"], probe["bwd"] = fwd, bwd
         probe["shapes"] = (gfwd, gbwd)
@@ -3017,8 +3146,7 @@ def phase_train_ppo(dev, name, kw, supersteps):
     torch.cuda.synchronize()
     for w in wr.values():
         w.launches = 0
-    emlp_block.emlp_block.by_shape.clear()
-    emlp_block.emlp_block_backward.by_shape.clear()
+    clear_block_shape_counts()
     probe["folds"] = fold_actor.folds
     run = train(cfg, supersteps, device=dev, on_superstep=on_superstep,
                 log=None)
@@ -3041,6 +3169,8 @@ def phase_train_ppo(dev, name, kw, supersteps):
         host_s_per_superstep=host_s / timed,
         losses_first=probe["losses"][0], losses_last=probe["losses"][-1],
         episodes_logged=len(run["episodes"]), mismatches=probe["bad"][:3])
+    if not widths:
+        check_no_any(launches, name)
     if probe["bad"]:
         raise AssertionError(f"PPO train path {name}: {probe['bad'][:3]}")
     if total_it != [supersteps] * cfg.n_agents:
@@ -5088,6 +5218,849 @@ def driver_artifacts(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: any actor and critic width (the run-time-width kernels)
+# ---------------------------------------------------------------------------
+# (actor_hidden_dim, critic_hidden_dim): the CPU tests' training width, the
+# width ROADMAP names, and the slice's full width, four times the defaults
+WIDTHS = (((8, 4), 8), ((32, 8), 128), ((64, 16), 256))
+SLICE_WIDTH = dict(actor_hidden_dim=(64, 16), critic_hidden_dim=256)
+WIDTH_ROWS = (1, 31, 32, 33, 256, 3723, 4096)
+WIDE_ACTOR, WIDE_CRITIC = (128, 32), 512      # kernel-only widths
+MLP_PPO_WIDTHS = ((15, 64, 4), (3, 16, 1), (15, 256, 4), (15, 900, 4))
+WIDTH_STEPS = 20             # TD3 / SAC train supersteps at the slice width
+WIDTH_SMALL_STEPS = 6        # TD3 at (32, 8) / 128 and (8, 4) / 8
+WIDTH_PPO_STEPS = 2          # PPO B supersteps (the second timed)
+V_ROWS = 2 * 4096 * 50       # PPO B's GAE pass over [obs; next_obs]
+ANY_SOURCES = {"emlp_block_any": "emlp_block.cu",
+               "emlp_block_backward_any": "emlp_block.cu",
+               "emlp_actor_any": "emlp_actor.cu", "sac_actor_any":
+               "emlp_actor.cu", "ppo_actor_any": "emlp_actor.cu",
+               "spectral_iterate_any": "spectral.cu",
+               "mlp_ppo_actor_any": "mlp_ppo_actor.cu"}
+ANY_REPLACES = {
+    "emlp_block_any": "gym_rotor_tpu/models/emlp/nn.py:431",
+    "emlp_block_backward_any": "gym_rotor_tpu/models/emlp/nn.py:39",
+    "emlp_actor_any": "gym_rotor_tpu/models/emlp/zoo.py:101",
+    "sac_actor_any": "gym_rotor_tpu/algos/sac.py:97",
+    "ppo_actor_any": "gym_rotor_tpu/algos/ppo.py:107",
+    "spectral_iterate_any": "gym_rotor_tpu/algos/regularizers.py:102",
+    "mlp_ppo_actor_any": "gym_rotor_tpu/models/mlp.py:146"}
+
+
+def _rand(shape, gen, dev, scale=1.0):
+    return torch.randn(*shape, generator=gen, device=dev) * scale
+
+
+def _block_operands(spec, B, gen, dev):
+    """Seeded operands of a block at ``B`` rows: x, W_eff, b_eff, v (each
+    output's quadratic form scaled by its nonzero count, so pre stays of
+    order one) and g_h."""
+    nin, ng, nh = spec.dims
+    per = max(1.0, spec.nnz / ng)
+    return (_rand((B, nin), gen, dev), _rand((ng, nin), gen, dev,
+                                            nin ** -0.5),
+            _rand((ng,), gen, dev, 0.1), _rand((spec.nnz,), gen, dev,
+                                               0.5 / per ** 0.5),
+            _rand((B, nh), gen, dev))
+
+
+def _plain_block_chunked(spec, x, W, b, v, g_h, lin, pre):
+    """The K3/K4 twins over ``x``'s rows in chunks of at most 2^27 / nnz
+    rows (the twins' (rows, nnz) temporaries ~0.5 GB): the forward's (h,
+    lin, pre) and the backward's (g_x, g_W, g_b, g_v) on the kernel's lin
+    and pre, the parameter sums added over the chunks."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    n = max(1, (1 << 27) // max(spec.nnz, 4 * spec.ng))
+    fw, bw = [], []
+    for r0 in range(0, x.shape[0], n):
+        sl = slice(r0, r0 + n)
+        fw.append(K.emlp_block_plain(spec, x[sl], W, b, v))
+        bw.append(K.emlp_block_backward_plain(
+            spec, g_h[sl], x[sl], W, v, lin[:, sl].contiguous(),
+            pre[:, sl].contiguous(), True))
+    fp = (torch.cat([f[0] for f in fw]), torch.cat([f[1] for f in fw], 1),
+          torch.cat([f[2] for f in fw], 1))
+    bp = (torch.cat([g[0] for g in bw]),) + tuple(
+        functools.reduce(torch.add, [g[k] for g in bw]) for k in (1, 2, 3))
+    return fp, bp
+
+
+@contextlib.contextmanager
+def _forced(mod, **layout):
+    """The run-time path of kernel module ``mod`` in a forced layout (its
+    ``_FORCE`` hook) for the calls inside."""
+    mod._FORCE.update(layout)
+    try:
+        yield
+    finally:
+        for k in layout:
+            mod._FORCE.pop(k, None)
+
+
+def _any_block_vs_plain(spec, ops):
+    """The run-time K3/K4 path vs the twins on the same operands: the
+    forward saving lin and pre (run twice), without them; the backward with
+    and without the parameter sums (each twice).  Tolerance 2e-5 max(1,
+    max |plain|); every rerun, the unsaved h and the g_x of both backward
+    kinds bitwise.  Returns ({name: max abs err},
+    failures, the outputs)."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    x, W, b, v, g_h = ops
+    fk = K.emlp_block_any(spec, x, W, b, v, True)
+    fk2 = K.emlp_block_any(spec, x, W, b, v, True)
+    hn, ln, pn = K.emlp_block_any(spec, x, W, b, v, False)
+    runs = [K.emlp_block_backward_any(spec, g_h, x, W, v, fk[1], fk[2], need)
+            for need in (True, True, False, False)]
+    fp, bp = _plain_block_chunked(spec, x, W, b, v, g_h, fk[1], fk[2])
+    errs, bad = {}, []
+    for nm, kk, pp in zip(("h", "lin", "pre", "g_x", "g_W", "g_b", "g_v"),
+                          fk + runs[0], fp + bp):
+        d, tol, fin = _err(kk, pp)
+        errs[nm] = d
+        if not (d <= tol and fin):
+            bad.append((nm, d, tol))
+    same = [torch.equal(a, c) for a, c in zip(fk, fk2)] + [
+        torch.equal(hn, fk[0]), ln is None and pn is None] + [
+        torch.equal(a, c) for r1, r2 in (runs[:2], runs[2:])
+        for a, c in zip(r1, r2) if a is not None] + [
+        torch.equal(runs[0][0], runs[2][0])]
+    errs["rerun_bitwise"] = all(same)
+    if not all(same):
+        bad.append(("a rerun or the unsaved forward differs", same))
+    return errs, bad, (fk, runs[0])
+
+
+def width_block_specs(dev):
+    """``{dims: BlockSpec}`` of every block phase 26 checks on the run-time
+    path: the TD3 twin critics', the actors' and the PPO V critics' at each
+    of ``WIDTHS``, and critic 512's hidden blocks (kernel-only)."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.models.emlp import zoo as Z
+    from gym_rotor_tpu_torch.models.emlp.nn import gated
+    from gym_rotor_tpu_torch.utils.config import Config
+    specs = {}
+    for ah, ch in WIDTHS:
+        cfg = Config(actor_hidden_dim=ah, critic_hidden_dim=ch)
+        for i in range(cfg.n_agents):
+            td3 = TD3Agent(cfg, i, dev)
+            ppo = PPOAgent(cfg.replace(rl_algo="PPO"), i, dev)
+            for net in (td3.critic_net.network1, td3.actor_net.network,
+                        ppo.critic_net.network):
+                for blk in net.blocks():
+                    spec = K.block_spec(blk, dev)
+                    specs[spec.dims] = spec
+    cfg = Config(critic_hidden_dim=WIDE_CRITIC)
+    for i in range(cfg.n_agents):
+        hid = Z.critic_reps(cfg, "MODUL", i, "DTDE")[1]
+        spec = K.BlockSpec(hid, hid, gated(hid), dev)
+        specs[spec.dims] = spec
+    return specs
+
+
+def width_block_checks(dev, specs, gen):
+    """Every run-time K3/K4 shape at ``WIDTH_ROWS`` (``_any_block_vs_plain``);
+    the tile read from global memory (staging forced off) bitwise the staged
+    read at the slice's hidden blocks; and at the instances' shapes of the
+    flagship (a few default shapes) the run-time path held to the
+    instance's result (bitwise where the sums' orders agree: the forward
+    and g_v; g_lin, and so g_x, g_W and g_b, where the instance's lists
+    are one segment a coordinate).  Returns the worst (forward, backward)
+    errors."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    worst, bad = (0.0, 0.0), []
+    for dims, spec in sorted(specs.items()):
+        for nb in WIDTH_ROWS:
+            ops = _block_operands(spec, nb, gen, dev)
+            errs, b, _ = _any_block_vs_plain(spec, ops)
+            worst = (max(worst[0], *(errs[k] for k in ("h", "lin", "pre"))),
+                     max(worst[1], *(errs[k] for k in ("g_x", "g_W", "g_b",
+                                                       "g_v"))))
+            log("widths", check="emlp_block_any", dims=list(dims), nnz=spec.nnz,
+                batch=nb, stage=[spec.rt_stage("forward"),
+                                 spec.rt_stage("backward")], **errs)
+            bad += [(dims, nb) + x for x in b]
+    for dims in ((256, 288, 256), (256, 511, 256)):
+        spec = specs[dims]
+        ops = _block_operands(spec, 256, gen, dev)
+        with _forced(K, forward=True, backward=True):
+            on = _any_block_vs_plain(spec, ops)[2]
+        with _forced(K, forward=False, backward=False):
+            off = _any_block_vs_plain(spec, ops)[2]
+        same = all(torch.equal(a, c) for r1, r2 in zip(on, off)
+                   for a, c in zip(r1, r2))
+        log("widths", check="emlp_block_any_global_tiles", dims=list(dims),
+            batch=256, bitwise_vs_staged=same)
+        if not same:
+            bad.append((dims, "global tiles differ from staged"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dims, spec in sorted(block_specs(dev).items())[:6]:
+        for nb in (33, 256, 3723):
+            x, W, b, v, g_h = _block_operands(spec, nb, gen, dev)
+            fi = K.emlp_block(spec, x, W, b, v)
+            bi = K.emlp_block_backward(spec, g_h, x, W, v, fi[1], fi[2], True)
+            fa = K.emlp_block_any(spec, x, W, b, v)
+            ba = K.emlp_block_backward_any(spec, g_h, x, W, v, fi[1], fi[2],
+                                           True)
+            names = ("h", "lin", "pre", "g_x", "g_W", "g_b", "g_v")
+            eq = {n: bool(torch.equal(a, c)) for n, a, c in
+                  zip(names, fi + bi, fa + ba)}
+            errs = {n: _err(a, c) for n, a, c in zip(names, fa + ba,
+                                                    fi + bi)}
+            log("widths", check="emlp_block_any_vs_instance",
+                dims=list(dims), batch=nb, bitwise=eq,
+                backward_groups=spec.groups("backward", nb, sms),
+                **{n: e[0] for n, e in errs.items()})
+            bad += [(dims, nb, n, e[0], e[1]) for n, e in errs.items()
+                    if not (e[0] <= e[1] and e[2])]
+    if bad:
+        raise AssertionError(f"run-time K3/K4: {bad[:5]}")
+    return worst
+
+
+def width_v_forward(dev, gen):
+    """The PPO B GAE pass at the slice width: both V critics' blocks over
+    ``V_ROWS`` rows through the run-time K3 (saving lin and pre, and
+    without), every row vs the twin in chunks; the reruns bitwise."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(rl_algo="PPO", **SLICE_WIDTH)
+    worst, bad = 0.0, []
+    for i in range(cfg.n_agents):
+        for blk in PPOAgent(cfg, i, dev).critic_net.network.blocks():
+            spec = K.block_spec(blk, dev)
+            x, W, b, v, _ = _block_operands(spec, 1, gen, dev)
+            x = _rand((V_ROWS, spec.nin), gen, dev)
+            with torch.no_grad():
+                hk = K.emlp_block_any(spec, x, W, b, v, save=False)[0]
+                hk2 = K.emlp_block_any(spec, x, W, b, v, save=False)[0]
+            fk = K.emlp_block_any(spec, x, W, b, v)
+            n = max(1, (1 << 27) // spec.nnz)
+            errs = dict(h=0.0, lin=0.0, pre=0.0)
+            for r0 in range(0, V_ROWS, n):
+                sl = slice(r0, r0 + n)
+                fp = K.emlp_block_plain(spec, x[sl], W, b, v)
+                for nm, kk, pp in zip(("h", "lin", "pre"),
+                                      (fk[0][sl], fk[1][:, sl], fk[2][:, sl]),
+                                      fp):
+                    d, tol, fin = _err(kk, pp)
+                    errs[nm] = max(errs[nm], d)
+                    if not (d <= tol and fin):
+                        bad.append((spec.dims, nm, r0, d, tol))
+            same = torch.equal(hk, hk2) and torch.equal(hk, fk[0])
+            worst = max(worst, *errs.values())
+            log("widths", check="v_forward_any", agent=i,
+                dims=list(spec.dims), rows=V_ROWS, rerun_bitwise=same, **errs)
+            if not same:
+                bad.append((spec.dims, "rerun"))
+            del fk, hk, hk2, x
+    if bad:
+        raise AssertionError(f"V forward at {V_ROWS} rows: {bad[:5]}")
+    return worst
+
+
+def width_actors(dev):
+    """Every acting actor phase 26 checks: each head's actor (TD3's
+    ``EMLPActorDet``, ``EMLPActorSAC``, ``EMLPActorPPO``) of both agents at
+    each of ``WIDTHS`` and at ``WIDE_ACTOR``, seeded weights (the PPO
+    actor's ``log_std`` at 0.3)."""
+    from gym_rotor_tpu_torch.models.emlp import zoo as Z
+    from gym_rotor_tpu_torch.utils.config import Config
+    out = []
+    for ah in [w[0] for w in WIDTHS] + [WIDE_ACTOR]:
+        cfg = Config(actor_hidden_dim=ah)
+        for i in range(cfg.n_agents):
+            reps = Z.actor_reps(cfg, "MODUL", i)
+            act = cfg.action_dim_n[i]
+            gen = torch.Generator().manual_seed(SEED + i)
+            for head, make in (
+                    ("tanh", lambda: Z.EMLPActorDet(*reps, device="cpu",
+                                                    generator=gen)),
+                    ("gauss", lambda: Z.EMLPActorSAC(*reps, act, device="cpu",
+                                                     generator=gen)),
+                    ("ppo", lambda: Z.EMLPActorPPO(*reps, act, device="cpu",
+                                                   generator=gen))):
+                actor = make().to(dev)
+                if head == "ppo":
+                    with torch.no_grad():
+                        actor.log_std.fill_(0.3)
+                    actor.bump_version()
+                out.append((ah, i, head, actor))
+    return out
+
+
+ANY_ACTOR = {"tanh": "emlp_actor_any", "gauss": "sac_actor_any",
+             "ppo": "ppo_actor_any"}
+
+
+def _actor_call(KA, name, actor, o, noise, plan=None):
+    """``KA.<name>`` on ``o`` (and ``noise`` but for the tanh head), in the
+    run-time layout ``plan`` (``(stage_image, tile_in_smem)``) where one is
+    given; its outputs as a tuple."""
+    fn = getattr(KA, name)
+    with torch.no_grad(), (contextlib.nullcontext() if plan is None
+                           else _forced(KA, plan=plan)):
+        out = fn(actor, o) if name.startswith("emlp_actor") else \
+            fn(actor, o, noise)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def width_actor_checks(dev, gen):
+    """The run-time acting kernel vs the twins for every head, both agents
+    and ``width_actors``' widths at ``WIDTH_ROWS`` and the eval's 10, train
+    (the draws) and eval (none): actions 1e-5, log-probs 2e-5 max(1, max
+    |plain|); reruns bitwise, and the image read from global memory and the
+    tile in a global scratch (forced ``plan``s) bitwise the staged launch; the
+    image's coordinate encoding (``ent_scale`` 1, what past 1986 gated
+    channels takes) forced on the (32, 8) actors, bitwise; then at the
+    instances' actors (the default widths) held to the instance's result.
+    Returns the worst error."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    worst, bad = 0.0, []
+    for ah, i, head, actor in width_actors(dev):
+        name = ANY_ACTOR[head]
+        dims = KA.actor_dims(actor)
+        for nb in WIDTH_ROWS + (10,):
+            o = _rand((nb, dims[0]), gen, dev)
+            nz = _rand((nb, dims[3]), gen, dev)
+            for train in ((False,) if head == "tanh" else (True, False)):
+                noise = nz if train else None
+                k = _actor_call(KA, name, actor, o, noise)
+                same = [all(torch.equal(a, c) for a, c in zip(k, _actor_call(
+                    KA, name, actor, o, noise, plan)))
+                    for plan in (None, (False, True), (False, False))]
+                with torch.no_grad():
+                    p = getattr(KA, name.replace("_any", "_plain"))(
+                        *((actor, o) if head == "tanh" else
+                          (actor, o, noise)))
+                p = p if isinstance(p, tuple) else (p,)
+                ea = float((k[0] - p[0]).abs().max())
+                el = _err(k[1], p[1])[0] if head == "ppo" else 0.0
+                worst = max(worst, ea, el)
+                ok = ea <= 1e-5 and (head != "ppo" or _err(k[1], p[1])[0]
+                                     <= _err(k[1], p[1])[1]) and all(same) \
+                    and all(bool(torch.isfinite(t).all()) for t in k)
+                if nb in (1, 33, 4096) or not ok:
+                    log("widths", check=name, width=list(ah), agent=i,
+                        dims=list(dims), batch=nb, train=train,
+                        max_abs_err=ea, logp_err=el,
+                        bitwise_rerun_and_modes=same,
+                        plan=list(KA.any_plan(dims, KA.fold_actor(
+                            actor)["layout"])))
+                if not ok:
+                    bad.append((name, dims, nb, train, ea, el, same))
+    # the image's coordinate encoding (what past 1986 gated channels
+    # takes), forced on fresh folds of the (32, 8) actors: bitwise the
+    # offsets' launch
+    for ah, i, head, actor in width_actors(dev):
+        if ah != (32, 8):
+            continue
+        name = ANY_ACTOR[head]
+        o = _rand((33, KA.actor_dims(actor)[0]), gen, dev)
+        nz = None if head == "tanh" else _rand((33, KA.actor_dims(actor)[3]),
+                                               gen, dev)
+        ref = _actor_call(KA, name, actor, o, nz)
+        with _forced(KA, ent_scale=1):
+            actor.bump_version()
+            got = _actor_call(KA, name, actor, o, nz)
+            mul = KA.fold_actor(actor)["mul"]
+        actor.bump_version()
+        same = all(torch.equal(a, c) for a, c in zip(ref, got))
+        log("widths", check=f"{name}_coordinates", agent=i, mul=mul,
+            bitwise_vs_offsets=same)
+        if not same or mul != KA.PITCH:
+            bad.append((name, i, "coordinate encoding", mul, same))
+    for (dims, head), actor in sorted(actor_instances(dev).items()):
+        inst, name = ACTOR_KERNELS[head], ANY_ACTOR[head]
+        for nb in (1, 33, 4096):
+            o = _rand((nb, dims[0]), gen, dev)
+            nz = _rand((nb, dims[3]), gen, dev)
+            noise = None if head == "tanh" else nz
+            ki = _actor_call(KA, inst, actor, o, noise)
+            ka = _actor_call(KA, name, actor, o, noise)
+            eq = [bool(torch.equal(a, c)) for a, c in zip(ki, ka)]
+            err = max(float((a - c).abs().max()) for a, c in zip(ki, ka))
+            log("widths", check=f"{name}_vs_instance", dims=list(dims),
+                head=head, batch=nb, bitwise=eq, max_abs_err=err)
+            if err > 1e-5:
+                bad.append((name, dims, nb, "vs instance", err))
+    if bad:
+        raise AssertionError(f"run-time acting kernel: {bad[:5]}")
+    return worst
+
+
+def width_spectral_checks(dev, gen):
+    """The run-time K7 vs its twin on every stack of the TD3, SAC and PPO
+    learners (critic and actor, both agents) at ``WIDTHS``, and on critic
+    512's stacks (6, 568 | 1023, 512) (kernel-only, seeded), reruns
+    bitwise, 1e-5; then at the flagship's stacks held to the instance's
+    iterate.  Returns the worst error and the slice's stacks."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    from gym_rotor_tpu_torch.utils.config import Config
+    init = torch.Generator().manual_seed(SEED)
+    stacks = []
+    for ah, ch in WIDTHS:
+        for algo, cls in (("TD3", TD3Agent), ("SAC", SACAgent),
+                          ("PPO", PPOAgent)):
+            cfg = Config(rl_algo=algo, actor_hidden_dim=ah,
+                         critic_hidden_dim=ch)
+            agents = [cls(cfg, i, dev) for i in range(cfg.n_agents)]
+            states = [a.init(init) for a in agents]
+            stacks += [(f"{algo.lower()}_{ch}", i, net, ws, Ws, x)
+                       for i, net, ws, Ws, x in
+                       _spectral_stacks(agents, states, dev, gen)]
+    for mo in (568, 1023):
+        ws = [_rand((mo, WIDE_CRITIC), gen, dev, 0.05) for _ in range(6)]
+        stacks.append((f"critic_{WIDE_CRITIC}", None, "critic", ws,
+                       torch.stack(ws), _rand((6, WIDE_CRITIC), gen, dev)))
+    worst, bad = 0.0, []
+    for learner, i, net, ws, Ws, x in stacks:
+        vk, same = _twice(lambda: KS.spectral_iterate_any(Ws, x))
+        vp = KS.spectral_iterate_plain(Ws, x)
+        err = float((vk - vp).abs().max())
+        worst = max(worst, err)
+        log("widths", check="spectral_iterate_any", learner=learner,
+            agent=i, net=net, stack=list(Ws.shape), max_abs_err=err,
+            rerun_bitwise=same, instance=KS.instance(*Ws.shape[1:]))
+        if not (err <= 1e-5 and same and torch.isfinite(vk).all()):
+            bad.append((learner, i, net, tuple(Ws.shape), err, same))
+    from gym_rotor_tpu_torch.utils.config import Config as C
+    agents = [TD3Agent(C(), i, dev) for i in range(2)]
+    states = [a.init(init) for a in agents]
+    for i, net, ws, Ws, x in _spectral_stacks(agents, states, dev, gen):
+        vi, va = KS.spectral_iterate(Ws, x), KS.spectral_iterate_any(Ws, x)
+        err = float((vi - va).abs().max())
+        log("widths", check="spectral_iterate_any_vs_instance", agent=i,
+            net=net, stack=list(Ws.shape), max_abs_err=err,
+            bitwise=bool(torch.equal(vi, va)))
+        if err > 1e-5:
+            bad.append(("vs instance", i, net, err))
+    if bad:
+        raise AssertionError(f"run-time K7: {bad[:5]}")
+    return worst, [s for s in stacks if s[0] == "td3_256"]
+
+
+def width_mlp_ppo_checks(dev, gen):
+    """The run-time MLP PPO actor vs its twin at ``MLP_PPO_WIDTHS`` and
+    ``WIDTH_ROWS``, train and eval, log_std off zero: actions 1e-5,
+    log-probs 2e-5 max(1, max |plain|), reruns bitwise; at the instances'
+    widths held to the instance's result.  Returns the worst error."""
+    from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
+    from gym_rotor_tpu_torch.models.mlp import ActorPPO
+    worst, bad = 0.0, []
+    for nin, nh, nact in MLP_PPO_WIDTHS + ((15, 16, 4), (3, 4, 1),
+                                          (23, 16, 4)):
+        actor = ActorPPO(nin, nh, nact, device="cpu", generator=torch.Generator(
+        ).manual_seed(SEED + nh)).to(dev)
+        with torch.no_grad():
+            actor.log_std.copy_(torch.linspace(-0.6, 0.5, nact))
+        inst = (nin, nh, nact) in KM.INSTANCES
+        for nb in WIDTH_ROWS:
+            o = _rand((nb, nin), gen, dev)
+            nz = _rand((nb, nact), gen, dev)
+            for noise in (nz, None):
+                with torch.no_grad():
+                    k = KM.mlp_ppo_actor_any(actor, o, noise)
+                    k2 = KM.mlp_ppo_actor_any(actor, o, noise)
+                    p = (KM.mlp_ppo_actor(actor, o, noise) if inst else
+                         KM.mlp_ppo_actor_plain(actor, o, noise))
+                ea = float((k[0] - p[0]).abs().max())
+                el, tl, _ = _err(k[1], p[1])
+                same = all(torch.equal(a, c) for a, c in zip(k, k2))
+                worst = max(worst, ea, el)
+                if nb in (1, 4096) or ea > 1e-5 or el > tl or not same:
+                    log("widths", check="mlp_ppo_actor_any", dims=[nin, nh,
+                                                                  nact],
+                        batch=nb, train=noise is not None,
+                        vs="instance" if inst else "plain", max_abs_err=ea,
+                        logp_err=el, rerun_bitwise=same,
+                        bitwise=[bool(torch.equal(a, c))
+                                 for a, c in zip(k, p)])
+                if ea > 1e-5 or el > tl or not same:
+                    bad.append(((nin, nh, nact), nb, ea, el, same))
+    if bad:
+        raise AssertionError(f"run-time MLP PPO actor: {bad[:5]}")
+    return worst
+
+
+def width_cli(dev):
+    """``python -m gym_rotor_tpu_torch.train``'s entry point (``main(argv)``)
+    at the slice width in a temporary directory: 1 warm and 3 train TD3
+    supersteps at B envs with an eval before training and every 2
+    supersteps' env-steps; exact launch counts per superstep and per eval,
+    the run-time kernels among them.  Returns the run's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from gym_rotor_tpu_torch import train as T
+    wr = _wrappers()
+    rec = dict(evals=[], bad=[], steps=0)
+    orig = (T.Learner.eval_policy, T.Learner.superstep)
+
+    def counts():
+        return {k: w.launches for k, w in wr.items()}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+
+    def eval_policy(self):
+        before = counts()
+        out = orig[0](self)
+        rec["evals"].append(self.total_timesteps)
+        want = route_widths(expected_eval_launches(self.cfg), self.agents,
+                            dev)
+        if delta(before) != want:
+            rec["bad"].append(("eval", delta(before), want))
+        return out
+
+    def superstep(self):
+        before = counts()
+        warm, metrics, ret = orig[1](self)
+        rec["steps"] += 1
+        gated = not warm and \
+            self.states[0].total_it % self.cfg.policy_update_freq == 0
+        fwd, bwd = (expected_td3_shapes(self.cfg, self.agents, dev, gated)
+                    if not warm else (Counter(), Counter()))
+        want = route_widths(expected_launches(self.cfg, warm, gated),
+                            self.agents, dev, fwd, bwd,
+                            (1, 1 if gated else 0))
+        if delta(before) != want:
+            rec["bad"].append(("superstep", rec["steps"], delta(before),
+                               want))
+        return warm, metrics, ret
+
+    argv = ["--num_envs", str(B), "--start_timesteps", str(B),
+            "--max_timesteps", str(4 * B), "--eval_freq", str(2 * B),
+            "--actor_hidden_dim", "64", "16", "--critic_hidden_dim", "256"]
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="widths_cli_")
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    T.Learner.eval_policy, T.Learner.superstep = eval_policy, superstep
+    t0 = time.perf_counter()
+    try:
+        os.chdir(tmp)
+        learner = T.main(argv, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        T.Learner.eval_policy, T.Learner.superstep = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: v for k, v in counts().items() if v}
+    log("widths", check="cli", argv=argv, supersteps=rec["steps"],
+        evals=rec["evals"], launches=launches,
+        cfg=[list(learner.cfg.actor_hidden_dim),
+             learner.cfg.critic_hidden_dim],
+        wall_s=time.perf_counter() - t0, mismatches=rec["bad"][:3])
+    if rec["bad"] or rec["evals"] != [0, 2 * B, 4 * B] \
+            or rec["steps"] != 4:
+        raise AssertionError(f"widths CLI run: {rec['bad'][:3]}, evals "
+                             f"{rec['evals']}, supersteps {rec['steps']}")
+    return launches
+
+
+def _specs_of(agents, dev):
+    """``{dims: BlockSpec}`` of the TD3 agents' actor and critic blocks."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    nets = [n for a in agents for n in (a.actor_net.network,
+                                        a.critic_net.network1,
+                                        a.critic_net.network2)]
+    specs = [K.block_spec(blk, dev) for n in nets for blk in n.blocks()]
+    return {s.dims: s for s in specs}
+
+
+def width_block_timing(shapes, specs, gen, dev):
+    """Run-time K3 and K4 per (dims, rows, flag) the slice's runs launched
+    (``shapes``: their ``by_shape`` counts), weighted by launches: device
+    time, the twin's and the bound.  Forward: per row 2 ng nin + ng of the
+    linear step, 3 a nonzero, 2 ng of 0.1 q + lin and 4 nh of the gate;
+    bytes x, W_eff, b_eff, v, the index, h (and lin, pre saved).
+    Backward: per row ~8 ng of g_pre, 3 per list entry (2 nnz entries) and
+    ng of the add, 2 ng nin of g_x; with the parameter sums 2 ng nin + ng +
+    4 nnz more; bytes g_h, x, W_eff, v, lin, pre, the index, g_x (and the
+    parameters' gradients)."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    out = {"emlp_block_any": [], "emlp_block_backward_any": []}
+    for kind, counter in zip(("emlp_block_any", "emlp_block_backward_any"),
+                             shapes):
+        for (dims, nb, flag), n in sorted(counter.items()):
+            if dims in K.INSTANCES:
+                continue
+            spec = specs[dims]
+            nin, ng, nh = dims
+            x, W, b, v, g_h = _block_operands(spec, nb, gen, dev)
+            ints = spec.rt_ints()[0].numel()
+            if kind == "emlp_block_any":
+                fn = lambda: K.emlp_block_any(spec, x, W, b, v, flag)
+                plain = lambda: K.emlp_block_plain(spec, x, W, b, v, flag)
+                flops = nb * (2 * ng * nin + 3 * ng + 3 * spec.nnz + 4 * nh)
+                nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + ints
+                              + nb * nh + (2 * ng * nb if flag else 0))
+            else:
+                _, lin, pre = K.emlp_block_any(spec, x, W, b, v)
+                fn = lambda: K.emlp_block_backward_any(spec, g_h, x, W, v,
+                                                       lin, pre, flag)
+                plain = lambda: K.emlp_block_backward_plain(
+                    spec, g_h, x, W, v, lin, pre, flag)
+                flops = nb * (8 * ng + 6 * spec.nnz + ng + 2 * ng * nin)
+                n_par = ng * nin + ng + spec.nnz
+                if flag:
+                    flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
+                nbytes = 4 * (nb * nh + nb * nin + ng * nin + spec.nnz
+                              + 2 * ng * nb + ints + nb * nin
+                              + (n_par if flag else 0))
+            k_ms, k_wall = device_ms(fn, 20)
+            p_ms, _ = device_ms(plain, 3, 3)
+            bms, by = bound_ms(nbytes, flops)
+            log("kernels", kernel=kind, path="widths", dims=list(dims),
+                batch=nb, flag=flag, launches=n, ms=k_ms,
+                wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+                flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
+            out[kind].append((n, k_ms, p_ms, bms, by, None))
+    return out
+
+
+def width_records(dev, runs, errs, shapes, specs, actors, stacks, gen):
+    """One kernel record per run-time-width wrapper: launches over the
+    slice's runs (``runs``: each run's launch counts), the worst error of
+    its checks, and times at the slice's shapes weighted by launches."""
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    total = Counter()
+    for r in runs:
+        total.update(r)
+    missing = [k for k in ANY_SOURCES if not total.get(k)]
+    if missing:
+        raise AssertionError(f"the slice's runs launched no {missing}")
+    inst = width_block_timing(shapes, specs, gen, dev)
+    for kind, agents in actors.items():
+        name = ANY_ACTOR[kind]
+        inst[name] = []
+        for i, actor in enumerate(agents):
+            f = KA.fold_actor(actor)
+            o = _rand((B, f["dims"][0]), gen, dev)
+            noise = None if kind == "tanh" else _rand((B, f["dims"][3]),
+                                                      gen, dev)
+            args = (actor, o) if kind == "tanh" else (actor, o, noise)
+            with torch.no_grad():
+                k_ms, k_wall = device_ms(lambda: getattr(KA, name)(*args), 50)
+                p_ms, _ = device_ms(lambda: getattr(
+                    KA, name.replace("_any", "_plain"))(*args), 5, 3)
+            nbytes, flops = actor_work(f, B, kind, noise is not None)
+            bms, by = bound_ms(nbytes, flops)
+            log("kernels", kernel=name, path="widths", agent=i,
+                dims=list(f["dims"]), batch=B, ms=k_ms,
+                wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+                flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
+            inst[name].append((1, k_ms, p_ms, bms, by, None))
+    inst["spectral_iterate_any"] = []
+    for learner, i, net, ws, Ws, x in stacks:
+        if KS.instance(*Ws.shape[1:]) is not None:
+            continue
+        k_ms, k_wall = device_ms(lambda: KS.spectral_iterate_any(Ws, x), 20)
+        p_ms, _ = device_ms(lambda: KS.spectral_iterate_plain(Ws, x), 5, 3)
+        true = sum(int(W.numel()) for W in ws)
+        nbytes = 4 * (true + 2 * sum(int(W.shape[1]) for W in ws))
+        bms, by = bound_ms(nbytes, KS.ITERS * (4 * true + 3 * x.numel()))
+        log("kernels", kernel="spectral_iterate_any", path="widths",
+            agent=i, net=net, stack=list(Ws.shape), ms=k_ms,
+            wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+            bound_ms=bms, bound_by=by, library_ms=None)
+        inst["spectral_iterate_any"].append((1, k_ms, p_ms, bms, by, None))
+    from gym_rotor_tpu_torch.models.mlp import ActorPPO
+    inst["mlp_ppo_actor_any"] = []
+    for nin, nh, nact in MLP_PPO_WIDTHS[:2]:
+        actor = ActorPPO(nin, nh, nact, device="cpu", generator=torch.Generator(
+        ).manual_seed(SEED)).to(dev)
+        o, nz = _rand((B, nin), gen, dev), _rand((B, nact), gen, dev)
+        with torch.no_grad():
+            k_ms, k_wall = device_ms(lambda: KM.mlp_ppo_actor_any(
+                actor, o, nz), 50)
+            p_ms, _ = device_ms(lambda: KM.mlp_ppo_actor_plain(
+                actor, o, nz), 5, 3)
+        flops = B * (2 * (nin * nh + nh * nh + nh * nact) + 2 * nh + 13 * nact)
+        nbytes = 4 * (B * (nin + 3 * nact) + nin * nh + nh * nh + nh * nact
+                      + 2 * nh + 2 * nact)
+        bms, by = bound_ms(nbytes, flops)
+        log("kernels", kernel="mlp_ppo_actor_any", path="widths",
+            dims=[nin, nh, nact], batch=B, ms=k_ms, wall_ms_per_call=k_wall,
+            plain_ms=p_ms, bytes=nbytes, flops=flops, bound_ms=bms,
+            bound_by=by, library_ms=None)
+        inst["mlp_ppo_actor_any"].append((1, k_ms, p_ms, bms, by, None))
+    return [_record(name, ANY_SOURCES[name], ANY_REPLACES[name],
+                    total[name], errs[name], inst[name])
+            for name in ANY_SOURCES]
+
+
+def width_projectors(dev):
+    """K5's projection bases (``models/emlp/nn.py::linear_projector``) for
+    every equivariant layer of the slice width's TD3, SAC and PPO networks,
+    built and moved to the card before the runs (host work a first
+    superstep at a new width pays once per process), with their build time
+    and bytes; K5's device time a call at the widest."""
+    from gym_rotor_tpu_torch.algos.ppo import PPOAgent
+    from gym_rotor_tpu_torch.algos.sac import SACAgent
+    from gym_rotor_tpu_torch.algos.td3 import TD3Agent
+    from gym_rotor_tpu_torch.models.emlp import nn as N
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config(**SLICE_WIDTH)
+    layers = {}
+    for algo, cls in (("TD3", TD3Agent), ("SAC", SACAgent),
+                      ("PPO", PPOAgent)):
+        for i in range(cfg.n_agents):
+            a = cls(cfg.replace(rl_algo=algo), i, dev)
+            for net in (a.actor_net, a.critic_net):
+                for m in net.modules():
+                    if isinstance(m, N.EquivLinear):
+                        layers[(hash(m.rep_in), hash(m.rep_out))] = m
+    t = time.perf_counter()
+    sizes = {}
+    for m in layers.values():
+        Qw = N._projector_tensors(m.rep_in, m.rep_out, dev, torch.float32)[0]
+        sizes[f"{m.rep_in.size}->{m.rep_out.size}"] = int(Qw.numel()) * 4
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    big = max(layers.values(), key=lambda m: N._projector_tensors(
+        m.rep_in, m.rep_out, dev, torch.float32)[0].numel())
+    k, b = big.kernel.detach(), big.bias.detach()
+    k5_ms, _ = device_ms(lambda: N.project_linear(big.rep_in, big.rep_out,
+                                                  k, b), 10, 3)
+    log("widths", check="projectors", layers=len(layers), build_s=build_s,
+        qw_bytes=sizes, k5_widest=f"{big.rep_in.size}->{big.rep_out.size}",
+        k5_ms=k5_ms)
+
+
+def phase_widths(dev):
+    """Phase 26: any actor and critic width on the card.  Each run-time
+    path against its twin at every shape of ``WIDTHS`` (and the kernel-only
+    critic 512 and actor (128, 32)), rows ``WIDTH_ROWS``, reruns bitwise,
+    and at default shapes against the instances; PPO B's V forward over
+    ``V_ROWS`` rows; the slice's runs through ``train.train`` with exact
+    launch counts per superstep (TD3, SAC, PPO B and Mod-MLP PPO B at
+    (64, 16) / 256; TD3 at (32, 8) / 128 and (8, 4) / 8) and the CLI run;
+    then one record per run-time wrapper."""
+    from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    errs = {}
+    specs = width_block_specs(dev)
+    errs["emlp_block_any"], errs["emlp_block_backward_any"] = \
+        width_block_checks(dev, specs, gen)
+    errs["emlp_block_any"] = max(errs["emlp_block_any"],
+                                 width_v_forward(dev, gen))
+    err = width_actor_checks(dev, gen)
+    errs.update({n: err for n in ANY_ACTOR.values()})
+    errs["spectral_iterate_any"], stacks = width_spectral_checks(dev, gen)
+    errs["mlp_ppo_actor_any"] = width_mlp_ppo_checks(dev, gen)
+    log("widths", check="kernels_done", t_phase_s=time.perf_counter() - t0)
+    width_projectors(dev)
+    runs = []
+    td3_cfg = Config(num_envs=B, start_timesteps=B, **SLICE_WIDTH)
+    launches, shapes, td3_run = phase_train(dev, td3_cfg, WIDTH_STEPS,
+                                            name="widths_td3", widths=True)
+    runs.append(launches)
+    sac_launches, _, sac_run = phase_train_sac(
+        dev, WIDTH_STEPS, False, cfg=td3_cfg.replace(rl_algo="SAC"),
+        name="widths_sac", widths=True)
+    runs.append(sac_launches)
+    ppo_kw = dict(PPO_CONFIGS["B"], **SLICE_WIDTH)
+    _, ppo_launches, _, ppo_run = phase_train_ppo(
+        dev, "B_widths", ppo_kw, WIDTH_PPO_STEPS, widths=True)
+    runs.append(ppo_launches)
+    runs.append(phase_train_ppo(dev, "B_widths_mlp",
+                                dict(ppo_kw, use_equiv=False),
+                                WIDTH_PPO_STEPS, widths=True)[1])
+    for ah, ch in WIDTHS[:2]:
+        runs.append(phase_train(dev, Config(
+            num_envs=B, start_timesteps=B, actor_hidden_dim=ah,
+            critic_hidden_dim=ch), WIDTH_SMALL_STEPS,
+            name=f"widths_td3_{ch}", widths=True)[0])
+    runs.append(width_cli(dev))
+    actors = {"tanh": [a.actor_net for a in td3_run["agents"]],
+              "gauss": [a.actor_net for a in sac_run["agents"]],
+              "ppo": [a.actor_net for a in ppo_run["agents"]]}
+    records = width_records(dev, runs, errs, shapes,
+                            _specs_of(td3_run["agents"], dev), actors,
+                            stacks, gen)
+    log("widths", check="done", t_phase_s=time.perf_counter() - t0,
+        records=[r["name"] for r in records])
+    return records
+
+
+def widths_resources(dev):
+    """The run-time-width kernels' registers and spills (``-Xptxas -v``)
+    and their launches' shared memory at phase 26's shapes, each held to
+    the wrappers' arithmetic: K3/K4's staged steps (``rt_smem``; the static
+    ones from the library's geometry), the acting kernel's ``any_plan``,
+    K7's ``any_geometry``."""
+    import re
+    from gym_rotor_tpu_torch.kernels import emlp_actor as KA
+    from gym_rotor_tpu_torch.kernels import emlp_block as KB
+    from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
+    from gym_rotor_tpu_torch.kernels import spectral as KS
+    pat = re.compile(r"(rt_\w+?_kernel|emlp_actor_any_kernelILi\d|"
+                     r"spectral_any_kernel|mlp_ppo_actor_any_kernelILi\d+)")
+    regs, bad = {}, []
+    for src in (KB.KERNEL, KA.KERNEL, KS.KERNEL, KM.KERNEL):
+        cur = None
+        for ln in src.ptxas.splitlines():
+            m = pat.search(ln)
+            if "Compiling entry function" in ln:
+                cur = m.group(1) if m else None
+                if cur:
+                    regs[cur] = {}
+            elif cur and "spill stores" in ln:
+                n = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+                regs[cur].update(spill_stores=n[1], spill_loads=n[2])
+            elif cur and "registers" in ln:
+                regs[cur]["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+    want = {"rt_lin_kernel", "rt_gate_kernel", "rt_gpre_kernel",
+            "rt_glin_kernel", "rt_gx_kernel", "rt_param_kernel",
+            "spectral_any_kernel"} | {f"emlp_actor_any_kernelILi{h}"
+                                      for h in range(3)} | {
+        "mlp_ppo_actor_any_kernelILi8", "mlp_ppo_actor_any_kernelILi1"}
+    if set(regs) != want or not all(regs.values()):
+        bad.append(("ptxas entries", sorted(regs)))
+    lib = KB._lib()
+    static = {"lin": lib.emlp_block_rt_geometry(3),
+              "gx": lib.emlp_block_rt_geometry(4)}
+    if static != KB.RT_STATIC:
+        bad.append(("static shared memory", static))
+    smem = {}
+    for dims, spec in sorted(width_block_specs(dev).items()):
+        smem[str(dims)] = [KB.rt_smem(dims, k, spec.rt_stage(k))
+                           for k in ("forward", "backward")]
+        if max(smem[str(dims)]) > KB.SMEM_LIMIT:
+            bad.append(("K3/K4", dims, smem[str(dims)]))
+    log("build", kernel="run-time widths", ptxas=regs, static_smem=static,
+        block_staged_smem=smem)
+    for ah, i, head, actor in width_actors(dev):
+        f = KA.fold_actor(actor)
+        plan = KA.any_plan(f["dims"], f["layout"])
+        log("build", kernel="emlp_actor_any", width=list(ah), agent=i,
+            head=head, dims=list(f["dims"]), image_words=f["layout"]["words"],
+            stage_image=plan[0], tile_in_smem=plan[1], smem_bytes=plan[2])
+        if plan[2] > KA.SMEM_LIMIT:
+            bad.append(("acting", f["dims"], plan))
+    for mo, mi in ((255, 128), (511, 256), (568, 512), (1023, 512)):
+        chunk, smem = KS.any_geometry(mo, mi)
+        if KS.instance(mo, mi) is not None or chunk != mo \
+                or smem > KS.SMEM_LIMIT:
+            bad.append(("K7", mo, mi, chunk, smem))
+    if bad:
+        raise AssertionError(f"run-time widths' resources: {bad}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5158,6 +6131,7 @@ def main():
     records += phase_gym_api(dev)
     k1_err, k2_err = phase_tiles(dev)
     phase_driver(dev)
+    records += phase_widths(dev)
     for rec in records:
         if rec["name"] == "env_tick":
             rec["max_abs_err"] = max(rec["max_abs_err"], k1_err)

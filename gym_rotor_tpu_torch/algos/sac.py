@@ -48,6 +48,7 @@ from ..kernels.emlp_block import emlp_trunk, fold_linear
 from ..kernels.sac_sample import sac_head_sample
 from ..models import mlp
 from ..models.zoo import sac_models
+from ..ops.so3 import sqrt_rn
 from ..utils.config import Config
 from . import regularizers
 from .common import FlatAgent, OptState, mse, spectral_penalty
@@ -101,7 +102,7 @@ class ScalarAdamW:
         mu = (1 - self.b1) * g + self.b1 * state.mu
         nu = (1 - self.b2) * (g * g) + self.b2 * state.nu
         c = state.count + 1
-        u = (mu / (1 - self.b1 ** c)) / (torch.sqrt(nu / (1 - self.b2 ** c))
+        u = (mu / (1 - self.b1 ** c)) / (sqrt_rn(nu / (1 - self.b2 ** c))
                                          + self.eps)
         u = u + self.wd * p
         return p + (-self.lr) * u, AlphaOptState(c, mu, nu)

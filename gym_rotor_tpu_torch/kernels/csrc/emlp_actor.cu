@@ -323,6 +323,223 @@ int launch(const float* obs, int B, const int* image, const int* meta,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------ run-time widths
+// Actors without an instance (any (nin, ng, nh, nact); hidden_num 2) run
+// emlp_actor_any_kernel: the instances' steps and arithmetic with the
+// sizes as arguments (so each output's sums keep their order and an
+// actor's bits match the instance's where one exists), and three places
+// for what an instance keeps in shared memory, chosen by the host
+// (emlp_actor.py: any_plan) from what fits a block:
+//   the image: copied to shared memory as the instances copy it, or read
+//     from global memory where it does not fit (the same words, the
+//     layout image_layout states: W_eff transposed and b_eff as float4s,
+//     the plan and its nonzeros as int2 (offsets, v), the head);
+//   the tile's obs, lin, pre and h: in shared memory, or where even they
+//     do not fit (nin + 2 ng + nh > 1761 coordinates), a region of a
+//     global scratch per block, the same field-major [c][row] layout;
+//   the nonzeros' tile offsets: packed j * 33 << 16 | i * 33 as the
+//     instances read them, or past ng = 1986 (where that overflows 16
+//     bits) the coordinates j << 16 | i, which the kernel scales (mul).
+// The obs of a tile are loaded by plain loads at its start (no copy in
+// flight across tiles); every step ends in a barrier as the instances'.
+template <int NW_MAX>
+__device__ __forceinline__ void linear_any(const float* xt, int ni, int ng,
+                                           const float* Wt, const float* b,
+                                           float* ls, int warp, int lane,
+                                           int nw) {
+  const int ngp = round4(ng);
+  for (int q4 = warp; q4 < ngp / 4; q4 += nw) {
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < ni; ++k) {
+      const float xv = xt[k * kPitch + lane];
+      const float4 w = reinterpret_cast<const float4*>(Wt + k * ngp)[q4];
+      a0 = fmaf(xv, w.x, a0);
+      a1 = fmaf(xv, w.y, a1);
+      a2 = fmaf(xv, w.z, a2);
+      a3 = fmaf(xv, w.w, a3);
+    }
+    const float4 bb = reinterpret_cast<const float4*>(b)[q4];
+    const int o = 4 * q4;
+    ls[o * kPitch + lane] = a0 + bb.x;
+    if (o + 1 < ng) ls[(o + 1) * kPitch + lane] = a1 + bb.y;
+    if (o + 2 < ng) ls[(o + 2) * kPitch + lane] = a2 + bb.z;
+    if (o + 3 < ng) ls[(o + 3) * kPitch + lane] = a3 + bb.w;
+  }
+}
+
+__device__ __forceinline__ void bilinear_any(const float* ls, float* ps,
+                                             const int* img, const Img& im,
+                                             int blk, int warp, int lane,
+                                             int mul) {
+  const int* wptr = img + im.m[kWptr + kBlock * blk];
+  const int* task = img + im.m[kTask + kBlock * blk];
+  const int* tptr = img + im.m[kTptr + kBlock * blk];
+  const int2* ent =
+      reinterpret_cast<const int2*>(img + im.m[kEnt + kBlock * blk]);
+  const float* lr = ls + lane;
+  const int m1 = wptr[warp + 1];
+  for (int m = wptr[warp]; m < m1; ++m) {
+    const int o = task[m], e1 = tptr[m + 1];
+    float q = 0.0f;
+#pragma unroll 4
+    for (int e = tptr[m]; e < e1; ++e) {
+      const int2 en = ent[e];
+      q = fmaf(__int_as_float(en.y) * lr[((unsigned)en.x >> 16) * mul],
+               lr[(en.x & 0xffff) * mul], q);
+    }
+    ps[o * kPitch + lane] = 0.1f * q + lr[o * kPitch];
+  }
+}
+
+__device__ __forceinline__ void gate_any(const float* ps, const int* g,
+                                         float* hs, int nh, int t, int nt) {
+  for (int q = t; q < nh * kTile; q += nt) {
+    const int k = q >> 5, r = q & 31;
+    hs[k * kPitch + r] = ps[k * kPitch + r] / (1.0f + expf(-ps[g[k] + r]));
+  }
+}
+
+template <int HEAD_KIND>
+__device__ __forceinline__ void head_any(
+    const float* hs, const float* f, const Img& im, int nh, int nact, int r0,
+    int rows, int warp, int lane, int nw, const float* __restrict__ noise,
+    int ld_noise, float* __restrict__ out, int ld_out,
+    float* __restrict__ logp, int ld_logp, float max_action) {
+  if (lane >= rows) return;
+  const float* h = hs + lane;
+  const size_t row = (size_t)r0 + lane;
+  for (int a = warp; a < nact; a += nw) {
+    const float* wh = f + im.m[kWh] + a * nh;
+    float s = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < nh; ++k) s = fmaf(h[k * kPitch], wh[k], s);
+    const float mean = s + f[im.m[kBh] + a];
+    if (HEAD_KIND == kPPO) {
+      ppo::head(mean, f[im.m[kLogStd] + a],
+               noise == nullptr ? nullptr : noise + row * ld_noise + a,
+               max_action, out + row * ld_out + a, logp + row * ld_logp + a);
+      continue;
+    }
+    float act = mean;
+    if (HEAD_KIND == kGauss && noise != nullptr) {
+      const float* wl = f + im.m[kWl] + a * nh;
+      float l = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k < nh; ++k) l = fmaf(h[k * kPitch], wl[k], l);
+      const float ls = fminf(fmaxf(l + f[im.m[kBl] + a], -20.0f), 2.0f);
+      act = mean + expf(ls) * noise[row * ld_noise + a];
+    }
+    out[row * ld_out + a] = tanhf(act);
+  }
+}
+
+// floats of one tile's obs, lin, pre and h
+__host__ __device__ inline size_t tile_floats(int nin, int ng, int nh) {
+  return (size_t)(nin + 2 * ng + nh) * kPitch;
+}
+
+template <int HEAD_KIND>
+__global__ void __launch_bounds__(256)
+emlp_actor_any_kernel(const float* __restrict__ obs, int B, int nin, int ng,
+                      int nh, int nact, const int* __restrict__ image,
+                      Img im, int mul, int stage_image,
+                      float* __restrict__ scratch,
+                      const float* __restrict__ noise, int ld_noise,
+                      float* __restrict__ out, int ld_out,
+                      float* __restrict__ logp, int ld_logp,
+                      float max_action) {
+  extern __shared__ __align__(16) int smem[];
+  const int nw = im.m[kWarps], nt = nw * 32;
+  const int words = im.m[kWords];
+  const int* img = stage_image ? smem : image;
+  const float* f = reinterpret_cast<const float*>(img);
+  float* xs = scratch != nullptr
+                  ? scratch + blockIdx.x * tile_floats(nin, ng, nh)
+                  : reinterpret_cast<float*>(smem + (stage_image ? words : 0));
+  float* ls = xs + nin * kPitch;   // lin [o][row]
+  float* ps = ls + ng * kPitch;    // pre
+  float* hs = ps + ng * kPitch;    // h1, then h2
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  if (stage_image) {
+    for (int q = t; q < words / 4; q += nt) cp16(smem + 4 * q, image + 4 * q);
+    cp_wait();
+  }
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int r0 = tile * kTile, rows = min(kTile, B - r0);
+    // every read of the last tile's xs and hs precedes this barrier
+    __syncthreads();
+    for (int q = t; q < rows * nin; q += nt) {
+      const int r = q / nin;
+      xs[(q - r * nin) * kPitch + r] = obs[(size_t)r0 * nin + q];
+    }
+    __syncthreads();
+    linear_any<8>(xs, nin, ng, f + im.m[kWt], f + im.m[kB], ls, warp, lane,
+                  nw);
+    __syncthreads();
+    bilinear_any(ls, ps, img, im, 0, warp, lane, mul);
+    __syncthreads();
+    gate_any(ps, img + im.m[kGate], hs, nh, t, nt);
+    __syncthreads();
+    linear_any<8>(hs, nh, ng, f + im.m[kBlock + kWt], f + im.m[kBlock + kB],
+                  ls, warp, lane, nw);
+    __syncthreads();
+    bilinear_any(ls, ps, img, im, 1, warp, lane, mul);
+    __syncthreads();
+    gate_any(ps, img + im.m[kBlock + kGate], hs, nh, t, nt);
+    __syncthreads();
+    head_any<HEAD_KIND>(hs, f, im, nh, nact, r0, rows, warp, lane, nw, noise,
+                        ld_noise, out, ld_out, logp, ld_logp, max_action);
+  }
+}
+
+template <int HEAD_KIND>
+int launch_any(const float* obs, int B, const int* image, const int* meta,
+               const float* noise, int ld_noise, float* out, int ld_out,
+               float* logp, int ld_logp, float max_action, int nin, int ng,
+               int nh, int nact, int mul, int stage_image, float* scratch,
+               int scratch_blocks, cudaStream_t stream) {
+  static size_t smem_set[kMaxDevices] = {0};
+  if ((meta[kWarps] != 4 && meta[kWarps] != 8) || meta[kWords] <= 0 ||
+      (meta[kWords] & 3) != 0 || (mul != 1 && mul != kPitch) ||
+      (scratch != nullptr && scratch_blocks < 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = emlp_actor_any_kernel<HEAD_KIND>;
+  const int nt = meta[kWarps] * 32;
+  const size_t smem =
+      (stage_image ? (size_t)meta[kWords] * 4 : 0) +
+      (scratch != nullptr ? 0 : tile_floats(nin, ng, nh) * 4);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[dev] = smem;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1 || sm_count(dev) < 1)
+    return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  int grid = per_sm * sm_count(dev);
+  if (scratch != nullptr && grid > scratch_blocks) grid = scratch_blocks;
+  if (grid > n_tiles) grid = n_tiles;
+  Img im;
+  memcpy(im.m, meta, sizeof im.m);
+  kernel<<<grid, nt, smem, stream>>>(obs, B, nin, ng, nh, nact, image, im,
+                                     mul, stage_image, scratch, noise,
+                                     ld_noise, out, ld_out, logp, ld_logp,
+                                     max_action);
+  return (int)cudaGetLastError();
+}
+
 // The built instances (nin, ng, nh, nact): the flagship MODUL actors
 // (agents 0 and 1) and the MONO actor.
 #define EMLP_ACTOR_INSTANCES(X) X(15, 18, 16, 4) X(3, 7, 4, 1) X(23, 18, 16, 4)
@@ -393,6 +610,45 @@ extern "C" int emlp_actor_launch(const void* obs, int B, const void* image,
     if (lp == nullptr) return (int)cudaErrorInvalidValue;
     return dispatch<kPPO>(o, B, img, meta, nz, ld_noise, y, ld_out, lp,
                           ld_logp, max_action, nin, ng, nh, nact, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Run-time widths (any dims): as emlp_actor_launch, plus mul (1: the image's
+// nonzeros hold tile offsets; 33: coordinates), stage_image (1: copy the
+// image to shared memory) and scratch (null: the tile in shared memory;
+// else scratch_blocks regions of (nin + 2 ng + nh) x 33 floats in global
+// memory, one a block).
+extern "C" int emlp_actor_any_launch(const void* obs, int B,
+                                     const void* image, const int* meta,
+                                     const void* noise, int ld_noise,
+                                     void* out, int ld_out, void* logp,
+                                     int ld_logp, float max_action, int nin,
+                                     int ng, int nh, int nact, int head,
+                                     int mul, int stage_image, void* scratch,
+                                     int scratch_blocks, void* stream) {
+  if (B <= 0 || nin <= 0 || ng <= 0 || nh <= 0 || nact <= 0)
+    return (int)cudaErrorInvalidValue;
+  const float* o = (const float*)obs;
+  const int* img = (const int*)image;
+  const float* nz = (const float*)noise;
+  float* y = (float*)out;
+  float* lp = (float*)logp;
+  float* sc = (float*)scratch;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (head == kTanh)
+    return launch_any<kTanh>(o, B, img, meta, nullptr, 0, y, ld_out, nullptr,
+                             0, 1.0f, nin, ng, nh, nact, mul, stage_image, sc,
+                             scratch_blocks, s);
+  if (head == kGauss)
+    return launch_any<kGauss>(o, B, img, meta, nz, ld_noise, y, ld_out,
+                              nullptr, 0, 1.0f, nin, ng, nh, nact, mul,
+                              stage_image, sc, scratch_blocks, s);
+  if (head == kPPO) {
+    if (lp == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_any<kPPO>(o, B, img, meta, nz, ld_noise, y, ld_out, lp,
+                            ld_logp, max_action, nin, ng, nh, nact, mul,
+                            stage_image, sc, scratch_blocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }

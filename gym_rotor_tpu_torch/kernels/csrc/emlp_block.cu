@@ -615,6 +615,347 @@ int bwd(const float* g_h, const float* x, int B, const float* W,
   X(27, 71, 62) X(23, 18, 16) \
   X(23, 71, 62) X(23, 123, 62) X(18, 71, 62) X(18, 123, 62)
 
+
+// ------------------------------------------------------ run-time widths
+// Blocks without an instance (any (nin, ng, nh)) run the kernels below,
+// whose sizes are arguments and whose shared memory does not grow with a
+// block's weights or nonzeros, so no width exceeds a block's limit.  Each
+// step is its own launch over a grid of 32-row tiles, lane t on row t, the
+// vectors between launches field-major (ng, B) in global memory:
+//   forward: rt_lin_kernel (lin = x W_eff^T + b_eff; 32 rows x 32 outputs
+//     a block, x and W_eff streamed through shared memory in chunks of 32
+//     inputs, each output's terms in input order, then the bias: the
+//     instances' expression), then rt_gate_kernel (pre and h: a block
+//     column a run of the gated nonlinearity's atoms, a warp a coordinate,
+//     each output's nonzeros in their order, then after a barrier the
+//     gate);
+//   backward: rt_gpre_kernel (g_pre, the instances' expression), then
+//     rt_glin_kernel (g_lin: a warp a coordinate, its whole list in order,
+//     g_pre + 0.1 acc), rt_gx_kernel (g_x = g_lin W_eff, 32 rows x 32
+//     inputs a block, the coordinates streamed in chunks, in order) and,
+//     with parameter gradients, rt_param_kernel (a thread a parameter: per
+//     32-row tile the instances' partial sum, then the tiles added as the
+//     instances' finishing kernel adds them: the instances' order over
+//     rows; g_v is an instance's bit for bit, g_W and g_b where its g_lin
+//     is, which sums each coordinate's list in segments).
+// The gate and list steps read the tile's lin (and g_pre) from shared
+// memory where the ng x 32 floats fit (the host's `stage`), else from
+// global memory.  Every sum has one fixed order and there are no atomics,
+// so a rerun repeats its numbers bit for bit.
+constexpr int kRtThreads = 256;
+constexpr int kRtWarps = kRtThreads / 32;
+constexpr int kRtChunk = 32;     // inputs (forward) or coordinates (g_x)
+constexpr int kRtWPitch = 36;    // a staged W chunk's row, float4 aligned
+
+// The static index of the run-time path (BlockSpec.rt_ints), in this order.
+struct RtInts {
+  const int* gate;      // NH
+  const int* rowptr;    // NG + 1
+  const int* ej;        // nnz: j of each nonzero
+  const int* ei;        // nnz: i
+  const int* eo;        // nnz: o
+  const int* cl_ptr;    // NG + 1: coordinate-major lists
+  const int* cl_o;      // 2 nnz: the output
+  const int* cl_p;      // 2 nnz: the partner coordinate
+  const int* cl_e;      // 2 nnz: the nonzero
+  const int* ginv_ptr;  // NG + 1
+  const int* ginv_k;    // NH
+  const int* atoms;     // 3 n_atoms: k0, k1, gate coordinate or -1
+};
+
+RtInts rt_ints_of(const int* p, int ng, int nh, int nnz) {
+  RtInts s;
+  s.gate = p;
+  s.rowptr = s.gate + nh;
+  s.ej = s.rowptr + ng + 1;
+  s.ei = s.ej + nnz;
+  s.eo = s.ei + nnz;
+  s.cl_ptr = s.eo + nnz;
+  s.cl_o = s.cl_ptr + ng + 1;
+  s.cl_p = s.cl_o + 2 * nnz;
+  s.cl_e = s.cl_p + 2 * nnz;
+  s.ginv_ptr = s.cl_e + 2 * nnz;
+  s.ginv_k = s.ginv_ptr + ng + 1;
+  s.atoms = s.ginv_k + nh;
+  return s;
+}
+
+// A tile's field-major vector: coordinate c of this lane's row at
+// base[c * ld] (shared memory, ld = kTile, or global, ld = B).
+struct TileRef {
+  const float* base;
+  size_t ld;
+  __device__ __forceinline__ float operator[](int c) const {
+    return base[(size_t)c * ld];
+  }
+};
+
+// ng x kTile floats of a field-major (ng, B) array into shared memory
+// (zeros past the last row); returns this lane's view, or the global one
+__device__ __forceinline__ TileRef stage_tile(float* dst, const float* src,
+                                              int ng, int B, int r0,
+                                              int rows, int stage, int lane) {
+  if (!stage) return {src + r0 + min(lane, rows - 1), (size_t)B};
+  for (int q = threadIdx.x; q < ng * kTile; q += kRtThreads) {
+    const int c = q >> 5, r = q & 31;
+    dst[q] = r < rows ? src[(size_t)c * B + r0 + r] : 0.0f;
+  }
+  return {dst + lane, (size_t)kTile};
+}
+
+__global__ void __launch_bounds__(kRtThreads)
+rt_lin_kernel(const float* __restrict__ x, int B, int nin, int ng,
+              const float* __restrict__ W, const float* __restrict__ bias,
+              float* __restrict__ lin) {
+  __shared__ float xs[kRtChunk * kPitch];                    // [k][row]
+  __shared__ __align__(16) float ws[kRtChunk * kRtWPitch];   // [k][o]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
+  const int o0 = blockIdx.y * (4 * kRtWarps);
+  const int no = min(4 * kRtWarps, ng - o0);
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int k0 = 0; k0 < nin; k0 += kRtChunk) {
+    const int kc = min(kRtChunk, nin - k0);
+    __syncthreads();
+    for (int q = t; q < rows * kc; q += kRtThreads) {
+      const int r = q / kc, k = q - r * kc;
+      xs[k * kPitch + r] = x[(size_t)(r0 + r) * nin + k0 + k];
+    }
+    for (int q = t; q < no * kc; q += kRtThreads) {
+      const int o = q / kc, k = q - o * kc;
+      ws[k * kRtWPitch + o] = W[(size_t)(o0 + o) * nin + k0 + k];
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      const float xv = xs[k * kPitch + lane];
+      const float4 w = reinterpret_cast<const float4*>(ws + k * kRtWPitch)[warp];
+      a[0] = fmaf(xv, w.x, a[0]);
+      a[1] = fmaf(xv, w.y, a[1]);
+      a[2] = fmaf(xv, w.z, a[2]);
+      a[3] = fmaf(xv, w.w, a[3]);
+    }
+  }
+  if (lane >= rows) return;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int o = o0 + 4 * warp + m;
+    if (o < ng) lin[(size_t)o * B + r0 + lane] = a[m] + bias[o];
+  }
+}
+
+// pre of output o for this lane's row: its nonzeros in order, then 0.1 q +
+// lin (the instances' expression)
+__device__ __forceinline__ float rt_pre(const TileRef& l,
+                                        const float* __restrict__ v,
+                                        const RtInts& ix, int o) {
+  const int e1 = ix.rowptr[o + 1];
+  float q = 0.0f;
+#pragma unroll 4
+  for (int e = ix.rowptr[o]; e < e1; ++e)
+    q = fmaf(v[e] * l[ix.ej[e]], l[ix.ei[e]], q);
+  return 0.1f * q + l[o];
+}
+
+// pre of a block column's coordinates (the outputs K0:K1 of its atoms and
+// their gate coordinates Q0:Q1, host ranges), a warp a coordinate, written
+// field-major to pre; then h for its outputs, a thread a (row, output)
+__global__ void __launch_bounds__(kRtThreads)
+rt_gate_kernel(const float* __restrict__ lin, int B, int ng, int nh,
+               const float* __restrict__ v, RtInts ix,
+               const int* __restrict__ ranges, int stage,
+               float* __restrict__ h, float* __restrict__ pre) {
+  extern __shared__ __align__(16) float lt[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
+  const int* rg = ranges + 4 * blockIdx.y;
+  const int k0 = rg[0], nk = rg[1] - k0, q0 = rg[2], nq = rg[3] - q0;
+  const TileRef l = stage_tile(lt, lin, ng, B, r0, rows, stage, lane);
+  if (stage) __syncthreads();
+  for (int task = warp; task < nk + nq; task += kRtWarps) {
+    const int c = task < nk ? k0 + task : q0 + task - nk;
+    const float p = rt_pre(l, v, ix, c);
+    if (lane < rows) pre[(size_t)c * B + r0 + lane] = p;
+  }
+  // every pre this block reads below it wrote above
+  __syncthreads();
+  for (int q = t; q < rows * nk; q += kRtThreads) {
+    const int r = q / nk, k = k0 + q - r * nk;
+    const size_t row = (size_t)r0 + r;
+    h[row * nh + k] = pre[(size_t)k * B + row] /
+                      (1.0f + expf(-pre[(size_t)ix.gate[k] * B + row]));
+  }
+}
+
+// g_pre, a warp a coordinate, a lane a row (the instances' expression)
+__global__ void __launch_bounds__(kRtThreads)
+rt_gpre_kernel(const float* __restrict__ g_h, const float* __restrict__ pre,
+               int B, int ng, int nh, RtInts ix, float* __restrict__ gpre) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.y * kRtWarps + warp;
+  const int r = blockIdx.x * kTile + lane;
+  if (c >= ng || r >= B) return;
+  float gp = 0.0f;
+  if (c < nh)
+    gp = g_h[(size_t)r * nh + c] *
+         (1.0f / (1.0f + expf(-pre[(size_t)ix.gate[c] * B + r])));
+  const int k1 = ix.ginv_ptr[c + 1];
+  if (ix.ginv_ptr[c] < k1) {
+    const float s = 1.0f / (1.0f + expf(-pre[(size_t)c * B + r]));
+    for (int kk = ix.ginv_ptr[c]; kk < k1; ++kk) {
+      const int k = ix.ginv_k[kk];
+      gp += g_h[(size_t)r * nh + k] * pre[(size_t)k * B + r] * s * (1.0f - s);
+    }
+  }
+  gpre[(size_t)c * B + r] = gp;
+}
+
+// g_lin = g_pre + 0.1 (each coordinate's list in order), per_block
+// coordinates a block, a warp a coordinate
+__global__ void __launch_bounds__(kRtThreads)
+rt_glin_kernel(const float* __restrict__ gpre, const float* __restrict__ lin,
+               int B, int ng, const float* __restrict__ v, RtInts ix,
+               int per_block, int stage, float* __restrict__ glin) {
+  extern __shared__ __align__(16) float tiles[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
+  const TileRef gp = stage_tile(tiles, gpre, ng, B, r0, rows, stage, lane);
+  const TileRef l =
+      stage_tile(tiles + ng * kTile, lin, ng, B, r0, rows, stage, lane);
+  if (stage) __syncthreads();
+  if (lane >= rows) return;
+  const int c1 = min(ng, (int)(blockIdx.y + 1) * per_block);
+  for (int c = blockIdx.y * per_block + warp; c < c1; c += kRtWarps) {
+    const int e1 = ix.cl_ptr[c + 1];
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int e = ix.cl_ptr[c]; e < e1; ++e)
+      acc = fmaf(v[ix.cl_e[e]] * gp[ix.cl_o[e]], l[ix.cl_p[e]], acc);
+    glin[(size_t)c * B + r0 + lane] = __fadd_rn(gp[c], __fmul_rn(0.1f, acc));
+  }
+}
+
+// g_x = g_lin W_eff: 32 rows x 32 inputs a block, thread (row t / 8,
+// inputs 4 (t % 8) ..), the coordinates in order
+__global__ void __launch_bounds__(kRtThreads)
+rt_gx_kernel(const float* __restrict__ glin, const float* __restrict__ W,
+             int B, int ng, int nin, float* __restrict__ g_x) {
+  __shared__ float gs[kRtChunk * kTile];                     // [c][row]
+  __shared__ __align__(16) float ws[kRtChunk * kTile];       // [c][k]
+  const int t = threadIdx.x, r = t >> 3, kq = t & 7;
+  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
+  const int k0 = blockIdx.y * kTile, nk = min(kTile, nin - k0);
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < ng; c0 += kRtChunk) {
+    const int cc = min(kRtChunk, ng - c0);
+    __syncthreads();
+    for (int q = t; q < cc * kTile; q += kRtThreads) {
+      const int c = q >> 5, i = q & 31;
+      gs[q] = i < rows ? glin[(size_t)(c0 + c) * B + r0 + i] : 0.0f;
+      ws[q] = i < nk ? W[(size_t)(c0 + c) * nin + k0 + i] : 0.0f;
+    }
+    __syncthreads();
+    for (int c = 0; c < cc; ++c) {
+      const float gv = gs[c * kTile + r];
+      const float4 w = reinterpret_cast<const float4*>(ws + c * kTile)[kq];
+      a[0] = fmaf(gv, w.x, a[0]);
+      a[1] = fmaf(gv, w.y, a[1]);
+      a[2] = fmaf(gv, w.z, a[2]);
+      a[3] = fmaf(gv, w.w, a[3]);
+    }
+  }
+  if (r >= rows) return;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    if (4 * kq + m < nk)
+      g_x[(size_t)(r0 + r) * nin + k0 + 4 * kq + m] = a[m];
+}
+
+// The parameter gradients, a thread a parameter (g_W (ng, nin), g_b, g_v):
+// per 32-row tile the instances' partial (rows in order), the tiles added
+// as block_bwd_finish_kernel adds them (tile k into sum k % 8, then the 8
+// sums in order)
+__global__ void __launch_bounds__(kRtThreads)
+rt_param_kernel(const float* __restrict__ glin,
+                const float* __restrict__ gpre,
+                const float* __restrict__ lin, const float* __restrict__ x,
+                int B, int ng, int nin, int nnz, RtInts ix,
+                float* __restrict__ g_par) {
+  constexpr int kWarps = kSumThreads / 32;
+  const int nw = ng * nin;
+  const int q = blockIdx.x * kRtThreads + threadIdx.x;
+  if (q >= nw + ng + nnz) return;
+  const float *a = nullptr, *b = nullptr, *c = nullptr;
+  int kind = 0;
+  size_t ldb = 0;
+  if (q < nw) {                        // g_W: g_lin[c] . x[:, k]
+    const int cl = q / nin;
+    a = glin + (size_t)cl * B;
+    b = x + (q - cl * nin);
+    ldb = nin;
+  } else if (q < nw + ng) {            // g_b: g_lin[c]
+    a = glin + (size_t)(q - nw) * B;
+    kind = 1;
+  } else {                             // g_v: 0.1 g_pre[o] lin[j] lin[i]
+    const int e = q - nw - ng;
+    a = gpre + (size_t)ix.eo[e] * B;
+    b = lin + (size_t)ix.ej[e] * B;
+    c = lin + (size_t)ix.ei[e] * B;
+    kind = 2;
+  }
+  const int n_tiles = (B + kTile - 1) / kTile;
+  float sums[kWarps];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) sums[w] = 0.0f;
+  for (int k8 = 0; k8 < n_tiles; k8 += kWarps) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int tile = k8 + w;
+      const int r0 = tile * kTile, rows = max(0, min(kTile, B - r0));
+      float s = 0.0f;
+      if (kind == 0) {
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r)
+          s = fmaf(a[r0 + r], b[(size_t)(r0 + r) * ldb], s);
+      } else if (kind == 1) {
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r) s += a[r0 + r];
+      } else {
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r)
+          s += 0.1f * a[r0 + r] * b[r0 + r] * c[r0 + r];
+      }
+      sums[w] += s;
+    }
+  }
+  float tot = sums[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) tot += sums[w];
+  g_par[q] = tot;
+}
+
+}  // namespace
+
+// The run-time path's geometry and shared memory: 0 threads a block, 1 the
+// forward's outputs a block (rt_lin_kernel), 2 the staged-tile bytes a
+// coordinate (rt_gate_kernel: one tile; rt_glin_kernel: two), 3 the static
+// shared memory of rt_lin_kernel, 4 of rt_gx_kernel (bytes).
+extern "C" int emlp_block_rt_geometry(int which) {
+  return which == 0   ? kRtThreads
+         : which == 1 ? 4 * kRtWarps
+         : which == 2 ? kTile * 4
+         : which == 3 ? (int)(kRtChunk * (kPitch + kRtWPitch) * 4)
+                      : (int)(2 * kRtChunk * kTile * 4);
+}
+
+namespace {
+
+// per kernel (the two have different types): its dynamic shared memory
+template <typename K>
+cudaError_t rt_smem(K kernel, size_t bytes) {
+  static size_t done[kMaxDevices] = {0};
+  return set_smem(kernel, bytes, done);
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
@@ -687,4 +1028,83 @@ extern "C" int emlp_block_bwd_launch(const void* g_h, const void* x, int B,
   EMLP_BLOCK_INSTANCES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// Run-time widths (any (nin, ng, nh)): rt_ints the BlockSpec.rt_ints of the
+// block; ranges (n_cols x 4: k0, k1, q0, q1, BlockSpec.rt_ranges) the
+// coordinates of each block column of rt_gate_kernel; stage 1: the tile's
+// lin in shared memory (ng x 128 bytes), 0: read from global memory.  lin
+// and pre (ng, B) are always written (the gate step reads both).
+extern "C" int emlp_block_rt_fwd_launch(const void* x, int B, const void* W,
+                                        const void* b, const void* v,
+                                        const void* rt_ints, int nnz,
+                                        const void* ranges, int n_cols,
+                                        int stage, void* h, void* lin,
+                                        void* pre, int nin, int ng, int nh,
+                                        void* stream) {
+  if (B <= 0 || nnz < 0 || nin <= 0 || ng <= 0 || nh <= 0 || nh > ng ||
+      n_cols <= 0 || lin == nullptr || pre == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  const RtInts ix = rt_ints_of((const int*)rt_ints, ng, nh, nnz);
+  rt_lin_kernel<<<dim3(n_tiles, (ng + 4 * kRtWarps - 1) / (4 * kRtWarps)),
+                  kRtThreads, 0, st>>>((const float*)x, B, nin, ng,
+                                       (const float*)W, (const float*)b,
+                                       (float*)lin);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = stage ? (size_t)ng * kTile * 4 : 0;
+  e = rt_smem(rt_gate_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  rt_gate_kernel<<<dim3(n_tiles, n_cols), kRtThreads, smem, st>>>(
+      (const float*)lin, B, ng, nh, (const float*)v, ix, (const int*)ranges,
+      stage, (float*)h, (float*)pre);
+  return (int)cudaGetLastError();
+}
+
+// Run-time widths: gpre and glin (ng, B) scratch; per_block coordinates a
+// block column of rt_glin_kernel; stage 1: the tile's g_pre and lin in
+// shared memory (ng x 256 bytes); g_par (ng nin + ng + nnz) written when
+// need_params.
+extern "C" int emlp_block_rt_bwd_launch(const void* g_h, const void* x,
+                                        int B, const void* W, const void* v,
+                                        const void* rt_ints, int nnz,
+                                        const void* lin, const void* pre,
+                                        int per_block, int stage, void* gpre,
+                                        void* glin, void* g_x, void* g_par,
+                                        int need_params, int nin, int ng,
+                                        int nh, void* stream) {
+  if (B <= 0 || nnz < 0 || nin <= 0 || ng <= 0 || nh <= 0 || nh > ng ||
+      per_block <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  const RtInts ix = rt_ints_of((const int*)rt_ints, ng, nh, nnz);
+  rt_gpre_kernel<<<dim3(n_tiles, (ng + kRtWarps - 1) / kRtWarps), kRtThreads,
+                   0, st>>>((const float*)g_h, (const float*)pre, B, ng, nh,
+                            ix, (float*)gpre);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = stage ? (size_t)2 * ng * kTile * 4 : 0;
+  e = rt_smem(rt_glin_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  rt_glin_kernel<<<dim3(n_tiles, (ng + per_block - 1) / per_block),
+                   kRtThreads, smem, st>>>(
+      (const float*)gpre, (const float*)lin, B, ng, (const float*)v, ix,
+      per_block, stage, (float*)glin);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rt_gx_kernel<<<dim3(n_tiles, (nin + kTile - 1) / kTile), kRtThreads, 0,
+                 st>>>((const float*)glin, (const float*)W, B, ng, nin,
+                       (float*)g_x);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !need_params) return (int)e;
+  const long long n_par = (long long)ng * nin + ng + nnz;
+  rt_param_kernel<<<(unsigned)((n_par + kRtThreads - 1) / kRtThreads),
+                    kRtThreads, 0, st>>>((const float*)glin,
+                                         (const float*)gpre,
+                                         (const float*)lin, (const float*)x,
+                                         B, ng, nin, nnz, ix, (float*)g_par);
+  return (int)cudaGetLastError();
 }

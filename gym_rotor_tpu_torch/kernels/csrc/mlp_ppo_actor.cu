@@ -35,7 +35,8 @@
 // dot product has one fixed order; built with -fmad=false, so each product
 // and sum rounds once, as the plain twin's elementwise head does.
 // Instantiated for the MODUL actors (15, 16, 4) and (3, 4, 1) and the MONO
-// actor (23, 16, 4).
+// actor (23, 16, 4); other widths (a config's actor_hidden_dim) run one
+// kernel with run-time widths, the MLP SAC actor's design.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -98,6 +99,63 @@ mlp_ppo_actor_kernel(const float* __restrict__ obs, int B, Weights w,
   }
 }
 
+// Widths without an instance (run-time nin, nh, nact): the MLP SAC actor's
+// run-time design (mlp_sac_actor.cu): a block takes R rows, and
+// mlp::dense_relu_rows computes each layer for the R rows at once, each
+// thread runs of units with the weights read from global memory once for
+// the R rows, each unit's terms in k order (an instance's bits); the rows'
+// layers in dynamic shared memory (2 R nh floats).  Then thread p takes
+// (row p / nact, action p % nact): the mean in k order, as the instances,
+// and ppo::head.  R = 8 where 8 rows' layers fit a block's shared memory
+// (nh <= 3632), else 1 (nh <= 29056).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+mlp_ppo_actor_any_kernel(const float* __restrict__ obs, int B, int nin,
+                         int nh, int nact, Weights w,
+                         const float* __restrict__ noise, int ld_noise,
+                         float* __restrict__ out, int ld_out,
+                         float* __restrict__ logp, int ld_logp,
+                         float max_action) {
+  extern __shared__ float hs[];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * R, nr = min(R, B - r0);
+  float* h0 = hs;
+  float* h1 = hs + R * nh;
+  mlp::dense_relu_rows<R>(obs + (size_t)r0 * nin, nin, nr, nin, nh, w.w0,
+                          w.b0, h0, t);
+  __syncthreads();
+  mlp::dense_relu_rows<R>(h0, nh, nr, nh, nh, w.w1, w.b1, h1, t);
+  __syncthreads();
+  for (int p = t; p < nr * nact; p += kThreads) {
+    const int i = p / nact, a = p - i * nact;
+    const size_t r = (size_t)r0 + i;
+    const float* x = h1 + i * nh;
+    float s = x[0] * w.wm[a];
+    for (int k = 1; k < nh; ++k) s = s + x[k] * w.wm[k * nact + a];
+    ppo::head(s + w.bm[a], w.log_std[a],
+             noise == nullptr ? nullptr : noise + r * ld_noise + a,
+             max_action, out + r * ld_out + a, logp + r * ld_logp + a);
+  }
+}
+
+template <int R>
+int launch_any(const float* obs, int B, int nin, int nh, int nact,
+               const Weights& w, const float* noise, int ld_noise, float* out,
+               int ld_out, float* logp, int ld_logp, float max_action,
+               cudaStream_t st) {
+  const size_t smem = sizeof(float) * 2 * R * nh;
+  if (smem > 48 * 1024) {   // wide layers: the opt-in shared memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)mlp_ppo_actor_any_kernel<R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mlp_ppo_actor_any_kernel<R><<<(B + R - 1) / R, kThreads, smem, st>>>(
+      obs, B, nin, nh, nact, w, noise, ld_noise, out, ld_out, logp, ld_logp,
+      max_action);
+  return (int)cudaGetLastError();
+}
+
 #define MLP_PPO_ACTOR_INSTANCES(X) X(15, 16, 4) X(3, 4, 1) X(23, 16, 4)
 
 }  // namespace
@@ -135,4 +193,25 @@ extern "C" int mlp_ppo_actor_launch(const void* obs, int B, int nin, int nh,
   MLP_PPO_ACTOR_INSTANCES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// The same operands, any widths: mlp_ppo_actor_any_kernel (8 rows a block
+// up to nh 3632, else one).
+extern "C" int mlp_ppo_actor_any_launch(
+    const void* obs, int B, int nin, int nh, int nact, const void* w0,
+    const void* b0, const void* w1, const void* b1, const void* wm,
+    const void* bm, const void* log_std, const void* noise, int ld_noise,
+    void* out, int ld_out, void* logp, int ld_logp, float max_action,
+    void* stream) {
+  if (B <= 0 || nin <= 0 || nh <= 0 || nact <= 0 || out == nullptr ||
+      logp == nullptr || (size_t)2 * nh * 4 > 232448)
+    return (int)cudaErrorInvalidValue;
+  const Weights w{(const float*)w0, (const float*)b0, (const float*)w1,
+                  (const float*)b1, (const float*)wm, (const float*)bm,
+                  (const float*)log_std};
+  const bool eight = (size_t)2 * 8 * nh * 4 <= 232448;
+  return (eight ? launch_any<8> : launch_any<1>)(
+      (const float*)obs, B, nin, nh, nact, w, (const float*)noise, ld_noise,
+      (float*)out, ld_out, (float*)logp, ld_logp, max_action,
+      (cudaStream_t)stream);
 }

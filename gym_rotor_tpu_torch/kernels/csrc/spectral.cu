@@ -220,6 +220,80 @@ spectral_kernel(const float* __restrict__ W, const float* __restrict__ x0,
   if (t < mi) v[k * mi + t] = xf[t] / norm;
 }
 
+
+// Run-time widths: stacks past the instances' 128 x 128 (the critics from
+// critic_hidden_dim ~ 64 up, whose matrices outgrow a block's shared
+// memory at ~ 256 x 220) run spectral_any_kernel: one block per matrix
+// and the instances' iteration (the iterate scaled by 1 / |x| each step,
+// the last divided by its norm), W read from global memory (L2) on each
+// of the 2 iters matvecs, only x, y and the row pass's partial sums in
+// shared memory:
+//   row pass, y = W x: a warp a row, lane l the columns l, l + 32, ...
+//     (coalesced), each lane's sum to shared memory, then a thread a row
+//     adds its 32 lanes' sums in lane order; the rows in chunks of `chunk`
+//     (what the partial sums' shared memory holds);
+//   column pass, x = W^T y / |x|: a thread a column, the rows in order;
+//   |x|^2 summed in order by every thread alike.
+// No exchange between threads but through shared memory, so a rerun
+// repeats its numbers.
+constexpr int kAnyThreads = 512;
+constexpr int kAnyWarps = kAnyThreads / 32;
+constexpr int kAnyPitch = 33;     // a row's 32 lane sums, padded
+
+__global__ void __launch_bounds__(kAnyThreads)
+spectral_any_kernel(const float* __restrict__ W, const float* __restrict__ x0,
+                    float* __restrict__ v, int mo, int mi, int iters,
+                    int chunk) {
+  extern __shared__ float sm[];
+  float* xs = sm;              // the iterate, two buffers of mi
+  float* ys = sm + 2 * mi;     // W x (mo)
+  float* part = ys + mo;       // a chunk's rows' lane sums, [row][lane]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t k = blockIdx.x;
+  const float* Wk = W + k * mo * mi;
+  for (int j = t; j < mi; j += kAnyThreads) xs[j] = x0[k * mi + j];
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    const float* xc = xs + (it & 1) * mi;
+    for (int c0 = 0; c0 < mo; c0 += chunk) {
+      const int c1 = min(mo, c0 + chunk);
+      for (int r = c0 + warp; r < c1; r += kAnyWarps) {
+        const float* w = Wk + (size_t)r * mi;
+        float a = 0.0f;
+#pragma unroll 4
+        for (int c = lane; c < mi; c += 32) a = fmaf(w[c], xc[c], a);
+        part[(r - c0) * kAnyPitch + lane] = a;
+      }
+      __syncthreads();
+      for (int r = c0 + t; r < c1; r += kAnyThreads) {
+        const float* p = part + (r - c0) * kAnyPitch;
+        float s = p[0];
+#pragma unroll
+        for (int l = 1; l < 32; ++l) s += p[l];
+        ys[r] = s;
+      }
+      __syncthreads();
+    }
+    float sq = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < mi; ++c) sq = fmaf(xc[c], xc[c], sq);
+    const float inv = rsqrtf(sq);
+    float* xn = xs + ((it + 1) & 1) * mi;
+    for (int j = t; j < mi; j += kAnyThreads) {
+      float a = 0.0f;
+#pragma unroll 4
+      for (int r = 0; r < mo; ++r) a = fmaf(Wk[(size_t)r * mi + j], ys[r], a);
+      xn[j] = a * inv;
+    }
+    __syncthreads();
+  }
+  const float* xf = xs + (iters & 1) * mi;
+  float sq = 0.0f;
+  for (int c = 0; c < mi; ++c) sq = fmaf(xf[c], xf[c], sq);
+  const float norm = sqrtf(sq);
+  for (int j = t; j < mi; j += kAnyThreads) v[k * mi + j] = xf[j] / norm;
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes, size_t* done) {
   // per device and kernel: raise the dynamic shared-memory limit when a
@@ -283,4 +357,20 @@ extern "C" int spectral_launch(const void* W, const void* x0, void* v, int K,
   SPECTRAL_INSTANCES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
+}
+
+// Any (mo, mi): spectral_any_kernel, 2 mi + mo floats of shared memory and
+// the row pass's partial sums of `chunk` rows (spectral.py: any_geometry).
+extern "C" int spectral_any_launch(const void* W, const void* x0, void* v,
+                                   int K, int mo, int mi, int iters,
+                                   int chunk, void* stream) {
+  static size_t done[kMaxDevices] = {0};
+  if (K <= 0 || mo <= 0 || mi <= 0 || iters < 0 || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * mi + mo + chunk * kAnyPitch) * 4;
+  cudaError_t e = set_smem(spectral_any_kernel, smem, done);
+  if (e != cudaSuccess) return (int)e;
+  spectral_any_kernel<<<K, kAnyThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)W, (const float*)x0, (float*)v, mo, mi, iters, chunk);
+  return (int)cudaGetLastError();
 }

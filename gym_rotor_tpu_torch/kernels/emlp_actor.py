@@ -38,6 +38,14 @@ folded weights (``W_eff``, ``b_eff`` from ``project_linear``, K5; the
 nonzeros; the gates; the head) one image (``fold_actor``) that each block
 copies to shared memory.  No cuBLAS call: every product of the actor is in
 the kernel body.
+
+Actors of other dims (a config's ``actor_hidden_dim``) run
+``emlp_actor_any_kernel`` (wrappers ``emlp_actor_any``, ``sac_actor_any``,
+``ppo_actor_any``): the same steps and arithmetic with the sizes as
+arguments, the image copied to shared memory where it fits and read from
+global memory where not, the tile's vectors in a global scratch where even
+they do not fit (``any_plan``), and past 1986 gated channels the image's
+nonzeros as coordinates (``ent_scale``).
 """
 from __future__ import annotations
 
@@ -51,10 +59,13 @@ from ..models.emlp.nn import (bilinear_index, bilinear_sparse,
                                gate_indices, gated)
 from ..models.mlp import gaussian_logprob, sac_sample_with_noise
 from .build import KernelSource, check
+from .emlp_block import SMEM_LIMIT
 
 KERNEL = KernelSource("emlp_actor", [])
 WRAPPERS = {"emlp_actor": "emlp_actor_plain", "sac_actor": "sac_actor_plain",
-            "ppo_actor": "ppo_actor_plain"}
+            "ppo_actor": "ppo_actor_plain", "emlp_actor_any": "emlp_actor_plain",
+            "sac_actor_any": "sac_actor_plain",
+            "ppo_actor_any": "ppo_actor_plain"}
 HEAD_TANH, HEAD_GAUSS, HEAD_PPO = 0, 1, 2
 # Per head, the (obs dim, gated width, hidden width, action dim) of the
 # built instances: the flagship MODUL actors (agents 0 and 1) and the MONO
@@ -88,6 +99,10 @@ def _lib():
         lib.emlp_actor_geometry.restype = I
         lib.emlp_actor_smem.argtypes = [I, I, I, I, P]
         lib.emlp_actor_smem.restype = ctypes.c_longlong
+        lib.emlp_actor_any_launch.argtypes = [P, I, P, P, P, I, P, I, P, I,
+                                              F, I, I, I, I, I, I, I, P, I,
+                                              P]
+        lib.emlp_actor_any_launch.restype = I
         geo = [lib.emlp_actor_geometry(k) for k in range(3)]
         if geo != [TILE, PITCH, len(META)]:
             raise RuntimeError(f"emlp_actor: kernel geometry {geo} differs "
@@ -184,6 +199,41 @@ def actor_smem(dims, layout) -> int:
     return 4 * layout["words"] + 4 * (nin + 2 * ng + nh) * PITCH
 
 
+# Layouts forced on the run-time kernel for a check at widths that would
+# not pick them (``chip_smoke.py``'s phase 26): "plan" -> ``(stage_image,
+# tile_in_smem)`` over ``any_plan``'s, "ent_scale" -> 1 over
+# ``ent_scale``'s.  Empty in use.
+_FORCE: Dict[str, object] = {}
+
+
+def ent_scale(ng: int) -> int:
+    """What the image's nonzero words hold for gated width ``ng``: tile
+    offsets ``c * PITCH`` (scale PITCH, what the instances read) while they
+    fit 16 bits, else the coordinates ``c`` (scale 1; the run-time kernel
+    multiplies them by ``PITCH``)."""
+    if ng > 1 << 16:
+        raise ValueError(f"emlp_actor: {ng} gated channels exceed the "
+                         "image's 16-bit coordinates")
+    if "ent_scale" in _FORCE:
+        return _FORCE["ent_scale"]
+    return PITCH if (ng - 1) * PITCH < 1 << 16 else 1
+
+
+def any_plan(dims, layout):
+    """Where the run-time kernel keeps the image and the tile's vectors:
+    ``(stage_image, tile_in_smem, dynamic shared memory bytes)``: both in
+    shared memory where they fit ``SMEM_LIMIT`` together, else the tile
+    alone (the image read from global memory), else neither (the tile in
+    a global scratch, a region a block)."""
+    nin, ng, nh, _ = dims
+    tile, img = 4 * (nin + 2 * ng + nh) * PITCH, 4 * layout["words"]
+    if img + tile <= SMEM_LIMIT:
+        return True, True, img + tile
+    if tile <= SMEM_LIMIT:
+        return False, True, tile
+    return False, False, 0
+
+
 _STRUCTURE: Dict[tuple, Dict] = {}
 
 
@@ -201,7 +251,7 @@ def _structure(actor, dims, head: int, device, dtype) -> Dict:
     too."""
     blocks = [blk for _, blk in actor.named_blocks()]
     key = (tuple((hash(b.bilinear.rep), hash(b.rep_out)) for b in blocks),
-           dims, head, str(device), dtype)
+           dims, head, str(device), dtype, ent_scale(dims[1]))
     hit = _STRUCTURE.get(key)
     if hit is not None:
         return hit
@@ -214,6 +264,7 @@ def _structure(actor, dims, head: int, device, dtype) -> Dict:
         plans.append(bilinear_plan(idx["rowptr"].numpy(), W))
         nnz.append(int(idx["o"].numel()))
     layout = image_layout(dims, nnz, head)
+    sc = ent_scale(ng)
     base = np.zeros(layout["words"], np.int64)
     for b, (blk, g, (wptr, task, tptr, perm)) in enumerate(
             zip(blocks, gates, plans)):
@@ -224,10 +275,10 @@ def _structure(actor, dims, head: int, device, dtype) -> Dict:
             at = layout[f"{name}{b}"]
             base[at:at + len(arr)] = arr
         at = layout[f"ent{b}"]
-        base[at:at + 2 * len(perm):2] = (j * PITCH) << 16 | (i * PITCH)
+        base[at:at + 2 * len(perm):2] = (j * sc) << 16 | (i * sc)
     hit = _STRUCTURE[key] = dict(
         gates=[torch.as_tensor(g, device=device) for g in gates],
-        plans=plans, nnz=tuple(nnz), layout=layout,
+        plans=plans, nnz=tuple(nnz), layout=layout, mul=PITCH // sc,
         meta=(ctypes.c_int * len(META))(*[layout[n] for n in META]),
         base=torch.as_tensor(base, device=device).to(_WORD[dtype]),
         perm=[torch.as_tensor(p, device=device) for *_, p in plans])
@@ -305,7 +356,7 @@ def fold_actor(actor) -> Dict:
                   blocks=[(W, b, sp, g) for (W, b, sp), g
                           in zip(blocks, st["gates"])],
                   head=(Wh, bh), nnz=st["nnz"], plans=st["plans"],
-                  layout=lay, meta=st["meta"], image=image)
+                  layout=lay, meta=st["meta"], mul=st["mul"], image=image)
     actor._folded = (actor.param_version, folded)
     fold_actor.folds += 1
     return folded
@@ -355,14 +406,11 @@ def ppo_actor_plain(actor, obs, noise: Optional[torch.Tensor] = None):
     return _ppo_draw(*actor.dist(obs), noise, actor.max_action)
 
 
-def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
-    """One launch of the actor kernel with ``head``; returns ``(out,
-    logp)`` (``logp`` is written by the PPO head only, else None)."""
+def _operands(actor, obs, out, noise, head: int, what: str, logp):
+    """The fold and the checked operands of a launch: ``(folded, out,
+    logp)`` (``out`` and, for the PPO head, ``logp`` allocated if None)."""
     folded = fold_actor(actor)
-    nin, ng, nh, nact = dims = folded["dims"]
-    if dims not in INSTANCES[head]:
-        raise NotImplementedError(f"{what} has no kernel instance for "
-                                  f"(nin, ng, nh, nact) = {dims}")
+    nin, ng, nh, nact = folded["dims"]
     if folded["head_kind"] != head:
         raise ValueError(f"{what}: the actor's fold carries head "
                          f"{folded['head_kind']}, not {head}")
@@ -388,15 +436,60 @@ def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
     if image.device != obs.device or image.dtype != torch.int32:
         raise ValueError(f"{what}: actor weights must be float32 on the "
                          "same device as obs")
+    return folded, out, logp
+
+
+def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
+    """One launch of the actor kernel with ``head``: the instance of the
+    actor's dims; returns ``(out, logp)`` (``logp`` is written by the PPO
+    head only, else None).  ``any_wrapper`` (the run-time path's wrapper of
+    this head) runs dims without an instance and counts that launch."""
+    folded, out, logp = _operands(actor, obs, out, noise, head, what, logp)
+    nin, ng, nh, nact = folded["dims"]
     lib = _lib()
     err = lib.emlp_actor_launch(
-        obs.data_ptr(), B, image.data_ptr(), folded["meta"],
-        None if noise is None else noise.data_ptr(),
+        obs.data_ptr(), obs.shape[0], folded["image"].data_ptr(),
+        folded["meta"], None if noise is None else noise.data_ptr(),
         0 if noise is None else noise.stride(0), out.data_ptr(),
         out.stride(0), None if logp is None else logp.data_ptr(),
         0 if logp is None else logp.stride(0),
         getattr(actor, "max_action", 1.0), nin, ng, nh, nact, head,
         torch.cuda.current_stream(obs.device).cuda_stream)
+    check(err, lib, what)
+    return out, logp
+
+
+_SMS: Dict[torch.device, int] = {}
+
+
+def _launch_any(actor, obs, out, noise, head: int, what: str, logp=None):
+    """One launch of the run-time-width kernel (``emlp_actor_any_kernel``)
+    with ``head``, any dims, in ``any_plan``'s layout.  Returns ``(out,
+    logp)``."""
+    folded, out, logp = _operands(actor, obs, out, noise, head, what, logp)
+    nin, ng, nh, nact = dims = folded["dims"]
+    stage_image, tile_smem, _ = any_plan(dims, folded["layout"])
+    stage_image, tile_smem = _FORCE.get("plan", (stage_image, tile_smem))
+    dev, B = obs.device, obs.shape[0]
+    scratch, blocks = None, 0
+    if not tile_smem:
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        blocks = min(-(-B // TILE), 2 * _SMS[dev])
+        scratch = torch.empty(blocks * (nin + 2 * ng + nh) * PITCH,
+                              dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.emlp_actor_any_launch(
+        obs.data_ptr(), B, folded["image"].data_ptr(), folded["meta"],
+        None if noise is None else noise.data_ptr(),
+        0 if noise is None else noise.stride(0), out.data_ptr(),
+        out.stride(0), None if logp is None else logp.data_ptr(),
+        0 if logp is None else logp.stride(0),
+        getattr(actor, "max_action", 1.0), nin, ng, nh, nact, head,
+        folded["mul"], int(stage_image),
+        None if scratch is None else scratch.data_ptr(), blocks,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, what)
     return out, logp
 
@@ -415,12 +508,29 @@ def emlp_actor(actor, obs: torch.Tensor, out: Optional[torch.Tensor] = None):
     a column slice of the joint action tensor."""
     if not obs.is_cuda:
         return _plain_into(emlp_actor_plain(actor, obs), out)
+    if fold_actor(actor)["dims"] not in INSTANCES[HEAD_TANH]:
+        return emlp_actor_any(actor, obs, out)
     out = _launch(actor, obs, out, None, HEAD_TANH, "emlp_actor")[0]
     emlp_actor.launches += 1
     return out
 
 
 emlp_actor.launches = 0
+
+
+def emlp_actor_any(actor, obs: torch.Tensor,
+                   out: Optional[torch.Tensor] = None):
+    """``emlp_actor`` through the run-time-width kernel, what it runs for
+    an actor without an instance (called directly, any actor).  CPU
+    tensors -> ``emlp_actor_plain``."""
+    if not obs.is_cuda:
+        return _plain_into(emlp_actor_plain(actor, obs), out)
+    out = _launch_any(actor, obs, out, None, HEAD_TANH, "emlp_actor_any")[0]
+    emlp_actor_any.launches += 1
+    return out
+
+
+emlp_actor_any.launches = 0
 
 
 def sac_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
@@ -432,12 +542,30 @@ def sac_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
     error.  ``out`` as for ``emlp_actor``."""
     if not obs.is_cuda:
         return _plain_into(sac_actor_plain(actor, obs, noise), out)
+    if fold_actor(actor)["dims"] not in INSTANCES[HEAD_GAUSS]:
+        return sac_actor_any(actor, obs, noise, out)
     out = _launch(actor, obs, out, noise, HEAD_GAUSS, "sac_actor")[0]
     sac_actor.launches += 1
     return out
 
 
 sac_actor.launches = 0
+
+
+def sac_actor_any(actor, obs: torch.Tensor,
+                  noise: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None):
+    """``sac_actor`` through the run-time-width kernel (K9 at any width).
+    CPU tensors -> ``sac_actor_plain``."""
+    if not obs.is_cuda:
+        return _plain_into(sac_actor_plain(actor, obs, noise), out)
+    out = _launch_any(actor, obs, out, noise, HEAD_GAUSS,
+                      "sac_actor_any")[0]
+    sac_actor_any.launches += 1
+    return out
+
+
+sac_actor_any.launches = 0
 
 
 def ppo_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
@@ -453,12 +581,32 @@ def ppo_actor(actor, obs: torch.Tensor, noise: Optional[torch.Tensor] = None,
     if not obs.is_cuda:
         a, lp = ppo_actor_plain(actor, obs, noise)
         return _plain_into(a, out), _plain_into(lp, logp)
+    if fold_actor(actor)["dims"] not in INSTANCES[HEAD_PPO]:
+        return ppo_actor_any(actor, obs, noise, out, logp)
     res = _launch(actor, obs, out, noise, HEAD_PPO, "ppo_actor", logp)
     ppo_actor.launches += 1
     return res
 
 
 ppo_actor.launches = 0
+
+
+def ppo_actor_any(actor, obs: torch.Tensor,
+                  noise: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None,
+                  logp: Optional[torch.Tensor] = None):
+    """``ppo_actor`` through the run-time-width kernel (K11 at any width).
+    CPU tensors -> ``ppo_actor_plain``."""
+    if not obs.is_cuda:
+        a, lp = ppo_actor_plain(actor, obs, noise)
+        return _plain_into(a, out), _plain_into(lp, logp)
+    res = _launch_any(actor, obs, out, noise, HEAD_PPO, "ppo_actor_any",
+                      logp)
+    ppo_actor_any.launches += 1
+    return res
+
+
+ppo_actor_any.launches = 0
 
 
 def ppo_head_plain(pre, log_std, noise: Optional[torch.Tensor] = None,

@@ -33,6 +33,20 @@ block 1 (123 gated channels, 9394 nonzeros) at B = 256 is ~11 MFLOP
 forward, ~0.17 us at the fp32 peak; the latency of the sparse gathers
 dominates, so the kernels put a tile's 32 rows on a warp's lanes and the
 index on the warps (``csrc/emlp_block.cu`` describes the layout).
+
+The kernels above are template instances (``INSTANCES``), each staging a
+block's whole ``W_eff`` and its tiles in shared memory.  A block of any
+other ``(nin, ng, nh)`` (a config's ``critic_hidden_dim`` or
+``actor_hidden_dim``) runs the run-time-width kernels instead
+(``emlp_block_any``, ``emlp_block_backward_any``): the sizes as
+arguments, one launch a step with the vectors between steps field-major
+in global memory, ``W_eff`` streamed through shared memory in chunks, so
+no width outgrows a block; ``BlockSpec.rt_ints`` is their index and
+``rt_ranges``/``rt_per_block``/``rt_stage`` their plan.  Their forward repeats the
+instances' arithmetic, bit for bit; their g_lin sums each coordinate's
+list in one run (the instances cut it into segments), so g_lin and what
+is summed from it (g_x, g_W, g_b) agree with an instance's to the twins'
+tolerance, g_v (from g_pre) bit for bit.
 """
 from __future__ import annotations
 
@@ -49,7 +63,9 @@ from .build import KernelSource, check
 
 KERNEL = KernelSource("emlp_block", [])
 WRAPPERS = {"emlp_block": "emlp_block_plain",
-            "emlp_block_backward": "emlp_block_backward_plain"}
+            "emlp_block_backward": "emlp_block_backward_plain",
+            "emlp_block_any": "emlp_block_plain",
+            "emlp_block_backward_any": "emlp_block_backward_plain"}
 # (nin, ng, nh) of the built instances: both blocks of the flagship MODUL
 # twin Q critics (hidden 62), the first blocks of the PPO V critics (obs in;
 # their hidden blocks are the Q critics'), the actors (hidden 16 / 4), the
@@ -77,6 +93,14 @@ TILE, PITCH, FWD_WARPS, BWD_WARPS = 32, 33, 16, 16
 BLOCKS_PER_SM = 2
 SEG_MIN, GROUP_MIN_ENTRIES = 16, 64
 SMEM_TARGET, SMEM_LIMIT = 113 * 1024, 232448
+# The run-time-width kernels (any (nin, ng, nh); csrc/emlp_block.cu
+# "run-time widths"): threads a block, the forward's outputs a block of
+# rt_lin_kernel, the static shared memory of rt_lin_kernel and rt_gx_kernel
+# (bytes), the staged tile's bytes a coordinate (the gate step stages lin,
+# the list step g_pre and lin)
+RT_THREADS, RT_OUTPUTS = 256, 32
+RT_STATIC = {"lin": 32 * (PITCH + 36) * 4, "gx": 2 * 32 * TILE * 4}
+RT_TILE_BYTES = {"forward": 4 * TILE, "backward": 8 * TILE}
 
 
 def _lib():
@@ -93,10 +117,24 @@ def _lib():
         lib.emlp_block_smem.restype = ctypes.c_longlong
         lib.emlp_block_geometry.argtypes = [I]
         lib.emlp_block_geometry.restype = I
+        lib.emlp_block_rt_fwd_launch.argtypes = [P, I, P, P, P, P, I, P, I,
+                                                 I, P, P, P, I, I, I, P]
+        lib.emlp_block_rt_fwd_launch.restype = I
+        lib.emlp_block_rt_bwd_launch.argtypes = [P, P, I, P, P, P, I, P, P,
+                                                 I, I, P, P, P, P, I, I, I,
+                                                 I, P]
+        lib.emlp_block_rt_bwd_launch.restype = I
+        lib.emlp_block_rt_geometry.argtypes = [I]
+        lib.emlp_block_rt_geometry.restype = I
         if tuple(lib.emlp_block_geometry(k) for k in range(4)) != \
                 (TILE, PITCH, FWD_WARPS, BWD_WARPS):
             raise RuntimeError("emlp_block: kernel geometry differs from "
                                "the wrapper's")
+        if tuple(lib.emlp_block_rt_geometry(k) for k in range(5)) != (
+                RT_THREADS, RT_OUTPUTS, RT_TILE_BYTES["forward"],
+                RT_STATIC["lin"], RT_STATIC["gx"]):
+            raise RuntimeError("emlp_block: run-time kernels' geometry "
+                               "differs from the wrapper's")
         lib._typed = True
     return lib
 
@@ -237,6 +275,33 @@ def backward_plan(cl_ptr, rowptr, groups, warps=BWD_WARPS):
                 meta)
 
 
+def rt_atoms(gate, nh):
+    """The run-time forward's atoms ``(n_atoms, 3)``: ``(k0, k1, gate
+    coordinate)`` for a run of outputs sharing a gate coordinate past
+    ``nh``, ``(k, k + 1, -1)`` for an output gating itself."""
+    out = []
+    for k0, k1, q in atoms(gate, nh):
+        if q is None and not (k1 == k0 + 1 and gate[k0] == k0):
+            raise ValueError(f"emlp_block: outputs {k0}:{k1} are gated by "
+                             f"output {gate[k0]}")
+        out.append((k0, k1, -1 if q is None else q))
+    return np.asarray(out, np.int64).reshape(-1, 3)
+
+
+# Staging forced on the run-time path for a check at shapes that would
+# stage (``chip_smoke.py``'s phase 26 holds the global-memory tiles bitwise
+# to the staged ones): ``{kind: bool}`` over ``rt_stage``'s.  Empty in use.
+_FORCE: Dict[str, bool] = {}
+
+
+def rt_smem(dims, kind, stage):
+    """Dynamic shared memory (bytes) of the run-time path's staged launch:
+    the forward's gate step (the tile's lin) or the backward's list step
+    (its g_pre and lin), ``stage`` on; 0 off (read from global memory).
+    Its other launches have static shared memory only (``RT_STATIC``)."""
+    return RT_TILE_BYTES[kind] * dims[1] if stage else 0
+
+
 def forward_smem(dims, meta):
     """Dynamic shared memory of the forward kernel under a plan
     (the layout of ``block_fwd_kernel``)."""
@@ -324,6 +389,73 @@ class BlockSpec:
                 else backward_plan(self.lists[0], self.rowptr, groups))
         return hit
 
+    def rt_ints(self):
+        """The run-time path's index (csrc/emlp_block.cu ``RtInts``: gate,
+        rowptr, each nonzero's j, i and o, the coordinate-major lists' ptr,
+        outputs, partners and nonzeros, the gate's inverse, the atoms) as
+        one int32 tensor on this spec's device, and the atom count."""
+        hit = self._plans.get("rt_ints")
+        if hit is None:
+            o, j, i = (self.idx[k].cpu().numpy() for k in ("o", "j", "i"))
+            ptr, e, lo, partner = self.lists
+            at = rt_atoms(self.gate, self.nh)
+            flat = np.concatenate([self.gate, self.rowptr, j, i, o, ptr, lo,
+                                   partner, e, *self.ginv, at.reshape(-1)])
+            hit = self._plans["rt_ints"] = (
+                torch.as_tensor(flat.astype(np.int32), device=self.device),
+                len(at))
+        return hit
+
+    def rt_per_block(self, B, sms):
+        """Coordinates a block column of the run-time backward's list step
+        at ``B`` rows: as many columns as make about two blocks an SM over
+        the 32-row tiles, each column at least a warp's share of the
+        block."""
+        key = ("rt", B, sms)
+        hit = self._plans.get(key)
+        if hit is None:
+            warps = RT_THREADS // 32
+            cols = max(1, min(-(-2 * sms // -(-B // TILE)),
+                              -(-self.ng // warps)))
+            hit = self._plans[key] = -(-self.ng // cols)
+        return hit
+
+    def rt_ranges(self, B, sms):
+        """The run-time forward's gate step at ``B`` rows: its block
+        columns, runs of whole atoms of about equal work (each atom's and
+        its gate's nonzeros, and one), as many as make about two blocks an
+        SM over the 32-row tiles; per column ``(k0, k1, q0, q1)``, its
+        outputs and its gate coordinates (contiguous: the gates follow
+        their atoms), as an int32 tensor on this spec's device."""
+        key = ("rt_ranges", B, sms)
+        hit = self._plans.get(key)
+        if hit is None:
+            at = rt_atoms(self.gate, self.nh)
+            nnz = np.diff(self.rowptr)
+            w = [nnz[k0:k1].sum() + (nnz[g] if g >= 0 else 0) + 1
+                 for k0, k1, g in at]
+            cb = _split(w, max(1, min(-(-2 * sms // -(-B // TILE)),
+                                      len(at))))
+            out = []
+            for a0, a1 in zip(cb[:-1], cb[1:]):
+                run = at[a0:a1]
+                g = run[:, 2][run[:, 2] >= 0]
+                q0 = int(g[0]) if len(g) else self.nh
+                if not np.array_equal(g, np.arange(q0, q0 + len(g))):
+                    raise ValueError("emlp_block: gate coordinates do not "
+                                     "follow their atoms")
+                out.append((run[0, 0], run[-1, 1], q0, q0 + len(g)))
+            hit = self._plans[key] = torch.as_tensor(
+                np.asarray(out, np.int32), device=self.device)
+        return hit
+
+    def rt_stage(self, kind):
+        """Whether the run-time path stages ``kind``'s tiles in shared
+        memory (they fit a block's limit)."""
+        if kind in _FORCE:
+            return _FORCE[kind]
+        return rt_smem(self.dims, kind, True) <= SMEM_LIMIT
+
     def plan_args(self, kind, groups):
         """``kind``'s plan as its kernel takes it: one int32 tensor on this
         spec's device and the host ``meta`` array."""
@@ -401,9 +533,6 @@ def _check(name, t, shape, device):
 
 
 def _check_spec(spec: BlockSpec, x):
-    if spec.dims not in INSTANCES:
-        raise NotImplementedError(f"emlp_block has no kernel instance for "
-                                  f"(nin, ng, nh) = {spec.dims}")
     if spec.ints.device != x.device:
         raise ValueError("emlp_block: block spec is on another device")
     if x.shape[0] <= 0:
@@ -427,6 +556,8 @@ def emlp_block(spec: BlockSpec, x, W, b, v, save: bool = True):
     per ``(dims, rows, save)``."""
     if not x.is_cuda:
         return emlp_block_plain(spec, x, W, b, v, save)
+    if spec.dims not in INSTANCES:
+        return emlp_block_any(spec, x, W, b, v, save)
     _check_spec(spec, x)
     B, dev = x.shape[0], x.device
     nin, ng, nh = spec.dims
@@ -465,6 +596,9 @@ def emlp_block_backward(spec: BlockSpec, g_h, x, W, v, lin, pre,
     if not x.is_cuda:
         return emlp_block_backward_plain(spec, g_h, x, W, v, lin, pre,
                                          need_params)
+    if spec.dims not in INSTANCES:
+        return emlp_block_backward_any(spec, g_h, x, W, v, lin, pre,
+                                       need_params)
     _check_spec(spec, x)
     B, dev = x.shape[0], x.device
     nin, ng, nh = spec.dims
@@ -498,6 +632,93 @@ def emlp_block_backward(spec: BlockSpec, g_h, x, W, v, lin, pre,
 
 emlp_block_backward.launches = 0
 emlp_block_backward.by_shape = Counter()
+
+
+def emlp_block_any(spec: BlockSpec, x, W, b, v, save: bool = True):
+    """Block forward through the run-time-width kernels, what
+    ``emlp_block`` runs for a block without an instance (any ``(nin, ng,
+    nh)``; called directly, any block).  CPU tensors ->
+    ``emlp_block_plain``; CUDA tensors -> one call (the linear step, then
+    the bilinear and gate step), or an error; the tile's lin staged in
+    shared memory where it fits (``rt_stage``).  Returns ``(h, lin,
+    pre)`` as ``emlp_block`` (without ``save`` the steps' lin and pre are
+    scratch, not returned); ``by_shape`` counts per ``(dims, rows,
+    save)``."""
+    if not x.is_cuda:
+        return emlp_block_plain(spec, x, W, b, v, save)
+    _check_spec(spec, x)
+    B, dev = x.shape[0], x.device
+    nin, ng, nh = spec.dims
+    for name, t, shape in (("x", x, (B, nin)), ("W_eff", W, (ng, nin)),
+                           ("b_eff", b, (ng,)), ("v", v, (spec.nnz,))):
+        _check(name, t, shape, dev)
+    ints = spec.rt_ints()[0]
+    ranges = spec.rt_ranges(B, _sms(dev))
+    stage = spec.rt_stage("forward")
+    f32 = dict(dtype=torch.float32, device=dev)
+    h, lin = torch.empty(B, nh, **f32), torch.empty(ng, B, **f32)
+    pre = torch.empty(ng, B, **f32)
+    lib = _lib()
+    err = lib.emlp_block_rt_fwd_launch(
+        x.data_ptr(), B, W.data_ptr(), b.data_ptr(), v.data_ptr(),
+        ints.data_ptr(), spec.nnz, ranges.data_ptr(), ranges.shape[0],
+        int(stage), h.data_ptr(), lin.data_ptr(), pre.data_ptr(), nin, ng,
+        nh, torch.cuda.current_stream(dev).cuda_stream)
+    check(err, lib, "emlp_block_any forward")
+    emlp_block_any.launches += 1
+    emlp_block_any.by_shape[(spec.dims, B, bool(save))] += 1
+    return (h, lin, pre) if save else (h, None, None)
+
+
+emlp_block_any.launches = 0
+emlp_block_any.by_shape = Counter()
+
+
+def emlp_block_backward_any(spec: BlockSpec, g_h, x, W, v, lin, pre,
+                            need_params: bool):
+    """Block backward through the run-time-width kernels (g_pre, g_lin,
+    g_x, and with ``need_params`` the parameter sums), what
+    ``emlp_block_backward`` runs for a block without an instance.  CPU
+    tensors -> ``emlp_block_backward_plain``.  The list step stages the
+    tile's g_pre and lin in shared memory where they fit (``rt_stage``).
+    ``by_shape`` counts per ``(dims, rows,
+    need_params)``."""
+    if not x.is_cuda:
+        return emlp_block_backward_plain(spec, g_h, x, W, v, lin, pre,
+                                         need_params)
+    _check_spec(spec, x)
+    B, dev = x.shape[0], x.device
+    nin, ng, nh = spec.dims
+    for name, t, shape in (("x", x, (B, nin)), ("g_h", g_h, (B, nh)),
+                           ("W_eff", W, (ng, nin)), ("v", v, (spec.nnz,)),
+                           ("lin", lin, (ng, B)), ("pre", pre, (ng, B))):
+        _check(name, t, shape, dev)
+    ints, _ = spec.rt_ints()
+    per = spec.rt_per_block(B, _sms(dev))
+    stage = spec.rt_stage("backward")
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_par = ng * nin + ng + spec.nnz
+    gpre, glin = torch.empty(ng, B, **f32), torch.empty(ng, B, **f32)
+    g_x = torch.empty(B, nin, **f32)
+    g_par = torch.empty(n_par if need_params else 1, **f32)
+    lib = _lib()
+    err = lib.emlp_block_rt_bwd_launch(
+        g_h.data_ptr(), x.data_ptr(), B, W.data_ptr(), v.data_ptr(),
+        ints.data_ptr(), spec.nnz, lin.data_ptr(), pre.data_ptr(), per,
+        int(stage), gpre.data_ptr(), glin.data_ptr(), g_x.data_ptr(),
+        g_par.data_ptr(), int(need_params), nin, ng, nh,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, lib, "emlp_block_backward_any")
+    emlp_block_backward_any.launches += 1
+    emlp_block_backward_any.by_shape[(spec.dims, B, bool(need_params))] += 1
+    if not need_params:
+        return g_x, None, None, None
+    g_W = g_par[:ng * nin].view(ng, nin)
+    return g_x, g_W, g_par[ng * nin:ng * nin + ng], g_par[ng * nin + ng:]
+
+
+emlp_block_backward_any.launches = 0
+emlp_block_backward_any.by_shape = Counter()
 
 
 class EMLPBlockFn(torch.autograd.Function):

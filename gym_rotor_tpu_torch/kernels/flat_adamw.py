@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.so3 import sqrt_rn
 from .build import KernelSource, check
 
 KERNEL = KernelSource("flat_adamw", ["-fmad=false"])
@@ -108,11 +109,11 @@ def flat_adamw_plain(p, g, mu, nu, s: StepScalars,
     """The chain in optax's order, updating ``p``, ``mu``, ``nu`` (and
     ``target``) in place."""
     if s.max_norm is not None:
-        norm = torch.sqrt(torch.sum(g * g))
+        norm = sqrt_rn(torch.sum(g * g))
         g = torch.where(norm < s.max_norm, g, (g / norm) * s.max_norm)
     mu.copy_((1 - s.b1) * g + s.b1 * mu)
     nu.copy_((1 - s.b2) * (g * g) + s.b2 * nu)
-    u = (mu / s.bc1) / (torch.sqrt(nu / s.bc2) + s.eps)
+    u = (mu / s.bc1) / (sqrt_rn(nu / s.bc2) + s.eps)
     u = u + s.wd * p
     p.copy_(p + s.step * u)
     if target is not None:

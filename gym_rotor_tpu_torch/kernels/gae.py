@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.so3 import sqrt_rn
 from .build import KernelSource, check
 
 KERNEL = KernelSource("gae", ["-fmad=false"])
@@ -156,7 +157,7 @@ def normalize_plain(advs):
     m = advs.mean()
     n = advs.numel()
     var = torch.mean((advs - m) ** 2)
-    std = torch.sqrt(var * n / max(n - 1, 1))
+    std = sqrt_rn(var * n / max(n - 1, 1))
     return (advs - m) / (std + 1e-4)
 
 

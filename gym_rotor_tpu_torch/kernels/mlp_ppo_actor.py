@@ -19,7 +19,9 @@ stages the weights, read from the bound parameter tensors each call (views
 of the learner's flat vector, so nothing to re-key when the optimizer
 writes them), and its rows' obs in shared memory; the hidden units split
 over the row's lanes, exchanged through shared memory; every dot product
-in one fixed order.
+in one fixed order.  Other widths (a config's ``actor_hidden_dim``) run
+the run-time-width kernel (``mlp_ppo_actor_any``), the MLP SAC actor's
+design: 8 rows a block, the weights read from global memory.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from .build import KernelSource, check
 from .emlp_actor import _plain_into, ppo_head_plain
 
 KERNEL = KernelSource("mlp_ppo_actor", ["-fmad=false"])
-WRAPPERS = {"mlp_ppo_actor": "mlp_ppo_actor_plain"}
+WRAPPERS = {"mlp_ppo_actor": "mlp_ppo_actor_plain",
+            "mlp_ppo_actor_any": "mlp_ppo_actor_plain"}
 # (obs dim, hidden width, action dim) of the built instances: the MODUL
 # actors (agents 0 and 1) and the MONO actor
 INSTANCES = {(15, 16, 4), (3, 4, 1), (23, 16, 4)}
@@ -49,6 +52,9 @@ def _lib():
         lib.mlp_ppo_actor_launch.argtypes = [P, I, I, I, I] + [P] * 8 \
             + [I, P, I, P, I, F, P]
         lib.mlp_ppo_actor_launch.restype = I
+        lib.mlp_ppo_actor_any_launch.argtypes = \
+            lib.mlp_ppo_actor_launch.argtypes
+        lib.mlp_ppo_actor_any_launch.restype = I
         lib._typed = True
     return lib
 
@@ -67,25 +73,10 @@ def mlp_ppo_actor_plain(actor, obs, noise: Optional[torch.Tensor] = None):
     return ppo_head_plain(pre, actor.log_std, noise, actor.max_action)
 
 
-def mlp_ppo_actor(actor, obs: torch.Tensor,
-                  noise: Optional[torch.Tensor] = None,
-                  out: Optional[torch.Tensor] = None,
-                  logp: Optional[torch.Tensor] = None):
-    """The acting draw of an MLP ``ActorPPO``: ``(action, per-dim
-    log-prob)``, both ``(B, act)``, with the N(0, 1) draw ``noise``, or
-    ``(clip(tanh(mean)), zeros)`` when ``noise`` is None (eval).  CPU
-    tensors -> ``mlp_ppo_actor_plain``; CUDA tensors -> one kernel launch
-    (float32), or an error.  ``out`` and ``logp`` (unit column stride, any
-    row stride) receive the results in place: a column slice of the joint
-    action and of the horizon's log-prob rows."""
-    if not obs.is_cuda:
-        a, lp = mlp_ppo_actor_plain(actor, obs, noise)
-        return _plain_into(a, out), _plain_into(lp, logp)
-    dims = actor_dims(actor)
-    nin, nh, nact = dims
-    if dims not in INSTANCES:
-        raise NotImplementedError(f"mlp_ppo_actor has no kernel instance for "
-                                  f"(nin, nh, nact) = {dims}")
+def _launch(entry: str, actor, obs, noise, out, logp):
+    """One launch of ``entry`` (the instances' or the run-time widths'
+    launcher) on checked operands; returns ``(out, logp)``."""
+    nin, nh, nact = actor_dims(actor)
     B, dev = obs.shape[0], obs.device
     if obs.dtype != torch.float32 or obs.shape != (B, nin) \
             or not obs.is_contiguous() or B == 0:
@@ -112,15 +103,54 @@ def mlp_ppo_actor(actor, obs: torch.Tensor,
                              f"{nact}) tensor with unit column stride on "
                              f"{dev}")
     lib = _lib()
-    err = lib.mlp_ppo_actor_launch(
+    err = getattr(lib, entry)(
         obs.data_ptr(), B, nin, nh, nact, *(t.data_ptr() for t in weights),
         None if noise is None else noise.data_ptr(),
         0 if noise is None else noise.stride(0), out.data_ptr(),
         out.stride(0), logp.data_ptr(), logp.stride(0),
         float(actor.max_action), torch.cuda.current_stream(dev).cuda_stream)
-    check(err, lib, "mlp_ppo_actor")
-    mlp_ppo_actor.launches += 1
+    check(err, lib, entry)
     return out, logp
 
 
+def mlp_ppo_actor(actor, obs: torch.Tensor,
+                  noise: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None,
+                  logp: Optional[torch.Tensor] = None):
+    """The acting draw of an MLP ``ActorPPO``: ``(action, per-dim
+    log-prob)``, both ``(B, act)``, with the N(0, 1) draw ``noise``, or
+    ``(clip(tanh(mean)), zeros)`` when ``noise`` is None (eval).  CPU
+    tensors -> ``mlp_ppo_actor_plain``; CUDA tensors -> one kernel launch
+    (float32): the instance of the actor's widths, else the run-time
+    widths' kernel (``mlp_ppo_actor_any``), or an error.  ``out`` and
+    ``logp`` (unit column stride, any row stride) receive the results in
+    place: a column slice of the joint action and of the horizon's
+    log-prob rows."""
+    if not obs.is_cuda:
+        a, lp = mlp_ppo_actor_plain(actor, obs, noise)
+        return _plain_into(a, out), _plain_into(lp, logp)
+    if actor_dims(actor) not in INSTANCES:
+        return mlp_ppo_actor_any(actor, obs, noise, out, logp)
+    res = _launch("mlp_ppo_actor_launch", actor, obs, noise, out, logp)
+    mlp_ppo_actor.launches += 1
+    return res
+
+
 mlp_ppo_actor.launches = 0
+
+
+def mlp_ppo_actor_any(actor, obs: torch.Tensor,
+                      noise: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None,
+                      logp: Optional[torch.Tensor] = None):
+    """``mlp_ppo_actor`` through the run-time-width kernel (any widths;
+    called directly, any actor).  CPU tensors -> ``mlp_ppo_actor_plain``."""
+    if not obs.is_cuda:
+        a, lp = mlp_ppo_actor_plain(actor, obs, noise)
+        return _plain_into(a, out), _plain_into(lp, logp)
+    res = _launch("mlp_ppo_actor_any_launch", actor, obs, noise, out, logp)
+    mlp_ppo_actor_any.launches += 1
+    return res
+
+
+mlp_ppo_actor_any.launches = 0

@@ -17,7 +17,11 @@ register-resident pieces of it a thread (a row pass for ``y = W x``, whose
 lanes' shares go to shared memory, and a column pass for ``x = Wᵀ y /
 |x|`` with a butterfly over a column's lanes), each pass one barrier, every
 sum in a fixed order; the instance is chosen by the padded shape
-(``INSTANCES``).  ``csrc/spectral.cu`` has the details.
+(``INSTANCES``).  ``csrc/spectral.cu`` has the details.  Stacks past the
+instances' 128 x 128 (critics from ``critic_hidden_dim`` ~64 up) run the
+run-time-width kernel (``spectral_iterate_any``): W read from global
+memory (L2) on each matvec, a warp a row (the lanes' sums added in lane
+order) and a thread a column.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ import ctypes
 import torch
 
 from .build import KernelSource, check
+from .emlp_block import SMEM_LIMIT
 
 KERNEL = KernelSource("spectral", [])
-WRAPPERS = {"spectral_iterate": "spectral_iterate_plain"}
+WRAPPERS = {"spectral_iterate": "spectral_iterate_plain",
+            "spectral_iterate_any": "spectral_iterate_plain"}
 ITERS = 10
 # The kernel's instances, smallest first: matrices of at most MO x MI, CA
 # lanes a row in the row pass, RB lanes a column in the column pass, MO * CA
@@ -62,6 +68,8 @@ def _lib():
         lib.spectral_launch.restype = I
         lib.spectral_geometry.argtypes = [I, I, P]
         lib.spectral_geometry.restype = ctypes.c_longlong
+        lib.spectral_any_launch.argtypes = [P, P, P, I, I, I, I, I, P]
+        lib.spectral_any_launch.restype = I
         lib._typed = True
     return lib
 
@@ -77,34 +85,74 @@ def spectral_iterate_plain(Ws: torch.Tensor, x: torch.Tensor,
     return x
 
 
+# the run-time kernel's partial sums: a row's 32 lanes at this pitch
+ANY_PITCH = 33
+
+
+def any_geometry(mo: int, mi: int):
+    """``(chunk, shared memory bytes)`` of a run-time-width launch
+    (``spectral_any_launch``): two buffers of x, y, and the row pass's
+    lane sums of ``chunk`` rows, as many rows as fit beside them (all
+    ``mo`` where they fit)."""
+    fixed = 4 * (2 * mi + mo)
+    chunk = max(1, min(mo, (SMEM_LIMIT - fixed) // (4 * ANY_PITCH)))
+    return chunk, fixed + 4 * ANY_PITCH * chunk
+
+
+def _checked(Ws, x, what):
+    K, mo, mi = Ws.shape
+    dev = Ws.device
+    for name, t, shape in (("Ws", Ws, (K, mo, mi)), ("x", x, (K, mi))):
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"float32 {shape} tensor on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return K, mo, mi, torch.empty(K, mi, dtype=torch.float32, device=dev)
+
+
 def spectral_iterate(Ws: torch.Tensor, x: torch.Tensor,
                      iters: int = ITERS) -> torch.Tensor:
     """The detached power-iteration iterate ``v`` (K, mi) of the padded
     stack ``Ws`` (K, mo, mi) from the start vectors ``x`` (K, mi).  CPU
     tensors -> ``spectral_iterate_plain``; CUDA tensors -> one launch
-    (float32), or an error."""
+    (float32) of the instance that fits, else of the run-time-width
+    kernel (``spectral_iterate_any``), or an error."""
     Ws, x = Ws.detach(), x.detach()
     if not Ws.is_cuda:
         return spectral_iterate_plain(Ws, x, iters)
-    K, mo, mi = Ws.shape
-    dev = Ws.device
-    if instance(mo, mi) is None:
-        raise NotImplementedError(f"spectral_iterate has no kernel instance "
-                                  f"for ({mo}, {mi}) matrices")
-    for name, t, shape in (("Ws", Ws, (K, mo, mi)), ("x", x, (K, mi))):
-        if t.device != dev or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"spectral_iterate: {name} must be a contiguous "
-                             f"float32 {shape} tensor on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    v = torch.empty(K, mi, dtype=torch.float32, device=dev)
+    if instance(*Ws.shape[1:]) is None:
+        return spectral_iterate_any(Ws, x, iters)
+    K, mo, mi, v = _checked(Ws, x, "spectral_iterate")
     lib = _lib()
     err = lib.spectral_launch(Ws.data_ptr(), x.data_ptr(), v.data_ptr(), K,
                               mo, mi, iters,
-                              torch.cuda.current_stream(dev).cuda_stream)
+                              torch.cuda.current_stream(Ws.device).cuda_stream)
     check(err, lib, "spectral_iterate")
     spectral_iterate.launches += 1
     return v
 
 
 spectral_iterate.launches = 0
+
+
+def spectral_iterate_any(Ws: torch.Tensor, x: torch.Tensor,
+                         iters: int = ITERS) -> torch.Tensor:
+    """``spectral_iterate`` through the run-time-width kernel (any (mo,
+    mi); called directly, any stack).  CPU tensors ->
+    ``spectral_iterate_plain``."""
+    Ws, x = Ws.detach(), x.detach()
+    if not Ws.is_cuda:
+        return spectral_iterate_plain(Ws, x, iters)
+    K, mo, mi, v = _checked(Ws, x, "spectral_iterate_any")
+    lib = _lib()
+    err = lib.spectral_any_launch(
+        Ws.data_ptr(), x.data_ptr(), v.data_ptr(), K, mo, mi, iters,
+        any_geometry(mo, mi)[0],
+        torch.cuda.current_stream(Ws.device).cuda_stream)
+    check(err, lib, "spectral_iterate_any")
+    spectral_iterate_any.launches += 1
+    return v
+
+
+spectral_iterate_any.launches = 0

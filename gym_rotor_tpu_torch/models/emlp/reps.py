@@ -183,15 +183,43 @@ def uniform_rep(ch: int, G: Group) -> SumRep:
 # ----------------------------------------------------------------------------
 def _nullspace(C: np.ndarray) -> np.ndarray:
     """Orthonormal null-space basis (reps/utils.py:87-91): right singular
-    vectors with sigma <= 1e-5; returns (n, r)."""
+    vectors with sigma <= 1e-5; returns (n, r).  Memoised on C's bytes: a
+    wide hidden rep repeats few distinct constraint matrices."""
     if C.shape[0] == 0:
         return np.eye(C.shape[1])
-    U, S, VH = np.linalg.svd(C, full_matrices=True)
-    rank = int((S > NULLSPACE_TOL).sum())
-    return VH[rank:].conj().T
+    ck = (C.shape, C.tobytes())
+    B = _NULL_CACHE.get(ck)
+    if B is None:
+        U, S, VH = np.linalg.svd(C, full_matrices=True)
+        rank = int((S > NULLSPACE_TOL).sum())
+        B = _NULL_CACHE[ck] = VH[rank:].conj().T
+    return B
 
 
 _PAIR_CACHE: Dict[tuple, np.ndarray] = {}
+_NULL_CACHE: Dict[tuple, np.ndarray] = {}
+_ACTION_CACHE: Dict[tuple, tuple] = {}
+
+
+def _actions(atom: Atom, G: Group):
+    """The atom's drho(A) for each Lie generator of ``G`` and (rho(h),
+    rho(h)^{-T}) for each discrete one (zero / identity where ``G`` is not
+    its group), made once per (atom type, group): a Mirror rank-r atom's
+    actions are r-long kron chains, and critic 256's hidden rep holds
+    ranks 0 .. 255."""
+    ck = (atom.key(), G.key())
+    hit = _ACTION_CACHE.get(ck)
+    if hit is None:
+        n = atom.size
+        acts = G == atom.G
+        lie = [atom.drho(A) if acts else np.zeros((n, n))
+               for A in G.lie_algebra]
+        disc = []
+        for h in G.discrete_generators:
+            r = atom.rho(h) if acts else np.eye(n)
+            disc.append((r, np.linalg.inv(r).T))
+        hit = _ACTION_CACHE[ck] = (lie, disc)
+    return hit
 
 
 def pair_basis(atom_out: Atom, atom_in: Atom) -> np.ndarray:
@@ -213,16 +241,11 @@ def pair_basis(atom_out: Atom, atom_in: Atom) -> np.ndarray:
         groups.append(atom_in.G)
     rows = []
     for G in groups:
-        acts_out = G == atom_out.G
-        acts_in = G == atom_in.G
-        for A in G.lie_algebra:
-            dro = atom_out.drho(A) if acts_out else np.zeros((no, no))
-            dri = atom_in.drho(A) if acts_in else np.zeros((ni, ni))
+        lie_o, disc_o = _actions(atom_out, G)
+        lie_i, disc_i = _actions(atom_in, G)
+        for dro, dri in zip(lie_o, lie_i):
             rows.append(np.kron(dro, Ii) - np.kron(Io, dri.T))
-        for h in G.discrete_generators:
-            ro = atom_out.rho(h) if acts_out else Io
-            ri = atom_in.rho(h) if acts_in else Ii
-            ri_invT = np.linalg.inv(ri).T
+        for (ro, _), (_, ri_invT) in zip(disc_o, disc_i):
             rows.append(np.kron(ro, ri_invT) - np.eye(no * ni))
     C = np.concatenate(rows, axis=0) if rows else np.zeros((0, no * ni))
     B = _nullspace(C)

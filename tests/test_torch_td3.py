@@ -61,7 +61,9 @@ AGENTS = [0, 1]
 
 
 def _cfgs(**kw):
-    return JConfig(**NARROW, **kw), TConfig(**NARROW, **kw)
+    """The JAX and port configs: ``NARROW``, ``kw`` taking precedence."""
+    kw = {**NARROW, **kw}
+    return JConfig(**kw), TConfig(**kw)
 
 
 def _t(a, dtype=None):
