@@ -283,6 +283,29 @@ result line):
                 --critic_hidden_dim 256`` (1 warm + 3 train supersteps, 3
                 evals); one record per run-time wrapper (its launches over
                 those runs, times at the slice's shapes)
+ 27. data-parallel training over a process group (``phase_multi``),
+                each group in child processes (``--multi-child``): K12's
+                sharded route (``gae_sharded``, launches A, B, C) bitwise
+                the one launch at world 1 and within 1e-5 max(1, max abs)
+                of its twin at PPO A's and B's horizons at 2 ranks, (218,
+                16) and (50, 2048), and at the launch plan's modes, and
+                on each of the two ``gloo`` ranks below, at those shapes
+                over the group, within the same tolerance of its twin
+                reduced on the host; an
+                ``nccl`` group of one rank: the flagship TD3 (1 warm + 6)
+                and PPO B (2) bitwise the one-device path, the
+                all-reduces a 2-rank TD3 superstep makes timed on it; two
+                ``gloo`` ranks on the one card: TD3 (2048 envs a rank),
+                SAC with the temperature tuned (1 warm + 3) and PPO B (2),
+                each rank's exact launches (a one-device run at half the
+                envs, PPO's K12 through the sharded route) and
+                all-reduces (one a flat gradient, one for the metrics)
+                per superstep, every replicated tensor bitwise equal
+                across the ranks after each superstep, SAC's
+                ``log_alpha`` per rank; ``python -m torch.distributed.run
+                --nproc_per_node 1 -m gym_rotor_tpu_torch.train`` training,
+                evaluating and checkpointing; one record per sharded K12
+                launch
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -320,8 +343,8 @@ T0 = time.perf_counter()
 def log(phase, **kv):
     kv["t_s"] = round(time.perf_counter() - T0, 1)
     if phase in ("rollout", "eval", "train", "sac_train", "ppo_train",
-                 "kernels", "mlp_nets", "driver") or phase.startswith(("train_",
-                                                              "eval_")):
+                 "kernels", "mlp_nets", "driver") or phase.startswith(
+                     ("train_", "eval_", "multi")):
         kv["card"] = CARD
     print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
 
@@ -6061,6 +6084,546 @@ def widths_resources(dev):
         raise AssertionError(f"run-time widths' resources: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: data-parallel training over a process group
+# ---------------------------------------------------------------------------
+GAE_SHARDED_SHAPES = ((218, 16), (50, B // 2))   # PPO A and B at 2 ranks
+GAE_SHARDED_EDGES = ((1, 7), (218, 32), (50, B), (7000, 32), (7000, 257),
+                     (50, 257))
+MULTI_TD3 = (1, 6)           # warm, train supersteps of the flagship
+MULTI_SAC = (1, 3)
+MULTI_PPO = 2                # PPO B supersteps
+MULTI_TIMEOUT = 900          # seconds a child group may take
+
+
+def gae_sharded_checks(dev):
+    """Phase 27 (c): K12's sharded route (``gae_sharded``, three launches)
+    at world 1 on the card: at ``GAE_SHARDED_SHAPES`` (PPO A's and B's
+    horizons at 2 ranks) and ``GAE_SHARDED_EDGES`` (one CTA, a cluster, the
+    grid, tiles streamed) bitwise the one-launch K12 (its sums run in
+    K12's order), a rerun bitwise, and within 1e-5 max(1, max |plain|) of
+    the plain twin ``gae_sharded_plain`` on the CPU.  Returns the worst
+    error."""
+    from gym_rotor_tpu_torch.kernels import gae as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config()
+    g, lam = cfg.discount, cfg.GAE_lambda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    worst, bad = 0.0, []
+    for T, nb in GAE_SHARDED_SHAPES + GAE_SHARDED_EDGES:
+        x = _gae_inputs(T, nb, gen, dev)
+        one = K.gae(*x, g, lam)
+        sh = K.gae_sharded(*x, g, lam)
+        sh2 = K.gae_sharded(*x, g, lam)
+        plain = K.gae_sharded_plain(*(t.cpu() for t in x), g, lam)
+        errs = {"advantages": _err(sh[0].cpu(), plain[0], 1e-5),
+                "td": _err(sh[1].cpu(), plain[1], 1e-5)}
+        same = _bitwise(list(one), list(sh))
+        rerun = _bitwise(list(sh), list(sh2))
+        worst = max([worst] + [e[0] for e in errs.values()])
+        log("multi_gae", T=T, envs=nb, plan=list(K.gae_plan(T, nb)),
+            bitwise_one_launch=same, rerun_bitwise=rerun,
+            max_abs_err={k: e[0] for k, e in errs.items()})
+        bad += [(T, nb, k, e[0]) for k, e in errs.items()
+                if not (e[0] <= e[1] and e[2])]
+        if not (same and rerun):
+            bad.append((T, nb, "bitwise", same, rerun))
+    if bad:
+        raise AssertionError(f"gae_sharded disagrees: {bad}")
+    return worst
+
+
+def gae_sharded_records(dev, err, launches):
+    """One record per launch of the sharded route (A ``mean``, B ``var``,
+    C ``norm``) at PPO B's horizon at 2 ranks, the one the gloo run
+    launched (``launches`` by stage), its times logged at PPO A's too:
+    device time, the plain torch's time of the same step, the bound
+    (bytes: A reads 4 and writes 2 floats an entry, B reads 1, C reads
+    and writes 1)."""
+    from gym_rotor_tpu_torch.kernels import gae as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config()
+    g, lam = cfg.discount, cfg.GAE_lambda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    work = {"mean": (24, 14), "var": (4, 3), "norm": (8, 2)}
+    inst = {s: [] for s in K.SHARDED_STAGES}
+    for T, nb in GAE_SHARDED_SHAPES:
+        x = _gae_inputs(T, nb, gen, dev)
+        adv, td = torch.empty_like(x[0]), torch.empty_like(x[0])
+        mean, var = (torch.empty(1, device=dev) for _ in range(2))
+        plan = K.gae_plan(T, nb)
+        N = 2 * T * nb
+        raw = K._scan_plain(*x, g, lam)
+        m, v2 = raw.mean(), torch.mean((raw - raw.mean()) ** 2)
+        plain = {
+            "mean": lambda: K._scan_plain(*x, g, lam).mean(),
+            "var": lambda: torch.mean((raw - m) ** 2),
+            "norm": lambda: (raw - m) / (torch.sqrt(v2 * N / (N - 1))
+                                         + 1e-4)}
+        for stage in K.SHARDED_STAGES:
+            def run(stage=stage):
+                K.sharded_launch(stage, *x, g, lam, adv, td, mean, var, plan,
+                                 2)
+            if stage == "norm":
+                K.sharded_launch("mean", *x, g, lam, adv, td, mean, var,
+                                 plan, 2)
+                K.sharded_launch("var", *x, g, lam, adv, td, mean, var,
+                                 plan, 2)
+            k_ms, k_wall = device_ms(run, 100)
+            p_ms, _ = device_ms(plain[stage], 3 if stage == "mean" else 50,
+                                3)
+            by_bytes, flops = work[stage]
+            bms, by = bound_ms(by_bytes * T * nb, flops * T * nb)
+            if nb == B // 2:
+                inst[stage].append((1, k_ms, p_ms, bms, by, None))
+            log("kernels", kernel=f"gae_sharded_{stage}", T=T, envs=nb,
+                plan=list(plan), ms=k_ms, wall_ms_per_call=k_wall,
+                plain_ms=p_ms, bytes=by_bytes * T * nb, bound_ms=bms,
+                bound_by=by, library_ms=None)
+    return [_record(f"gae_sharded_{s}", "gae.cu",
+                    "gym_rotor_tpu/algos/ppo.py:136", launches.get(s, 0),
+                    err, inst[s]) for s in K.SHARDED_STAGES]
+
+
+def _local_cfg(cfg, world):
+    """``cfg`` as one rank of ``world`` sees its sizes: a one-device run
+    at ``num_envs / world`` envs (PPO: the same ticks a horizon), its
+    ring and batch split likewise."""
+    kw = dict(num_envs=cfg.num_envs // world,
+              batch_size=max(cfg.batch_size // world, 1),
+              replay_buffer_size=cfg.replay_buffer_size // world)
+    if cfg.rl_algo == "PPO":
+        kw["T_horizon"] = cfg.T_horizon // world
+    return cfg.replace(**kw)
+
+
+def _multi_expected(cfg, local, agents, dev, i, warm, mesh):
+    """One rank's launches, K3/K4 shapes and all-reduces in superstep
+    ``i`` (0 the first): a one-device superstep at ``local``'s sizes; PPO's
+    K12 through the sharded route over a sharded ``mesh``."""
+    n = cfg.n_agents
+    if cfg.rl_algo == "PPO":
+        want, fwd, bwd = expected_launches_ppo(local, agents, dev, i == 0)
+        rl, T, na, mba, nc, mbc = _ppo_dims(local)
+        ars = n * (cfg.K_epochs * (na + nc) + 2) + 1
+        if mesh.sharded:
+            del want["gae"]
+            want["gae_sharded"] = 3 * n
+        return want, fwd, bwd, ars
+    if cfg.rl_algo == "SAC":
+        want = expected_launches_sac(local, warm)
+        fwd, bwd = ((Counter(), Counter()) if warm else
+                    expected_sac_shapes(local, agents, dev))
+        ars = 1 if warm else 2 * n + 1
+    else:
+        gated = not warm and i % cfg.policy_update_freq == 0
+        want = expected_launches(local, warm, gated)
+        fwd, bwd = ((Counter(), Counter()) if warm else
+                    expected_td3_shapes(local, agents, dev, gated))
+        ars = 1 if warm else n * (2 if gated else 1) + 1
+    if i == 0:
+        want["env_tick"] += 1          # the learner's batched reset
+    return want, fwd, bwd, ars
+
+
+class _AllReduces:
+    """Counts ``torch.distributed.all_reduce`` calls and their wall time
+    (synchronised before and after each) while active."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.orig = dist, dist.all_reduce
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        self.dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+
+
+MULTI_RUNS = (("td3", {}, MULTI_TD3),
+              ("sac", dict(rl_algo="SAC", automatic_entropy_tuning=True),
+               MULTI_SAC),
+              ("ppo_b", None, (0, MULTI_PPO)))
+
+
+def _multi_cfg(kw):
+    from gym_rotor_tpu_torch.utils.config import PPO_CONFIGS, Config
+    if kw is None:
+        return Config(**PPO_CONFIGS["B"])
+    return Config(num_envs=B, start_timesteps=B, **kw)
+
+
+def _learner_leaves(L, rank_local=True):
+    """A learner's tensors by name: its agents' states (without the per
+    rank temperature unless ``rank_local``), the ring or the horizon, the
+    env state, the observations and ``ep_ret``."""
+    from gym_rotor_tpu_torch.utils.checkpoint import RANK_FIELDS
+    from gym_rotor_tpu_torch.utils.tree import tree_named_leaves
+    out = {}
+    for j, st in enumerate(L.states):
+        for k, v in tree_named_leaves(st):
+            if rank_local or k.split(".")[0] not in RANK_FIELDS:
+                out[f"agent{j}.{k}"] = v
+    if L.off_policy:
+        out["ring"] = L.replay.data
+    else:
+        out["horizon"] = L.horizon.ring.data
+    for k, v in tree_named_leaves(L.loop.state):
+        out[f"env.{k}"] = v
+    for j, o in enumerate(L.obs):
+        out[f"obs{j}"] = o
+    out["ep_ret"] = L.ep_ret
+    return out
+
+
+def multi_train(dev, mesh, name, kw, steps, check_ranks):
+    """One learner over ``mesh`` for ``steps`` (warm, train) supersteps:
+    per superstep this rank's exact launches and K3/K4 shapes (a
+    one-device run at its share of the sizes), its all-reduces, finite
+    losses and, when ``check_ranks``, every replicated tensor bitwise
+    equal on every rank (gathered).  Returns the run's summary and the
+    learner."""
+    from gym_rotor_tpu_torch.kernels import gae as KG
+    from gym_rotor_tpu_torch.train import Learner
+    cfg = _multi_cfg(kw)
+    local = _local_cfg(cfg, mesh.world)
+    wr = _wrappers()
+    torch.cuda.synchronize()
+    for w in wr.values():
+        w.launches = 0
+    KG.gae_sharded.by_stage.update({s: 0 for s in KG.SHARDED_STAGES})
+    clear_block_shape_counts()
+    last, pfwd, pbwd = {}, Counter(), Counter()
+    bad, ars, ar_s, metrics_seen = [], [], [], []
+    L = Learner(cfg, device=dev, mesh=mesh)
+    for i in range(sum(steps)):
+        with _AllReduces() as ar:
+            warm, metrics, _ = L.superstep()
+            torch.cuda.synchronize()
+        now = {k: w.launches for k, w in wr.items()}
+        got = {k: v - last.get(k, 0) for k, v in now.items()
+               if v - last.get(k, 0)}
+        last = now
+        want, wfwd, wbwd, want_ar = _multi_expected(cfg, local, L.agents,
+                                                    dev, i, warm, mesh)
+        if not cfg.use_equiv or warm:
+            wfwd, wbwd = Counter(), Counter()
+        fwd, bwd = block_shape_counts()
+        gfwd, gbwd = fwd - pfwd, bwd - pbwd
+        pfwd, pbwd = fwd, bwd
+        if got != want:
+            bad.append((i, "launches", got, want))
+        if gfwd != wfwd or gbwd != wbwd:
+            bad.append((i, "shapes", dict(gfwd), dict(wfwd)))
+        if mesh.sharded and ar.calls != want_ar:
+            bad.append((i, "all_reduces", ar.calls, want_ar))
+        ars.append(ar.calls)
+        ar_s.append(ar.seconds)
+        vals = {k: v.detach().double().cpu().reshape(-1).tolist()
+                for k, v in metrics.items()}
+        metrics_seen.append(vals)
+        if not all(math.isfinite(x) for v in vals.values() for x in v):
+            bad.append((i, "non-finite", vals))
+        if check_ranks:
+            diff = [k for k, v in _learner_leaves(L, False).items()
+                    if k.startswith("agent") and isinstance(v, torch.Tensor)
+                    and not _ranks_equal(v, mesh)]
+            if diff:
+                bad.append((i, "ranks differ", diff[:4]))
+    launches = {k: w.launches for k, w in wr.items() if w.launches}
+    alpha = ([float(st.log_alpha) for st in L.states]
+             if hasattr(L.states[0], "log_alpha") else None)
+    return dict(name=name, launches=launches,
+                mismatches=[repr(b)[:600] for b in bad[:4]],
+                allreduces=ars, allreduce_ms=[1e3 * s for s in ar_s],
+                metrics=metrics_seen, log_alpha=alpha,
+                gae_sharded=dict(KG.gae_sharded.by_stage)), L
+
+
+def _ranks_equal(t, mesh):
+    """``t`` the same bit for bit on every rank (gathered)."""
+    from gym_rotor_tpu_torch.parallel import mesh as M
+    x = t.detach().reshape(1, -1)
+    if x.dtype.is_floating_point:
+        x = x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
+    rows = M.gather_rows(x, mesh)
+    return all(torch.equal(rows[0], r) for r in rows[1:])
+
+
+def multi_world1(dev, mesh):
+    """Phase 27 (a) in a child holding an ``nccl`` group of one rank: the
+    flagship TD3 (1 warm + 6) and PPO B (2 supersteps) over the group and
+    on a mesh without one (the one-device path), from the same seed:
+    launches, metrics, parameters, optimizer states, ring or horizon, env
+    state bitwise; then the all-reduces a world of 2 would make in a
+    superstep, timed on the group (CUDA events)."""
+    import torch.distributed as dist
+    from gym_rotor_tpu_torch.parallel import mesh as M
+    out, bad = {}, []
+    for name, kw, steps in (MULTI_RUNS[0], MULTI_RUNS[2]):
+        a, La = multi_train(dev, mesh, name, kw, steps, False)
+        b, Lb = multi_train(dev, M.Mesh(0, 1, dev), name, kw, steps, False)
+        la, lb = _learner_leaves(La), _learner_leaves(Lb)
+        diff = [k for k in la if not (
+            _bitwise([la[k]], [lb[k]]) if isinstance(la[k], torch.Tensor)
+            else la[k] == lb[k])]
+        same = (not diff and a["metrics"] == b["metrics"]
+                and a["launches"] == b["launches"])
+        out[name] = dict(bitwise=same, differ=diff[:5],
+                         launches=a["launches"], mismatches=a["mismatches"]
+                         + b["mismatches"], allreduces=a["allreduces"])
+        if not same or a["mismatches"] or b["mismatches"] or \
+                any(a["allreduces"]):
+            bad.append((name, diff[:5], a["mismatches"], b["mismatches"],
+                        a["allreduces"]))
+        if name == "td3":
+            n = La.cfg.n_agents
+            sizes = {"critic": La.agents[0].critic_layout.size,
+                     "actor": La.agents[0].actor_layout.size}
+            metrics = 3 + n + 2 * n            # mean, fin_sum, cnt, losses
+            for gated in (False, True):
+                bufs = [torch.zeros(sizes["critic"], device=dev)
+                        for _ in range(n)]
+                if gated:
+                    bufs += [torch.zeros(sizes["actor"], device=dev)
+                             for _ in range(n)]
+                bufs.append(torch.zeros(metrics, device=dev))
+
+                def call(bufs=bufs):
+                    for t in bufs:
+                        dist.all_reduce(t, group=mesh.group)
+                ms, wall = device_ms(call, 50)
+                out[f"allreduce_{'gated' if gated else 'ungated'}"] = dict(
+                    calls=len(bufs), floats=sum(t.numel() for t in bufs),
+                    device_ms=ms, wall_ms=wall)
+        del La, Lb
+        torch.cuda.empty_cache()
+    out["bad"] = bad
+    return out
+
+
+def multi_gae_world2(dev, mesh):
+    """Phase 27 (c) at world 2, on each rank: K12's sharded route over
+    ``mesh`` (its mean and variance all-reduced, the std Bessel-corrected
+    over both ranks' entries) at ``GAE_SHARDED_SHAPES`` (the rank's share
+    of PPO A's and B's horizons) against the plain twin
+    ``gae_sharded_plain`` on CPU copies, which ``gloo`` reduces on the
+    host, within 1e-5 max(1, max |plain|).  Each rank draws its own
+    inputs and shifts its rewards by its rank, so that the global mean is
+    neither rank's: the result must also move past the tolerance from
+    this rank's horizon normalised alone.  On the card each call must make
+    its three launches.  Returns ``(worst error, mismatches)``."""
+    from gym_rotor_tpu_torch.kernels import gae as K
+    from gym_rotor_tpu_torch.utils.config import Config
+    cfg = Config()
+    g, lam = cfg.discount, cfg.GAE_lambda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29 + mesh.rank)
+    worst, bad = 0.0, []
+    for T, nb in GAE_SHARDED_SHAPES:
+        v, nv, r, d = _gae_inputs(T, nb, gen, dev)
+        x = (v, nv, r + mesh.rank, d)
+        before = K.gae_sharded.launches
+        sh = K.gae_sharded(*x, g, lam, mesh)
+        launched = K.gae_sharded.launches - before
+        plain = K.gae_sharded_plain(*(t.cpu() for t in x), g, lam, mesh)
+        alone = K.gae_sharded_plain(*(t.cpu() for t in x), g, lam)
+        errs = {"advantages": _err(sh[0].cpu(), plain[0], 1e-5),
+                "td": _err(sh[1].cpu(), plain[1], 1e-5)}
+        moved = _err(alone[0], plain[0], 1e-5)
+        worst = max([worst] + [e[0] for e in errs.values()])
+        log("multi_gae_world2", rank=mesh.rank, T=T, envs=nb,
+            launches=launched, max_abs_err={k: e[0] for k, e in errs.items()},
+            global_vs_local=moved[0])
+        bad += [("gae_sharded", T, nb, k, e[0]) for k, e in errs.items()
+                if not (e[0] <= e[1] and e[2])]
+        if moved[0] <= moved[1]:
+            bad.append(("gae_sharded", T, nb, "not global", moved[0]))
+        if dev.type == "cuda" and launched != 3:
+            bad.append(("gae_sharded", T, nb, "launches", launched))
+    return worst, bad
+
+
+def multi_world2(dev, mesh):
+    """Phase 27 (b) in each of two children holding one ``gloo`` group on
+    the one card: the flagship TD3 (1 warm + 6, 2048 envs a rank), SAC
+    with the temperature tuned (1 warm + 3) and PPO B (2), each checked by
+    ``multi_train`` with every replicated tensor compared across the
+    ranks after every superstep; then (c) K12's sharded route at world 2
+    (``multi_gae_world2``)."""
+    out, bad = {}, []
+    for name, kw, steps in MULTI_RUNS:
+        r, L = multi_train(dev, mesh, name, kw, steps, True)
+        out[name] = r
+        if r["mismatches"]:
+            bad.append((name, r["mismatches"]))
+        del L
+        torch.cuda.empty_cache()
+    out["gae_err"], gae_bad = multi_gae_world2(dev, mesh)
+    bad += gae_bad
+    out["bad"] = bad
+    return out
+
+
+def multi_child(argv):
+    """A phase 27 child: ``--multi-child JOB RANK WORLD BACKEND STORE OUT``
+    opens the group through a ``FileStore`` at STORE on ``cuda:0``, runs
+    ``multi_world1`` (JOB ``world1``) or ``multi_world2`` and writes its
+    result as JSON to OUT."""
+    import torch.distributed as dist
+    from gym_rotor_tpu_torch.parallel import mesh as M
+    job, rank, world, backend, store_path, out_path = argv
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    global CARD
+    CARD = gpu_name_power()
+    store = dist.FileStore(store_path, world)
+    if world > 1:
+        M.initialize_distributed(rank=rank, world_size=world, device=dev,
+                                 backend=backend, store=store)
+    else:
+        dist.init_process_group(backend, rank=0, world_size=1, store=store)
+    try:
+        mesh = M.make_mesh(dev)
+        res = (multi_world1 if job == "world1" else multi_world2)(dev, mesh)
+        res.update(rank=rank, world=mesh.world, backend=mesh.backend)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _children(job, world, backend, tmp):
+    """Run ``world`` phase 27 children for ``job`` and return their
+    results in rank order; any child failing fails the phase."""
+    import os
+    store = os.path.join(tmp, f"{job}.store")
+    outs = [os.path.join(tmp, f"{job}.{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multi-child", job,
+         str(r), str(world), backend, store, outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs_, codes = [], []
+    try:
+        for p in procs:
+            logs_.append(p.communicate(timeout=MULTI_TIMEOUT)[0])
+            codes.append(p.returncode)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (code, text) in enumerate(zip(codes, logs_)):
+        if text.strip():
+            print("\n".join(f"  [{job} rank {r}] {ln}"
+                            for ln in text.strip().splitlines()[-40:]),
+                  flush=True)
+        if code != 0:
+            raise AssertionError(f"phase 27 {job}: rank {r} exited {code}")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def multi_torchrun(tmp):
+    """Phase 27 (a): ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m gym_rotor_tpu_torch.train`` with the flagship at
+    B envs for 4 supersteps (2 warm; ``driver_argv``): it trains, evaluates
+    and checkpoints; returns its wall seconds."""
+    import os
+    import shutil
+    root = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.path.join(tmp, "torchrun")
+    os.makedirs(cwd)
+    ckpt = os.path.join(cwd, "ckpt", "ts.msgpack")
+    env = dict(os.environ,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "gym_rotor_tpu_torch.train"]
+        + driver_argv(ckpt, supersteps=4), cwd=cwd, env=env,
+        capture_output=True, text=True, timeout=MULTI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    out = p.stdout + p.stderr
+    evals = out.count("eval_reward")
+    logs_ = sorted(os.listdir(os.path.join(cwd, "results"))) \
+        if os.path.isdir(os.path.join(cwd, "results")) else []
+    ok = (p.returncode == 0 and "training over 1 device(s)" in out
+          and os.path.exists(ckpt) and evals == 3 and logs_)
+    log("multi_torchrun", returncode=p.returncode, wall_s=wall, evals=evals,
+        checkpoint=os.path.exists(ckpt), results=logs_)
+    if not ok:
+        print(out[-4000:], flush=True)
+        raise AssertionError("phase 27: the torchrun entry point failed")
+    shutil.rmtree(cwd, ignore_errors=True)
+    return wall
+
+
+def phase_multi(dev):
+    """Phase 27: data-parallel training over a process group, each group
+    in child processes (this process never holds one).  (c) K12's sharded
+    route on the card at world 1; (a) an ``nccl`` group of one rank
+    bitwise the one-device path, its all-reduces timed, and the
+    ``torchrun`` entry point; (b) two ``gloo`` ranks on the one card:
+    exact launches and all-reduces per rank and superstep, replicated
+    state bitwise across the ranks, then (c) at world 2 on each rank.
+    Returns the sharded K12's records (their error the worst of (c))."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    err = gae_sharded_checks(dev)
+    tmp = tempfile.mkdtemp(prefix="multi_")
+    try:
+        w1 = _children("world1", 1, "nccl", tmp)[0]
+        log("multi_nccl1", td3=w1["td3"], ppo_b=w1["ppo_b"],
+            allreduce_ms_per_superstep={
+                k: w1[f"allreduce_{k}"] for k in ("ungated", "gated")})
+        w2 = _children("world2", 2, "gloo", tmp)
+        for r, res in enumerate(w2):
+            for name, *_ in MULTI_RUNS:
+                x = res[name]
+                log(f"multi_gloo2_{name}", rank=r, launches=x["launches"],
+                    allreduces=x["allreduces"],
+                    allreduce_ms=x["allreduce_ms"], log_alpha=x["log_alpha"],
+                    gae_sharded=x["gae_sharded"],
+                    mismatches=x["mismatches"])
+        torchrun_s = multi_torchrun(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = w1["bad"] + [b for res in w2 for b in res["bad"]]
+    m0, m1 = (res["ppo_b"]["metrics"] for res in w2)
+    if m0 != m1 or w2[0]["td3"]["metrics"] != w2[1]["td3"]["metrics"]:
+        bad.append("reduced metrics differ across the ranks")
+    alphas = [res["sac"]["log_alpha"] for res in w2]
+    err = max([err] + [res["gae_err"] for res in w2])
+    log("multi", wall_s=time.perf_counter() - t0, torchrun_s=torchrun_s,
+        sac_log_alpha_per_rank=alphas, gae_sharded_max_abs_err=err,
+        mismatches=bad[:4])
+    if bad:
+        raise AssertionError(f"phase 27: {bad[:4]}")
+    launches = w2[0]["ppo_b"]["gae_sharded"]
+    return gae_sharded_records(dev, err, launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6132,6 +6695,7 @@ def main():
     k1_err, k2_err = phase_tiles(dev)
     phase_driver(dev)
     records += phase_widths(dev)
+    records += phase_multi(dev)
     for rec in records:
         if rec["name"] == "env_tick":
             rec["max_abs_err"] = max(rec["max_abs_err"], k1_err)
@@ -6147,7 +6711,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--multi-child"]:
+            code = multi_child(sys.argv[2:])
+        else:
+            code = main()
     except Exception:           # any phase failure: report and exit non-zero
         traceback.print_exc()
         code = 1

@@ -52,6 +52,7 @@ from ..kernels.emlp_block import emlp_apply
 from ..kernels.ppo_loss import ppo_surrogate
 from ..models import mlp
 from ..models.zoo import ppo_models
+from ..parallel.mesh import pmean
 from ..utils.config import Config
 from . import regularizers
 from . import replay as replay_lib
@@ -84,11 +85,13 @@ class HorizonBuffer:
     """The superstep's segment of ``T`` ticks of ``B`` envs: a ring of
     exactly ``T * B`` rows (``algos/replay.py``'s layout, written by K2
     with K8's statistics) and the ``(T * B, sum act dims)`` log-prob rows
-    K11 writes.  Entry point: on the card unless ``device="cpu"``."""
+    K11 writes; ``num_envs`` the rank's envs under a process group (default
+    ``cfg.num_envs``).  Entry point: on the card unless ``device="cpu"``."""
 
     def __init__(self, cfg: Config, rollout_len: int, device=None,
-                 dtype=torch.float32):
-        self.T, self.B = int(rollout_len), int(cfg.num_envs)
+                 dtype=torch.float32, num_envs: Optional[int] = None):
+        self.T = int(rollout_len)
+        self.B = int(cfg.num_envs if num_envs is None else num_envs)
         self.act_dims = tuple(cfg.action_dim_n)
         self.ring = replay_lib.create(self.T * self.B, cfg.obs_dim_n,
                                       self.act_dims, dtype, device)
@@ -179,24 +182,34 @@ class PPOAgent(FlatAgent):
         return emlp_apply(self.critic_net.network, views, "network.", obs)
 
 
-def gae(cfg: Config, values, next_values, rewards, dones):
+def gae(cfg: Config, values, next_values, rewards, dones, mesh=None):
     """Generalized Advantage Estimation (ppo.py:119-146) through K12:
     ``(normalised advantages, td targets)`` of the inputs' ``(T, B, 1)``
-    shape."""
+    shape.  Over a sharded ``mesh`` (JAX's ``axis_name``) the mean and the
+    variance are averaged over the ranks and the std is Bessel-corrected
+    over every rank's entries (``ppo.py:136-145``): K12's sharded route,
+    two all-reduces between its launches; at world 1 the one launch."""
+    if mesh is not None and mesh.sharded:
+        return K12.gae_sharded(values, next_values, rewards, dones,
+                               cfg.discount, cfg.GAE_lambda, mesh)
     return K12.gae(values, next_values, rewards, dones, cfg.discount,
                    cfg.GAE_lambda)
 
 
 def train_step(cfg: Config, agents: Sequence[PPOAgent],
                states: List[PPOState], data: Horizon,
-               draws: Sequence[Sequence[D.PPOEpochDraws]]):
+               draws: Sequence[Sequence[D.PPOEpochDraws]], mesh=None):
     """One full PPO update for every agent (ppo.py:149-162), in place;
     ``draws[i]`` holds agent ``i``'s ``K_epochs`` epoch draws.  Returns
     ``(states, metrics)``: the last minibatch's losses of the last epoch,
-    0-d tensors on the device."""
+    0-d tensors on the device (this rank's, unreduced).  ``mesh``: GAE
+    normalises over every rank's horizon and each minibatch's flat
+    gradient is averaged over the ranks; the minibatches stay
+    ``actor_batch_size`` / ``critic_batch_size`` rows of the rank's own
+    horizon, so their number shrinks with the world (``ppo.py:220-223``)."""
     metrics = {}
     for i in range(len(agents)):
-        m = _train_one(cfg, agents, states, i, data, draws[i])
+        m = _train_one(cfg, agents, states, i, data, draws[i], mesh)
         metrics.update({f"agent{i}/{k}": v for k, v in m.items()})
     return states, metrics
 
@@ -209,7 +222,7 @@ def _kernels(views: Dict[str, torch.Tensor]):
 
 
 def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
-               draws: Sequence[D.PPOEpochDraws]):
+               draws: Sequence[D.PPOEpochDraws], mesh=None):
     agent, st = agents[i], states[i]
     m = cfg.max_action
 
@@ -228,7 +241,7 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
                                   torch.cat([flat(v_obs), flat(v_next)]))
         values, next_values = both.view((2,) + tuple(v_obs.shape[:-1]) + (1,))
         advs, td_targets = gae(cfg, values, next_values, data.rwd[i],
-                               data.done[i])
+                               data.done[i], mesh)
 
     st.entropy_coef = st.entropy_coef * cfg.entropy_coef_decay  # ppo.py:208
 
@@ -267,6 +280,7 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
             aloss = aloss + regularizers.caps_terms(
                 cfg, agent.agent_id, m3c[:mb], m3c[mb:2 * mb], m3c[2 * mb:])
             (agrad,) = torch.autograd.grad(aloss, leaf)
+            pmean(agrad, mesh)  # ppo.py:271
             st.actor_opt = agent.actor_tx.update(st.actor, agrad,
                                                  st.actor_opt,
                                                  owner=agent.actor_net)
@@ -284,6 +298,7 @@ def _train_one(cfg: Config, agents, states, i: int, data: Horizon,
             if agent.equivariant:
                 closs = closs + 1e-10 * spectral_penalty(cv, d.critic_starts)
             (cgrad,) = torch.autograd.grad(closs, leaf)
+            pmean(cgrad, mesh)  # ppo.py:303
             st.critic_opt = agent.critic_tx.update(st.critic, cgrad,
                                                    st.critic_opt,
                                                    owner=agent.critic_net)

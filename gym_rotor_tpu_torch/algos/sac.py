@@ -49,6 +49,7 @@ from ..kernels.sac_sample import sac_head_sample
 from ..models import mlp
 from ..models.zoo import sac_models
 from ..ops.so3 import sqrt_rn
+from ..parallel.mesh import pmean
 from ..utils.config import Config
 from . import regularizers
 from .common import FlatAgent, OptState, mse, spectral_penalty
@@ -215,18 +216,22 @@ def superstep_hooks(agents: Sequence[SACAgent]):
 
 def train_step(cfg: Config, agents: Sequence[SACAgent],
                states: List[SACState], batch: Batch,
-               draws: Sequence[D.SACAgentDraws]):
+               draws: Sequence[D.SACAgentDraws], mesh=None):
     """One SAC update for every agent (sac.py:125-138), in place.  Returns
-    ``(states, metrics)``; the metrics are 0-d tensors on the device."""
+    ``(states, metrics)``; the metrics are 0-d tensors on the device (this
+    rank's, unreduced).  ``mesh``: the critic's and the actor's flat
+    gradients are averaged over its ranks (``sac.py:196``, ``:259``); the
+    temperature's is not (``sac.py:264-271``), so each rank steps its own
+    ``log_alpha`` on its own log-probs, as each JAX device does."""
     metrics = {}
     for i in range(len(agents)):
-        m = _train_one(cfg, agents, states, i, batch, draws[i])
+        m = _train_one(cfg, agents, states, i, batch, draws[i], mesh)
         metrics.update({f"agent{i}/{k}": v for k, v in m.items()})
     return states, metrics
 
 
 def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
-               d: D.SACAgentDraws):
+               d: D.SACAgentDraws, mesh=None):
     agent, st = agents[i], states[i]
     obs, rwd = batch.obs[i], batch.rwd[i]
     next_obs, done = batch.next_obs[i], batch.done[i]
@@ -275,6 +280,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     if agent.equivariant:
         closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
     (cgrad,) = torch.autograd.grad(closs, leaf)
+    pmean(cgrad, mesh)  # sac.py:196
     # the critic target's Polyak runs after the actor step on the updated
     # critic (sac.py:277-289): the same values when done in this K6 call
     st.critic_opt = agent.critic_tx.update(
@@ -313,6 +319,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, ac[:B],
                                             ac[B:2 * B], ac[2 * B:])
     (agrad,) = torch.autograd.grad(aloss, leaf)
+    pmean(agrad, mesh)  # sac.py:259
     st.actor_opt = agent.actor_tx.update(st.actor, agrad, st.actor_opt,
                                          owner=agent.actor_net)
 

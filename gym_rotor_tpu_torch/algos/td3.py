@@ -45,6 +45,7 @@ from ..envs.draws import AgentDraws
 from ..kernels.emlp_block import emlp_apply
 from ..models import mlp
 from ..models.zoo import td3_models
+from ..parallel.mesh import pmean
 from ..utils.config import Config
 from . import regularizers
 from .common import FlatAgent, OptState, mse, spectral_penalty
@@ -133,12 +134,15 @@ class TD3Agent(FlatAgent):
 
 def train_step(cfg: Config, agents: Sequence[TD3Agent],
                states: List[TD3State], batch: Batch,
-               draws: Sequence[AgentDraws]):
+               draws: Sequence[AgentDraws], mesh=None):
     """One TD3 update for every agent (td3.py:165-192), in place.  Returns
-    ``(states, metrics)``; the metrics are 0-d tensors on the device."""
+    ``(states, metrics)``; the metrics are 0-d tensors on the device (this
+    rank's, unreduced).  ``mesh`` (``parallel/mesh.py``, JAX's
+    ``axis_name``): each flat gradient is averaged over its ranks before
+    the optimizer, so the replicated parameters stay equal."""
     metrics = {}
     for i in range(len(agents)):
-        m = _train_one(cfg, agents, states, i, batch, draws[i])
+        m = _train_one(cfg, agents, states, i, batch, draws[i], mesh)
         metrics.update({f"agent{i}/{k}": v for k, v in m.items()})
     return states, metrics
 
@@ -155,7 +159,7 @@ def _smoothed(cfg: Config, agent: TD3Agent, actor_target: torch.Tensor,
 
 
 def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
-               d: AgentDraws):
+               d: AgentDraws, mesh=None):
     agent, st = agents[i], states[i]
     obs, rwd = batch.obs[i], batch.rwd[i]
     next_obs, done = batch.next_obs[i], batch.done[i]
@@ -197,6 +201,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
     if agent.equivariant:
         closs = closs + 1e-8 * spectral_penalty(cv, d.critic_starts)
     (cgrad,) = torch.autograd.grad(closs, leaf)
+    pmean(cgrad, mesh)  # td3.py:263
     # the critic target's Polyak runs in the delayed branch on the updated
     # critic (td3.py:325): the same values when done in this K6 call
     st.critic_opt = agent.critic_tx.update(
@@ -229,6 +234,7 @@ def _train_one(cfg: Config, agents, states, i: int, batch: Batch,
         aloss = aloss + regularizers.caps_terms(cfg, agent.agent_id, a_cur,
                                                 a_nxt, a_prt)
         (agrad,) = torch.autograd.grad(aloss, leaf)
+        pmean(agrad, mesh)  # td3.py:321
         st.actor_opt = agent.actor_tx.update(
             st.actor, agrad, st.actor_opt, target=st.actor_target,
             tau=cfg.tau, owner=agent.actor_net)

@@ -69,6 +69,20 @@
 // sums meet in rank order: cluster, lane l holds CTA l's sum (zero past the
 // cluster) and the butterfly; grid, lane l adds the sums of CTAs l, l + 32,
 // l + 64, ... in that order, then the butterfly.
+//
+// The sharded route (a horizon split over the ranks of a process group:
+// the mean and the variance are averaged over the ranks between the
+// rounds, ppo.py:136-145 under an axis_name), three launches a call, each
+// sum in K12's order, so at world 1 the route is bitwise the one launch:
+//   A (stage kMean) the copies, the scan, td and the raw advantages into
+//     adv, the mean's terms summed as above, the rank's mean into *mean;
+//   B (stage kVar) the variance's terms of adv around *mean (the global
+//     mean after the host's all-reduce), summed as above, the rank's
+//     variance into *var;
+//   C (gae_norm_kernel) adv = (adv - *mean) / (sqrt(*var N / max(N - 1,
+//     1)) + 1e-4), N the entries of every rank, elementwise.
+// A and B are gae_kernel with its stage argument; the grid mode moves its
+// epoch on at the end of each.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,6 +104,7 @@ constexpr int kMaxStages = 2;              // chunk buffers of a streamed tile
 constexpr int kMaxGrid = 256;              // CTAs the scratch has room for
 constexpr int kSmemBytes = 232448 - 2048;  // dynamic: 227 KB less the static
 constexpr int kSolo = 0, kCluster = 1, kGrid = 2;
+constexpr int kWhole = 0, kMean = 1, kVar = 2;   // the launch's stage
 constexpr int kGroup = 8;                  // rows of the scan's register group
 constexpr int kBatch = 4;                  // rows of a pass's register batch
 
@@ -106,6 +121,9 @@ struct Args {
   int resident, vec;
   // grid: [0] the epoch, then 2 kMaxGrid words of (tag << 32 | sum bits)
   unsigned long long* scratch;
+  int stage;     // kWhole, or the sharded route's kMean / kVar
+  float* mean;   // kMean writes the rank's mean here, kVar reads the mean
+  float* var;    // kVar writes the rank's variance here
 };
 
 // Chunk k: rows [lo, hi), hi = T - k rows, the last rows first.
@@ -236,13 +254,14 @@ struct Exchange {
   float (*slot)[cluster::kMaxSize];
   unsigned long long* bar;
   float own;            // solo: the CTA's sum
+  int first;            // the launch's first round
 
   __device__ __forceinline__ void publish(float v, int round) {
     const float s = block_total(v, warp_part);
     if (MODE == kSolo) {
       own = s;
     } else if (MODE == kCluster) {
-      if (round == 0) cluster::wait();   // every CTA runs, bars initialised
+      if (round == first) cluster::wait();   // every CTA runs, bars set
       if ((int)threadIdx.x < (int)gridDim.x)
         cluster::store_async(&slot[round][cluster::rank()], &bar[round],
                              threadIdx.x, s);
@@ -309,6 +328,43 @@ __device__ __forceinline__ void finish(const Args& a, const float* raw,
   GAE_MARK(7);
 }
 
+// The sharded route's stage A, after the mean's round: the rank's mean
+// out, and (grid) the epoch moved on, every CTA having read it.
+template <int MODE>
+__device__ __forceinline__ void mean_out(const Args& a, float m,
+                                         unsigned epoch) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.mean = m;
+    if (MODE == kGrid) put_word(a.scratch, epoch + 1);
+  }
+}
+
+// The sharded route's stage B: the variance's terms of the raw advantages
+// in adv around *mean, in finish()'s order, their sum across the CTAs as
+// round 1, the rank's variance out.
+template <int MODE>
+__device__ __forceinline__ void var_stage(const Args& a,
+                                          Exchange<MODE>& X,
+                                          unsigned epoch) {
+  const int b0 = blockIdx.x * a.cols, nc = min(a.cols, a.B - b0);
+  const Share sh(nc);
+  const float m = *a.mean;
+  const float* raw = a.adv + b0 + sh.c;
+  const int T = sh.on ? a.T : 0;
+  float acc = 0.0f;
+  rows(sh.t0, sh.R, T, [&](int t) { return raw[(size_t)t * a.B]; },
+       [&](int, float x) {
+         const float c = x - m;
+         acc += c * c;
+       });
+  X.publish(acc, 1);
+  const float var = X.collect(1) / (float)((long long)a.T * a.B);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.var = var;
+    if (MODE == kGrid) put_word(a.scratch, epoch + 1);
+  }
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(kMaxThreads) gae_kernel(Args a) {
   extern __shared__ float4 smem4[];
@@ -326,6 +382,13 @@ __global__ void __launch_bounds__(kMaxThreads) gae_kernel(Args a) {
     cluster::arrive_relaxed();
   }
   if (MODE == kGrid && threadIdx.x == 0) epoch = (unsigned)get_word(a.scratch);
+  if (a.stage == kVar) {
+    if (MODE == kGrid) __syncthreads();   // the epoch read
+    Exchange<MODE> X{a, MODE == kGrid ? 2 * epoch + 1 : 0, warp_part, sums,
+                     slot, bar, 0.0f, 1};
+    var_stage<MODE>(a, X, epoch);
+    return;
+  }
   GAE_MARK(0);
   const int b0 = blockIdx.x * a.cols, nc = min(a.cols, a.B - b0);
   for (int s = 0; s < a.stages; ++s) {
@@ -411,7 +474,7 @@ __global__ void __launch_bounds__(kMaxThreads) gae_kernel(Args a) {
 
   GAE_MARK(3);
   Exchange<MODE> X{a, MODE == kGrid ? 2 * epoch + 1 : 0, warp_part, sums,
-                   slot, bar, 0.0f};
+                   slot, bar, 0.0f, 0};
   X.publish(acc, 0);
   const long long n = (long long)a.T * a.B;
   // the raw advantages: the tile's r field (resident) or adv; one path
@@ -426,16 +489,34 @@ __global__ void __launch_bounds__(kMaxThreads) gae_kernel(Args a) {
              return float2{raw[i], sm[i + sh.c]};
            },
            [&](int t, float2 q) {
-             a.td[(size_t)t * a.B + b0 + sh.c] = q.x + q.y;
+             const size_t g = (size_t)t * a.B + b0 + sh.c;
+             a.td[g] = q.x + q.y;
+             if (a.stage == kMean) a.adv[g] = q.x;
            });
     const float m = X.collect(0) / (float)n;
     GAE_MARK(4);
+    if (a.stage == kMean) return mean_out<MODE>(a, m, epoch);
     finish<MODE>(a, raw, a.cols, sh, b0, m, n, X, epoch);
   } else {
     const float m = X.collect(0) / (float)n;
     GAE_MARK(4);
+    if (a.stage == kMean) return mean_out<MODE>(a, m, epoch);
     finish<MODE>(a, a.adv + b0 + sh.c, a.B, sh, b0, m, n, X, epoch);
   }
+}
+
+// The sharded route's stage C: adv = (adv - m) / (std + 1e-4) over the
+// rank's n entries, std Bessel-corrected over every rank's N, from the
+// global mean and variance in device memory (finish()'s expressions).
+__global__ void gae_norm_kernel(float* adv, long long n, const float* mean,
+                                const float* var, long long N) {
+  const float m = *mean;
+  const long long dof = N - 1 > 1 ? N - 1 : 1;
+  const float denom = sqrtf(*var * (float)N / (float)dof) + 1e-4f;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += step)
+    adv[i] = (adv[i] - m) / denom;
 }
 
 // One launch of MODE with ctas CTAs of `threads` and `smem` bytes of
@@ -509,17 +590,12 @@ static long long gae_smem(int T, int cols, int rows, int stages) {
   return bytes <= kSmemBytes ? bytes : 0;
 }
 
-// v, nv, r, d, adv, td: (T, B) float32, contiguous, t-major.  The plan
-// (kernels/gae.py:gae_plan): mode 0 solo, 1 cluster, 2 grid; ctas CTAs of
-// `threads` threads, `cols` columns a CTA; chunks of `rows` rows through
-// `stages` buffers (resident when every chunk has one).  sync: the grid
-// mode's scratch, 1 + 2 kMaxGrid 64-bit words, zeroed once, left ready for
-// the next launch.
-extern "C" int gae_launch(const void* v, const void* nv, const void* r,
-                          const void* d, int T, int B, float gamma, float lam,
-                          void* adv, void* td, int mode, int ctas, int cols,
-                          int threads, int rows, int stages, void* sync,
-                          void* stream) {
+// One launch of a plan at a stage (kWhole: the whole of K12).
+static int plan_launch(const void* v, const void* nv, const void* r,
+                       const void* d, int T, int B, float gamma, float lam,
+                       void* adv, void* td, int mode, int ctas, int cols,
+                       int threads, int rows, int stages, void* sync,
+                       int stage, void* mean, void* var, void* stream) {
   if (T <= 0 || B <= 0 || ctas < 1 || cols < 1 || cols > threads ||
       threads % 32 != 0 || threads > kMaxThreads ||
       (long long)(ctas - 1) * cols >= B || (long long)ctas * cols < B)
@@ -546,12 +622,64 @@ extern "C" int gae_launch(const void* v, const void* nv, const void* r,
       (unsigned long long)nv | (unsigned long long)r | (unsigned long long)d;
   a.vec = B % 4 == 0 && cols % 4 == 0 && (align & 15) == 0;
   a.scratch = (unsigned long long*)sync;
+  a.stage = stage;
+  a.mean = (float*)mean;
+  a.var = (float*)var;
+  if (stage != kWhole && (mean == nullptr || (stage == kVar && var == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  // stage B reads adv from global memory: no tile
+  const int bytes = stage == kVar ? 0 : (int)smem;
   cudaStream_t st = (cudaStream_t)stream;
   if (mode == kSolo && ctas == 1)
-    return (int)launch<kSolo>(a, ctas, threads, (int)smem, st);
+    return (int)launch<kSolo>(a, ctas, threads, bytes, st);
   if (mode == kCluster && ctas <= cluster::kMaxSize)
-    return (int)launch<kCluster>(a, ctas, threads, (int)smem, st);
+    return (int)launch<kCluster>(a, ctas, threads, bytes, st);
   if (mode == kGrid && sync != nullptr && ctas <= kMaxGrid)
-    return (int)launch<kGrid>(a, ctas, threads, (int)smem, st);
+    return (int)launch<kGrid>(a, ctas, threads, bytes, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// v, nv, r, d, adv, td: (T, B) float32, contiguous, t-major.  The plan
+// (kernels/gae.py:gae_plan): mode 0 solo, 1 cluster, 2 grid; ctas CTAs of
+// `threads` threads, `cols` columns a CTA; chunks of `rows` rows through
+// `stages` buffers (resident when every chunk has one).  sync: the grid
+// mode's scratch, 1 + 2 kMaxGrid 64-bit words, zeroed once, left ready for
+// the next launch.
+extern "C" int gae_launch(const void* v, const void* nv, const void* r,
+                          const void* d, int T, int B, float gamma, float lam,
+                          void* adv, void* td, int mode, int ctas, int cols,
+                          int threads, int rows, int stages, void* sync,
+                          void* stream) {
+  return plan_launch(v, nv, r, d, T, B, gamma, lam, adv, td, mode, ctas, cols,
+                     threads, rows, stages, sync, kWhole, nullptr, nullptr,
+                     stream);
+}
+
+// The sharded route's stages A (1: td, the raw advantages into adv, the
+// rank's mean into *mean) and B (2: the rank's variance of adv around
+// *mean into *var), with gae_launch's arguments and plan.
+extern "C" int gae_stage_launch(const void* v, const void* nv, const void* r,
+                                const void* d, int T, int B, float gamma,
+                                float lam, void* adv, void* td, int mode,
+                                int ctas, int cols, int threads, int rows,
+                                int stages, void* sync, int stage, void* mean,
+                                void* var, void* stream) {
+  if (stage != kMean && stage != kVar) return (int)cudaErrorInvalidValue;
+  return plan_launch(v, nv, r, d, T, B, gamma, lam, adv, td, mode, ctas, cols,
+                     threads, rows, stages, sync, stage, mean, var, stream);
+}
+
+// The sharded route's stage C over adv's n entries: N the entries of every
+// rank, mean and var the global statistics (device scalars).
+extern "C" int gae_norm_launch(void* adv, long long n, const void* mean,
+                               const void* var, long long N, void* stream) {
+  if (n <= 0 || N < n || mean == nullptr || var == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  gae_norm_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535), threads, 0,
+                    (cudaStream_t)stream>>>((float*)adv, n,
+                                            (const float*)mean,
+                                            (const float*)var, N);
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,16 @@ fixed order, so a run repeats its numbers.  The grid's exchange words and
 their epoch live in a per-device scratch (``_scratch``) that every launch
 leaves ready for the next, so launches on one device run one after another
 (one stream), as the PPO update launches them.
+
+The sharded route (``gae_sharded``, a horizon split over the ranks of a
+process group, ``parallel/mesh.py``): no collective can run inside a
+launch, so K12 is cut where the mean and the variance must cross the
+ranks, three launches around two all-reduces: A the scan, td, the raw
+advantages and the rank's mean; the mean averaged over the ranks; B the
+rank's variance around it; the variance averaged; C the normalisation
+with the std Bessel-corrected over every rank's entries.  A and B sum in
+K12's order, so at world 1 the route is bitwise the one launch.  Plain
+twin: ``gae_sharded_plain``.
 """
 from __future__ import annotations
 
@@ -32,7 +42,8 @@ from ..ops.so3 import sqrt_rn
 from .build import KernelSource, check
 
 KERNEL = KernelSource("gae", ["-fmad=false"])
-WRAPPERS = {"gae": "gae_plain"}
+WRAPPERS = {"gae": "gae_plain", "gae_sharded": "gae_sharded_plain"}
+SHARDED_STAGES = ("mean", "var", "norm")   # gae_sharded's launches a call
 MODES = {"solo": 0, "cluster": 1, "grid": 2}
 # the plans a sweep chose (scripts/gae_head_vs_parent.py --sweep, PERF.md
 # section 6): narrow horizons in one cluster, wider ones in a grid
@@ -132,6 +143,12 @@ def _lib(kernel: KernelSource = KERNEL):
         lib.gae_launch.argtypes = [P, P, P, P, I, I, F, F, P, P] \
             + [I] * 6 + [P, P]
         lib.gae_launch.restype = I
+        lib.gae_stage_launch.argtypes = [P, P, P, P, I, I, F, F, P, P] \
+            + [I] * 6 + [P, I, P, P, P]
+        lib.gae_stage_launch.restype = I
+        lib.gae_norm_launch.argtypes = [P, ctypes.c_longlong, P, P,
+                                        ctypes.c_longlong, P]
+        lib.gae_norm_launch.restype = I
         lib._typed = True
     return lib
 
@@ -161,17 +178,42 @@ def normalize_plain(advs):
     return (advs - m) / (std + 1e-4)
 
 
-def gae_plain(values, next_values, rewards, dones, gamma: float, lam: float):
-    """``(normalised advantages, td targets)``, each of the inputs' shape
-    ``(T, ...)``: the recursion runs over the leading (time) axis, each of
-    the trailing entries (env column) on its own."""
+def _scan_plain(values, next_values, rewards, dones, gamma, lam):
+    """The raw advantages: the recursion over the leading (time) axis, each
+    of the trailing entries (env column) on its own."""
     deltas = rewards + gamma * next_values * (1.0 - dones) - values
     advs = torch.empty_like(deltas)
     carry = torch.zeros_like(deltas[0])
     for t in range(deltas.shape[0] - 1, -1, -1):
         carry = deltas[t] + gamma * (1.0 - dones[t]) * lam * carry
         advs[t] = carry
+    return advs
+
+
+def gae_plain(values, next_values, rewards, dones, gamma: float, lam: float):
+    """``(normalised advantages, td targets)``, each of the inputs' shape
+    ``(T, ...)``: the recursion runs over the leading (time) axis, each of
+    the trailing entries (env column) on its own."""
+    advs = _scan_plain(values, next_values, rewards, dones, gamma, lam)
     return normalize_plain(advs), advs + values
+
+
+def gae_sharded_plain(values, next_values, rewards, dones, gamma: float,
+                      lam: float, mesh=None):
+    """``gae_plain`` over a horizon whose env columns are split over
+    ``mesh``'s ranks (``ppo.py:136-145`` under an ``axis_name``): the
+    rank's mean averaged over the ranks, the variance around it likewise,
+    the std Bessel-corrected over every rank's entries.  ``gae_sharded``
+    sends it CPU tensors (the CPU tests' path); at world 1 it gives
+    ``gae_plain``'s numbers."""
+    from ..parallel.mesh import pmean
+    advs = _scan_plain(values, next_values, rewards, dones, gamma, lam)
+    world = mesh.world if mesh is not None else 1
+    m = pmean(advs.mean().reshape(1), mesh)
+    var = pmean(torch.mean((advs - m) ** 2).reshape(1), mesh)
+    n = advs.numel() * world
+    std = sqrt_rn(var * n / max(n - 1, 1))
+    return (advs - m) / (std + 1e-4), advs + values
 
 
 def _check(name, t, shape, device):
@@ -223,3 +265,72 @@ def gae(values, next_values, rewards, dones, gamma: float, lam: float):
 
 
 gae.launches = 0
+
+
+def sharded_launch(stage: str, values, next_values, rewards, dones,
+                   gamma: float, lam: float, adv, td, mean, var,
+                   plan: GaePlan, world: int = 1) -> None:
+    """One launch of the sharded route on checked tensors: ``"mean"`` (A:
+    td, the raw advantages into ``adv``, the rank's mean into ``mean``),
+    ``"var"`` (B: the rank's variance of ``adv`` around ``mean`` into
+    ``var``) or ``"norm"`` (C: ``adv`` normalised in place, the std
+    Bessel-corrected over ``world`` ranks' entries); A and B by ``plan``."""
+    T, B = values.shape[0], values.shape[1]
+    dev = values.device
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if stage == "norm":
+        err = lib.gae_norm_launch(adv.data_ptr(), T * B, mean.data_ptr(),
+                                  var.data_ptr(), T * B * world, stream)
+    else:
+        err = lib.gae_stage_launch(
+            values.data_ptr(), next_values.data_ptr(), rewards.data_ptr(),
+            dones.data_ptr(), T, B, gamma, lam, adv.data_ptr(),
+            td.data_ptr(), MODES[plan.mode], plan.ctas, plan.cols,
+            plan.threads, plan.rows, plan.stages,
+            _scratch(dev).data_ptr() if plan.mode == "grid" else None,
+            1 if stage == "mean" else 2, mean.data_ptr(), var.data_ptr(),
+            stream)
+    check(err, lib, f"gae_sharded ({stage})")
+
+
+def gae_sharded(values, next_values, rewards, dones, gamma: float,
+                lam: float, mesh=None):
+    """GAE over this rank's ``(T, B, 1)`` (or ``(T, B)``) share of a
+    horizon split by env columns over ``mesh``'s ranks (None: one rank).
+    CPU tensors -> ``gae_sharded_plain``; CUDA tensors -> launches A and B
+    of ``gae_plan(T, B)``'s plan and C, around the mean's and the
+    variance's all-reduces (``parallel/mesh.py::pmean``), or an error.
+    Counts each launch in ``launches`` and in ``by_stage``
+    (``SHARDED_STAGES``).  Returns ``(normalised advantages, td targets)``
+    of the inputs' shape."""
+    if not values.is_cuda:
+        return gae_sharded_plain(values, next_values, rewards, dones, gamma,
+                                 lam, mesh)
+    from ..parallel.mesh import pmean
+    shape, dev = tuple(values.shape), values.device
+    if len(shape) not in (2, 3) or (len(shape) == 3 and shape[2] != 1) \
+            or shape[0] <= 0 or shape[1] <= 0:
+        raise ValueError(f"gae_sharded: expected (T, B, 1) or (T, B), got "
+                         f"{shape}")
+    for name, t in (("values", values), ("next_values", next_values),
+                    ("rewards", rewards), ("dones", dones)):
+        _check(name, t, shape, dev)
+    adv = torch.empty(shape, dtype=torch.float32, device=dev)
+    td = torch.empty(shape, dtype=torch.float32, device=dev)
+    mean = torch.empty(1, dtype=torch.float32, device=dev)
+    var = torch.empty(1, dtype=torch.float32, device=dev)
+    plan = gae_plan(shape[0], shape[1])
+    world = mesh.world if mesh is not None else 1
+    for stage, stat in zip(SHARDED_STAGES, (mean, var, None)):
+        sharded_launch(stage, values, next_values, rewards, dones, gamma,
+                       lam, adv, td, mean, var, plan, world)
+        gae_sharded.launches += 1
+        gae_sharded.by_stage[stage] += 1
+        if stat is not None:
+            pmean(stat, mesh)
+    return adv, td
+
+
+gae_sharded.launches = 0
+gae_sharded.by_stage = {s: 0 for s in SHARDED_STAGES}

@@ -1,1 +1,1 @@
-"""Single-device training superstep of the PyTorch/CUDA port."""
+"""Training supersteps and the process group of the PyTorch/CUDA port."""

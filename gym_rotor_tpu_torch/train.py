@@ -1,7 +1,9 @@
-"""The training driver on one device (port of ``train.py``: ``Learner``,
-``main``) and ``train``, the bare superstep loop.
+"""The training driver on one device or over a process group (port of
+``train.py``: ``Learner``, ``main``) and ``train``, the bare superstep loop.
 
     python -m gym_rotor_tpu_torch.train [--flag value ...]   # on the card
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m gym_rotor_tpu_torch.train [--flag value ...]     # on 8 cards
 
 takes the JAX driver's flags and defaults (``utils/config.py``:
 ``create_parser``); the defaults are the flagship, TD3 on MODUL with EMLP
@@ -39,7 +41,21 @@ the same superstep with the SAC hooks (``algos/sac.py``).  On-policy
 (``"PPO"``, ``train.py:369-375``): each superstep is one horizon of
 ``max(T_horizon // num_envs, 1)`` ticks and one full PPO update, with no
 ring and no warm-up.  Every configuration the JAX package accepts runs:
-MODUL (DTDE, or CTDE) or MONO, EMLP or MLP networks.  One device, no mesh.
+MODUL (DTDE, or CTDE) or MONO, EMLP or MLP networks.
+
+Over a process group (``torchrun``, or a group the caller opened;
+``parallel/mesh.py``) the JAX driver's one path for any device count
+(``train.py:326-341``): each rank steps ``num_envs / world`` envs into a
+ring of ``replay_buffer_size / world`` rows (or its share of the horizon)
+and the parameters stay replicated through the averaged gradients
+(``parallel/train_step.py``).  Every rank resets the same global env batch
+from ``cfg.seed`` and keeps its rows, as ``sharded_init`` does; rank 0
+then goes on with that generator (so a world of one is today's stream),
+rank ``r`` with one seeded from ``(seed, r)`` (``mesh.rank_seed``, JAX's
+``fold_in(key, axis_index)``).  Rank 0 alone prints, evaluates and writes
+the logs, TensorBoard, actor files and checkpoints; the others wait at a
+barrier.  Every decision on the host reads reduced metrics or counters
+that are the same on every rank, so no rank skips a collective.
 """
 from __future__ import annotations
 
@@ -56,24 +72,31 @@ from .algos import ppo as ppo_lib
 from .algos import replay as replay_lib
 from .algos import sac as sac_lib
 from .algos.td3 import TD3Agent
+from .envs import draws as D
 from .envs.batch import batched_reset
 from .envs.quad import DT
 from .evaluate import evaluate
 from .kernels.env_tick import TickLoop
-from .parallel.train_step import make_ppo_superstep, make_td3_superstep
+from .parallel import mesh as mesh_lib
+from .parallel.train_step import (make_ppo_superstep, make_td3_superstep,
+                                  shard_replay)
 from .utils import checkpoint as ckpt
 from .utils import logging as logs
 from .utils.config import Config, config_from_args
 from .utils.device import resolve_device
+from .utils.tree import tree_from_named, tree_leaves, tree_named_leaves
 
 
 class Learner:
     """The agents, their states, the envs (a ``TickLoop``) and the ring or
-    the horizon on one device, seeded from ``cfg.seed``; ``superstep``
-    advances them, ``train_policy`` is the JAX driver's loop around it."""
+    the horizon on one device (this rank's share over ``mesh``), seeded
+    from ``cfg.seed``; ``superstep`` advances them, ``train_policy`` is the
+    JAX driver's loop around it.  ``mesh`` defaults to
+    ``parallel.mesh.make_mesh(device)``: the open process group, or one
+    device."""
 
     def __init__(self, cfg: Config, model_dir="./models",
-                 results_dir="./results", device=None):
+                 results_dir="./results", device=None, mesh=None):
         if cfg.rl_algo not in ("TD3", "SAC", "PPO"):
             raise NotImplementedError(f"only TD3, SAC and PPO are ported, "
                                       f"not {cfg.rl_algo}")
@@ -83,35 +106,61 @@ class Learner:
         self.cfg = cfg
         self.model_dir = model_dir
         self.results_dir = results_dir
-        dev = self.device = resolve_device(device)
-        self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        self.init_gen = torch.Generator().manual_seed(cfg.seed)
         sac, ppo = cfg.rl_algo == "SAC", cfg.rl_algo == "PPO"
         self.off_policy = not ppo
+        mesh = self.mesh = mesh if mesh is not None else \
+            mesh_lib.make_mesh(device)
+        dev = self.device = (mesh.device if device is None
+                             else resolve_device(device))
+        world = mesh.world
+        if cfg.num_envs % world:                       # train.py:328-331
+            raise ValueError(
+                f"num_envs ({cfg.num_envs}) must divide the device count "
+                f"({world})")
+        if self.off_policy and cfg.replay_buffer_size % world:
+            raise ValueError(
+                f"replay_buffer_size ({cfg.replay_buffer_size}) must split "
+                f"evenly over the device count ({world})")
+        self.lead = mesh.rank == 0
+        self.num_envs = cfg.num_envs // world          # this rank's envs
+        self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        self.init_gen = torch.Generator().manual_seed(cfg.seed)
         agent_cls = (ppo_lib.PPOAgent if ppo else sac_lib.SACAgent if sac
                      else TD3Agent)
         self.agents = [agent_cls(cfg, i, dev) for i in range(cfg.n_agents)]
         self.states = [a.init(self.init_gen) for a in self.agents]
-        bs, self.obs = batched_reset(cfg, self.gen, device=dev)
+        # the same global reset on every rank, each keeping its rows
+        # (train_step.py:317-331), then the rank's own stream
+        draws = D.draw_uniforms(cfg.num_envs, self.gen, torch.float32, dev)
+        bs, self.obs = batched_reset(
+            cfg.replace(num_envs=self.num_envs), device=dev,
+            draws=draws[mesh.rows(cfg.num_envs)].contiguous())
+        if mesh.rank > 0:
+            self.gen = torch.Generator(device=dev).manual_seed(
+                mesh_lib.rank_seed(cfg.seed, mesh.rank))
+        mesh_lib.replicate([t for st in self.states for t in tree_leaves(st)
+                            if isinstance(t, torch.Tensor)], mesh)
         self.loop = TickLoop(cfg, bs)
-        self.ep_ret = torch.zeros(cfg.num_envs, cfg.n_agents,
+        self.ep_ret = torch.zeros(self.num_envs, cfg.n_agents,
                                   dtype=torch.float32, device=dev)
         if ppo:
             self.rollout_len = max(cfg.T_horizon // cfg.num_envs, 1)
             self.n_updates = cfg.K_epochs
-            self.horizon = ppo_lib.HorizonBuffer(cfg, self.rollout_len, dev)
+            self.horizon = ppo_lib.HorizonBuffer(cfg, self.rollout_len, dev,
+                                                 num_envs=self.num_envs)
             self._step = make_ppo_superstep(cfg, self.agents, dev,
-                                            rollout_len=self.rollout_len)
+                                            rollout_len=self.rollout_len,
+                                            mesh=mesh)
         else:
             self.rollout_len = max(cfg.rollout_len, 1)
             self.n_updates = max(int(round(cfg.updates_per_step
                                            * self.rollout_len)), 1)
             self.replay = replay_lib.create(
-                cfg.replay_buffer_size, cfg.obs_dim_n, cfg.action_dim_n,
-                device=dev)
+                cfg.replay_buffer_size // world, cfg.obs_dim_n,
+                cfg.action_dim_n, device=dev)
             self._step = make_td3_superstep(
                 cfg, self.agents, dev, rollout_len=self.rollout_len,
-                n_updates=self.n_updates,
+                n_updates=self.n_updates, mesh=mesh,
                 **(sac_lib.superstep_hooks(self.agents) if sac else {}))
         self.steps_per_call = cfg.num_envs * self.rollout_len
         self.total_timesteps = 0
@@ -121,7 +170,7 @@ class Learner:
             / cfg.max_timesteps) if cfg.use_explor_noise_decay else 0.0
         self.episodes = []
         self.tb = logs.TensorBoard(
-            cfg.save_tensorboard, results_dir,
+            cfg.save_tensorboard and self.lead, results_dir,
             f"{cfg.rl_algo}_{cfg.seed}_{cfg.framework}")
 
     # ------------------------------------------------------------------
@@ -216,43 +265,101 @@ class Learner:
 
     # ------------------------------------------------------------------
     def checkpoint_tree(self) -> dict:
-        cfg = self.cfg
+        """The train-state map (``utils/checkpoint.py``).  Over a process
+        group a collective: the ring is the ranks' rings gathered in rank
+        order (JAX's global layout), and ``mesh`` holds the world size,
+        every rank's generators and SAC temperature, and the env state,
+        observations and ``ep_ret`` gathered likewise."""
+        cfg, mesh = self.cfg, self.mesh
         ring = (self.replay if self.off_policy and cfg.checkpoint_replay
                 else None)
-        return ckpt.train_state_tree(
-            cfg, self.states, {"env": self.gen, "init": self.init_gen},
-            self.total_timesteps, self.explor_noise_std, ring)
+        if ring is not None:
+            ring = replay_lib.ReplayState(
+                mesh_lib.gather_rows(ring.data, mesh), ring.ptr, ring.filled,
+                ring.dims)
+        gens = {"env": self.gen, "init": self.init_gen}
+        tree = ckpt.train_state_tree(
+            cfg, self.states, gens, self.total_timesteps,
+            self.explor_noise_std, ring)
+        if mesh.sharded:
+            def rows(x):
+                return mesh_lib.gather_rows(x, mesh).cpu().numpy()
+            tree["mesh"] = ckpt.mesh_tree(
+                mesh_lib.gather_objects(ckpt.rank_tree(self.states, gens),
+                                        mesh),
+                {k: rows(v) for k, v in tree_named_leaves(self.loop.state)},
+                [rows(o) for o in self.obs], rows(self.ep_ret))
+        return tree
 
     def save_checkpoint(self, path=None) -> str:
+        """Write the train state to ``path`` (default
+        ``cfg.checkpoint_path``); over a process group every rank takes
+        part in the gathers and rank 0 writes the file."""
         path = path or self.cfg.checkpoint_path
-        return ckpt.save_train_state(path, self.checkpoint_tree())
+        tree = self.checkpoint_tree()
+        if self.lead:
+            ckpt.save_train_state(path, tree)
+        mesh_lib.barrier(self.mesh)
+        return path
 
     def load_checkpoint(self, path=None):
         """Restore a ``save_checkpoint`` file: the states (rebound, so every
         network's ``param_version`` moves), both generators, the counters
-        and, if saved, the ring (into this learner's ring, in place)."""
+        and, if saved, the ring (into this learner's ring, in place).  Over
+        a process group of the size that saved it each rank takes its own
+        generators, SAC temperature, ring rows, env state, observations and
+        ``ep_ret``; a file of another world size raises ``ValueError``
+        (JAX reshards it silently: a stated divergence)."""
         path = path or self.cfg.checkpoint_path
+        mesh = self.mesh
         out = ckpt.load_train_state(path, self.cfg, self.agents, self.states,
                                     self.device)
+        saved_world = ckpt.saved_world(out)
+        if saved_world != mesh.world:
+            raise ValueError(
+                f"{path} was saved by a world of {saved_world} rank(s); this "
+                f"run has {mesh.world}: resume at the same world size")
         self.states[:] = out["states"]
-        self.gen.set_state(out["generators"]["env"])
-        self.init_gen.set_state(out["generators"]["init"])
+        gens = out["generators"]
+        if mesh.sharded:
+            gens = ckpt.load_rank_tree(out["mesh"]["ranks"][mesh.rank],
+                                       self.states, self.device,
+                                       f"{path}/mesh/ranks/{mesh.rank}")
+        self.gen.set_state(gens["env"])
+        self.init_gen.set_state(gens["init"])
         self.total_timesteps = out["total_timesteps"]
         self.explor_noise_std = out["explor_noise_std"]
         if "replay" in out:
             if not self.off_policy:
                 raise ValueError(f"{path} holds a replay ring; "
                                  f"{self.cfg.rl_algo} has none")
-            saved = out["replay"]
-            data = saved["data"]
+            saved = shard_replay(replay_lib.ReplayState(
+                torch.from_numpy(np.array(out["replay"]["data"])),
+                int(out["replay"]["ptr"]), int(out["replay"]["filled"])),
+                mesh)
+            data = saved.data
             if tuple(data.shape) != tuple(self.replay.data.shape):
                 raise ValueError(f"{path}: ring of {list(data.shape)}, this "
                                  f"learner's is "
                                  f"{list(self.replay.data.shape)}")
-            self.replay.data.copy_(torch.from_numpy(np.array(data)))
-            self.replay.ptr = int(saved["ptr"])
-            self.replay.filled = int(saved["filled"])
+            self.replay.data.copy_(data)
+            self.replay.ptr, self.replay.filled = saved.ptr, saved.filled
+        if mesh.sharded:
+            self._load_envs(out["mesh"])
         return self
+
+    def _load_envs(self, saved) -> None:
+        """This rank's rows of a checkpoint's gathered env state,
+        observations and ``ep_ret``."""
+        rows, dev = self.mesh.rows(self.cfg.num_envs), self.device
+
+        def mine(a):
+            return torch.from_numpy(np.array(a)[rows]).to(dev)
+        leaves = {k: mine(v) for k, v in saved["env"].items()}
+        self.loop = TickLoop(self.cfg, tree_from_named(self.loop.state,
+                                                       leaves))
+        self.obs = tuple(mine(o) for o in saved["obs"])
+        self.ep_ret.copy_(mine(saved["ep_ret"]))
 
     # ------------------------------------------------------------------
     def eval_policy(self):
@@ -319,16 +426,19 @@ class Learner:
         """Supersteps until ``max_timesteps``, with the JAX driver's
         protocol around them (``train.py:317-458``): the per-episode step
         log, TensorBoard scalars, periodic eval with best and solved actor
-        saving, train-state checkpoints and the rate print."""
-        cfg = self.cfg
-        print(f"training on {self.device}: {cfg.num_envs} envs, "
-              f"rollout_len={self.rollout_len}, {self.n_updates} "
-              f"update{'s' if self.n_updates > 1 else ''}/superstep")
-        tl = logs.TextLogs(self.results_dir, cfg.seed)
+        saving, train-state checkpoints and the rate print.  Over a process
+        group rank 0 evaluates, logs and saves while the others wait at a
+        barrier; every rank takes part in each checkpoint's gathers."""
+        cfg, mesh, lead = self.cfg, self.mesh, self.lead
+        if lead:
+            print(f"training over {mesh.world} device(s): {cfg.num_envs} "
+                  f"envs, rollout_len={self.rollout_len}, {self.n_updates} "
+                  f"update{'s' if self.n_updates > 1 else ''}/superstep")
+        tl = logs.TextLogs(self.results_dir, cfg.seed) if lead else None
         thr = logs.Throughput()
         max_total_reward = [0.85 * cfg.eval_max_steps / DT] * cfg.n_agents
         next_eval = cfg.eval_freq
-        if cfg.eval_freq < self.steps_per_call:
+        if cfg.eval_freq < self.steps_per_call and lead:
             print(f"note: eval_freq ({cfg.eval_freq}) < steps/superstep "
                   f"({self.steps_per_call}); evaluating once per superstep "
                   f"— raise --eval_freq for throughput")
@@ -342,7 +452,7 @@ class Learner:
                 warm, metrics, mean_ret = self.superstep()
                 thr.add(env_steps=self.steps_per_call,
                         updates=0 if warm else self.n_updates)
-                if mean_ret is not None:
+                if mean_ret is not None and lead:
                     tl.log_step(self.total_timesteps, mean_ret)
                 if tb_on and not warm:
                     for k, v in metrics.items():
@@ -351,18 +461,9 @@ class Learner:
                                            self.total_timesteps)
 
                 if self.total_timesteps >= next_eval and not warm:
-                    rewards, bench, success = self.eval_policy()
-                    tl.log_eval(self.total_timesteps, bench, list(rewards))
-                    self.tb.scalar("reward/benchmark_reward", bench,
-                                   self.total_timesteps)
-                    for i, r in enumerate(rewards):
-                        self.tb.scalar(f"reward/eval_reward{i}", r,
-                                       self.total_timesteps)
-                        if r > max_total_reward[i] and cfg.save_model:
-                            max_total_reward[i] = r
-                            self.save_actor(i)
-                        if success[:, i].all() and cfg.save_model:
-                            self.save_actor(i, solved=True)
+                    if lead:
+                        self._eval_and_save(tl, max_total_reward)
+                    mesh_lib.barrier(mesh)
                     while next_eval <= self.total_timesteps:
                         next_eval += cfg.eval_freq
 
@@ -370,14 +471,31 @@ class Learner:
                     self.save_checkpoint()
                     next_ckpt += cfg.checkpoint_freq
 
-                if time.perf_counter() - last_report > 10.0:
+                if time.perf_counter() - last_report > 10.0 and lead:
                     es, us = thr.rates()
                     print(f"t={self.total_timesteps}  env-steps/s={es:,.0f}  "
                           f"updates/s={us:,.1f}  "
                           f"noise={self.explor_noise_std:.3f}")
                     last_report = time.perf_counter()
         finally:
-            tl.close()
+            if tl is not None:
+                tl.close()
+
+    def _eval_and_save(self, tl, max_total_reward) -> None:
+        """One eval, its log lines and scalars, and the best and solved
+        actor files (``train.py:434-453``)."""
+        cfg = self.cfg
+        rewards, bench, success = self.eval_policy()
+        tl.log_eval(self.total_timesteps, bench, list(rewards))
+        self.tb.scalar("reward/benchmark_reward", bench,
+                       self.total_timesteps)
+        for i, r in enumerate(rewards):
+            self.tb.scalar(f"reward/eval_reward{i}", r, self.total_timesteps)
+            if r > max_total_reward[i] and cfg.save_model:
+                max_total_reward[i] = r
+                self.save_actor(i)
+            if success[:, i].all() and cfg.save_model:
+                self.save_actor(i, solved=True)
 
 
 def train(cfg: Config, supersteps: int, device=None,
@@ -405,28 +523,47 @@ def main(argv=None, device=None):
     """The CLI driver: parse ``argv`` (``sys.argv`` when None), then
     evaluate only (``--test_model``), or resume (``--resume``), evaluate and
     train.  Returns the ``Learner``.  Runs on the card unless ``device``
-    says otherwise."""
+    says otherwise.  Under ``torchrun`` (``WORLD_SIZE`` > 1) it opens the
+    process group (``parallel/mesh.py::initialize_distributed``; ``nccl``
+    on the cards, ``gloo`` with ``device="cpu"``) and closes it at the
+    end; a group the caller opened is used as it is.  Rank 0 prints,
+    evaluates and saves."""
     cfg = config_from_args(argv)
-    print("-" * 100)
-    print(f"Framework: {cfg.framework} | Equivariant RL: {cfg.use_equiv} | "
-          f"RL algorithm: {cfg.rl_algo} | Seed: {cfg.seed}")
-    print(f"gamma: {cfg.discount} | lr_a: {list(cfg.lr_a)} | "
-          f"lr_c: {list(cfg.lr_c)} | num_envs: {cfg.num_envs} | "
-          f"integrator: {cfg.integrator}")
-    print("-" * 100)
-    learner = Learner(cfg, device=device)
-    if cfg.test_model:
-        learner.load_best_actors()
-        learner.eval_policy()
+    opened = mesh_lib.initialize_distributed(device=device)
+    try:
+        mesh = mesh_lib.make_mesh(device)
+        lead = mesh.rank == 0
+        if lead:
+            print("-" * 100)
+            print(f"Framework: {cfg.framework} | Equivariant RL: "
+                  f"{cfg.use_equiv} | RL algorithm: {cfg.rl_algo} | Seed: "
+                  f"{cfg.seed}")
+            print(f"gamma: {cfg.discount} | lr_a: {list(cfg.lr_a)} | "
+                  f"lr_c: {list(cfg.lr_c)} | num_envs: {cfg.num_envs} | "
+                  f"integrator: {cfg.integrator}")
+            print("-" * 100)
+        learner = Learner(cfg, mesh=mesh)
+        if cfg.test_model:
+            if lead:
+                learner.load_best_actors()
+                learner.eval_policy()
+            mesh_lib.barrier(mesh)
+            return learner
+        if cfg.resume and os.path.exists(cfg.checkpoint_path):
+            learner.load_checkpoint()
+            if lead:
+                print(f"resumed from {cfg.checkpoint_path} at "
+                      f"t={learner.total_timesteps}")
+        if lead:
+            learner.eval_policy()
+        mesh_lib.barrier(mesh)
+        with logs.profiler_trace((cfg.profile_dir or None) if lead
+                                 else None):
+            learner.train_policy()
         return learner
-    if cfg.resume and os.path.exists(cfg.checkpoint_path):
-        learner.load_checkpoint()
-        print(f"resumed from {cfg.checkpoint_path} at "
-              f"t={learner.total_timesteps}")
-    learner.eval_policy()
-    with logs.profiler_trace(cfg.profile_dir or None):
-        learner.train_policy()
-    return learner
+    finally:
+        if opened:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

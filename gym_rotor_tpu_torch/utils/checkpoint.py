@@ -20,6 +20,15 @@ Two tiers:
   and, when asked (``checkpoint_replay``), the replay ring: the list the
   JAX driver keeps (``train.py:236-245``), with torch generators in place of
   the PRNG key.
+
+  Saved over a process group of more than one rank (``train.py``), the map
+  also holds ``mesh``: the ``world`` size; ``ranks``, each rank's
+  generators and SAC temperature (``log_alpha``, ``alpha_opt``: each rank
+  steps its own, ``sac.py:264-271``), in rank order; and the env state
+  (dotted field paths), the observations and ``ep_ret``, each the ranks'
+  rows concatenated in rank order, as is the ring.  A file saved at world
+  1 has no ``mesh`` and is byte for byte what a learner without a process
+  group writes.  The world size must match at load (``saved_world``).
 """
 from __future__ import annotations
 
@@ -232,4 +241,56 @@ def load_train_state(path: str, cfg, agents, states, device
     out["explor_noise_std"] = float(tree["explor_noise_std"])
     if "replay" in tree:
         out["replay"] = tree["replay"]
+    if "mesh" in tree:
+        out["mesh"] = tree["mesh"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Over a process group
+# ---------------------------------------------------------------------------
+RANK_FIELDS = ("log_alpha", "alpha_opt")   # an agent state's per-rank fields
+
+
+def rank_tree(states, generators: Mapping[str, torch.Generator]
+              ) -> Dict[str, Any]:
+    """One rank's own part of the train state: its generators' states and,
+    per agent, the state fields that differ between ranks
+    (``RANK_FIELDS``: SAC's temperature)."""
+    return {"generators": {k: g.get_state().numpy() for k, g in
+                           generators.items()},
+            "agents": [{f: _to_tree(getattr(st, f)) for f in RANK_FIELDS
+                        if hasattr(st, f)} for st in states]}
+
+
+def mesh_tree(ranks, env: Mapping[str, np.ndarray], obs, ep_ret
+              ) -> Dict[str, Any]:
+    """The ``mesh`` map: ``world``, every rank's ``rank_tree`` in rank
+    order and the gathered env state (``{dotted path: array}``),
+    observations and ``ep_ret``."""
+    return {"world": len(ranks), "ranks": list(ranks), "env": dict(env),
+            "obs": list(obs), "ep_ret": ep_ret}
+
+
+def saved_world(loaded: Mapping[str, Any]) -> int:
+    """The world size a ``load_train_state`` result was saved by (1 for a
+    file without ``mesh``)."""
+    return int(loaded["mesh"]["world"]) if "mesh" in loaded else 1
+
+
+def load_rank_tree(tree, states, device, path) -> Dict[str, torch.Tensor]:
+    """Apply a ``rank_tree`` to ``states`` in place (the per-rank fields,
+    checked against the current ones) and return its generator states
+    (uint8 tensors)."""
+    _check_keys(tree, ["generators", "agents"], path)
+    if len(tree["agents"]) != len(states):
+        raise ValueError(f"{path} holds {len(tree['agents'])} agents, the "
+                         f"configuration has {len(states)}")
+    for i, (st, saved) in enumerate(zip(states, tree["agents"])):
+        fields = [f for f in RANK_FIELDS if hasattr(st, f)]
+        _check_keys(saved, fields, f"{path}/agents/{i}")
+        for f in fields:
+            setattr(st, f, _from_tree(saved[f], getattr(st, f), device,
+                                      f"{path}/agents/{i}/{f}"))
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in tree["generators"].items()}
