@@ -306,6 +306,24 @@ result line):
                 --nproc_per_node 1 -m gym_rotor_tpu_torch.train`` training,
                 evaluating and checkpointing; one record per sharded K12
                 launch
+ 28. the general EMLP engine (``phase_general``): ``GeneralEMLP(V -> V)``
+                at its defaults (``ch`` 384, 3 layers) over SO(3) and S(4),
+                each built on the host (its basis build time and blocks'
+                ``(nin, ng, nh, nnz)`` printed); every distinct block
+                through the run-time K3/K4 (``emlp_block_any``,
+                ``emlp_block_backward_any``) against the twins at 4096
+                rows and phase 26's row counts, reruns bitwise; each
+                network's forward and backward at 4096 rows with the
+                counts zeroed just before: exactly 3 run-time K3 and 3 K4
+                launches and none of the instances, the output and every
+                gradient at 256 rows within 1e-4 of the CPU network, the
+                equivariance error under 1e-4; 20 Adam steps of
+                ``GeneralEMLP(V -> V0)`` on |x|^2 with the loss falling
+                (60 K3 and 60 K4); ``Interface`` (three SO(3) vectors, a
+                scoped EMLP of 62 channels through ``emlp_apply``) against
+                the CPU module; one record per run-time wrapper on this
+                path (``emlp_block_any:general``,
+                ``emlp_block_backward_any:general``)
 Then the card's name and power limit, one JSON line of kernel records, and
 last the ``{"ok": true, "device": ...}`` line.
 
@@ -5800,6 +5818,26 @@ def _specs_of(agents, dev):
     return {s.dims: s for s in specs}
 
 
+def any_block_work(spec, nb, kind, flag):
+    """(bytes, operations) of one run-time K3 (``kind``
+    "emlp_block_any", ``flag`` save) or K4 (``flag`` the parameter sums)
+    call at ``nb`` rows, as ``width_block_timing`` counts them."""
+    nin, ng, nh = spec.dims
+    ints = spec.rt_ints()[0].numel()
+    if kind == "emlp_block_any":
+        flops = nb * (2 * ng * nin + 3 * ng + 3 * spec.nnz + 4 * nh)
+        nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + ints
+                      + nb * nh + (2 * ng * nb if flag else 0))
+        return nbytes, flops
+    flops = nb * (8 * ng + 6 * spec.nnz + ng + 2 * ng * nin)
+    n_par = ng * nin + ng + spec.nnz
+    if flag:
+        flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
+    nbytes = 4 * (nb * nh + nb * nin + ng * nin + spec.nnz + 2 * ng * nb
+                  + ints + nb * nin + (n_par if flag else 0))
+    return nbytes, flops
+
+
 def width_block_timing(shapes, specs, gen, dev):
     """Run-time K3 and K4 per (dims, rows, flag) the slice's runs launched
     (``shapes``: their ``by_shape`` counts), weighted by launches: device
@@ -5818,28 +5856,17 @@ def width_block_timing(shapes, specs, gen, dev):
             if dims in K.INSTANCES:
                 continue
             spec = specs[dims]
-            nin, ng, nh = dims
             x, W, b, v, g_h = _block_operands(spec, nb, gen, dev)
-            ints = spec.rt_ints()[0].numel()
             if kind == "emlp_block_any":
                 fn = lambda: K.emlp_block_any(spec, x, W, b, v, flag)
                 plain = lambda: K.emlp_block_plain(spec, x, W, b, v, flag)
-                flops = nb * (2 * ng * nin + 3 * ng + 3 * spec.nnz + 4 * nh)
-                nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + ints
-                              + nb * nh + (2 * ng * nb if flag else 0))
             else:
                 _, lin, pre = K.emlp_block_any(spec, x, W, b, v)
                 fn = lambda: K.emlp_block_backward_any(spec, g_h, x, W, v,
                                                        lin, pre, flag)
                 plain = lambda: K.emlp_block_backward_plain(
                     spec, g_h, x, W, v, lin, pre, flag)
-                flops = nb * (8 * ng + 6 * spec.nnz + ng + 2 * ng * nin)
-                n_par = ng * nin + ng + spec.nnz
-                if flag:
-                    flops += nb * (2 * ng * nin + ng + 4 * spec.nnz)
-                nbytes = 4 * (nb * nh + nb * nin + ng * nin + spec.nnz
-                              + 2 * ng * nb + ints + nb * nin
-                              + (n_par if flag else 0))
+            nbytes, flops = any_block_work(spec, nb, kind, flag)
             k_ms, k_wall = device_ms(fn, 20)
             p_ms, _ = device_ms(plain, 3, 3)
             bms, by = bound_ms(nbytes, flops)
@@ -6624,6 +6651,301 @@ def phase_multi(dev):
     return gae_sharded_records(dev, err, launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the general EMLP engine
+# ---------------------------------------------------------------------------
+GENERAL_CONFIGS = (("so3", "SO", 3), ("s4", "S", 4))
+GENERAL_CH, GENERAL_LAYERS = 384, 3      # GeneralEMLP's own defaults
+GENERAL_ROWS = (B,) + tuple(r for r in WIDTH_ROWS if r != B)
+GENERAL_COMPARE_ROWS = 256   # network rows held to the CPU twins
+GENERAL_EQUIV_TOL = 1e-4     # the JAX package's end-to-end bound
+GENERAL_NET_TOL = 1e-4       # card vs CPU network, of max |CPU|
+GENERAL_ADAM_STEPS = 20
+GENERAL_IO_CH = 62           # the Interface's inner scoped EMLP (8 vectors)
+GENERAL_REPLACES = {
+    "emlp_block_any": "gym_rotor_tpu/models/emlp/general_nn.py:228",
+    "emlp_block_backward_any": "gym_rotor_tpu/models/emlp/general_nn.py:205"}
+
+
+def general_models(dev):
+    """Both configurations' ``GeneralEMLP(V -> V)`` at ``ch`` 384 and 3
+    layers (seeded, built on the host, moved to the card) with their
+    blocks' specs on the card: ``{name: (group, net)}``.  Logs each one's
+    host build time (bases, bilinear layouts, block indices) and its
+    blocks' ``(nin, ng, nh, nnz)``."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    from gym_rotor_tpu_torch.models.emlp import general_nn as GN
+    from gym_rotor_tpu_torch.models.emlp import groups as GG
+    from gym_rotor_tpu_torch.models.emlp.rep_algebra import V
+    out = {}
+    for name, grp, n in GENERAL_CONFIGS:
+        G = getattr(GG, grp)(n)
+        t0 = time.perf_counter()
+        net = GN.GeneralEMLP(V, V, G, ch=GENERAL_CH,
+                             num_layers=GENERAL_LAYERS, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+        t_net = time.perf_counter() - t0
+        specs = [K.general_block_spec(blk, dev) for blk in net.blocks()]
+        t_build = time.perf_counter() - t0
+        log("general", config=name, group=repr(G), ch=GENERAL_CH,
+            layers=GENERAL_LAYERS, basis_build_s=t_build, modules_s=t_net,
+            blocks=[list(sp.dims) + [sp.nnz] for sp in specs],
+            relabelled=[sp.rows is not None for sp in specs], card=CARD)
+        out[name] = (G, net.to(dev))
+    return out
+
+
+def general_block_checks(dev, models, gen):
+    """Every distinct general block spec through the run-time K3/K4 against
+    the twins at ``GENERAL_ROWS`` (``_any_block_vs_plain``: phase 26's
+    tolerance, reruns bitwise).  Returns the worst (forward, backward)
+    errors and the specs by (config, block)."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    worst, bad, specs = (0.0, 0.0), [], {}
+    for name, (G, net) in models.items():
+        seen = set()
+        for i, blk in enumerate(net.blocks()):
+            spec = K.general_block_spec(blk, dev)
+            specs[(name, i)] = spec
+            if id(spec) in seen:
+                continue
+            seen.add(id(spec))
+            for nb in GENERAL_ROWS:
+                errs, b, _ = _any_block_vs_plain(
+                    spec, _block_operands(spec, nb, gen, dev))
+                worst = (max(worst[0], *(errs[k] for k in ("h", "lin",
+                                                          "pre"))),
+                         max(worst[1], *(errs[k] for k in ("g_x", "g_W",
+                                                          "g_b", "g_v"))))
+                log("general", check="emlp_block_any", config=name, block=i,
+                    dims=list(spec.dims), nnz=spec.nnz, batch=nb, **errs)
+                bad += [(name, i, nb) + x for x in b]
+    if bad:
+        raise AssertionError(f"general K3/K4: {bad[:5]}")
+    return worst, specs
+
+
+def _general_counts():
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    return {k: getattr(K, k).launches for k in (
+        "emlp_block", "emlp_block_backward", "emlp_block_any",
+        "emlp_block_backward_any")}
+
+
+def _zero_general_counts():
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    for k in ("emlp_block", "emlp_block_backward", "emlp_block_any",
+              "emlp_block_backward_any"):
+        getattr(K, k).launches = 0
+
+
+def general_network(dev, name, G, net, gen):
+    """One configuration's network on the card: a forward and backward at
+    ``B`` rows with the counts zeroed just before and read just after
+    (exactly one run-time K3 and K4 a block, no instance launch); the
+    output and every parameter's gradient at ``GENERAL_COMPARE_ROWS`` rows
+    against the same network on the CPU (the twins); the equivariance
+    error of the card's output under a sampled element.  Returns the
+    counts of the counted run."""
+    import copy
+
+    import numpy as np
+    n_blk = len(net.blocks())
+    d = G.d
+    x = _rand((B, d), gen, dev)
+    net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    _zero_general_counts()
+    t0 = time.perf_counter()
+    y = net(x)
+    (y * y).mean().backward()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = _general_counts()
+    want = {"emlp_block": 0, "emlp_block_backward": 0,
+            "emlp_block_any": n_blk, "emlp_block_backward_any": n_blk}
+    if counts != want or not torch.isfinite(y).all():
+        raise AssertionError(f"general {name}: launches {counts} (want "
+                             f"{want}), finite {bool(torch.isfinite(y).all())}")
+    xs = x[:GENERAL_COMPARE_ROWS]
+    net.zero_grad(set_to_none=True)
+    yk = net(xs)
+    (yk * yk).sum().backward()
+    cpu = copy.deepcopy(net).cpu()
+    cpu.zero_grad(set_to_none=True)
+    yp = cpu(xs.cpu())
+    (yp * yp).sum().backward()
+    errs = {"y": float((yk.detach().cpu() - yp.detach()).abs().max()
+                       / yp.detach().abs().max())}
+    for (k, pk), (_, pp) in zip(net.named_parameters(),
+                                cpu.named_parameters()):
+        if pk.grad is None and pp.grad is None:
+            continue
+        errs[k] = float((pk.grad.cpu() - pp.grad).abs().max()
+                        / max(float(pp.grad.abs().max()), 1e-30))
+    rng = np.random.default_rng(SEED)
+    g = G.samples(1, rng)[0]
+    rin = torch.as_tensor(net.rep_in.rho(g), dtype=torch.float32,
+                          device=dev)
+    rout = torch.as_tensor(net.rep_out.rho(g), dtype=torch.float32,
+                           device=dev)
+    with torch.no_grad():
+        y0 = net(x)
+        yg = net(x @ rin.T)
+    equiv = float((yg - y0 @ rout.T).abs().max() / (y0.abs().max() + 1e-8))
+    log("general", check="network", config=name, batch=B,
+        launches=counts, fwd_bwd_wall_ms=step_ms,
+        compare_rows=GENERAL_COMPARE_ROWS, max_rel_err=max(errs.values()),
+        worst=max(errs, key=errs.get), equivariance_err=equiv, card=CARD)
+    if max(errs.values()) > GENERAL_NET_TOL or not equiv < GENERAL_EQUIV_TOL:
+        raise AssertionError(f"general {name}: card vs CPU {errs}, "
+                             f"equivariance {equiv}")
+    return counts
+
+
+def general_regression(dev, gen):
+    """``GeneralEMLP(V -> V0)`` over SO(3) at the full width (its blocks'
+    bases are the V -> V network's) fitted by ``GENERAL_ADAM_STEPS`` Adam
+    steps to the invariant target |x|^2 at ``B`` rows: the loss falls, and
+    every step is one run-time K3 and K4 a block."""
+    from gym_rotor_tpu_torch.models.emlp import general_nn as GN
+    from gym_rotor_tpu_torch.models.emlp import groups as GG
+    from gym_rotor_tpu_torch.models.emlp.rep_algebra import V, Scalar
+    net = GN.GeneralEMLP(V, Scalar, GG.SO(3), ch=GENERAL_CH,
+                         num_layers=GENERAL_LAYERS, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED)).to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=3e-3)
+    x = _rand((B, 3), gen, dev)
+    target = (x * x).sum(-1, keepdim=True)
+    _zero_general_counts()
+    losses = []
+    for _ in range(GENERAL_ADAM_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = ((net(x) - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    counts = _general_counts()
+    n = GENERAL_ADAM_STEPS * len(net.blocks())
+    log("general", check="regression", steps=GENERAL_ADAM_STEPS,
+        loss_first=losses[0], loss_last=losses[-1], launches=counts)
+    if not (math.isfinite(losses[-1]) and losses[-1] < losses[0]) \
+            or counts["emlp_block_any"] != n \
+            or counts["emlp_block_backward_any"] != n:
+        raise AssertionError(f"general regression: losses {losses}, "
+                             f"launches {counts}")
+
+
+def general_interface(dev, gen, net):
+    """``Interface`` on the card over three SO(3) vectors (a frame's
+    worth: one vector alone gives rank-one frames), wrapping the SO(3)
+    network applied to each vector, with a scoped ``EMLP`` of
+    ``GENERAL_IO_CH`` channels for its frames: the inner EMLP through K3
+    (``emlp_apply``), the output finite and within ``GENERAL_NET_TOL`` of
+    the CPU module's on the same rows and noise."""
+    import copy
+
+    from gym_rotor_tpu_torch.models.emlp import groups as GG
+    from gym_rotor_tpu_torch.models.emlp.interface import Interface
+    from gym_rotor_tpu_torch.models.emlp.reps import Vector
+    G = GG.SO(3)
+
+    def per_vector(f):
+        return lambda u: f(u.reshape(-1, 3)).reshape(u.shape[0], -1)
+    io = Interface(per_vector(net), Vector(G) * 3, Vector(G) * 3, G,
+                   io_ch=GENERAL_IO_CH, device="cpu",
+                   generator=torch.Generator().manual_seed(SEED)).to(dev)
+    x = _rand((GENERAL_COMPARE_ROWS, 9), gen, dev)
+    z = _rand((9,), gen, dev)
+    _zero_general_counts()
+    with torch.no_grad():
+        y = io(x, z)
+        torch.cuda.synchronize()
+        counts = _general_counts()
+        cpu = copy.deepcopy(io).cpu()
+        cpu.model = per_vector(copy.deepcopy(net).cpu())
+        yp = cpu(x.cpu(), z.cpu())
+    err = float((y.cpu() - yp).abs().max() / yp.abs().max())
+    log("general", check="interface", batch=GENERAL_COMPARE_ROWS,
+        io_ch=GENERAL_IO_CH, launches=counts, max_rel_err=err)
+    if not (torch.isfinite(y).all() and err <= GENERAL_NET_TOL) \
+            or counts["emlp_block"] + counts["emlp_block_any"] < 1:
+        raise AssertionError(f"general interface: err {err}, launches "
+                             f"{counts}")
+
+
+def general_records(dev, specs, launches, errs, gen):
+    """One record per run-time wrapper on the general path: its launches in
+    the two networks' counted runs, the worst block error, and times at
+    ``B`` rows (the forward saving lin and pre, the backward with the
+    parameter sums) of each distinct block, weighted by the blocks that
+    share it, each against the chunked twins."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    inst = {"emlp_block_any": [], "emlp_block_backward_any": []}
+    weight = Counter(id(sp) for sp in specs.values())
+    timed = set()
+    for (name, i), spec in sorted(specs.items()):
+        if id(spec) in timed:
+            continue
+        timed.add(id(spec))
+        x, W, b, v, g_h = _block_operands(spec, B, gen, dev)
+        _, lin, pre = K.emlp_block_any(spec, x, W, b, v)
+        n = max(1, (1 << 27) // max(spec.nnz, 4 * spec.ng))
+
+        def plain_fwd():
+            for r0 in range(0, B, n):
+                K.emlp_block_plain(spec, x[r0:r0 + n], W, b, v)
+
+        def plain_bwd():
+            for r0 in range(0, B, n):
+                K.emlp_block_backward_plain(
+                    spec, g_h[r0:r0 + n], x[r0:r0 + n], W, v,
+                    lin[:, r0:r0 + n].contiguous(),
+                    pre[:, r0:r0 + n].contiguous(), True)
+        for kind, fn, plain in (
+                ("emlp_block_any",
+                 lambda: K.emlp_block_any(spec, x, W, b, v, True), plain_fwd),
+                ("emlp_block_backward_any",
+                 lambda: K.emlp_block_backward_any(spec, g_h, x, W, v, lin,
+                                                   pre, True), plain_bwd)):
+            k_ms, k_wall = device_ms(fn, 10)
+            p_ms, _ = device_ms(plain, 1, 3)
+            nbytes, flops = any_block_work(spec, B, kind, True)
+            bms, by = bound_ms(nbytes, flops)
+            log("kernels", kernel=kind, path="general", config=name,
+                block=i, blocks=weight[id(spec)], dims=list(spec.dims),
+                nnz=spec.nnz, batch=B, ms=k_ms, wall_ms_per_call=k_wall,
+                plain_ms=p_ms, bytes=nbytes, flops=flops, bound_ms=bms,
+                bound_by=by, library_ms=None)
+            inst[kind].append((weight[id(spec)], k_ms, p_ms, bms, by, None))
+    return [dict(_record(k, "emlp_block.cu", GENERAL_REPLACES[k],
+                         launches[k], errs[k], inst[k]),
+                 name=f"{k}:general") for k in inst]
+
+
+def phase_general(dev):
+    """Phase 28: the general EMLP engine on the card.  Both full-width
+    configurations' blocks against the twins at ``GENERAL_ROWS``; each
+    network's forward and backward with exact run-time K3/K4 launches,
+    held to the CPU network and to equivariance; the invariant regression;
+    ``Interface``; then one record per run-time wrapper on this path."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    models = general_models(dev)
+    (fe, be), specs = general_block_checks(dev, models, gen)
+    launches = Counter()
+    for name, (G, net) in models.items():
+        launches.update(general_network(dev, name, G, net, gen))
+    general_regression(dev, gen)
+    general_interface(dev, gen, models["so3"][1])
+    records = general_records(
+        dev, specs, launches,
+        {"emlp_block_any": fe, "emlp_block_backward_any": be}, gen)
+    log("general", check="done", t_phase_s=time.perf_counter() - t0,
+        card=CARD)
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6696,6 +7018,7 @@ def main():
     phase_driver(dev)
     records += phase_widths(dev)
     records += phase_multi(dev)
+    records += phase_general(dev)
     for rec in records:
         if rec["name"] == "env_tick":
             rec["max_abs_err"] = max(rec["max_abs_err"], k1_err)

@@ -240,6 +240,28 @@ def ppo_actor_params_to_jax(sd: Mapping[str, torch.Tensor], cfg: Config,
     return _params_to_jax(sd, _ppo_actor_shapes(cfg, agent_id))
 
 
+def _module_shapes(module: torch.nn.Module):
+    return OrderedDict((k, tuple(v.shape))
+                       for k, v in module.state_dict().items())
+
+
+def module_params_from_jax(tree: Mapping, module: torch.nn.Module):
+    """Flax params of a network the port mirrors name for name (the
+    general engine's ``GeneralEMLP`` and its layers, ``Interface``, the
+    diagnostics' ``MLP``: ``block_0/linear/kernel`` is
+    ``block_0.linear.kernel``) -> ``module``'s ``state_dict`` (CPU
+    tensors), every name and shape checked; load it with
+    ``module.load_state_dict``."""
+    return _params_from_jax(tree, _module_shapes(module))
+
+
+def module_params_to_jax(sd: Mapping[str, torch.Tensor],
+                         module: torch.nn.Module) -> dict:
+    """The inverse of ``module_params_from_jax``: ``module``'s parameters
+    (``sd``) -> flax's ``{"params": ...}`` tree of numpy arrays."""
+    return _params_to_jax(sd, _module_shapes(module))
+
+
 def flat_to_jax(flat: torch.Tensor, layout: FlatLayout) -> dict:
     """A flat parameter vector in ``layout``'s order -> its flax
     ``{"params": ...}`` tree of numpy arrays (the inverse of

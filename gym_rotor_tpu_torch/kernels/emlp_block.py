@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from ..models.emlp.nn import (bilinear_index, bilinear_sparse, gate_indices,
-                               project_linear)
+                               merge_nonzeros, project_linear)
 from .build import KernelSource, check
 
 KERNEL = KernelSource("emlp_block", [])
@@ -325,19 +325,48 @@ class BlockSpec:
     """The static side of one block: sizes, the bilinear index (int32 for
     the kernel, int64 for the plain twin), the gate indices, the
     coordinate-major lists and the gate's inverse, per device; and the
-    kernels' plans and group counts, made at first use."""
+    kernels' plans and group counts, made at first use.
+
+    ``BlockSpec(rep_in, rep_out, grep, device)`` is a scoped ``EMLPBlock``'s
+    (its index from ``bilinear_index``); ``BlockSpec.from_index`` takes the
+    sizes, a merged index (``nn.merge_nonzeros``) and the gate indices of
+    any block, and with ``runtime_only`` (a general block,
+    ``general_block_spec``) the wrappers send it to the run-time-width
+    kernels whatever its sizes.  ``rows`` is None, or the order in which
+    the block's gated coordinates were relabelled (``general_block_spec``):
+    the caller passes ``W_eff`` and ``b_eff`` in that row order."""
+
+    runtime_only = False
+    rows = None
 
     def __init__(self, rep_in, rep_out, grep, device):
-        self.nin, self.ng, self.nh = rep_in.size, grep.size, rep_out.size
+        self._setup((rep_in.size, grep.size, rep_out.size),
+                    bilinear_index(grep, device), gate_indices(rep_out),
+                    device)
+
+    @classmethod
+    def from_index(cls, dims, idx, gate, device, runtime_only=False,
+                   rows=None):
+        spec = cls.__new__(cls)
+        spec.runtime_only, spec.rows = runtime_only, rows
+        spec._setup(dims, idx, gate, device)
+        return spec
+
+    def _setup(self, dims, idx, gate, device):
+        self.nin, self.ng, self.nh = dims
         self.device = torch.device(device)
-        self.idx = bilinear_index(grep, device)
+        self.idx = idx
         self.nnz = int(self.idx["o"].numel())
-        self.gate = np.asarray(gate_indices(rep_out))
+        self.gate = np.asarray(gate)
         self.gidx = torch.as_tensor(self.gate, device=device).to(torch.int64)
         o, j, i = (self.idx[k].cpu().numpy() for k in ("o", "j", "i"))
         self.lists = coordinate_lists(o, j, i, self.ng)
         self.ginv = gate_inverse(self.gate, self.ng)
         self.rowptr = self.idx["rowptr"].cpu().numpy()
+        self._plans: Dict[tuple, tuple] = {}
+        if self.runtime_only:
+            self.ints = None
+            return
         ptr, e, lo, partner = self.lists
         # the kernels' index (csrc/emlp_block.cu ``Ints``): tile offsets
         # c * PITCH packed two to an int
@@ -346,7 +375,6 @@ class BlockSpec:
             (j * PITCH) << 16 | i * PITCH, ptr,
             (lo * PITCH) << 16 | partner * PITCH, e,
             *self.ginv]).astype(np.int32), device=device)
-        self._plans: Dict[tuple, tuple] = {}
 
     @property
     def dims(self):
@@ -484,6 +512,53 @@ def block_spec(blk, device) -> BlockSpec:
     return hit
 
 
+_GENERAL_SPECS: Dict[tuple, BlockSpec] = {}
+
+
+def general_block_spec(blk, device) -> BlockSpec:
+    """``BlockSpec`` of a ``general_nn.GeneralEMLPBlock``, cached per
+    (reps, device): its bilinear map's nonzeros
+    (``rep_algebra.bilinear_nonzeros`` of the gated rep, repeats merged),
+    its gate indices, and ``runtime_only``.  The appended gate coordinates
+    are relabelled in the order their atoms first use them (the run-time
+    forward takes a column's gates as one run following its atoms), which
+    a caller passes as ``spec.rows``: the row order of ``W_eff`` and
+    ``b_eff`` (None where it is already so).  The run-time kernels read
+    each nonzero's ``j`` and ``i`` as whole int32s (``RtInts``), so no
+    width limit of the instances' 16-bit packing applies."""
+    from ..models.emlp.general_nn import gate_indices as general_gates
+    from ..models.emlp.rep_algebra import bilinear_nonzeros
+
+    dev = torch.device(device)
+    key = (blk.rep_in, blk.rep_out, str(dev))
+    hit = _GENERAL_SPECS.get(key)
+    if hit is not None:
+        return hit
+    nin, ng, nh = blk.rep_in.size(), blk.grep.size(), blk.rep_out.size()
+    gate = np.asarray(general_gates(blk.rep_out), np.int64)
+    J, O, I, P = bilinear_nonzeros(blk.grep, blk.grep)
+    tail = gate[gate >= nh]
+    _, first = np.unique(tail, return_index=True)
+    rows = np.concatenate([np.arange(nh), tail[np.sort(first)]])
+    if np.array_equal(rows, np.arange(ng)):
+        rows = None
+    else:
+        new = np.argsort(rows)            # old coordinate -> new
+        gate, J, O, I = new[gate], new[J], new[O], new[I]
+    idx = merge_nonzeros(J, O, I, P, ng, dev)
+    hit = _GENERAL_SPECS[key] = BlockSpec.from_index(
+        (nin, ng, nh), idx, gate, dev, runtime_only=True, rows=rows)
+    return hit
+
+
+def merged_values(spec: BlockSpec, bi_params: torch.Tensor) -> torch.Tensor:
+    """The merged nonzeros' values ``v``: ``bi_params[P]`` summed into
+    their entries (``index_add_``, differentiable in ``bi_params``)."""
+    idx = spec.idx
+    return bi_params.new_zeros(spec.nnz).index_add_(
+        0, idx["inv"], bi_params[idx["P"]])
+
+
 # ---------------------------------------------------------------------------
 # Plain twins (CPU tensors)
 # ---------------------------------------------------------------------------
@@ -533,7 +608,7 @@ def _check(name, t, shape, device):
 
 
 def _check_spec(spec: BlockSpec, x):
-    if spec.ints.device != x.device:
+    if spec.gidx.device != x.device:
         raise ValueError("emlp_block: block spec is on another device")
     if x.shape[0] <= 0:
         raise ValueError("emlp_block: empty batch")
@@ -556,7 +631,7 @@ def emlp_block(spec: BlockSpec, x, W, b, v, save: bool = True):
     per ``(dims, rows, save)``."""
     if not x.is_cuda:
         return emlp_block_plain(spec, x, W, b, v, save)
-    if spec.dims not in INSTANCES:
+    if spec.runtime_only or spec.dims not in INSTANCES:
         return emlp_block_any(spec, x, W, b, v, save)
     _check_spec(spec, x)
     B, dev = x.shape[0], x.device
@@ -596,7 +671,7 @@ def emlp_block_backward(spec: BlockSpec, g_h, x, W, v, lin, pre,
     if not x.is_cuda:
         return emlp_block_backward_plain(spec, g_h, x, W, v, lin, pre,
                                          need_params)
-    if spec.dims not in INSTANCES:
+    if spec.runtime_only or spec.dims not in INSTANCES:
         return emlp_block_backward_any(spec, g_h, x, W, v, lin, pre,
                                        need_params)
     _check_spec(spec, x)

@@ -251,26 +251,31 @@ _SPARSE_CACHE: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
 def bilinear_index(rep: SumRep, device) -> Dict[str, torch.Tensor]:
     """The static index side of ``bilinear_sparse``, made once per (rep,
-    device): the merged nonzeros' coordinates ``o``, ``j``, ``i`` (sorted by
-    ``o``, then ``j``, ``i``), the merge map (``bi_params[P]`` summed into
-    entry ``inv``), and the kernels' int32 forms: ``rowptr`` (``ng + 1``;
-    the nonzeros of output ``o`` are ``rowptr[o]:rowptr[o + 1]``) and
-    ``ji = j << 16 | i``."""
+    device): ``merge_nonzeros`` of ``bilinear_dense_index``."""
     key = (hash(rep), str(device))
     hit = _SPARSE_CACHE.get(key)
     if hit is None:
-        n = rep.size
-        J, O, I, P = bilinear_dense_index(rep)
-        uniq, inv = np.unique((O * n + J) * n + I, return_inverse=True)
-        o, j, i = uniq // (n * n), uniq // n % n, uniq % n
-
-        def t(a, dtype=torch.int64):
-            return torch.as_tensor(np.asarray(a), device=device).to(dtype)
-        hit = _SPARSE_CACHE[key] = dict(
-            o=t(o), j=t(j), i=t(i), inv=t(inv.reshape(-1)), P=t(P),
-            rowptr=t(np.searchsorted(o, np.arange(n + 1)), torch.int32),
-            ji=t(j * 65536 + i, torch.int32), o32=t(o, torch.int32))
+        hit = _SPARSE_CACHE[key] = merge_nonzeros(
+            *bilinear_dense_index(rep), rep.size, device)
     return hit
+
+
+def merge_nonzeros(J, O, I, P, n: int, device) -> Dict[str, torch.Tensor]:
+    """A quadratic form's nonzeros ``(J, O, I, P)`` over ``n`` coordinates
+    (``out[o] = sum of params[P] x[J] x[I]``), merged: the distinct
+    ``o``, ``j``, ``i`` (sorted by ``o``, then ``j``, ``i``), the merge
+    map (``params[P]`` summed into entry ``inv``), and the kernels' int32
+    forms: ``rowptr`` (``n + 1``; the nonzeros of output ``o`` are
+    ``rowptr[o]:rowptr[o + 1]``) and ``ji = j << 16 | i``."""
+    uniq, inv = np.unique((O * n + J) * n + I, return_inverse=True)
+    o, j, i = uniq // (n * n), uniq // n % n, uniq % n
+
+    def t(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    return dict(
+        o=t(o), j=t(j), i=t(i), inv=t(inv.reshape(-1)), P=t(P),
+        rowptr=t(np.searchsorted(o, np.arange(n + 1)), torch.int32),
+        ji=t(j * 65536 + i, torch.int32), o32=t(o, torch.int32))
 
 
 def bilinear_sparse(rep: SumRep, bi_params: torch.Tensor):

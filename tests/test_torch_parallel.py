@@ -40,7 +40,9 @@ from gym_rotor_tpu.parallel.train_step import (init_ep_ret,
                                                make_sharded_td3_superstep,
                                                sharded_init)
 from gym_rotor_tpu_torch.algos import ppo as tppo
+from gym_rotor_tpu_torch.algos.sac import ScalarAdamW
 from gym_rotor_tpu_torch.envs import draws as D
+from gym_rotor_tpu_torch.ops.so3 import sqrt_rn
 from gym_rotor_tpu_torch.parallel import mesh as tmesh
 from gym_rotor_tpu_torch.train import Learner
 from gym_rotor_tpu_torch.utils import checkpoint as tckpt
@@ -400,6 +402,33 @@ def _bitwise(x, y, what):
         assert type(x) is type(y) and x == y, what
 
 
+def _own_temperatures(ranks, cfg, prev):
+    """Each rank's temperature is its own, as JAX's per-device step
+    (``sac.py:264-271``) leaves it: every agent's Adam moments ``mu`` and
+    ``nu`` differ across the ranks (each its own gradient), and each
+    rank's ``log_alpha`` is the Adam step from its previous value
+    (``prev``'s, or the initial 0) with its own saved moments, in
+    ``ScalarAdamW``'s order.  ``log_alpha`` itself may agree across the
+    ranks: Adam's first step is ``lr * sign(g)`` up to the rounding of
+    ``mu_hat / (sqrt(nu_hat) + eps)``, which is 1 to within an ulp."""
+    tx = ScalarAdamW
+    for i in range(len(ranks[0])):
+        sts = [r[i] for r in ranks]
+        for f in ("mu", "nu"):
+            vals = [getattr(st.alpha_opt, f) for st in sts]
+            assert not any(torch.equal(vals[0], v) for v in vals[1:]), \
+                f"agent {i} alpha_opt.{f} equal across ranks"
+        for r, st in enumerate(sts):
+            o = st.alpha_opt
+            p = (torch.zeros((), dtype=torch.float32) if prev is None
+                 else prev[r][i].log_alpha)
+            assert o.count == st.total_it
+            u = (o.mu / (1 - tx.b1 ** o.count)) / (
+                sqrt_rn(o.nu / (1 - tx.b2 ** o.count)) + tx.eps)
+            want = p + (-cfg.lr_a[i]) * (u + tx.wd * p)
+            _bitwise(st.log_alpha, want, f"rank {r} agent {i} log_alpha")
+
+
 @pytest.mark.parametrize("algo", ["TD3", "PPO"])
 def test_world1_group_is_the_one_device_path(algo, tmp_path):
     """A ``gloo`` group of one rank: ``Learner`` over it, superstep by
@@ -440,8 +469,8 @@ def test_parameters_stay_replicated(algo, tmp_path):
             assert x["ring"][0].shape[0] == kw["replay_buffer_size"] // 2
         assert x["ep_ret"].shape[0] == kw["num_envs"] // 2
     if algo == "SAC":
-        assert not torch.equal(a[-1]["states"][0].log_alpha,
-                               b[-1]["states"][0].log_alpha)
+        _own_temperatures([x[-1]["states"] for x in (a, b)],
+                          TConfig(**kw), prev=None)
 
 
 def test_ranks_reset_the_global_batch(monkeypatch):
@@ -520,8 +549,10 @@ def test_resume_on_two_ranks_is_bitwise(algo, tmp_path):
         _bitwise(at_load[0], at_load[1], f"rank {r} at load")
         _bitwise(after[0], after[1], f"rank {r} one superstep on")
     if algo == "SAC":
-        assert not torch.equal(out[0][0][0]["states"][0].log_alpha,
-                               out[1][0][0]["states"][0].log_alpha)
+        cfg = TConfig(**kw)
+        loaded = [o[0][0]["states"] for o in out]
+        _own_temperatures(loaded, cfg, prev=None)
+        _own_temperatures([o[1][0]["states"] for o in out], cfg, prev=loaded)
 
 
 def test_resume_at_another_world_size_raises(tmp_path):

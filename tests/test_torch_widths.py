@@ -48,6 +48,7 @@ from gym_rotor_tpu_torch.models.emlp import reps as treps
 from gym_rotor_tpu_torch.models.emlp import zoo as tzoo
 from gym_rotor_tpu_torch.utils.config import Config as TConfig
 from test_torch_td3 import _np_tree, _to64
+from test_torch_widths_td3 import jax_rho_memo  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 WIDE = dict(actor_hidden_dim=(32, 8), critic_hidden_dim=128)

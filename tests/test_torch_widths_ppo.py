@@ -5,6 +5,7 @@ the check of ``test_torch_ppo.py::train_step_vs_jax`` at this width.  On
 the CPU every kernel wrapper runs its plain twin; on the card this width
 runs the run-time-width kernels (``chip_smoke.py`` phase 26)."""
 from test_torch_ppo import train_step_vs_jax
+from test_torch_widths_td3 import jax_rho_memo  # noqa: F401 (autouse)
 
 WIDE = dict(actor_hidden_dim=(32, 8), critic_hidden_dim=128)
 
