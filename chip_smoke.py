@@ -264,8 +264,10 @@ result line):
                 block of the TD3 critics, the actors and the PPO V critics
                 at (actor, critic) (8, 4) / 8, (32, 8) / 128 and (64, 16) /
                 256 and critic 512's hidden blocks at WIDTH_ROWS (1, 31,
-                32, 33, 256, 3723, 4096), the tiles read from global memory
-                bitwise the staged read; the acting kernel
+                32, 33, 256, 3723, 4096), the CUDA kernels one call
+                launches (ANY_KERNELS_A_CALL: 2, 3, 5 with the parameter
+                sums), the tiles read from global memory and two rows a
+                lane bitwise the staged one-row read; the acting kernel
                 (``emlp_actor_any``, ``sac_actor_any``, ``ppo_actor_any``)
                 for each head at those widths and (128, 32), train and eval,
                 the image and the tile in global memory bitwise the staged
@@ -312,7 +314,8 @@ result line):
                 ``(nin, ng, nh, nnz)`` printed); every distinct block
                 through the run-time K3/K4 (``emlp_block_any``,
                 ``emlp_block_backward_any``) against the twins at 4096
-                rows and phase 26's row counts, reruns bitwise; each
+                rows and phase 26's row counts, reruns bitwise, the CUDA
+                kernels a call as phase 26's; each
                 network's forward and backward at 4096 rows with the
                 counts zeroed just before: exactly 3 run-time K3 and 3 K4
                 launches and none of the instances, the output and every
@@ -5372,6 +5375,38 @@ def _any_block_vs_plain(spec, ops):
     return errs, bad, (fk, runs[0])
 
 
+# CUDA kernels one run-time call launches: K3 the linear and the gate
+# steps; K4 g_pre, the list step and g_x, with the parameter sums the slot
+# product (g_W, g_b) and the slots' sum
+ANY_KERNELS_A_CALL = {"forward": 2, "backward": 3, "backward_params": 5}
+
+
+def _rt_plan_log(spec, nb, sms):
+    """The run-time steps' plans at ``nb`` rows, for a log line: per step
+    its block columns, a lane's rows, whether the tile is staged and the
+    list step's segments a column."""
+    return {k: list(spec.rt_plan(k, nb, sms)[1:])
+            for k in ("forward", "backward")}
+
+
+def _any_kernels_a_call(spec, ops):
+    """The CUDA kernels one run-time K3 call and one K4 call (without and
+    with the parameter sums) launch (``launches_per_call``), and the
+    mismatches with ``ANY_KERNELS_A_CALL``."""
+    from gym_rotor_tpu_torch.kernels import emlp_block as K
+    x, W, b, v, g_h = ops
+    _, lin, pre = K.emlp_block_any(spec, x, W, b, v)
+    got = {"forward": launches_per_call(
+        lambda: K.emlp_block_any(spec, x, W, b, v, True)),
+        "backward": launches_per_call(lambda: K.emlp_block_backward_any(
+            spec, g_h, x, W, v, lin, pre, False)),
+        "backward_params": launches_per_call(
+            lambda: K.emlp_block_backward_any(spec, g_h, x, W, v, lin, pre,
+                                              True))}
+    return got, [(k, n) for k, n in got.items()
+                 if n != ANY_KERNELS_A_CALL[k]]
+
+
 def width_block_specs(dev):
     """``{dims: BlockSpec}`` of every block phase 26 checks on the run-time
     path: the TD3 twin critics', the actors' and the PPO V critics' at each
@@ -5402,9 +5437,11 @@ def width_block_specs(dev):
 
 
 def width_block_checks(dev, specs, gen):
-    """Every run-time K3/K4 shape at ``WIDTH_ROWS`` (``_any_block_vs_plain``);
-    the tile read from global memory (staging forced off) bitwise the staged
-    read at the slice's hidden blocks; and at the instances' shapes of the
+    """Every run-time K3/K4 shape at ``WIDTH_ROWS`` (``_any_block_vs_plain``)
+    and its CUDA kernels a call (``ANY_KERNELS_A_CALL``, exactly); the tile
+    read from global memory (staging forced off) and two rows a lane
+    (forced where the tiles fit) bitwise the staged one-row read at the
+    slice's hidden blocks; and at the instances' shapes of the
     flagship (a few default shapes) the run-time path held to the
     instance's result (bitwise where the sums' orders agree: the forward
     and g_v; g_lin, and so g_x, g_W and g_b, where the instance's lists
@@ -5412,6 +5449,7 @@ def width_block_checks(dev, specs, gen):
     errors."""
     from gym_rotor_tpu_torch.kernels import emlp_block as K
     worst, bad = (0.0, 0.0), []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dims, spec in sorted(specs.items()):
         for nb in WIDTH_ROWS:
             ops = _block_operands(spec, nb, gen, dev)
@@ -5420,9 +5458,18 @@ def width_block_checks(dev, specs, gen):
                      max(worst[1], *(errs[k] for k in ("g_x", "g_W", "g_b",
                                                        "g_v"))))
             log("widths", check="emlp_block_any", dims=list(dims), nnz=spec.nnz,
-                batch=nb, stage=[spec.rt_stage("forward"),
-                                 spec.rt_stage("backward")], **errs)
+                batch=nb, plan=_rt_plan_log(spec, nb, sms), **errs)
             bad += [(dims, nb) + x for x in b]
+        got, wrong = _any_kernels_a_call(
+            spec, _block_operands(spec, 256, gen, dev))
+        log("widths", check="emlp_block_any_kernels_a_call", dims=list(dims),
+            batch=256, kernels=got, expected=ANY_KERNELS_A_CALL)
+        bad += [(dims, "kernels a call") + w for w in wrong]
+    # the steps that two rows a lane must reach at 256 rows on the H100:
+    # the forward at both widths, the list step where its segments' shares
+    # fit beside two rows' tiles (288, not 511)
+    two_expected = {(256, 288, 256): ["backward_rows", "forward_rows"],
+                    (256, 511, 256): ["forward_rows"]}
     for dims in ((256, 288, 256), (256, 511, 256)):
         spec = specs[dims]
         ops = _block_operands(spec, 256, gen, dev)
@@ -5430,13 +5477,32 @@ def width_block_checks(dev, specs, gen):
             on = _any_block_vs_plain(spec, ops)[2]
         with _forced(K, forward=False, backward=False):
             off = _any_block_vs_plain(spec, ops)[2]
+        # two rows a lane (the layout from RT_TWO_ROWS_MIN rows) in each
+        # step whose plan fits them, at these 256 rows
+        two = {}
+        for k in ("forward", "backward"):
+            with _forced(K, **{f"{k}_rows": 2}):
+                try:
+                    if spec.rt_plan(k, 256, sms).rows == 2:
+                        two[f"{k}_rows"] = 2
+                except ValueError:
+                    pass
+        with _forced(K, **two):
+            rows2 = _any_block_vs_plain(spec, ops)[2]
         same = all(torch.equal(a, c) for r1, r2 in zip(on, off)
                    for a, c in zip(r1, r2))
+        same2 = all(torch.equal(a, c) for r1, r2 in zip(on, rows2)
+                    for a, c in zip(r1, r2))
         log("widths", check="emlp_block_any_global_tiles", dims=list(dims),
-            batch=256, bitwise_vs_staged=same)
+            batch=256, bitwise_vs_staged=same, two_rows=sorted(two),
+            two_rows_bitwise=same2)
         if not same:
             bad.append((dims, "global tiles differ from staged"))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if not same2:
+            bad.append((dims, "two rows a lane differ from one"))
+        if sorted(two) != two_expected[dims]:
+            bad.append((dims, f"two rows a lane forced {sorted(two)}, "
+                              f"expected {two_expected[dims]}"))
     for dims, spec in sorted(block_specs(dev).items())[:6]:
         for nb in (33, 256, 3723):
             x, W, b, v, g_h = _block_operands(spec, nb, gen, dev)
@@ -5821,14 +5887,21 @@ def _specs_of(agents, dev):
 def any_block_work(spec, nb, kind, flag):
     """(bytes, operations) of one run-time K3 (``kind``
     "emlp_block_any", ``flag`` save) or K4 (``flag`` the parameter sums)
-    call at ``nb`` rows, as ``width_block_timing`` counts them."""
+    call at ``nb`` rows, as ``width_block_timing`` counts them.  The index
+    words each step reads: the forward its gate, rowptr and each nonzero's
+    packed ``(j, i)``; the backward the list entries' nonzeros (``cl_e``),
+    the gate and its inverse, each list entry's packed word and the
+    segments, and with the sums each nonzero's ``o``, ``j`` and ``i``
+    (the list values ``vl`` are the backward's own scratch, not counted)."""
     nin, ng, nh = spec.dims
-    ints = spec.rt_ints()[0].numel()
     if kind == "emlp_block_any":
+        ints = nh + (ng + 1) + spec.nnz
         flops = nb * (2 * ng * nin + 3 * ng + 3 * spec.nnz + 4 * nh)
         nbytes = 4 * (nb * nin + ng * nin + ng + spec.nnz + ints
                       + nb * nh + (2 * ng * nb if flag else 0))
         return nbytes, flops
+    ints = 2 * spec.nnz + nh + (ng + 1 + nh) + 2 * spec.nnz \
+        + spec.rt_segments()[0].numel() + (3 * spec.nnz if flag else 0)
     flops = nb * (8 * ng + 6 * spec.nnz + ng + 2 * ng * nin)
     n_par = ng * nin + ng + spec.nnz
     if flag:
@@ -6057,7 +6130,8 @@ def widths_resources(dev):
     from gym_rotor_tpu_torch.kernels import emlp_block as KB
     from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
     from gym_rotor_tpu_torch.kernels import spectral as KS
-    pat = re.compile(r"(rt_\w+?_kernel|emlp_actor_any_kernelILi\d|"
+    pat = re.compile(r"(rt_\w+?_kernel(?:ILi\dELb\d)?|"
+                     r"emlp_actor_any_kernelILi\d|"
                      r"spectral_any_kernel|mlp_ppo_actor_any_kernelILi\d+)")
     regs, bad = {}, []
     for src in (KB.KERNEL, KA.KERNEL, KS.KERNEL, KM.KERNEL):
@@ -6074,26 +6148,31 @@ def widths_resources(dev):
             elif cur and "registers" in ln:
                 regs[cur]["registers"] = int(
                     re.search(r"Used (\d+) registers", ln).group(1))
-    want = {"rt_lin_kernel", "rt_gate_kernel", "rt_gpre_kernel",
-            "rt_glin_kernel", "rt_gx_kernel", "rt_param_kernel",
-            "spectral_any_kernel"} | {f"emlp_actor_any_kernelILi{h}"
+    want = {"rt_lin_kernel", "rt_gpre_kernel", "rt_gx_kernel",
+            "rt_gw_kernel", "rt_finish_kernel", "spectral_any_kernel"} | {
+        f"rt_{k}_kernelILi{r}ELb{g}" for k in ("gate", "list")
+        for r, g in ((1, 0), (1, 1), (2, 1))} | {
+        f"emlp_actor_any_kernelILi{h}"
                                       for h in range(3)} | {
         "mlp_ppo_actor_any_kernelILi8", "mlp_ppo_actor_any_kernelILi1"}
     if set(regs) != want or not all(regs.values()):
         bad.append(("ptxas entries", sorted(regs)))
     lib = KB._lib()
-    static = {"lin": lib.emlp_block_rt_geometry(3),
-              "gx": lib.emlp_block_rt_geometry(4)}
-    if static != KB.RT_STATIC:
-        bad.append(("static shared memory", static))
+    static = [lib.emlp_block_rt_geometry(k) for k in range(5)]
+    if static != [KB.RT_WARPS * 32, KB.RT_RING, KB.RT_SLOTS,
+                  KB.RT_GEMM_TILE, KB.RT_RING_BYTES // 4]:
+        bad.append(("run-time geometry", static))
     smem = {}
     for dims, spec in sorted(width_block_specs(dev).items()):
-        smem[str(dims)] = [KB.rt_smem(dims, k, spec.rt_stage(k))
-                           for k in ("forward", "backward")]
-        if max(smem[str(dims)]) > KB.SMEM_LIMIT:
-            bad.append(("K3/K4", dims, smem[str(dims)]))
-    log("build", kernel="run-time widths", ptxas=regs, static_smem=static,
-        block_staged_smem=smem)
+        for nb in (256, 4096):
+            lay = [spec.rt_layout(k, nb) for k in ("forward", "backward")]
+            smem[f"{dims} {nb}"] = [
+                [r, st, KB.rt_smem(dims, k, r if st else 0)]
+                for k, (r, st) in zip(("forward", "backward"), lay)]
+            if max(b for _, _, b in smem[f"{dims} {nb}"]) > KB.SMEM_LIMIT:
+                bad.append(("K3/K4", dims, nb, smem[f"{dims} {nb}"]))
+    log("build", kernel="run-time widths", ptxas=regs, geometry=static,
+        block_layout_rows_staged_smem=smem)
     for ah, i, head, actor in width_actors(dev):
         f = KA.fold_actor(actor)
         plan = KA.any_plan(f["dims"], f["layout"])
@@ -6698,10 +6777,12 @@ def general_models(dev):
 def general_block_checks(dev, models, gen):
     """Every distinct general block spec through the run-time K3/K4 against
     the twins at ``GENERAL_ROWS`` (``_any_block_vs_plain``: phase 26's
-    tolerance, reruns bitwise).  Returns the worst (forward, backward)
+    tolerance, reruns bitwise), and its CUDA kernels a call at ``B`` rows
+    (``ANY_KERNELS_A_CALL``, exactly).  Returns the worst (forward, backward)
     errors and the specs by (config, block)."""
     from gym_rotor_tpu_torch.kernels import emlp_block as K
     worst, bad, specs = (0.0, 0.0), [], {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (G, net) in models.items():
         seen = set()
         for i, blk in enumerate(net.blocks()):
@@ -6718,8 +6799,15 @@ def general_block_checks(dev, models, gen):
                          max(worst[1], *(errs[k] for k in ("g_x", "g_W",
                                                           "g_b", "g_v"))))
                 log("general", check="emlp_block_any", config=name, block=i,
-                    dims=list(spec.dims), nnz=spec.nnz, batch=nb, **errs)
+                    dims=list(spec.dims), nnz=spec.nnz, batch=nb,
+                    plan=_rt_plan_log(spec, nb, sms), **errs)
                 bad += [(name, i, nb) + x for x in b]
+            got, wrong = _any_kernels_a_call(
+                spec, _block_operands(spec, B, gen, dev))
+            log("general", check="emlp_block_any_kernels_a_call",
+                config=name, block=i, batch=B, kernels=got,
+                expected=ANY_KERNELS_A_CALL)
+            bad += [(name, i, "kernels a call") + w for w in wrong]
     if bad:
         raise AssertionError(f"general K3/K4: {bad[:5]}")
     return worst, specs

@@ -618,34 +618,80 @@ int bwd(const float* g_h, const float* x, int B, const float* W,
 
 // ------------------------------------------------------ run-time widths
 // Blocks without an instance (any (nin, ng, nh)) run the kernels below,
-// whose sizes are arguments and whose shared memory does not grow with a
-// block's weights or nonzeros, so no width exceeds a block's limit.  Each
-// step is its own launch over a grid of 32-row tiles, lane t on row t, the
-// vectors between launches field-major (ng, B) in global memory:
-//   forward: rt_lin_kernel (lin = x W_eff^T + b_eff; 32 rows x 32 outputs
-//     a block, x and W_eff streamed through shared memory in chunks of 32
-//     inputs, each output's terms in input order, then the bias: the
-//     instances' expression), then rt_gate_kernel (pre and h: a block
-//     column a run of the gated nonlinearity's atoms, a warp a coordinate,
-//     each output's nonzeros in their order, then after a barrier the
-//     gate);
-//   backward: rt_gpre_kernel (g_pre, the instances' expression), then
-//     rt_glin_kernel (g_lin: a warp a coordinate, its whole list in order,
-//     g_pre + 0.1 acc), rt_gx_kernel (g_x = g_lin W_eff, 32 rows x 32
-//     inputs a block, the coordinates streamed in chunks, in order) and,
-//     with parameter gradients, rt_param_kernel (a thread a parameter: per
-//     32-row tile the instances' partial sum, then the tiles added as the
-//     instances' finishing kernel adds them: the instances' order over
-//     rows; g_v is an instance's bit for bit, g_W and g_b where its g_lin
-//     is, which sums each coordinate's list in segments).
-// The gate and list steps read the tile's lin (and g_pre) from shared
-// memory where the ng x 32 floats fit (the host's `stage`), else from
-// global memory.  Every sum has one fixed order and there are no atomics,
-// so a rerun repeats its numbers bit for bit.
-constexpr int kRtThreads = 256;
-constexpr int kRtWarps = kRtThreads / 32;
-constexpr int kRtChunk = 32;     // inputs (forward) or coordinates (g_x)
-constexpr int kRtWPitch = 36;    // a staged W chunk's row, float4 aligned
+// whose sizes are arguments.  The vectors between launches are field-major
+// (ng, B) in global memory.
+//   forward (2 launches): rt_lin_kernel, then rt_gate_kernel;
+//   backward (3 launches, 5 with the parameter sums): rt_gpre_kernel,
+//     rt_list_kernel, rt_gx_kernel, then rt_gw_kernel and
+//     rt_finish_kernel.
+// Replaces, at any width, what the instances replace (nn.py:431 EMLPBlock
+// and its autodiff through fixed_gather's VJP, nn.py:39-81) and the general
+// engine's GeneralEMLPBlock (general_nn.py:205-240).
+// Bound on an H100: the operations.  The SO(3) general block (384 in, 432
+// gated, 461 520 nonzeros) at 4096 rows is 5.7-7.0 GFLOP forward (0.085-
+// 0.105 ms at the fp32 peak) and ~20 GFLOP backward with the parameter
+// sums (0.28-0.32 ms).  What holds the kernels above it is the sparse
+// steps' shared memory: each nonzero a warp sums reads two 32 R-row
+// vectors of the staged tile, 256 R bytes at 128 bytes a cycle an SM (at
+// SO(3) ~0.5 ms for the forward's, ~1 ms for the list step's).  What the
+// design does:
+//   - The sparse steps (rt_gate_kernel's Q(lin), rt_list_kernel's g_lin)
+//     stage the tile's vectors in shared memory field-major, [c][row] at
+//     the odd pitch 32 R + 1, and give each lane R rows (1 or 2, the
+//     host's choice: 2 from 512 rows where the tile fits): one nonzero's
+//     (j, i, v), read once by a warp as a broadcast, serves 32 R rows.
+//   - The index reaches shared memory as a stream: each warp walks a
+//     contiguous run of entries, copied with cp.async into its ring of
+//     kRingBufs buffers of 32 (word, value) entries, three in flight while
+//     one is summed, so the gather loops read no global memory; each
+//     batch of kBatch entries issues its loads before its sums.  The words
+//     are the (j, i) or (o, partner) offsets in the staged tile, packed two
+//     to an int by the host (BlockSpec.rt_words).
+//   - A few coordinates' lists are 5-6x the mean, so the list step cuts
+//     each list into segments of at most 256 entries (fixed by the index:
+//     BlockSpec.rt_segments) and deals them to the warps in runs of equal
+//     work; each segment's 0.1 sum goes to shared memory and g_lin adds
+//     them to g_pre in order after a barrier.
+//   - The parameter sums run where their operands are staged.  The list
+//     step's block owns slots of the parameters' partial sums: 32-row tile
+//     k goes into slot k % 8 (the instances' block_bwd_finish_kernel
+//     order), so a block of the list step walks the row tiles t, t + 8 / R,
+//     ... and adds each tile's g_v partial (rows in order, from shared
+//     memory) to its slot; rt_gw_kernel does the same for g_W and g_b as a
+//     register-tiled product over each slot's tiles; rt_finish_kernel adds
+//     the 8 slots in order.  Scratch: 8 n_par floats (20 MB at SO(3)).
+//   - Enough blocks at few rows: the host spreads the coordinates over
+//     block columns (one wave of the blocks the SMs hold), and the list
+//     step's grid is the 8 / R slot groups in use times its columns.
+//   - The dense steps (lin, g_x, g_W) are register-tiled products of 16 x
+//     16 threads, 4 x 4 outputs a thread (64 x 64 a block; 16 rows where
+//     64-row blocks would leave SMs idle), the operands staged by cp.async
+//     through two buffers, float32 FFMA (no TF32).
+// Every sum has one fixed order, with no atomics, so a rerun repeats its
+// bits: each lin output's terms in input order, then the bias (the
+// instances' forward, bit for bit); each pre's nonzeros in order; each
+// g_lin segment's entries in order, then g_pre plus the segments' shares
+// in order (one segment: g_pre + 0.1 sum, as before the segments); g_x
+// over the coordinates in order; the parameters' tile partials rows in
+// order, tile k into slot k % 8, the slots in order (g_v an instance's bit
+// for bit).  A tile that does not fit a block's shared memory is read from
+// global memory (STAGED false, R = 1), the same sums in the same order.
+constexpr int kRtWarps = 16;                // sparse steps: warps a block
+constexpr int kRtThreads = kRtWarps * 32;
+constexpr int kRing = 32;                   // entries a ring buffer
+constexpr int kRingBufs = 4;                // a warp's ring: 3 in flight
+constexpr int kBatch = 8;                   // entries whose loads go first
+constexpr int kRingFloats = kRtWarps * kRingBufs * kRing * 2;
+constexpr int kRtSlots = 8;                 // the parameter sums' slots
+constexpr int kGemmThreads = 256;           // dense steps: 16 x 16 threads
+constexpr int kGemmTile = 64;               // a block's outputs a side
+constexpr int kGemmK = 32;                  // reduction chunk
+constexpr int kGemmPitch = kGemmTile + 1;
+constexpr int kGpreThreads = 256;
+constexpr int kGpreWarps = kGpreThreads / 32;
+constexpr int kFwdPlanInts = 4 + 4 * kRtWarps;  // k0 k1 q0 q1, 2 runs a warp
+constexpr int kBwdPlanInts = 6 + 2 * kRtWarps;  // v0 v1 c0 c1 g0 g1, a run
+                                                // of segments a warp
 
 // The static index of the run-time path (BlockSpec.rt_ints), in this order.
 struct RtInts {
@@ -654,13 +700,9 @@ struct RtInts {
   const int* ej;        // nnz: j of each nonzero
   const int* ei;        // nnz: i
   const int* eo;        // nnz: o
-  const int* cl_ptr;    // NG + 1: coordinate-major lists
-  const int* cl_o;      // 2 nnz: the output
-  const int* cl_p;      // 2 nnz: the partner coordinate
-  const int* cl_e;      // 2 nnz: the nonzero
+  const int* cl_e;      // 2 nnz: each list entry's nonzero
   const int* ginv_ptr;  // NG + 1
   const int* ginv_k;    // NH
-  const int* atoms;     // 3 n_atoms: k0, k1, gate coordinate or -1
 };
 
 RtInts rt_ints_of(const int* p, int ng, int nh, int nnz) {
@@ -670,128 +712,269 @@ RtInts rt_ints_of(const int* p, int ng, int nh, int nnz) {
   s.ej = s.rowptr + ng + 1;
   s.ei = s.ej + nnz;
   s.eo = s.ei + nnz;
-  s.cl_ptr = s.eo + nnz;
-  s.cl_o = s.cl_ptr + ng + 1;
-  s.cl_p = s.cl_o + 2 * nnz;
-  s.cl_e = s.cl_p + 2 * nnz;
+  s.cl_e = s.eo + nnz;
   s.ginv_ptr = s.cl_e + 2 * nnz;
   s.ginv_k = s.ginv_ptr + ng + 1;
-  s.atoms = s.ginv_k + nh;
   return s;
 }
 
-// A tile's field-major vector: coordinate c of this lane's row at
-// base[c * ld] (shared memory, ld = kTile, or global, ld = B).
-struct TileRef {
+// A tile's field-major vector as this lane's rows see it: staged, a word's
+// half is an offset c (32 R + 1) into shared memory; from global memory it
+// is the coordinate c (a row past the batch reads the last row)
+template <int R, bool STAGED>
+struct RtView {
   const float* base;
-  size_t ld;
-  __device__ __forceinline__ float operator[](int c) const {
-    return base[(size_t)c * ld];
+  int ld;
+  __device__ __forceinline__ RtView(const float* src, int B, int r0,
+                                    int rows, int lane) {
+    if (STAGED) {
+      base = src + lane;
+      ld = 32 * R + 1;
+    } else {
+      base = src + r0 + min(lane, rows - 1);
+      ld = B;
+    }
+  }
+  // by a packed word's half (an offset staged, a coordinate otherwise)
+  __device__ __forceinline__ float at(unsigned half, int h) const {
+    return STAGED ? base[half + 32 * h] : base[(size_t)half * ld];
+  }
+  // by coordinate
+  __device__ __forceinline__ float coord(int c, int h) const {
+    return STAGED ? base[c * ld + 32 * h] : base[(size_t)c * ld];
   }
 };
 
-// ng x kTile floats of a field-major (ng, B) array into shared memory
-// (zeros past the last row); returns this lane's view, or the global one
-__device__ __forceinline__ TileRef stage_tile(float* dst, const float* src,
-                                              int ng, int B, int r0,
-                                              int rows, int stage, int lane) {
-  if (!stage) return {src + r0 + min(lane, rows - 1), (size_t)B};
-  for (int q = threadIdx.x; q < ng * kTile; q += kRtThreads) {
-    const int c = q >> 5, r = q & 31;
-    dst[q] = r < rows ? src[(size_t)c * B + r0 + r] : 0.0f;
+// rows [r0, r0 + rows) of a field-major (ng, B) array into a staged tile
+// [c][row] at pitch 32 R + 1, zeros past the batch
+template <int R>
+__device__ __forceinline__ void rt_stage(float* dst, const float* src,
+                                         int ng, int B, int r0, int rows) {
+  constexpr int kRows = 32 * R;
+  for (int q = threadIdx.x; q < ng * kRows; q += blockDim.x) {
+    const int c = q / kRows, r = q - c * kRows;
+    if (r < rows) cp4(dst + c * (kRows + 1) + r, src + (size_t)c * B + r0 + r);
+    else dst[c * (kRows + 1) + r] = 0.0f;
   }
-  return {dst + lane, (size_t)kTile};
 }
 
-__global__ void __launch_bounds__(kRtThreads)
+// A warp's entries [s0, s1) of (word[e], val[e]) through its ring of
+// kRingBufs buffers of kRing entries in shared memory: each lane copies one
+// entry of a buffer with cp.async, kRingBufs - 1 buffers in flight ahead of
+// the one being read.  Entries [s0, avail) are readable; next() makes the
+// next buffer readable and starts the copy of the one after the last in
+// flight (into the buffer just read).
+struct RtRing {
+  int2* buf;
+  const int* word;
+  const float* val;
+  int s0, s1, lane, chunk, avail;
+
+  __device__ __forceinline__ void fill(int c) {
+    const int e = s0 + c * kRing + lane;
+    if (e < s1) {
+      int2* d = buf + (c % kRingBufs) * kRing + lane;
+      cp4(&d->x, word + e);
+      cp4(&d->y, val + e);
+    }
+    __pipeline_commit();
+  }
+  __device__ __forceinline__ void start() {
+    // every lane's reads of the ring's last stream are done
+    __syncwarp();
+    chunk = 0;
+    avail = s0;
+    for (int c = 0; c < kRingBufs - 1; ++c) fill(c);
+  }
+  __device__ __forceinline__ void next() {
+    // every lane's reads of the buffer refilled below are done
+    __syncwarp();
+    fill(chunk + kRingBufs - 1);
+    __pipeline_wait_prior(kRingBufs - 1);
+    // this buffer's copies, each lane's, visible to the warp
+    __syncwarp();
+    avail = min(s1, s0 + (chunk + 1) * kRing);
+    ++chunk;
+  }
+  __device__ __forceinline__ int2 at(int e) const {
+    return buf[(e - s0) & (kRingBufs * kRing - 1)];
+  }
+};
+
+// N entries e .. e + N - 1 of a warp's ring into its sums, in order: acc[k]
+// = fma(v * a[hi][row k], b[lo][row k], acc[k]) (a pre's or a g_lin's term),
+// every load of the N entries issued before the first sum
+template <int R, int N = kBatch, bool STAGED>
+__device__ __forceinline__ void rt_batch(const RtRing& rg,
+                                         const RtView<R, STAGED>& a,
+                                         const RtView<R, STAGED>& b, int e,
+                                         float* acc) {
+  int2 en[N];
+  float va[N][R], vb[N][R];
+#pragma unroll
+  for (int u = 0; u < N; ++u) en[u] = rg.at(e + u);
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      va[u][k] = a.at((unsigned)en[u].x >> 16, k);
+      vb[u][k] = b.at((unsigned)en[u].x & 0xffff, k);
+    }
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      acc[k] = fmaf(__int_as_float(en[u].y) * va[u][k], vb[u][k], acc[k]);
+}
+
+// lin = x W_eff^T + b_eff, field-major: a block TR rows (64, or 16 where
+// 64-row blocks would leave SMs idle) x 64 outputs, thread (rows rx + 16 m,
+// outputs oy + 16 n), x and W_eff in chunks of 32 inputs staged by cp.async
+// through two buffers; each output's terms in input order, then the bias
+// (the instances' expression)
+template <int TR>
+__global__ void __launch_bounds__(kGemmThreads)
 rt_lin_kernel(const float* __restrict__ x, int B, int nin, int ng,
               const float* __restrict__ W, const float* __restrict__ bias,
               float* __restrict__ lin) {
-  __shared__ float xs[kRtChunk * kPitch];                    // [k][row]
-  __shared__ __align__(16) float ws[kRtChunk * kRtWPitch];   // [k][o]
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
-  const int o0 = blockIdx.y * (4 * kRtWarps);
-  const int no = min(4 * kRtWarps, ng - o0);
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < nin; k0 += kRtChunk) {
-    const int kc = min(kRtChunk, nin - k0);
-    __syncthreads();
-    for (int q = t; q < rows * kc; q += kRtThreads) {
-      const int r = q / kc, k = q - r * kc;
-      xs[k * kPitch + r] = x[(size_t)(r0 + r) * nin + k0 + k];
+  constexpr int M = TR / 16;
+  __shared__ float xs[2][kGemmK * kGemmPitch];     // [k][row]
+  __shared__ float ws[2][kGemmK * kGemmPitch];     // [k][o]
+  const int t = threadIdx.x, rx = t & 15, oy = t >> 4;
+  const int r0 = blockIdx.x * TR, rows = min(TR, B - r0);
+  const int o0 = blockIdx.y * kGemmTile, no = min(kGemmTile, ng - o0);
+  auto stage = [&](int buf, int k0) {
+    const int kc = min(kGemmK, nin - k0);
+    for (int q = t; q < TR * kGemmK; q += kGemmThreads) {
+      const int r = q >> 5, k = q & 31;
+      if (k < kc && r < rows)
+        cp4(&xs[buf][k * kGemmPitch + r], x + (size_t)(r0 + r) * nin + k0 + k);
     }
-    for (int q = t; q < no * kc; q += kRtThreads) {
-      const int o = q / kc, k = q - o * kc;
-      ws[k * kRtWPitch + o] = W[(size_t)(o0 + o) * nin + k0 + k];
+    for (int q = t; q < kGemmTile * kGemmK; q += kGemmThreads) {
+      const int o = q >> 5, k = q & 31;
+      if (k < kc && o < no)
+        cp4(&ws[buf][k * kGemmPitch + o], W + (size_t)(o0 + o) * nin + k0 + k);
     }
+    __pipeline_commit();
+  };
+  float a[M][4] = {};
+  stage(0, 0);
+  for (int k0 = 0, it = 0; k0 < nin; k0 += kGemmK, ++it) {
+    if (k0 + kGemmK < nin) stage((it + 1) & 1, k0 + kGemmK);
+    else __pipeline_commit();
+    __pipeline_wait_prior(1);
     __syncthreads();
+    const float* xb = xs[it & 1];
+    const float* wb = ws[it & 1];
+    const int kc = min(kGemmK, nin - k0);
     for (int k = 0; k < kc; ++k) {
-      const float xv = xs[k * kPitch + lane];
-      const float4 w = reinterpret_cast<const float4*>(ws + k * kRtWPitch)[warp];
-      a[0] = fmaf(xv, w.x, a[0]);
-      a[1] = fmaf(xv, w.y, a[1]);
-      a[2] = fmaf(xv, w.z, a[2]);
-      a[3] = fmaf(xv, w.w, a[3]);
+      float xv[M], wv[4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) xv[m] = xb[k * kGemmPitch + rx + 16 * m];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) wv[n] = wb[k * kGemmPitch + oy + 16 * n];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) a[m][n] = fmaf(xv[m], wv[n], a[m][n]);
+    }
+    // every read of this buffer before the copy into it two chunks on
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int o = oy + 16 * n;
+    if (o >= no) continue;
+    const float bo = bias[o0 + o];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int r = rx + 16 * m;
+      if (r < rows) lin[(size_t)(o0 + o) * B + r0 + r] = a[m][n] + bo;
     }
   }
-  if (lane >= rows) return;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int o = o0 + 4 * warp + m;
-    if (o < ng) lin[(size_t)o * B + r0 + lane] = a[m] + bias[o];
-  }
 }
 
-// pre of output o for this lane's row: its nonzeros in order, then 0.1 q +
-// lin (the instances' expression)
-__device__ __forceinline__ float rt_pre(const TileRef& l,
-                                        const float* __restrict__ v,
-                                        const RtInts& ix, int o) {
-  const int e1 = ix.rowptr[o + 1];
-  float q = 0.0f;
-#pragma unroll 4
-  for (int e = ix.rowptr[o]; e < e1; ++e)
-    q = fmaf(v[e] * l[ix.ej[e]], l[ix.ei[e]], q);
-  return 0.1f * q + l[o];
-}
-
-// pre of a block column's coordinates (the outputs K0:K1 of its atoms and
-// their gate coordinates Q0:Q1, host ranges), a warp a coordinate, written
-// field-major to pre; then h for its outputs, a thread a (row, output)
+// pre for a block column's coordinates and h for its outputs.  Block
+// (tile of 32 R rows, column); plan per column: k0 k1 q0 q1 (its atoms'
+// outputs and gate coordinates), then per warp two runs of coordinates
+// (contiguous, so their nonzeros are contiguous in the index); a warp sums
+// each coordinate's nonzeros in order (pre = 0.1 q + lin, the instances'
+// expression), R rows a lane, then after a barrier h = pre / (1 +
+// exp(-pre[gate])) for the column's outputs, a thread a (row, output)
+template <int R, bool STAGED>
 __global__ void __launch_bounds__(kRtThreads)
 rt_gate_kernel(const float* __restrict__ lin, int B, int ng, int nh,
-               const float* __restrict__ v, RtInts ix,
-               const int* __restrict__ ranges, int stage,
-               float* __restrict__ h, float* __restrict__ pre) {
-  extern __shared__ __align__(16) float lt[];
+               const float* __restrict__ v, const int* __restrict__ word,
+               const int* __restrict__ rowptr, const int* __restrict__ gate,
+               const int* __restrict__ plan, float* __restrict__ h,
+               float* __restrict__ pre) {
+  static_assert(STAGED || R == 1, "a tile in global memory is 32 rows");
+  constexpr int kRows = 32 * R;
+  extern __shared__ __align__(16) float sm[];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
-  const int* rg = ranges + 4 * blockIdx.y;
-  const int k0 = rg[0], nk = rg[1] - k0, q0 = rg[2], nq = rg[3] - q0;
-  const TileRef l = stage_tile(lt, lin, ng, B, r0, rows, stage, lane);
-  if (stage) __syncthreads();
-  for (int task = warp; task < nk + nq; task += kRtWarps) {
-    const int c = task < nk ? k0 + task : q0 + task - nk;
-    const float p = rt_pre(l, v, ix, c);
-    if (lane < rows) pre[(size_t)c * B + r0 + lane] = p;
+  int2* ring = reinterpret_cast<int2*>(sm) + warp * kRingBufs * kRing;
+  float* lt = sm + kRingFloats;
+  const int r0 = blockIdx.x * kRows, rows = min(kRows, B - r0);
+  const int* col = plan + blockIdx.y * kFwdPlanInts;
+  if (STAGED) {
+    rt_stage<R>(lt, lin, ng, B, r0, rows);
+    cp_wait();
+    __syncthreads();
+  }
+  const RtView<R, STAGED> l(STAGED ? lt : lin, B, r0, rows, lane);
+  for (int part = 0; part < 2; ++part) {
+    const int a = col[4 + 4 * warp + 2 * part];
+    const int b = col[5 + 4 * warp + 2 * part];
+    if (a >= b) continue;
+    RtRing rg{ring, word, v, rowptr[a], rowptr[b], lane, 0, 0};
+    rg.start();
+    int e = rg.s0;
+    for (int c = a; c < b; ++c) {
+      const int e1 = rowptr[c + 1];
+      float q[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) q[k] = 0.0f;
+      while (e < e1) {
+        if (e == rg.avail) rg.next();
+        const int m = min(e1, rg.avail);
+        for (; e + kBatch <= m; e += kBatch) rt_batch<R>(rg, l, l, e, q);
+        for (; e < m; ++e) rt_batch<R, 1>(rg, l, l, e, q);
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float p = 0.1f * q[k] + l.coord(c, k);
+        if (lane + 32 * k < rows) pre[(size_t)c * B + r0 + lane + 32 * k] = p;
+      }
+    }
   }
   // every pre this block reads below it wrote above
   __syncthreads();
+  const int k0 = col[0], nk = col[1] - k0;
   for (int q = t; q < rows * nk; q += kRtThreads) {
     const int r = q / nk, k = k0 + q - r * nk;
     const size_t row = (size_t)r0 + r;
     h[row * nh + k] = pre[(size_t)k * B + row] /
-                      (1.0f + expf(-pre[(size_t)ix.gate[k] * B + row]));
+                      (1.0f + expf(-pre[(size_t)gate[k] * B + row]));
   }
 }
 
-// g_pre, a warp a coordinate, a lane a row (the instances' expression)
-__global__ void __launch_bounds__(kRtThreads)
+// g_pre, a warp a coordinate, a lane a row (the instances' expression),
+// blockIdx.z 0; blockIdx.z 1: the list entries' values in list order, vl[e]
+// = v[cl_e[e]] (2 nnz), which the list step streams beside its words
+__global__ void __launch_bounds__(kGpreThreads)
 rt_gpre_kernel(const float* __restrict__ g_h, const float* __restrict__ pre,
-               int B, int ng, int nh, RtInts ix, float* __restrict__ gpre) {
+               int B, int ng, int nh, const float* __restrict__ v, int nnz,
+               RtInts ix, float* __restrict__ gpre, float* __restrict__ vl) {
+  if (blockIdx.z == 1) {
+    const int stride = gridDim.x * gridDim.y * kGpreThreads;
+    for (int q = (blockIdx.y * gridDim.x + blockIdx.x) * kGpreThreads +
+                 threadIdx.x;
+         q < 2 * nnz; q += stride)
+      vl[q] = v[ix.cl_e[q]];
+    return;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.y * kRtWarps + warp;
+  const int c = blockIdx.y * kGpreWarps + warp;
   const int r = blockIdx.x * kTile + lane;
   if (c >= ng || r >= B) return;
   float gp = 0.0f;
@@ -809,151 +992,323 @@ rt_gpre_kernel(const float* __restrict__ g_h, const float* __restrict__ pre,
   gpre[(size_t)c * B + r] = gp;
 }
 
-// g_lin = g_pre + 0.1 (each coordinate's list in order), per_block
-// coordinates a block, a warp a coordinate
+// The list step.  Block (slot group u, column): the row tiles of 32 R rows
+// t = u, u + 8 / R, ... in order (32-row tiles t R .. t R + R - 1, so the
+// block owns slots u R .. u R + R - 1).  A coordinate's list is cut into
+// segments of at most RT_SEG entries (the host's BlockSpec.rt_segments:
+// seg, each segment's first entry, and cseg, each coordinate's first
+// segment), which the plan deals to the column's warps in runs of about
+// equal entries, so a long list spreads over several warps.  Plan per
+// column: v0 v1 (the nonzeros whose g_v it sums), c0 c1 (its coordinates),
+// g0 g1 (their segments), then each warp's run of segments.  Per tile: the
+// tile's g_pre and lin staged; each warp streams its segments' entries (the
+// words and vl, the values in list order, through its ring) and stores
+// 0.1 (the segment's sum, in order) in shared memory; after a barrier,
+// g_lin = g_pre + each segment's share in segment order (the instances'
+// finishing expression; one segment: the first design's g_pre + 0.1 sum).
+// With the parameter sums, g_v's partial of the nonzeros v0:v1 (a thread a
+// nonzero, each 32-row tile's rows in order: the instances' expression)
+// is added to the tile's slot, 8 n_par scratch (slots, stride n_par) that
+// only this block writes.
+template <int R, bool STAGED>
 __global__ void __launch_bounds__(kRtThreads)
-rt_glin_kernel(const float* __restrict__ gpre, const float* __restrict__ lin,
-               int B, int ng, const float* __restrict__ v, RtInts ix,
-               int per_block, int stage, float* __restrict__ glin) {
-  extern __shared__ __align__(16) float tiles[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
-  const TileRef gp = stage_tile(tiles, gpre, ng, B, r0, rows, stage, lane);
-  const TileRef l =
-      stage_tile(tiles + ng * kTile, lin, ng, B, r0, rows, stage, lane);
-  if (stage) __syncthreads();
-  if (lane >= rows) return;
-  const int c1 = min(ng, (int)(blockIdx.y + 1) * per_block);
-  for (int c = blockIdx.y * per_block + warp; c < c1; c += kRtWarps) {
-    const int e1 = ix.cl_ptr[c + 1];
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int e = ix.cl_ptr[c]; e < e1; ++e)
-      acc = fmaf(v[ix.cl_e[e]] * gp[ix.cl_o[e]], l[ix.cl_p[e]], acc);
-    glin[(size_t)c * B + r0 + lane] = __fadd_rn(gp[c], __fmul_rn(0.1f, acc));
+rt_list_kernel(const float* __restrict__ gpre, const float* __restrict__ lin,
+               int B, int ng, const float* __restrict__ vl, RtInts ix,
+               const int* __restrict__ word, const int* __restrict__ seg,
+               const int* __restrict__ cseg, const int* __restrict__ plan,
+               int need_params, float* __restrict__ glin,
+               float* __restrict__ gv_slots, int n_par) {
+  static_assert(STAGED || R == 1, "a tile in global memory is 32 rows");
+  constexpr int kRows = 32 * R, kP = kRows + 1;
+  constexpr int kGroups = kRtSlots / R;
+  extern __shared__ __align__(16) float sm[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int2* ring = reinterpret_cast<int2*>(sm) + warp * kRingBufs * kRing;
+  float* gt = sm + kRingFloats;
+  float* lt = gt + ng * kP;
+  float* segp = STAGED ? lt + ng * kP : gt;           // [segment][row]
+  const int* col = plan + blockIdx.y * kBwdPlanInts;
+  const int v0 = col[0], v1 = col[1], c0 = col[2], c1 = col[3], g0 = col[4];
+  const int sa = col[6 + 2 * warp], sb = col[7 + 2 * warp];
+  const int n_tiles = (B + kRows - 1) / kRows;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += kGroups) {
+    const int r0 = tile * kRows, rows = min(kRows, B - r0);
+    // the last tile's reads (its tiles, its segments' shares) before this
+    // one's writes
+    __syncthreads();
+    if (STAGED) {
+      rt_stage<R>(gt, gpre, ng, B, r0, rows);
+      rt_stage<R>(lt, lin, ng, B, r0, rows);
+      cp_wait();
+      __syncthreads();
+    }
+    const RtView<R, STAGED> gp(STAGED ? gt : gpre, B, r0, rows, lane);
+    const RtView<R, STAGED> l(STAGED ? lt : lin, B, r0, rows, lane);
+    if (sa < sb) {
+      RtRing rg{ring, word, vl, seg[sa], seg[sb], lane, 0, 0};
+      rg.start();
+      int e = rg.s0;
+      for (int s = sa; s < sb; ++s) {
+        const int e1 = seg[s + 1];
+        float acc[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) acc[k] = 0.0f;
+        while (e < e1) {
+          if (e == rg.avail) rg.next();
+          const int m = min(e1, rg.avail);
+          for (; e + kBatch <= m; e += kBatch) rt_batch<R>(rg, gp, l, e, acc);
+          for (; e < m; ++e) rt_batch<R, 1>(rg, gp, l, e, acc);
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          segp[(s - g0) * kRows + lane + 32 * k] = __fmul_rn(0.1f, acc[k]);
+      }
+    }
+    // every segment's share written
+    __syncthreads();
+    for (int q = t; q < (c1 - c0) * kRows; q += kRtThreads) {
+      const int cl = q / kRows, r = q - cl * kRows, c = c0 + cl;
+      if (r >= rows) continue;
+      float g = STAGED ? gt[c * kP + r] : gpre[(size_t)c * B + r0 + r];
+      for (int s = cseg[c]; s < cseg[c + 1]; ++s)
+        g = __fadd_rn(g, segp[(s - g0) * kRows + r]);
+      glin[(size_t)c * B + r0 + r] = g;
+    }
+    if (!need_params) continue;
+    for (int e = v0 + t; e < v1; e += kRtThreads) {
+      const int o = ix.eo[e], j = ix.ej[e], i = ix.ei[e];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int nr = min(32, rows - 32 * k);
+        if (nr <= 0) break;
+        const float *go, *lj, *li;
+        if (STAGED) {
+          go = gt + o * kP + 32 * k;
+          lj = lt + j * kP + 32 * k;
+          li = lt + i * kP + 32 * k;
+        } else {
+          go = gpre + (size_t)o * B + r0;
+          lj = lin + (size_t)j * B + r0;
+          li = lin + (size_t)i * B + r0;
+        }
+        float s = 0.0f;
+        for (int r = 0; r < nr; ++r) s += 0.1f * go[r] * lj[r] * li[r];
+        const int k32 = tile * R + k;
+        float* out = gv_slots + (size_t)(k32 % kRtSlots) * n_par + e;
+        *out = (k32 < kRtSlots ? 0.0f : *out) + s;
+      }
+    }
   }
 }
 
-// g_x = g_lin W_eff: 32 rows x 32 inputs a block, thread (row t / 8,
-// inputs 4 (t % 8) ..), the coordinates in order
-__global__ void __launch_bounds__(kRtThreads)
+// g_x = g_lin W_eff: a block TR rows (64 or 16, as rt_lin_kernel) x 64
+// inputs, thread (rows ry + 16 m, inputs kx + 16 n), g_lin and W_eff in
+// chunks of 32 coordinates staged by cp.async through two buffers, the
+// coordinates in order
+template <int TR>
+__global__ void __launch_bounds__(kGemmThreads)
 rt_gx_kernel(const float* __restrict__ glin, const float* __restrict__ W,
              int B, int ng, int nin, float* __restrict__ g_x) {
-  __shared__ float gs[kRtChunk * kTile];                     // [c][row]
-  __shared__ __align__(16) float ws[kRtChunk * kTile];       // [c][k]
-  const int t = threadIdx.x, r = t >> 3, kq = t & 7;
-  const int r0 = blockIdx.x * kTile, rows = min(kTile, B - r0);
-  const int k0 = blockIdx.y * kTile, nk = min(kTile, nin - k0);
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c0 = 0; c0 < ng; c0 += kRtChunk) {
-    const int cc = min(kRtChunk, ng - c0);
+  constexpr int M = TR / 16;
+  __shared__ float gs[2][kGemmK * kGemmPitch];     // [c][row]
+  __shared__ float ws[2][kGemmK * kGemmPitch];     // [c][k]
+  const int t = threadIdx.x, kx = t & 15, ry = t >> 4;
+  const int r0 = blockIdx.x * TR, rows = min(TR, B - r0);
+  const int k0 = blockIdx.y * kGemmTile, nk = min(kGemmTile, nin - k0);
+  auto stage = [&](int buf, int c0) {
+    const int cc = min(kGemmK, ng - c0);
+    for (int q = t; q < kGemmK * TR; q += kGemmThreads) {
+      const int c = q / TR, i = q - c * TR;
+      if (c < cc && i < rows)
+        cp4(&gs[buf][c * kGemmPitch + i], glin + (size_t)(c0 + c) * B + r0 + i);
+    }
+    for (int q = t; q < kGemmK * kGemmTile; q += kGemmThreads) {
+      const int c = q >> 6, i = q & 63;
+      if (c < cc && i < nk)
+        cp4(&ws[buf][c * kGemmPitch + i], W + (size_t)(c0 + c) * nin + k0 + i);
+    }
+    __pipeline_commit();
+  };
+  float a[M][4] = {};
+  stage(0, 0);
+  for (int c0 = 0, it = 0; c0 < ng; c0 += kGemmK, ++it) {
+    if (c0 + kGemmK < ng) stage((it + 1) & 1, c0 + kGemmK);
+    else __pipeline_commit();
+    __pipeline_wait_prior(1);
     __syncthreads();
-    for (int q = t; q < cc * kTile; q += kRtThreads) {
-      const int c = q >> 5, i = q & 31;
-      gs[q] = i < rows ? glin[(size_t)(c0 + c) * B + r0 + i] : 0.0f;
-      ws[q] = i < nk ? W[(size_t)(c0 + c) * nin + k0 + i] : 0.0f;
+    const float* gb = gs[it & 1];
+    const float* wb = ws[it & 1];
+    const int cc = min(kGemmK, ng - c0);
+    for (int c = 0; c < cc; ++c) {
+      float gv[M], wv[4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) gv[m] = gb[c * kGemmPitch + ry + 16 * m];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) wv[n] = wb[c * kGemmPitch + kx + 16 * n];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) a[m][n] = fmaf(gv[m], wv[n], a[m][n]);
     }
     __syncthreads();
-    for (int c = 0; c < cc; ++c) {
-      const float gv = gs[c * kTile + r];
-      const float4 w = reinterpret_cast<const float4*>(ws + c * kTile)[kq];
-      a[0] = fmaf(gv, w.x, a[0]);
-      a[1] = fmaf(gv, w.y, a[1]);
-      a[2] = fmaf(gv, w.z, a[2]);
-      a[3] = fmaf(gv, w.w, a[3]);
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int r = ry + 16 * m;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int k = kx + 16 * n;
+      if (k < nk) g_x[(size_t)(r0 + r) * nin + k0 + k] = a[m][n];
     }
   }
-  if (r >= rows) return;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-    if (4 * kq + m < nk)
-      g_x[(size_t)(r0 + r) * nin + k0 + 4 * kq + m] = a[m];
 }
 
-// The parameter gradients, a thread a parameter (g_W (ng, nin), g_b, g_v):
-// per 32-row tile the instances' partial (rows in order), the tiles added
-// as block_bwd_finish_kernel adds them (tile k into sum k % 8, then the 8
-// sums in order)
-__global__ void __launch_bounds__(kRtThreads)
-rt_param_kernel(const float* __restrict__ glin,
-                const float* __restrict__ gpre,
-                const float* __restrict__ lin, const float* __restrict__ x,
-                int B, int ng, int nin, int nnz, RtInts ix,
-                float* __restrict__ g_par) {
-  constexpr int kWarps = kSumThreads / 32;
-  const int nw = ng * nin;
-  const int q = blockIdx.x * kRtThreads + threadIdx.x;
-  if (q >= nw + ng + nnz) return;
-  const float *a = nullptr, *b = nullptr, *c = nullptr;
-  int kind = 0;
-  size_t ldb = 0;
-  if (q < nw) {                        // g_W: g_lin[c] . x[:, k]
-    const int cl = q / nin;
-    a = glin + (size_t)cl * B;
-    b = x + (q - cl * nin);
-    ldb = nin;
-  } else if (q < nw + ng) {            // g_b: g_lin[c]
-    a = glin + (size_t)(q - nw) * B;
-    kind = 1;
-  } else {                             // g_v: 0.1 g_pre[o] lin[j] lin[i]
-    const int e = q - nw - ng;
-    a = gpre + (size_t)ix.eo[e] * B;
-    b = lin + (size_t)ix.ej[e] * B;
-    c = lin + (size_t)ix.ei[e] * B;
-    kind = 2;
-  }
-  const int n_tiles = (B + kTile - 1) / kTile;
-  float sums[kWarps];
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) sums[w] = 0.0f;
-  for (int k8 = 0; k8 < n_tiles; k8 += kWarps) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int tile = k8 + w;
-      const int r0 = tile * kTile, rows = max(0, min(kTile, B - r0));
-      float s = 0.0f;
-      if (kind == 0) {
-#pragma unroll 8
-        for (int r = 0; r < rows; ++r)
-          s = fmaf(a[r0 + r], b[(size_t)(r0 + r) * ldb], s);
-      } else if (kind == 1) {
-#pragma unroll 8
-        for (int r = 0; r < rows; ++r) s += a[r0 + r];
-      } else {
-#pragma unroll 8
-        for (int r = 0; r < rows; ++r)
-          s += 0.1f * a[r0 + r] * b[r0 + r] * c[r0 + r];
+// g_W (ng, nin) and g_b (ng, as an input column of ones) into slot s: a
+// block 64 coordinates x 64 inputs (of nin + 1) and slot s = blockIdx.z,
+// thread (coordinates cy + 16 m, inputs kx + 16 n); the 32-row tiles s, s +
+// 8, ... in order, each tile's partial rows in order from zero, added to
+// the slot's sum (the instances' order), the tiles staged by cp.async
+// through two buffers
+__global__ void __launch_bounds__(kGemmThreads)
+rt_gw_kernel(const float* __restrict__ glin, const float* __restrict__ x,
+             int B, int ng, int nin, float* __restrict__ slots, int n_par) {
+  __shared__ float gs[2][kGemmTile * (kTile + 1)];   // [c][row]
+  __shared__ float xs[2][kTile * kGemmPitch];        // [row][k]
+  const int t = threadIdx.x, kx = t & 15, cy = t >> 4;
+  const int k0 = blockIdx.x * kGemmTile, c0 = blockIdx.y * kGemmTile;
+  const int slot = blockIdx.z, n_tiles = (B + kTile - 1) / kTile;
+  const int nc = min(kGemmTile, ng - c0);
+  auto stage = [&](int buf, int tile) {
+    const int r0 = tile * kTile, rows = min(kTile, B - r0);
+    for (int q = t; q < kGemmTile * kTile; q += kGemmThreads) {
+      const int c = q >> 5, r = q & 31;
+      if (c < nc && r < rows)
+        cp4(&gs[buf][c * (kTile + 1) + r], glin + (size_t)(c0 + c) * B + r0 + r);
+    }
+    for (int q = t; q < kTile * kGemmTile; q += kGemmThreads) {
+      const int r = q >> 6, k = q & 63, kk = k0 + k;
+      if (r < rows) {
+        if (kk < nin)
+          cp4(&xs[buf][r * kGemmPitch + k], x + (size_t)(r0 + r) * nin + kk);
+        else
+          xs[buf][r * kGemmPitch + k] = kk == nin ? 1.0f : 0.0f;
       }
-      sums[w] += s;
+    }
+    __pipeline_commit();
+  };
+  float s[4][4] = {};
+  stage(0, slot);
+  for (int tile = slot, it = 0; tile < n_tiles; tile += kRtSlots, ++it) {
+    if (tile + kRtSlots < n_tiles) stage((it + 1) & 1, tile + kRtSlots);
+    else __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    const float* gb = gs[it & 1];
+    const float* xb = xs[it & 1];
+    const int rows = min(kTile, B - tile * kTile);
+    float p[4][4] = {};
+    for (int r = 0; r < rows; ++r) {
+      float gv[4], xv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) gv[m] = gb[(cy + 16 * m) * (kTile + 1) + r];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) xv[n] = xb[r * kGemmPitch + kx + 16 * n];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) p[m][n] = fmaf(gv[m], xv[n], p[m][n]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) s[m][n] += p[m][n];
+    __syncthreads();
+  }
+  float* out = slots + (size_t)slot * n_par;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int c = cy + 16 * m;
+    if (c >= nc) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int k = k0 + kx + 16 * n;
+      if (k < nin) out[(size_t)(c0 + c) * nin + k] = s[m][n];
+      else if (k == nin) out[(size_t)ng * nin + c0 + c] = s[m][n];
     }
   }
-  float tot = sums[0];
+}
+
+// the parameter gradients: the slots added in order (block_bwd_finish_kernel's
+// sums[0] + sums[1] + ... , an empty slot adding zero)
+__global__ void __launch_bounds__(kGemmThreads)
+rt_finish_kernel(const float* __restrict__ slots, int n_slots, int n_par,
+                 float* __restrict__ g_par) {
+  const int q = blockIdx.x * kGemmThreads + threadIdx.x;
+  if (q >= n_par) return;
+  float tot = slots[q];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) tot += sums[w];
+  for (int s = 1; s < kRtSlots; ++s)
+    tot += s < n_slots ? slots[(size_t)s * n_par + q] : 0.0f;
   g_par[q] = tot;
 }
 
 }  // namespace
 
-// The run-time path's geometry and shared memory: 0 threads a block, 1 the
-// forward's outputs a block (rt_lin_kernel), 2 the staged-tile bytes a
-// coordinate (rt_gate_kernel: one tile; rt_glin_kernel: two), 3 the static
-// shared memory of rt_lin_kernel, 4 of rt_gx_kernel (bytes).
+// The run-time path's geometry: 0 threads of a sparse step's block, 1
+// entries a ring buffer, 2 the parameter sums' slots, 3 a dense step's
+// tile side, 4 the shared-memory floats of a sparse block's rings.
 extern "C" int emlp_block_rt_geometry(int which) {
   return which == 0   ? kRtThreads
-         : which == 1 ? 4 * kRtWarps
-         : which == 2 ? kTile * 4
-         : which == 3 ? (int)(kRtChunk * (kPitch + kRtWPitch) * 4)
-                      : (int)(2 * kRtChunk * kTile * 4);
+         : which == 1 ? kRing
+         : which == 2 ? kRtSlots
+         : which == 3 ? kGemmTile
+                      : kRingFloats;
 }
 
 namespace {
 
-// per kernel (the two have different types): its dynamic shared memory
-template <typename K>
-cudaError_t rt_smem(K kernel, size_t bytes) {
+// rows a block of the dense steps: 64, or 16 where 64-row blocks would not
+// give every SM one (the device's SM count, read once a device)
+int rt_gemm_rows(int B, int col_blocks) {
+  static int sms[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return kGemmTile;
+  if (!sms[dev] && cudaDeviceGetAttribute(
+                       &sms[dev], cudaDevAttrMultiProcessorCount, dev) !=
+                       cudaSuccess)
+    return kGemmTile;
+  return (B + kGemmTile - 1) / kGemmTile * col_blocks >= sms[dev] ? kGemmTile
+                                                                  : 16;
+}
+
+template <int R, bool STAGED>
+int rt_gate_launch(dim3 grid, size_t smem, cudaStream_t st, const float* lin,
+                   int B, int ng, int nh, const float* v, const int* word,
+                   const RtInts& ix, const int* plan, float* h, float* pre) {
+  // per instance (the instances share a type): its dynamic shared memory
   static size_t done[kMaxDevices] = {0};
-  return set_smem(kernel, bytes, done);
+  cudaError_t e = set_smem(rt_gate_kernel<R, STAGED>, smem, done);
+  if (e != cudaSuccess) return (int)e;
+  rt_gate_kernel<R, STAGED><<<grid, kRtThreads, smem, st>>>(
+      lin, B, ng, nh, v, word, ix.rowptr, ix.gate, plan, h, pre);
+  return (int)cudaGetLastError();
+}
+
+template <int R, bool STAGED>
+int rt_list_launch(dim3 grid, size_t smem, cudaStream_t st, const float* gpre,
+                   const float* lin, int B, int ng, const float* vl,
+                   const RtInts& ix, const int* word, const int* seg,
+                   const int* cseg, const int* plan, int need_params,
+                   float* glin, float* gv_slots, int n_par) {
+  static size_t done[kMaxDevices] = {0};
+  cudaError_t e = set_smem(rt_list_kernel<R, STAGED>, smem, done);
+  if (e != cudaSuccess) return (int)e;
+  rt_list_kernel<R, STAGED><<<grid, kRtThreads, smem, st>>>(
+      gpre, lin, B, ng, vl, ix, word, seg, cseg, plan, need_params, glin,
+      gv_slots, n_par);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1030,81 +1385,137 @@ extern "C" int emlp_block_bwd_launch(const void* g_h, const void* x, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-// Run-time widths (any (nin, ng, nh)): rt_ints the BlockSpec.rt_ints of the
-// block; ranges (n_cols x 4: k0, k1, q0, q1, BlockSpec.rt_ranges) the
-// coordinates of each block column of rt_gate_kernel; stage 1: the tile's
-// lin in shared memory (ng x 128 bytes), 0: read from global memory.  lin
-// and pre (ng, B) are always written (the gate step reads both).
+// Run-time widths (any (nin, ng, nh)): rt_ints the block's BlockSpec.rt_ints,
+// words its rt_words (the forward's nnz (j, i) words; BlockSpec.rt_layout
+// picks rows_a_lane R, 1 or 2, and staged), plan its rt_plan("forward")
+// (n_cols columns of kFwdPlanInts ints).  lin and pre (ng, B) are always
+// written (the gate step reads both).  Two launches: rt_lin_kernel, then
+// rt_gate_kernel over (tiles of 32 R rows) x n_cols.
 extern "C" int emlp_block_rt_fwd_launch(const void* x, int B, const void* W,
                                         const void* b, const void* v,
                                         const void* rt_ints, int nnz,
-                                        const void* ranges, int n_cols,
-                                        int stage, void* h, void* lin,
+                                        const void* words, const void* plan,
+                                        int n_cols, int rows_a_lane,
+                                        int staged, void* h, void* lin,
                                         void* pre, int nin, int ng, int nh,
                                         void* stream) {
   if (B <= 0 || nnz < 0 || nin <= 0 || ng <= 0 || nh <= 0 || nh > ng ||
-      n_cols <= 0 || lin == nullptr || pre == nullptr)
+      n_cols <= 0 || lin == nullptr || pre == nullptr ||
+      !(rows_a_lane == 1 || (rows_a_lane == 2 && staged)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = (B + kTile - 1) / kTile;
   const RtInts ix = rt_ints_of((const int*)rt_ints, ng, nh, nnz);
-  rt_lin_kernel<<<dim3(n_tiles, (ng + 4 * kRtWarps - 1) / (4 * kRtWarps)),
-                  kRtThreads, 0, st>>>((const float*)x, B, nin, ng,
-                                       (const float*)W, (const float*)b,
-                                       (float*)lin);
+  const int o_blocks = (ng + kGemmTile - 1) / kGemmTile;
+  if (rt_gemm_rows(B, o_blocks) == kGemmTile)
+    rt_lin_kernel<kGemmTile><<<dim3((B + kGemmTile - 1) / kGemmTile,
+                                    o_blocks), kGemmThreads, 0, st>>>(
+        (const float*)x, B, nin, ng, (const float*)W, (const float*)b,
+        (float*)lin);
+  else
+    rt_lin_kernel<16><<<dim3((B + 15) / 16, o_blocks), kGemmThreads, 0,
+                         st>>>((const float*)x, B, nin, ng, (const float*)W,
+                               (const float*)b, (float*)lin);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = stage ? (size_t)ng * kTile * 4 : 0;
-  e = rt_smem(rt_gate_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  rt_gate_kernel<<<dim3(n_tiles, n_cols), kRtThreads, smem, st>>>(
-      (const float*)lin, B, ng, nh, (const float*)v, ix, (const int*)ranges,
-      stage, (float*)h, (float*)pre);
-  return (int)cudaGetLastError();
+  const int rows = 32 * rows_a_lane;
+  const dim3 grid((B + rows - 1) / rows, n_cols);
+  const size_t smem =
+      kRingFloats * 4 + (staged ? (size_t)ng * (rows + 1) * 4 : 0);
+  const float* l = (const float*)lin;
+  const float* vv = (const float*)v;
+  const int* w = (const int*)words;
+  const int* p = (const int*)plan;
+  if (!staged)
+    return rt_gate_launch<1, false>(grid, smem, st, l, B, ng, nh, vv, w, ix,
+                                    p, (float*)h, (float*)pre);
+  if (rows_a_lane == 2)
+    return rt_gate_launch<2, true>(grid, smem, st, l, B, ng, nh, vv, w, ix,
+                                   p, (float*)h, (float*)pre);
+  return rt_gate_launch<1, true>(grid, smem, st, l, B, ng, nh, vv, w, ix, p,
+                                 (float*)h, (float*)pre);
 }
 
-// Run-time widths: gpre and glin (ng, B) scratch; per_block coordinates a
-// block column of rt_glin_kernel; stage 1: the tile's g_pre and lin in
-// shared memory (ng x 256 bytes); g_par (ng nin + ng + nnz) written when
-// need_params.
-extern "C" int emlp_block_rt_bwd_launch(const void* g_h, const void* x,
-                                        int B, const void* W, const void* v,
-                                        const void* rt_ints, int nnz,
-                                        const void* lin, const void* pre,
-                                        int per_block, int stage, void* gpre,
-                                        void* glin, void* g_x, void* g_par,
-                                        int need_params, int nin, int ng,
-                                        int nh, void* stream) {
+// Run-time widths: words the block's list words (2 nnz (o, partner) words),
+// segs its rt_segments (n_seg + 1 segment starts, then ng + 1 first
+// segments), plan its rt_plan("backward") (n_cols columns of kBwdPlanInts
+// ints, a column at most max_segs segments), R and staged as the
+// forward's; gpre and glin (ng, B) and vl (2 nnz) scratch; with
+// need_params slots (8, n_par) scratch and g_par (ng nin + ng + nnz)
+// written.  Three launches (rt_gpre_kernel, which also gathers vl;
+// rt_list_kernel over (8 / R slot groups) x n_cols; rt_gx_kernel), five
+// with the parameter sums (rt_gw_kernel over its tiles x the slots in use,
+// rt_finish_kernel).
+extern "C" int emlp_block_rt_bwd_launch(
+    const void* g_h, const void* x, int B, const void* W, const void* v,
+    const void* rt_ints, int nnz, const void* words, const void* segs,
+    int n_seg, const void* lin, const void* pre, const void* plan,
+    int n_cols, int max_segs, int rows_a_lane, int staged, void* gpre,
+    void* glin, void* vl, void* g_x, void* slots, void* g_par,
+    int need_params, int nin, int ng, int nh, void* stream) {
   if (B <= 0 || nnz < 0 || nin <= 0 || ng <= 0 || nh <= 0 || nh > ng ||
-      per_block <= 0)
+      n_cols <= 0 || n_seg < 0 || max_segs < 0 ||
+      !(rows_a_lane == 1 || (rows_a_lane == 2 && staged)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = (B + kTile - 1) / kTile;
   const RtInts ix = rt_ints_of((const int*)rt_ints, ng, nh, nnz);
-  rt_gpre_kernel<<<dim3(n_tiles, (ng + kRtWarps - 1) / kRtWarps), kRtThreads,
-                   0, st>>>((const float*)g_h, (const float*)pre, B, ng, nh,
-                            ix, (float*)gpre);
+  rt_gpre_kernel<<<dim3((B + kTile - 1) / kTile,
+                        (ng + kGpreWarps - 1) / kGpreWarps, 2),
+                   kGpreThreads, 0, st>>>((const float*)g_h,
+                                          (const float*)pre, B, ng, nh,
+                                          (const float*)v, nnz, ix,
+                                          (float*)gpre, (float*)vl);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = stage ? (size_t)2 * ng * kTile * 4 : 0;
-  e = rt_smem(rt_glin_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  rt_glin_kernel<<<dim3(n_tiles, (ng + per_block - 1) / per_block),
-                   kRtThreads, smem, st>>>(
-      (const float*)gpre, (const float*)lin, B, ng, (const float*)v, ix,
-      per_block, stage, (float*)glin);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rt_gx_kernel<<<dim3(n_tiles, (nin + kTile - 1) / kTile), kRtThreads, 0,
-                 st>>>((const float*)glin, (const float*)W, B, ng, nin,
-                       (float*)g_x);
+  const long long n_par = (long long)ng * nin + ng + nnz;
+  const int rows = 32 * rows_a_lane, tiles = (B + rows - 1) / rows;
+  const dim3 grid(min(kRtSlots / rows_a_lane, tiles), n_cols);
+  const size_t smem = kRingFloats * 4 +
+                      (staged ? (size_t)2 * ng * (rows + 1) * 4 : 0) +
+                      (size_t)max_segs * rows * 4;
+  const int* sg = (const int*)segs;
+  const int* cs = sg + n_seg + 1;
+  float* gv = (float*)slots + (size_t)ng * nin + ng;
+  const float* gp = (const float*)gpre;
+  const float* l = (const float*)lin;
+  const float* vv = (const float*)vl;
+  const int* w = (const int*)words;
+  const int* p = (const int*)plan;
+  int err;
+  if (!staged)
+    err = rt_list_launch<1, false>(grid, smem, st, gp, l, B, ng, vv, ix, w,
+                                   sg, cs, p, need_params, (float*)glin, gv,
+                                   (int)n_par);
+  else if (rows_a_lane == 2)
+    err = rt_list_launch<2, true>(grid, smem, st, gp, l, B, ng, vv, ix, w,
+                                  sg, cs, p, need_params, (float*)glin, gv,
+                                  (int)n_par);
+  else
+    err = rt_list_launch<1, true>(grid, smem, st, gp, l, B, ng, vv, ix, w,
+                                  sg, cs, p, need_params, (float*)glin, gv,
+                                  (int)n_par);
+  if (err != cudaSuccess) return err;
+  const int k_blocks = (nin + kGemmTile - 1) / kGemmTile;
+  if (rt_gemm_rows(B, k_blocks) == kGemmTile)
+    rt_gx_kernel<kGemmTile><<<dim3((B + kGemmTile - 1) / kGemmTile,
+                                   k_blocks), kGemmThreads, 0, st>>>(
+        (const float*)glin, (const float*)W, B, ng, nin, (float*)g_x);
+  else
+    rt_gx_kernel<16><<<dim3((B + 15) / 16, k_blocks), kGemmThreads, 0,
+                        st>>>((const float*)glin, (const float*)W, B, ng,
+                              nin, (float*)g_x);
   e = cudaGetLastError();
   if (e != cudaSuccess || !need_params) return (int)e;
-  const long long n_par = (long long)ng * nin + ng + nnz;
-  rt_param_kernel<<<(unsigned)((n_par + kRtThreads - 1) / kRtThreads),
-                    kRtThreads, 0, st>>>((const float*)glin,
-                                         (const float*)gpre,
-                                         (const float*)lin, (const float*)x,
-                                         B, ng, nin, nnz, ix, (float*)g_par);
+  const int n_tiles = (B + kTile - 1) / kTile;
+  const int n_slots = n_tiles < kRtSlots ? n_tiles : kRtSlots;
+  rt_gw_kernel<<<dim3((nin + kGemmTile) / kGemmTile,
+                      (ng + kGemmTile - 1) / kGemmTile, n_slots),
+                 kGemmThreads, 0, st>>>((const float*)glin, (const float*)x,
+                                        B, ng, nin, (float*)slots,
+                                        (int)n_par);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rt_finish_kernel<<<(unsigned)((n_par + kGemmThreads - 1) / kGemmThreads),
+                     kGemmThreads, 0, st>>>((const float*)slots, n_slots,
+                                            (int)n_par, (float*)g_par);
   return (int)cudaGetLastError();
 }

@@ -40,13 +40,18 @@ other ``(nin, ng, nh)`` (a config's ``critic_hidden_dim`` or
 ``actor_hidden_dim``) runs the run-time-width kernels instead
 (``emlp_block_any``, ``emlp_block_backward_any``): the sizes as
 arguments, one launch a step with the vectors between steps field-major
-in global memory, ``W_eff`` streamed through shared memory in chunks, so
-no width outgrows a block; ``BlockSpec.rt_ints`` is their index and
-``rt_ranges``/``rt_per_block``/``rt_stage`` their plan.  Their forward repeats the
-instances' arithmetic, bit for bit; their g_lin sums each coordinate's
-list in one run (the instances cut it into segments), so g_lin and what
-is summed from it (g_x, g_W, g_b) agree with an instance's to the twins'
-tolerance, g_v (from g_pre) bit for bit.
+in global memory.  The dense steps are register-tiled products; the
+sparse steps stage the tile in shared memory at ``R`` rows a lane and
+stream the index through a per-warp ring; the parameter sums are taken
+per 32-row tile and added into ``RT_SLOTS`` slots, tile ``k`` into slot
+``k % 8``, then the slots in order (``csrc/emlp_block.cu`` describes the
+design).  ``BlockSpec.rt_ints`` is their index, ``rt_words`` the packed
+offsets the sparse steps stream, ``rt_layout`` and ``rt_plan`` their
+plan.  Their sums are taken in the instances' orders except g_lin's,
+which sums each coordinate's list in one run (the instances cut it into
+segments): the forward and g_v are an instance's bit for bit, g_lin and
+what is summed from it (g_x, g_W, g_b) agree with an instance's to the
+twins' tolerance.
 """
 from __future__ import annotations
 
@@ -94,14 +99,20 @@ BLOCKS_PER_SM = 2
 SEG_MIN, GROUP_MIN_ENTRIES = 16, 64
 SMEM_TARGET, SMEM_LIMIT = 113 * 1024, 232448
 # The run-time-width kernels (any (nin, ng, nh); csrc/emlp_block.cu
-# "run-time widths"): threads a block, the forward's outputs a block of
-# rt_lin_kernel, the static shared memory of rt_lin_kernel and rt_gx_kernel
-# (bytes), the staged tile's bytes a coordinate (the gate step stages lin,
-# the list step g_pre and lin)
-RT_THREADS, RT_OUTPUTS = 256, 32
-RT_STATIC = {"lin": 32 * (PITCH + 36) * 4, "gx": 2 * 32 * TILE * 4}
-RT_TILE_BYTES = {"forward": 4 * TILE, "backward": 8 * TILE}
-
+# "run-time widths"): warps a block of the sparse steps, entries a ring
+# buffer and a warp's buffers, the parameter sums' slots, a dense step's
+# tile side; the rings' shared memory a sparse block (bytes); a lane takes two rows from
+# RT_TWO_ROWS_MIN rows where the tile fits; a block column of the sparse
+# steps is planned for RT_BLOCKS_PER_SM blocks an SM at most
+RT_WARPS, RT_RING, RT_RING_BUFS, RT_SLOTS, RT_GEMM_TILE = 16, 32, 4, 8, 64
+RT_RING_BYTES = RT_WARPS * RT_RING_BUFS * RT_RING * 8
+# the list step's segments: a coordinate's list cut into runs of at most
+# RT_SEG entries (fixed by the index alone, so g_lin's order does not
+# depend on the batch or the card)
+RT_SEG = 256
+RT_TWO_ROWS_MIN = 512
+RT_BLOCKS_PER_SM = 4
+SM_SMEM = 233472          # an H100 SM's shared memory (bytes)
 
 def _lib():
     lib = KERNEL.load()
@@ -117,12 +128,14 @@ def _lib():
         lib.emlp_block_smem.restype = ctypes.c_longlong
         lib.emlp_block_geometry.argtypes = [I]
         lib.emlp_block_geometry.restype = I
-        lib.emlp_block_rt_fwd_launch.argtypes = [P, I, P, P, P, P, I, P, I,
-                                                 I, P, P, P, I, I, I, P]
+        lib.emlp_block_rt_fwd_launch.argtypes = [P, I, P, P, P, P, I, P, P,
+                                                 I, I, I, P, P, P, I, I, I,
+                                                 P]
         lib.emlp_block_rt_fwd_launch.restype = I
         lib.emlp_block_rt_bwd_launch.argtypes = [P, P, I, P, P, P, I, P, P,
-                                                 I, I, P, P, P, P, I, I, I,
-                                                 I, P]
+                                                 I, P, P, P, I, I, I, I, P,
+                                                 P, P, P, P, P, I, I, I, I,
+                                                 P]
         lib.emlp_block_rt_bwd_launch.restype = I
         lib.emlp_block_rt_geometry.argtypes = [I]
         lib.emlp_block_rt_geometry.restype = I
@@ -131,8 +144,8 @@ def _lib():
             raise RuntimeError("emlp_block: kernel geometry differs from "
                                "the wrapper's")
         if tuple(lib.emlp_block_rt_geometry(k) for k in range(5)) != (
-                RT_THREADS, RT_OUTPUTS, RT_TILE_BYTES["forward"],
-                RT_STATIC["lin"], RT_STATIC["gx"]):
+                RT_WARPS * 32, RT_RING, RT_SLOTS, RT_GEMM_TILE,
+                RT_RING_BYTES // 4):
             raise RuntimeError("emlp_block: run-time kernels' geometry "
                                "differs from the wrapper's")
         lib._typed = True
@@ -184,6 +197,17 @@ class Plan(NamedTuple):
     hdr: np.ndarray     # (G, 10) per group, as the kernel's FwdHdr / BwdHdr
     arrays: tuple       # forward: (fo,); backward: (wb, seg, cs)
     meta: tuple
+
+
+class RtPlan(NamedTuple):
+    """A run-time step's plan (``BlockSpec.rt_plan``): the int32 tensor its
+    kernel reads, its block columns, a lane's rows, whether the tile is
+    staged, and (the list step) the most segments a column has."""
+    ints: torch.Tensor
+    cols: int
+    rows: int
+    staged: bool
+    segs: int
 
 
 def atoms(gate, nh):
@@ -288,18 +312,111 @@ def rt_atoms(gate, nh):
     return np.asarray(out, np.int64).reshape(-1, 3)
 
 
-# Staging forced on the run-time path for a check at shapes that would
-# stage (``chip_smoke.py``'s phase 26 holds the global-memory tiles bitwise
-# to the staged ones): ``{kind: bool}`` over ``rt_stage``'s.  Empty in use.
-_FORCE: Dict[str, bool] = {}
+# A layout forced on the run-time path for a check (``chip_smoke.py``'s
+# phase 26 holds the global-memory tiles and each lane's rows bitwise to
+# the chosen ones): ``{"forward" | "backward": bool}`` staging over
+# ``rt_stage``'s, ``{"forward_rows" | "backward_rows": 1 | 2}`` a staged
+# lane's rows over ``rt_layout``'s.  Empty in use.
+_FORCE: Dict[str, object] = {}
 
 
-def rt_smem(dims, kind, stage):
-    """Dynamic shared memory (bytes) of the run-time path's staged launch:
-    the forward's gate step (the tile's lin) or the backward's list step
-    (its g_pre and lin), ``stage`` on; 0 off (read from global memory).
-    Its other launches have static shared memory only (``RT_STATIC``)."""
-    return RT_TILE_BYTES[kind] * dims[1] if stage else 0
+def rt_smem(dims, kind, rows, segs=0):
+    """Dynamic shared memory (bytes) of the run-time path's sparse launch:
+    the forward's gate step (the rings and the tile's lin) or the
+    backward's list step (the rings, its g_pre and lin, and ``segs``
+    segments' shares of ``32 rows`` rows), ``rows`` a lane with the tile
+    staged (1 or 2: tiles of ``32 rows`` at pitch ``32 rows + 1``), 0 with
+    the tile read from global memory (one row a lane).  The dense
+    launches' shared memory is static."""
+    tiles = 1 if kind == "forward" else 2
+    return RT_RING_BYTES + (4 * tiles * dims[1] * (32 * rows + 1)
+                            if rows else 0) + 4 * segs * 32 * max(rows, 1)
+
+
+def rt_blocks_per_sm(smem):
+    """Blocks of a sparse step an SM holds at ``smem`` dynamic bytes (an
+    H100 SM's shared memory, 1 KB a block reserved, 2048 threads)."""
+    return max(1, min(RT_BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
+
+
+def rt_runs(weights, n):
+    """Boundaries (n + 1) of ``n`` contiguous runs of ``weights`` of about
+    equal sums, empty runs allowed (more runs than items)."""
+    cum = np.concatenate([[0], np.cumsum(weights)])
+    b = np.searchsorted(cum, np.arange(n + 1) * cum[-1] / n, side="left")
+    b[0], b[-1] = 0, len(weights)
+    return np.maximum.accumulate(b)
+
+
+def rt_forward_plan(gate, rowptr, nh, cols):
+    """The run-time gate step's plan: ``cols`` block columns, runs of whole
+    atoms of about equal work (each atom's and its gate's nonzeros, and
+    one); per column ``k0, k1, q0, q1`` (its outputs and its gate
+    coordinates, contiguous: the gates follow their atoms), then per warp
+    two runs of its coordinates ``(a0, a1, b0, b1)`` (outputs, then gate
+    coordinates; each warp's coordinates contiguous, their nonzeros
+    contiguous in the index) of about equal nonzeros.  An int array
+    ``(cols, 4 + 4 RT_WARPS)``."""
+    nnz = np.diff(rowptr)
+    at = rt_atoms(gate, nh)
+    w = [nnz[k0:k1].sum() + (nnz[g] if g >= 0 else 0) + 1
+         for k0, k1, g in at]
+    cb = _split(w, cols)
+    out = []
+    for a0, a1 in zip(cb[:-1], cb[1:]):
+        run = at[a0:a1]
+        g = run[:, 2][run[:, 2] >= 0]
+        q0 = int(g[0]) if len(g) else nh
+        if not np.array_equal(g, np.arange(q0, q0 + len(g))):
+            raise ValueError("emlp_block: gate coordinates do not follow "
+                             "their atoms")
+        k0, k1, q1 = int(run[0, 0]), int(run[-1, 1]), q0 + len(g)
+        nk = k1 - k0
+        coords = np.concatenate([np.arange(k0, k1), np.arange(q0, q1)])
+        wb = rt_runs(nnz[coords] + 1, RT_WARPS)
+        row = [k0, k1, q0, q1]
+        for s0, s1 in zip(wb[:-1], wb[1:]):
+            row += [k0 + min(s0, nk), k0 + min(s1, nk),
+                    q0 + max(s0 - nk, 0), q0 + max(s1 - nk, 0)]
+        out.append(row)
+    return np.asarray(out, np.int64)
+
+
+def rt_segments(cl_ptr, seg_len=RT_SEG):
+    """Each coordinate's list cut into ``ceil(n / seg_len)`` runs of about
+    equal length, in order: ``(seg (n_seg + 1), cseg (ng + 1))``, segment
+    ``s`` the list entries ``seg[s]:seg[s + 1]``, coordinate ``c``'s the
+    segments ``cseg[c]:cseg[c + 1]`` (none for an empty list)."""
+    n = np.diff(cl_ptr)
+    k = -(-n // seg_len)
+    cseg = np.concatenate([[0], np.cumsum(k)])
+    starts = [cl_ptr[c] + (n[c] * np.arange(k[c])) // k[c]
+              for c in range(len(n)) if k[c]]
+    seg = np.concatenate(starts + [[cl_ptr[-1]]]).astype(np.int64)
+    return seg, cseg
+
+
+def rt_backward_plan(cl_ptr, seg, cseg, nnz, cols):
+    """The run-time list step's plan: ``cols`` block columns, each a run
+    of coordinates of about equal list entries (and one each) and a run of
+    nonzeros ``v0:v1`` whose g_v it sums (equal runs); per column ``v0, v1,
+    c0, c1, g0, g1`` (its nonzeros, coordinates and their segments), then
+    per warp a run of its segments ``(sa, sb)`` of about equal entries.
+    Returns the int array ``(cols, 6 + 2 RT_WARPS)`` and the most segments
+    a column has."""
+    n = np.diff(cl_ptr)
+    cb = _split(n + 1, cols)
+    vb = (nnz * np.arange(cols + 1)) // cols
+    out, most = [], 0
+    for k, (c0, c1) in enumerate(zip(cb[:-1], cb[1:])):
+        g0, g1 = cseg[c0], cseg[c1]
+        most = max(most, g1 - g0)
+        wb = g0 + rt_runs(np.diff(seg[g0:g1 + 1]) + 1, RT_WARPS)
+        row = [vb[k], vb[k + 1], c0, c1, g0, g1]
+        for a, b in zip(wb[:-1], wb[1:]):
+            row += [a, b]
+        out.append(row)
+    return np.asarray(out, np.int64), int(most)
 
 
 def forward_smem(dims, meta):
@@ -419,70 +536,132 @@ class BlockSpec:
 
     def rt_ints(self):
         """The run-time path's index (csrc/emlp_block.cu ``RtInts``: gate,
-        rowptr, each nonzero's j, i and o, the coordinate-major lists' ptr,
-        outputs, partners and nonzeros, the gate's inverse, the atoms) as
-        one int32 tensor on this spec's device, and the atom count."""
+        rowptr, each nonzero's j, i and o, each list entry's nonzero, the
+        gate's inverse) as one int32 tensor on this spec's device; the
+        sparse steps' entries are ``rt_words`` and ``rt_segments``."""
         hit = self._plans.get("rt_ints")
         if hit is None:
             o, j, i = (self.idx[k].cpu().numpy() for k in ("o", "j", "i"))
-            ptr, e, lo, partner = self.lists
-            at = rt_atoms(self.gate, self.nh)
-            flat = np.concatenate([self.gate, self.rowptr, j, i, o, ptr, lo,
-                                   partner, e, *self.ginv, at.reshape(-1)])
-            hit = self._plans["rt_ints"] = (
-                torch.as_tensor(flat.astype(np.int32), device=self.device),
-                len(at))
-        return hit
-
-    def rt_per_block(self, B, sms):
-        """Coordinates a block column of the run-time backward's list step
-        at ``B`` rows: as many columns as make about two blocks an SM over
-        the 32-row tiles, each column at least a warp's share of the
-        block."""
-        key = ("rt", B, sms)
-        hit = self._plans.get(key)
-        if hit is None:
-            warps = RT_THREADS // 32
-            cols = max(1, min(-(-2 * sms // -(-B // TILE)),
-                              -(-self.ng // warps)))
-            hit = self._plans[key] = -(-self.ng // cols)
-        return hit
-
-    def rt_ranges(self, B, sms):
-        """The run-time forward's gate step at ``B`` rows: its block
-        columns, runs of whole atoms of about equal work (each atom's and
-        its gate's nonzeros, and one), as many as make about two blocks an
-        SM over the 32-row tiles; per column ``(k0, k1, q0, q1)``, its
-        outputs and its gate coordinates (contiguous: the gates follow
-        their atoms), as an int32 tensor on this spec's device."""
-        key = ("rt_ranges", B, sms)
-        hit = self._plans.get(key)
-        if hit is None:
-            at = rt_atoms(self.gate, self.nh)
-            nnz = np.diff(self.rowptr)
-            w = [nnz[k0:k1].sum() + (nnz[g] if g >= 0 else 0) + 1
-                 for k0, k1, g in at]
-            cb = _split(w, max(1, min(-(-2 * sms // -(-B // TILE)),
-                                      len(at))))
-            out = []
-            for a0, a1 in zip(cb[:-1], cb[1:]):
-                run = at[a0:a1]
-                g = run[:, 2][run[:, 2] >= 0]
-                q0 = int(g[0]) if len(g) else self.nh
-                if not np.array_equal(g, np.arange(q0, q0 + len(g))):
-                    raise ValueError("emlp_block: gate coordinates do not "
-                                     "follow their atoms")
-                out.append((run[0, 0], run[-1, 1], q0, q0 + len(g)))
-            hit = self._plans[key] = torch.as_tensor(
-                np.asarray(out, np.int32), device=self.device)
+            flat = np.concatenate([self.gate, self.rowptr, j, i, o,
+                                   self.lists[1], *self.ginv])
+            hit = self._plans["rt_ints"] = torch.as_tensor(
+                flat.astype(np.int32), device=self.device)
         return hit
 
     def rt_stage(self, kind):
         """Whether the run-time path stages ``kind``'s tiles in shared
-        memory (they fit a block's limit)."""
+        memory (one lane's row fits a block's limit)."""
         if kind in _FORCE:
-            return _FORCE[kind]
-        return rt_smem(self.dims, kind, True) <= SMEM_LIMIT
+            return bool(_FORCE[kind])
+        return rt_smem(self.dims, kind, 1) <= SMEM_LIMIT
+
+    def rt_layout(self, kind, B):
+        """``(rows a lane, staged)`` of ``kind``'s sparse step at ``B``
+        rows by its tiles: staged where a tile fits a block's shared memory
+        (else the tile in global memory, one row a lane), two rows a lane
+        from ``RT_TWO_ROWS_MIN`` rows where two fit (``rt_plan`` takes one
+        where the list step's segments would not fit beside them)."""
+        staged = self.rt_stage(kind)
+        if not staged:
+            return 1, False
+        rows = _FORCE.get(kind + "_rows") or (
+            2 if B >= RT_TWO_ROWS_MIN
+            and rt_smem(self.dims, kind, 2) <= SMEM_LIMIT else 1)
+        if rt_smem(self.dims, kind, rows) > SMEM_LIMIT:
+            raise ValueError(
+                f"emlp_block: {kind} tile of {self.dims} at {rows} rows a "
+                f"lane needs {rt_smem(self.dims, kind, rows)} bytes of "
+                f"shared memory, over {SMEM_LIMIT}")
+        return rows, True
+
+    def rt_words(self, rows, staged):
+        """The sparse steps' packed index as one int32 tensor on this
+        spec's device: each nonzero's ``(j, i)`` (``nnz``), then each list
+        entry's ``(o, partner)`` (``2 nnz``), ``hi << 16 | lo``; staged,
+        offsets into the tile (``c (32 rows + 1)``), else coordinates."""
+        key = ("rt_words", rows, staged)
+        hit = self._plans.get(key)
+        if hit is None:
+            pitch = 32 * rows + 1 if staged else 1
+            if (self.ng - 1) * pitch >= 1 << 16:
+                raise ValueError(
+                    f"emlp_block: {self.ng} coordinates at pitch {pitch} "
+                    f"do not pack into 16 bits")
+            o, j, i = (self.idx[k].cpu().numpy().astype(np.int64)
+                       for k in ("o", "j", "i"))
+            _, _, lo, partner = self.lists
+            words = np.concatenate([(j * pitch) << 16 | i * pitch,
+                                    (lo * pitch) << 16 | partner * pitch])
+            hit = self._plans[key] = torch.as_tensor(
+                words.astype(np.uint32).view(np.int32), device=self.device)
+        return hit
+
+    def rt_segments(self):
+        """The list step's segments (``rt_segments``) as one int32 tensor
+        on this spec's device, ``seg`` then ``cseg``, and their count."""
+        hit = self._plans.get("rt_segments")
+        if hit is None:
+            seg, cseg = rt_segments(self.lists[0])
+            hit = self._plans["rt_segments"] = (
+                torch.as_tensor(np.concatenate([seg, cseg]).astype(np.int32),
+                                device=self.device), len(seg) - 1)
+        return hit
+
+    def _rt_build(self, kind, B, sms, rows, staged):
+        """``(plan, cols, segs, smem)`` of ``kind`` in one layout."""
+        tiles = -(-B // (32 * rows))
+        target = sms * rt_blocks_per_sm(
+            rt_smem(self.dims, kind, rows if staged else 0))
+        if kind == "forward":
+            # a column's warps each at least one coordinate
+            n_atoms = len(rt_atoms(self.gate, self.nh))
+            cols = max(1, min(n_atoms, self.ng // RT_WARPS,
+                              round(target / tiles)))
+            plan = rt_forward_plan(self.gate, self.rowptr, self.nh, cols)
+            segs = 0
+        else:
+            seg, cseg = rt_segments(self.lists[0])
+            groups = min(RT_SLOTS // rows, tiles)
+            # a column's warps each at least one segment
+            cols = max(1, min(self.ng, (len(seg) - 1) // RT_WARPS,
+                              target // groups))
+            plan, segs = rt_backward_plan(self.lists[0], seg, cseg,
+                                          self.nnz, cols)
+        return plan, cols, segs, rt_smem(self.dims, kind,
+                                         rows if staged else 0, segs)
+
+    def rt_plan(self, kind, B, sms) -> RtPlan:
+        """``kind``'s run-time plan at ``B`` rows on a card of ``sms`` SMs
+        (``RtPlan``; the plan ``rt_forward_plan`` or ``rt_backward_plan``
+        as an int32 tensor on this spec's device) in ``rt_layout``'s
+        layout, the list step at one row a lane where two rows' tiles and
+        its segments' shares would not fit.  The block columns fill one wave
+        of the blocks the SMs hold at the tiles' shared memory, each warp of
+        a column with work: the forward's grid is the tiles of ``32 rows``
+        rows by its columns (runs of whole atoms), the list step's the slot
+        groups in use by its columns (runs of coordinates, their segments
+        dealt to the warps).  A layout that does not fit raises."""
+        rows, staged = self.rt_layout(kind, B)
+        key = ("rt_plan", kind, B, sms, rows, staged)
+        hit = self._plans.get(key)
+        if hit is None:
+            plan, cols, segs, smem = self._rt_build(kind, B, sms, rows,
+                                                    staged)
+            if smem > SMEM_LIMIT and rows == 2 \
+                    and kind + "_rows" not in _FORCE:
+                rows = 1
+                plan, cols, segs, smem = self._rt_build(kind, B, sms, rows,
+                                                        staged)
+            if smem > SMEM_LIMIT:
+                raise ValueError(
+                    f"emlp_block: the run-time {kind} step of {self.dims} "
+                    f"at {B} rows ({rows} a lane, {cols} columns, {segs} "
+                    f"segments a column) needs {smem} bytes of shared "
+                    f"memory, over {SMEM_LIMIT}")
+            hit = self._plans[key] = RtPlan(
+                torch.as_tensor(plan.astype(np.int32), device=self.device),
+                cols, rows, staged, segs)
+        return hit
 
     def plan_args(self, kind, groups):
         """``kind``'s plan as its kernel takes it: one int32 tensor on this
@@ -714,11 +893,10 @@ def emlp_block_any(spec: BlockSpec, x, W, b, v, save: bool = True):
     ``emlp_block`` runs for a block without an instance (any ``(nin, ng,
     nh)``; called directly, any block).  CPU tensors ->
     ``emlp_block_plain``; CUDA tensors -> one call (the linear step, then
-    the bilinear and gate step), or an error; the tile's lin staged in
-    shared memory where it fits (``rt_stage``).  Returns ``(h, lin,
-    pre)`` as ``emlp_block`` (without ``save`` the steps' lin and pre are
-    scratch, not returned); ``by_shape`` counts per ``(dims, rows,
-    save)``."""
+    the bilinear and gate step: two kernels), or an error; the gate step's
+    layout from ``rt_plan``.  Returns ``(h, lin, pre)`` as ``emlp_block``
+    (without ``save`` the steps' lin and pre are scratch, not returned);
+    ``by_shape`` counts per ``(dims, rows, save)``."""
     if not x.is_cuda:
         return emlp_block_plain(spec, x, W, b, v, save)
     _check_spec(spec, x)
@@ -727,18 +905,18 @@ def emlp_block_any(spec: BlockSpec, x, W, b, v, save: bool = True):
     for name, t, shape in (("x", x, (B, nin)), ("W_eff", W, (ng, nin)),
                            ("b_eff", b, (ng,)), ("v", v, (spec.nnz,))):
         _check(name, t, shape, dev)
-    ints = spec.rt_ints()[0]
-    ranges = spec.rt_ranges(B, _sms(dev))
-    stage = spec.rt_stage("forward")
+    ints = spec.rt_ints()
+    plan, cols, rows, staged, _ = spec.rt_plan("forward", B, _sms(dev))
+    words = spec.rt_words(rows, staged)
     f32 = dict(dtype=torch.float32, device=dev)
     h, lin = torch.empty(B, nh, **f32), torch.empty(ng, B, **f32)
     pre = torch.empty(ng, B, **f32)
     lib = _lib()
     err = lib.emlp_block_rt_fwd_launch(
         x.data_ptr(), B, W.data_ptr(), b.data_ptr(), v.data_ptr(),
-        ints.data_ptr(), spec.nnz, ranges.data_ptr(), ranges.shape[0],
-        int(stage), h.data_ptr(), lin.data_ptr(), pre.data_ptr(), nin, ng,
-        nh, torch.cuda.current_stream(dev).cuda_stream)
+        ints.data_ptr(), spec.nnz, words.data_ptr(), plan.data_ptr(), cols,
+        rows, int(staged), h.data_ptr(), lin.data_ptr(), pre.data_ptr(), nin,
+        ng, nh, torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "emlp_block_any forward")
     emlp_block_any.launches += 1
     emlp_block_any.by_shape[(spec.dims, B, bool(save))] += 1
@@ -751,13 +929,14 @@ emlp_block_any.by_shape = Counter()
 
 def emlp_block_backward_any(spec: BlockSpec, g_h, x, W, v, lin, pre,
                             need_params: bool):
-    """Block backward through the run-time-width kernels (g_pre, g_lin,
-    g_x, and with ``need_params`` the parameter sums), what
-    ``emlp_block_backward`` runs for a block without an instance.  CPU
-    tensors -> ``emlp_block_backward_plain``.  The list step stages the
-    tile's g_pre and lin in shared memory where they fit (``rt_stage``).
-    ``by_shape`` counts per ``(dims, rows,
-    need_params)``."""
+    """Block backward through the run-time-width kernels (g_pre with the
+    list entries' values gathered, g_lin, g_x: three kernels; with
+    ``need_params`` the parameter sums into
+    ``RT_SLOTS`` slots of ``n_par`` floats of scratch and the slots added:
+    five), what ``emlp_block_backward`` runs for a block without an
+    instance.  CPU tensors -> ``emlp_block_backward_plain``.  The list
+    step's layout from ``rt_plan``.  ``by_shape`` counts per ``(dims,
+    rows, need_params)``."""
     if not x.is_cuda:
         return emlp_block_backward_plain(spec, g_h, x, W, v, lin, pre,
                                          need_params)
@@ -768,19 +947,24 @@ def emlp_block_backward_any(spec: BlockSpec, g_h, x, W, v, lin, pre,
                            ("W_eff", W, (ng, nin)), ("v", v, (spec.nnz,)),
                            ("lin", lin, (ng, B)), ("pre", pre, (ng, B))):
         _check(name, t, shape, dev)
-    ints, _ = spec.rt_ints()
-    per = spec.rt_per_block(B, _sms(dev))
-    stage = spec.rt_stage("backward")
+    ints = spec.rt_ints()
+    plan, cols, rows, staged, most = spec.rt_plan("backward", B, _sms(dev))
+    words = spec.rt_words(rows, staged)[spec.nnz:]
+    segs, n_seg = spec.rt_segments()
     f32 = dict(dtype=torch.float32, device=dev)
     n_par = ng * nin + ng + spec.nnz
     gpre, glin = torch.empty(ng, B, **f32), torch.empty(ng, B, **f32)
+    vl = torch.empty(max(1, 2 * spec.nnz), **f32)
     g_x = torch.empty(B, nin, **f32)
+    slots = torch.empty(RT_SLOTS * n_par if need_params else 1, **f32)
     g_par = torch.empty(n_par if need_params else 1, **f32)
     lib = _lib()
     err = lib.emlp_block_rt_bwd_launch(
         g_h.data_ptr(), x.data_ptr(), B, W.data_ptr(), v.data_ptr(),
-        ints.data_ptr(), spec.nnz, lin.data_ptr(), pre.data_ptr(), per,
-        int(stage), gpre.data_ptr(), glin.data_ptr(), g_x.data_ptr(),
+        ints.data_ptr(), spec.nnz, words.data_ptr(), segs.data_ptr(), n_seg,
+        lin.data_ptr(), pre.data_ptr(), plan.data_ptr(), cols, most, rows,
+        int(staged), gpre.data_ptr(), glin.data_ptr(), vl.data_ptr(),
+        g_x.data_ptr(), slots.data_ptr(),
         g_par.data_ptr(), int(need_params), nin, ng, nh,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, "emlp_block_backward_any")

@@ -33,6 +33,7 @@ from gym_rotor_tpu_torch.kernels import emlp_actor as K
 from gym_rotor_tpu_torch.models.emlp.nn import bilinear_index
 from gym_rotor_tpu_torch.models.emlp import zoo as tzoo
 from gym_rotor_tpu_torch.utils.config import Config as TConfig
+from torch_jax_fixtures import jax_rho_memo  # noqa: F401
 
 torch.set_num_threads(1)
 # (framework, agent) of each instance (nin, ng, nh, nact)

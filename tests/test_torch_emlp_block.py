@@ -28,6 +28,7 @@ from gym_rotor_tpu_torch.kernels import emlp_block as kblock
 from gym_rotor_tpu_torch.models.emlp import nn as tnn
 from gym_rotor_tpu_torch.models.emlp import zoo as tzoo
 from gym_rotor_tpu_torch.utils.config import Config as TConfig
+from torch_jax_fixtures import jax_rho_memo  # noqa: F401
 
 torch.set_num_threads(1)
 SMS = 132                       # an H100's SMs, which set the plans' groups

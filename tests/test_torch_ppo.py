@@ -60,6 +60,7 @@ from gym_rotor_tpu_torch.parallel.train_step import make_ppo_superstep
 from test_torch_env import _tick_draws
 from test_torch_td3 import (AGENTS, _adam, _cfgs, _close, _np, _np_tree,
                             _schedule, _t, _to64)
+from torch_jax_fixtures import jit_bases_as_args
 
 torch.set_num_threads(1)
 PPO = dict(rl_algo="PPO", num_envs=4, T_horizon=16, actor_batch_size=4,
@@ -439,13 +440,17 @@ def _learner_to64(st):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_learner(**kw):
+def _jax_learner(bases_as_args=False, **kw):
+    """JAX agents of ``_ppo_cfgs(**kw)``, float64 states and the jitted
+    ``train_step`` (with ``bases_as_args``, the large EMLP bases passed to
+    XLA as arguments: ``torch_jax_fixtures.jit_bases_as_args``)."""
     jcfg, tcfg = _ppo_cfgs(**kw)
     agents = [jppo.PPOAgent(jcfg, i, jmodels.ppo_models(jcfg, i))
               for i in range(jcfg.n_agents)]
     states = [_learner_to64(a.init(jax.random.PRNGKey(20 + i)))
               for i, a in enumerate(agents)]
-    step = jax.jit(lambda st, d, k: jppo.train_step(jcfg, agents, st, d, k))
+    step = (jit_bases_as_args if bases_as_args else jax.jit)(
+        lambda st, d, k: jppo.train_step(jcfg, agents, st, d, k))
     return jcfg, tcfg, agents, states, step
 
 

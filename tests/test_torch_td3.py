@@ -54,6 +54,7 @@ from gym_rotor_tpu_torch.models.emlp import zoo as tzoo
 from gym_rotor_tpu_torch.parallel.train_step import make_td3_superstep
 from gym_rotor_tpu_torch.utils.config import Config as TConfig
 from test_torch_env import _tick_draws
+from torch_jax_fixtures import jit_bases_as_args
 
 torch.set_num_threads(1)
 NARROW = dict(critic_hidden_dim=8, actor_hidden_dim=(8, 4), batch_size=16)
@@ -386,9 +387,11 @@ def test_caps_terms_match_jax():
 # One update
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
-def _jax_learner(**kw):
+def _jax_learner(bases_as_args=False, **kw):
     """JAX agents of ``_cfgs(**kw)`` (EMLP or MLP networks), float64 states
-    and the jitted ``train_step`` with the gate placed statically."""
+    and the jitted ``train_step`` with the gate placed statically (with
+    ``bases_as_args``, the large EMLP bases passed to XLA as arguments:
+    ``torch_jax_fixtures.jit_bases_as_args``)."""
     jcfg, tcfg = _cfgs(**kw)
     agents = [jtd3.TD3Agent(jcfg, i, jmodels.td3_models(jcfg, i))
               for i in range(jcfg.n_agents)]
@@ -397,8 +400,9 @@ def _jax_learner(**kw):
     # the gate placed statically (bit-identical to the runtime cond,
     # tests/test_algos.py): under float64 the cond's skipped branch returns
     # a float32 zero loss and would not type-check
-    step = jax.jit(lambda st, b, k, gate: jtd3.train_step(
-        jcfg, agents, st, b, k, gate_now=gate), static_argnums=3)
+    step = (jit_bases_as_args if bases_as_args else jax.jit)(
+        lambda st, b, k, gate: jtd3.train_step(
+            jcfg, agents, st, b, k, gate_now=gate), static_argnums=(3,))
     return jcfg, tcfg, agents, states, step
 
 

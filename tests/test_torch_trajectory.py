@@ -38,6 +38,7 @@ from gym_rotor_tpu_torch.utils.config import Config as TConfig
 from test_torch_env import _machine_draws, _t, _tick_draws
 from test_torch_integrators import (EXACT_FIELDS, TRANSCENDENTAL_ULPS,
                                     compare_f64, compare_out, eager_jit)
+from torch_jax_fixtures import jax_rho_memo  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -48,7 +48,7 @@ from gym_rotor_tpu_torch.models.emlp import reps as treps
 from gym_rotor_tpu_torch.models.emlp import zoo as tzoo
 from gym_rotor_tpu_torch.utils.config import Config as TConfig
 from test_torch_td3 import _np_tree, _to64
-from test_torch_widths_td3 import jax_rho_memo  # noqa: F401 (autouse)
+from torch_jax_fixtures import jax_rho_memo  # noqa: F401
 
 torch.set_num_threads(1)
 WIDE = dict(actor_hidden_dim=(32, 8), critic_hidden_dim=128)
@@ -362,25 +362,31 @@ def test_phase_specs_include_the_wide_blocks(phase_specs):
 
 
 def _rt_decode(spec):
-    """``BlockSpec.rt_ints`` split at the offsets ``rt_ints_of`` reads."""
-    ints, n_atoms = spec.rt_ints()
+    """``BlockSpec.rt_ints`` split at the offsets ``rt_ints_of`` reads, with
+    the sparse steps' entries (``rt_words`` as coordinates, and
+    ``rt_segments``) and the host's atoms (``rt_atoms``)."""
+    ints = spec.rt_ints()
     a = _np(ints).astype(np.int64)
     ng, nh, nnz = spec.ng, spec.nh, spec.nnz
     out = {}
     for name, n in (("gate", nh), ("rowptr", ng + 1), ("ej", nnz),
-                    ("ei", nnz), ("eo", nnz), ("cl_ptr", ng + 1),
-                    ("cl_o", 2 * nnz), ("cl_p", 2 * nnz), ("cl_e", 2 * nnz),
-                    ("ginv_ptr", ng + 1), ("ginv_k", nh),
-                    ("atoms", 3 * n_atoms)):
+                    ("ei", nnz), ("eo", nnz), ("cl_e", 2 * nnz),
+                    ("ginv_ptr", ng + 1), ("ginv_k", nh)):
         out[name], a = a[:n], a[n:]
     assert a.size == 0 and ints.dtype == torch.int32
-    out["atoms"] = out["atoms"].reshape(-1, 3)
+    w = _np(spec.rt_words(1, False)).view(np.uint32).astype(np.int64)
+    out["cl_o"], out["cl_p"] = w[nnz:] >> 16, w[nnz:] & 0xffff
+    segs, n_seg = spec.rt_segments()
+    segs = _np(segs).astype(np.int64)
+    out["cl_ptr"] = segs[:n_seg + 1][segs[n_seg + 1:]]
+    out["atoms"] = KB.rt_atoms(spec.gate, nh)
     return out
 
 
 def rt_emulate(spec, x, W, b, v, g_h):
     """The run-time kernels' steps (``csrc/emlp_block.cu``, run-time
-    widths) from the decoded ``rt_ints``, numpy float64: lin, then per atom
+    widths) from the decoded index (``_rt_decode``), numpy float64: lin,
+    then per atom
     the gate coordinate's pre and each output's pre and h; g_pre per
     coordinate, g_lin from the coordinate-major lists, g_x, and g_W, g_b,
     g_v as sums over rows."""
@@ -451,11 +457,16 @@ def test_rt_plans_cover_every_coordinate_once(phase_specs):
     output once, each gate coordinate with its run, the runs sharing it
     gated by it), the lists are ``coordinate_lists``, and at every row
     count the block columns of the gate and list steps cover their atoms
-    or coordinates once (the gate step's columns, ``rt_ranges``: whole
-    atoms, their outputs and the gates those read); the staged steps fit
-    a block's shared memory where the host stages them, and the static
-    ones 48 KB."""
-    assert max(KB.RT_STATIC.values()) <= 48 * 1024
+    or coordinates once (the gate step's columns, ``rt_plan("forward")``:
+    whole atoms, their outputs and the gates those read; the list step's,
+    ``rt_plan("backward")``: runs of coordinates, their lists' segments
+    dealt to the warps); the staged steps fit a
+    block's shared memory where the host stages them, and the dense steps'
+    static tiles 48 KB (``tests/test_torch_rt_block.py`` decodes the plans
+    further)."""
+    k, t = 32, KB.RT_GEMM_TILE
+    assert max(2 * 2 * k * (t + 1), 2 * (t * (k + 1) + k * (t + 1))) * 4 \
+        <= 48 * 1024
     for dims, spec in sorted(phase_specs.items()):
         ix = _rt_decode(spec)
         seen = np.zeros(spec.ng, np.int64)
@@ -472,11 +483,15 @@ def test_rt_plans_cover_every_coordinate_once(phase_specs):
         for name, ref in zip(("cl_ptr", "cl_e", "cl_o", "cl_p"), spec.lists):
             np.testing.assert_array_equal(ix[name], ref)
         for B in PHASE_ROWS:
-            per = spec.rt_per_block(B, SMS)    # the list step's columns
-            cols = -(-spec.ng // per)
-            assert 1 <= per <= spec.ng
-            assert (cols - 1) * per < spec.ng <= cols * per
-            rg = _np(spec.rt_ranges(B, SMS)).astype(np.int64)
+            bp, cols, _, _, _ = spec.rt_plan("backward", B, SMS)
+            bp = _np(bp).astype(np.int64)
+            assert bp.shape == (cols, 6 + 2 * KB.RT_WARPS)
+            cover = np.zeros(spec.ng, np.int64)
+            for c0, c1 in bp[:, 2:4]:
+                cover[c0:c1] += 1
+            np.testing.assert_array_equal(cover, 1)
+            rg, cols, _, _, _ = spec.rt_plan("forward", B, SMS)
+            rg = _np(rg).astype(np.int64)[:, :4]
             assert rg.shape[1] == 4 and 1 <= len(rg) <= len(ix["atoms"])
             np.testing.assert_array_equal(rg[1:, 0], rg[:-1, 1])
             assert rg[0, 0] == 0 and rg[-1, 1] == spec.nh
@@ -489,11 +504,12 @@ def test_rt_plans_cover_every_coordinate_once(phase_specs):
                 assert np.all((g == np.arange(k0, k1))
                               | ((g >= q0) & (g < q1)))
             np.testing.assert_array_equal(cover, 1)
-        for kind in ("forward", "backward"):
-            stage = spec.rt_stage(kind)
-            assert stage == (KB.rt_smem(dims, kind, True) <= KB.SMEM_LIMIT)
-            assert KB.rt_smem(dims, kind, stage) <= KB.SMEM_LIMIT
-            assert KB.rt_smem(dims, kind, False) == 0
+            for kind in ("forward", "backward"):
+                _, _, rows, stage, segs = spec.rt_plan(kind, B, SMS)
+                assert stage == (KB.rt_smem(dims, kind, 1) <= KB.SMEM_LIMIT)
+                assert KB.rt_smem(dims, kind, rows if stage else 0, segs) \
+                    <= KB.SMEM_LIMIT
+                assert KB.rt_smem(dims, kind, 0) == KB.RT_RING_BYTES
 
 
 @pytest.mark.parametrize("groups", (1, 8, 132))

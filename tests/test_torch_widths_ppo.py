@@ -3,9 +3,11 @@ defaults' (16, 4) / 62 and the narrow (8, 4) / 8 the other learner tests
 run), step for step against the JAX package with injected draws, float64:
 the check of ``test_torch_ppo.py::train_step_vs_jax`` at this width.  On
 the CPU every kernel wrapper runs its plain twin; on the card this width
-runs the run-time-width kernels (``chip_smoke.py`` phase 26)."""
+runs the run-time-width kernels (``chip_smoke.py`` phase 26).  The
+update's largest EMLP basis reaches XLA as an argument, not a constant
+(``torch_jax_fixtures.jit_bases_as_args``)."""
 from test_torch_ppo import train_step_vs_jax
-from test_torch_widths_td3 import jax_rho_memo  # noqa: F401 (autouse)
+from torch_jax_fixtures import jax_rho_memo  # noqa: F401
 
 WIDE = dict(actor_hidden_dim=(32, 8), critic_hidden_dim=128)
 
@@ -15,4 +17,4 @@ def test_ppo_minibatch_step_matches_jax_at_width():
     over a 16-row horizon, the actor and the V critic both updated) at
     (32, 8) / 128: losses, both networks, the moments, the counts and
     ``entropy_coef``, 1e-9."""
-    train_step_vs_jax(**WIDE)
+    train_step_vs_jax(bases_as_args=True, **WIDE)

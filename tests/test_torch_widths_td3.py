@@ -6,40 +6,12 @@ every kernel wrapper runs its plain twin; on the card this width runs the
 run-time-width kernels (``chip_smoke.py`` phase 26).  The flax networks'
 equivariant bases at critic 128 and XLA's compile of the update take most
 of this file's time; the bases' group actions are memoized
-(``jax_rho_memo``), the same numbers."""
-import numpy as np
-import pytest
-
+(``jax_rho_memo``), the same numbers, and the update's largest basis
+reaches XLA as an argument, not a constant (``jit_bases_as_args``)."""
 from test_torch_td3 import train_step_vs_jax
+from torch_jax_fixtures import jax_rho_memo  # noqa: F401
 
 WIDE = dict(actor_hidden_dim=(32, 8), critic_hidden_dim=128)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def jax_rho_memo():
-    """The JAX package's ``reps.Atom.rho`` memoized per (atom, element) for
-    the module: a pure NumPy function that the flax networks' projectors
-    at critic 128 call ~33 000 times for a few hundred distinct atoms and
-    elements (agent 1's Mirror(1) tower has atoms of every rank up to 127:
-    ~2.1M ``np.kron`` calls, ~175 s).  Each entry is the function's own
-    result and every call gets a fresh copy of it, so every basis JAX
-    builds is bit for bit the unmemoized one."""
-    from gym_rotor_tpu.models.emlp import reps as jreps
-    orig = jreps.Atom.rho
-    memo = {}
-
-    def rho(self, g):
-        g = np.asarray(g)
-        key = (self, g.shape, g.dtype.str, g.tobytes())
-        hit = memo.get(key)
-        if hit is None:
-            hit = memo[key] = orig(self, g)
-        return hit.copy()
-    jreps.Atom.rho = rho
-    try:
-        yield
-    finally:
-        jreps.Atom.rho = orig
 
 
 def test_td3_update_matches_jax_at_width():
@@ -48,4 +20,4 @@ def test_td3_update_matches_jax_at_width():
     second XLA program would double the file's time; the actor's update at
     this width is ``test_torch_widths_ppo.py``'s): losses, parameters,
     both targets, ``mu``/``nu`` and the counts, 1e-9."""
-    train_step_vs_jax(False, **WIDE)
+    train_step_vs_jax(False, bases_as_args=True, **WIDE)
