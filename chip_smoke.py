@@ -5619,11 +5619,15 @@ def width_actor_checks(dev, gen):
     """The run-time acting kernel vs the twins for every head, both agents
     and ``width_actors``' widths at ``WIDTH_ROWS`` and the eval's 10, train
     (the draws) and eval (none): actions 1e-5, log-probs 2e-5 max(1, max
-    |plain|); reruns bitwise, and the image read from global memory and the
-    tile in a global scratch (forced ``plan``s) bitwise the staged launch; the
-    image's coordinate encoding (``ent_scale`` 1, what past 1986 gated
-    channels takes) forced on the (32, 8) actors, bitwise; then at the
-    instances' actors (the default widths) held to the instance's result.
+    |plain|); reruns bitwise, and the image read from global memory, the
+    tile in a global scratch (forced ``plan``s) and the tile shared by a
+    cluster of ``RT_CLUSTER`` blocks or by one (forced ``cluster``) bitwise
+    the launch the wrapper picks; the image's coordinate encoding
+    (``ent_scale`` 1, what past 1986 gated channels takes) forced on the
+    (32, 8) actors, bitwise; outputs cut into segments of 8 nonzeros
+    (forced ``seg``, what outputs past ``RT_SEG`` take) on the (32, 8)
+    and (64, 16) actors, held to the twins; then at the instances' actors
+    (the default widths) held to the instance's result within 1e-5.
     Returns the worst error."""
     from gym_rotor_tpu_torch.kernels import emlp_actor as KA
     worst, bad = 0.0, []
@@ -5639,6 +5643,11 @@ def width_actor_checks(dev, gen):
                 same = [all(torch.equal(a, c) for a, c in zip(k, _actor_call(
                     KA, name, actor, o, noise, plan)))
                     for plan in (None, (False, True), (False, False))]
+                # a tile shared by a cluster of blocks and by one block
+                for csize in (1, KA.RT_CLUSTER):
+                    with _forced(KA, cluster=csize):
+                        same.append(all(torch.equal(a, c) for a, c in zip(
+                            k, _actor_call(KA, name, actor, o, noise))))
                 with torch.no_grad():
                     p = getattr(KA, name.replace("_any", "_plain"))(
                         *((actor, o) if head == "tanh" else
@@ -5651,12 +5660,14 @@ def width_actor_checks(dev, gen):
                                      <= _err(k[1], p[1])[1]) and all(same) \
                     and all(bool(torch.isfinite(t).all()) for t in k)
                 if nb in (1, 33, 4096) or not ok:
+                    f = KA.fold_actor(actor)
                     log("widths", check=name, width=list(ah), agent=i,
                         dims=list(dims), batch=nb, train=train,
                         max_abs_err=ea, logp_err=el,
                         bitwise_rerun_and_modes=same,
-                        plan=list(KA.any_plan(dims, KA.fold_actor(
-                            actor)["layout"])))
+                        plan=list(KA.any_plan(dims, f["layout"], f["slots"],
+                                              KA.plan_words(f))),
+                        warps=f["warps"])
                 if not ok:
                     bad.append((name, dims, nb, train, ea, el, same))
     # the image's coordinate encoding (what past 1986 gated channels
@@ -5680,6 +5691,30 @@ def width_actor_checks(dev, gen):
             bitwise_vs_offsets=same)
         if not same or mul != KA.PITCH:
             bad.append((name, i, "coordinate encoding", mul, same))
+    # outputs cut into several segments (forced short segments): their
+    # partial sums added in order, held to the twins
+    for ah, i, head, actor in width_actors(dev):
+        if ah not in ((32, 8), (64, 16)):
+            continue
+        name = ANY_ACTOR[head]
+        dims = KA.actor_dims(actor)
+        o = _rand((33, dims[0]), gen, dev)
+        nz = None if head == "tanh" else _rand((33, dims[3]), gen, dev)
+        with _forced(KA, seg=8):
+            actor.bump_version()
+            got = _actor_call(KA, name, actor, o, nz)
+            slots = KA.fold_actor(actor)["slots"]
+        actor.bump_version()
+        with torch.no_grad():
+            p = getattr(KA, name.replace("_any", "_plain"))(
+                *((actor, o) if head == "tanh" else (actor, o, nz)))
+        p = p if isinstance(p, tuple) else (p,)
+        ea = float((got[0] - p[0]).abs().max())
+        el = _err(got[1], p[1]) if head == "ppo" else (0.0, 1.0, True)
+        log("widths", check=f"{name}_segments", width=list(ah), agent=i,
+            slots=slots, max_abs_err=ea, logp_err=el[0])
+        if not (ea <= 1e-5 and el[0] <= el[1] and slots > dims[1]):
+            bad.append((name, i, "segments", ea, el[0], slots))
     for (dims, head), actor in sorted(actor_instances(dev).items()):
         inst, name = ACTOR_KERNELS[head], ANY_ACTOR[head]
         for nb in (1, 33, 4096):
@@ -5703,8 +5738,11 @@ def width_spectral_checks(dev, gen):
     """The run-time K7 vs its twin on every stack of the TD3, SAC and PPO
     learners (critic and actor, both agents) at ``WIDTHS``, and on critic
     512's stacks (6, 568 | 1023, 512) (kernel-only, seeded), reruns
-    bitwise, 1e-5; then at the flagship's stacks held to the instance's
-    iterate.  Returns the worst error and the slice's stacks."""
+    bitwise, 1e-5, also at the other cluster size (forced ``cluster``);
+    the band read from global memory (forced ``staged``) bitwise the
+    staged launch; then at the flagship's stacks held to the instance's
+    iterate.  Returns the worst error and the run-time stacks of the
+    slice's width and critic 512's."""
     from gym_rotor_tpu_torch.algos.ppo import PPOAgent
     from gym_rotor_tpu_torch.algos.sac import SACAgent
     from gym_rotor_tpu_torch.algos.td3 import TD3Agent
@@ -5731,12 +5769,25 @@ def width_spectral_checks(dev, gen):
         vk, same = _twice(lambda: KS.spectral_iterate_any(Ws, x))
         vp = KS.spectral_iterate_plain(Ws, x)
         err = float((vk - vp).abs().max())
+        # the band read from global memory (forced), the same sums: bitwise;
+        # the other cluster size (other bands): held to the twin
+        with _forced(KS, staged=False):
+            streamed = bool(torch.equal(KS.spectral_iterate_any(Ws, x), vk))
+        plan = KS.any_plan(*Ws.shape, KS._active(dev, Ws.shape[2])
+                           if Ws.is_cuda else None)
+        other = [c for c in KS.CLUSTER_SIZES if c != plan.cluster][0]
+        with _forced(KS, cluster=other):
+            err = max(err, float((KS.spectral_iterate_any(Ws, x)
+                                  - vp).abs().max()))
         worst = max(worst, err)
         log("widths", check="spectral_iterate_any", learner=learner,
             agent=i, net=net, stack=list(Ws.shape), max_abs_err=err,
-            rerun_bitwise=same, instance=KS.instance(*Ws.shape[1:]))
-        if not (err <= 1e-5 and same and torch.isfinite(vk).all()):
-            bad.append((learner, i, net, tuple(Ws.shape), err, same))
+            rerun_bitwise=same, streamed_bitwise=streamed,
+            plan=plan._asdict(), instance=KS.instance(*Ws.shape[1:]))
+        if not (err <= 1e-5 and same and streamed
+                and torch.isfinite(vk).all()):
+            bad.append((learner, i, net, tuple(Ws.shape), err, same,
+                        streamed))
     from gym_rotor_tpu_torch.utils.config import Config as C
     agents = [TD3Agent(C(), i, dev) for i in range(2)]
     states = [a.init(init) for a in agents]
@@ -5750,7 +5801,8 @@ def width_spectral_checks(dev, gen):
             bad.append(("vs instance", i, net, err))
     if bad:
         raise AssertionError(f"run-time K7: {bad[:5]}")
-    return worst, [s for s in stacks if s[0] == "td3_256"]
+    return worst, [s for s in stacks
+                   if s[0] in ("td3_256", f"critic_{WIDE_CRITIC}")]
 
 
 def width_mlp_ppo_checks(dev, gen):
@@ -5970,35 +6022,55 @@ def width_records(dev, runs, errs, shapes, specs, actors, stacks, gen):
         inst[name] = []
         for i, actor in enumerate(agents):
             f = KA.fold_actor(actor)
-            o = _rand((B, f["dims"][0]), gen, dev)
-            noise = None if kind == "tanh" else _rand((B, f["dims"][3]),
-                                                      gen, dev)
-            args = (actor, o) if kind == "tanh" else (actor, o, noise)
-            with torch.no_grad():
-                k_ms, k_wall = device_ms(lambda: getattr(KA, name)(*args), 50)
-                p_ms, _ = device_ms(lambda: getattr(
-                    KA, name.replace("_any", "_plain"))(*args), 5, 3)
-            nbytes, flops = actor_work(f, B, kind, noise is not None)
-            bms, by = bound_ms(nbytes, flops)
-            log("kernels", kernel=name, path="widths", agent=i,
-                dims=list(f["dims"]), batch=B, ms=k_ms,
-                wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
-                flops=flops, bound_ms=bms, bound_by=by, library_ms=None)
-            inst[name].append((1, k_ms, p_ms, bms, by, None))
+            # the training paths' rows and an eval's (the tanh head acts in
+            # both; the others' evals draw nothing)
+            for nb, train in ((B, kind != "tanh"), (10, False)):
+                o = _rand((nb, f["dims"][0]), gen, dev)
+                noise = _rand((nb, f["dims"][3]), gen, dev) if train \
+                    else None
+                args = (actor, o) if kind == "tanh" else (actor, o, noise)
+                fn = lambda: getattr(KA, name)(*args)
+                with torch.no_grad():
+                    k_ms, k_wall = device_ms(fn, 50)
+                    p_ms, _ = device_ms(lambda: getattr(
+                        KA, name.replace("_any", "_plain"))(*args), 5, 3)
+                    kernels = launches_per_call(fn)
+                nbytes, flops = actor_work(f, nb, kind, train)
+                bms, by = bound_ms(nbytes, flops)
+                log("kernels", kernel=name, path="widths", agent=i,
+                    dims=list(f["dims"]), batch=nb, train=train, ms=k_ms,
+                    wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
+                    flops=flops, bound_ms=bms, bound_by=by, library_ms=None,
+                    kernels_a_call=kernels, warps=f["warps"])
+                if kernels != 1:
+                    raise AssertionError(f"{name}: {kernels} kernels a call")
+                if nb == B:
+                    inst[name].append((1, k_ms, p_ms, bms, by, None))
     inst["spectral_iterate_any"] = []
+    timed = set()
     for learner, i, net, ws, Ws, x in stacks:
-        if KS.instance(*Ws.shape[1:]) is not None:
+        if KS.instance(*Ws.shape[1:]) is not None or \
+                (learner, tuple(Ws.shape)) in timed:
             continue
-        k_ms, k_wall = device_ms(lambda: KS.spectral_iterate_any(Ws, x), 20)
+        timed.add((learner, tuple(Ws.shape)))
+        fn = lambda: KS.spectral_iterate_any(Ws, x)
+        k_ms, k_wall = device_ms(fn, 20)
         p_ms, _ = device_ms(lambda: KS.spectral_iterate_plain(Ws, x), 5, 3)
+        kernels = launches_per_call(fn)
         true = sum(int(W.numel()) for W in ws)
         nbytes = 4 * (true + 2 * sum(int(W.shape[1]) for W in ws))
         bms, by = bound_ms(nbytes, KS.ITERS * (4 * true + 3 * x.numel()))
         log("kernels", kernel="spectral_iterate_any", path="widths",
-            agent=i, net=net, stack=list(Ws.shape), ms=k_ms,
+            learner=learner, agent=i, net=net, stack=list(Ws.shape), ms=k_ms,
             wall_ms_per_call=k_wall, plain_ms=p_ms, bytes=nbytes,
-            bound_ms=bms, bound_by=by, library_ms=None)
-        inst["spectral_iterate_any"].append((1, k_ms, p_ms, bms, by, None))
+            bound_ms=bms, bound_by=by, library_ms=None,
+            kernels_a_call=kernels, plan=KS.any_plan(
+                *Ws.shape, KS._active(dev, Ws.shape[2]))._asdict())
+        if kernels != 1:
+            raise AssertionError(f"K7: {kernels} kernels a call")
+        if learner == "td3_256":
+            inst["spectral_iterate_any"].append((1, k_ms, p_ms, bms, by,
+                                                 None))
     from gym_rotor_tpu_torch.models.mlp import ActorPPO
     inst["mlp_ppo_actor_any"] = []
     for nin, nh, nact in MLP_PPO_WIDTHS[:2]:
@@ -6124,15 +6196,17 @@ def widths_resources(dev):
     and their launches' shared memory at phase 26's shapes, each held to
     the wrappers' arithmetic: K3/K4's staged steps (``rt_smem``; the static
     ones from the library's geometry), the acting kernel's ``any_plan``,
-    K7's ``any_geometry``."""
+    K7's ``any_plan`` (its shared memory the library's ``any_smem``, the
+    clusters the card runs at once)."""
     import re
     from gym_rotor_tpu_torch.kernels import emlp_actor as KA
     from gym_rotor_tpu_torch.kernels import emlp_block as KB
     from gym_rotor_tpu_torch.kernels import mlp_ppo_actor as KM
     from gym_rotor_tpu_torch.kernels import spectral as KS
     pat = re.compile(r"(rt_\w+?_kernel(?:ILi\dELb\d)?|"
-                     r"emlp_actor_any_kernelILi\d|"
-                     r"spectral_any_kernel|mlp_ppo_actor_any_kernelILi\d+)")
+                     r"emlp_actor_any_kernelILi\dELb\d|"
+                     r"spectral_any_kernelILb\d|"
+                     r"mlp_ppo_actor_any_kernelILi\d+)")
     regs, bad = {}, []
     for src in (KB.KERNEL, KA.KERNEL, KS.KERNEL, KM.KERNEL):
         cur = None
@@ -6149,11 +6223,12 @@ def widths_resources(dev):
                 regs[cur]["registers"] = int(
                     re.search(r"Used (\d+) registers", ln).group(1))
     want = {"rt_lin_kernel", "rt_gpre_kernel", "rt_gx_kernel",
-            "rt_gw_kernel", "rt_finish_kernel", "spectral_any_kernel"} | {
+            "rt_gw_kernel", "rt_finish_kernel", "spectral_any_kernelILb0",
+            "spectral_any_kernelILb1"} | {
         f"rt_{k}_kernelILi{r}ELb{g}" for k in ("gate", "list")
         for r, g in ((1, 0), (1, 1), (2, 1))} | {
-        f"emlp_actor_any_kernelILi{h}"
-                                      for h in range(3)} | {
+        f"emlp_actor_any_kernelILi{h}ELb{g}"
+        for h in range(3) for g in (0, 1)} | {
         "mlp_ppo_actor_any_kernelILi8", "mlp_ppo_actor_any_kernelILi1"}
     if set(regs) != want or not all(regs.values()):
         bad.append(("ptxas entries", sorted(regs)))
@@ -6175,17 +6250,24 @@ def widths_resources(dev):
         block_layout_rows_staged_smem=smem)
     for ah, i, head, actor in width_actors(dev):
         f = KA.fold_actor(actor)
-        plan = KA.any_plan(f["dims"], f["layout"])
+        plan = KA.any_plan(f["dims"], f["layout"], f["slots"],
+                           KA.plan_words(f))
         log("build", kernel="emlp_actor_any", width=list(ah), agent=i,
             head=head, dims=list(f["dims"]), image_words=f["layout"]["words"],
-            stage_image=plan[0], tile_in_smem=plan[1], smem_bytes=plan[2])
+            stage_image=plan[0], tile_in_smem=plan[1], smem_bytes=plan[2],
+            warps=f["warps"], slots=f["slots"], plan_words=KA.plan_words(f))
         if plan[2] > KA.SMEM_LIMIT:
             bad.append(("acting", f["dims"], plan))
-    for mo, mi in ((255, 128), (511, 256), (568, 512), (1023, 512)):
-        chunk, smem = KS.any_geometry(mo, mi)
-        if KS.instance(mo, mi) is not None or chunk != mo \
-                or smem > KS.SMEM_LIMIT:
-            bad.append(("K7", mo, mi, chunk, smem))
+    lib = KS._lib()
+    for K, mo, mi in ((6, 255, 128), (6, 288, 256), (6, 511, 256),
+                      (6, 568, 512), (6, 1023, 512)):
+        p = KS.any_plan(K, mo, mi, KS._active(dev, mi))
+        log("build", kernel="spectral_iterate_any", stack=[K, mo, mi],
+            plan=p._asdict(), clusters_at_once=KS._active(dev, mi)(p))
+        if KS.instance(mo, mi) is not None or not p.staged \
+                or p.smem != lib.spectral_any_smem(mi, p.band, 1) \
+                or p.smem > KS.SMEM_LIMIT:
+            bad.append(("K7", mo, mi, p))
     if bad:
         raise AssertionError(f"run-time widths' resources: {bad}")
 

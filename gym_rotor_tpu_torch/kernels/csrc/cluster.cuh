@@ -1,9 +1,10 @@
 // Thread-block clusters on Hopper (sm_90a): the hardware cluster barrier in
 // its split form, an asynchronous store into a peer block's shared memory
-// that signals the peer's mbarrier, a warp's butterfly sum, and a launch
-// with a cluster shape.  Shared by K6
-// (flat_adamw.cu) and K13 (ppo_loss.cu), whose cross-block sums go through
-// distributed shared memory instead of a second launch.
+// that signals the peer's mbarrier, a load from a peer's shared memory, a
+// warp's butterfly sum, and a launch with a cluster shape and dynamic
+// shared memory.  Shared by K6 (flat_adamw.cu) and K13 (ppo_loss.cu), whose
+// cross-block sums go through distributed shared memory instead of a second
+// launch, and by K7's run-time kernel (spectral.cu), a cluster a matrix.
 //
 // Protocol of the kernels that use it: a block that will receive initialises
 // its mbarrier for the bytes it expects, then every thread of every block
@@ -29,8 +30,21 @@ __device__ __forceinline__ unsigned rank() {
   return r;
 }
 
+// the number of blocks in this block's cluster
+__device__ __forceinline__ unsigned size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
 __device__ __forceinline__ void arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// arrive with release semantics: this thread's writes to shared memory are
+// visible to every block of the cluster once its wait() returns
+__device__ __forceinline__ void arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
 
 __device__ __forceinline__ void wait() {
@@ -47,6 +61,14 @@ __device__ __forceinline__ unsigned peer_addr(unsigned local, unsigned peer) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
                : "=r"(remote) : "r"(local), "r"(peer));
   return remote;
+}
+
+// The float at block `peer`'s copy of this block's shared `p`.
+__device__ __forceinline__ float load_peer(const float* p, unsigned peer) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v) : "r"(peer_addr(smem_addr(p), peer)) : "memory");
+  return v;
 }
 
 // A shared-memory barrier (mbarrier) whose first phase completes once
@@ -114,37 +136,78 @@ __device__ __forceinline__ void lanes_sums(const float* a, int stride, int n,
 }
 
 // Kernel's `blocks` blocks of `threads` in clusters of `size` (a divisor of
-// blocks); sizes past 8 are allowed once per kernel and device.  Returns the
-// launch's error: a shape the card refuses is reported, never replaced.
-template <auto Kernel, typename... Args>
-cudaError_t launch(int blocks, int threads, int size, cudaStream_t stream,
-                   Args... args) {
-  if (size > 8) {
-    static unsigned allowed = 0;   // one bit a device
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (!((allowed >> dev) & 1u)) {
-      e = cudaFuncSetAttribute(
-          Kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (e != cudaSuccess) return e;
-      allowed |= 1u << dev;
-    }
+// blocks) with `smem` bytes of dynamic shared memory each; sizes past 8 are
+// allowed once per kernel and device, and past 48 KB of shared memory the
+// kernel's limit is raised per device to the largest size asked.  Returns
+// the launch's error: a shape the card refuses is reported, never replaced.
+template <auto Kernel>
+cudaError_t allow(int size, size_t smem) {
+  constexpr int kMaxDevices = 32;
+  static unsigned allowed = 0;                 // one bit a device
+  static size_t smem_set[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (size > 8 && !((allowed >> dev) & 1u)) {
+    e = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return cudaGetLastError(), e;
+    allowed |= 1u << dev;
   }
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    e = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return cudaGetLastError(), e;
+    smem_set[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
+inline cudaLaunchConfig_t config(int blocks, int threads, int size,
+                                 size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = size;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, Kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return cfg;
+}
+
+template <auto Kernel, typename... Args>
+cudaError_t launch(int blocks, int threads, int size, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  cudaError_t e = allow<Kernel>(size, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(blocks, threads, size, smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  // the launch's error, read (and cleared) here so that no later call
+  // reports it
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
+}
+
+// How many clusters of `size` blocks of `threads` with `smem` bytes each
+// the card runs at once (cudaOccupancyMaxActiveClusters), or the error as
+// a negative number.
+template <auto Kernel>
+int max_active(int threads, int size, size_t smem) {
+  cudaError_t e = allow<Kernel>(size, smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(size, threads, size, smem, 0, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, Kernel, &cfg);
+  return e != cudaSuccess ? -(int)e : n;
 }
 
 }  // namespace cluster

@@ -64,6 +64,7 @@
 #include <math.h>
 #include <string.h>
 
+#include "cluster.cuh"
 #include "ppo_head.cuh"
 
 namespace {
@@ -326,24 +327,63 @@ int launch(const float* obs, int B, const int* image, const int* meta,
 
 // ------------------------------------------------------ run-time widths
 // Actors without an instance (any (nin, ng, nh, nact); hidden_num 2) run
-// emlp_actor_any_kernel: the instances' steps and arithmetic with the
-// sizes as arguments (so each output's sums keep their order and an
-// actor's bits match the instance's where one exists), and three places
-// for what an instance keeps in shared memory, chosen by the host
-// (emlp_actor.py: any_plan) from what fits a block:
-//   the image: copied to shared memory as the instances copy it, or read
-//     from global memory where it does not fit (the same words, the
-//     layout image_layout states: W_eff transposed and b_eff as float4s,
-//     the plan and its nonzeros as int2 (offsets, v), the head);
-//   the tile's obs, lin, pre and h: in shared memory, or where even they
-//     do not fit (nin + 2 ng + nh > 1761 coordinates), a region of a
-//     global scratch per block, the same field-major [c][row] layout;
-//   the nonzeros' tile offsets: packed j * 33 << 16 | i * 33 as the
-//     instances read them, or past ng = 1986 (where that overflows 16
-//     bits) the coordinates j << 16 | i, which the kernel scales (mul).
-// The obs of a tile are loaded by plain loads at its start (no copy in
-// flight across tiles); every step ends in a barrier as the instances'.
-template <int NW_MAX>
+// emlp_actor_any_kernel.  Bound on an H100: the operations, ~0.19 GFLOP at
+// (15, 73, 64, 4) and 4096 rows (~2.9 us at the 67 TFLOP/s fp32 peak);
+// what holds it is one tile's work on one SM (4096 rows are 128 tiles):
+// each nonzero a warp sums is ~11 instructions (its entry, a broadcast;
+// the tile's two lin values and their addresses; two float ops), issue-
+// bound at ~2 x 5949 x 11 / 4 cycles a 32-row tile at agent 0, and at few
+// rows each warp's chain of dependent loads.  The design:
+//   - A block takes 32-row tiles (lane = row) with NW warps (4-32, one a
+//     segment up to 32: emlp_actor.py rt_warps), so a tile's chains are
+//     short at 10 rows too; the grid is at most as many blocks as fit the
+//     SMs at once, each looping over its tiles.
+//   - The bilinear form by index-fixed segments: each output's nonzeros
+//     cut into runs of at most RT_SEG (256) entries at fixed positions,
+//     dealt to the warps by the host's plan (longest first to the
+//     least-loaded warp: emlp_actor.py rt_plan).  A warp sums a segment's
+//     nonzeros in order, q += v lin_j lin_i (the instances' expression),
+//     each batch of 8 entries issuing its loads (the entries, then both
+//     factors) before its sums, and stores q to the segment's slot in
+//     shared memory ([slot][row]).
+//   - The gate step adds an output's slots in slot order (its only slot:
+//     q as it is), pre = 0.1 q + lin, and h = pre / (1 + exp(-pre[gate]))
+//     straight from the slots (pre is not stored).
+//   - At few rows (the tiles' clusters fit the SMs at once) and where a
+//     network block has 1024 nonzeros or more, a cluster of 8 blocks
+//     shares each tile: every block runs the dense steps, its warps a
+//     share of the segments, and the gate reads each slot from the block
+//     that owns it through distributed shared memory (emlp_actor.py
+//     _launch_any picks the cluster size).
+//   - The image (fold_actor's words) is copied to shared memory where it
+//     fits beside the tile, the first network block's sections in one
+//     cp.async group and the rest in a second, so the second block's
+//     weights land while the first is computed; else it is read from
+//     global memory.  The plan (the segments) and the tile's vectors
+//     (obs, lin, h, the slots) sit in shared memory, or past what a block
+//     holds the plan is read from global memory and the tile from a region
+//     of a global scratch per block; past ng = 1986 the entries hold
+//     coordinates (mul).
+// Every sum has one fixed order (by the index and RT_SEG, not by the warps
+// or the placement), so a rerun, and the image or the tile in global
+// memory, repeat the bits.  Each lin output's terms in input order then
+// the bias, each nonzero's term, the gate and the head are the instances'
+// expressions; where an output's nonzeros span two segments their sums
+// are added in another order than the instances' (within 1e-5 of them),
+// else the result is the instance's bit for bit.
+constexpr int kRtMaxWarps = 32;
+constexpr int kRtBatch = 8;      // entries whose loads go first
+
+// The segment plan of the two network blocks (emlp_actor.py: rt_plan):
+// offsets into the plan ints (each a multiple of 4) of, per block, cseg
+// (ng + 1: each output's first slot), wptr (warps + 1: each warp's first
+// list position, over the cluster's C NW warps), wlist (each warp's slots
+// in order), seg (2 a slot: its entries [e0, e1) in the ent section) and
+// owner (each slot's block in the cluster).
+struct RtPlan {
+  int cseg[2], wptr[2], wlist[2], seg[2], owner[2];
+};
+
 __device__ __forceinline__ void linear_any(const float* xt, int ni, int ng,
                                            const float* Wt, const float* b,
                                            float* ls, int warp, int lane,
@@ -369,35 +409,80 @@ __device__ __forceinline__ void linear_any(const float* xt, int ni, int ng,
   }
 }
 
-__device__ __forceinline__ void bilinear_any(const float* ls, float* ps,
-                                             const int* img, const Img& im,
-                                             int blk, int warp, int lane,
-                                             int mul) {
-  const int* wptr = img + im.m[kWptr + kBlock * blk];
-  const int* task = img + im.m[kTask + kBlock * blk];
-  const int* tptr = img + im.m[kTptr + kBlock * blk];
-  const int2* ent =
-      reinterpret_cast<const int2*>(img + im.m[kEnt + kBlock * blk]);
+// Warp vw's segments (of the cluster's C NW warps) of block blk's bilinear
+// form: each segment's q, its nonzeros v lin_j lin_i in order (the
+// instances' expression), to its slot sp[slot][row]; each batch of kRtBatch
+// entries issues its loads (the entries, then both factors) before its
+// sums.  MUL: the entries' coordinate scale (1: tile offsets), else mul.
+template <int MUL>
+__device__ __forceinline__ void bilinear_rt(const float* ls, float* sp,
+                                            const int2* ent, const int* pl,
+                                            const RtPlan& rp, int blk, int vw,
+                                            int lane, int mul) {
+  const int m = MUL ? MUL : mul;
+  const int* wptr = pl + rp.wptr[blk];
+  const int* wlist = pl + rp.wlist[blk];
+  const int* seg = pl + rp.seg[blk];
   const float* lr = ls + lane;
-  const int m1 = wptr[warp + 1];
-  for (int m = wptr[warp]; m < m1; ++m) {
-    const int o = task[m], e1 = tptr[m + 1];
+  const int w1 = wptr[vw + 1];
+  for (int w = wptr[vw]; w < w1; ++w) {
+    const int s = wlist[w];
+    int e = seg[2 * s];
+    const int e1 = seg[2 * s + 1];
     float q = 0.0f;
-#pragma unroll 4
-    for (int e = tptr[m]; e < e1; ++e) {
-      const int2 en = ent[e];
-      q = fmaf(__int_as_float(en.y) * lr[((unsigned)en.x >> 16) * mul],
-               lr[(en.x & 0xffff) * mul], q);
+    for (; e + kRtBatch <= e1; e += kRtBatch) {
+      int2 en[kRtBatch];
+      float a[kRtBatch], b[kRtBatch];
+#pragma unroll
+      for (int u = 0; u < kRtBatch; ++u) en[u] = ent[e + u];
+#pragma unroll
+      for (int u = 0; u < kRtBatch; ++u) {
+        a[u] = lr[((unsigned)en[u].x >> 16) * m];
+        b[u] = lr[(en[u].x & 0xffff) * m];
+      }
+#pragma unroll
+      for (int u = 0; u < kRtBatch; ++u)
+        q = fmaf(__int_as_float(en[u].y) * a[u], b[u], q);
     }
-    ps[o * kPitch + lane] = 0.1f * q + lr[o * kPitch];
+    for (; e < e1; ++e) {
+      const int2 en = ent[e];
+      q = fmaf(__int_as_float(en.y) * lr[((unsigned)en.x >> 16) * m],
+               lr[(en.x & 0xffff) * m], q);
+    }
+    sp[s * kPitch + lane] = q;
   }
 }
 
-__device__ __forceinline__ void gate_any(const float* ps, const int* g,
-                                         float* hs, int nh, int t, int nt) {
+// slot s at row r: this block's, or its owner's in the cluster (C > 1)
+__device__ __forceinline__ float rt_slot(const float* sp, const int* owner,
+                                         int s, int r, int C) {
+  return C == 1 ? sp[s * kPitch + r]
+                : cluster::load_peer(sp + s * kPitch + r, owner[s]);
+}
+
+// pre of coordinate c at row r: its slots in order, then 0.1 q + lin
+__device__ __forceinline__ float rt_pre(const float* ls, const float* sp,
+                                        const int* cseg, const int* owner,
+                                        int c, int r, int C) {
+  const int s0 = cseg[c], s1 = cseg[c + 1];
+  float q = 0.0f;
+  if (s0 < s1) {
+    q = rt_slot(sp, owner, s0, r, C);
+    for (int s = s0 + 1; s < s1; ++s) q += rt_slot(sp, owner, s, r, C);
+  }
+  return 0.1f * q + ls[c * kPitch + r];
+}
+
+// h = pre[:nh] * sigmoid(pre[gate]) for the tile, (coordinate, row) pairs
+__device__ __forceinline__ void gate_rt(const float* ls, const float* sp,
+                                        const int* cseg, const int* owner,
+                                        const int* g, float* hs, int nh,
+                                        int t, int nt, int C) {
   for (int q = t; q < nh * kTile; q += nt) {
     const int k = q >> 5, r = q & 31;
-    hs[k * kPitch + r] = ps[k * kPitch + r] / (1.0f + expf(-ps[g[k] + r]));
+    const float pk = rt_pre(ls, sp, cseg, owner, k, r, C);
+    const float pg = rt_pre(ls, sp, cseg, owner, g[k] / kPitch, r, C);
+    hs[k * kPitch + r] = pk / (1.0f + expf(-pg));
   }
 }
 
@@ -435,39 +520,66 @@ __device__ __forceinline__ void head_any(
   }
 }
 
-// floats of one tile's obs, lin, pre and h
-__host__ __device__ inline size_t tile_floats(int nin, int ng, int nh) {
-  return (size_t)(nin + 2 * ng + nh) * kPitch;
+// floats of one tile's obs, lin, h and two sets (a network block each) of
+// `slots` segment slots
+__host__ __device__ inline size_t tile_floats(int nin, int ng, int nh,
+                                              int slots) {
+  return (size_t)(nin + ng + nh + 2 * slots) * kPitch;
 }
 
-template <int HEAD_KIND>
-__global__ void __launch_bounds__(256)
+// STAGED: the image, the plan and the tile in shared memory (the pointers
+// known to be shared) and the entries holding tile offsets; else the image
+// may be in global memory, the plan and the tile too, and the entries may
+// hold coordinates (generic pointers, mul).  A cluster of C blocks shares
+// each tile: every block stages the image and the tile, computes the
+// linear layers, the gates and (rank 0) the head, and sums its warps'
+// segments (the plan's warps w C + rank, so that the longest segments,
+// dealt first, spread over the blocks); the gate reads
+// a slot from its owner through distributed shared memory after a cluster
+// barrier.  Each network block has its own slots, so a block rewrites a set
+// only after the next barrier, which its peers pass once they have read it.
+template <int HEAD_KIND, bool STAGED>
+__global__ void __launch_bounds__(kRtMaxWarps * 32)
 emlp_actor_any_kernel(const float* __restrict__ obs, int B, int nin, int ng,
                       int nh, int nact, const int* __restrict__ image,
                       Img im, int mul, int stage_image,
-                      float* __restrict__ scratch,
+                      const int* __restrict__ plan, int plan_words,
+                      RtPlan rp, int slots, float* __restrict__ scratch,
                       const float* __restrict__ noise, int ld_noise,
                       float* __restrict__ out, int ld_out,
                       float* __restrict__ logp, int ld_logp,
                       float max_action) {
   extern __shared__ __align__(16) int smem[];
-  const int nw = im.m[kWarps], nt = nw * 32;
+  const int t = threadIdx.x, nt = blockDim.x, lane = t & 31, warp = t >> 5;
+  const int nw = nt >> 5;
+  const int C = (int)cluster::size(), rank = (int)cluster::rank();
   const int words = im.m[kWords];
-  const int* img = stage_image ? smem : image;
+  const bool staged = STAGED || stage_image;
+  const bool local = STAGED || scratch == nullptr;   // plan and tile
+  const int* img = staged ? smem : image;
   const float* f = reinterpret_cast<const float*>(img);
-  float* xs = scratch != nullptr
-                  ? scratch + blockIdx.x * tile_floats(nin, ng, nh)
-                  : reinterpret_cast<float*>(smem + (stage_image ? words : 0));
+  int* spl = smem + (staged ? words : 0);
+  const int* pl = local ? spl : plan;
+  float* xs = local ? reinterpret_cast<float*>(spl + plan_words)
+                    : scratch + blockIdx.x * tile_floats(nin, ng, nh, slots);
   float* ls = xs + nin * kPitch;   // lin [o][row]
-  float* ps = ls + ng * kPitch;    // pre
-  float* hs = ps + ng * kPitch;    // h1, then h2
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  float* hs = ls + ng * kPitch;    // h1, then h2
+  float* sp0 = hs + nh * kPitch;   // the segments' q [slot][row], block 0
   const int n_tiles = (B + kTile - 1) / kTile;
-  if (stage_image) {
-    for (int q = t; q < words / 4; q += nt) cp16(smem + 4 * q, image + 4 * q);
-    cp_wait();
-  }
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  // the first network block's sections and the plan, then the rest: two
+  // groups of copies
+  const int split = im.m[kBlock + kWt];
+  if (staged)
+    for (int q = t; q < split / 4; q += nt) cp16(smem + 4 * q, image + 4 * q);
+  if (local)
+    for (int q = t; q < plan_words / 4; q += nt)
+      cp16(spl + 4 * q, plan + 4 * q);
+  __pipeline_commit();
+  if (staged)
+    for (int q = split / 4 + t; q < words / 4; q += nt)
+      cp16(smem + 4 * q, image + 4 * q);
+  __pipeline_commit();
+  for (int tile = blockIdx.x / C; tile < n_tiles; tile += gridDim.x / C) {
     const int r0 = tile * kTile, rows = min(kTile, B - r0);
     // every read of the last tile's xs and hs precedes this barrier
     __syncthreads();
@@ -475,69 +587,115 @@ emlp_actor_any_kernel(const float* __restrict__ obs, int B, int nin, int ng,
       const int r = q / nin;
       xs[(q - r * nin) * kPitch + r] = obs[(size_t)r0 * nin + q];
     }
+    __pipeline_wait_prior(1);
     __syncthreads();
-    linear_any<8>(xs, nin, ng, f + im.m[kWt], f + im.m[kB], ls, warp, lane,
-                  nw);
-    __syncthreads();
-    bilinear_any(ls, ps, img, im, 0, warp, lane, mul);
-    __syncthreads();
-    gate_any(ps, img + im.m[kGate], hs, nh, t, nt);
-    __syncthreads();
-    linear_any<8>(hs, nh, ng, f + im.m[kBlock + kWt], f + im.m[kBlock + kB],
-                  ls, warp, lane, nw);
-    __syncthreads();
-    bilinear_any(ls, ps, img, im, 1, warp, lane, mul);
-    __syncthreads();
-    gate_any(ps, img + im.m[kBlock + kGate], hs, nh, t, nt);
-    __syncthreads();
-    head_any<HEAD_KIND>(hs, f, im, nh, nact, r0, rows, warp, lane, nw, noise,
-                        ld_noise, out, ld_out, logp, ld_logp, max_action);
+    for (int blk = 0; blk < 2; ++blk) {
+      const int* m = im.m + kBlock * blk;
+      float* sp = sp0 + blk * slots * kPitch;
+      linear_any(blk == 0 ? xs : hs, blk == 0 ? nin : nh, ng, f + m[kWt],
+                 f + m[kB], ls, warp, lane, nw);
+      __syncthreads();
+      bilinear_rt<STAGED ? 1 : 0>(
+          ls, sp, reinterpret_cast<const int2*>(img + m[kEnt]), pl, rp, blk,
+          warp * C + rank, lane, mul);
+      // every slot of the cluster written and visible
+      if (C > 1) {
+        cluster::arrive();
+        cluster::wait();
+      } else {
+        __syncthreads();
+      }
+      gate_rt(ls, sp, pl + rp.cseg[blk], pl + rp.owner[blk], img + m[kGate],
+              hs, nh, t, nt, C);
+      // the second block's image sections (the first tile), the gate's h
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
+    if (rank == 0)
+      head_any<HEAD_KIND>(hs, f, im, nh, nact, r0, rows, warp, lane, nw,
+                          noise, ld_noise, out, ld_out, logp, ld_logp,
+                          max_action);
   }
+  // every peer's reads of this block's slots done before it exits
+  if (C > 1) {
+    cluster::arrive();
+    cluster::wait();
+  }
+}
+
+// Every launch goes through cudaLaunchKernelEx with a cluster shape (1 block
+// a tile included), so one kernel is never launched both with and without
+// a cluster dimension.
+template <int HEAD_KIND, bool STAGED>
+int launch_rt(const float* obs, int B, const int* image, const int* meta,
+              const float* noise, int ld_noise, float* out, int ld_out,
+              float* logp, int ld_logp, float max_action, int nin, int ng,
+              int nh, int nact, int mul, int stage_image, const int* plan,
+              int plan_words, const RtPlan& rp, int slots, int warps,
+              int csize, float* scratch, int scratch_blocks,
+              cudaStream_t stream) {
+  constexpr auto kernel = emlp_actor_any_kernel<HEAD_KIND, STAGED>;
+  const int nt = warps * 32;
+  const size_t smem =
+      (stage_image ? (size_t)meta[kWords] * 4 : 0) +
+      (scratch != nullptr
+           ? 0
+           : (tile_floats(nin, ng, nh, slots) + (size_t)plan_words) * 4);
+  const int n_tiles = (B + kTile - 1) / kTile;
+  int grid = n_tiles;
+  if (csize == 1) {
+    // as many blocks as fit the SMs at once, each looping over its tiles
+    cudaError_t e = cluster::allow<kernel>(1, smem);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
+                                                      smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1 || sm_count(dev) < 1)
+      return (int)cudaErrorInvalidConfiguration;
+    grid = per_sm * sm_count(dev);
+    if (scratch != nullptr && grid > scratch_blocks) grid = scratch_blocks;
+    if (grid > n_tiles) grid = n_tiles;
+  }
+  Img im;
+  memcpy(im.m, meta, sizeof im.m);
+  // csize > 1: a cluster of csize blocks a tile, one wave (the host asks for
+  // it only where the tiles' clusters fit the SMs at once)
+  return (int)cluster::launch<kernel>(
+      grid * csize, nt, csize, smem, stream, obs, B, nin, ng, nh, nact, image,
+      im, mul, stage_image, plan, plan_words, rp, slots, scratch, noise,
+      ld_noise, out, ld_out, logp, ld_logp, max_action);
 }
 
 template <int HEAD_KIND>
 int launch_any(const float* obs, int B, const int* image, const int* meta,
                const float* noise, int ld_noise, float* out, int ld_out,
                float* logp, int ld_logp, float max_action, int nin, int ng,
-               int nh, int nact, int mul, int stage_image, float* scratch,
-               int scratch_blocks, cudaStream_t stream) {
-  static size_t smem_set[kMaxDevices] = {0};
-  if ((meta[kWarps] != 4 && meta[kWarps] != 8) || meta[kWords] <= 0 ||
-      (meta[kWords] & 3) != 0 || (mul != 1 && mul != kPitch) ||
+               int nh, int nact, int mul, int stage_image, const int* plan,
+               int plan_words, const int* plan_meta, int slots, int warps,
+               int csize, float* scratch, int scratch_blocks,
+               cudaStream_t stream) {
+  if (meta[kWords] <= 0 || (meta[kWords] & 3) != 0 ||
+      (mul != 1 && mul != kPitch) || plan == nullptr || plan_words <= 0 ||
+      (plan_words & 3) != 0 || slots < 0 || warps < 1 ||
+      warps > kRtMaxWarps || csize < 1 || csize > 8 ||
+      (csize > 1 && scratch != nullptr) ||
       (scratch != nullptr && scratch_blocks < 1))
     return (int)cudaErrorInvalidValue;
-  auto kernel = emlp_actor_any_kernel<HEAD_KIND>;
-  const int nt = meta[kWarps] * 32;
-  const size_t smem =
-      (stage_image ? (size_t)meta[kWords] * 4 : 0) +
-      (scratch != nullptr ? 0 : tile_floats(nin, ng, nh) * 4);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > smem_set[dev]) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set[dev] = smem;
-  }
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1 || sm_count(dev) < 1)
-    return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = (B + kTile - 1) / kTile;
-  int grid = per_sm * sm_count(dev);
-  if (scratch != nullptr && grid > scratch_blocks) grid = scratch_blocks;
-  if (grid > n_tiles) grid = n_tiles;
-  Img im;
-  memcpy(im.m, meta, sizeof im.m);
-  kernel<<<grid, nt, smem, stream>>>(obs, B, nin, ng, nh, nact, image, im,
-                                     mul, stage_image, scratch, noise,
-                                     ld_noise, out, ld_out, logp, ld_logp,
-                                     max_action);
-  return (int)cudaGetLastError();
+  RtPlan rp;
+  memcpy(&rp, plan_meta, sizeof rp);
+  if (stage_image && scratch == nullptr && mul == 1)
+    return launch_rt<HEAD_KIND, true>(
+        obs, B, image, meta, noise, ld_noise, out, ld_out, logp, ld_logp,
+        max_action, nin, ng, nh, nact, mul, stage_image, plan, plan_words, rp,
+        slots, warps, csize, scratch, scratch_blocks, stream);
+  return launch_rt<HEAD_KIND, false>(
+      obs, B, image, meta, noise, ld_noise, out, ld_out, logp, ld_logp,
+      max_action, nin, ng, nh, nact, mul, stage_image, plan, plan_words, rp,
+      slots, warps, csize, scratch, scratch_blocks, stream);
 }
 
 // The built instances (nin, ng, nh, nact): the flagship MODUL actors
@@ -616,21 +774,31 @@ extern "C" int emlp_actor_launch(const void* obs, int B, const void* image,
 
 // Run-time widths (any dims): as emlp_actor_launch, plus mul (1: the image's
 // nonzeros hold tile offsets; 33: coordinates), stage_image (1: copy the
-// image to shared memory) and scratch (null: the tile in shared memory;
-// else scratch_blocks regions of (nin + 2 ng + nh) x 33 floats in global
-// memory, one a block).
+// image to shared memory), the segment plan (plan: its plan_words ints on
+// the device, staged with the tile; plan_meta: the 10 offsets of RtPlan,
+// host; slots: the larger block's segment count), warps a block, the
+// blocks a cluster shares a tile with (1-8; the plan dealt over their
+// warps; one wave of clusters), and scratch (null: the plan and the tile
+// in shared memory; else, with a cluster of 1, scratch_blocks regions of
+// (nin + ng + nh + 2 slots) x 33 floats in global memory, one a block, the
+// plan read where it is).
 extern "C" int emlp_actor_any_launch(const void* obs, int B,
                                      const void* image, const int* meta,
                                      const void* noise, int ld_noise,
                                      void* out, int ld_out, void* logp,
                                      int ld_logp, float max_action, int nin,
                                      int ng, int nh, int nact, int head,
-                                     int mul, int stage_image, void* scratch,
-                                     int scratch_blocks, void* stream) {
+                                     int mul, int stage_image,
+                                     const void* plan, int plan_words,
+                                     const int* plan_meta, int slots,
+                                     int warps, int cluster_size,
+                                     void* scratch, int scratch_blocks,
+                                     void* stream) {
   if (B <= 0 || nin <= 0 || ng <= 0 || nh <= 0 || nact <= 0)
     return (int)cudaErrorInvalidValue;
   const float* o = (const float*)obs;
   const int* img = (const int*)image;
+  const int* pl = (const int*)plan;
   const float* nz = (const float*)noise;
   float* y = (float*)out;
   float* lp = (float*)logp;
@@ -638,17 +806,20 @@ extern "C" int emlp_actor_any_launch(const void* obs, int B,
   cudaStream_t s = (cudaStream_t)stream;
   if (head == kTanh)
     return launch_any<kTanh>(o, B, img, meta, nullptr, 0, y, ld_out, nullptr,
-                             0, 1.0f, nin, ng, nh, nact, mul, stage_image, sc,
-                             scratch_blocks, s);
+                             0, 1.0f, nin, ng, nh, nact, mul, stage_image, pl,
+                             plan_words, plan_meta, slots, warps,
+                             cluster_size, sc, scratch_blocks, s);
   if (head == kGauss)
     return launch_any<kGauss>(o, B, img, meta, nz, ld_noise, y, ld_out,
                               nullptr, 0, 1.0f, nin, ng, nh, nact, mul,
-                              stage_image, sc, scratch_blocks, s);
+                              stage_image, pl, plan_words, plan_meta, slots,
+                              warps, cluster_size, sc, scratch_blocks, s);
   if (head == kPPO) {
     if (lp == nullptr) return (int)cudaErrorInvalidValue;
     return launch_any<kPPO>(o, B, img, meta, nz, ld_noise, y, ld_out, lp,
                             ld_logp, max_action, nin, ng, nh, nact, mul,
-                            stage_image, sc, scratch_blocks, s);
+                            stage_image, pl, plan_words, plan_meta, slots,
+                            warps, cluster_size, sc, scratch_blocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -201,8 +201,9 @@ cudaError_t launch_clip(float* p, const float* g, float* mu, float* nu,
                                                  s);
     return cudaGetLastError();
   }
-  return cluster::launch<adamw_clip_kernel<K, true>>(G * C, T, C, st, p, g,
-                                                    mu, nu, tgt, n, C, E, s);
+  return cluster::launch<adamw_clip_kernel<K, true>>(G * C, T, C, 0, st, p,
+                                                    g, mu, nu, tgt, n, C, E,
+                                                    s);
 }
 
 // The card's floor for one launch: an empty kernel.
@@ -250,6 +251,6 @@ extern "C" int empty_launch(int blocks, int threads, int cluster_size,
     empty_kernel<<<blocks, threads, 0, st>>>(0);
     return (int)cudaGetLastError();
   }
-  return (int)cluster::launch<empty_kernel>(blocks, threads, cluster_size, st,
-                                           0);
+  return (int)cluster::launch<empty_kernel>(blocks, threads, cluster_size, 0,
+                                           st, 0);
 }

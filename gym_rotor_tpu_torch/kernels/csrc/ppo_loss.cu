@@ -264,10 +264,11 @@ cudaError_t launch_as(const float* mean, const float* log_std,
   }
   if (backward)
     return cluster::launch<ppo_loss_bwd_kernel<A, VEC, true>>(
-        C, T, C, st, mean, log_std, act, lp_old, adv, coef, g, B, R, lo, hi,
-        g_mean, out);
+        C, T, C, 0, st, mean, log_std, act, lp_old, adv, coef, g, B, R, lo,
+        hi, g_mean, out);
   return cluster::launch<ppo_loss_fwd_kernel<A, VEC, true>>(
-      C, T, C, st, mean, log_std, act, lp_old, adv, coef, B, R, lo, hi, out);
+      C, T, C, 0, st, mean, log_std, act, lp_old, adv, coef, B, R, lo, hi,
+      out);
 }
 
 template <int A, bool VEC>

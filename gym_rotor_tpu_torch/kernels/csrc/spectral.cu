@@ -44,8 +44,11 @@
 // Instances by the padded shape: <= 32 x 32 (the actors' stacks, 64
 // threads iterating), <= 128 x 64 (the critics', 128 threads, one lane a
 // row), <= 128 x 128 (512).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "cluster.cuh"
 
 namespace {
 
@@ -223,75 +226,176 @@ spectral_kernel(const float* __restrict__ W, const float* __restrict__ x0,
 
 // Run-time widths: stacks past the instances' 128 x 128 (the critics from
 // critic_hidden_dim ~ 64 up, whose matrices outgrow a block's shared
-// memory at ~ 256 x 220) run spectral_any_kernel: one block per matrix
-// and the instances' iteration (the iterate scaled by 1 / |x| each step,
-// the last divided by its norm), W read from global memory (L2) on each
-// of the 2 iters matvecs, only x, y and the row pass's partial sums in
-// shared memory:
-//   row pass, y = W x: a warp a row, lane l the columns l, l + 32, ...
-//     (coalesced), each lane's sum to shared memory, then a thread a row
-//     adds its 32 lanes' sums in lane order; the rows in chunks of `chunk`
-//     (what the partial sums' shared memory holds);
-//   column pass, x = W^T y / |x|: a thread a column, the rows in order;
-//   |x|^2 summed in order by every thread alike.
-// No exchange between threads but through shared memory, so a rerun
-// repeats its numbers.
-constexpr int kAnyThreads = 512;
-constexpr int kAnyWarps = kAnyThreads / 32;
-constexpr int kAnyPitch = 33;     // a row's 32 lane sums, padded
+// memory at ~ 256 x 220) run spectral_any_kernel: a thread-block cluster of
+// C blocks (16 or 8, the host's choice by what the card co-schedules:
+// spectral.py any_plan) per matrix, block `rank` owning the band of rows
+// [rank band, (rank + 1) band).  The iteration is the instances' (the
+// iterate scaled by 1 / |x| each step, the last divided by its norm).
+//   staging: each block copies its band of W into its shared memory once
+//     (cp.async, 16 bytes a copy where the rows allow), so W is read from
+//     device memory once a call; a band past what a block holds (past
+//     ~3.4 MB a matrix at C = 16) is read from global memory on each pass
+//     instead (STAGED false), the same sums in the same order;
+//   row pass, y = W_band x: a warp a row, four rows at once, lane l the
+//     columns l + 32 m with one accumulator per m % 4, then (a0 + a1) +
+//     (a2 + a3) and a butterfly over the lanes;
+//   column pass: thread j's partial of (W_band^T y_band)[j], the band's
+//     rows in order with one accumulator per row % 4, then (a0 + a1) + (a2 +
+//     a3), into slot it % 2 of the block's two partial slots;
+//   combine: after one cluster barrier, every block reads the C blocks'
+//     partials of its columns through distributed shared memory and adds
+//     them in rank order, times 1 / |x| (|x|^2 summed by every warp of
+//     every block alike, lane sums then a butterfly).  Every block then
+//     holds the same next x, bit for bit.  The double slot makes one
+//     cluster barrier an iteration enough: a block writes slot s again
+//     two iterations on, after the barrier that every peer reaches only
+//     once it has read slot s.
+// Every sum has one fixed order (by the band, not by the threads or the
+// timing), so a rerun repeats its numbers.  Bound on an H100: the bytes
+// of W once (3.1 MB at (6, 511, 256): ~0.9 us); what holds it is the chain
+// of 10 iterations, each two block barriers, one cluster barrier and the
+// partials' reads from the peers.
+constexpr int kAnyMaxThreads = 512;
 
-__global__ void __launch_bounds__(kAnyThreads)
+__host__ __device__ inline int any_pitch(int mi) { return (mi + 3) & ~3; }
+
+// dynamic shared memory of a launch: x, the two partial slots, y for the
+// band (rounded to 4), and the staged band at pitch any_pitch(mi)
+__host__ __device__ inline size_t any_smem(int mi, int band, bool staged) {
+  const size_t p = any_pitch(mi);
+  return (3 * p + ((band + 3) & ~3) + (staged ? (size_t)band * p : 0)) * 4;
+}
+
+// |x|^2 over x[0:n] in every lane of the warp: lane l's terms l + 32 m with
+// one accumulator per m % 4, (s0 + s1) + (s2 + s3), then the butterfly
+__device__ __forceinline__ float any_sq(const float* x, int n, int lane) {
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  int c = lane;
+  for (; c + 96 < n; c += 128) {
+    a0 = fmaf(x[c], x[c], a0);
+    a1 = fmaf(x[c + 32], x[c + 32], a1);
+    a2 = fmaf(x[c + 64], x[c + 64], a2);
+    a3 = fmaf(x[c + 96], x[c + 96], a3);
+  }
+  if (c < n) a0 = fmaf(x[c], x[c], a0);
+  if (c + 32 < n) a1 = fmaf(x[c + 32], x[c + 32], a1);
+  if (c + 64 < n) a2 = fmaf(x[c + 64], x[c + 64], a2);
+  float s[1] = {(a0 + a1) + (a2 + a3)};
+  cluster::warp_sums<1>(s);
+  return s[0];
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(kAnyMaxThreads)
 spectral_any_kernel(const float* __restrict__ W, const float* __restrict__ x0,
                     float* __restrict__ v, int mo, int mi, int iters,
-                    int chunk) {
-  extern __shared__ float sm[];
-  float* xs = sm;              // the iterate, two buffers of mi
-  float* ys = sm + 2 * mi;     // W x (mo)
-  float* part = ys + mo;       // a chunk's rows' lane sums, [row][lane]
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const size_t k = blockIdx.x;
-  const float* Wk = W + k * mo * mi;
-  for (int j = t; j < mi; j += kAnyThreads) xs[j] = x0[k * mi + j];
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    const float* xc = xs + (it & 1) * mi;
-    for (int c0 = 0; c0 < mo; c0 += chunk) {
-      const int c1 = min(mo, c0 + chunk);
-      for (int r = c0 + warp; r < c1; r += kAnyWarps) {
-        const float* w = Wk + (size_t)r * mi;
-        float a = 0.0f;
-#pragma unroll 4
-        for (int c = lane; c < mi; c += 32) a = fmaf(w[c], xc[c], a);
-        part[(r - c0) * kAnyPitch + lane] = a;
+                    int band) {
+  extern __shared__ __align__(16) float sm[];
+  const int C = (int)cluster::size(), rank = (int)cluster::rank();
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
+  const size_t k = blockIdx.x / C;
+  const int pitch = any_pitch(mi);
+  const int r0 = rank * band, nr = max(0, min(band, mo - r0));
+  float* xs = sm;                      // the iterate
+  float* part = xs + pitch;            // two slots of the band's partial
+  float* ys = part + 2 * pitch;        // y of the band's rows
+  float* wb = ys + ((band + 3) & ~3);  // the band, [row][pitch]
+  const float* Wk = W + k * (size_t)mo * mi + (size_t)r0 * mi;
+  for (int j = t; j < mi; j += nt) xs[j] = x0[k * mi + j];
+  if (STAGED) {
+    if ((mi & 3) == 0 && ((size_t)Wk & 15) == 0) {
+      for (int q = t; q < nr * mi / 4; q += nt)
+        __pipeline_memcpy_async(wb + 4 * q, Wk + 4 * q, 16);
+    } else {
+      for (int q = t; q < nr * mi; q += nt) {
+        const int r = q / mi;
+        __pipeline_memcpy_async(wb + r * pitch + (q - r * mi), Wk + q, 4);
       }
-      __syncthreads();
-      for (int r = c0 + t; r < c1; r += kAnyThreads) {
-        const float* p = part + (r - c0) * kAnyPitch;
-        float s = p[0];
-#pragma unroll
-        for (int l = 1; l < 32; ++l) s += p[l];
-        ys[r] = s;
-      }
-      __syncthreads();
     }
-    float sq = 0.0f;
-#pragma unroll 4
-    for (int c = 0; c < mi; ++c) sq = fmaf(xc[c], xc[c], sq);
-    const float inv = rsqrtf(sq);
-    float* xn = xs + ((it + 1) & 1) * mi;
-    for (int j = t; j < mi; j += kAnyThreads) {
-      float a = 0.0f;
-#pragma unroll 4
-      for (int r = 0; r < mo; ++r) a = fmaf(Wk[(size_t)r * mi + j], ys[r], a);
-      xn[j] = a * inv;
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  }
+  __syncthreads();
+  if (iters == 0) {
+    if (rank == 0)
+      for (int j = t; j < mi; j += nt) v[k * mi + j] = xs[j];
+    return;
+  }
+  const float* wr = STAGED ? wb : Wk;
+  const int ld = STAGED ? pitch : mi;
+  for (int it = 0; it < iters; ++it) {
+    float* slot = part + (it & 1) * pitch;
+    const float inv = rsqrtf(any_sq(xs, mi, lane));
+    // row pass: rows warp + nw (4 g + u), four at once
+    for (int q0 = warp; q0 < nr; q0 += 4 * nw) {
+      float y[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = q0 + u * nw;
+        const float* w = wr + (size_t)(q < nr ? q : q0) * ld;
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+        if (q < nr) {
+          int c = lane;
+          for (; c + 96 < mi; c += 128) {
+            a0 = fmaf(w[c], xs[c], a0);
+            a1 = fmaf(w[c + 32], xs[c + 32], a1);
+            a2 = fmaf(w[c + 64], xs[c + 64], a2);
+            a3 = fmaf(w[c + 96], xs[c + 96], a3);
+          }
+          if (c < mi) a0 = fmaf(w[c], xs[c], a0);
+          if (c + 32 < mi) a1 = fmaf(w[c + 32], xs[c + 32], a1);
+          if (c + 64 < mi) a2 = fmaf(w[c + 64], xs[c + 64], a2);
+        }
+        y[u] = (a0 + a1) + (a2 + a3);
+      }
+      cluster::warp_sums<4>(y);
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (q0 + u * nw < nr) ys[q0 + u * nw] = y[u];
+      }
+    }
+    __syncthreads();
+    // column pass: this block's partial of W^T y, into this iteration's slot
+    for (int j = t; j < mi; j += nt) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+      int q = 0;
+      for (; q + 3 < nr; q += 4) {
+        a0 = fmaf(wr[(size_t)q * ld + j], ys[q], a0);
+        a1 = fmaf(wr[(size_t)(q + 1) * ld + j], ys[q + 1], a1);
+        a2 = fmaf(wr[(size_t)(q + 2) * ld + j], ys[q + 2], a2);
+        a3 = fmaf(wr[(size_t)(q + 3) * ld + j], ys[q + 3], a3);
+      }
+      if (q < nr) a0 = fmaf(wr[(size_t)q * ld + j], ys[q], a0);
+      if (q + 1 < nr) a1 = fmaf(wr[(size_t)(q + 1) * ld + j], ys[q + 1], a1);
+      if (q + 2 < nr) a2 = fmaf(wr[(size_t)(q + 2) * ld + j], ys[q + 2], a2);
+      slot[j] = (a0 + a1) + (a2 + a3);
+    }
+    // every block's partial written and visible to the cluster
+    cluster::arrive();
+    cluster::wait();
+    // combine: the C partials of each column in rank order
+    for (int j = t; j < mi; j += nt) {
+      float p[cluster::kMaxSize];
+#pragma unroll
+      for (int r = 0; r < cluster::kMaxSize; ++r)
+        if (r < C) p[r] = cluster::load_peer(slot + j, r);
+      float s = p[0];
+#pragma unroll
+      for (int r = 1; r < cluster::kMaxSize; ++r)
+        if (r < C) s += p[r];
+      xs[j] = s * inv;
     }
     __syncthreads();
   }
-  const float* xf = xs + (iters & 1) * mi;
-  float sq = 0.0f;
-  for (int c = 0; c < mi; ++c) sq = fmaf(xf[c], xf[c], sq);
-  const float norm = sqrtf(sq);
-  for (int j = t; j < mi; j += kAnyThreads) v[k * mi + j] = xf[j] / norm;
+  // every peer's reads of this block's slots done before it exits
+  cluster::arrive();
+  cluster::wait();
+  if (rank == 0) {
+    const float norm = sqrtf(any_sq(xs, mi, lane));
+    for (int j = t; j < mi; j += nt) v[k * mi + j] = xs[j] / norm;
+  }
 }
 
 template <typename K>
@@ -359,18 +463,41 @@ extern "C" int spectral_launch(const void* W, const void* x0, void* v, int K,
   return (int)cudaErrorInvalidValue;
 }
 
-// Any (mo, mi): spectral_any_kernel, 2 mi + mo floats of shared memory and
-// the row pass's partial sums of `chunk` rows (spectral.py: any_geometry).
+// Any (mo, mi): spectral_any_kernel in clusters of `cluster` blocks, block
+// rank r the rows [r band, (r + 1) band), `threads` threads a block, the
+// band staged in shared memory or read from global memory
+// (spectral.py: any_plan).
 extern "C" int spectral_any_launch(const void* W, const void* x0, void* v,
                                    int K, int mo, int mi, int iters,
-                                   int chunk, void* stream) {
-  static size_t done[kMaxDevices] = {0};
-  if (K <= 0 || mo <= 0 || mi <= 0 || iters < 0 || chunk <= 0)
+                                   int cluster, int band, int threads,
+                                   int staged, void* stream) {
+  if (K <= 0 || mo <= 0 || mi <= 0 || iters < 0 || cluster < 1 ||
+      cluster > cluster::kMaxSize || band < 1 ||
+      (long long)band * cluster < mo || threads < 32 ||
+      threads > kAnyMaxThreads || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * mi + mo + chunk * kAnyPitch) * 4;
-  cudaError_t e = set_smem(spectral_any_kernel, smem, done);
-  if (e != cudaSuccess) return (int)e;
-  spectral_any_kernel<<<K, kAnyThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)W, (const float*)x0, (float*)v, mo, mi, iters, chunk);
-  return (int)cudaGetLastError();
+  const size_t smem = any_smem(mi, band, staged != 0);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (staged)
+    return (int)cluster::launch<spectral_any_kernel<true>>(
+        K * cluster, threads, cluster, smem, st, (const float*)W,
+        (const float*)x0, (float*)v, mo, mi, iters, band);
+  return (int)cluster::launch<spectral_any_kernel<false>>(
+      K * cluster, threads, cluster, smem, st, (const float*)W,
+      (const float*)x0, (float*)v, mo, mi, iters, band);
+}
+
+// The clusters of a launch's shape the card runs at once, or -(error).
+extern "C" int spectral_any_active(int mi, int cluster, int band,
+                                   int threads, int staged) {
+  const size_t smem = any_smem(mi, band, staged != 0);
+  return staged ? cluster::max_active<spectral_any_kernel<true>>(
+                      threads, cluster, smem)
+                : cluster::max_active<spectral_any_kernel<false>>(
+                      threads, cluster, smem);
+}
+
+// The kernel's shared memory (bytes) for a plan, as the launch sizes it.
+extern "C" long long spectral_any_smem(int mi, int band, int staged) {
+  return (long long)any_smem(mi, band, staged != 0);
 }

@@ -41,11 +41,15 @@ the kernel body.
 
 Actors of other dims (a config's ``actor_hidden_dim``) run
 ``emlp_actor_any_kernel`` (wrappers ``emlp_actor_any``, ``sac_actor_any``,
-``ppo_actor_any``): the same steps and arithmetic with the sizes as
-arguments, the image copied to shared memory where it fits and read from
-global memory where not, the tile's vectors in a global scratch where even
-they do not fit (``any_plan``), and past 1986 gated channels the image's
-nonzeros as coordinates (``ent_scale``).
+``ppo_actor_any``): the same steps with the sizes as arguments, 4-32 warps
+a 32-row tile (``rt_warps``), each bilinear form in index-fixed segments
+of at most ``RT_SEG`` nonzeros dealt to the warps (``rt_plan``), each
+output's segments added in order, at few rows a tile's segments spread
+over a cluster of ``RT_CLUSTER`` blocks; the image copied to
+shared memory where it fits and read from global memory where not, the
+tile's vectors in a global scratch where even they do not fit
+(``any_plan``), and past 1986 gated channels the image's nonzeros as
+coordinates (``ent_scale``).
 """
 from __future__ import annotations
 
@@ -101,7 +105,7 @@ def _lib():
         lib.emlp_actor_smem.restype = ctypes.c_longlong
         lib.emlp_actor_any_launch.argtypes = [P, I, P, P, P, I, P, I, P, I,
                                               F, I, I, I, I, I, I, I, P, I,
-                                              P]
+                                              P, I, I, I, P, I, P]
         lib.emlp_actor_any_launch.restype = I
         geo = [lib.emlp_actor_geometry(k) for k in range(3)]
         if geo != [TILE, PITCH, len(META)]:
@@ -202,7 +206,9 @@ def actor_smem(dims, layout) -> int:
 # Layouts forced on the run-time kernel for a check at widths that would
 # not pick them (``chip_smoke.py``'s phase 26): "plan" -> ``(stage_image,
 # tile_in_smem)`` over ``any_plan``'s, "ent_scale" -> 1 over
-# ``ent_scale``'s.  Empty in use.
+# ``ent_scale``'s, "seg" -> a segment length over ``RT_SEG`` (bump the
+# actor's version to refold), "cluster" -> the blocks sharing a tile (1 or
+# ``RT_CLUSTER``).  Empty in use.
 _FORCE: Dict[str, object] = {}
 
 
@@ -219,14 +225,109 @@ def ent_scale(ng: int) -> int:
     return PITCH if (ng - 1) * PITCH < 1 << 16 else 1
 
 
-def any_plan(dims, layout):
-    """Where the run-time kernel keeps the image and the tile's vectors:
-    ``(stage_image, tile_in_smem, dynamic shared memory bytes)``: both in
-    shared memory where they fit ``SMEM_LIMIT`` together, else the tile
-    alone (the image read from global memory), else neither (the tile in
-    a global scratch, a region a block)."""
+# The run-time kernel's segments: at most RT_SEG nonzeros each, a
+# segment's cost beyond its nonzeros in the warps' plan (its epilogue), in
+# nonzeros; warps a block at most; the blocks of a cluster that share a
+# tile where the tiles' clusters fit the SMs at once (few rows) and a
+# network block has at least RT_CLUSTER_NNZ nonzeros (below it the cluster
+# barriers cost more than the split saves: at 585 nonzeros one block a tile
+# took 7.9 us and a cluster 8.6 on an H100, scripts/rt_actor_phase_probe.py)
+RT_SEG, RT_SEG_COST = 256, 2
+RT_MAX_WARPS = 32
+RT_CLUSTER, RT_CLUSTER_NNZ = 8, 1024
+RT_META = ("cseg", "wptr", "wlist", "seg", "owner")
+
+
+def rt_warps(segments: int) -> int:
+    """Warps a block of the run-time kernel for a block's ``segments``:
+    one a segment, in powers of two from 4, at most ``RT_MAX_WARPS``."""
+    w = 4
+    while w < RT_MAX_WARPS and w < segments:
+        w *= 2
+    return w
+
+
+def rt_segments(task, tptr):
+    """One block's segments in output order: output ``o``'s nonzeros (the
+    fold's repacked ``tptr[m]:tptr[m + 1]`` of its task ``m``) cut at
+    every ``RT_SEG``-th; ``(seg, cseg)``: each segment's ``(e0, e1)`` and
+    each output's first segment (``ng + 1``)."""
+    ng = len(task)
+    pos = np.empty(ng, np.int64)
+    pos[np.asarray(task, np.int64)] = np.arange(ng)
+    n = _FORCE.get("seg", RT_SEG)
+    seg, cseg = [], [0]
+    for o in range(ng):
+        a, z = int(tptr[pos[o]]), int(tptr[pos[o] + 1])
+        seg += [(e0, min(z, e0 + n)) for e0 in range(a, z, n)]
+        cseg.append(len(seg))
+    return seg, np.asarray(cseg, np.int64)
+
+
+def rt_deal(seg, warps: int):
+    """The warps' shares of the segments, ``(wptr, wlist)``: longest first
+    (ties: the lower segment) to the warp with the least work so far
+    (nonzeros plus ``RT_SEG_COST`` a segment; ties: the lower warp); warp
+    ``w`` sums ``wlist[wptr[w]:wptr[w + 1]]``, its own in order."""
+    load, mine = [0] * warps, [[] for _ in range(warps)]
+    for s in sorted(range(len(seg)), key=lambda s: (seg[s][0] - seg[s][1],
+                                                   s)):
+        w = min(range(warps), key=lambda w: (load[w], w))
+        mine[w].append(s)
+        load[w] += seg[s][1] - seg[s][0] + RT_SEG_COST
+    return (np.cumsum([0] + [len(m) for m in mine]),
+            np.asarray([s for m in mine for s in sorted(m)], np.int64))
+
+
+def rt_plan(plans, warps: int, cluster: int = 1):
+    """The run-time kernel's segment plan of a fold's two network blocks
+    (``plans``: each block's ``bilinear_plan``) for ``cluster`` blocks of
+    ``warps`` warps sharing a tile: ``(ints, meta, slots)``, the int32
+    words the kernel reads (per block ``cseg``, ``wptr`` and ``wlist``
+    over the cluster's ``cluster warps`` warps, warp ``v`` the block ``v %
+    cluster``'s warp ``v // cluster`` so that the longest segments spread
+    over the blocks, each segment's ``(e0, e1)`` and its ``owner`` block;
+    each array at a multiple of 4 words, a block whose arrays equal the
+    first's pointing at the first's), their offsets ``meta`` (``RT_META``
+    x block) and the larger block's segment count."""
+    ints, meta, slots, at, first = [], [[0, 0] for _ in RT_META], 0, 0, None
+    for b, (_, task, tptr, _) in enumerate(plans):
+        seg, cseg = rt_segments(task, tptr)
+        wptr, wlist = rt_deal(seg, cluster * warps)
+        owner = np.zeros(len(seg), np.int64)
+        for w in range(cluster * warps):
+            owner[wlist[wptr[w]:wptr[w + 1]]] = w % cluster
+        arrs = [np.asarray(x, np.int64).reshape(-1)
+                for x in (cseg, wptr, wlist, seg, owner)]
+        slots = max(slots, len(seg))
+        if first is not None and all(np.array_equal(x, y)
+                                     for x, y in zip(arrs, first[0])):
+            for k in range(len(RT_META)):
+                meta[k][b] = first[1][k]
+            continue
+        offs = []
+        for k, arr in enumerate(arrs):
+            meta[k][b] = at
+            offs.append(at)
+            pad = _round4(len(arr))
+            ints.append(np.concatenate([arr, np.zeros(pad - len(arr),
+                                                      np.int64)]))
+            at += pad
+        first = first or (arrs, offs)
+    return np.concatenate(ints), [m for pair in meta for m in pair], slots
+
+
+def any_plan(dims, layout, slots: int, plan_words: int):
+    """Where the run-time kernel keeps the image, its segment plan
+    (``plan_words`` ints) and the tile's vectors (obs, lin, h and
+    ``slots`` segment slots): ``(stage_image, tile_in_smem, dynamic
+    shared memory bytes)``: all in shared memory where they fit
+    ``SMEM_LIMIT`` together, else the plan and the tile (the image read
+    from global memory), else neither (the plan read from global memory,
+    the tile in a global scratch, a region a block)."""
     nin, ng, nh, _ = dims
-    tile, img = 4 * (nin + 2 * ng + nh) * PITCH, 4 * layout["words"]
+    tile = 4 * (nin + ng + nh + 2 * slots) * PITCH + 4 * plan_words
+    img = 4 * layout["words"]
     if img + tile <= SMEM_LIMIT:
         return True, True, img + tile
     if tile <= SMEM_LIMIT:
@@ -247,11 +348,14 @@ def _structure(actor, dims, head: int, device, dtype) -> Dict:
     once per (reps, head, device, dtype): each block's gate coordinates and
     ``bilinear_plan``, the image's layout, and the image with those int
     sections written and zeros where the parameters go (words of
-    ``dtype``'s width on ``device``), with the plans' ``perm`` there
-    too."""
+    ``dtype``'s width on ``device``), with the plans' ``perm`` there too;
+    and the run-time kernel's segment plans (``rt``: per cluster size 1
+    and ``RT_CLUSTER``, ``rt_plan``'s ints on ``device`` and its offsets;
+    ``slots``) for ``rt_warps`` warps a block."""
     blocks = [blk for _, blk in actor.named_blocks()]
     key = (tuple((hash(b.bilinear.rep), hash(b.rep_out)) for b in blocks),
-           dims, head, str(device), dtype, ent_scale(dims[1]))
+           dims, head, str(device), dtype, ent_scale(dims[1]),
+           _FORCE.get("seg", RT_SEG))
     hit = _STRUCTURE.get(key)
     if hit is not None:
         return hit
@@ -276,7 +380,15 @@ def _structure(actor, dims, head: int, device, dtype) -> Dict:
             base[at:at + len(arr)] = arr
         at = layout[f"ent{b}"]
         base[at:at + 2 * len(perm):2] = (j * sc) << 16 | (i * sc)
+    warps = rt_warps(max(len(rt_segments(task, tptr)[0])
+                         for _, task, tptr, _ in plans))
+    rt = {}
+    for c in (1, RT_CLUSTER):
+        rt_ints, rt_meta, slots = rt_plan(plans, warps, c)
+        rt[c] = (torch.as_tensor(rt_ints, device=device).to(torch.int32),
+                 (ctypes.c_int * len(rt_meta))(*rt_meta))
     hit = _STRUCTURE[key] = dict(
+        rt=rt, slots=slots, warps=warps,
         gates=[torch.as_tensor(g, device=device) for g in gates],
         plans=plans, nnz=tuple(nnz), layout=layout, mul=PITCH // sc,
         meta=(ctypes.c_int * len(META))(*[layout[n] for n in META]),
@@ -356,7 +468,8 @@ def fold_actor(actor) -> Dict:
                   blocks=[(W, b, sp, g) for (W, b, sp), g
                           in zip(blocks, st["gates"])],
                   head=(Wh, bh), nnz=st["nnz"], plans=st["plans"],
-                  layout=lay, meta=st["meta"], mul=st["mul"], image=image)
+                  layout=lay, meta=st["meta"], mul=st["mul"], image=image,
+                  rt=st["rt"], slots=st["slots"], warps=st["warps"])
     actor._folded = (actor.param_version, folded)
     fold_actor.folds += 1
     return folded
@@ -462,23 +575,39 @@ def _launch(actor, obs, out, noise, head: int, what: str, logp=None):
 _SMS: Dict[torch.device, int] = {}
 
 
+def plan_words(folded) -> int:
+    """The larger of a fold's segment plans' int32 words (what
+    ``any_plan`` keeps room for)."""
+    return max(t.numel() for t, _ in folded["rt"].values())
+
+
 def _launch_any(actor, obs, out, noise, head: int, what: str, logp=None):
     """One launch of the run-time-width kernel (``emlp_actor_any_kernel``)
-    with ``head``, any dims, in ``any_plan``'s layout.  Returns ``(out,
-    logp)``."""
+    with ``head``, any dims, in ``any_plan``'s layout with the fold's
+    segment plan and warps: a cluster of ``RT_CLUSTER`` blocks a tile
+    where the tile is in shared memory, the tiles' clusters fit the SMs at
+    once and a network block has ``RT_CLUSTER_NNZ`` nonzeros, else a block
+    a tile.  Returns ``(out, logp)``."""
     folded, out, logp = _operands(actor, obs, out, noise, head, what, logp)
     nin, ng, nh, nact = dims = folded["dims"]
-    stage_image, tile_smem, _ = any_plan(dims, folded["layout"])
+    slots = folded["slots"]
+    stage_image, tile_smem, _ = any_plan(dims, folded["layout"], slots,
+                                         plan_words(folded))
     stage_image, tile_smem = _FORCE.get("plan", (stage_image, tile_smem))
     dev, B = obs.device, obs.shape[0]
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    tiles = -(-B // TILE)
+    csize = RT_CLUSTER if (tile_smem and tiles * RT_CLUSTER <= _SMS[dev]
+                           and max(folded["nnz"]) >= RT_CLUSTER_NNZ) else 1
+    csize = _FORCE.get("cluster", csize)
     scratch, blocks = None, 0
     if not tile_smem:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        blocks = min(-(-B // TILE), 2 * _SMS[dev])
-        scratch = torch.empty(blocks * (nin + 2 * ng + nh) * PITCH,
+        blocks = min(tiles, 2 * _SMS[dev])
+        scratch = torch.empty(blocks * (nin + ng + nh + 2 * slots) * PITCH,
                               dtype=torch.float32, device=dev)
+    plan, meta = folded["rt"][csize]
     lib = _lib()
     err = lib.emlp_actor_any_launch(
         obs.data_ptr(), B, folded["image"].data_ptr(), folded["meta"],
@@ -487,7 +616,8 @@ def _launch_any(actor, obs, out, noise, head: int, what: str, logp=None):
         out.stride(0), None if logp is None else logp.data_ptr(),
         0 if logp is None else logp.stride(0),
         getattr(actor, "max_action", 1.0), nin, ng, nh, nact, head,
-        folded["mul"], int(stage_image),
+        folded["mul"], int(stage_image), plan.data_ptr(), plan.numel(), meta,
+        slots, folded["warps"], csize,
         None if scratch is None else scratch.data_ptr(), blocks,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, lib, what)

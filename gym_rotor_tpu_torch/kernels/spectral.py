@@ -19,13 +19,16 @@ lanes' shares go to shared memory, and a column pass for ``x = Wᵀ y /
 sum in a fixed order; the instance is chosen by the padded shape
 (``INSTANCES``).  ``csrc/spectral.cu`` has the details.  Stacks past the
 instances' 128 x 128 (critics from ``critic_hidden_dim`` ~64 up) run the
-run-time-width kernel (``spectral_iterate_any``): W read from global
-memory (L2) on each matvec, a warp a row (the lanes' sums added in lane
-order) and a thread a column.
+run-time-width kernel (``spectral_iterate_any``): a thread-block cluster
+per matrix, each block a band of its rows staged in shared memory once,
+each iteration a row pass and a column pass over the band, the blocks'
+partials of ``Wᵀ y`` added in rank order through distributed shared
+memory (``any_plan`` picks the cluster size and the band).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -68,8 +71,13 @@ def _lib():
         lib.spectral_launch.restype = I
         lib.spectral_geometry.argtypes = [I, I, P]
         lib.spectral_geometry.restype = ctypes.c_longlong
-        lib.spectral_any_launch.argtypes = [P, P, P, I, I, I, I, I, P]
+        lib.spectral_any_launch.argtypes = [P, P, P, I, I, I, I, I, I, I,
+                                            I, P]
         lib.spectral_any_launch.restype = I
+        lib.spectral_any_active.argtypes = [I, I, I, I, I]
+        lib.spectral_any_active.restype = I
+        lib.spectral_any_smem.argtypes = [I, I, I]
+        lib.spectral_any_smem.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -85,18 +93,88 @@ def spectral_iterate_plain(Ws: torch.Tensor, x: torch.Tensor,
     return x
 
 
-# the run-time kernel's partial sums: a row's 32 lanes at this pitch
-ANY_PITCH = 33
+# The run-time kernel's cluster sizes, largest first (16 is Hopper's
+# largest, past the portable 8), and its threads a block by width
+CLUSTER_SIZES = (16, 8)
+ANY_THREADS_NARROW, ANY_THREADS_WIDE = 256, 512
 
 
-def any_geometry(mo: int, mi: int):
-    """``(chunk, shared memory bytes)`` of a run-time-width launch
-    (``spectral_any_launch``): two buffers of x, y, and the row pass's
-    lane sums of ``chunk`` rows, as many rows as fit beside them (all
-    ``mo`` where they fit)."""
-    fixed = 4 * (2 * mi + mo)
-    chunk = max(1, min(mo, (SMEM_LIMIT - fixed) // (4 * ANY_PITCH)))
-    return chunk, fixed + 4 * ANY_PITCH * chunk
+class AnyPlan(NamedTuple):
+    """A run-time launch: ``cluster`` blocks a matrix, block ``rank`` the
+    rows ``[rank band, (rank + 1) band)``, ``threads`` a block, the band in
+    shared memory (``staged``) or read from global memory, ``smem`` bytes
+    of dynamic shared memory a block."""
+    cluster: int
+    band: int
+    staged: bool
+    threads: int
+    smem: int
+
+
+def any_smem(mi: int, band: int, staged: bool) -> int:
+    """Shared memory of a run-time block (``csrc/spectral.cu``
+    ``any_smem``): x, two partial slots, y of the band (rounded to 4) and,
+    staged, the band at a pitch of ``mi`` rounded to 4."""
+    p = (mi + 3) & ~3
+    return 4 * (3 * p + ((band + 3) & ~3) + (band * p if staged else 0))
+
+
+# A layout forced on the run-time kernel for a check at widths that would
+# not pick it (``chip_smoke.py``'s phase 26): "staged" -> bool, "cluster"
+# -> a size of CLUSTER_SIZES.  Empty in use.
+_FORCE: Dict[str, object] = {}
+
+
+def any_plan(K: int, mo: int, mi: int,
+             active: Optional[Callable[[AnyPlan], int]] = None) -> AnyPlan:
+    """The run-time launch of a ``(K, mo, mi)`` stack.  Per cluster size
+    (16, then 8) the band ``ceil(mo / size)``, staged where it fits
+    ``SMEM_LIMIT`` beside the vectors, else read from global memory;
+    ``active(plan)`` is how many such clusters the card runs at once (None:
+    as many as asked).  First choice: a staged plan whose K clusters run
+    at once, the larger cluster first; then a staged one; then any whose
+    clusters run at once; then the largest.  Raises where even the vectors
+    do not fit a block (``mi`` past ~19 000)."""
+    threads = ANY_THREADS_NARROW if mi <= 256 else ANY_THREADS_WIDE
+    sizes = [_FORCE["cluster"]] if "cluster" in _FORCE else CLUSTER_SIZES
+    plans = []
+    for C in sizes:
+        band = -(-mo // C)
+        for staged in (True, False):
+            if "staged" in _FORCE and staged != _FORCE["staged"]:
+                continue
+            smem = any_smem(mi, band, staged)
+            if smem <= SMEM_LIMIT:
+                plans.append(AnyPlan(C, band, staged, threads, smem))
+                break
+    if not plans:
+        raise ValueError(f"spectral_iterate_any: a ({mo}, {mi}) matrix's "
+                         "vectors exceed a block's shared memory")
+    together = [p for p in plans if active is None or active(p) >= K]
+    for pool in ([p for p in together if p.staged],
+                 [p for p in plans if p.staged], together, plans):
+        if pool:
+            return pool[0]
+
+
+_ACTIVE: Dict[tuple, int] = {}
+
+
+def _active(dev: torch.device, mi: int):
+    """``any_plan``'s ``active`` on ``dev`` for ``mi`` columns: the
+    library's ``cudaOccupancyMaxActiveClusters`` for a plan's shape,
+    cached; a query the card refuses raises."""
+    def active(p: AnyPlan) -> int:
+        key = (str(dev), p.cluster, p.smem, p.threads, p.staged)
+        if key not in _ACTIVE:
+            lib = _lib()
+            n = lib.spectral_any_active(mi, p.cluster, p.band, p.threads,
+                                        int(p.staged))
+            if n < 0:
+                check(-n, lib, "spectral_iterate_any: occupancy")
+            _ACTIVE[key] = n
+        return _ACTIVE[key]
+    return active
 
 
 def _checked(Ws, x, what):
@@ -139,17 +217,19 @@ spectral_iterate.launches = 0
 def spectral_iterate_any(Ws: torch.Tensor, x: torch.Tensor,
                          iters: int = ITERS) -> torch.Tensor:
     """``spectral_iterate`` through the run-time-width kernel (any (mo,
-    mi); called directly, any stack).  CPU tensors ->
-    ``spectral_iterate_plain``."""
+    mi); called directly, any stack): one launch of ``any_plan``'s
+    clusters.  CPU tensors -> ``spectral_iterate_plain``."""
     Ws, x = Ws.detach(), x.detach()
     if not Ws.is_cuda:
         return spectral_iterate_plain(Ws, x, iters)
     K, mo, mi, v = _checked(Ws, x, "spectral_iterate_any")
     lib = _lib()
-    err = lib.spectral_any_launch(
-        Ws.data_ptr(), x.data_ptr(), v.data_ptr(), K, mo, mi, iters,
-        any_geometry(mo, mi)[0],
-        torch.cuda.current_stream(Ws.device).cuda_stream)
+    with torch.cuda.device(Ws.device):
+        p = any_plan(K, mo, mi, _active(Ws.device, mi))
+        err = lib.spectral_any_launch(
+            Ws.data_ptr(), x.data_ptr(), v.data_ptr(), K, mo, mi, iters,
+            p.cluster, p.band, p.threads, int(p.staged),
+            torch.cuda.current_stream(Ws.device).cuda_stream)
     check(err, lib, "spectral_iterate_any")
     spectral_iterate_any.launches += 1
     return v

@@ -10,7 +10,9 @@
 #     step_ms; the first call also builds the plans).
 # One log a run under OUT_DIR (run_1.log .. run_4.log).
 #
-#   bash scripts/rt_paths_vs_parent.sh PARENT_DIR OUT_DIR
+#   bash scripts/rt_paths_vs_parent.sh PARENT_DIR OUT_DIR [ppo]
+#
+# With a third argument `ppo`, only the PPO B path runs.
 #
 # PARENT_DIR is a checkout of the earlier commit (git archive into a
 # git-ignored directory of the repo) holding its gym_rotor_tpu_torch and
@@ -20,6 +22,7 @@ parent=$(cd "$1" && pwd)
 mkdir -p "$2"
 out=$(cd "$2" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
+general=$([ "${3:-}" = ppo ] && echo False || echo True)
 i=0
 for tree in "$parent" "$here" "$here" "$parent"; do
   i=$((i + 1))
@@ -33,7 +36,7 @@ cs.width_projectors(dev)
 cs.phase_train_ppo(dev, 'B_widths', dict(PPO_CONFIGS['B'], **cs.SLICE_WIDTH),
                    cs.WIDTH_PPO_STEPS, widths=True)
 gen = torch.Generator(device=dev).manual_seed(cs.SEED + 28)
-for name, (G, net) in cs.general_models(dev).items():
+for name, (G, net) in (cs.general_models(dev).items() if $general else ()):
     for _ in range(2):
         cs.general_network(dev, name, G, net, gen)
 ") > "$out/run_$i.log" 2>&1

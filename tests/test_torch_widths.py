@@ -580,8 +580,10 @@ def test_actor_plans_and_images_at_phase_widths():
                                           idx["j"].numpy()[perm] * sc)
             np.testing.assert_array_equal(ent[0::2] & 0xFFFF,
                                           idx["i"].numpy()[perm] * sc)
-        stage_image, tile_smem, smem = KA.any_plan(dims, f["layout"])
-        tile = 4 * (nin + 2 * ng + nh) * KA.PITCH
+        stage_image, tile_smem, smem = KA.any_plan(
+            dims, f["layout"], f["slots"], KA.plan_words(f))
+        tile = 4 * (nin + ng + nh + 2 * f["slots"]) * KA.PITCH \
+            + 4 * KA.plan_words(f)
         assert smem <= KA.SMEM_LIMIT and tile_smem == (tile <= KA.SMEM_LIMIT)
         assert smem == (4 * f["layout"]["words"] if stage_image else 0) + \
             (tile if tile_smem else 0)
@@ -646,8 +648,9 @@ def test_actor_coordinate_encoding_past_16_bits():
 def test_spectral_geometry_at_phase_widths():
     """Every stack the learners hand K7 at the phase widths, and critic
     512's: those past the instances' 128 x 128 take the run-time kernel,
-    whose shared memory (x twice, y and every row's 32 lane sums) fits a
-    block at these widths; wider stacks sum their rows in chunks."""
+    whose plan (16-block clusters where the card runs them all at once)
+    gives each block a band of rows, every row in exactly one band, and
+    stages the band beside the vectors within a block's shared memory."""
     stacks = set()
     for ah, ch in PHASE_WIDTHS + ((WIDE_ACTOR, WIDE_CRITIC),):
         cfg = TConfig(actor_hidden_dim=ah, critic_hidden_dim=ch)
@@ -664,18 +667,27 @@ def test_spectral_geometry_at_phase_widths():
     for K, mo, mi in stacks:
         geo = KS.instance(mo, mi)
         assert (geo is None) == (mo > 128 or mi > 128)
-        chunk, smem = KS.any_geometry(mo, mi)
-        assert chunk == mo and smem == 4 * (2 * mi + mo + 33 * mo)
-        assert smem <= KS.SMEM_LIMIT
+        p = KS.any_plan(K, mo, mi)
+        owner = np.concatenate([np.full(max(0, min(mo, (r + 1) * p.band)
+                                                - r * p.band), r)
+                                for r in range(p.cluster)])
+        assert len(owner) == mo and np.all(np.diff(owner) >= 0)
+        assert (p.cluster, p.staged) == (16, True)
+        assert p.smem == 4 * (3 * (mi + 3 & ~3) + (p.band + 3 & ~3)
+                              + p.band * (mi + 3 & ~3))
+        assert p.smem <= KS.SMEM_LIMIT
 
 
 def test_spectral_chunks_past_the_shared_memory():
-    """Past what a block holds, the run-time K7 sums its rows' lane sums in
-    chunks that fit (at least one row), everything within the limit."""
+    """Past what a block holds, the run-time K7 reads its band from global
+    memory (only x, the partial slots and y staged), everything within the
+    limit; a band that fits is staged."""
     for mo, mi in ((1023, 512), (1700, 512), (4095, 2048), (20000, 4000)):
-        chunk, smem = KS.any_geometry(mo, mi)
-        assert 1 <= chunk <= mo and smem <= KS.SMEM_LIMIT
-        assert (chunk == mo) == (4 * (2 * mi + mo + 33 * mo) <= KS.SMEM_LIMIT)
+        p = KS.any_plan(6, mo, mi)
+        assert 1 <= p.band and p.band * p.cluster >= mo
+        assert p.smem <= KS.SMEM_LIMIT
+        assert p.staged == (KS.any_smem(mi, p.band, True) <= KS.SMEM_LIMIT)
+        assert p.staged == (mo <= 1700)
 
 
 @pytest.mark.parametrize("hidden", (16, 64, 256, 900, 3632, 3633))
